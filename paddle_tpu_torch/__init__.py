@@ -1,0 +1,17 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu``.
+
+Counterpart: ``paddle_tpu/__init__.py``. The port mirrors the JAX
+package's paths and names module by module; each module's docstring
+names its counterpart. It imports ``torch`` and never ``jax`` or
+``paddle_tpu`` (tests/test_torch_isolation.py holds that). Every TPU
+(Pallas) kernel on a ported path is a hand-written Hopper kernel under
+``kernels/csrc/``, built at first use; its plain PyTorch version runs
+only for tensors on the CPU.
+
+Ported so far: GPT serving through the paged-KV engine (see ROADMAP.md
+for what is still to come).
+"""
+from ._device import resolve_device
+from .core.flags import get_flag, set_flags
+
+__all__ = ["get_flag", "resolve_device", "set_flags"]

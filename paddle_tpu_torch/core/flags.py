@@ -1,0 +1,81 @@
+"""Runtime flag registry.
+
+Counterpart: ``paddle_tpu/core/flags.py``. Same contract: every flag is
+settable programmatically (``set_flags``, with or without the
+``FLAGS_`` prefix) or via an environment variable ``FLAGS_<name>`` read
+at first access. Only the flags the ported serving path reads are
+registered, with the reference's names and defaults.
+"""
+from __future__ import annotations
+
+import os
+import threading
+from typing import Any, Dict
+
+_lock = threading.Lock()
+_registry: Dict[str, "_Flag"] = {}
+
+
+class _Flag:
+    __slots__ = ("name", "value", "type", "help", "env_read")
+
+    def __init__(self, name, default, typ, help_):
+        self.name = name
+        self.value = default
+        self.type = typ
+        self.help = help_
+        self.env_read = False
+
+
+def _coerce(typ, raw):
+    if typ is bool:
+        if isinstance(raw, str):
+            return raw.strip().lower() in ("1", "true", "yes", "on")
+        return bool(raw)
+    return typ(raw)
+
+
+def define_flag(name: str, default: Any, help: str = ""):
+    with _lock:
+        if name not in _registry:
+            _registry[name] = _Flag(name, default, type(default), help)
+    return _registry[name]
+
+
+def get_flag(name: str):
+    name = name[6:] if name.startswith("FLAGS_") else name
+    f = _registry.get(name)
+    if f is None:
+        raise KeyError(f"flag {name!r} is not registered")
+    if not f.env_read:
+        env = os.environ.get(f"FLAGS_{name}")
+        if env is not None:
+            f.value = _coerce(f.type, env)
+        f.env_read = True
+    return f.value
+
+
+def set_flags(flags: Dict[str, Any]):
+    for name, value in flags.items():
+        name = name[6:] if name.startswith("FLAGS_") else name
+        f = _registry.get(name)
+        if f is None:
+            raise KeyError(f"flag {name!r} is not registered")
+        f.value = _coerce(f.type, value)
+        f.env_read = True
+
+
+define_flag("serving_decode_kernel", False,
+            "B=1 GPT serving decode runs attention over the paged cache "
+            "and the output projection as one hand-written CUDA kernel per "
+            "layer (kernels/mlp_fusion.py decode_attn_proj). B>1 decode "
+            "steps keep the composite path with a once-per-process "
+            "warning. CPU tensors take the kernel's plain PyTorch version")
+define_flag("serving_device_loop", True,
+            "serving decode samples on the device and (with "
+            "ServingEngine(device_loop_k=k)) runs k decode steps per "
+            "window with ONE host read of the [B, k] token matrix "
+            "(inference/device_loop.py). Sampled lanes draw from "
+            "counter-derived threefry keys (fold_in(PRNGKey(seed), "
+            "token_count)), bitwise the reference's streams. Off: host "
+            "numpy sampling, one step per dispatch")

@@ -1,0 +1,93 @@
+"""Build the port's CUDA kernels at first use.
+
+Counterpart: none in ``paddle_tpu`` (Pallas kernels compile through
+XLA). Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface under
+``build/paddle_tpu_torch/`` at the repository root, and loaded with
+``ctypes``. Only sources in the repository are built. The library name
+carries a digest of the source and flags, so an edited source is
+rebuilt. A missing ``nvcc`` or a failed build raises; nothing falls
+back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+build_log: Dict[str, str] = {}   # source name → nvcc's output (ptxas -v)
+
+
+def sources() -> List[str]:
+    return sorted(p.name for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    """nvcc from PATH, else $CUDA_HOME/bin, else /usr/local/cuda/bin."""
+    found = shutil.which("nvcc")
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if found is None and home and os.path.exists(f"{home}/bin/nvcc"):
+            found = f"{home}/bin/nvcc"
+    if found is None:
+        raise RuntimeError(
+            "paddle_tpu_torch: nvcc not found (PATH, $CUDA_HOME/bin or "
+            "/usr/local/cuda/bin); the CUDA kernels are built from "
+            "kernels/csrc at first use")
+    return found
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / name).read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{Path(name).stem}-{digest}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source not yet built, one ``nvcc`` per source, all
+    started together. Returns source name → library path."""
+    targets = {name: _target(name) for name in sources()}
+    todo = {n: t for n, t in targets.items() if not t.exists()}
+    if todo:
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name, target in todo.items():
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / name)]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp)
+        failed = []
+        for name, (proc, tmp) in procs.items():
+            out, _ = proc.communicate()
+            build_log[name] = out
+            if proc.returncode != 0:
+                failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, todo[name])
+        if failed:
+            raise RuntimeError("paddle_tpu_torch: kernel build failed: "
+                               + "\n".join(failed))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all()[name]))
+            _libs[name] = lib
+        return lib
