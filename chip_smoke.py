@@ -25,6 +25,25 @@ Phases, one line each; any failure raises and exits non-zero:
    sampled mixed;
 7. parity in fp32 at full width: one request, 16 greedy tokens, decode
    kernel on vs the composite PyTorch path: same tokens, close logits;
+8. the three flash-attention kernels (forward, dQ, dK/dV) against their
+   plain versions on the card: causal and not, S 2048 and 1000 (ragged),
+   B*NH 64 and 16, D=128, fp32 and bf16 (out, lse, dq, dk, dv), each
+   element within its row's scale; then their times at the slice's
+   shape (B=4, NH=16, S=2048, bf16, causal) beside the plain versions'
+   and the bound, the forward beside SDPA's forward, and the whole
+   backward (delta, dQ, dK/dV) beside SDPA's backward;
+9. train gpt3-1.3b (random weights from a seed, bf16, full width and
+   depth, FLAGS_fused_mlp off, remat save_small, bf16 AdamW moments, the
+   plain LM head) at B=4, S=2048 on one fixed batch: one warm-up step,
+   then 4 steps; finite, falling loss; each flash kernel launched 24
+   times per step; ms/step, tokens/s, model TFLOP/s, peak memory;
+10. torch.profiler over 2 more training steps: device busy time per
+   step, idle share, the flash kernels' share, the kernels that take
+   the time;
+11. one step under remat 'full': the flash forward runs 48 times;
+12. parity in fp32 at gpt3-1.3b width, 2 layers, B=1, S=2048: loss and
+   every gradient with the flash kernels vs _block_apply's dense
+   attention branch;
 then the kernels' JSON line and the final status line.
 """
 import json
@@ -364,12 +383,378 @@ def phase_parity_fp32(torch):
                 tolerance=1e-3)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+FLASH_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = {"flash_fwd": "paddle_tpu/kernels/flash_attention.py:167",
+                  "flash_dq": "paddle_tpu/kernels/flash_attention.py:329",
+                  "flash_dkv": "paddle_tpu/kernels/flash_attention.py:420"}
+# Each element is held to |kernel - plain| <= tol * (rms + |plain|), with
+# rms that of the element's row of plain (the last axis: D for out, dq,
+# dk, dv; S for lse), so late causal rows, whose values are small, are
+# held at their own scale. f32 sums in another order; bf16 I/O rounds p
+# and ds to 8 bits at other points (the kernel's online softmax scales p
+# by the running max, the plain version by the row's final max). Worst
+# readings at these seeds on an H100: 7.0e-6 (f32), 0.0103 (bf16); a
+# forward that drops one tile reads over 1.6 (flash_check_rejects).
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2 ** -5}
+FLASH_D = 128
+FLASH_CASES = [(causal, s, bh) for causal in (True, False)
+               for s in (2048, 1000) for bh in (64, 16)]
+TRAIN_B, TRAIN_S, TRAIN_NH = 4, 2048, 16     # the slice's attention shape
+
+
+def flash_inputs(torch, bh, s, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(bh, s, FLASH_D, generator=g, device="cuda").to(dtype)
+            for _ in range(4)]                           # q, k, v, dout
+
+
+def flash_bounds(bh, s, causal):
+    """bound_ms and what bounds it for each kernel at [bh, s, 128] bf16:
+    the products each kernel's function needs over the visible (q, k)
+    pairs (fwd: s and p.v; dQ: s, dp, ds.k; dK/dV: s, dp, p^T.dO,
+    ds^T.q), each 2 flops per pair per head-dim element, at 989 TFLOP/s;
+    its inputs read once and outputs written once at 3.35 TB/s."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    prod = 2.0 * pairs * FLASH_D * bh
+    mat = bh * s * FLASH_D * 2                 # one bf16 [bh, s, d]
+    row = bh * s * 4                           # one f32 [bh, s]
+    work = {"flash_fwd": (2 * prod, 4 * mat + row),
+            "flash_dq": (3 * prod, 5 * mat + 2 * row),
+            "flash_dkv": (4 * prod, 6 * mat + 2 * row)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops = flops / H100_FLOPS["bfloat16"]
+        t_bytes = nbytes / H100_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def flash_reading(got, ref):
+    """max over elements of |got - ref| / (rms + |ref|), rms that of each
+    row (the last axis) of ref but no less than 1/16 of the whole
+    tensor's (a row whose terms cancel to ~0, as causal dQ's first row
+    does, is held at the tensor's scale): what FLASH_TOL bounds."""
+    g, r = got.float(), ref.float()
+    rms = r.square().mean(-1, keepdim=True).sqrt().clamp_min(
+        float(r.square().mean().sqrt()) / 16)
+    return float(((g - r).abs() / (rms + r.abs()).clamp_min(1e-30)).max())
+
+
+def phase_flash_vs_plain(torch):
+    """All three kernels against their plain versions on the card (out,
+    lse, dq, dk, dv), then their times at the slice's shape."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    scale = FLASH_D ** -0.5
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for causal, s, bh in FLASH_CASES:
+            q, k, v, do = flash_inputs(torch, bh, s, dtype, seed=s + bh)
+            out, lse = fa.flash_fwd(q, k, v, causal, scale)
+            dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, causal, scale)
+            rout, rlse = fa.flash_fwd_ref(q, k, v, causal, scale)
+            # the plain backward from the kernel's own (out, lse), so each
+            # kernel is held alone
+            rdq, rdk, rdv = fa.flash_bwd_ref(q, k, v, out, lse, do, causal,
+                                             scale)
+            torch.cuda.synchronize()
+            for key, got, ref in (("out", out, rout), ("lse", lse, rlse),
+                                  ("dq", dq, rdq), ("dk", dk, rdk),
+                                  ("dv", dv, rdv)):
+                check(bool(torch.isfinite(got).all()),
+                      f"flash {key} not finite ({name} s={s} bh={bh})")
+                err = float((got.float() - ref.float()).abs().max())
+                rel = flash_reading(got, ref)
+                check(rel <= FLASH_TOL[name],
+                      f"flash {key} disagrees with plain: {name} causal="
+                      f"{causal} s={s} bh={bh} max_abs_err={err} "
+                      f"relative {rel} > {FLASH_TOL[name]}")
+                kern = {"out": "flash_fwd", "lse": "flash_fwd",
+                        "dq": "flash_dq"}.get(key, "flash_dkv")
+                w = worst.setdefault(name, {}).setdefault(kern, [0.0, 0.0])
+                w[0], w[1] = max(w[0], err), max(w[1], rel)
+            del q, k, v, do, out, lse, dq, dk, dv, rout, rlse, rdq, rdk, rdv
+            torch.cuda.empty_cache()
+    times = flash_times(torch, fa, scale)
+    return dict(tolerance_relative_to_row_rms_plus_abs=FLASH_TOL,
+                worst={n: {k: dict(max_abs_err=e, relative=r)
+                           for k, (e, r) in w.items()}
+                       for n, w in worst.items()},
+                cases=len(FLASH_CASES) * 2,
+                wrong_kernel_readings=flash_check_rejects(torch, fa, scale),
+                **times)
+
+
+def flash_check_rejects(torch, fa, scale, tile=64):
+    """The bf16 check must reject a forward that skips a tile: the plain
+    forward with the diagonal tile dropped for the late half of the rows
+    (causal, S=2048), or with the ragged tail tile dropped (S=1000).
+    Returns each one's reading, and its max error over max |plain| (the
+    measure a whole-tensor check would see)."""
+    out = {}
+    for label, causal, s in (("diagonal", True, 2048), ("tail", False, 1000)):
+        q, k, v, _ = flash_inputs(torch, 16, s, torch.bfloat16, seed=s + 16)
+        ref, _ = fa.flash_fwd_ref(q, k, v, causal, scale)
+        i = torch.arange(s, device="cuda")
+        row, col = i[:, None], i[None, :]
+        if causal:
+            keep = (col <= row) & ~((row // tile == col // tile)
+                                    & (row >= s // 2))
+        else:
+            keep = (col < s // tile * tile).expand(s, s)
+        qs = (q.float() * scale).to(q.dtype).float()
+        sc = qs @ k.float().transpose(1, 2)
+        wrong = (torch.softmax(sc.masked_fill(~keep, -1e30), -1)
+                 @ v.float()).to(q.dtype)
+        reading = flash_reading(wrong, ref)
+        check(reading > FLASH_TOL["bfloat16"],
+              f"the bf16 flash check passes a forward with the {label} tile "
+              f"dropped: {reading} <= {FLASH_TOL['bfloat16']}")
+        out[label] = dict(reading=reading, relative_to_max=float(
+            (wrong.float() - ref.float()).abs().max()
+            / ref.float().abs().max()))
+        del q, k, v, ref, qs, sc, wrong
+    torch.cuda.empty_cache()
+    return out
+
+
+def in_turns(a, b, iters=20):
+    """CUDA-event ms of a and b timed in turns (a, b, b, a), the better
+    pass of each, and all four passes."""
+    t = {}
+    for key, fn in (("a", a), ("b", b), ("b_2", b), ("a_2", a)):
+        t[key] = cuda_ms(fn, [None], iters=iters)
+    return min(t["a"], t["a_2"]), min(t["b"], t["b_2"]), t
+
+
+def flash_times(torch, fa, scale):
+    """CUDA-event times at B=4, NH=16, S=2048, D=128, bf16, causal: each
+    kernel in turns with its plain version. The library yardsticks (never
+    called by the port): SDPA's forward for the forward kernel; no
+    library call computes dQ alone or dK/dV alone, so SDPA's backward
+    (dQ, dK and dV in one call, on a retained forward graph) is held
+    against the port's whole backward (delta, dQ, dK/dV) instead."""
+    bh, s = TRAIN_B * TRAIN_NH, TRAIN_S
+    q, k, v, do = flash_inputs(torch, bh, s, torch.bfloat16, seed=7)
+    out, lse = fa.flash_fwd(q, k, v, True, scale)
+    delta = fa._delta(out, do)
+    runs = {
+        "flash_fwd": (lambda _: fa._fwd_cuda(q, k, v, True, scale),
+                      lambda _: fa.flash_fwd_ref(q, k, v, True, scale)),
+        "flash_dq": (lambda _: fa._dq_cuda(q, k, v, do, lse, delta, True,
+                                           scale),
+                     lambda _: fa.flash_dq_ref(q, k, v, do, lse, delta, True,
+                                               scale)),
+        "flash_dkv": (lambda _: fa._dkv_cuda(q, k, v, do, lse, delta, True,
+                                             scale),
+                      lambda _: fa.flash_dkv_ref(q, k, v, do, lse, delta,
+                                                 True, scale)),
+    }
+    res = {}
+    for name, (kern, plain) in runs.items():
+        plain_ms, ms, t = in_turns(plain, kern)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, all_ms=t)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh, doh = (x.view(TRAIN_B, TRAIN_NH, s, FLASH_D)
+                       for x in (q, k, v, do))
+    res["flash_fwd"]["library_ms"], _, _ = in_turns(
+        lambda _: sdpa(qh, kh, vh, is_causal=True), runs["flash_fwd"][0])
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
+    og = sdpa(qg, kg, vg, is_causal=True)
+    sdpa_bwd_ms, bwd_ms, t = in_turns(
+        lambda _: torch.autograd.grad(og, (qg, kg, vg), doh,
+                                      retain_graph=True),
+        lambda _: fa._bwd_cuda(q, k, v, out, lse, do, True, scale))
+    bounds = flash_bounds(bh, s, True)
+    for name in runs:
+        res[name].update(bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    res["backward"] = dict(ms=bwd_ms, sdpa_bwd_ms=sdpa_bwd_ms, all_ms=t,
+                           bound_ms=bounds["flash_dq"][0]
+                           + bounds["flash_dkv"][0])
+    res["timed_at"] = dict(b=TRAIN_B, nh=TRAIN_NH, s=s, d=FLASH_D,
+                           dtype="bfloat16", causal=True)
+    del q, k, v, do, out, lse, delta, qg, kg, vg, og
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 9-12: the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 4
+
+
+def model_flops_per_step(cfg, tokens, seq):
+    """6 flops per token per matmul weight (forward + backward; the tied
+    head counts once) plus causal attention's two products over S(S+1)/2
+    pairs per head per layer, times 3 for forward + backward. Remat
+    recompute is not counted (model flops, not hardware flops)."""
+    H, L = cfg.hidden_size, cfg.num_layers
+    weights = L * (3 * H * H + H * H + 2 * H * cfg.ffn) + cfg.vocab_size * H
+    pairs = seq * (seq + 1) // 2
+    attn = 3 * 2 * 2 * pairs * H * L * (tokens // seq)
+    return 6.0 * weights * tokens + attn
+
+
+def phase_train(torch, cfg, steps=TRAIN_STEPS):
+    """Train cfg at B=4, S=2048 on one fixed batch: one warm-up step, then
+    `steps` steps; the flash kernels must run 24 times each per step."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import gpt
+    params = gpt.init_hybrid_params(cfg, seed=0)
+    opt = gpt.init_opt_state(params, dtype=cfg.opt_dtype)
+    step = gpt.make_train_step(cfg)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (TRAIN_B, TRAIN_S + 1))).cuda()
+    x, y = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+    _, _, loss0 = step(params, opt, x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in fa.launches:
+        fa.launches[key] = 0
+    t0 = time.perf_counter()
+    losses = [step(params, opt, x, y)[2] for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fa.launches)
+    losses = [float(l) for l in losses]
+    check(all(np.isfinite(losses)), f"training loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    L = cfg.num_layers
+    for key, n in counts.items():
+        check(n == L * steps, f"{key} launched {n} times in {steps} steps "
+              f"of {L} layers (want {L} per step)")
+    tokens = TRAIN_B * TRAIN_S
+    flops = model_flops_per_step(cfg, tokens, TRAIN_S)
+    ms = wall / steps * 1e3
+    out = dict(config="gpt3-1.3b", b=TRAIN_B, s=TRAIN_S,
+               remat_policy=cfg.remat_policy, opt_dtype=str(cfg.opt_dtype),
+               lm_head=cfg.lm_head, warmup_loss=float(loss0), losses=losses,
+               ms_per_step=ms, tokens_per_s=tokens / (ms / 1e3),
+               model_tflop_per_step=flops / 1e12,
+               model_tflops=flops / (ms / 1e3) / 1e12,
+               model_flops_share_of_989=flops / (ms / 1e3) / 989e12,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=counts,
+               launches_per_step={k: n / steps for k, n in counts.items()})
+    return out, params, opt, (x, y)
+
+
+def phase_profile_train(torch, cfg, params, opt, batch, steps=2):
+    """torch.profiler over `steps` training steps: device busy time per
+    step against the profiled wall time, the flash kernels' share, and
+    the kernels that take the time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models import gpt
+    step = gpt.make_train_step(cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(params, opt, *batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    if busy_ms == 0.0:
+        return dict(steps=steps, device_time="not measured (no CUDA events)")
+    flash = {k: sum(e.self_device_time_total for e in dev if k in e.key)
+             / 1e3 / steps
+             for k in ("flash_fwd_kernel", "flash_dq_kernel",
+                       "flash_dkv_kernel")}
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
+    return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
+                device_busy_ms_per_step=busy_ms / steps,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                flash_ms_per_step=flash,
+                flash_share_of_busy=sum(flash.values()) * steps / busy_ms,
+                top_device_ms_per_step=[
+                    (e.key[:70], e.self_device_time_total / 1e3 / steps,
+                     e.count // steps) for e in top[:12]])
+
+
+def phase_remat_full(torch, cfg, params, opt, batch):
+    """One step under remat 'full': the backward re-runs each layer's
+    flash forward (2 per layer); dQ and dK/dV once per layer."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import gpt
+    cfg = cfg._replace(remat_policy="full")
+    step = gpt.make_train_step(cfg)
+    for key in fa.launches:
+        fa.launches[key] = 0
+    _, _, loss = step(params, opt, *batch)
+    torch.cuda.synchronize()
+    counts = dict(fa.launches)
+    L = cfg.num_layers
+    check(counts == {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L},
+          f"remat 'full' step launched {counts} (want fwd {2 * L}, dq/dkv "
+          f"{L})")
+    check(bool(np.isfinite(float(loss))), "remat 'full' loss not finite")
+    return dict(remat_policy="full", loss=float(loss), launches=counts)
+
+
+def phase_train_parity_fp32(torch):
+    """fp32 at gpt3-1.3b width, 2 layers, B=1, S=2048: loss and every
+    gradient of the step with the flash kernels against the same step
+    through _block_apply's dense attention branch (reached by replacing
+    _attn_mode in this script only)."""
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.CONFIGS["gpt3-1.3b"]._replace(
+        dtype=torch.float32, num_layers=2, remat_policy="save_small",
+        lm_head="plain")
+    params = gpt.init_hybrid_params(cfg, seed=1)
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (1, TRAIN_S + 1))).cuda()
+    x, y = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+    leaves = gpt._leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def grads():
+        loss = gpt.loss_fn(params, x, y, cfg)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    lk, gk = grads()
+    attn_mode = gpt._attn_mode
+    gpt._attn_mode = lambda seq_len, head_dim: None
+    try:
+        ld, gd = grads()
+    finally:
+        gpt._attn_mode = attn_mode
+    torch.cuda.synchronize()
+    tol = 1e-4      # per leaf, relative to the leaf's largest gradient
+    worst = 0.0
+    for a, b in zip(gk, gd):
+        check(bool(torch.isfinite(a).all()), "parity gradient not finite")
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, rel)
+    check(abs(lk - ld) <= 1e-5 * abs(ld), f"fp32 loss: flash {lk} vs dense "
+          f"{ld}")
+    check(worst <= tol, f"fp32 gradients: flash vs dense relative {worst} > "
+          f"{tol}")
+    del params, gk, gd
+    return dict(loss_flash=lk, loss_dense=ld, worst_grad_relative=worst,
+                tolerance=tol, leaves=len(leaves))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs one CUDA card", file=sys.stderr)
         return 2
+    from paddle_tpu_torch import set_flags
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.models import gpt
 
@@ -406,14 +791,42 @@ def main():
     torch.cuda.empty_cache()
     par = phase_parity_fp32(torch)
     phase(7, "parity fp32 kernel vs composite", **par)
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
+    flash = phase_flash_vs_plain(torch)
+    phase(8, "flash attention kernels vs plain", **flash)
+    set_flags({"FLAGS_fused_mlp": False})
+    cfg = gpt.CONFIGS["gpt3-1.3b"]._replace(
+        remat_policy="save_small", opt_dtype=torch.bfloat16, lm_head="auto")
+    train, params, opt, batch = phase_train(torch, cfg)
+    phase(9, "train gpt3-1.3b bf16 B=4 S=2048 save_small", **train)
+    phase(10, "profile of the training step",
+          **phase_profile_train(torch, cfg, params, opt, batch))
+    phase(11, "remat full launches",
+          **phase_remat_full(torch, cfg, params, opt, batch))
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    phase(12, "training parity fp32 flash vs dense attention",
+          **phase_train_parity_fp32(torch))
+
+    kernels = [{
         "name": "decode_attn_proj", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": serve1["kernel_launches"],
         "max_abs_err": kern["max_abs_err"], "max_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": kern["library_ms"]}]}), flush=True)
+        "library_ms": kern["library_ms"]}]
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        t = flash[name]
+        err = flash["worst"]["bfloat16"][name]["max_abs_err"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES[name],
+            "launches": train["launches"][name], "max_abs_err": err,
+            "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,8 +3,10 @@
 Counterpart: ``paddle_tpu/core/flags.py``. Same contract: every flag is
 settable programmatically (``set_flags``, with or without the
 ``FLAGS_`` prefix) or via an environment variable ``FLAGS_<name>`` read
-at first access. Only the flags the ported serving path reads are
-registered, with the reference's names and defaults.
+at first access. Only the flags the ported serving and training paths
+read are registered, with the reference's names and defaults. The TPU
+block-size and interpret-mode flags are not ported: they tune or test
+Pallas kernels.
 """
 from __future__ import annotations
 
@@ -79,3 +81,10 @@ define_flag("serving_device_loop", True,
             "counter-derived threefry keys (fold_in(PRNGKey(seed), "
             "token_count)), bitwise the reference's streams. Off: host "
             "numpy sampling, one step per dispatch")
+define_flag("fused_mlp", True,
+            "route the GPT training step's MLP sublayer (matmul→GeLU→"
+            "matmul) through the fused MLP kernels (TPU kernels 4-6, "
+            "ported in ROADMAP A2b). Until then a CUDA tensor raises "
+            "NotImplementedError with the flag on; set it False for the "
+            "dense MLP. CPU tensors take the dense MLP, as the reference "
+            "does off the TPU")

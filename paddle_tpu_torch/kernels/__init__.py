@@ -4,6 +4,13 @@ Hand-written Hopper kernels (CUDA C++ under ``csrc/``, built by
 ``_build.py`` at first use) with their plain PyTorch versions beside
 them. Importing this package builds nothing.
 """
+from .chunked_xent import (chunked_softmax_xent,
+                           chunked_softmax_xent_per_token)
+from .flash_attention import (flash_attention_bshd, flash_bwd, flash_bwd_ref,
+                              flash_fwd, flash_fwd_ref)
 from .mlp_fusion import decode_attn_proj, decode_attn_proj_ref
 
-__all__ = ["decode_attn_proj", "decode_attn_proj_ref"]
+__all__ = ["chunked_softmax_xent", "chunked_softmax_xent_per_token",
+           "decode_attn_proj", "decode_attn_proj_ref",
+           "flash_attention_bshd", "flash_bwd", "flash_bwd_ref", "flash_fwd",
+           "flash_fwd_ref"]

@@ -1,10 +1,11 @@
-"""GPT — the decoder-only LM, serving half.
+"""GPT — the decoder-only LM: the Layer model, training and serving.
 
 Counterpart: ``paddle_tpu/models/gpt.py``: ``GPTConfig`` / ``CONFIGS``
-(:39, :100), the ``GPTForCausalLM`` parameter layout (:116-200) and the
-serving functions (:686-880). The training step (``init_hybrid_params``,
-``_block_apply``, ``loss_fn``, ``adamw_update``) and ``serving_chunk_step``
-belong to later slices (ROADMAP.md).
+(:39, :100), the Layer ``GPTForCausalLM`` (:116-205), the functional
+train step on one device (``init_hybrid_params`` :216 through
+``make_train_step`` :645) and the serving functions (:686-880). The
+pipeline, sequence-parallel, tensor-parallel and MoE branches (ROADMAP
+A10) and ``serving_chunk_step`` (A3) belong to later slices.
 
 ``GPTForCausalLM`` is an ``nn.Module`` holding the parameters under the
 reference Layer model's names (``gpt.wte.weight``,
@@ -18,6 +19,20 @@ the layer axis. ``serving_params_from_numpy`` / ``load_numpy`` take the
 reference's tree (as numpy arrays) so both packages compute the same
 function.
 
+Training: ``init_hybrid_params`` gives the reference's parameter tree
+on one device (``blocks`` leaves stacked ``[L, ...]``; the reference's
+size-1 ``pp`` axis is dropped; ``train_params_from_numpy`` /
+``train_params_to_numpy`` convert to and from the reference's tree).
+``make_train_step`` runs ``loss_fn`` → autograd → ``adamw_update`` and
+updates parameters and moments IN PLACE, where the reference donates
+them. Attention in ``_block_apply`` goes through ``flash_attention_bshd``
+(the Hopper kernels on a card) when ``_attn_mode`` allows; the MLP is the
+dense one (the fused MLP kernels come in ROADMAP A2b, so on a card
+``FLAGS_fused_mlp`` must be off). The remat policies of ``_stage_fn`` are
+torch activation checkpointing; the selective ones find the reference's
+``checkpoint_name`` sites through ``_named`` and save the flash forward's
+``(out, lse)``.
+
 The three serving functions share ``paged_attention_math`` as in the
 reference. ``serving_decode_step`` updates the pools IN PLACE and
 returns them; with ``FLAGS_serving_decode_kernel`` on and a B=1 bucket,
@@ -26,7 +41,9 @@ call (the hand-written CUDA kernel on a card).
 """
 from __future__ import annotations
 
+import functools
 import math
+import threading
 import warnings
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -34,32 +51,54 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from .._device import DeviceLike, resolve_device
 from ..core.flags import get_flag
 from ..inference.kv_cache import kv_append, kv_gather
+from ..kernels.chunked_xent import chunked_softmax_xent
+from ..kernels.flash_attention import flash_attention_bshd
 from ..kernels.mlp_fusion import decode_attn_proj
-from ..nn.functional.attention import paged_attention_math
+from ..nn.functional.attention import (paged_attention_math,
+                                       scaled_dot_product_attention)
 
-__all__ = ["GPTConfig", "CONFIGS", "GPTForCausalLM", "serving_params",
-           "serving_params_from_numpy", "serving_forward_logits",
-           "serving_prefill", "serving_decode_step",
-           "last_decode_kernel_path"]
+__all__ = ["GPTConfig", "CONFIGS", "GPTForCausalLM", "init_hybrid_params",
+           "train_params_from_numpy", "train_params_to_numpy", "loss_fn",
+           "adamw_update", "init_opt_state", "make_train_step",
+           "serving_params", "serving_params_from_numpy",
+           "serving_forward_logits", "serving_prefill",
+           "serving_decode_step", "last_decode_kernel_path"]
 
 _BLOCK_PARAMS = ("ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
                  "ln2_g", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
 
 
 class GPTConfig(NamedTuple):
-    """The reference's config fields that the serving path reads (the
-    training knobs come with the training slice)."""
+    """The reference's config (gpt.py:39-96), same fields, order and
+    defaults. On one device ``moe_*`` and ``vpp_chunks`` must keep their
+    defaults (ROADMAP A10); ``dropout`` is carried but, as in the
+    reference's functional step, not applied."""
     vocab_size: int = 50304
     hidden_size: int = 768
     num_layers: int = 12
     num_heads: int = 12
     max_seq_len: int = 1024
     intermediate_size: Optional[int] = None
+    dropout: float = 0.0
     dtype: Any = torch.bfloat16
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
+    vpp_chunks: int = 1
+    # pack each head to this many lanes (0 = off); pad lanes of qkv_w and
+    # proj_w are zero and stay zero under training (reference :57-67)
+    head_pack: int = 0
+    # 'dots_saveable' | 'save_small' | 'save_qkv' | 'save_ffn' |
+    # 'save_except_big' | 'full' | 'none' (see _stage_fn)
+    remat_policy: str = "dots_saveable"
+    opt_dtype: Any = torch.float32        # AdamW moment storage
+    lm_head: str = "auto"                 # 'plain' | 'chunked' | 'auto'
 
     @property
     def ffn(self):
@@ -84,7 +123,7 @@ CONFIGS = {
 # ---------------------------------------------------------------------------
 
 class Linear(nn.Module):
-    """Paddle-layout linear parameters: weight [in, out], bias [out]."""
+    """Paddle-layout linear: weight [in, out], bias [out]."""
 
     def __init__(self, n_in: int, n_out: int, device, dtype):
         super().__init__()
@@ -93,11 +132,15 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.empty(n_out, device=device,
                                              dtype=dtype))
 
+    def forward(self, x):
+        return x @ self.weight + self.bias
+
 
 class GPTBlock(nn.Module):
     def __init__(self, cfg: GPTConfig, device, dtype):
         super().__init__()
         H = cfg.hidden_size
+        self.nh = cfg.num_heads
         kw = dict(device=device, dtype=dtype)
         self.ln1 = nn.LayerNorm(H, **kw)
         self.qkv = Linear(H, 3 * H, **kw)
@@ -115,6 +158,23 @@ class GPTBlock(nn.Module):
                 ("fc1_w", self.fc1.weight), ("fc1_b", self.fc1.bias),
                 ("fc2_w", self.fc2.weight), ("fc2_b", self.fc2.bias))
 
+    def forward(self, x):
+        """The reference block (gpt.py:138-160): LN → qkv → causal
+        attention → proj, then LN → the dense MLP
+        (``_require_dense_mlp``)."""
+        B, S, H = x.shape
+        q, k, v = self.qkv(self.ln1(x)).chunk(3, dim=-1)
+
+        def heads(t):
+            return t.reshape(B, S, self.nh, H // self.nh)
+
+        attn = scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                            is_causal=True)
+        x = x + self.proj(attn.reshape(B, S, H))
+        h = self.ln2(x)
+        _require_dense_mlp(x.device)
+        return x + self.fc2(F.gelu(self.fc1(h), approximate="tanh"))
+
 
 class GPTModel(nn.Module):
     def __init__(self, cfg: GPTConfig, device, dtype):
@@ -125,6 +185,14 @@ class GPTModel(nn.Module):
         self.blocks = nn.ModuleList([GPTBlock(cfg, device, dtype)
                                      for _ in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size, **kw)
+
+    def forward(self, input_ids):
+        S = input_ids.shape[1]
+        pos = torch.arange(S, device=input_ids.device)
+        x = self.wte(input_ids.long()) + self.wpe(pos)
+        for blk in self.blocks:
+            x = blk(x)
+        return self.ln_f(x)
 
 
 class GPTForCausalLM(nn.Module):
@@ -152,11 +220,13 @@ class GPTForCausalLM(nn.Module):
                 p.zero_()
 
     def forward(self, input_ids):
-        raise NotImplementedError(
-            "GPTForCausalLM.forward (the Layer forward) uses the flash-"
-            "attention and fused-MLP kernels and is ported with the GPT "
-            "training step (ROADMAP.md queue A, item A2); "
-            "serve through serving_params / inference.gpt_adapter")
+        """[B, S] ids → [B, S, V] logits (tied-embedding head)."""
+        return self.gpt(input_ids) @ self.gpt.wte.weight.T
+
+    def loss(self, input_ids, labels):
+        logits = self(input_ids)
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1).long())
 
     @torch.no_grad()
     def load_numpy(self, tree: Dict[str, Any]) -> "GPTForCausalLM":
@@ -343,3 +413,350 @@ def serving_decode_step(params, k_pool, v_pool, tokens, positions,
     _LAST_DECODE_PATH = "composite" if kmode is None else f"kernel/{kmode}"
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
     return x[:, 0] @ params["wte"].T, k_pool, v_pool
+
+
+# ---------------------------------------------------------------------------
+# training: the functional step on one device
+# ---------------------------------------------------------------------------
+
+_REMAT_POLICIES = ("dots_saveable", "save_small", "save_qkv", "save_ffn",
+                   "save_except_big", "full", "none")
+# the reference's save_only_these_names lists (gpt.py:453-471); each also
+# saves the flash forward's (out, lse), its flash_out/flash_lse names
+_SAVED_NAMES = {
+    "save_small": ("attn_out", "proj_out", "fc2_out"),
+    "save_qkv": ("attn_out", "proj_out", "fc2_out", "qkv_out"),
+    "save_ffn": ("attn_out", "proj_out", "fc2_out", "ffn_act"),
+}
+_BIG_NAMES = ("qkv_out", "ffn_act")     # save_except_big recomputes these
+
+# the reference's checkpoint_name of the op being called, per thread: the
+# recompute runs the block again on the autograd engine's thread
+_NAMING = threading.local()
+
+
+def _named(name, fn, *args, **kwargs):
+    """Call ``fn`` with ``name`` as the reference's ``checkpoint_name`` of
+    its result: the selective-checkpoint policies read it while the op
+    runs (in the forward and again in the recompute)."""
+    _NAMING.name = name
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        _NAMING.name = None
+
+
+def _one_device(cfg: GPTConfig, n_micro: int = 1):
+    for what, bad in (("vpp_chunks > 1", cfg.vpp_chunks > 1),
+                      ("moe_experts > 0", cfg.moe_experts > 0),
+                      ("n_micro > 1", n_micro > 1)):
+        if bad:
+            raise NotImplementedError(
+                f"GPT training: {what} needs the pipeline / expert-parallel "
+                f"mesh, ported with distributed training (ROADMAP A10)")
+
+
+def _leaves(tree):
+    """Tensors of a nested dict in sorted-key order (jax.tree order)."""
+    if isinstance(tree, dict):
+        return [t for key in sorted(tree) for t in _leaves(tree[key])]
+    return [tree]
+
+
+def _unflatten(tree, flat):
+    """The inverse of ``_leaves``: ``flat`` in ``tree``'s structure."""
+    it = iter(flat)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {key: build(t[key]) for key in sorted(t)}
+        return next(it)
+
+    return build(tree)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {key: _tree_map(fn, val) for key, val in tree.items()}
+    return fn(tree)
+
+
+def init_hybrid_params(cfg: GPTConfig, seed: int = 0,
+                       device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's parameter tree (gpt.py:216-317) on one device:
+    {"wte", "wpe", "lnf_g", "lnf_b", "blocks": {name: [L, ...]}}, normal
+    (0, 0.02) weights from a ``torch.Generator`` seeded with ``seed``,
+    zero biases, unit LayerNorm gains, in ``cfg.dtype``."""
+    _one_device(cfg)
+    dev = resolve_device(device)
+    H, V, L, FF, SM = (cfg.hidden_size, cfg.vocab_size, cfg.num_layers,
+                       cfg.ffn, cfg.max_seq_len)
+    g = torch.Generator(device=dev).manual_seed(int(seed))
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=g, device=dev) * 0.02).to(
+            cfg.dtype)
+
+    def full(value, *shape):
+        return torch.full(shape, value, dtype=cfg.dtype, device=dev)
+
+    NH = cfg.num_heads
+    d = H // NH
+    dp = cfg.head_pack or d
+    Hq = NH * dp
+    if dp == d:
+        qkv_w = rnd(L, H, 3 * H)
+        proj_w = rnd(L, H, H)
+    else:
+        # packed heads: random in the d logical lanes, zero in the pad
+        # lanes (gpt.py:240-246)
+        qkv_w = rnd(L, H, 3, NH, dp)
+        qkv_w[..., d:] = 0
+        qkv_w = qkv_w.reshape(L, H, 3 * Hq)
+        proj_w = rnd(L, NH, dp, H)
+        proj_w[:, :, d:, :] = 0
+        proj_w = proj_w.reshape(L, Hq, H)
+    blocks = {"qkv_w": qkv_w, "qkv_b": full(0.0, L, 3 * Hq),
+              "proj_w": proj_w, "proj_b": full(0.0, L, H),
+              "ln1_g": full(1.0, L, H), "ln1_b": full(0.0, L, H),
+              "ln2_g": full(1.0, L, H), "ln2_b": full(0.0, L, H),
+              "fc1_w": rnd(L, H, FF), "fc1_b": full(0.0, L, FF),
+              "fc2_w": rnd(L, FF, H), "fc2_b": full(0.0, L, H)}
+    return {"wte": rnd(V, H), "wpe": rnd(SM, H), "lnf_g": full(1.0, H),
+            "lnf_b": full(0.0, H), "blocks": blocks}
+
+
+def train_params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,
+                            dtype=torch.float32) -> Dict[str, Any]:
+    """The reference's training tree (``jax.tree.map(np.asarray,
+    init_hybrid_params(cfg))``, blocks ``[1, L, ...]``) as the port's tree
+    (blocks ``[L, ...]``) on ``device`` in ``dtype``."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)
+
+    blocks = {}
+    for name, a in tree["blocks"].items():
+        if np.shape(a)[0] != 1:
+            raise ValueError(f"blocks.{name} has a pp axis of "
+                             f"{np.shape(a)[0]}; one device takes pp=1")
+        blocks[name] = t(np.asarray(a)[0])
+    return {"wte": t(tree["wte"]), "wpe": t(tree["wpe"]),
+            "lnf_g": t(tree["lnf_g"]), "lnf_b": t(tree["lnf_b"]),
+            "blocks": blocks}
+
+
+def train_params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``train_params_from_numpy``: float32 numpy arrays,
+    blocks ``[1, L, ...]`` as in the reference's tree. Takes the
+    parameter tree or an AdamW moment tree."""
+    def a(t):
+        return t.detach().float().cpu().numpy()
+
+    out = {k: a(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {k: a(v)[None] for k, v in params["blocks"].items()}
+    return out
+
+
+def _attn_mode(seq_len: int, head_dim: int):
+    """'flash' | None: the reference's tile guards (gpt.py:320-335). The
+    kernels take any S, but the routing follows the reference so that
+    both packages compute the same function for every shape."""
+    if seq_len % 128 != 0 or head_dim % 8 != 0:
+        return None
+    return "flash"
+
+
+def _require_dense_mlp(device: torch.device):
+    """The MLP is dense only until the fused MLP kernels (TPU kernels
+    4-6) are ported with the reference's ``_mlp_mode`` routing
+    (gpt.py:338-355). With ``FLAGS_fused_mlp`` on, a card would take
+    them: raise rather than take a silent dense path. CPU tensors take
+    the dense MLP, as the reference does off the TPU."""
+    if get_flag("fused_mlp") and device.type == "cuda":
+        raise NotImplementedError(
+            "fused MLP: TPU kernels 4-6 are ported in ROADMAP A2b; set "
+            "FLAGS_fused_mlp=False")
+
+
+def _affine(x, w, b):
+    """x @ w + b as one addmm: one dispatcher op, so a checkpoint policy
+    can save the product it names."""
+    y = torch.addmm(b, x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _block_apply(bp, x, cfg: GPTConfig):
+    """One transformer block on [B, S, H] (gpt.py:365-440). Returns (x,
+    aux) with aux = 0 (no MoE on one device)."""
+    n_heads = cfg.num_heads
+    B, S, H = x.shape
+    d_head = H // n_heads           # logical head dim: sets the scale
+    dp = cfg.head_pack or d_head    # physical (possibly packed) lanes
+    h = _layer_norm(x, bp["ln1_g"], bp["ln1_b"])
+    qkv = _named("qkv_out", _affine, h, bp["qkv_w"], bp["qkv_b"])
+    q, k, v = (t.reshape(B, S, n_heads, dp)
+               for t in qkv.split(n_heads * dp, dim=-1))
+    scale = 1.0 / math.sqrt(d_head)
+    if _attn_mode(S, dp) is not None:
+        out = flash_attention_bshd(q, k, v, causal=True, scale=scale)
+    else:
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        scores = (qh @ kh.transpose(2, 3)).float() * scale
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=x.device))
+        scores = scores.masked_fill(~mask, -1e9)
+        attn = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = _named("attn_out", torch.matmul, attn, vh).transpose(1, 2)
+    out = out.reshape(B, S, n_heads * dp)
+    x = x + _named("proj_out", _affine, out, bp["proj_w"], bp["proj_b"])
+    h = _layer_norm(x, bp["ln2_g"], bp["ln2_b"])
+    _require_dense_mlp(x.device)
+    h = _named("ffn_act", F.gelu, _affine(h, bp["fc1_w"], bp["fc1_b"]),
+               approximate="tanh")
+    return (x + _named("fc2_out", _affine, h, bp["fc2_w"], bp["fc2_b"]),
+            x.new_zeros((), dtype=torch.float32))
+
+
+def _policy(remat: str):
+    """The selective-checkpoint policy of a reference remat policy."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    dots = (aten.mm.default, aten.addmm.default, aten.bmm.default)
+    flash = torch.ops.paddle_tpu_torch.flash_fwd.default
+    named_ops = dots + (aten.gelu.default,)
+    names = _SAVED_NAMES.get(remat, ())
+
+    def policy(ctx, op, *args, **kwargs):
+        name = getattr(_NAMING, "name", None)
+        if op is flash:
+            save = True
+        elif remat == "dots_saveable":
+            save = op in dots
+        elif remat == "save_except_big":
+            save = not (name in _BIG_NAMES and op in named_ops)
+        else:
+            save = name in names and op in named_ops
+        return (CheckpointPolicy.MUST_SAVE if save
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return policy
+
+
+def _stage_fn(stage_params, x, cfg: GPTConfig, remat: bool = True):
+    """Apply the layers (a loop over the stacked layer axis, gpt.py:443-
+    496), each under the config's remat policy: ``full`` checkpoints the
+    block and recomputes all of it, ``none`` keeps every activation, the
+    others save what the reference's policy saves and recompute the
+    rest. Returns (h, aux summed over the layers)."""
+    body = functools.partial(_block_apply, cfg=cfg)
+    if remat and cfg.remat_policy == "none":
+        remat = False
+    kwargs = dict(use_reentrant=False)
+    if remat:
+        if cfg.remat_policy not in _REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy must be 'dots_saveable', 'save_small', "
+                f"'save_qkv', 'save_ffn', 'save_except_big', 'full' or "
+                f"'none', got {cfg.remat_policy!r}")
+        if cfg.remat_policy != "full":
+            kwargs["context_fn"] = functools.partial(
+                _ckpt.create_selective_checkpoint_contexts,
+                _policy(cfg.remat_policy))
+    # unbind: one stacked gradient per leaf in the backward, where
+    # per-layer indexing would scatter into a full [L, ...] zero tensor
+    # for every layer
+    layers = {name: t.unbind(0) for name, t in stage_params.items()}
+    aux = x.new_zeros((), dtype=torch.float32)
+    for i in range(len(layers["qkv_w"])):
+        bp = {name: ts[i] for name, ts in layers.items()}
+        if remat:
+            x, a = _ckpt.checkpoint(body, bp, x, **kwargs)
+        else:
+            x, a = body(bp, x)
+        aux = aux + a
+    return x, aux
+
+
+def _forward_hidden(params, input_ids, cfg: GPTConfig, n_micro: int = 1):
+    """Forward to the final-LayerNorm hidden states [B, S, H] (gpt.py:499;
+    one device: no pp or sep region)."""
+    _one_device(cfg, n_micro)
+    S = input_ids.shape[1]
+    x = F.embedding(input_ids.long(), params["wte"]) + params["wpe"][:S]
+    x, aux = _stage_fn(params["blocks"], x.to(cfg.dtype), cfg)
+    return _layer_norm(x, params["lnf_g"], params["lnf_b"]), aux
+
+
+def _forward(params, input_ids, cfg: GPTConfig, n_micro: int = 1):
+    x, aux = _forward_hidden(params, input_ids, cfg, n_micro)
+    return x @ params["wte"].T.to(cfg.dtype), aux
+
+
+def loss_fn(params, input_ids, labels, cfg: GPTConfig, n_micro: int = 1):
+    """Mean token cross-entropy (gpt.py:565-590): the plain head, or the
+    chunked one (kernels/chunked_xent.py) for lm_head='chunked', or
+    'auto' under remat 'full', at vocab >= 8192."""
+    x, _ = _forward_hidden(params, input_ids, cfg, n_micro)
+    use_chunked = (cfg.lm_head == "chunked" or
+                   (cfg.lm_head == "auto" and cfg.remat_policy == "full"))
+    if cfg.vocab_size >= 8192 and use_chunked:
+        return chunked_softmax_xent(x, params["wte"].to(cfg.dtype), labels)
+    logits32 = (x @ params["wte"].T.to(cfg.dtype)).float()
+    logz = torch.logsumexp(logits32, dim=-1)
+    gold = logits32.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
+@torch.no_grad()
+def adamw_update(params, grads, opt_state, lr=1e-4, b1=0.9, b2=0.95,
+                 eps=1e-8, wd=0.01):
+    """AdamW over the whole tree (gpt.py:593-626), IN PLACE: parameters,
+    moments and the step count are overwritten (the reference returns new
+    arrays and donates the old). The update math is f32; moments are
+    stored in their own dtype (``cfg.opt_dtype``), each rounded once after
+    the f32 math. Returns (params, opt_state)."""
+    step = opt_state["step"] + 1
+    c1 = 1.0 - b1 ** step.float()
+    c2 = 1.0 - b2 ** step.float()
+    for p, g, m, v in zip(_leaves(params), _leaves(grads),
+                          _leaves(opt_state["m"]), _leaves(opt_state["v"])):
+        g32 = g.float()
+        m32 = b1 * m.float() + (1 - b1) * g32
+        v32 = b2 * v.float() + (1 - b2) * g32 * g32
+        p32 = p.float()
+        p32 = p32 - lr * ((m32 / c1) / (torch.sqrt(v32 / c2) + eps)
+                          + wd * p32)
+        p.copy_(p32)
+        m.copy_(m32)
+        v.copy_(v32)
+    opt_state["step"].copy_(step)
+    return params, opt_state
+
+
+def init_opt_state(params, dtype=torch.float32):
+    """AdamW state: step 0 (int32) and zero moments in ``dtype``."""
+    return {"step": torch.zeros((), dtype=torch.int32,
+                                device=params["wte"].device),
+            "m": _tree_map(lambda p: torch.zeros_like(p, dtype=dtype), params),
+            "v": _tree_map(lambda p: torch.zeros_like(p, dtype=dtype), params)}
+
+
+def make_train_step(cfg: GPTConfig, n_micro: int = 1, lr=1e-4):
+    """One train step: (params, opt_state, input_ids, labels) → (params,
+    opt_state, loss). Parameters and moments are updated IN PLACE (the
+    returned trees are the ones passed in), where the reference's jitted
+    step donates them."""
+    _one_device(cfg, n_micro)
+
+    def train_step(params, opt_state, input_ids, labels):
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(params, input_ids, labels, cfg, n_micro)
+        grads = torch.autograd.grad(loss, leaves)
+        adamw_update(params, _unflatten(params, grads), opt_state, lr=lr)
+        return params, opt_state, loss.detach()
+
+    return train_step

@@ -1,15 +1,34 @@
 """Attention functionals.
 
-Counterpart: ``paddle_tpu/nn/functional/attention.py`` — only
-``paged_attention_math`` (:106) so far, the one arithmetic the serving
-prefill, the no-cache forward and the composite decode step share. The
-flash-attention routing belongs to the training slice (ROADMAP.md).
+Counterpart: ``paddle_tpu/nn/functional/attention.py``:
+``paged_attention_math`` (:106), the one arithmetic the serving prefill,
+the no-cache forward and the composite decode step share, and
+``scaled_dot_product_attention`` (:231) on its unmasked, dropout-free
+route to the flash kernel (:198-228). The masked and dropout routes
+belong to BERT (ROADMAP A6).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["paged_attention_math"]
+from ...kernels.flash_attention import flash_attention_bshd
+
+__all__ = ["paged_attention_math", "scaled_dot_product_attention"]
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True):
+    """Attention on Paddle's [b, s, h, d] layout through
+    ``flash_attention_bshd`` (the Hopper kernels on a card, their plain
+    versions on the CPU). An attention mask, or dropout while training,
+    is the BERT route (ROADMAP A6) and raises NotImplementedError."""
+    p = float(dropout_p) if training else 0.0
+    if attn_mask is not None or p > 0.0:
+        raise NotImplementedError(
+            "scaled_dot_product_attention: attn_mask and dropout take the "
+            "masked flash-attention kernels, ported with BERT (ROADMAP A6)")
+    return flash_attention_bshd(query, key, value, causal=bool(is_causal))
 
 
 def paged_attention_math(q, k, v, pos_ids, scale):

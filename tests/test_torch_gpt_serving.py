@@ -26,6 +26,7 @@ import paddle_tpu as paddle
 from paddle_tpu.inference import BlockPool as JaxBlockPool
 from paddle_tpu.inference.kv_cache import kv_append as jax_kv_append
 from paddle_tpu.models import gpt as jgpt
+from paddle_tpu_torch import get_flag
 from paddle_tpu_torch import set_flags as pt_set_flags
 from paddle_tpu_torch.inference import BlockPool, kv_append
 from paddle_tpu_torch.models import gpt as pgpt
@@ -194,5 +195,19 @@ def test_layer_forward_names_the_training_slice():
     assert {"gpt.wte.weight", "gpt.blocks.0.qkv.weight",
             "gpt.ln_f.bias"} <= names
     assert model.gpt.blocks[0].qkv.weight.shape == (8, 24)   # [in, out]
-    with pytest.raises(NotImplementedError, match="training"):
-        model(torch.zeros((1, 4), dtype=torch.long))
+    # the Layer forward is ported with the training step: it computes the
+    # serving forward's function; on a card with FLAGS_fused_mlp on, its
+    # MLP names the slice that ports the fused MLP kernels
+    ids = torch.tensor([[3, 1, 4, 1]])
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            model(ids).numpy(),
+            pgpt.serving_forward_logits(pgpt.serving_params(model), ids,
+                                        cfg).numpy(), atol=1e-6, rtol=0)
+    old = get_flag("fused_mlp")
+    pt_set_flags({"FLAGS_fused_mlp": True})
+    try:
+        with pytest.raises(NotImplementedError, match="A2b"):
+            pgpt._require_dense_mlp(torch.device("cuda", 0))
+    finally:
+        pt_set_flags({"FLAGS_fused_mlp": old})
