@@ -32,23 +32,39 @@ Phases, one line each; any failure raises and exits non-zero:
    shape (B=4, NH=16, S=2048, bf16, causal) beside the plain versions'
    and the bound, the forward beside SDPA's forward, and the whole
    backward (delta, dQ, dK/dV) beside SDPA's backward;
-9. train gpt3-1.3b (random weights from a seed, bf16, full width and
-   depth, FLAGS_fused_mlp off, remat save_small, bf16 AdamW moments, the
-   plain LM head) at B=4, S=2048 on one fixed batch: one warm-up step,
-   then 4 steps; finite, falling loss; each flash kernel launched 24
-   times per step; ms/step, tokens/s, model TFLOP/s, peak memory;
-10. torch.profiler over 2 more training steps: device busy time per
-   step, idle share, the flash kernels' share, the kernels that take
-   the time;
-11. one step under remat 'full': the flash forward runs 48 times;
-12. parity in fp32 at gpt3-1.3b width, 2 layers, B=1, S=2048: loss and
-   every gradient with the flash kernels vs _block_apply's dense
-   attention branch;
+9. the three fused MLP kernels (forward, dX, dW) against their plain
+   versions on the card: gpt3-1.3b (R=8192, H=2048, F=8192) and ragged
+   shapes (R=1000/333, H=96/100, F=320/200/2560), fp32 and bf16, both
+   GeLU forms (y, dx, dw1, db1, dw2, db2), each element within its
+   row's scale, the check shown to reject a forward missing one ffn
+   chunk; their times at gpt3-1.3b shape beside the plain versions' and
+   the bound, the forward beside the dense addmm -> gelu -> addmm, the
+   shared backward beside that composite's backward;
+10. train gpt3-1.3b (random weights from a seed, bf16, full width and
+   depth, FLAGS_fused_mlp on as by default, remat save_small, bf16 AdamW
+   moments, the plain LM head) at B=4, S=2048 on one fixed batch: one
+   warm-up step, then 4 steps; finite, falling loss; the fused MLP path
+   taken; each flash and fused MLP kernel launched 24 times per step;
+   ms/step, tokens/s, model TFLOP/s, peak memory, and the card's SM
+   clock, power draw and temperature sampled during the timed steps;
+11. torch.profiler over 2 more training steps: device busy time per
+   step, idle share, the flash and fused MLP kernels' shares, the
+   kernels that take the time;
+12. one step under remat 'full': the flash and fused MLP forwards run 48
+   times, the backward kernels 24;
+13. the same training with FLAGS_fused_mlp off (the dense MLP; 1 warm-up
+   and 2 steps): ms/step, peak memory and the card's clocks beside the
+   fused step's, whose peak may exceed it by no more than the kernels'
+   workspace;
+14. parity in fp32 at gpt3-1.3b width, 2 layers, B=1, S=2048: loss and
+   every gradient with the fused MLP kernels vs the dense MLP, and with
+   the flash kernels vs _block_apply's dense attention branch;
 then the kernels' JSON line and the final status line.
 """
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -74,6 +90,49 @@ def gpu_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+class ClockSampler:
+    """Samples the card's SM clock, power draw and temperature with
+    nvidia-smi every `period` s while the `with` block runs (a thread,
+    joined on exit): min / mean / max of each."""
+
+    QUERY = "clocks.sm,power.draw,temperature.gpu"
+
+    def __init__(self, period=0.25):
+        self.period = period
+        self.rows = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", f"--query-gpu={self.QUERY}",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=30).stdout.strip().splitlines()
+                self.rows.append([float(v) for v in out[0].split(",")])
+            except (OSError, subprocess.SubprocessError, IndexError,
+                    ValueError):
+                return      # no reading: summary() says so
+            self._stop.wait(self.period)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+    def summary(self):
+        if not self.rows:
+            return "not measured (no nvidia-smi samples)"
+        cols = zip(*self.rows)
+        return {name: dict(min=min(c), mean=sum(c) / len(c), max=max(c))
+                for name, c in zip(("sm_clock_mhz", "power_w", "temp_c"),
+                                   cols)} | {"samples": len(self.rows)}
 
 
 def cuda_ms(fn, sets, iters=30):
@@ -584,7 +643,210 @@ def flash_times(torch, fa, scale):
 
 
 # ---------------------------------------------------------------------------
-# phases 9-12: the training path
+# phase 9: the fused MLP kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+MLP_SOURCE = "paddle_tpu_torch/kernels/csrc/fused_mlp.cu"
+MLP_REPLACES = {"fused_mlp_fwd": "paddle_tpu/kernels/mlp_fusion.py:228",
+                "fused_mlp_dx": "paddle_tpu/kernels/mlp_fusion.py:260",
+                "fused_mlp_dw": "paddle_tpu/kernels/mlp_fusion.py:296"}
+# Each element is held as the flash kernels are (flash_reading): |kernel -
+# plain| <= tol * (rms of its row + |plain|). f32 sums in another order.
+# bf16: act and da are rounded at the same points in both (the kernel's
+# f32 sums may land across a rounding boundary), and for dW the bf16
+# kernel feeds round(da) and round(act) to the tensor cores where the
+# plain version (the reference) keeps them f32; dW1 and dW2 come out in
+# bf16, the plain ones in f32.
+MLP_TOL = {"float32": 1e-4, "bfloat16": 2 ** -5}
+MLP_R, MLP_H, MLP_F = TRAIN_B * TRAIN_S, 2048, 8192   # the slice's shape
+# (r, h, f, dtype, approximate): gpt3-1.3b; rows not a multiple of any
+# tile, f <= 512 not a multiple of 128, h not a multiple of 64; the last
+# ffn chunk ragged (2560 = 2048 + 512); strides not a multiple of
+# 16 bytes (h = 100: the kernels' scalar load path)
+MLP_CASES = [(MLP_R, MLP_H, MLP_F, "bfloat16", True),
+             (1000, 96, 320, "bfloat16", False),
+             (1000, 96, 320, "float32", True),
+             (1000, 2048, 2560, "float32", False),
+             (1000, 2048, 2560, "bfloat16", True),
+             (333, 100, 200, "bfloat16", True)]
+
+
+def mlp_inputs(torch, r, h, f, dtype, seed):
+    """x, w1, b1, w2, b2, g at the model's scale (normal(0, 0.02)
+    weights; LayerNorm'd x; small biases)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * s).to(dtype)
+
+    return (rnd(r, h), rnd(h, f, s=0.02), rnd(f, s=0.02), rnd(f, h, s=0.02),
+            rnd(h, s=0.02), rnd(r, h, s=1e-3))
+
+
+def mlp_bounds(r, h, f, esize):
+    """bound_ms and what bounds it for the forward and the backward: the
+    products each call needs (forward 4 RHF; backward 10 RHF: dX's two
+    products, dW's two and the first product recomputed once for both)
+    at 989 TFLOP/s; its inputs read once and outputs written once at
+    3.35 TB/s."""
+    rhf = float(r) * h * f
+    rows, w, vf, vh = r * h * esize, h * f * esize, f * esize, h * esize
+    work = {"forward": (4 * rhf, rows + 2 * w + vf + vh + rows),
+            "backward": (10 * rhf, 2 * rows + 2 * w + vf + rows
+                         + 2 * w + 4 * f + 4 * h)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops = flops / H100_FLOPS["bfloat16"]
+        t_bytes = nbytes / H100_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def mlp_workspace_gb(r, h, f, esize):
+    """The backward's workspace (csrc/fused_mlp.cu), the larger one: the
+    f32 pre-activation chunk, da and act chunks in the dtype, the f32
+    [R, H] dX accumulator when there is more than one chunk, and the f32
+    column-sum partials of the bias gradients."""
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    fc = min(f, mf._CHUNK_F)
+    parts = -(-r // mf._ROW_BLOCK)
+    return (r * fc * (4 + 2 * esize) + (r * h * 4 if f > fc else 0)
+            + parts * (f + h) * 4) / 1e9
+
+
+def phase_mlp_vs_plain(torch):
+    """The forward and backward custom ops (``fused_mlp_fwd``,
+    ``fused_mlp_bwd``: the kernels' wrappers, which the training step
+    reaches through ``fused_mlp_2d``) against their plain versions on
+    the card (y, dx, dw1, db1, dw2, db2) in every MLP_CASES case; the
+    backward repeated gives the same bits, and autograd through
+    ``fused_mlp_2d`` gives the backward op's results; the check shown to
+    reject a forward missing one ffn chunk; then the times at the
+    slice's shape."""
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    worst = {}
+    for r, h, f, name, approx in MLP_CASES:
+        dtype = getattr(torch, name)
+        x, w1, b1, w2, b2, g = mlp_inputs(torch, r, h, f, dtype, seed=r + f)
+        y = mf.fused_mlp_fwd(x, w1, b1, w2, b2, approx)
+        grads = mf.fused_mlp_bwd(x, w1, b1, w2, b2, g, approx)
+        dx, dw1, db1, dw2, db2 = grads
+        again = mf.fused_mlp_bwd(x, w1, b1, w2, b2, g, approx)
+        prim = [t.detach().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+        y_ag = mf.fused_mlp_2d(*prim, approximate=approx)
+        auto = torch.autograd.grad(y_ag, prim, g)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(again, grads)),
+              f"fused MLP backward differs between two calls ({name} r={r} "
+              f"h={h} f={f})")
+        check(torch.equal(y_ag, y) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(auto, grads)),
+              f"autograd through fused_mlp_2d differs from the fused MLP "
+              f"ops ({name} r={r} h={h} f={f})")
+        ry = mf.fused_mlp_fwd_ref(x, w1, b1, w2, b2, approx)
+        rdx = mf.fused_mlp_dx_ref(x, w1, b1, w2, g, approx)
+        rdw = mf.fused_mlp_dw_ref(x, w1, b1, w2, g, approx)
+        for key, got, ref in (("y", y, ry), ("dx", dx, rdx),
+                              ("dw1", dw1, rdw[0]), ("db1", db1, rdw[1]),
+                              ("dw2", dw2, rdw[2]), ("db2", db2, rdw[3])):
+            check(bool(torch.isfinite(got).all()),
+                  f"fused MLP {key} not finite ({name} r={r} h={h} f={f})")
+            err = float((got.float() - ref.float()).abs().max())
+            rel = flash_reading(got, ref)
+            check(rel <= MLP_TOL[name],
+                  f"fused MLP {key} disagrees with plain: {name} r={r} h={h} "
+                  f"f={f} approximate={approx} max_abs_err={err} relative "
+                  f"{rel} > {MLP_TOL[name]}")
+            kern = {"y": "fused_mlp_fwd", "dx": "fused_mlp_dx"}.get(
+                key, "fused_mlp_dw")
+            w = worst.setdefault(name, {}).setdefault(kern, [0.0, 0.0])
+            w[0], w[1] = max(w[0], err), max(w[1], rel)
+        del x, w1, b1, w2, b2, g, y, grads, dx, dw1, db1, dw2, db2, again
+        del prim, y_ag, auto, ry, rdx, rdw
+        torch.cuda.empty_cache()
+    return dict(tolerance_relative_to_row_rms_plus_abs=MLP_TOL,
+                worst={n: {k: dict(max_abs_err=e, relative=r)
+                           for k, (e, r) in w.items()}
+                       for n, w in worst.items()},
+                cases=[list(c) for c in MLP_CASES],
+                wrong_kernel_reading=mlp_check_rejects(torch, mf),
+                **mlp_times(torch, mf))
+
+
+def mlp_check_rejects(torch, mf):
+    """The bf16 check must reject a forward that skips one ffn chunk: the
+    plain forward at the slice's shape with the second ffn chunk of the
+    activation left out. Returns its reading."""
+    x, w1, b1, w2, b2, _ = mlp_inputs(torch, MLP_R, MLP_H, MLP_F,
+                                      torch.bfloat16, seed=MLP_R + MLP_F)
+    ref = mf.fused_mlp_fwd_ref(x, w1, b1, w2, b2, True)
+    keep = torch.ones(MLP_F, dtype=torch.bool, device="cuda")
+    keep[mf._CHUNK_F:2 * mf._CHUNK_F] = False
+    act = mf._gelu_f32(mf._pre(x, w1, b1), True).to(x.dtype).float()
+    wrong = (act[:, keep] @ w2.float()[keep] + b2.float()).to(x.dtype)
+    reading = flash_reading(wrong, ref)
+    check(reading > MLP_TOL["bfloat16"],
+          f"the bf16 MLP check passes a forward with one ffn chunk dropped: "
+          f"{reading} <= {MLP_TOL['bfloat16']}")
+    del x, w1, b1, w2, b2, ref, act, wrong
+    torch.cuda.empty_cache()
+    return reading
+
+
+def mlp_times(torch, mf):
+    """CUDA-event times at R=8192, H=2048, F=8192, bf16, tanh: the forward
+    and the backward op, each in turns with its plain version. The
+    backward computes dX and dW in one call, so the dX and dW kernels
+    share its time, its plain version's (dX's and dW's together) and its
+    bound. The library yardsticks (never called by the port): the dense
+    composite addmm -> gelu -> addmm through cuBLAS for the forward; no
+    library call computes dX alone or dW alone, so their library_ms is
+    null and the composite's whole backward (autograd on a retained
+    graph) is timed beside the backward op."""
+    x, w1, b1, w2, b2, g = mlp_inputs(torch, MLP_R, MLP_H, MLP_F,
+                                      torch.bfloat16, seed=11)
+
+    def plain_bwd(_):
+        return (mf.fused_mlp_dx_ref(x, w1, b1, w2, g, True),
+                *mf.fused_mlp_dw_ref(x, w1, b1, w2, g, True))
+
+    runs = {
+        "forward": (lambda _: mf.fused_mlp_fwd(x, w1, b1, w2, b2, True),
+                    lambda _: mf.fused_mlp_fwd_ref(x, w1, b1, w2, b2, True)),
+        "backward": (lambda _: mf.fused_mlp_bwd(x, w1, b1, w2, b2, g, True),
+                     plain_bwd),
+    }
+    bounds = mlp_bounds(MLP_R, MLP_H, MLP_F, 2)
+    res = {}
+    for name, (kern, plain) in runs.items():
+        plain_ms, ms, t = in_turns(plain, kern, iters=10)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, all_ms=t,
+                         bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    gelu = torch.nn.functional.gelu
+
+    def composite(x, w1, b1, w2, b2):
+        return torch.addmm(b2, gelu(torch.addmm(b1, x, w1),
+                                    approximate="tanh"), w2)
+
+    res["forward"]["library_ms"], _, _ = in_turns(
+        lambda _: composite(x, w1, b1, w2, b2), runs["forward"][0], iters=10)
+    prim = [t.detach().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+    yc = composite(*prim)
+    bwd = res["backward"]
+    bwd["library_bwd_ms"], bwd["ms_beside_library"], _ = in_turns(
+        lambda _: torch.autograd.grad(yc, prim, g, retain_graph=True),
+        runs["backward"][0], iters=10)
+    res["timed_at"] = dict(r=MLP_R, h=MLP_H, f=MLP_F, dtype="bfloat16",
+                           approximate=True, chunk_f=mf._CHUNK_F)
+    del x, w1, b1, w2, b2, g, prim, yc
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 10-14: the training path
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 4
@@ -602,11 +864,31 @@ def model_flops_per_step(cfg, tokens, seq):
     return 6.0 * weights * tokens + attn
 
 
-def phase_train(torch, cfg, steps=TRAIN_STEPS):
-    """Train cfg at B=4, S=2048 on one fixed batch: one warm-up step, then
-    `steps` steps; the flash kernels must run 24 times each per step."""
+def reset_launches():
+    """Every kernel count of the training path to 0."""
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    for counts in (fa.launches, mf.launches):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_launches():
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    return {**fa.launches, **mf.launches}
+
+
+def phase_train(torch, cfg, fused, steps=TRAIN_STEPS):
+    """Train cfg at B=4, S=2048 on one fixed batch: one warm-up step, then
+    `steps` steps, with FLAGS_fused_mlp as `fused` says. Each flash
+    kernel runs 24 times per step; with the flag on each fused MLP kernel
+    24 times too (save_small keeps the MLP forward's output), with it off
+    none."""
+    from paddle_tpu_torch import set_flags
     from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.nn.functional import last_mlp_path
+    set_flags({"FLAGS_fused_mlp": fused})
     params = gpt.init_hybrid_params(cfg, seed=0)
     opt = gpt.init_opt_state(params, dtype=cfg.opt_dtype)
     step = gpt.make_train_step(cfg)
@@ -617,24 +899,29 @@ def phase_train(torch, cfg, steps=TRAIN_STEPS):
     _, _, loss0 = step(params, opt, x, y)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for key in fa.launches:
-        fa.launches[key] = 0
-    t0 = time.perf_counter()
-    losses = [step(params, opt, x, y)[2] for _ in range(steps)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(fa.launches)
+    reset_launches()
+    with ClockSampler() as clocks:
+        t0 = time.perf_counter()
+        losses = [step(params, opt, x, y)[2] for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_launches()
+    path = last_mlp_path()
     losses = [float(l) for l in losses]
     check(all(np.isfinite(losses)), f"training loss not finite: {losses}")
     check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    check(path == ("fused_mlp/cuda" if fused else "dense"),
+          f"training took the MLP path {path} with FLAGS_fused_mlp={fused}")
     L = cfg.num_layers
     for key, n in counts.items():
-        check(n == L * steps, f"{key} launched {n} times in {steps} steps "
-              f"of {L} layers (want {L} per step)")
+        want = L * steps if fused or key.startswith("flash") else 0
+        check(n == want, f"{key} launched {n} times in {steps} steps of {L} "
+              f"layers (want {want}; FLAGS_fused_mlp={fused})")
     tokens = TRAIN_B * TRAIN_S
     flops = model_flops_per_step(cfg, tokens, TRAIN_S)
     ms = wall / steps * 1e3
     out = dict(config="gpt3-1.3b", b=TRAIN_B, s=TRAIN_S,
+               fused_mlp=fused, last_mlp_path=path,
                remat_policy=cfg.remat_policy, opt_dtype=str(cfg.opt_dtype),
                lm_head=cfg.lm_head, warmup_loss=float(loss0), losses=losses,
                ms_per_step=ms, tokens_per_s=tokens / (ms / 1e3),
@@ -642,15 +929,15 @@ def phase_train(torch, cfg, steps=TRAIN_STEPS):
                model_tflops=flops / (ms / 1e3) / 1e12,
                model_flops_share_of_989=flops / (ms / 1e3) / 989e12,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-               launches=counts,
+               card_during_steps=clocks.summary(), launches=counts,
                launches_per_step={k: n / steps for k, n in counts.items()})
     return out, params, opt, (x, y)
 
 
 def phase_profile_train(torch, cfg, params, opt, batch, steps=2):
     """torch.profiler over `steps` training steps: device busy time per
-    step against the profiled wall time, the flash kernels' share, and
-    the kernels that take the time."""
+    step against the profiled wall time, the flash and fused MLP kernels'
+    shares, and the kernels that take the time."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.models import gpt
@@ -672,12 +959,22 @@ def phase_profile_train(torch, cfg, params, opt, batch, steps=2):
              / 1e3 / steps
              for k in ("flash_fwd_kernel", "flash_dq_kernel",
                        "flash_dkv_kernel")}
+    # the fused MLP kernels by instantiation: <dtype, A col-major, B
+    # col-major, epilogue> (0 gelu, 1 accumulate, 2 pre-activation, 3
+    # gelu', 4 store), the column sums of g and the bias gradients' sum
+    # over the row blocks
+    mlp = {e.key[:100]: e.self_device_time_total / 1e3 / steps
+           for e in dev if any(k in e.key for k in (
+               "mlp_gemm_kernel", "colsum_kernel", "sum_parts_kernel"))}
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
     return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
                 device_busy_ms_per_step=busy_ms / steps,
                 device_idle_share=1.0 - busy_ms / wall_ms,
                 flash_ms_per_step=flash,
                 flash_share_of_busy=sum(flash.values()) * steps / busy_ms,
+                fused_mlp_ms_per_step=sum(mlp.values()),
+                fused_mlp_share_of_busy=sum(mlp.values()) * steps / busy_ms,
+                fused_mlp_kernels_ms_per_step=mlp,
                 top_device_ms_per_step=[
                     (e.key[:70], e.self_device_time_total / 1e3 / steps,
                      e.count // steps) for e in top[:12]])
@@ -685,29 +982,31 @@ def phase_profile_train(torch, cfg, params, opt, batch, steps=2):
 
 def phase_remat_full(torch, cfg, params, opt, batch):
     """One step under remat 'full': the backward re-runs each layer's
-    flash forward (2 per layer); dQ and dK/dV once per layer."""
-    from paddle_tpu_torch.kernels import flash_attention as fa
+    flash forward and fused MLP forward (2 per layer); dQ, dK/dV, the MLP
+    dX and dW once per layer."""
     from paddle_tpu_torch.models import gpt
     cfg = cfg._replace(remat_policy="full")
     step = gpt.make_train_step(cfg)
-    for key in fa.launches:
-        fa.launches[key] = 0
+    reset_launches()
     _, _, loss = step(params, opt, *batch)
     torch.cuda.synchronize()
-    counts = dict(fa.launches)
+    counts = read_launches()
     L = cfg.num_layers
-    check(counts == {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L},
-          f"remat 'full' step launched {counts} (want fwd {2 * L}, dq/dkv "
-          f"{L})")
+    want = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+            "fused_mlp_fwd": 2 * L, "fused_mlp_dx": L, "fused_mlp_dw": L}
+    check(counts == want, f"remat 'full' step launched {counts} (want "
+          f"{want})")
     check(bool(np.isfinite(float(loss))), "remat 'full' loss not finite")
     return dict(remat_policy="full", loss=float(loss), launches=counts)
 
 
 def phase_train_parity_fp32(torch):
     """fp32 at gpt3-1.3b width, 2 layers, B=1, S=2048: loss and every
-    gradient of the step with the flash kernels against the same step
-    through _block_apply's dense attention branch (reached by replacing
-    _attn_mode in this script only)."""
+    gradient of the step (a) with the flash and fused MLP kernels against
+    (b) the same step with FLAGS_fused_mlp off (the dense MLP), and (b)
+    against (c) the step through _block_apply's dense attention branch
+    (reached by replacing _attn_mode in this script only) as well."""
+    from paddle_tpu_torch import set_flags
     from paddle_tpu_torch.models import gpt
     cfg = gpt.CONFIGS["gpt3-1.3b"]._replace(
         dtype=torch.float32, num_layers=2, remat_policy="save_small",
@@ -721,30 +1020,48 @@ def phase_train_parity_fp32(torch):
     for p in leaves:
         p.requires_grad_(True)
 
-    def grads():
+    def grads(fused):
+        set_flags({"FLAGS_fused_mlp": fused})
+        reset_launches()
         loss = gpt.loss_fn(params, x, y, cfg)
-        return loss.item(), torch.autograd.grad(loss, leaves)
+        g = torch.autograd.grad(loss, leaves)
+        return loss.item(), g, read_launches()
 
-    lk, gk = grads()
+    lf, gf, counts = grads(True)
+    check(counts["fused_mlp_fwd"] == 2 and counts["fused_mlp_dw"] == 2,
+          f"fp32 parity run with FLAGS_fused_mlp on launched {counts}")
+    lk, gk, _ = grads(False)
     attn_mode = gpt._attn_mode
     gpt._attn_mode = lambda seq_len, head_dim: None
     try:
-        ld, gd = grads()
+        ld, gd, _ = grads(False)
     finally:
         gpt._attn_mode = attn_mode
+        set_flags({"FLAGS_fused_mlp": True})
     torch.cuda.synchronize()
     tol = 1e-4      # per leaf, relative to the leaf's largest gradient
-    worst = 0.0
-    for a, b in zip(gk, gd):
-        check(bool(torch.isfinite(a).all()), "parity gradient not finite")
-        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-        worst = max(worst, rel)
+
+    def worst(ga, gb):
+        w = 0.0
+        for a, b in zip(ga, gb):
+            check(bool(torch.isfinite(a).all()), "parity gradient not finite")
+            w = max(w, float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30))
+        return w
+
+    worst_mlp, worst_flash = worst(gf, gk), worst(gk, gd)
+    check(abs(lf - lk) <= 1e-5 * abs(lk), f"fp32 loss: fused MLP {lf} vs "
+          f"dense MLP {lk}")
     check(abs(lk - ld) <= 1e-5 * abs(ld), f"fp32 loss: flash {lk} vs dense "
           f"{ld}")
-    check(worst <= tol, f"fp32 gradients: flash vs dense relative {worst} > "
-          f"{tol}")
-    del params, gk, gd
-    return dict(loss_flash=lk, loss_dense=ld, worst_grad_relative=worst,
+    check(worst_mlp <= tol, f"fp32 gradients: fused vs dense MLP relative "
+          f"{worst_mlp} > {tol}")
+    check(worst_flash <= tol, f"fp32 gradients: flash vs dense attention "
+          f"relative {worst_flash} > {tol}")
+    del params, gf, gk, gd
+    return dict(loss_fused_mlp=lf, loss_flash=lk, loss_dense=ld,
+                worst_grad_relative_fused_vs_dense_mlp=worst_mlp,
+                worst_grad_relative_flash_vs_dense_attention=worst_flash,
                 tolerance=tol, leaves=len(leaves))
 
 
@@ -795,19 +1112,34 @@ def main():
 
     flash = phase_flash_vs_plain(torch)
     phase(8, "flash attention kernels vs plain", **flash)
-    set_flags({"FLAGS_fused_mlp": False})
+    mlp = phase_mlp_vs_plain(torch)
+    phase(9, "fused MLP kernels vs plain", **mlp)
     cfg = gpt.CONFIGS["gpt3-1.3b"]._replace(
         remat_policy="save_small", opt_dtype=torch.bfloat16, lm_head="auto")
-    train, params, opt, batch = phase_train(torch, cfg)
-    phase(9, "train gpt3-1.3b bf16 B=4 S=2048 save_small", **train)
-    phase(10, "profile of the training step",
+    train, params, opt, batch = phase_train(torch, cfg, fused=True)
+    phase(10, "train gpt3-1.3b bf16 B=4 S=2048 save_small fused MLP",
+          **train)
+    phase(11, "profile of the training step",
           **phase_profile_train(torch, cfg, params, opt, batch))
-    phase(11, "remat full launches",
+    phase(12, "remat full launches",
           **phase_remat_full(torch, cfg, params, opt, batch))
     del params, opt, batch
     torch.cuda.empty_cache()
-    phase(12, "training parity fp32 flash vs dense attention",
-          **phase_train_parity_fp32(torch))
+    dense, params, opt, batch = phase_train(torch, cfg, fused=False, steps=2)
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    # the fused route may hold its kernels' workspace beyond what the
+    # dense route needs, no more
+    work_gb = mlp_workspace_gb(TRAIN_B * TRAIN_S, cfg.hidden_size, cfg.ffn, 2)
+    extra_gb = train["peak_memory_gb"] - dense["peak_memory_gb"]
+    check(extra_gb <= work_gb, f"fused MLP step peaks {extra_gb} GB above "
+          f"the dense one (workspace {work_gb} GB)")
+    phase(13, "train gpt3-1.3b bf16 B=4 S=2048 save_small dense MLP",
+          fused_peak_minus_dense_gb=extra_gb, mlp_workspace_gb=work_gb,
+          **dense)
+    set_flags({"FLAGS_fused_mlp": True})
+    phase(14, "training parity fp32 fused vs dense MLP, flash vs dense "
+          "attention", **phase_train_parity_fp32(torch))
 
     kernels = [{
         "name": "decode_attn_proj", "route": "cuda", "source": SOURCE,
@@ -816,16 +1148,26 @@ def main():
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"]}]
-    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
-        t = flash[name]
-        err = flash["worst"]["bfloat16"][name]["max_abs_err"]
+    # the dX and dW kernels run in one backward call and share its times
+    # and bound
+    for name, src, replaces, res, key in (
+            *((n, FLASH_SOURCE, FLASH_REPLACES[n], flash, n)
+              for n in ("flash_fwd", "flash_dq", "flash_dkv")),
+            ("fused_mlp_fwd", MLP_SOURCE, MLP_REPLACES["fused_mlp_fwd"], mlp,
+             "forward"),
+            *((n, MLP_SOURCE, MLP_REPLACES[n], mlp, "backward")
+              for n in ("fused_mlp_dx", "fused_mlp_dw"))):
+        t = res[key]
+        err = res["worst"]["bfloat16"][name]["max_abs_err"]
         kernels.append({
-            "name": name, "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": FLASH_REPLACES[name],
-            "launches": train["launches"][name], "max_abs_err": err,
-            "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": train["launches"][name],
+            "max_abs_err": err, "max_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if key == "backward":
+            kernels[-1]["note"] = ("dX and dW run in one backward call: ms, "
+                                   "plain_ms and bound_ms are that call's")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -82,9 +82,9 @@ define_flag("serving_device_loop", True,
             "token_count)), bitwise the reference's streams. Off: host "
             "numpy sampling, one step per dispatch")
 define_flag("fused_mlp", True,
-            "route the GPT training step's MLP sublayer (matmul→GeLU→"
-            "matmul) through the fused MLP kernels (TPU kernels 4-6, "
-            "ported in ROADMAP A2b). Until then a CUDA tensor raises "
-            "NotImplementedError with the flag on; set it False for the "
-            "dense MLP. CPU tensors take the dense MLP, as the reference "
-            "does off the TPU")
+            "route the transformer MLP sublayer (matmul→GeLU→matmul) of the "
+            "GPT training step and of nn.functional.fused_mlp through the "
+            "fused MLP kernels (kernels/mlp_fusion.py, TPU kernels 4-6): the "
+            "hand-written CUDA kernels on a card, their plain PyTorch "
+            "versions for CPU tensors. Off: the dense linear→gelu→linear "
+            "chain")

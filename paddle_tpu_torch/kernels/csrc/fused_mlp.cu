@@ -1,0 +1,641 @@
+// Fused GeLU MLP, forward and backward: y = gelu(x . W1 + b1) . W2 + b2.
+//
+// Replaces the TPU kernels of paddle_tpu/kernels/mlp_fusion.py:
+//   _mlp_fwd_kernel :228 (launched by _mlp_fwd :374) -> fused_mlp_fwd_*
+//   _mlp_dx_kernel  :260 (launched by _mlp_dx :394)  -> fused_mlp_bwd_* (dX part)
+//   _mlp_dw_kernel  :296 (launched by _mlp_dw :415)  -> fused_mlp_bwd_* (dW part)
+// all entered through fused_mlp_2d :472. x [R, H], W1 [H, F], W2 [F, H] and
+// g [R, H] contiguous, float32 or bfloat16 (one dtype); b1 [F] and b2 [H]
+// come in as f32. No dropout (the seeded keep-mask is BERT's, ROADMAP A6).
+//
+//   forward: a = x . W1 (f32 accumulation) + b1 (f32); act = round(gelu(a));
+//            y = round(act . W2 (f32) + b2)                          (:243-257)
+//   dX:      dact = g . W2^T (f32); da = dact * gelu'(a) (f32);
+//            dX = round(round(da) . W1^T (f32))                       (:275-293)
+//   dW:      dW1 = x^T . da, db1 = sum_r da, dW2 = act^T . g, db2 = sum_r g,
+//            all f32 in the reference (:318-353); dW1/dW2 rounded to the
+//            weights' dtype at the end, db1/db2 kept f32 (the caller casts).
+// The backward computes dX and dW in one call (the flash backward groups
+// its parts the same way).
+// round() is the rounding to the input dtype. gelu is the tanh form
+// (approximate, GPT) or the erf form (BERT), with the reference's constants
+// (:66-69).
+//
+// Bound: operations. At GPT-3 1.3B training shapes (R = B*S = 8192, H =
+// 2048, F = 8192, bf16; RHF = 1.374e11) the forward needs 4 RHF = 0.550
+// TFLOP, 0.556 ms at 989 TFLOP/s, against 0.05 ms to move x, W1, W2 and y
+// once at 3.35 TB/s; dX needs 6 RHF (0.834 ms), dW 8 RHF (1.112 ms).
+//
+// Design. The TPU keeps a [block_r, H] f32 accumulator (dX, forward) or
+// [H, block_f] + [block_f, H] accumulators (dW) in VMEM across a sequential
+// ffn (or row) axis: at H = 2048 that is 512 KB to 1 MB, two to four times
+// an SM's shared memory. Here the ffn dim is walked in chunks of Fc columns
+// (the caller's chunk, 2048 on the main path), and every product is one
+// launch of one tiled GEMM kernel with a fused epilogue:
+//   forward, per chunk:  (1) act_c = round(gelu(x . W1[:, c] + b1[c]))
+//                        (2) acc (+)= act_c . W2[c, :]; last chunk writes
+//                            y = round(acc + b2)
+//   backward, per chunk: (1) a_c = x . W1[:, c] + b1[c]               (f32)
+//                        (2) dact = g . W2[c, :]^T; da_c = round(dact * gelu'(a_c)),
+//                            act_c = round(gelu(a_c)), and each row block's
+//                            column sums of da (f32) into the partials
+//                        (3) dX: acc (+)= da_c . W1[:, c]^T; last writes round(acc)
+//                        (4) dW1[:, c] = x^T . da_c   (5) dW2[c, :] = act_c^T . g
+//                        once per call, before the chunks: each row block's
+//                        column sums of g into the partials; after them: db1
+//                        and db2 = the partials summed over the row blocks.
+// No atomics: every sum runs in a fixed order, so the backward gives the
+// same bits on every run.
+// The [R, F] activation never exists whole: only one [R, Fc] chunk of it
+// (and of a and da in the backward) lives in device memory at a time.
+// Workspace (allocated by the caller): forward act_c [R, Fc] in the dtype
+// plus the f32 accumulator [R, H] when F > Fc; backward a_c [R, Fc] f32,
+// da_c and act_c [R, Fc] in the dtype, the f32 [R, H] dX accumulator when
+// F > Fc, and the f32 column-sum partials [ceil(R / BM), F + H]. At R =
+// 8192, H = 2048, Fc = 2048, bf16: 32 + 64 = 96 MB forward, 64 + 32 + 32 +
+// 64 + 2.6 = 194.6 MB backward. Recompute: the backward's (1) repeats the
+// forward's first product, 2 RHF, as the TPU kernels do (their dX and dW
+// kernels each recompute it: 4 RHF); the backward does 10 RHF in all.
+//
+// GEMM: a 3-stage cp.async ring of operand tiles in shared memory (16-byte
+// copies, zero-filled past the matrix edge: any R, H, F, no padding in
+// device memory; a scalar path when a stride is not a multiple of 16
+// bytes). Operands are read in their own layout (row- or column-major
+// tiles), so no transpose is ever written. bf16: block tile 128 x 128 x
+// 64, 8 warps of 64 x 32, fragments loaded with ldmatrix (.trans for the
+// transposed layouts) into mma.sync m16n8k16 with f32 accumulators in
+// registers (the chunk and this tile were chosen on an H100, PERF.md).
+// Precision of the dW
+// products: the bf16 kernel feeds round(da) and round(act) to the bf16
+// tensor cores (the reference multiplies them in f32); x and g are bf16
+// already, so that is the only rounding it adds. float32: scalar FMA,
+// 8 x 8 outputs per thread, every product in full f32 (for the parity
+// runs), block tile 128 x 128 x 32. The accumulator tile goes through
+// shared memory as f32 for the epilogue.
+//
+// CUDA launches per call, nc = ceil(F / Fc) chunks: forward 2 nc; backward
+// 5 nc + 2.
+// wgmma, TMA, a persistent schedule and an epilogue from registers are
+// left for later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
+
+namespace {
+
+// Block tile BM x BN, k step BK, NSTAGE copies in flight, warp tile WTM x
+// WTN (bf16; the f32 FMA path takes 256 threads of 8 x 8 outputs).
+template <int BM_, int BN_, int BK_, int NSTAGE_, int WTM_, int WTN_> struct TileCfg {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, NSTAGE = NSTAGE_, WTM = WTM_, WTN = WTN_;
+  static constexpr int THREADS = 32 * (BM / WTM) * (BN / WTN);
+  static constexpr int LDS = BN + 4;  // row stride of the f32 epilogue tile
+};
+template <typename T> struct Cfg;
+template <> struct Cfg<float> : TileCfg<128, 128, 32, 3, 32, 64> {};
+template <> struct Cfg<__nv_bfloat16> : TileCfg<128, 128, 64, 3, 64, 32> {};
+// the caller sizes the column-sum partials by one row-block height
+constexpr int kRowBlock = 128;
+static_assert(Cfg<float>::BM == kRowBlock && Cfg<__nv_bfloat16>::BM == kRowBlock,
+              "one row-block height for both dtypes");
+
+constexpr float kSqrt2OverPi = 0.7978845608028654f;
+constexpr float kGeluCoef = 0.044715f;
+constexpr float kInvSqrt2 = 0.7071067811865476f;
+constexpr float kInvSqrt2Pi = 0.3989422804014327f;
+
+enum Epi { EPI_GELU, EPI_ACC, EPI_PRE, EPI_DGELU, EPI_STORE };
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float gelu(float a, int approximate) {
+  if (approximate) {
+    const float u = kSqrt2OverPi * (a + kGeluCoef * a * a * a);
+    return 0.5f * a * (1.f + tanhf(u));
+  }
+  return 0.5f * a * (1.f + erff(a * kInvSqrt2));
+}
+
+__device__ __forceinline__ float dgelu(float a, int approximate) {
+  if (approximate) {
+    const float u = kSqrt2OverPi * (a + kGeluCoef * a * a * a);
+    const float t = tanhf(u);
+    const float du = kSqrt2OverPi * (1.f + 3.f * kGeluCoef * a * a);
+    return 0.5f * (1.f + t) + 0.5f * a * (1.f - t * t) * du;
+  }
+  const float cdf = 0.5f * (1.f + erff(a * kInvSqrt2));
+  const float pdf = expf(-0.5f * a * a) * kInvSqrt2Pi;
+  return cdf + a * pdf;
+}
+
+// One GEMM C[m, n] = sum_k A(m, k) B(k, n) and its epilogue. A(m, k) is
+// a[m * lda + k], or a[k * lda + m] when the kernel's ACOL; B(k, n) is
+// b[k * ldb + n], or b[n * ldb + k] when BCOL. Epilogue operands:
+//   EPI_GELU:  out = round(gelu(C + bias))
+//   EPI_ACC:   buf = (first ? 0 : buf) + C; on the last call out =
+//              round(buf + bias) (bias may be null) and buf is not written
+//   EPI_PRE:   buf = C + bias (f32)
+//   EPI_DGELU: da = C * gelu'(aux); out = round(da); out2 = round(gelu(aux));
+//              colsum[by * ldcol + n] = sum of da over the block's rows, by
+//              the block's row index
+//   EPI_STORE: out = round(C)
+template <typename T> struct Gemm {
+  const T* a;
+  const T* b;
+  size_t lda, ldb;
+  int m, n, k;
+  const float* bias;
+  const float* aux;
+  float* buf;
+  T* out;
+  T* out2;
+  float* colsum;
+  size_t ldaux, ldbuf, ldo, ldcol;
+  int first, last, approximate, vec;
+};
+
+// Shared-memory tile shapes: a tile is `outer` rows of `inner` contiguous
+// elements (the operand's own layout), rows padded by 16 bytes.
+template <typename T> struct Pad { static constexpr int v = 16 / sizeof(T); };
+template <typename T, bool ACOL> struct ATile {
+  static constexpr int outer = ACOL ? Cfg<T>::BK : Cfg<T>::BM;
+  static constexpr int inner = ACOL ? Cfg<T>::BM : Cfg<T>::BK;
+  static constexpr int ld = inner + Pad<T>::v;
+  static constexpr size_t bytes = (size_t)outer * ld * sizeof(T);
+};
+template <typename T, bool BCOL> struct BTile {
+  static constexpr int outer = BCOL ? Cfg<T>::BN : Cfg<T>::BK;
+  static constexpr int inner = BCOL ? Cfg<T>::BK : Cfg<T>::BN;
+  static constexpr int ld = inner + Pad<T>::v;
+  static constexpr size_t bytes = (size_t)outer * ld * sizeof(T);
+};
+
+template <typename T, bool ACOL, bool BCOL> constexpr size_t smem_bytes() {
+  const size_t ring = Cfg<T>::NSTAGE * (ATile<T, ACOL>::bytes + BTile<T, BCOL>::bytes);
+  const size_t epi = (size_t)Cfg<T>::BM * Cfg<T>::LDS * sizeof(float);
+  return ring > epi ? ring : epi;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = ok ? 16 : 0;  // 0: zero-fill, nothing read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, one row address per lane;
+// with TRANS each is transposed on the way into the registers.
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if (TRANS) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a));
+  }
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One tile: rows [0, OUTER) x columns [0, INNER) of the matrix at src with
+// row stride lds; zero past outer_ext rows or inner_ext columns.
+template <typename T, int OUTER, int INNER, int LDD>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, size_t lds,
+                                          int outer_ext, int inner_ext, int vec) {
+  if (vec) {
+    constexpr int V = 16 / sizeof(T);
+    constexpr int CPR = INNER / V;
+    for (int idx = threadIdx.x; idx < OUTER * CPR; idx += Cfg<T>::THREADS) {
+      const int o = idx / CPR, i = (idx - o * CPR) * V;
+      const bool ok = o < outer_ext && i < inner_ext;  // whole vector: ld % V == 0
+      cp_async16(dst + o * LDD + i, ok ? src + (size_t)o * lds + i : src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < OUTER * INNER; idx += Cfg<T>::THREADS) {
+      const int o = idx / INNER, i = idx - o * INNER;
+      dst[o * LDD + i] =
+          (o < outer_ext && i < inner_ext) ? src[(size_t)o * lds + i] : from_f<T>(0.f);
+    }
+  }
+}
+
+template <typename T, bool ACOL, bool BCOL>
+__device__ __forceinline__ void load_stage(const Gemm<T>& p, T* as, T* bs, int m0, int n0,
+                                           int k0) {
+  using A = ATile<T, ACOL>;
+  using B = BTile<T, BCOL>;
+  if (ACOL) {
+    load_tile<T, A::outer, A::inner, A::ld>(as, p.a + (size_t)k0 * p.lda + m0, p.lda, p.k - k0,
+                                            p.m - m0, p.vec);
+  } else {
+    load_tile<T, A::outer, A::inner, A::ld>(as, p.a + (size_t)m0 * p.lda + k0, p.lda, p.m - m0,
+                                            p.k - k0, p.vec);
+  }
+  if (BCOL) {
+    load_tile<T, B::outer, B::inner, B::ld>(bs, p.b + (size_t)n0 * p.ldb + k0, p.ldb, p.n - n0,
+                                            p.k - k0, p.vec);
+  } else {
+    load_tile<T, B::outer, B::inner, B::ld>(bs, p.b + (size_t)k0 * p.ldb + n0, p.ldb, p.k - k0,
+                                            p.n - n0, p.vec);
+  }
+}
+
+// The k loop: the block's BM x BN product, left in S (f32, row stride LDS).
+template <typename T, bool ACOL, bool BCOL>
+__device__ void mainloop(const Gemm<T>& p, char* smem, float* S, int m0, int n0) {
+  using A = ATile<T, ACOL>;
+  using B = BTile<T, BCOL>;
+  using C = Cfg<T>;
+  constexpr int BK = C::BK, NSTAGE = C::NSTAGE, LDS = C::LDS;
+  constexpr size_t kStage = A::bytes + B::bytes;
+  auto as = [&](int s) { return reinterpret_cast<T*>(smem + s * kStage); };
+  auto bs = [&](int s) { return reinterpret_cast<T*>(smem + s * kStage + A::bytes); };
+  const int nk = (p.k + BK - 1) / BK;
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    if (s < nk) load_stage<T, ACOL, BCOL>(p, as(s), bs(s), m0, n0, s * BK);
+    cp_async_commit();
+  }
+  const int warp = threadIdx.x >> 5;
+
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // mma.sync m16n8k16: this warp's WTM x WTN as FM x FN tiles of 16 x 8,
+    // fragments loaded with ldmatrix (.trans where the tile's layout is
+    // the transpose of the fragment's)
+    constexpr int FM = C::WTM / 16, FN = C::WTN / 8, WARPS_N = C::BN / C::WTN;
+    static_assert(FN % 2 == 0, "B fragments are loaded two n8 tiles at a time");
+    const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+    const int wm = (warp / WARPS_N) * C::WTM, wn = (warp % WARPS_N) * C::WTN;
+    float acc[FM][FN][4];
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<NSTAGE - 2>();
+      __syncthreads();  // stage kt landed; everyone is done with stage kt - 1
+      const int nxt = kt + NSTAGE - 1;
+      if (nxt < nk)
+        load_stage<T, ACOL, BCOL>(p, as(nxt % NSTAGE), bs(nxt % NSTAGE), m0, n0, nxt * BK);
+      cp_async_commit();
+      const T* at = as(kt % NSTAGE);
+      const T* bt = bs(kt % NSTAGE);
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        uint32_t fa[FM][4], fb[FN][2];
+        // lane l addresses row l % 8 of 8 x 8 matrix l / 8: for A the
+        // matrices are (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
+        // (m 8-15, k 8-15); for B (k 0-7, n 0-7), (k 8-15, n 0-7),
+        // (k 0-7, n 8-15), (k 8-15, n 8-15): two n8 tiles
+#pragma unroll
+        for (int i = 0; i < FM; ++i) {
+          const int m = wm + 16 * i + (mi & 1) * 8, k = kk + (mi >> 1) * 8;
+          ldmatrix_x4<ACOL>(fa[i], ACOL ? at + (k + r8) * A::ld + m : at + (m + r8) * A::ld + k);
+        }
+#pragma unroll
+        for (int j = 0; j < FN; j += 2) {
+          const int n = wn + 8 * j + (mi >> 1) * 8, k = kk + (mi & 1) * 8;
+          uint32_t r[4];
+          ldmatrix_x4<!BCOL>(r, BCOL ? bt + (n + r8) * B::ld + k : bt + (k + r8) * B::ld + n);
+          fb[j][0] = r[0], fb[j][1] = r[1], fb[j + 1][0] = r[2], fb[j + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int i = 0; i < FM; ++i)
+#pragma unroll
+          for (int j = 0; j < FN; ++j) mma_bf16(acc[i][j], fa[i], fb[j]);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free: S overlays it
+    // accumulator (r, c), (r, c + 1), (r + 8, c), (r + 8, c + 1) with
+    // r = lane / 4, c = 2 (lane % 4) in each 16 x 8 tile
+    const int g = lane >> 2, c2 = 2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int j = 0; j < FN; ++j) {
+        float* d = S + (wm + 16 * i + g) * LDS + wn + 8 * j + c2;
+        *reinterpret_cast<float2*>(d) = make_float2(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<float2*>(d + 8 * LDS) = make_float2(acc[i][j][2], acc[i][j][3]);
+      }
+  } else {
+    static_assert(C::THREADS == 256 && C::BM == 128 && C::BN == 128, "f32 FMA tiling");
+    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;  // rows ty + 16i, cols tx + 16j
+    float c[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) c[i][j] = 0.f;
+
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<NSTAGE - 2>();
+      __syncthreads();
+      const int nxt = kt + NSTAGE - 1;
+      if (nxt < nk)
+        load_stage<T, ACOL, BCOL>(p, as(nxt % NSTAGE), bs(nxt % NSTAGE), m0, n0, nxt * BK);
+      cp_async_commit();
+      const T* at = as(kt % NSTAGE);
+      const T* bt = bs(kt % NSTAGE);
+      for (int k = 0; k < BK; ++k) {
+        float av[8], bv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = ty + 16 * i;
+          av[i] = to_f(ACOL ? at[k * A::ld + r] : at[r * A::ld + k]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int cc = tx + 16 * j;
+          bv[j] = to_f(BCOL ? bt[cc * B::ld + k] : bt[k * B::ld + cc]);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) c[i][j] = fmaf(av[i], bv[j], c[i][j]);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) S[(ty + 16 * i) * LDS + tx + 16 * j] = c[i][j];
+  }
+  __syncthreads();  // S is complete
+}
+
+// grid (ceil(n / BN), ceil(m / BM))
+template <typename T, bool ACOL, bool BCOL, int EPI>
+__global__ void __launch_bounds__(Cfg<T>::THREADS) mlp_gemm_kernel(Gemm<T> p) {
+  constexpr int BM = Cfg<T>::BM, BN = Cfg<T>::BN, LDS = Cfg<T>::LDS;
+  extern __shared__ __align__(128) char smem[];
+  float* S = reinterpret_cast<float*>(smem);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  mainloop<T, ACOL, BCOL>(p, smem, S, m0, n0);
+
+  for (int idx = threadIdx.x; idx < BM * BN; idx += Cfg<T>::THREADS) {
+    const int r = idx / BN, c = idx - r * BN;
+    const int gm = m0 + r, gn = n0 + c;
+    const bool in = gm < p.m && gn < p.n;
+    const float v = S[r * LDS + c];
+    if (EPI == EPI_GELU) {
+      if (in) p.out[(size_t)gm * p.ldo + gn] = from_f<T>(gelu(v + p.bias[gn], p.approximate));
+    } else if (EPI == EPI_ACC) {
+      if (in) {
+        const size_t o = (size_t)gm * p.ldbuf + gn;
+        const float s = p.first ? v : p.buf[o] + v;
+        if (p.last) {
+          p.out[(size_t)gm * p.ldo + gn] = from_f<T>(p.bias ? s + p.bias[gn] : s);
+        } else {
+          p.buf[o] = s;
+        }
+      }
+    } else if (EPI == EPI_PRE) {
+      if (in) p.buf[(size_t)gm * p.ldbuf + gn] = v + p.bias[gn];
+    } else if (EPI == EPI_DGELU) {
+      float da = 0.f;
+      if (in) {
+        const float a = p.aux[(size_t)gm * p.ldaux + gn];
+        da = v * dgelu(a, p.approximate);
+        p.out[(size_t)gm * p.ldo + gn] = from_f<T>(da);
+        p.out2[(size_t)gm * p.ldo + gn] = from_f<T>(gelu(a, p.approximate));
+      }
+      S[r * LDS + c] = da;  // each thread rewrites only the elements it read
+    } else {
+      if (in) p.out[(size_t)gm * p.ldo + gn] = from_f<T>(v);
+    }
+  }
+  if (EPI == EPI_DGELU) {
+    __syncthreads();
+    float* part = p.colsum + (size_t)blockIdx.y * p.ldcol;
+    for (int c = threadIdx.x; c < BN && n0 + c < p.n; c += Cfg<T>::THREADS) {
+      float s = 0.f;
+      for (int r = 0; r < BM; ++r) s += S[r * LDS + c];
+      part[n0 + c] = s;
+    }
+  }
+}
+
+// part[by * ld + c] = sum of g[r, c] over row block by (kRowBlock rows).
+// grid (ceil(cols / 256), ceil(rows / kRowBlock)), 256 threads.
+template <typename T>
+__global__ void colsum_kernel(const T* __restrict__ g, float* __restrict__ part, size_t ld,
+                              int rows, int cols) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  const int r0 = blockIdx.y * kRowBlock;
+  const int r1 = min(rows, r0 + kRowBlock);
+  float s = 0.f;
+  for (int r = r0; r < r1; ++r) s += to_f(g[(size_t)r * cols + c]);
+  part[(size_t)blockIdx.y * ld + c] = s;
+}
+
+// s[c] = sum of part[i * cols + c] over i = 0 .. parts - 1, in that order;
+// out1[c] = s[c] for c < n1, out2[c - n1] = s[c] past it.
+// grid ceil(cols / 256), 256 threads.
+__global__ void sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out1,
+                                 float* __restrict__ out2, int parts, int n1, int cols) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  float s = 0.f;
+  for (int i = 0; i < parts; ++i) s += part[(size_t)i * cols + c];
+  if (c < n1) {
+    out1[c] = s;
+  } else {
+    out2[c - n1] = s;
+  }
+}
+
+// --------------------------------------------------------------------------
+// host side
+// --------------------------------------------------------------------------
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+template <typename T, bool ACOL, bool BCOL, int EPI>
+int run_gemm(Gemm<T> p, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  // 16-byte copies: aligned bases, strides and contiguous extents whole vectors
+  p.vec = (aligned16(p.a) && aligned16(p.b) && p.lda % V == 0 && p.ldb % V == 0 &&
+           (ACOL ? p.m : p.k) % V == 0 && (BCOL ? p.k : p.n) % V == 0)
+              ? 1
+              : 0;
+  using C = Cfg<T>;
+  const dim3 grid((p.n + C::BN - 1) / C::BN, (p.m + C::BM - 1) / C::BM);
+  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
+  constexpr size_t bytes = smem_bytes<T, ACOL, BCOL>();
+  auto kernel = mlp_gemm_kernel<T, ACOL, BCOL, EPI>;
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)bytes);
+  if (rc) return rc;
+  kernel<<<grid, C::THREADS, bytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int r, int h, int f, int fc) { return r < 1 || h < 1 || f < 1 || fc < 1; }
+
+template <typename T>
+int launch_fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+               void* y, void* act_ws, void* acc_ws, int r, int h, int f, int fc,
+               int approximate, void* stream) {
+  if (bad_shape(r, h, f, fc)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* X = static_cast<const T*>(x);
+  const T* W1 = static_cast<const T*>(w1);
+  const T* W2 = static_cast<const T*>(w2);
+  T* act = static_cast<T*>(act_ws);
+  const int nch = (f + fc - 1) / fc;
+  for (int c = 0; c < nch; ++c) {
+    const int f0 = c * fc, nc = std::min(fc, f - f0);
+    Gemm<T> p = {};
+    p.a = X, p.lda = h, p.b = W1 + f0, p.ldb = f;
+    p.m = r, p.n = nc, p.k = h;
+    p.bias = static_cast<const float*>(b1) + f0;
+    p.out = act, p.ldo = nc, p.approximate = approximate;
+    int rc = run_gemm<T, false, false, EPI_GELU>(p, st);
+    if (rc) return rc;
+    Gemm<T> q = {};
+    q.a = act, q.lda = nc, q.b = W2 + (size_t)f0 * h, q.ldb = h;
+    q.m = r, q.n = h, q.k = nc;
+    q.bias = static_cast<const float*>(b2);
+    q.buf = static_cast<float*>(acc_ws), q.ldbuf = h;
+    q.out = static_cast<T*>(y), q.ldo = h;
+    q.first = c == 0, q.last = c == nch - 1;
+    if ((rc = run_gemm<T, false, false, EPI_ACC>(q, st))) return rc;
+  }
+  return 0;
+}
+
+// db1 [F] and db2 [H] are f32; part_ws holds parts = ceil(R / kRowBlock)
+// rows of F + H f32 column sums (da's, then g's), one row per row block.
+template <typename T>
+int launch_bwd(const void* x, const void* w1, const void* b1, const void* w2, const void* g,
+               void* dx, void* dw1, void* db1, void* dw2, void* db2, void* a_ws, void* da_ws,
+               void* act_ws, void* acc_ws, void* part_ws, int parts, int r, int h, int f,
+               int fc, int approximate, void* stream) {
+  if (bad_shape(r, h, f, fc) || parts != (r + kRowBlock - 1) / kRowBlock)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* X = static_cast<const T*>(x);
+  const T* W1 = static_cast<const T*>(w1);
+  const T* W2 = static_cast<const T*>(w2);
+  const T* G = static_cast<const T*>(g);
+  float* A = static_cast<float*>(a_ws);
+  T* DA = static_cast<T*>(da_ws);
+  T* ACT = static_cast<T*>(act_ws);
+  float* PART = static_cast<float*>(part_ws);
+  const size_t ldp = (size_t)f + h;
+  int rc = 0;
+  const dim3 grid((h + 255) / 256, parts);
+  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
+  colsum_kernel<T><<<grid, 256, 0, st>>>(G, PART + f, ldp, r, h);  // db2's partials
+  if ((rc = (int)cudaGetLastError())) return rc;
+  const int nch = (f + fc - 1) / fc;
+  for (int c = 0; c < nch; ++c) {
+    const int f0 = c * fc, nc = std::min(fc, f - f0);
+    Gemm<T> p = {};  // a_c = x . W1[:, c] + b1[c]
+    p.a = X, p.lda = h, p.b = W1 + f0, p.ldb = f;
+    p.m = r, p.n = nc, p.k = h;
+    p.bias = static_cast<const float*>(b1) + f0;
+    p.buf = A, p.ldbuf = nc;
+    if ((rc = run_gemm<T, false, false, EPI_PRE>(p, st))) return rc;
+
+    Gemm<T> q = {};  // da_c, act_c, db1[c] from dact = g . W2[c, :]^T
+    q.a = G, q.lda = h, q.b = W2 + (size_t)f0 * h, q.ldb = h;
+    q.m = r, q.n = nc, q.k = h;
+    q.aux = A, q.ldaux = nc;
+    q.out = DA, q.out2 = ACT, q.ldo = nc, q.approximate = approximate;
+    q.colsum = PART + f0, q.ldcol = ldp;  // db1's partials
+    if ((rc = run_gemm<T, false, true, EPI_DGELU>(q, st))) return rc;
+
+    Gemm<T> d = {};  // acc (+)= da_c . W1[:, c]^T
+    d.a = DA, d.lda = nc, d.b = W1 + f0, d.ldb = f;
+    d.m = r, d.n = h, d.k = nc;
+    d.buf = static_cast<float*>(acc_ws), d.ldbuf = h;
+    d.out = static_cast<T*>(dx), d.ldo = h;
+    d.first = c == 0, d.last = c == nch - 1;
+    if ((rc = run_gemm<T, false, true, EPI_ACC>(d, st))) return rc;
+
+    Gemm<T> w = {};  // dW1[:, c] = x^T . da_c
+    w.a = X, w.lda = h, w.b = DA, w.ldb = nc;
+    w.m = h, w.n = nc, w.k = r;
+    w.out = static_cast<T*>(dw1) + f0, w.ldo = f;
+    if ((rc = run_gemm<T, true, false, EPI_STORE>(w, st))) return rc;
+    Gemm<T> v = {};  // dW2[c, :] = act_c^T . g
+    v.a = ACT, v.lda = nc, v.b = G, v.ldb = h;
+    v.m = nc, v.n = h, v.k = r;
+    v.out = static_cast<T*>(dw2) + (size_t)f0 * h, v.ldo = h;
+    if ((rc = run_gemm<T, true, false, EPI_STORE>(v, st))) return rc;
+  }
+  sum_parts_kernel<<<(unsigned)((ldp + 255) / 256), 256, 0, st>>>(
+      PART, static_cast<float*>(db1), static_cast<float*>(db2), parts, f, (int)ldp);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int fused_mlp_fwd_f32(const void* x, const void* w1, const void* b1, const void* w2,
+                      const void* b2, void* y, void* act_ws, void* acc_ws, int r, int h, int f,
+                      int fc, int approximate, void* stream) {
+  return launch_fwd<float>(x, w1, b1, w2, b2, y, act_ws, acc_ws, r, h, f, fc, approximate,
+                           stream);
+}
+
+int fused_mlp_fwd_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                       const void* b2, void* y, void* act_ws, void* acc_ws, int r, int h, int f,
+                       int fc, int approximate, void* stream) {
+  return launch_fwd<__nv_bfloat16>(x, w1, b1, w2, b2, y, act_ws, acc_ws, r, h, f, fc,
+                                   approximate, stream);
+}
+
+int fused_mlp_bwd_f32(const void* x, const void* w1, const void* b1, const void* w2,
+                      const void* g, void* dx, void* dw1, void* db1, void* dw2, void* db2,
+                      void* a_ws, void* da_ws, void* act_ws, void* acc_ws, void* part_ws,
+                      int parts, int r, int h, int f, int fc, int approximate, void* stream) {
+  return launch_bwd<float>(x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, a_ws, da_ws, act_ws, acc_ws,
+                           part_ws, parts, r, h, f, fc, approximate, stream);
+}
+
+int fused_mlp_bwd_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                       const void* g, void* dx, void* dw1, void* db1, void* dw2, void* db2,
+                       void* a_ws, void* da_ws, void* act_ws, void* acc_ws, void* part_ws,
+                       int parts, int r, int h, int f, int fc, int approximate, void* stream) {
+  return launch_bwd<__nv_bfloat16>(x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, a_ws, da_ws,
+                                   act_ws, acc_ws, part_ws, parts, r, h, f, fc, approximate,
+                                   stream);
+}
+
+const char* fused_mlp_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

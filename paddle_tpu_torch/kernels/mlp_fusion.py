@@ -1,16 +1,33 @@
-"""Single-kernel B=1 serving decode: paged attention + output projection.
+"""Fused transformer-block kernels: the GeLU MLP and the B=1 decode step.
 
-Counterpart: ``paddle_tpu/kernels/mlp_fusion.py``, the decode part only
+Counterpart: ``paddle_tpu/kernels/mlp_fusion.py``: the activation
+functions (``_gelu_f32`` / ``_dgelu_f32`` :66-87), the fused MLP
+(``_mlp_fwd_kernel`` :228, ``_mlp_dx_kernel`` :260, ``_mlp_dw_kernel``
+:296, the ``custom_vjp`` assembly :443 and ``fused_mlp_2d`` :472; its
+shape rule ``mlp_blocks`` :118 as ``mlp_eligible``) and the decode part
 (``_decode_kernel`` :977, ``_decode_call`` :1041, ``decode_attn_proj``
-:1067). The fused MLP, SwiGLU and projection-LN kernels of that module
-belong to later slices (ROADMAP.md).
+:1067). The SwiGLU and projection-LN kernels belong to later slices
+(ROADMAP A4, A6); so does the fused MLP's dropout epilogue (A6).
 
-``decode_attn_proj`` is the wrapper. For CUDA tensors it launches the
-hand-written Hopper kernel ``csrc/decode_attn_proj.cu`` (its header
-names the TPU kernel it replaces, its memory bound and what the design
-does about it) or raises; for CPU tensors it takes the plain PyTorch
-version ``decode_attn_proj_ref``. ``decode_attn_proj.launches`` counts
-kernel launches (CPU calls do not count).
+The fused MLP's forward and backward are ``torch.library`` custom ops,
+``paddle_tpu_torch::fused_mlp_fwd`` → ``y`` and
+``paddle_tpu_torch::fused_mlp_bwd`` → ``(dx, dw1, db1, dw2, db2)``,
+joined by ``register_autograd``; the backward saves the primal inputs
+only (the reference's residuals, :452-458) and recomputes the [R, F]
+activation. For CUDA tensors the ops launch the hand-written Hopper
+kernels of ``csrc/fused_mlp.cu`` (its header names the TPU kernels
+replaced, the operation bound, the workspace and the recompute) or
+raise; for CPU tensors they take the plain PyTorch versions
+``fused_mlp_fwd_ref`` / ``fused_mlp_dx_ref`` / ``fused_mlp_dw_ref``.
+``launches`` counts calls that launch the kernels, by kernel name (CPU
+calls do not count); one backward call runs the dX and dW kernels over
+each ffn chunk together and counts once for each. The backward sums the
+bias gradients in a fixed order: every call gives the same bits.
+
+``decode_attn_proj`` is the decode wrapper. For CUDA tensors it launches
+``csrc/decode_attn_proj.cu`` or raises; for CPU tensors it takes
+``decode_attn_proj_ref``. ``decode_attn_proj.launches`` counts its
+kernel launches.
 """
 from __future__ import annotations
 
@@ -21,13 +38,301 @@ from typing import Union
 
 import torch
 
-__all__ = ["decode_attn_proj", "decode_attn_proj_ref"]
+from .flash_attention import _on
+
+__all__ = ["decode_attn_proj", "decode_attn_proj_ref", "fused_mlp_2d",
+           "fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_fwd_ref",
+           "fused_mlp_dx_ref", "fused_mlp_dw_ref", "mlp_eligible",
+           "launches"]
 
 _NEG_INF = -1e30   # flash_attention.py:61 — the kernel's mask, never -inf
 _MAX_HEAD_DIM = 256
 _MAX_SPLITS = 16   # attention splits over the block table (≤ kMaxSplits)
 
 PositionLike = Union[int, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# activation functions (f32), the reference's constants (:66-69)
+# ---------------------------------------------------------------------------
+
+_SQRT_2_OVER_PI = 0.7978845608028654
+_GELU_COEF = 0.044715
+_INV_SQRT_2 = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
+
+
+def _gelu_f32(a, approximate):
+    if approximate:  # tanh form (GPT)
+        u = _SQRT_2_OVER_PI * (a + _GELU_COEF * a * a * a)
+        return 0.5 * a * (1.0 + torch.tanh(u))
+    return 0.5 * a * (1.0 + torch.erf(a * _INV_SQRT_2))  # erf form (BERT)
+
+
+def _dgelu_f32(a, approximate):
+    if approximate:
+        u = _SQRT_2_OVER_PI * (a + _GELU_COEF * a * a * a)
+        t = torch.tanh(u)
+        du = _SQRT_2_OVER_PI * (1.0 + 3.0 * _GELU_COEF * a * a)
+        return 0.5 * (1.0 + t) + 0.5 * a * (1.0 - t * t) * du
+    cdf = 0.5 * (1.0 + torch.erf(a * _INV_SQRT_2))
+    pdf = torch.exp(-0.5 * a * a) * _INV_SQRT_2PI
+    return cdf + a * pdf
+
+
+# ---------------------------------------------------------------------------
+# fused MLP: matmul → GeLU → matmul (+ biases)
+# ---------------------------------------------------------------------------
+
+# the ffn chunk the kernels walk: one [R, _CHUNK_F] slice of the activation
+# lives in device memory at a time (csrc/fused_mlp.cu). On an H100 at
+# gpt3-1.3b shape 2048 was chosen over 1024 (slower) and 4096 (twice the
+# workspace; PERF.md): a quarter of the activation at F = 8192
+_CHUNK_F = 2048
+# rows per block of the kernels' GEMM (kRowBlock): the backward's bias
+# gradients are summed per row block, then over the blocks in order
+_ROW_BLOCK = 128
+
+launches = {"fused_mlp_fwd": 0, "fused_mlp_dx": 0, "fused_mlp_dw": 0}
+
+
+def mlp_eligible(r: int, h: int, f: int) -> bool:
+    """The reference's shape rule (``mlp_blocks(r, h, f) is not None``,
+    mlp_fusion.py:118-207): a legal ffn tile exists iff ``f`` is a
+    multiple of 128 or ``f <= 512``. The CUDA kernels take any shape; the
+    routing follows the rule so that both packages compute the same
+    function for every shape. The TPU's tile sizes are not ported."""
+    return f % 128 == 0 or f <= 512
+
+
+def _pre(x, w1, b1):
+    """a = x·W1 with f32 accumulation, plus b1 in f32."""
+    return x.float() @ w1.float() + b1.float()
+
+
+def fused_mlp_fwd_ref(x, w1, b1, w2, b2, approximate: bool):
+    """Plain version of the forward kernel (mlp_fusion.py:243-257): x [R,
+    H], w1 [H, F], w2 [F, H] in x's dtype, b1 [F], b2 [H]. The activation
+    is rounded to x's dtype before the second product; y in x's dtype."""
+    dt = x.dtype
+    act = _gelu_f32(_pre(x, w1, b1), approximate).to(dt)
+    return (act.float() @ w2.float() + b2.float()).to(dt)
+
+
+def _da(x, w1, b1, w2, g, approximate):
+    """(a, da) in f32: dact = g·W2ᵀ, da = dact·gelu'(a) (:275-286)."""
+    a = _pre(x, w1, b1)
+    dact = g.to(x.dtype).float() @ w2.float().T
+    return a, dact * _dgelu_f32(a, approximate)
+
+
+def fused_mlp_dx_ref(x, w1, b1, w2, g, approximate: bool):
+    """Plain version of the dX kernel (:275-293): da rounded to x's dtype
+    before ``da·W1ᵀ``; dx in x's dtype."""
+    _, da = _da(x, w1, b1, w2, g, approximate)
+    return (da.to(x.dtype).float() @ w1.float().T).to(x.dtype)
+
+
+def fused_mlp_dw_ref(x, w1, b1, w2, g, approximate: bool):
+    """Plain version of the dW kernel (:318-353): the activation and da
+    stay f32, not rounded. Returns (dw1, db1, dw2, db2), all f32."""
+    a, da = _da(x, w1, b1, w2, g, approximate)
+    g32 = g.float()
+    return (x.float().T @ da, da.sum(0),
+            _gelu_f32(a, approximate).T @ g32, g32.sum(0))
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_MLP_ARGTYPES = {"fused_mlp_fwd": [_P] * 8 + [_I] * 5 + [_P],
+                 "fused_mlp_bwd": [_P] * 15 + [_I] * 6 + [_P]}
+
+
+@functools.cache
+def _mlp_lib():
+    from ._build import load
+    lib = load("fused_mlp.cu")
+    for name, argtypes in _MLP_ARGTYPES.items():
+        for suffix in ("f32", "bf16"):
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    lib.fused_mlp_error_string.argtypes = [ctypes.c_int]
+    lib.fused_mlp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _mlp_call(name, dtype, device, *args):
+    lib = _mlp_lib()
+    fn = getattr(lib, f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({lib.fused_mlp_error_string(rc).decode()})")
+
+
+def _mlp_check(name, x, w1, b1, w2, more=()):
+    """The kernels' contract: float32 or bfloat16, one dtype for x, the
+    weights and g, one CUDA device, contiguous. Returns (r, h, f)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    r, h = x.shape
+    f = w1.shape[1]
+    if w1.shape != (h, f) or w2.shape != (f, h) or b1.shape != (f,):
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, w1 "
+                         f"{tuple(w1.shape)}, b1 {tuple(b1.shape)}, w2 "
+                         f"{tuple(w2.shape)} do not form an MLP")
+    for t in (w1, w2, *more):
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} kernel: {t.dtype} beside x's {x.dtype} "
+                            f"(one dtype for x, the weights and g)")
+    for t in (w1, b1, w2, *more):
+        if t.device != x.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
+    if not all(t.is_contiguous() for t in (x, w1, w2, *more)):
+        raise ValueError(f"{name} kernel needs contiguous tensors")
+    return r, h, f
+
+
+def _vec32(v):
+    return v.float().contiguous()
+
+
+def _fwd_cuda(x, w1, b1, w2, b2, approximate):
+    r, h, f = _mlp_check("fused_mlp_fwd", x, w1, b1, w2)
+    if b2.shape != (h,) or b2.device != x.device:
+        raise ValueError(f"fused_mlp_fwd: b2 {tuple(b2.shape)} on "
+                         f"{b2.device} must be ({h},) on {x.device}")
+    fc = min(f, _CHUNK_F)
+    y = torch.empty_like(x)
+    act = torch.empty((r, fc), dtype=x.dtype, device=x.device)
+    acc = (torch.empty((r, h), dtype=torch.float32, device=x.device)
+           if f > fc else None)
+    b1f, b2f = _vec32(b1), _vec32(b2)
+    _mlp_call("fused_mlp_fwd", x.dtype, x.device, x.data_ptr(),
+              w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
+              y.data_ptr(), act.data_ptr(),
+              None if acc is None else acc.data_ptr(), r, h, f, fc,
+              int(approximate))
+    launches["fused_mlp_fwd"] += 1
+    return y
+
+
+def _bwd_cuda(x, w1, b1, w2, g, approximate):
+    """dX and dW through the kernels, in one call. Returns (dx, dw1, db1,
+    dw2, db2): dx, dw1 and dw2 in x's dtype, db1 and db2 f32."""
+    r, h, f = _mlp_check("fused_mlp_bwd", x, w1, b1, w2, more=(g,))
+    if g.shape != x.shape:
+        raise ValueError(f"fused_mlp_bwd: g {tuple(g.shape)} must have x's "
+                         f"shape {tuple(x.shape)}")
+    fc = min(f, _CHUNK_F)
+    parts = -(-r // _ROW_BLOCK)
+    dev, dt = x.device, x.dtype
+
+    def empty(*shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    f32 = torch.float32
+    dx, dw1, dw2 = empty(r, h), empty(h, f), empty(f, h)
+    db1, db2 = empty(f, dtype=f32), empty(h, dtype=f32)
+    a, da, act = empty(r, fc, dtype=f32), empty(r, fc), empty(r, fc)
+    acc = empty(r, h, dtype=f32) if f > fc else None
+    part = empty(parts, f + h, dtype=f32)  # column sums per row block
+    b1f = _vec32(b1)
+    _mlp_call("fused_mlp_bwd", dt, dev, x.data_ptr(), w1.data_ptr(),
+              b1f.data_ptr(), w2.data_ptr(), g.data_ptr(), dx.data_ptr(),
+              dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
+              a.data_ptr(), da.data_ptr(), act.data_ptr(),
+              None if acc is None else acc.data_ptr(), part.data_ptr(),
+              parts, r, h, f, fc, int(approximate))
+    launches["fused_mlp_dx"] += 1
+    launches["fused_mlp_dw"] += 1
+    return dx, dw1, db1, dw2, db2
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::fused_mlp_fwd", mutates_args=(),
+    schema="(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
+           "bool approximate) -> Tensor")
+def fused_mlp_fwd(x, w1, b1, w2, b2, approximate):
+    """Fused MLP forward on [R, H] → y [R, H] in x's dtype."""
+    if _on(x.device, "fused_mlp_fwd"):
+        return _fwd_cuda(x, w1, b1, w2, b2, approximate)
+    return fused_mlp_fwd_ref(x, w1, b1, w2, b2, approximate)
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::fused_mlp_bwd", mutates_args=(),
+    schema="(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
+           "Tensor g, bool approximate) "
+           "-> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+def fused_mlp_bwd(x, w1, b1, w2, b2, g, approximate):
+    """Fused MLP backward → (dx, dw1, db1, dw2, db2), each in its
+    primal's dtype (the f32 weight and bias gradients cast as the
+    reference's bwd does, :464-466)."""
+    if _on(x.device, "fused_mlp_bwd"):
+        dx, dw1, db1, dw2, db2 = _bwd_cuda(x, w1, b1, w2, g, approximate)
+    else:
+        dx = fused_mlp_dx_ref(x, w1, b1, w2, g, approximate)
+        dw1, db1, dw2, db2 = fused_mlp_dw_ref(x, w1, b1, w2, g, approximate)
+    return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+            db2.to(b2.dtype))
+
+
+def _mlp_setup_context(ctx, inputs, output):
+    x, w1, b1, w2, b2, approximate = inputs
+    # the primal inputs only: the [R, F] activation is recomputed
+    ctx.save_for_backward(x, w1, b1, w2, b2)
+    ctx.approximate = approximate
+
+
+def _mlp_backward(ctx, g):
+    x, w1, b1, w2, b2 = ctx.saved_tensors
+    return (*fused_mlp_bwd(x, w1, b1, w2, b2, g.contiguous(),
+                           ctx.approximate), None)
+
+
+fused_mlp_fwd.register_autograd(_mlp_backward,
+                                setup_context=_mlp_setup_context)
+
+
+def fused_mlp_2d(x, w1, b1, w2, b2, *, approximate=False, dropout_p=0.0,
+                 dropout_seed=None):
+    """One-pass transformer MLP over a [R, H] view (mlp_fusion.py:472).
+
+    y = gelu(x @ w1 + b1) @ w2 + b2; weight layout matches nn.Linear
+    ([in, out]); w1 and w2 are cast to x's dtype. The reference's checks
+    and messages; ``dropout_p > 0`` (the seeded keep-mask epilogue) is
+    ported with BERT (ROADMAP A6) and raises NotImplementedError."""
+    if x.ndim != 2:
+        raise ValueError(f"fused_mlp_2d expects a 2D [R, H] view, got "
+                         f"{tuple(x.shape)}")
+    r, h = x.shape
+    w1 = w1.to(x.dtype)
+    w2 = w2.to(x.dtype)
+    if w1.ndim != 2 or w1.shape[0] != h:
+        raise ValueError(f"fc1 weight {tuple(w1.shape)} does not match "
+                         f"input [{r}, {h}] (expect [H, F])")
+    f = w1.shape[1]
+    if tuple(w2.shape) != (f, h):
+        raise ValueError(f"fc2 weight {tuple(w2.shape)} must be [{f}, {h}]")
+    if tuple(b1.shape) != (f,) or tuple(b2.shape) != (h,):
+        raise ValueError(f"bias shapes {tuple(b1.shape)}/{tuple(b2.shape)} "
+                         f"must be ({f},)/({h},)")
+    if not mlp_eligible(r, h, f):
+        raise NotImplementedError(
+            f"fused_mlp: ffn dim {f} has no legal tile (needs a divisor "
+            f"that is a multiple of 128, or f <= 512)")
+    if float(dropout_p) > 0.0:
+        if dropout_seed is None:
+            raise ValueError("fused_mlp: dropout_p > 0 requires "
+                             "dropout_seed (2,) key data")
+        raise NotImplementedError(
+            "fused_mlp: the in-kernel dropout epilogue is ported with BERT "
+            "(ROADMAP A6)")
+    return fused_mlp_fwd(x.contiguous(), w1.contiguous(), b1.contiguous(),
+                         w2.contiguous(), b2.contiguous(), bool(approximate))
 
 
 def _check(q, k_pool, v_pool, block_size, proj_w):

@@ -26,12 +26,15 @@ size-1 ``pp`` axis is dropped; ``train_params_from_numpy`` /
 ``make_train_step`` runs ``loss_fn`` → autograd → ``adamw_update`` and
 updates parameters and moments IN PLACE, where the reference donates
 them. Attention in ``_block_apply`` goes through ``flash_attention_bshd``
-(the Hopper kernels on a card) when ``_attn_mode`` allows; the MLP is the
-dense one (the fused MLP kernels come in ROADMAP A2b, so on a card
-``FLAGS_fused_mlp`` must be off). The remat policies of ``_stage_fn`` are
-torch activation checkpointing; the selective ones find the reference's
-``checkpoint_name`` sites through ``_named`` and save the flash forward's
-``(out, lse)``.
+(the Hopper kernels on a card) when ``_attn_mode`` allows; the MLP goes
+through ``fused_mlp_2d`` (the fused MLP kernels on a card, their plain
+versions on the CPU) when ``_mlp_mode`` allows, as the reference's does
+with ``FLAGS_fused_mlp`` at its default (on), else the dense chain. The
+Layer block takes ``nn.functional.fused_mlp``. The remat policies of
+``_stage_fn`` are torch activation checkpointing; the selective ones find
+the reference's ``checkpoint_name`` sites through ``_named`` and save
+the flash forward's ``(out, lse)``, and the fused MLP forward's output
+where the reference saves ``fc2_out``.
 
 The three serving functions share ``paged_attention_math`` as in the
 reference. ``serving_decode_step`` updates the pools IN PLACE and
@@ -58,9 +61,11 @@ from ..core.flags import get_flag
 from ..inference.kv_cache import kv_append, kv_gather
 from ..kernels.chunked_xent import chunked_softmax_xent
 from ..kernels.flash_attention import flash_attention_bshd
-from ..kernels.mlp_fusion import decode_attn_proj
+from ..kernels.mlp_fusion import decode_attn_proj, fused_mlp_2d, mlp_eligible
+from ..nn.functional import mlp as _mlp_introspect
 from ..nn.functional.attention import (paged_attention_math,
                                        scaled_dot_product_attention)
+from ..nn.functional.mlp import _fused_mode, fused_mlp
 
 __all__ = ["GPTConfig", "CONFIGS", "GPTForCausalLM", "init_hybrid_params",
            "train_params_from_numpy", "train_params_to_numpy", "loss_fn",
@@ -160,8 +165,7 @@ class GPTBlock(nn.Module):
 
     def forward(self, x):
         """The reference block (gpt.py:138-160): LN → qkv → causal
-        attention → proj, then LN → the dense MLP
-        (``_require_dense_mlp``)."""
+        attention → proj, then LN → ``fused_mlp`` (tanh GeLU)."""
         B, S, H = x.shape
         q, k, v = self.qkv(self.ln1(x)).chunk(3, dim=-1)
 
@@ -172,8 +176,8 @@ class GPTBlock(nn.Module):
                                             is_causal=True)
         x = x + self.proj(attn.reshape(B, S, H))
         h = self.ln2(x)
-        _require_dense_mlp(x.device)
-        return x + self.fc2(F.gelu(self.fc1(h), approximate="tanh"))
+        return x + fused_mlp(h, self.fc1.weight, self.fc1.bias,
+                             self.fc2.weight, self.fc2.bias, approximate=True)
 
 
 class GPTModel(nn.Module):
@@ -568,16 +572,16 @@ def _attn_mode(seq_len: int, head_dim: int):
     return "flash"
 
 
-def _require_dense_mlp(device: torch.device):
-    """The MLP is dense only until the fused MLP kernels (TPU kernels
-    4-6) are ported with the reference's ``_mlp_mode`` routing
-    (gpt.py:338-355). With ``FLAGS_fused_mlp`` on, a card would take
-    them: raise rather than take a silent dense path. CPU tensors take
-    the dense MLP, as the reference does off the TPU."""
-    if get_flag("fused_mlp") and device.type == "cuda":
-        raise NotImplementedError(
-            "fused MLP: TPU kernels 4-6 are ported in ROADMAP A2b; set "
-            "FLAGS_fused_mlp=False")
+def _mlp_mode(rows: int, h: int, f: int, device: torch.device):
+    """'cuda' | 'plain' | None: the reference's fused-MLP routing
+    (gpt.py:338-355). ``FLAGS_fused_mlp`` on and a legal ffn tile
+    (``mlp_eligible``) take the fused route: the kernels for CUDA
+    tensors, their plain versions for CPU tensors. One device, so the
+    reference's trivial-mp condition always holds."""
+    mode = _fused_mode(device)
+    if mode is None or not mlp_eligible(rows, h, f):
+        return None
+    return mode
 
 
 def _affine(x, w, b):
@@ -612,11 +616,21 @@ def _block_apply(bp, x, cfg: GPTConfig):
     out = out.reshape(B, S, n_heads * dp)
     x = x + _named("proj_out", _affine, out, bp["proj_w"], bp["proj_b"])
     h = _layer_norm(x, bp["ln2_g"], bp["ln2_b"])
-    _require_dense_mlp(x.device)
+    zero = x.new_zeros((), dtype=torch.float32)
+    ffn = bp["fc1_w"].shape[-1]
+    mode = _mlp_mode(B * S, H, ffn, x.device)
+    _mlp_introspect._LAST_PATH = \
+        "dense" if mode is None else f"fused_mlp/{mode}"
+    if mode is not None:
+        # the [B*S, ffn] GeLU activation never exists whole in device
+        # memory; 'ffn_act' vanishes on this route (save_ffn saves less)
+        y = _named("fc2_out", fused_mlp_2d, h.reshape(B * S, H),
+                   bp["fc1_w"], bp["fc1_b"], bp["fc2_w"], bp["fc2_b"],
+                   approximate=True)
+        return x + y.reshape(B, S, H), zero
     h = _named("ffn_act", F.gelu, _affine(h, bp["fc1_w"], bp["fc1_b"]),
                approximate="tanh")
-    return (x + _named("fc2_out", _affine, h, bp["fc2_w"], bp["fc2_b"]),
-            x.new_zeros((), dtype=torch.float32))
+    return x + _named("fc2_out", _affine, h, bp["fc2_w"], bp["fc2_b"]), zero
 
 
 def _policy(remat: str):
@@ -625,7 +639,11 @@ def _policy(remat: str):
     aten = torch.ops.aten
     dots = (aten.mm.default, aten.addmm.default, aten.bmm.default)
     flash = torch.ops.paddle_tpu_torch.flash_fwd.default
-    named_ops = dots + (aten.gelu.default,)
+    # the fused MLP forward's output is the reference's fc2_out: saved by
+    # the save_* policies and save_except_big, recomputed under
+    # dots_saveable (not a dot) and full
+    named_ops = dots + (aten.gelu.default,
+                        torch.ops.paddle_tpu_torch.fused_mlp_fwd.default)
     names = _SAVED_NAMES.get(remat, ())
 
     def policy(ctx, op, *args, **kwargs):

@@ -1,0 +1,109 @@
+"""Fused transformer-MLP functionals (kernels/mlp_fusion.py routing).
+
+Counterpart: ``paddle_tpu/nn/functional/mlp.py``, the fused GeLU MLP
+part: ``last_mlp_path`` / ``reset_last_mlp_path`` (:43-62),
+``_fused_mode`` (:65-74), the once-warned dense route (:77-86) and
+``fused_mlp`` (:185-217). ``fused_swiglu`` and
+``fused_attn_proj_residual_layer_norm`` come with LLaMA and BERT
+(ROADMAP A4, A6).
+
+With ``FLAGS_fused_mlp`` on (the default), ``fused_mlp`` takes the fused
+route: on a card the hand-written CUDA kernels, on the CPU their plain
+PyTorch versions (as flash attention does). The reference's
+``_try_fused`` exception policy is not ported: a kernel that fails to
+build or launch raises, nothing falls back. The dense route is taken
+only for what the arguments decide: the flag off, a missing bias, or an
+ffn dim with no legal tile (``mlp_eligible``), the last two with the
+reference's once-warning.
+
+Dropout is not ported on either route: on the fused route it is the
+kernels' seeded keep-mask epilogue (ROADMAP A6); on the dense route the
+reference draws the mask from its ``default_generator`` (A5). Both raise
+NotImplementedError.
+"""
+from __future__ import annotations
+
+import warnings
+
+import torch
+import torch.nn.functional as F
+
+from ...core.flags import get_flag
+from ...kernels.mlp_fusion import fused_mlp_2d, mlp_eligible
+
+__all__ = ["fused_mlp", "last_mlp_path", "reset_last_mlp_path"]
+
+_LAST_PATH = None
+_DENSE_FALLBACK_WARNED = False
+
+
+def last_mlp_path():
+    """The MLP path the most recent ``fused_mlp`` call or GPT block took:
+    'fused_mlp/cuda' (the kernels), 'fused_mlp/plain' (their plain
+    versions, CPU tensors) or 'dense' (None before any call)."""
+    return _LAST_PATH
+
+
+def reset_last_mlp_path():
+    """Clear the introspection state."""
+    global _LAST_PATH
+    _LAST_PATH = None
+
+
+def _fused_mode(device: torch.device):
+    """'cuda' (the kernels) | 'plain' (CPU tensors) | None (dense)."""
+    if not get_flag("fused_mlp"):
+        return None
+    return "cuda" if device.type == "cuda" else "plain"
+
+
+def _warn_dense(reason):
+    """Loud once: the fused route was asked for but these arguments take
+    the dense one."""
+    global _DENSE_FALLBACK_WARNED
+    if not _DENSE_FALLBACK_WARNED:
+        _DENSE_FALLBACK_WARNED = True
+        warnings.warn("fused_mlp: taking the dense path: " + reason)
+
+
+def _linear(x, w, b):
+    y = x @ w
+    return y if b is None else y + b
+
+
+def fused_mlp(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias, *,
+              approximate=False, dropout_rate=0.0, training=True,
+              name=None):
+    """y = gelu(x @ W1 + b1, approximate) @ W2 + b2 — the transformer MLP
+    sublayer, in one kernel pass per direction on the fused route.
+    Weight layout [in, out] (nn.Linear); x [..., H]."""
+    global _LAST_PATH
+    p = float(dropout_rate) if training else 0.0
+    mode = _fused_mode(x.device)
+    if mode is not None:
+        h = x.shape[-1]
+        f = fc1_weight.shape[-1]
+        rows = x.numel() // h
+        if fc1_bias is None or fc2_bias is None:
+            _warn_dense("fused_mlp needs both fc biases for the fused "
+                        "kernel")
+        elif not mlp_eligible(rows, h, f):
+            _warn_dense(f"fused_mlp: ffn dim {f} has no legal tile (needs "
+                        f"a divisor that is a multiple of 128, or f <= 512)")
+        else:
+            _LAST_PATH = f"fused_mlp/{mode}"
+            if p > 0:
+                raise NotImplementedError(
+                    "fused_mlp: the in-kernel dropout epilogue is ported "
+                    "with BERT (ROADMAP A6)")
+            y = fused_mlp_2d(x.reshape(-1, h), fc1_weight, fc1_bias,
+                             fc2_weight, fc2_bias, approximate=approximate)
+            return y.reshape(x.shape)
+    _LAST_PATH = "dense"
+    if p > 0:
+        raise NotImplementedError(
+            "fused_mlp: dense-route dropout draws from the framework's "
+            "default generator, ported with the eager core (ROADMAP A5)")
+    h = F.gelu(_linear(x, fc1_weight, fc1_bias),
+               approximate="tanh" if approximate else "none")
+    return _linear(h, fc2_weight, fc2_bias)

@@ -30,6 +30,7 @@ from paddle_tpu_torch import get_flag
 from paddle_tpu_torch import set_flags as pt_set_flags
 from paddle_tpu_torch.inference import BlockPool, kv_append
 from paddle_tpu_torch.models import gpt as pgpt
+from paddle_tpu_torch.nn.functional import last_mlp_path
 
 PROMPT = np.array([5, 9, 3, 17, 2], np.int32)
 N_NEW, BS, WIDTH, S_PRE = 7, 8, 2, 8   # prefill token + 6 decode steps
@@ -196,18 +197,19 @@ def test_layer_forward_names_the_training_slice():
             "gpt.ln_f.bias"} <= names
     assert model.gpt.blocks[0].qkv.weight.shape == (8, 24)   # [in, out]
     # the Layer forward is ported with the training step: it computes the
-    # serving forward's function; on a card with FLAGS_fused_mlp on, its
-    # MLP names the slice that ports the fused MLP kernels
+    # serving forward's function, on the dense MLP with FLAGS_fused_mlp
+    # off and through nn.functional.fused_mlp (the kernels' plain
+    # versions on the CPU) with it on
     ids = torch.tensor([[3, 1, 4, 1]])
-    with torch.no_grad():
-        np.testing.assert_allclose(
-            model(ids).numpy(),
-            pgpt.serving_forward_logits(pgpt.serving_params(model), ids,
-                                        cfg).numpy(), atol=1e-6, rtol=0)
+    want = pgpt.serving_forward_logits(pgpt.serving_params(model), ids,
+                                       cfg).numpy()
     old = get_flag("fused_mlp")
-    pt_set_flags({"FLAGS_fused_mlp": True})
     try:
-        with pytest.raises(NotImplementedError, match="A2b"):
-            pgpt._require_dense_mlp(torch.device("cuda", 0))
+        for flag, path in ((False, "dense"), (True, "fused_mlp/plain")):
+            pt_set_flags({"FLAGS_fused_mlp": flag})
+            with torch.no_grad():
+                np.testing.assert_allclose(model(ids).numpy(), want,
+                                           atol=1e-6, rtol=0)
+            assert last_mlp_path() == path
     finally:
         pt_set_flags({"FLAGS_fused_mlp": old})
