@@ -59,8 +59,36 @@ Phases, one line each; any failure raises and exits non-zero:
 14. parity in fp32 at gpt3-1.3b width, 2 layers, B=1, S=2048: loss and
    every gradient with the fused MLP kernels vs the dense MLP, and with
    the flash kernels vs _block_apply's dense attention branch;
-then the kernels' JSON line and the final status line.
+15. the fused SwiGLU kernels (forward, and the backward that computes dX
+   and dW in one call) against their plain versions on the card through
+   the custom ops and autograd through fused_swiglu_2d: llama-7b (R=2048,
+   H=4096, F=11008, the last ffn chunk ragged) and ragged shapes
+   (R=1000/333, H=96/2048/100, F=320/2560/200), fp32 and bf16 (y, dx,
+   dwg, dwu, dwd), each element within its row's scale; two backward
+   calls give the same bits; the check shown to reject a forward missing
+   one ffn chunk; their times at llama-7b shape beside the plain
+   versions', the bound and the dense silu-gated composite through cuBLAS
+   (forward, and its autograd backward);
+16. train llama-7b (random weights from a seed, bf16, full width and
+   depth, FLAGS_fused_mlp on as by default) through the Layer model and
+   AdamW (model.loss -> backward -> opt.step -> opt.clear_grad) at B=1,
+   S=2048 on one fixed batch: one warm-up step, then 4 steps; finite,
+   falling loss; each SwiGLU and flash kernel launched 32 times per step;
+   ms/step, tokens/s, model TFLOP/s, the AdamW update's ms (CUDA events),
+   peak memory and the card's clocks;
+17. torch.profiler over 2 more llama-7b steps: device busy time per step,
+   idle share, the flash and SwiGLU kernels' shares, the optimizer
+   step's device time, the kernels that take the time;
+18. the same llama-7b training with FLAGS_fused_mlp off (the dense
+   SwiGLU through cuBLAS; 1 warm-up and 2 steps): ms/step and peak
+   memory beside the fused step's;
+19. parity in fp32 at llama-7b width, 2 layers, B=1, S=2048: loss and
+   every gradient with the SwiGLU kernels vs the dense SwiGLU, and with
+   the flash kernels vs a dense causal attention written here;
+then the card's name and power limit again, the kernels' JSON line and
+the final status line.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -914,7 +942,8 @@ def phase_train(torch, cfg, fused, steps=TRAIN_STEPS):
           f"training took the MLP path {path} with FLAGS_fused_mlp={fused}")
     L = cfg.num_layers
     for key, n in counts.items():
-        want = L * steps if fused or key.startswith("flash") else 0
+        want = (L * steps if key.startswith("flash")
+                or (fused and key.startswith("fused_mlp")) else 0)
         check(n == want, f"{key} launched {n} times in {steps} steps of {L} "
               f"layers (want {want}; FLAGS_fused_mlp={fused})")
     tokens = TRAIN_B * TRAIN_S
@@ -992,8 +1021,9 @@ def phase_remat_full(torch, cfg, params, opt, batch):
     torch.cuda.synchronize()
     counts = read_launches()
     L = cfg.num_layers
-    want = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
-            "fused_mlp_fwd": 2 * L, "fused_mlp_dx": L, "fused_mlp_dw": L}
+    want = dict.fromkeys(counts, 0) | {
+        "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+        "fused_mlp_fwd": 2 * L, "fused_mlp_dx": L, "fused_mlp_dw": L}
     check(counts == want, f"remat 'full' step launched {counts} (want "
           f"{want})")
     check(bool(np.isfinite(float(loss))), "remat 'full' loss not finite")
@@ -1065,6 +1095,437 @@ def phase_train_parity_fp32(torch):
                 tolerance=tol, leaves=len(leaves))
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the fused SwiGLU kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+SWIGLU_REPLACES = {
+    "fused_swiglu_fwd": "paddle_tpu/kernels/mlp_fusion.py:522",
+    "fused_swiglu_dx": "paddle_tpu/kernels/mlp_fusion.py:543",
+    "fused_swiglu_dw": "paddle_tpu/kernels/mlp_fusion.py:572"}
+# Held as the GeLU MLP kernels are (flash_reading, MLP_TOL). bf16: act,
+# dag and dau are rounded at the same points in both for y and dx; for dW
+# the bf16 kernel feeds round(dag), round(dau) and round(act) to the
+# tensor cores where the plain version (the reference) keeps them f32.
+LLAMA_S = 2048                                  # the slice's B=1 sequence
+SW_R, SW_H, SW_F = LLAMA_S, 4096, 11008         # the slice's MLP shape
+# (r, h, f, dtype): llama-7b (5 chunks of 2048 and a ragged one of 768),
+# in bf16 and f32; rows not a multiple of any tile, f <= 512 not a
+# multiple of 128, h not a multiple of 64; a ragged last chunk (2560 =
+# 2048 + 512); strides not a multiple of 16 bytes (h = 100: the scalar
+# load path)
+SWIGLU_CASES = [(SW_R, SW_H, SW_F, "bfloat16"), (SW_R, SW_H, SW_F, "float32"),
+                (1000, 96, 320, "bfloat16"), (1000, 96, 320, "float32"),
+                (1000, 2048, 2560, "bfloat16"), (333, 100, 200, "bfloat16"),
+                (333, 100, 200, "float32")]
+
+
+def swiglu_inputs(torch, r, h, f, dtype, seed):
+    """x, wg, wu, wd, g at the model's scale (an RMSNorm'd x, Xavier-normal
+    weights, a small upstream gradient)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * s).to(dtype)
+
+    std = (2.0 / (h + f)) ** 0.5
+    return (rnd(r, h), rnd(h, f, s=std), rnd(h, f, s=std), rnd(f, h, s=std),
+            rnd(r, h, s=1e-3))
+
+
+def swiglu_bounds(r, h, f, esize):
+    """bound_ms and what bounds it: forward 6 RHF (ag, au, the down
+    product), backward 16 RHF (ag and au recomputed once, dact, dX's two
+    products, dW's three) at 989 TFLOP/s; inputs read once and outputs
+    written once at 3.35 TB/s."""
+    rhf = float(r) * h * f
+    rows, w = r * h * esize, h * f * esize
+    work = {"forward": (6 * rhf, rows + 3 * w + rows),
+            "backward": (16 * rhf, 2 * rows + 3 * w + rows + 3 * w)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops = flops / H100_FLOPS["bfloat16"]
+        t_bytes = nbytes / H100_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def swiglu_workspace_gb(r, h, f, esize):
+    """The backward's workspace (csrc/fused_mlp.cu), the larger one: ag
+    and au chunks in f32, dag, dau and act chunks in the dtype, the f32
+    [R, H] dX accumulator."""
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    fc = min(f, mf._CHUNK_F)
+    return (r * fc * (8 + 3 * esize) + r * h * 4) / 1e9
+
+
+def phase_swiglu_vs_plain(torch):
+    """The forward and backward custom ops (``fused_swiglu_fwd``,
+    ``fused_swiglu_bwd``: the kernels' wrappers, which the LLaMA MLP
+    reaches through ``fused_swiglu_2d``) against their plain versions on
+    the card (y, dx, dwg, dwu, dwd) in every SWIGLU_CASES case; the
+    backward repeated gives the same bits, and autograd through
+    ``fused_swiglu_2d`` gives the ops' results; the check shown to reject a
+    forward missing one ffn chunk; then the times at the slice's shape."""
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    worst = {}
+    for r, h, f, name in SWIGLU_CASES:
+        dtype = getattr(torch, name)
+        x, wg, wu, wd, g = swiglu_inputs(torch, r, h, f, dtype, seed=r + f)
+        y = mf.fused_swiglu_fwd(x, wg, wu, wd)
+        grads = mf.fused_swiglu_bwd(x, wg, wu, wd, g)
+        again = mf.fused_swiglu_bwd(x, wg, wu, wd, g)
+        prim = [t.detach().requires_grad_(True) for t in (x, wg, wu, wd)]
+        y_ag = mf.fused_swiglu_2d(*prim)
+        auto = torch.autograd.grad(y_ag, prim, g)
+        torch.cuda.synchronize()
+        where = f"{name} r={r} h={h} f={f}"
+        check(all(torch.equal(a, b) for a, b in zip(again, grads)),
+              f"fused SwiGLU backward differs between two calls ({where})")
+        check(torch.equal(y_ag, y) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(auto, grads)),
+              f"autograd through fused_swiglu_2d differs from the SwiGLU "
+              f"ops ({where})")
+        ry = mf.fused_swiglu_fwd_ref(x, wg, wu, wd)
+        rdx = mf.fused_swiglu_dx_ref(x, wg, wu, wd, g)
+        rdw = mf.fused_swiglu_dw_ref(x, wg, wu, wd, g)
+        for key, got, ref in (("y", y, ry), ("dx", grads[0], rdx),
+                              ("dwg", grads[1], rdw[0]),
+                              ("dwu", grads[2], rdw[1]),
+                              ("dwd", grads[3], rdw[2])):
+            check(bool(torch.isfinite(got).all()),
+                  f"fused SwiGLU {key} not finite ({where})")
+            err = float((got.float() - ref.float()).abs().max())
+            rel = flash_reading(got, ref)
+            check(rel <= MLP_TOL[name],
+                  f"fused SwiGLU {key} disagrees with plain: {where} "
+                  f"max_abs_err={err} relative {rel} > {MLP_TOL[name]}")
+            kern = {"y": "fused_swiglu_fwd", "dx": "fused_swiglu_dx"}.get(
+                key, "fused_swiglu_dw")
+            w = worst.setdefault(name, {}).setdefault(kern, [0.0, 0.0])
+            w[0], w[1] = max(w[0], err), max(w[1], rel)
+        del x, wg, wu, wd, g, y, grads, again, prim, y_ag, auto, ry, rdx, rdw
+        torch.cuda.empty_cache()
+    return dict(tolerance_relative_to_row_rms_plus_abs=MLP_TOL,
+                worst={n: {k: dict(max_abs_err=e, relative=r)
+                           for k, (e, r) in w.items()}
+                       for n, w in worst.items()},
+                cases=[list(c) for c in SWIGLU_CASES],
+                wrong_kernel_reading=swiglu_check_rejects(torch, mf),
+                **swiglu_times(torch, mf))
+
+
+def swiglu_check_rejects(torch, mf):
+    """The bf16 check must reject a forward that skips one ffn chunk: the
+    plain forward at the slice's shape with the second ffn chunk of the
+    activation left out. Returns its reading."""
+    x, wg, wu, wd, _ = swiglu_inputs(torch, SW_R, SW_H, SW_F, torch.bfloat16,
+                                     seed=SW_R + SW_F)
+    ref = mf.fused_swiglu_fwd_ref(x, wg, wu, wd)
+    keep = torch.ones(SW_F, dtype=torch.bool, device="cuda")
+    keep[mf._CHUNK_F:2 * mf._CHUNK_F] = False
+    ag, au = mf._gate_up(x, wg, wu)
+    act = (mf._silu_f32(ag) * au).to(x.dtype).float()
+    wrong = (act[:, keep] @ wd.float()[keep]).to(x.dtype)
+    reading = flash_reading(wrong, ref)
+    check(reading > MLP_TOL["bfloat16"],
+          f"the bf16 SwiGLU check passes a forward with one ffn chunk "
+          f"dropped: {reading} <= {MLP_TOL['bfloat16']}")
+    del x, wg, wu, wd, ref, ag, au, act, wrong
+    torch.cuda.empty_cache()
+    return reading
+
+
+def swiglu_times(torch, mf):
+    """CUDA-event times at R=2048, H=4096, F=11008, bf16: the forward and
+    the backward op, each in turns with its plain version. The backward
+    computes dX and dW in one call, so the dX and dW kernels share its
+    time, its plain version's and its bound. The library yardsticks
+    (never called by the port): the dense composite (silu(x Wg) * (x Wu))
+    Wd through cuBLAS for the forward; no library call computes dX alone
+    or dW alone, so their library_ms is null and the composite's whole
+    backward (autograd on a retained graph) is timed beside the backward
+    op."""
+    x, wg, wu, wd, g = swiglu_inputs(torch, SW_R, SW_H, SW_F, torch.bfloat16,
+                                     seed=13)
+
+    def plain_bwd(_):
+        return (mf.fused_swiglu_dx_ref(x, wg, wu, wd, g),
+                *mf.fused_swiglu_dw_ref(x, wg, wu, wd, g))
+
+    runs = {
+        "forward": (lambda _: mf.fused_swiglu_fwd(x, wg, wu, wd),
+                    lambda _: mf.fused_swiglu_fwd_ref(x, wg, wu, wd)),
+        "backward": (lambda _: mf.fused_swiglu_bwd(x, wg, wu, wd, g),
+                     plain_bwd),
+    }
+    bounds = swiglu_bounds(SW_R, SW_H, SW_F, 2)
+    res = {}
+    for name, (kern, plain) in runs.items():
+        plain_ms, ms, t = in_turns(plain, kern, iters=10)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, all_ms=t,
+                         bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    silu = torch.nn.functional.silu
+
+    def composite(x, wg, wu, wd):
+        return (silu(x @ wg) * (x @ wu)) @ wd
+
+    res["forward"]["library_ms"], _, _ = in_turns(
+        lambda _: composite(x, wg, wu, wd), runs["forward"][0], iters=10)
+    prim = [t.detach().requires_grad_(True) for t in (x, wg, wu, wd)]
+    yc = composite(*prim)
+    bwd = res["backward"]
+    bwd["library_bwd_ms"], bwd["ms_beside_library"], _ = in_turns(
+        lambda _: torch.autograd.grad(yc, prim, g, retain_graph=True),
+        runs["backward"][0], iters=10)
+    res["timed_at"] = dict(r=SW_R, h=SW_H, f=SW_F, dtype="bfloat16",
+                           chunk_f=mf._CHUNK_F)
+    del x, wg, wu, wd, g, prim, yc
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 16-19: LLaMA training through the Layer model and AdamW
+# ---------------------------------------------------------------------------
+
+LLAMA_LR = 1e-4
+
+
+def llama_flops_per_step(cfg, tokens, seq):
+    """6 flops per token per matmul weight (forward + backward; the untied
+    head counts) plus causal attention's two products over S(S+1)/2 pairs
+    per head per layer, times 3 for forward + backward."""
+    H, L = cfg.hidden_size, cfg.num_hidden_layers
+    kv = cfg.kv_heads * (H // cfg.num_attention_heads)
+    weights = (L * (2 * H * H + 2 * H * kv + 3 * H * cfg.intermediate_size)
+               + cfg.vocab_size * H)
+    pairs = seq * (seq + 1) // 2
+    attn = 3 * 2 * 2 * pairs * H * L * (tokens // seq)
+    return 6.0 * weights * tokens + attn
+
+
+def llama_trainer(torch, cfg, seed=0):
+    """The user's loop: LlamaForCausalLM (bf16 on the card), AdamW over its
+    parameters, one fixed [1, S] batch with labels = ids as the reference's
+    test passes them. Returns (model, opt, step); step() -> (loss, the
+    CUDA events recorded around the AdamW update)."""
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.optimizer import AdamW
+    model = llama.LlamaForCausalLM(cfg, seed=seed)
+    opt = AdamW(learning_rate=LLAMA_LR, parameters=model.parameters())
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (1, LLAMA_S))).cuda()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def step():
+        loss = model.loss(ids, ids)
+        loss.backward()
+        ev[0].record()
+        with torch.profiler.record_function("adamw_step"):
+            opt.step()
+        ev[1].record()
+        opt.clear_grad()
+        return loss.detach(), ev
+
+    return model, opt, step
+
+
+def phase_train_llama(torch, cfg, fused, steps=TRAIN_STEPS):
+    """Train cfg at B=1, S=2048 on one fixed batch: one warm-up step, then
+    `steps` steps, with FLAGS_fused_mlp as `fused` says. Each flash kernel
+    runs once per layer per step; with the flag on each SwiGLU kernel
+    too, with it off none; the GeLU MLP kernels never."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.nn.functional import last_mlp_path
+    set_flags({"FLAGS_fused_mlp": fused})
+    model, opt, step = llama_trainer(torch, cfg)
+    loss0, _ = step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, adamw_ms = [], []
+    with ClockSampler() as clocks:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss, ev = step()
+            losses.append(loss)
+            ev[1].synchronize()
+            adamw_ms.append(ev[0].elapsed_time(ev[1]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_launches()
+    path = last_mlp_path()
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"llama loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"llama loss did not fall: {losses}")
+    check(path == ("fused_swiglu/cuda" if fused else "dense"),
+          f"llama took the MLP path {path} with FLAGS_fused_mlp={fused}")
+    L = cfg.num_hidden_layers
+    for key, n in counts.items():
+        want = (L * steps if key.startswith("flash")
+                or (fused and key.startswith("fused_swiglu")) else 0)
+        check(n == want, f"{key} launched {n} times in {steps} llama steps "
+              f"of {L} layers (want {want}; FLAGS_fused_mlp={fused})")
+    tokens = LLAMA_S
+    flops = llama_flops_per_step(cfg, tokens, LLAMA_S)
+    ms = wall / steps * 1e3
+    out = dict(config="llama-7b", layers=L, b=1, s=LLAMA_S, dtype="bfloat16",
+               fused_mlp=fused, last_mlp_path=path, lr=LLAMA_LR,
+               warmup_loss=float(loss0), losses=losses, ms_per_step=ms,
+               tokens_per_s=tokens / (ms / 1e3),
+               model_tflop_per_step=flops / 1e12,
+               model_tflops=flops / (ms / 1e3) / 1e12,
+               model_flops_share_of_989=flops / (ms / 1e3) / 989e12,
+               adamw_ms_per_step=sum(adamw_ms) / steps,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               parameters=sum(p.numel() for p in model.parameters()),
+               card_during_steps=clocks.summary(), launches=counts,
+               launches_per_step={k: n / steps for k, n in counts.items()})
+    return out, model, opt, step
+
+
+def phase_profile_llama(torch, step, steps=2):
+    """torch.profiler over `steps` llama training steps: device busy time
+    per step against the profiled wall time, the flash and SwiGLU
+    kernels' shares, the optimizer step's span on the device, and the
+    kernels that take the time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the "adamw_step" range of llama_trainer shows on the device timeline
+    # as an annotation spanning the optimizer's kernels: its span is the
+    # AdamW update's device time, and it is kept out of the busy sum
+    spans = {}
+    dev = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.key == "adamw_step":
+                spans[e.key] = e.self_device_time_total / 1e3 / steps
+            else:
+                dev.append(e)
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    if busy_ms == 0.0:
+        return dict(steps=steps, device_time="not measured (no CUDA events)")
+    flash = {k: sum(e.self_device_time_total for e in dev if k in e.key)
+             / 1e3 / steps
+             for k in ("flash_fwd_kernel", "flash_dq_kernel",
+                       "flash_dkv_kernel")}
+    # the SwiGLU kernels by instantiation: <dtype, A col-major, B
+    # col-major, epilogue> (1 accumulate, 2 gate/up product, 4 store, 5
+    # silu-gated activation, 6 dact with the SwiGLU derivatives)
+    mlp = {e.key[:100]: e.self_device_time_total / 1e3 / steps
+           for e in dev if "mlp_gemm_kernel" in e.key}
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
+    return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
+                device_busy_ms_per_step=busy_ms / steps,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                flash_ms_per_step=flash,
+                flash_share_of_busy=sum(flash.values()) * steps / busy_ms,
+                swiglu_ms_per_step=sum(mlp.values()),
+                swiglu_share_of_busy=sum(mlp.values()) * steps / busy_ms,
+                swiglu_kernels_ms_per_step=mlp,
+                adamw_span_ms_per_step=spans.get(
+                    "adamw_step", "not measured (no adamw_step range)"),
+                top_device_ms_per_step=[
+                    (e.key[:70], e.self_device_time_total / 1e3 / steps,
+                     e.count // steps) for e in top[:14]])
+
+
+def dense_causal_attention(query, key, value, attn_mask=None, dropout_p=0.0,
+                           is_causal=False, training=True):
+    """Plain causal softmax attention on [B, S, NH, D], written here for
+    the parity phase only (the port's LLaMA takes the flash kernels)."""
+    import torch
+    q, k, v = (t.transpose(1, 2) for t in (query, key, value))
+    s = (q @ k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    n = s.shape[-1]
+    keep = torch.ones(n, n, dtype=torch.bool, device=s.device).tril()
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), -1)
+    return (p @ v).transpose(1, 2)
+
+
+def phase_llama_parity_fp32(torch):
+    """fp32 at llama-7b width, 2 layers, B=1, S=2048: loss and every
+    gradient of the Layer model's loss (a) with the SwiGLU and flash
+    kernels against (b) FLAGS_fused_mlp off (the dense SwiGLU), and (b)
+    against (c) the model with its attention call replaced, in this
+    script only, by dense_causal_attention."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.models import llama
+    cfg = llama.CONFIGS["llama-7b"]._replace(num_hidden_layers=2)
+    model = llama.LlamaForCausalLM(cfg, dtype=torch.float32, seed=1)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, LLAMA_S))).cuda()
+    params = list(model.parameters())
+
+    def grads(fused):
+        set_flags({"FLAGS_fused_mlp": fused})
+        reset_launches()
+        loss = model.loss(ids, ids)
+        g = torch.autograd.grad(loss, params)
+        return loss.item(), g, read_launches()
+
+    lf, gf, counts = grads(True)
+    check(counts["fused_swiglu_fwd"] == 2 and counts["fused_swiglu_dw"] == 2
+          and counts["flash_fwd"] == 2,
+          f"llama fp32 parity run with FLAGS_fused_mlp on launched {counts}")
+    lk, gk, _ = grads(False)
+    sdpa = llama.scaled_dot_product_attention
+    llama.scaled_dot_product_attention = dense_causal_attention
+    try:
+        ld, gd, counts_d = grads(False)
+    finally:
+        llama.scaled_dot_product_attention = sdpa
+        set_flags({"FLAGS_fused_mlp": True})
+    check(counts_d["flash_fwd"] == 0, f"dense attention run launched "
+          f"{counts_d}")
+    torch.cuda.synchronize()
+    tol = 1e-4      # per leaf, relative to the leaf's largest gradient
+
+    def worst(ga, gb):
+        w = 0.0
+        for a, b in zip(ga, gb):
+            check(bool(torch.isfinite(a).all()), "parity gradient not finite")
+            w = max(w, float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30))
+        return w
+
+    worst_mlp, worst_flash = worst(gf, gk), worst(gk, gd)
+    check(abs(lf - lk) <= 1e-5 * abs(lk), f"llama fp32 loss: SwiGLU kernels "
+          f"{lf} vs dense {lk}")
+    check(abs(lk - ld) <= 1e-5 * abs(ld), f"llama fp32 loss: flash {lk} vs "
+          f"dense attention {ld}")
+    check(worst_mlp <= tol, f"llama fp32 gradients: SwiGLU kernels vs dense "
+          f"relative {worst_mlp} > {tol}")
+    check(worst_flash <= tol, f"llama fp32 gradients: flash vs dense "
+          f"attention relative {worst_flash} > {tol}")
+    leaves = len(gk)
+    del model, params, gf, gk, gd
+    return dict(loss_fused_mlp=lf, loss_flash=lk, loss_dense=ld,
+                worst_grad_relative_fused_vs_dense_mlp=worst_mlp,
+                worst_grad_relative_flash_vs_dense_attention=worst_flash,
+                tolerance=tol, leaves=leaves)
+
+
+def free_card(torch):
+    """Drop what the phases before left for the collector, return the
+    cached blocks and restart the peak count."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1073,7 +1534,7 @@ def main():
         return 2
     from paddle_tpu_torch import set_flags
     from paddle_tpu_torch.kernels import _build
-    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.models import gpt, llama
 
     # full-precision matmuls for every comparison below
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1141,6 +1602,36 @@ def main():
     phase(14, "training parity fp32 fused vs dense MLP, flash vs dense "
           "attention", **phase_train_parity_fp32(torch))
 
+    free_card(torch)
+    swiglu = phase_swiglu_vs_plain(torch)
+    phase(15, "fused SwiGLU kernels vs plain", **swiglu)
+    free_card(torch)
+    lcfg = llama.CONFIGS["llama-7b"]
+    ltrain, lmodel, lopt, lstep = phase_train_llama(torch, lcfg, fused=True)
+    phase(16, "train llama-7b bf16 B=1 S=2048 fused SwiGLU, Layer model + "
+          "AdamW", **ltrain)
+    phase(17, "profile of the llama-7b training step",
+          **phase_profile_llama(torch, lstep))
+    del lmodel, lopt, lstep
+    free_card(torch)
+    ldense, lmodel, lopt, lstep = phase_train_llama(torch, lcfg, fused=False,
+                                                    steps=2)
+    del lmodel, lopt, lstep
+    free_card(torch)
+    # as for GPT: the fused route may hold its kernels' workspace beyond
+    # what the dense route needs, no more
+    work_gb = swiglu_workspace_gb(LLAMA_S, lcfg.hidden_size,
+                                  lcfg.intermediate_size, 2)
+    extra_gb = ltrain["peak_memory_gb"] - ldense["peak_memory_gb"]
+    check(extra_gb <= work_gb, f"fused SwiGLU step peaks {extra_gb} GB above "
+          f"the dense one (workspace {work_gb} GB)")
+    phase(18, "train llama-7b bf16 B=1 S=2048 dense SwiGLU",
+          fused_peak_minus_dense_gb=extra_gb, swiglu_workspace_gb=work_gb,
+          **ldense)
+    set_flags({"FLAGS_fused_mlp": True})
+    phase(19, "llama training parity fp32 SwiGLU kernels vs dense, flash vs "
+          "dense attention", **phase_llama_parity_fp32(torch))
+
     kernels = [{
         "name": "decode_attn_proj", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": serve1["kernel_launches"],
@@ -1168,6 +1659,23 @@ def main():
         if key == "backward":
             kernels[-1]["note"] = ("dX and dW run in one backward call: ms, "
                                    "plain_ms and bound_ms are that call's")
+    # the SwiGLU kernels' launches are llama-7b training's (phase 16); the
+    # dX and dW kernels run in one backward call (fused_swiglu_bwd)
+    for name in SWIGLU_REPLACES:
+        t = swiglu["forward" if name == "fused_swiglu_fwd" else "backward"]
+        err = swiglu["worst"]["bfloat16"][name]["max_abs_err"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": MLP_SOURCE,
+            "replaces": SWIGLU_REPLACES[name],
+            "launches": ltrain["launches"][name], "max_abs_err": err,
+            "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+        if name != "fused_swiglu_fwd":
+            kernels[-1]["note"] = ("dX and dW run in one backward call, "
+                                   "fused_swiglu_bwd: ms, plain_ms and "
+                                   "bound_ms are that call's")
+    print(card, flush=True)     # again here: the top of the log may be cut
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,10 @@ names its counterpart. It imports ``torch`` and never ``jax`` or
 ``kernels/csrc/``, built at first use; its plain PyTorch version runs
 only for tensors on the CPU.
 
-Ported so far: GPT serving through the paged-KV engine, and the GPT
-training step on one device with flash attention (see ROADMAP.md for
-what is still to come).
+Ported so far: GPT serving through the paged-KV engine, the GPT
+training step on one device with flash attention and the fused GeLU
+MLP, and LLaMA training through the Layer model and AdamW with the fused
+SwiGLU MLP (see ROADMAP.md for what is still to come).
 """
 from ._device import resolve_device
 from .core.flags import get_flag, set_flags

@@ -1,13 +1,21 @@
-// Fused GeLU MLP, forward and backward: y = gelu(x . W1 + b1) . W2 + b2.
+// Fused transformer MLPs, forward and backward, on one tiled GEMM core:
+// the GeLU MLP y = gelu(x . W1 + b1) . W2 + b2 (GPT, BERT) and the SwiGLU
+// MLP y = (silu(x . Wg) * (x . Wu)) . Wd (LLaMA, no biases).
 //
 // Replaces the TPU kernels of paddle_tpu/kernels/mlp_fusion.py:
-//   _mlp_fwd_kernel :228 (launched by _mlp_fwd :374) -> fused_mlp_fwd_*
-//   _mlp_dx_kernel  :260 (launched by _mlp_dx :394)  -> fused_mlp_bwd_* (dX part)
-//   _mlp_dw_kernel  :296 (launched by _mlp_dw :415)  -> fused_mlp_bwd_* (dW part)
-// all entered through fused_mlp_2d :472. x [R, H], W1 [H, F], W2 [F, H] and
-// g [R, H] contiguous, float32 or bfloat16 (one dtype); b1 [F] and b2 [H]
-// come in as f32. No dropout (the seeded keep-mask is BERT's, ROADMAP A6).
+//   _mlp_fwd_kernel    :228 (launched by _mlp_fwd :374) -> fused_mlp_fwd_*
+//   _mlp_dx_kernel     :260 (launched by _mlp_dx :394)  -> fused_mlp_bwd_* (dX part)
+//   _mlp_dw_kernel     :296 (launched by _mlp_dw :415)  -> fused_mlp_bwd_* (dW part)
+// all entered through fused_mlp_2d :472, and
+//   _swiglu_fwd_kernel :522 -> fused_swiglu_fwd_*
+//   _swiglu_dx_kernel  :543 -> fused_swiglu_bwd_* (dX part)
+//   _swiglu_dw_kernel  :572 -> fused_swiglu_bwd_* (dW part)
+// entered through fused_swiglu_2d :674 (the custom_vjp of :611-671).
+// x [R, H], W1/Wg/Wu [H, F], W2/Wd [F, H] and g [R, H] contiguous,
+// float32 or bfloat16 (one dtype); b1 [F] and b2 [H] come in as f32. No
+// dropout (the seeded keep-mask is BERT's, ROADMAP A6).
 //
+// GeLU MLP:
 //   forward: a = x . W1 (f32 accumulation) + b1 (f32); act = round(gelu(a));
 //            y = round(act . W2 (f32) + b2)                          (:243-257)
 //   dX:      dact = g . W2^T (f32); da = dact * gelu'(a) (f32);
@@ -15,27 +23,40 @@
 //   dW:      dW1 = x^T . da, db1 = sum_r da, dW2 = act^T . g, db2 = sum_r g,
 //            all f32 in the reference (:318-353); dW1/dW2 rounded to the
 //            weights' dtype at the end, db1/db2 kept f32 (the caller casts).
-// The backward computes dX and dW in one call (the flash backward groups
-// its parts the same way).
-// round() is the rounding to the input dtype. gelu is the tanh form
-// (approximate, GPT) or the erf form (BERT), with the reference's constants
-// (:66-69).
+// gelu is the tanh form (approximate, GPT) or the erf form (BERT), with the
+// reference's constants (:66-69).
+// SwiGLU MLP (silu(a) = a * sigmoid(a), silu'(a) = s (1 + a (1 - s)),
+// s = sigmoid(a); :90-96):
+//   forward: ag = x . Wg, au = x . Wu (f32); act = round(silu(ag) * au);
+//            y = round(act . Wd (f32))                               (:531-540)
+//   dX:      dact = g . Wd^T (f32); dag = dact * au * silu'(ag);
+//            dau = dact * silu(ag); dX = round(round(dag) . Wg^T +
+//            round(dau) . Wu^T) (f32 accumulation)                   (:552-569)
+//   dW:      dWg = x^T . dag, dWu = x^T . dau, dWd = (silu(ag) * au)^T . g,
+//            all f32 in the reference (:584-607), rounded to the weights'
+//            dtype at the end.
+// Each backward computes dX and dW in one call (the flash backward groups
+// its parts the same way). round() is the rounding to the input dtype.
 //
 // Bound: operations. At GPT-3 1.3B training shapes (R = B*S = 8192, H =
-// 2048, F = 8192, bf16; RHF = 1.374e11) the forward needs 4 RHF = 0.550
-// TFLOP, 0.556 ms at 989 TFLOP/s, against 0.05 ms to move x, W1, W2 and y
-// once at 3.35 TB/s; dX needs 6 RHF (0.834 ms), dW 8 RHF (1.112 ms).
+// 2048, F = 8192, bf16; RHF = 1.374e11) the GeLU forward needs 4 RHF =
+// 0.550 TFLOP, 0.556 ms at 989 TFLOP/s, against 0.05 ms to move x, W1, W2
+// and y once at 3.35 TB/s; dX needs 6 RHF (0.834 ms), dW 8 RHF (1.112 ms).
+// At LLaMA-7B training shapes (R = 2048, H = 4096, F = 11008, bf16; RHF =
+// 9.23e10) the SwiGLU forward needs 6 RHF = 0.554 TFLOP (0.560 ms), the
+// backward 16 RHF (1.494 ms), against 0.09 ms to move the operands once.
 //
 // Design. The TPU keeps a [block_r, H] f32 accumulator (dX, forward) or
 // [H, block_f] + [block_f, H] accumulators (dW) in VMEM across a sequential
 // ffn (or row) axis: at H = 2048 that is 512 KB to 1 MB, two to four times
 // an SM's shared memory. Here the ffn dim is walked in chunks of Fc columns
-// (the caller's chunk, 2048 on the main path), and every product is one
-// launch of one tiled GEMM kernel with a fused epilogue:
-//   forward, per chunk:  (1) act_c = round(gelu(x . W1[:, c] + b1[c]))
-//                        (2) acc (+)= act_c . W2[c, :]; last chunk writes
-//                            y = round(acc + b2)
-//   backward, per chunk: (1) a_c = x . W1[:, c] + b1[c]               (f32)
+// (the caller's chunk, 2048 on the main paths; the last chunk may be
+// ragged, as 11008 = 5 * 2048 + 768), and every product is one launch of
+// one tiled GEMM kernel with a fused epilogue:
+//   GeLU forward, per chunk:  (1) act_c = round(gelu(x . W1[:, c] + b1[c]))
+//                             (2) acc (+)= act_c . W2[c, :]; last chunk writes
+//                                 y = round(acc + b2)
+//   GeLU backward, per chunk: (1) a_c = x . W1[:, c] + b1[c]               (f32)
 //                        (2) dact = g . W2[c, :]^T; da_c = round(dact * gelu'(a_c)),
 //                            act_c = round(gelu(a_c)), and each row block's
 //                            column sums of da (f32) into the partials
@@ -44,18 +65,37 @@
 //                        once per call, before the chunks: each row block's
 //                        column sums of g into the partials; after them: db1
 //                        and db2 = the partials summed over the row blocks.
-// No atomics: every sum runs in a fixed order, so the backward gives the
+//   SwiGLU forward, per chunk: (1) ag_c = x . Wg[:, c]                    (f32)
+//                        (2) act_c = round(silu(ag_c) * (x . Wu[:, c]))
+//                        (3) acc (+)= act_c . Wd[c, :]; last writes round(acc)
+//   SwiGLU backward, per chunk: (1) ag_c = x . Wg[:, c]  (2) au_c = x . Wu[:, c]
+//                        (3) dact = g . Wd[c, :]^T; dag_c = round(dact * au_c *
+//                            silu'(ag_c)), dau_c = round(dact * silu(ag_c)),
+//                            act_c = round(silu(ag_c) * au_c)
+//                        (4) dX: acc (+)= dag_c . Wg[:, c]^T
+//                        (5) dX: acc += dau_c . Wu[:, c]^T; last writes round(acc)
+//                        (6) dWg[:, c] = x^T . dag_c  (7) dWu[:, c] = x^T . dau_c
+//                        (8) dWd[c, :] = act_c^T . g
+// No atomics: every sum runs in a fixed order, so each backward gives the
 // same bits on every run.
 // The [R, F] activation never exists whole: only one [R, Fc] chunk of it
-// (and of a and da in the backward) lives in device memory at a time.
-// Workspace (allocated by the caller): forward act_c [R, Fc] in the dtype
-// plus the f32 accumulator [R, H] when F > Fc; backward a_c [R, Fc] f32,
-// da_c and act_c [R, Fc] in the dtype, the f32 [R, H] dX accumulator when
-// F > Fc, and the f32 column-sum partials [ceil(R / BM), F + H]. At R =
-// 8192, H = 2048, Fc = 2048, bf16: 32 + 64 = 96 MB forward, 64 + 32 + 32 +
-// 64 + 2.6 = 194.6 MB backward. Recompute: the backward's (1) repeats the
-// forward's first product, 2 RHF, as the TPU kernels do (their dX and dW
-// kernels each recompute it: 4 RHF); the backward does 10 RHF in all.
+// (and of a and da, or ag, au, dag and dau, in the backward) lives in
+// device memory at a time.
+// Workspace (allocated by the caller). GeLU: forward act_c [R, Fc] in the
+// dtype plus the f32 accumulator [R, H] when F > Fc; backward a_c [R, Fc]
+// f32, da_c and act_c [R, Fc] in the dtype, the f32 [R, H] dX accumulator
+// when F > Fc, and the f32 column-sum partials [ceil(R / BM), F + H]. At R
+// = 8192, H = 2048, Fc = 2048, bf16: 32 + 64 = 96 MB forward, 64 + 32 + 32
+// + 64 + 2.6 = 194.6 MB backward. SwiGLU: forward ag_c [R, Fc] f32, act_c
+// [R, Fc] in the dtype and the f32 [R, H] accumulator when F > Fc;
+// backward ag_c and au_c [R, Fc] f32, dag_c, dau_c and act_c [R, Fc] in
+// the dtype and the f32 [R, H] dX accumulator (always: dX sums two products
+// per chunk). At R = 2048, H = 4096, Fc = 2048, bf16: 16.8 + 8.4 + 33.6 =
+// 58.7 MB forward, 33.6 + 25.2 + 33.6 = 92.3 MB backward.
+// Recompute: each backward repeats its forward's first products once, as
+// the TPU kernels do (their dX and dW kernels each recompute them): GeLU
+// 10 RHF in all where the TPU's two kernels do 12, SwiGLU 16 RHF where
+// they do 22.
 //
 // GEMM: a 3-stage cp.async ring of operand tiles in shared memory (16-byte
 // copies, zero-filled past the matrix edge: any R, H, F, no padding in
@@ -65,16 +105,17 @@
 // 64, 8 warps of 64 x 32, fragments loaded with ldmatrix (.trans for the
 // transposed layouts) into mma.sync m16n8k16 with f32 accumulators in
 // registers (the chunk and this tile were chosen on an H100, PERF.md).
-// Precision of the dW
-// products: the bf16 kernel feeds round(da) and round(act) to the bf16
-// tensor cores (the reference multiplies them in f32); x and g are bf16
-// already, so that is the only rounding it adds. float32: scalar FMA,
-// 8 x 8 outputs per thread, every product in full f32 (for the parity
-// runs), block tile 128 x 128 x 32. The accumulator tile goes through
+// Precision of the dW products: the bf16 kernels feed round(da) and
+// round(act) (GeLU), round(dag), round(dau) and round(act) (SwiGLU) to the
+// bf16 tensor cores, where the reference multiplies them in f32; x and g
+// are bf16 already, so that is the only rounding they add. float32: scalar
+// FMA, 8 x 8 outputs per thread, every product in full f32 (for the
+// parity runs; round() is then the identity, so dag, dau and act stay
+// f32), block tile 128 x 128 x 32. The accumulator tile goes through
 // shared memory as f32 for the epilogue.
 //
-// CUDA launches per call, nc = ceil(F / Fc) chunks: forward 2 nc; backward
-// 5 nc + 2.
+// CUDA launches per call, nc = ceil(F / Fc) chunks: GeLU forward 2 nc,
+// backward 5 nc + 2; SwiGLU forward 3 nc, backward 8 nc.
 // wgmma, TMA, a persistent schedule and an epilogue from registers are
 // left for later work.
 
@@ -107,7 +148,7 @@ constexpr float kGeluCoef = 0.044715f;
 constexpr float kInvSqrt2 = 0.7071067811865476f;
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
-enum Epi { EPI_GELU, EPI_ACC, EPI_PRE, EPI_DGELU, EPI_STORE };
+enum Epi { EPI_GELU, EPI_ACC, EPI_PRE, EPI_DGELU, EPI_STORE, EPI_SWIGLU, EPI_DSWIGLU };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -138,17 +179,22 @@ __device__ __forceinline__ float dgelu(float a, int approximate) {
   return cdf + a * pdf;
 }
 
+__device__ __forceinline__ float sigmoid(float a) { return 1.f / (1.f + expf(-a)); }
+
 // One GEMM C[m, n] = sum_k A(m, k) B(k, n) and its epilogue. A(m, k) is
 // a[m * lda + k], or a[k * lda + m] when the kernel's ACOL; B(k, n) is
 // b[k * ldb + n], or b[n * ldb + k] when BCOL. Epilogue operands:
 //   EPI_GELU:  out = round(gelu(C + bias))
 //   EPI_ACC:   buf = (first ? 0 : buf) + C; on the last call out =
 //              round(buf + bias) (bias may be null) and buf is not written
-//   EPI_PRE:   buf = C + bias (f32)
+//   EPI_PRE:   buf = C + bias (f32; bias may be null)
 //   EPI_DGELU: da = C * gelu'(aux); out = round(da); out2 = round(gelu(aux));
 //              colsum[by * ldcol + n] = sum of da over the block's rows, by
 //              the block's row index
 //   EPI_STORE: out = round(C)
+//   EPI_SWIGLU:  out = round(silu(aux) * C)
+//   EPI_DSWIGLU: with ag = aux, au = aux2: out = round(C * au * silu'(ag)),
+//                out2 = round(C * silu(ag)), out3 = round(silu(ag) * au)
 template <typename T> struct Gemm {
   const T* a;
   const T* b;
@@ -156,9 +202,11 @@ template <typename T> struct Gemm {
   int m, n, k;
   const float* bias;
   const float* aux;
+  const float* aux2;
   float* buf;
   T* out;
   T* out2;
+  T* out3;
   float* colsum;
   size_t ldaux, ldbuf, ldo, ldcol;
   int first, last, approximate, vec;
@@ -418,7 +466,7 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS) mlp_gemm_kernel(Gemm<T> p) {
         }
       }
     } else if (EPI == EPI_PRE) {
-      if (in) p.buf[(size_t)gm * p.ldbuf + gn] = v + p.bias[gn];
+      if (in) p.buf[(size_t)gm * p.ldbuf + gn] = p.bias ? v + p.bias[gn] : v;
     } else if (EPI == EPI_DGELU) {
       float da = 0.f;
       if (in) {
@@ -428,6 +476,21 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS) mlp_gemm_kernel(Gemm<T> p) {
         p.out2[(size_t)gm * p.ldo + gn] = from_f<T>(gelu(a, p.approximate));
       }
       S[r * LDS + c] = da;  // each thread rewrites only the elements it read
+    } else if (EPI == EPI_SWIGLU) {
+      if (in) {
+        const float ag = p.aux[(size_t)gm * p.ldaux + gn];
+        p.out[(size_t)gm * p.ldo + gn] = from_f<T>(ag * sigmoid(ag) * v);
+      }
+    } else if (EPI == EPI_DSWIGLU) {
+      if (in) {
+        const size_t o = (size_t)gm * p.ldaux + gn;
+        const float ag = p.aux[o], au = p.aux2[o];
+        const float s = sigmoid(ag), silu = ag * s;
+        const size_t w = (size_t)gm * p.ldo + gn;
+        p.out[w] = from_f<T>(v * au * (s * (1.f + ag * (1.f - s))));
+        p.out2[w] = from_f<T>(v * silu);
+        p.out3[w] = from_f<T>(silu * au);
+      }
     } else {
       if (in) p.out[(size_t)gm * p.ldo + gn] = from_f<T>(v);
     }
@@ -599,6 +662,110 @@ int launch_bwd(const void* x, const void* w1, const void* b1, const void* w2, co
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_swiglu_fwd(const void* x, const void* wg, const void* wu, const void* wd, void* y,
+                      void* ag_ws, void* act_ws, void* acc_ws, int r, int h, int f, int fc,
+                      void* stream) {
+  if (bad_shape(r, h, f, fc)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* X = static_cast<const T*>(x);
+  const T* WG = static_cast<const T*>(wg);
+  const T* WU = static_cast<const T*>(wu);
+  const T* WD = static_cast<const T*>(wd);
+  float* AG = static_cast<float*>(ag_ws);
+  T* ACT = static_cast<T*>(act_ws);
+  const int nch = (f + fc - 1) / fc;
+  int rc = 0;
+  for (int c = 0; c < nch; ++c) {
+    const int f0 = c * fc, nc = std::min(fc, f - f0);
+    Gemm<T> p = {};  // ag_c = x . Wg[:, c]
+    p.a = X, p.lda = h, p.b = WG + f0, p.ldb = f;
+    p.m = r, p.n = nc, p.k = h;
+    p.buf = AG, p.ldbuf = nc;
+    if ((rc = run_gemm<T, false, false, EPI_PRE>(p, st))) return rc;
+    Gemm<T> q = {};  // act_c = round(silu(ag_c) * (x . Wu[:, c]))
+    q.a = X, q.lda = h, q.b = WU + f0, q.ldb = f;
+    q.m = r, q.n = nc, q.k = h;
+    q.aux = AG, q.ldaux = nc;
+    q.out = ACT, q.ldo = nc;
+    if ((rc = run_gemm<T, false, false, EPI_SWIGLU>(q, st))) return rc;
+    Gemm<T> d = {};  // acc (+)= act_c . Wd[c, :]
+    d.a = ACT, d.lda = nc, d.b = WD + (size_t)f0 * h, d.ldb = h;
+    d.m = r, d.n = h, d.k = nc;
+    d.buf = static_cast<float*>(acc_ws), d.ldbuf = h;
+    d.out = static_cast<T*>(y), d.ldo = h;
+    d.first = c == 0, d.last = c == nch - 1;
+    if ((rc = run_gemm<T, false, false, EPI_ACC>(d, st))) return rc;
+  }
+  return 0;
+}
+
+// dWg, dWu and dWd in the weights' dtype; acc_ws is the f32 [R, H] dX
+// accumulator, needed with one chunk too (dX sums two products per chunk).
+template <typename T>
+int launch_swiglu_bwd(const void* x, const void* wg, const void* wu, const void* wd,
+                      const void* g, void* dx, void* dwg, void* dwu, void* dwd, void* ag_ws,
+                      void* au_ws, void* dag_ws, void* dau_ws, void* act_ws, void* acc_ws,
+                      int r, int h, int f, int fc, void* stream) {
+  if (bad_shape(r, h, f, fc)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* X = static_cast<const T*>(x);
+  const T* WG = static_cast<const T*>(wg);
+  const T* WU = static_cast<const T*>(wu);
+  const T* WD = static_cast<const T*>(wd);
+  const T* G = static_cast<const T*>(g);
+  float* AG = static_cast<float*>(ag_ws);
+  float* AU = static_cast<float*>(au_ws);
+  T* DAG = static_cast<T*>(dag_ws);
+  T* DAU = static_cast<T*>(dau_ws);
+  T* ACT = static_cast<T*>(act_ws);
+  float* ACC = static_cast<float*>(acc_ws);
+  const int nch = (f + fc - 1) / fc;
+  int rc = 0;
+  for (int c = 0; c < nch; ++c) {
+    const int f0 = c * fc, nc = std::min(fc, f - f0);
+    Gemm<T> p = {};  // ag_c = x . Wg[:, c]
+    p.a = X, p.lda = h, p.b = WG + f0, p.ldb = f;
+    p.m = r, p.n = nc, p.k = h;
+    p.buf = AG, p.ldbuf = nc;
+    if ((rc = run_gemm<T, false, false, EPI_PRE>(p, st))) return rc;
+    p.b = WU + f0, p.buf = AU;  // au_c = x . Wu[:, c]
+    if ((rc = run_gemm<T, false, false, EPI_PRE>(p, st))) return rc;
+
+    Gemm<T> q = {};  // dag_c, dau_c, act_c from dact = g . Wd[c, :]^T
+    q.a = G, q.lda = h, q.b = WD + (size_t)f0 * h, q.ldb = h;
+    q.m = r, q.n = nc, q.k = h;
+    q.aux = AG, q.aux2 = AU, q.ldaux = nc;
+    q.out = DAG, q.out2 = DAU, q.out3 = ACT, q.ldo = nc;
+    if ((rc = run_gemm<T, false, true, EPI_DSWIGLU>(q, st))) return rc;
+
+    Gemm<T> d = {};  // acc (+)= dag_c . Wg[:, c]^T
+    d.a = DAG, d.lda = nc, d.b = WG + f0, d.ldb = f;
+    d.m = r, d.n = h, d.k = nc;
+    d.buf = ACC, d.ldbuf = h;
+    d.out = static_cast<T*>(dx), d.ldo = h;
+    d.first = c == 0, d.last = 0;
+    if ((rc = run_gemm<T, false, true, EPI_ACC>(d, st))) return rc;
+    d.a = DAU, d.b = WU + f0;  // acc += dau_c . Wu[:, c]^T
+    d.first = 0, d.last = c == nch - 1;
+    if ((rc = run_gemm<T, false, true, EPI_ACC>(d, st))) return rc;
+
+    Gemm<T> w = {};  // dWg[:, c] = x^T . dag_c
+    w.a = X, w.lda = h, w.b = DAG, w.ldb = nc;
+    w.m = h, w.n = nc, w.k = r;
+    w.out = static_cast<T*>(dwg) + f0, w.ldo = f;
+    if ((rc = run_gemm<T, true, false, EPI_STORE>(w, st))) return rc;
+    w.b = DAU, w.out = static_cast<T*>(dwu) + f0;  // dWu[:, c] = x^T . dau_c
+    if ((rc = run_gemm<T, true, false, EPI_STORE>(w, st))) return rc;
+    Gemm<T> v = {};  // dWd[c, :] = act_c^T . g
+    v.a = ACT, v.lda = nc, v.b = G, v.ldb = h;
+    v.m = nc, v.n = h, v.k = r;
+    v.out = static_cast<T*>(dwd) + (size_t)f0 * h, v.ldo = h;
+    if ((rc = run_gemm<T, true, false, EPI_STORE>(v, st))) return rc;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -632,6 +799,35 @@ int fused_mlp_bwd_bf16(const void* x, const void* w1, const void* b1, const void
   return launch_bwd<__nv_bfloat16>(x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, a_ws, da_ws,
                                    act_ws, acc_ws, part_ws, parts, r, h, f, fc, approximate,
                                    stream);
+}
+
+int fused_swiglu_fwd_f32(const void* x, const void* wg, const void* wu, const void* wd, void* y,
+                         void* ag_ws, void* act_ws, void* acc_ws, int r, int h, int f, int fc,
+                         void* stream) {
+  return launch_swiglu_fwd<float>(x, wg, wu, wd, y, ag_ws, act_ws, acc_ws, r, h, f, fc, stream);
+}
+
+int fused_swiglu_fwd_bf16(const void* x, const void* wg, const void* wu, const void* wd, void* y,
+                          void* ag_ws, void* act_ws, void* acc_ws, int r, int h, int f, int fc,
+                          void* stream) {
+  return launch_swiglu_fwd<__nv_bfloat16>(x, wg, wu, wd, y, ag_ws, act_ws, acc_ws, r, h, f, fc,
+                                          stream);
+}
+
+int fused_swiglu_bwd_f32(const void* x, const void* wg, const void* wu, const void* wd,
+                         const void* g, void* dx, void* dwg, void* dwu, void* dwd, void* ag_ws,
+                         void* au_ws, void* dag_ws, void* dau_ws, void* act_ws, void* acc_ws,
+                         int r, int h, int f, int fc, void* stream) {
+  return launch_swiglu_bwd<float>(x, wg, wu, wd, g, dx, dwg, dwu, dwd, ag_ws, au_ws, dag_ws,
+                                  dau_ws, act_ws, acc_ws, r, h, f, fc, stream);
+}
+
+int fused_swiglu_bwd_bf16(const void* x, const void* wg, const void* wu, const void* wd,
+                          const void* g, void* dx, void* dwg, void* dwu, void* dwd, void* ag_ws,
+                          void* au_ws, void* dag_ws, void* dau_ws, void* act_ws, void* acc_ws,
+                          int r, int h, int f, int fc, void* stream) {
+  return launch_swiglu_bwd<__nv_bfloat16>(x, wg, wu, wd, g, dx, dwg, dwu, dwd, ag_ws, au_ws,
+                                          dag_ws, dau_ws, act_ws, acc_ws, r, h, f, fc, stream);
 }
 
 const char* fused_mlp_error_string(int code) {

@@ -1,28 +1,36 @@
-"""Fused transformer-block kernels: the GeLU MLP and the B=1 decode step.
+"""Fused transformer-block kernels: the GeLU and SwiGLU MLPs and the B=1
+decode step.
 
 Counterpart: ``paddle_tpu/kernels/mlp_fusion.py``: the activation
-functions (``_gelu_f32`` / ``_dgelu_f32`` :66-87), the fused MLP
-(``_mlp_fwd_kernel`` :228, ``_mlp_dx_kernel`` :260, ``_mlp_dw_kernel``
-:296, the ``custom_vjp`` assembly :443 and ``fused_mlp_2d`` :472; its
-shape rule ``mlp_blocks`` :118 as ``mlp_eligible``) and the decode part
-(``_decode_kernel`` :977, ``_decode_call`` :1041, ``decode_attn_proj``
-:1067). The SwiGLU and projection-LN kernels belong to later slices
-(ROADMAP A4, A6); so does the fused MLP's dropout epilogue (A6).
+functions (``_gelu_f32`` / ``_dgelu_f32`` :66-87, ``_silu_f32`` /
+``_dsilu_f32`` :90-96), the fused MLP (``_mlp_fwd_kernel`` :228,
+``_mlp_dx_kernel`` :260, ``_mlp_dw_kernel`` :296, the ``custom_vjp``
+assembly :443 and ``fused_mlp_2d`` :472; its shape rule ``mlp_blocks``
+:118 as ``mlp_eligible``), the fused SwiGLU (``_swiglu_fwd_kernel`` :522,
+``_swiglu_dx_kernel`` :543, ``_swiglu_dw_kernel`` :572, the
+``custom_vjp`` assembly :611 and ``fused_swiglu_2d`` :674) and the
+decode part (``_decode_kernel`` :977, ``_decode_call`` :1041,
+``decode_attn_proj`` :1067). The projection-LN kernels belong to a later
+slice (ROADMAP A6); so does the fused MLP's dropout epilogue (A6).
 
 The fused MLP's forward and backward are ``torch.library`` custom ops,
 ``paddle_tpu_torch::fused_mlp_fwd`` → ``y`` and
 ``paddle_tpu_torch::fused_mlp_bwd`` → ``(dx, dw1, db1, dw2, db2)``,
 joined by ``register_autograd``; the backward saves the primal inputs
 only (the reference's residuals, :452-458) and recomputes the [R, F]
-activation. For CUDA tensors the ops launch the hand-written Hopper
-kernels of ``csrc/fused_mlp.cu`` (its header names the TPU kernels
-replaced, the operation bound, the workspace and the recompute) or
-raise; for CPU tensors they take the plain PyTorch versions
-``fused_mlp_fwd_ref`` / ``fused_mlp_dx_ref`` / ``fused_mlp_dw_ref``.
-``launches`` counts calls that launch the kernels, by kernel name (CPU
-calls do not count); one backward call runs the dX and dW kernels over
-each ffn chunk together and counts once for each. The backward sums the
-bias gradients in a fixed order: every call gives the same bits.
+activation. The fused SwiGLU is built the same way:
+``paddle_tpu_torch::fused_swiglu_fwd`` → ``y`` and
+``paddle_tpu_torch::fused_swiglu_bwd`` → ``(dx, dwg, dwu, dwd)``, the
+backward saving the primal inputs only (:637). For CUDA tensors the ops
+launch the hand-written Hopper kernels of ``csrc/fused_mlp.cu`` (its
+header names the TPU kernels replaced, the operation bound, the
+workspace and the recompute) or raise; for CPU tensors they take the
+plain PyTorch versions ``fused_mlp_fwd_ref`` / ``fused_mlp_dx_ref`` /
+``fused_mlp_dw_ref`` and ``fused_swiglu_fwd_ref`` / ``fused_swiglu_dx_ref``
+/ ``fused_swiglu_dw_ref``. ``launches`` counts calls that launch the
+kernels, by kernel name (CPU calls do not count); one backward call runs
+the dX and dW kernels over each ffn chunk together and counts once for
+each. No backward uses atomics: every call gives the same bits.
 
 ``decode_attn_proj`` is the decode wrapper. For CUDA tensors it launches
 ``csrc/decode_attn_proj.cu`` or raises; for CPU tensors it takes
@@ -42,7 +50,9 @@ from .flash_attention import _on
 
 __all__ = ["decode_attn_proj", "decode_attn_proj_ref", "fused_mlp_2d",
            "fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_fwd_ref",
-           "fused_mlp_dx_ref", "fused_mlp_dw_ref", "mlp_eligible",
+           "fused_mlp_dx_ref", "fused_mlp_dw_ref", "fused_swiglu_2d",
+           "fused_swiglu_fwd", "fused_swiglu_bwd", "fused_swiglu_fwd_ref",
+           "fused_swiglu_dx_ref", "fused_swiglu_dw_ref", "mlp_eligible",
            "launches"]
 
 _NEG_INF = -1e30   # flash_attention.py:61 — the kernel's mask, never -inf
@@ -80,6 +90,15 @@ def _dgelu_f32(a, approximate):
     return cdf + a * pdf
 
 
+def _silu_f32(a):
+    return a * torch.sigmoid(a)
+
+
+def _dsilu_f32(a):
+    s = torch.sigmoid(a)
+    return s * (1.0 + a * (1.0 - s))
+
+
 # ---------------------------------------------------------------------------
 # fused MLP: matmul → GeLU → matmul (+ biases)
 # ---------------------------------------------------------------------------
@@ -87,13 +106,15 @@ def _dgelu_f32(a, approximate):
 # the ffn chunk the kernels walk: one [R, _CHUNK_F] slice of the activation
 # lives in device memory at a time (csrc/fused_mlp.cu). On an H100 at
 # gpt3-1.3b shape 2048 was chosen over 1024 (slower) and 4096 (twice the
-# workspace; PERF.md): a quarter of the activation at F = 8192
+# workspace; PERF.md): a quarter of the activation at F = 8192. The SwiGLU
+# kernels walk the same chunks
 _CHUNK_F = 2048
 # rows per block of the kernels' GEMM (kRowBlock): the backward's bias
 # gradients are summed per row block, then over the blocks in order
 _ROW_BLOCK = 128
 
-launches = {"fused_mlp_fwd": 0, "fused_mlp_dx": 0, "fused_mlp_dw": 0}
+launches = {"fused_mlp_fwd": 0, "fused_mlp_dx": 0, "fused_mlp_dw": 0,
+            "fused_swiglu_fwd": 0, "fused_swiglu_dx": 0, "fused_swiglu_dw": 0}
 
 
 def mlp_eligible(r: int, h: int, f: int) -> bool:
@@ -142,9 +163,54 @@ def fused_mlp_dw_ref(x, w1, b1, w2, g, approximate: bool):
             _gelu_f32(a, approximate).T @ g32, g32.sum(0))
 
 
+def _gate_up(x, wg, wu):
+    """(ag, au) = (x·Wg, x·Wu) with f32 accumulation."""
+    x32 = x.float()
+    return x32 @ wg.float(), x32 @ wu.float()
+
+
+def fused_swiglu_fwd_ref(x, wg, wu, wd):
+    """Plain version of the SwiGLU forward kernel (mlp_fusion.py:531-540):
+    x [R, H], wg/wu [H, F], wd [F, H] in x's dtype. The activation
+    ``silu(ag)·au`` is rounded to x's dtype before the down product; y in
+    x's dtype."""
+    ag, au = _gate_up(x, wg, wu)
+    act = (_silu_f32(ag) * au).to(x.dtype)
+    return (act.float() @ wd.float()).to(x.dtype)
+
+
+def _swiglu_da(x, wg, wu, wd, g):
+    """(ag, au, dag, dau) in f32 (:552-562): dact = g·Wdᵀ, dag =
+    dact·au·silu'(ag), dau = dact·silu(ag)."""
+    ag, au = _gate_up(x, wg, wu)
+    dact = g.to(x.dtype).float() @ wd.float().T
+    return ag, au, dact * au * _dsilu_f32(ag), dact * _silu_f32(ag)
+
+
+def fused_swiglu_dx_ref(x, wg, wu, wd, g):
+    """Plain version of the SwiGLU dX kernel (:552-569): dag and dau
+    rounded to x's dtype before their products with Wgᵀ and Wuᵀ, the two
+    summed in f32; dx in x's dtype."""
+    _, _, dag, dau = _swiglu_da(x, wg, wu, wd, g)
+    dt = x.dtype
+    return (dag.to(dt).float() @ wg.float().T
+            + dau.to(dt).float() @ wu.float().T).to(dt)
+
+
+def fused_swiglu_dw_ref(x, wg, wu, wd, g):
+    """Plain version of the SwiGLU dW kernel (:584-607): dag, dau and the
+    activation stay f32, not rounded. Returns (dwg, dwu, dwd), all f32."""
+    ag, au, dag, dau = _swiglu_da(x, wg, wu, wd, g)
+    x32 = x.float()
+    return (x32.T @ dag, x32.T @ dau,
+            (_silu_f32(ag) * au).T @ g.to(x.dtype).float())
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _MLP_ARGTYPES = {"fused_mlp_fwd": [_P] * 8 + [_I] * 5 + [_P],
-                 "fused_mlp_bwd": [_P] * 15 + [_I] * 6 + [_P]}
+                 "fused_mlp_bwd": [_P] * 15 + [_I] * 6 + [_P],
+                 "fused_swiglu_fwd": [_P] * 8 + [_I] * 4 + [_P],
+                 "fused_swiglu_bwd": [_P] * 15 + [_I] * 4 + [_P]}
 
 
 @functools.cache
@@ -171,27 +237,36 @@ def _mlp_call(name, dtype, device, *args):
                            f"({lib.fused_mlp_error_string(rc).decode()})")
 
 
-def _mlp_check(name, x, w1, b1, w2, more=()):
-    """The kernels' contract: float32 or bfloat16, one dtype for x, the
-    weights and g, one CUDA device, contiguous. Returns (r, h, f)."""
+def _mlp_check(name, x, w1, w2, more=(), vecs=()):
+    """The kernels' contract: x [R, H], w1 [H, F], w2 [F, H]; float32 or
+    bfloat16, one dtype for x, the weights and g (``more``), one CUDA
+    device for these and the f32-cast bias vectors (``vecs``),
+    contiguous. Returns (r, h, f)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
     r, h = x.shape
     f = w1.shape[1]
-    if w1.shape != (h, f) or w2.shape != (f, h) or b1.shape != (f,):
-        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, w1 "
-                         f"{tuple(w1.shape)}, b1 {tuple(b1.shape)}, w2 "
-                         f"{tuple(w2.shape)} do not form an MLP")
+    if w1.shape != (h, f) or w2.shape != (f, h):
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, "
+                         f"{tuple(w1.shape)}, {tuple(w2.shape)} do not form "
+                         f"an MLP")
     for t in (w1, w2, *more):
         if t.dtype != x.dtype:
             raise TypeError(f"{name} kernel: {t.dtype} beside x's {x.dtype} "
                             f"(one dtype for x, the weights and g)")
-    for t in (w1, b1, w2, *more):
+    for t in (w1, w2, *more, *vecs):
         if t.device != x.device:
             raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
     if not all(t.is_contiguous() for t in (x, w1, w2, *more)):
         raise ValueError(f"{name} kernel needs contiguous tensors")
+    return r, h, f
+
+
+def _gelu_check(name, x, w1, b1, w2, more=()):
+    r, h, f = _mlp_check(name, x, w1, w2, more, vecs=(b1,))
+    if b1.shape != (f,):
+        raise ValueError(f"{name}: b1 {tuple(b1.shape)} must be ({f},)")
     return r, h, f
 
 
@@ -200,7 +275,7 @@ def _vec32(v):
 
 
 def _fwd_cuda(x, w1, b1, w2, b2, approximate):
-    r, h, f = _mlp_check("fused_mlp_fwd", x, w1, b1, w2)
+    r, h, f = _gelu_check("fused_mlp_fwd", x, w1, b1, w2)
     if b2.shape != (h,) or b2.device != x.device:
         raise ValueError(f"fused_mlp_fwd: b2 {tuple(b2.shape)} on "
                          f"{b2.device} must be ({h},) on {x.device}")
@@ -222,7 +297,7 @@ def _fwd_cuda(x, w1, b1, w2, b2, approximate):
 def _bwd_cuda(x, w1, b1, w2, g, approximate):
     """dX and dW through the kernels, in one call. Returns (dx, dw1, db1,
     dw2, db2): dx, dw1 and dw2 in x's dtype, db1 and db2 f32."""
-    r, h, f = _mlp_check("fused_mlp_bwd", x, w1, b1, w2, more=(g,))
+    r, h, f = _gelu_check("fused_mlp_bwd", x, w1, b1, w2, more=(g,))
     if g.shape != x.shape:
         raise ValueError(f"fused_mlp_bwd: g {tuple(g.shape)} must have x's "
                          f"shape {tuple(x.shape)}")
@@ -333,6 +408,126 @@ def fused_mlp_2d(x, w1, b1, w2, b2, *, approximate=False, dropout_p=0.0,
             "(ROADMAP A6)")
     return fused_mlp_fwd(x.contiguous(), w1.contiguous(), b1.contiguous(),
                          w2.contiguous(), b2.contiguous(), bool(approximate))
+
+
+# ---------------------------------------------------------------------------
+# fused SwiGLU MLP: (silu(x·Wg)·(x·Wu))·Wd, no biases (LLaMA)
+# ---------------------------------------------------------------------------
+
+def _swiglu_check(name, x, wg, wu, wd, more=()):
+    r, h, f = _mlp_check(name, x, wg, wd, more=(wu, *more))
+    if wu.shape != wg.shape:
+        raise ValueError(f"{name}: gate/up weights {tuple(wg.shape)}/"
+                         f"{tuple(wu.shape)} differ")
+    return r, h, f
+
+
+def _swiglu_fwd_cuda(x, wg, wu, wd):
+    r, h, f = _swiglu_check("fused_swiglu_fwd", x, wg, wu, wd)
+    fc = min(f, _CHUNK_F)
+    dev = x.device
+    y = torch.empty_like(x)
+    ag = torch.empty((r, fc), dtype=torch.float32, device=dev)
+    act = torch.empty((r, fc), dtype=x.dtype, device=dev)
+    acc = (torch.empty((r, h), dtype=torch.float32, device=dev)
+           if f > fc else None)
+    _mlp_call("fused_swiglu_fwd", x.dtype, dev, x.data_ptr(), wg.data_ptr(),
+              wu.data_ptr(), wd.data_ptr(), y.data_ptr(), ag.data_ptr(),
+              act.data_ptr(), None if acc is None else acc.data_ptr(), r, h,
+              f, fc)
+    launches["fused_swiglu_fwd"] += 1
+    return y
+
+
+def _swiglu_bwd_cuda(x, wg, wu, wd, g):
+    """dX and dW through the kernels, in one call. Returns (dx, dwg, dwu,
+    dwd), all in x's dtype."""
+    r, h, f = _swiglu_check("fused_swiglu_bwd", x, wg, wu, wd, more=(g,))
+    if g.shape != x.shape:
+        raise ValueError(f"fused_swiglu_bwd: g {tuple(g.shape)} must have "
+                         f"x's shape {tuple(x.shape)}")
+    fc = min(f, _CHUNK_F)
+    dev, dt = x.device, x.dtype
+
+    def empty(*shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    f32 = torch.float32
+    dx, dwg, dwu, dwd = empty(r, h), empty(h, f), empty(h, f), empty(f, h)
+    ag, au = empty(r, fc, dtype=f32), empty(r, fc, dtype=f32)
+    dag, dau, act = empty(r, fc), empty(r, fc), empty(r, fc)
+    acc = empty(r, h, dtype=f32)   # dX sums two products per chunk
+    _mlp_call("fused_swiglu_bwd", dt, dev, x.data_ptr(), wg.data_ptr(),
+              wu.data_ptr(), wd.data_ptr(), g.data_ptr(), dx.data_ptr(),
+              dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), ag.data_ptr(),
+              au.data_ptr(), dag.data_ptr(), dau.data_ptr(), act.data_ptr(),
+              acc.data_ptr(), r, h, f, fc)
+    launches["fused_swiglu_dx"] += 1
+    launches["fused_swiglu_dw"] += 1
+    return dx, dwg, dwu, dwd
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::fused_swiglu_fwd", mutates_args=(),
+    schema="(Tensor x, Tensor gate_w, Tensor up_w, Tensor down_w) -> Tensor")
+def fused_swiglu_fwd(x, gate_w, up_w, down_w):
+    """Fused SwiGLU forward on [R, H] → y [R, H] in x's dtype."""
+    if _on(x.device, "fused_swiglu_fwd"):
+        return _swiglu_fwd_cuda(x, gate_w, up_w, down_w)
+    return fused_swiglu_fwd_ref(x, gate_w, up_w, down_w)
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::fused_swiglu_bwd", mutates_args=(),
+    schema="(Tensor x, Tensor gate_w, Tensor up_w, Tensor down_w, Tensor g) "
+           "-> (Tensor, Tensor, Tensor, Tensor)")
+def fused_swiglu_bwd(x, gate_w, up_w, down_w, g):
+    """Fused SwiGLU backward → (dx, dwg, dwu, dwd), each in its primal's
+    dtype (the f32 weight gradients cast as the reference's bwd does,
+    :667-668)."""
+    if _on(x.device, "fused_swiglu_bwd"):
+        dx, dwg, dwu, dwd = _swiglu_bwd_cuda(x, gate_w, up_w, down_w, g)
+    else:
+        dx = fused_swiglu_dx_ref(x, gate_w, up_w, down_w, g)
+        dwg, dwu, dwd = fused_swiglu_dw_ref(x, gate_w, up_w, down_w, g)
+    return (dx, dwg.to(gate_w.dtype), dwu.to(up_w.dtype),
+            dwd.to(down_w.dtype))
+
+
+def _swiglu_setup_context(ctx, inputs, output):
+    # the primal inputs only: ag, au and the activation are recomputed
+    ctx.save_for_backward(*inputs)
+
+
+def _swiglu_backward(ctx, g):
+    return fused_swiglu_bwd(*ctx.saved_tensors, g.contiguous())
+
+
+fused_swiglu_fwd.register_autograd(_swiglu_backward,
+                                   setup_context=_swiglu_setup_context)
+
+
+def fused_swiglu_2d(x, gate_w, up_w, down_w):
+    """LLaMA MLP over a [R, H] view (mlp_fusion.py:674):
+    down_w(silu(x @ gate_w) * (x @ up_w)). No biases, no dropout; weight
+    layout [in, out], cast to x's dtype. The reference's checks and
+    messages; the tile rule as ``mlp_eligible``."""
+    if x.ndim != 2:
+        raise ValueError(f"fused_swiglu_2d expects a 2D [R, H] view, got "
+                         f"{tuple(x.shape)}")
+    r, h = x.shape
+    wg, wu, wd = (w.to(x.dtype) for w in (gate_w, up_w, down_w))
+    if wg.ndim != 2 or wg.shape[0] != h or wu.shape != wg.shape:
+        raise ValueError(f"gate/up weights {tuple(wg.shape)}/"
+                         f"{tuple(wu.shape)} must be [{h}, F]")
+    f = wg.shape[1]
+    if tuple(wd.shape) != (f, h):
+        raise ValueError(f"down weight {tuple(wd.shape)} must be [{f}, {h}]")
+    if not mlp_eligible(r, h, f):
+        raise NotImplementedError(
+            f"fused_swiglu: intermediate dim {f} has no legal tile")
+    return fused_swiglu_fwd(x.contiguous(), wg.contiguous(), wu.contiguous(),
+                            wd.contiguous())
 
 
 def _check(q, k_pool, v_pool, block_size, proj_w):

@@ -1,20 +1,19 @@
 """Fused transformer-MLP functionals (kernels/mlp_fusion.py routing).
 
-Counterpart: ``paddle_tpu/nn/functional/mlp.py``, the fused GeLU MLP
-part: ``last_mlp_path`` / ``reset_last_mlp_path`` (:43-62),
-``_fused_mode`` (:65-74), the once-warned dense route (:77-86) and
-``fused_mlp`` (:185-217). ``fused_swiglu`` and
-``fused_attn_proj_residual_layer_norm`` come with LLaMA and BERT
-(ROADMAP A4, A6).
+Counterpart: ``paddle_tpu/nn/functional/mlp.py``, the fused GeLU and
+SwiGLU MLP parts: ``last_mlp_path`` / ``reset_last_mlp_path`` (:43-62),
+``_fused_mode`` (:65-74), the once-warned dense route (:77-86),
+``fused_mlp`` (:185-217) and ``fused_swiglu`` (:220-235).
+``fused_attn_proj_residual_layer_norm`` comes with BERT (ROADMAP A6).
 
-With ``FLAGS_fused_mlp`` on (the default), ``fused_mlp`` takes the fused
-route: on a card the hand-written CUDA kernels, on the CPU their plain
-PyTorch versions (as flash attention does). The reference's
-``_try_fused`` exception policy is not ported: a kernel that fails to
-build or launch raises, nothing falls back. The dense route is taken
-only for what the arguments decide: the flag off, a missing bias, or an
-ffn dim with no legal tile (``mlp_eligible``), the last two with the
-reference's once-warning.
+With ``FLAGS_fused_mlp`` on (the default), ``fused_mlp`` and
+``fused_swiglu`` take the fused route: on a card the hand-written CUDA
+kernels, on the CPU their plain PyTorch versions (as flash attention
+does). The reference's ``_try_fused`` exception policy is not ported: a
+kernel that fails to build or launch raises, nothing falls back. The
+dense route is taken only for what the arguments decide: the flag off, a
+missing bias (``fused_mlp``), or an ffn dim with no legal tile
+(``mlp_eligible``), the last two with the reference's once-warning.
 
 Dropout is not ported on either route: on the fused route it is the
 kernels' seeded keep-mask epilogue (ROADMAP A6); on the dense route the
@@ -29,17 +28,19 @@ import torch
 import torch.nn.functional as F
 
 from ...core.flags import get_flag
-from ...kernels.mlp_fusion import fused_mlp_2d, mlp_eligible
+from ...kernels.mlp_fusion import fused_mlp_2d, fused_swiglu_2d, mlp_eligible
 
-__all__ = ["fused_mlp", "last_mlp_path", "reset_last_mlp_path"]
+__all__ = ["fused_mlp", "fused_swiglu", "last_mlp_path",
+           "reset_last_mlp_path"]
 
 _LAST_PATH = None
 _DENSE_FALLBACK_WARNED = False
 
 
 def last_mlp_path():
-    """The MLP path the most recent ``fused_mlp`` call or GPT block took:
-    'fused_mlp/cuda' (the kernels), 'fused_mlp/plain' (their plain
+    """The MLP path the most recent ``fused_mlp`` or ``fused_swiglu`` call
+    or GPT block took: 'fused_mlp/cuda' or 'fused_swiglu/cuda' (the
+    kernels), 'fused_mlp/plain' or 'fused_swiglu/plain' (their plain
     versions, CPU tensors) or 'dense' (None before any call)."""
     return _LAST_PATH
 
@@ -107,3 +108,24 @@ def fused_mlp(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias, *,
     h = F.gelu(_linear(x, fc1_weight, fc1_bias),
                approximate="tanh" if approximate else "none")
     return _linear(h, fc2_weight, fc2_bias)
+
+
+def fused_swiglu(x, gate_weight, up_weight, down_weight, name=None):
+    """y = (silu(x @ gate) * (x @ up)) @ down — the LLaMA SwiGLU MLP (no
+    biases), in one kernel pass per direction on the fused route. Weight
+    layout [in, out]; x [..., H]."""
+    global _LAST_PATH
+    mode = _fused_mode(x.device)
+    if mode is not None:
+        h = x.shape[-1]
+        f = gate_weight.shape[-1]
+        if not mlp_eligible(x.numel() // h, h, f):
+            _warn_dense(f"fused_swiglu: intermediate dim {f} has no legal "
+                        f"tile")
+        else:
+            _LAST_PATH = f"fused_swiglu/{mode}"
+            y = fused_swiglu_2d(x.reshape(-1, h), gate_weight, up_weight,
+                                down_weight)
+            return y.reshape(x.shape)
+    _LAST_PATH = "dense"
+    return (F.silu(x @ gate_weight) * (x @ up_weight)) @ down_weight

@@ -1,0 +1,74 @@
+"""Adam and AdamW.
+
+Counterpart: ``paddle_tpu/optimizer/optimizers.py``, ``Adam`` (:45-84)
+and ``AdamW`` (:87-110), with the reference's defaults. The other
+optimizers, ``amsgrad``, ``lr_ratio`` and ``apply_decay_param_fun`` are
+ROADMAP A5 and raise NotImplementedError; ``lazy_mode`` and
+``use_multi_tensor`` are accepted and change nothing, as in the
+reference.
+
+The moments live in the parameter's dtype (f32 under
+``multi_precision``) and are updated in that dtype; the step, as in the
+reference, divides them by the f32 bias corrections, so the update is
+formed in f32 and the parameter (or its master) rounded once.
+"""
+from __future__ import annotations
+
+import torch
+
+from .optimizer import L2Decay, Optimizer, _not_ported
+
+__all__ = ["Adam", "AdamW"]
+
+
+class Adam(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 use_multi_tensor=False, amsgrad=False, name=None):
+        if amsgrad:
+            raise _not_ported("Adam: amsgrad")
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+
+    def _update(self, param, value, grad, lr):
+        m = self._get_accumulator("moment1", param)
+        v = self._get_accumulator("moment2", param)
+        b1p = self._get_accumulator("beta1_pow", param, fill=1.0, shape=(),
+                                    dtype=torch.float32)
+        b2p = self._get_accumulator("beta2_pow", param, fill=1.0, shape=(),
+                                    dtype=torch.float32)
+        b1, b2 = self._beta1, self._beta2
+        b1p.mul_(b1)
+        b2p.mul_(b2)
+        m.mul_(b1).add_(grad, alpha=1 - b1)
+        v.mul_(b2).addcmul_(grad, grad, value=1 - b2)
+        denom = (v.float() / (1 - b2p)).sqrt_().add_(self._epsilon)
+        value.sub_((m.float() / (1 - b1p)).mul_(lr).div_(denom))
+
+
+class AdamW(Adam):
+    """Decoupled weight decay: the parameter is scaled by ``1 - lr·decay``
+    before the Adam step."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, amsgrad=False,
+                 name=None):
+        if lr_ratio is not None:
+            raise _not_ported("AdamW: lr_ratio")
+        if apply_decay_param_fun is not None:
+            raise _not_ported("AdamW: apply_decay_param_fun")
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         None, grad_clip, lazy_mode, multi_precision,
+                         amsgrad=amsgrad, name=name)
+        self._coeff = (weight_decay.coeff if isinstance(weight_decay, L2Decay)
+                       else float(weight_decay))
+
+    def _update(self, param, value, grad, lr):
+        value.mul_(1.0 - lr * self._coeff)
+        super()._update(param, value, grad, lr)
