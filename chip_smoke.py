@@ -85,8 +85,54 @@ Phases, one line each; any failure raises and exits non-zero:
 19. parity in fp32 at llama-7b width, 2 layers, B=1, S=2048: loss and
    every gradient with the SwiGLU kernels vs the dense SwiGLU, and with
    the flash kernels vs a dense causal attention written here;
+20. the LayerNorm kernels (forward; backward with its fixed-order column
+   sums) through their custom ops against their plain versions:
+   bert-base rows (R=16384, H=768), a ragged R=16383, H=1024 and 2048
+   (the GPT Layer model's norms), f32 and bf16, all four (residual,
+   bias) variants; two backward calls give the same bits; autograd
+   through fused_layer_norm_2d in bf16 at bert-base shape against the
+   plain versions and bitwise against the ops; the check shown to reject
+   a forward without the residual and a backward missing one 32-row
+   partial; their times with and without the residual beside the plain
+   versions', the bound and F.layer_norm(res + h) with its autograd
+   backward;
+21. the projection-LayerNorm kernels through their custom ops against
+   their plain versions (R=16384, Hin=Hout=768 and 1024; a ragged R with
+   Hin != Hout; f32 and bf16); two backward calls give the same bits;
+   autograd through fused_proj_ln_2d in bf16 at bert-base shape against
+   the plain versions; the check shown to reject a forward missing one
+   256-column chunk of the product and a backward missing one 32-row
+   partial; their times at bert-base shape beside the plain versions',
+   the bound and F.layer_norm(res + addmm(b, x, W)) with its backward,
+   and the cost of the f32 dx/dW products the backward runs outside
+   them;
+22. the flash kernels' key-padding variant against their plain versions
+   at bert-base's attention (B=32, 12 heads, S=512, D=64, valid lengths
+   128-512 from the seed, bf16; B=4 in f32; a ragged S=200 in both),
+   masked keys getting no dK;
+   their times beside SDPA with the same additive mask;
+23. train bert-base (random weights from a seed, bf16, full width and
+   depth, dropout rates 0) through BertForPretraining.loss and AdamW (lr
+   1e-4, weight decay 0.01) at B=32, S=512 on one fixed padded batch
+   (15% of the valid positions MLM-labelled): one warm-up step, whose
+   update is held element by element to AdamW's rule, then 4 steps; a
+   finite loss whose mean over the 4 lies below the warm-up step's (it
+   oscillates: the reference's normal(0, 1) word embeddings are the
+   decoder's weight too); exactly 14 LayerNorm, 12 projection-LN
+   and 12 of each flash and fused MLP kernel launches per step; ms/step,
+   tokens/s (all B*S positions), model TFLOP/s, the AdamW update's ms,
+   peak memory and the card's clocks;
+24. torch.profiler over 2 more bert-base steps: busy time, idle share,
+   each kernel family's share, the kernels that take the time;
+25. the same training with FLAGS_fused_norm and FLAGS_fused_mlp off (the
+   dense norms, projection and MLP; the flash kernels kept): 1 warm-up
+   and 2 steps;
+26. parity in fp32 at bert-base width, 2 layers, B=4, S=512: loss and
+   every gradient with the fused flags on vs off;
 then the card's name and power limit again, the kernels' JSON line and
-the final status line.
+the final status line. Every kernel time is device time (cuda_ms: the
+calls queued behind a spin of the card, so the host's launch rate does
+not show).
 """
 import gc
 import json
@@ -164,15 +210,21 @@ class ClockSampler:
 
 
 def cuda_ms(fn, sets, iters=30):
-    """Mean ms per call over `iters` calls cycling through `sets` of
-    inputs (together larger than the 50 MB L2, as in the real decode
-    where each layer's weights are cold), timed with CUDA events."""
+    """Device ms per call: CUDA events around `iters` calls cycling through
+    `sets` of inputs (for the decode kernel, together larger than the 50
+    MB L2, as in the real decode where each layer's weights are cold),
+    enqueued behind a spin of the card (torch.cuda._sleep, ~50 ms at 1980
+    MHz) so that they run back to back on the device however slow the
+    host's launches are: the device time, also of calls shorter than
+    their host-side cost (a LayerNorm's ~0.03 ms against ~0.03-0.06 ms of
+    Python and ctypes per launch)."""
     import torch
     for s in sets[:2]:
         fn(s)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
     start.record()
     for i in range(iters):
         fn(sets[i % len(sets)])
@@ -611,8 +663,8 @@ def flash_check_rejects(torch, fa, scale, tile=64):
 
 
 def in_turns(a, b, iters=20):
-    """CUDA-event ms of a and b timed in turns (a, b, b, a), the better
-    pass of each, and all four passes."""
+    """cuda_ms of a and b timed in turns (a, b, b, a), the better pass of
+    each, and all four passes."""
     t = {}
     for key, fn in (("a", a), ("b", b), ("b_2", b), ("a_2", a)):
         t[key] = cuda_ms(fn, [None], iters=iters)
@@ -893,10 +945,11 @@ def model_flops_per_step(cfg, tokens, seq):
 
 
 def reset_launches():
-    """Every kernel count of the training path to 0."""
+    """Every kernel count of the training paths to 0."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import mlp_fusion as mf
-    for counts in (fa.launches, mf.launches):
+    from paddle_tpu_torch.kernels import norm_fusion as nf
+    for counts in (fa.launches, mf.launches, nf.launches):
         for key in counts:
             counts[key] = 0
 
@@ -904,7 +957,8 @@ def reset_launches():
 def read_launches():
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import mlp_fusion as mf
-    return {**fa.launches, **mf.launches}
+    from paddle_tpu_torch.kernels import norm_fusion as nf
+    return {**fa.launches, **mf.launches, **nf.launches}
 
 
 def phase_train(torch, cfg, fused, steps=TRAIN_STEPS):
@@ -1518,6 +1572,941 @@ def phase_llama_parity_fp32(torch):
                 tolerance=tol, leaves=leaves)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the LayerNorm kernels (13, 14) against their plain versions
+# ---------------------------------------------------------------------------
+
+LN_SOURCE = "paddle_tpu_torch/kernels/csrc/norm_fusion.cu"
+PL_SOURCE = "paddle_tpu_torch/kernels/csrc/proj_ln.cu"
+LN_REPLACES = {
+    "fused_ln_fwd": "paddle_tpu/kernels/norm_fusion.py:82",
+    "fused_ln_bwd": "paddle_tpu/kernels/norm_fusion.py:120",
+    "fused_proj_ln_fwd": "paddle_tpu/kernels/mlp_fusion.py:714",
+    "fused_proj_ln_bwd": "paddle_tpu/kernels/mlp_fusion.py:751"}
+# Each output is held to max |kernel - plain| <= tol * max |plain|. f32:
+# the same f32 arithmetic in other summation orders. bf16 I/O: both round
+# the same f32 values to bf16, a value near a rounding boundary rounds the
+# other way (one bf16 unit, 2^-8 of the largest magnitude at most), so
+# 2^-7. Readings on an H100 in the first run of these kernels: 3.4e-7
+# (f32), 0.0034 (bf16).
+LN_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+BERT_R, BERT_H = 16384, 768          # bert-base at B=32, S=512
+LN_CASES = [(BERT_R, BERT_H), (BERT_R - 1, BERT_H), (4096, 1024),
+            (4096, 2048)]
+LN_VARIANTS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+def rel_err(got, ref):
+    g, r = got.detach().float(), ref.detach().float()
+    err = float((g - r).abs().max())
+    return err, err / max(float(r.abs().max()), 1e-30)
+
+
+def ln_inputs(torch, r, h, dtype, seed, res=True, lin_b=False):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, s=1.0, m=0.0):
+        return (m + torch.randn(*shape, generator=g, device="cuda") * s)
+
+    return dict(h=rnd(r, h, s=2.0, m=0.5).to(dtype),
+                res=rnd(r, h).to(dtype) if res else None,
+                lin_b=rnd(h, s=0.3) if lin_b else None,
+                w=rnd(h, s=0.2, m=1.0), b=rnd(h, s=0.2),
+                g=rnd(r, h).to(dtype))
+
+
+def ln_bounds(r, h, esize, res):
+    """bound_ms and what bounds it: the forward reads h (and res) and
+    writes y, mean and rstd; the backward reads h (and res), g, mean and
+    rstd and writes dh (and dres), dw and db, each once at 3.35 TB/s; ~10
+    flops per element on the CUDA cores (67 TFLOP/s f32) take far less."""
+    rows, rowvec, vec = r * h * esize, r * 4, h * 4
+    n = 2 if res else 1
+    work = {"fused_ln_fwd": (10.0 * r * h, n * rows + 2 * vec + rows
+                             + 2 * rowvec),
+            "fused_ln_bwd": (12.0 * r * h, (n + 1) * rows + vec + 2 * rowvec
+                             + n * rows + 2 * vec)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops = flops / H100_FLOPS["float32"]
+        t_bytes = nbytes / H100_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def same_bits(a, b):
+    """Both None, or tensors of one dtype equal bit for bit."""
+    import torch
+    if a is None or b is None:
+        return a is None and b is None
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def phase_ln_vs_plain(torch):
+    """The forward and backward custom ops (``fused_ln_fwd``,
+    ``fused_ln_bwd``: the kernels' wrappers, which the training step
+    reaches through ``fused_layer_norm_2d``) against their plain versions
+    (y, mean, rstd, dh, dres, dbias, dw, db) in every case: bert-base rows
+    and H, a ragged R, and the GPT Layer model's H = 1024 and 2048; f32
+    and bf16; all four (residual, lin_b) variants. Two backward calls give
+    the same bits. Autograd through ``fused_layer_norm_2d`` at bert-base
+    shape in bf16 (bf16 gains and biases, as the model holds them) against
+    the plain versions, and bitwise against the ops. The check shown to
+    reject a forward that drops the residual and a backward that drops
+    one 32-row partial of its column sums. Then the times of the BERT FFN
+    close (residual, no bias) and of the embeddings' LayerNorm
+    (neither)."""
+    from paddle_tpu_torch.kernels import norm_fusion as nf
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for r, h in LN_CASES:
+            for has_res, has_lb in LN_VARIANTS:
+                x = ln_inputs(torch, r, h, dtype, r + h, has_res, has_lb)
+                args = (x["h"], x["res"], x["lin_b"], x["w"], x["b"])
+                y, mean, rstd = nf.fused_ln_fwd(*args, 1e-12)
+                grads = nf.fused_ln_bwd(*args, mean, rstd, x["g"])
+                again = nf.fused_ln_bwd(*args, mean, rstd, x["g"])
+                dh, dres, dlb, dw, db = grads
+                ry, rmean, rrstd = nf.fused_ln_fwd_ref(*args, 1e-12)
+                dz, rdw, rdb, rdlb = nf.fused_ln_bwd_ref(
+                    *args[:4], mean, rstd, x["g"])
+                torch.cuda.synchronize()
+                check(all(same_bits(a, b) for a, b in zip(again, grads)),
+                      f"fused LN backward differs between two calls ({name} "
+                      f"r={r} h={h} res={has_res} lin_b={has_lb})")
+                outs = [("y", y, ry), ("mean", mean, rmean),
+                        ("rstd", rstd, rrstd), ("dh", dh, dz),
+                        ("dw", dw, rdw), ("db", db, rdb)]
+                if has_res:
+                    outs.append(("dres", dres, dz))
+                if has_lb:
+                    outs.append(("dbias", dlb, rdlb))
+                for key, got, ref in outs:
+                    check(bool(torch.isfinite(got).all()),
+                          f"fused LN {key} not finite ({name} r={r} h={h})")
+                    err, rel = rel_err(got, ref)
+                    check(rel <= LN_TOL[name],
+                          f"fused LN {key} disagrees with plain: {name} r={r} "
+                          f"h={h} res={has_res} lin_b={has_lb} max_abs_err="
+                          f"{err} relative {rel} > {LN_TOL[name]}")
+                    kern = ("fused_ln_fwd" if key in ("y", "mean", "rstd")
+                            else "fused_ln_bwd")
+                    w = worst.setdefault(name, {}).setdefault(kern, [0., 0.])
+                    w[0], w[1] = max(w[0], err), max(w[1], rel)
+                del x, args, y, mean, rstd, grads, again, dh, dres, dlb, dw
+                del db, ry, rmean, rrstd, dz, rdw, rdb, rdlb
+    torch.cuda.empty_cache()
+    return dict(tolerance_relative_to_max=LN_TOL,
+                worst={n: {k: dict(max_abs_err=e, relative=r)
+                           for k, (e, r) in w.items()}
+                       for n, w in worst.items()},
+                cases=[[r, h] for r, h in LN_CASES],
+                variants=len(LN_VARIANTS),
+                autograd_bf16=ln_autograd(torch, nf),
+                wrong_kernel_reading=ln_check_rejects(torch, nf),
+                times={"residual": ln_times(torch, nf, True),
+                       "plain_ln": ln_times(torch, nf, False)})
+
+
+def ln_autograd(torch, nf):
+    """Autograd through fused_layer_norm_2d at R=16384, H=768, bf16, with
+    the residual and the bias and bf16 gains: each gradient (dh, dres,
+    dbias, dw, db, cast to its primal's dtype) against the plain backward
+    cast the same way, within LN_TOL; bitwise equal to the ops' results.
+    Returns the readings."""
+    x = ln_inputs(torch, BERT_R, BERT_H, torch.bfloat16, 17, True, True)
+    h, res, g = x["h"], x["res"], x["g"]
+    lb, w, b = (x[k].to(torch.bfloat16) for k in ("lin_b", "w", "b"))
+    prim = [t.detach().requires_grad_(True) for t in (h, res, lb, w, b)]
+    y = nf.fused_layer_norm_2d(prim[0], prim[3], prim[4], residual=prim[1],
+                               lin_bias=prim[2], eps=1e-12)
+    auto = torch.autograd.grad(y, prim, g)
+    y_op, mean, rstd = nf.fused_ln_fwd(h, res, lb, w, b, 1e-12)
+    ops = nf.fused_ln_bwd(h, res, lb, w, b, mean, rstd, g)
+    ry, _, _ = nf.fused_ln_fwd_ref(h, res, lb, w, b, 1e-12)
+    dz, rdw, rdb, rdlb = nf.fused_ln_bwd_ref(h, res, lb, w, mean, rstd, g)
+    torch.cuda.synchronize()
+    check(same_bits(y, y_op) and all(same_bits(a, o)
+                                     for a, o in zip(auto, ops)),
+          "autograd through fused_layer_norm_2d differs from the LN ops")
+    bf = torch.bfloat16
+    readings = {}
+    for key, got, ref in (("y", y, ry), ("dh", auto[0], dz.to(bf)),
+                          ("dres", auto[1], dz.to(bf)),
+                          ("dbias", auto[2], rdlb.to(bf)),
+                          ("dw", auto[3], rdw.to(bf)),
+                          ("db", auto[4], rdb.to(bf))):
+        readings[key] = rel_err(got, ref)[1]
+        check(got.dtype == bf and readings[key] <= LN_TOL["bfloat16"],
+              f"autograd through fused_layer_norm_2d: {key} {got.dtype} "
+              f"relative {readings[key]} > {LN_TOL['bfloat16']}")
+    del x, h, res, g, lb, w, b, prim, y, auto, y_op, mean, rstd, ops, ry
+    del dz, rdw, rdb, rdlb
+    torch.cuda.empty_cache()
+    return dict(r=BERT_R, h=BERT_H, relative_to_max=readings,
+                bitwise_equal_to_ops=True)
+
+
+def ln_check_rejects(torch, nf):
+    """The bf16 check must reject a forward that leaves out the residual
+    and a backward that leaves out one 32-row partial of dw and db: the
+    kernels run on inputs that do just that (no residual; the first 32
+    rows cut), held against the plain versions of the whole. Returns
+    the readings."""
+    x = ln_inputs(torch, BERT_R, BERT_H, torch.bfloat16, 23, True)
+    h, res, w, b, g = x["h"], x["res"], x["w"], x["b"], x["g"]
+    ry, mean, rstd = nf.fused_ln_fwd_ref(h, res, None, w, b, 1e-12)
+    _, rdw, rdb, _ = nf.fused_ln_bwd_ref(h, res, None, w, mean, rstd, g)
+    no_res, _, _ = nf.fused_ln_fwd(h, None, None, w, b, 1e-12)
+    k = 32
+    _, _, _, cut_dw, cut_db = nf.fused_ln_bwd(h[k:], res[k:], None, w, b,
+                                              mean[k:], rstd[k:], g[k:])
+    readings = {"forward_without_residual": rel_err(no_res, ry)[1],
+                "dw_one_partial_dropped": rel_err(cut_dw, rdw)[1],
+                "db_one_partial_dropped": rel_err(cut_db, rdb)[1]}
+    for key, reading in readings.items():
+        check(reading > LN_TOL["bfloat16"],
+              f"the bf16 LN check passes a wrong kernel ({key}): {reading} "
+              f"<= {LN_TOL['bfloat16']}")
+    del x, h, res, w, b, g, ry, mean, rstd, rdw, rdb, no_res, cut_dw, cut_db
+    torch.cuda.empty_cache()
+    return readings
+
+
+def ln_times(torch, nf, res):
+    """Device times at R=16384, H=768, bf16 (with the residual: the FFN
+    close; without: the embeddings' and the MLM transform's LayerNorm):
+    each op in turns with its plain version; the library yardstick (never
+    called by the port) is F.layer_norm of res + h and its autograd
+    backward."""
+    x = ln_inputs(torch, BERT_R, BERT_H, torch.bfloat16, 5, res)
+    h, r, w, b, g = x["h"], x["res"], x["w"], x["b"], x["g"]
+    y, mean, rstd = nf.fused_ln_fwd(h, r, None, w, b, 1e-12)
+    runs = {
+        "fused_ln_fwd": (lambda _: nf.fused_ln_fwd(h, r, None, w, b, 1e-12),
+                         lambda _: nf.fused_ln_fwd_ref(h, r, None, w, b,
+                                                       1e-12)),
+        "fused_ln_bwd": (lambda _: nf.fused_ln_bwd(h, r, None, w, b, mean,
+                                                   rstd, g),
+                         lambda _: nf.fused_ln_bwd_ref(h, r, None, w, mean,
+                                                       rstd, g)),
+    }
+    bounds = ln_bounds(BERT_R, BERT_H, 2, res)
+    out = {}
+    for name, (kern, plain) in runs.items():
+        plain_ms, ms, t = in_turns(plain, kern)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, all_ms=t,
+                         bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    wl, bl = w.to(h.dtype), b.to(h.dtype)
+    layer_norm = torch.nn.functional.layer_norm
+
+    def library(hh, rr, ww, bb):
+        return layer_norm(hh if rr is None else rr + hh, (BERT_H,), ww, bb,
+                          1e-12)
+
+    out["fused_ln_fwd"]["library_ms"], _, _ = in_turns(
+        lambda _: library(h, r, wl, bl), runs["fused_ln_fwd"][0])
+    prim = [t.detach().requires_grad_(True) for t in (h, wl, bl)]
+    rg = None if r is None else r.detach().requires_grad_(True)
+    yl = library(prim[0], rg, prim[1], prim[2])
+    leaves = prim + ([] if rg is None else [rg])
+    out["fused_ln_bwd"]["library_ms"], _, _ = in_turns(
+        lambda _: torch.autograd.grad(yl, leaves, g, retain_graph=True),
+        runs["fused_ln_bwd"][0])
+    out["timed_at"] = dict(r=BERT_R, h=BERT_H, dtype="bfloat16",
+                           residual=res, lin_b=False)
+    del x, h, r, w, b, g, y, mean, rstd, prim, rg, yl, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the projection-LayerNorm kernels (10, 11) against plain
+# ---------------------------------------------------------------------------
+
+PL_CASES = [(BERT_R, 768, 768), (BERT_R, 1024, 1024), (1000, 512, 768)]
+
+
+def pl_inputs(torch, r, hin, hout, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, s=1.0, m=0.0):
+        return m + torch.randn(*shape, generator=g, device="cuda") * s
+
+    return dict(x=rnd(r, hin).to(dtype),
+                w=rnd(hin, hout, s=hin ** -0.5).to(dtype),
+                b=rnd(hout, s=0.2), res=rnd(r, hout).to(dtype),
+                lnw=rnd(hout, s=0.2, m=1.0), lnb=rnd(hout, s=0.2),
+                g=rnd(r, hout).to(dtype))
+
+
+def pl_bounds(r, hin, hout, esize):
+    """The forward reads x, W and res and writes y (and the row stats);
+    its product is 2 R Hin Hout flops at 989 TFLOP/s. The backward reads
+    x, W, res, g and the stats, writes dz and dp in f32 and dgamma, dbeta,
+    and repeats the product."""
+    flops = 2.0 * r * hin * hout
+    rows_in, rows_out = r * hin * esize, r * hout * esize
+    wbytes, rowvec, vec = hin * hout * esize, r * 4, hout * 4
+    work = {"fused_proj_ln_fwd": (flops, rows_in + wbytes + rows_out + 3 * vec
+                                  + rows_out + 2 * rowvec),
+            "fused_proj_ln_bwd": (flops, rows_in + wbytes + 2 * rows_out
+                                  + 2 * vec + 2 * rowvec + 2 * r * hout * 4
+                                  + 2 * vec)}
+    out = {}
+    for name, (fl, nbytes) in work.items():
+        t_ops = fl / H100_FLOPS["bfloat16"]
+        t_bytes = nbytes / H100_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def phase_proj_ln_vs_plain(torch):
+    """The forward and backward custom ops (``fused_proj_ln_fwd``,
+    ``fused_proj_ln_bwd``: the kernels' wrappers, which the training step
+    reaches through ``fused_proj_ln_2d``) against their plain versions
+    (y, mean, rstd, dz, dp, dgamma, dbeta): bert-base (Hin = Hout = 768),
+    bert-large's 1024 and a ragged R with Hin != Hout, f32 and bf16. Two
+    backward calls give the same bits. Autograd through
+    ``fused_proj_ln_2d`` at bert-base shape in bf16 (dx, dW, db, dres,
+    dgamma, dbeta) against the plain versions. The check shown to reject
+    a forward missing one 256-column chunk of the product and a backward
+    missing one 32-row partial. Then their times at bert-base shape, and
+    the f32 products the backward runs outside the kernel (dx, dW, db
+    from dp)."""
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for r, hin, hout in PL_CASES:
+            x = pl_inputs(torch, r, hin, hout, dtype, r + hin + hout)
+            args = (x["x"], x["w"], x["b"], x["res"], x["lnw"])
+            y, mean, rstd = mf.fused_proj_ln_fwd(*args, x["lnb"], 1e-12)
+            grads = mf.fused_proj_ln_bwd(*args, mean, rstd, x["g"])
+            again = mf.fused_proj_ln_bwd(*args, mean, rstd, x["g"])
+            dz, dp, dg, dbeta = grads
+            ry, rmean, rrstd = mf.fused_proj_ln_fwd_ref(*args, x["lnb"],
+                                                        1e-12)
+            rdz, rdp, rdg, rdbeta = mf.fused_proj_ln_bwd_ref(*args, mean,
+                                                             rstd, x["g"])
+            torch.cuda.synchronize()
+            check(all(same_bits(a, b) for a, b in zip(again, grads)),
+                  f"proj-LN backward differs between two calls ({name} "
+                  f"r={r} hin={hin} hout={hout})")
+            for key, got, ref in (("y", y, ry), ("mean", mean, rmean),
+                                  ("rstd", rstd, rrstd), ("dz", dz, rdz),
+                                  ("dp", dp, rdp), ("dgamma", dg, rdg),
+                                  ("dbeta", dbeta, rdbeta)):
+                check(bool(torch.isfinite(got).all()),
+                      f"proj-LN {key} not finite ({name} r={r})")
+                err, rel = rel_err(got, ref)
+                check(rel <= LN_TOL[name],
+                      f"proj-LN {key} disagrees with plain: {name} r={r} "
+                      f"hin={hin} hout={hout} max_abs_err={err} relative "
+                      f"{rel} > {LN_TOL[name]}")
+                kern = ("fused_proj_ln_fwd" if key in ("y", "mean", "rstd")
+                        else "fused_proj_ln_bwd")
+                w = worst.setdefault(name, {}).setdefault(kern, [0., 0.])
+                w[0], w[1] = max(w[0], err), max(w[1], rel)
+            del x, args, y, mean, rstd, grads, again, dz, dp, dg, dbeta
+            del ry, rmean, rrstd, rdz, rdp, rdg, rdbeta
+    torch.cuda.empty_cache()
+    return dict(tolerance_relative_to_max=LN_TOL,
+                worst={n: {k: dict(max_abs_err=e, relative=r)
+                           for k, (e, r) in w.items()}
+                       for n, w in worst.items()},
+                cases=[list(c) for c in PL_CASES],
+                autograd_bf16=pl_autograd(torch, mf),
+                wrong_kernel_reading=pl_check_rejects(torch, mf),
+                **pl_times(torch, mf))
+
+
+def pl_autograd(torch, mf):
+    """Autograd through fused_proj_ln_2d at R=16384, Hin=Hout=768, bf16
+    (the projection's weight and bias and the LN gains in bf16, as the
+    model holds them): dx, dW, db (the f32 products from dp), dres,
+    dgamma and dbeta against the plain backward's, computed and cast the
+    same way, within LN_TOL; dres, dgamma and dbeta bitwise equal to the
+    backward op's casts. Returns the readings."""
+    bf = torch.bfloat16
+    x = pl_inputs(torch, BERT_R, BERT_H, BERT_H, bf, 19)
+    xx, w, res, g = x["x"], x["w"], x["res"], x["g"]
+    b, lnw, lnb = (x[k].to(bf) for k in ("b", "lnw", "lnb"))
+    prim = [t.detach().requires_grad_(True) for t in (xx, w, b, res, lnw,
+                                                      lnb)]
+    y = mf.fused_proj_ln_2d(*prim, eps=1e-12)
+    auto = torch.autograd.grad(y, prim, g)
+    _, mean, rstd = mf.fused_proj_ln_fwd(xx, w, b, res, lnw, lnb, 1e-12)
+    dz, _, dg, dbeta = mf.fused_proj_ln_bwd(xx, w, b, res, lnw, mean, rstd, g)
+    ry, _, _ = mf.fused_proj_ln_fwd_ref(xx, w, b, res, lnw, lnb, 1e-12)
+    rdz, rdp, rdg, rdbeta = mf.fused_proj_ln_bwd_ref(xx, w, b, res, lnw,
+                                                     mean, rstd, g)
+    torch.cuda.synchronize()
+    check(same_bits(auto[3], dz.to(bf)) and same_bits(auto[4], dg.to(bf))
+          and same_bits(auto[5], dbeta.to(bf)),
+          "autograd through fused_proj_ln_2d differs from the proj-LN "
+          "backward op")
+    refs = (("y", y, ry), ("dx", auto[0], (rdp @ w.float().T).to(bf)),
+            ("dW", auto[1], (xx.float().T @ rdp).to(bf)),
+            ("db", auto[2], rdp.sum(0).to(bf)), ("dres", auto[3], rdz.to(bf)),
+            ("dgamma", auto[4], rdg.to(bf)), ("dbeta", auto[5], rdbeta.to(bf)))
+    readings = {}
+    for key, got, ref in refs:
+        readings[key] = rel_err(got, ref)[1]
+        check(got.dtype == bf and readings[key] <= LN_TOL["bfloat16"],
+              f"autograd through fused_proj_ln_2d: {key} {got.dtype} "
+              f"relative {readings[key]} > {LN_TOL['bfloat16']}")
+    del x, xx, w, res, g, b, lnw, lnb, prim, y, auto, mean, rstd, dz, dg
+    del dbeta, ry, rdz, rdp, rdg, rdbeta, refs
+    torch.cuda.empty_cache()
+    return dict(r=BERT_R, hin=BERT_H, hout=BERT_H, relative_to_max=readings)
+
+
+def pl_check_rejects(torch, mf):
+    """The bf16 check must reject a forward missing one 256-column chunk
+    of the product (W's columns 256-511 zeroed) and a backward missing
+    one 32-row partial of dgamma and dbeta (the first 32 rows cut): the
+    kernels on those inputs, held against the plain versions of the
+    whole. Returns the readings."""
+    x = pl_inputs(torch, BERT_R, BERT_H, BERT_H, torch.bfloat16, 29)
+    xx, w, b, res, lnw, lnb, g = (x[k] for k in ("x", "w", "b", "res", "lnw",
+                                                 "lnb", "g"))
+    ry, mean, rstd = mf.fused_proj_ln_fwd_ref(xx, w, b, res, lnw, lnb, 1e-12)
+    _, _, rdg, rdbeta = mf.fused_proj_ln_bwd_ref(xx, w, b, res, lnw, mean,
+                                                 rstd, g)
+    w_cut = w.clone()
+    c0 = min(256, BERT_H // 2)          # the kernel's second column chunk
+    w_cut[:, c0:2 * c0] = 0
+    no_chunk, _, _ = mf.fused_proj_ln_fwd(xx, w_cut, b, res, lnw, lnb, 1e-12)
+    k = 32
+    _, _, cut_dg, cut_dbeta = mf.fused_proj_ln_bwd(
+        xx[k:], w, b, res[k:], lnw, mean[k:], rstd[k:], g[k:])
+    readings = {"forward_one_column_chunk_dropped": rel_err(no_chunk, ry)[1],
+                "dgamma_one_partial_dropped": rel_err(cut_dg, rdg)[1],
+                "dbeta_one_partial_dropped": rel_err(cut_dbeta, rdbeta)[1]}
+    for key, reading in readings.items():
+        check(reading > LN_TOL["bfloat16"],
+              f"the bf16 proj-LN check passes a wrong kernel ({key}): "
+              f"{reading} <= {LN_TOL['bfloat16']}")
+    del x, xx, w, b, res, lnw, lnb, g, ry, mean, rstd, rdg, rdbeta, w_cut
+    del no_chunk, cut_dg, cut_dbeta
+    torch.cuda.empty_cache()
+    return readings
+
+
+def pl_times(torch, mf):
+    """Device times at R=16384, Hin=Hout=768, bf16: each op in turns with
+    its plain version; the library yardstick (never called by the port)
+    is F.layer_norm(res + addmm(b, x, W)) and its autograd backward (dx,
+    dW, db, dres, dgamma, dbeta), beside which the port's whole backward
+    (the op, then dx = dp.W^T, dW = x^T.dp and db = sum dp in f32 with the
+    casts, as _proj_ln_backward runs them) is timed too."""
+    x = pl_inputs(torch, BERT_R, BERT_H, BERT_H, torch.bfloat16, 9)
+    xx, w, b, res, lnw, lnb, g = (x[k] for k in ("x", "w", "b", "res", "lnw",
+                                                 "lnb", "g"))
+    y, mean, rstd = mf.fused_proj_ln_fwd(xx, w, b, res, lnw, lnb, 1e-12)
+    runs = {
+        "fused_proj_ln_fwd": (
+            lambda _: mf.fused_proj_ln_fwd(xx, w, b, res, lnw, lnb, 1e-12),
+            lambda _: mf.fused_proj_ln_fwd_ref(xx, w, b, res, lnw, lnb,
+                                               1e-12)),
+        "fused_proj_ln_bwd": (
+            lambda _: mf.fused_proj_ln_bwd(xx, w, b, res, lnw, mean, rstd, g),
+            lambda _: mf.fused_proj_ln_bwd_ref(xx, w, b, res, lnw, mean,
+                                               rstd, g)),
+    }
+    bounds = pl_bounds(BERT_R, BERT_H, BERT_H, 2)
+    out = {}
+    for name, (kern, plain) in runs.items():
+        plain_ms, ms, t = in_turns(plain, kern)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, all_ms=t,
+                         bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    wb, lw, lb = b.to(xx.dtype), lnw.to(xx.dtype), lnb.to(xx.dtype)
+    layer_norm = torch.nn.functional.layer_norm
+
+    def library(xx, w, wb, res, lw, lb):
+        return layer_norm(res + torch.addmm(wb, xx, w), (BERT_H,), lw, lb,
+                          1e-12)
+
+    out["fused_proj_ln_fwd"]["library_ms"], _, _ = in_turns(
+        lambda _: library(xx, w, wb, res, lw, lb), runs["fused_proj_ln_fwd"][0])
+    prim = [t.detach().requires_grad_(True) for t in (xx, w, wb, res, lw, lb)]
+    yl = library(*prim)
+    out["fused_proj_ln_bwd"]["library_ms"], _, _ = in_turns(
+        lambda _: torch.autograd.grad(yl, prim, g, retain_graph=True),
+        runs["fused_proj_ln_bwd"][0])
+    _, dp, _, _ = mf.fused_proj_ln_bwd(xx, w, b, res, lnw, mean, rstd, g)
+
+    def f32_products(_):
+        return ((dp @ w.float().T).to(xx.dtype),
+                (xx.float().T @ dp).to(w.dtype), dp.sum(0))
+
+    def whole_bwd(_):
+        dz, dp_, dg, dbeta = mf.fused_proj_ln_bwd(xx, w, b, res, lnw, mean,
+                                                  rstd, g)
+        return ((dp_ @ w.float().T).to(xx.dtype),
+                (xx.float().T @ dp_).to(w.dtype), dp_.sum(0),
+                dz.to(res.dtype), dg, dbeta)
+
+    lib_ms, whole_ms, _ = in_turns(
+        lambda _: torch.autograd.grad(yl, prim, g, retain_graph=True),
+        whole_bwd)
+    out["whole_backward"] = dict(
+        ms=whole_ms, library_bwd_ms=lib_ms,
+        f32_products_ms=cuda_ms(f32_products, [None], iters=20),
+        note="the kernel plus dx = dp.W^T, dW = x^T.dp (f32, W and x cast to "
+             "f32, as the reference) and db = sum dp, with the casts")
+    out["timed_at"] = dict(r=BERT_R, hin=BERT_H, hout=BERT_H,
+                           dtype="bfloat16")
+    del x, xx, w, b, res, lnw, lnb, g, y, mean, rstd, prim, yl, dp
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the flash kernels' key-padding (kv_bias) variant
+# ---------------------------------------------------------------------------
+
+BERT_B, BERT_S, BERT_NH, BERT_D = 32, 512, 12, 64
+
+
+def bert_lengths(b, s, seed):
+    """Valid keys per row: drawn in [s/4, s] from the seed, the first row
+    full and the second at the smallest length."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(s // 4, s + 1, b)
+    n[0], n[min(1, b - 1)] = s, s // 4
+    return n
+
+
+def kv_bias_for(torch, lengths, s):
+    """The model's bias row per batch: 0 on valid keys, -1e30 (the
+    canonicalised -1e9 padding) past them."""
+    n = torch.as_tensor(lengths, device="cuda")[:, None]
+    col = torch.arange(s, device="cuda")[None, :]
+    return torch.where(col < n, 0.0, -1e30).float().contiguous()
+
+
+def flash_bias_bounds(lengths, s, nh, d, esize):
+    """bound_ms and what bounds it for each kernel, counting the work this
+    batch's valid keys need: the products over the (query, valid key)
+    pairs (s x length per row and head; fwd 2, dQ 3, dK/dV 4 products of
+    2 flops per pair per head-dim element) at 989 TFLOP/s, against the
+    bytes moved once at 3.35 TB/s: q (dO, o, dq) whole, k, v and the
+    bias over the valid keys only (a wholly masked key tile is skipped,
+    its rows never read), lse and delta; dk and dv written whole (the
+    masked keys' rows are zeros the kernel must write)."""
+    valid = float(sum(int(n) for n in lengths))
+    pairs = valid * s * nh
+    prod = 2.0 * pairs * d
+    bh = len(lengths) * nh
+    mat, row = bh * s * d * esize, bh * s * 4
+    kv = 2 * valid * nh * d * esize          # k and v over the valid keys
+    bias = valid * 4
+    work = {"flash_fwd": (2 * prod, 2 * mat + kv + row + bias),
+            "flash_dq": (3 * prod, 3 * mat + kv + 2 * row + bias),
+            "flash_dkv": (4 * prod, 4 * mat + kv + 2 * row + bias)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops = flops / H100_FLOPS["bfloat16"]
+        t_bytes = nbytes / H100_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def phase_flash_bias_vs_plain(torch):
+    """The three flash kernels with the key-padding bias against their
+    plain versions (out, lse, dq, dk, dv) at bert-base's attention (B=32,
+    12 heads, S=512, D=64, valid lengths from the seed) in bf16, at B=4
+    in f32, and at a ragged S=200 (B=3) in both, each element within its
+    row's scale (flash_reading); then their times at the bf16 shape
+    beside the plain versions', the bound and SDPA with the same additive
+    mask."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    scale = BERT_D ** -0.5
+    worst = {}
+    cases = ((torch.float32, 4, BERT_S), (torch.bfloat16, BERT_B, BERT_S),
+             (torch.float32, 3, 200), (torch.bfloat16, 3, 200))
+    for dtype, b, s in cases:
+        name = str(dtype).split(".")[-1]
+        lengths = bert_lengths(b, s, seed=b)
+        bias = kv_bias_for(torch, lengths, s)
+        g = torch.Generator(device="cuda").manual_seed(b)
+        q, k, v, do = (torch.randn(b * BERT_NH, s, BERT_D, generator=g,
+                                   device="cuda").to(dtype) for _ in range(4))
+        out, lse = fa.flash_fwd(q, k, v, False, scale, bias, BERT_NH)
+        dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, False, scale, bias,
+                                  BERT_NH)
+        rout, rlse = fa.flash_fwd_ref(q, k, v, False, scale, bias, BERT_NH)
+        rdq, rdk, rdv = fa.flash_bwd_ref(q, k, v, out, lse, do, False, scale,
+                                         bias, BERT_NH)
+        torch.cuda.synchronize()
+        for key, got, ref in (("out", out, rout), ("lse", lse, rlse),
+                              ("dq", dq, rdq), ("dk", dk, rdk),
+                              ("dv", dv, rdv)):
+            check(bool(torch.isfinite(got).all()),
+                  f"flash kv_bias {key} not finite ({name})")
+            err = float((got.float() - ref.float()).abs().max())
+            rel = flash_reading(got, ref)
+            check(rel <= FLASH_TOL[name],
+                  f"flash kv_bias {key} disagrees with plain: {name} b={b} "
+                  f"s={s} max_abs_err={err} relative {rel} > "
+                  f"{FLASH_TOL[name]}")
+            kern = {"out": "flash_fwd", "lse": "flash_fwd",
+                    "dq": "flash_dq"}.get(key, "flash_dkv")
+            w = worst.setdefault(name, {}).setdefault(kern, [0.0, 0.0])
+            w[0], w[1] = max(w[0], err), max(w[1], rel)
+        # masked keys get no gradient
+        keep = (bias >= 0).repeat_interleave(BERT_NH, 0)[..., None]
+        check(float(dk.float().masked_fill(keep, 0).abs().max()) == 0.0,
+              "flash kv_bias: a masked key got a dK")
+        del q, k, v, do, out, lse, dq, dk, dv, rout, rlse, rdq, rdk, rdv
+        torch.cuda.empty_cache()
+    return dict(tolerance_relative_to_row_rms_plus_abs=FLASH_TOL,
+                worst={n: {k: dict(max_abs_err=e, relative=r)
+                           for k, (e, r) in w.items()}
+                       for n, w in worst.items()},
+                cases=[[str(d).split(".")[-1], b, s] for d, b, s in cases],
+                **flash_bias_times(torch, fa, scale))
+
+
+def flash_bias_times(torch, fa, scale):
+    lengths = bert_lengths(BERT_B, BERT_S, seed=BERT_B)
+    bias = kv_bias_for(torch, lengths, BERT_S)
+    bh = BERT_B * BERT_NH
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn(bh, BERT_S, BERT_D, generator=g,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, False, scale, bias, BERT_NH)
+    delta = fa._delta(out, do)
+    a = (False, scale, bias, BERT_NH)
+    runs = {
+        "flash_fwd": (lambda _: fa._fwd_cuda(q, k, v, *a),
+                      lambda _: fa.flash_fwd_ref(q, k, v, *a)),
+        "flash_dq": (lambda _: fa._dq_cuda(q, k, v, do, lse, delta, *a),
+                     lambda _: fa.flash_dq_ref(q, k, v, do, lse, delta, *a)),
+        "flash_dkv": (lambda _: fa._dkv_cuda(q, k, v, do, lse, delta, *a),
+                      lambda _: fa.flash_dkv_ref(q, k, v, do, lse, delta,
+                                                 *a)),
+    }
+    res = {}
+    bounds = flash_bias_bounds(lengths, BERT_S, BERT_NH, BERT_D, 2)
+    for name, (kern, plain) in runs.items():
+        plain_ms, ms, t = in_turns(plain, kern)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, all_ms=t,
+                         bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh, doh = (x.view(BERT_B, BERT_NH, BERT_S, BERT_D)
+                       for x in (q, k, v, do))
+    mask = bias.clamp_min(-1e9).to(torch.bfloat16)[:, None, None, :]
+    res["flash_fwd"]["library_ms"], _, _ = in_turns(
+        lambda _: sdpa(qh, kh, vh, attn_mask=mask), runs["flash_fwd"][0])
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
+    og = sdpa(qg, kg, vg, attn_mask=mask)
+    sdpa_bwd_ms, bwd_ms, t = in_turns(
+        lambda _: torch.autograd.grad(og, (qg, kg, vg), doh,
+                                      retain_graph=True),
+        lambda _: fa._bwd_cuda(q, k, v, out, lse, do, *a))
+    res["backward"] = dict(ms=bwd_ms, sdpa_bwd_ms=sdpa_bwd_ms, all_ms=t,
+                           bound_ms=bounds["flash_dq"][0]
+                           + bounds["flash_dkv"][0])
+    res["timed_at"] = dict(b=BERT_B, nh=BERT_NH, s=BERT_S, d=BERT_D,
+                           dtype="bfloat16", causal=False,
+                           valid_keys=int(sum(int(n) for n in lengths)),
+                           lengths_min_mean_max=[
+                               int(min(lengths)),
+                               float(np.mean(lengths)), int(max(lengths))])
+    del q, k, v, do, out, lse, delta, qg, kg, vg, og, bias, mask
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 23-26: BERT-base pretraining through the Layer model and AdamW
+# ---------------------------------------------------------------------------
+
+BERT_LR = 1e-4
+# kernel launches per step: LayerNorm at the embeddings, the 12 FFN closes
+# and the MLM transform; projection-LN at the 12 attention closes; each
+# flash and fused MLP kernel once per layer
+BERT_LAUNCHES = dict(fused_ln_fwd=14, fused_ln_bwd=14, fused_proj_ln_fwd=12,
+                     fused_proj_ln_bwd=12, flash_fwd=12, flash_dq=12,
+                     flash_dkv=12, fused_mlp_fwd=12, fused_mlp_dx=12,
+                     fused_mlp_dw=12)
+
+
+def bert_batch(torch, cfg, b, s, seed):
+    """ids, MLM labels (15% of the valid positions; -100 elsewhere), NSP
+    labels and the 1/0 attention mask, valid lengths from bert_lengths."""
+    rng = np.random.default_rng(seed)
+    lengths = bert_lengths(b, s, seed)
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    mask = (np.arange(s)[None, :] < lengths[:, None]).astype(np.int64)
+    mlm = np.where((rng.random((b, s)) < 0.15) & (mask == 1), ids, -100)
+    nsp = rng.integers(0, 2, (b,))
+    return tuple(torch.from_numpy(a.astype(np.int64)).cuda()
+                 for a in (ids, mlm, nsp, mask)), lengths
+
+
+def bert_flops_per_step(cfg, b, s, lengths):
+    """6 flops per token per matmul weight (forward + backward) over all
+    B*S positions (the MLM head's tied decoder included: the chunked head
+    scores every position), plus the attention's two products over the
+    (query, valid key) pairs, times 3 for forward + backward."""
+    H, L, FF = cfg.hidden_size, cfg.num_hidden_layers, cfg.intermediate_size
+    weights = L * (4 * H * H + 2 * H * FF) + H * H + cfg.vocab_size * H
+    pairs = float(sum(int(n) for n in lengths)) * s
+    attn = 3 * 2 * 2 * pairs * H * L
+    return 6.0 * weights * b * s + attn
+
+
+def bert_trainer(torch, cfg, seed=0):
+    """The user's loop: BertForPretraining (bf16 on the card), AdamW (lr
+    1e-4, weight decay 0.01) over its parameters, one fixed batch.
+    Returns (model, step, lengths); step() -> (loss, the CUDA events
+    recorded around the AdamW update); step(check_update=True) also holds
+    the update against AdamW's rule (adamw_first_step_reading; the first
+    step only: it takes the moments as zero)."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.optimizer import AdamW
+    model = bert.BertForPretraining(cfg, seed=seed)
+    opt = AdamW(learning_rate=BERT_LR, weight_decay=0.01,
+                parameters=model.parameters())
+    (ids, mlm, nsp, mask), lengths = bert_batch(torch, cfg, BERT_B, BERT_S,
+                                                seed)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def step(check_update=False):
+        loss = model.loss(ids, mlm, nsp, attention_mask=mask)
+        loss.backward()
+        params = list(model.parameters())
+        before = [p.detach().clone() for p in params] if check_update else None
+        ev[0].record()
+        with torch.profiler.record_function("adamw_step"):
+            opt.step()
+        ev[1].record()
+        reading = (adamw_first_step_reading(torch, params, before)
+                   if check_update else None)
+        opt.clear_grad()
+        return loss.detach(), ev, reading
+
+    return model, step, lengths
+
+
+def adamw_first_step_reading(torch, params, before):
+    """Each parameter after the first AdamW step against the rule written
+    here: from zero moments the bias-corrected update is g / (|g| + eps),
+    so p1 = round(p0 (1 - lr wd) - lr g / (|g| + eps)), in f32 from the
+    bf16 p0 and g, rounded to bf16 once. The optimizer keeps its moments
+    in bf16 (their rounding moves the update by up to ~2^-8 of lr) and
+    rounds the parameter twice, so an element may differ from the rule by
+    one bf16 unit of itself plus 2^-7 lr: none may differ by more, and at
+    most 2% may differ at all. A step that does nothing, or moves the
+    wrong way or by the wrong amount, differs by ~lr on the elements the
+    rule moves: their share is reported, and must be at least 5%."""
+    lr, wd, eps = BERT_LR, 0.01, 1e-8
+    n = off = far = moves = 0
+    for p, p0 in zip(params, before):
+        g = p.grad.float()
+        want = (p0.float() * (1.0 - lr * wd)
+                - lr * g / (g.abs() + eps)).to(p.dtype)
+        got = p.detach()
+        diff = (got.float() - want.float()).abs()
+        limit = (2.0 ** -7 * torch.maximum(got.float().abs(),
+                                           want.float().abs())
+                 + 2.0 ** -7 * lr)
+        n += p.numel()
+        off += int((got != want).sum())
+        far += int((diff > limit).sum())
+        moves += int((want != p0).sum())
+    out = dict(elements=n, share_differing=off / n, elements_beyond_limit=far,
+               share_the_rule_moves=moves / n)
+    check(far == 0 and off <= 0.02 * n and moves >= 0.05 * n,
+          f"the first AdamW step does not follow AdamW's rule: {out}")
+    return out
+
+
+def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
+    """Train cfg at B=32, S=512 on one fixed padded batch: one warm-up
+    step, then `steps` steps, with FLAGS_fused_norm and FLAGS_fused_mlp as
+    `fused` says. Fused: exactly BERT_LAUNCHES per step; dense: the flash
+    kernels only (the key-padding variant stays on both routes)."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.nn.functional import (last_attn_path,
+                                                last_mlp_path,
+                                                last_norm_path)
+    set_flags({"FLAGS_fused_norm": fused, "FLAGS_fused_mlp": fused})
+    model, step, lengths = bert_trainer(torch, cfg)
+    loss0, _, first_update = step(check_update=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, adamw_ms = [], []
+    with ClockSampler() as clocks:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss, ev, _ = step()
+            losses.append(loss)
+            ev[1].synchronize()
+            adamw_ms.append(ev[0].elapsed_time(ev[1]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_launches()
+    paths = dict(norm=last_norm_path(), mlp=last_mlp_path(),
+                 attn=last_attn_path())
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"bert loss not finite: {losses}")
+    # the loss starts near 116 (the reference's normal(0, 1) word
+    # embeddings are the decoder's weight too, so the logits are large)
+    # and Adam at lr 1e-4 moves it up and down on the fixed batch: it must
+    # fall on average below the warm-up step's; the warm-up step's update
+    # itself was held to AdamW's rule (first_update)
+    check(np.mean(losses) < float(loss0), f"bert loss did not fall below the "
+          f"warm-up step's {float(loss0)} on average: {losses}")
+    want_paths = (dict(norm="fused_ln/cuda", mlp="fused_mlp/cuda",
+                       attn="flash_masked/cuda") if fused else
+                  dict(norm="dense", mlp="dense", attn="flash_masked/cuda"))
+    check(paths == want_paths, f"bert took the paths {paths} with the fused "
+          f"flags {fused}")
+    for key, n in counts.items():
+        per_step = BERT_LAUNCHES.get(key, 0)
+        if not fused and not key.startswith("flash"):
+            per_step = 0
+        check(n == per_step * steps, f"{key} launched {n} times in {steps} "
+              f"bert steps (want {per_step * steps}; fused flags {fused})")
+    tokens = BERT_B * BERT_S
+    flops = bert_flops_per_step(cfg, BERT_B, BERT_S, lengths)
+    ms = wall / steps * 1e3
+    out = dict(config="bert-base", dropout=0.0, layers=cfg.num_hidden_layers,
+               b=BERT_B, s=BERT_S, dtype="bfloat16", fused=fused,
+               paths=paths, lr=BERT_LR, weight_decay=0.01,
+               valid_tokens=int(sum(int(n) for n in lengths)),
+               warmup_loss=float(loss0), losses=losses,
+               first_update=first_update, ms_per_step=ms,
+               tokens_per_s=tokens / (ms / 1e3),
+               tokens_counted="all B*S positions, padding included",
+               model_tflop_per_step=flops / 1e12,
+               model_tflops=flops / (ms / 1e3) / 1e12,
+               model_flops_share_of_989=flops / (ms / 1e3) / 989e12,
+               adamw_ms_per_step=sum(adamw_ms) / steps,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               parameters=sum(p.numel() for p in model.parameters()),
+               card_during_steps=clocks.summary(), launches=counts,
+               launches_per_step={k: n / steps for k, n in counts.items()})
+    return out, model, step
+
+
+def phase_profile_bert(torch, step, steps=2):
+    """torch.profiler over `steps` BERT steps: device busy time per step
+    against the profiled wall time, the shares of the LayerNorm,
+    projection-LN, flash and fused MLP kernels, the AdamW span, and the
+    kernels that take the time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, dev = {}, []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.key == "adamw_step":
+                spans[e.key] = e.self_device_time_total / 1e3 / steps
+            else:
+                dev.append(e)
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    if busy_ms == 0.0:
+        return dict(steps=steps, device_time="not measured (no CUDA events)")
+    # "::ln_" and not "ln_": the projection-LN kernels' names contain
+    # "ln_fwd_" too; the LayerNorm, projection-LN and fused MLP backwards
+    # all end in common.cuh's sum_parts_kernel, counted on its own
+    groups = {"layer_norm (ln_fwd, ln_bwd)": ("::ln_fwd_", "::ln_bwd_"),
+              "proj_ln (proj_ln_fwd, proj_ln_bwd)":
+              ("proj_ln_fwd_kernel", "proj_ln_bwd_kernel"),
+              "flash (fwd, dq, dkv)": ("flash_fwd_kernel", "flash_dq_kernel",
+                                       "flash_dkv_kernel"),
+              "fused_mlp (mlp_gemm, colsum)": ("mlp_gemm_kernel",
+                                               "colsum_kernel"),
+              "column sums (sum_parts_kernel: LN, proj-LN, MLP backwards)":
+              ("sum_parts_kernel",)}
+    by_group = {g: sum(e.self_device_time_total for e in dev
+                       if any(k in e.key for k in keys)) / 1e3 / steps
+                for g, keys in groups.items()}
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
+    return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
+                device_busy_ms_per_step=busy_ms / steps,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                kernels_ms_per_step=by_group,
+                kernels_share_of_busy={g: t * steps / busy_ms
+                                       for g, t in by_group.items()},
+                adamw_span_ms_per_step=spans.get(
+                    "adamw_step", "not measured (no adamw_step range)"),
+                top_device_ms_per_step=[
+                    (e.key[:70], e.self_device_time_total / 1e3 / steps,
+                     e.count // steps) for e in top[:16]])
+
+
+def phase_bert_parity_fp32(torch):
+    """fp32 at bert-base width, 2 layers, B=4, S=512 with padding: the loss
+    and every gradient with the fused flags on (the LayerNorm,
+    projection-LN and fused MLP kernels) against them off (the dense
+    norms, projection and MLP); the flash kernels' key-padding variant on
+    both."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.models import bert
+    cfg = bert.CONFIGS["bert-base"]._replace(
+        num_hidden_layers=2, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0)
+    model = bert.BertForPretraining(cfg, dtype=torch.float32, seed=1)
+    (ids, mlm, nsp, mask), _ = bert_batch(torch, cfg, 4, BERT_S, 1)
+    params = list(model.parameters())
+
+    def grads(fused):
+        set_flags({"FLAGS_fused_norm": fused, "FLAGS_fused_mlp": fused})
+        reset_launches()
+        loss = model.loss(ids, mlm, nsp, attention_mask=mask)
+        g = torch.autograd.grad(loss, params)
+        return loss.item(), g, read_launches()
+
+    try:
+        lf, gf, counts = grads(True)
+        ld, gd, counts_d = grads(False)
+    finally:
+        set_flags({"FLAGS_fused_norm": True, "FLAGS_fused_mlp": True})
+    check(counts["fused_ln_fwd"] == 4 and counts["fused_proj_ln_bwd"] == 2
+          and counts["fused_mlp_dw"] == 2 and counts["flash_dkv"] == 2,
+          f"bert fp32 parity run with the fused flags on launched {counts}")
+    check(counts_d["fused_ln_fwd"] == counts_d["fused_proj_ln_fwd"] == 0
+          and counts_d["flash_fwd"] == 2,
+          f"bert fp32 parity run with the fused flags off launched "
+          f"{counts_d}")
+    torch.cuda.synchronize()
+    tol = 1e-4      # per leaf, relative to the leaf's largest gradient
+    worst = 0.0
+    for a, b in zip(gf, gd):
+        check(bool(torch.isfinite(a).all()), "parity gradient not finite")
+        worst = max(worst, float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30))
+    check(abs(lf - ld) <= 1e-5 * abs(ld), f"bert fp32 loss: fused {lf} vs "
+          f"dense {ld}")
+    check(worst <= tol, f"bert fp32 gradients: fused vs dense relative "
+          f"{worst} > {tol}")
+    leaves = len(gd)
+    del model, params, gf, gd
+    return dict(loss_fused=lf, loss_dense=ld,
+                worst_grad_relative_fused_vs_dense=worst, tolerance=tol,
+                leaves=leaves)
+
+
 def free_card(torch):
     """Drop what the phases before left for the collector, return the
     cached blocks and restart the peak count."""
@@ -1534,7 +2523,7 @@ def main():
         return 2
     from paddle_tpu_torch import set_flags
     from paddle_tpu_torch.kernels import _build
-    from paddle_tpu_torch.models import gpt, llama
+    from paddle_tpu_torch.models import bert, gpt, llama
 
     # full-precision matmuls for every comparison below
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1632,6 +2621,33 @@ def main():
     phase(19, "llama training parity fp32 SwiGLU kernels vs dense, flash vs "
           "dense attention", **phase_llama_parity_fp32(torch))
 
+    free_card(torch)
+    ln = phase_ln_vs_plain(torch)
+    phase(20, "LayerNorm kernels vs plain", **ln)
+    pl = phase_proj_ln_vs_plain(torch)
+    phase(21, "projection-LayerNorm kernels vs plain", **pl)
+    fbias = phase_flash_bias_vs_plain(torch)
+    phase(22, "flash kernels, key-padding bias, vs plain", **fbias)
+    free_card(torch)
+    bcfg = bert.CONFIGS["bert-base"]._replace(
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    btrain, bmodel, bstep = phase_train_bert(torch, bcfg, fused=True)
+    phase(23, "train bert-base bf16 B=32 S=512 (padded) MLM+NSP, fused "
+          "kernels, Layer model + AdamW", **btrain)
+    phase(24, "profile of the bert-base training step",
+          **phase_profile_bert(torch, bstep))
+    del bmodel, bstep
+    free_card(torch)
+    bdense, bmodel, bstep = phase_train_bert(torch, bcfg, fused=False,
+                                             steps=2)
+    del bmodel, bstep
+    free_card(torch)
+    phase(25, "train bert-base bf16 B=32 S=512 dense norms, projection and "
+          "MLP (flash kept)", fused_ms_per_step=btrain["ms_per_step"],
+          **bdense)
+    phase(26, "bert training parity fp32 fused vs dense",
+          **phase_bert_parity_fp32(torch))
+
     kernels = [{
         "name": "decode_attn_proj", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": serve1["kernel_launches"],
@@ -1675,6 +2691,38 @@ def main():
             kernels[-1]["note"] = ("dX and dW run in one backward call, "
                                    "fused_swiglu_bwd: ms, plain_ms and "
                                    "bound_ms are that call's")
+    # the LayerNorm and projection-LN kernels' launches are bert-base
+    # training's (phase 23); each backward's second launch (the fixed-order
+    # sum of the column partials) counts under its backward
+    for name, res, key in (("fused_ln_fwd", ln["times"]["residual"],
+                            "fused_ln_fwd"),
+                           ("fused_ln_bwd", ln["times"]["residual"],
+                            "fused_ln_bwd"),
+                           ("fused_proj_ln_fwd", pl, "fused_proj_ln_fwd"),
+                           ("fused_proj_ln_bwd", pl, "fused_proj_ln_bwd")):
+        t = res[key]
+        worst = (ln if name.startswith("fused_ln") else pl)["worst"]
+        err = worst["bfloat16"][name]["max_abs_err"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": LN_SOURCE if name.startswith("fused_ln") else PL_SOURCE,
+            "replaces": LN_REPLACES[name],
+            "launches": btrain["launches"][name], "max_abs_err": err,
+            "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    # the flash kernels' key-padding variant at bert-base's attention; its
+    # launches are bert-base training's, counted under the flash kernels
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        t = fbias[name]
+        err = fbias["worst"]["bfloat16"][name]["max_abs_err"]
+        kernels.append({
+            "name": f"{name}_kv_bias", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[name],
+            "launches": btrain["launches"][name], "max_abs_err": err,
+            "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     print(card, flush=True)     # again here: the top of the log may be cut
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -81,10 +81,20 @@ define_flag("serving_device_loop", True,
             "counter-derived threefry keys (fold_in(PRNGKey(seed), "
             "token_count)), bitwise the reference's streams. Off: host "
             "numpy sampling, one step per dispatch")
+define_flag("fused_norm", True,
+            "route LayerNorm (nn.functional.layer_norm, nn.LayerNorm) and "
+            "the bias→residual-add→LN sublayer close "
+            "(fused_bias_dropout_residual_layer_norm) through the one-pass "
+            "fused kernels (kernels/norm_fusion.py, TPU kernels 13-14): the "
+            "hand-written CUDA kernels on a card, their plain PyTorch "
+            "versions for CPU tensors. Off: the dense layer_norm. Shapes "
+            "the fused kernels do not take go dense with a once-per-process "
+            "warning")
 define_flag("fused_mlp", True,
             "route the transformer MLP sublayer (matmul→GeLU→matmul) of the "
-            "GPT training step and of nn.functional.fused_mlp through the "
-            "fused MLP kernels (kernels/mlp_fusion.py, TPU kernels 4-6): the "
-            "hand-written CUDA kernels on a card, their plain PyTorch "
-            "versions for CPU tensors. Off: the dense linear→gelu→linear "
-            "chain")
+            "GPT training step and of nn.functional.fused_mlp, the SwiGLU "
+            "variant (fused_swiglu) and the attention output-projection→"
+            "add→LN epilogue (fused_attn_proj_residual_layer_norm) through "
+            "the fused kernels (kernels/mlp_fusion.py, TPU kernels 4-11): "
+            "the hand-written CUDA kernels on a card, their plain PyTorch "
+            "versions for CPU tensors. Off: the dense chains")

@@ -1,6 +1,8 @@
 """Fused-op functionals.
 
 Counterpart: ``paddle_tpu/incubate/nn/functional.py``,
+``fused_bias_dropout_residual_layer_norm`` (:71-89), which delegates to
+the routed functional of ``nn/functional/norm.py``, and
 ``fused_rotary_position_embedding`` (:117-179), the rotary embedding of
 LLaMA's q and k. The other fused ops of that module come with later
 slices (ROADMAP A11).
@@ -16,7 +18,29 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["fused_rotary_position_embedding"]
+from ...nn.functional import norm as _norm
+
+__all__ = ["fused_bias_dropout_residual_layer_norm",
+           "fused_rotary_position_embedding"]
+
+
+def fused_bias_dropout_residual_layer_norm(x, residual, bias=None,
+                                           ln_scale=None, ln_bias=None,
+                                           dropout_rate=0.5, ln_epsilon=1e-5,
+                                           training=True,
+                                           mode="upscale_in_train",
+                                           name=None):
+    """out = LayerNorm(residual + dropout(bias + x)), through the routed
+    functional of ``nn.functional`` (the fused kernels behind
+    ``FLAGS_fused_norm``), with the reference's check on ``mode``."""
+    if mode != "upscale_in_train":
+        raise NotImplementedError(
+            "fused_bias_dropout_residual_layer_norm: only "
+            "mode='upscale_in_train' is implemented (the reference fused "
+            f"kernel is upscale-only too); got {mode!r}")
+    return _norm.fused_bias_dropout_residual_layer_norm(
+        x, residual, bias=bias, ln_scale=ln_scale, ln_bias=ln_bias,
+        dropout_rate=dropout_rate, ln_epsilon=ln_epsilon, training=training)
 
 _ROPE_BASE = 10000.0    # the reference's table builder hard-codes it (:145)
 

@@ -5,9 +5,10 @@ XLA). Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface under
 ``build/paddle_tpu_torch/`` at the repository root, and loaded with
 ``ctypes``. Only sources in the repository are built. The library name
-carries a digest of the source and flags, so an edited source is
-rebuilt. A missing ``nvcc`` or a failed build raises; nothing falls
-back.
+carries a digest of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt. A missing ``nvcc``
+or a failed build raises; nothing falls back. ``library`` and ``call``
+are the one ctypes path every kernel module launches through.
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
@@ -49,8 +52,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / name).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = (CSRC / name).read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    flags = " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(text + flags).hexdigest()[:12]
     return BUILD_DIR / f"lib{Path(name).stem}-{digest}.so"
 
 
@@ -91,3 +96,40 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all()[name]))
             _libs[name] = lib
         return lib
+
+
+def library(name: str, argtypes: Dict[str, Sequence], ints: Iterable[str] = ()
+            ) -> ctypes.CDLL:
+    """``load(name)`` with each entry point's ctypes signature: for every
+    key of ``argtypes``, its ``_f32`` and ``_bf16`` functions returning an
+    int status; ``ints``: functions of no argument returning an int; and
+    ``kernel_error_string`` (common.cuh)."""
+    lib = load(name)
+    for fname, types in argtypes.items():
+        for suffix in ("f32", "bf16"):
+            fn = getattr(lib, f"{fname}_{suffix}")
+            fn.argtypes = list(types)
+            fn.restype = ctypes.c_int
+    for fname in ints:
+        getattr(lib, fname).restype = ctypes.c_int
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def call(lib: ctypes.CDLL, name: str, dtype, device, *args) -> None:
+    """Launch ``name``'s bf16 or f32 entry point (by ``dtype``) on the
+    current stream of ``device``; a non-zero status raises RuntimeError
+    with CUDA's error string."""
+    fn = getattr(lib, f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({lib.kernel_error_string(rc).decode()})")
+
+
+def vec32(v):
+    """A vector operand as the kernels take it: contiguous float32 (None
+    stays None)."""
+    return None if v is None else v.float().contiguous()

@@ -35,8 +35,7 @@
 // Scratch and output are allocated by the Python wrapper. wgmma, TMA and
 // tuning of the split counts are left for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
@@ -46,21 +45,6 @@ constexpr int kMaxD = 32 * kPerLane;
 constexpr int kMaxSplits = 64;
 constexpr int kColTile = 256;        // proj_w columns per block
 constexpr float kNegInf = -1e30f;    // flash_attention.py:61, never -inf
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -260,10 +244,6 @@ int decode_attn_proj_bf16(const void* q, const void* k_pool, const void* v_pool,
                                proj_b, y, scratch, nh, kvh, d, block_size,
                                nblocks, mb, ho, pages_per_split, nsplit, scale,
                                stream);
-}
-
-const char* decode_attn_proj_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

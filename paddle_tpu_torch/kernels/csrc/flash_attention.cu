@@ -1,4 +1,5 @@
-// Flash attention, forward and backward: causal or not, no bias, no dropout.
+// Flash attention, forward and backward: causal, or not causal with an
+// optional key-padding bias; no dropout (ROADMAP A6b).
 //
 // Replaces the TPU kernels of paddle_tpu/kernels/flash_attention.py:
 //   _fwd_kernel :167 (launched by _fwd :272)      -> flash_fwd_kernel
@@ -14,6 +15,16 @@
 //            ds = round(p * (dp - delta)); dQ = ds . round(k * scale).
 //   dKV:     p = exp(round(q * scale) . k^T - lse); dV = round(p)^T . dO;
 //            ds = round(p * (dp - delta)); dK = ds^T . round(q * scale).
+// kv_bias (non-causal only): one f32 row [Sk] per batch, the row of
+// batch bh / heads, added to the f32 scaled scores before the row max in
+// all three kernels (:211, :367, :458); the caller canonicalises masked
+// entries to -1e30 (:790). A KV tile whose bias entries are all <= -5e29
+// (_NEG_INF / 2) is skipped, as the reference skips its block (:253, :402,
+// :512): its p = exp(-1e30 - m) is exactly 0 against any row that sees a
+// key, so skipping it changes nothing (a row that sees no key at all is
+// undefined, as in the reference, :736). In the dK/dV kernel the block's
+// own kv rows carry the bias; a block whose rows are all masked writes
+// dK = dV = 0.
 // round() is the rounding to the input dtype where the reference casts
 // (:196, :357, :384, :448, :485); delta = rowsum(dO * O) in f32 comes in
 // from the caller, as the reference computes it outside its kernels (:551).
@@ -51,27 +62,14 @@
 // wgmma, TMA, register-resident accumulators and warp specialisation are
 // left for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
 
-#include <type_traits>
+#include "common.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;  // flash_attention.py:61, never -inf
 constexpr int kMaxD = 256;
-constexpr size_t kMaxSmem = 232448;  // per block on sm_90
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Shapes and strides shared by the three kernels. All tiles are b rows.
 struct Geo {
@@ -84,8 +82,25 @@ struct Geo {
   int ldo;   // row stride of the f32 accumulators: dp + 4
   int causal;
   int vec;   // 16-byte loads: d % 16 == 0 and every pointer aligned
+  int heads; // q heads per batch row of the bias
   float scale;
 };
+
+constexpr float kSkipBelow = kNegInf / 2;  // a tile is skipped when no bias entry exceeds it
+
+// The bias of kv columns [col0, col0 + b) into dst (-1e30 past sk); true
+// when some entry exceeds kSkipBelow. Every thread of the block calls it
+// (it ends with a barrier that also publishes dst).
+__device__ bool load_bias_tile(float* dst, const float* __restrict__ brow, int col0, const Geo& g) {
+  int live = 0;
+  for (int idx = threadIdx.x; idx < g.b; idx += blockDim.x) {
+    const int col = col0 + idx;
+    const float v = col < g.sk ? brow[col] : kNegInf;
+    dst[idx] = v;
+    live |= v > kSkipBelow;
+  }
+  return __syncthreads_or(live) != 0;
+}
 
 // Carves one block's dynamic shared memory; every buffer starts on a
 // 128-byte boundary. Run on the host with base 0 to get the size.
@@ -102,7 +117,7 @@ struct Arena {
 
 template <typename T> struct FwdSmem {
   T *q, *k, *v, *p;
-  float *s, *o, *row;
+  float *s, *o, *row, *bias;
   __host__ __device__ size_t carve(uintptr_t base, const Geo& g) {
     Arena a(base);
     q = a.take<T>((size_t)g.b * g.ldt);
@@ -112,13 +127,14 @@ template <typename T> struct FwdSmem {
     p = a.take<T>((size_t)g.b * g.ldp);
     o = a.take<float>((size_t)g.b * g.ldo);
     row = a.take<float>(g.b);
+    bias = a.take<float>(g.b);
     return a.off;
   }
 };
 
 template <typename T> struct DqSmem {
   T *q, *dout, *k, *v, *ds;
-  float *s, *dp, *acc, *lse, *delta;
+  float *s, *dp, *acc, *lse, *delta, *bias;
   __host__ __device__ size_t carve(uintptr_t base, const Geo& g) {
     Arena a(base);
     q = a.take<T>((size_t)g.b * g.ldt);
@@ -131,6 +147,7 @@ template <typename T> struct DqSmem {
     acc = a.take<float>((size_t)g.b * g.ldo);
     lse = a.take<float>(g.b);
     delta = a.take<float>(g.b);
+    bias = a.take<float>(g.b);
     return a.off;
   }
 };
@@ -260,8 +277,8 @@ __device__ void store_rows(T* __restrict__ dst, const float* acc, int ldo, int r
 
 template <typename T>
 __global__ void flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                 const T* __restrict__ v, T* __restrict__ o,
-                                 float* __restrict__ lse, Geo g) {
+                                 const T* __restrict__ v, const float* __restrict__ bias,
+                                 T* __restrict__ o, float* __restrict__ lse, Geo g) {
   extern __shared__ __align__(128) char smem[];
   FwdSmem<T> sm;
   sm.carve(reinterpret_cast<uintptr_t>(smem), g);
@@ -273,6 +290,7 @@ __global__ void flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
   const int off = g.sk - g.sq;
   const T* kb = k + (size_t)bh * g.sk * g.d;
   const T* vb = v + (size_t)bh * g.sk * g.d;
+  const float* brow = bias ? bias + (size_t)(bh / g.heads) * g.sk : nullptr;
 
   load_rows(sm.q, q + (size_t)bh * g.sq * g.d, i * g.b, g.sq, g, true);  // q * scale (:196)
   for (int idx = threadIdx.x; idx < g.b * g.ldo; idx += blockDim.x) sm.o[idx] = 0.f;
@@ -293,6 +311,7 @@ __global__ void flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
     const bool interior =
         (!g.causal || (j + 1) * g.b - 1 <= i * g.b + off) && (j + 1) * g.b <= g.sk;
     __syncthreads();  // every warp is done with the previous k, v tiles
+    if (brow && !load_bias_tile(sm.bias, brow, j * g.b, g)) continue;  // fully masked (:253)
     load_rows(sm.k, kb, j * g.b, g.sk, g, false);
     load_rows(sm.v, vb, j * g.b, g.sk, g, false);
     __syncthreads();
@@ -301,6 +320,10 @@ __global__ void flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
     float mx = kNegInf;
     for (int c = half; c < g.b; c += 2) {
       float s = srow[c];
+      if (brow) {
+        s += sm.bias[c];  // the bias row, before the row max (:211)
+        srow[c] = s;
+      }
       if (!interior) {
         const int col = j * g.b + c;
         if (col >= g.sk || (g.causal && col > row_g + off)) {
@@ -351,7 +374,7 @@ template <typename T>
 __global__ void flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                 const T* __restrict__ v, const T* __restrict__ dout,
                                 const float* __restrict__ lse, const float* __restrict__ delta,
-                                T* __restrict__ dq, Geo g) {
+                                const float* __restrict__ bias, T* __restrict__ dq, Geo g) {
   extern __shared__ __align__(128) char smem[];
   DqSmem<T> sm;
   sm.carve(reinterpret_cast<uintptr_t>(smem), g);
@@ -364,6 +387,7 @@ __global__ void flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k
   const size_t qoff = (size_t)bh * g.sq * g.d;
   const T* kb = k + (size_t)bh * g.sk * g.d;
   const T* vb = v + (size_t)bh * g.sk * g.d;
+  const float* brow = bias ? bias + (size_t)(bh / g.heads) * g.sk : nullptr;
 
   load_rows(sm.q, q + qoff, i * g.b, g.sq, g, false);
   load_rows(sm.dout, dout + qoff, i * g.b, g.sq, g, false);
@@ -388,6 +412,7 @@ __global__ void flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k
     const bool interior =
         (!g.causal || (j + 1) * g.b - 1 <= i * g.b + off) && (j + 1) * g.b <= g.sk;
     __syncthreads();
+    if (brow && !load_bias_tile(sm.bias, brow, j * g.b, g)) continue;  // fully masked (:402)
     load_rows(sm.k, kb, j * g.b, g.sk, g, true);  // k * scale (:357)
     load_rows(sm.v, vb, j * g.b, g.sk, g, false);
     __syncthreads();
@@ -396,7 +421,7 @@ __global__ void flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k
     warp_mma<true>(s_w, g.lds, q_w, g.ldt, sm.k, g.ldt, g.b, g.dp, false);    // q . ks^T
     warp_mma<true>(dp_w, g.lds, do_w, g.ldt, sm.v, g.ldt, g.b, g.dp, false);  // dO . v^T
     for (int c = half; c < g.b; c += 2) {
-      float p = expf(srow[c] - lse_r);
+      float p = expf((brow ? srow[c] + sm.bias[c] : srow[c]) - lse_r);  // (:367)
       if (!interior) {
         const int col = j * g.b + c;
         if (col >= g.sk || (g.causal && col > row_g + off)) p = 0.f;
@@ -418,7 +443,8 @@ template <typename T>
 __global__ void flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                  const T* __restrict__ v, const T* __restrict__ dout,
                                  const float* __restrict__ lse, const float* __restrict__ delta,
-                                 T* __restrict__ dk, T* __restrict__ dv, Geo g) {
+                                 const float* __restrict__ bias, T* __restrict__ dk,
+                                 T* __restrict__ dv, Geo g) {
   extern __shared__ __align__(128) char smem[];
   DkvSmem<T> sm;
   sm.carve(reinterpret_cast<uintptr_t>(smem), g);
@@ -429,6 +455,9 @@ __global__ void flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
   const int off = g.sk - g.sq;
   const size_t qoff = (size_t)bh * g.sq * g.d;
   const size_t koff = (size_t)bh * g.sk * g.d;
+  const float* brow = bias ? bias + (size_t)(bh / g.heads) * g.sk : nullptr;
+  // every kv row of the block masked: dK = dV = 0, nothing to loop over (:512)
+  const bool live = !brow || load_bias_tile(sm.lse, brow, j * g.b, g);
 
   load_rows(sm.k, k + koff, j * g.b, g.sk, g, false);
   load_rows(sm.v, v + koff, j * g.b, g.sk, g, false);
@@ -439,6 +468,7 @@ __global__ void flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
 
   const int r = warp * 16 + (lane >> 1), half = lane & 1;
   const int kv_g = j * g.b + r;
+  const float bias_r = brow ? sm.lse[r] : 0.f;  // this kv row's bias
   const T* k_w = sm.k + warp * 16 * g.ldt;
   const T* v_w = sm.v + warp * 16 * g.ldt;
   float* st_w = sm.st + warp * 16 * g.lds;
@@ -450,7 +480,7 @@ __global__ void flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
   const float* dptrow = sm.dpt + r * g.lds;
   T* ptrow = sm.pt + r * g.ldp;
 
-  for (int i = 0; i < nq; ++i) {
+  for (int i = 0; i < (live ? nq : 0); ++i) {
     if (g.causal && j * g.b > (i + 1) * g.b - 1 + off) continue;  // q tile above the band
     const bool interior =
         (!g.causal || (j + 1) * g.b - 1 <= i * g.b + off) && (i + 1) * g.b <= g.sq;
@@ -463,7 +493,7 @@ __global__ void flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
 
     warp_mma<true>(st_w, g.lds, k_w, g.ldt, sm.q, g.ldt, g.b, g.dp, false);  // k . qs^T
     for (int c = half; c < g.b; c += 2) {
-      float p = expf(strow[c] - sm.lse[c]);
+      float p = expf((brow ? strow[c] + bias_r : strow[c]) - sm.lse[c]);  // (:458)
       if (!interior) {
         const int qr = i * g.b + c;
         if (qr >= g.sq || (g.causal && kv_g > qr + off)) p = 0.f;
@@ -488,12 +518,12 @@ __global__ void flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
 // host side
 // --------------------------------------------------------------------------
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
 template <typename T>
-int make_geo(Geo* g, int bh, int sq, int sk, int d, int causal, float scale, bool aligned) {
+int make_geo(Geo* g, int bh, int sq, int sk, int d, int causal, float scale, bool aligned,
+             const void* bias, int heads) {
   if (bh < 1 || bh > 65535 || sq < 1 || sk < 1 || d < 1 || d > kMaxD)
     return (int)cudaErrorInvalidValue;
+  if (bias && (causal || heads < 1 || bh % heads)) return (int)cudaErrorInvalidValue;
   g->bh = bh;
   g->sq = sq;
   g->sk = sk;
@@ -506,6 +536,7 @@ int make_geo(Geo* g, int bh, int sq, int sk, int d, int causal, float scale, boo
   g->ldo = g->dp + 4;
   g->causal = causal ? 1 : 0;
   g->vec = (aligned && d % 16 == 0) ? 1 : 0;
+  g->heads = heads < 1 ? 1 : heads;
   g->scale = scale;
   return 0;
 }
@@ -518,28 +549,30 @@ int prepare(Kernel kernel, size_t bytes) {
 }
 
 template <typename T>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
-               int sk, int d, int causal, float scale, void* stream) {
+int launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
+               void* lse, int bh, int sq, int sk, int d, int causal, int heads, float scale,
+               void* stream) {
   Geo g;
   int rc = make_geo<T>(&g, bh, sq, sk, d, causal, scale,
-                       aligned16(q) && aligned16(k) && aligned16(v));
+                       aligned16(q) && aligned16(k) && aligned16(v), bias, heads);
   if (rc) return rc;
   const size_t bytes = FwdSmem<T>().carve(0, g);
   if ((rc = prepare(flash_fwd_kernel<T>, bytes))) return rc;
   flash_fwd_kernel<T><<<dim3((sq + g.b - 1) / g.b, bh), (g.b / 16) * 32, bytes,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), g);
+      static_cast<const float*>(bias), static_cast<T*>(o), static_cast<float*>(lse), g);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dq, int bh, int sq, int sk, int d, int causal,
-              float scale, void* stream) {
+              const void* delta, const void* bias, void* dq, int bh, int sq, int sk, int d,
+              int causal, int heads, float scale, void* stream) {
   Geo g;
   int rc = make_geo<T>(&g, bh, sq, sk, d, causal, scale,
-                       aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout));
+                       aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout), bias,
+                       heads);
   if (rc) return rc;
   const size_t bytes = DqSmem<T>().carve(0, g);
   if ((rc = prepare(flash_dq_kernel<T>, bytes))) return rc;
@@ -547,17 +580,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), g);
+      static_cast<const float*>(delta), static_cast<const float*>(bias), static_cast<T*>(dq), g);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dk, void* dv, int bh, int sq, int sk, int d,
-               int causal, float scale, void* stream) {
+               const void* delta, const void* bias, void* dk, void* dv, int bh, int sq, int sk,
+               int d, int causal, int heads, float scale, void* stream) {
   Geo g;
   int rc = make_geo<T>(&g, bh, sq, sk, d, causal, scale,
-                       aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout));
+                       aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout), bias,
+                       heads);
   if (rc) return rc;
   const size_t bytes = DkvSmem<T>().carve(0, g);
   if ((rc = prepare(flash_dkv_kernel<T>, bytes))) return rc;
@@ -565,7 +599,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), g);
+      static_cast<const float*>(delta), static_cast<const float*>(bias), static_cast<T*>(dk),
+      static_cast<T*>(dv), g);
   return (int)cudaGetLastError();
 }
 
@@ -573,45 +608,29 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 
 extern "C" {
 
-int flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                  int sq, int sk, int d, int causal, float scale, void* stream) {
-  return launch_fwd<float>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, stream);
-}
-
-int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                   int sq, int sk, int d, int causal, float scale, void* stream) {
-  return launch_fwd<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, stream);
-}
-
-int flash_dq_f32(const void* q, const void* k, const void* v, const void* dout,
-                 const void* lse, const void* delta, void* dq, int bh, int sq, int sk, int d,
-                 int causal, float scale, void* stream) {
-  return launch_dq<float>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d, causal, scale, stream);
-}
-
-int flash_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* dq, int bh, int sq, int sk, int d,
-                  int causal, float scale, void* stream) {
-  return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d, causal, scale,
-                                  stream);
-}
-
-int flash_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
-                  int sk, int d, int causal, float scale, void* stream) {
-  return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, causal, scale,
-                           stream);
-}
-
-int flash_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
-                   int sk, int d, int causal, float scale, void* stream) {
-  return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, causal,
-                                   scale, stream);
-}
-
-const char* flash_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+// bias: null, or [bh / heads, sk] f32 (non-causal only)
+#define FLASH_API(SUFFIX, T)                                                                 \
+  int flash_fwd_##SUFFIX(const void* q, const void* k, const void* v, const void* bias,      \
+                         void* o, void* lse, int bh, int sq, int sk, int d, int causal,      \
+                         int heads, float scale, void* stream) {                             \
+    return launch_fwd<T>(q, k, v, bias, o, lse, bh, sq, sk, d, causal, heads, scale,         \
+                         stream);                                                            \
+  }                                                                                          \
+  int flash_dq_##SUFFIX(const void* q, const void* k, const void* v, const void* dout,       \
+                        const void* lse, const void* delta, const void* bias, void* dq,      \
+                        int bh, int sq, int sk, int d, int causal, int heads, float scale,   \
+                        void* stream) {                                                      \
+    return launch_dq<T>(q, k, v, dout, lse, delta, bias, dq, bh, sq, sk, d, causal, heads,   \
+                        scale, stream);                                                      \
+  }                                                                                          \
+  int flash_dkv_##SUFFIX(const void* q, const void* k, const void* v, const void* dout,      \
+                         const void* lse, const void* delta, const void* bias, void* dk,     \
+                         void* dv, int bh, int sq, int sk, int d, int causal, int heads,     \
+                         float scale, void* stream) {                                        \
+    return launch_dkv<T>(q, k, v, dout, lse, delta, bias, dk, dv, bh, sq, sk, d, causal,     \
+                         heads, scale, stream);                                              \
+  }
+FLASH_API(f32, float)
+FLASH_API(bf16, __nv_bfloat16)
 
 }  // extern "C"

@@ -13,7 +13,7 @@
 // entered through fused_swiglu_2d :674 (the custom_vjp of :611-671).
 // x [R, H], W1/Wg/Wu [H, F], W2/Wd [F, H] and g [R, H] contiguous,
 // float32 or bfloat16 (one dtype); b1 [F] and b2 [H] come in as f32. No
-// dropout (the seeded keep-mask is BERT's, ROADMAP A6).
+// dropout (the seeded keep-mask is ROADMAP A6b).
 //
 // GeLU MLP:
 //   forward: a = x . W1 (f32 accumulation) + b1 (f32); act = round(gelu(a));
@@ -76,8 +76,9 @@
 //                        (5) dX: acc += dau_c . Wu[:, c]^T; last writes round(acc)
 //                        (6) dWg[:, c] = x^T . dag_c  (7) dWu[:, c] = x^T . dau_c
 //                        (8) dWd[c, :] = act_c^T . g
-// No atomics: every sum runs in a fixed order, so each backward gives the
-// same bits on every run.
+// No atomics: every sum runs in a fixed order (db1 and db2 through
+// common.cuh's sum_parts, one way: the row blocks in order), so each
+// backward gives the same bits on every run.
 // The [R, F] activation never exists whole: only one [R, Fc] chunk of it
 // (and of a and da, or ag, au, dag and dau, in the backward) lives in
 // device memory at a time.
@@ -97,7 +98,8 @@
 // 10 RHF in all where the TPU's two kernels do 12, SwiGLU 16 RHF where
 // they do 22.
 //
-// GEMM: a 3-stage cp.async ring of operand tiles in shared memory (16-byte
+// GEMM (the main loop of common.cuh, shared with proj_ln.cu): a 3-stage
+// cp.async ring of operand tiles in shared memory (16-byte
 // copies, zero-filled past the matrix edge: any R, H, F, no padding in
 // device memory; a scalar path when a stride is not a multiple of 16
 // bytes). Operands are read in their own layout (row- or column-major
@@ -119,22 +121,14 @@
 // wgmma, TMA, a persistent schedule and an epilogue from registers are
 // left for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <algorithm>
-#include <type_traits>
+
+#include "common.cuh"
 
 namespace {
 
-// Block tile BM x BN, k step BK, NSTAGE copies in flight, warp tile WTM x
-// WTN (bf16; the f32 FMA path takes 256 threads of 8 x 8 outputs).
-template <int BM_, int BN_, int BK_, int NSTAGE_, int WTM_, int WTN_> struct TileCfg {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, NSTAGE = NSTAGE_, WTM = WTM_, WTN = WTN_;
-  static constexpr int THREADS = 32 * (BM / WTM) * (BN / WTN);
-  static constexpr int LDS = BN + 4;  // row stride of the f32 epilogue tile
-};
+// the bf16 and f32 block tiles (the f32 FMA path takes 256 threads of 8 x
+// 8 outputs)
 template <typename T> struct Cfg;
 template <> struct Cfg<float> : TileCfg<128, 128, 32, 3, 32, 64> {};
 template <> struct Cfg<__nv_bfloat16> : TileCfg<128, 128, 64, 3, 64, 32> {};
@@ -149,15 +143,6 @@ constexpr float kInvSqrt2 = 0.7071067811865476f;
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
 enum Epi { EPI_GELU, EPI_ACC, EPI_PRE, EPI_DGELU, EPI_STORE, EPI_SWIGLU, EPI_DSWIGLU };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float gelu(float a, int approximate) {
   if (approximate) {
@@ -181,9 +166,8 @@ __device__ __forceinline__ float dgelu(float a, int approximate) {
 
 __device__ __forceinline__ float sigmoid(float a) { return 1.f / (1.f + expf(-a)); }
 
-// One GEMM C[m, n] = sum_k A(m, k) B(k, n) and its epilogue. A(m, k) is
-// a[m * lda + k], or a[k * lda + m] when the kernel's ACOL; B(k, n) is
-// b[k * ldb + n], or b[n * ldb + k] when BCOL. Epilogue operands:
+// One GEMM: the operands (the fields of common.cuh's Operands, the main
+// loop's P) and its epilogue. Epilogue operands:
 //   EPI_GELU:  out = round(gelu(C + bias))
 //   EPI_ACC:   buf = (first ? 0 : buf) + C; on the last call out =
 //              round(buf + bias) (bias may be null) and buf is not written
@@ -212,231 +196,10 @@ template <typename T> struct Gemm {
   int first, last, approximate, vec;
 };
 
-// Shared-memory tile shapes: a tile is `outer` rows of `inner` contiguous
-// elements (the operand's own layout), rows padded by 16 bytes.
-template <typename T> struct Pad { static constexpr int v = 16 / sizeof(T); };
-template <typename T, bool ACOL> struct ATile {
-  static constexpr int outer = ACOL ? Cfg<T>::BK : Cfg<T>::BM;
-  static constexpr int inner = ACOL ? Cfg<T>::BM : Cfg<T>::BK;
-  static constexpr int ld = inner + Pad<T>::v;
-  static constexpr size_t bytes = (size_t)outer * ld * sizeof(T);
-};
-template <typename T, bool BCOL> struct BTile {
-  static constexpr int outer = BCOL ? Cfg<T>::BN : Cfg<T>::BK;
-  static constexpr int inner = BCOL ? Cfg<T>::BK : Cfg<T>::BN;
-  static constexpr int ld = inner + Pad<T>::v;
-  static constexpr size_t bytes = (size_t)outer * ld * sizeof(T);
-};
-
 template <typename T, bool ACOL, bool BCOL> constexpr size_t smem_bytes() {
-  const size_t ring = Cfg<T>::NSTAGE * (ATile<T, ACOL>::bytes + BTile<T, BCOL>::bytes);
+  const size_t ring = ring_bytes<T, Cfg<T>, ACOL, BCOL>();
   const size_t epi = (size_t)Cfg<T>::BM * Cfg<T>::LDS * sizeof(float);
   return ring > epi ? ring : epi;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = ok ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, one row address per lane;
-// with TRANS each is transposed on the way into the registers.
-template <bool TRANS>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if (TRANS) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-  } else {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-  }
-}
-
-// d (16 x 8, f32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One tile: rows [0, OUTER) x columns [0, INNER) of the matrix at src with
-// row stride lds; zero past outer_ext rows or inner_ext columns.
-template <typename T, int OUTER, int INNER, int LDD>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, size_t lds,
-                                          int outer_ext, int inner_ext, int vec) {
-  if (vec) {
-    constexpr int V = 16 / sizeof(T);
-    constexpr int CPR = INNER / V;
-    for (int idx = threadIdx.x; idx < OUTER * CPR; idx += Cfg<T>::THREADS) {
-      const int o = idx / CPR, i = (idx - o * CPR) * V;
-      const bool ok = o < outer_ext && i < inner_ext;  // whole vector: ld % V == 0
-      cp_async16(dst + o * LDD + i, ok ? src + (size_t)o * lds + i : src, ok);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < OUTER * INNER; idx += Cfg<T>::THREADS) {
-      const int o = idx / INNER, i = idx - o * INNER;
-      dst[o * LDD + i] =
-          (o < outer_ext && i < inner_ext) ? src[(size_t)o * lds + i] : from_f<T>(0.f);
-    }
-  }
-}
-
-template <typename T, bool ACOL, bool BCOL>
-__device__ __forceinline__ void load_stage(const Gemm<T>& p, T* as, T* bs, int m0, int n0,
-                                           int k0) {
-  using A = ATile<T, ACOL>;
-  using B = BTile<T, BCOL>;
-  if (ACOL) {
-    load_tile<T, A::outer, A::inner, A::ld>(as, p.a + (size_t)k0 * p.lda + m0, p.lda, p.k - k0,
-                                            p.m - m0, p.vec);
-  } else {
-    load_tile<T, A::outer, A::inner, A::ld>(as, p.a + (size_t)m0 * p.lda + k0, p.lda, p.m - m0,
-                                            p.k - k0, p.vec);
-  }
-  if (BCOL) {
-    load_tile<T, B::outer, B::inner, B::ld>(bs, p.b + (size_t)n0 * p.ldb + k0, p.ldb, p.n - n0,
-                                            p.k - k0, p.vec);
-  } else {
-    load_tile<T, B::outer, B::inner, B::ld>(bs, p.b + (size_t)k0 * p.ldb + n0, p.ldb, p.k - k0,
-                                            p.n - n0, p.vec);
-  }
-}
-
-// The k loop: the block's BM x BN product, left in S (f32, row stride LDS).
-template <typename T, bool ACOL, bool BCOL>
-__device__ void mainloop(const Gemm<T>& p, char* smem, float* S, int m0, int n0) {
-  using A = ATile<T, ACOL>;
-  using B = BTile<T, BCOL>;
-  using C = Cfg<T>;
-  constexpr int BK = C::BK, NSTAGE = C::NSTAGE, LDS = C::LDS;
-  constexpr size_t kStage = A::bytes + B::bytes;
-  auto as = [&](int s) { return reinterpret_cast<T*>(smem + s * kStage); };
-  auto bs = [&](int s) { return reinterpret_cast<T*>(smem + s * kStage + A::bytes); };
-  const int nk = (p.k + BK - 1) / BK;
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    if (s < nk) load_stage<T, ACOL, BCOL>(p, as(s), bs(s), m0, n0, s * BK);
-    cp_async_commit();
-  }
-  const int warp = threadIdx.x >> 5;
-
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // mma.sync m16n8k16: this warp's WTM x WTN as FM x FN tiles of 16 x 8,
-    // fragments loaded with ldmatrix (.trans where the tile's layout is
-    // the transpose of the fragment's)
-    constexpr int FM = C::WTM / 16, FN = C::WTN / 8, WARPS_N = C::BN / C::WTN;
-    static_assert(FN % 2 == 0, "B fragments are loaded two n8 tiles at a time");
-    const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
-    const int wm = (warp / WARPS_N) * C::WTM, wn = (warp % WARPS_N) * C::WTN;
-    float acc[FM][FN][4];
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-    for (int kt = 0; kt < nk; ++kt) {
-      cp_async_wait<NSTAGE - 2>();
-      __syncthreads();  // stage kt landed; everyone is done with stage kt - 1
-      const int nxt = kt + NSTAGE - 1;
-      if (nxt < nk)
-        load_stage<T, ACOL, BCOL>(p, as(nxt % NSTAGE), bs(nxt % NSTAGE), m0, n0, nxt * BK);
-      cp_async_commit();
-      const T* at = as(kt % NSTAGE);
-      const T* bt = bs(kt % NSTAGE);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        uint32_t fa[FM][4], fb[FN][2];
-        // lane l addresses row l % 8 of 8 x 8 matrix l / 8: for A the
-        // matrices are (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
-        // (m 8-15, k 8-15); for B (k 0-7, n 0-7), (k 8-15, n 0-7),
-        // (k 0-7, n 8-15), (k 8-15, n 8-15): two n8 tiles
-#pragma unroll
-        for (int i = 0; i < FM; ++i) {
-          const int m = wm + 16 * i + (mi & 1) * 8, k = kk + (mi >> 1) * 8;
-          ldmatrix_x4<ACOL>(fa[i], ACOL ? at + (k + r8) * A::ld + m : at + (m + r8) * A::ld + k);
-        }
-#pragma unroll
-        for (int j = 0; j < FN; j += 2) {
-          const int n = wn + 8 * j + (mi >> 1) * 8, k = kk + (mi & 1) * 8;
-          uint32_t r[4];
-          ldmatrix_x4<!BCOL>(r, BCOL ? bt + (n + r8) * B::ld + k : bt + (k + r8) * B::ld + n);
-          fb[j][0] = r[0], fb[j][1] = r[1], fb[j + 1][0] = r[2], fb[j + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-          for (int j = 0; j < FN; ++j) mma_bf16(acc[i][j], fa[i], fb[j]);
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // the ring is free: S overlays it
-    // accumulator (r, c), (r, c + 1), (r + 8, c), (r + 8, c + 1) with
-    // r = lane / 4, c = 2 (lane % 4) in each 16 x 8 tile
-    const int g = lane >> 2, c2 = 2 * (lane & 3);
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        float* d = S + (wm + 16 * i + g) * LDS + wn + 8 * j + c2;
-        *reinterpret_cast<float2*>(d) = make_float2(acc[i][j][0], acc[i][j][1]);
-        *reinterpret_cast<float2*>(d + 8 * LDS) = make_float2(acc[i][j][2], acc[i][j][3]);
-      }
-  } else {
-    static_assert(C::THREADS == 256 && C::BM == 128 && C::BN == 128, "f32 FMA tiling");
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;  // rows ty + 16i, cols tx + 16j
-    float c[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) c[i][j] = 0.f;
-
-    for (int kt = 0; kt < nk; ++kt) {
-      cp_async_wait<NSTAGE - 2>();
-      __syncthreads();
-      const int nxt = kt + NSTAGE - 1;
-      if (nxt < nk)
-        load_stage<T, ACOL, BCOL>(p, as(nxt % NSTAGE), bs(nxt % NSTAGE), m0, n0, nxt * BK);
-      cp_async_commit();
-      const T* at = as(kt % NSTAGE);
-      const T* bt = bs(kt % NSTAGE);
-      for (int k = 0; k < BK; ++k) {
-        float av[8], bv[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int r = ty + 16 * i;
-          av[i] = to_f(ACOL ? at[k * A::ld + r] : at[r * A::ld + k]);
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int cc = tx + 16 * j;
-          bv[j] = to_f(BCOL ? bt[cc * B::ld + k] : bt[k * B::ld + cc]);
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) c[i][j] = fmaf(av[i], bv[j], c[i][j]);
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) S[(ty + 16 * i) * LDS + tx + 16 * j] = c[i][j];
-  }
-  __syncthreads();  // S is complete
 }
 
 // grid (ceil(n / BN), ceil(m / BM))
@@ -446,7 +209,7 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS) mlp_gemm_kernel(Gemm<T> p) {
   extern __shared__ __align__(128) char smem[];
   float* S = reinterpret_cast<float*>(smem);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  mainloop<T, ACOL, BCOL>(p, smem, S, m0, n0);
+  mainloop<T, Cfg<T>, ACOL, BCOL>(p, smem, S, LDS, BN, m0, n0);
 
   for (int idx = threadIdx.x; idx < BM * BN; idx += Cfg<T>::THREADS) {
     const int r = idx / BN, c = idx - r * BN;
@@ -520,27 +283,9 @@ __global__ void colsum_kernel(const T* __restrict__ g, float* __restrict__ part,
   part[(size_t)blockIdx.y * ld + c] = s;
 }
 
-// s[c] = sum of part[i * cols + c] over i = 0 .. parts - 1, in that order;
-// out1[c] = s[c] for c < n1, out2[c - n1] = s[c] past it.
-// grid ceil(cols / 256), 256 threads.
-__global__ void sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out1,
-                                 float* __restrict__ out2, int parts, int n1, int cols) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
-  float s = 0.f;
-  for (int i = 0; i < parts; ++i) s += part[(size_t)i * cols + c];
-  if (c < n1) {
-    out1[c] = s;
-  } else {
-    out2[c - n1] = s;
-  }
-}
-
 // --------------------------------------------------------------------------
 // host side
 // --------------------------------------------------------------------------
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 template <typename T, bool ACOL, bool BCOL, int EPI>
 int run_gemm(Gemm<T> p, cudaStream_t stream) {
@@ -657,9 +402,8 @@ int launch_bwd(const void* x, const void* w1, const void* b1, const void* w2, co
     v.out = static_cast<T*>(dw2) + (size_t)f0 * h, v.ldo = h;
     if ((rc = run_gemm<T, true, false, EPI_STORE>(v, st))) return rc;
   }
-  sum_parts_kernel<<<(unsigned)((ldp + 255) / 256), 256, 0, st>>>(
-      PART, static_cast<float*>(db1), static_cast<float*>(db2), parts, f, (int)ldp);
-  return (int)cudaGetLastError();
+  return sum_parts(PART, parts, (int)ldp, static_cast<float*>(db1), f, static_cast<float*>(db2),
+                   1, st);
 }
 
 template <typename T>
@@ -828,10 +572,6 @@ int fused_swiglu_bwd_bf16(const void* x, const void* wg, const void* wu, const v
                           int r, int h, int f, int fc, void* stream) {
   return launch_swiglu_bwd<__nv_bfloat16>(x, wg, wu, wd, g, dx, dwg, dwu, dwd, ag_ws, au_ws,
                                           dag_ws, dau_ws, act_ws, acc_ws, r, h, f, fc, stream);
-}
-
-const char* fused_mlp_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

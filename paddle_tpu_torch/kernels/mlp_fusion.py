@@ -10,8 +10,10 @@ assembly :443 and ``fused_mlp_2d`` :472; its shape rule ``mlp_blocks``
 ``_swiglu_dx_kernel`` :543, ``_swiglu_dw_kernel`` :572, the
 ``custom_vjp`` assembly :611 and ``fused_swiglu_2d`` :674) and the
 decode part (``_decode_kernel`` :977, ``_decode_call`` :1041,
-``decode_attn_proj`` :1067). The projection-LN kernels belong to a later
-slice (ROADMAP A6); so does the fused MLP's dropout epilogue (A6).
+``decode_attn_proj`` :1067), and the projection-LN epilogue
+(``_proj_ln_fwd_kernel`` :714, ``_proj_ln_bwd_kernel`` :751, the
+``custom_vjp`` assembly :878 and ``fused_proj_ln_2d`` :913). The fused
+MLP's and the projection-LN's dropout epilogues are ROADMAP A6b.
 
 The fused MLP's forward and backward are ``torch.library`` custom ops,
 ``paddle_tpu_torch::fused_mlp_fwd`` → ``y`` and
@@ -32,6 +34,16 @@ kernels, by kernel name (CPU calls do not count); one backward call runs
 the dX and dW kernels over each ffn chunk together and counts once for
 each. No backward uses atomics: every call gives the same bits.
 
+The projection-LN forward and backward are
+``paddle_tpu_torch::fused_proj_ln_fwd`` → ``(y, mean, rstd)`` and
+``paddle_tpu_torch::fused_proj_ln_bwd`` → ``(dz, dp, dgamma, dbeta)``
+(dz and dp f32, as the reference's kernel writes them, :857-858); the
+backward saves the primal inputs and the f32 row statistics, recomputes
+the product, and takes dx, dW and db from dp as f32 products outside the
+kernel, as the reference does (:895-904). For CUDA tensors they launch
+``csrc/proj_ln.cu`` or raise; for CPU tensors they take
+``fused_proj_ln_fwd_ref`` / ``fused_proj_ln_bwd_ref``.
+
 ``decode_attn_proj`` is the decode wrapper. For CUDA tensors it launches
 ``csrc/decode_attn_proj.cu`` or raises; for CPU tensors it takes
 ``decode_attn_proj_ref``. ``decode_attn_proj.launches`` counts its
@@ -46,14 +58,17 @@ from typing import Union
 
 import torch
 
+from . import _build
+from ._build import vec32 as _vec32
 from .flash_attention import _on
 
 __all__ = ["decode_attn_proj", "decode_attn_proj_ref", "fused_mlp_2d",
            "fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_fwd_ref",
            "fused_mlp_dx_ref", "fused_mlp_dw_ref", "fused_swiglu_2d",
            "fused_swiglu_fwd", "fused_swiglu_bwd", "fused_swiglu_fwd_ref",
-           "fused_swiglu_dx_ref", "fused_swiglu_dw_ref", "mlp_eligible",
-           "launches"]
+           "fused_swiglu_dx_ref", "fused_swiglu_dw_ref", "fused_proj_ln_2d",
+           "fused_proj_ln_fwd", "fused_proj_ln_bwd", "fused_proj_ln_fwd_ref",
+           "fused_proj_ln_bwd_ref", "mlp_eligible", "launches"]
 
 _NEG_INF = -1e30   # flash_attention.py:61 — the kernel's mask, never -inf
 _MAX_HEAD_DIM = 256
@@ -114,7 +129,8 @@ _CHUNK_F = 2048
 _ROW_BLOCK = 128
 
 launches = {"fused_mlp_fwd": 0, "fused_mlp_dx": 0, "fused_mlp_dw": 0,
-            "fused_swiglu_fwd": 0, "fused_swiglu_dx": 0, "fused_swiglu_dw": 0}
+            "fused_swiglu_fwd": 0, "fused_swiglu_dx": 0, "fused_swiglu_dw": 0,
+            "fused_proj_ln_fwd": 0, "fused_proj_ln_bwd": 0}
 
 
 def mlp_eligible(r: int, h: int, f: int) -> bool:
@@ -215,26 +231,7 @@ _MLP_ARGTYPES = {"fused_mlp_fwd": [_P] * 8 + [_I] * 5 + [_P],
 
 @functools.cache
 def _mlp_lib():
-    from ._build import load
-    lib = load("fused_mlp.cu")
-    for name, argtypes in _MLP_ARGTYPES.items():
-        for suffix in ("f32", "bf16"):
-            fn = getattr(lib, f"{name}_{suffix}")
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    lib.fused_mlp_error_string.argtypes = [ctypes.c_int]
-    lib.fused_mlp_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _mlp_call(name, dtype, device, *args):
-    lib = _mlp_lib()
-    fn = getattr(lib, f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}")
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
-                           f"({lib.fused_mlp_error_string(rc).decode()})")
+    return _build.library("fused_mlp.cu", _MLP_ARGTYPES)
 
 
 def _mlp_check(name, x, w1, w2, more=(), vecs=()):
@@ -270,10 +267,6 @@ def _gelu_check(name, x, w1, b1, w2, more=()):
     return r, h, f
 
 
-def _vec32(v):
-    return v.float().contiguous()
-
-
 def _fwd_cuda(x, w1, b1, w2, b2, approximate):
     r, h, f = _gelu_check("fused_mlp_fwd", x, w1, b1, w2)
     if b2.shape != (h,) or b2.device != x.device:
@@ -285,11 +278,11 @@ def _fwd_cuda(x, w1, b1, w2, b2, approximate):
     acc = (torch.empty((r, h), dtype=torch.float32, device=x.device)
            if f > fc else None)
     b1f, b2f = _vec32(b1), _vec32(b2)
-    _mlp_call("fused_mlp_fwd", x.dtype, x.device, x.data_ptr(),
-              w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
-              y.data_ptr(), act.data_ptr(),
-              None if acc is None else acc.data_ptr(), r, h, f, fc,
-              int(approximate))
+    _build.call(_mlp_lib(), "fused_mlp_fwd", x.dtype, x.device, x.data_ptr(),
+                w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
+                y.data_ptr(), act.data_ptr(),
+                None if acc is None else acc.data_ptr(), r, h, f, fc,
+                int(approximate))
     launches["fused_mlp_fwd"] += 1
     return y
 
@@ -315,12 +308,12 @@ def _bwd_cuda(x, w1, b1, w2, g, approximate):
     acc = empty(r, h, dtype=f32) if f > fc else None
     part = empty(parts, f + h, dtype=f32)  # column sums per row block
     b1f = _vec32(b1)
-    _mlp_call("fused_mlp_bwd", dt, dev, x.data_ptr(), w1.data_ptr(),
-              b1f.data_ptr(), w2.data_ptr(), g.data_ptr(), dx.data_ptr(),
-              dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-              a.data_ptr(), da.data_ptr(), act.data_ptr(),
-              None if acc is None else acc.data_ptr(), part.data_ptr(),
-              parts, r, h, f, fc, int(approximate))
+    _build.call(_mlp_lib(), "fused_mlp_bwd", dt, dev, x.data_ptr(),
+                w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), g.data_ptr(),
+                dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+                db2.data_ptr(), a.data_ptr(), da.data_ptr(), act.data_ptr(),
+                None if acc is None else acc.data_ptr(), part.data_ptr(),
+                parts, r, h, f, fc, int(approximate))
     launches["fused_mlp_dx"] += 1
     launches["fused_mlp_dw"] += 1
     return dx, dw1, db1, dw2, db2
@@ -379,7 +372,7 @@ def fused_mlp_2d(x, w1, b1, w2, b2, *, approximate=False, dropout_p=0.0,
     y = gelu(x @ w1 + b1) @ w2 + b2; weight layout matches nn.Linear
     ([in, out]); w1 and w2 are cast to x's dtype. The reference's checks
     and messages; ``dropout_p > 0`` (the seeded keep-mask epilogue) is
-    ported with BERT (ROADMAP A6) and raises NotImplementedError."""
+    ROADMAP A6b and raises NotImplementedError."""
     if x.ndim != 2:
         raise ValueError(f"fused_mlp_2d expects a 2D [R, H] view, got "
                          f"{tuple(x.shape)}")
@@ -404,8 +397,8 @@ def fused_mlp_2d(x, w1, b1, w2, b2, *, approximate=False, dropout_p=0.0,
             raise ValueError("fused_mlp: dropout_p > 0 requires "
                              "dropout_seed (2,) key data")
         raise NotImplementedError(
-            "fused_mlp: the in-kernel dropout epilogue is ported with BERT "
-            "(ROADMAP A6)")
+            "fused_mlp: the in-kernel dropout epilogue (the portable "
+            "keep-mask hash keyed by the reference's tiles) is ROADMAP A6b")
     return fused_mlp_fwd(x.contiguous(), w1.contiguous(), b1.contiguous(),
                          w2.contiguous(), b2.contiguous(), bool(approximate))
 
@@ -431,10 +424,10 @@ def _swiglu_fwd_cuda(x, wg, wu, wd):
     act = torch.empty((r, fc), dtype=x.dtype, device=dev)
     acc = (torch.empty((r, h), dtype=torch.float32, device=dev)
            if f > fc else None)
-    _mlp_call("fused_swiglu_fwd", x.dtype, dev, x.data_ptr(), wg.data_ptr(),
-              wu.data_ptr(), wd.data_ptr(), y.data_ptr(), ag.data_ptr(),
-              act.data_ptr(), None if acc is None else acc.data_ptr(), r, h,
-              f, fc)
+    _build.call(_mlp_lib(), "fused_swiglu_fwd", x.dtype, dev, x.data_ptr(),
+                wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), y.data_ptr(),
+                ag.data_ptr(), act.data_ptr(),
+                None if acc is None else acc.data_ptr(), r, h, f, fc)
     launches["fused_swiglu_fwd"] += 1
     return y
 
@@ -457,11 +450,11 @@ def _swiglu_bwd_cuda(x, wg, wu, wd, g):
     ag, au = empty(r, fc, dtype=f32), empty(r, fc, dtype=f32)
     dag, dau, act = empty(r, fc), empty(r, fc), empty(r, fc)
     acc = empty(r, h, dtype=f32)   # dX sums two products per chunk
-    _mlp_call("fused_swiglu_bwd", dt, dev, x.data_ptr(), wg.data_ptr(),
-              wu.data_ptr(), wd.data_ptr(), g.data_ptr(), dx.data_ptr(),
-              dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), ag.data_ptr(),
-              au.data_ptr(), dag.data_ptr(), dau.data_ptr(), act.data_ptr(),
-              acc.data_ptr(), r, h, f, fc)
+    _build.call(_mlp_lib(), "fused_swiglu_bwd", dt, dev, x.data_ptr(),
+                wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), g.data_ptr(),
+                dx.data_ptr(), dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(),
+                ag.data_ptr(), au.data_ptr(), dag.data_ptr(), dau.data_ptr(),
+                act.data_ptr(), acc.data_ptr(), r, h, f, fc)
     launches["fused_swiglu_dx"] += 1
     launches["fused_swiglu_dw"] += 1
     return dx, dwg, dwu, dwd
@@ -528,6 +521,207 @@ def fused_swiglu_2d(x, gate_w, up_w, down_w):
             f"fused_swiglu: intermediate dim {f} has no legal tile")
     return fused_swiglu_fwd(x.contiguous(), wg.contiguous(), wu.contiguous(),
                             wd.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# fused projection epilogue: LayerNorm(residual + x·W + b)
+# ---------------------------------------------------------------------------
+
+def _proj_z(x, w, b, res):
+    """(x·W with f32 accumulation + b) + res, in f32 (:726-733)."""
+    return (x.float() @ w.float() + b.float()) + res.float()
+
+
+def fused_proj_ln_fwd_ref(x, w, b, res, lnw, lnb, eps: float):
+    """Plain version of the projection-LN forward kernel (:726-744): x [R,
+    Hin], w [Hin, Hout], res [R, Hout] in one dtype, the vectors f32-cast.
+    Returns (y in res's dtype, mean [R] f32, rstd [R] f32)."""
+    z = _proj_z(x, w, b, res)
+    mean = z.mean(-1, keepdim=True)
+    zc = z - mean
+    rstd = torch.rsqrt((zc * zc).mean(-1, keepdim=True) + eps)
+    y = (zc * rstd) * lnw.float() + lnb.float()
+    return y.to(res.dtype), mean[:, 0], rstd[:, 0]
+
+
+def fused_proj_ln_bwd_ref(x, w, b, res, lnw, mean, rstd, g):
+    """Plain version of the projection-LN backward kernel (:771-793):
+    returns (dz, dp, dgamma, dbeta), all f32; dz and dp are equal without
+    dropout (dp a copy: an op's outputs may not alias each other)."""
+    xhat = (_proj_z(x, w, b, res) - mean[:, None]) * rstd[:, None]
+    gf = g.float()
+    gw = gf * lnw.float()
+    c1 = gw.mean(-1, keepdim=True)
+    c2 = (gw * xhat).mean(-1, keepdim=True)
+    dz = (gw - c1 - xhat * c2) * rstd[:, None]
+    return dz, dz.clone(), (gf * xhat).sum(0), gf.sum(0)
+
+
+_PL_ARGTYPES = {"proj_ln_fwd": [_P] * 9 + [_I] * 3 + [ctypes.c_float, _P],
+                "proj_ln_bwd": [_P] * 12 + [_I] * 3 + [_P]}
+
+
+@functools.cache
+def _pl_lib():
+    return _build.library(
+        "proj_ln.cu", _PL_ARGTYPES,
+        ints=("proj_ln_max_hout_f32", "proj_ln_max_hout_bf16",
+              "proj_ln_rows_per_block"))
+
+
+def _pl_check(name, x, w, res, more=()):
+    """The kernels' contract: x [R, Hin], w [Hin, Hout], res (and g,
+    ``more``) [R, Hout], float32 or bfloat16 in one dtype, on one CUDA
+    device, contiguous; Hout even and within what shared memory holds
+    (``proj_ln_max_hout``: the f32 [32, Hout] row tile beside the operand
+    ring). Returns (r, hin, hout)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    r, hin = x.shape
+    hout = w.shape[1]
+    for t in (w, res, *more):
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} kernel: {t.dtype} beside x's {x.dtype} "
+                            f"(one dtype for x, w, the residual and g)")
+        if t.device != x.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
+    if not all(t.is_contiguous() for t in (x, w, res, *more)):
+        raise ValueError(f"{name} kernel needs contiguous tensors")
+    lib = _pl_lib()
+    limit = (lib.proj_ln_max_hout_bf16() if x.dtype == torch.bfloat16
+             else lib.proj_ln_max_hout_f32())
+    if hout % 2 or hout > limit:
+        raise ValueError(
+            f"{name}: the kernel takes an even Hout of at most {limit} for "
+            f"{x.dtype} (its f32 [32, Hout] row tile and operand ring fill "
+            f"227 KB of shared memory), got Hout={hout}")
+    return r, hin, hout
+
+
+def _proj_ln_fwd_cuda(x, w, b, res, lnw, lnb, eps):
+    r, hin, hout = _pl_check("fused_proj_ln_fwd", x, w, res)
+    b32, g32, be32 = _vec32(b), _vec32(lnw), _vec32(lnb)
+    y = torch.empty_like(res)
+    mean = torch.empty(r, dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    _build.call(_pl_lib(), "proj_ln_fwd", x.dtype, x.device, x.data_ptr(),
+                w.data_ptr(), b32.data_ptr(), res.data_ptr(), g32.data_ptr(),
+                be32.data_ptr(), y.data_ptr(), mean.data_ptr(),
+                rstd.data_ptr(), r, hin, hout, float(eps))
+    launches["fused_proj_ln_fwd"] += 1
+    return y, mean, rstd
+
+
+def _proj_ln_bwd_cuda(x, w, b, res, lnw, mean, rstd, g):
+    r, hin, hout = _pl_check("fused_proj_ln_bwd", x, w, res, more=(g,))
+    b32, g32 = _vec32(b), _vec32(lnw)
+    dev = x.device
+    dz = torch.empty((r, hout), dtype=torch.float32, device=dev)
+    dp = torch.empty_like(dz)
+    rows = _pl_lib().proj_ln_rows_per_block()
+    part = torch.empty((-(-r // rows), 2, hout), dtype=torch.float32,
+                       device=dev)
+    sums = torch.empty((2, hout), dtype=torch.float32, device=dev)
+    _build.call(_pl_lib(), "proj_ln_bwd", x.dtype, dev, x.data_ptr(),
+                w.data_ptr(), b32.data_ptr(), res.data_ptr(), g32.data_ptr(),
+                mean.contiguous().data_ptr(), rstd.contiguous().data_ptr(),
+                g.data_ptr(), dz.data_ptr(), dp.data_ptr(), part.data_ptr(),
+                sums.data_ptr(), r, hin, hout)
+    launches["fused_proj_ln_bwd"] += 1
+    # copies: rows of one tensor, and an op's outputs may not alias
+    return dz, dp, sums[0].clone(), sums[1].clone()
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::fused_proj_ln_fwd", mutates_args=(),
+    schema="(Tensor x, Tensor w, Tensor b, Tensor res, Tensor lnw, "
+           "Tensor lnb, float eps) -> (Tensor, Tensor, Tensor)")
+def fused_proj_ln_fwd(x, w, b, res, lnw, lnb, eps):
+    """Projection-LN forward on x [R, Hin] → (y [R, Hout] in res's dtype,
+    mean [R] f32, rstd [R] f32)."""
+    if _on(x.device, "fused_proj_ln_fwd"):
+        return _proj_ln_fwd_cuda(x, w, b, res, lnw, lnb, eps)
+    return fused_proj_ln_fwd_ref(x, w, b, res, lnw, lnb, eps)
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::fused_proj_ln_bwd", mutates_args=(),
+    schema="(Tensor x, Tensor w, Tensor b, Tensor res, Tensor lnw, "
+           "Tensor mean, Tensor rstd, Tensor g) "
+           "-> (Tensor, Tensor, Tensor, Tensor)")
+def fused_proj_ln_bwd(x, w, b, res, lnw, mean, rstd, g):
+    """Projection-LN backward → (dz, dp, dgamma, dbeta), all f32, as the
+    reference's kernel returns them (:857-858)."""
+    if _on(x.device, "fused_proj_ln_bwd"):
+        return _proj_ln_bwd_cuda(x, w, b, res, lnw, mean, rstd, g)
+    return fused_proj_ln_bwd_ref(x, w, b, res, lnw, mean, rstd, g)
+
+
+def _proj_ln_setup_context(ctx, inputs, output):
+    x, w, b, res, lnw, lnb, eps = inputs
+    _, mean, rstd = output
+    ctx.save_for_backward(x, w, b, res, lnw, lnb, mean, rstd)
+
+
+def _proj_ln_backward(ctx, dy, _dmean, _drstd):
+    """The kernel's (dz, dp, dgamma, dbeta), then dx = dp·Wᵀ, dW = xᵀ·dp
+    and db = Σ dp as f32 products outside the kernel, with W and x cast
+    to f32, as the reference computes them (:895-904)."""
+    x, w, b, res, lnw, lnb, mean, rstd = ctx.saved_tensors
+    dz, dp, dg, dbeta = fused_proj_ln_bwd(x, w, b, res, lnw, mean, rstd,
+                                          dy.contiguous())
+    dx = dp @ w.float().T
+    dw = x.float().T @ dp
+    return (dx.to(x.dtype), dw.to(w.dtype), dp.sum(0).to(b.dtype),
+            dz.to(res.dtype), dg.to(lnw.dtype), dbeta.to(lnb.dtype), None)
+
+
+fused_proj_ln_fwd.register_autograd(_proj_ln_backward,
+                                    setup_context=_proj_ln_setup_context)
+
+
+def fused_proj_ln_2d(x, w, b, residual, ln_w, ln_b, *, eps=1e-5,
+                     dropout_p=0.0, dropout_seed=None):
+    """LayerNorm(residual + dropout(x @ w + b)) over [R, Hin] x
+    (mlp_fusion.py:913): the attention-output-projection epilogue,
+    projection, bias, residual add and LN in one kernel pass. Weight
+    layout [in, out], cast to x's dtype. The reference's checks and
+    messages (:920-949); its TPU tile rule (``mlp_blocks``) is not
+    ported, the kernel's own limit on Hout raises ValueError on a card.
+    ``dropout_p > 0`` (the seeded keep-mask) is ROADMAP A6b and raises
+    NotImplementedError."""
+    if x.ndim != 2:
+        raise ValueError(f"fused_proj_ln_2d expects a 2D [R, Hin] view, "
+                         f"got {tuple(x.shape)}")
+    r, hin = x.shape
+    w = w.to(x.dtype)
+    if w.ndim != 2 or w.shape[0] != hin:
+        raise ValueError(f"projection weight {tuple(w.shape)} must be "
+                         f"[{hin}, Hout]")
+    hout = w.shape[1]
+    if b is None:
+        raise NotImplementedError(
+            "fused_proj_ln: bias-less projection is not fused; take the "
+            "dense path")
+    if tuple(residual.shape) != (r, hout):
+        raise ValueError(f"residual {tuple(residual.shape)} must be "
+                         f"[{r}, {hout}]")
+    shapes = [tuple(t.shape) for t in (b, ln_w, ln_b)]
+    if any(s != (hout,) for s in shapes):
+        raise ValueError(f"bias/ln shapes {shapes[0]}/{shapes[1]}/{shapes[2]} "
+                         f"must all be ({hout},)")
+    if float(dropout_p) > 0.0:
+        if dropout_seed is None:
+            raise ValueError("fused_proj_ln: dropout_p > 0 requires "
+                             "dropout_seed (2,) key data")
+        raise NotImplementedError(
+            "fused_proj_ln: the in-kernel dropout epilogue (the portable "
+            "keep-mask hash keyed by the reference's row blocks) is "
+            "ROADMAP A6b")
+    return fused_proj_ln_fwd(x.contiguous(), w.contiguous(), b.contiguous(),
+                             residual.contiguous(), ln_w.contiguous(),
+                             ln_b.contiguous(), float(eps))[0]
 
 
 def _check(q, k_pool, v_pool, block_size, proj_w):
@@ -597,14 +791,8 @@ _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float,
 
 @functools.cache
 def _lib():
-    from ._build import load
-    lib = load("decode_attn_proj.cu")
-    for fn in (lib.decode_attn_proj_f32, lib.decode_attn_proj_bf16):
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    lib.decode_attn_proj_error_string.argtypes = [ctypes.c_int]
-    lib.decode_attn_proj_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.library("decode_attn_proj.cu",
+                          {"decode_attn_proj": _ARGTYPES})
 
 
 def _launch(q, k_pool, v_pool, position, block_table, proj_w, proj_b,
@@ -649,18 +837,10 @@ def _launch(q, k_pool, v_pool, position, block_table, proj_w, proj_b,
     y = torch.empty((ho,), dtype=q.dtype, device=dev)
     scratch = torch.empty((nh * nsplit * (2 + d) + nh * ho,),
                           dtype=torch.float32, device=dev)
-    lib = _lib()
-    fn = (lib.decode_attn_proj_bf16 if q.dtype == torch.bfloat16
-          else lib.decode_attn_proj_f32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(t.data_ptr() for t in tensors), y.data_ptr(),
+    _build.call(_lib(), "decode_attn_proj", q.dtype, dev,
+                *(t.data_ptr() for t in tensors), y.data_ptr(),
                 scratch.data_ptr(), nh, kvh, d, int(block_size), nblocks, mb,
-                ho, pages_per_split, nsplit, float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"decode_attn_proj kernel launch failed: CUDA error {rc} "
-            f"({lib.decode_attn_proj_error_string(rc).decode()})")
+                ho, pages_per_split, nsplit, float(scale))
     decode_attn_proj.launches += 1
     return y
 

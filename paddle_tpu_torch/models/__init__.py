@@ -1,5 +1,5 @@
 """Counterpart: ``paddle_tpu/models/__init__.py`` (GPT serving and
-training, LLaMA training so far)."""
-from . import gpt, llama
+training, LLaMA and BERT training so far)."""
+from . import bert, gpt, llama
 
-__all__ = ["gpt", "llama"]
+__all__ = ["bert", "gpt", "llama"]

@@ -30,7 +30,10 @@ them. Attention in ``_block_apply`` goes through ``flash_attention_bshd``
 through ``fused_mlp_2d`` (the fused MLP kernels on a card, their plain
 versions on the CPU) when ``_mlp_mode`` allows, as the reference's does
 with ``FLAGS_fused_mlp`` at its default (on), else the dense chain. The
-Layer block takes ``nn.functional.fused_mlp``. The remat policies of
+Layer block takes ``nn.functional.fused_mlp``, and the Layer model's
+norms are the port's ``nn.LayerNorm`` (the fused LayerNorm kernels with
+``FLAGS_fused_norm`` on, as the reference's ``nn.LayerNorm`` takes its
+fused kernel). The remat policies of
 ``_stage_fn`` are torch activation checkpointing; the selective ones find
 the reference's ``checkpoint_name`` sites through ``_named`` and save
 the flash forward's ``(out, lse)``, and the fused MLP forward's output
@@ -66,6 +69,7 @@ from ..nn.functional import mlp as _mlp_introspect
 from ..nn.functional.attention import (paged_attention_math,
                                        scaled_dot_product_attention)
 from ..nn.functional.mlp import _fused_mode, fused_mlp
+from ..nn.layer.norm import LayerNorm
 
 __all__ = ["GPTConfig", "CONFIGS", "GPTForCausalLM", "init_hybrid_params",
            "train_params_from_numpy", "train_params_to_numpy", "loss_fn",
@@ -147,10 +151,10 @@ class GPTBlock(nn.Module):
         H = cfg.hidden_size
         self.nh = cfg.num_heads
         kw = dict(device=device, dtype=dtype)
-        self.ln1 = nn.LayerNorm(H, **kw)
+        self.ln1 = LayerNorm(H, **kw)
         self.qkv = Linear(H, 3 * H, **kw)
         self.proj = Linear(H, H, **kw)
-        self.ln2 = nn.LayerNorm(H, **kw)
+        self.ln2 = LayerNorm(H, **kw)
         self.fc1 = Linear(H, cfg.ffn, **kw)
         self.fc2 = Linear(cfg.ffn, H, **kw)
 
@@ -188,7 +192,7 @@ class GPTModel(nn.Module):
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size, **kw)
         self.blocks = nn.ModuleList([GPTBlock(cfg, device, dtype)
                                      for _ in range(cfg.num_layers)])
-        self.ln_f = nn.LayerNorm(cfg.hidden_size, **kw)
+        self.ln_f = LayerNorm(cfg.hidden_size, **kw)
 
     def forward(self, input_ids):
         S = input_ids.shape[1]

@@ -1,5 +1,5 @@
-"""Counterpart: ``paddle_tpu/nn/__init__.py`` (functionals and
-``RMSNorm`` so far)."""
-from .layer import RMSNorm
+"""Counterpart: ``paddle_tpu/nn/__init__.py`` (functionals,
+``LayerNorm`` and ``RMSNorm`` so far)."""
+from .layer import LayerNorm, RMSNorm
 
-__all__ = ["RMSNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]

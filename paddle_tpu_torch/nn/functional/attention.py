@@ -2,33 +2,133 @@
 
 Counterpart: ``paddle_tpu/nn/functional/attention.py``:
 ``paged_attention_math`` (:106), the one arithmetic the serving prefill,
-the no-cache forward and the composite decode step share, and
-``scaled_dot_product_attention`` (:231) on its unmasked, dropout-free
-route to the flash kernel (:198-228). The masked and dropout routes
-belong to BERT (ROADMAP A6).
+the no-cache forward and the composite decode step share, the dense
+``_sdpa_ref`` (:26-60), ``last_attn_path`` / ``reset_last_attn_path``
+(:172-186), ``_is_key_padding_mask`` (:189), the masked flash route
+``_flash_masked_op`` (:73-103) and ``scaled_dot_product_attention``
+(:231).
+
+``scaled_dot_product_attention`` runs on Paddle's [b, s, h, d] layout:
+without a mask, and with a key-padding mask ([B, 1, 1, Sk], bool or
+additive, non-causal), through ``flash_attention_bshd`` (the Hopper
+kernels on a card, their plain versions on the CPU; the mask rides in as
+one f32 bias row per batch). Any other mask, and a mask with
+``is_causal``, take the reference's dense ``_sdpa_ref`` math with its
+once-warning: that is the reference's own route for those masks. The
+reference's exception policy (a failed kernel falls back to the dense
+path) is not ported. Attention dropout while training (in-kernel on the
+flash route, a ``default_generator`` mask on the dense one) is ROADMAP
+A6b and raises NotImplementedError.
 """
 from __future__ import annotations
+
+import warnings
 
 import torch
 
 from ...kernels.flash_attention import flash_attention_bshd
 
-__all__ = ["paged_attention_math", "scaled_dot_product_attention"]
+__all__ = ["last_attn_path", "paged_attention_math", "reset_last_attn_path",
+           "scaled_dot_product_attention"]
+
+_LAST_PATH = None
+_DENSE_MASK_WARNED = False
+
+
+def last_attn_path():
+    """The attention path the most recent ``scaled_dot_product_attention``
+    call took: 'flash/cuda' or 'flash_masked/cuda' (the kernels, the
+    latter with the key-padding bias), the same with '/plain' (their plain
+    versions, CPU tensors) or 'ref' (the dense math; None before any
+    call)."""
+    return _LAST_PATH
+
+
+def reset_last_attn_path():
+    """Clear the introspection state."""
+    global _LAST_PATH
+    _LAST_PATH = None
+
+
+def _sdpa_ref(query, key, value, attn_mask, is_causal, scale=None):
+    """The reference's dense attention on [b, s, h, d] (:26-60): logits in
+    the input dtype, scaled, then f32 with the causal mask and the
+    attention mask (bool keeps, float adds) applied at -inf; softmax in
+    f32, probabilities cast to the input dtype; GQA broadcasts k/v
+    heads."""
+    b, sq, h, d = query.shape
+    sk = key.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    qt, kt, vt = (t.transpose(1, 2) for t in (query, key, value))
+    if kt.shape[1] != h:
+        rep = h // kt.shape[1]
+        kt = kt.repeat_interleave(rep, dim=1)
+        vt = vt.repeat_interleave(rep, dim=1)
+    logits = (qt @ kt.transpose(-1, -2)) * scale
+    logits = logits.float()
+    if is_causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool,
+                          device=query.device).tril(sk - sq)
+        logits = logits.masked_fill(~keep, float("-inf"))
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            logits = logits.masked_fill(~attn_mask, float("-inf"))
+        else:
+            logits = logits + attn_mask.float()
+    p = torch.softmax(logits, -1).to(query.dtype)
+    return (p @ vt).transpose(1, 2)
+
+
+def _is_key_padding_mask(attn_mask):
+    """Shape-only test: [B, 1, 1, Sk] broadcasts one additive row over
+    heads and q rows, the key-padding regime the kernels cover."""
+    shape = tuple(attn_mask.shape)
+    return len(shape) == 4 and shape[1] == 1 and shape[2] == 1
+
+
+def _kv_bias(attn_mask, b, sk):
+    """[B, 1, 1, Sk] (or [B, Sk]) bool keep-mask or additive float → the
+    [b, sk] f32 bias row per batch (:88-97): bool False → -1e30."""
+    m = attn_mask.reshape(attn_mask.shape[0], attn_mask.shape[-1])
+    if m.dtype == torch.bool:
+        bias = torch.where(m, 0.0, -1e30).float()
+    else:
+        bias = m.float()
+    return bias.expand(b, sk)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
-    """Attention on Paddle's [b, s, h, d] layout through
-    ``flash_attention_bshd`` (the Hopper kernels on a card, their plain
-    versions on the CPU). An attention mask, or dropout while training,
-    is the BERT route (ROADMAP A6) and raises NotImplementedError."""
+                                 training=True, name=None):
+    """Attention on Paddle's [b, s, h, d] layout; returns [b, sq, h, d] in
+    query's dtype. Routes as the reference does (see the module
+    docstring)."""
+    global _LAST_PATH, _DENSE_MASK_WARNED
     p = float(dropout_p) if training else 0.0
-    if attn_mask is not None or p > 0.0:
+    if p > 0.0:
         raise NotImplementedError(
-            "scaled_dot_product_attention: attn_mask and dropout take the "
-            "masked flash-attention kernels, ported with BERT (ROADMAP A6)")
-    return flash_attention_bshd(query, key, value, causal=bool(is_causal))
+            "scaled_dot_product_attention: attention dropout while training "
+            "(the flash kernels' seeded keep-mask, the dense route's "
+            "default_generator mask) is ROADMAP A6b")
+    mode = "cuda" if query.device.type == "cuda" else "plain"
+    if attn_mask is None:
+        _LAST_PATH = f"flash/{mode}"
+        return flash_attention_bshd(query, key, value, causal=bool(is_causal))
+    if not is_causal and _is_key_padding_mask(attn_mask):
+        _LAST_PATH = f"flash_masked/{mode}"
+        return flash_attention_bshd(
+            query, key, value, causal=False,
+            kv_bias=_kv_bias(attn_mask, query.shape[0], key.shape[1]))
+    if not _DENSE_MASK_WARNED:
+        _DENSE_MASK_WARNED = True
+        warnings.warn(
+            "scaled_dot_product_attention: attn_mask is not a key-padding "
+            "mask ([B, 1, 1, Sk]) or is combined with is_causal; taking the "
+            "dense reference path (materializes [B, H, Sq, Sk] scores), not "
+            "the flash kernels")
+    _LAST_PATH = "ref"
+    return _sdpa_ref(query, key, value, attn_mask, bool(is_causal))
 
 
 def paged_attention_math(q, k, v, pos_ids, scale):

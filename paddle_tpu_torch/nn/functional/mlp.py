@@ -3,22 +3,26 @@
 Counterpart: ``paddle_tpu/nn/functional/mlp.py``, the fused GeLU and
 SwiGLU MLP parts: ``last_mlp_path`` / ``reset_last_mlp_path`` (:43-62),
 ``_fused_mode`` (:65-74), the once-warned dense route (:77-86),
-``fused_mlp`` (:185-217) and ``fused_swiglu`` (:220-235).
-``fused_attn_proj_residual_layer_norm`` comes with BERT (ROADMAP A6).
+``fused_mlp`` (:185-217), ``fused_swiglu`` (:220-235) and
+``fused_attn_proj_residual_layer_norm`` (:238-272), BERT's attention
+output projection folded into its post-LN sublayer close.
 
-With ``FLAGS_fused_mlp`` on (the default), ``fused_mlp`` and
-``fused_swiglu`` take the fused route: on a card the hand-written CUDA
-kernels, on the CPU their plain PyTorch versions (as flash attention
-does). The reference's ``_try_fused`` exception policy is not ported: a
-kernel that fails to build or launch raises, nothing falls back. The
-dense route is taken only for what the arguments decide: the flag off, a
-missing bias (``fused_mlp``), or an ffn dim with no legal tile
-(``mlp_eligible``), the last two with the reference's once-warning.
+With ``FLAGS_fused_mlp`` on (the default), the three take the fused
+route: on a card the hand-written CUDA kernels, on the CPU their plain
+PyTorch versions (as flash attention does). The reference's
+``_try_fused`` exception policy is not ported: a kernel that fails to
+build or launch raises, nothing falls back. The dense route is taken
+only for what the arguments decide: the flag off, a missing bias
+(``fused_mlp``; the projection bias or an LN parameter,
+``fused_attn_proj_residual_layer_norm``), or an ffn dim with no legal
+tile (``mlp_eligible``), all but the first with the reference's
+once-warning. The projection-LN's dense route is ``linear`` →
+``norm._adln_routed``, itself behind ``FLAGS_fused_norm``.
 
-Dropout is not ported on either route: on the fused route it is the
-kernels' seeded keep-mask epilogue (ROADMAP A6); on the dense route the
-reference draws the mask from its ``default_generator`` (A5). Both raise
-NotImplementedError.
+Dropout is not ported on any route: on the fused routes it is the
+kernels' seeded keep-mask epilogue (ROADMAP A6b); on the fused MLP's
+dense route the reference draws the mask from its ``default_generator``
+(A5). All raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -28,20 +32,23 @@ import torch
 import torch.nn.functional as F
 
 from ...core.flags import get_flag
-from ...kernels.mlp_fusion import fused_mlp_2d, fused_swiglu_2d, mlp_eligible
+from ...kernels.mlp_fusion import (fused_mlp_2d, fused_proj_ln_2d,
+                                   fused_swiglu_2d, mlp_eligible)
+from .norm import _adln_routed
 
-__all__ = ["fused_mlp", "fused_swiglu", "last_mlp_path",
-           "reset_last_mlp_path"]
+__all__ = ["fused_attn_proj_residual_layer_norm", "fused_mlp",
+           "fused_swiglu", "last_mlp_path", "reset_last_mlp_path"]
 
 _LAST_PATH = None
 _DENSE_FALLBACK_WARNED = False
 
 
 def last_mlp_path():
-    """The MLP path the most recent ``fused_mlp`` or ``fused_swiglu`` call
-    or GPT block took: 'fused_mlp/cuda' or 'fused_swiglu/cuda' (the
-    kernels), 'fused_mlp/plain' or 'fused_swiglu/plain' (their plain
-    versions, CPU tensors) or 'dense' (None before any call)."""
+    """The MLP path the most recent ``fused_mlp``, ``fused_swiglu`` or
+    ``fused_attn_proj_residual_layer_norm`` call or GPT block took:
+    'fused_mlp/cuda', 'fused_swiglu/cuda' or 'fused_proj_ln/cuda' (the
+    kernels), the same with '/plain' (their plain versions, CPU tensors)
+    or 'dense' (None before any call)."""
     return _LAST_PATH
 
 
@@ -95,8 +102,9 @@ def fused_mlp(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias, *,
             _LAST_PATH = f"fused_mlp/{mode}"
             if p > 0:
                 raise NotImplementedError(
-                    "fused_mlp: the in-kernel dropout epilogue is ported "
-                    "with BERT (ROADMAP A6)")
+                    "fused_mlp: the in-kernel dropout epilogue (the "
+                    "portable keep-mask hash keyed by the reference's tiles) "
+                    "is ROADMAP A6b")
             y = fused_mlp_2d(x.reshape(-1, h), fc1_weight, fc1_bias,
                              fc2_weight, fc2_bias, approximate=approximate)
             return y.reshape(x.shape)
@@ -129,3 +137,37 @@ def fused_swiglu(x, gate_weight, up_weight, down_weight, name=None):
             return y.reshape(x.shape)
     _LAST_PATH = "dense"
     return (F.silu(x @ gate_weight) * (x @ up_weight)) @ down_weight
+
+
+def fused_attn_proj_residual_layer_norm(x, proj_weight, proj_bias,
+                                        residual, ln_scale, ln_bias,
+                                        dropout_rate=0.0, ln_epsilon=1e-5,
+                                        training=True, name=None):
+    """out = LayerNorm(residual + dropout(x @ W + b)): the attention output
+    projection folded into the post-LN sublayer close, one kernel pass per
+    direction on the fused route; the projected tensor never exists.
+    Weight layout [in, out]; x [..., Hin], residual [..., Hout]. The dense
+    route is ``x @ W + b`` → ``norm._adln_routed``. Dropout while training
+    is ROADMAP A6b."""
+    global _LAST_PATH
+    p = float(dropout_rate) if training else 0.0
+    eps = float(ln_epsilon)
+    mode = _fused_mode(x.device)
+    if mode is not None:
+        if proj_bias is not None and ln_scale is not None \
+                and ln_bias is not None:
+            _LAST_PATH = f"fused_proj_ln/{mode}"
+            if p > 0:
+                raise NotImplementedError(
+                    "fused_attn_proj_residual_layer_norm: the in-kernel "
+                    "dropout epilogue is ROADMAP A6b")
+            hin, hout = x.shape[-1], residual.shape[-1]
+            y = fused_proj_ln_2d(x.reshape(-1, hin), proj_weight, proj_bias,
+                                 residual.reshape(-1, hout), ln_scale,
+                                 ln_bias, eps=eps)
+            return y.reshape(residual.shape)
+        _warn_dense("fused_attn_proj_residual_layer_norm needs proj_bias, "
+                    "ln_scale and ln_bias for the fused kernel")
+    _LAST_PATH = "dense"
+    return _adln_routed(_linear(x, proj_weight, proj_bias), residual, None,
+                        ln_scale, ln_bias, None, p, eps)

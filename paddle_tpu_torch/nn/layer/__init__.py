@@ -1,4 +1,5 @@
-"""Counterpart: ``paddle_tpu/nn/layer/__init__.py`` (``RMSNorm`` so far)."""
-from .norm import RMSNorm
+"""Counterpart: ``paddle_tpu/nn/layer/__init__.py`` (``LayerNorm`` and
+``RMSNorm`` so far)."""
+from .norm import LayerNorm, RMSNorm
 
-__all__ = ["RMSNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]

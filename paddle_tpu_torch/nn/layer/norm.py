@@ -1,8 +1,8 @@
 """Normalisation layers.
 
-Counterpart: ``paddle_tpu/nn/layer/norm.py``, ``RMSNorm`` (:149-159).
-The LayerNorm, BatchNorm and the other norm layers come with later
-slices (ROADMAP A5, A6, A8).
+Counterpart: ``paddle_tpu/nn/layer/norm.py``, ``LayerNorm`` (:121-146)
+and ``RMSNorm`` (:149-159). The BatchNorm family comes with vision
+(ROADMAP A8), the other norm layers with later slices.
 """
 from __future__ import annotations
 
@@ -10,9 +10,40 @@ import torch
 from torch import nn
 
 from ..._device import DeviceLike, resolve_device
-from ..functional.norm import rms_norm
+from ..functional.norm import layer_norm, rms_norm
 
-__all__ = ["RMSNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
+
+
+class LayerNorm(nn.Module):
+    """Paddle's LayerNorm over the trailing ``normalized_shape`` axes,
+    with a unit-initialised gain ``weight`` and a zero-initialised
+    ``bias`` of that shape (``weight_attr`` / ``bias_attr`` False drop
+    them), on ``device`` (None → the CUDA card) in ``dtype``. Routes
+    through ``nn.functional.layer_norm``: the fused kernels with
+    ``FLAGS_fused_norm`` on."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, device: DeviceLike = None,
+                 dtype=torch.float32):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.weight = (None if weight_attr is False else nn.Parameter(
+            torch.ones(self._normalized_shape, **kw)))
+        self.bias = (None if bias_attr is False else nn.Parameter(
+            torch.zeros(self._normalized_shape, **kw)))
+
+    def forward(self, x):
+        return layer_norm(x, self._normalized_shape, self.weight, self.bias,
+                          self._epsilon)
+
+    def extra_repr(self):
+        return (f"normalized_shape={self._normalized_shape}, "
+                f"epsilon={self._epsilon}")
 
 
 class RMSNorm(nn.Module):

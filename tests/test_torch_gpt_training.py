@@ -42,7 +42,7 @@ from paddle_tpu_torch.kernels import chunked_xent as pcx
 from paddle_tpu_torch.kernels import flash_attention as pfa
 from paddle_tpu_torch.kernels import mlp_fusion as pmlp
 from paddle_tpu_torch.models import gpt as pgpt
-from paddle_tpu_torch.nn.functional import last_mlp_path
+from paddle_tpu_torch.nn.functional import last_mlp_path, last_norm_path
 
 B, LR = 2, 1e-4
 POLICIES = ("dots_saveable", "save_small", "save_qkv", "save_ffn",
@@ -398,6 +398,9 @@ def test_layer_model_matches_reference_layer_model(mlp):
     np.testing.assert_allclose(float(loss), jloss, atol=1e-5, rtol=1e-4)
     assert jax_last_mlp_path() == ("fused_mlp/interpret" if mlp else "dense")
     assert last_mlp_path() == ("fused_mlp/plain" if mlp else "dense")
+    # the Layer model's norms take the fused LayerNorm route, as the
+    # reference's nn.LayerNorm does at the default FLAGS_fused_norm
+    assert last_norm_path() == "fused_ln/plain"
 
 
 @pytest.mark.parametrize("what", ["vpp_chunks", "moe_experts", "n_micro"])
