@@ -105,7 +105,10 @@ Phases, one line each; any failure raises and exits non-zero:
    partial; their times at bert-base shape beside the plain versions',
    the bound and F.layer_norm(res + addmm(b, x, W)) with its backward,
    and the cost of the f32 dx/dW products the backward runs outside
-   them;
+   them; the widest Hout the kernels take, reckoned in Python (the
+   functional's routing rule), equal to the library's, and Hout = 2048
+   through fused_attn_proj_residual_layer_norm on the card (the dense
+   route) against the plain version;
 22. the flash kernels' key-padding variant against their plain versions
    at bert-base's attention (B=32, 12 heads, S=512, D=64, valid lengths
    128-512 from the seed, bf16; B=4 in f32; a ragged S=200 in both),
@@ -129,6 +132,39 @@ Phases, one line each; any failure raises and exits non-zero:
    and 2 steps;
 26. parity in fp32 at bert-base width, 2 layers, B=4, S=512: loss and
    every gradient with the fused flags on vs off;
+27. the fused BatchNorm kernels (forward; backward with the mean and var
+   cotangents) through their custom ops against their plain versions at
+   resnet50's B=256 shapes: the stem's BN (C=64, HW=12544), layer 1's bn3
+   (residual + ReLU), layer 3's bn2 (HW=196, planes off 16-byte
+   boundaries in bf16), layer 4's bn3 (C=2048, HW=49, residual), a
+   downsample BN (no ReLU) and a BatchNorm1D shape (HW=1), f32 and
+   bf16; two backward calls give the
+   same bits; dres is g gated by the kernel's own y > 0, bit for bit;
+   autograd through fused_batch_norm_train at layer 1's bn3 in bf16
+   against the plain versions and bitwise against the ops; the check
+   shown to reject a forward without the residual and a forward and a
+   backward missing one reduction part; their times at layer 1's bn3 and
+   the stem beside the plain versions', the bound and F.batch_norm -> +
+   res -> relu with its autograd backward;
+28. train resnet50 (random weights from a seed, bf16, full width and
+   depth, FLAGS_fused_norm on as by default) through the Layer model and
+   Momentum(0.1, momentum=0.9) (cross_entropy(net(x).float(), y) ->
+   backward -> opt.step -> opt.clear_grad) at B=256, 3x224x224 on one
+   fixed batch: one warm-up step, whose running statistics are held to
+   Paddle's rule, then 4 steps; a finite loss; exactly 53 fused_bn_fwd
+   and 53 fused_bn_bwd launches per step; ms/step, images/s, model
+   TFLOP/s (convolution and fc flops from the shapes, x3), the Momentum
+   update's ms, peak memory, the BN kernels' summed bound and the card's
+   clocks;
+29. torch.profiler over 2 more resnet50 steps: busy time, idle share,
+   the BN kernels' and the convolutions' shares, the kernels that take
+   the time;
+30. the same training with FLAGS_fused_norm off (the dense BatchNorm):
+   1 warm-up and 2 steps;
+31. parity in fp32 at full width, B=8, 64x64: loss, gradients and running
+   statistics with the BN kernels and with the dense BatchNorm, each
+   against the dense route in f64 (the kernels at most 3x as far from it
+   as the dense f32 route);
 then the card's name and power limit again, the kernels' JSON line and
 the final status line. Every kernel time is device time (cuda_ms: the
 calls queued behind a spin of the card, so the host's launch rate does
@@ -1921,7 +1957,54 @@ def phase_proj_ln_vs_plain(torch):
                 cases=[list(c) for c in PL_CASES],
                 autograd_bf16=pl_autograd(torch, mf),
                 wrong_kernel_reading=pl_check_rejects(torch, mf),
+                wide_hout=pl_wide_hout(torch, mf),
                 **pl_times(torch, mf))
+
+
+PL_WIDE = (4096, 768, 2048)          # R, Hin, Hout beyond the kernel's tile
+
+
+def pl_wide_hout(torch, mf):
+    """The widest Hout the kernels take, as the Python side reckons it
+    (``proj_ln_max_hout``, the routing rule), equals the library's
+    ``proj_ln_max_hout_*``; a wider Hout (2048) goes through
+    ``fused_attn_proj_residual_layer_norm`` on the card by the once-warned
+    dense route (linear, then the LayerNorm kernels) and agrees with the
+    projection-LN's plain version, f32 and bf16 (LN_TOL). Returns the
+    limits and the readings."""
+    import warnings
+    from paddle_tpu_torch.nn.functional import (
+        fused_attn_proj_residual_layer_norm, last_mlp_path)
+    lib = mf._pl_lib()
+    limits = {"float32": (mf.proj_ln_max_hout(torch.float32),
+                          lib.proj_ln_max_hout_f32()),
+              "bfloat16": (mf.proj_ln_max_hout(torch.bfloat16),
+                           lib.proj_ln_max_hout_bf16())}
+    for name, (py, cu) in limits.items():
+        check(py == cu, f"proj_ln_max_hout({name}): Python {py}, library {cu}")
+    r, hin, hout = PL_WIDE
+    readings = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        x = pl_inputs(torch, r, hin, hout, dtype, 43)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            y = fused_attn_proj_residual_layer_norm(
+                x["x"], x["w"], x["b"].to(dtype), x["res"],
+                x["lnw"].to(dtype), x["lnb"].to(dtype), dropout_rate=0.0,
+                ln_epsilon=1e-12)
+        path = last_mlp_path()
+        ry, _, _ = mf.fused_proj_ln_fwd_ref(x["x"], x["w"], x["b"], x["res"],
+                                            x["lnw"], x["lnb"], 1e-12)
+        readings[name] = rel_err(y, ry)[1]
+        check(path == "dense" and readings[name] <= LN_TOL[name],
+              f"Hout={hout} {name} through the functional: path {path}, "
+              f"relative {readings[name]} > {LN_TOL[name]}")
+        del x, y, ry
+    torch.cuda.empty_cache()
+    return dict(max_hout={k: v[1] for k, v in limits.items()},
+                python_equals_library=True, r=r, hin=hin, hout=hout,
+                path="dense", relative_to_plain=readings)
 
 
 def pl_autograd(torch, mf):
@@ -2507,6 +2590,637 @@ def phase_bert_parity_fp32(torch):
                 leaves=leaves)
 
 
+# ---------------------------------------------------------------------------
+# phases 27-31: ResNet-50 training through the Layer model and Momentum,
+# with the fused BatchNorm kernels (15-18)
+# ---------------------------------------------------------------------------
+
+BN_REPLACES = {
+    "fused_bn_fwd": ("paddle_tpu/kernels/norm_fusion.py:403",
+                     "paddle_tpu/kernels/norm_fusion.py:428"),
+    "fused_bn_bwd": ("paddle_tpu/kernels/norm_fusion.py:455",
+                     "paddle_tpu/kernels/norm_fusion.py:487")}
+# Each output is held to max |kernel - plain| <= tol * max |plain|. The rows
+# (y, dx, dres): f32, the same f32 arithmetic in other summation orders;
+# bf16 I/O, both round the same f32 values, one bf16 unit (2^-8) at most
+# apart, so 2^-7. The per-channel statistics and sums (mean, var, dw, db)
+# are f32 sums of the same values in both dtypes: 1e-5.
+BN_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+BN_STAT_TOL = 1e-5
+BN_N = 256                               # resnet50 at B=256, 224^2
+# (name, C, HW, relu, residual): the stem's BN, layer 1's bn3, layer 3's
+# bn2 (HW = 196: bf16 planes off 16-byte boundaries), layer 4's bn3 (HW =
+# 49), layer 1's downsample BN (no ReLU), and a BatchNorm1D over [N, C]
+# (HW = 1: every vector spans channels)
+BN_CASES = [("stem", 64, 12544, True, False),
+            ("layer1.bn3", 256, 3136, True, True),
+            ("layer3.bn2", 256, 196, True, False),
+            ("layer4.bn3", 2048, 49, True, True),
+            ("downsample", 256, 3136, False, False),
+            ("bn1d", 512, 1, True, True)]
+BN_EPS = 1e-5
+
+
+def bn_inputs(torch, n, c, hw, dtype, seed, res=True):
+    """x with per-channel and per-(image, channel) offsets (so that a
+    dropped image shows in the statistics), the residual, w, b, g with a
+    small mean (so that a dropped part shows in the sums) and the
+    cotangents of the mean and var outputs."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, s=1.0, m=0.0):
+        return m + torch.randn(*shape, generator=g, device="cuda") * s
+
+    x = rnd(n, c, hw) + rnd(1, c, 1, s=0.5) + rnd(n, c, 1, s=0.5)
+    return dict(x=x.to(dtype), res=rnd(n, c, hw).to(dtype) if res else None,
+                w=rnd(c, s=0.2, m=1.0), b=rnd(c, s=0.2),
+                g=rnd(n, c, hw, m=0.1).to(dtype), gmean=rnd(c),
+                gvar=rnd(c))
+
+
+def bn_bounds(n, c, hw, esize, res):
+    """bound_ms and what bounds it: the forward reads x (and res) and
+    writes y, the backward reads x, g (and res) and writes dx (and dres),
+    each once at 3.35 TB/s, with the [C] vectors; ~6 and ~12 flops an
+    element on the CUDA cores (67 TFLOP/s f32) take less."""
+    rows, vec = n * c * hw * esize, c * 4
+    k = 1 if res else 0
+    work = {"fused_bn_fwd": (6.0 * n * c * hw, (2 + k) * rows + 4 * vec),
+            "fused_bn_bwd": (12.0 * n * c * hw, (3 + 2 * k) * rows + 6 * vec)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops = flops / H100_FLOPS["float32"]
+        t_bytes = nbytes / H100_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def bn_plain_pre(torch, nf, x, res, w, b, mean, var):
+    """The plain version's pre-activation from the given statistics."""
+    _, a, bb = nf._bn_fold(w, b, mean, var, BN_EPS)
+    return nf._bn_pre(x.float(), res, a, bb)
+
+
+def phase_bn_vs_plain(torch, timed=True):
+    """The forward and backward custom ops (``fused_bn_fwd``,
+    ``fused_bn_bwd``: the kernels' wrappers, which the training step
+    reaches through ``fused_batch_norm_train``) against their plain
+    versions (y, mean, var, dx, dres, dw, db) at the resnet50 B=256 shapes
+    of BN_CASES, f32 and bf16, the backward with cotangents of the mean
+    and var outputs. The backward's plain version takes the kernel's mean
+    and var, as the backward does; where the kernel's ReLU gate (y > 0)
+    and the plain version's (its pre-activation > 0) differ, dx differs
+    by a·g, so such elements are counted and left out of the dx
+    comparison (at most 1e-6 of the elements, each with |pre| within
+    2^-20 of the largest). Two backward calls give the same bits. The
+    gate: dres is g where the kernel's y is above 0 and 0 elsewhere, bit
+    for bit. Autograd through ``fused_batch_norm_train`` at layer 1's bn3
+    in bf16 (bf16 w and b, as the model holds them) against the plain
+    versions and bitwise against the ops; the check shown to reject a
+    forward without the residual, a forward missing its first reduction
+    part and a backward missing its first reduction part. Then the times
+    of layer 1's bn3 and the stem's BN."""
+    from paddle_tpu_torch.kernels import norm_fusion as nf
+    worst, flips = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for case, c, hw, relu, has_res in BN_CASES:
+            x = bn_inputs(torch, BN_N, c, hw, dtype, c + hw, has_res)
+            xx, res, w, b, g = (x[k] for k in ("x", "res", "w", "b", "g"))
+            y, mean, var = nf.fused_bn_fwd(xx, res, w, b, BN_EPS, relu)
+            grads = nf.fused_bn_bwd(xx, res, w, b, mean, var, g, x["gmean"],
+                                    x["gvar"], BN_EPS, relu)
+            again = nf.fused_bn_bwd(xx, res, w, b, mean, var, g, x["gmean"],
+                                    x["gvar"], BN_EPS, relu)
+            dx, dres, dw, db = grads
+            ry, rmean, rvar = nf.fused_bn_fwd_ref(xx, res, w, b, BN_EPS, relu)
+            rdx, rgate, rdw, rdb = nf.fused_bn_bwd_ref(
+                xx, res, w, b, mean, var, g, x["gmean"], x["gvar"], BN_EPS,
+                relu)
+            torch.cuda.synchronize()
+            where = f"({name} {case} c={c} hw={hw})"
+            check(all(same_bits(a, o) for a, o in zip(again, grads)),
+                  f"fused BN backward differs between two calls {where}")
+            keep = None
+            if relu:
+                pre = bn_plain_pre(torch, nf, xx, res, w, b, mean, var)
+                differ = (y > 0) != (pre > 0)
+                n_flip = int(differ.sum())
+                band = 2.0 ** -20 * float(pre.abs().max())
+                check(n_flip <= 1e-6 * y.numel() and bool(
+                    (pre[differ].abs() <= band).all()),
+                      f"fused BN ReLU gate differs from the plain version's "
+                      f"at {n_flip} elements {where}")
+                flips[f"{name} {case}"] = n_flip
+                keep = ~differ
+                if has_res:
+                    want = torch.where(y > 0, g, torch.zeros_like(g))
+                    check(same_bits(dres, want),
+                          f"fused BN dres is not g gated by the kernel's own "
+                          f"y > 0 {where}")
+                del pre, differ
+            outs = [("y", y, ry, BN_TOL[name]), ("mean", mean, rmean,
+                                                 BN_STAT_TOL),
+                    ("var", var, rvar, BN_STAT_TOL),
+                    ("dx", dx, rdx.to(dtype), BN_TOL[name]),
+                    ("dw", dw, rdw, BN_STAT_TOL), ("db", db, rdb,
+                                                   BN_STAT_TOL)]
+            if has_res:
+                outs.append(("dres", dres, rgate.to(dtype), BN_TOL[name]))
+            for key, got, ref, tol in outs:
+                check(bool(torch.isfinite(got).all()),
+                      f"fused BN {key} not finite {where}")
+                if key == "dx" and keep is not None:
+                    got, ref = got[keep], ref[keep]
+                err, rel = rel_err(got, ref)
+                check(rel <= tol, f"fused BN {key} disagrees with plain "
+                      f"{where}: max_abs_err={err} relative {rel} > {tol}")
+                kern = ("fused_bn_fwd" if key in ("y", "mean", "var")
+                        else "fused_bn_bwd")
+                wst = worst.setdefault(name, {}).setdefault(kern, [0., 0.])
+                wst[0], wst[1] = max(wst[0], err), max(wst[1], rel)
+            del x, xx, res, w, b, g, y, mean, var, grads, again, dx, dres
+            del dw, db, ry, rmean, rvar, rdx, rgate, rdw, rdb, outs, keep
+            torch.cuda.empty_cache()
+    out = dict(tolerance_relative_to_max=dict(rows=BN_TOL,
+                                              statistics=BN_STAT_TOL),
+               worst={n: {k: dict(max_abs_err=e, relative=r)
+                          for k, (e, r) in w.items()}
+                      for n, w in worst.items()},
+               gate_flips_left_out_of_dx=flips, images=BN_N,
+               cases=[list(c) for c in BN_CASES],
+               autograd_bf16=bn_autograd(torch, nf),
+               wrong_kernel_reading=bn_check_rejects(torch, nf))
+    if timed:
+        out["times"] = {"layer1.bn3": bn_times(torch, nf, 256, 3136, True),
+                        "stem": bn_times(torch, nf, 64, 12544, False)}
+    return out
+
+
+def bn_autograd(torch, nf):
+    """Autograd through fused_batch_norm_train on [256, 256, 56, 56] bf16
+    (layer 1's bn3: residual and ReLU) with bf16 w and b: y, dx, dres, dw,
+    db against the plain versions within BN_TOL (the sums in bf16 after
+    the cast, so 2^-7), and bitwise equal to the ops' results."""
+    x = bn_inputs(torch, BN_N, 256, 3136, torch.bfloat16, 31, True)
+    bf = torch.bfloat16
+    xx, res, g = (x[k].reshape(BN_N, 256, 56, 56) for k in ("x", "res", "g"))
+    w, b = x["w"].to(bf), x["b"].to(bf)
+    prim = [t.detach().requires_grad_(True) for t in (xx, res, w, b)]
+    y, mean, var = nf.fused_batch_norm_train(prim[0], prim[2], prim[3],
+                                             residual=prim[1], eps=BN_EPS,
+                                             fuse_relu=True)
+    auto = torch.autograd.grad(y, prim, g)
+    x3, r3, g3 = (t.reshape(BN_N, 256, 3136) for t in (xx, res, g))
+    y_op, mean_op, var_op = nf.fused_bn_fwd(x3, r3, w, b, BN_EPS, True)
+    ops = nf.fused_bn_bwd(x3, r3, w, b, mean_op, var_op, g3, None, None,
+                          BN_EPS, True)
+    ry, _, _ = nf.fused_bn_fwd_ref(x3, r3, w, b, BN_EPS, True)
+    rdx, rgate, rdw, rdb = nf.fused_bn_bwd_ref(x3, r3, w, b, mean_op, var_op,
+                                               g3, None, None, BN_EPS, True)
+    torch.cuda.synchronize()
+    check(same_bits(y.reshape(x3.shape), y_op)
+          and same_bits(mean, mean_op) and same_bits(var, var_op)
+          and all(same_bits(a.reshape(o.shape), o)
+                  for a, o in zip(auto, ops)),
+          "autograd through fused_batch_norm_train differs from the BN ops")
+    readings = {}
+    for key, got, ref in (("y", y, ry), ("dx", auto[0], rdx.to(bf)),
+                          ("dres", auto[1], rgate.to(bf)),
+                          ("dw", auto[2], rdw.to(bf)),
+                          ("db", auto[3], rdb.to(bf))):
+        readings[key] = rel_err(got.reshape(ref.shape), ref)[1]
+        check(got.dtype == bf and readings[key] <= BN_TOL["bfloat16"],
+              f"autograd through fused_batch_norm_train: {key} {got.dtype} "
+              f"relative {readings[key]} > {BN_TOL['bfloat16']}")
+    del x, xx, res, g, w, b, prim, y, mean, var, auto, x3, r3, g3, y_op
+    del mean_op, var_op, ops, ry, rdx, rgate, rdw, rdb
+    torch.cuda.empty_cache()
+    return dict(shape=[BN_N, 256, 56, 56], relative_to_max=readings,
+                bitwise_equal_to_ops=True)
+
+
+def bn_check_rejects(torch, nf):
+    """The checks must reject a forward that leaves out the residual, a
+    forward that leaves out its first reduction part (the images of the
+    first block of the reduction grid) and a backward that leaves out its
+    first reduction part: the kernels on inputs that do just that, held
+    against the plain versions of the whole, at layer 1's bn3 in bf16.
+    Returns the readings."""
+    c, hw = 256, 3136
+    x = bn_inputs(torch, BN_N, c, hw, torch.bfloat16, 37, True)
+    xx, res, w, b, g = (x[k] for k in ("x", "res", "w", "b", "g"))
+    ry, rmean, rvar = nf.fused_bn_fwd_ref(xx, res, w, b, BN_EPS, True)
+    _, _, rdw, rdb = nf.fused_bn_bwd_ref(xx, res, w, b, rmean, rvar, g, None,
+                                         None, BN_EPS, True)
+    no_res, _, _ = nf.fused_bn_fwd(xx, None, w, b, BN_EPS, True)
+    parts = nf._bn_parts(BN_N, hw)
+    k = -(-BN_N // parts)               # the images one reduction part sums
+    _, cut_mean, cut_var = nf.fused_bn_fwd(xx[k:], res[k:], w, b, BN_EPS,
+                                           True)
+    _, _, cut_dw, cut_db = nf.fused_bn_bwd(xx[k:], res[k:], w, b, rmean, rvar,
+                                           g[k:], None, None, BN_EPS, True)
+    readings = {"forward_without_residual": (rel_err(no_res, ry)[1],
+                                             BN_TOL["bfloat16"]),
+                "mean_one_part_dropped": (rel_err(cut_mean, rmean)[1],
+                                          BN_STAT_TOL),
+                "var_one_part_dropped": (rel_err(cut_var, rvar)[1],
+                                         BN_STAT_TOL),
+                "dw_one_part_dropped": (rel_err(cut_dw, rdw)[1], BN_STAT_TOL),
+                "db_one_part_dropped": (rel_err(cut_db, rdb)[1], BN_STAT_TOL)}
+    for key, (reading, tol) in readings.items():
+        check(reading > tol, f"the bf16 BN check passes a wrong kernel "
+              f"({key}): {reading} <= {tol}")
+    del x, xx, res, w, b, g, ry, rmean, rvar, rdw, rdb, no_res, cut_mean
+    del cut_var, cut_dw, cut_db
+    torch.cuda.empty_cache()
+    return {k: dict(reading=r, tolerance=t) for k, (r, t) in readings.items()}
+
+
+def bn_times(torch, nf, c, hw, res):
+    """Device times at [256, C, HW] bf16 with ReLU (and the residual): each
+    op in turns with its plain version; the library yardstick (never
+    called by the port) is F.batch_norm(x, None, None, w, b,
+    training=True) → + res → relu with f32 w and b, and its autograd
+    backward."""
+    x = bn_inputs(torch, BN_N, c, hw, torch.bfloat16, 41, res)
+    xx, r, w, b, g = (x[k] for k in ("x", "res", "w", "b", "g"))
+    y, mean, var = nf.fused_bn_fwd(xx, r, w, b, BN_EPS, True)
+    runs = {
+        "fused_bn_fwd": (
+            lambda _: nf.fused_bn_fwd(xx, r, w, b, BN_EPS, True),
+            lambda _: nf.fused_bn_fwd_ref(xx, r, w, b, BN_EPS, True)),
+        "fused_bn_bwd": (
+            lambda _: nf.fused_bn_bwd(xx, r, w, b, mean, var, g, None, None,
+                                      BN_EPS, True),
+            lambda _: nf.fused_bn_bwd_ref(xx, r, w, b, mean, var, g, None,
+                                          None, BN_EPS, True)),
+    }
+    bounds = bn_bounds(BN_N, c, hw, 2, res)
+    out = {}
+    for name, (kern, plain) in runs.items():
+        plain_ms, ms, t = in_turns(plain, kern)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, all_ms=t,
+                         bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    batch_norm = torch.nn.functional.batch_norm
+
+    def library(xx, rr, ww, bb):
+        yy = batch_norm(xx, None, None, ww, bb, training=True, eps=BN_EPS)
+        return torch.relu(yy if rr is None else yy + rr)
+
+    out["fused_bn_fwd"]["library_ms"], _, _ = in_turns(
+        lambda _: library(xx, r, w, b), runs["fused_bn_fwd"][0])
+    prim = [t.detach().requires_grad_(True) for t in (xx, w, b)]
+    rg = None if r is None else r.detach().requires_grad_(True)
+    yl = library(prim[0], rg, prim[1], prim[2])
+    leaves = prim + ([] if rg is None else [rg])
+    out["fused_bn_bwd"]["library_ms"], _, _ = in_turns(
+        lambda _: torch.autograd.grad(yl, leaves, g, retain_graph=True),
+        runs["fused_bn_bwd"][0])
+    out["timed_at"] = dict(shape=[BN_N, c, hw], dtype="bfloat16",
+                           residual=res, relu=True)
+    del x, xx, r, w, b, g, y, mean, var, prim, rg, yl, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+RESNET_B, RESNET_HW, RESNET_CLASSES = 256, 224, 1000
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+# 53 BatchNorms a step: the stem, 16 blocks x 3, 4 downsample BNs; each op
+# call counts once, its four launches inside it
+RESNET_BNS = 53
+RESNET_LEAVES = 161      # parameters: 53 BN weights and biases, 53 convs, fc
+
+
+def resnet_batch(torch, b, hw, dtype, seed):
+    """One fixed batch from the seed: images N(0, 1) and labels [B, 1] in
+    [0, 1000)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, 3, hw, hw, generator=g, device="cuda").to(dtype)
+    y = torch.randint(0, RESNET_CLASSES, (b, 1), generator=g, device="cuda")
+    return x, y
+
+
+def resnet_trainer(torch, dtype, b, hw, seed=0):
+    """The user's loop (tests/test_vision_hapi.py:32-42, bench.py:552-566):
+    resnet50 on the card in ``dtype``, Momentum(0.1, momentum=0.9) over its
+    parameters, F.cross_entropy(net(x).float(), y) → backward → step →
+    clear_grad on one fixed batch. Returns (net, step, batch); step() →
+    (loss, the CUDA events around the Momentum update)."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    net = resnet50(num_classes=RESNET_CLASSES, dtype=dtype, seed=seed)
+    opt = Momentum(RESNET_LR, parameters=net.parameters(),
+                   momentum=RESNET_MOMENTUM)
+    x, y = resnet_batch(torch, b, hw, dtype, seed)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def step():
+        loss = F.cross_entropy(net(x).float(), y)
+        loss.backward()
+        ev[0].record()
+        with torch.profiler.record_function("momentum_step"):
+            opt.step()
+        ev[1].record()
+        opt.clear_grad()
+        return loss.detach(), ev
+
+    return net, step, (x, y)
+
+
+def resnet_flops_per_image(torch, net, hw):
+    """2 flops per multiply-add of every convolution and of the fc layer,
+    from the shapes of one image's forward (hooks on Conv2D and Linear)."""
+    from paddle_tpu_torch.nn import Conv2D, Linear
+    total = [0]
+
+    def conv_hook(mod, inp, out):
+        kh, kw = mod._kernel_size
+        total[0] += (2 * out.shape[1] * (inp[0].shape[1] // mod._groups)
+                     * kh * kw * out.shape[2] * out.shape[3])
+
+    def fc_hook(mod, inp, out):
+        total[0] += 2 * mod.weight.shape[0] * mod.weight.shape[1]
+
+    hooks = [m.register_forward_hook(conv_hook if isinstance(m, Conv2D)
+                                     else fc_hook)
+             for m in net.modules() if isinstance(m, (Conv2D, Linear))]
+    was = net.training
+    net.eval()
+    with torch.no_grad():
+        net(torch.zeros(1, 3, hw, hw, device="cuda",
+                        dtype=next(net.parameters()).dtype))
+    net.train(was)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+class BnRecorder:
+    """While the ``with`` block runs, records each train-mode BatchNorm of
+    the model: its running buffers (the layer's ``_mean``, ``_variance``)
+    and values before the call, the batch statistics the fused route
+    returns, and the shape and epilogue of the call (for the bound)."""
+
+    def __init__(self):
+        from paddle_tpu_torch.nn.functional import norm as fnorm
+        from paddle_tpu_torch.nn.layer import norm as lnorm
+        self.fnorm, self.lnorm = fnorm, lnorm
+        self.calls, self.stats = [], []
+
+    def __enter__(self):
+        self._saved = (self.lnorm.batch_norm_act, self.lnorm.batch_norm,
+                       self.fnorm.fused_batch_norm_train)
+        fbn = self._saved[2]
+
+        def recorder(fn):
+            # the layers' forward_act and forward (the downsample BNs)
+            def rec(x, rm, rv, *args, **kw):
+                self.calls.append(dict(rm=rm, rv=rv, rm0=rm.clone(),
+                                       rv0=rv.clone(), shape=tuple(x.shape),
+                                       res=kw.get("residual") is not None))
+                return fn(x, rm, rv, *args, **kw)
+            return rec
+
+        def fbn_rec(*args, **kw):
+            out = fbn(*args, **kw)
+            self.stats.append((out[1].detach().clone(),
+                               out[2].detach().clone()))
+            return out
+
+        self.lnorm.batch_norm_act = recorder(self._saved[0])
+        self.lnorm.batch_norm = recorder(self._saved[1])
+        self.fnorm.fused_batch_norm_train = fbn_rec
+        return self
+
+    def __exit__(self, *exc):
+        (self.lnorm.batch_norm_act, self.lnorm.batch_norm,
+         self.fnorm.fused_batch_norm_train) = self._saved
+
+    def running_stats_reading(self, torch):
+        """Each BN's running stats after the step against Paddle's rule
+        m·before + (1 − m)·batch, m = 0.9, the biased batch variance:
+        the largest relative difference (rtol 1e-6)."""
+        check(len(self.calls) == len(self.stats) == RESNET_BNS,
+              f"{len(self.calls)} BN calls, {len(self.stats)} fused, want "
+              f"{RESNET_BNS}")
+        worst = 0.0
+        for call, (mean, var) in zip(self.calls, self.stats):
+            for now, before, batch in ((call["rm"], call["rm0"], mean),
+                                       (call["rv"], call["rv0"], var)):
+                want = before * RESNET_MOMENTUM + batch * (1 - RESNET_MOMENTUM)
+                moved = float((now - before).abs().max())
+                diff = float((now - want).abs().max()) / max(
+                    float(want.abs().max()), 1e-30)
+                check(moved > 0, "a running statistic did not move")
+                worst = max(worst, diff)
+        check(worst <= 1e-6, f"running statistics off Paddle's rule: {worst}")
+        return worst
+
+    def bound_ms(self, esize):
+        """The fused BN kernels' bytes-once bound summed over the step's
+        calls (forward and backward)."""
+        fwd = bwd = 0.0
+        for call in self.calls:
+            n, c = call["shape"][:2]
+            hw = int(np.prod(call["shape"][2:]))
+            b = bn_bounds(n, c, hw, esize, call["res"])
+            fwd += b["fused_bn_fwd"][0]
+            bwd += b["fused_bn_bwd"][0]
+        return dict(forward=fwd, backward=bwd)
+
+
+def phase_train_resnet(torch, fused, steps=TRAIN_STEPS):
+    """Train resnet50 bf16 at B=256, 224^2 on one fixed batch: one warm-up
+    step (its running statistics held to Paddle's rule, on the fused route
+    its batch statistics recorded), then `steps` steps, with
+    FLAGS_fused_norm as `fused` says. Fused: exactly 53 fused_bn_fwd and
+    53 fused_bn_bwd a step; dense: none."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.nn.functional import last_norm_path
+    set_flags({"FLAGS_fused_norm": fused})
+    net, step, _ = resnet_trainer(torch, torch.bfloat16, RESNET_B, RESNET_HW)
+    flops = resnet_flops_per_image(torch, net, RESNET_HW) * RESNET_B * 3
+    if fused:
+        with BnRecorder() as rec:
+            loss0, _ = step()
+        stats_reading = rec.running_stats_reading(torch)
+        bn_bound = rec.bound_ms(2)
+        del rec
+    else:
+        loss0, _ = step()
+        stats_reading = bn_bound = "fused route only"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, momentum_ms = [], []
+    with ClockSampler() as clocks:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss, ev = step()
+            losses.append(loss)
+            ev[1].synchronize()
+            momentum_ms.append(ev[0].elapsed_time(ev[1]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_launches()
+    path = last_norm_path()
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)) and np.isfinite(float(loss0)),
+          f"resnet50 loss not finite: {float(loss0)}, {losses}")
+    check(path == ("fused_bn/cuda" if fused else "dense"),
+          f"resnet50 took the norm path {path} with FLAGS_fused_norm={fused}")
+    for key, n in counts.items():
+        want = (RESNET_BNS * steps if fused and key.startswith("fused_bn")
+                else 0)
+        check(n == want, f"{key} launched {n} times in {steps} resnet50 "
+              f"steps (want {want}; FLAGS_fused_norm={fused})")
+    ms = wall / steps * 1e3
+    out = dict(config="resnet50", b=RESNET_B, hw=RESNET_HW, dtype="bfloat16",
+               fused_norm=fused, last_norm_path=path, lr=RESNET_LR,
+               momentum=RESNET_MOMENTUM, warmup_loss=float(loss0),
+               losses=losses, ms_per_step=ms,
+               images_per_s=RESNET_B / (ms / 1e3),
+               model_tflop_per_step=flops / 1e12,
+               model_tflops=flops / (ms / 1e3) / 1e12,
+               model_flops_share_of_989=flops / (ms / 1e3) / 989e12,
+               momentum_ms_per_step=sum(momentum_ms) / steps,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               parameters=sum(p.numel() for p in net.parameters()),
+               running_stats_vs_paddle_rule=stats_reading,
+               bn_kernels_bound_ms_per_step=bn_bound,
+               card_during_steps=clocks.summary(), launches=counts,
+               launches_per_step={k: n / steps for k, n in counts.items()})
+    return out, net, step
+
+
+def phase_profile_resnet(torch, step, steps=2):
+    """torch.profiler over `steps` resnet50 steps: device busy time per
+    step against the profiled wall time, the BN kernels' share, the
+    convolutions' (every other kernel whose name says conv, gemm or a
+    cuDNN/CUTLASS tile), the Momentum span and the kernels that take the
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, dev = {}, []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.key == "momentum_step":
+                spans[e.key] = e.self_device_time_total / 1e3 / steps
+            else:
+                dev.append(e)
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    if busy_ms == 0.0:
+        return dict(steps=steps, device_time="not measured (no CUDA events)")
+    bn_keys = ("bn_reduce", "bn_fold", "bn_apply", "sum_parts_kernel")
+    conv_keys = ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90_",
+                 "implicit", "wgrad", "dgrad", "fprop", "nchw", "nhwc")
+    groups = {"fused_bn (bn_reduce, sum_parts, bn_fold, bn_apply)":
+              lambda k: any(s in k for s in bn_keys),
+              "convolutions and fc (cuDNN, cuBLAS)":
+              lambda k: not any(s in k for s in bn_keys)
+              and any(s in k.lower() for s in conv_keys)}
+    by_group = {g: sum(e.self_device_time_total for e in dev if f(e.key))
+                / 1e3 / steps for g, f in groups.items()}
+    by_group["the rest (pooling, copies, casts, the loss, Momentum's ops)"] = (
+        busy_ms / steps - sum(by_group.values()))
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
+    return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
+                device_busy_ms_per_step=busy_ms / steps,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                kernels_ms_per_step=by_group,
+                kernels_share_of_busy={g: t * steps / busy_ms
+                                       for g, t in by_group.items()},
+                momentum_span_ms_per_step=spans.get(
+                    "momentum_step", "not measured (no momentum_step range)"),
+                top_device_ms_per_step=[
+                    (e.key[:70], e.self_device_time_total / 1e3 / steps,
+                     e.count // steps) for e in top[:16]])
+
+
+def phase_resnet_parity_fp32(torch):
+    """fp32 at full width, B=8, 64^2 (the input cut from 224^2): the loss,
+    the gradients and the running statistics after one train-mode forward
+    and backward with FLAGS_fused_norm on (the BN kernels) and off (the
+    dense BatchNorm), from the same weights and buffers, each against the
+    dense route in f64. The limit: at this batch and depth the model
+    amplifies rounding many times over (BatchNorm at initialisation; on
+    the CPU the two packages' dense routes drift from 3.5e-7 after the
+    stem to 1.8e-4 after layer 4), so no f32 route is within 1e-4 of
+    another leaf by leaf; the kernels' route must lie at most 3x as far
+    from the f64 answer as the dense f32 route does: the gradients of all
+    leaves as one vector (relative L2), the running statistics (largest
+    relative difference) and the loss."""
+    import copy
+
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.vision.models import resnet50
+    net = resnet50(num_classes=RESNET_CLASSES, dtype=torch.float32, seed=1)
+    net64 = copy.deepcopy(net).double()
+    x, y = resnet_batch(torch, 8, 64, torch.float32, 1)
+
+    def run(model, fused):
+        set_flags({"FLAGS_fused_norm": fused})
+        reset_launches()
+        loss = F.cross_entropy(model(x.to(next(model.parameters()).dtype)),
+                               y)
+        g = torch.autograd.grad(loss, list(model.parameters()))
+        flat = torch.cat([t.double().reshape(-1) for t in g])
+        stats = [b.double().clone() for b in model.buffers()]
+        return loss.item(), flat, stats, read_launches()
+
+    start = [b.clone() for b in net.buffers()]
+    try:
+        l64, g64, s64, _ = run(net64, False)
+        ld, gd, sd, counts_d = run(net, False)
+        with torch.no_grad():
+            for b, s in zip(net.buffers(), start):
+                b.copy_(s)
+        lf, gf, sf, counts = run(net, True)
+    finally:
+        set_flags({"FLAGS_fused_norm": True})
+    check(counts["fused_bn_fwd"] == counts["fused_bn_bwd"] == RESNET_BNS,
+          f"resnet50 fp32 parity with the flag on launched {counts}")
+    check(counts_d["fused_bn_fwd"] == counts_d["fused_bn_bwd"] == 0,
+          f"resnet50 fp32 parity with the flag off launched {counts_d}")
+    check(bool(torch.isfinite(gf).all()), "parity gradient not finite")
+
+    def stat_err(s):
+        return max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(s, s64))
+
+    factor = 3.0
+    readings = dict(
+        grads_rel_l2=(float((gf - g64).norm() / g64.norm()),
+                      float((gd - g64).norm() / g64.norm())),
+        running_stats_rel=(stat_err(sf), stat_err(sd)),
+        loss_abs=(abs(lf - l64), abs(ld - l64)))
+    for key, (kern, dense) in readings.items():
+        check(kern <= factor * dense + 1e-6 * (abs(l64) if key == "loss_abs"
+                                               else 1.0),
+              f"resnet50 fp32 {key}: the kernels' route {kern} from f64, the "
+              f"dense f32 route {dense}: more than {factor}x")
+    del net, net64, gf, gd, g64, sf, sd, s64, start
+    return dict(b=8, hw=64, loss_fused=lf, loss_dense=ld, loss_f64=l64,
+                from_f64={k: dict(kernels=v[0], dense_f32=v[1])
+                          for k, v in readings.items()},
+                limit=f"the kernels' route within {factor}x the dense f32 "
+                      "route's distance from f64",
+                leaves=RESNET_LEAVES)
+
+
 def free_card(torch):
     """Drop what the phases before left for the collector, return the
     cached blocks and restart the peak count."""
@@ -2648,6 +3362,26 @@ def main():
     phase(26, "bert training parity fp32 fused vs dense",
           **phase_bert_parity_fp32(torch))
 
+    free_card(torch)
+    bn = phase_bn_vs_plain(torch)
+    phase(27, "fused BatchNorm kernels vs plain", **bn)
+    free_card(torch)
+    rtrain, rnet, rstep = phase_train_resnet(torch, fused=True)
+    phase(28, "train resnet50 bf16 B=256 224x224 fused BatchNorm, Layer "
+          "model + Momentum", **rtrain)
+    phase(29, "profile of the resnet50 training step",
+          **phase_profile_resnet(torch, rstep))
+    del rnet, rstep
+    free_card(torch)
+    rdense, rnet, rstep = phase_train_resnet(torch, fused=False, steps=2)
+    del rnet, rstep
+    free_card(torch)
+    set_flags({"FLAGS_fused_norm": True})
+    phase(30, "train resnet50 bf16 B=256 224x224 dense BatchNorm",
+          fused_ms_per_step=rtrain["ms_per_step"], **rdense)
+    phase(31, "resnet50 parity fp32 fused vs dense BatchNorm",
+          **phase_resnet_parity_fp32(torch))
+
     kernels = [{
         "name": "decode_attn_proj", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": serve1["kernel_launches"],
@@ -2720,6 +3454,19 @@ def main():
             "name": f"{name}_kv_bias", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[name],
             "launches": btrain["launches"][name], "max_abs_err": err,
+            "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    # the BatchNorm kernels' launches are resnet50 training's (phase 28);
+    # each op's four launches (reduction, sum_parts, fold, apply) count once
+    for name in ("fused_bn_fwd", "fused_bn_bwd"):
+        t = bn["times"]["layer1.bn3"][name]
+        err = bn["worst"]["bfloat16"][name]["max_abs_err"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": LN_SOURCE,
+            "replaces": BN_REPLACES[name][0],
+            "also_replaces": BN_REPLACES[name][1],
+            "launches": rtrain["launches"][name], "max_abs_err": err,
             "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

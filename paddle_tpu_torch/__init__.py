@@ -11,9 +11,10 @@ only for tensors on the CPU.
 Ported so far: GPT serving through the paged-KV engine, the GPT
 training step on one device with flash attention and the fused GeLU
 MLP, LLaMA training through the Layer model and AdamW with the fused
-SwiGLU MLP, and BERT pretraining through the Layer model and AdamW with
-the fused LayerNorm, projection-LayerNorm and key-padding flash kernels
-(see ROADMAP.md for what is still to come).
+SwiGLU MLP, BERT pretraining through the Layer model and AdamW with
+the fused LayerNorm, projection-LayerNorm and key-padding flash kernels,
+and ResNet training through ``vision.models`` and Momentum with the fused
+BatchNorm kernels (see ROADMAP.md for what is still to come).
 """
 from ._device import resolve_device
 from .core.flags import get_flag, set_flags

@@ -82,14 +82,16 @@ define_flag("serving_device_loop", True,
             "token_count)), bitwise the reference's streams. Off: host "
             "numpy sampling, one step per dispatch")
 define_flag("fused_norm", True,
-            "route LayerNorm (nn.functional.layer_norm, nn.LayerNorm) and "
+            "route LayerNorm (nn.functional.layer_norm, nn.LayerNorm), "
             "the bias→residual-add→LN sublayer close "
-            "(fused_bias_dropout_residual_layer_norm) through the one-pass "
-            "fused kernels (kernels/norm_fusion.py, TPU kernels 13-14): the "
-            "hand-written CUDA kernels on a card, their plain PyTorch "
-            "versions for CPU tensors. Off: the dense layer_norm. Shapes "
-            "the fused kernels do not take go dense with a once-per-process "
-            "warning")
+            "(fused_bias_dropout_residual_layer_norm) and train-mode "
+            "BatchNorm with its residual-add→ReLU epilogue "
+            "(nn.functional.batch_norm / batch_norm_act, the BatchNorm "
+            "layers) through the fused kernels (kernels/norm_fusion.py, "
+            "TPU kernels 13-18): the hand-written CUDA kernels on a card, "
+            "their plain PyTorch versions for CPU tensors. Off: the dense "
+            "norms. Shapes and dtypes the fused kernels do not take go "
+            "dense with a once-per-process warning")
 define_flag("fused_mlp", True,
             "route the transformer MLP sublayer (matmul→GeLU→matmul) of the "
             "GPT training step and of nn.functional.fused_mlp, the SwiGLU "

@@ -15,10 +15,15 @@ from .mlp_fusion import (decode_attn_proj, decode_attn_proj_ref,
                          fused_proj_ln_fwd_ref, fused_swiglu_2d,
                          fused_swiglu_bwd, fused_swiglu_fwd,
                          fused_swiglu_fwd_ref, mlp_eligible)
-from .norm_fusion import (fused_layer_norm_2d, fused_ln_bwd, fused_ln_fwd,
+from .norm_fusion import (bn_eligible, fused_batch_norm_train, fused_bn_bwd,
+                          fused_bn_bwd_ref, fused_bn_fwd, fused_bn_fwd_ref,
+                          fused_layer_norm_2d, fused_ln_bwd, fused_ln_fwd,
                           fused_ln_fwd_ref)
 
-__all__ = ["chunked_softmax_xent", "chunked_softmax_xent_per_token",
+__all__ = ["bn_eligible", "chunked_softmax_xent",
+           "chunked_softmax_xent_per_token", "fused_batch_norm_train",
+           "fused_bn_bwd", "fused_bn_bwd_ref", "fused_bn_fwd",
+           "fused_bn_fwd_ref",
            "decode_attn_proj", "decode_attn_proj_ref",
            "flash_attention_bshd", "flash_bwd", "flash_bwd_ref", "flash_fwd",
            "flash_fwd_ref", "fused_layer_norm_2d", "fused_ln_bwd",

@@ -8,7 +8,10 @@ XLA). Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 carries a digest of the source, the shared headers (``csrc/*.cuh``) and
 the flags, so an edited source or header is rebuilt. A missing ``nvcc``
 or a failed build raises; nothing falls back. ``library`` and ``call``
-are the one ctypes path every kernel module launches through.
+are the one ctypes path every kernel module launches through; ``call``
+raises TypeError for a dtype the kernels do not take (float32 and
+bfloat16), and ``kernel_dtypes`` is the functionals' routing rule for
+it.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -117,10 +122,20 @@ def library(name: str, argtypes: Dict[str, Sequence], ints: Iterable[str] = ()
     return lib
 
 
+def kernel_dtypes(*tensors) -> bool:
+    """The routing rule of the functionals: every tensor in one dtype the
+    kernels take (float32 or bfloat16)."""
+    return (tensors[0].dtype in KERNEL_DTYPES
+            and all(t.dtype == tensors[0].dtype for t in tensors))
+
+
 def call(lib: ctypes.CDLL, name: str, dtype, device, *args) -> None:
     """Launch ``name``'s bf16 or f32 entry point (by ``dtype``) on the
-    current stream of ``device``; a non-zero status raises RuntimeError
-    with CUDA's error string."""
+    current stream of ``device``; any other dtype raises TypeError, a
+    non-zero status RuntimeError with CUDA's error string."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: the kernels take float32 or bfloat16, "
+                        f"got {dtype}")
     fn = getattr(lib, f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}")
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)

@@ -46,8 +46,13 @@
 //     sum_parts then sums the partial rows in a fixed order. No
 //     atomics: every call gives the same bits.
 // CUDA launches per call: forward 1, backward 2.
+//
+// The second half of this file holds the fused BatchNorm-train kernels (TPU
+// kernels 15-18), with their own note above their code.
 
 #include "common.cuh"
+
+#include <initializer_list>
 
 namespace {
 
@@ -421,6 +426,329 @@ int launch_bwd(const Bwd& p, float* sums, void* stream) {
   return sum_parts(p.part, nparts, cols, sums, cols, nullptr, 8, s);
 }
 
+// ==========================================================================
+// Fused BatchNorm-train with the residual + ReLU epilogue (TPU kernels
+// 15-18)
+// ==========================================================================
+//
+// Replaces the TPU kernels of paddle_tpu/kernels/norm_fusion.py:
+//   _bn_stats_kernel :403      (launched by _bn_fwd :521)  -> bn_reduce<FWD>
+//                                                             + sum_parts + bn_fold_fwd
+//   _bn_apply_kernel :428      (_bn_fwd :542)              -> bn_apply<FWD>
+//   _bn_bwd_reduce_kernel :455 (_make_fused_bn :567)       -> bn_reduce<BWD>
+//                                                             + sum_parts + bn_fold_bwd
+//   _bn_bwd_apply_kernel :487  (:594)                      -> bn_apply<BWD>
+// all entered through fused_batch_norm_train :658 (the custom_vjp of :608).
+// x, res, g [N, C, HW] contiguous (NCHW with the spatial dims flattened),
+// float32 or bfloat16 (one dtype), C % 8 == 0 (bn_block_c's eligibility rule,
+// :639-640); w, b [C] come in as f32.
+//
+//   forward:  per channel s1 = sum x, s2 = sum x^2 in f32 over the M = N * HW
+//             elements; mean = s1 * (1/M), the biased one-pass variance
+//             var = max(s2 * (1/M) - mean^2, 0) as the reference computes it
+//             (:419-424, clamped: the cancellation can dip below 0);
+//             rstd = rsqrt(var + eps), a = w * rstd, b' = b - mean * a (:536-537);
+//             y = round(relu?(x * a + b' (+ res))). mean and var [C] f32 are
+//             outputs (the running statistics' update reads them).
+//   backward: the ReLU gate recomputed from the same a, b' and the same f32
+//             expression as the forward (bn_fold_ab, bn_pre: no contraction
+//             into fma, so the gate agrees bit for bit with the forward's
+//             max(pre, 0)); g' = g * [pre > 0]; x^ = (x - mean) * rstd;
+//             per channel sg = sum g', sgx = sum g' x^ (dgamma = sgx,
+//             dbeta = sg); with the cotangents of the mean and var outputs
+//             (zero when absent) folded in as :576-581 does:
+//             k1 = sg / M, k2 = sgx / M, p2 = 2 gvar / M - a k2 rstd,
+//             p3 = gmean / M - a k1 - mean p2;
+//             dx = round(a g' + x p2 + p3), dres = round(g').
+//
+// Bound: bytes. At resnet50's training shapes (B = 256, 224^2, bf16) the 53
+// BatchNorms of a step move 14.2 GB forward (x, res read, y written) and
+// 22.7 GB backward (x, g, res read, dx, dres written): 4.24 ms and 6.78 ms
+// at 3.35 TB/s, against ~10 flops an element on the CUDA cores.
+//
+// Design (no TPU artifacts: no [C, 128] lane-broadcast vectors, no channel
+// block picks against a VMEM target):
+//   - the TPU splits each direction into two kernels because a Pallas output
+//     block cannot be revisited; here each direction is a reduction pass,
+//     common.cuh's fixed-order sum_parts, a one-thread-per-channel fold and
+//     an elementwise apply pass: 4 launches a call;
+//   - the reduction runs on a grid (parts, C): block (q, c) sums the planes
+//     n in [q * P, (q + 1) * P) of channel c, P = ceil(16384 / HW) planes
+//     (at least one), so the stem's BN (C = 64, HW = 12544) has 8192 blocks
+//     and layer 4's (C = 2048, HW = 49) 2048. The block writes one f32
+//     partial per channel and statistic; sum_parts adds the parts in a fixed
+//     order. The split depends on the shape alone and nothing uses atomics:
+//     every call gives the same bits;
+//   - every byte is read as part of a 16-byte vector. When HW is a whole
+//     number of vectors (HW % 8 == 0 in bf16, % 4 in f32: 12544, 3136, 784)
+//     a vector lies in one plane. Otherwise (HW = 196 and 49 in bf16, 49 in
+//     f32: 28 of resnet50's 53 BNs) a plane starts and ends inside vectors:
+//     the reduction reads the aligned vectors that cover the plane and masks
+//     the neighbouring planes' elements; the apply pass, which needs no
+//     grouping by channel, walks the whole tensor as vectors and steps the
+//     channel index where a vector crosses a plane boundary (C % 8 == 0
+//     makes N * C * HW a whole number of vectors, so no vector runs past the
+//     end of the tensor);
+//   - the per-channel fold is a tiny kernel (a, b' forward; a, b', p2, p3
+//     backward); the backward's reduction recomputes a and b' for its own
+//     channel with the same bn_fold_ab, from the saved mean and var.
+
+namespace bn {
+
+constexpr int kThreads = 256;
+constexpr int kTarget = 16384;   // elements a reduction block sums, at least one plane
+enum { FWD = 0, BWD = 1 };
+
+struct Args {
+  const void* x;
+  const void* res;     // null: no residual
+  const void* g;       // backward
+  const float* w;
+  const float* b;
+  float* mean;         // forward: sum_parts writes s1 here, the fold the mean
+  float* var;          // forward: s2, then the variance; backward: read
+  const float* gmean;  // backward, null: zero cotangent
+  const float* gvar;
+  float* s1;           // the statistics' sums: forward mean/var, backward db (sum g'),
+  float* s2;           //   dw (sum g' x^)
+  void* y;             // forward
+  void* dx;            // backward
+  void* dres;          // backward, null without a residual
+  float* part;         // [nparts, 2, C]
+  float* coef;         // forward [2, C]: a, b'; backward [4, C]: a, b', p2, p3
+  long long m;         // N * HW
+  int n, c, hw, ppp;   // ppp: planes of one channel per reduction block
+  int relu;
+  float eps;
+};
+
+// rstd, a = w rstd and b' = b - mean a: the forward's fold, recomputed bit
+// for bit by the backward (the ReLU gate depends on it)
+__device__ __forceinline__ void fold_ab(float w, float b, float mean, float var, float eps,
+                                        float& rstd, float& a, float& bb) {
+  rstd = rsqrtf(__fadd_rn(var, eps));
+  a = __fmul_rn(w, rstd);
+  bb = __fsub_rn(b, __fmul_rn(mean, a));
+}
+
+// the pre-activation x a + b' (+ res), one expression for both directions
+__device__ __forceinline__ float pre_act(float x, float a, float bb, bool has_res, float r) {
+  const float p = __fadd_rn(__fmul_rn(x, a), bb);
+  return has_res ? __fadd_rn(p, r) : p;
+}
+
+// a vector of the residual, or zeros without one (then unused)
+template <typename T>
+__device__ __forceinline__ void load_res(float* dst, const T* res, long long e0) {
+  if (res) {
+    load_vec<T>(dst, res + e0);
+  } else {
+#pragma unroll
+    for (int k = 0; k < Vec<T>::n; ++k) dst[k] = 0.f;
+  }
+}
+
+// grid (nparts, C); see the design note. ALIGNED: HW % V == 0.
+template <typename T, bool ALIGNED, int MODE>
+__global__ void __launch_bounds__(kThreads) bn_reduce(Args p) {
+  constexpr int V = Vec<T>::n;
+  const int c = blockIdx.y, q = blockIdx.x;
+  const int n0 = q * p.ppp, n1 = min(p.n, n0 + p.ppp);
+  const int per_plane = ALIGNED ? p.hw / V : (p.hw + V - 1) / V + 1;  // the widest cover
+  const int count = (n1 - n0) * per_plane;
+  const T* x = static_cast<const T*>(p.x);
+  const T* res = static_cast<const T*>(p.res);
+  const T* g = static_cast<const T*>(p.g);
+  float a = 0.f, bb = 0.f, mean = 0.f, rstd = 0.f;
+  if (MODE == BWD) {
+    mean = p.mean[c];
+    fold_ab(p.w[c], p.b[c], mean, p.var[c], p.eps, rstd, a, bb);
+  }
+  float s1 = 0.f, s2 = 0.f;
+  for (int idx = threadIdx.x; idx < count; idx += kThreads) {
+    const int pl = idx / per_plane, j = idx - pl * per_plane;
+    const long long s = ((long long)(n0 + pl) * p.c + c) * p.hw;  // the plane's first element
+    const long long e0 = (s / V + j) * V;                          // the vector's
+    int lo = 0, hi = V;
+    if (!ALIGNED) {
+      if (e0 >= s + p.hw) continue;
+      lo = (int)max(0LL, s - e0);
+      hi = (int)min((long long)V, s + p.hw - e0);
+    }
+    float xv[V];
+    load_vec<T>(xv, x + e0);
+    if (MODE == FWD) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (ALIGNED || (k >= lo && k < hi)) {
+          s1 += xv[k];
+          s2 += xv[k] * xv[k];
+        }
+      }
+    } else {
+      float gv[V], rv[V];
+      load_vec<T>(gv, g + e0);
+      load_res<T>(rv, res, e0);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (ALIGNED || (k >= lo && k < hi)) {
+          float gk = gv[k];
+          if (p.relu && !(pre_act(xv[k], a, bb, res != nullptr, rv[k]) > 0.f)) gk = 0.f;
+          s1 += gk;
+          s2 += gk * ((xv[k] - mean) * rstd);
+        }
+      }
+    }
+  }
+  __shared__ float red[2][kThreads / 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  if (lane == 0) red[0][warp] = s1, red[1][warp] = s2;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t1 = 0.f, t2 = 0.f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) t1 += red[0][w], t2 += red[1][w];
+    float* out = p.part + (size_t)q * 2 * p.c;
+    out[c] = t1;
+    out[p.c + c] = t2;
+  }
+}
+
+// one thread a channel: mean, var, a, b' from the sums (s1, s2 alias mean, var)
+__global__ void bn_fold_fwd(Args p) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= p.c) return;
+  const float inv_m = (float)(1.0 / (double)p.m);
+  const float mean = __fmul_rn(p.s1[c], inv_m);
+  const float var = fmaxf(__fsub_rn(__fmul_rn(p.s2[c], inv_m), __fmul_rn(mean, mean)), 0.f);
+  p.mean[c] = mean;
+  p.var[c] = var;
+  float rstd, a, bb;
+  fold_ab(p.w[c], p.b[c], mean, var, p.eps, rstd, a, bb);
+  p.coef[c] = a;
+  p.coef[p.c + c] = bb;
+}
+
+// one thread a channel: a, b', p2, p3 from sg (s1), sgx (s2) and the
+// cotangents of the mean and var outputs
+__global__ void bn_fold_bwd(Args p) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= p.c) return;
+  const float mf = (float)p.m, mean = p.mean[c];
+  float rstd, a, bb;
+  fold_ab(p.w[c], p.b[c], mean, p.var[c], p.eps, rstd, a, bb);
+  const float k1 = __fdiv_rn(p.s1[c], mf), k2 = __fdiv_rn(p.s2[c], mf);
+  const float gm = p.gmean ? p.gmean[c] : 0.f, gv = p.gvar ? p.gvar[c] : 0.f;
+  const float p2 = __fsub_rn(__fdiv_rn(__fmul_rn(2.f, gv), mf), __fmul_rn(__fmul_rn(a, k2), rstd));
+  const float p3 = __fsub_rn(__fsub_rn(__fdiv_rn(gm, mf), __fmul_rn(a, k1)), __fmul_rn(mean, p2));
+  p.coef[c] = a;
+  p.coef[p.c + c] = bb;
+  p.coef[2 * p.c + c] = p2;
+  p.coef[3 * p.c + c] = p3;
+}
+
+// the whole tensor as 16-byte vectors, grid-stride; the channel of each
+// element from the flat index (stepped inside a vector when !ALIGNED)
+template <typename T, bool ALIGNED, int MODE>
+__global__ void __launch_bounds__(kThreads) bn_apply(Args p, long long nvec) {
+  constexpr int V = Vec<T>::n;
+  const T* x = static_cast<const T*>(p.x);
+  const T* res = static_cast<const T*>(p.res);
+  const T* g = static_cast<const T*>(p.g);
+  const float* coef = p.coef;
+  for (long long v = (long long)blockIdx.x * kThreads + threadIdx.x; v < nvec;
+       v += (long long)gridDim.x * kThreads) {
+    const long long i0 = v * V;
+    const long long plane = i0 / p.hw;
+    int e = (int)(i0 - plane * p.hw);
+    int c = (int)(plane % p.c);
+    float xv[V], rv[V], gv[V], o[V], o2[V];
+    load_vec<T>(xv, x + i0);
+    load_res<T>(rv, res, i0);
+    if (MODE == BWD) load_vec<T>(gv, g + i0);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if (!ALIGNED && k > 0 && ++e == p.hw) {
+        e = 0;
+        if (++c == p.c) c = 0;
+      }
+      const float a = __ldg(coef + c), bb = __ldg(coef + p.c + c);
+      const float pre = pre_act(xv[k], a, bb, res != nullptr, rv[k]);
+      if (MODE == FWD) {
+        o[k] = p.relu ? fmaxf(pre, 0.f) : pre;
+      } else {
+        const float gk = (p.relu && !(pre > 0.f)) ? 0.f : gv[k];
+        const float p2 = __ldg(coef + 2 * p.c + c), p3 = __ldg(coef + 3 * p.c + c);
+        o[k] = __fadd_rn(__fadd_rn(__fmul_rn(a, gk), __fmul_rn(xv[k], p2)), p3);
+        o2[k] = gk;
+      }
+    }
+    if (MODE == FWD) {
+      store_vec<T>(static_cast<T*>(p.y) + i0, o);
+    } else {
+      store_vec<T>(static_cast<T*>(p.dx) + i0, o);
+      if (p.dres) store_vec<T>(static_cast<T*>(p.dres) + i0, o2);
+    }
+  }
+}
+
+inline int planes_per_part(int n, int hw) {
+  const long long pp = (kTarget + (long long)hw - 1) / hw;
+  return (int)(pp < n ? pp : n);
+}
+
+inline int nparts(int n, int hw) {
+  const int pp = planes_per_part(n, hw);
+  return (n + pp - 1) / pp;
+}
+
+inline int check(const Args& p, std::initializer_list<const void*> rows) {
+  if (p.n < 1 || p.c < 8 || p.c % 8 || p.hw < 1 || p.c > 65535) return (int)cudaErrorInvalidValue;
+  for (const void* r : rows)
+    if (r && !aligned16(r)) return (int)cudaErrorMisalignedAddress;
+  return 0;
+}
+
+template <typename T, int MODE>
+int run(Args p, cudaStream_t s) {
+  constexpr int V = Vec<T>::n;
+  p.ppp = planes_per_part(p.n, p.hw);
+  p.m = (long long)p.n * p.hw;
+  const int parts = nparts(p.n, p.hw);
+  const bool aligned = p.hw % V == 0;
+  const dim3 rgrid(parts, p.c);
+  if (aligned) {
+    bn_reduce<T, true, MODE><<<rgrid, kThreads, 0, s>>>(p);
+  } else {
+    bn_reduce<T, false, MODE><<<rgrid, kThreads, 0, s>>>(p);
+  }
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  rc = sum_parts(p.part, parts, 2 * p.c, p.s1, p.c, p.s2, 8, s);
+  if (rc) return rc;
+  const int fblocks = (p.c + kThreads - 1) / kThreads;
+  if (MODE == FWD) {
+    bn_fold_fwd<<<fblocks, kThreads, 0, s>>>(p);
+  } else {
+    bn_fold_bwd<<<fblocks, kThreads, 0, s>>>(p);
+  }
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const long long nvec = (long long)p.n * p.c * p.hw / V;
+  const long long want = (nvec + kThreads - 1) / kThreads;
+  const unsigned agrid = (unsigned)(want < 8192 ? want : 8192);
+  if (aligned) {
+    bn_apply<T, true, MODE><<<agrid, kThreads, 0, s>>>(p, nvec);
+  } else {
+    bn_apply<T, false, MODE><<<agrid, kThreads, 0, s>>>(p, nvec);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bn
+
 }  // namespace
 
 extern "C" {
@@ -472,5 +800,52 @@ LN_BWD(f32, float)
 LN_BWD(bf16, __nv_bfloat16)
 
 int ln_rows_per_part() { return kRowsPerPart; }
+
+// x, res, y [N, C, HW]; w, b [C] f32; mean, var [C] f32 (written); part: f32
+// workspace [fused_bn_parts(N, HW), 2, C]; coef: f32 workspace [2, C].
+#define FUSED_BN_FWD(SUFFIX, T)                                                              \
+  int fused_bn_fwd_##SUFFIX(const void* x, const void* res, const void* w, const void* b,    \
+                            void* y, void* mean, void* var, void* part, void* coef, int n,   \
+                            int c, int hw, float eps, int relu, void* stream) {              \
+    bn::Args p{};                                                                            \
+    p.x = x, p.res = res, p.w = static_cast<const float*>(w);                                \
+    p.b = static_cast<const float*>(b), p.y = y;                                             \
+    p.mean = p.s1 = static_cast<float*>(mean), p.var = p.s2 = static_cast<float*>(var);      \
+    p.part = static_cast<float*>(part), p.coef = static_cast<float*>(coef);                  \
+    p.n = n, p.c = c, p.hw = hw, p.eps = eps, p.relu = relu;                                 \
+    if (int rc = bn::check(p, {x, res, y})) return rc;                                    \
+    return bn::run<T, bn::FWD>(p, static_cast<cudaStream_t>(stream));                        \
+  }
+FUSED_BN_FWD(f32, float)
+FUSED_BN_FWD(bf16, __nv_bfloat16)
+
+// g, dx, dres [N, C, HW] (dres null without a residual); mean, var [C] f32
+// (the forward's); gmean, gvar [C] f32 or null (zero cotangents); dw, db [C]
+// f32 (written: sum g' x^, sum g'); part [fused_bn_parts(N, HW), 2, C] and
+// coef [4, C] f32 workspaces.
+#define FUSED_BN_BWD(SUFFIX, T)                                                              \
+  int fused_bn_bwd_##SUFFIX(const void* x, const void* res, const void* w, const void* b,    \
+                            const void* mean, const void* var, const void* g,                \
+                            const void* gmean, const void* gvar, void* dx, void* dres,       \
+                            void* dw, void* db, void* part, void* coef, int n, int c,        \
+                            int hw, float eps, int relu, void* stream) {                     \
+    bn::Args p{};                                                                            \
+    p.x = x, p.res = res, p.g = g, p.w = static_cast<const float*>(w);                       \
+    p.b = static_cast<const float*>(b);                                                      \
+    p.mean = const_cast<float*>(static_cast<const float*>(mean));                            \
+    p.var = const_cast<float*>(static_cast<const float*>(var));                              \
+    p.gmean = static_cast<const float*>(gmean), p.gvar = static_cast<const float*>(gvar);    \
+    p.s1 = static_cast<float*>(db), p.s2 = static_cast<float*>(dw);                          \
+    p.dx = dx, p.dres = dres;                                                                \
+    p.part = static_cast<float*>(part), p.coef = static_cast<float*>(coef);                  \
+    p.n = n, p.c = c, p.hw = hw, p.eps = eps, p.relu = relu;                                 \
+    if (int rc = bn::check(p, {x, res, g, dx, dres})) return rc;                          \
+    return bn::run<T, bn::BWD>(p, static_cast<cudaStream_t>(stream));                        \
+  }
+FUSED_BN_BWD(f32, float)
+FUSED_BN_BWD(bf16, __nv_bfloat16)
+
+// the reduction's parts (row count of the part workspace) for N planes of HW
+int fused_bn_parts(int n, int hw) { return n < 1 || hw < 1 ? 0 : bn::nparts(n, hw); }
 
 }  // extern "C"

@@ -68,7 +68,8 @@ __all__ = ["decode_attn_proj", "decode_attn_proj_ref", "fused_mlp_2d",
            "fused_swiglu_fwd", "fused_swiglu_bwd", "fused_swiglu_fwd_ref",
            "fused_swiglu_dx_ref", "fused_swiglu_dw_ref", "fused_proj_ln_2d",
            "fused_proj_ln_fwd", "fused_proj_ln_bwd", "fused_proj_ln_fwd_ref",
-           "fused_proj_ln_bwd_ref", "mlp_eligible", "launches"]
+           "fused_proj_ln_bwd_ref", "mlp_eligible", "proj_ln_eligible",
+           "proj_ln_max_hout", "launches"]
 
 _NEG_INF = -1e30   # flash_attention.py:61 — the kernel's mask, never -inf
 _MAX_HEAD_DIM = 256
@@ -569,6 +570,24 @@ def _pl_lib():
               "proj_ln_rows_per_block"))
 
 
+def proj_ln_max_hout(dtype) -> int:
+    """The widest Hout the projection-LN kernels take in ``dtype``: the f32
+    [32, Hout + 4] row tile beside the operand ring in 232,448 bytes of
+    shared memory, reckoned as ``proj_ln.cu``'s ``max_hout`` reckons it
+    (its ``Cfg``: BM 32, NC 256, BK 32 / 16 and 3 / 2 stages in bf16 / f32,
+    tile rows padded by 16 bytes): 1356 in bf16, 1512 in f32."""
+    esize, bk, nstage = (2, 32, 3) if dtype == torch.bfloat16 else (4, 16, 2)
+    pad = 16 // esize
+    ring = nstage * (32 * (bk + pad) + bk * (256 + pad)) * esize
+    return (232448 - ring) // (32 * 4) - 4
+
+
+def proj_ln_eligible(hout: int, dtype) -> bool:
+    """The projection-LN kernels take an even Hout up to
+    ``proj_ln_max_hout``."""
+    return hout % 2 == 0 and hout <= proj_ln_max_hout(dtype)
+
+
 def _pl_check(name, x, w, res, more=()):
     """The kernels' contract: x [R, Hin], w [Hin, Hout], res (and g,
     ``more``) [R, Hout], float32 or bfloat16 in one dtype, on one CUDA
@@ -588,10 +607,8 @@ def _pl_check(name, x, w, res, more=()):
             raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
     if not all(t.is_contiguous() for t in (x, w, res, *more)):
         raise ValueError(f"{name} kernel needs contiguous tensors")
-    lib = _pl_lib()
-    limit = (lib.proj_ln_max_hout_bf16() if x.dtype == torch.bfloat16
-             else lib.proj_ln_max_hout_f32())
-    if hout % 2 or hout > limit:
+    if not proj_ln_eligible(hout, x.dtype):
+        limit = proj_ln_max_hout(x.dtype)
         raise ValueError(
             f"{name}: the kernel takes an even Hout of at most {limit} for "
             f"{x.dtype} (its f32 [32, Hout] row tile and operand ring fill "

@@ -1,30 +1,53 @@
-"""Fused LayerNorm with the bias + residual epilogue.
+"""Fused LayerNorm with the bias + residual epilogue, and fused
+BatchNorm-train with the residual + ReLU epilogue.
 
 Counterpart: ``paddle_tpu/kernels/norm_fusion.py``: ``_ln_fwd_kernel``
 (:82), ``_ln_bwd_kernel`` (:120), ``_ln_fwd`` (:239), ``_ln_bwd`` (:274),
-the ``custom_vjp`` assembly (:315) and ``fused_layer_norm_2d`` (:364).
-The BatchNorm kernels of that module (:403-) are ROADMAP A8; the dropout
-epilogue (the seeded keep-mask of :96-100) is A6b and raises here.
+the ``custom_vjp`` assembly (:315) and ``fused_layer_norm_2d`` (:364);
+``_bn_stats_kernel`` (:403), ``_bn_apply_kernel`` (:428),
+``_bn_bwd_reduce_kernel`` (:455), ``_bn_bwd_apply_kernel`` (:487),
+``_bn_fwd`` (:521), ``_make_fused_bn`` (:561), ``bn_block_c``'s
+eligibility rule (:639-640) and ``fused_batch_norm_train`` (:658). The
+LayerNorm's dropout epilogue (the seeded keep-mask of :96-100) is A6b and
+raises here; ``bn_block_c``'s channel-block picks, its autotune lookup and
+``_BN_VMEM_TARGET`` tune the TPU kernels and are not ported.
 
-The forward and backward are ``torch.library`` custom ops,
-``paddle_tpu_torch::fused_ln_fwd`` → ``(y, mean, rstd)`` and
-``paddle_tpu_torch::fused_ln_bwd`` → ``(dh, dres, dbias, dw, db)``,
-joined by ``register_autograd``: the backward saves the primal inputs and
-the f32 row statistics ``(mean, rstd)`` [R], as the reference saves its
-``fused_ln_mean`` / ``fused_ln_rstd`` residuals (:323-327), and recomputes
-the normalised row. For CUDA tensors the ops launch the hand-written
-Hopper kernels of ``csrc/norm_fusion.cu`` (its header names the TPU
-kernels replaced, the bound and the design) or raise; for CPU tensors
-they take the plain PyTorch versions ``fused_ln_fwd_ref`` /
-``fused_ln_bwd_ref``. ``launches`` counts calls that launch the kernels
-(CPU calls do not count); the backward's second launch, which sums the
-per-block column partials of dw, db and dbias in a fixed order, counts
-under ``fused_ln_bwd``.
+Each direction of each norm is a ``torch.library`` custom op, the two
+joined by ``register_autograd``:
+
+- ``paddle_tpu_torch::fused_ln_fwd`` → ``(y, mean, rstd)`` and
+  ``paddle_tpu_torch::fused_ln_bwd`` → ``(dh, dres, dbias, dw, db)``: the
+  backward saves the primal inputs and the f32 row statistics ``(mean,
+  rstd)`` [R], as the reference saves its ``fused_ln_mean`` /
+  ``fused_ln_rstd`` residuals (:323-327), and recomputes the normalised
+  row;
+- ``paddle_tpu_torch::fused_bn_fwd`` → ``(y, mean, var)``, f32 batch
+  statistics with the biased variance, and
+  ``paddle_tpu_torch::fused_bn_bwd`` → ``(dx, dres, dw, db)``: the
+  backward saves x, the residual, w, b and the f32 ``mean`` and ``var``
+  [C] (the reference saves ``mean`` and ``rstd``, :616-619: the kernels
+  recompute ``rstd = rsqrt(var + eps)`` with the forward's own
+  expression, so that a = w·rstd and b′ = b − mean·a, and with them the
+  ReLU gate, are the forward's bit for bit), never y or the
+  pre-activation. The cotangents of ``mean`` and ``var`` fold into dx as
+  :576-581 folds them; absent, they are zero.
+
+For CUDA tensors the ops launch the hand-written Hopper kernels of
+``csrc/norm_fusion.cu`` (its notes name the TPU kernels replaced, the
+bound and the design) or raise; for CPU tensors they take the plain
+PyTorch versions ``fused_ln_fwd_ref`` / ``fused_ln_bwd_ref`` and
+``fused_bn_fwd_ref`` / ``fused_bn_bwd_ref``. ``launches`` counts calls
+that launch the kernels (CPU calls do not count), one per op call: the
+LayerNorm backward's second launch (the fixed-order sum of its column
+partials) counts under ``fused_ln_bwd``, and each BatchNorm op's four
+launches (reduction, ``sum_parts``, the per-channel fold, apply) count
+once.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -32,10 +55,13 @@ from . import _build
 from ._build import vec32 as _vec32
 from .flash_attention import _on
 
-__all__ = ["fused_layer_norm_2d", "fused_ln_fwd", "fused_ln_bwd",
+__all__ = ["bn_eligible", "fused_batch_norm_train", "fused_bn_bwd",
+           "fused_bn_bwd_ref", "fused_bn_fwd", "fused_bn_fwd_ref",
+           "fused_layer_norm_2d", "fused_ln_fwd", "fused_ln_bwd",
            "fused_ln_fwd_ref", "fused_ln_bwd_ref", "launches"]
 
-launches = {"fused_ln_fwd": 0, "fused_ln_bwd": 0}
+launches = {"fused_ln_fwd": 0, "fused_ln_bwd": 0, "fused_bn_fwd": 0,
+            "fused_bn_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -81,13 +107,18 @@ def fused_ln_bwd_ref(h, res, lin_b, w, mean, rstd, g):
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {"ln_fwd": [_P] * 8 + [_I, _I, _F, _P],
-             "ln_bwd": [_P] * 11 + [_I, _I, _I, _P]}
+             "ln_bwd": [_P] * 11 + [_I, _I, _I, _P],
+             "fused_bn_fwd": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
+             "fused_bn_bwd": [_P] * 15 + [_I, _I, _I, _F, _I, _P]}
 
 
 @functools.cache
 def _lib():
-    return _build.library("norm_fusion.cu", _ARGTYPES,
-                          ints=("ln_rows_per_part",))
+    lib = _build.library("norm_fusion.cu", _ARGTYPES,
+                         ints=("ln_rows_per_part",))
+    lib.fused_bn_parts.argtypes = [_I, _I]
+    lib.fused_bn_parts.restype = _I
+    return lib
 
 
 def _ptr(t):
@@ -251,3 +282,252 @@ def fused_layer_norm_2d(h, weight, bias, *, residual=None, lin_bias=None,
     y, _, _ = fused_ln_fwd(h.contiguous(), c(residual), c(lin_bias),
                            weight.contiguous(), bias.contiguous(), float(eps))
     return y
+
+
+# ---------------------------------------------------------------------------
+# fused BatchNorm-train (+ residual + ReLU epilogue): plain versions
+# ([N, C, HW]; the kernels' numerics)
+# ---------------------------------------------------------------------------
+
+def bn_eligible(c: int) -> bool:
+    """``bn_block_c``'s eligibility rule (:639-640), the routing rule: the
+    fused kernels take C % 8 == 0."""
+    return c % 8 == 0
+
+
+def _bn_chan(v):
+    return v[None, :, None]
+
+
+def _bn_fold(w, b, mean, var, eps):
+    """rstd = rsqrt(var + eps), a = w·rstd, b′ = b − mean·a (:533-537), f32."""
+    rstd = torch.rsqrt(var + eps)
+    a = w.float() * rstd
+    return rstd, a, b.float() - mean * a
+
+
+def _bn_pre(xf, res, a, bb):
+    pre = xf * _bn_chan(a) + _bn_chan(bb)
+    return pre if res is None else pre + res.float()
+
+
+def fused_bn_fwd_ref(x, res, w, b, eps: float, relu: bool):
+    """Plain version of the forward kernels (:403-441, :521-548): the
+    per-channel sums of x and x² in f32, mean = Σx / M, the biased one-pass
+    variance max(Σx² / M − mean², 0), then y = relu?(x·a + b′ (+ res)) in
+    x's dtype; mean and var [C] f32."""
+    n, _, hw = x.shape
+    xf = x.float()
+    inv_m = 1.0 / (n * hw)
+    mean = xf.sum((0, 2)) * inv_m
+    var = ((xf * xf).sum((0, 2)) * inv_m - mean * mean).clamp_min(0.0)
+    _, a, bb = _bn_fold(w, b, mean, var, eps)
+    y = _bn_pre(xf, res, a, bb)
+    if relu:
+        y = y.clamp_min(0.0)
+    return y.to(x.dtype), mean, var
+
+
+def fused_bn_bwd_ref(x, res, w, b, mean, var, g, gmean, gvar, eps: float,
+                     relu: bool):
+    """Plain version of the backward kernels (:444-506, :567-606): g′ = g
+    gated by the recomputed pre-activation, Σg′ and Σg′·x̂ per channel, the
+    mean and var cotangents (None: zero) folded into p2 and p3; returns (dx,
+    g′, dw = Σg′·x̂, db = Σg′), all f32 (g′ is dres before its cast)."""
+    n, _, hw = x.shape
+    m = float(n * hw)
+    xf = x.float()
+    rstd, a, bb = _bn_fold(w, b, mean, var, eps)
+    gf = g.float()
+    if relu:
+        gf = torch.where(_bn_pre(xf, res, a, bb) > 0.0, gf, 0.0)
+    xhat = (xf - _bn_chan(mean)) * _bn_chan(rstd)
+    sum_g = gf.sum((0, 2))
+    sum_gx = (gf * xhat).sum((0, 2))
+    zero = torch.zeros_like(mean)
+    gm = zero if gmean is None else gmean.float()
+    gv = zero if gvar is None else gvar.float()
+    p2 = 2.0 * gv / m - a * (sum_gx / m) * rstd
+    p3 = gm / m - a * (sum_g / m) - mean * p2
+    dx = gf * _bn_chan(a) + xf * _bn_chan(p2) + _bn_chan(p3)
+    return dx, gf, sum_gx, sum_g
+
+
+# ---------------------------------------------------------------------------
+# fused BatchNorm-train: the CUDA kernels
+# ---------------------------------------------------------------------------
+
+def _bn_check(name, x, rows, vecs):
+    """The kernels' contract: x [N, C, HW] float32 or bfloat16, C % 8 == 0;
+    the row tensors (``rows``) in x's dtype and shape; everything on x's
+    CUDA device, contiguous and 16-byte aligned; the [C] vectors
+    (``vecs``) f32."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if x.ndim != 3:
+        raise ValueError(f"{name} kernel takes x [N, C, HW], got "
+                         f"{tuple(x.shape)}")
+    n, c, hw = x.shape
+    if not bn_eligible(c) or c > 65535:
+        raise ValueError(f"{name} kernel takes C % 8 == 0 and C <= 65535, "
+                         f"got C={c}")
+    for t in rows:
+        if t.dtype != x.dtype or t.shape != x.shape:
+            raise TypeError(f"{name} kernel: {t.dtype} {tuple(t.shape)} beside "
+                            f"x's {x.dtype} {tuple(x.shape)} (one dtype and "
+                            f"shape for x, the residual and g)")
+    for t in vecs:
+        if t.dtype != torch.float32 or tuple(t.shape) != (c,):
+            raise ValueError(f"{name}: per-channel vectors must be float32 "
+                             f"[{c}], got {t.dtype} {tuple(t.shape)}")
+    for t in (*rows, *vecs):
+        if t.device != x.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
+    for t in (x, *rows):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel needs contiguous, 16-byte "
+                             f"aligned tensors")
+    return n, c, hw
+
+
+def _bn_parts(n, hw):
+    return _lib().fused_bn_parts(n, hw)
+
+
+def _bn_fwd_cuda(x, res, w, b, eps, relu):
+    w32, b32 = _vec32(w), _vec32(b)
+    n, c, hw = _bn_check("fused_bn_fwd", x, () if res is None else (res,),
+                         (w32, b32))
+    dev = x.device
+    y = torch.empty_like(x)
+    mean = torch.empty(c, dtype=torch.float32, device=dev)
+    var = torch.empty_like(mean)
+    part = torch.empty((_bn_parts(n, hw), 2, c), dtype=torch.float32,
+                       device=dev)
+    coef = torch.empty((2, c), dtype=torch.float32, device=dev)
+    _build.call(_lib(), "fused_bn_fwd", x.dtype, dev, x.data_ptr(), _ptr(res),
+                w32.data_ptr(), b32.data_ptr(), y.data_ptr(),
+                mean.data_ptr(), var.data_ptr(), part.data_ptr(),
+                coef.data_ptr(), n, c, hw, float(eps), int(relu))
+    launches["fused_bn_fwd"] += 1
+    return y, mean, var
+
+
+def _bn_bwd_cuda(x, res, w, b, mean, var, g, gmean, gvar, eps, relu):
+    """(dx, dres or None, dw, db): the rows in x's dtype, the sums f32."""
+    w32, b32 = _vec32(w), _vec32(b)
+    gm, gv = _vec32(gmean), _vec32(gvar)
+    rows = (g,) if res is None else (res, g)
+    vecs = [v for v in (w32, b32, mean, var, gm, gv) if v is not None]
+    n, c, hw = _bn_check("fused_bn_bwd", x, rows, vecs)
+    dev = x.device
+    dx = torch.empty_like(x)
+    dres = None if res is None else torch.empty_like(x)
+    sums = torch.empty((2, c), dtype=torch.float32, device=dev)
+    part = torch.empty((_bn_parts(n, hw), 2, c), dtype=torch.float32,
+                       device=dev)
+    coef = torch.empty((4, c), dtype=torch.float32, device=dev)
+    _build.call(_lib(), "fused_bn_bwd", x.dtype, dev, x.data_ptr(), _ptr(res),
+                w32.data_ptr(), b32.data_ptr(), mean.contiguous().data_ptr(),
+                var.contiguous().data_ptr(), g.data_ptr(), _ptr(gm), _ptr(gv),
+                dx.data_ptr(), _ptr(dres), sums[0].data_ptr(),
+                sums[1].data_ptr(), part.data_ptr(), coef.data_ptr(), n, c,
+                hw, float(eps), int(relu))
+    launches["fused_bn_bwd"] += 1
+    return dx, dres, sums[0], sums[1]
+
+
+# ---------------------------------------------------------------------------
+# fused BatchNorm-train: custom ops + autograd
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::fused_bn_fwd", mutates_args=(),
+    schema="(Tensor x, Tensor? res, Tensor w, Tensor b, float eps, "
+           "bool relu) -> (Tensor, Tensor, Tensor)")
+def fused_bn_fwd(x, res, w, b, eps, relu):
+    """Fused BatchNorm-train forward on [N, C, HW] → (y in x's dtype, mean
+    [C] f32, biased var [C] f32)."""
+    if _on(x.device, "fused_bn_fwd"):
+        return _bn_fwd_cuda(x, res, w, b, eps, relu)
+    return fused_bn_fwd_ref(x, res, w, b, eps, relu)
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::fused_bn_bwd", mutates_args=(),
+    schema="(Tensor x, Tensor? res, Tensor w, Tensor b, Tensor mean, "
+           "Tensor var, Tensor g, Tensor? gmean, Tensor? gvar, float eps, "
+           "bool relu) -> (Tensor, Tensor?, Tensor, Tensor)")
+def fused_bn_bwd(x, res, w, b, mean, var, g, gmean, gvar, eps, relu):
+    """Fused BatchNorm-train backward → (dx, dres, dw, db): dx in x's dtype,
+    dres in res's (None without a residual), dw and db the f32 sums cast to
+    w's and b's dtypes, as the reference's bwd casts them (:604-606)."""
+    if _on(x.device, "fused_bn_bwd"):
+        dx, dres, dw, db = _bn_bwd_cuda(x, res, w, b, mean, var, g, gmean,
+                                        gvar, eps, relu)
+    else:
+        dx, gate, dw, db = fused_bn_bwd_ref(x, res, w, b, mean, var, g,
+                                            gmean, gvar, eps, relu)
+        dx = dx.to(x.dtype)
+        dres = None if res is None else gate.to(res.dtype, copy=True)
+    # copies: the kernels' sums are rows of one tensor, and an op's outputs
+    # may not alias each other
+    return dx, dres, dw.to(w.dtype, copy=True), db.to(b.dtype, copy=True)
+
+
+def _bn_setup_context(ctx, inputs, output):
+    x, res, w, b, eps, relu = inputs
+    _, mean, var = output
+    ctx.save_for_backward(x, res, w, b, mean, var)
+    ctx.eps, ctx.relu = eps, relu
+
+
+def _bn_backward(ctx, dy, dmean, dvar):
+    x, res, w, b, mean, var = ctx.saved_tensors
+    dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+    dx, dres, dw, db = fused_bn_bwd(x, res, w, b, mean, var, dy,
+                                    dmean, dvar, ctx.eps, ctx.relu)
+    return dx, dres, dw, db, None, None
+
+
+fused_bn_fwd.register_autograd(_bn_backward, setup_context=_bn_setup_context)
+
+
+def fused_batch_norm_train(x, weight, bias, *, residual=None, eps=1e-5,
+                           fuse_relu=False):
+    """Fused BatchNorm-train over channel-second layouts ([N, C, *spatial]).
+
+    Returns (y, mean, var) with f32 batch statistics (the biased variance,
+    as the dense batch_norm_train). Epilogues: ``fuse_relu`` applies ReLU
+    after the affine; ``residual`` (x's shape) adds BEFORE the ReLU, the
+    ResNet block order relu(bn(conv(x)) + identity). The normalised value
+    and the pre-activation never reach device memory. The reference's
+    checks and messages (:670-688)."""
+    if x.ndim < 2:
+        raise ValueError(
+            f"fused_batch_norm_train wants [N, C, ...], got {tuple(x.shape)}")
+    n, c = x.shape[0], x.shape[1]
+    hw = math.prod(x.shape[2:]) if x.ndim > 2 else 1
+    if not bn_eligible(c):
+        raise NotImplementedError(
+            f"fused_batch_norm_train: C={c} is not tileable by the 8-sublane "
+            "rule (the caller should take the dense path)")
+
+    def rows(t):
+        # a contiguous copy with a 16-byte aligned start (a fresh tensor)
+        # where the view has neither
+        t = t.reshape(n, c, hw).contiguous()
+        return t.clone() if t.data_ptr() % 16 else t
+
+    x3 = rows(x)
+    res3 = None
+    if residual is not None:
+        if residual.shape != x.shape:
+            raise ValueError(f"residual shape {tuple(residual.shape)} != x "
+                             f"shape {tuple(x.shape)}")
+        res3 = rows(residual)
+    y3, mean, var = fused_bn_fwd(x3, res3, weight.contiguous(),
+                                 bias.contiguous(), float(eps),
+                                 bool(fuse_relu))
+    return y3.reshape(x.shape), mean, var

@@ -62,8 +62,9 @@ from torch.utils import checkpoint as _ckpt
 from .._device import DeviceLike, resolve_device
 from ..core.flags import get_flag
 from ..inference.kv_cache import kv_append, kv_gather
+from ..kernels._build import KERNEL_DTYPES
 from ..kernels.chunked_xent import chunked_softmax_xent
-from ..kernels.flash_attention import flash_attention_bshd
+from ..kernels.flash_attention import _MAX_HEAD_DIM, flash_attention_bshd
 from ..kernels.mlp_fusion import decode_attn_proj, fused_mlp_2d, mlp_eligible
 from ..nn.functional import mlp as _mlp_introspect
 from ..nn.functional.attention import (paged_attention_math,
@@ -358,23 +359,29 @@ def last_decode_kernel_path():
     return _LAST_DECODE_PATH
 
 
-def _decode_kernel_mode(B: int, device: torch.device):
+def _decode_kernel_mode(B: int, device: torch.device, dtype=torch.float32,
+                        head_dim: int = 0):
     """Routing for the single-kernel decode step (FLAGS_serving_decode_
-    kernel): the kernel serves the latency-bound B=1 regime; B>1 steps
-    keep the composite path with a once-warn. 'cuda' launches the
-    Hopper kernel, 'plain' (CPU tensors) its plain PyTorch version."""
+    kernel): the kernel serves the latency-bound B=1 regime in float32 or
+    bfloat16 with head_dim <= 256; other steps keep the composite path
+    with a once-warn. 'cuda' launches the Hopper kernel, 'plain' (CPU
+    tensors) its plain PyTorch version."""
     global _DECODE_KERNEL_WARNED
     if not get_flag("serving_decode_kernel"):
         return None
     if B != 1:
-        if not _DECODE_KERNEL_WARNED:
-            _DECODE_KERNEL_WARNED = True
-            warnings.warn(
-                "FLAGS_serving_decode_kernel: batch bucket B="
-                f"{B} > 1 keeps the composite decode path (the "
-                "single-kernel step targets latency-bound B=1 decode)")
-        return None
-    return "cuda" if device.type == "cuda" else "plain"
+        why = (f"batch bucket B={B} > 1 keeps the composite decode path (the "
+               "single-kernel step targets latency-bound B=1 decode)")
+    elif dtype not in KERNEL_DTYPES or head_dim > _MAX_HEAD_DIM:
+        why = (f"the decode kernel takes float32 or bfloat16 with head_dim "
+               f"<= {_MAX_HEAD_DIM}, got {dtype} and {head_dim}; keeping the "
+               "composite decode path")
+    else:
+        return "cuda" if device.type == "cuda" else "plain"
+    if not _DECODE_KERNEL_WARNED:
+        _DECODE_KERNEL_WARNED = True
+        warnings.warn(f"FLAGS_serving_decode_kernel: {why}")
+    return None
 
 
 def serving_decode_step(params, k_pool, v_pool, tokens, positions,
@@ -396,7 +403,8 @@ def serving_decode_step(params, k_pool, v_pool, tokens, positions,
     new_slot = (bt[torch.arange(B, device=dev), pos // block_size].long()
                 * block_size + pos % block_size)
     x = (params["wte"][tokens.long()] + params["wpe"][pos])[:, None]
-    kmode = _decode_kernel_mode(B, dev)
+    kmode = _decode_kernel_mode(B, dev, params["wte"].dtype,
+                                cfg.hidden_size // cfg.num_heads)
     if kmode is None:
         ctx_i = torch.arange(MB * block_size, device=dev)
         ctx_slots = bt[:, ctx_i // block_size].long() * block_size \

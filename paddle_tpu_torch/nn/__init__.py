@@ -1,5 +1,12 @@
-"""Counterpart: ``paddle_tpu/nn/__init__.py`` (functionals,
-``LayerNorm`` and ``RMSNorm`` so far)."""
-from .layer import LayerNorm, RMSNorm
+"""Counterpart: ``paddle_tpu/nn/__init__.py`` (the functionals and
+layers ported so far). ``Sequential`` is ``torch.nn.Sequential``: its
+child names ``0``, ``1``, ... are Paddle's."""
+from torch.nn import Sequential
 
-__all__ = ["LayerNorm", "RMSNorm"]
+from .layer import (AdaptiveAvgPool2D, BatchNorm, BatchNorm1D, BatchNorm2D,
+                    BatchNorm3D, Conv2D, LayerNorm, Linear, MaxPool2D,
+                    RMSNorm, ReLU)
+
+__all__ = ["AdaptiveAvgPool2D", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
+           "BatchNorm3D", "Conv2D", "LayerNorm", "Linear", "MaxPool2D",
+           "RMSNorm", "ReLU", "Sequential"]

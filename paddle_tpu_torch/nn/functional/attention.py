@@ -14,11 +14,14 @@ additive, non-causal), through ``flash_attention_bshd`` (the Hopper
 kernels on a card, their plain versions on the CPU; the mask rides in as
 one f32 bias row per batch). Any other mask, and a mask with
 ``is_causal``, take the reference's dense ``_sdpa_ref`` math with its
-once-warning: that is the reference's own route for those masks. The
-reference's exception policy (a failed kernel falls back to the dense
-path) is not ported. Attention dropout while training (in-kernel on the
-flash route, a ``default_generator`` mask on the dense one) is ROADMAP
-A6b and raises NotImplementedError.
+once-warning: that is the reference's own route for those masks. So do
+tensors the kernels do not take (not all float32 or all bfloat16, or a
+head dim above 256), with the same once-warning: the reference computes
+them (its flash pads any head dim, :255, and its functional falls back
+on a rejected kernel). The reference's exception policy (a failed
+kernel falls back to the dense path) is not ported. Attention dropout
+while training (in-kernel on the flash route, a ``default_generator``
+mask on the dense one) is ROADMAP A6b and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ import warnings
 
 import torch
 
-from ...kernels.flash_attention import flash_attention_bshd
+from ...kernels._build import kernel_dtypes
+from ...kernels.flash_attention import _MAX_HEAD_DIM, flash_attention_bshd
 
 __all__ = ["last_attn_path", "paged_attention_math", "reset_last_attn_path",
            "scaled_dot_product_attention"]
@@ -112,21 +116,27 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             "(the flash kernels' seeded keep-mask, the dense route's "
             "default_generator mask) is ROADMAP A6b")
     mode = "cuda" if query.device.type == "cuda" else "plain"
-    if attn_mask is None:
+    takes = (kernel_dtypes(query, key, value)
+             and query.shape[-1] <= _MAX_HEAD_DIM)
+    if takes and attn_mask is None:
         _LAST_PATH = f"flash/{mode}"
         return flash_attention_bshd(query, key, value, causal=bool(is_causal))
-    if not is_causal and _is_key_padding_mask(attn_mask):
+    if takes and not is_causal and _is_key_padding_mask(attn_mask):
         _LAST_PATH = f"flash_masked/{mode}"
         return flash_attention_bshd(
             query, key, value, causal=False,
             kv_bias=_kv_bias(attn_mask, query.shape[0], key.shape[1]))
     if not _DENSE_MASK_WARNED:
         _DENSE_MASK_WARNED = True
+        why = ("attn_mask is not a key-padding mask ([B, 1, 1, Sk]) or is "
+               "combined with is_causal" if takes else
+               f"the flash kernels take q, k, v all float32 or all bfloat16 "
+               f"with head_dim <= {_MAX_HEAD_DIM}, got {query.dtype}, "
+               f"{key.dtype}, {value.dtype}, head_dim {query.shape[-1]}")
         warnings.warn(
-            "scaled_dot_product_attention: attn_mask is not a key-padding "
-            "mask ([B, 1, 1, Sk]) or is combined with is_causal; taking the "
-            "dense reference path (materializes [B, H, Sq, Sk] scores), not "
-            "the flash kernels")
+            f"scaled_dot_product_attention: {why}; taking the dense "
+            "reference path (materializes [B, H, Sq, Sk] scores), not the "
+            "flash kernels")
     _LAST_PATH = "ref"
     return _sdpa_ref(query, key, value, attn_mask, bool(is_causal))
 

@@ -1,14 +1,74 @@
 """Loss functionals.
 
-Counterpart: ``paddle_tpu/nn/functional/loss.py``, ``chunked_mlm_xent``
-(:238-251), BERT's tied MLM head. The other losses of that module come
-with later slices.
+Counterpart: ``paddle_tpu/nn/functional/loss.py``: ``cross_entropy``
+(:19-64), the vision path's loss, and ``chunked_mlm_xent`` (:238-251),
+BERT's tied MLM head. The other losses of that module come with later
+slices.
 """
 from __future__ import annotations
 
+import torch
+
 from ...kernels.chunked_xent import chunked_softmax_xent_per_token
 
-__all__ = ["chunked_mlm_xent"]
+__all__ = ["chunked_mlm_xent", "cross_entropy"]
+
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0, name=None):
+    """Paddle's cross_entropy: by default ``input`` holds raw logits
+    (``use_softmax``; else probabilities, logged with a 1e-30 floor) and
+    ``label`` class indices, [B] or with a trailing 1 ([B, 1]); soft labels
+    (``soft_label``, or a label of input's shape) take the soft path.
+    Hard labels: ``ignore_index`` rows count 0 and leave the mean's
+    denominator; ``weight`` [classes] scales each row by its class's
+    weight and, with ``reduction="mean"``, the mean divides by the sum of
+    the weights of the rows kept; ``label_smoothing`` mixes in the mean of
+    the log-probabilities (a uniform target). The math runs in f32 (f64
+    for f64 input), as the reference's ("black") op does; the loss is
+    f32."""
+    x = input.to(torch.promote_types(input.dtype, torch.float32))
+    axis = axis % x.ndim
+    logp = (torch.log_softmax(x, axis) if use_softmax
+            else torch.log(x.clamp_min(1e-30)))
+    nclass = x.shape[axis]
+    soft = soft_label or tuple(label.shape) == tuple(x.shape)
+    if soft:
+        target = label.to(x.dtype)
+        if label_smoothing > 0:
+            target = target * (1 - label_smoothing) + label_smoothing / nclass
+        loss = -(target * logp).sum(axis)
+        valid = torch.ones_like(loss, dtype=torch.bool)
+    else:
+        y = label.long()
+        if y.ndim == x.ndim:            # a trailing 1
+            y = y.squeeze(axis)
+        valid = y != ignore_index
+        y_safe = torch.where(valid, y, 0)
+        picked = logp.gather(axis, y_safe.unsqueeze(axis)).squeeze(axis)
+        if label_smoothing > 0:
+            loss = (-(1 - label_smoothing) * picked
+                    - label_smoothing * logp.mean(axis))
+        else:
+            loss = -picked
+        if weight is not None:
+            loss = loss * weight.to(x.dtype)[y_safe]
+        loss = torch.where(valid, loss, 0.0)
+    if reduction == "mean":
+        if weight is not None and not soft:
+            w = torch.where(valid, weight.to(x.dtype)[y_safe], 0.0)
+            return loss.sum() / w.sum().clamp_min(1e-12)
+        return loss.sum() / valid.to(x.dtype).sum().clamp_min(1.0)
+    return _reduce(loss, reduction)
 
 
 def chunked_mlm_xent(h, w, bias, labels):

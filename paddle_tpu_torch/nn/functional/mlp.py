@@ -14,10 +14,14 @@ PyTorch versions (as flash attention does). The reference's
 build or launch raises, nothing falls back. The dense route is taken
 only for what the arguments decide: the flag off, a missing bias
 (``fused_mlp``; the projection bias or an LN parameter,
-``fused_attn_proj_residual_layer_norm``), or an ffn dim with no legal
-tile (``mlp_eligible``), all but the first with the reference's
-once-warning. The projection-LN's dense route is ``linear`` →
-``norm._adln_routed``, itself behind ``FLAGS_fused_norm``.
+``fused_attn_proj_residual_layer_norm``), an ffn dim with no legal tile
+(``mlp_eligible``), tensors not all float32 or all bfloat16 (fp16, or
+mixed dtypes), or, for the projection-LN, an odd Hout or one wider than
+the kernels' shared-memory tile (``proj_ln_eligible``: the reference's
+own route when its kernel rejects a shape, ``mlp.py:162-182``), all but
+the first with the reference's once-warning. The projection-LN's dense
+route is ``linear`` → ``norm._adln_routed``, itself behind
+``FLAGS_fused_norm``.
 
 Dropout is not ported on any route: on the fused routes it is the
 kernels' seeded keep-mask epilogue (ROADMAP A6b); on the fused MLP's
@@ -32,8 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from ...core.flags import get_flag
+from ...kernels._build import kernel_dtypes
 from ...kernels.mlp_fusion import (fused_mlp_2d, fused_proj_ln_2d,
-                                   fused_swiglu_2d, mlp_eligible)
+                                   fused_swiglu_2d, mlp_eligible,
+                                   proj_ln_eligible)
 from .norm import _adln_routed
 
 __all__ = ["fused_attn_proj_residual_layer_norm", "fused_mlp",
@@ -98,6 +104,10 @@ def fused_mlp(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias, *,
         elif not mlp_eligible(rows, h, f):
             _warn_dense(f"fused_mlp: ffn dim {f} has no legal tile (needs "
                         f"a divisor that is a multiple of 128, or f <= 512)")
+        elif not kernel_dtypes(x, fc1_weight, fc2_weight):
+            _warn_dense(f"fused_mlp: the kernels take x and the weights all "
+                        f"float32 or all bfloat16, got {x.dtype}, "
+                        f"{fc1_weight.dtype}, {fc2_weight.dtype}")
         else:
             _LAST_PATH = f"fused_mlp/{mode}"
             if p > 0:
@@ -130,6 +140,11 @@ def fused_swiglu(x, gate_weight, up_weight, down_weight, name=None):
         if not mlp_eligible(x.numel() // h, h, f):
             _warn_dense(f"fused_swiglu: intermediate dim {f} has no legal "
                         f"tile")
+        elif not kernel_dtypes(x, gate_weight, up_weight, down_weight):
+            _warn_dense(f"fused_swiglu: the kernels take x and the weights "
+                        f"all float32 or all bfloat16, got {x.dtype}, "
+                        f"{gate_weight.dtype}, {up_weight.dtype}, "
+                        f"{down_weight.dtype}")
         else:
             _LAST_PATH = f"fused_swiglu/{mode}"
             y = fused_swiglu_2d(x.reshape(-1, h), gate_weight, up_weight,
@@ -154,20 +169,31 @@ def fused_attn_proj_residual_layer_norm(x, proj_weight, proj_bias,
     eps = float(ln_epsilon)
     mode = _fused_mode(x.device)
     if mode is not None:
-        if proj_bias is not None and ln_scale is not None \
-                and ln_bias is not None:
+        hout = residual.shape[-1]
+        if proj_bias is None or ln_scale is None or ln_bias is None:
+            _warn_dense("fused_attn_proj_residual_layer_norm needs "
+                        "proj_bias, ln_scale and ln_bias for the fused "
+                        "kernel")
+        elif not kernel_dtypes(x, proj_weight, residual):
+            _warn_dense(f"fused_attn_proj_residual_layer_norm: the kernels "
+                        f"take x, the weight and the residual all float32 "
+                        f"or all bfloat16, got {x.dtype}, "
+                        f"{proj_weight.dtype}, {residual.dtype}")
+        elif not proj_ln_eligible(hout, x.dtype):
+            _warn_dense(f"fused_attn_proj_residual_layer_norm: Hout={hout} "
+                        f"is odd or wider than the kernels' shared-memory "
+                        f"row tile")
+        else:
             _LAST_PATH = f"fused_proj_ln/{mode}"
             if p > 0:
                 raise NotImplementedError(
                     "fused_attn_proj_residual_layer_norm: the in-kernel "
                     "dropout epilogue is ROADMAP A6b")
-            hin, hout = x.shape[-1], residual.shape[-1]
+            hin = x.shape[-1]
             y = fused_proj_ln_2d(x.reshape(-1, hin), proj_weight, proj_bias,
                                  residual.reshape(-1, hout), ln_scale,
                                  ln_bias, eps=eps)
             return y.reshape(residual.shape)
-        _warn_dense("fused_attn_proj_residual_layer_norm needs proj_bias, "
-                    "ln_scale and ln_bias for the fused kernel")
     _LAST_PATH = "dense"
     return _adln_routed(_linear(x, proj_weight, proj_bias), residual, None,
                         ln_scale, ln_bias, None, p, eps)

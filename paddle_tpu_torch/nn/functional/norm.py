@@ -2,22 +2,33 @@
 
 Counterpart: ``paddle_tpu/nn/functional/norm.py``: ``last_norm_path`` /
 ``reset_last_norm_path`` (:29-46), ``_fused_mode`` (:49), the once-warned
-dense route (:61-69), the dense ``_layer_norm_ref`` (:109), ``layer_norm``
-(:190), ``fused_bias_dropout_residual_layer_norm`` (:219) with its routing
-body ``_adln_routed`` (:244), and ``rms_norm`` (:467-475), the LLaMA norm.
-The BatchNorm family and its fused kernels (TPU kernels 15-18) are ROADMAP
-A8.
+dense route (:61-69), the dense ``_bn_infer`` (:76), ``_bn_train`` (:92)
+and ``_layer_norm_ref`` (:109), ``layer_norm`` (:190),
+``fused_bias_dropout_residual_layer_norm`` (:219) with its routing body
+``_adln_routed`` (:244), ``_apply_epilogue`` (:273), ``batch_norm_act``
+(:282), ``batch_norm`` (:351) and ``rms_norm`` (:467-475), the LLaMA
+norm.
 
 With ``FLAGS_fused_norm`` on (the default), ``layer_norm`` and the
 bias→residual-add→LN close take the fused route through
-``kernels/norm_fusion.py`` (TPU kernels 13, 14): on a card the
-hand-written CUDA kernels, on the CPU their plain PyTorch versions (as
-the MLP functionals do). The reference's exception policy (a failed
-kernel falls back to the dense path) is not ported: a kernel that fails
-to build or launch raises. The dense route is taken only for what the
-arguments decide: the flag off, a missing affine parameter, a
-normalized_shape over more than the last axis or a dtype the kernels do
-not take, the last three with the reference's once-warning.
+``kernels/norm_fusion.py`` (TPU kernels 13, 14), and so does every
+train-mode ``batch_norm_act`` / ``batch_norm`` on a channel-second layout
+with C % 8 == 0 (TPU kernels 15-18, the residual add and ReLU in the
+kernels' epilogue): on a card the hand-written CUDA kernels, on the CPU
+their plain PyTorch versions (as the MLP functionals do). The
+reference's exception policy (a failed kernel falls back to the dense
+path) is not ported: a kernel that fails to build or launch raises. The
+dense route is taken only for what the arguments decide: the flag off,
+eval mode (``use_global_stats``), a missing affine parameter, a
+normalized_shape over more than the last axis, a channels-last BatchNorm,
+C % 8 != 0 or a dtype the kernels do not take (float32 and bfloat16), all
+but the first two with the reference's once-warning.
+
+The BatchNorm running statistics follow Paddle: ``running = m·running +
+(1 − m)·batch`` with ``momentum`` m (0.9 keeps 90% of the old value) and
+the biased batch variance, updated in place under ``torch.no_grad()``.
+The dense BatchNorm takes its statistics in f32 and returns x's dtype
+(the reference's "black" op runs in f32 under AMP; the port has no AMP).
 
 Dropout is not ported on either route: on the fused route it is the
 kernels' seeded keep-mask epilogue, on the dense route the reference
@@ -31,22 +42,25 @@ import warnings
 import torch
 
 from ...core.flags import get_flag
-from ...kernels.norm_fusion import fused_layer_norm_2d
+from ...kernels._build import kernel_dtypes
+from ...kernels.norm_fusion import (bn_eligible, fused_batch_norm_train,
+                                    fused_layer_norm_2d)
+from .activation import relu
 
-__all__ = ["fused_bias_dropout_residual_layer_norm", "last_norm_path",
+__all__ = ["batch_norm", "batch_norm_act",
+           "fused_bias_dropout_residual_layer_norm", "last_norm_path",
            "layer_norm", "reset_last_norm_path", "rms_norm"]
 
 _LAST_PATH = None
 _DENSE_FALLBACK_WARNED = False
-_FUSED_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def last_norm_path():
-    """The normalisation path the most recent ``layer_norm`` or
-    ``fused_bias_dropout_residual_layer_norm`` call took: 'fused_ln/cuda'
-    or 'fused_adln/cuda' (the kernels), 'fused_ln/plain' or
-    'fused_adln/plain' (their plain versions, CPU tensors) or 'dense'
-    (None before any call)."""
+    """The normalisation path the most recent ``layer_norm``,
+    ``fused_bias_dropout_residual_layer_norm``, ``batch_norm`` or
+    ``batch_norm_act`` call took: 'fused_ln/cuda', 'fused_adln/cuda' or
+    'fused_bn/cuda' (the kernels), the same with '/plain' (their plain
+    versions, CPU tensors) or 'dense' (None before any call)."""
     return _LAST_PATH
 
 
@@ -111,7 +125,7 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
         ndims = (1 if isinstance(normalized_shape, int)
                  or normalized_shape is None else len(normalized_shape))
         if ndims == 1 and weight is not None and bias is not None \
-                and x.ndim >= 1 and x.dtype in _FUSED_DTYPES:
+                and x.ndim >= 1 and kernel_dtypes(x):
             _LAST_PATH = f"fused_ln/{mode}"
             hd = x.shape[-1]
             return fused_layer_norm_2d(x.reshape(-1, hd), weight, bias,
@@ -146,7 +160,7 @@ def _adln_routed(x, residual, bias, ln_scale, ln_bias, dk, p, eps):
     mode = _fused_mode(x.device)
     if mode is not None:
         if ln_scale is not None and ln_bias is not None \
-                and x.dtype in _FUSED_DTYPES:
+                and kernel_dtypes(x):
             _LAST_PATH = f"fused_adln/{mode}"
             _no_dropout(p, "fused_bias_dropout_residual_layer_norm")
             hd = x.shape[-1]
@@ -161,6 +175,127 @@ def _adln_routed(x, residual, bias, ln_scale, ln_bias, dk, p, eps):
     _no_dropout(p, "fused_bias_dropout_residual_layer_norm")
     h = x if bias is None else x + bias
     return _layer_norm_ref(residual + h, None, ln_scale, ln_bias, eps)
+
+
+def _chan_shape(x, ch_axis):
+    shape = [1] * x.ndim
+    shape[ch_axis] = x.shape[ch_axis]
+    return shape
+
+
+def _compute_dtype(x):
+    """f32 for the 16-bit types, else x's own (f32, f64)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _bn_infer(x, mean, var, weight, bias, epsilon, ch_axis):
+    """The dense eval-mode BatchNorm (:76-89): (x − mean) / sqrt(var + ε)
+    · weight + bias with the given statistics, in f32 (f64 for f64 x),
+    returned in x's dtype."""
+    shape = _chan_shape(x, ch_axis)
+    ct = _compute_dtype(x)
+    out = (x.to(ct) - mean.to(ct).reshape(shape)) / torch.sqrt(
+        var.to(ct).reshape(shape) + epsilon)
+    if weight is not None:
+        out = out * weight.to(ct).reshape(shape)
+    if bias is not None:
+        out = out + bias.to(ct).reshape(shape)
+    return out.to(x.dtype)
+
+
+def _bn_train(x, weight, bias, epsilon, ch_axis):
+    """The dense train-mode BatchNorm (:92-106): the batch mean and the
+    biased (centred, two-pass) variance over every axis but the channel's,
+    in f32 (f64 for f64 x); returns (out in x's dtype, mean, var)."""
+    axes = tuple(i for i in range(x.ndim) if i != ch_axis)
+    ct = _compute_dtype(x)
+    xf = x.to(ct)
+    mean = xf.mean(axes)
+    var = xf.var(axes, unbiased=False)
+    shape = _chan_shape(x, ch_axis)
+    out = (xf - mean.reshape(shape)) / torch.sqrt(var.reshape(shape)
+                                                  + epsilon)
+    if weight is not None:
+        out = out * weight.to(ct).reshape(shape)
+    if bias is not None:
+        out = out + bias.to(ct).reshape(shape)
+    return out.to(x.dtype), mean, var
+
+
+def _apply_epilogue(out, activation, residual):
+    if residual is not None:
+        out = out + residual
+    if activation == "relu":
+        out = relu(out)
+    return out
+
+
+def batch_norm_act(x, running_mean, running_var, weight=None, bias=None,
+                   training=False, momentum=0.9, epsilon=1e-5,
+                   data_format="NCHW", use_global_stats=None,
+                   activation=None, residual=None, name=None):
+    """batch_norm with an optional fused epilogue: ``residual`` (x's shape)
+    adds to the normalised output BEFORE the activation, the ResNet block
+    order relu(bn(conv(x)) + identity); ``activation`` None or 'relu'. On
+    the fused route the normalised value and the pre-activation never reach
+    device memory; the dense route composes the same epilogue. In training
+    (``use_global_stats`` False; its default is ``not training``) the
+    running statistics, when given, take the Paddle update."""
+    global _LAST_PATH
+    if activation not in (None, "relu"):
+        raise ValueError(
+            f"batch_norm_act: unsupported activation {activation!r} "
+            "(None or 'relu')")
+    ch_axis = 1 if data_format.startswith("NC") else x.ndim - 1
+    if use_global_stats is None:
+        use_global_stats = not training
+    if use_global_stats:
+        _LAST_PATH = "dense"
+        out = _bn_infer(x, running_mean, running_var, weight, bias,
+                        float(epsilon), ch_axis)
+        return _apply_epilogue(out, activation, residual)
+    stats = None
+    mode = _fused_mode(x.device)
+    if mode is not None:
+        if (ch_axis == 1 and x.ndim >= 2 and kernel_dtypes(x)
+                and bn_eligible(int(x.shape[1]))):
+            _LAST_PATH = f"fused_bn/{mode}"
+            c = x.shape[1]
+            w = (torch.ones(c, dtype=torch.float32, device=x.device)
+                 if weight is None else weight)
+            b = (torch.zeros(c, dtype=torch.float32, device=x.device)
+                 if bias is None else bias)
+            stats = fused_batch_norm_train(x, w, b, residual=residual,
+                                           eps=float(epsilon),
+                                           fuse_relu=activation == "relu")
+        else:
+            _warn_dense(
+                "batch_norm shape not eligible for the fused kernel (needs "
+                "a float32 or bfloat16 channel-second layout with "
+                "C % 8 == 0)")
+    if stats is not None:
+        out, batch_mean, batch_var = stats
+    else:
+        _LAST_PATH = "dense"
+        out, batch_mean, batch_var = _bn_train(x, weight, bias,
+                                               float(epsilon), ch_axis)
+        out = _apply_epilogue(out, activation, residual)
+    if running_mean is not None:
+        m = float(momentum)
+        with torch.no_grad():
+            # Paddle: running = momentum·running + (1 − momentum)·batch
+            running_mean.copy_(running_mean * m + batch_mean * (1 - m))
+            running_var.copy_(running_var * m + batch_var * (1 - m))
+    return out
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None, name=None):
+    """Paddle's batch_norm: ``batch_norm_act`` with no epilogue."""
+    return batch_norm_act(x, running_mean, running_var, weight, bias,
+                          training, momentum, epsilon, data_format,
+                          use_global_stats, None, None, name)
 
 
 def rms_norm(x, weight=None, epsilon=1e-6, name=None):

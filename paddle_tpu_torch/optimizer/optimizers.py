@@ -1,16 +1,20 @@
-"""Adam and AdamW.
+"""SGD, Momentum, Adam and AdamW.
 
-Counterpart: ``paddle_tpu/optimizer/optimizers.py``, ``Adam`` (:45-84)
-and ``AdamW`` (:87-110), with the reference's defaults. The other
-optimizers, ``amsgrad``, ``lr_ratio`` and ``apply_decay_param_fun`` are
-ROADMAP A5 and raise NotImplementedError; ``lazy_mode`` and
-``use_multi_tensor`` are accepted and change nothing, as in the
-reference.
+Counterpart: ``paddle_tpu/optimizer/optimizers.py``, ``SGD`` (:11-20),
+``Momentum`` (:23-41), ``Adam`` (:45-84) and ``AdamW`` (:87-110), with
+the reference's defaults. The other optimizers, ``amsgrad``,
+``lr_ratio`` and ``apply_decay_param_fun`` are ROADMAP A5 and raise
+NotImplementedError; ``lazy_mode`` and ``use_multi_tensor`` are accepted
+and change nothing, as in the reference.
 
-The moments live in the parameter's dtype (f32 under
-``multi_precision``) and are updated in that dtype; the step, as in the
-reference, divides them by the f32 bias corrections, so the update is
-formed in f32 and the parameter (or its master) rounded once.
+Momentum's velocity lives in the parameter's dtype (f32 under
+``multi_precision``): velocity = μ·velocity + rescale·g, then p −= lr·v,
+or with Nesterov p −= lr·(g + μ·v); an ``L2Decay`` (or a float
+``weight_decay``) is folded into g by the base first. The Adam moments
+live in the parameter's dtype too and are updated in that dtype; the
+step, as in the reference, divides them by the f32 bias corrections, so
+the update is formed in f32 and the parameter (or its master) rounded
+once.
 """
 from __future__ import annotations
 
@@ -18,7 +22,38 @@ import torch
 
 from .optimizer import L2Decay, Optimizer, _not_ported
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["Adam", "AdamW", "Momentum", "SGD"]
+
+
+class SGD(Optimizer):
+    def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
+                 grad_clip=None, multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+
+    def _update(self, param, value, grad, lr):
+        value.sub_(grad * lr)
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, rescale_grad=1.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+        self._rescale = rescale_grad
+
+    def _update(self, param, value, grad, lr):
+        v = self._get_accumulator("velocity", param)
+        if self._rescale != 1.0:
+            grad = grad * self._rescale
+        v.mul_(self._momentum).add_(grad)
+        if self._nesterov:
+            value.sub_((grad + v * self._momentum) * lr)
+        else:
+            value.sub_(v * lr)
 
 
 class Adam(Optimizer):

@@ -47,3 +47,11 @@ def test_scan_sees_relative_imports():
         ROOT / "paddle_tpu_torch" / "models" / "gpt.py"))
     assert "paddle_tpu_torch.kernels.mlp_fusion" in mods
     assert not any(_forbidden(m) for m in mods)
+
+
+def test_scan_walks_every_subpackage():
+    """The scan covers each subpackage of the port, vision/ included."""
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for sub in ("kernels", "models", "nn", "optimizer", "vision"):
+        assert any(n.startswith(f"paddle_tpu_torch/{sub}/") for n in names)
+    assert "paddle_tpu_torch/vision/models/resnet.py" in names

@@ -116,7 +116,8 @@ def test_forward_and_backward_match_pallas_kernels(variant, r, eps):
     jy, (jdh, jdw, jdb, jdres, jdlb) = _ref(h, w, b, res, lb, g, eps)
     before = dict(pnf.launches)
     y, (dh, dw, db, dres, dlb) = _port(h, w, b, res, lb, g, eps)
-    assert pnf.launches == before == {"fused_ln_fwd": 0, "fused_ln_bwd": 0}
+    assert pnf.launches == before == {"fused_ln_fwd": 0, "fused_ln_bwd": 0,
+                                      "fused_bn_fwd": 0, "fused_bn_bwd": 0}
     assert y.dtype == torch.float32
     for got, ref in ((y, jy), (dh, jdh), (dw, jdw), (db, jdb),
                      (dres, jdres), (dlb, jdlb)):
@@ -226,7 +227,8 @@ def test_cuda_route_raises_when_the_kernels_cannot_build(monkeypatch):
             pnf._bwd_cuda(h, None, None, w, torch.zeros(4), torch.ones(4), h)
     finally:
         pnf._lib.cache_clear()
-    assert pnf.launches == {"fused_ln_fwd": 0, "fused_ln_bwd": 0}
+    assert pnf.launches == {"fused_ln_fwd": 0, "fused_ln_bwd": 0,
+                            "fused_bn_fwd": 0, "fused_bn_bwd": 0}
 
 
 def test_kernel_sources_share_one_header_and_rebuild_on_its_edit(
