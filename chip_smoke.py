@@ -86,7 +86,8 @@ Phases, one line each; any failure raises and exits non-zero:
    every gradient with the SwiGLU kernels vs the dense SwiGLU, and with
    the flash kernels vs a dense causal attention written here;
 20. the LayerNorm kernels (forward; backward with its fixed-order column
-   sums) through their custom ops against their plain versions:
+   sums) through their custom ops against their plain versions (and,
+   below, their dropout variants):
    bert-base rows (R=16384, H=768), a ragged R=16383, H=1024 and 2048
    (the GPT Layer model's norms), f32 and bf16, all four (residual,
    bias) variants; two backward calls give the same bits; autograd
@@ -95,7 +96,12 @@ Phases, one line each; any failure raises and exits non-zero:
    a forward without the residual and a backward missing one 32-row
    partial; their times with and without the residual beside the plain
    versions', the bound and F.layer_norm(res + h) with its autograd
-   backward;
+   backward; the dropout variants (p = 0.1, the mask keyed by the
+   reference's row tile) at bert-base rows, a ragged R with H = 1024 and
+   H = 100, f32 and bf16: dh's zeros equal to the plain mask's, every
+   output within the tolerance, repeat bits, the mask keyed by the CUDA
+   block's rows rejected, and their times beside F.dropout -> + res ->
+   F.layer_norm;
 21. the projection-LayerNorm kernels through their custom ops against
    their plain versions (R=16384, Hin=Hout=768 and 1024; a ragged R with
    Hin != Hout; f32 and bf16); two backward calls give the same bits;
@@ -108,12 +114,18 @@ Phases, one line each; any failure raises and exits non-zero:
    them; the widest Hout the kernels take, reckoned in Python (the
    functional's routing rule), equal to the library's, and Hout = 2048
    through fused_attn_proj_residual_layer_norm on the card (the dense
-   route) against the plain version;
+   route) against the plain version; the dropout variants as phase 20's
+   (dp's zeros against the plain mask; the times beside addmm ->
+   F.dropout -> + res -> F.layer_norm);
 22. the flash kernels' key-padding variant against their plain versions
    at bert-base's attention (B=32, 12 heads, S=512, D=64, valid lengths
    128-512 from the seed, bf16; B=4 in f32; a ragged S=200 in both),
    masked keys getting no dK;
-   their times beside SDPA with the same additive mask;
+   their times beside SDPA with the same additive mask; the dropout
+   variants (p = 0.1, keyed by the reference's tile: (128, 128) in bf16,
+   (256, 512) in f32) against their plain versions with repeat bits, the
+   mask keyed by the kernels' own 64-row tile rejected, their times
+   beside SDPA with the same mask and dropout_p = 0.1;
 23. train bert-base (random weights from a seed, bf16, full width and
    depth, dropout rates 0) through BertForPretraining.loss and AdamW (lr
    1e-4, weight decay 0.01) at B=32, S=512 on one fixed padded batch
@@ -165,6 +177,23 @@ Phases, one line each; any failure raises and exits non-zero:
    statistics with the BN kernels and with the dense BatchNorm, each
    against the dense route in f64 (the kernels at most 3x as far from it
    as the dense f32 route);
+32. the dropout keep-mask: the device hash of each library that draws
+   masks (its debug entry) against the plain version bit for bit at
+   bert-base's keys (the flash score matrices at the bf16 and f32 tiles,
+   the LayerNorm's and projection-LN's rows), the kept share within 4
+   sigma of 0.9;
+33. train bert-base at its default config (dropout 0.1 / 0.1, no cut) as
+   phase 23 does: exactly 12 of each flash and projection-LN dropout
+   variant, 12 LayerNorm dropout and 2 dropout-free LayerNorm launches a
+   step (the embeddings' and the MLM transform's), and 12 of each fused
+   MLP kernel;
+34. its profile, and the embeddings' dense mask (F.dropout of [32, 512,
+   768] bf16) timed alone;
+35. the same at the default dropout with the fused norms and MLP off;
+36. parity in fp32 at bert-base width, 2 layers, B=4, S=512, dropout
+   0.1 / 0.1: the loss and every gradient with the kernels on the card
+   against the port's CPU route (the plain versions) from the same
+   weights and generator seed, the generators' states equal after;
 then the card's name and power limit again, the kernels' JSON line and
 the final status line. Every kernel time is device time (cuda_ms: the
 calls queued behind a spin of the card, so the host's launch rate does
@@ -980,21 +1009,33 @@ def model_flops_per_step(cfg, tokens, seq):
     return 6.0 * weights * tokens + attn
 
 
-def reset_launches():
-    """Every kernel count of the training paths to 0."""
+def _launch_counts():
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     from paddle_tpu_torch.kernels import norm_fusion as nf
-    for counts in (fa.launches, mf.launches, nf.launches):
+    return ((fa.launches, mf.launches, nf.launches),
+            (fa.dropout_launches, mf.dropout_launches, nf.dropout_launches))
+
+
+def reset_launches():
+    """Every kernel count of the training paths to 0, the dropout
+    variants' included."""
+    plain, drop = _launch_counts()
+    for counts in plain + drop:
         for key in counts:
             counts[key] = 0
 
 
 def read_launches():
-    from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.kernels import mlp_fusion as mf
-    from paddle_tpu_torch.kernels import norm_fusion as nf
-    return {**fa.launches, **mf.launches, **nf.launches}
+    """The counts by kernel name; a dropout variant's under
+    ``dropout_<name>``."""
+    plain, drop = _launch_counts()
+    out = {}
+    for counts in plain:
+        out.update(counts)
+    for counts in drop:
+        out.update({f"dropout_{k}": n for k, n in counts.items()})
+    return out
 
 
 def phase_train(torch, cfg, fused, steps=TRAIN_STEPS):
@@ -1626,6 +1667,10 @@ LN_REPLACES = {
 # 2^-7. Readings on an H100 in the first run of these kernels: 3.4e-7
 # (f32), 0.0034 (bf16).
 LN_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+# integer operations of the dropout hash per element (common.cuh keep_mix
+# and the tile index: two multiplies, six shifts and xors, the index's
+# multiply-add and the compare), counted at the CUDA cores' f32 rate
+HASH_OPS = 12
 BERT_R, BERT_H = 16384, 768          # bert-base at B=32, S=512
 LN_CASES = [(BERT_R, BERT_H), (BERT_R - 1, BERT_H), (4096, 1024),
             (4096, 2048)]
@@ -1651,17 +1696,20 @@ def ln_inputs(torch, r, h, dtype, seed, res=True, lin_b=False):
                 g=rnd(r, h).to(dtype))
 
 
-def ln_bounds(r, h, esize, res):
+def ln_bounds(r, h, esize, res, drop=False):
     """bound_ms and what bounds it: the forward reads h (and res) and
     writes y, mean and rstd; the backward reads h (and res), g, mean and
     rstd and writes dh (and dres), dw and db, each once at 3.35 TB/s; ~10
-    flops per element on the CUDA cores (67 TFLOP/s f32) take far less."""
+    flops per element on the CUDA cores (67 TFLOP/s f32) take far less,
+    with dropout the hash's ~12 integer operations an element more
+    (HASH_OPS, at the same rate)."""
     rows, rowvec, vec = r * h * esize, r * 4, h * 4
     n = 2 if res else 1
-    work = {"fused_ln_fwd": (10.0 * r * h, n * rows + 2 * vec + rows
+    extra = HASH_OPS * r * h if drop else 0.0
+    work = {"fused_ln_fwd": (10.0 * r * h + extra, n * rows + 2 * vec + rows
                              + 2 * rowvec),
-            "fused_ln_bwd": (12.0 * r * h, (n + 1) * rows + vec + 2 * rowvec
-                             + n * rows + 2 * vec)}
+            "fused_ln_bwd": (12.0 * r * h + extra, (n + 1) * rows + vec
+                             + 2 * rowvec + n * rows + 2 * vec)}
     out = {}
     for name, (flops, nbytes) in work.items():
         t_ops = flops / H100_FLOPS["float32"]
@@ -1693,6 +1741,7 @@ def phase_ln_vs_plain(torch):
     one 32-row partial of its column sums. Then the times of the BERT FFN
     close (residual, no bias) and of the embeddings' LayerNorm
     (neither)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import norm_fusion as nf
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1743,7 +1792,8 @@ def phase_ln_vs_plain(torch):
                 autograd_bf16=ln_autograd(torch, nf),
                 wrong_kernel_reading=ln_check_rejects(torch, nf),
                 times={"residual": ln_times(torch, nf, True),
-                       "plain_ln": ln_times(torch, nf, False)})
+                       "plain_ln": ln_times(torch, nf, False)},
+                dropout=ln_dropout(torch, nf, fa))
 
 
 def ln_autograd(torch, nf):
@@ -1811,25 +1861,28 @@ def ln_check_rejects(torch, nf):
     return readings
 
 
-def ln_times(torch, nf, res):
+def ln_times(torch, nf, res, key=None):
     """Device times at R=16384, H=768, bf16 (with the residual: the FFN
     close; without: the embeddings' and the MLM transform's LayerNorm):
     each op in turns with its plain version; the library yardstick (never
     called by the port) is F.layer_norm of res + h and its autograd
-    backward."""
+    backward. With a dropout ``key``: the dropout variants, and
+    F.layer_norm(res + F.dropout(h)) as the yardstick."""
     x = ln_inputs(torch, BERT_R, BERT_H, torch.bfloat16, 5, res)
     h, r, w, b, g = x["h"], x["res"], x["w"], x["b"], x["g"]
-    y, mean, rstd = nf.fused_ln_fwd(h, r, None, w, b, 1e-12)
+    d = () if key is None else (key.p, key.s0, key.s1, key.rows)
+    y, mean, rstd = nf.fused_ln_fwd(h, r, None, w, b, 1e-12, *d)
     runs = {
-        "fused_ln_fwd": (lambda _: nf.fused_ln_fwd(h, r, None, w, b, 1e-12),
+        "fused_ln_fwd": (lambda _: nf.fused_ln_fwd(h, r, None, w, b, 1e-12,
+                                                   *d),
                          lambda _: nf.fused_ln_fwd_ref(h, r, None, w, b,
-                                                       1e-12)),
+                                                       1e-12, key)),
         "fused_ln_bwd": (lambda _: nf.fused_ln_bwd(h, r, None, w, b, mean,
-                                                   rstd, g),
+                                                   rstd, g, *d),
                          lambda _: nf.fused_ln_bwd_ref(h, r, None, w, mean,
-                                                       rstd, g)),
+                                                       rstd, g, key)),
     }
-    bounds = ln_bounds(BERT_R, BERT_H, 2, res)
+    bounds = ln_bounds(BERT_R, BERT_H, 2, res, key is not None)
     out = {}
     for name, (kern, plain) in runs.items():
         plain_ms, ms, t = in_turns(plain, kern)
@@ -1839,6 +1892,8 @@ def ln_times(torch, nf, res):
     layer_norm = torch.nn.functional.layer_norm
 
     def library(hh, rr, ww, bb):
+        if key is not None:
+            hh = torch.nn.functional.dropout(hh, key.p)
         return layer_norm(hh if rr is None else rr + hh, (BERT_H,), ww, bb,
                           1e-12)
 
@@ -1852,7 +1907,8 @@ def ln_times(torch, nf, res):
         lambda _: torch.autograd.grad(yl, leaves, g, retain_graph=True),
         runs["fused_ln_bwd"][0])
     out["timed_at"] = dict(r=BERT_R, h=BERT_H, dtype="bfloat16",
-                           residual=res, lin_b=False)
+                           residual=res, lin_b=False,
+                           dropout=None if key is None else key.p)
     del x, h, r, w, b, g, y, mean, rstd, prim, rg, yl, leaves
     torch.cuda.empty_cache()
     return out
@@ -1882,7 +1938,9 @@ def pl_bounds(r, hin, hout, esize):
     """The forward reads x, W and res and writes y (and the row stats);
     its product is 2 R Hin Hout flops at 989 TFLOP/s. The backward reads
     x, W, res, g and the stats, writes dz and dp in f32 and dgamma, dbeta,
-    and repeats the product."""
+    and repeats the product. Dropout moves no byte more; its hash's
+    R Hout integer operations run on the CUDA cores beside the tensor
+    cores' product, and the bound stays the bytes."""
     flops = 2.0 * r * hin * hout
     rows_in, rows_out = r * hin * esize, r * hout * esize
     wbytes, rowvec, vec = hin * hout * esize, r * 4, hout * 4
@@ -1913,7 +1971,9 @@ def phase_proj_ln_vs_plain(torch):
     missing one 32-row partial. Then their times at bert-base shape, and
     the f32 products the backward runs outside the kernel (dx, dW, db
     from dp)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import mlp_fusion as mf
+    from paddle_tpu_torch.kernels import norm_fusion as nf
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -1958,6 +2018,7 @@ def phase_proj_ln_vs_plain(torch):
                 autograd_bf16=pl_autograd(torch, mf),
                 wrong_kernel_reading=pl_check_rejects(torch, mf),
                 wide_hout=pl_wide_hout(torch, mf),
+                dropout=pl_dropout(torch, mf, nf, fa),
                 **pl_times(torch, mf))
 
 
@@ -2080,26 +2141,31 @@ def pl_check_rejects(torch, mf):
     return readings
 
 
-def pl_times(torch, mf):
+def pl_times(torch, mf, key=None):
     """Device times at R=16384, Hin=Hout=768, bf16: each op in turns with
     its plain version; the library yardstick (never called by the port)
     is F.layer_norm(res + addmm(b, x, W)) and its autograd backward (dx,
     dW, db, dres, dgamma, dbeta), beside which the port's whole backward
     (the op, then dx = dp.W^T, dW = x^T.dp and db = sum dp in f32 with the
-    casts, as _proj_ln_backward runs them) is timed too."""
+    casts, as _proj_ln_backward runs them) is timed too. With a dropout
+    ``key``: the dropout variants, and F.dropout on the addmm in the
+    yardstick."""
     x = pl_inputs(torch, BERT_R, BERT_H, BERT_H, torch.bfloat16, 9)
     xx, w, b, res, lnw, lnb, g = (x[k] for k in ("x", "w", "b", "res", "lnw",
                                                  "lnb", "g"))
-    y, mean, rstd = mf.fused_proj_ln_fwd(xx, w, b, res, lnw, lnb, 1e-12)
+    d = () if key is None else (key.p, key.s0, key.s1, key.rows)
+    y, mean, rstd = mf.fused_proj_ln_fwd(xx, w, b, res, lnw, lnb, 1e-12, *d)
     runs = {
         "fused_proj_ln_fwd": (
-            lambda _: mf.fused_proj_ln_fwd(xx, w, b, res, lnw, lnb, 1e-12),
+            lambda _: mf.fused_proj_ln_fwd(xx, w, b, res, lnw, lnb, 1e-12,
+                                           *d),
             lambda _: mf.fused_proj_ln_fwd_ref(xx, w, b, res, lnw, lnb,
-                                               1e-12)),
+                                               1e-12, key)),
         "fused_proj_ln_bwd": (
-            lambda _: mf.fused_proj_ln_bwd(xx, w, b, res, lnw, mean, rstd, g),
+            lambda _: mf.fused_proj_ln_bwd(xx, w, b, res, lnw, mean, rstd, g,
+                                           *d),
             lambda _: mf.fused_proj_ln_bwd_ref(xx, w, b, res, lnw, mean,
-                                               rstd, g)),
+                                               rstd, g, key)),
     }
     bounds = pl_bounds(BERT_R, BERT_H, BERT_H, 2)
     out = {}
@@ -2111,8 +2177,10 @@ def pl_times(torch, mf):
     layer_norm = torch.nn.functional.layer_norm
 
     def library(xx, w, wb, res, lw, lb):
-        return layer_norm(res + torch.addmm(wb, xx, w), (BERT_H,), lw, lb,
-                          1e-12)
+        p = torch.addmm(wb, xx, w)
+        if key is not None:
+            p = torch.nn.functional.dropout(p, key.p)
+        return layer_norm(res + p, (BERT_H,), lw, lb, 1e-12)
 
     out["fused_proj_ln_fwd"]["library_ms"], _, _ = in_turns(
         lambda _: library(xx, w, wb, res, lw, lb), runs["fused_proj_ln_fwd"][0])
@@ -2121,7 +2189,7 @@ def pl_times(torch, mf):
     out["fused_proj_ln_bwd"]["library_ms"], _, _ = in_turns(
         lambda _: torch.autograd.grad(yl, prim, g, retain_graph=True),
         runs["fused_proj_ln_bwd"][0])
-    _, dp, _, _ = mf.fused_proj_ln_bwd(xx, w, b, res, lnw, mean, rstd, g)
+    _, dp, _, _ = mf.fused_proj_ln_bwd(xx, w, b, res, lnw, mean, rstd, g, *d)
 
     def f32_products(_):
         return ((dp @ w.float().T).to(xx.dtype),
@@ -2129,7 +2197,7 @@ def pl_times(torch, mf):
 
     def whole_bwd(_):
         dz, dp_, dg, dbeta = mf.fused_proj_ln_bwd(xx, w, b, res, lnw, mean,
-                                                  rstd, g)
+                                                  rstd, g, *d)
         return ((dp_ @ w.float().T).to(xx.dtype),
                 (xx.float().T @ dp_).to(w.dtype), dp_.sum(0),
                 dz.to(res.dtype), dg, dbeta)
@@ -2143,7 +2211,8 @@ def pl_times(torch, mf):
         note="the kernel plus dx = dp.W^T, dW = x^T.dp (f32, W and x cast to "
              "f32, as the reference) and db = sum dp, with the casts")
     out["timed_at"] = dict(r=BERT_R, hin=BERT_H, hout=BERT_H,
-                           dtype="bfloat16")
+                           dtype="bfloat16",
+                           dropout=None if key is None else key.p)
     del x, xx, w, b, res, lnw, lnb, g, y, mean, rstd, prim, yl, dp
     torch.cuda.empty_cache()
     return out
@@ -2173,7 +2242,7 @@ def kv_bias_for(torch, lengths, s):
     return torch.where(col < n, 0.0, -1e30).float().contiguous()
 
 
-def flash_bias_bounds(lengths, s, nh, d, esize):
+def flash_bias_bounds(lengths, s, nh, d, esize, drop=False):
     """bound_ms and what bounds it for each kernel, counting the work this
     batch's valid keys need: the products over the (query, valid key)
     pairs (s x length per row and head; fwd 2, dQ 3, dK/dV 4 products of
@@ -2181,7 +2250,10 @@ def flash_bias_bounds(lengths, s, nh, d, esize):
     bytes moved once at 3.35 TB/s: q (dO, o, dq) whole, k, v and the
     bias over the valid keys only (a wholly masked key tile is skipped,
     its rows never read), lse and delta; dk and dv written whole (the
-    masked keys' rows are zeros the kernel must write)."""
+    masked keys' rows are zeros the kernel must write). Dropout moves no
+    byte more; its hash takes HASH_OPS integer operations per pair on the
+    CUDA cores (at the f32 rate, beside the tensor cores' products), and
+    the bound is the largest of the three times."""
     valid = float(sum(int(n) for n in lengths))
     pairs = valid * s * nh
     prod = 2.0 * pairs * d
@@ -2192,9 +2264,13 @@ def flash_bias_bounds(lengths, s, nh, d, esize):
     work = {"flash_fwd": (2 * prod, 2 * mat + kv + row + bias),
             "flash_dq": (3 * prod, 3 * mat + kv + 2 * row + bias),
             "flash_dkv": (4 * prod, 4 * mat + kv + 2 * row + bias)}
+    # the dK/dV kernel draws each pair's mask twice (for dV and for dS)
+    hashes = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 2}
     out = {}
     for name, (flops, nbytes) in work.items():
-        t_ops = flops / H100_FLOPS["bfloat16"]
+        t_ops = max(flops / H100_FLOPS["bfloat16"],
+                    hashes[name] * HASH_OPS * pairs / H100_FLOPS["float32"]
+                    if drop else 0.0)
         t_bytes = nbytes / H100_BYTES_PER_S
         out[name] = (max(t_ops, t_bytes) * 1e3,
                      "operations" if t_ops >= t_bytes else "bytes")
@@ -2254,10 +2330,15 @@ def phase_flash_bias_vs_plain(torch):
                            for k, (e, r) in w.items()}
                        for n, w in worst.items()},
                 cases=[[str(d).split(".")[-1], b, s] for d, b, s in cases],
+                dropout=flash_dropout(torch, fa),
                 **flash_bias_times(torch, fa, scale))
 
 
-def flash_bias_times(torch, fa, scale):
+def flash_bias_times(torch, fa, scale, key=None):
+    """Device times at bert-base's attention (bf16): each kernel in turns
+    with its plain version, the forward beside SDPA with the same additive
+    mask, the whole backward beside SDPA's; with a dropout ``key``, the
+    dropout variants beside SDPA with dropout_p = key.p."""
     lengths = bert_lengths(BERT_B, BERT_S, seed=BERT_B)
     bias = kv_bias_for(torch, lengths, BERT_S)
     bh = BERT_B * BERT_NH
@@ -2265,9 +2346,9 @@ def flash_bias_times(torch, fa, scale):
     q, k, v, do = (torch.randn(bh, BERT_S, BERT_D, generator=g,
                                device="cuda").to(torch.bfloat16)
                    for _ in range(4))
-    out, lse = fa.flash_fwd(q, k, v, False, scale, bias, BERT_NH)
+    a = (False, scale, bias, BERT_NH, key)
+    out, lse = fa._fwd_cuda(q, k, v, *a)
     delta = fa._delta(out, do)
-    a = (False, scale, bias, BERT_NH)
     runs = {
         "flash_fwd": (lambda _: fa._fwd_cuda(q, k, v, *a),
                       lambda _: fa.flash_fwd_ref(q, k, v, *a)),
@@ -2278,7 +2359,8 @@ def flash_bias_times(torch, fa, scale):
                                                  *a)),
     }
     res = {}
-    bounds = flash_bias_bounds(lengths, BERT_S, BERT_NH, BERT_D, 2)
+    bounds = flash_bias_bounds(lengths, BERT_S, BERT_NH, BERT_D, 2,
+                               key is not None)
     for name, (kern, plain) in runs.items():
         plain_ms, ms, t = in_turns(plain, kern)
         res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, all_ms=t,
@@ -2287,10 +2369,12 @@ def flash_bias_times(torch, fa, scale):
     qh, kh, vh, doh = (x.view(BERT_B, BERT_NH, BERT_S, BERT_D)
                        for x in (q, k, v, do))
     mask = bias.clamp_min(-1e9).to(torch.bfloat16)[:, None, None, :]
+    p = 0.0 if key is None else key.p
     res["flash_fwd"]["library_ms"], _, _ = in_turns(
-        lambda _: sdpa(qh, kh, vh, attn_mask=mask), runs["flash_fwd"][0])
+        lambda _: sdpa(qh, kh, vh, attn_mask=mask, dropout_p=p),
+        runs["flash_fwd"][0])
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
-    og = sdpa(qg, kg, vg, attn_mask=mask)
+    og = sdpa(qg, kg, vg, attn_mask=mask, dropout_p=p)
     sdpa_bwd_ms, bwd_ms, t = in_turns(
         lambda _: torch.autograd.grad(og, (qg, kg, vg), doh,
                                       retain_graph=True),
@@ -2299,7 +2383,7 @@ def flash_bias_times(torch, fa, scale):
                            bound_ms=bounds["flash_dq"][0]
                            + bounds["flash_dkv"][0])
     res["timed_at"] = dict(b=BERT_B, nh=BERT_NH, s=BERT_S, d=BERT_D,
-                           dtype="bfloat16", causal=False,
+                           dtype="bfloat16", causal=False, dropout=p,
                            valid_keys=int(sum(int(n) for n in lengths)),
                            lengths_min_mean_max=[
                                int(min(lengths)),
@@ -2314,13 +2398,31 @@ def flash_bias_times(torch, fa, scale):
 # ---------------------------------------------------------------------------
 
 BERT_LR = 1e-4
-# kernel launches per step: LayerNorm at the embeddings, the 12 FFN closes
-# and the MLM transform; projection-LN at the 12 attention closes; each
-# flash and fused MLP kernel once per layer
-BERT_LAUNCHES = dict(fused_ln_fwd=14, fused_ln_bwd=14, fused_proj_ln_fwd=12,
-                     fused_proj_ln_bwd=12, flash_fwd=12, flash_dq=12,
-                     flash_dkv=12, fused_mlp_fwd=12, fused_mlp_dx=12,
-                     fused_mlp_dw=12)
+
+
+def bert_launches(cfg, fused):
+    """Kernel launches per step: LayerNorm at the embeddings, the L FFN
+    closes and the MLM transform; projection-LN at the L attention closes;
+    each flash and fused MLP kernel once per layer (L = 12: 14, 12, 12).
+    At a rate above 0 the sites it drops launch the dropout variants
+    (read_launches' ``dropout_<name>``): the flash kernels with the
+    attention rate, the FFN closes' LayerNorm and the projection-LN with
+    the hidden rate; the embeddings' and the MLM transform's LayerNorm
+    stay dropout-free. With the fused flags off only the flash kernels
+    run."""
+    L = cfg.num_hidden_layers
+    attn = "dropout_" if cfg.attention_probs_dropout_prob > 0 else ""
+    want = {attn + k: L for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    if fused:
+        hid = "dropout_" if cfg.hidden_dropout_prob > 0 else ""
+        want.update({k: L for k in ("fused_mlp_fwd", "fused_mlp_dx",
+                                    "fused_mlp_dw")})
+        want.update({hid + k: L for k in ("fused_proj_ln_fwd",
+                                          "fused_proj_ln_bwd")})
+        for k in ("fused_ln_fwd", "fused_ln_bwd"):
+            want[k] = 2
+            want[hid + k] = want.get(hid + k, 0) + L
+    return want
 
 
 def bert_batch(torch, cfg, b, s, seed):
@@ -2355,8 +2457,10 @@ def bert_trainer(torch, cfg, seed=0):
     recorded around the AdamW update); step(check_update=True) also holds
     the update against AdamW's rule (adamw_first_step_reading; the first
     step only: it takes the moments as zero)."""
+    from paddle_tpu_torch import seed as framework_seed
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.optimizer import AdamW
+    framework_seed(seed)        # the dropout masks' generator
     model = bert.BertForPretraining(cfg, seed=seed)
     opt = AdamW(learning_rate=BERT_LR, weight_decay=0.01,
                 parameters=model.parameters())
@@ -2417,8 +2521,9 @@ def adamw_first_step_reading(torch, params, before):
 def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
     """Train cfg at B=32, S=512 on one fixed padded batch: one warm-up
     step, then `steps` steps, with FLAGS_fused_norm and FLAGS_fused_mlp as
-    `fused` says. Fused: exactly BERT_LAUNCHES per step; dense: the flash
-    kernels only (the key-padding variant stays on both routes)."""
+    `fused` says, at cfg's dropout rates. Exactly bert_launches(cfg,
+    fused) per step (dense: the flash kernels only; the key-padding
+    variant stays on both routes)."""
     from paddle_tpu_torch import set_flags
     from paddle_tpu_torch.nn.functional import (last_attn_path,
                                                 last_mlp_path,
@@ -2456,16 +2561,20 @@ def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
                   dict(norm="dense", mlp="dense", attn="flash_masked/cuda"))
     check(paths == want_paths, f"bert took the paths {paths} with the fused "
           f"flags {fused}")
+    want = bert_launches(cfg, fused)
     for key, n in counts.items():
-        per_step = BERT_LAUNCHES.get(key, 0)
-        if not fused and not key.startswith("flash"):
-            per_step = 0
+        per_step = want.get(key, 0)
         check(n == per_step * steps, f"{key} launched {n} times in {steps} "
-              f"bert steps (want {per_step * steps}; fused flags {fused})")
+              f"bert steps (want {per_step * steps}; fused flags {fused}, "
+              f"dropout {cfg.hidden_dropout_prob}, "
+              f"{cfg.attention_probs_dropout_prob})")
     tokens = BERT_B * BERT_S
     flops = bert_flops_per_step(cfg, BERT_B, BERT_S, lengths)
     ms = wall / steps * 1e3
-    out = dict(config="bert-base", dropout=0.0, layers=cfg.num_hidden_layers,
+    out = dict(config="bert-base",
+               dropout=dict(hidden=cfg.hidden_dropout_prob,
+                            attention=cfg.attention_probs_dropout_prob),
+               layers=cfg.num_hidden_layers,
                b=BERT_B, s=BERT_S, dtype="bfloat16", fused=fused,
                paths=paths, lr=BERT_LR, weight_decay=0.01,
                valid_tokens=int(sum(int(n) for n in lengths)),
@@ -2588,6 +2697,398 @@ def phase_bert_parity_fp32(torch):
     return dict(loss_fused=lf, loss_dense=ld,
                 worst_grad_relative_fused_vs_dense=worst, tolerance=tol,
                 leaves=leaves)
+
+
+# ---------------------------------------------------------------------------
+# the dropout variants of kernels 1-3, 10, 11, 13, 14 (in phases 20-22),
+# the device hash against its plain version (phase 32) and bert-base
+# pretraining at its default dropout (phases 33-36)
+# ---------------------------------------------------------------------------
+
+DROP_P = 0.1                          # bert-base's two rates
+DROP_SEED = (0x9E3779B9, 0x80000001)  # one generator key; words above 2^31
+DROP_NAMES = {"flash_fwd": "flash_fwd_dropout", "flash_dq": "flash_dq_dropout",
+              "flash_dkv": "flash_dkv_dropout",
+              "fused_ln_fwd": "fused_ln_fwd_dropout",
+              "fused_ln_bwd": "fused_ln_bwd_dropout",
+              "fused_proj_ln_fwd": "fused_proj_ln_fwd_dropout",
+              "fused_proj_ln_bwd": "fused_proj_ln_bwd_dropout"}
+
+
+def drop_key(fa, rows, cols, seed=DROP_SEED):
+    return fa.DropKey(DROP_P, seed[0], seed[1], rows, cols)
+
+
+def mask_mismatches(grad, keep):
+    """Elements whose zero or nonzero disagrees with the mask: a dropped
+    gradient (LayerNorm's dh, projection-LN's dp) is 0 exactly where the
+    mask drops (a kept value of exactly 0 does not occur on random
+    data)."""
+    return int(((grad == 0) != ~keep).sum())
+
+
+# (r, h, residual, lin_b): bert-base's FFN close (residual, no bias), with
+# a bias, a ragged R with H = 1024 (bias, no residual), and H = 100, whose
+# bf16 rows are no whole 16-byte vectors (the generic kernels)
+LN_DROP_CASES = [(BERT_R, BERT_H, True, False), (BERT_R, BERT_H, True, True),
+                 (BERT_R - 1, 1024, False, True), (77, 100, True, True)]
+
+
+def ln_dropout(torch, nf, fa):
+    """The LayerNorm ops' dropout variants against their plain versions,
+    f32 and bf16, keyed by the reference's row tile (``ln_block_r``): y,
+    mean, rstd, dh, dres, dlin_b, dw, db within LN_TOL; dh's zeros are
+    the plain mask's, exactly; two backward calls give the same bits.
+    The check shown to reject the mask keyed by a CUDA block's 32 rows.
+    Then the times of bert-base's FFN close with dropout."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for r, h, has_res, has_lb in LN_DROP_CASES:
+            x = ln_inputs(torch, r, h, dtype, r + h + 1, has_res, has_lb)
+            key = drop_key(fa, nf.ln_block_r(r, h, dtype), h)
+            d = (key.p, key.s0, key.s1, key.rows)
+            args = (x["h"], x["res"], x["lin_b"], x["w"], x["b"])
+            y, mean, rstd = nf.fused_ln_fwd(*args, 1e-12, *d)
+            grads = nf.fused_ln_bwd(*args, mean, rstd, x["g"], *d)
+            again = nf.fused_ln_bwd(*args, mean, rstd, x["g"], *d)
+            dh, dres, dlb, dw, db = grads
+            ry, rmean, rrstd = nf.fused_ln_fwd_ref(*args, 1e-12, key)
+            dz, rdw, rdb, rdlb = nf.fused_ln_bwd_ref(*args[:4], mean, rstd,
+                                                     x["g"], key)
+            keep = nf.row_keep_ref(key, x["h"])
+            torch.cuda.synchronize()
+            what = f"{name} r={r} h={h} res={has_res} lin_b={has_lb}"
+            check(all(same_bits(a, b) for a, b in zip(again, grads)),
+                  f"fused LN dropout backward differs between two calls "
+                  f"({what})")
+            off = mask_mismatches(dh, keep)
+            check(off == 0, f"fused LN dropout: dh's zeros differ from the "
+                  f"plain mask at {off} elements ({what})")
+            outs = [("y", y, ry), ("mean", mean, rmean),
+                    ("rstd", rstd, rrstd), ("dh", dh, nf._dropped(dz, key)),
+                    ("dw", dw, rdw), ("db", db, rdb)]
+            if has_res:
+                outs.append(("dres", dres, dz))
+            if has_lb:
+                outs.append(("dbias", dlb, rdlb))
+            for label, got, ref in outs:
+                check(bool(torch.isfinite(got).all()),
+                      f"fused LN dropout {label} not finite ({what})")
+                err, rel = rel_err(got, ref)
+                check(rel <= LN_TOL[name],
+                      f"fused LN dropout {label} disagrees with plain: "
+                      f"{what} max_abs_err={err} relative {rel} > "
+                      f"{LN_TOL[name]}")
+                kern = ("fused_ln_fwd" if label in ("y", "mean", "rstd")
+                        else "fused_ln_bwd")
+                w = worst.setdefault(name, {}).setdefault(kern, [0., 0.])
+                w[0], w[1] = max(w[0], err), max(w[1], rel)
+            del x, args, y, mean, rstd, grads, again, dh, dres, dlb, dw, db
+            del ry, rmean, rrstd, dz, rdw, rdb, rdlb, keep
+    # the planted fault: the kernels keyed by a CUDA block's rows
+    x = ln_inputs(torch, BERT_R, BERT_H, torch.bfloat16, 37, True)
+    args = (x["h"], x["res"], None, x["w"], x["b"])
+    key = drop_key(fa, nf.ln_block_r(BERT_R, BERT_H, torch.bfloat16), BERT_H)
+    ry, mean, rstd = nf.fused_ln_fwd_ref(*args, 1e-12, key)
+    wrong = (key.p, key.s0, key.s1, 32)
+    y_w, _, _ = nf.fused_ln_fwd(*args, 1e-12, *wrong)
+    dh_w = nf.fused_ln_bwd(*args, mean, rstd, x["g"], *wrong)[0]
+    fault = dict(cuda_tile_rows=32, reference_tile_rows=key.rows,
+                 y_relative=rel_err(y_w, ry)[1],
+                 dh_mask_mismatches=mask_mismatches(
+                     dh_w, nf.row_keep_ref(key, x["h"])))
+    check(fault["y_relative"] > LN_TOL["bfloat16"]
+          and fault["dh_mask_mismatches"] > 0,
+          f"the LN dropout checks pass the mask keyed by the CUDA tile: "
+          f"{fault}")
+    del x, args, ry, mean, rstd, y_w, dh_w
+    torch.cuda.empty_cache()
+    return dict(worst={n: {k: dict(max_abs_err=e, relative=r)
+                           for k, (e, r) in w.items()}
+                       for n, w in worst.items()},
+                cases=[list(c) for c in LN_DROP_CASES],
+                key_tile_rows_bf16=key.rows, planted_fault=fault,
+                times=ln_times(torch, nf, True, key))
+
+
+PL_DROP_CASES = [(BERT_R, BERT_H, BERT_H), (1000, 512, 768)]
+
+
+def pl_dropout(torch, mf, nf, fa):
+    """The projection-LN ops' dropout variants against their plain
+    versions, f32 and bf16, keyed by ``mlp_blocks``'s row tile: y, mean,
+    rstd, dz, dp, dgamma, dbeta within LN_TOL; dp's zeros are the plain
+    mask's, exactly; two backward calls give the same bits. The check
+    shown to reject the mask keyed by the kernel's 32-row block. Then
+    the times at bert-base's shape with dropout."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for r, hin, hout in PL_DROP_CASES:
+            x = pl_inputs(torch, r, hin, hout, dtype, r + hin + hout + 1)
+            key = drop_key(fa, mf.mlp_blocks(r, hout, hin, dtype=dtype)[0],
+                           hout)
+            d = (key.p, key.s0, key.s1, key.rows)
+            args = (x["x"], x["w"], x["b"], x["res"], x["lnw"])
+            y, mean, rstd = mf.fused_proj_ln_fwd(*args, x["lnb"], 1e-12, *d)
+            grads = mf.fused_proj_ln_bwd(*args, mean, rstd, x["g"], *d)
+            again = mf.fused_proj_ln_bwd(*args, mean, rstd, x["g"], *d)
+            ry, rmean, rrstd = mf.fused_proj_ln_fwd_ref(*args, x["lnb"],
+                                                        1e-12, key)
+            refs = mf.fused_proj_ln_bwd_ref(*args, mean, rstd, x["g"], key)
+            keep = nf.row_keep_ref(key, x["res"])
+            torch.cuda.synchronize()
+            what = f"{name} r={r} hin={hin} hout={hout}"
+            check(all(same_bits(a, b) for a, b in zip(again, grads)),
+                  f"proj-LN dropout backward differs between two calls "
+                  f"({what})")
+            off = mask_mismatches(grads[1], keep)
+            check(off == 0, f"proj-LN dropout: dp's zeros differ from the "
+                  f"plain mask at {off} elements ({what})")
+            for label, got, ref in zip(
+                    ("y", "mean", "rstd", "dz", "dp", "dgamma", "dbeta"),
+                    (y, mean, rstd, *grads), (ry, rmean, rrstd, *refs)):
+                check(bool(torch.isfinite(got).all()),
+                      f"proj-LN dropout {label} not finite ({what})")
+                err, rel = rel_err(got, ref)
+                check(rel <= LN_TOL[name],
+                      f"proj-LN dropout {label} disagrees with plain: "
+                      f"{what} max_abs_err={err} relative {rel} > "
+                      f"{LN_TOL[name]}")
+                kern = ("fused_proj_ln_fwd" if label in ("y", "mean", "rstd")
+                        else "fused_proj_ln_bwd")
+                w = worst.setdefault(name, {}).setdefault(kern, [0., 0.])
+                w[0], w[1] = max(w[0], err), max(w[1], rel)
+            del x, args, y, mean, rstd, grads, again, ry, rmean, rrstd, refs
+            del keep
+    x = pl_inputs(torch, BERT_R, BERT_H, BERT_H, torch.bfloat16, 41)
+    args = (x["x"], x["w"], x["b"], x["res"], x["lnw"])
+    key = drop_key(fa, mf.mlp_blocks(BERT_R, BERT_H, BERT_H,
+                                     dtype=torch.bfloat16)[0], BERT_H)
+    ry, mean, rstd = mf.fused_proj_ln_fwd_ref(*args, x["lnb"], 1e-12, key)
+    wrong = (key.p, key.s0, key.s1, mf._pl_lib().proj_ln_rows_per_block())
+    y_w, _, _ = mf.fused_proj_ln_fwd(*args, x["lnb"], 1e-12, *wrong)
+    dp_w = mf.fused_proj_ln_bwd(*args, mean, rstd, x["g"], *wrong)[1]
+    fault = dict(cuda_tile_rows=wrong[3], reference_tile_rows=key.rows,
+                 y_relative=rel_err(y_w, ry)[1],
+                 dp_mask_mismatches=mask_mismatches(
+                     dp_w, nf.row_keep_ref(key, x["res"])))
+    check(fault["y_relative"] > LN_TOL["bfloat16"]
+          and fault["dp_mask_mismatches"] > 0,
+          f"the proj-LN dropout checks pass the mask keyed by the CUDA "
+          f"tile: {fault}")
+    del x, args, ry, mean, rstd, y_w, dp_w
+    torch.cuda.empty_cache()
+    return dict(worst={n: {k: dict(max_abs_err=e, relative=r)
+                           for k, (e, r) in w.items()}
+                       for n, w in worst.items()},
+                cases=[list(c) for c in PL_DROP_CASES],
+                key_tile_rows_bf16=key.rows, planted_fault=fault,
+                **pl_times(torch, mf, key))
+
+
+def flash_dropout(torch, fa):
+    """The flash kernels' dropout variants with the key-padding bias
+    against their plain versions: bert-base's attention in bf16 (keyed by
+    the table's (128, 128)) and at B=4 in f32 (the heuristic's (256,
+    512)), and a ragged S=200 in both, each element within FLASH_TOL of
+    its row's scale; two backward calls give the same bits; the masks are
+    the device hash's, held bit for bit in phase 32. The check shown to
+    reject the mask keyed by the kernels' own 64-row tile. Then their
+    times beside SDPA with the same mask and dropout_p = 0.1."""
+    scale = BERT_D ** -0.5
+    worst = {}
+    cases = ((torch.float32, 4, BERT_S), (torch.bfloat16, BERT_B, BERT_S),
+             (torch.float32, 3, 200), (torch.bfloat16, 3, 200))
+    tiles = {}
+    for dtype, b, s in cases:
+        name = str(dtype).split(".")[-1]
+        lengths = bert_lengths(b, s, seed=b + 1)
+        bias = kv_bias_for(torch, lengths, s)
+        tile = fa.flash_drop_tile(s, s, False, dtype)
+        tiles[f"{name} s={s}"] = list(tile)
+        key = drop_key(fa, *tile)
+        g = torch.Generator(device="cuda").manual_seed(b + 1)
+        q, k, v, do = (torch.randn(b * BERT_NH, s, BERT_D, generator=g,
+                                   device="cuda").to(dtype) for _ in range(4))
+        a = (False, scale, bias, BERT_NH, key)
+        out, lse = fa._fwd_cuda(q, k, v, *a)
+        grads = fa._bwd_cuda(q, k, v, out, lse, do, *a)
+        again = fa._bwd_cuda(q, k, v, out, lse, do, *a)
+        rout, rlse = fa.flash_fwd_ref(q, k, v, *a)
+        rgrads = fa.flash_bwd_ref(q, k, v, out, lse, do, *a)
+        torch.cuda.synchronize()
+        what = f"{name} b={b} s={s} tile={tile}"
+        check(all(same_bits(x, y) for x, y in zip(again, grads)),
+              f"flash dropout backward differs between two calls ({what})")
+        for label, got, ref in zip(("out", "lse", "dq", "dk", "dv"),
+                                   (out, lse, *grads), (rout, rlse, *rgrads)):
+            check(bool(torch.isfinite(got).all()),
+                  f"flash dropout {label} not finite ({what})")
+            err = float((got.float() - ref.float()).abs().max())
+            rel = flash_reading(got, ref)
+            check(rel <= FLASH_TOL[name],
+                  f"flash dropout {label} disagrees with plain: {what} "
+                  f"max_abs_err={err} relative {rel} > {FLASH_TOL[name]}")
+            kern = {"out": "flash_fwd", "lse": "flash_fwd",
+                    "dq": "flash_dq"}.get(label, "flash_dkv")
+            w = worst.setdefault(name, {}).setdefault(kern, [0.0, 0.0])
+            w[0], w[1] = max(w[0], err), max(w[1], rel)
+        del q, k, v, do, out, lse, grads, again, rout, rlse, rgrads
+        torch.cuda.empty_cache()
+    # the planted fault: the kernels keyed by their own 64-row tile
+    lengths = bert_lengths(BERT_B, BERT_S, seed=BERT_B + 1)
+    bias = kv_bias_for(torch, lengths, BERT_S)
+    g = torch.Generator(device="cuda").manual_seed(43)
+    q, k, v = (torch.randn(BERT_B * BERT_NH, BERT_S, BERT_D, generator=g,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    key = drop_key(fa, *fa.flash_drop_tile(BERT_S, BERT_S, False,
+                                           torch.bfloat16))
+    ref, _ = fa.flash_fwd_ref(q, k, v, False, scale, bias, BERT_NH, key)
+    tile = 64 if (key.rows, key.cols) != (64, 64) else 32
+    wrong, _ = fa._fwd_cuda(q, k, v, False, scale, bias, BERT_NH,
+                            drop_key(fa, tile, tile))
+    fault = dict(cuda_tile=[tile, tile], reference_tile=[key.rows, key.cols],
+                 reading=flash_reading(wrong, ref))
+    check(fault["reading"] > FLASH_TOL["bfloat16"],
+          f"the flash dropout check passes the mask keyed by the CUDA tile: "
+          f"{fault}")
+    del q, k, v, ref, wrong
+    torch.cuda.empty_cache()
+    return dict(worst={n: {k: dict(max_abs_err=e, relative=r)
+                           for k, (e, r) in w.items()}
+                       for n, w in worst.items()},
+                cases=[[str(d).split(".")[-1], b, s] for d, b, s in cases],
+                key_tiles=tiles, planted_fault=fault,
+                **flash_bias_times(torch, fa, scale, key))
+
+
+def phase_dropout_bits(torch):
+    """The device hash (common.cuh's keep-mask, compiled into every
+    library; read through its debug entry ``dropout_bits``) against the
+    plain version, bit for bit, in each of the three libraries whose
+    kernels draw masks, at the keys of bert-base's path: the flash
+    score matrices [B·NH, S, S] at the bf16 tile (128, 128) and the f32
+    tile (256, 512), and the [B·S, H] rows at the LayerNorm's and the
+    projection-LN's bf16 row tiles. The kept share lies within 4 sigma of
+    0.9 in each."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    from paddle_tpu_torch.kernels import norm_fusion as nf
+    bh, bf = BERT_B * BERT_NH, torch.bfloat16
+    cases = {
+        "flash bf16": (drop_key(fa, *fa.flash_drop_tile(
+            BERT_S, BERT_S, False, bf)), (bh, BERT_S, BERT_S), False),
+        "flash f32": (drop_key(fa, *fa.flash_drop_tile(
+            BERT_S, BERT_S, False, torch.float32)), (bh, BERT_S, BERT_S),
+            False),
+        "layer_norm bf16": (drop_key(fa, nf.ln_block_r(BERT_R, BERT_H, bf),
+                                     BERT_H), (BERT_R, BERT_H), True),
+        "proj_ln bf16": (drop_key(fa, mf.mlp_blocks(BERT_R, BERT_H, BERT_H,
+                                                    dtype=bf)[0], BERT_H),
+                         (BERT_R, BERT_H), True)}
+    libs = {"flash_attention.cu": fa._lib(), "norm_fusion.cu": nf._lib(),
+            "proj_ln.cu": mf._pl_lib()}
+    out = {}
+    for label, (key, shape, rows) in cases.items():
+        ref = (fa.row_bits_ref(key, *shape, "cuda") if rows
+               else fa.flash_bits_ref(key, *shape, "cuda"))
+        kept = float((ref < key.threshold).double().mean())
+        n = ref.numel()
+        sigma = (DROP_P * (1 - DROP_P) / n) ** 0.5
+        check(abs(kept - (1 - DROP_P)) <= 4 * sigma,
+              f"dropout bits {label}: kept share {kept} beyond 4 sigma "
+              f"({sigma}) of {1 - DROP_P}")
+        for lib_name, lib in libs.items():
+            got = fa.dropout_bits_cuda(lib, key, shape, rows, "cuda")
+            differ = int((got != ref).sum())
+            check(differ == 0, f"dropout bits {label}: {lib_name}'s device "
+                  f"hash differs from the plain version at {differ} of {n}")
+            del got
+        out[label] = dict(tile=[key.rows, key.cols], shape=list(shape),
+                          elements=n, kept_share=kept, sigma=sigma,
+                          libraries_bitwise_equal=list(libs))
+        del ref
+        torch.cuda.empty_cache()
+    return dict(seed_pair=[hex(w) for w in DROP_SEED], p=DROP_P, cases=out)
+
+
+def phase_bert_dropout_parity_fp32(torch):
+    """fp32 at bert-base width, 2 layers, B=4, S=512 with padding, at the
+    default rates (0.1 / 0.1): the loss and every gradient with the
+    kernels on the card against the port's CPU route (the kernels' plain
+    versions) from the same weights and the same generator seed; the
+    masks are the same, so they agree as tightly as at rate 0. The card
+    launches each dropout variant; the generators end in the same state,
+    1 + 3·L splits past the seed."""
+    from paddle_tpu_torch import seed, set_flags
+    from paddle_tpu_torch.core import generator as gen
+    from paddle_tpu_torch.models import bert
+    cfg = bert.CONFIGS["bert-base"]._replace(num_hidden_layers=2)
+    set_flags({"FLAGS_fused_norm": True, "FLAGS_fused_mlp": True})
+    model = bert.BertForPretraining(cfg, dtype=torch.float32, seed=1)
+    cpu = bert.BertForPretraining(cfg, device="cpu", dtype=torch.float32,
+                                  seed=1)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    batch, _ = bert_batch(torch, cfg, 4, BERT_S, 1)
+
+    def run(m, b):
+        seed(7)
+        reset_launches()
+        loss = m.loss(*b[:3], attention_mask=b[3])
+        g = torch.autograd.grad(loss, list(m.parameters()))
+        state = gen.default_generator.get_state()
+        return loss.item(), g, read_launches(), state
+
+    lc, gcard, counts, state_c = run(model, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp, gplain, counts_p, state_p = run(cpu, tuple(t.cpu() for t in batch))
+    cpu_s = time.perf_counter() - t0
+    want = bert_launches(cfg, True)
+    check(all(counts[k] == n for k, n in want.items())
+          and sum(counts.values()) == sum(want.values()),
+          f"bert dropout parity on the card launched {counts} (want {want})")
+    check(not any(counts_p.values()), f"the CPU route launched {counts_p}")
+    fresh = gen.Generator(7)
+    for _ in range(1 + 3 * cfg.num_hidden_layers):
+        fresh.split_key()
+    check(torch.equal(state_c, state_p) and torch.equal(state_c,
+                                                        fresh.get_state()),
+          f"generator states after the step: card {state_c}, CPU {state_p}, "
+          f"want {fresh.get_state()}")
+    tol = 1e-4      # per leaf, relative to the leaf's largest gradient
+    worst = 0.0
+    for a, b in zip(gcard, gplain):
+        check(bool(torch.isfinite(a).all()), "parity gradient not finite")
+        worst = max(worst, float((a.cpu() - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30))
+    check(abs(lc - lp) <= 1e-5 * abs(lp), f"bert fp32 dropout loss: card "
+          f"{lc} vs CPU {lp}")
+    check(worst <= tol, f"bert fp32 dropout gradients: card vs CPU relative "
+          f"{worst} > {tol}")
+    leaves = len(gplain)
+    del model, cpu, gcard, gplain
+    return dict(rates=[cfg.hidden_dropout_prob,
+                       cfg.attention_probs_dropout_prob],
+                loss_card=lc, loss_cpu=lp,
+                worst_grad_relative_card_vs_cpu=worst, tolerance=tol,
+                leaves=leaves, launches=counts, cpu_seconds=cpu_s,
+                generator_state=state_c.tolist())
+
+
+def dropout_mask_ms(torch):
+    """The embeddings' dense mask at bert-base's shape: F.dropout of a
+    [32, 512, 768] bf16 tensor (threefry over 12.6M elements in int64
+    PyTorch ops), device time."""
+    from paddle_tpu_torch.nn.functional import dropout
+    x = torch.randn(BERT_B, BERT_S, BERT_H, device="cuda").to(torch.bfloat16)
+    ms = cuda_ms(lambda _: dropout(x, DROP_P), [None], iters=10)
+    del x
+    torch.cuda.empty_cache()
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -3382,6 +3883,31 @@ def main():
     phase(31, "resnet50 parity fp32 fused vs dense BatchNorm",
           **phase_resnet_parity_fp32(torch))
 
+    free_card(torch)
+    phase(32, "dropout keep-mask: the device hash vs plain, bit for bit",
+          **phase_dropout_bits(torch))
+    free_card(torch)
+    dcfg = bert.CONFIGS["bert-base"]        # the default rates, 0.1 / 0.1
+    dtrain, dmodel, dstep = phase_train_bert(torch, dcfg, fused=True)
+    phase(33, "train bert-base bf16 B=32 S=512 (padded) MLM+NSP at the "
+          "default dropout 0.1/0.1, fused kernels, Layer model + AdamW",
+          **dtrain)
+    phase(34, "profile of the bert-base step at the default dropout",
+          embeddings_dropout_mask_ms=dropout_mask_ms(torch),
+          **phase_profile_bert(torch, dstep))
+    del dmodel, dstep
+    free_card(torch)
+    ddense, dmodel, dstep = phase_train_bert(torch, dcfg, fused=False,
+                                             steps=2)
+    del dmodel, dstep
+    free_card(torch)
+    set_flags({"FLAGS_fused_norm": True, "FLAGS_fused_mlp": True})
+    phase(35, "train bert-base bf16 B=32 S=512 at the default dropout, "
+          "dense norms, projection and MLP (flash kept)",
+          fused_ms_per_step=dtrain["ms_per_step"], **ddense)
+    phase(36, "bert parity fp32 at dropout 0.1/0.1: card kernels vs CPU "
+          "plain versions", **phase_bert_dropout_parity_fp32(torch))
+
     kernels = [{
         "name": "decode_attn_proj", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": serve1["kernel_launches"],
@@ -3470,6 +3996,25 @@ def main():
             "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    # the dropout variants (kernels 1-3, 10, 11, 13, 14) at bert-base's
+    # shapes; their launches are the default-dropout bert-base training's
+    # (phase 33), counted apart from the dropout-free kernels'
+    for name, res, times, src in (
+            *((n, fbias["dropout"], fbias["dropout"], FLASH_SOURCE)
+              for n in ("flash_fwd", "flash_dq", "flash_dkv")),
+            *((n, ln["dropout"], ln["dropout"]["times"], LN_SOURCE)
+              for n in ("fused_ln_fwd", "fused_ln_bwd")),
+            *((n, pl["dropout"], pl["dropout"], PL_SOURCE)
+              for n in ("fused_proj_ln_fwd", "fused_proj_ln_bwd"))):
+        t = times[name]
+        err = res["worst"]["bfloat16"][name]["max_abs_err"]
+        kernels.append({
+            "name": DROP_NAMES[name], "route": "cuda", "source": src,
+            "replaces": (FLASH_REPLACES.get(name) or LN_REPLACES[name]),
+            "launches": dtrain["launches"][f"dropout_{name}"],
+            "max_abs_err": err, "max_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(card, flush=True)     # again here: the top of the log may be cut
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,5 +18,6 @@ BatchNorm kernels (see ROADMAP.md for what is still to come).
 """
 from ._device import resolve_device
 from .core.flags import get_flag, set_flags
+from .core.generator import seed
 
-__all__ = ["get_flag", "resolve_device", "set_flags"]
+__all__ = ["get_flag", "resolve_device", "seed", "set_flags"]

@@ -4,9 +4,15 @@ Counterpart: ``paddle_tpu/core/flags.py``. Same contract: every flag is
 settable programmatically (``set_flags``, with or without the
 ``FLAGS_`` prefix) or via an environment variable ``FLAGS_<name>`` read
 at first access. Only the flags the ported serving and training paths
-read are registered, with the reference's names and defaults. The TPU
-block-size and interpret-mode flags are not ported: they tune or test
-Pallas kernels.
+read are registered, with the reference's names and defaults.
+``FLAGS_kernel_tuning`` is registered because the reference's block
+picks key its dropout masks by the tile they give
+(``kernels/flash_attention.py`` ``_auto_blocks``, ``norm_fusion.py``
+``_auto_block_r``, ``mlp_fusion.py`` ``mlp_blocks``): in the port it
+keys the masks and nothing else, the CUDA kernels' tiles being their
+own. The TPU's block-size sweep flags (``FLAGS_flash_block*``,
+``FLAGS_mlp_block_*``) and the interpret-mode flags are not ported: they
+tune or test Pallas kernels.
 """
 from __future__ import annotations
 
@@ -100,3 +106,9 @@ define_flag("fused_mlp", True,
             "the fused kernels (kernels/mlp_fusion.py, TPU kernels 4-11): "
             "the hand-written CUDA kernels on a card, their plain PyTorch "
             "versions for CPU tensors. Off: the dense chains")
+define_flag("kernel_tuning", True,
+            "consult the tuning table's entries (analysis/autotune.py, the "
+            "reference's winners) in the block picks before their "
+            "heuristics. In the port the picks key the dropout masks "
+            "only: the masks then equal the reference's at its default "
+            "flags")

@@ -108,7 +108,7 @@ def library(name: str, argtypes: Dict[str, Sequence], ints: Iterable[str] = ()
     """``load(name)`` with each entry point's ctypes signature: for every
     key of ``argtypes``, its ``_f32`` and ``_bf16`` functions returning an
     int status; ``ints``: functions of no argument returning an int; and
-    ``kernel_error_string`` (common.cuh)."""
+    common.cuh's ``kernel_error_string`` and ``dropout_bits``."""
     lib = load(name)
     for fname, types in argtypes.items():
         for suffix in ("f32", "bf16"):
@@ -119,6 +119,12 @@ def library(name: str, argtypes: Dict[str, Sequence], ints: Iterable[str] = ()
         getattr(lib, fname).restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
+    # common.cuh's debug entry: out, nb, nr, nc, s0, s1, rows, cols,
+    # row_layout, stream
+    lib.dropout_bits.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                                 + [ctypes.c_uint] * 2 + [ctypes.c_int] * 3
+                                 + [ctypes.c_void_p])
+    lib.dropout_bits.restype = ctypes.c_int
     return lib
 
 

@@ -1,10 +1,11 @@
 // What the port's CUDA sources share: element conversions, warp sums, the
 // cp.async / ldmatrix / mma.sync wrappers, one tiled GEMM main loop (the
 // fused MLP's, also the projection-LayerNorm's product), one fixed-order
-// column sum of per-block partial rows, and the error string of the C
-// interface. Each csrc/*.cu includes this header once and builds into its
-// own shared library (kernels/_build.py), so the definitions below exist
-// once per library.
+// column sum of per-block partial rows, the dropout keep-mask (and its
+// debug entry, dropout_bits), and the error string of the C interface.
+// Each csrc/*.cu includes this header once and builds into its own shared
+// library (kernels/_build.py), so the definitions below exist once per
+// library.
 
 #pragma once
 
@@ -34,6 +35,94 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// --------------------------------------------------------------------------
+// the dropout keep-mask
+// --------------------------------------------------------------------------
+//
+// paddle_tpu/kernels/flash_attention.py's portable hash, _interpret_bits
+// (:97), keyed as _keep_mask (:119) keys it: the masks of the reference's
+// interpret-mode kernels, bit for bit (its compiled TPU kernels draw from
+// the TPU's hardware generator, which cannot be reproduced). An element's
+// bits hash the seed pair, the (b, i, j) triple of the reference's
+// logical tile that holds it and its row-major index in that tile; it is
+// kept iff its bits are below the threshold. Flash keys (bh, r / rows,
+// c / cols), the row kernels (LayerNorm, projection-LN) (row / rows, 0, 0)
+// with cols = the row's width: any CUDA tile computes the reference's
+// mask, and a backward regenerates the forward's from the same key. The
+// uint32 products wrap, as the reference's jnp.uint32 products do. Kept
+// values are multiplied by f32(1 / (1 - p)) with __fmul_rn, so that no
+// later add contracts the product into an fma the reference does not do.
+struct Drop {
+  uint32_t s0, s1;  // the seed pair: one generator split
+  uint32_t thresh;  // kept iff bits < thresh (_keep_threshold :92)
+  float inv;        // f32(1 / (1 - p))
+  int rows, cols;   // the reference's logical tile; rows 0: no dropout
+};
+
+__host__ __device__ __forceinline__ uint32_t keep_base(const Drop& d, uint32_t b, uint32_t i,
+                                                       uint32_t j) {
+  return (d.s0 * 0x9E3779B1u) ^ (d.s1 * 0x85EBCA6Bu) ^ (b * 0xC2B2AE35u) ^ (i * 0x27D4EB2Fu) ^
+         (j * 0x165667B1u);
+}
+
+__host__ __device__ __forceinline__ uint32_t keep_mix(uint32_t base, uint32_t idx) {
+  uint32_t x = base ^ (idx * 0x9E3779B1u);
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  return x ^ (x >> 16);
+}
+
+// the bits of element (r, c) of head bh's score matrix
+__device__ __forceinline__ uint32_t flash_bits(const Drop& d, int bh, int r, int c) {
+  const int i = r / d.rows, j = c / d.cols;
+  const uint32_t idx = (uint32_t)(r - i * d.rows) * (uint32_t)d.cols + (uint32_t)(c - j * d.cols);
+  return keep_mix(keep_base(d, (uint32_t)bh, (uint32_t)i, (uint32_t)j), idx);
+}
+
+__device__ __forceinline__ bool flash_keep(const Drop& d, int bh, int r, int c) {
+  return flash_bits(d, bh, r, c) < d.thresh;
+}
+
+// a row of a row kernel: its tile's word and the index of its column 0
+struct RowKey {
+  uint32_t base, idx0;
+};
+
+__device__ __forceinline__ RowKey row_key(const Drop& d, int row) {
+  const int i = row / d.rows;
+  return {keep_base(d, (uint32_t)i, 0u, 0u), (uint32_t)(row - i * d.rows) * (uint32_t)d.cols};
+}
+
+__device__ __forceinline__ bool row_keep(const Drop& d, RowKey k, int c) {
+  return keep_mix(k.base, k.idx0 + (uint32_t)c) < d.thresh;
+}
+
+// x kept and scaled, or 0
+__device__ __forceinline__ float dropped(bool keep, float x, const Drop& d) {
+  return keep ? __fmul_rn(x, d.inv) : 0.f;
+}
+
+// the debug entry's kernel: the bits of every element of an [nb, nr, nc]
+// score matrix (flash keys) or of an [nr, nc] row matrix (row keys, nb 1)
+__global__ void dropout_bits_kernel(uint32_t* __restrict__ out, int nb, int nr, int nc, Drop d,
+                                    int row_layout) {
+  const size_t n = (size_t)nb * nr * nc;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int c = (int)(e % nc);
+    const size_t rest = e / nc;
+    const int r = (int)(rest % nr), b = (int)(rest / nr);
+    if (row_layout) {
+      const RowKey k = row_key(d, r);
+      out[e] = keep_mix(k.base, k.idx0 + (uint32_t)c);
+    } else {
+      out[e] = flash_bits(d, b, r, c);
+    }
+  }
+}
 
 // --------------------------------------------------------------------------
 // cp.async, ldmatrix, mma.sync
@@ -351,4 +440,20 @@ inline int sum_parts(const float* part, int nparts, int cols, float* out1, int n
 
 extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Debug entry: the device hash's bits (uint32) of an [nb, nr, nc] matrix
+// under the reference's tile (rows, cols), flash keys, or of an [nr, nc]
+// row matrix with row keys (row_layout 1, nb 1). No path calls it: it
+// lets a test hold the device hash against the plain version bit for bit.
+extern "C" int dropout_bits(void* out, int nb, int nr, int nc, unsigned s0, unsigned s1,
+                            int rows, int cols, int row_layout, void* stream) {
+  if (nb < 1 || nr < 1 || nc < 1 || rows < 1 || cols < 1 || (row_layout && nb != 1))
+    return (int)cudaErrorInvalidValue;
+  const Drop d{s0, s1, 0u, 0.f, rows, cols};
+  const size_t n = (size_t)nb * nr * nc;
+  const unsigned blocks = (unsigned)((n + 255) / 256 < 65536 ? (n + 255) / 256 : 65536);
+  dropout_bits_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out), nb, nr, nc, d, row_layout);
+  return (int)cudaGetLastError();
 }

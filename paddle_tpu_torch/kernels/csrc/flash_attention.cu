@@ -1,5 +1,6 @@
 // Flash attention, forward and backward: causal, or not causal with an
-// optional key-padding bias; no dropout (ROADMAP A6b).
+// optional key-padding bias; with or without attention-probability
+// dropout.
 //
 // Replaces the TPU kernels of paddle_tpu/kernels/flash_attention.py:
 //   _fwd_kernel :167 (launched by _fwd :272)      -> flash_fwd_kernel
@@ -30,6 +31,15 @@
 // from the caller, as the reference computes it outside its kernels (:551).
 // The scale itself stays f32 (the reference's weak-typed constant is
 // rounded to bf16 with the operand; in f32 the two are the same).
+// Dropout (dropout_p > 0, the DROP instantiations; the dropout-free ones
+// are the code they were): common.cuh's keep-mask keyed (bh, r / BQ,
+// c / BK) by the reference's logical tile (BQ, BK) (_auto_blocks :672,
+// clamped as _fwd clamps it), never by this file's tiles. The forward
+// keeps m, l and lse undropped and feeds keep ? p * inv : 0 to the product
+// with v (:220-229); dQ and dK/dV regenerate the mask from the seed pair
+// (no mask is stored) and take dp = keep ? dp * inv : 0 (:377-383,
+// :484), dV the dropped p (:474-476); delta is unchanged. The hash costs
+// ~12 integer operations per score element and pass, on the CUDA cores.
 //
 // Bound: operations. At GPT-3 1.3B training shapes (B=4, NH=16, S=2048,
 // D=128, bf16, causal) the forward is two products over half the S x S
@@ -84,6 +94,7 @@ struct Geo {
   int vec;   // 16-byte loads: d % 16 == 0 and every pointer aligned
   int heads; // q heads per batch row of the bias
   float scale;
+  Drop drop; // drop.rows 0: no dropout
 };
 
 constexpr float kSkipBelow = kNegInf / 2;  // a tile is skipped when no bias entry exceeds it
@@ -275,7 +286,7 @@ __device__ void store_rows(T* __restrict__ dst, const float* acc, int ldo, int r
 // forward: grid (q tiles, BH)
 // --------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool DROP>
 __global__ void flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                  const T* __restrict__ v, const float* __restrict__ bias,
                                  T* __restrict__ o, float* __restrict__ lse, Geo g) {
@@ -339,7 +350,10 @@ __global__ void flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
     float sum = 0.f;
     for (int c = half; c < g.b; c += 2) {
       const float p = expf(srow[c] - m_new);
-      prow[c] = from_f<T>(p);  // p cast to v's dtype before the product (:229)
+      // p (dropped after the softmax: l takes the undropped p, :220-226)
+      // cast to v's dtype before the product (:229)
+      prow[c] = from_f<T>(DROP ? dropped(flash_keep(g.drop, bh, row_g, j * g.b + c), p, g.drop)
+                               : p);
       sum += p;
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -370,7 +384,7 @@ __global__ void flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
 // dQ: grid (q tiles, BH)
 // --------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool DROP>
 __global__ void flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                 const T* __restrict__ v, const T* __restrict__ dout,
                                 const float* __restrict__ lse, const float* __restrict__ delta,
@@ -426,7 +440,9 @@ __global__ void flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k
         const int col = j * g.b + c;
         if (col >= g.sk || (g.causal && col > row_g + off)) p = 0.f;
       }
-      dsrow[c] = from_f<T>(p * (dprow[c] - delta_r));  // (:384)
+      float dp = dprow[c];
+      if (DROP) dp = dropped(flash_keep(g.drop, bh, row_g, j * g.b + c), dp, g.drop);  // (:383)
+      dsrow[c] = from_f<T>(p * (dp - delta_r));  // (:384)
     }
     __syncwarp();
     warp_mma<false>(acc_w, g.ldo, ds_w, g.ldp, sm.k, g.ldt, g.dp, g.b, true);  // += ds . ks
@@ -439,7 +455,7 @@ __global__ void flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k
 // dK, dV: grid (kv tiles, BH); warp w owns kv rows [16w, 16w + 16) of the tile
 // --------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool DROP>
 __global__ void flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                  const T* __restrict__ v, const T* __restrict__ dout,
                                  const float* __restrict__ lse, const float* __restrict__ delta,
@@ -499,13 +515,18 @@ __global__ void flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
         if (qr >= g.sq || (g.causal && kv_g > qr + off)) p = 0.f;
       }
       strow[c] = p;
-      ptrow[c] = from_f<T>(p);
+      // dV takes the dropped p (:474-476); the mask's key is (q row, kv column)
+      ptrow[c] = from_f<T>(DROP ? dropped(flash_keep(g.drop, bh, i * g.b + c, kv_g), p, g.drop)
+                                : p);
     }
     __syncwarp();
     warp_mma<false>(dv_w, g.ldo, pt_w, g.ldp, sm.dout, g.ldt, g.dp, g.b, true);  // += p^T dO
     warp_mma<true>(dpt_w, g.lds, v_w, g.ldt, sm.dout, g.ldt, g.b, g.dp, false);  // v . dO^T
-    for (int c = half; c < g.b; c += 2)
-      ptrow[c] = from_f<T>(strow[c] * (dptrow[c] - sm.delta[c]));  // ds^T (:485)
+    for (int c = half; c < g.b; c += 2) {
+      float dp = dptrow[c];
+      if (DROP) dp = dropped(flash_keep(g.drop, bh, i * g.b + c, kv_g), dp, g.drop);  // (:484)
+      ptrow[c] = from_f<T>(strow[c] * (dp - sm.delta[c]));  // ds^T (:485)
+    }
     __syncwarp();
     warp_mma<false>(dk_w, g.ldo, pt_w, g.ldp, sm.q, g.ldt, g.dp, g.b, true);  // += ds^T qs
   }
@@ -520,9 +541,11 @@ __global__ void flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
 
 template <typename T>
 int make_geo(Geo* g, int bh, int sq, int sk, int d, int causal, float scale, bool aligned,
-             const void* bias, int heads) {
+             const void* bias, int heads, Drop drop) {
   if (bh < 1 || bh > 65535 || sq < 1 || sk < 1 || d < 1 || d > kMaxD)
     return (int)cudaErrorInvalidValue;
+  if (drop.rows < 0 || (drop.rows > 0 && drop.cols < 1)) return (int)cudaErrorInvalidValue;
+  g->drop = drop;
   if (bias && (causal || heads < 1 || bh % heads)) return (int)cudaErrorInvalidValue;
   g->bh = bh;
   g->sq = sq;
@@ -551,15 +574,16 @@ int prepare(Kernel kernel, size_t bytes) {
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
                void* lse, int bh, int sq, int sk, int d, int causal, int heads, float scale,
-               void* stream) {
+               Drop drop, void* stream) {
   Geo g;
   int rc = make_geo<T>(&g, bh, sq, sk, d, causal, scale,
-                       aligned16(q) && aligned16(k) && aligned16(v), bias, heads);
+                       aligned16(q) && aligned16(k) && aligned16(v), bias, heads, drop);
   if (rc) return rc;
   const size_t bytes = FwdSmem<T>().carve(0, g);
-  if ((rc = prepare(flash_fwd_kernel<T>, bytes))) return rc;
-  flash_fwd_kernel<T><<<dim3((sq + g.b - 1) / g.b, bh), (g.b / 16) * 32, bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = drop.rows ? flash_fwd_kernel<T, true> : flash_fwd_kernel<T, false>;
+  if ((rc = prepare(kernel, bytes))) return rc;
+  kernel<<<dim3((sq + g.b - 1) / g.b, bh), (g.b / 16) * 32, bytes,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<T*>(o), static_cast<float*>(lse), g);
   return (int)cudaGetLastError();
@@ -568,16 +592,17 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* bias, vo
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, const void* bias, void* dq, int bh, int sq, int sk, int d,
-              int causal, int heads, float scale, void* stream) {
+              int causal, int heads, float scale, Drop drop, void* stream) {
   Geo g;
   int rc = make_geo<T>(&g, bh, sq, sk, d, causal, scale,
                        aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout), bias,
-                       heads);
+                       heads, drop);
   if (rc) return rc;
   const size_t bytes = DqSmem<T>().carve(0, g);
-  if ((rc = prepare(flash_dq_kernel<T>, bytes))) return rc;
-  flash_dq_kernel<T><<<dim3((sq + g.b - 1) / g.b, bh), (g.b / 16) * 32, bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = drop.rows ? flash_dq_kernel<T, true> : flash_dq_kernel<T, false>;
+  if ((rc = prepare(kernel, bytes))) return rc;
+  kernel<<<dim3((sq + g.b - 1) / g.b, bh), (g.b / 16) * 32, bytes,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const float*>(bias), static_cast<T*>(dq), g);
@@ -587,16 +612,17 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, const void* bias, void* dk, void* dv, int bh, int sq, int sk,
-               int d, int causal, int heads, float scale, void* stream) {
+               int d, int causal, int heads, float scale, Drop drop, void* stream) {
   Geo g;
   int rc = make_geo<T>(&g, bh, sq, sk, d, causal, scale,
                        aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout), bias,
-                       heads);
+                       heads, drop);
   if (rc) return rc;
   const size_t bytes = DkvSmem<T>().carve(0, g);
-  if ((rc = prepare(flash_dkv_kernel<T>, bytes))) return rc;
-  flash_dkv_kernel<T><<<dim3((sk + g.b - 1) / g.b, bh), (g.b / 16) * 32, bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = drop.rows ? flash_dkv_kernel<T, true> : flash_dkv_kernel<T, false>;
+  if ((rc = prepare(kernel, bytes))) return rc;
+  kernel<<<dim3((sk + g.b - 1) / g.b, bh), (g.b / 16) * 32, bytes,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const float*>(bias), static_cast<T*>(dk),
@@ -608,27 +634,34 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 
 extern "C" {
 
-// bias: null, or [bh / heads, sk] f32 (non-causal only)
+// bias: null, or [bh / heads, sk] f32 (non-causal only). The dropout key:
+// the seed pair, the keep threshold, f32(1 / (1 - p)) and the reference's
+// tile (drop_rows = BQ, drop_cols = BK); drop_rows 0: no dropout.
+#define DROP_KEY Drop{s0, s1, thresh, inv, drop_rows, drop_cols}
 #define FLASH_API(SUFFIX, T)                                                                 \
   int flash_fwd_##SUFFIX(const void* q, const void* k, const void* v, const void* bias,      \
                          void* o, void* lse, int bh, int sq, int sk, int d, int causal,      \
-                         int heads, float scale, void* stream) {                             \
+                         int heads, float scale, unsigned s0, unsigned s1,                   \
+                         unsigned thresh, float inv, int drop_rows, int drop_cols,           \
+                         void* stream) {                                                     \
     return launch_fwd<T>(q, k, v, bias, o, lse, bh, sq, sk, d, causal, heads, scale,         \
-                         stream);                                                            \
+                         DROP_KEY, stream);                                                  \
   }                                                                                          \
   int flash_dq_##SUFFIX(const void* q, const void* k, const void* v, const void* dout,       \
                         const void* lse, const void* delta, const void* bias, void* dq,      \
                         int bh, int sq, int sk, int d, int causal, int heads, float scale,   \
-                        void* stream) {                                                      \
+                        unsigned s0, unsigned s1, unsigned thresh, float inv,                \
+                        int drop_rows, int drop_cols, void* stream) {                        \
     return launch_dq<T>(q, k, v, dout, lse, delta, bias, dq, bh, sq, sk, d, causal, heads,   \
-                        scale, stream);                                                      \
+                        scale, DROP_KEY, stream);                                            \
   }                                                                                          \
   int flash_dkv_##SUFFIX(const void* q, const void* k, const void* v, const void* dout,      \
                          const void* lse, const void* delta, const void* bias, void* dk,     \
                          void* dv, int bh, int sq, int sk, int d, int causal, int heads,     \
-                         float scale, void* stream) {                                        \
+                         float scale, unsigned s0, unsigned s1, unsigned thresh, float inv,  \
+                         int drop_rows, int drop_cols, void* stream) {                       \
     return launch_dkv<T>(q, k, v, dout, lse, delta, bias, dk, dv, bh, sq, sk, d, causal,     \
-                         heads, scale, stream);                                              \
+                         heads, scale, DROP_KEY, stream);                                    \
   }
 FLASH_API(f32, float)
 FLASH_API(bf16, __nv_bfloat16)

@@ -13,7 +13,7 @@
 // entered through fused_swiglu_2d :674 (the custom_vjp of :611-671).
 // x [R, H], W1/Wg/Wu [H, F], W2/Wd [F, H] and g [R, H] contiguous,
 // float32 or bfloat16 (one dtype); b1 [F] and b2 [H] come in as f32. No
-// dropout (the seeded keep-mask is ROADMAP A6b).
+// dropout (the seeded keep-mask is ROADMAP A6c).
 //
 // GeLU MLP:
 //   forward: a = x . W1 (f32 accumulation) + b1 (f32); act = round(gelu(a));

@@ -8,9 +8,8 @@
 // both entered through fused_layer_norm_2d :364 (the custom_vjp of :315).
 // h, res [R, H] contiguous, float32 or bfloat16 (one dtype); lin_b, w, b
 // [H] come in as f32, as the reference broadcasts them in f32 (_rows :208).
-// No dropout (the seeded keep-mask is ROADMAP A6b).
 //
-//   forward:  z = h (+ lin_b) (+ res) in f32; mean = sum(z) / H; the
+//   forward:  z = drop(h (+ lin_b)) (+ res) in f32; mean = sum(z) / H; the
 //             centred variance var = sum((z - mean)^2) / H in a second
 //             pass over the row (:110-113, not Welford);
 //             rstd = rsqrt(var + eps); y = round((z - mean) * rstd * w + b);
@@ -19,9 +18,15 @@
 //   backward: z and x^ = (z - mean) * rstd recomputed from the primal inputs
 //             and the saved stats; gw = g * w; c1 = mean(gw);
 //             c2 = mean(gw * x^); dz = (gw - c1 - x^ * c2) * rstd (:182-184);
-//             dh = round(dz), dres = round(dz); dw = sum_r g * x^,
-//             db = sum_r g, dlin_b = sum_r dz, in f32 (:190-195).
-// round() is the rounding to the I/O dtype.
+//             dh = round(drop(dz)), dres = round(dz); dw = sum_r g * x^,
+//             db = sum_r g, dlin_b = sum_r drop(dz), in f32 (:190-195).
+// round() is the rounding to the I/O dtype; drop(x) is x without dropout,
+// and with it (dropout_p > 0, the DROP instantiations; the dropout-free
+// ones are the code they were) keep ? x * f32(1 / (1 - p)) : 0 (:104-107,
+// :162-175), common.cuh's keep-mask keyed (row / block_r, 0, 0) at the
+// index (row % block_r) * H + c, block_r being the reference's row tile
+// (_auto_block_r :343) whatever rows a block here owns; the backward
+// regenerates it from the seed pair.
 //
 // Bound: bytes. At BERT-base training shapes (R = B*S = 16384, H = 768,
 // bf16, with residual) the forward moves h, res and y once (75.5 MB, 22.5 us
@@ -102,6 +107,7 @@ struct Fwd {
   float* rstd;
   int r, hd;
   float eps;
+  Drop drop;  // drop.rows 0: no dropout
 };
 
 struct Bwd {
@@ -116,13 +122,14 @@ struct Bwd {
   void* dres;   // null when there is no residual
   float* part;  // [ceil(R / 32), nacc, H]: dw, db (, dlin_b)
   int r, hd, nacc;
+  Drop drop;
 };
 
 // --------------------------------------------------------------------------
 // forward
 // --------------------------------------------------------------------------
 
-template <typename T, int NV>
+template <typename T, int NV, bool DROP>
 __global__ void __launch_bounds__(kWarps * 32) ln_fwd_vec(Fwd p) {
   constexpr int V = Vec<T>::n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -132,6 +139,7 @@ __global__ void __launch_bounds__(kWarps * 32) ln_fwd_vec(Fwd p) {
   const size_t base = (size_t)row * p.hd;
   const T* h = static_cast<const T*>(p.h) + base;
   const T* res = p.res ? static_cast<const T*>(p.res) + base : nullptr;
+  const RowKey rk = DROP ? row_key(p.drop, row) : RowKey{0u, 0u};
   float z[NV][V];
   float s = 0.f;
 #pragma unroll
@@ -144,6 +152,11 @@ __global__ void __launch_bounds__(kWarps * 32) ln_fwd_vec(Fwd p) {
         load_f32<V>(lb, p.lin_b + j * V);
 #pragma unroll
         for (int k = 0; k < V; ++k) z[i][k] += lb[k];
+      }
+      if (DROP) {
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          z[i][k] = dropped(row_keep(p.drop, rk, j * V + k), z[i][k], p.drop);
       }
       if (res) {
         float rv[V];
@@ -187,16 +200,18 @@ __global__ void __launch_bounds__(kWarps * 32) ln_fwd_vec(Fwd p) {
   }
 }
 
-template <typename T>
-__device__ __forceinline__ float z_at(const Fwd& p, const T* h, const T* res, int c) {
+// z at column c: drop(h (+ lin_b)) (+ res)
+template <typename T, bool DROP, typename P>
+__device__ __forceinline__ float z_at(const P& p, const T* h, const T* res, RowKey rk, int c) {
   float z = to_f(h[c]);
   if (p.lin_b) z += p.lin_b[c];
+  if (DROP) z = dropped(row_keep(p.drop, rk, c), z, p.drop);
   if (res) z += to_f(res[c]);
   return z;
 }
 
 // any H, any alignment: one warp per row, three passes over the row
-template <typename T>
+template <typename T, bool DROP>
 __global__ void __launch_bounds__(kWarps * 32) ln_fwd_generic(Fwd p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + warp;
@@ -204,18 +219,19 @@ __global__ void __launch_bounds__(kWarps * 32) ln_fwd_generic(Fwd p) {
   const size_t base = (size_t)row * p.hd;
   const T* h = static_cast<const T*>(p.h) + base;
   const T* res = p.res ? static_cast<const T*>(p.res) + base : nullptr;
+  const RowKey rk = DROP ? row_key(p.drop, row) : RowKey{0u, 0u};
   float s = 0.f;
-  for (int c = lane; c < p.hd; c += 32) s += z_at(p, h, res, c);
+  for (int c = lane; c < p.hd; c += 32) s += z_at<T, DROP>(p, h, res, rk, c);
   const float mean = warp_sum(s) / p.hd;
   float v = 0.f;
   for (int c = lane; c < p.hd; c += 32) {
-    const float d = z_at(p, h, res, c) - mean;
+    const float d = z_at<T, DROP>(p, h, res, rk, c) - mean;
     v += d * d;
   }
   const float rstd = rsqrtf(warp_sum(v) / p.hd + p.eps);
   T* y = static_cast<T*>(p.y) + base;
   for (int c = lane; c < p.hd; c += 32)
-    y[c] = from_f<T>((z_at(p, h, res, c) - mean) * rstd * p.w[c] + p.b[c]);
+    y[c] = from_f<T>((z_at<T, DROP>(p, h, res, rk, c) - mean) * rstd * p.w[c] + p.b[c]);
   if (lane == 0) {
     p.mean[row] = mean;
     p.rstd[row] = rstd;
@@ -228,7 +244,7 @@ __global__ void __launch_bounds__(kWarps * 32) ln_fwd_generic(Fwd p) {
 
 // grid ceil(R / 32); warp w takes rows r0 + w + 8 i, i < 4. Dynamic shared
 // memory: kWarps * H f32 (the warps' column sums, one accumulator at a time).
-template <typename T, int NV>
+template <typename T, int NV, bool DROP>
 __global__ void __launch_bounds__(kWarps * 32) ln_bwd_vec(Bwd p) {
   constexpr int V = Vec<T>::n;
   extern __shared__ __align__(16) float red[];
@@ -249,6 +265,7 @@ __global__ void __launch_bounds__(kWarps * 32) ln_bwd_vec(Bwd p) {
     const T* res = p.res ? static_cast<const T*>(p.res) + base : nullptr;
     const T* g = static_cast<const T*>(p.g) + base;
     const float mean = p.mean[row], rstd = p.rstd[row];
+    const RowKey rk = DROP ? row_key(p.drop, row) : RowKey{0u, 0u};
     float xh[NV][V], gv[NV][V];
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
@@ -262,6 +279,10 @@ __global__ void __launch_bounds__(kWarps * 32) ln_bwd_vec(Bwd p) {
           load_f32<V>(lb, p.lin_b + j * V);
 #pragma unroll
           for (int k = 0; k < V; ++k) z[k] += lb[k];
+        }
+        if (DROP) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) z[k] = dropped(row_keep(p.drop, rk, j * V + k), z[k], p.drop);
         }
         if (res) {
           float rv[V];
@@ -287,16 +308,17 @@ __global__ void __launch_bounds__(kWarps * 32) ln_bwd_vec(Bwd p) {
     for (int i = 0; i < NV; ++i) {
       const int j = i * 32 + lane;
       if (j < nvec) {
-        float w[V], dz[V];
+        float w[V], dz[V], dhv[V];
         load_f32<V>(w, p.w + j * V);
 #pragma unroll
         for (int k = 0; k < V; ++k) {
           dz[k] = (gv[i][k] * w[k] - c1 - xh[i][k] * c2) * rstd;
+          dhv[k] = DROP ? dropped(row_keep(p.drop, rk, j * V + k), dz[k], p.drop) : dz[k];
           acc_w[i][k] += gv[i][k] * xh[i][k];
           acc_b[i][k] += gv[i][k];
-          acc_lb[i][k] += dz[k];
+          acc_lb[i][k] += dhv[k];
         }
-        store_vec<T>(dh + j * V, dz);
+        store_vec<T>(dh + j * V, dhv);
         if (dres) store_vec<T>(dres + j * V, dz);
       }
     }
@@ -328,7 +350,7 @@ __global__ void __launch_bounds__(kWarps * 32) ln_bwd_vec(Bwd p) {
 // any H, any alignment: one warp per block owning 32 rows, two passes over
 // each row in global memory; the column sums go straight to the block's
 // partial row (its own, so no other block touches it), rows in order.
-template <typename T>
+template <typename T, bool DROP>
 __global__ void __launch_bounds__(32) ln_bwd_generic(Bwd p) {
   const int lane = threadIdx.x;
   const int r0 = blockIdx.x * kRowsPerPart;
@@ -341,12 +363,8 @@ __global__ void __launch_bounds__(32) ln_bwd_generic(Bwd p) {
     const T* res = p.res ? static_cast<const T*>(p.res) + base : nullptr;
     const T* g = static_cast<const T*>(p.g) + base;
     const float mean = p.mean[row], rstd = p.rstd[row];
-    auto xhat = [&](int c) {
-      float z = to_f(h[c]);
-      if (p.lin_b) z += p.lin_b[c];
-      if (res) z += to_f(res[c]);
-      return (z - mean) * rstd;
-    };
+    const RowKey rk = DROP ? row_key(p.drop, row) : RowKey{0u, 0u};
+    auto xhat = [&](int c) { return (z_at<T, DROP>(p, h, res, rk, c) - mean) * rstd; };
     float s1 = 0.f, s2 = 0.f;
     for (int c = lane; c < p.hd; c += 32) {
       const float gw = to_f(g[c]) * p.w[c];
@@ -359,9 +377,10 @@ __global__ void __launch_bounds__(32) ln_bwd_generic(Bwd p) {
     for (int c = lane; c < p.hd; c += 32) {
       const float gf = to_f(g[c]), xh = xhat(c);
       const float dz = (gf * p.w[c] - c1 - xh * c2) * rstd;
-      dh[c] = from_f<T>(dz);
+      const float dhv = DROP ? dropped(row_keep(p.drop, rk, c), dz, p.drop) : dz;
+      dh[c] = from_f<T>(dhv);
       if (dres) dres[c] = from_f<T>(dz);
-      const float v[3] = {gf * xh, gf, dz};
+      const float v[3] = {gf * xh, gf, dhv};
       for (int a = 0; a < p.nacc; ++a) {
         float* q = part + (size_t)a * p.hd + c;
         *q = it == 0 ? v[a] : *q + v[a];
@@ -386,39 +405,66 @@ int pick_nv(int hd, int max_nv, bool aligned) {
   return 0;
 }
 
+// the dropout key: rows 0 (no dropout), or a row tile of positive rows
+// over the whole row
+inline bool drop_ok(const Drop& d, int hd) {
+  return d.rows == 0 || (d.rows > 0 && d.cols == hd);
+}
+
+template <typename T, bool DROP>
+void fwd_variant(const Fwd& p, int nv, cudaStream_t s) {
+  const dim3 grid((p.r + kWarps - 1) / kWarps), block(kWarps * 32);
+  switch (nv) {
+    case 1: ln_fwd_vec<T, 1, DROP><<<grid, block, 0, s>>>(p); break;
+    case 2: ln_fwd_vec<T, 2, DROP><<<grid, block, 0, s>>>(p); break;
+    case 4: ln_fwd_vec<T, 4, DROP><<<grid, block, 0, s>>>(p); break;
+    case 8: ln_fwd_vec<T, 8, DROP><<<grid, block, 0, s>>>(p); break;
+    default: ln_fwd_generic<T, DROP><<<grid, block, 0, s>>>(p); break;
+  }
+}
+
 template <typename T>
 int launch_fwd(const Fwd& p, void* stream) {
-  if (p.r < 1 || p.hd < 1) return (int)cudaErrorInvalidValue;
+  if (p.r < 1 || p.hd < 1 || !drop_ok(p.drop, p.hd)) return (int)cudaErrorInvalidValue;
   const bool aligned = aligned16(p.h) && (!p.res || aligned16(p.res)) && aligned16(p.y) &&
                        (!p.lin_b || aligned16(p.lin_b)) && aligned16(p.w) && aligned16(p.b);
-  const dim3 grid((p.r + kWarps - 1) / kWarps), block(kWarps * 32);
+  const int nv = pick_nv<T>(p.hd, kFwdMaxNV, aligned);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pick_nv<T>(p.hd, kFwdMaxNV, aligned)) {
-    case 1: ln_fwd_vec<T, 1><<<grid, block, 0, s>>>(p); break;
-    case 2: ln_fwd_vec<T, 2><<<grid, block, 0, s>>>(p); break;
-    case 4: ln_fwd_vec<T, 4><<<grid, block, 0, s>>>(p); break;
-    case 8: ln_fwd_vec<T, 8><<<grid, block, 0, s>>>(p); break;
-    default: ln_fwd_generic<T><<<grid, block, 0, s>>>(p); break;
+  if (p.drop.rows) {
+    fwd_variant<T, true>(p, nv, s);
+  } else {
+    fwd_variant<T, false>(p, nv, s);
   }
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool DROP>
+void bwd_variant(const Bwd& p, int nv, int nparts, cudaStream_t s) {
+  const size_t smem = (size_t)kWarps * p.hd * sizeof(float);
+  const dim3 block(kWarps * 32);
+  switch (nv) {
+    case 1: ln_bwd_vec<T, 1, DROP><<<nparts, block, smem, s>>>(p); break;
+    case 2: ln_bwd_vec<T, 2, DROP><<<nparts, block, smem, s>>>(p); break;
+    case 4: ln_bwd_vec<T, 4, DROP><<<nparts, block, smem, s>>>(p); break;
+    case 8: ln_bwd_vec<T, 8, DROP><<<nparts, block, smem, s>>>(p); break;
+    default: ln_bwd_generic<T, DROP><<<nparts, 32, 0, s>>>(p); break;
+  }
+}
+
 template <typename T>
 int launch_bwd(const Bwd& p, float* sums, void* stream) {
-  if (p.r < 1 || p.hd < 1 || p.nacc < 2 || p.nacc > 3) return (int)cudaErrorInvalidValue;
+  if (p.r < 1 || p.hd < 1 || p.nacc < 2 || p.nacc > 3 || !drop_ok(p.drop, p.hd))
+    return (int)cudaErrorInvalidValue;
   const bool aligned = aligned16(p.h) && (!p.res || aligned16(p.res)) && aligned16(p.g) &&
                        aligned16(p.dh) && (!p.dres || aligned16(p.dres)) &&
                        (!p.lin_b || aligned16(p.lin_b)) && aligned16(p.w);
   const int nparts = (p.r + kRowsPerPart - 1) / kRowsPerPart;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)kWarps * p.hd * sizeof(float);
-  const dim3 block(kWarps * 32);
-  switch (pick_nv<T>(p.hd, kBwdMaxElems / Vec<T>::n, aligned)) {
-    case 1: ln_bwd_vec<T, 1><<<nparts, block, smem, s>>>(p); break;
-    case 2: ln_bwd_vec<T, 2><<<nparts, block, smem, s>>>(p); break;
-    case 4: ln_bwd_vec<T, 4><<<nparts, block, smem, s>>>(p); break;
-    case 8: ln_bwd_vec<T, 8><<<nparts, block, smem, s>>>(p); break;
-    default: ln_bwd_generic<T><<<nparts, 32, 0, s>>>(p); break;
+  const int nv = pick_nv<T>(p.hd, kBwdMaxElems / Vec<T>::n, aligned);
+  if (p.drop.rows) {
+    bwd_variant<T, true>(p, nv, nparts, s);
+  } else {
+    bwd_variant<T, false>(p, nv, nparts, s);
   }
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
@@ -753,11 +799,16 @@ int run(Args p, cudaStream_t s) {
 
 extern "C" {
 
+// The dropout key of both: the seed pair, the keep threshold,
+// f32(1 / (1 - p)) and the reference's row tile (drop_rows = block_r,
+// drop_cols = H); drop_rows 0: no dropout.
+//
 // y [R, H]; mean, rstd [R] f32. res / lin_b may be null.
 #define LN_FWD(SUFFIX, T)                                                                    \
   int ln_fwd_##SUFFIX(const void* h, const void* res, const void* lin_b, const void* w,      \
                       const void* b, void* y, void* mean, void* rstd, int r, int hd,         \
-                      float eps, void* stream) {                                             \
+                      float eps, unsigned s0, unsigned s1, unsigned thresh, float inv,       \
+                      int drop_rows, int drop_cols, void* stream) {                          \
     Fwd p{h,                                                                                 \
           res,                                                                               \
           static_cast<const float*>(lin_b),                                                  \
@@ -768,7 +819,8 @@ extern "C" {
           static_cast<float*>(rstd),                                                         \
           r,                                                                                 \
           hd,                                                                                \
-          eps};                                                                              \
+          eps,                                                                               \
+          Drop{s0, s1, thresh, inv, drop_rows, drop_cols}};                                  \
     return launch_fwd<T>(p, stream);                                                         \
   }
 LN_FWD(f32, float)
@@ -780,7 +832,8 @@ LN_FWD(bf16, __nv_bfloat16)
   int ln_bwd_##SUFFIX(const void* h, const void* res, const void* lin_b, const void* w,      \
                       const void* mean, const void* rstd, const void* g, void* dh,           \
                       void* dres, void* part, void* sums, int r, int hd, int nacc,           \
-                      void* stream) {                                                        \
+                      unsigned s0, unsigned s1, unsigned thresh, float inv,                  \
+                      int drop_rows, int drop_cols, void* stream) {                          \
     Bwd p{h,                                                                                 \
           res,                                                                               \
           static_cast<const float*>(lin_b),                                                  \
@@ -793,7 +846,8 @@ LN_FWD(bf16, __nv_bfloat16)
           static_cast<float*>(part),                                                         \
           r,                                                                                 \
           hd,                                                                                \
-          nacc};                                                                             \
+          nacc,                                                                              \
+          Drop{s0, s1, thresh, inv, drop_rows, drop_cols}};                                  \
     return launch_bwd<T>(p, static_cast<float*>(sums), stream);                              \
   }
 LN_BWD(f32, float)

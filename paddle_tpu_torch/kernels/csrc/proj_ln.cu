@@ -8,22 +8,29 @@
 //                                                               (+ sum_parts)
 // both entered through fused_proj_ln_2d :913 (the custom_vjp of :878).
 // x, W, res contiguous, float32 or bfloat16 (one dtype); b, gamma, beta
-// [Hout] come in as f32, as the reference broadcasts them (_rows). No
-// dropout (the seeded keep-mask is ROADMAP A6b).
+// [Hout] come in as f32, as the reference broadcasts them (_rows).
 //
-//   forward:  p = x . W (f32 accumulation); z = (p + b) + res in f32;
+//   forward:  p = x . W (f32 accumulation); z = drop(p + b) + res in f32;
 //             mean = sum(z) / Hout; var = sum((z - mean)^2) / Hout (two
 //             passes, :735-738); rstd = rsqrt(var + eps);
 //             y = round((z - mean) * rstd * gamma + beta); mean, rstd [R] f32.
 //   backward: p and z recomputed the same way; x^ = (z - mean) * rstd with
 //             the saved stats; gw = g * gamma; c1 = mean(gw); c2 =
 //             mean(gw * x^); dz = (gw - c1 - x^ * c2) * rstd, written f32
-//             twice, as dz and as dp (the reference's two f32 outputs,
-//             :857-858; they differ only under dropout); dgamma = sum_r g * x^
+//             as dz and, dropped, as dp = drop(dz) (the reference's two f32
+//             outputs, :857-858); dgamma = sum_r g * x^
 //             and dbeta = sum_r g in f32 (:790-793). The caller computes
 //             dx = dp . W^T, dW = x^T . dp and db = sum_r dp in f32 outside
 //             the kernel, as the reference does (:895-904).
-// round() is the rounding to the I/O dtype.
+// round() is the rounding to the I/O dtype; drop(x) is x without dropout,
+// and with it (dropout_p > 0, the DROP instantiations; the dropout-free
+// ones are the code they were) keep ? x * f32(1 / (1 - p)) : 0 (:735-739,
+// :778-788), common.cuh's keep-mask keyed (row / block_r, 0, 0) at the
+// index (row % block_r) * Hout + c, block_r being the reference's row
+// tile (mlp_blocks :118) whatever rows a block here owns; the backward
+// regenerates it from the seed pair. The key is a kernel parameter of
+// its own: held inside Args it raised the dropout-free forward's register
+// use and slowed it on an H100 (chip_smoke.py's phase 21 times it).
 //
 // Bound: bytes. At BERT-base training shapes (R = 16384, Hin = Hout = 768,
 // bf16) the forward's product is 2 R Hin Hout = 19.3 GFLOP (19.5 us at 989
@@ -114,16 +121,20 @@ __device__ void product(const Args& p, char* smem, float* S, int m0) {
     mainloop<T, Cfg<T>, false, false>(o, smem, S + n0, lds, min(NC, p.hout - n0), m0, n0);
 }
 
-// S row r (of the block) += b + res: z, the LayerNorm's input, in place
-template <typename T>
-__device__ __forceinline__ float z_in_place(const Args& p, float* srow, const T* res, int c) {
-  const float z = (srow[c] + p.bias[c]) + to_f(res[c]);
+// S row r (of the block) -> drop(S + b) + res: z, the LayerNorm's input,
+// in place
+template <typename T, bool DROP>
+__device__ __forceinline__ float z_in_place(const Args& p, const Drop& drop, float* srow,
+                                            const T* res, RowKey rk, int c) {
+  float z = srow[c] + p.bias[c];
+  if (DROP) z = dropped(row_keep(drop, rk, c), z, drop);
+  z += to_f(res[c]);
   srow[c] = z;
   return z;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) proj_ln_fwd_kernel(Args p) {
+template <typename T, bool DROP>
+__global__ void __launch_bounds__(kThreads) proj_ln_fwd_kernel(Args p, Drop drop) {
   extern __shared__ __align__(128) char smem[];
   float* S = reinterpret_cast<float*>(smem + ring<T>());
   const int m0 = blockIdx.x * BM;
@@ -135,8 +146,9 @@ __global__ void __launch_bounds__(kThreads) proj_ln_fwd_kernel(Args p) {
     if (row >= p.r) break;
     float* srow = S + rr * lds;
     const T* res = static_cast<const T*>(p.res) + (size_t)row * p.hout;
+    const RowKey rk = DROP ? row_key(drop, row) : RowKey{0u, 0u};
     float s = 0.f;
-    for (int c = lane; c < p.hout; c += 32) s += z_in_place(p, srow, res, c);
+    for (int c = lane; c < p.hout; c += 32) s += z_in_place<T, DROP>(p, drop, srow, res, rk, c);
     const float mean = warp_sum(s) / p.hout;
     float v = 0.f;
     for (int c = lane; c < p.hout; c += 32) {
@@ -154,8 +166,8 @@ __global__ void __launch_bounds__(kThreads) proj_ln_fwd_kernel(Args p) {
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) proj_ln_bwd_kernel(Args p) {
+template <typename T, bool DROP>
+__global__ void __launch_bounds__(kThreads) proj_ln_bwd_kernel(Args p, Drop drop) {
   extern __shared__ __align__(128) char smem[];
   float* S = reinterpret_cast<float*>(smem + ring<T>());
   const int m0 = blockIdx.x * BM;
@@ -170,9 +182,10 @@ __global__ void __launch_bounds__(kThreads) proj_ln_bwd_kernel(Args p) {
     const T* res = static_cast<const T*>(p.res) + (size_t)row * p.hout;
     const T* grow = g + (size_t)row * p.hout;
     const float mean = p.mean[row], rstd = p.rstd[row];
+    const RowKey rk = DROP ? row_key(drop, row) : RowKey{0u, 0u};
     float s1 = 0.f, s2 = 0.f;
     for (int c = lane; c < p.hout; c += 32) {
-      const float xh = (z_in_place(p, srow, res, c) - mean) * rstd;
+      const float xh = (z_in_place<T, DROP>(p, drop, srow, res, rk, c) - mean) * rstd;
       srow[c] = xh;  // x^ stays in the tile for the column sums
       const float gw = to_f(grow[c]) * p.gamma[c];
       s1 += gw;
@@ -184,7 +197,7 @@ __global__ void __launch_bounds__(kThreads) proj_ln_bwd_kernel(Args p) {
     for (int c = lane; c < p.hout; c += 32) {
       const float d = (to_f(grow[c]) * p.gamma[c] - c1 - srow[c] * c2) * rstd;
       dz[c] = d;
-      dp[c] = d;
+      dp[c] = DROP ? dropped(row_keep(drop, rk, c), d, drop) : d;
     }
   }
   __syncthreads();
@@ -204,22 +217,30 @@ __global__ void __launch_bounds__(kThreads) proj_ln_bwd_kernel(Args p) {
 }
 
 template <typename T, typename Kernel>
-int launch(Kernel kernel, Args& p, void* stream) {
+int launch(Kernel kernel, Args& p, const Drop& d, void* stream) {
   if (p.r < 1 || p.hin < 1 || p.hout < 2 || p.hout % 2 || p.hout > max_hout<T>())
     return (int)cudaErrorInvalidValue;
+  if (d.rows < 0 || (d.rows > 0 && d.cols != p.hout)) return (int)cudaErrorInvalidValue;
   constexpr int V = 16 / sizeof(T);
   p.vec = (p.hin % V == 0 && p.hout % V == 0 && aligned16(p.x) && aligned16(p.w)) ? 1 : 0;
   const size_t bytes = smem_bytes<T>(p.hout);
   int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)bytes);
   if (rc) return rc;
-  kernel<<<(p.r + BM - 1) / BM, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<(p.r + BM - 1) / BM, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(p, d);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_bwd(Args& p, float* sums, void* stream) {
-  int rc = launch<T>(proj_ln_bwd_kernel<T>, p, stream);
+int launch_fwd(Args& p, const Drop& d, void* stream) {
+  return launch<T>(d.rows ? proj_ln_fwd_kernel<T, true> : proj_ln_fwd_kernel<T, false>, p, d,
+                   stream);
+}
+
+template <typename T>
+int launch_bwd(Args& p, const Drop& d, float* sums, void* stream) {
+  int rc = launch<T>(d.rows ? proj_ln_bwd_kernel<T, true> : proj_ln_bwd_kernel<T, false>, p, d,
+                     stream);
   if (rc) return rc;
   const int cols = 2 * p.hout;
   return sum_parts(p.part, (p.r + BM - 1) / BM, cols, sums, cols, nullptr, 8,
@@ -230,17 +251,23 @@ int launch_bwd(Args& p, float* sums, void* stream) {
 
 extern "C" {
 
+// The dropout key of both: the seed pair, the keep threshold,
+// f32(1 / (1 - p)) and the reference's row tile (drop_rows = block_r,
+// drop_cols = Hout); drop_rows 0: no dropout.
+//
 // y [R, Hout] in the dtype; mean, rstd [R] f32
 #define PL_FWD(SUFFIX, T)                                                                    \
   int proj_ln_fwd_##SUFFIX(const void* x, const void* w, const void* b, const void* res,     \
                            const void* gamma, const void* beta, void* y, void* mean,         \
-                           void* rstd, int r, int hin, int hout, float eps, void* stream) {  \
+                           void* rstd, int r, int hin, int hout, float eps, unsigned s0,     \
+                           unsigned s1, unsigned thresh, float inv, int drop_rows,           \
+                           int drop_cols, void* stream) {                                    \
     Args p{};                                                                                \
     p.x = x, p.w = w, p.bias = static_cast<const float*>(b), p.res = res;                    \
     p.gamma = static_cast<const float*>(gamma), p.beta = static_cast<const float*>(beta);    \
     p.y = y, p.mean = static_cast<float*>(mean), p.rstd = static_cast<float*>(rstd);         \
     p.r = r, p.hin = hin, p.hout = hout, p.eps = eps;                                        \
-    return launch<T>(proj_ln_fwd_kernel<T>, p, stream);                                      \
+    return launch_fwd<T>(p, Drop{s0, s1, thresh, inv, drop_rows, drop_cols}, stream);       \
   }
 PL_FWD(f32, float)
 PL_FWD(bf16, __nv_bfloat16)
@@ -251,7 +278,8 @@ PL_FWD(bf16, __nv_bfloat16)
   int proj_ln_bwd_##SUFFIX(const void* x, const void* w, const void* b, const void* res,     \
                            const void* gamma, const void* mean, const void* rstd,            \
                            const void* g, void* dz, void* dp, void* part, void* sums, int r, \
-                           int hin, int hout, void* stream) {                                \
+                           int hin, int hout, unsigned s0, unsigned s1, unsigned thresh,     \
+                           float inv, int drop_rows, int drop_cols, void* stream) {          \
     Args p{};                                                                                \
     p.x = x, p.w = w, p.bias = static_cast<const float*>(b), p.res = res;                    \
     p.gamma = static_cast<const float*>(gamma);                                              \
@@ -259,7 +287,8 @@ PL_FWD(bf16, __nv_bfloat16)
     p.rstd = static_cast<float*>(const_cast<void*>(rstd));                                   \
     p.g = g, p.dz = static_cast<float*>(dz), p.dp = static_cast<float*>(dp);                 \
     p.part = static_cast<float*>(part), p.r = r, p.hin = hin, p.hout = hout;                 \
-    return launch_bwd<T>(p, static_cast<float*>(sums), stream);                              \
+    return launch_bwd<T>(p, Drop{s0, s1, thresh, inv, drop_rows, drop_cols},                \
+                         static_cast<float*>(sums), stream);                                 \
   }
 PL_BWD(f32, float)
 PL_BWD(bf16, __nv_bfloat16)

@@ -5,7 +5,25 @@ Counterpart: ``paddle_tpu/kernels/flash_attention.py``: ``_fwd_kernel``
 ``_bwd`` (:539), the ``custom_vjp`` assembly (:624) and
 ``flash_attention_bshd`` (:722), with the key-padding bias variant
 (``kv_bias``, non-causal; :790 canonicalises it, :648 gives it no
-gradient). Dropout is ROADMAP A6b and raises here.
+gradient) and in-kernel attention dropout (``dropout_p``,
+``dropout_seed``). Also the keep-mask every dropout kernel of the port
+draws: ``_keep_threshold`` (:92), the portable hash ``_interpret_bits``
+(:97) and ``_keep_mask`` (:119) as ``keep_mask_ref``, the reference's
+interpret-mode masks bit for bit (the compiled TPU's hardware generator
+cannot be reproduced), and the block picks that key them,
+``_auto_block`` / ``_auto_blocks`` (:652-717, the tuning table's entries
+included, ``analysis/autotune.py``).
+
+Dropout keys each element by the reference's logical tile, never by a
+CUDA tile: the element (r, c) of head ``bh``'s score matrix hashes
+(seed pair, bh, r // BQ, c // BK) with the index (r % BQ)·BK + c % BK in
+its tile, (BQ, BK) being ``_auto_blocks``'s pick clamped to the
+sequence as ``_fwd`` clamps it (:284-285). So any kernel tile draws the
+reference's mask. The forward keeps l and lse undropped and feeds
+``where(keep, p, 0) · f32(1 / (1 − p))`` to the product with v (:220-229);
+dQ and dK/dV regenerate the mask from the seed pair (no mask is stored)
+and apply it to dP with the same scaling, dV taking the dropped p
+(:377-383, :467-485).
 
 The forward and backward are ``torch.library`` custom ops,
 ``paddle_tpu_torch::flash_fwd`` → ``(out, lse)`` and
@@ -20,23 +38,174 @@ launch the hand-written Hopper kernels of ``csrc/flash_attention.cu`` (its
 header names the TPU kernels replaced, the operation bound and what the
 design does about it) or raise; for CPU tensors they take the plain
 PyTorch versions ``flash_fwd_ref`` / ``flash_bwd_ref``. ``launches``
-counts kernel launches by kernel name (CPU calls do not count).
+counts launches of the dropout-free kernels by kernel name,
+``dropout_launches`` those of the dropout variants (CPU calls do not
+count).
 """
 import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
+from ..analysis import autotune
 
-__all__ = ["flash_attention_bshd", "flash_fwd", "flash_bwd", "flash_fwd_ref",
-           "flash_bwd_ref", "flash_dq_ref", "flash_dkv_ref", "launches"]
+__all__ = ["DropKey", "drop_key", "dropout_bits_cuda", "dropout_launches",
+           "flash_attention_bshd", "flash_bits_ref", "flash_bwd",
+           "flash_bwd_ref", "flash_dkv_ref", "flash_dq_ref", "flash_drop_tile",
+           "flash_fwd", "flash_fwd_ref", "interpret_bits", "keep_mask_ref",
+           "launches", "row_bits_ref", "seed_pair"]
 
 _NEG_INF = -1e30   # flash_attention.py:61: the mask value, never -inf
 _MASK_THRESH = -1e8   # :65: biases at or below it are canonicalised to -1e30
 _MAX_HEAD_DIM = 256
 
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+dropout_launches = dict(launches)
+DEFAULT_BLOCK_Q = 128     # :56
+
+
+# ---------------------------------------------------------------------------
+# the dropout keep-mask (:88-130): a murmur-style hash of the seed pair,
+# the tile's (b, i, j) triple and the element's index in its tile
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_C1, _C2, _C3, _C4, _C5 = (0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F,
+                           0x165667B1)
+
+
+def _mul32(x, c: int):
+    """x·c mod 2^32 for uint32 values x held in int64 (tensors or ints):
+    c is split into 16-bit halves, so no product leaves the int64 range."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _keep_threshold(dropout_p) -> int:
+    """:92: an element is kept iff its bits are below this."""
+    keep = 1.0 - float(dropout_p)
+    return min(int(round(keep * 2 ** 32)), 2 ** 32 - 1)
+
+
+def _hash_base(s0, s1, b, i, j):
+    """The tile's word: seed pair and (b, i, j), each times its constant,
+    xor-ed (:103-107)."""
+    return (_mul32(b, _C3) ^ _mul32(i, _C4) ^ _mul32(j, _C5)
+            ^ (_mul32(int(s0) & _M32, _C1) ^ _mul32(int(s1) & _M32, _C2)))
+
+
+def _hash_mix(base, idx):
+    """The element's bits from its tile's word and its index in the tile
+    (:108-115)."""
+    x = _mul32(idx, _C1) ^ base
+    x = x ^ (x >> 16)
+    x = _mul32(x, _C2)
+    x = x ^ (x >> 13)
+    x = _mul32(x, _C3)
+    return x ^ (x >> 16)
+
+
+def interpret_bits(s0, s1, b, i, j, shape, device=None) -> torch.Tensor:
+    """``_interpret_bits`` (:97): the uint32 bits (as int64) of one
+    [rows, cols] tile keyed (s0, s1, b, i, j)."""
+    rows = torch.arange(shape[0], dtype=torch.int64, device=device)[:, None]
+    cols = torch.arange(shape[1], dtype=torch.int64, device=device)[None, :]
+    return _hash_mix(_hash_base(s0, s1, b, i, j), rows * shape[1] + cols)
+
+
+def keep_mask_ref(s0, s1, b, i, j, shape, dropout_p,
+                  device=None) -> torch.Tensor:
+    """``_keep_mask`` (:119) as interpret mode draws it: bool [shape]."""
+    return (interpret_bits(s0, s1, b, i, j, shape, device)
+            < _keep_threshold(dropout_p))
+
+
+class DropKey(NamedTuple):
+    """One dropout call: the rate, the seed pair (one generator split, two
+    uint32 words) and the reference's logical tile that keys the mask
+    (flash: (block_q, block_k); LayerNorm and projection-LN: (block_r,
+    H))."""
+    p: float
+    s0: int
+    s1: int
+    rows: int
+    cols: int
+
+    @property
+    def threshold(self) -> int:
+        return _keep_threshold(self.p)
+
+    @property
+    def inv(self) -> float:
+        """1 / (1 − p), which the kernels multiply by in f32 (:225)."""
+        return 1.0 / (1.0 - self.p)
+
+    def inv_f32(self, device) -> torch.Tensor:
+        return torch.tensor(self.inv, dtype=torch.float32, device=device)
+
+
+def flash_bits_ref(key: DropKey, bh: int, sq: int, sk: int,
+                   device=None) -> torch.Tensor:
+    """The bits of every element of the [bh, sq, sk] score matrices: the
+    element (r, c) of head b hashes (b, r // rows, c // cols) and its
+    index (r % rows)·cols + c % cols in that tile."""
+    def ar(n):
+        return torch.arange(n, dtype=torch.int64, device=device)
+    r, c = ar(sq)[:, None], ar(sk)[None, :]
+    base = _hash_base(key.s0, key.s1, ar(bh)[:, None, None],
+                      (r // key.rows)[None], (c // key.cols)[None])
+    return _hash_mix(base, (r % key.rows) * key.cols + c % key.cols)
+
+
+def row_bits_ref(key: DropKey, r: int, h: int, device=None) -> torch.Tensor:
+    """The bits of every element of an [r, h] row matrix under row tiles
+    (LayerNorm, projection-LN): row ``row`` hashes (row // rows, 0, 0) and
+    the index (row % rows)·cols + c (cols = H)."""
+    row = torch.arange(r, dtype=torch.int64, device=device)[:, None]
+    col = torch.arange(h, dtype=torch.int64, device=device)[None, :]
+    return _hash_mix(_hash_base(key.s0, key.s1, row // key.rows, 0, 0),
+                     (row % key.rows) * key.cols + col)
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _auto_block(seq_len: int) -> int:
+    """:652: 1024 / 512 / 128 by what divides the length."""
+    if seq_len % 1024 == 0:
+        return 1024
+    return 512 if seq_len % 512 == 0 else DEFAULT_BLOCK_Q
+
+
+def _auto_blocks(sq: int, sk: int, causal: bool, dtype=None):
+    """:672: (block_q, block_k): an exact tuning-table hit (a hit that
+    cannot tile raises, :704-709), else the causal square tiles or the
+    non-causal wide-K ones (256, 512). The reference's sweep flags
+    (FLAGS_flash_block*) are not ported."""
+    hit = autotune.lookup("flash_attention",
+                          autotune.flash_sig(sq, sk, causal, dtype))
+    if hit is not None:
+        tbq, tbk = int(hit["block_q"]), int(hit["block_k"])
+        if tbq <= 0 or tbk <= 0 or sq % tbq or sk % tbk:
+            raise ValueError(
+                f"tuning-table flash_attention entry ({tbq}, {tbk}) "
+                f"cannot tile (sq={sq}, sk={sk}) — regenerate the "
+                f"table (scripts/autotune.py search) or set "
+                f"FLAGS_kernel_tuning=0")
+        return tbq, tbk
+    if causal:
+        return _auto_block(sq), _auto_block(sk)
+    return (256 if sq % 256 == 0 else _auto_block(sq),
+            512 if sk % 512 == 0 else _auto_block(sk))
+
+
+def flash_drop_tile(sq: int, sk: int, causal: bool, dtype):
+    """The tile that keys the attention dropout mask: ``_auto_blocks``'s
+    pick, clamped to the sequence as ``_fwd`` clamps it (:284-285)."""
+    block_q, block_k = _auto_blocks(sq, sk, bool(causal), dtype)
+    return min(block_q, _ceil_to(sq, 8)), min(block_k, _ceil_to(sk, 8))
 
 
 # ---------------------------------------------------------------------------
@@ -60,16 +229,24 @@ def _bias_rows(bias, heads):
     return bias.float().repeat_interleave(heads, 0)[:, None, :]
 
 
+def _flash_keep(drop: DropKey, s):
+    """The keep-mask of the score matrices s [BH, Sq, Sk]."""
+    return (flash_bits_ref(drop, s.shape[0], s.shape[1], s.shape[2],
+                           s.device) < drop.threshold)
+
+
 def flash_fwd_ref(q, k, v, causal: bool, scale: float, bias=None,
-                  heads: int = 1):
+                  heads: int = 1, drop: Optional[DropKey] = None):
     """Plain version of the forward kernel. q [BH, Sq, D], k/v [BH, Sk, D]
     → (out [BH, Sq, D] in q's dtype, lse [BH, Sq] f32).
 
     q is scaled in f32 and rounded to its dtype (flash_attention.py:196);
     scores and softmax in f32 with masked entries at -1e30; the bias row
-    (``bias`` [B, Sk] f32, non-causal) added to the scores (:211); p
-    rounded to v's dtype before the product (:229); ``lse = m + log(l)``
-    with ``l == 0 → 1`` (:266-268)."""
+    (``bias`` [B, Sk] f32, non-causal) added to the scores (:211); with
+    ``drop``, l and lse stay undropped and p becomes ``where(keep, p, 0) ·
+    f32(1 / (1 − p))`` (:220-226); p rounded to v's dtype before the
+    product (:229); ``lse = m + log(l)`` with ``l == 0 → 1``
+    (:266-268)."""
     dt = q.dtype
     s = _round(q.float() * scale, dt) @ k.float().transpose(1, 2)
     if bias is not None:
@@ -81,6 +258,9 @@ def flash_fwd_ref(q, k, v, causal: bool, scale: float, bias=None,
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     safe_l = torch.where(l == 0.0, torch.ones_like(l), l)
+    if drop is not None:
+        p = torch.where(_flash_keep(drop, p), p * drop.inv_f32(p.device),
+                        0.0)
     out = (_round(p, v.dtype) @ v.float()) / safe_l
     return out.to(dt), (m + torch.log(safe_l))[..., 0]
 
@@ -97,28 +277,41 @@ def _probs(s, lse, causal, bias, heads):
     return p
 
 
+def _drop_dp(dp, drop):
+    """dP under dropout: ``where(keep, dp · f32(1 / (1 − p)), 0)`` (:383,
+    :484)."""
+    if drop is None:
+        return dp
+    return torch.where(_flash_keep(drop, dp), dp * drop.inv_f32(dp.device),
+                       0.0)
+
+
 def flash_dq_ref(q, k, v, dout, lse, delta, causal: bool, scale: float,
-                 bias=None, heads: int = 1):
+                 bias=None, heads: int = 1, drop: Optional[DropKey] = None):
     """Plain version of the dQ kernel: the scale folds into k, rounded to
     the input dtype (:357); ``ds`` is rounded before ``ds·ks`` (:384)."""
     dt = q.dtype
     ks = _round(k.float() * scale, dt)
     p = _probs(q.float() @ ks.transpose(1, 2), lse, causal, bias, heads)
-    dp = dout.float() @ v.float().transpose(1, 2)
+    dp = _drop_dp(dout.float() @ v.float().transpose(1, 2), drop)
     return (_round(p * (dp - delta[..., None]), dt) @ ks).to(dt)
 
 
 def flash_dkv_ref(q, k, v, dout, lse, delta, causal: bool, scale: float,
-                  bias=None, heads: int = 1):
+                  bias=None, heads: int = 1, drop: Optional[DropKey] = None):
     """Plain version of the dK/dV kernel: the scale folds into q, rounded
-    to the input dtype (:448); p and ``ds`` are rounded before their
-    products (:478, :485). Returns (dk, dv)."""
+    to the input dtype (:448); p (dropped for dV, :474-476) and ``ds`` are
+    rounded before their products (:478, :485). Returns (dk, dv)."""
     dt = q.dtype
     qs = _round(q.float() * scale, dt)
     p = _probs(qs @ k.float().transpose(1, 2), lse, causal, bias, heads)
     dof = dout.float()
-    dv = _round(p, dt).transpose(1, 2) @ dof
-    dp = dof @ v.float().transpose(1, 2)
+    pv = p
+    if drop is not None:
+        pv = torch.where(_flash_keep(drop, p), p * drop.inv_f32(p.device),
+                         0.0)
+    dv = _round(pv, dt).transpose(1, 2) @ dof
+    dp = _drop_dp(dof @ v.float().transpose(1, 2), drop)
     dk = _round(p * (dp - delta[..., None]), dt).transpose(1, 2) @ qs
     return dk.to(dt), dv.to(dt)
 
@@ -129,31 +322,61 @@ def _delta(out, dout):
 
 
 def flash_bwd_ref(q, k, v, out, lse, dout, causal: bool, scale: float,
-                  bias=None, heads: int = 1):
+                  bias=None, heads: int = 1, drop: Optional[DropKey] = None):
     """Plain version of the backward (delta, then the dQ and dK/dV
     kernels' plain versions) → (dq, dk, dv) in the input dtype."""
     delta = _delta(out, dout)
     dk, dv = flash_dkv_ref(q, k, v, dout, lse, delta, causal, scale, bias,
-                           heads)
+                           heads, drop)
     return (flash_dq_ref(q, k, v, dout, lse, delta, causal, scale, bias,
-                         heads), dk, dv)
+                         heads, drop), dk, dv)
 
 
 # ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# bh, sq, sk, d, causal, heads, scale, stream
-_TAIL = [_I] * 6 + [_F, _P]
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+# bh, sq, sk, d, causal, heads, scale; the dropout key (s0, s1, threshold,
+# 1 / (1 - p), the reference's tile rows and cols; rows 0: no dropout);
+# stream
+_TAIL = [_I] * 6 + [_F] + [_U] * 3 + [_F, _I, _I] + [_P]
 _ARGTYPES = {"flash_fwd": [_P] * 6 + _TAIL,     # q, k, v, bias, o, lse
              "flash_dq": [_P] * 8 + _TAIL,      # ..., delta, bias, dq
              "flash_dkv": [_P] * 9 + _TAIL}     # ..., delta, bias, dk, dv
-
-
 @functools.cache
 def _lib():
     return _build.library("flash_attention.cu", _ARGTYPES)
+
+
+def _drop_args(drop: Optional[DropKey]):
+    """The kernels' dropout arguments (all zero without dropout)."""
+    if drop is None:
+        return (0, 0, 0, 0.0, 0, 0)
+    return (drop.s0 & _M32, drop.s1 & _M32, drop.threshold, drop.inv,
+            int(drop.rows), int(drop.cols))
+
+
+def dropout_bits_cuda(lib, key: DropKey, shape, row_layout: bool,
+                      device) -> torch.Tensor:
+    """The device hash of ``lib`` (any of the port's libraries: each
+    builds common.cuh's ``dropout_bits``) over a [nb, nr, nc] score
+    matrix (flash keys) or an [nr, nc] row matrix (``row_layout``: row
+    keys, nb = 1): the uint32 bits as int64, to hold against
+    ``flash_bits_ref`` / ``row_bits_ref``. A debug entry: no kernel of a
+    path calls it."""
+    nb, nr, nc = (1, *shape) if row_layout else shape
+    out = torch.empty((nb, nr, nc), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = lib.dropout_bits(out.data_ptr(), nb, nr, nc, key.s0 & _M32,
+                              key.s1 & _M32, int(key.rows), int(key.cols),
+                              int(row_layout),
+                              torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dropout_bits launch failed: CUDA error {rc} "
+                           f"({lib.kernel_error_string(rc).decode()})")
+    bits = out.to(torch.int64) & _M32
+    return bits[0] if row_layout else bits
 
 
 def _check_cuda(name, tensors, d):
@@ -174,9 +397,9 @@ def _check_cuda(name, tensors, d):
                          f"got {d}")
 
 
-def _call(name, dtype, device, *args):
-    _build.call(_lib(), name, dtype, device, *args)
-    launches[name] += 1
+def _call(name, drop, dtype, device, *args):
+    _build.call(_lib(), name, dtype, device, *args, *_drop_args(drop))
+    (launches if drop is None else dropout_launches)[name] += 1
 
 
 def _shapes(q, k, v):
@@ -209,7 +432,7 @@ def _bias_arg(bias, heads, bh, sk, causal):
     return bias.data_ptr()
 
 
-def _fwd_cuda(q, k, v, causal, scale, bias=None, heads=1):
+def _fwd_cuda(q, k, v, causal, scale, bias=None, heads=1, drop=None):
     bh, sq, sk, d = _shapes(q, k, v)
     _check_cuda("flash_fwd", (q, k, v) + (() if bias is None else (bias,)),
                 d)
@@ -220,13 +443,14 @@ def _fwd_cuda(q, k, v, causal, scale, bias=None, heads=1):
     bptr = _bias_arg(bias, heads, bh, sk, causal)
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    _call("flash_fwd", q.dtype, q.device, q.data_ptr(), k.data_ptr(),
+    _call("flash_fwd", drop, q.dtype, q.device, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), bptr, out.data_ptr(), lse.data_ptr(), bh, sq, sk, d,
           int(causal), int(heads), float(scale))
     return out, lse
 
 
-def _bwd_cuda(q, k, v, out, lse, dout, causal, scale, bias=None, heads=1):
+def _bwd_cuda(q, k, v, out, lse, dout, causal, scale, bias=None, heads=1,
+              drop=None):
     bh, sq, sk, d = _shapes(q, k, v)
     _check_cuda("flash_bwd", (q, k, v, out, dout, lse)
                 + (() if bias is None else (bias,)), d)
@@ -241,28 +465,31 @@ def _bwd_cuda(q, k, v, out, lse, dout, causal, scale, bias=None, heads=1):
         raise ValueError("out and dout must have q's shape")
     # delta outside the kernels, as in the reference
     delta = _delta(out, dout)
-    return (_dq_cuda(q, k, v, dout, lse, delta, causal, scale, bias, heads),
+    return (_dq_cuda(q, k, v, dout, lse, delta, causal, scale, bias, heads,
+                     drop),
             *_dkv_cuda(q, k, v, dout, lse, delta, causal, scale, bias,
-                       heads))
+                       heads, drop))
 
 
-def _dq_cuda(q, k, v, dout, lse, delta, causal, scale, bias=None, heads=1):
+def _dq_cuda(q, k, v, dout, lse, delta, causal, scale, bias=None, heads=1,
+             drop=None):
     bh, sq, sk, d = _shapes(q, k, v)
     bptr = _bias_arg(bias, heads, bh, sk, causal)
     dq = torch.empty_like(q)
-    _call("flash_dq", q.dtype, q.device, q.data_ptr(), k.data_ptr(),
+    _call("flash_dq", drop, q.dtype, q.device, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
           bptr, dq.data_ptr(), bh, sq, sk, d, int(causal), int(heads),
           float(scale))
     return dq
 
 
-def _dkv_cuda(q, k, v, dout, lse, delta, causal, scale, bias=None, heads=1):
+def _dkv_cuda(q, k, v, dout, lse, delta, causal, scale, bias=None, heads=1,
+              drop=None):
     bh, sq, sk, d = _shapes(q, k, v)
     bptr = _bias_arg(bias, heads, bh, sk, causal)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _call("flash_dkv", q.dtype, q.device, q.data_ptr(), k.data_ptr(),
+    _call("flash_dkv", drop, q.dtype, q.device, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
           bptr, dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d, int(causal),
           int(heads), float(scale))
@@ -275,48 +502,77 @@ def _on(device, name):
     return device.type == "cuda"
 
 
+def drop_key(dropout_p, seed0, seed1, rows, cols, what="dropout"):
+    """The custom ops' dropout arguments as a DropKey, None at p = 0:
+    the rate, the seed pair and the reference's tile (flash: block_q by
+    block_k; the row kernels: block_r by the row's width)."""
+    if dropout_p <= 0.0:
+        return None
+    if rows < 1 or cols < 1:
+        raise ValueError(f"{what} needs the reference's tile, got "
+                         f"({rows}, {cols})")
+    return DropKey(float(dropout_p), int(seed0), int(seed1), int(rows),
+                   int(cols))
+
+
 # ---------------------------------------------------------------------------
 # custom ops + autograd
 # ---------------------------------------------------------------------------
 
+_DROP_SCHEMA = ("float dropout_p=0.0, int seed0=0, int seed1=0, "
+                "int block_q=0, int block_k=0")
+
+
 @torch.library.custom_op(
     "paddle_tpu_torch::flash_fwd", mutates_args=(),
     schema="(Tensor q, Tensor k, Tensor v, bool causal, float scale, "
-           "Tensor? bias=None, int heads=1) -> (Tensor, Tensor)")
-def flash_fwd(q, k, v, causal, scale, bias=None, heads=1):
-    """Flash-attention forward on [BH, S, D] → (out, lse [BH, Sq] f32)."""
+           f"Tensor? bias=None, int heads=1, {_DROP_SCHEMA}) "
+           "-> (Tensor, Tensor)")
+def flash_fwd(q, k, v, causal, scale, bias=None, heads=1, dropout_p=0.0,
+              seed0=0, seed1=0, block_q=0, block_k=0):
+    """Flash-attention forward on [BH, S, D] → (out, lse [BH, Sq] f32);
+    with ``dropout_p > 0`` the mask keyed (seed0, seed1) by the tile
+    (block_q, block_k)."""
+    drop = drop_key(dropout_p, seed0, seed1, block_q, block_k,
+                    "flash dropout")
     if _on(q.device, "flash_fwd"):
-        return _fwd_cuda(q, k, v, causal, scale, bias, heads)
-    return flash_fwd_ref(q, k, v, causal, scale, bias, heads)
+        return _fwd_cuda(q, k, v, causal, scale, bias, heads, drop)
+    return flash_fwd_ref(q, k, v, causal, scale, bias, heads, drop)
 
 
 @torch.library.custom_op(
     "paddle_tpu_torch::flash_bwd", mutates_args=(),
     schema="(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
            "Tensor dout, bool causal, float scale, Tensor? bias=None, "
-           "int heads=1) -> (Tensor, Tensor, Tensor)")
-def flash_bwd(q, k, v, out, lse, dout, causal, scale, bias=None, heads=1):
-    """Flash-attention backward on [BH, S, D] → (dq, dk, dv)."""
+           f"int heads=1, {_DROP_SCHEMA}) -> (Tensor, Tensor, Tensor)")
+def flash_bwd(q, k, v, out, lse, dout, causal, scale, bias=None, heads=1,
+              dropout_p=0.0, seed0=0, seed1=0, block_q=0, block_k=0):
+    """Flash-attention backward on [BH, S, D] → (dq, dk, dv), the forward's
+    dropout mask regenerated from its key."""
+    drop = drop_key(dropout_p, seed0, seed1, block_q, block_k,
+                    "flash dropout")
     if _on(q.device, "flash_bwd"):
-        return _bwd_cuda(q, k, v, out, lse, dout, causal, scale, bias, heads)
-    return flash_bwd_ref(q, k, v, out, lse, dout, causal, scale, bias, heads)
+        return _bwd_cuda(q, k, v, out, lse, dout, causal, scale, bias, heads,
+                         drop)
+    return flash_bwd_ref(q, k, v, out, lse, dout, causal, scale, bias, heads,
+                         drop)
 
 
 def _setup_context(ctx, inputs, output):
-    q, k, v, causal, scale, bias, heads = inputs
+    q, k, v, causal, scale, bias, heads, *drop = inputs
     out, lse = output
     ctx.save_for_backward(q, k, v, out, lse, bias)
-    ctx.causal, ctx.scale, ctx.heads = causal, scale, heads
+    ctx.causal, ctx.scale, ctx.heads, ctx.drop = causal, scale, heads, drop
 
 
 def _backward(ctx, dout, _dlse):
     # lse is a residual for the backward only; flash_attention_bshd never
     # returns it, so its cotangent carries nothing. The bias gets no
-    # gradient, as in the reference (:648)
+    # gradient, as in the reference (:648); the dropout key none either
     q, k, v, out, lse, bias = ctx.saved_tensors
     dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(), ctx.causal,
-                           ctx.scale, bias, ctx.heads)
-    return dq, dk, dv, None, None, None, None
+                           ctx.scale, bias, ctx.heads, *ctx.drop)
+    return (dq, dk, dv) + (None,) * 9
 
 
 flash_fwd.register_autograd(_backward, setup_context=_setup_context)
@@ -325,6 +581,18 @@ flash_fwd.register_autograd(_backward, setup_context=_setup_context)
 # ---------------------------------------------------------------------------
 # public op
 # ---------------------------------------------------------------------------
+
+def seed_pair(dropout_seed):
+    """A dropout seed (two uint32 or int32 words: a generator key, a
+    tensor, an array) → two Python ints, the words as uint32 (the
+    reference bitcasts int32 words, :793-797)."""
+    if isinstance(dropout_seed, torch.Tensor):
+        dropout_seed = dropout_seed.reshape(-1).tolist()
+    words = [int(w) & _M32 for w in dropout_seed]
+    if len(words) != 2:
+        raise ValueError(f"dropout_seed must be two words, got {len(words)}")
+    return words[0], words[1]
+
 
 def flash_attention_bshd(q, k, v, causal=False, scale=None, kv_bias=None,
                          dropout_p=0.0, dropout_seed=None):
@@ -337,9 +605,11 @@ def flash_attention_bshd(q, k, v, causal=False, scale=None, kv_bias=None,
     key-padding regime (non-causal): an additive f32 bias per key column,
     0 keeping a column; values ≤ -1e8 are canonicalised to the kernels'
     -1e30, so fully masked KV tiles are skipped; a row with no valid key
-    is undefined, as in the reference. ``dropout_p > 0`` (in-kernel
-    attention dropout) is ROADMAP A6b: it raises NotImplementedError
-    after the reference's own checks."""
+    is undefined, as in the reference. ``dropout_p > 0``: in-kernel
+    attention-probability dropout (after the softmax, inverted scale)
+    with the mask keyed by ``dropout_seed`` (two uint32 or int32 words,
+    one generator key) and the reference's tile, ``_auto_blocks``'s pick
+    for q's dtype; the CUDA kernels run their own tiles."""
     if causal and kv_bias is not None:
         raise NotImplementedError(
             "flash_attention_bshd: kv_bias (key-padding mask) is only "
@@ -352,6 +622,10 @@ def flash_attention_bshd(q, k, v, causal=False, scale=None, kv_bias=None,
     b, sq, h, d = q.shape
     sk = k.shape[1]
     hk = k.shape[2]
+    drop = ()
+    if dropout_p > 0.0:
+        tile = flash_drop_tile(sq, sk, bool(causal), q.dtype)
+        drop = (float(dropout_p), *seed_pair(dropout_seed), *tile)
     bias = None
     if kv_bias is not None:
         bias = torch.as_tensor(kv_bias, device=q.device).float()
@@ -361,11 +635,6 @@ def flash_attention_bshd(q, k, v, causal=False, scale=None, kv_bias=None,
                 f"{tuple(bias.shape)}")
         bias = torch.where(bias <= _MASK_THRESH,
                            torch.full_like(bias, _NEG_INF), bias).contiguous()
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "flash_attention_bshd: in-kernel attention dropout (the "
-            "portable keep-mask hash keyed by the reference's tiles) is "
-            "ROADMAP A6b")
     if hk != h:
         rep = h // hk
         k = k.repeat_interleave(rep, dim=2)
@@ -377,5 +646,5 @@ def flash_attention_bshd(q, k, v, causal=False, scale=None, kv_bias=None,
         return t.transpose(1, 2).reshape(b * h, s, d).contiguous()
 
     out, _ = flash_fwd(flat(q, sq), flat(k, sk), flat(v, sk), bool(causal),
-                       float(scale), bias, int(h))
+                       float(scale), bias, int(h), *drop)
     return out.reshape(b, h, sq, d).transpose(1, 2)

@@ -12,8 +12,10 @@ assembly :443 and ``fused_mlp_2d`` :472; its shape rule ``mlp_blocks``
 decode part (``_decode_kernel`` :977, ``_decode_call`` :1041,
 ``decode_attn_proj`` :1067), and the projection-LN epilogue
 (``_proj_ln_fwd_kernel`` :714, ``_proj_ln_bwd_kernel`` :751, the
-``custom_vjp`` assembly :878 and ``fused_proj_ln_2d`` :913). The fused
-MLP's and the projection-LN's dropout epilogues are ROADMAP A6b.
+``custom_vjp`` assembly :878 and ``fused_proj_ln_2d`` :913) with its
+dropout epilogue, and ``mlp_blocks`` (:118-207, the tuning table's
+entries included), whose row tile keys the projection-LN's dropout mask.
+The fused MLP's dropout epilogue (kernels 4-6) is ROADMAP A6c.
 
 The fused MLP's forward and backward are ``torch.library`` custom ops,
 ``paddle_tpu_torch::fused_mlp_fwd`` → ``y`` and
@@ -40,7 +42,12 @@ The projection-LN forward and backward are
 (dz and dp f32, as the reference's kernel writes them, :857-858); the
 backward saves the primal inputs and the f32 row statistics, recomputes
 the product, and takes dx, dW and db from dp as f32 products outside the
-kernel, as the reference does (:895-904). For CUDA tensors they launch
+kernel, as the reference does (:895-904). Dropout (:735-739, :778-788):
+z = where(keep, (x·W + b) · f32(1 / (1 − p)), 0) + res, dz the LN's
+input gradient (dres) and dp = where(keep, dz · f32(1 / (1 − p)), 0),
+the mask keyed (row // block_r, 0, 0) with the index (row % block_r)·Hout
++ c, block_r being ``mlp_blocks``'s row tile; the backward regenerates
+it from the seed pair. For CUDA tensors they launch
 ``csrc/proj_ln.cu`` or raise; for CPU tensors they take
 ``fused_proj_ln_fwd_ref`` / ``fused_proj_ln_bwd_ref``.
 
@@ -54,21 +61,26 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
 from . import _build
+from ..analysis import autotune
 from ._build import vec32 as _vec32
-from .flash_attention import _on
+from .flash_attention import DropKey, _ceil_to, _drop_args, _on, drop_key
+from .flash_attention import seed_pair as _seed_pair
+from .norm_fusion import _dropped
 
-__all__ = ["decode_attn_proj", "decode_attn_proj_ref", "fused_mlp_2d",
+__all__ = ["decode_attn_proj", "decode_attn_proj_ref", "dropout_launches",
+           "fused_mlp_2d",
            "fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_fwd_ref",
            "fused_mlp_dx_ref", "fused_mlp_dw_ref", "fused_swiglu_2d",
            "fused_swiglu_fwd", "fused_swiglu_bwd", "fused_swiglu_fwd_ref",
            "fused_swiglu_dx_ref", "fused_swiglu_dw_ref", "fused_proj_ln_2d",
            "fused_proj_ln_fwd", "fused_proj_ln_bwd", "fused_proj_ln_fwd_ref",
-           "fused_proj_ln_bwd_ref", "mlp_eligible", "proj_ln_eligible",
+           "fused_proj_ln_bwd_ref", "mlp_blocks", "mlp_eligible",
+           "proj_ln_eligible",
            "proj_ln_max_hout", "launches"]
 
 _NEG_INF = -1e30   # flash_attention.py:61 — the kernel's mask, never -inf
@@ -132,6 +144,9 @@ _ROW_BLOCK = 128
 launches = {"fused_mlp_fwd": 0, "fused_mlp_dx": 0, "fused_mlp_dw": 0,
             "fused_swiglu_fwd": 0, "fused_swiglu_dx": 0, "fused_swiglu_dw": 0,
             "fused_proj_ln_fwd": 0, "fused_proj_ln_bwd": 0}
+# launches of the projection-LN kernels' dropout variants (``launches``
+# counts the dropout-free ones)
+dropout_launches = {"fused_proj_ln_fwd": 0, "fused_proj_ln_bwd": 0}
 
 
 def mlp_eligible(r: int, h: int, f: int) -> bool:
@@ -141,6 +156,58 @@ def mlp_eligible(r: int, h: int, f: int) -> bool:
     routing follows the rule so that both packages compute the same
     function for every shape. The TPU's tile sizes are not ported."""
     return f % 128 == 0 or f <= 512
+
+
+_LANES = 8                       # :60, the TPU row tiles' quantum
+_MLP_VMEM_TARGET = 10 << 20      # :59
+
+
+def _vmem_estimate(br, h, bf):
+    """:110: the TPU kernels' worst-case resident bytes for one grid
+    step."""
+    return 4 * (4 * h * bf + 3 * br * h + 4 * br * bf)
+
+
+def mlp_blocks(r, h, f, dtype=None):
+    """The reference's (block_r, block_f) pick (:118-207), or None when no
+    ffn tile exists: an exact tuning-table hit (a stale one raises), else
+    the VMEM heuristic, which keeps the row tile large and shrinks the f
+    tile first. In the port its row tile keys the projection-LN's dropout
+    mask; the CUDA kernels' tiles are their own. The reference's explicit
+    block arguments and sweep flags (FLAGS_mlp_block_*) are not ported."""
+    hit = autotune.lookup("fused_mlp", autotune.mlp_sig(r, h, f, dtype))
+    if hit is not None:
+        tbr, tbf = int(hit["block_r"]), int(hit["block_f"])
+        if tbr <= 0 or tbr % _LANES or f % tbf or (tbf % 128 and tbf != f):
+            raise ValueError(
+                f"tuning-table fused_mlp entry ({tbr}, {tbf}) cannot "
+                f"tile (r={r}, h={h}, f={f}) — stale winners are "
+                f"rejected, never re-rounded; regenerate the table "
+                f"(scripts/autotune.py search) or set "
+                f"FLAGS_kernel_tuning=0")
+        return tbr, tbf
+
+    def _best_bf(br_):
+        for cand in (512, 384, 256, 128):
+            if f % cand == 0 and _vmem_estimate(br_, h, cand) \
+                    <= _MLP_VMEM_TARGET:
+                return cand
+        if f <= 512 and _vmem_estimate(br_, h, f) <= _MLP_VMEM_TARGET:
+            return f
+        return None
+
+    br = min(256, _ceil_to(r, _LANES))
+    while True:
+        bf = _best_bf(br)
+        if bf is not None:
+            return br, bf
+        if br <= _LANES:
+            break
+        br = max(_LANES, (br // 2) // _LANES * _LANES)
+    for cand in (128, 256, 384, 512):     # over budget even at 128
+        if f % cand == 0:
+            return _LANES, cand
+    return (_LANES, f) if f <= 512 else None
 
 
 def _pre(x, w1, b1):
@@ -372,8 +439,8 @@ def fused_mlp_2d(x, w1, b1, w2, b2, *, approximate=False, dropout_p=0.0,
 
     y = gelu(x @ w1 + b1) @ w2 + b2; weight layout matches nn.Linear
     ([in, out]); w1 and w2 are cast to x's dtype. The reference's checks
-    and messages; ``dropout_p > 0`` (the seeded keep-mask epilogue) is
-    ROADMAP A6b and raises NotImplementedError."""
+    and messages; ``dropout_p > 0`` (the seeded keep-mask epilogue of
+    kernels 4-6) is ROADMAP A6c and raises NotImplementedError."""
     if x.ndim != 2:
         raise ValueError(f"fused_mlp_2d expects a 2D [R, H] view, got "
                          f"{tuple(x.shape)}")
@@ -398,8 +465,9 @@ def fused_mlp_2d(x, w1, b1, w2, b2, *, approximate=False, dropout_p=0.0,
             raise ValueError("fused_mlp: dropout_p > 0 requires "
                              "dropout_seed (2,) key data")
         raise NotImplementedError(
-            "fused_mlp: the in-kernel dropout epilogue (the portable "
-            "keep-mask hash keyed by the reference's tiles) is ROADMAP A6b")
+            "fused_mlp: the in-kernel dropout epilogue of kernels 4-6 (the "
+            "portable keep-mask hash keyed by the reference's row tiles) "
+            "is ROADMAP A6c")
     return fused_mlp_fwd(x.contiguous(), w1.contiguous(), b1.contiguous(),
                          w2.contiguous(), b2.contiguous(), bool(approximate))
 
@@ -528,16 +596,17 @@ def fused_swiglu_2d(x, gate_w, up_w, down_w):
 # fused projection epilogue: LayerNorm(residual + x·W + b)
 # ---------------------------------------------------------------------------
 
-def _proj_z(x, w, b, res):
-    """(x·W with f32 accumulation + b) + res, in f32 (:726-733)."""
-    return (x.float() @ w.float() + b.float()) + res.float()
+def _proj_z(x, w, b, res, drop=None):
+    """dropout(x·W with f32 accumulation + b) + res, in f32 (:726-740)."""
+    return _dropped(x.float() @ w.float() + b.float(), drop) + res.float()
 
 
-def fused_proj_ln_fwd_ref(x, w, b, res, lnw, lnb, eps: float):
-    """Plain version of the projection-LN forward kernel (:726-744): x [R,
+def fused_proj_ln_fwd_ref(x, w, b, res, lnw, lnb, eps: float,
+                          drop: Optional[DropKey] = None):
+    """Plain version of the projection-LN forward kernel (:726-749): x [R,
     Hin], w [Hin, Hout], res [R, Hout] in one dtype, the vectors f32-cast.
     Returns (y in res's dtype, mean [R] f32, rstd [R] f32)."""
-    z = _proj_z(x, w, b, res)
+    z = _proj_z(x, w, b, res, drop)
     mean = z.mean(-1, keepdim=True)
     zc = z - mean
     rstd = torch.rsqrt((zc * zc).mean(-1, keepdim=True) + eps)
@@ -545,21 +614,27 @@ def fused_proj_ln_fwd_ref(x, w, b, res, lnw, lnb, eps: float):
     return y.to(res.dtype), mean[:, 0], rstd[:, 0]
 
 
-def fused_proj_ln_bwd_ref(x, w, b, res, lnw, mean, rstd, g):
+def fused_proj_ln_bwd_ref(x, w, b, res, lnw, mean, rstd, g,
+                          drop: Optional[DropKey] = None):
     """Plain version of the projection-LN backward kernel (:771-793):
-    returns (dz, dp, dgamma, dbeta), all f32; dz and dp are equal without
-    dropout (dp a copy: an op's outputs may not alias each other)."""
-    xhat = (_proj_z(x, w, b, res) - mean[:, None]) * rstd[:, None]
+    returns (dz, dp, dgamma, dbeta), all f32; dp is dz dropped (without
+    dropout a copy: an op's outputs may not alias each other)."""
+    xhat = (_proj_z(x, w, b, res, drop) - mean[:, None]) * rstd[:, None]
     gf = g.float()
     gw = gf * lnw.float()
     c1 = gw.mean(-1, keepdim=True)
     c2 = (gw * xhat).mean(-1, keepdim=True)
     dz = (gw - c1 - xhat * c2) * rstd[:, None]
-    return dz, dz.clone(), (gf * xhat).sum(0), gf.sum(0)
+    dp = dz.clone() if drop is None else _dropped(dz, drop)
+    return dz, dp, (gf * xhat).sum(0), gf.sum(0)
 
 
-_PL_ARGTYPES = {"proj_ln_fwd": [_P] * 9 + [_I] * 3 + [ctypes.c_float, _P],
-                "proj_ln_bwd": [_P] * 12 + [_I] * 3 + [_P]}
+# the dropout key: s0, s1, threshold, 1 / (1 - p), the reference's block_r
+# and Hout (block_r 0: no dropout)
+_PL_DROP = [ctypes.c_uint] * 3 + [ctypes.c_float, _I, _I]
+_PL_ARGTYPES = {"proj_ln_fwd": [_P] * 9 + [_I] * 3 + [ctypes.c_float]
+                + _PL_DROP + [_P],
+                "proj_ln_bwd": [_P] * 12 + [_I] * 3 + _PL_DROP + [_P]}
 
 
 @functools.cache
@@ -616,7 +691,7 @@ def _pl_check(name, x, w, res, more=()):
     return r, hin, hout
 
 
-def _proj_ln_fwd_cuda(x, w, b, res, lnw, lnb, eps):
+def _proj_ln_fwd_cuda(x, w, b, res, lnw, lnb, eps, drop=None):
     r, hin, hout = _pl_check("fused_proj_ln_fwd", x, w, res)
     b32, g32, be32 = _vec32(b), _vec32(lnw), _vec32(lnb)
     y = torch.empty_like(res)
@@ -625,12 +700,12 @@ def _proj_ln_fwd_cuda(x, w, b, res, lnw, lnb, eps):
     _build.call(_pl_lib(), "proj_ln_fwd", x.dtype, x.device, x.data_ptr(),
                 w.data_ptr(), b32.data_ptr(), res.data_ptr(), g32.data_ptr(),
                 be32.data_ptr(), y.data_ptr(), mean.data_ptr(),
-                rstd.data_ptr(), r, hin, hout, float(eps))
-    launches["fused_proj_ln_fwd"] += 1
+                rstd.data_ptr(), r, hin, hout, float(eps), *_drop_args(drop))
+    (launches if drop is None else dropout_launches)["fused_proj_ln_fwd"] += 1
     return y, mean, rstd
 
 
-def _proj_ln_bwd_cuda(x, w, b, res, lnw, mean, rstd, g):
+def _proj_ln_bwd_cuda(x, w, b, res, lnw, mean, rstd, g, drop=None):
     r, hin, hout = _pl_check("fused_proj_ln_bwd", x, w, res, more=(g,))
     b32, g32 = _vec32(b), _vec32(lnw)
     dev = x.device
@@ -644,41 +719,55 @@ def _proj_ln_bwd_cuda(x, w, b, res, lnw, mean, rstd, g):
                 w.data_ptr(), b32.data_ptr(), res.data_ptr(), g32.data_ptr(),
                 mean.contiguous().data_ptr(), rstd.contiguous().data_ptr(),
                 g.data_ptr(), dz.data_ptr(), dp.data_ptr(), part.data_ptr(),
-                sums.data_ptr(), r, hin, hout)
-    launches["fused_proj_ln_bwd"] += 1
+                sums.data_ptr(), r, hin, hout, *_drop_args(drop))
+    (launches if drop is None else dropout_launches)["fused_proj_ln_bwd"] += 1
     # copies: rows of one tensor, and an op's outputs may not alias
     return dz, dp, sums[0].clone(), sums[1].clone()
+
+
+_PL_DROP_SCHEMA = ("float dropout_p=0.0, int seed0=0, int seed1=0, "
+                   "int block_r=0")
 
 
 @torch.library.custom_op(
     "paddle_tpu_torch::fused_proj_ln_fwd", mutates_args=(),
     schema="(Tensor x, Tensor w, Tensor b, Tensor res, Tensor lnw, "
-           "Tensor lnb, float eps) -> (Tensor, Tensor, Tensor)")
-def fused_proj_ln_fwd(x, w, b, res, lnw, lnb, eps):
+           f"Tensor lnb, float eps, {_PL_DROP_SCHEMA}) "
+           "-> (Tensor, Tensor, Tensor)")
+def fused_proj_ln_fwd(x, w, b, res, lnw, lnb, eps, dropout_p=0.0, seed0=0,
+                      seed1=0, block_r=0):
     """Projection-LN forward on x [R, Hin] → (y [R, Hout] in res's dtype,
-    mean [R] f32, rstd [R] f32)."""
+    mean [R] f32, rstd [R] f32); with ``dropout_p > 0`` the mask keyed
+    (seed0, seed1) by the row tile block_r."""
+    drop = drop_key(dropout_p, seed0, seed1, block_r, res.shape[1],
+                    "projection-LN dropout")
     if _on(x.device, "fused_proj_ln_fwd"):
-        return _proj_ln_fwd_cuda(x, w, b, res, lnw, lnb, eps)
-    return fused_proj_ln_fwd_ref(x, w, b, res, lnw, lnb, eps)
+        return _proj_ln_fwd_cuda(x, w, b, res, lnw, lnb, eps, drop)
+    return fused_proj_ln_fwd_ref(x, w, b, res, lnw, lnb, eps, drop)
 
 
 @torch.library.custom_op(
     "paddle_tpu_torch::fused_proj_ln_bwd", mutates_args=(),
     schema="(Tensor x, Tensor w, Tensor b, Tensor res, Tensor lnw, "
-           "Tensor mean, Tensor rstd, Tensor g) "
+           f"Tensor mean, Tensor rstd, Tensor g, {_PL_DROP_SCHEMA}) "
            "-> (Tensor, Tensor, Tensor, Tensor)")
-def fused_proj_ln_bwd(x, w, b, res, lnw, mean, rstd, g):
+def fused_proj_ln_bwd(x, w, b, res, lnw, mean, rstd, g, dropout_p=0.0,
+                      seed0=0, seed1=0, block_r=0):
     """Projection-LN backward → (dz, dp, dgamma, dbeta), all f32, as the
-    reference's kernel returns them (:857-858)."""
+    reference's kernel returns them (:857-858); the forward's dropout
+    mask regenerated from its key."""
+    drop = drop_key(dropout_p, seed0, seed1, block_r, res.shape[1],
+                    "projection-LN dropout")
     if _on(x.device, "fused_proj_ln_bwd"):
-        return _proj_ln_bwd_cuda(x, w, b, res, lnw, mean, rstd, g)
-    return fused_proj_ln_bwd_ref(x, w, b, res, lnw, mean, rstd, g)
+        return _proj_ln_bwd_cuda(x, w, b, res, lnw, mean, rstd, g, drop)
+    return fused_proj_ln_bwd_ref(x, w, b, res, lnw, mean, rstd, g, drop)
 
 
 def _proj_ln_setup_context(ctx, inputs, output):
-    x, w, b, res, lnw, lnb, eps = inputs
+    x, w, b, res, lnw, lnb, eps, *drop = inputs
     _, mean, rstd = output
     ctx.save_for_backward(x, w, b, res, lnw, lnb, mean, rstd)
+    ctx.drop = drop
 
 
 def _proj_ln_backward(ctx, dy, _dmean, _drstd):
@@ -687,11 +776,12 @@ def _proj_ln_backward(ctx, dy, _dmean, _drstd):
     to f32, as the reference computes them (:895-904)."""
     x, w, b, res, lnw, lnb, mean, rstd = ctx.saved_tensors
     dz, dp, dg, dbeta = fused_proj_ln_bwd(x, w, b, res, lnw, mean, rstd,
-                                          dy.contiguous())
+                                          dy.contiguous(), *ctx.drop)
     dx = dp @ w.float().T
     dw = x.float().T @ dp
     return (dx.to(x.dtype), dw.to(w.dtype), dp.sum(0).to(b.dtype),
-            dz.to(res.dtype), dg.to(lnw.dtype), dbeta.to(lnb.dtype), None)
+            dz.to(res.dtype), dg.to(lnw.dtype), dbeta.to(lnb.dtype)) \
+        + (None,) * 5
 
 
 fused_proj_ln_fwd.register_autograd(_proj_ln_backward,
@@ -702,12 +792,12 @@ def fused_proj_ln_2d(x, w, b, residual, ln_w, ln_b, *, eps=1e-5,
                      dropout_p=0.0, dropout_seed=None):
     """LayerNorm(residual + dropout(x @ w + b)) over [R, Hin] x
     (mlp_fusion.py:913): the attention-output-projection epilogue,
-    projection, bias, residual add and LN in one kernel pass. Weight
-    layout [in, out], cast to x's dtype. The reference's checks and
-    messages (:920-949); its TPU tile rule (``mlp_blocks``) is not
-    ported, the kernel's own limit on Hout raises ValueError on a card.
-    ``dropout_p > 0`` (the seeded keep-mask) is ROADMAP A6b and raises
-    NotImplementedError."""
+    projection, bias, dropout, residual add and LN in one kernel pass.
+    Weight layout [in, out], cast to x's dtype. The reference's checks
+    and messages (:920-949); the kernel's own limit on Hout raises
+    ValueError on a card. ``dropout_p > 0``: the mask keyed by
+    ``dropout_seed`` (two uint32 or int32 words) and the reference's row
+    tile (``mlp_blocks``'s)."""
     if x.ndim != 2:
         raise ValueError(f"fused_proj_ln_2d expects a 2D [R, Hin] view, "
                          f"got {tuple(x.shape)}")
@@ -728,17 +818,19 @@ def fused_proj_ln_2d(x, w, b, residual, ln_w, ln_b, *, eps=1e-5,
     if any(s != (hout,) for s in shapes):
         raise ValueError(f"bias/ln shapes {shapes[0]}/{shapes[1]}/{shapes[2]} "
                          f"must all be ({hout},)")
+    drop = ()
     if float(dropout_p) > 0.0:
         if dropout_seed is None:
             raise ValueError("fused_proj_ln: dropout_p > 0 requires "
                              "dropout_seed (2,) key data")
-        raise NotImplementedError(
-            "fused_proj_ln: the in-kernel dropout epilogue (the portable "
-            "keep-mask hash keyed by the reference's row blocks) is "
-            "ROADMAP A6b")
+        blocks = mlp_blocks(r, hout, hin, dtype=x.dtype)
+        if blocks is None:
+            raise NotImplementedError(
+                f"fused_proj_ln: contraction dim {hin} has no legal tile")
+        drop = (float(dropout_p), *_seed_pair(dropout_seed), blocks[0])
     return fused_proj_ln_fwd(x.contiguous(), w.contiguous(), b.contiguous(),
                              residual.contiguous(), ln_w.contiguous(),
-                             ln_b.contiguous(), float(eps))[0]
+                             ln_b.contiguous(), float(eps), *drop)[0]
 
 
 def _check(q, k_pool, v_pool, block_size, proj_w):

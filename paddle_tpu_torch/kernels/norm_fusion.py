@@ -8,9 +8,16 @@ the ``custom_vjp`` assembly (:315) and ``fused_layer_norm_2d`` (:364);
 ``_bn_bwd_reduce_kernel`` (:455), ``_bn_bwd_apply_kernel`` (:487),
 ``_bn_fwd`` (:521), ``_make_fused_bn`` (:561), ``bn_block_c``'s
 eligibility rule (:639-640) and ``fused_batch_norm_train`` (:658). The
-LayerNorm's dropout epilogue (the seeded keep-mask of :96-100) is A6b and
-raises here; ``bn_block_c``'s channel-block picks, its autotune lookup and
-``_BN_VMEM_TARGET`` tune the TPU kernels and are not ported.
+LayerNorm's dropout epilogue (:104-107, :162-175): z = where(keep, (h +
+lin_b) · f32(1 / (1 − p)), 0) + res in the forward; in the backward dres
+= dz, dh = where(keep, dz · f32(1 / (1 − p)), 0) and dlin_b = Σ dh. The
+mask is ``flash_attention.py``'s hash keyed as the reference keys it,
+(row // block_r, 0, 0) with the index (row % block_r)·H + c, block_r
+being the reference's row tile (``_auto_block_r`` :343, the tuning
+table's entries included), whatever rows a CUDA block owns; the
+backward regenerates it from the seed pair. ``bn_block_c``'s
+channel-block picks, its autotune lookup and ``_BN_VMEM_TARGET`` tune
+the TPU kernels and are not ported.
 
 Each direction of each norm is a ``torch.library`` custom op, the two
 joined by ``register_autograd``:
@@ -20,7 +27,7 @@ joined by ``register_autograd``:
   backward saves the primal inputs and the f32 row statistics ``(mean,
   rstd)`` [R], as the reference saves its ``fused_ln_mean`` /
   ``fused_ln_rstd`` residuals (:323-327), and recomputes the normalised
-  row;
+  row (and the dropout mask, from the key it was given);
 - ``paddle_tpu_torch::fused_bn_fwd`` → ``(y, mean, var)``, f32 batch
   statistics with the biased variance, and
   ``paddle_tpu_torch::fused_bn_bwd`` → ``(dx, dres, dw, db)``: the
@@ -48,40 +55,87 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import torch
 
 from . import _build
+from ..analysis import autotune
 from ._build import vec32 as _vec32
-from .flash_attention import _on
+from .flash_attention import (DropKey, _ceil_to, _drop_args, _on, drop_key,
+                              row_bits_ref)
+from .flash_attention import seed_pair as _seed_pair
 
-__all__ = ["bn_eligible", "fused_batch_norm_train", "fused_bn_bwd",
-           "fused_bn_bwd_ref", "fused_bn_fwd", "fused_bn_fwd_ref",
-           "fused_layer_norm_2d", "fused_ln_fwd", "fused_ln_bwd",
-           "fused_ln_fwd_ref", "fused_ln_bwd_ref", "launches"]
+__all__ = ["bn_eligible", "dropout_launches", "fused_batch_norm_train",
+           "fused_bn_bwd", "fused_bn_bwd_ref", "fused_bn_fwd",
+           "fused_bn_fwd_ref", "fused_layer_norm_2d", "fused_ln_fwd",
+           "fused_ln_bwd", "fused_ln_fwd_ref", "fused_ln_bwd_ref", "launches",
+           "ln_block_r", "row_keep_ref"]
 
 launches = {"fused_ln_fwd": 0, "fused_ln_bwd": 0, "fused_bn_fwd": 0,
             "fused_bn_bwd": 0}
+# launches of the LayerNorm kernels' dropout variants (``launches`` counts
+# the dropout-free ones)
+dropout_launches = {"fused_ln_fwd": 0, "fused_ln_bwd": 0}
+
+
+_LN_VMEM_TARGET = 512 * 1024   # :59, the heuristic's row-tile target
+
+
+def ln_block_r(r: int, hd: int, dtype=None) -> int:
+    """``_auto_block_r`` (:343): the reference's LayerNorm row tile, which
+    keys the dropout mask: an exact tuning-table hit (one that is not a
+    positive multiple of 8 within the padded rows raises), else
+    min(128, the VMEM target's rows, the rows rounded up to 8)."""
+    hit = autotune.lookup("fused_ln", autotune.ln_sig(r, hd, dtype))
+    if hit is not None:
+        br = int(hit["block_r"])
+        if br <= 0 or br % 8 or br > _ceil_to(r, 8):
+            raise ValueError(
+                f"tuning-table fused_ln entry block_r={br} cannot tile "
+                f"r={r} (needs a positive multiple of 8, <= padded rows) "
+                f"— regenerate the table (scripts/autotune.py search) or "
+                f"set FLAGS_kernel_tuning=0")
+        return br
+    cap = max(8, (_LN_VMEM_TARGET // (4 * hd)) // 8 * 8)
+    return min(128, cap, _ceil_to(r, 8))
+
+
+def row_keep_ref(drop: DropKey, x):
+    """The keep-mask of the row matrix x [R, H] under row tiles."""
+    return row_bits_ref(drop, x.shape[0], x.shape[1], x.device) \
+        < drop.threshold
+
+
+def _dropped(x, drop: Optional[DropKey]):
+    """where(keep, x · f32(1 / (1 − p)), 0) (:107, :175), x f32."""
+    if drop is None:
+        return x
+    return torch.where(row_keep_ref(drop, x), x * drop.inv_f32(x.device),
+                       0.0)
 
 
 # ---------------------------------------------------------------------------
 # plain versions ([R, H]; the kernels' numerics)
 # ---------------------------------------------------------------------------
 
-def _z(h, res, lin_b):
-    """The normalised tensor's input in f32: h (+ lin_b) (+ res) (:96-102)."""
+def _z(h, res, lin_b, drop=None):
+    """The normalised tensor's input in f32: dropout(h (+ lin_b)) (+ res)
+    (:96-108)."""
     z = h.float()
     if lin_b is not None:
         z = z + lin_b.float()
+    z = _dropped(z, drop)
     if res is not None:
         z = z + res.float()
     return z
 
 
-def fused_ln_fwd_ref(h, res, lin_b, w, b, eps: float):
-    """Plain version of the forward kernel (:94-110): mean, then the
+def fused_ln_fwd_ref(h, res, lin_b, w, b, eps: float,
+                     drop: Optional[DropKey] = None):
+    """Plain version of the forward kernel (:94-117): mean, then the
     centred variance, in f32; y in h's dtype, mean and rstd [R] f32."""
-    z = _z(h, res, lin_b)
+    z = _z(h, res, lin_b, drop)
     mean = z.mean(-1, keepdim=True)
     zc = z - mean
     rstd = torch.rsqrt((zc * zc).mean(-1, keepdim=True) + eps)
@@ -89,25 +143,30 @@ def fused_ln_fwd_ref(h, res, lin_b, w, b, eps: float):
     return y.to(h.dtype), mean[:, 0], rstd[:, 0]
 
 
-def fused_ln_bwd_ref(h, res, lin_b, w, mean, rstd, g):
+def fused_ln_bwd_ref(h, res, lin_b, w, mean, rstd, g,
+                     drop: Optional[DropKey] = None):
     """Plain version of the backward kernel (:160-195): returns (dz, dw, db,
-    dbias) in f32, dz being both dh and dres before their casts."""
-    xhat = (_z(h, res, lin_b) - mean[:, None]) * rstd[:, None]
+    dbias) in f32, dz being dres before its cast, and dh without dropout
+    (with it, dh is ``_dropped(dz, drop)``, whose column sum dbias is)."""
+    xhat = (_z(h, res, lin_b, drop) - mean[:, None]) * rstd[:, None]
     gf = g.float()
     gw = gf * w.float()
     c1 = gw.mean(-1, keepdim=True)
     c2 = (gw * xhat).mean(-1, keepdim=True)
     dz = (gw - c1 - xhat * c2) * rstd[:, None]
-    return dz, (gf * xhat).sum(0), gf.sum(0), dz.sum(0)
+    return dz, (gf * xhat).sum(0), gf.sum(0), _dropped(dz, drop).sum(0)
 
 
 # ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {"ln_fwd": [_P] * 8 + [_I, _I, _F, _P],
-             "ln_bwd": [_P] * 11 + [_I, _I, _I, _P],
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+# the dropout key: s0, s1, threshold, 1 / (1 - p), the reference's block_r
+# and H (block_r 0: no dropout)
+_DROP = [_U] * 3 + [_F, _I, _I]
+_ARGTYPES = {"ln_fwd": [_P] * 8 + [_I, _I, _F] + _DROP + [_P],
+             "ln_bwd": [_P] * 11 + [_I, _I, _I] + _DROP + [_P],
              "fused_bn_fwd": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
              "fused_bn_bwd": [_P] * 15 + [_I, _I, _I, _F, _I, _P]}
 
@@ -149,7 +208,7 @@ def _check(name, h, more, vecs):
     return r, hd
 
 
-def _fwd_cuda(h, res, lin_b, w, b, eps):
+def _fwd_cuda(h, res, lin_b, w, b, eps, drop=None):
     lb, w32, b32 = _vec32(lin_b), _vec32(w), _vec32(b)
     r, hd = _check("fused_ln_fwd", h, () if res is None else (res,),
                    [v for v in (lb, w32, b32) if v is not None])
@@ -158,12 +217,13 @@ def _fwd_cuda(h, res, lin_b, w, b, eps):
     rstd = torch.empty_like(mean)
     _build.call(_lib(), "ln_fwd", h.dtype, h.device, h.data_ptr(), _ptr(res),
                 _ptr(lb), w32.data_ptr(), b32.data_ptr(), y.data_ptr(),
-                mean.data_ptr(), rstd.data_ptr(), r, hd, float(eps))
-    launches["fused_ln_fwd"] += 1
+                mean.data_ptr(), rstd.data_ptr(), r, hd, float(eps),
+                *_drop_args(drop))
+    (launches if drop is None else dropout_launches)["fused_ln_fwd"] += 1
     return y, mean, rstd
 
 
-def _bwd_cuda(h, res, lin_b, w, mean, rstd, g):
+def _bwd_cuda(h, res, lin_b, w, mean, rstd, g, drop=None):
     """(dh, dres or None, dw, db, dbias or None): the rows in h's dtype,
     the column sums f32."""
     lb, w32 = _vec32(lin_b), _vec32(w)
@@ -186,8 +246,9 @@ def _bwd_cuda(h, res, lin_b, w, mean, rstd, g):
     _build.call(_lib(), "ln_bwd", h.dtype, dev, h.data_ptr(), _ptr(res),
                 _ptr(lb), w32.data_ptr(), mean.contiguous().data_ptr(),
                 rstd.contiguous().data_ptr(), g.data_ptr(), dh.data_ptr(),
-                _ptr(dres), part.data_ptr(), sums.data_ptr(), r, hd, nacc)
-    launches["fused_ln_bwd"] += 1
+                _ptr(dres), part.data_ptr(), sums.data_ptr(), r, hd, nacc,
+                *_drop_args(drop))
+    (launches if drop is None else dropout_launches)["fused_ln_bwd"] += 1
     return dh, dres, sums[0], sums[1], sums[2] if nacc == 3 else None
 
 
@@ -195,33 +256,47 @@ def _bwd_cuda(h, res, lin_b, w, mean, rstd, g):
 # custom ops + autograd
 # ---------------------------------------------------------------------------
 
+_DROP_SCHEMA = ("float dropout_p=0.0, int seed0=0, int seed1=0, "
+                "int block_r=0")
+
+
 @torch.library.custom_op(
     "paddle_tpu_torch::fused_ln_fwd", mutates_args=(),
     schema="(Tensor h, Tensor? res, Tensor? lin_b, Tensor w, Tensor b, "
-           "float eps) -> (Tensor, Tensor, Tensor)")
-def fused_ln_fwd(h, res, lin_b, w, b, eps):
+           f"float eps, {_DROP_SCHEMA}) -> (Tensor, Tensor, Tensor)")
+def fused_ln_fwd(h, res, lin_b, w, b, eps, dropout_p=0.0, seed0=0, seed1=0,
+                 block_r=0):
     """Fused LayerNorm forward on [R, H] → (y in h's dtype, mean [R] f32,
-    rstd [R] f32)."""
+    rstd [R] f32); with ``dropout_p > 0`` the mask keyed (seed0, seed1)
+    by the row tile block_r."""
+    drop = drop_key(dropout_p, seed0, seed1, block_r, h.shape[1],
+                    "fused LN dropout")
     if _on(h.device, "fused_ln_fwd"):
-        return _fwd_cuda(h, res, lin_b, w, b, eps)
-    return fused_ln_fwd_ref(h, res, lin_b, w, b, eps)
+        return _fwd_cuda(h, res, lin_b, w, b, eps, drop)
+    return fused_ln_fwd_ref(h, res, lin_b, w, b, eps, drop)
 
 
 @torch.library.custom_op(
     "paddle_tpu_torch::fused_ln_bwd", mutates_args=(),
     schema="(Tensor h, Tensor? res, Tensor? lin_b, Tensor w, Tensor b, "
-           "Tensor mean, Tensor rstd, Tensor g) "
+           f"Tensor mean, Tensor rstd, Tensor g, {_DROP_SCHEMA}) "
            "-> (Tensor, Tensor?, Tensor?, Tensor, Tensor)")
-def fused_ln_bwd(h, res, lin_b, w, b, mean, rstd, g):
+def fused_ln_bwd(h, res, lin_b, w, b, mean, rstd, g, dropout_p=0.0, seed0=0,
+                 seed1=0, block_r=0):
     """Fused LayerNorm backward → (dh, dres, dbias, dw, db): dh in h's
     dtype, dres in res's (None without a residual), and the f32 column
     sums cast to their primals' dtypes, as the reference's bwd does
-    (:334-339; dbias None without a bias)."""
+    (:334-339; dbias None without a bias); the forward's dropout mask
+    regenerated from its key."""
+    drop = drop_key(dropout_p, seed0, seed1, block_r, h.shape[1],
+                    "fused LN dropout")
     if _on(h.device, "fused_ln_bwd"):
-        dh, dres, dw, db, dbias = _bwd_cuda(h, res, lin_b, w, mean, rstd, g)
+        dh, dres, dw, db, dbias = _bwd_cuda(h, res, lin_b, w, mean, rstd, g,
+                                            drop)
     else:
-        dz, dw, db, dbias = fused_ln_bwd_ref(h, res, lin_b, w, mean, rstd, g)
-        dh = dz.to(h.dtype)
+        dz, dw, db, dbias = fused_ln_bwd_ref(h, res, lin_b, w, mean, rstd, g,
+                                             drop)
+        dh = _dropped(dz, drop).to(h.dtype)
         # a copy: an op's outputs may not alias each other
         dres = None if res is None else dz.to(res.dtype, copy=True)
     # copies: the kernels' column sums are rows of one tensor, and an op's
@@ -232,9 +307,10 @@ def fused_ln_bwd(h, res, lin_b, w, b, mean, rstd, g):
 
 
 def _setup_context(ctx, inputs, output):
-    h, res, lin_b, w, b, eps = inputs
+    h, res, lin_b, w, b, eps, *drop = inputs
     _, mean, rstd = output
     ctx.save_for_backward(h, res, lin_b, w, b, mean, rstd)
+    ctx.drop = drop
 
 
 def _backward(ctx, dy, _dmean, _drstd):
@@ -242,8 +318,8 @@ def _backward(ctx, dy, _dmean, _drstd):
     # never returns them, so their cotangents carry nothing
     h, res, lin_b, w, b, mean, rstd = ctx.saved_tensors
     dh, dres, dbias, dw, db = fused_ln_bwd(h, res, lin_b, w, b, mean, rstd,
-                                           dy.contiguous())
-    return dh, dres, dbias, dw, db, None
+                                           dy.contiguous(), *ctx.drop)
+    return (dh, dres, dbias, dw, db) + (None,) * 5
 
 
 fused_ln_fwd.register_autograd(_backward, setup_context=_setup_context)
@@ -260,9 +336,9 @@ def fused_layer_norm_2d(h, weight, bias, *, residual=None, lin_bias=None,
     out = LayerNorm(residual + dropout(h + lin_bias)) * weight + bias with
     f32 statistics whatever the I/O dtype; y in h's dtype. residual and
     lin_bias None skip their stage (plain LayerNorm has neither). The
-    reference's checks and messages (:378-383); ``dropout_p > 0`` (the
-    seeded keep-mask epilogue) is ROADMAP A6b and raises
-    NotImplementedError."""
+    reference's checks and messages (:378-383). ``dropout_p > 0``: the
+    seeded keep-mask epilogue, keyed by ``dropout_seed`` (two uint32 or
+    int32 words) and the reference's row tile (``ln_block_r``)."""
     if h.ndim != 2:
         raise ValueError(f"fused_layer_norm_2d wants [R, H], got "
                          f"{tuple(h.shape)}")
@@ -270,17 +346,17 @@ def fused_layer_norm_2d(h, weight, bias, *, residual=None, lin_bias=None,
         raise ValueError(
             "fused_layer_norm_2d: dropout_p > 0 requires dropout_seed "
             "(a (2,) int32/uint32 key-data pair)")
+    drop = ()
     if dropout_p > 0.0:
-        raise NotImplementedError(
-            "fused_layer_norm_2d: the in-kernel dropout epilogue (the "
-            "portable keep-mask hash keyed by the reference's row blocks) "
-            "is ROADMAP A6b")
+        drop = (float(dropout_p), *_seed_pair(dropout_seed),
+                ln_block_r(*h.shape, h.dtype))
 
     def c(t):
         return None if t is None else t.contiguous()
 
     y, _, _ = fused_ln_fwd(h.contiguous(), c(residual), c(lin_bias),
-                           weight.contiguous(), bias.contiguous(), float(eps))
+                           weight.contiguous(), bias.contiguous(), float(eps),
+                           *drop)
     return y
 
 

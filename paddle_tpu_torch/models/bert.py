@@ -6,7 +6,8 @@ Counterpart: ``paddle_tpu/models/bert.py``: ``BertConfig`` / ``CONFIGS``
 [B, 1, 1, S] mask (:125-143), ``BertPretrainingHeads`` with the tied
 decoder weight and ``per_token_mlm_loss`` (:146-180),
 ``BertForPretraining.forward`` / ``.loss`` (:183-204) and
-``BertForSequenceClassification`` (:207-217).
+``BertForSequenceClassification`` (:207-217), its pooled output's
+dropout included.
 
 The modules are ``nn.Module``s on an explicit ``device`` (None → the
 CUDA card) in ``dtype``, initialised from ``seed`` with a
@@ -32,9 +33,15 @@ embeddings' and the MLM transform's ``LayerNorm`` through
 fused kernels (f32 statistics inside them), where the reference's bf16
 runs under ``amp.auto_cast``; the losses are taken in f32.
 
-Dropout is ROADMAP A6b: a model in training mode with a dropout rate
-above 0 raises NotImplementedError at its first dropout site; ``eval()``
-runs at any rate.
+Dropout runs at the config's rates (0.1 and 0.1 by default) wherever
+the reference applies it, each site taking one split of the framework
+generator (``paddle_tpu_torch.seed``, ``core/generator.py``) in the
+reference's order, 1 + 3·L splits a forward in training mode: the
+embeddings' ``nn.Dropout`` (a dense mask), then per layer the attention
+probabilities (the flash kernels' in-kernel mask), the attention close
+(the projection-LN kernels') and the FFN close (the LayerNorm kernels');
+the dense routes draw the reference's dense masks. ``eval()`` takes no
+split.
 """
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ from ..nn.functional.loss import chunked_mlm_xent
 from ..nn.functional.mlp import (fused_attn_proj_residual_layer_norm,
                                  fused_mlp)
 from ..nn.functional.norm import fused_bias_dropout_residual_layer_norm
+from ..nn.layer.common import Dropout
 from ..nn.layer.norm import LayerNorm
 from .gpt import Linear    # Paddle layout: weight [in, out], bias [out]
 
@@ -83,22 +91,6 @@ CONFIGS = {
                        num_attention_heads=4, intermediate_size=128,
                        max_position_embeddings=64),
 }
-
-
-class Dropout(nn.Module):
-    """Paddle's ``nn.Dropout(p)``: the identity in eval mode or at p = 0.
-    The training-mode mask is ROADMAP A6b."""
-
-    def __init__(self, p=0.5):
-        super().__init__()
-        self.p = float(p)
-
-    def forward(self, x):
-        if self.training and self.p > 0:
-            raise NotImplementedError(
-                "nn.Dropout in training mode (the framework generator's "
-                "mask) is ROADMAP A6b; use dropout rate 0 or eval()")
-        return x
 
 
 def _kw(device, dtype):

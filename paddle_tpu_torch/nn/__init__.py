@@ -4,9 +4,9 @@ child names ``0``, ``1``, ... are Paddle's."""
 from torch.nn import Sequential
 
 from .layer import (AdaptiveAvgPool2D, BatchNorm, BatchNorm1D, BatchNorm2D,
-                    BatchNorm3D, Conv2D, LayerNorm, Linear, MaxPool2D,
-                    RMSNorm, ReLU)
+                    BatchNorm3D, Conv2D, Dropout, LayerNorm, Linear,
+                    MaxPool2D, RMSNorm, ReLU)
 
 __all__ = ["AdaptiveAvgPool2D", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "Conv2D", "LayerNorm", "Linear", "MaxPool2D",
-           "RMSNorm", "ReLU", "Sequential"]
+           "BatchNorm3D", "Conv2D", "Dropout", "LayerNorm", "Linear",
+           "MaxPool2D", "RMSNorm", "ReLU", "Sequential"]

@@ -7,14 +7,15 @@ Ported so far: ``paged_attention_math`` and
 path introspection (mlp.py), ``layer_norm``,
 ``fused_bias_dropout_residual_layer_norm``, ``batch_norm``,
 ``batch_norm_act`` and ``rms_norm`` with theirs (norm.py),
-``chunked_mlm_xent`` and ``cross_entropy`` (loss.py), ``conv2d``
+``chunked_mlm_xent`` and ``cross_entropy`` (loss.py), ``dropout``
+(common.py), ``conv2d``
 (conv.py), ``max_pool2d`` and ``adaptive_avg_pool2d`` (pooling.py),
 ``relu`` (activation.py) and ``linear`` (common.py).
 """
 from .activation import relu
 from .attention import (last_attn_path, paged_attention_math,
                         reset_last_attn_path, scaled_dot_product_attention)
-from .common import linear
+from .common import dropout, linear
 from .conv import conv2d
 from .loss import chunked_mlm_xent, cross_entropy
 from .mlp import (fused_attn_proj_residual_layer_norm, fused_mlp,
@@ -28,6 +29,7 @@ from .sampling import (categorical_math, derive_key, greedy_math,
 
 __all__ = ["adaptive_avg_pool2d", "batch_norm", "batch_norm_act",
            "categorical_math", "chunked_mlm_xent", "conv2d", "cross_entropy",
+           "dropout",
            "derive_key", "fused_attn_proj_residual_layer_norm",
            "fused_bias_dropout_residual_layer_norm", "fused_mlp",
            "fused_swiglu", "greedy_math", "last_attn_path", "last_mlp_path",

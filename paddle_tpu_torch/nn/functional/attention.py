@@ -19,9 +19,15 @@ tensors the kernels do not take (not all float32 or all bfloat16, or a
 head dim above 256), with the same once-warning: the reference computes
 them (its flash pads any head dim, :255, and its functional falls back
 on a rejected kernel). The reference's exception policy (a failed
-kernel falls back to the dense path) is not ported. Attention dropout
-while training (in-kernel on the flash route, a ``default_generator``
-mask on the dense one) is ROADMAP A6b and raises NotImplementedError.
+kernel falls back to the dense path) is not ported.
+
+Attention dropout while training takes one ``default_generator`` split
+per call whenever p > 0, on every route, as the reference does
+(:239-244): on the flash route the kernels' in-kernel keep-mask keyed by
+it (the 'flash_masked' path, with or without a padding mask, :217-218),
+on the dense route ``bernoulli(key, 1 − p)`` over the [b, h, sq, sk]
+probabilities (:56-58). The two routes draw different masks, in the
+reference too.
 """
 from __future__ import annotations
 
@@ -29,8 +35,11 @@ import warnings
 
 import torch
 
+from ...core import generator as gen_mod
 from ...kernels._build import kernel_dtypes
 from ...kernels.flash_attention import _MAX_HEAD_DIM, flash_attention_bshd
+from .common import _inv_keep
+from .sampling import bernoulli
 
 __all__ = ["last_attn_path", "paged_attention_math", "reset_last_attn_path",
            "scaled_dot_product_attention"]
@@ -42,9 +51,9 @@ _DENSE_MASK_WARNED = False
 def last_attn_path():
     """The attention path the most recent ``scaled_dot_product_attention``
     call took: 'flash/cuda' or 'flash_masked/cuda' (the kernels, the
-    latter with the key-padding bias), the same with '/plain' (their plain
-    versions, CPU tensors) or 'ref' (the dense math; None before any
-    call)."""
+    latter with the key-padding bias or dropout), the same with '/plain'
+    (their plain versions, CPU tensors) or 'ref' (the dense math; None
+    before any call)."""
     return _LAST_PATH
 
 
@@ -54,12 +63,15 @@ def reset_last_attn_path():
     _LAST_PATH = None
 
 
-def _sdpa_ref(query, key, value, attn_mask, is_causal, scale=None):
+def _sdpa_ref(query, key, value, attn_mask, is_causal, scale=None,
+              dropout_key=None, dropout_p=0.0):
     """The reference's dense attention on [b, s, h, d] (:26-60): logits in
     the input dtype, scaled, then f32 with the causal mask and the
     attention mask (bool keeps, float adds) applied at -inf; softmax in
-    f32, probabilities cast to the input dtype; GQA broadcasts k/v
-    heads."""
+    f32, probabilities cast to the input dtype; with ``dropout_key`` and
+    p > 0 the probabilities kept with ``bernoulli(key, 1 − p)`` and
+    scaled by 1 / (1 − p) in their dtype, as ``common._dropout_raw`` scales
+    them; GQA broadcasts k/v heads."""
     b, sq, h, d = query.shape
     sk = key.shape[1]
     if scale is None:
@@ -81,6 +93,11 @@ def _sdpa_ref(query, key, value, attn_mask, is_causal, scale=None):
         else:
             logits = logits + attn_mask.float()
     p = torch.softmax(logits, -1).to(query.dtype)
+    if dropout_p > 0.0 and dropout_key is not None:
+        keep = 1.0 - dropout_p
+        dm = bernoulli(torch.tensor(dropout_key, dtype=torch.int64,
+                                    device=p.device), keep, p.shape)
+        p = torch.where(dm, p * _inv_keep(keep, p), torch.zeros_like(p))
     return (p @ vt).transpose(1, 2)
 
 
@@ -110,22 +127,22 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     docstring)."""
     global _LAST_PATH, _DENSE_MASK_WARNED
     p = float(dropout_p) if training else 0.0
-    if p > 0.0:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: attention dropout while training "
-            "(the flash kernels' seeded keep-mask, the dense route's "
-            "default_generator mask) is ROADMAP A6b")
+    # one generator split per call whenever dropout is live, on every
+    # route (:239-244)
+    dk = gen_mod.default_generator.split_key() if p > 0 else None
     mode = "cuda" if query.device.type == "cuda" else "plain"
     takes = (kernel_dtypes(query, key, value)
              and query.shape[-1] <= _MAX_HEAD_DIM)
     if takes and attn_mask is None:
-        _LAST_PATH = f"flash/{mode}"
-        return flash_attention_bshd(query, key, value, causal=bool(is_causal))
+        _LAST_PATH = f"flash_masked/{mode}" if p > 0 else f"flash/{mode}"
+        return flash_attention_bshd(query, key, value, causal=bool(is_causal),
+                                    dropout_p=p, dropout_seed=dk)
     if takes and not is_causal and _is_key_padding_mask(attn_mask):
         _LAST_PATH = f"flash_masked/{mode}"
         return flash_attention_bshd(
             query, key, value, causal=False,
-            kv_bias=_kv_bias(attn_mask, query.shape[0], key.shape[1]))
+            kv_bias=_kv_bias(attn_mask, query.shape[0], key.shape[1]),
+            dropout_p=p, dropout_seed=dk)
     if not _DENSE_MASK_WARNED:
         _DENSE_MASK_WARNED = True
         why = ("attn_mask is not a key-padding mask ([B, 1, 1, Sk]) or is "
@@ -138,7 +155,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             "reference path (materializes [B, H, Sq, Sk] scores), not the "
             "flash kernels")
     _LAST_PATH = "ref"
-    return _sdpa_ref(query, key, value, attn_mask, bool(is_causal))
+    return _sdpa_ref(query, key, value, attn_mask, bool(is_causal),
+                     dropout_key=dk, dropout_p=p)
 
 
 def paged_attention_math(q, k, v, pos_ids, scale):

@@ -23,10 +23,13 @@ the first with the reference's once-warning. The projection-LN's dense
 route is ``linear`` → ``norm._adln_routed``, itself behind
 ``FLAGS_fused_norm``.
 
-Dropout is not ported on any route: on the fused routes it is the
-kernels' seeded keep-mask epilogue (ROADMAP A6b); on the fused MLP's
-dense route the reference draws the mask from its ``default_generator``
-(A5). All raise NotImplementedError.
+Dropout takes one ``default_generator`` split per call whenever p > 0,
+on every route, as the reference does (:196-197, :251-252). The
+projection-LN's fused route applies the kernels' seeded keep-mask, its
+dense route ``norm._adln_routed`` with the same key; the fused MLP's
+dense route applies ``common._dropout_raw`` to its output (:214-216),
+and its fused route (the dropout epilogue of kernels 4-6) is ROADMAP A6c
+and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -36,10 +39,12 @@ import torch
 import torch.nn.functional as F
 
 from ...core.flags import get_flag
+from ...core import generator as gen_mod
 from ...kernels._build import kernel_dtypes
 from ...kernels.mlp_fusion import (fused_mlp_2d, fused_proj_ln_2d,
                                    fused_swiglu_2d, mlp_eligible,
                                    proj_ln_eligible)
+from .common import _dropout_raw
 from .norm import _adln_routed
 
 __all__ = ["fused_attn_proj_residual_layer_norm", "fused_mlp",
@@ -88,11 +93,12 @@ def _linear(x, w, b):
 def fused_mlp(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias, *,
               approximate=False, dropout_rate=0.0, training=True,
               name=None):
-    """y = gelu(x @ W1 + b1, approximate) @ W2 + b2 — the transformer MLP
-    sublayer, in one kernel pass per direction on the fused route.
-    Weight layout [in, out] (nn.Linear); x [..., H]."""
+    """y = dropout(gelu(x @ W1 + b1, approximate) @ W2 + b2) — the
+    transformer MLP sublayer, in one kernel pass per direction on the
+    fused route. Weight layout [in, out] (nn.Linear); x [..., H]."""
     global _LAST_PATH
     p = float(dropout_rate) if training else 0.0
+    dk = gen_mod.default_generator.split_key() if p > 0 else None
     mode = _fused_mode(x.device)
     if mode is not None:
         h = x.shape[-1]
@@ -112,20 +118,19 @@ def fused_mlp(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias, *,
             _LAST_PATH = f"fused_mlp/{mode}"
             if p > 0:
                 raise NotImplementedError(
-                    "fused_mlp: the in-kernel dropout epilogue (the "
-                    "portable keep-mask hash keyed by the reference's tiles) "
-                    "is ROADMAP A6b")
+                    "fused_mlp: the in-kernel dropout epilogue of kernels "
+                    "4-6 (the portable keep-mask hash keyed by the "
+                    "reference's row tiles) is ROADMAP A6c")
             y = fused_mlp_2d(x.reshape(-1, h), fc1_weight, fc1_bias,
                              fc2_weight, fc2_bias, approximate=approximate)
             return y.reshape(x.shape)
     _LAST_PATH = "dense"
-    if p > 0:
-        raise NotImplementedError(
-            "fused_mlp: dense-route dropout draws from the framework's "
-            "default generator, ported with the eager core (ROADMAP A5)")
     h = F.gelu(_linear(x, fc1_weight, fc1_bias),
                approximate="tanh" if approximate else "none")
-    return _linear(h, fc2_weight, fc2_bias)
+    h = _linear(h, fc2_weight, fc2_bias)
+    if p > 0:
+        h = _dropout_raw(h, dk, p, True, "upscale_in_train", None)
+    return h
 
 
 def fused_swiglu(x, gate_weight, up_weight, down_weight, name=None):
@@ -162,10 +167,11 @@ def fused_attn_proj_residual_layer_norm(x, proj_weight, proj_bias,
     projection folded into the post-LN sublayer close, one kernel pass per
     direction on the fused route; the projected tensor never exists.
     Weight layout [in, out]; x [..., Hin], residual [..., Hout]. The dense
-    route is ``x @ W + b`` → ``norm._adln_routed``. Dropout while training
-    is ROADMAP A6b."""
+    route is ``x @ W + b`` → ``norm._adln_routed`` with the same dropout
+    key (one generator split per call while training at p > 0)."""
     global _LAST_PATH
     p = float(dropout_rate) if training else 0.0
+    dk = gen_mod.default_generator.split_key() if p > 0 else None
     eps = float(ln_epsilon)
     mode = _fused_mode(x.device)
     if mode is not None:
@@ -185,15 +191,12 @@ def fused_attn_proj_residual_layer_norm(x, proj_weight, proj_bias,
                         f"row tile")
         else:
             _LAST_PATH = f"fused_proj_ln/{mode}"
-            if p > 0:
-                raise NotImplementedError(
-                    "fused_attn_proj_residual_layer_norm: the in-kernel "
-                    "dropout epilogue is ROADMAP A6b")
             hin = x.shape[-1]
             y = fused_proj_ln_2d(x.reshape(-1, hin), proj_weight, proj_bias,
                                  residual.reshape(-1, hout), ln_scale,
-                                 ln_bias, eps=eps)
+                                 ln_bias, eps=eps, dropout_p=p,
+                                 dropout_seed=dk)
             return y.reshape(residual.shape)
     _LAST_PATH = "dense"
     return _adln_routed(_linear(x, proj_weight, proj_bias), residual, None,
-                        ln_scale, ln_bias, None, p, eps)
+                        ln_scale, ln_bias, dk, p, eps)

@@ -30,10 +30,11 @@ the biased batch variance, updated in place under ``torch.no_grad()``.
 The dense BatchNorm takes its statistics in f32 and returns x's dtype
 (the reference's "black" op runs in f32 under AMP; the port has no AMP).
 
-Dropout is not ported on either route: on the fused route it is the
-kernels' seeded keep-mask epilogue, on the dense route the reference
-draws its mask from ``default_generator``; both are ROADMAP A6b and
-raise NotImplementedError.
+Dropout in the add → LN close takes one ``default_generator`` split per
+call whenever p > 0, on every route (:239-241): on the fused route the
+kernels' seeded keep-mask epilogue, on the dense route
+``common._dropout_raw`` with the same key (:266-268). The two routes draw
+different masks, in the reference too.
 """
 from __future__ import annotations
 
@@ -42,10 +43,12 @@ import warnings
 import torch
 
 from ...core.flags import get_flag
+from ...core import generator as gen_mod
 from ...kernels._build import kernel_dtypes
 from ...kernels.norm_fusion import (bn_eligible, fused_batch_norm_train,
                                     fused_layer_norm_2d)
 from .activation import relu
+from .common import _dropout_raw
 
 __all__ = ["batch_norm", "batch_norm_act",
            "fused_bias_dropout_residual_layer_norm", "last_norm_path",
@@ -84,13 +87,6 @@ def _warn_dense(reason):
     if not _DENSE_FALLBACK_WARNED:
         _DENSE_FALLBACK_WARNED = True
         warnings.warn("fused_norm: taking the dense path: " + reason)
-
-
-def _no_dropout(p, where):
-    if p > 0:
-        raise NotImplementedError(
-            f"{where}: dropout (the fused kernels' seeded keep-mask, the "
-            f"dense route's default_generator mask) is ROADMAP A6b")
 
 
 def _layer_norm_ref(x, normalized_shape=None, weight=None, bias=None,
@@ -145,35 +141,37 @@ def fused_bias_dropout_residual_layer_norm(x, residual, bias=None,
                                            name=None):
     """out = LayerNorm(residual + dropout(bias + x)): the per-sublayer close
     of a post-LN transformer block, one kernel pass on the fused route.
-    Dropout while training is ROADMAP A6b; with ``training=False`` any
-    rate runs."""
+    One generator split per call while training at p > 0."""
     p = float(dropout_rate) if training else 0.0
-    return _adln_routed(x, residual, bias, ln_scale, ln_bias, None, p,
+    dk = gen_mod.default_generator.split_key() if p > 0 else None
+    return _adln_routed(x, residual, bias, ln_scale, ln_bias, dk, p,
                         float(ln_epsilon))
 
 
 def _adln_routed(x, residual, bias, ln_scale, ln_bias, dk, p, eps):
-    """Routing body of ``fused_bias_dropout_residual_layer_norm``, shared
-    with ``fused_attn_proj_residual_layer_norm``'s dense route (the
-    reference's :244-268). ``dk`` is the dropout key, always None here."""
+    """Routing body of ``fused_bias_dropout_residual_layer_norm`` after the
+    generator split, shared with ``fused_attn_proj_residual_layer_norm``'s
+    dense route, which passes its own key (the reference's :244-268).
+    ``dk`` is the drawn dropout key, None at p = 0."""
     global _LAST_PATH
     mode = _fused_mode(x.device)
     if mode is not None:
         if ln_scale is not None and ln_bias is not None \
                 and kernel_dtypes(x):
             _LAST_PATH = f"fused_adln/{mode}"
-            _no_dropout(p, "fused_bias_dropout_residual_layer_norm")
             hd = x.shape[-1]
             y = fused_layer_norm_2d(
                 x.reshape(-1, hd), ln_scale, ln_bias,
-                residual=residual.reshape(-1, hd), lin_bias=bias, eps=eps)
+                residual=residual.reshape(-1, hd), lin_bias=bias, eps=eps,
+                dropout_p=p, dropout_seed=dk)
             return y.reshape(x.shape)
         _warn_dense(
             "fused_bias_dropout_residual_layer_norm needs both ln_scale and "
             "ln_bias (and float32 or bfloat16) for the fused kernel")
     _LAST_PATH = "dense"
-    _no_dropout(p, "fused_bias_dropout_residual_layer_norm")
     h = x if bias is None else x + bias
+    if p > 0:
+        h = _dropout_raw(h, dk, p, True, "upscale_in_train", None)
     return _layer_norm_ref(residual + h, None, ln_scale, ln_bias, eps)
 
 

@@ -9,11 +9,14 @@ contracts:
   distribution, ordered by a STABLE descending sort), so given the same
   ``u`` the token is the reference's;
 * ``derive_key(seed, count)`` = ``fold_in(PRNGKey(seed), count)``. The
-  threefry-2x32 hash, ``PRNGKey``, ``fold_in`` and ``uniform`` are
-  reimplemented here in int64 tensor arithmetic masked to 32 bits, so a
-  sampled stream is bitwise ``jax.random``'s (default threefry
-  implementation, ``jax_threefry_partitionable`` on) for the same
-  (seed, count) — tests/test_torch_sampling.py pins it;
+  threefry-2x32 hash, ``PRNGKey``, ``fold_in``, ``split``,
+  ``random_bits``, ``uniform`` and ``bernoulli`` are reimplemented here in
+  int64 tensor arithmetic masked to 32 bits, so a sampled stream and a
+  dropout mask are bitwise ``jax.random``'s (default threefry
+  implementation, ``jax_threefry_partitionable`` on) for the same key —
+  tests/test_torch_sampling.py and tests/test_torch_dropout.py pin it.
+  ``threefry2x32`` takes Python ints too (the framework generator,
+  core/generator.py, splits its key on the host);
 * invalid knobs raise ValueError with the exact reference strings.
 """
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch
 
 __all__ = ["sample_categorical", "greedy_math",
            "categorical_math", "derive_key", "sample_token", "prng_key",
-           "fold_in", "uniform", "threefry2x32"]
+           "fold_in", "split", "random_bits", "uniform", "bernoulli",
+           "threefry2x32"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -38,8 +42,8 @@ def _rotl(x, r):
 
 def threefry2x32(k1, k2, x1, x2):
     """The 20-round Threefry-2x32 hash of (x1, x2) under key (k1, k2).
-    All four are int64 tensors holding uint32 values (broadcastable);
-    returns the two uint32 output words as int64 tensors."""
+    All four are int64 tensors holding uint32 values (broadcastable), or
+    all Python ints; returns the two uint32 output words in that form."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x1 = (x1 + ks[0]) & _M32
     x2 = (x2 + ks[1]) & _M32
@@ -66,15 +70,43 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y1, y2], dim=-1)
 
 
-def uniform(key: torch.Tensor) -> torch.Tensor:
-    """``jax.random.uniform(key)`` (shape (), float32, [0, 1)): the 32
-    random bits are the xor of the two words hashed at counter (0, 0);
-    the top 23 become the mantissa of a float in [1, 2), minus 1."""
-    k1, k2 = key[..., 0], key[..., 1]
-    zero = torch.zeros_like(k1)
-    y1, y2 = threefry2x32(k1, k2, zero, zero)
-    bits = ((y1 ^ y2) >> 9) | 0x3F800000
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` key data, [num, 2] int64: key i is
+    the hash of the counter pair (0, i) (``_threefry_split_foldlike``)."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    y1, y2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(i), i)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32, as int64 values), for key
+    data [..., 2] → [..., *shape]: each element hashes its row-major flat
+    index, split into (high, low) 32-bit counter words, and the two output
+    words are xor-ed (``_threefry_random_bits_partitionable``)."""
+    shape = tuple(int(d) for d in shape)
+    n = 1
+    for d in shape:
+        n *= d
+    idx = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    lead = tuple(key.shape[:-1]) + (1,) * len(shape)
+    k1, k2 = key[..., 0].reshape(lead), key[..., 1].reshape(lead)
+    y1, y2 = threefry2x32(k1, k2, idx >> 32, idx & _M32)
+    return y1 ^ y2
+
+
+def uniform(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` (float32, [0, 1)) for key data
+    [..., 2] → [..., *shape]: the top 23 of each element's 32 random bits
+    become the mantissa of a float in [1, 2), minus 1."""
+    bits = (random_bits(key, shape) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def bernoulli(key: torch.Tensor, p: float, shape=()) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` with p in
+    float32."""
+    u = uniform(key, shape)
+    return u < torch.tensor(float(p), dtype=torch.float32, device=u.device)
 
 
 def derive_key(seed, count) -> torch.Tensor:

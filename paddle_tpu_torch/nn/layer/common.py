@@ -2,7 +2,8 @@
 
 Counterpart: ``paddle_tpu/nn/layer/common.py``, ``Linear`` (:9-30):
 weight ``[in_features, out_features]`` (Paddle's layout) from
-XavierNormal, a zero bias. For ``Sequential``
+XavierNormal, a zero bias; ``Dropout`` (:41-54), ``F.dropout`` in the
+module's training mode. For ``Sequential``
 (``nn/layer/layers.py:394``) ``torch.nn.Sequential`` serves: its child
 names ``0``, ``1``, ... are Paddle's.
 """
@@ -12,10 +13,10 @@ import torch
 from torch import nn
 
 from ..._device import DeviceLike, resolve_device
-from ..functional.common import linear
+from ..functional.common import dropout, linear
 from ..initializer import constant, xavier_normal
 
-__all__ = ["Linear"]
+__all__ = ["Dropout", "Linear"]
 
 
 class Linear(nn.Module):
@@ -48,3 +49,21 @@ class Linear(nn.Module):
     def extra_repr(self):
         return (f"in_features={self._in_features}, "
                 f"out_features={self._out_features}")
+
+
+class Dropout(nn.Module):
+    """Paddle's ``nn.Dropout``: ``F.dropout`` with the module's training
+    mode (one generator split per call while training at p > 0)."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, input):  # noqa: A002
+        return dropout(input, p=self.p, axis=self.axis,
+                       training=self.training, mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}, axis={self.axis}, mode={self.mode}"

@@ -2,9 +2,13 @@
 JAX reference.
 
 The reference's tiny BERT is carried across through numpy
-(``state_dict`` → ``load_numpy``), with both dropout rates 0 (dropout is
-ROADMAP A6b), and the same seeded batch, with a padding mask that leaves
-some rows short, goes through both packages in fp32. The reference runs
+(``state_dict`` → ``load_numpy``), and the same seeded batch, with a
+padding mask that leaves some rows short, goes through both packages in
+fp32: with both dropout rates 0, and at the config's default rates (0.1
+and 0.1) with both framework generators seeded alike just before the
+step (``paddle_tpu.seed`` / ``paddle_tpu_torch.seed``), so that every
+dropout site draws the reference's mask and the generators end in the
+same state. The reference runs
 as its own tests run it on the CPU: ``FLAGS_flash_attention_interpret``
 on, so its attention reaches the Pallas flash kernels (the masked
 variant) in interpret mode; the tests parametrised over ``fused`` run
@@ -40,9 +44,12 @@ from paddle_tpu.models import bert as jbert
 from paddle_tpu.nn.functional import attention as jattn
 from paddle_tpu.nn.functional import mlp as jmlp
 from paddle_tpu.nn.functional import norm as jnorm
+from paddle_tpu.core import generator as jgen
 from paddle_tpu_torch import get_flag as pt_get_flag
 from paddle_tpu_torch import optimizer as popt
+from paddle_tpu_torch import seed as pt_seed
 from paddle_tpu_torch import set_flags as pt_set_flags
+from paddle_tpu_torch.core import generator as pgen
 from paddle_tpu_torch.kernels import flash_attention as pfa
 from paddle_tpu_torch.kernels import mlp_fusion as pmf
 from paddle_tpu_torch.kernels import norm_fusion as pnf
@@ -308,16 +315,160 @@ def test_sequence_classification_in_eval_matches():
                                rtol=1e-4)
 
 
+def _dropout_pair(seed, **rates):
+    """The reference's tiny BertForPretraining at the given dropout rates
+    (its defaults, 0.1 and 0.1, by default) and the port's carrying its
+    weights."""
+    jcfg = jbert.CONFIGS["tiny"]._replace(**rates)
+    pcfg = pbert.CONFIGS["tiny"]._replace(**rates)
+    paddle.seed(seed)
+    jmodel = jbert.BertForPretraining(jcfg)
+    model = pbert.BertForPretraining(pcfg, device="cpu", dtype=torch.float32
+                                     ).load_numpy(_state(jmodel))
+    return jmodel, model
+
+
+def _seed_both(seed):
+    paddle.seed(seed)
+    pt_seed(seed)
+
+
+def _same_generator_state():
+    np.testing.assert_array_equal(
+        pgen.default_generator.get_state().numpy(),
+        np.asarray(jgen.default_generator.get_state()).astype(np.int64))
+
+
+def _loss_and_grads_match(jmodel, model, batch):
+    ids, mlm, nsp, mask = batch
+    jloss = jmodel.loss(*map(paddle.to_tensor, (ids, mlm, nsp)),
+                        attention_mask=paddle.to_tensor(mask))
+    jloss.backward()
+    loss = model.loss(*map(torch.from_numpy, (ids, mlm, nsp)),
+                      attention_mask=torch.from_numpy(mask))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss.numpy()), atol=1e-5,
+                               rtol=1e-4)
+    jgrads = {n: _numpy(p.grad) for n, p in jmodel.named_parameters()}
+    for name, p in model.named_parameters():
+        ref = jgrads[name]
+        err = float(np.abs(p.grad.numpy() - ref).max())
+        assert err <= 1e-4 * float(np.abs(ref).max()), (name, err)
+    return loss.item()
+
+
 @pytest.mark.parametrize("rate", ["hidden_dropout_prob",
                                   "attention_probs_dropout_prob"])
-def test_training_with_dropout_raises_naming_a6b(rate):
-    cfg = pbert.CONFIGS["tiny"]._replace(**{**NO_DROPOUT, rate: 0.1})
-    model = pbert.BertForPretraining(cfg, device="cpu", dtype=torch.float32)
-    ids, mlm, nsp, mask = map(torch.from_numpy, _batch(9))
-    with pytest.raises(NotImplementedError, match="A6b"):
-        model.loss(ids, mlm, nsp, attention_mask=mask)
+def test_training_with_one_dropout_rate_matches(rate):
+    """One rate at 0.1, the other 0, fused route: the loss and every
+    gradient the reference's; the rate-0 sites take no split; eval mode
+    runs at any rate."""
+    _set_fused(True)
+    try:
+        jmodel, model = _dropout_pair(9, **{**NO_DROPOUT, rate: 0.1})
+        _seed_both(12)
+        _loss_and_grads_match(jmodel, model, _batch(9))
+        _same_generator_state()
+        splits = {"hidden_dropout_prob": 1 + 2 * 2,
+                  "attention_probs_dropout_prob": 2}[rate]
+        fresh = pgen.Generator(12)
+        for _ in range(splits):
+            fresh.split_key()
+        assert torch.equal(pgen.default_generator.get_state(),
+                           fresh.get_state())
+    finally:
+        _set_fused(False)
     model.eval()
+    ids, mlm, nsp, mask = map(torch.from_numpy, _batch(9))
     assert torch.isfinite(model.loss(ids, mlm, nsp, attention_mask=mask))
+    assert torch.equal(pgen.default_generator.get_state(), fresh.get_state())
+
+
+def test_default_config_trains_with_dropout_and_draws_the_reference_masks(
+        fused):
+    """BertForPretraining at the reference's default rates (0.1 / 0.1):
+    the loss and every gradient leaf the reference's, fused and dense
+    routes alike (each route draws the reference's masks of that route);
+    1 + 3·L generator splits a step, the generators' states equal
+    after it; the rates move the loss."""
+    jmodel, model = _dropout_pair(3)
+    assert (model.cfg.hidden_dropout_prob,
+            model.cfg.attention_probs_dropout_prob) == (0.1, 0.1)
+    _seed_both(21)
+    loss = _loss_and_grads_match(jmodel, model, _batch(4))
+    _same_generator_state()
+    fresh = pgen.Generator(21)
+    for _ in range(1 + 3 * model.cfg.num_hidden_layers):
+        fresh.split_key()
+    assert torch.equal(pgen.default_generator.get_state(), fresh.get_state())
+    assert (jattn.last_attn_path(), PF.last_attn_path()) == (
+        "flash_masked/interpret", "flash_masked/plain")
+    model.zero_grad()
+    with torch.no_grad():
+        model.eval()
+        ids, mlm, nsp, mask = map(torch.from_numpy, _batch(4))
+        assert model.loss(ids, mlm, nsp, attention_mask=mask).item() != loss
+
+
+def test_three_adamw_steps_with_dropout_match_reference(fused):
+    """Three AdamW steps at the default rates, one seed before the first:
+    each step draws fresh masks from the advancing generators; losses and
+    parameters at the undropped test's tolerances."""
+    lr, steps = 1e-3, 3
+    jmodel, model = _dropout_pair(5)
+    jopt = paddle.optimizer.AdamW(learning_rate=lr, weight_decay=0.01,
+                                  parameters=jmodel.parameters())
+    opt = popt.AdamW(learning_rate=lr, weight_decay=0.01,
+                     parameters=model.parameters())
+    ids, mlm, nsp, mask = _batch(6)
+    _seed_both(33)
+    jl, pl = [], []
+    for _ in range(steps):
+        loss = jmodel.loss(*map(paddle.to_tensor, (ids, mlm, nsp)),
+                           attention_mask=paddle.to_tensor(mask))
+        loss.backward()
+        jopt.step()
+        jopt.clear_grad()
+        jl.append(float(loss.numpy()))
+        loss = model.loss(*map(torch.from_numpy, (ids, mlm, nsp)),
+                          attention_mask=torch.from_numpy(mask))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        pl.append(loss.item())
+    np.testing.assert_allclose(pl, jl, rtol=1e-5)
+    _same_generator_state()
+    ref = _state(jmodel)
+    H = model.cfg.hidden_size
+    for name, p in model.state_dict().items():
+        diff = np.abs(p.numpy() - ref[name])
+        assert float(diff.max()) <= 2 * lr * steps, name
+        if name.endswith("qkv.bias"):       # q and v thirds; k is noise
+            diff = np.concatenate([diff[:H], diff[2 * H:]])
+        assert float((diff > 1e-6).mean()) <= 1e-3, name
+
+
+def test_eval_mode_padding_invariance_at_default_dropout():
+    """The default config in eval mode: no split, the padded masked
+    sequence gives the unpadded one's outputs (the reference test's
+    tolerance)."""
+    model = pbert.BertModel(pbert.CONFIGS["tiny"], device="cpu",
+                            dtype=torch.float32, seed=2)
+    model.eval()
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, 1024, (2, 8)).astype("int64")
+    padded = np.concatenate([ids, np.zeros((2, 4), "int64")], axis=1)
+    mask = np.concatenate([np.ones((2, 8)), np.zeros((2, 4))],
+                          axis=1).astype("int64")
+    pt_seed(1)
+    with torch.no_grad():
+        seq_ref, _ = model(torch.from_numpy(ids))
+        seq_pad, _ = model(torch.from_numpy(padded),
+                           attention_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(seq_pad.numpy()[:, :8], seq_ref.numpy(),
+                               atol=1e-4)
+    assert torch.equal(pgen.default_generator.get_state(),
+                       pgen.Generator(1).get_state())
 
 
 def test_bf16_model_stays_bf16():

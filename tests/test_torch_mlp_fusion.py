@@ -34,6 +34,7 @@ from paddle_tpu.kernels import mlp_fusion as jmf
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.nn.functional import mlp as jmlp
 from paddle_tpu_torch import get_flag as pt_get_flag
+from paddle_tpu_torch import seed as pt_seed
 from paddle_tpu_torch import set_flags as pt_set_flags
 from paddle_tpu_torch.kernels import mlp_fusion as pmf
 from paddle_tpu_torch.nn import functional as PF
@@ -239,12 +240,29 @@ def test_functional_routes_and_last_mlp_path(route, flags):
 
 @pytest.mark.parametrize("route", ["fused", "flag_off"])
 def test_functional_dropout_raises(route, flags):
+    """fused_mlp with dropout while training: the fused route (the dropout
+    epilogue of kernels 4-6) raises naming ROADMAP A6c; the dense route
+    applies the reference's mask to the output, from the same generator
+    seed; eval mode runs either route."""
     pt_set_flags({"FLAGS_fused_mlp": route == "fused"})
-    x, w1, b1, w2, b2, _ = map(torch.from_numpy, _arrays(12, 6, 16, 64))
-    with pytest.raises(NotImplementedError,
-                       match="A6" if route == "fused" else "A5"):
-        PF.fused_mlp(x, w1, b1, w2, b2, dropout_rate=0.1)
-    PF.fused_mlp(x, w1, b1, w2, b2, dropout_rate=0.1, training=False)
+    x, w1, b1, w2, b2, _ = _arrays(12, 6, 16, 64)
+    tx, tw1, tb1, tw2, tb2 = map(torch.from_numpy, (x, w1, b1, w2, b2))
+    if route == "fused":
+        with pytest.raises(NotImplementedError, match="A6c"):
+            PF.fused_mlp(tx, tw1, tb1, tw2, tb2, dropout_rate=0.1)
+    else:
+        paddle.set_flags({"FLAGS_fused_mlp": False})
+        paddle.seed(6)
+        pt_seed(6)
+        jy = JF.fused_mlp(*map(paddle.to_tensor, (x, w1, b1, w2, b2)),
+                          dropout_rate=0.1)
+        y = PF.fused_mlp(tx, tw1, tb1, tw2, tb2, dropout_rate=0.1)
+        assert (jmlp.last_mlp_path(), PF.last_mlp_path()) == ("dense",
+                                                              "dense")
+        _close(y, np.asarray(jy.numpy()), F32_TOL)
+        np.testing.assert_array_equal(y.numpy() == 0,
+                                      np.asarray(jy.numpy()) == 0)
+    PF.fused_mlp(tx, tw1, tb1, tw2, tb2, dropout_rate=0.1, training=False)
 
 
 def test_ctypes_signatures_match_the_cuda_source():

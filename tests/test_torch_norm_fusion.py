@@ -18,6 +18,11 @@ Tolerances:
 - bf16 I/O: one bf16 unit in the last place of the output's largest
   magnitude (2^-8 of it): both round the same f32 values, and a value on
   a rounding boundary may round the other way.
+
+The dropout epilogue runs the same way with the same seed pair in both
+packages: the reference's interpret-mode keep-mask against the port's
+plain hash keyed by the reference's row tile; the masks are compared
+exactly (dh's zeros), the values at the tolerances above.
 """
 import ctypes
 import re
@@ -36,10 +41,14 @@ from paddle_tpu.core.flags import get_flag as jax_get_flag
 from paddle_tpu.kernels import norm_fusion as jnf
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.nn.functional import norm as jnorm
+from paddle_tpu.core import generator as jgen
 from paddle_tpu_torch import get_flag as pt_get_flag
+from paddle_tpu_torch import seed as pt_seed
 from paddle_tpu_torch import set_flags as pt_set_flags
 from paddle_tpu_torch.incubate.nn import functional as PIF
+from paddle_tpu_torch.core import generator as pgen
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import flash_attention as pfa
 from paddle_tpu_torch.kernels import norm_fusion as pnf
 from paddle_tpu_torch.nn import LayerNorm
 from paddle_tpu_torch.nn import functional as PF
@@ -76,29 +85,29 @@ def _close(got, ref, tol):
     assert err <= tol, f"error {err} of the largest |ref| > {tol}"
 
 
-def _ref(h, w, b, res, lb, g, eps, dtype=jnp.float32):
+def _ref(h, w, b, res, lb, g, eps, dtype=jnp.float32, **drop):
     """The reference's y and (dh, dres, dlin_b, dw, db) through its Pallas
-    kernels in interpret mode."""
+    kernels in interpret mode (``drop``: dropout_p, dropout_seed)."""
     args = [jnp.asarray(h).astype(dtype), jnp.asarray(w), jnp.asarray(b),
             None if res is None else jnp.asarray(res).astype(dtype),
             None if lb is None else jnp.asarray(lb)]
 
     def fn(h, w, b, res, lb):
         return jnf.fused_layer_norm_2d(h, w, b, residual=res, lin_bias=lb,
-                                       eps=eps, interpret=True)
+                                       eps=eps, interpret=True, **drop)
 
     y, vjp = jax.vjp(fn, *args)
     return y, vjp(jnp.asarray(g).astype(dtype))
 
 
-def _port(h, w, b, res, lb, g, eps, dtype=torch.float32):
+def _port(h, w, b, res, lb, g, eps, dtype=torch.float32, **drop):
     th = torch.from_numpy(h).to(dtype).requires_grad_(True)
     tres = (None if res is None
             else torch.from_numpy(res).to(dtype).requires_grad_(True))
     tlb = None if lb is None else torch.from_numpy(lb).requires_grad_(True)
     tw, tb = (torch.from_numpy(a).requires_grad_(True) for a in (w, b))
     y = pnf.fused_layer_norm_2d(th, tw, tb, residual=tres, lin_bias=tlb,
-                                eps=eps)
+                                eps=eps, **drop)
     y.backward(torch.from_numpy(g).to(dtype))
     return y, (th.grad, tw.grad, tb.grad,
                None if tres is None else tres.grad,
@@ -195,18 +204,118 @@ def _set(fused):
 
 
 def test_dropout_raises_naming_a6b(norm_flags):
-    h = torch.zeros(4, 8)
-    w = torch.ones(8)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        pnf.fused_layer_norm_2d(h, w, w, dropout_p=0.1,
-                                dropout_seed=torch.tensor([1, 2]))
-    for route in (True, False):
-        pt_set_flags({"FLAGS_fused_norm": route})
-        with pytest.raises(NotImplementedError, match="A6b"):
-            PF.fused_bias_dropout_residual_layer_norm(
-                h, h, ln_scale=w, ln_bias=w, dropout_rate=0.1)
+    """Dropout in the add → LN close is ported on both routes: one
+    generator split per call while training (none in eval mode), the
+    fused route's in-kernel mask and the dense route's bernoulli mask,
+    each the reference's from the same seed (f32, F32_TOL)."""
+    h, res, lb, w, b, _ = _arrays(12, 24, 64)
+    x, r = h.reshape(2, 12, 64), res.reshape(2, 12, 64)
+    for fused in (True, False):
+        _set(fused)
+        paddle.seed(3)
+        pt_seed(3)
+        jz = JF.fused_bias_dropout_residual_layer_norm(
+            paddle.to_tensor(x), paddle.to_tensor(r),
+            bias=paddle.to_tensor(lb), ln_scale=paddle.to_tensor(w),
+            ln_bias=paddle.to_tensor(b), dropout_rate=0.1, ln_epsilon=1e-12)
+        z = PF.fused_bias_dropout_residual_layer_norm(
+            torch.from_numpy(x), torch.from_numpy(r),
+            bias=torch.from_numpy(lb), ln_scale=torch.from_numpy(w),
+            ln_bias=torch.from_numpy(b), dropout_rate=0.1, ln_epsilon=1e-12)
+        assert (jnorm.last_norm_path(), PF.last_norm_path()) == (
+            ("fused_adln/interpret", "fused_adln/plain") if fused
+            else ("dense", "dense"))
+        _close(z, np.asarray(jz.numpy()), F32_TOL)
+        state = pgen.default_generator.get_state()
+        np.testing.assert_array_equal(
+            state.numpy(), np.asarray(jgen.default_generator.get_state()))
         PF.fused_bias_dropout_residual_layer_norm(
-            h, h, ln_scale=w, ln_bias=w, dropout_rate=0.1, training=False)
+            torch.from_numpy(x), torch.from_numpy(r), ln_scale=torch.ones(64),
+            ln_bias=torch.zeros(64), dropout_rate=0.1, training=False)
+        assert torch.equal(pgen.default_generator.get_state(), state)
+    t = torch.from_numpy(h)
+    ones = torch.ones(64)
+    y0 = pnf.fused_layer_norm_2d(t, ones, ones)
+    assert torch.equal(pnf.fused_layer_norm_2d(
+        t, ones, ones, dropout_p=0.0, dropout_seed=[1, 2]), y0)
+    assert not torch.equal(pnf.fused_layer_norm_2d(
+        t, ones, ones, dropout_p=0.1, dropout_seed=[1, 2]), y0)
+
+
+DROP_SEED = np.array([0xF00DFACE, 12345], np.uint32)
+
+
+@pytest.mark.parametrize("r", [200, 37])
+@pytest.mark.parametrize("variant", VARIANTS, ids=_vid)
+def test_dropout_forward_and_backward_match_pallas_kernels(variant, r):
+    """fused_layer_norm_2d with dropout 0.1 (keyed by the reference's row
+    tile, ``ln_block_r``: 128-row tiles at R=200, one padded 40-row tile
+    at R=37) and autograd against the reference's kernels in interpret
+    mode with the same seed pair; dh is zero exactly where the mask
+    drops (the rows dropped in both), dres and the column sums as the
+    reference's."""
+    has_res, has_lb = variant
+    h, res, lb, w, b, g = _arrays(r + 50, r, 96)
+    res = res if has_res else None
+    lb = lb if has_lb else None
+    drop = dict(dropout_p=0.1)
+    jy, (jdh, jdw, jdb, jdres, jdlb) = _ref(
+        h, w, b, res, lb, g, 1e-12, dropout_seed=jnp.asarray(DROP_SEED),
+        **drop)
+    y, (dh, dw, db, dres, dlb) = _port(h, w, b, res, lb, g, 1e-12,
+                                       dropout_seed=DROP_SEED.tolist(),
+                                       **drop)
+    for got, ref in ((y, jy), (dh, jdh), (dw, jdw), (db, jdb),
+                     (dres, jdres), (dlb, jdlb)):
+        assert (got is None) == (ref is None)
+        if got is not None:
+            _close(got, ref, F32_TOL)
+    key = pfa.DropKey(0.1, *map(int, DROP_SEED), pnf.ln_block_r(r, 96), 96)
+    keep = pnf.row_keep_ref(key, dh).numpy()
+    np.testing.assert_array_equal(np.asarray(jdh) == 0, ~keep)
+    np.testing.assert_array_equal(dh.numpy() == 0, ~keep)
+
+
+def test_dropout_bf16_io_matches_pallas_kernels():
+    """bf16 I/O with dropout: the same mask (dh's zeros) and the bf16
+    tolerances."""
+    h, res, lb, w, b, g = _arrays(15, 70, 128)
+    seed = dict(dropout_p=0.1)
+    jy, (jdh, jdw, jdb, jdres, jdlb) = _ref(
+        h, w, b, res, lb, g, 1e-12, jnp.bfloat16,
+        dropout_seed=jnp.asarray(DROP_SEED), **seed)
+    y, (dh, dw, db, dres, dlb) = _port(h, w, b, res, lb, g, 1e-12,
+                                       torch.bfloat16,
+                                       dropout_seed=DROP_SEED.tolist(),
+                                       **seed)
+    for got, ref in ((y, jy), (dh, jdh), (dres, jdres)):
+        _close(got, ref, BF16_TOL)
+    for got, ref in ((dw, jdw), (db, jdb), (dlb, jdlb)):
+        _close(got, ref, F32_TOL)
+    np.testing.assert_array_equal(dh.float().numpy() == 0,
+                                  np.asarray(jdh.astype(jnp.float32)) == 0)
+
+
+def test_dropout_ops_regenerate_the_mask():
+    """The backward op takes the forward's key and regenerates its mask:
+    dh = where(keep, dz / (1 - p), 0) and dlin_b = Σ dh; without the key
+    the backward is the undropped one."""
+    h, res, lb, w, b, g = map(torch.from_numpy, _arrays(17, 40, 32))
+    drop = (0.1, 7, 2 ** 31 + 7, 16)
+    y, mean, rstd = pnf.fused_ln_fwd(h, res, lb, w, b, 1e-5, *drop)
+    dh, dres, dlb, dw, db = pnf.fused_ln_bwd(h, res, lb, w, b, mean, rstd, g,
+                                             *drop)
+    key = pfa.DropKey(drop[0], drop[1], drop[2], drop[3], 32)
+    dz, rdw, rdb, rdlb = pnf.fused_ln_bwd_ref(h, res, lb, w, mean, rstd, g,
+                                              key)
+    keep = pnf.row_keep_ref(key, h)
+    assert torch.equal(dh, torch.where(keep, dz * key.inv_f32("cpu"), 0.0))
+    assert torch.equal(dres, dz) and torch.equal(dlb, rdlb)
+    assert torch.equal(dlb, dh.sum(0)) and torch.equal(dw, rdw)
+    plain = pnf.fused_ln_bwd(h, res, lb, w, b, mean, rstd, g)
+    assert not torch.equal(plain[0], dh)
+    with pytest.raises(ValueError, match="reference's tile"):
+        pnf.fused_ln_fwd(h, res, lb, w, b, 1e-5, 0.1, 1, 2, 0)
 
 
 def test_cuda_route_raises_when_the_kernels_cannot_build(monkeypatch):
@@ -265,7 +374,8 @@ def test_ctypes_signatures_match_the_cuda_source():
         assert m is not None, name
         params = m.group(1).replace("\\", "").split(",")
         kinds = [ctypes.c_void_p if "*" in p else ctypes.c_float
-                 if "float" in p else ctypes.c_int for p in params]
+                 if "float" in p else ctypes.c_uint if "unsigned" in p
+                 else ctypes.c_int for p in params]
         assert kinds == argtypes, name
         for suffix in ("f32", "bf16"):
             assert f"{name.upper()}({suffix}," in src

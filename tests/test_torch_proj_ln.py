@@ -19,6 +19,10 @@ Tolerances:
 - bf16 I/O: one bf16 unit in the last place of the output's largest
   magnitude (2^-8 of it) for y and the bf16 gradients; the f32 outputs
   (dgamma, dbeta, and dx, dW, db before their casts) at 1e-5.
+
+The dropout epilogue runs the same way with the same seed pair in both
+packages, the port's plain hash keyed by the reference's row tile
+(``mlp_blocks``); dp's zeros are the mask, exactly.
 """
 import ctypes
 import re
@@ -38,10 +42,15 @@ from paddle_tpu.kernels import mlp_fusion as jmf
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.nn.functional import mlp as jmlp
 from paddle_tpu.nn.functional import norm as jnorm
+from paddle_tpu.core import generator as jgen
 from paddle_tpu_torch import get_flag as pt_get_flag
+from paddle_tpu_torch import seed as pt_seed
 from paddle_tpu_torch import set_flags as pt_set_flags
+from paddle_tpu_torch.core import generator as pgen
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import flash_attention as pfa
 from paddle_tpu_torch.kernels import mlp_fusion as pmf
+from paddle_tpu_torch.kernels import norm_fusion as pnf
 from paddle_tpu_torch.nn import functional as PF
 from paddle_tpu_torch.nn.functional import mlp as pmlp
 
@@ -74,24 +83,25 @@ def _close(got, ref, tol):
     assert err <= tol, f"error {err} of the largest |ref| > {tol}"
 
 
-def _ref(arrays, eps, dtype=jnp.float32):
+def _ref(arrays, eps, dtype=jnp.float32, **drop):
     x, w, b, res, lnw, lnb, g = arrays
     args = [jnp.asarray(x).astype(dtype), jnp.asarray(w).astype(dtype),
             jnp.asarray(b), jnp.asarray(res).astype(dtype), jnp.asarray(lnw),
             jnp.asarray(lnb)]
     y, vjp = jax.vjp(lambda *a: jmf.fused_proj_ln_2d(*a, eps=eps,
-                                                     interpret=True), *args)
+                                                     interpret=True, **drop),
+                     *args)
     return y, vjp(jnp.asarray(g).astype(dtype))
 
 
-def _port(arrays, eps, dtype=torch.float32):
+def _port(arrays, eps, dtype=torch.float32, **drop):
     x, w, b, res, lnw, lnb, g = arrays
     leaves = [torch.from_numpy(x).to(dtype), torch.from_numpy(w).to(dtype),
               torch.from_numpy(b), torch.from_numpy(res).to(dtype),
               torch.from_numpy(lnw), torch.from_numpy(lnb)]
     for t in leaves:
         t.requires_grad_(True)
-    y = pmf.fused_proj_ln_2d(*leaves, eps=eps)
+    y = pmf.fused_proj_ln_2d(*leaves, eps=eps, **drop)
     y.backward(torch.from_numpy(g).to(dtype))
     return y, [t.grad for t in leaves]
 
@@ -162,9 +172,54 @@ def test_reference_errors_keep_their_messages():
         with pytest.raises(exc) as terr:
             pmf.fused_proj_ln_2d(*args(torch.from_numpy), **kw)
         assert str(terr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        pmf.fused_proj_ln_2d(*map(torch.from_numpy, (x, w, b, res, lnw, lnb)),
-                             dropout_p=0.1, dropout_seed=torch.tensor([1, 2]))
+    # dropout is ported: a seed pair keys the mask, rate 0 is no dropout
+    args = list(map(torch.from_numpy, (x, w, b, res, lnw, lnb)))
+    y0 = pmf.fused_proj_ln_2d(*args)
+    assert torch.equal(pmf.fused_proj_ln_2d(*args, dropout_p=0.0,
+                                            dropout_seed=[1, 2]), y0)
+    y1 = pmf.fused_proj_ln_2d(*args, dropout_p=0.1,
+                              dropout_seed=torch.tensor([1, 2]))
+    assert torch.isfinite(y1).all() and not torch.equal(y1, y0)
+
+
+DROP_SEED = np.array([0xABCDEF01, 0x80000000], np.uint32)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_dropout_forward_and_every_gradient_match_pallas_kernels(shape):
+    """fused_proj_ln_2d with dropout 0.1 and autograd against the
+    reference's kernels in interpret mode, same seed pair: the mask keyed
+    by mlp_blocks's row tile (ragged R padded to it by the reference); dx,
+    dW and db come from the dropped dp, dres from dz."""
+    arrays = _arrays(sum(shape) + 1, *shape)
+    jy, jgrads = _ref(arrays, 1e-12, dropout_p=0.1,
+                      dropout_seed=jnp.asarray(DROP_SEED))
+    y, grads = _port(arrays, 1e-12, dropout_p=0.1,
+                     dropout_seed=DROP_SEED.tolist())
+    _close(y, jy, F32_TOL)
+    for got, ref in zip(grads, jgrads):
+        _close(got, ref, F32_TOL)
+
+
+def test_dropout_ops_regenerate_the_mask():
+    """The backward op regenerates the forward's mask from its key: dp =
+    where(keep, dz / (1 - p), 0), dz undropped; dp's zeros are the mask's
+    (row tile 8 by Hout)."""
+    x, w, b, res, lnw, lnb, g = map(torch.from_numpy, _arrays(5, 21, 64, 32))
+    drop = (0.1, 2 ** 32 - 3, 99, 8)
+    y, mean, rstd = torch.ops.paddle_tpu_torch.fused_proj_ln_fwd(
+        x, w, b, res, lnw, lnb, 1e-5, *drop)
+    ry, _, _ = pmf.fused_proj_ln_fwd_ref(
+        x, w, b, res, lnw, lnb, 1e-5, pfa.DropKey(*drop, 32))
+    assert torch.equal(y, ry)
+    dz, dp, dg, dbeta = torch.ops.paddle_tpu_torch.fused_proj_ln_bwd(
+        x, w, b, res, lnw, mean, rstd, g, *drop)
+    key = pfa.DropKey(*drop, 32)
+    keep = pnf.row_keep_ref(key, dz)
+    assert torch.equal(dp, torch.where(keep, dz * key.inv_f32("cpu"), 0.0))
+    assert torch.equal(dp == 0, ~keep)
+    with pytest.raises(ValueError, match="reference's tile"):
+        pmf.fused_proj_ln_fwd(x, w, b, res, lnw, lnb, 1e-5, 0.1, 1, 2, 0)
 
 
 def test_cuda_route_raises_when_the_kernels_cannot_build(monkeypatch):
@@ -196,7 +251,8 @@ def test_ctypes_signatures_match_the_cuda_source():
         assert m is not None, name
         params = m.group(1).replace("\\", "").split(",")
         kinds = [ctypes.c_void_p if "*" in p else ctypes.c_float
-                 if "float" in p else ctypes.c_int for p in params]
+                 if "float" in p else ctypes.c_uint if "unsigned" in p
+                 else ctypes.c_int for p in params]
         assert kinds == argtypes, name
         for suffix in ("f32", "bf16"):
             macro = {"proj_ln_fwd": "PL_FWD", "proj_ln_bwd": "PL_BWD"}[name]
@@ -252,8 +308,31 @@ def test_functional_routes_as_the_reference(route, mlp_flags, monkeypatch):
     assert y.shape == res.shape
     _close(y, np.asarray(jy.numpy()), F32_TOL)
     assert [str(m.message) for m in pw] == [str(m.message) for m in jw]
-    with pytest.raises(NotImplementedError, match="A6b"):
-        PF.fused_attn_proj_residual_layer_norm(
-            torch.from_numpy(x), torch.from_numpy(w),
-            None if b is None else torch.from_numpy(b), torch.from_numpy(res),
-            torch.from_numpy(lnw), torch.from_numpy(lnb), dropout_rate=0.1)
+    # dropout 0.1 while training from one seed: one split in both, and the
+    # reference's mask on each route (the in-kernel mask on the fused route;
+    # on the dense ones the add → LN close's, here through the dense norm
+    # in both packages)
+    old_norm = pt_get_flag("fused_norm")
+    pt_set_flags({"FLAGS_fused_norm": fused and route == "fused"})
+    try:
+        paddle.seed(8)
+        pt_seed(8)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            jy = JF.fused_attn_proj_residual_layer_norm(
+                paddle.to_tensor(x), paddle.to_tensor(w),
+                None if b is None else paddle.to_tensor(b),
+                paddle.to_tensor(res), paddle.to_tensor(lnw),
+                paddle.to_tensor(lnb), dropout_rate=0.1, ln_epsilon=1e-12)
+            y = PF.fused_attn_proj_residual_layer_norm(
+                torch.from_numpy(x), torch.from_numpy(w),
+                None if b is None else torch.from_numpy(b),
+                torch.from_numpy(res), torch.from_numpy(lnw),
+                torch.from_numpy(lnb), dropout_rate=0.1, ln_epsilon=1e-12)
+    finally:
+        pt_set_flags({"FLAGS_fused_norm": old_norm})
+    assert (jmlp.last_mlp_path(), PF.last_mlp_path()) == want
+    _close(y, np.asarray(jy.numpy()), F32_TOL)
+    np.testing.assert_array_equal(
+        pgen.default_generator.get_state().numpy(),
+        np.asarray(jgen.default_generator.get_state()))
