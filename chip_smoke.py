@@ -180,8 +180,9 @@ Phases, one line each; any failure raises and exits non-zero:
 32. the dropout keep-mask: the device hash of each library that draws
    masks (its debug entry) against the plain version bit for bit at
    bert-base's keys (the flash score matrices at the bf16 and f32 tiles,
-   the LayerNorm's and projection-LN's rows), the kept share within 4
-   sigma of 0.9;
+   the LayerNorm's and projection-LN's rows, the fused MLP's rows at
+   bert-base's and a tuning-table hit's row tiles), the kept share within
+   4 sigma of 0.9;
 33. train bert-base at its default config (dropout 0.1 / 0.1, no cut) as
    phase 23 does: exactly 12 of each flash and projection-LN dropout
    variant, 12 LayerNorm dropout and 2 dropout-free LayerNorm launches a
@@ -194,6 +195,26 @@ Phases, one line each; any failure raises and exits non-zero:
    0.1 / 0.1: the loss and every gradient with the kernels on the card
    against the port's CPU route (the plain versions) from the same
    weights and generator seed, the generators' states equal after;
+37. the fused GeLU MLP's dropout variants (kernels 4-6 at p = 0.1,
+   keyed by the reference's row tile) through the custom ops against
+   their plain versions: gpt3-1.3b's width (R=8192, H=2048, F=8192,
+   tanh; block_r 128), bert-base's (R=16384, H=768, F=3072, erf;
+   block_r 256), a tuning-table hit (R=4096, H=2048, F=8192; block_r
+   32), all bf16, and a ragged R=1000 in f32 (y, dx, dw1, db1, dw2,
+   db2), each element within its row's scale; y's zeros equal to the
+   plain mask's, and with g in one row only dW2's zero columns and db2's
+   zeros equal to that row's dropped columns; two backward calls give
+   the same bits; autograd through fused_mlp_2d equal to the ops; the
+   check shown to reject the mask keyed by the kernels' 128-row block;
+   their times at gpt3-1.3b's and bert-base's widths beside the plain
+   versions', the dropout-free kernels', the bound and addmm -> gelu ->
+   addmm -> F.dropout with its autograd backward;
+38. F.fused_mlp at dropout 0.1 in fp32, R=1024 at gpt3-1.3b's and
+   bert-base's full H and F: the output and every gradient through
+   autograd with the kernels on the card against the port's CPU route
+   from the same inputs and generator seed, the generators' states
+   equal after; each call launches each dropout variant of kernels 4-6
+   once and no other kernel;
 then the card's name and power limit again, the kernels' JSON line and
 the final status line. Every kernel time is device time (cuda_ms: the
 calls queued behind a spin of the card, so the host's launch rate does
@@ -828,20 +849,23 @@ def mlp_inputs(torch, r, h, f, dtype, seed):
             rnd(h, s=0.02), rnd(r, h, s=1e-3))
 
 
-def mlp_bounds(r, h, f, esize):
+def mlp_bounds(r, h, f, esize, drop=False):
     """bound_ms and what bounds it for the forward and the backward: the
     products each call needs (forward 4 RHF; backward 10 RHF: dX's two
     products, dW's two and the first product recomputed once for both)
-    at 989 TFLOP/s; its inputs read once and outputs written once at
-    3.35 TB/s."""
+    at 989 TFLOP/s, with dropout plus the hash's HASH_OPS integer
+    operations per element of y (forward) or g (backward) at the CUDA
+    cores' 67 T/s; its inputs read once and outputs written once at 3.35
+    TB/s."""
     rhf = float(r) * h * f
+    t_hash = HASH_OPS * r * h / H100_FLOPS["float32"] if drop else 0.0
     rows, w, vf, vh = r * h * esize, h * f * esize, f * esize, h * esize
     work = {"forward": (4 * rhf, rows + 2 * w + vf + vh + rows),
             "backward": (10 * rhf, 2 * rows + 2 * w + vf + rows
                          + 2 * w + 4 * f + 4 * h)}
     out = {}
     for name, (flops, nbytes) in work.items():
-        t_ops = flops / H100_FLOPS["bfloat16"]
+        t_ops = flops / H100_FLOPS["bfloat16"] + t_hash
         t_bytes = nbytes / H100_BYTES_PER_S
         out[name] = (max(t_ops, t_bytes) * 1e3,
                      "operations" if t_ops >= t_bytes else "bytes")
@@ -940,40 +964,55 @@ def mlp_check_rejects(torch, mf):
     return reading
 
 
-def mlp_times(torch, mf):
-    """CUDA-event times at R=8192, H=2048, F=8192, bf16, tanh: the forward
-    and the backward op, each in turns with its plain version. The
-    backward computes dX and dW in one call, so the dX and dW kernels
-    share its time, its plain version's (dX's and dW's together) and its
-    bound. The library yardsticks (never called by the port): the dense
-    composite addmm -> gelu -> addmm through cuBLAS for the forward; no
-    library call computes dX alone or dW alone, so their library_ms is
-    null and the composite's whole backward (autograd on a retained
-    graph) is timed beside the backward op."""
-    x, w1, b1, w2, b2, g = mlp_inputs(torch, MLP_R, MLP_H, MLP_F,
-                                      torch.bfloat16, seed=11)
+def mlp_times(torch, mf, r=MLP_R, h=MLP_H, f=MLP_F, approx=True, key=None):
+    """CUDA-event times in bf16 (phase 9: gpt3-1.3b's R=8192, H=2048,
+    F=8192, tanh): the forward and the backward op, each in turns with
+    its plain version. The backward computes dX and dW in one call, so
+    the dX and dW kernels share its time, its plain version's (dX's and
+    dW's together) and its bound. The library yardsticks (never called
+    by the port): the dense composite addmm -> gelu -> addmm through
+    cuBLAS for the forward; no library call computes dX alone or dW
+    alone, so their library_ms is null and the composite's whole backward
+    (autograd on a retained graph) is timed beside the backward op. With
+    a dropout ``key``: the dropout variants, each also in turns with the
+    dropout-free op, and F.dropout on the composite's output (its
+    retained graph keeps one mask)."""
+    x, w1, b1, w2, b2, g = mlp_inputs(torch, r, h, f, torch.bfloat16, seed=11)
+    d = () if key is None else (key.p, key.s0, key.s1, key.rows)
 
     def plain_bwd(_):
-        return (mf.fused_mlp_dx_ref(x, w1, b1, w2, g, True),
-                *mf.fused_mlp_dw_ref(x, w1, b1, w2, g, True))
+        return (mf.fused_mlp_dx_ref(x, w1, b1, w2, g, approx, key),
+                *mf.fused_mlp_dw_ref(x, w1, b1, w2, g, approx, key))
 
     runs = {
-        "forward": (lambda _: mf.fused_mlp_fwd(x, w1, b1, w2, b2, True),
-                    lambda _: mf.fused_mlp_fwd_ref(x, w1, b1, w2, b2, True)),
-        "backward": (lambda _: mf.fused_mlp_bwd(x, w1, b1, w2, b2, g, True),
-                     plain_bwd),
+        "forward": (
+            lambda _: mf.fused_mlp_fwd(x, w1, b1, w2, b2, approx, *d),
+            lambda _: mf.fused_mlp_fwd_ref(x, w1, b1, w2, b2, approx, key)),
+        "backward": (
+            lambda _: mf.fused_mlp_bwd(x, w1, b1, w2, b2, g, approx, *d),
+            plain_bwd),
     }
-    bounds = mlp_bounds(MLP_R, MLP_H, MLP_F, 2)
+    bounds = mlp_bounds(r, h, f, 2, drop=key is not None)
     res = {}
     for name, (kern, plain) in runs.items():
         plain_ms, ms, t = in_turns(plain, kern, iters=10)
         res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, all_ms=t,
                          bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    if key is not None:
+        free = {"forward": lambda _: mf.fused_mlp_fwd(x, w1, b1, w2, b2,
+                                                      approx),
+                "backward": lambda _: mf.fused_mlp_bwd(x, w1, b1, w2, b2, g,
+                                                       approx)}
+        for name, fn in free.items():
+            t = res[name]
+            t["dropout_free_ms"], t["ms_beside_dropout_free"], _ = in_turns(
+                fn, runs[name][0], iters=10)
     gelu = torch.nn.functional.gelu
 
     def composite(x, w1, b1, w2, b2):
-        return torch.addmm(b2, gelu(torch.addmm(b1, x, w1),
-                                    approximate="tanh"), w2)
+        y = torch.addmm(b2, gelu(torch.addmm(b1, x, w1),
+                                 approximate="tanh" if approx else "none"), w2)
+        return y if key is None else torch.nn.functional.dropout(y, key.p)
 
     res["forward"]["library_ms"], _, _ = in_turns(
         lambda _: composite(x, w1, b1, w2, b2), runs["forward"][0], iters=10)
@@ -983,8 +1022,10 @@ def mlp_times(torch, mf):
     bwd["library_bwd_ms"], bwd["ms_beside_library"], _ = in_turns(
         lambda _: torch.autograd.grad(yc, prim, g, retain_graph=True),
         runs["backward"][0], iters=10)
-    res["timed_at"] = dict(r=MLP_R, h=MLP_H, f=MLP_F, dtype="bfloat16",
-                           approximate=True, chunk_f=mf._CHUNK_F)
+    res["timed_at"] = dict(r=r, h=h, f=f, dtype="bfloat16", approximate=approx,
+                           chunk_f=mf._CHUNK_F,
+                           dropout=None if key is None else key.p,
+                           block_r=None if key is None else key.rows)
     del x, w1, b1, w2, b2, g, prim, yc
     torch.cuda.empty_cache()
     return res
@@ -2709,6 +2750,9 @@ DROP_P = 0.1                          # bert-base's two rates
 DROP_SEED = (0x9E3779B9, 0x80000001)  # one generator key; words above 2^31
 DROP_NAMES = {"flash_fwd": "flash_fwd_dropout", "flash_dq": "flash_dq_dropout",
               "flash_dkv": "flash_dkv_dropout",
+              "fused_mlp_fwd": "fused_mlp_fwd_dropout",
+              "fused_mlp_dx": "fused_mlp_dx_dropout",
+              "fused_mlp_dw": "fused_mlp_dw_dropout",
               "fused_ln_fwd": "fused_ln_fwd_dropout",
               "fused_ln_bwd": "fused_ln_bwd_dropout",
               "fused_proj_ln_fwd": "fused_proj_ln_fwd_dropout",
@@ -2968,12 +3012,13 @@ def flash_dropout(torch, fa):
 def phase_dropout_bits(torch):
     """The device hash (common.cuh's keep-mask, compiled into every
     library; read through its debug entry ``dropout_bits``) against the
-    plain version, bit for bit, in each of the three libraries whose
+    plain version, bit for bit, in each of the four libraries whose
     kernels draw masks, at the keys of bert-base's path: the flash
     score matrices [B·NH, S, S] at the bf16 tile (128, 128) and the f32
-    tile (256, 512), and the [B·S, H] rows at the LayerNorm's and the
-    projection-LN's bf16 row tiles. The kept share lies within 4 sigma of
-    0.9 in each."""
+    tile (256, 512), and the [B·S, H] rows at the LayerNorm's, the
+    projection-LN's and the fused MLP's bf16 row tiles; and the fused
+    MLP's rows at a tuning-table hit (R=4096, H=2048: block_r 32). The
+    kept share lies within 4 sigma of 0.9 in each."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     from paddle_tpu_torch.kernels import norm_fusion as nf
@@ -2988,9 +3033,13 @@ def phase_dropout_bits(torch):
                                      BERT_H), (BERT_R, BERT_H), True),
         "proj_ln bf16": (drop_key(fa, mf.mlp_blocks(BERT_R, BERT_H, BERT_H,
                                                     dtype=bf)[0], BERT_H),
-                         (BERT_R, BERT_H), True)}
+                         (BERT_R, BERT_H), True),
+        "fused_mlp bf16": (mlp_key(fa, mf, BERT_R, BERT_H, BERT_F, bf),
+                           (BERT_R, BERT_H), True),
+        "fused_mlp bf16 table hit": (mlp_key(fa, mf, *MLP_TABLE, bf),
+                                     MLP_TABLE[:2], True)}
     libs = {"flash_attention.cu": fa._lib(), "norm_fusion.cu": nf._lib(),
-            "proj_ln.cu": mf._pl_lib()}
+            "proj_ln.cu": mf._pl_lib(), "fused_mlp.cu": mf._mlp_lib()}
     out = {}
     for label, (key, shape, rows) in cases.items():
         ref = (fa.row_bits_ref(key, *shape, "cuda") if rows
@@ -3089,6 +3138,199 @@ def dropout_mask_ms(torch):
     del x
     torch.cuda.empty_cache()
     return ms
+
+
+# ---------------------------------------------------------------------------
+# phases 37-38: the fused GeLU MLP's dropout variants (kernels 4-6)
+# ---------------------------------------------------------------------------
+
+BERT_F = 3072                          # bert-base's intermediate size
+MLP_TABLE = (4096, 2048, 8192)         # a tuning-table hit: block_r 32 in bf16
+# (r, h, f, dtype, approximate): gpt3-1.3b's width (block_r 128, the CUDA
+# row block's height), bert-base's (256), the table hit (32), and a ragged
+# R in f32 over two ffn chunks (256; the last row block 232 rows)
+MLP_DROP_CASES = [(MLP_R, MLP_H, MLP_F, "bfloat16", True),
+                  (BERT_R, BERT_H, BERT_F, "bfloat16", False),
+                  (*MLP_TABLE, "bfloat16", True),
+                  (1000, BERT_H, BERT_F, "float32", False)]
+
+
+def mlp_key(fa, mf, r, h, f, dtype):
+    """The fused MLP's dropout key: the reference's row tile in ``dtype``
+    by H columns."""
+    return drop_key(fa, mf.mlp_blocks(r, h, f, dtype=dtype)[0], h)
+
+
+def phase_mlp_dropout_vs_plain(torch):
+    """The fused MLP ops' dropout variants (``fused_mlp_fwd`` /
+    ``fused_mlp_bwd`` with the key) against their plain versions in every
+    MLP_DROP_CASES case, keyed by ``mlp_blocks``'s row tile: y, dx, dw1,
+    db1, dw2, db2 within MLP_TOL of their rows' scale (phase 9's
+    tolerance); y's zeros are the plain mask's, exactly; with g in its
+    last row only, dW2's all-zero columns and db2's zeros are that row's
+    dropped columns, exactly; two backward calls give the same bits;
+    autograd through ``fused_mlp_2d`` gives the ops' bits. The check
+    shown to reject the mask keyed by the kernels' 128-row block wherever
+    block_r differs from it. Then the times at gpt3-1.3b's and
+    bert-base's widths."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    from paddle_tpu_torch.kernels import norm_fusion as nf
+    worst, tiles, faults = {}, {}, {}
+    for r, h, f, name, approx in MLP_DROP_CASES:
+        dtype = getattr(torch, name)
+        x, w1, b1, w2, b2, g = mlp_inputs(torch, r, h, f, dtype,
+                                          seed=r + h + f)
+        key = mlp_key(fa, mf, r, h, f, dtype)
+        d = (key.p, key.s0, key.s1, key.rows)
+        what = f"{name} r={r} h={h} f={f} approximate={approx}"
+        tiles[what] = key.rows
+        y = mf.fused_mlp_fwd(x, w1, b1, w2, b2, approx, *d)
+        grads = mf.fused_mlp_bwd(x, w1, b1, w2, b2, g, approx, *d)
+        again = mf.fused_mlp_bwd(x, w1, b1, w2, b2, g, approx, *d)
+        prim = [t.detach().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+        y_ag = mf.fused_mlp_2d(*prim, approximate=approx, dropout_p=key.p,
+                               dropout_seed=DROP_SEED)
+        auto = torch.autograd.grad(y_ag, prim, g)
+        g1 = torch.zeros_like(g)
+        g1[-1] = g[-1]
+        one = mf.fused_mlp_bwd(x, w1, b1, w2, b2, g1, approx, *d)
+        keep = nf.row_keep_ref(key, x)
+        torch.cuda.synchronize()
+        check(all(same_bits(a, b) for a, b in zip(again, grads)),
+              f"fused MLP dropout backward differs between two calls "
+              f"({what})")
+        check(same_bits(y_ag, y) and all(same_bits(a, b)
+                                         for a, b in zip(auto, grads)),
+              f"autograd through fused_mlp_2d at dropout differs from the "
+              f"fused MLP ops ({what})")
+        off = mask_mismatches(y, keep)
+        check(off == 0, f"fused MLP dropout: y's zeros differ from the plain "
+              f"mask at {off} elements ({what})")
+        dropped = ~keep[-1]
+        off_dw2 = int(((one[3] == 0).all(0) != dropped).sum())
+        off_db2 = int(((one[4] == 0) != dropped).sum())
+        check(off_dw2 == 0 and off_db2 == 0,
+              f"fused MLP dropout: with g in the last row only, dW2's zero "
+              f"columns differ from that row's mask at {off_dw2} columns, "
+              f"db2's zeros at {off_db2} ({what})")
+        ry = mf.fused_mlp_fwd_ref(x, w1, b1, w2, b2, approx, key)
+        rdx = mf.fused_mlp_dx_ref(x, w1, b1, w2, g, approx, key)
+        rdw = mf.fused_mlp_dw_ref(x, w1, b1, w2, g, approx, key)
+        for label, got, ref in zip(("y", "dx", "dw1", "db1", "dw2", "db2"),
+                                   (y, *grads), (ry, rdx, *rdw)):
+            check(bool(torch.isfinite(got).all()),
+                  f"fused MLP dropout {label} not finite ({what})")
+            err = float((got.float() - ref.float()).abs().max())
+            rel = flash_reading(got, ref)
+            check(rel <= MLP_TOL[name],
+                  f"fused MLP dropout {label} disagrees with plain: {what} "
+                  f"max_abs_err={err} relative {rel} > {MLP_TOL[name]}")
+            kern = {"y": "fused_mlp_fwd", "dx": "fused_mlp_dx"}.get(
+                label, "fused_mlp_dw")
+            w = worst.setdefault(name, {}).setdefault(kern, [0.0, 0.0])
+            w[0], w[1] = max(w[0], err), max(w[1], rel)
+        if key.rows != mf._ROW_BLOCK:
+            # the planted fault: the mask keyed by the kernels' row block
+            wrong = mf.fused_mlp_fwd(x, w1, b1, w2, b2, approx, key.p,
+                                     key.s0, key.s1, mf._ROW_BLOCK)
+            fault = dict(cuda_tile_rows=mf._ROW_BLOCK,
+                         reference_tile_rows=key.rows,
+                         y_reading=flash_reading(wrong, ry),
+                         y_mask_mismatches=mask_mismatches(wrong, keep))
+            check(fault["y_reading"] > MLP_TOL[name]
+                  and fault["y_mask_mismatches"] > 0,
+                  f"the fused MLP dropout checks pass the mask keyed by the "
+                  f"CUDA row block ({what}): {fault}")
+            faults[what] = fault
+            del wrong
+        del x, w1, b1, w2, b2, g, y, grads, again, prim, y_ag, auto, g1, one
+        del keep, ry, rdx, rdw
+        torch.cuda.empty_cache()
+    return dict(p=DROP_P, tolerance_relative_to_row_rms_plus_abs=MLP_TOL,
+                worst={n: {k: dict(max_abs_err=e, relative=r)
+                           for k, (e, r) in w.items()}
+                       for n, w in worst.items()},
+                cases=[list(c) for c in MLP_DROP_CASES], key_tile_rows=tiles,
+                planted_faults=faults,
+                times={"gpt3-1.3b": mlp_times(torch, mf, key=mlp_key(
+                           fa, mf, MLP_R, MLP_H, MLP_F, torch.bfloat16)),
+                       "bert-base": mlp_times(
+                           torch, mf, BERT_R, BERT_H, BERT_F, False, mlp_key(
+                               fa, mf, BERT_R, BERT_H, BERT_F,
+                               torch.bfloat16))})
+
+
+def phase_mlp_dropout_parity_fp32(torch):
+    """F.fused_mlp at dropout 0.1 in fp32, x [2, 512, H] (R=1024), at
+    gpt3-1.3b's (H=2048, F=8192, tanh) and bert-base's (H=768, F=3072,
+    erf) widths: the output and every gradient through autograd with the
+    kernels on the card against the port's CPU route (the plain versions)
+    from the same inputs and the same generator seed, within 1e-4 of each
+    leaf's largest, the output's zeros equal. The launch counts are set
+    to 0 before each call and read after it: each card call launches the
+    three dropout variants of kernels 4-6 once each and nothing else, the
+    CPU calls nothing; both generators end one split past the seed."""
+    from paddle_tpu_torch import seed, set_flags
+    from paddle_tpu_torch.core import generator as gen
+    from paddle_tpu_torch.nn import functional as F
+    set_flags({"FLAGS_fused_mlp": True})
+    tol = 1e-4      # per leaf, relative to the leaf's largest
+    want = {f"dropout_{k}": 1
+            for k in ("fused_mlp_fwd", "fused_mlp_dx", "fused_mlp_dw")}
+    total = dict.fromkeys(want, 0)
+    out = {}
+    for label, h, f, approx in (("gpt3-1.3b", MLP_H, MLP_F, True),
+                                ("bert-base", BERT_H, BERT_F, False)):
+        x, w1, b1, w2, b2, g = mlp_inputs(torch, 1024, h, f, torch.float32,
+                                          seed=h + f + 1)
+        x, g = x.reshape(2, 512, h), g.reshape(2, 512, h)
+
+        def run(tensors):
+            seed(9)
+            prim = [t.detach().requires_grad_(True) for t in tensors[:5]]
+            reset_launches()
+            y = F.fused_mlp(*prim, approximate=approx, dropout_rate=DROP_P)
+            grads = torch.autograd.grad(y, prim, tensors[5])
+            counts = {k: n for k, n in read_launches().items() if n}
+            return (y.detach(), grads, counts, F.last_mlp_path(),
+                    gen.default_generator.get_state())
+
+        yc, gcard, counts, path_c, state_c = run((x, w1, b1, w2, b2, g))
+        torch.cuda.synchronize()
+        yp, gplain, counts_p, path_p, state_p = run(
+            tuple(t.cpu() for t in (x, w1, b1, w2, b2, g)))
+        check(counts == want, f"F.fused_mlp at dropout {DROP_P} ({label}) "
+              f"launched {counts} on the card (want {want})")
+        check(not counts_p, f"the CPU route launched {counts_p}")
+        check((path_c, path_p) == ("fused_mlp/cuda", "fused_mlp/plain"),
+              f"F.fused_mlp took the paths {path_c}, {path_p}")
+        fresh = gen.Generator(9)
+        fresh.split_key()
+        check(torch.equal(state_c, state_p)
+              and torch.equal(state_c, fresh.get_state()),
+              f"generator states after F.fused_mlp: card {state_c}, CPU "
+              f"{state_p}, want {fresh.get_state()}")
+        zeros_off = int(((yc.cpu() == 0) != (yp == 0)).sum())
+        check(zeros_off == 0, f"F.fused_mlp {label}: the card's zeros differ "
+              f"from the CPU's at {zeros_off} elements")
+        readings = {}
+        for leaf, a, b in zip(("y", "dx", "dw1", "db1", "dw2", "db2"),
+                              (yc, *gcard), (yp, *gplain)):
+            check(bool(torch.isfinite(a).all()), f"{leaf} not finite")
+            readings[leaf] = (float((a.cpu() - b).abs().max())
+                              / max(float(b.abs().max()), 1e-30))
+            check(readings[leaf] <= tol, f"F.fused_mlp {label} {leaf}: card "
+                  f"vs CPU relative {readings[leaf]} > {tol}")
+        for k in total:
+            total[k] += counts[k]
+        out[label] = dict(h=h, f=f, approximate=approx, launches=counts,
+                          relative_card_vs_cpu=readings,
+                          dropped_share=float((yp == 0).double().mean()),
+                          generator_state=state_c.tolist())
+        del x, w1, b1, w2, b2, g, yc, gcard, yp, gplain
+        torch.cuda.empty_cache()
+    return dict(p=DROP_P, r=1024, tolerance=tol, launches=total, **out)
 
 
 # ---------------------------------------------------------------------------
@@ -3907,6 +4149,12 @@ def main():
           fused_ms_per_step=dtrain["ms_per_step"], **ddense)
     phase(36, "bert parity fp32 at dropout 0.1/0.1: card kernels vs CPU "
           "plain versions", **phase_bert_dropout_parity_fp32(torch))
+    free_card(torch)
+    mdrop = phase_mlp_dropout_vs_plain(torch)
+    phase(37, "fused MLP dropout kernels vs plain", **mdrop)
+    mpar = phase_mlp_dropout_parity_fp32(torch)
+    phase(38, "F.fused_mlp at dropout 0.1: card kernels vs the CPU's plain "
+          "versions, fp32", **mpar)
 
     kernels = [{
         "name": "decode_attn_proj", "route": "cuda", "source": SOURCE,
@@ -4015,6 +4263,22 @@ def main():
             "max_abs_err": err, "max_err": err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # the fused MLP's dropout variants (kernels 4-6) at gpt3-1.3b's width;
+    # their launches are phase 38's (two F.fused_mlp calls at p = 0.1)
+    for name in ("fused_mlp_fwd", "fused_mlp_dx", "fused_mlp_dw"):
+        t = mdrop["times"]["gpt3-1.3b"][
+            "forward" if name == "fused_mlp_fwd" else "backward"]
+        err = mdrop["worst"]["bfloat16"][name]["max_abs_err"]
+        kernels.append({
+            "name": DROP_NAMES[name], "route": "cuda", "source": MLP_SOURCE,
+            "replaces": MLP_REPLACES[name],
+            "launches": mpar["launches"][f"dropout_{name}"],
+            "max_abs_err": err, "max_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if name != "fused_mlp_fwd":
+            kernels[-1]["note"] = ("dX and dW run in one backward call: ms, "
+                                   "plain_ms and bound_ms are that call's")
     print(card, flush=True)     # again here: the top of the log may be cut
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

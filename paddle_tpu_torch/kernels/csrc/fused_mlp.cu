@@ -12,8 +12,7 @@
 //   _swiglu_dw_kernel  :572 -> fused_swiglu_bwd_* (dW part)
 // entered through fused_swiglu_2d :674 (the custom_vjp of :611-671).
 // x [R, H], W1/Wg/Wu [H, F], W2/Wd [F, H] and g [R, H] contiguous,
-// float32 or bfloat16 (one dtype); b1 [F] and b2 [H] come in as f32. No
-// dropout (the seeded keep-mask is ROADMAP A6c).
+// float32 or bfloat16 (one dtype); b1 [F] and b2 [H] come in as f32.
 //
 // GeLU MLP:
 //   forward: a = x . W1 (f32 accumulation) + b1 (f32); act = round(gelu(a));
@@ -25,6 +24,19 @@
 //            weights' dtype at the end, db1/db2 kept f32 (the caller casts).
 // gelu is the tanh form (approximate, GPT) or the erf form (BERT), with the
 // reference's constants (:66-69).
+// GeLU MLP with dropout (dropout_p > 0: the DROP instantiations, chosen at
+// launch; the dropout-free instantiations read no key):
+//   forward: y = round(drop(act . W2 + b2)), the mask applied to the f32 sum
+//            before the rounding (:250-257);
+//   dX, dW:  gm = drop(g) in f32 (:275-279, :318-323); dact = round(gm) .
+//            W2^T, dW2 = act^T . gm, db2 = sum_r gm (:336-345).
+// drop(x) = keep ? x * f32(1 / (1 - p)) : 0 (__fmul_rn), common.cuh's
+// keep-mask keyed (row / block_r, 0, 0) at the index (row % block_r) * H +
+// c, block_r being the reference's row tile (mlp_blocks :118, its tuning
+// table's entries included), whatever tile a block here owns; the
+// backward regenerates it from the seed pair, no mask is stored. The key
+// is a kernel parameter of its own (held inside the argument struct it
+// slowed a dropout-free kernel in proj_ln.cu).
 // SwiGLU MLP (silu(a) = a * sigmoid(a), silu'(a) = s (1 + a (1 - s)),
 // s = sigmoid(a); :90-96):
 //   forward: ag = x . Wg, au = x . Wu (f32); act = round(silu(ag) * au);
@@ -45,6 +57,9 @@
 // At LLaMA-7B training shapes (R = 2048, H = 4096, F = 11008, bf16; RHF =
 // 9.23e10) the SwiGLU forward needs 6 RHF = 0.554 TFLOP (0.560 ms), the
 // backward 16 RHF (1.494 ms), against 0.09 ms to move the operands once.
+// Dropout adds the hash's ~12 integer operations per element of y (forward)
+// and of g (backward): 0.2 GOP at GPT-3 1.3B shapes, 0.003 ms at 67 T/s,
+// and the backward's pass over g writes gm once more (32 MB, ~0.01 ms).
 //
 // Design. The TPU keeps a [block_r, H] f32 accumulator (dX, forward) or
 // [H, block_f] + [block_f, H] accumulators (dW) in VMEM across a sequential
@@ -65,6 +80,10 @@
 //                        once per call, before the chunks: each row block's
 //                        column sums of g into the partials; after them: db1
 //                        and db2 = the partials summed over the row blocks.
+//                        With dropout that pass also writes gm = round(drop(g))
+//                        into an [R, H] workspace in the dtype and sums the
+//                        unrounded f32 drop(g) (db2's partials); (2) and (5)
+//                        then read gm in place of g.
 //   SwiGLU forward, per chunk: (1) ag_c = x . Wg[:, c]                    (f32)
 //                        (2) act_c = round(silu(ag_c) * (x . Wu[:, c]))
 //                        (3) acc (+)= act_c . Wd[c, :]; last writes round(acc)
@@ -87,7 +106,9 @@
 // f32, da_c and act_c [R, Fc] in the dtype, the f32 [R, H] dX accumulator
 // when F > Fc, and the f32 column-sum partials [ceil(R / BM), F + H]. At R
 // = 8192, H = 2048, Fc = 2048, bf16: 32 + 64 = 96 MB forward, 64 + 32 + 32
-// + 64 + 2.6 = 194.6 MB backward. SwiGLU: forward ag_c [R, Fc] f32, act_c
+// + 64 + 2.6 = 194.6 MB backward; with dropout the backward adds gm [R, H]
+// in the dtype (32 MB there; 25 MB at BERT-base's R = 16384, H = 768).
+// SwiGLU: forward ag_c [R, Fc] f32, act_c
 // [R, Fc] in the dtype and the f32 [R, H] accumulator when F > Fc;
 // backward ag_c and au_c [R, Fc] f32, dag_c, dau_c and act_c [R, Fc] in
 // the dtype and the f32 [R, H] dX accumulator (always: dX sums two products
@@ -110,14 +131,18 @@
 // Precision of the dW products: the bf16 kernels feed round(da) and
 // round(act) (GeLU), round(dag), round(dau) and round(act) (SwiGLU) to the
 // bf16 tensor cores, where the reference multiplies them in f32; x and g
-// are bf16 already, so that is the only rounding they add. float32: scalar
+// are bf16 already, so that is the only rounding they add; with dropout
+// dW2 takes round(gm) where the reference takes the f32 gm (in float32 the
+// two are one; in bf16 chip_smoke.py holds it to the dropout-free kernels'
+// tolerance). float32: scalar
 // FMA, 8 x 8 outputs per thread, every product in full f32 (for the
 // parity runs; round() is then the identity, so dag, dau and act stay
 // f32), block tile 128 x 128 x 32. The accumulator tile goes through
 // shared memory as f32 for the epilogue.
 //
 // CUDA launches per call, nc = ceil(F / Fc) chunks: GeLU forward 2 nc,
-// backward 5 nc + 2; SwiGLU forward 3 nc, backward 8 nc.
+// backward 5 nc + 2, with or without dropout; SwiGLU forward 3 nc,
+// backward 8 nc.
 // wgmma, TMA, a persistent schedule and an epilogue from registers are
 // left for later work.
 
@@ -170,7 +195,8 @@ __device__ __forceinline__ float sigmoid(float a) { return 1.f / (1.f + expf(-a)
 // loop's P) and its epilogue. Epilogue operands:
 //   EPI_GELU:  out = round(gelu(C + bias))
 //   EPI_ACC:   buf = (first ? 0 : buf) + C; on the last call out =
-//              round(buf + bias) (bias may be null) and buf is not written
+//              round(buf + bias) (bias may be null; DROP: round(drop(buf +
+//              bias)), the GeLU forward's last chunk) and buf is not written
 //   EPI_PRE:   buf = C + bias (f32; bias may be null)
 //   EPI_DGELU: da = C * gelu'(aux); out = round(da); out2 = round(gelu(aux));
 //              colsum[by * ldcol + n] = sum of da over the block's rows, by
@@ -202,9 +228,10 @@ template <typename T, bool ACOL, bool BCOL> constexpr size_t smem_bytes() {
   return ring > epi ? ring : epi;
 }
 
-// grid (ceil(n / BN), ceil(m / BM))
-template <typename T, bool ACOL, bool BCOL, int EPI>
-__global__ void __launch_bounds__(Cfg<T>::THREADS) mlp_gemm_kernel(Gemm<T> p) {
+// grid (ceil(n / BN), ceil(m / BM)); drop is read only by DROP (EPI_ACC)
+template <typename T, bool ACOL, bool BCOL, int EPI, bool DROP>
+__global__ void __launch_bounds__(Cfg<T>::THREADS) mlp_gemm_kernel(Gemm<T> p, Drop drop) {
+  static_assert(!DROP || EPI == EPI_ACC, "dropout only in the forward's last chunk");
   constexpr int BM = Cfg<T>::BM, BN = Cfg<T>::BN, LDS = Cfg<T>::LDS;
   extern __shared__ __align__(128) char smem[];
   float* S = reinterpret_cast<float*>(smem);
@@ -223,7 +250,9 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS) mlp_gemm_kernel(Gemm<T> p) {
         const size_t o = (size_t)gm * p.ldbuf + gn;
         const float s = p.first ? v : p.buf[o] + v;
         if (p.last) {
-          p.out[(size_t)gm * p.ldo + gn] = from_f<T>(p.bias ? s + p.bias[gn] : s);
+          float o = p.bias ? s + p.bias[gn] : s;
+          if (DROP) o = dropped(row_keep(drop, row_key(drop, gm), gn), o, drop);
+          p.out[(size_t)gm * p.ldo + gn] = from_f<T>(o);
         } else {
           p.buf[o] = s;
         }
@@ -269,17 +298,26 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS) mlp_gemm_kernel(Gemm<T> p) {
   }
 }
 
-// part[by * ld + c] = sum of g[r, c] over row block by (kRowBlock rows).
+// part[by * ld + c] = sum of g[r, c] over row block by (kRowBlock rows);
+// DROP: of drop(g)[r, c] in f32, and gm[r, c] = round(drop(g)[r, c]).
 // grid (ceil(cols / 256), ceil(rows / kRowBlock)), 256 threads.
-template <typename T>
-__global__ void colsum_kernel(const T* __restrict__ g, float* __restrict__ part, size_t ld,
-                              int rows, int cols) {
+template <typename T, bool DROP>
+__global__ void colsum_kernel(const T* __restrict__ g, T* __restrict__ gm,
+                              float* __restrict__ part, size_t ld, int rows, int cols, Drop drop) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= cols) return;
   const int r0 = blockIdx.y * kRowBlock;
   const int r1 = min(rows, r0 + kRowBlock);
   float s = 0.f;
-  for (int r = r0; r < r1; ++r) s += to_f(g[(size_t)r * cols + c]);
+  for (int r = r0; r < r1; ++r) {
+    const size_t o = (size_t)r * cols + c;
+    float v = to_f(g[o]);
+    if (DROP) {
+      v = dropped(row_keep(drop, row_key(drop, r), c), v, drop);
+      gm[o] = from_f<T>(v);
+    }
+    s += v;
+  }
   part[(size_t)blockIdx.y * ld + c] = s;
 }
 
@@ -287,8 +325,8 @@ __global__ void colsum_kernel(const T* __restrict__ g, float* __restrict__ part,
 // host side
 // --------------------------------------------------------------------------
 
-template <typename T, bool ACOL, bool BCOL, int EPI>
-int run_gemm(Gemm<T> p, cudaStream_t stream) {
+template <typename T, bool ACOL, bool BCOL, int EPI, bool DROP = false>
+int run_gemm(Gemm<T> p, cudaStream_t stream, const Drop& drop = Drop{}) {
   constexpr int V = 16 / sizeof(T);
   // 16-byte copies: aligned bases, strides and contiguous extents whole vectors
   p.vec = (aligned16(p.a) && aligned16(p.b) && p.lda % V == 0 && p.ldb % V == 0 &&
@@ -299,21 +337,25 @@ int run_gemm(Gemm<T> p, cudaStream_t stream) {
   const dim3 grid((p.n + C::BN - 1) / C::BN, (p.m + C::BM - 1) / C::BM);
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
   constexpr size_t bytes = smem_bytes<T, ACOL, BCOL>();
-  auto kernel = mlp_gemm_kernel<T, ACOL, BCOL, EPI>;
+  auto kernel = mlp_gemm_kernel<T, ACOL, BCOL, EPI, DROP>;
   int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)bytes);
   if (rc) return rc;
-  kernel<<<grid, C::THREADS, bytes, stream>>>(p);
+  kernel<<<grid, C::THREADS, bytes, stream>>>(p, drop);
   return (int)cudaGetLastError();
 }
 
 bool bad_shape(int r, int h, int f, int fc) { return r < 1 || h < 1 || f < 1 || fc < 1; }
 
+// the dropout key: rows 0 (no dropout), or the reference's row tile with H
+// columns
+bool bad_key(const Drop& d, int h) { return d.rows < 0 || (d.rows > 0 && d.cols != h); }
+
 template <typename T>
 int launch_fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                void* y, void* act_ws, void* acc_ws, int r, int h, int f, int fc,
-               int approximate, void* stream) {
-  if (bad_shape(r, h, f, fc)) return (int)cudaErrorInvalidValue;
+               int approximate, const Drop& drop, void* stream) {
+  if (bad_shape(r, h, f, fc) || bad_key(drop, h)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* X = static_cast<const T*>(x);
   const T* W1 = static_cast<const T*>(w1);
@@ -336,25 +378,30 @@ int launch_fwd(const void* x, const void* w1, const void* b1, const void* w2, co
     q.buf = static_cast<float*>(acc_ws), q.ldbuf = h;
     q.out = static_cast<T*>(y), q.ldo = h;
     q.first = c == 0, q.last = c == nch - 1;
-    if ((rc = run_gemm<T, false, false, EPI_ACC>(q, st))) return rc;
+    rc = q.last && drop.rows ? run_gemm<T, false, false, EPI_ACC, true>(q, st, drop)
+                             : run_gemm<T, false, false, EPI_ACC>(q, st);
+    if (rc) return rc;
   }
   return 0;
 }
 
 // db1 [F] and db2 [H] are f32; part_ws holds parts = ceil(R / kRowBlock)
-// rows of F + H f32 column sums (da's, then g's), one row per row block.
+// rows of F + H f32 column sums (da's, then g's), one row per row block;
+// with dropout gm_ws [R, H] in the dtype holds round(drop(g)).
 template <typename T>
 int launch_bwd(const void* x, const void* w1, const void* b1, const void* w2, const void* g,
                void* dx, void* dw1, void* db1, void* dw2, void* db2, void* a_ws, void* da_ws,
-               void* act_ws, void* acc_ws, void* part_ws, int parts, int r, int h, int f,
-               int fc, int approximate, void* stream) {
-  if (bad_shape(r, h, f, fc) || parts != (r + kRowBlock - 1) / kRowBlock)
+               void* act_ws, void* acc_ws, void* part_ws, void* gm_ws, int parts, int r, int h,
+               int f, int fc, int approximate, const Drop& drop, void* stream) {
+  if (bad_shape(r, h, f, fc) || parts != (r + kRowBlock - 1) / kRowBlock || bad_key(drop, h) ||
+      (drop.rows && !gm_ws))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* X = static_cast<const T*>(x);
   const T* W1 = static_cast<const T*>(w1);
   const T* W2 = static_cast<const T*>(w2);
   const T* G = static_cast<const T*>(g);
+  T* GM = static_cast<T*>(gm_ws);
   float* A = static_cast<float*>(a_ws);
   T* DA = static_cast<T*>(da_ws);
   T* ACT = static_cast<T*>(act_ws);
@@ -363,7 +410,12 @@ int launch_bwd(const void* x, const void* w1, const void* b1, const void* w2, co
   int rc = 0;
   const dim3 grid((h + 255) / 256, parts);
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
-  colsum_kernel<T><<<grid, 256, 0, st>>>(G, PART + f, ldp, r, h);  // db2's partials
+  if (drop.rows) {  // gm and db2's partials
+    colsum_kernel<T, true><<<grid, 256, 0, st>>>(G, GM, PART + f, ldp, r, h, drop);
+    G = GM;  // the products below read gm in place of g
+  } else {  // db2's partials
+    colsum_kernel<T, false><<<grid, 256, 0, st>>>(G, nullptr, PART + f, ldp, r, h, drop);
+  }
   if ((rc = (int)cudaGetLastError())) return rc;
   const int nch = (f + fc - 1) / fc;
   for (int c = 0; c < nch; ++c) {
@@ -514,34 +566,46 @@ int launch_swiglu_bwd(const void* x, const void* wg, const void* wu, const void*
 
 extern "C" {
 
+// The dropout key of the GeLU MLP's entries: the seed pair, the keep
+// threshold, f32(1 / (1 - p)) and the reference's row tile (drop_rows =
+// block_r, drop_cols = H); drop_rows 0: no dropout (gm_ws may then be null).
 int fused_mlp_fwd_f32(const void* x, const void* w1, const void* b1, const void* w2,
                       const void* b2, void* y, void* act_ws, void* acc_ws, int r, int h, int f,
-                      int fc, int approximate, void* stream) {
+                      int fc, int approximate, unsigned s0, unsigned s1, unsigned thresh,
+                      float inv, int drop_rows, int drop_cols, void* stream) {
   return launch_fwd<float>(x, w1, b1, w2, b2, y, act_ws, acc_ws, r, h, f, fc, approximate,
-                           stream);
+                           Drop{s0, s1, thresh, inv, drop_rows, drop_cols}, stream);
 }
 
 int fused_mlp_fwd_bf16(const void* x, const void* w1, const void* b1, const void* w2,
                        const void* b2, void* y, void* act_ws, void* acc_ws, int r, int h, int f,
-                       int fc, int approximate, void* stream) {
+                       int fc, int approximate, unsigned s0, unsigned s1, unsigned thresh,
+                       float inv, int drop_rows, int drop_cols, void* stream) {
   return launch_fwd<__nv_bfloat16>(x, w1, b1, w2, b2, y, act_ws, acc_ws, r, h, f, fc,
-                                   approximate, stream);
+                                   approximate, Drop{s0, s1, thresh, inv, drop_rows, drop_cols},
+                                   stream);
 }
 
 int fused_mlp_bwd_f32(const void* x, const void* w1, const void* b1, const void* w2,
                       const void* g, void* dx, void* dw1, void* db1, void* dw2, void* db2,
                       void* a_ws, void* da_ws, void* act_ws, void* acc_ws, void* part_ws,
-                      int parts, int r, int h, int f, int fc, int approximate, void* stream) {
+                      void* gm_ws, int parts, int r, int h, int f, int fc, int approximate,
+                      unsigned s0, unsigned s1, unsigned thresh, float inv, int drop_rows,
+                      int drop_cols, void* stream) {
   return launch_bwd<float>(x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, a_ws, da_ws, act_ws, acc_ws,
-                           part_ws, parts, r, h, f, fc, approximate, stream);
+                           part_ws, gm_ws, parts, r, h, f, fc, approximate,
+                           Drop{s0, s1, thresh, inv, drop_rows, drop_cols}, stream);
 }
 
 int fused_mlp_bwd_bf16(const void* x, const void* w1, const void* b1, const void* w2,
                        const void* g, void* dx, void* dw1, void* db1, void* dw2, void* db2,
                        void* a_ws, void* da_ws, void* act_ws, void* acc_ws, void* part_ws,
-                       int parts, int r, int h, int f, int fc, int approximate, void* stream) {
+                       void* gm_ws, int parts, int r, int h, int f, int fc, int approximate,
+                       unsigned s0, unsigned s1, unsigned thresh, float inv, int drop_rows,
+                       int drop_cols, void* stream) {
   return launch_bwd<__nv_bfloat16>(x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, a_ws, da_ws,
-                                   act_ws, acc_ws, part_ws, parts, r, h, f, fc, approximate,
+                                   act_ws, acc_ws, part_ws, gm_ws, parts, r, h, f, fc,
+                                   approximate, Drop{s0, s1, thresh, inv, drop_rows, drop_cols},
                                    stream);
 }
 

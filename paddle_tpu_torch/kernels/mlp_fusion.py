@@ -14,15 +14,21 @@ decode part (``_decode_kernel`` :977, ``_decode_call`` :1041,
 (``_proj_ln_fwd_kernel`` :714, ``_proj_ln_bwd_kernel`` :751, the
 ``custom_vjp`` assembly :878 and ``fused_proj_ln_2d`` :913) with its
 dropout epilogue, and ``mlp_blocks`` (:118-207, the tuning table's
-entries included), whose row tile keys the projection-LN's dropout mask.
-The fused MLP's dropout epilogue (kernels 4-6) is ROADMAP A6c.
+entries included), whose row tile keys the fused MLP's and the
+projection-LN's dropout masks.
 
 The fused MLP's forward and backward are ``torch.library`` custom ops,
 ``paddle_tpu_torch::fused_mlp_fwd`` → ``y`` and
 ``paddle_tpu_torch::fused_mlp_bwd`` → ``(dx, dw1, db1, dw2, db2)``,
 joined by ``register_autograd``; the backward saves the primal inputs
 only (the reference's residuals, :452-458) and recomputes the [R, F]
-activation. The fused SwiGLU is built the same way:
+activation. Dropout (:250-257, :275-279, :318-345): y = round(where(keep,
+(act·W2 + b2) · f32(1 / (1 − p)), 0)); the backward masks g the same way
+in f32, takes round(masked g) for dact and the f32 masked g for dW2 and
+db2; the mask keyed (row // block_r, 0, 0) with the index (row %
+block_r)·H + c, block_r being ``mlp_blocks``'s row tile, and regenerated
+from the seed pair (the op saves the key's ints, no mask). The fused
+SwiGLU is built the same way:
 ``paddle_tpu_torch::fused_swiglu_fwd`` → ``y`` and
 ``paddle_tpu_torch::fused_swiglu_bwd`` → ``(dx, dwg, dwu, dwd)``, the
 backward saving the primal inputs only (:637). For CUDA tensors the ops
@@ -32,9 +38,10 @@ workspace and the recompute) or raise; for CPU tensors they take the
 plain PyTorch versions ``fused_mlp_fwd_ref`` / ``fused_mlp_dx_ref`` /
 ``fused_mlp_dw_ref`` and ``fused_swiglu_fwd_ref`` / ``fused_swiglu_dx_ref``
 / ``fused_swiglu_dw_ref``. ``launches`` counts calls that launch the
-kernels, by kernel name (CPU calls do not count); one backward call runs
-the dX and dW kernels over each ffn chunk together and counts once for
-each. No backward uses atomics: every call gives the same bits.
+kernels, by kernel name (CPU calls do not count), ``dropout_launches``
+those of the GeLU MLP's and the projection-LN's dropout variants; one
+backward call runs the dX and dW kernels over each ffn chunk together and
+counts once for each. No backward uses atomics: every call gives the same bits.
 
 The projection-LN forward and backward are
 ``paddle_tpu_torch::fused_proj_ln_fwd`` → ``(y, mean, rstd)`` and
@@ -144,9 +151,10 @@ _ROW_BLOCK = 128
 launches = {"fused_mlp_fwd": 0, "fused_mlp_dx": 0, "fused_mlp_dw": 0,
             "fused_swiglu_fwd": 0, "fused_swiglu_dx": 0, "fused_swiglu_dw": 0,
             "fused_proj_ln_fwd": 0, "fused_proj_ln_bwd": 0}
-# launches of the projection-LN kernels' dropout variants (``launches``
-# counts the dropout-free ones)
-dropout_launches = {"fused_proj_ln_fwd": 0, "fused_proj_ln_bwd": 0}
+# launches of the GeLU MLP and projection-LN kernels' dropout variants
+# (``launches`` counts the dropout-free ones)
+dropout_launches = {"fused_mlp_fwd": 0, "fused_mlp_dx": 0, "fused_mlp_dw": 0,
+                    "fused_proj_ln_fwd": 0, "fused_proj_ln_bwd": 0}
 
 
 def mlp_eligible(r: int, h: int, f: int) -> bool:
@@ -215,34 +223,41 @@ def _pre(x, w1, b1):
     return x.float() @ w1.float() + b1.float()
 
 
-def fused_mlp_fwd_ref(x, w1, b1, w2, b2, approximate: bool):
+def fused_mlp_fwd_ref(x, w1, b1, w2, b2, approximate: bool,
+                      drop: Optional[DropKey] = None):
     """Plain version of the forward kernel (mlp_fusion.py:243-257): x [R,
     H], w1 [H, F], w2 [F, H] in x's dtype, b1 [F], b2 [H]. The activation
-    is rounded to x's dtype before the second product; y in x's dtype."""
+    is rounded to x's dtype before the second product; with ``drop`` the
+    f32 output is dropped before its rounding; y in x's dtype."""
     dt = x.dtype
     act = _gelu_f32(_pre(x, w1, b1), approximate).to(dt)
-    return (act.float() @ w2.float() + b2.float()).to(dt)
+    return _dropped(act.float() @ w2.float() + b2.float(), drop).to(dt)
 
 
-def _da(x, w1, b1, w2, g, approximate):
-    """(a, da) in f32: dact = g·W2ᵀ, da = dact·gelu'(a) (:275-286)."""
+def _da(x, w1, b1, w2, g32, approximate):
+    """(a, da) in f32 from the f32 (masked) g: dact = round(g)·W2ᵀ, da =
+    dact·gelu'(a) (:275-286)."""
     a = _pre(x, w1, b1)
-    dact = g.to(x.dtype).float() @ w2.float().T
+    dact = g32.to(x.dtype).float() @ w2.float().T
     return a, dact * _dgelu_f32(a, approximate)
 
 
-def fused_mlp_dx_ref(x, w1, b1, w2, g, approximate: bool):
-    """Plain version of the dX kernel (:275-293): da rounded to x's dtype
-    before ``da·W1ᵀ``; dx in x's dtype."""
-    _, da = _da(x, w1, b1, w2, g, approximate)
+def fused_mlp_dx_ref(x, w1, b1, w2, g, approximate: bool,
+                     drop: Optional[DropKey] = None):
+    """Plain version of the dX kernel (:275-293): g masked in f32 with
+    ``drop``; da rounded to x's dtype before ``da·W1ᵀ``; dx in x's
+    dtype."""
+    _, da = _da(x, w1, b1, w2, _dropped(g.float(), drop), approximate)
     return (da.to(x.dtype).float() @ w1.float().T).to(x.dtype)
 
 
-def fused_mlp_dw_ref(x, w1, b1, w2, g, approximate: bool):
-    """Plain version of the dW kernel (:318-353): the activation and da
-    stay f32, not rounded. Returns (dw1, db1, dw2, db2), all f32."""
-    a, da = _da(x, w1, b1, w2, g, approximate)
-    g32 = g.float()
+def fused_mlp_dw_ref(x, w1, b1, w2, g, approximate: bool,
+                     drop: Optional[DropKey] = None):
+    """Plain version of the dW kernel (:318-353): g masked in f32 with
+    ``drop``; the activation, da and the masked g stay f32, not rounded.
+    Returns (dw1, db1, dw2, db2), all f32."""
+    g32 = _dropped(g.float(), drop)
+    a, da = _da(x, w1, b1, w2, g32, approximate)
     return (x.float().T @ da, da.sum(0),
             _gelu_f32(a, approximate).T @ g32, g32.sum(0))
 
@@ -291,8 +306,11 @@ def fused_swiglu_dw_ref(x, wg, wu, wd, g):
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_MLP_ARGTYPES = {"fused_mlp_fwd": [_P] * 8 + [_I] * 5 + [_P],
-                 "fused_mlp_bwd": [_P] * 15 + [_I] * 6 + [_P],
+# the dropout key: s0, s1, threshold, 1 / (1 - p), the reference's block_r
+# and the row's width (block_r 0: no dropout)
+_DROP = [ctypes.c_uint] * 3 + [ctypes.c_float, _I, _I]
+_MLP_ARGTYPES = {"fused_mlp_fwd": [_P] * 8 + [_I] * 5 + _DROP + [_P],
+                 "fused_mlp_bwd": [_P] * 16 + [_I] * 6 + _DROP + [_P],
                  "fused_swiglu_fwd": [_P] * 8 + [_I] * 4 + [_P],
                  "fused_swiglu_bwd": [_P] * 15 + [_I] * 4 + [_P]}
 
@@ -335,7 +353,7 @@ def _gelu_check(name, x, w1, b1, w2, more=()):
     return r, h, f
 
 
-def _fwd_cuda(x, w1, b1, w2, b2, approximate):
+def _fwd_cuda(x, w1, b1, w2, b2, approximate, drop=None):
     r, h, f = _gelu_check("fused_mlp_fwd", x, w1, b1, w2)
     if b2.shape != (h,) or b2.device != x.device:
         raise ValueError(f"fused_mlp_fwd: b2 {tuple(b2.shape)} on "
@@ -350,14 +368,16 @@ def _fwd_cuda(x, w1, b1, w2, b2, approximate):
                 w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
                 y.data_ptr(), act.data_ptr(),
                 None if acc is None else acc.data_ptr(), r, h, f, fc,
-                int(approximate))
-    launches["fused_mlp_fwd"] += 1
+                int(approximate), *_drop_args(drop))
+    (launches if drop is None else dropout_launches)["fused_mlp_fwd"] += 1
     return y
 
 
-def _bwd_cuda(x, w1, b1, w2, g, approximate):
+def _bwd_cuda(x, w1, b1, w2, g, approximate, drop=None):
     """dX and dW through the kernels, in one call. Returns (dx, dw1, db1,
-    dw2, db2): dx, dw1 and dw2 in x's dtype, db1 and db2 f32."""
+    dw2, db2): dx, dw1 and dw2 in x's dtype, db1 and db2 f32. With
+    ``drop`` the kernels write the masked g, rounded, into a [R, H]
+    workspace and read it in place of g."""
     r, h, f = _gelu_check("fused_mlp_bwd", x, w1, b1, w2, more=(g,))
     if g.shape != x.shape:
         raise ValueError(f"fused_mlp_bwd: g {tuple(g.shape)} must have x's "
@@ -375,58 +395,81 @@ def _bwd_cuda(x, w1, b1, w2, g, approximate):
     a, da, act = empty(r, fc, dtype=f32), empty(r, fc), empty(r, fc)
     acc = empty(r, h, dtype=f32) if f > fc else None
     part = empty(parts, f + h, dtype=f32)  # column sums per row block
+    gm = None if drop is None else empty(r, h)
     b1f = _vec32(b1)
     _build.call(_mlp_lib(), "fused_mlp_bwd", dt, dev, x.data_ptr(),
                 w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), g.data_ptr(),
                 dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
                 db2.data_ptr(), a.data_ptr(), da.data_ptr(), act.data_ptr(),
                 None if acc is None else acc.data_ptr(), part.data_ptr(),
-                parts, r, h, f, fc, int(approximate))
-    launches["fused_mlp_dx"] += 1
-    launches["fused_mlp_dw"] += 1
+                None if gm is None else gm.data_ptr(), parts, r, h, f, fc,
+                int(approximate), *_drop_args(drop))
+    counts = launches if drop is None else dropout_launches
+    counts["fused_mlp_dx"] += 1
+    counts["fused_mlp_dw"] += 1
     return dx, dw1, db1, dw2, db2
+
+
+# the row kernels' dropout arguments (the fused MLP's and the
+# projection-LN's): the rate, the seed pair and the reference's row tile
+_ROW_DROP_SCHEMA = ("float dropout_p=0.0, int seed0=0, int seed1=0, "
+                    "int block_r=0")
 
 
 @torch.library.custom_op(
     "paddle_tpu_torch::fused_mlp_fwd", mutates_args=(),
     schema="(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
-           "bool approximate) -> Tensor")
-def fused_mlp_fwd(x, w1, b1, w2, b2, approximate):
-    """Fused MLP forward on [R, H] → y [R, H] in x's dtype."""
+           f"bool approximate, {_ROW_DROP_SCHEMA}) -> Tensor")
+def fused_mlp_fwd(x, w1, b1, w2, b2, approximate, dropout_p=0.0, seed0=0,
+                  seed1=0, block_r=0):
+    """Fused MLP forward on [R, H] → y [R, H] in x's dtype; with
+    ``dropout_p > 0`` the output mask keyed (seed0, seed1) by the row tile
+    block_r."""
+    drop = drop_key(dropout_p, seed0, seed1, block_r, x.shape[1],
+                    "fused MLP dropout")
     if _on(x.device, "fused_mlp_fwd"):
-        return _fwd_cuda(x, w1, b1, w2, b2, approximate)
-    return fused_mlp_fwd_ref(x, w1, b1, w2, b2, approximate)
+        return _fwd_cuda(x, w1, b1, w2, b2, approximate, drop)
+    return fused_mlp_fwd_ref(x, w1, b1, w2, b2, approximate, drop)
 
 
 @torch.library.custom_op(
     "paddle_tpu_torch::fused_mlp_bwd", mutates_args=(),
     schema="(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
-           "Tensor g, bool approximate) "
+           f"Tensor g, bool approximate, {_ROW_DROP_SCHEMA}) "
            "-> (Tensor, Tensor, Tensor, Tensor, Tensor)")
-def fused_mlp_bwd(x, w1, b1, w2, b2, g, approximate):
+def fused_mlp_bwd(x, w1, b1, w2, b2, g, approximate, dropout_p=0.0, seed0=0,
+                  seed1=0, block_r=0):
     """Fused MLP backward → (dx, dw1, db1, dw2, db2), each in its
     primal's dtype (the f32 weight and bias gradients cast as the
-    reference's bwd does, :464-466)."""
+    reference's bwd does, :464-466); the forward's dropout mask
+    regenerated from its key and applied to g."""
+    drop = drop_key(dropout_p, seed0, seed1, block_r, x.shape[1],
+                    "fused MLP dropout")
     if _on(x.device, "fused_mlp_bwd"):
-        dx, dw1, db1, dw2, db2 = _bwd_cuda(x, w1, b1, w2, g, approximate)
+        dx, dw1, db1, dw2, db2 = _bwd_cuda(x, w1, b1, w2, g, approximate,
+                                           drop)
     else:
-        dx = fused_mlp_dx_ref(x, w1, b1, w2, g, approximate)
-        dw1, db1, dw2, db2 = fused_mlp_dw_ref(x, w1, b1, w2, g, approximate)
+        dx = fused_mlp_dx_ref(x, w1, b1, w2, g, approximate, drop)
+        dw1, db1, dw2, db2 = fused_mlp_dw_ref(x, w1, b1, w2, g, approximate,
+                                              drop)
     return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
             db2.to(b2.dtype))
 
 
 def _mlp_setup_context(ctx, inputs, output):
-    x, w1, b1, w2, b2, approximate = inputs
-    # the primal inputs only: the [R, F] activation is recomputed
+    x, w1, b1, w2, b2, approximate, *drop = inputs
+    # the primal inputs and the dropout key's numbers only: the [R, F]
+    # activation and the mask are recomputed
     ctx.save_for_backward(x, w1, b1, w2, b2)
     ctx.approximate = approximate
+    ctx.drop = drop
 
 
 def _mlp_backward(ctx, g):
     x, w1, b1, w2, b2 = ctx.saved_tensors
     return (*fused_mlp_bwd(x, w1, b1, w2, b2, g.contiguous(),
-                           ctx.approximate), None)
+                           ctx.approximate, *ctx.drop),
+            None) + (None,) * len(ctx.drop)
 
 
 fused_mlp_fwd.register_autograd(_mlp_backward,
@@ -437,10 +480,11 @@ def fused_mlp_2d(x, w1, b1, w2, b2, *, approximate=False, dropout_p=0.0,
                  dropout_seed=None):
     """One-pass transformer MLP over a [R, H] view (mlp_fusion.py:472).
 
-    y = gelu(x @ w1 + b1) @ w2 + b2; weight layout matches nn.Linear
-    ([in, out]); w1 and w2 are cast to x's dtype. The reference's checks
-    and messages; ``dropout_p > 0`` (the seeded keep-mask epilogue of
-    kernels 4-6) is ROADMAP A6c and raises NotImplementedError."""
+    y = dropout(gelu(x @ w1 + b1) @ w2 + b2); weight layout matches
+    nn.Linear ([in, out]); w1 and w2 are cast to x's dtype. The
+    reference's checks and messages. ``dropout_p > 0``: the mask keyed by
+    ``dropout_seed`` (two uint32 or int32 words, one generator split) and
+    the reference's row tile (``mlp_blocks``'s, at x's dtype)."""
     if x.ndim != 2:
         raise ValueError(f"fused_mlp_2d expects a 2D [R, H] view, got "
                          f"{tuple(x.shape)}")
@@ -460,16 +504,16 @@ def fused_mlp_2d(x, w1, b1, w2, b2, *, approximate=False, dropout_p=0.0,
         raise NotImplementedError(
             f"fused_mlp: ffn dim {f} has no legal tile (needs a divisor "
             f"that is a multiple of 128, or f <= 512)")
+    drop = ()
     if float(dropout_p) > 0.0:
         if dropout_seed is None:
             raise ValueError("fused_mlp: dropout_p > 0 requires "
                              "dropout_seed (2,) key data")
-        raise NotImplementedError(
-            "fused_mlp: the in-kernel dropout epilogue of kernels 4-6 (the "
-            "portable keep-mask hash keyed by the reference's row tiles) "
-            "is ROADMAP A6c")
+        drop = (float(dropout_p), *_seed_pair(dropout_seed),
+                mlp_blocks(r, h, f, dtype=x.dtype)[0])
     return fused_mlp_fwd(x.contiguous(), w1.contiguous(), b1.contiguous(),
-                         w2.contiguous(), b2.contiguous(), bool(approximate))
+                         w2.contiguous(), b2.contiguous(), bool(approximate),
+                         *drop)
 
 
 # ---------------------------------------------------------------------------
@@ -629,12 +673,9 @@ def fused_proj_ln_bwd_ref(x, w, b, res, lnw, mean, rstd, g,
     return dz, dp, (gf * xhat).sum(0), gf.sum(0)
 
 
-# the dropout key: s0, s1, threshold, 1 / (1 - p), the reference's block_r
-# and Hout (block_r 0: no dropout)
-_PL_DROP = [ctypes.c_uint] * 3 + [ctypes.c_float, _I, _I]
 _PL_ARGTYPES = {"proj_ln_fwd": [_P] * 9 + [_I] * 3 + [ctypes.c_float]
-                + _PL_DROP + [_P],
-                "proj_ln_bwd": [_P] * 12 + [_I] * 3 + _PL_DROP + [_P]}
+                + _DROP + [_P],
+                "proj_ln_bwd": [_P] * 12 + [_I] * 3 + _DROP + [_P]}
 
 
 @functools.cache
@@ -725,14 +766,10 @@ def _proj_ln_bwd_cuda(x, w, b, res, lnw, mean, rstd, g, drop=None):
     return dz, dp, sums[0].clone(), sums[1].clone()
 
 
-_PL_DROP_SCHEMA = ("float dropout_p=0.0, int seed0=0, int seed1=0, "
-                   "int block_r=0")
-
-
 @torch.library.custom_op(
     "paddle_tpu_torch::fused_proj_ln_fwd", mutates_args=(),
     schema="(Tensor x, Tensor w, Tensor b, Tensor res, Tensor lnw, "
-           f"Tensor lnb, float eps, {_PL_DROP_SCHEMA}) "
+           f"Tensor lnb, float eps, {_ROW_DROP_SCHEMA}) "
            "-> (Tensor, Tensor, Tensor)")
 def fused_proj_ln_fwd(x, w, b, res, lnw, lnb, eps, dropout_p=0.0, seed0=0,
                       seed1=0, block_r=0):
@@ -749,7 +786,7 @@ def fused_proj_ln_fwd(x, w, b, res, lnw, lnb, eps, dropout_p=0.0, seed0=0,
 @torch.library.custom_op(
     "paddle_tpu_torch::fused_proj_ln_bwd", mutates_args=(),
     schema="(Tensor x, Tensor w, Tensor b, Tensor res, Tensor lnw, "
-           f"Tensor mean, Tensor rstd, Tensor g, {_PL_DROP_SCHEMA}) "
+           f"Tensor mean, Tensor rstd, Tensor g, {_ROW_DROP_SCHEMA}) "
            "-> (Tensor, Tensor, Tensor, Tensor)")
 def fused_proj_ln_bwd(x, w, b, res, lnw, mean, rstd, g, dropout_p=0.0,
                       seed0=0, seed1=0, block_r=0):

@@ -24,12 +24,12 @@ route is ``linear`` → ``norm._adln_routed``, itself behind
 ``FLAGS_fused_norm``.
 
 Dropout takes one ``default_generator`` split per call whenever p > 0,
-on every route, as the reference does (:196-197, :251-252). The
-projection-LN's fused route applies the kernels' seeded keep-mask, its
-dense route ``norm._adln_routed`` with the same key; the fused MLP's
-dense route applies ``common._dropout_raw`` to its output (:214-216),
-and its fused route (the dropout epilogue of kernels 4-6) is ROADMAP A6c
-and raises NotImplementedError.
+on every route, as the reference does (:196-197, :251-252). The fused
+routes apply the kernels' seeded keep-mask (the fused MLP's to its
+output, the backward regenerating it on g; the projection-LN's to the
+projection); the dense routes apply the reference's: the fused MLP's
+``common._dropout_raw`` to its output (:214-216), the projection-LN's
+``norm._adln_routed`` with the same key.
 """
 from __future__ import annotations
 
@@ -116,13 +116,9 @@ def fused_mlp(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias, *,
                         f"{fc1_weight.dtype}, {fc2_weight.dtype}")
         else:
             _LAST_PATH = f"fused_mlp/{mode}"
-            if p > 0:
-                raise NotImplementedError(
-                    "fused_mlp: the in-kernel dropout epilogue of kernels "
-                    "4-6 (the portable keep-mask hash keyed by the "
-                    "reference's row tiles) is ROADMAP A6c")
             y = fused_mlp_2d(x.reshape(-1, h), fc1_weight, fc1_bias,
-                             fc2_weight, fc2_bias, approximate=approximate)
+                             fc2_weight, fc2_bias, approximate=approximate,
+                             dropout_p=p, dropout_seed=dk)
             return y.reshape(x.shape)
     _LAST_PATH = "dense"
     h = F.gelu(_linear(x, fc1_weight, fc1_bias),
