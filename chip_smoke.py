@@ -10,6 +10,8 @@ Phases, one line each; any failure raises and exits non-zero:
 1. environment: torch / CUDA versions, the card's name and power limit
    (nvidia-smi), the matmul precision settings used throughout;
 2. build every kernel from the repository's sources (kernels/csrc/);
+   ptxas' registers and spills for each instantiation of the wgmma flash
+   forward (none may spill);
 3. each kernel against its plain PyTorch version on the card at the
    main path's shapes (GPT-3 1.3B: NH=16, D=128, HO=2048, block_size
    16, 64-entry tables, MHA and GQA), fp32 and bf16, with its time,
@@ -27,10 +29,15 @@ Phases, one line each; any failure raises and exits non-zero:
    kernel on vs the composite PyTorch path: same tokens, close logits;
 8. the three flash-attention kernels (forward, dQ, dK/dV) against their
    plain versions on the card: causal and not, S 2048 and 1000 (ragged),
-   B*NH 64 and 16, D=128, fp32 and bf16 (out, lse, dq, dk, dv), each
-   element within its row's scale; then their times at the slice's
+   B*NH 64 and 16, D=128; D=64; Sq=512 with Sk=1000; D=96 (bf16 on the
+   generic forward); fp32 and bf16 (out, lse, dq, dk, dv), each element
+   within its row's scale, each forward on the route fwd_route gives it
+   (the wgmma kernel for bf16 at D 64 and 128, read on the route
+   counter); the check shown to reject a forward missing one tile of 64
+   or of 128 rows; then their times at the slice's
    shape (B=4, NH=16, S=2048, bf16, causal) beside the plain versions'
-   and the bound, the forward beside SDPA's forward, and the whole
+   and the bound, the forward beside SDPA's forward and the generic
+   kernel it replaced there (in turns), and the whole
    backward (delta, dQ, dK/dV) beside SDPA's backward;
 9. the three fused MLP kernels (forward, dX, dW) against their plain
    versions on the card: gpt3-1.3b (R=8192, H=2048, F=8192) and ragged
@@ -44,7 +51,9 @@ Phases, one line each; any failure raises and exits non-zero:
    depth, FLAGS_fused_mlp on as by default, remat save_small, bf16 AdamW
    moments, the plain LM head) at B=4, S=2048 on one fixed batch: one
    warm-up step, then 4 steps; finite, falling loss; the fused MLP path
-   taken; each flash and fused MLP kernel launched 24 times per step;
+   taken; each flash and fused MLP kernel launched 24 times per step,
+   every flash forward on the wgmma kernel (the route counter, as in
+   phases 12, 13, 16, 18, 23, 25, 33 and 35);
    ms/step, tokens/s, model TFLOP/s, peak memory, and the card's SM
    clock, power draw and temperature sampled during the timed steps;
 11. torch.profiler over 2 more training steps: device busy time per
@@ -123,9 +132,11 @@ Phases, one line each; any failure raises and exits non-zero:
    masked keys getting no dK;
    their times beside SDPA with the same additive mask; the dropout
    variants (p = 0.1, keyed by the reference's tile: (128, 128) in bf16,
-   (256, 512) in f32) against their plain versions with repeat bits, the
-   mask keyed by the kernels' own 64-row tile rejected, their times
-   beside SDPA with the same mask and dropout_p = 0.1;
+   (256, 512) in f32; bf16 S=1024 at (256, 512) and S=100 at (104, 104))
+   against their plain versions with repeat bits, the mask keyed by the
+   generic kernels' 64-row tile rejected and, at S=1024, by the wgmma
+   forward's own (128, 128); the forward's times also beside the generic
+   kernel's; their times beside SDPA with the same mask and dropout_p = 0.1;
 23. train bert-base (random weights from a seed, bf16, full width and
    depth, dropout rates 0) through BertForPretraining.loss and AdamW (lr
    1e-4, weight decay 0.01) at B=32, S=512 on one fixed padded batch
@@ -179,7 +190,8 @@ Phases, one line each; any failure raises and exits non-zero:
    as the dense f32 route);
 32. the dropout keep-mask: the device hash of each library that draws
    masks (its debug entry) against the plain version bit for bit at
-   bert-base's keys (the flash score matrices at the bf16 and f32 tiles,
+   bert-base's keys (the flash score matrices at the bf16 and f32 tiles
+   and at S=100's (104, 104),
    the LayerNorm's and projection-LN's rows, the fused MLP's rows at
    bert-base's and a tuning-table hit's row tiles), the kept share within
    4 sigma of 0.9;
@@ -222,6 +234,7 @@ not show).
 """
 import gc
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -626,15 +639,24 @@ FLASH_REPLACES = {"flash_fwd": "paddle_tpu/kernels/flash_attention.py:167",
 # forward that drops one tile reads over 1.6 (flash_check_rejects).
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2 ** -5}
 FLASH_D = 128
-FLASH_CASES = [(causal, s, bh) for causal in (True, False)
-               for s in (2048, 1000) for bh in (64, 16)]
+# (causal, sq, sk, bh, d): S 2048 and 1000 (ragged) at B*NH 64 and 16,
+# D=128; then D=64 (the wgmma kernel's other width), Sq != Sk (the causal
+# offset sk - sq, ragged on both sides), and D=96 (bf16 on the generic
+# kernel: fwd_route sends only D 64 and 128 to the wgmma one)
+FLASH_CASES = ([(causal, s, s, bh, FLASH_D) for causal in (True, False)
+                for s in (2048, 1000) for bh in (64, 16)]
+               + [(True, 1000, 1000, 16, 64), (False, 512, 512, 16, 64),
+                  (True, 512, 1000, 16, 128), (False, 512, 1000, 16, 64),
+                  (True, 1000, 1000, 16, 96), (False, 512, 1000, 16, 96)])
 TRAIN_B, TRAIN_S, TRAIN_NH = 4, 2048, 16     # the slice's attention shape
 
 
-def flash_inputs(torch, bh, s, dtype, seed):
+def flash_inputs(torch, bh, s, dtype, seed, sk=None, d=FLASH_D):
+    """q and dout [bh, s, d], k and v [bh, sk, d] (sk = s by default)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn(bh, s, FLASH_D, generator=g, device="cuda").to(dtype)
-            for _ in range(4)]                           # q, k, v, dout
+    sk = s if sk is None else sk
+    return [torch.randn(bh, n, d, generator=g, device="cuda").to(dtype)
+            for n in (s, sk, sk, s)]                     # q, k, v, dout
 
 
 def flash_bounds(bh, s, causal):
@@ -672,15 +694,25 @@ def flash_reading(got, ref):
 
 def phase_flash_vs_plain(torch):
     """All three kernels against their plain versions on the card (out,
-    lse, dq, dk, dv), then their times at the slice's shape."""
+    lse, dq, dk, dv), each forward on the route fwd_route gives it (the
+    route counter read per case), then their times at the slice's
+    shape."""
     from paddle_tpu_torch.kernels import flash_attention as fa
-    scale = FLASH_D ** -0.5
-    worst = {}
+    worst, routes = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for causal, s, bh in FLASH_CASES:
-            q, k, v, do = flash_inputs(torch, bh, s, dtype, seed=s + bh)
+        for causal, sq, sk, bh, d in FLASH_CASES:
+            scale = d ** -0.5
+            q, k, v, do = flash_inputs(torch, bh, sq, dtype, seed=sq + bh + d,
+                                       sk=sk, d=d)
+            before = dict(fa.fwd_routes)
             out, lse = fa.flash_fwd(q, k, v, causal, scale)
+            route = fa.fwd_route(dtype, d, True)
+            check({r: fa.fwd_routes[r] - before[r] for r in before}
+                  == {r: int(r == route) for r in before},
+                  f"flash forward {name} d={d} did not take the {route} "
+                  f"kernel once: {before} -> {fa.fwd_routes}")
+            routes[route] = routes.get(route, 0) + 1
             dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, causal, scale)
             rout, rlse = fa.flash_fwd_ref(q, k, v, causal, scale)
             # the plain backward from the kernel's own (out, lse), so each
@@ -692,31 +724,39 @@ def phase_flash_vs_plain(torch):
                                   ("dq", dq, rdq), ("dk", dk, rdk),
                                   ("dv", dv, rdv)):
                 check(bool(torch.isfinite(got).all()),
-                      f"flash {key} not finite ({name} s={s} bh={bh})")
+                      f"flash {key} not finite ({name} sq={sq} sk={sk} "
+                      f"bh={bh} d={d})")
                 err = float((got.float() - ref.float()).abs().max())
                 rel = flash_reading(got, ref)
                 check(rel <= FLASH_TOL[name],
                       f"flash {key} disagrees with plain: {name} causal="
-                      f"{causal} s={s} bh={bh} max_abs_err={err} "
-                      f"relative {rel} > {FLASH_TOL[name]}")
+                      f"{causal} sq={sq} sk={sk} bh={bh} d={d} route={route} "
+                      f"max_abs_err={err} relative {rel} > {FLASH_TOL[name]}")
                 kern = {"out": "flash_fwd", "lse": "flash_fwd",
                         "dq": "flash_dq"}.get(key, "flash_dkv")
+                if kern == "flash_fwd" and dtype == torch.bfloat16:
+                    kern += "" if route == "wgmma" else "_generic"
                 w = worst.setdefault(name, {}).setdefault(kern, [0.0, 0.0])
                 w[0], w[1] = max(w[0], err), max(w[1], rel)
             del q, k, v, do, out, lse, dq, dk, dv, rout, rlse, rdq, rdk, rdv
             torch.cuda.empty_cache()
+    scale = FLASH_D ** -0.5
     times = flash_times(torch, fa, scale)
     return dict(tolerance_relative_to_row_rms_plus_abs=FLASH_TOL,
                 worst={n: {k: dict(max_abs_err=e, relative=r)
                            for k, (e, r) in w.items()}
                        for n, w in worst.items()},
-                cases=len(FLASH_CASES) * 2,
-                wrong_kernel_readings=flash_check_rejects(torch, fa, scale),
+                cases=[list(c) for c in FLASH_CASES], dtypes=2,
+                forward_routes=routes,
+                wrong_kernel_readings={
+                    f"tile {t}": flash_check_rejects(torch, fa, scale, t)
+                    for t in (64, fa.WGMMA_BQ)},
                 **times)
 
 
 def flash_check_rejects(torch, fa, scale, tile=64):
-    """The bf16 check must reject a forward that skips a tile: the plain
+    """The bf16 check must reject a forward that skips a tile of `tile`
+    rows (the generic kernel's 64, the wgmma kernel's 128): the plain
     forward with the diagonal tile dropped for the late half of the rows
     (causal, S=2048), or with the ragged tail tile dropped (S=1000).
     Returns each one's reading, and its max error over max |plain| (the
@@ -739,7 +779,7 @@ def flash_check_rejects(torch, fa, scale, tile=64):
         reading = flash_reading(wrong, ref)
         check(reading > FLASH_TOL["bfloat16"],
               f"the bf16 flash check passes a forward with the {label} tile "
-              f"dropped: {reading} <= {FLASH_TOL['bfloat16']}")
+              f"of {tile} rows dropped: {reading} <= {FLASH_TOL['bfloat16']}")
         out[label] = dict(reading=reading, relative_to_max=float(
             (wrong.float() - ref.float()).abs().max()
             / ref.float().abs().max()))
@@ -759,7 +799,9 @@ def in_turns(a, b, iters=20):
 
 def flash_times(torch, fa, scale):
     """CUDA-event times at B=4, NH=16, S=2048, D=128, bf16, causal: each
-    kernel in turns with its plain version. The library yardsticks (never
+    kernel in turns with its plain version, and the forward (the wgmma
+    kernel) in turns with the generic kernel it replaced on this shape
+    (``earlier_ms``). The library yardsticks (never
     called by the port): SDPA's forward for the forward kernel; no
     library call computes dQ alone or dK/dV alone, so SDPA's backward
     (dQ, dK and dV in one call, on a retained forward graph) is held
@@ -789,6 +831,11 @@ def flash_times(torch, fa, scale):
                        for x in (q, k, v, do))
     res["flash_fwd"]["library_ms"], _, _ = in_turns(
         lambda _: sdpa(qh, kh, vh, is_causal=True), runs["flash_fwd"][0])
+    earlier_ms, _, t = in_turns(
+        lambda _: fa._fwd_cuda(q, k, v, True, scale, route="generic"),
+        runs["flash_fwd"][0])
+    res["flash_fwd"].update(route=fa.fwd_route(q.dtype, FLASH_D, True),
+                            earlier_ms=earlier_ms, earlier_all_ms=t)
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
     og = sdpa(qg, kg, vg, is_causal=True)
     sdpa_bwd_ms, bwd_ms, t = in_turns(
@@ -1060,11 +1107,25 @@ def _launch_counts():
 
 def reset_launches():
     """Every kernel count of the training paths to 0, the dropout
-    variants' included."""
+    variants' and the flash forward's routes included."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
     plain, drop = _launch_counts()
-    for counts in plain + drop:
+    for counts in plain + drop + (fa.fwd_routes,):
         for key in counts:
             counts[key] = 0
+
+
+def fwd_routes_reading(counts, what):
+    """The flash forward's launches by route since reset_launches: on a
+    bf16 model path every one (dropout variant or not) must take the
+    wgmma kernel."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    n = counts.get("flash_fwd", 0) + counts.get("dropout_flash_fwd", 0)
+    routes = dict(fa.fwd_routes)
+    check(n > 0 and routes == {"wgmma": n, "generic": 0},
+          f"{what}: flash forward launches by route {routes}, want all "
+          f"{n} on the wgmma kernel")
+    return routes
 
 
 def read_launches():
@@ -1118,6 +1179,7 @@ def phase_train(torch, cfg, fused, steps=TRAIN_STEPS):
                 or (fused and key.startswith("fused_mlp")) else 0)
         check(n == want, f"{key} launched {n} times in {steps} steps of {L} "
               f"layers (want {want}; FLAGS_fused_mlp={fused})")
+    routes = fwd_routes_reading(counts, "gpt3-1.3b training")
     tokens = TRAIN_B * TRAIN_S
     flops = model_flops_per_step(cfg, tokens, TRAIN_S)
     ms = wall / steps * 1e3
@@ -1131,7 +1193,8 @@ def phase_train(torch, cfg, fused, steps=TRAIN_STEPS):
                model_flops_share_of_989=flops / (ms / 1e3) / 989e12,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                card_during_steps=clocks.summary(), launches=counts,
-               launches_per_step={k: n / steps for k, n in counts.items()})
+               launches_per_step={k: n / steps for k, n in counts.items()},
+               flash_fwd_routes=routes)
     return out, params, opt, (x, y)
 
 
@@ -1158,8 +1221,8 @@ def phase_profile_train(torch, cfg, params, opt, batch, steps=2):
         return dict(steps=steps, device_time="not measured (no CUDA events)")
     flash = {k: sum(e.self_device_time_total for e in dev if k in e.key)
              / 1e3 / steps
-             for k in ("flash_fwd_kernel", "flash_dq_kernel",
-                       "flash_dkv_kernel")}
+             for k in ("flash_fwd_wgmma_kernel", "flash_fwd_kernel",
+                       "flash_dq_kernel", "flash_dkv_kernel")}
     # the fused MLP kernels by instantiation: <dtype, A col-major, B
     # col-major, epilogue> (0 gelu, 1 accumulate, 2 pre-activation, 3
     # gelu', 4 store), the column sums of g and the bias gradients' sum
@@ -1199,7 +1262,8 @@ def phase_remat_full(torch, cfg, params, opt, batch):
     check(counts == want, f"remat 'full' step launched {counts} (want "
           f"{want})")
     check(bool(np.isfinite(float(loss))), "remat 'full' loss not finite")
-    return dict(remat_policy="full", loss=float(loss), launches=counts)
+    return dict(remat_policy="full", loss=float(loss), launches=counts,
+                flash_fwd_routes=fwd_routes_reading(counts, "remat 'full'"))
 
 
 def phase_train_parity_fp32(torch):
@@ -1542,6 +1606,7 @@ def phase_train_llama(torch, cfg, fused, steps=TRAIN_STEPS):
                 or (fused and key.startswith("fused_swiglu")) else 0)
         check(n == want, f"{key} launched {n} times in {steps} llama steps "
               f"of {L} layers (want {want}; FLAGS_fused_mlp={fused})")
+    routes = fwd_routes_reading(counts, "llama-7b training")
     tokens = LLAMA_S
     flops = llama_flops_per_step(cfg, tokens, LLAMA_S)
     ms = wall / steps * 1e3
@@ -1556,7 +1621,8 @@ def phase_train_llama(torch, cfg, fused, steps=TRAIN_STEPS):
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                parameters=sum(p.numel() for p in model.parameters()),
                card_during_steps=clocks.summary(), launches=counts,
-               launches_per_step={k: n / steps for k, n in counts.items()})
+               launches_per_step={k: n / steps for k, n in counts.items()},
+               flash_fwd_routes=routes)
     return out, model, opt, step
 
 
@@ -1591,8 +1657,8 @@ def phase_profile_llama(torch, step, steps=2):
         return dict(steps=steps, device_time="not measured (no CUDA events)")
     flash = {k: sum(e.self_device_time_total for e in dev if k in e.key)
              / 1e3 / steps
-             for k in ("flash_fwd_kernel", "flash_dq_kernel",
-                       "flash_dkv_kernel")}
+             for k in ("flash_fwd_wgmma_kernel", "flash_fwd_kernel",
+                       "flash_dq_kernel", "flash_dkv_kernel")}
     # the SwiGLU kernels by instantiation: <dtype, A col-major, B
     # col-major, epilogue> (1 accumulate, 2 gate/up product, 4 store, 5
     # silu-gated activation, 6 dact with the SwiGLU derivatives)
@@ -2377,9 +2443,10 @@ def phase_flash_bias_vs_plain(torch):
 
 def flash_bias_times(torch, fa, scale, key=None):
     """Device times at bert-base's attention (bf16): each kernel in turns
-    with its plain version, the forward beside SDPA with the same additive
-    mask, the whole backward beside SDPA's; with a dropout ``key``, the
-    dropout variants beside SDPA with dropout_p = key.p."""
+    with its plain version, the forward (the wgmma kernel) beside SDPA
+    with the same additive mask and in turns with the generic kernel
+    (``earlier_ms``), the whole backward beside SDPA's; with a dropout
+    ``key``, the dropout variants beside SDPA with dropout_p = key.p."""
     lengths = bert_lengths(BERT_B, BERT_S, seed=BERT_B)
     bias = kv_bias_for(torch, lengths, BERT_S)
     bh = BERT_B * BERT_NH
@@ -2414,6 +2481,11 @@ def flash_bias_times(torch, fa, scale, key=None):
     res["flash_fwd"]["library_ms"], _, _ = in_turns(
         lambda _: sdpa(qh, kh, vh, attn_mask=mask, dropout_p=p),
         runs["flash_fwd"][0])
+    earlier_ms, _, t = in_turns(
+        lambda _: fa._fwd_cuda(q, k, v, *a, route="generic"),
+        runs["flash_fwd"][0])
+    res["flash_fwd"].update(route=fa.fwd_route(q.dtype, BERT_D, True),
+                            earlier_ms=earlier_ms, earlier_all_ms=t)
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
     og = sdpa(qg, kg, vg, attn_mask=mask, dropout_p=p)
     sdpa_bwd_ms, bwd_ms, t = in_turns(
@@ -2609,6 +2681,7 @@ def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
               f"bert steps (want {per_step * steps}; fused flags {fused}, "
               f"dropout {cfg.hidden_dropout_prob}, "
               f"{cfg.attention_probs_dropout_prob})")
+    routes = fwd_routes_reading(counts, "bert-base training")
     tokens = BERT_B * BERT_S
     flops = bert_flops_per_step(cfg, BERT_B, BERT_S, lengths)
     ms = wall / steps * 1e3
@@ -2630,7 +2703,8 @@ def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                parameters=sum(p.numel() for p in model.parameters()),
                card_during_steps=clocks.summary(), launches=counts,
-               launches_per_step={k: n / steps for k, n in counts.items()})
+               launches_per_step={k: n / steps for k, n in counts.items()},
+               flash_fwd_routes=routes)
     return out, model, step
 
 
@@ -2665,7 +2739,8 @@ def phase_profile_bert(torch, step, steps=2):
     groups = {"layer_norm (ln_fwd, ln_bwd)": ("::ln_fwd_", "::ln_bwd_"),
               "proj_ln (proj_ln_fwd, proj_ln_bwd)":
               ("proj_ln_fwd_kernel", "proj_ln_bwd_kernel"),
-              "flash (fwd, dq, dkv)": ("flash_fwd_kernel", "flash_dq_kernel",
+              "flash (fwd, dq, dkv)": ("flash_fwd_wgmma_kernel",
+                                       "flash_fwd_kernel", "flash_dq_kernel",
                                        "flash_dkv_kernel"),
               "fused_mlp (mlp_gemm, colsum)": ("mlp_gemm_kernel",
                                                "colsum_kernel"),
@@ -2936,15 +3011,20 @@ def flash_dropout(torch, fa):
     """The flash kernels' dropout variants with the key-padding bias
     against their plain versions: bert-base's attention in bf16 (keyed by
     the table's (128, 128)) and at B=4 in f32 (the heuristic's (256,
-    512)), and a ragged S=200 in both, each element within FLASH_TOL of
-    its row's scale; two backward calls give the same bits; the masks are
-    the device hash's, held bit for bit in phase 32. The check shown to
-    reject the mask keyed by the kernels' own 64-row tile. Then their
-    times beside SDPA with the same mask and dropout_p = 0.1."""
+    512)), a ragged S=200 in both, and in bf16 S=1024 (the tile (256,
+    512): the wgmma forward's shift path on a tile larger than its own)
+    and S=100 (the tile (104, 104): its division path), each element
+    within FLASH_TOL of its row's scale; two backward calls give the same
+    bits; the masks are the device hash's, held bit for bit in phase 32.
+    The check shown to reject the mask keyed by the generic kernels'
+    64-row tile (S=512) and by the wgmma forward's own (128, 128) tile
+    where the reference's differs (S=1024). Then their times beside SDPA
+    with the same mask and dropout_p = 0.1."""
     scale = BERT_D ** -0.5
     worst = {}
     cases = ((torch.float32, 4, BERT_S), (torch.bfloat16, BERT_B, BERT_S),
-             (torch.float32, 3, 200), (torch.bfloat16, 3, 200))
+             (torch.float32, 3, 200), (torch.bfloat16, 3, 200),
+             (torch.bfloat16, 4, 1024), (torch.bfloat16, 3, 100))
     tiles = {}
     for dtype, b, s in cases:
         name = str(dtype).split(".")[-1]
@@ -2981,32 +3061,40 @@ def flash_dropout(torch, fa):
             w[0], w[1] = max(w[0], err), max(w[1], rel)
         del q, k, v, do, out, lse, grads, again, rout, rlse, rgrads
         torch.cuda.empty_cache()
-    # the planted fault: the kernels keyed by their own 64-row tile
-    lengths = bert_lengths(BERT_B, BERT_S, seed=BERT_B + 1)
-    bias = kv_bias_for(torch, lengths, BERT_S)
-    g = torch.Generator(device="cuda").manual_seed(43)
-    q, k, v = (torch.randn(BERT_B * BERT_NH, BERT_S, BERT_D, generator=g,
-                           device="cuda").to(torch.bfloat16)
-               for _ in range(3))
-    key = drop_key(fa, *fa.flash_drop_tile(BERT_S, BERT_S, False,
-                                           torch.bfloat16))
-    ref, _ = fa.flash_fwd_ref(q, k, v, False, scale, bias, BERT_NH, key)
-    tile = 64 if (key.rows, key.cols) != (64, 64) else 32
-    wrong, _ = fa._fwd_cuda(q, k, v, False, scale, bias, BERT_NH,
-                            drop_key(fa, tile, tile))
-    fault = dict(cuda_tile=[tile, tile], reference_tile=[key.rows, key.cols],
-                 reading=flash_reading(wrong, ref))
-    check(fault["reading"] > FLASH_TOL["bfloat16"],
-          f"the flash dropout check passes the mask keyed by the CUDA tile: "
-          f"{fault}")
-    del q, k, v, ref, wrong
-    torch.cuda.empty_cache()
+    # the planted faults: the wgmma forward keyed by the generic kernels'
+    # 64-row tile at bert-base's shape, and by its own (128, 128) tile at
+    # S=1024, whose reference tile is (256, 512) (at S=512 and 200 the
+    # reference's bf16 tile is (128, 128) itself)
+    faults = {}
+    for b, s, tile in ((BERT_B, BERT_S, 64), (4, 1024, fa.WGMMA_BQ)):
+        bias = kv_bias_for(torch, bert_lengths(b, s, seed=b + 1), s)
+        g = torch.Generator(device="cuda").manual_seed(43)
+        q, k, v = (torch.randn(b * BERT_NH, s, BERT_D, generator=g,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        key = drop_key(fa, *fa.flash_drop_tile(s, s, False, torch.bfloat16))
+        check((key.rows, key.cols) != (tile, tile),
+              f"S={s}: the reference's tile is the planted one, {tile}")
+        ref, _ = fa.flash_fwd_ref(q, k, v, False, scale, bias, BERT_NH, key)
+        wrong, _ = fa._fwd_cuda(q, k, v, False, scale, bias, BERT_NH,
+                                drop_key(fa, tile, tile))
+        fault = dict(cuda_tile=[tile, tile],
+                     reference_tile=[key.rows, key.cols],
+                     reading=flash_reading(wrong, ref))
+        check(fault["reading"] > FLASH_TOL["bfloat16"],
+              f"the flash dropout check passes the mask keyed by a CUDA "
+              f"tile: {fault}")
+        faults[f"s={s}"] = fault
+        del q, k, v, ref, wrong
+        torch.cuda.empty_cache()
     return dict(worst={n: {k: dict(max_abs_err=e, relative=r)
                            for k, (e, r) in w.items()}
                        for n, w in worst.items()},
                 cases=[[str(d).split(".")[-1], b, s] for d, b, s in cases],
-                key_tiles=tiles, planted_fault=fault,
-                **flash_bias_times(torch, fa, scale, key))
+                key_tiles=tiles, planted_faults=faults,
+                **flash_bias_times(torch, fa, scale, drop_key(
+                    fa, *fa.flash_drop_tile(BERT_S, BERT_S, False,
+                                            torch.bfloat16))))
 
 
 def phase_dropout_bits(torch):
@@ -3015,7 +3103,9 @@ def phase_dropout_bits(torch):
     plain version, bit for bit, in each of the four libraries whose
     kernels draw masks, at the keys of bert-base's path: the flash
     score matrices [B·NH, S, S] at the bf16 tile (128, 128) and the f32
-    tile (256, 512), and the [B·S, H] rows at the LayerNorm's, the
+    tile (256, 512) (common.cuh's FlashKey, the wgmma forward's reckoning:
+    shifts), and at S=100's (104, 104) (its division path), and the
+    [B·S, H] rows at the LayerNorm's, the
     projection-LN's and the fused MLP's bf16 row tiles; and the fused
     MLP's rows at a tuning-table hit (R=4096, H=2048: block_r 32). The
     kept share lies within 4 sigma of 0.9 in each."""
@@ -3029,6 +3119,8 @@ def phase_dropout_bits(torch):
         "flash f32": (drop_key(fa, *fa.flash_drop_tile(
             BERT_S, BERT_S, False, torch.float32)), (bh, BERT_S, BERT_S),
             False),
+        "flash bf16 s=100": (drop_key(fa, *fa.flash_drop_tile(
+            100, 100, False, bf)), (3 * BERT_NH, 100, 100), False),
         "layer_norm bf16": (drop_key(fa, nf.ln_block_r(BERT_R, BERT_H, bf),
                                      BERT_H), (BERT_R, BERT_H), True),
         "proj_ln bf16": (drop_key(fa, mf.mlp_blocks(BERT_R, BERT_H, BERT_H,
@@ -3964,6 +4056,37 @@ def phase_resnet_parity_fp32(torch):
                 leaves=RESNET_LEAVES)
 
 
+def wgmma_fields(times):
+    """The flash forward's extra keys in the kernels' line: the route it
+    took and the generic kernel's time on the same inputs, in turns."""
+    if "earlier_ms" not in times:
+        return {}
+    return {"kernel_route": times["route"], "earlier_ms": times["earlier_ms"],
+            "earlier": "the generic flash_fwd_kernel, same inputs, in turns"}
+
+
+def wgmma_ptxas(build_log):
+    """ptxas -v's lines for each instantiation of the wgmma flash forward
+    (its registers and spills): no instantiation may spill."""
+    out, name = {}, None
+    for ln in build_log.get("flash_attention.cu", "").splitlines():
+        m = re.search(r"Compiling entry function '\S*flash_fwd_wgmma_kernel"
+                      r"ILi(\d+)ELb(\d)E", ln)
+        if m:
+            name = (f"flash_fwd_wgmma_kernel<{m.group(1)}, "
+                    f"{'true' if m.group(2) == '1' else 'false'}>")
+        elif "Compiling entry function" in ln:
+            name = None
+        elif name and ("spill" in ln or "registers" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    check(len(out) == 4 or "flash_attention.cu" not in build_log,
+          f"ptxas lines for {len(out)} wgmma instantiations, want 4")
+    for lines in out.values():
+        check(not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines),
+              f"the wgmma flash forward spills: {lines}")
+    return out
+
+
 def free_card(torch):
     """Drop what the phases before left for the collector, return the
     cached blocks and restart the peak count."""
@@ -3998,7 +4121,8 @@ def main():
     phase(2, "build", seconds=time.perf_counter() - t0,
           libraries=[str(p.name) for p in libs.values()],
           ptxas=[ln.strip() for log in _build.build_log.values()
-                 for ln in log.splitlines() if "registers" in ln])
+                 for ln in log.splitlines() if "registers" in ln],
+          flash_fwd_wgmma_ptxas=wgmma_ptxas(_build.build_log))
 
     kern = phase_kernel_vs_plain(torch)
     phase(3, "decode_attn_proj vs plain", tolerance=TOL, **kern)
@@ -4180,6 +4304,7 @@ def main():
             "max_abs_err": err, "max_err": err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        kernels[-1].update(wgmma_fields(t))
         if key == "backward":
             kernels[-1]["note"] = ("dX and dW run in one backward call: ms, "
                                    "plain_ms and bound_ms are that call's")
@@ -4231,6 +4356,7 @@ def main():
             "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        kernels[-1].update(wgmma_fields(t))
     # the BatchNorm kernels' launches are resnet50 training's (phase 28);
     # each op's four launches (reduction, sum_parts, fold, apply) count once
     for name in ("fused_bn_fwd", "fused_bn_bwd"):
@@ -4263,6 +4389,7 @@ def main():
             "max_abs_err": err, "max_err": err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        kernels[-1].update(wgmma_fields(t))
     # the fused MLP's dropout variants (kernels 4-6) at gpt3-1.3b's width;
     # their launches are phase 38's (two F.fused_mlp calls at p = 0.1)
     for name in ("fused_mlp_fwd", "fused_mlp_dx", "fused_mlp_dw"):

@@ -75,15 +75,48 @@ __host__ __device__ __forceinline__ uint32_t keep_mix(uint32_t base, uint32_t id
   return x ^ (x >> 16);
 }
 
-// the bits of element (r, c) of head bh's score matrix
-__device__ __forceinline__ uint32_t flash_bits(const Drop& d, int bh, int r, int c) {
-  const int i = r / d.rows, j = c / d.cols;
-  const uint32_t idx = (uint32_t)(r - i * d.rows) * (uint32_t)d.cols + (uint32_t)(c - j * d.cols);
-  return keep_mix(keep_base(d, (uint32_t)bh, (uint32_t)i, (uint32_t)j), idx);
-}
+// The bits of element (r, c) of head bh's score matrix, reckoned once
+// per head and row: the words of the seed pair and the head, then per row
+// its tile row's word and the in-tile index of its column 0. When the
+// logical tile's sides are powers of two (every model path's tiles) the
+// divisions become shifts and masks (lr, lc their log2; lr = -1: the
+// division path); bits<true> takes the shifts, bits<false> the divisions.
+struct FlashKey {
+  uint32_t head;
+  int rows, cols, lr, lc;
+  FlashKey() = default;
+  __device__ FlashKey(const Drop& d, int bh)
+      : head(keep_base(d, (uint32_t)bh, 0u, 0u)), rows(d.rows), cols(d.cols) {
+    const bool pow2 = __popc(rows) == 1 && __popc(cols) == 1;
+    lr = pow2 ? __ffs(rows) - 1 : -1;
+    lc = pow2 ? __ffs(cols) - 1 : -1;
+  }
+  __device__ __forceinline__ void row(int r, uint32_t& word, uint32_t& idx0) const {
+    int i;
+    if (lr >= 0) {
+      i = r >> lr;
+      idx0 = (uint32_t)(r & (rows - 1)) << lc;
+    } else {
+      i = r / rows;
+      idx0 = (uint32_t)(r - i * rows) * (uint32_t)cols;
+    }
+    word = head ^ ((uint32_t)i * 0x27D4EB2Fu);
+  }
+  template <bool POW2>
+  __device__ __forceinline__ uint32_t bits(uint32_t word, uint32_t idx0, int c) const {
+    const int j = POW2 ? c >> lc : c / cols;
+    const uint32_t cm = POW2 ? (uint32_t)(c & (cols - 1)) : (uint32_t)(c - j * cols);
+    return keep_mix(word ^ ((uint32_t)j * 0x165667B1u), idx0 + cm);
+  }
+};
 
+// the generic flash kernels' element (r, c): the division path
 __device__ __forceinline__ bool flash_keep(const Drop& d, int bh, int r, int c) {
-  return flash_bits(d, bh, r, c) < d.thresh;
+  FlashKey key(d, bh);
+  key.lr = key.lc = -1;
+  uint32_t word, idx0;
+  key.row(r, word, idx0);
+  return key.bits<false>(word, idx0, c) < d.thresh;
 }
 
 // a row of a row kernel: its tile's word and the index of its column 0
@@ -106,7 +139,8 @@ __device__ __forceinline__ float dropped(bool keep, float x, const Drop& d) {
 }
 
 // the debug entry's kernel: the bits of every element of an [nb, nr, nc]
-// score matrix (flash keys) or of an [nr, nc] row matrix (row keys, nb 1)
+// score matrix (flash keys, through FlashKey) or of an [nr, nc] row matrix
+// (row keys, nb 1)
 __global__ void dropout_bits_kernel(uint32_t* __restrict__ out, int nb, int nr, int nc, Drop d,
                                     int row_layout) {
   const size_t n = (size_t)nb * nr * nc;
@@ -118,8 +152,11 @@ __global__ void dropout_bits_kernel(uint32_t* __restrict__ out, int nb, int nr, 
     if (row_layout) {
       const RowKey k = row_key(d, r);
       out[e] = keep_mix(k.base, k.idx0 + (uint32_t)c);
-    } else {
-      out[e] = flash_bits(d, b, r, c);
+    } else {  // FlashKey's path, the one the flash forward's wgmma kernel takes
+      const FlashKey key(d, b);
+      uint32_t word, idx0;
+      key.row(r, word, idx0);
+      out[e] = key.lr >= 0 ? key.bits<true>(word, idx0, c) : key.bits<false>(word, idx0, c);
     }
   }
 }

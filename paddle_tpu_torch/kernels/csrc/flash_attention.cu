@@ -3,7 +3,9 @@
 // dropout.
 //
 // Replaces the TPU kernels of paddle_tpu/kernels/flash_attention.py:
-//   _fwd_kernel :167 (launched by _fwd :272)      -> flash_fwd_kernel
+//   _fwd_kernel :167 (launched by _fwd :272)      -> flash_fwd_wgmma_kernel
+//                                                    (bf16, D 64 and 128),
+//                                                    flash_fwd_kernel (else)
 //   _dq_kernel  :329 (launched by _bwd :539/:580) -> flash_dq_kernel
 //   _dkv_kernel :420 (launched by _bwd :602)      -> flash_dkv_kernel
 // all entered through flash_attention_bshd :722. Layout [BH, S, D]
@@ -47,11 +49,13 @@
 // 0.040 ms to move q, k, v and o once at 3.35 TB/s; the backward's five
 // products take 0.174 ms. Scalar FMA on the CUDA cores would run tens of
 // times over that, so the bf16 kernels do every product on the tensor
-// cores (nvcuda::wmma 16x16x16 bf16 fragments, f32 accumulation, which
-// compile to mma.sync). The f32 variant exists for parity and uses scalar
-// FMA.
+// cores: the forward at D 64 and 128 (every model path) through wgmma
+// (its design below, with the file's last kernel), the others through
+// nvcuda::wmma 16x16x16 bf16 fragments, f32 accumulation, which compile
+// to mma.sync. The f32 variant exists for parity and uses scalar FMA.
 //
-// Design (no TPU artifacts: no 8-lane lse/delta rows, no d padding in
+// Design of the generic kernels (flash_fwd_kernel, dQ, dK/dV; no TPU
+// artifacts: no 8-lane lse/delta rows, no d padding in
 // device memory, no sequential-grid carries, no tuning table). The TPU's
 // sequential grid axis becomes a loop inside the block; blocks run in
 // parallel:
@@ -69,9 +73,10 @@
 //   - only tiles that cross the causal diagonal or the ragged tail are
 //     masked (the reference's _causal_split, :78-85); tiles wholly above
 //     the diagonal are skipped.
-// wgmma, TMA, register-resident accumulators and warp specialisation are
-// left for later work.
+// The backward kernels keep this design; wgmma, TMA and register-resident
+// accumulators for them are later work.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda at link time)
 #include <mma.h>
 
 #include "common.cuh"
@@ -571,6 +576,633 @@ int prepare(Kernel kernel, size_t bytes) {
                                    (int)bytes);
 }
 
+// --------------------------------------------------------------------------
+// forward, bf16 at D = 64 and 128: TMA ring, warp-specialised wgmma
+// --------------------------------------------------------------------------
+//
+// Persistent: one block per SM (at most one per q tile of 128 rows) walks
+// the list of q tiles, heaviest causal tiles first, in a snake order
+// (work_item). 288 threads: warps 0-7 are two consumer warpgroups of 64 q
+// rows each, warp 8 the producer. Each tile is D / 64 column blocks of
+// [rows][64] bf16 in the 128-byte swizzle (a TMA box's inner extent is at
+// most 128 bytes), so a wgmma descriptor steps across the blocks at D = 128.
+//   - The producer loads each q tile's Q by TMA into one of two buffers
+//     (the next tile's while the consumers finish this one) and keeps a
+//     ring of two K/V stages full (TMA, a full and an empty mbarrier per
+//     stage, expect_tx bytes). The tensor maps are 3-D [BH, S, D]: rows
+//     past S arrive as zeros, never as the next head's. It decides which
+//     KV tiles a q tile visits (the causal band; with a bias, a tile whose
+//     entries are all <= -5e29 is skipped) and publishes each tile's index,
+//     and its bias row, in the stage; index -1 ends the q tile. So the
+//     consumers follow the producer and the two cannot disagree on a skip.
+//   - The consumers multiply their Q rows by the scale and round them to
+//     bf16 in place (fence.proxy.async, then a warpgroup barrier, before
+//     the first wgmma reads them). Per KV tile: S = Q K^T by wgmma
+//     m64n128k16 from shared memory into registers; the bias and the masks
+//     (only on tiles that cross the causal diagonal or the ragged tail) and
+//     the online softmax in registers (a row lies in one quad of lanes: two
+//     shuffles per reduction; exp2 with log2(e) applied to s - m, so a row
+//     that sees only masked keys gets exp(0) as the plain version does); O
+//     rescaled in registers between wgmma.wait_group and wgmma.fence; P to
+//     bf16 in registers as the A operand of O += P V (the accumulator
+//     layout of S is wgmma's A-fragment layout) with V straight from its
+//     [BK, D] row-major tile through wgmma's transpose. Dropout hashes each
+//     element of p in registers, keyed by the reference's logical tile
+//     (common.cuh's FlashKey: shifts when the tile's sides are powers of
+//     two, as on every model path).
+//   - Epilogue: O / l as bf16 into the warpgroup's Q rows in the swizzled
+//     layout, then TMA stores (rows past Sq are not written); lse as f32;
+//     the Q buffer goes back to the producer once the stores have read it.
+// Measured on an H100 (chip_smoke.py phase 8, PERF.md): ptxas caps every
+// thread of a block at the registers of a whole warpgroup (168 here,
+// 65536 / 384), and raising the consumers' share with setmaxnreg did not
+// lift that cap (the same spills at every split), so the loop keeps one
+// S tile, P and O live (<= 168 registers, no spills) and does not
+// overlap tile t's softmax with tile t-1's P V product inside a
+// warpgroup; the two warpgroups overlap each other's instead (ordering
+// their products in turns, ping-pong, measured 3% slower). Every mbarrier
+// wait traps after ~2^35 cycles, so a broken ring ends in a launch error
+// instead of a hung card.
+
+namespace wg {
+
+constexpr int kBQ = 128, kBK = 128, kStages = 2;
+constexpr int kConsumers = 256, kThreads = kConsumers + 32;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr long long kHangCycles = 1LL << 35;
+
+template <int D> struct Smem {
+  __nv_bfloat16 q[2][kBQ * D];          // by q tile, alternately; also its output tile
+  __nv_bfloat16 k[kStages][kBK * D];
+  __nv_bfloat16 v[kStages][kBK * D];
+  float bias[kStages][kBK];
+  int tile[kStages];                    // the KV tile in the stage; -1: the q tile's last
+  uint64_t full[kStages], empty[kStages], qfull[2], qempty[2];
+};
+
+struct Args {
+  const float* bias;  // null, or [bh / heads, sk]
+  float* lse;
+  int bh, sq, sk, heads, causal;
+  float scale;
+  Drop drop;
+};
+
+// The n-th q tile of this block (its position in the heaviest-first list,
+// q tiles from the last down, all heads at each), or -1 past the list. The
+// blocks take the list in a snake order (round n: block b, or gridDim.x - 1
+// - b when n is odd), so each block's total stays within one q tile's work
+// of every other's (kernels/flash_attention.py fwd_block_items mirrors it).
+__device__ __forceinline__ int work_item(int n, int total) {
+  const int g = gridDim.x;
+  const int pos = n * g + ((n & 1) ? g - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  return pos < total ? pos : -1;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// waits for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(addr, parity))
+    if (clock64() - t0 > kHangCycles) __trap();
+}
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A wgmma operand in shared memory, 128-byte swizzle: 8-row groups 1024
+// bytes apart (SBO); lbo: for an MN-major operand, the distance between
+// its 64-element column blocks (unused for K-major ones).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pins registers in place around the asynchronous products: the compiler
+// may neither read an accumulator before wgmma_wait nor move a write to
+// it past the next product's issue
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// the products: S (m64n128k16, A and B K-major in shared memory) and
+// O += P V (A = P in registers, B = V MN-major through the transpose)
+// the "+f" operands d[i] .. d[i + 7] of an accumulator
+#define ACC8(i)                                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef ACC8
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// What the softmax of a tile needs to know besides the tile's index.
+struct Tile {
+  bool bias;
+  int sk, causal, off;
+  int diag;  // the block's first row + off: the last column it sees
+  int row0;  // this thread's first row (the second is row0 + 8)
+};
+
+// The dropout of one tile's p in place (s[4n + e] at row row0 + 8 (e / 2),
+// column j * kBK + 2c + 8n + e % 2): keep ? p * inv : 0, the key on
+// FlashKey's shift path (POW2) or its division path.
+template <bool POW2>
+__device__ __forceinline__ void drop_tile(float (&s)[kBK / 2], const FlashKey& key,
+                                          const uint32_t (&word)[2], const uint32_t (&idx0)[2],
+                                          int j, const Drop& d) {
+  const int col0 = j * kBK + 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t bits = key.bits<POW2>(word[e >> 1], idx0[e >> 1], col0 + 8 * n + (e & 1));
+      s[4 * n + e] = dropped(bits < d.thresh, s[4 * n + e], d);
+    }
+}
+
+// Tile j's scores s (this thread's 2 rows x 32 columns) into p in place:
+// the bias row (before the row max, :211), the masks on a tile that
+// crosses the causal diagonal or the ragged tail, the running max m (a row
+// lies in one quad of lanes: two shuffles), alpha = exp(m_old - m), the
+// running sum l of the undropped p (:220-226), then the dropout.
+template <bool DROP>
+__device__ __forceinline__ void softmax_tile(float (&s)[kBK / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], const float* bias, int j,
+                                             const Tile& t, const FlashKey& key,
+                                             const uint32_t (&word)[2],
+                                             const uint32_t (&idx0)[2], const Drop& d) {
+  const int col0 = j * kBK + 2 * (threadIdx.x & 3);
+  if (t.bias) {
+    const float* bt = bias + 2 * (threadIdx.x & 3);
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+      const float2 b2 = *reinterpret_cast<const float2*>(bt + 8 * n);
+      s[4 * n] += b2.x, s[4 * n + 1] += b2.y, s[4 * n + 2] += b2.x, s[4 * n + 3] += b2.y;
+    }
+  }
+  if ((j + 1) * kBK > t.sk || (t.causal && (j + 1) * kBK - 1 > t.diag)) {
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = col0 + 8 * n + (e & 1), row = t.row0 + 8 * (e >> 1);
+        if (col >= t.sk || (t.causal && col > row + t.off)) s[4 * n + e] = kNegInf;
+      }
+  }
+  float mx[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * n + e]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = ex2((m[r] - mx[r]) * kLog2e);
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2((s[4 * n + e] - m[e >> 1]) * kLog2e);
+      sum[e >> 1] += p;
+      s[4 * n + e] = p;
+    }
+  l[0] = alpha[0] * l[0] + sum[0];
+  l[1] = alpha[1] * l[1] + sum[1];
+  if (DROP) {
+    if (key.lr >= 0) {
+      drop_tile<true>(s, key, word, idx0, j, d);
+    } else {
+      drop_tile<false>(s, key, word, idx0, j, d);
+    }
+  }
+}
+
+// p cast to v's dtype before the product (:229), as wgmma's A fragments:
+// the accumulator layout of S is the A-fragment layout
+__device__ __forceinline__ void pack_p(const float (&s)[kBK / 2], uint32_t (&pa)[kBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// S = round(q * scale) . k^T from the warpgroup's Q rows and a K stage
+// (issued and committed, not waited)
+template <int D>
+__device__ __forceinline__ void issue_s(float (&s)[kBK / 2], const __nv_bfloat16* qw,
+                                        const __nv_bfloat16* k) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n128(s, desc_sw128(qw + (kk >> 2) * kBQ * 64 + (kk & 3) * 16, 16),
+                  desc_sw128(k + (kk >> 2) * kBK * 64 + (kk & 3) * 16, 16), kk > 0);
+  wgmma_commit();
+}
+
+// O += P . V, V's [BK, D] tile read through wgmma's transpose (issued and
+// committed, not waited)
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[kBK / 16][4],
+                                         const __nv_bfloat16* v) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t dv = desc_sw128(v + kk * 16 * 64, kBK * 128);
+    if constexpr (D == 128) {
+      wgmma_rs_n128(o, pa[kk], dv);
+    } else {
+      wgmma_rs_n64(o, pa[kk], dv);
+    }
+  }
+  wgmma_commit();
+}
+
+__device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
+  if (++stage == kStages) stage = 0, phase ^= 1;
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap to, const Args a) {
+  constexpr int CB = D / 64;  // 64-column blocks of a tile
+  extern __shared__ __align__(1024) char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: every tile starts on such a boundary
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int nq = (a.sq + kBQ - 1) / kBQ;
+  const int nk = (a.sk + kBK - 1) / kBK;
+  const int total = nq * a.bh;
+  const int off = a.sk - a.sq;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.full[st], 32);           // the producer warp's lanes
+      mbar_init(&sm.empty[st], kConsumers);  // every consumer thread
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&sm.qfull[b], 1);
+      mbar_init(&sm.qempty[b], 2);  // each warpgroup's storing thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warp ----
+    const int lane = threadIdx.x & 31;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int n = 0;; ++n) {
+      const int pos = work_item(n, total);
+      if (pos < 0) break;
+      const int i = nq - 1 - pos / a.bh, bh = pos % a.bh;  // the longest causal rows first
+      const int qb = n & 1;
+      mbar_wait(&sm.qempty[qb], ((n >> 1) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_tx(&sm.qfull[qb], kBQ * D * 2);
+        for (int cb = 0; cb < CB; ++cb)
+          tma_load(sm.q[qb] + cb * kBQ * 64, &tq, &sm.qfull[qb], cb * 64, i * kBQ, bh);
+      }
+      // KV tiles [0, nvis): with the causal band, up to the last valid row's diagonal
+      const int last = min((i + 1) * kBQ, a.sq) - 1 + off;
+      const int nvis = !a.causal ? nk : (last < 0 ? 0 : min(nk, last / kBK + 1));
+      const float* brow = a.bias ? a.bias + (size_t)(bh / a.heads) * a.sk : nullptr;
+      for (int j = 0; j < nvis; ++j) {
+        float b[kBK / 32];
+        if (brow) {
+          bool live = false;
+#pragma unroll
+          for (int t = 0; t < kBK / 32; ++t) {
+            const int col = j * kBK + lane + 32 * t;
+            b[t] = col < a.sk ? brow[col] : kNegInf;
+            live |= b[t] > kSkipBelow;
+          }
+          if (!__any_sync(0xffffffffu, live)) continue;  // fully masked (:253)
+        }
+        mbar_wait(&sm.empty[stage], phase ^ 1);
+        if (brow) {
+#pragma unroll
+          for (int t = 0; t < kBK / 32; ++t) sm.bias[stage][lane + 32 * t] = b[t];
+        }
+        if (lane == 0) {
+          sm.tile[stage] = j;
+          mbar_arrive_tx(&sm.full[stage], 2 * kBK * D * 2);
+          for (int cb = 0; cb < CB; ++cb) {
+            tma_load(sm.k[stage] + cb * kBK * 64, &tk, &sm.full[stage], cb * 64, j * kBK, bh);
+            tma_load(sm.v[stage] + cb * kBK * 64, &tv, &sm.full[stage], cb * 64, j * kBK, bh);
+          }
+        } else {
+          mbar_arrive(&sm.full[stage]);
+        }
+        advance(stage, phase);
+      }
+      mbar_wait(&sm.empty[stage], phase ^ 1);  // the q tile's end: a stage of its own
+      if (lane == 0) sm.tile[stage] = -1;
+      mbar_arrive(&sm.full[stage]);
+      advance(stage, phase);
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups ----
+  const int wgi = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, c = lane & 3;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int n = 0;; ++n) {
+    const int pos = work_item(n, total);
+    if (pos < 0) break;
+    const int i = nq - 1 - pos / a.bh, bh = pos % a.bh;
+    const int qb = n & 1;
+    const int row0 = i * kBQ + wgi * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+    __nv_bfloat16* qw = sm.q[qb] + wgi * 64 * 64;         // the warpgroup's rows of block 0
+
+    // q * scale, rounded to bf16, in place (:196)
+    mbar_wait(&sm.qfull[qb], (n >> 1) & 1);
+    for (int idx = t; idx < CB * 64 * 8; idx += 128) {
+      uint4* p = reinterpret_cast<uint4*>(qw + (idx >> 9) * kBQ * 64) + (idx & 511);
+      uint4 raw = *p;
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16_rn(__bfloat162float(e[u]) * a.scale);
+      *p = raw;
+    }
+    fence_proxy_async();
+    bar_sync(1 + wgi, 128);
+
+    FlashKey key;
+    uint32_t word[2] = {0u, 0u}, idx0[2] = {0u, 0u};
+    if (DROP) {
+      key = FlashKey(a.drop, bh);
+      key.row(row0, word[0], idx0[0]);
+      key.row(row0 + 8, word[1], idx0[1]);
+    }
+
+    float o[D / 2];
+#pragma unroll
+    for (int u = 0; u < D / 2; ++u) o[u] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+    const Tile tl{a.bias != nullptr, a.sk, a.causal, off, i * kBQ + off, row0};
+    for (;;) {
+      mbar_wait(&sm.full[stage], phase);
+      const int j = *reinterpret_cast<volatile int*>(&sm.tile[stage]);
+      if (j < 0) {
+        mbar_arrive(&sm.empty[stage]);
+        advance(stage, phase);
+        break;
+      }
+      float s[kBK / 2];
+      wgmma_fence();
+      issue_s<D>(s, qw, sm.k[stage]);
+      wgmma_wait();
+      fence_regs(s);
+      softmax_tile<DROP>(s, m, l, alpha, sm.bias[stage], j, tl, key, word, idx0, a.drop);
+      uint32_t pa[kBK / 16][4];
+      pack_p(s, pa);
+#pragma unroll
+      for (int u = 0; u < D / 2; ++u) o[u] *= alpha[(u >> 1) & 1];
+      fence_regs(o);
+      wgmma_fence();
+      issue_pv<D>(o, pa, sm.v[stage]);
+      wgmma_wait();
+      fence_regs(o);
+      mbar_arrive(&sm.empty[stage]);
+      advance(stage, phase);
+    }
+
+    // epilogue: l summed over the quad; O / l into this warpgroup's Q rows
+    // (swizzled as the output map expects), then one TMA store per block
+    // of 64 columns; the Q buffer is free once the stores have read it
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = l[r] == 0.f ? 1.f : l[r];  // (:266)
+    }
+    char* ob = reinterpret_cast<char*>(qw);
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + g + 8 * r;  // within the warpgroup's 64
+        char* dst = ob + (nn >> 3) * kBQ * 128 + row * 128 + (((nn & 7) ^ (row & 7)) << 4) + 4 * c;
+        *reinterpret_cast<uint32_t*>(dst) =
+            pack_bf16(o[4 * nn + 2 * r] / l[r], o[4 * nn + 2 * r + 1] / l[r]);
+      }
+    if (c == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row0 + 8 * r < a.sq) a.lse[(size_t)bh * a.sq + row0 + 8 * r] = m[r] + logf(l[r]);
+    }
+    fence_proxy_async();
+    bar_sync(1 + wgi, 128);
+    if (t == 0) {
+      for (int cb = 0; cb < CB; ++cb)
+        tma_store(&to, ob + cb * kBQ * 128, cb * 64, i * kBQ + wgi * 64, bh);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      mbar_arrive(&sm.qempty[qb]);
+    }
+  }
+  if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled through the runtime (no libcuda at link time)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                            cudaEnableDefault, &found);
+#else
+    const cudaError_t rc =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the map of a [bh, rows, d] bf16 tensor, boxes of 64 columns x box_rows rows
+int tensor_map(CUtensorMap* map, const void* base, int bh, int rows, int d, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estride[3] = {1, 1, 1};
+  const CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                         strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// one block per SM (persistent), at most one per q tile
+template <int D, bool DROP>
+int launch(const CUtensorMap (&maps)[4], const Args& a, cudaStream_t stream) {
+  const size_t bytes = sizeof(Smem<D>) + 1024;  // + the slack of the 1024-byte alignment
+  auto kernel = flash_fwd_wgmma_kernel<D, DROP>;
+  int rc = prepare(kernel, bytes);
+  if (rc) return rc;
+  int dev, sms;
+  if ((rc = (int)cudaGetDevice(&dev)) ||
+      (rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
+    return rc;
+  const long long items = (long long)((a.sq + kBQ - 1) / kBQ) * a.bh;
+  kernel<<<(unsigned)(items < sms ? items : sms), kThreads, bytes, stream>>>(maps[0], maps[1],
+                                                                           maps[2], maps[3], a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
+// bf16, d 64 or 128, every pointer 16-byte aligned (the route rule,
+// kernels/flash_attention.py fwd_route); anything else is refused
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, const void* bias, void* o,
+                     void* lse, int bh, int sq, int sk, int d, int causal, int heads, float scale,
+                     Drop drop, void* stream) {
+  Geo g;
+  int rc = make_geo<__nv_bfloat16>(&g, bh, sq, sk, d, causal, scale, true, bias, heads, drop);
+  if (rc) return rc;
+  if ((d != 64 && d != 128) || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(o))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  if ((rc = wg::tensor_map(&maps[0], q, bh, sq, d, wg::kBQ)) ||
+      (rc = wg::tensor_map(&maps[1], k, bh, sk, d, wg::kBK)) ||
+      (rc = wg::tensor_map(&maps[2], v, bh, sk, d, wg::kBK)) ||
+      (rc = wg::tensor_map(&maps[3], o, bh, sq, d, 64)))
+    return rc;
+  const wg::Args a{static_cast<const float*>(bias), static_cast<float*>(lse), bh, sq, sk, g.heads,
+                   g.causal, scale, drop};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 128)
+    return drop.rows ? wg::launch<128, true>(maps, a, st) : wg::launch<128, false>(maps, a, st);
+  return drop.rows ? wg::launch<64, true>(maps, a, st) : wg::launch<64, false>(maps, a, st);
+}
+
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
                void* lse, int bh, int sq, int sk, int d, int causal, int heads, float scale,
@@ -665,5 +1297,15 @@ extern "C" {
   }
 FLASH_API(f32, float)
 FLASH_API(bf16, __nv_bfloat16)
+
+// the forward of the wgmma kernel: bf16, d 64 or 128, 16-byte aligned
+// pointers; the arguments of flash_fwd_bf16
+int flash_fwd_wgmma_bf16(const void* q, const void* k, const void* v, const void* bias, void* o,
+                         void* lse, int bh, int sq, int sk, int d, int causal, int heads,
+                         float scale, unsigned s0, unsigned s1, unsigned thresh, float inv,
+                         int drop_rows, int drop_cols, void* stream) {
+  return launch_fwd_wgmma(q, k, v, bias, o, lse, bh, sq, sk, d, causal, heads, scale, DROP_KEY,
+                          stream);
+}
 
 }  // extern "C"

@@ -41,6 +41,18 @@ PyTorch versions ``flash_fwd_ref`` / ``flash_bwd_ref``. ``launches``
 counts launches of the dropout-free kernels by kernel name,
 ``dropout_launches`` those of the dropout variants (CPU calls do not
 count).
+
+The forward has two CUDA kernels, chosen by ``fwd_route`` from the
+dtype, the head dim and the pointers' alignment alone: ``wgmma``
+(``flash_fwd_wgmma_kernel``, the Hopper design: TMA ring, warp-specialised
+wgmma, softmax in registers) for bfloat16 at D = 64 or 128 with 16-byte
+aligned tensors, every model path's case; ``generic``
+(``flash_fwd_kernel``) for float32, other head dims and unaligned views.
+``fwd_routes`` counts forward launches by route (dropout or not). No call
+falls back from one to the other. ``fwd_tile_plan`` mirrors the wgmma
+kernel's schedule (the KV tiles each q tile visits, masks or skips),
+``fwd_block_items`` its persistent blocks' order over the q tiles and
+``flash_bits_shifted`` its dropout key's shift path.
 """
 import ctypes
 import functools
@@ -52,10 +64,12 @@ from . import _build
 from ..analysis import autotune
 
 __all__ = ["DropKey", "drop_key", "dropout_bits_cuda", "dropout_launches",
-           "flash_attention_bshd", "flash_bits_ref", "flash_bwd",
-           "flash_bwd_ref", "flash_dkv_ref", "flash_dq_ref", "flash_drop_tile",
-           "flash_fwd", "flash_fwd_ref", "interpret_bits", "keep_mask_ref",
-           "launches", "row_bits_ref", "seed_pair"]
+           "flash_attention_bshd", "flash_bits_ref", "flash_bits_shifted",
+           "flash_bwd", "flash_bwd_ref", "flash_dkv_ref", "flash_dq_ref",
+           "flash_drop_tile", "flash_fwd", "flash_fwd_ref",
+           "flash_key_shifts", "fwd_block_items", "fwd_route", "fwd_routes",
+           "fwd_tile_plan", "interpret_bits", "keep_mask_ref", "launches",
+           "row_bits_ref", "seed_pair"]
 
 _NEG_INF = -1e30   # flash_attention.py:61: the mask value, never -inf
 _MASK_THRESH = -1e8   # :65: biases at or below it are canonicalised to -1e30
@@ -63,7 +77,12 @@ _MAX_HEAD_DIM = 256
 
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 dropout_launches = dict(launches)
+fwd_routes = {"wgmma": 0, "generic": 0}
 DEFAULT_BLOCK_Q = 128     # :56
+WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_BQ = WGMMA_BK = 128     # the wgmma forward's q and KV tiles
+_SKIP_BELOW = _NEG_INF / 2    # a KV tile whose bias entries are all at or
+                              # below it is skipped (:253)
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +162,36 @@ class DropKey(NamedTuple):
 
     def inv_f32(self, device) -> torch.Tensor:
         return torch.tensor(self.inv, dtype=torch.float32, device=device)
+
+
+def flash_key_shifts(key: DropKey):
+    """(log2 rows, log2 cols) of the key's logical tile when both sides
+    are powers of two, the kernels' shift path (common.cuh's FlashKey);
+    None where they take the division path."""
+    rows, cols = int(key.rows), int(key.cols)
+    if rows < 1 or cols < 1 or rows & (rows - 1) or cols & (cols - 1):
+        return None
+    return rows.bit_length() - 1, cols.bit_length() - 1
+
+
+def flash_bits_shifted(key: DropKey, bh: int, sq: int, sk: int,
+                       device=None) -> torch.Tensor:
+    """``flash_bits_ref`` as the shift path reckons it: tile (r >> lr,
+    c >> lc) and index ((r & (rows - 1)) << lc) + (c & (cols - 1)). Only
+    for a key whose tile sides are powers of two (ValueError else)."""
+    shifts = flash_key_shifts(key)
+    if shifts is None:
+        raise ValueError(f"the shift path needs a power-of-two tile, got "
+                         f"({key.rows}, {key.cols})")
+    lr, lc = shifts
+
+    def ar(n):
+        return torch.arange(n, dtype=torch.int64, device=device)
+    r, c = ar(sq)[:, None], ar(sk)[None, :]
+    base = _hash_base(key.s0, key.s1, ar(bh)[:, None, None], (r >> lr)[None],
+                      (c >> lc)[None])
+    return _hash_mix(base,
+                     ((r & (key.rows - 1)) << lc) + (c & (key.cols - 1)))
 
 
 def flash_bits_ref(key: DropKey, bh: int, sq: int, sk: int,
@@ -336,6 +385,67 @@ def flash_bwd_ref(q, k, v, out, lse, dout, causal: bool, scale: float,
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
+def fwd_route(dtype, d: int, aligned: bool) -> str:
+    """The forward kernel a CUDA call takes: ``"wgmma"`` for bfloat16 at
+    head dim 64 or 128 with every pointer 16-byte aligned (TMA's rule),
+    else ``"generic"``."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS and aligned:
+        return "wgmma"
+    return "generic"
+
+
+def fwd_tile_plan(sq: int, sk: int, causal: bool, bias_row=None,
+                  bq: int = WGMMA_BQ, bk: int = WGMMA_BK):
+    """The wgmma forward's schedule, reckoned as its producer and consumers
+    reckon it: for each q tile i (of ``bq`` rows), the KV tiles j (of
+    ``bk`` rows) it visits in order, each as (j, masked). Causal: tiles up
+    to the diagonal of the tile's last row below ``sq`` (the offset sk -
+    sq included; none when that row sees no key). ``bias_row`` ([sk],
+    non-causal): a tile whose entries are all <= -5e29 is skipped. A tile
+    is masked unless it lies wholly below the diagonal of the tile's first
+    row and inside ``sk``."""
+    nq, nk = -(-sq // bq), -(-sk // bk)
+    off = sk - sq
+    plan = []
+    for i in range(nq):
+        last = min((i + 1) * bq, sq) - 1 + off
+        nvis = nk
+        if causal:
+            nvis = 0 if last < 0 else min(nk, last // bk + 1)
+        tiles = []
+        for j in range(nvis):
+            if bias_row is not None and not any(
+                    float(x) > _SKIP_BELOW
+                    for x in bias_row[j * bk:(j + 1) * bk]):
+                continue
+            interior = ((j + 1) * bk <= sk
+                        and (not causal or (j + 1) * bk - 1 <= i * bq + off))
+            tiles.append((j, not interior))
+        plan.append(tiles)
+    return plan
+
+
+def fwd_block_items(sq: int, bh: int, blocks: int, bq: int = WGMMA_BQ):
+    """The wgmma forward's persistent schedule (csrc ``work_item``): its
+    q tiles listed heaviest first (q tile index from the last down, every
+    head at each: position p is tile ``nq - 1 - p // bh`` of head ``p %
+    bh``), taken by ``blocks`` blocks in a snake order (round r: block b,
+    or blocks - 1 - b when r is odd). Returns, for each block, its (q
+    tile, head) pairs in order."""
+    total = -(-sq // bq) * bh
+    out = []
+    for b in range(blocks):
+        items, r = [], 0
+        while True:
+            pos = r * blocks + (blocks - 1 - b if r & 1 else b)
+            if pos >= total:
+                break
+            items.append((-(-sq // bq) - 1 - pos // bh, pos % bh))
+            r += 1
+        out.append(items)
+    return out
+
+
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # bh, sq, sk, d, causal, heads, scale; the dropout key (s0, s1, threshold,
 # 1 / (1 - p), the reference's tile rows and cols; rows 0: no dropout);
@@ -346,7 +456,10 @@ _ARGTYPES = {"flash_fwd": [_P] * 6 + _TAIL,     # q, k, v, bias, o, lse
              "flash_dkv": [_P] * 9 + _TAIL}     # ..., delta, bias, dk, dv
 @functools.cache
 def _lib():
-    return _build.library("flash_attention.cu", _ARGTYPES)
+    lib = _build.library("flash_attention.cu", _ARGTYPES)
+    fn = lib.flash_fwd_wgmma_bf16       # bf16 only: the forward's arguments
+    fn.argtypes, fn.restype = _ARGTYPES["flash_fwd"], ctypes.c_int
+    return lib
 
 
 def _drop_args(drop: Optional[DropKey]):
@@ -397,8 +510,11 @@ def _check_cuda(name, tensors, d):
                          f"got {d}")
 
 
-def _call(name, drop, dtype, device, *args):
-    _build.call(_lib(), name, dtype, device, *args, *_drop_args(drop))
+def _call(name, drop, dtype, device, *args, entry=None):
+    """Launch ``entry`` (the kernel ``name`` by default) and count it under
+    ``name``."""
+    _build.call(_lib(), entry or name, dtype, device, *args,
+                *_drop_args(drop))
     (launches if drop is None else dropout_launches)[name] += 1
 
 
@@ -432,7 +548,10 @@ def _bias_arg(bias, heads, bh, sk, causal):
     return bias.data_ptr()
 
 
-def _fwd_cuda(q, k, v, causal, scale, bias=None, heads=1, drop=None):
+def _fwd_cuda(q, k, v, causal, scale, bias=None, heads=1, drop=None,
+              route=None):
+    """The forward on the route ``fwd_route`` picks (``route`` names one
+    instead: a measurement holds the two kernels on the same inputs)."""
     bh, sq, sk, d = _shapes(q, k, v)
     _check_cuda("flash_fwd", (q, k, v) + (() if bias is None else (bias,)),
                 d)
@@ -443,9 +562,14 @@ def _fwd_cuda(q, k, v, causal, scale, bias=None, heads=1, drop=None):
     bptr = _bias_arg(bias, heads, bh, sk, causal)
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    if route is None:
+        route = fwd_route(q.dtype, d, all(t.data_ptr() % 16 == 0
+                                          for t in (q, k, v, out)))
     _call("flash_fwd", drop, q.dtype, q.device, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), bptr, out.data_ptr(), lse.data_ptr(), bh, sq, sk, d,
-          int(causal), int(heads), float(scale))
+          int(causal), int(heads), float(scale),
+          entry="flash_fwd_wgmma" if route == "wgmma" else None)
+    fwd_routes[route] += 1
     return out, lse
 
 
