@@ -11,7 +11,7 @@ Phases, one line each; any failure raises and exits non-zero:
    (nvidia-smi), the matmul precision settings used throughout;
 2. build every kernel from the repository's sources (kernels/csrc/);
    ptxas' registers and spills for each instantiation of the wgmma flash
-   forward (none may spill);
+   forward and of the projection-LN's cluster kernels (none may spill);
 3. each kernel against its plain PyTorch version on the card at the
    main path's shapes (GPT-3 1.3B: NH=16, D=128, HO=2048, block_size
    16, 64-entry tables, MHA and GQA), fp32 and bf16, with its time,
@@ -125,7 +125,18 @@ Phases, one line each; any failure raises and exits non-zero:
    through fused_attn_proj_residual_layer_norm on the card (the dense
    route) against the plain version; the dropout variants as phase 20's
    (dp's zeros against the plain mask; the times beside addmm ->
-   F.dropout -> + res -> F.layer_norm);
+   F.dropout -> + res -> F.layer_norm). The cluster route (pl_route:
+   bf16, Hout a multiple of 256 up to 768, what bert-base takes): its
+   forward's y, mean, rstd and its backward kernel's dres, dgamma, dbeta,
+   db against their plain versions, hi + lo within 2^-14 of the plain
+   dp, repeat bits, hi's zeros the plain mask, with and without dropout;
+   autograd through fused_proj_ln_2d (dx, dW from the pair products)
+   within one bf16 unit of the f32-product reference; planted faults
+   rejected (a block's column slice zeroed, lo dropped, a 128-row
+   partial cut, the mask keyed by the cluster's 128 rows); the forward,
+   the backward kernel and the whole backward timed in turns against the
+   generic kernels (earlier_ms) and the composite (library_ms), and at
+   Hin = 64;
 22. the flash kernels' key-padding variant against their plain versions
    at bert-base's attention (B=32, 12 heads, S=512, D=64, valid lengths
    128-512 from the seed, bf16; B=4 in f32; a ragged S=200 in both),
@@ -145,7 +156,8 @@ Phases, one line each; any failure raises and exits non-zero:
    finite loss whose mean over the 4 lies below the warm-up step's (it
    oscillates: the reference's normal(0, 1) word embeddings are the
    decoder's weight too); exactly 14 LayerNorm, 12 projection-LN
-   and 12 of each flash and fused MLP kernel launches per step; ms/step,
+   and 12 of each flash and fused MLP kernel launches per step, every
+   projection-LN call on the cluster route (pl_routes); ms/step,
    tokens/s (all B*S positions), model TFLOP/s, the AdamW update's ms,
    peak memory and the card's clocks;
 24. torch.profiler over 2 more bert-base steps: busy time, idle share,
@@ -197,7 +209,8 @@ Phases, one line each; any failure raises and exits non-zero:
    4 sigma of 0.9;
 33. train bert-base at its default config (dropout 0.1 / 0.1, no cut) as
    phase 23 does: exactly 12 of each flash and projection-LN dropout
-   variant, 12 LayerNorm dropout and 2 dropout-free LayerNorm launches a
+   variant (the projection-LN's on the cluster route), 12 LayerNorm
+   dropout and 2 dropout-free LayerNorm launches a
    step (the embeddings' and the MLM transform's), and 12 of each fused
    MLP kernel;
 34. its profile, and the embeddings' dense mask (F.dropout of [32, 512,
@@ -234,6 +247,7 @@ not show).
 """
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1107,10 +1121,12 @@ def _launch_counts():
 
 def reset_launches():
     """Every kernel count of the training paths to 0, the dropout
-    variants' and the flash forward's routes included."""
+    variants', the flash forward's and the projection-LN's routes
+    included."""
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
     plain, drop = _launch_counts()
-    for counts in plain + drop + (fa.fwd_routes,):
+    for counts in plain + drop + (fa.fwd_routes, mf.pl_routes):
         for key in counts:
             counts[key] = 0
 
@@ -1125,6 +1141,21 @@ def fwd_routes_reading(counts, what):
     check(n > 0 and routes == {"wgmma": n, "generic": 0},
           f"{what}: flash forward launches by route {routes}, want all "
           f"{n} on the wgmma kernel")
+    return routes
+
+
+def pl_routes_reading(counts, what):
+    """The projection-LN's calls by direction and route since
+    reset_launches: on a bf16 model path at Hout 768 every one (dropout
+    variant or not) must take the cluster kernels."""
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    n = {d: counts.get(f"fused_proj_ln_{d}", 0)
+         + counts.get(f"dropout_fused_proj_ln_{d}", 0) for d in ("fwd", "bwd")}
+    routes = dict(mf.pl_routes)
+    want = {"fwd_cluster": n["fwd"], "fwd_generic": 0,
+            "bwd_cluster": n["bwd"], "bwd_generic": 0}
+    check(n["fwd"] > 0 and routes == want,
+          f"{what}: projection-LN calls by route {routes}, want {want}")
     return routes
 
 
@@ -2043,25 +2074,36 @@ def pl_inputs(torch, r, hin, hout, dtype, seed):
 
 def pl_bounds(r, hin, hout, esize):
     """The forward reads x, W and res and writes y (and the row stats);
-    its product is 2 R Hin Hout flops at 989 TFLOP/s. The backward reads
-    x, W, res, g and the stats, writes dz and dp in f32 and dgamma, dbeta,
-    and repeats the product. Dropout moves no byte more; its hash's
-    R Hout integer operations run on the CUDA cores beside the tensor
-    cores' product, and the bound stays the bytes."""
+    its product is 2 R Hin Hout flops at 989 TFLOP/s. The cluster
+    backward reads x, W, res, g and the stats, writes dres (res's dtype),
+    the pair (hi, lo: 4 bytes an element) and dgamma, dbeta, db, and
+    repeats the product; the generic backward (the earlier kernel 11)
+    writes dz and dp in f32 and dgamma, dbeta instead. Dropout moves no
+    byte more; its hash's R Hout integer operations run on the CUDA cores
+    beside the tensor cores' product, and the bound stays the bytes. The
+    whole backward on the cluster route is the kernel, then the pair
+    products (dx over K = 2 Hout, dW over the pair's 2 Hout columns: 2 x
+    2 R Hin 2 Hout flops): its floor is the sum of the two."""
     flops = 2.0 * r * hin * hout
     rows_in, rows_out = r * hin * esize, r * hout * esize
     wbytes, rowvec, vec = hin * hout * esize, r * 4, hout * 4
+    bwd_in = rows_in + wbytes + 2 * rows_out + 2 * vec + 2 * rowvec
     work = {"fused_proj_ln_fwd": (flops, rows_in + wbytes + rows_out + 3 * vec
                                   + rows_out + 2 * rowvec),
-            "fused_proj_ln_bwd": (flops, rows_in + wbytes + 2 * rows_out
-                                  + 2 * vec + 2 * rowvec + 2 * r * hout * 4
-                                  + 2 * vec)}
+            "fused_proj_ln_bwd": (flops, bwd_in + rows_out + r * hout * 4
+                                  + 3 * vec),
+            "fused_proj_ln_bwd_generic": (flops, bwd_in + 2 * r * hout * 4
+                                          + 2 * vec)}
     out = {}
     for name, (fl, nbytes) in work.items():
         t_ops = fl / H100_FLOPS["bfloat16"]
         t_bytes = nbytes / H100_BYTES_PER_S
         out[name] = (max(t_ops, t_bytes) * 1e3,
                      "operations" if t_ops >= t_bytes else "bytes")
+    products_ms = 2 * 2.0 * r * hin * 2 * hout / H100_FLOPS["bfloat16"] * 1e3
+    out["whole_backward"] = (out["fused_proj_ln_bwd"][0] + products_ms,
+                             "the kernel's bytes, then the pair products' "
+                             "operations")
     return out
 
 
@@ -2124,6 +2166,7 @@ def phase_proj_ln_vs_plain(torch):
                 cases=[list(c) for c in PL_CASES],
                 autograd_bf16=pl_autograd(torch, mf),
                 wrong_kernel_reading=pl_check_rejects(torch, mf),
+                cluster=pl_cluster(torch, mf, nf, fa),
                 wide_hout=pl_wide_hout(torch, mf),
                 dropout=pl_dropout(torch, mf, nf, fa),
                 **pl_times(torch, mf))
@@ -2175,45 +2218,74 @@ def pl_wide_hout(torch, mf):
                 path="dense", relative_to_plain=readings)
 
 
+def bf16_unit(t):
+    """One bf16 unit in the last place of t's largest magnitude: two
+    roundings of nearly equal f32 values to bf16 differ by at most this
+    (between 2^-8 and 2^-7 of the magnitude)."""
+    m = float(t.detach().float().abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
 def pl_autograd(torch, mf):
     """Autograd through fused_proj_ln_2d at R=16384, Hin=Hout=768, bf16
     (the projection's weight and bias and the LN gains in bf16, as the
-    model holds them): dx, dW, db (the f32 products from dp), dres,
-    dgamma and dbeta against the plain backward's, computed and cast the
-    same way, within LN_TOL; dres, dgamma and dbeta bitwise equal to the
-    backward op's casts. Returns the readings."""
+    model holds them), on the cluster route: its six gradients bitwise
+    equal to the fused_proj_ln_grads op's, and dx, dW, db, dres, dgamma
+    and dbeta within one bf16 unit of the largest magnitude (bf16_unit)
+    of the f32-product reference (fused_proj_ln_grads_ref: the plain
+    kernel's f32 dp, dx = dp.W^T and dW = x^T.dp in f32, each cast once).
+    The pair products again with PyTorch's default
+    allow_bf16_reduced_precision_reduction on (cuBLAS may then reduce
+    split-K partial sums in bf16): whether dx and dW keep their bits.
+    Returns the readings."""
     bf = torch.bfloat16
     x = pl_inputs(torch, BERT_R, BERT_H, BERT_H, bf, 19)
     xx, w, res, g = x["x"], x["w"], x["res"], x["g"]
     b, lnw, lnb = (x[k].to(bf) for k in ("b", "lnw", "lnb"))
     prim = [t.detach().requires_grad_(True) for t in (xx, w, b, res, lnw,
                                                       lnb)]
+    before = dict(mf.pl_routes)
     y = mf.fused_proj_ln_2d(*prim, eps=1e-12)
     auto = torch.autograd.grad(y, prim, g)
+    routes = {k: n - before[k] for k, n in mf.pl_routes.items()}
+    check(routes == {"fwd_cluster": 1, "fwd_generic": 0, "bwd_cluster": 1,
+                     "bwd_generic": 0},
+          f"autograd through fused_proj_ln_2d took the routes {routes}")
     _, mean, rstd = mf.fused_proj_ln_fwd(xx, w, b, res, lnw, lnb, 1e-12)
-    dz, _, dg, dbeta = mf.fused_proj_ln_bwd(xx, w, b, res, lnw, mean, rstd, g)
+    op = mf.fused_proj_ln_grads(xx, w, b, res, lnw, lnb, mean, rstd, g)
     ry, _, _ = mf.fused_proj_ln_fwd_ref(xx, w, b, res, lnw, lnb, 1e-12)
-    rdz, rdp, rdg, rdbeta = mf.fused_proj_ln_bwd_ref(xx, w, b, res, lnw,
-                                                     mean, rstd, g)
-    torch.cuda.synchronize()
-    check(same_bits(auto[3], dz.to(bf)) and same_bits(auto[4], dg.to(bf))
-          and same_bits(auto[5], dbeta.to(bf)),
-          "autograd through fused_proj_ln_2d differs from the proj-LN "
-          "backward op")
-    refs = (("y", y, ry), ("dx", auto[0], (rdp @ w.float().T).to(bf)),
-            ("dW", auto[1], (xx.float().T @ rdp).to(bf)),
-            ("db", auto[2], rdp.sum(0).to(bf)), ("dres", auto[3], rdz.to(bf)),
-            ("dgamma", auto[4], rdg.to(bf)), ("dbeta", auto[5], rdbeta.to(bf)))
-    readings = {}
-    for key, got, ref in refs:
-        readings[key] = rel_err(got, ref)[1]
-        check(got.dtype == bf and readings[key] <= LN_TOL["bfloat16"],
+    ref = mf.fused_proj_ln_grads_ref(xx, w, b, res, lnw, lnb, mean, rstd, g)
+    flag = torch.backends.cuda.matmul
+    flag.allow_bf16_reduced_precision_reduction = True
+    try:
+        op_default = mf.fused_proj_ln_grads(xx, w, b, res, lnw, lnb, mean,
+                                            rstd, g)
+        torch.cuda.synchronize()
+    finally:
+        flag.allow_bf16_reduced_precision_reduction = False
+    check(all(same_bits(a, e) for a, e in zip(auto, op)),
+          "autograd through fused_proj_ln_2d differs from the "
+          "fused_proj_ln_grads op")
+    readings = {"y": rel_err(y, ry)[1]}
+    check(readings["y"] <= LN_TOL["bfloat16"],
+          f"fused_proj_ln_2d's y: relative {readings['y']}")
+    for key, got, want in zip(("dx", "dW", "db", "dres", "dgamma", "dbeta"),
+                              auto, ref):
+        err, rel = rel_err(got, want)
+        unit = bf16_unit(want)
+        readings[key] = dict(max_abs_err=err, relative_to_max=rel,
+                             bf16_unit=unit)
+        check(got.dtype == bf and err <= unit,
               f"autograd through fused_proj_ln_2d: {key} {got.dtype} "
-              f"relative {readings[key]} > {LN_TOL['bfloat16']}")
-    del x, xx, w, res, g, b, lnw, lnb, prim, y, auto, mean, rstd, dz, dg
-    del dbeta, ry, rdz, rdp, rdg, rdbeta, refs
+              f"max_abs_err {err} > one bf16 unit {unit}")
+    default_bits = {k: same_bits(a, e) for k, a, e in
+                    zip(("dx", "dW"), op_default, op)}
+    del x, xx, w, res, g, b, lnw, lnb, prim, y, auto, mean, rstd, op, ry, ref
+    del op_default
     torch.cuda.empty_cache()
-    return dict(r=BERT_R, hin=BERT_H, hout=BERT_H, relative_to_max=readings)
+    return dict(r=BERT_R, hin=BERT_H, hout=BERT_H, routes=routes,
+                readings=readings,
+                same_bits_with_reduced_precision_reduction=default_bits)
 
 
 def pl_check_rejects(torch, mf):
@@ -2248,38 +2320,195 @@ def pl_check_rejects(torch, mf):
     return readings
 
 
+PAIR_TOL = 2 ** -14   # hi + lo against the plain f32 dp, of its largest magnitude
+
+
+def pl_cluster(torch, mf, nf, fa):
+    """The cluster route's kernels (pl_route: bf16, Hout a multiple of 256
+    up to 768) against their plain versions at PL_CASES, and with dropout
+    (keyed by mlp_blocks' row tile) at PL_DROP_CASES: y, mean and rstd
+    within LN_TOL of fused_proj_ln_fwd_ref; dres, dgamma, dbeta and db
+    within LN_TOL of fused_proj_ln_bwd_pair_ref; hi + lo within PAIR_TOL
+    of the plain f32 dp; two backward calls give the same bits; under
+    dropout hi's zeros are the plain mask's. A case the route does not
+    take (Hout 1024) is listed with its route; the route's geometry in
+    Python equals the library's. Then the planted faults
+    (pl_cluster_rejects). Returns the readings."""
+    bf = torch.bfloat16
+    lib = mf._pl_lib()
+    check(lib.proj_ln_cluster_max_hout() == mf.PL_CLUSTER_MAX_HOUT
+          and lib.proj_ln_cluster_rows() == mf.PL_CLUSTER_ROWS,
+          f"the cluster route's geometry: library max Hout "
+          f"{lib.proj_ln_cluster_max_hout()}, rows "
+          f"{lib.proj_ln_cluster_rows()}; Python {mf.PL_CLUSTER_MAX_HOUT}, "
+          f"{mf.PL_CLUSTER_ROWS}")
+    worst, routes = {}, {}
+    cases = [(c, False) for c in PL_CASES] + [(c, True) for c in PL_DROP_CASES]
+    for (r, hin, hout), drop in cases:
+        what = f"r={r} hin={hin} hout={hout} dropout={drop}"
+        variant = "dropout" if drop else "plain"
+        routes[what] = mf.pl_route(bf, hin, hout, True)
+        if routes[what] != "cluster":
+            continue
+        x = pl_inputs(torch, r, hin, hout, bf, r + hin + hout + 2 + drop)
+        key = (drop_key(fa, mf.mlp_blocks(r, hout, hin, dtype=bf)[0], hout)
+               if drop else None)
+        args = (x["x"], x["w"], x["b"], x["res"], x["lnw"])
+        y, mean, rstd = mf._proj_ln_fwd_cuda(*args, x["lnb"], 1e-12, key,
+                                             route="cluster")
+        got = mf._proj_ln_bwd_pair_cuda(*args, mean, rstd, x["g"], key)
+        again = mf._proj_ln_bwd_pair_cuda(*args, mean, rstd, x["g"], key)
+        ry, rmean, rrstd = mf.fused_proj_ln_fwd_ref(*args, x["lnb"], 1e-12,
+                                                    key)
+        ref = mf.fused_proj_ln_bwd_pair_ref(*args, mean, rstd, x["g"], key)
+        rdp = mf.fused_proj_ln_bwd_ref(*args, mean, rstd, x["g"], key)[1]
+        torch.cuda.synchronize()
+        check(all(same_bits(a, b) for a, b in zip(got, again)),
+              f"proj-LN cluster backward differs between two calls ({what})")
+        for label, g_, r_ in zip(
+                ("y", "mean", "rstd", "dres", "dgamma", "dbeta", "db"),
+                (y, mean, rstd, got[0], *got[3:]),
+                (ry, rmean, rrstd, ref[0], *ref[3:])):
+            check(bool(torch.isfinite(g_).all()),
+                  f"proj-LN cluster {label} not finite ({what})")
+            err, rel = rel_err(g_, r_)
+            check(rel <= LN_TOL["bfloat16"],
+                  f"proj-LN cluster {label} disagrees with plain: {what} "
+                  f"max_abs_err={err} relative {rel} > {LN_TOL['bfloat16']}")
+            kern = ("fused_proj_ln_fwd" if label in ("y", "mean", "rstd")
+                    else "fused_proj_ln_bwd")
+            w = worst.setdefault(variant, {}).setdefault(kern, [0., 0.])
+            w[0], w[1] = max(w[0], err), max(w[1], rel)
+        err, rel = rel_err(got[1].float() + got[2].float(), rdp)
+        check(rel <= PAIR_TOL, f"proj-LN cluster: hi + lo is not dp ({what}): "
+              f"relative {rel} > {PAIR_TOL}")
+        w = worst.setdefault(variant, {}).setdefault("pair", [0., 0.])
+        w[0], w[1] = max(w[0], err), max(w[1], rel)
+        if drop:
+            off = mask_mismatches(got[1], nf.row_keep_ref(key, x["res"]))
+            check(off == 0, f"proj-LN cluster dropout: hi's zeros differ from "
+                  f"the plain mask at {off} elements ({what})")
+        del x, args, y, mean, rstd, got, again, ry, rmean, rrstd, ref, rdp
+    torch.cuda.empty_cache()
+    return dict(tolerance_relative_to_max=dict(LN_TOL, pair=PAIR_TOL),
+                routes=routes,
+                worst={v: {k: dict(max_abs_err=e, relative=r)
+                           for k, (e, r) in w.items()}
+                       for v, w in worst.items()},
+                planted_faults=pl_cluster_rejects(torch, mf, nf, fa))
+
+
+def pl_cluster_rejects(torch, mf, nf, fa):
+    """The cluster checks must reject, at bert-base's shape: a forward
+    missing one block's column slice (W's rank-1 slice zeroed); the pair
+    without its lo half (hi alone against dp); a backward missing one
+    128-row tile's partial of dgamma, dbeta and db (the first 128 rows
+    cut); and the mask keyed by the cluster's own 128-row tile instead of
+    the reference's (mlp_blocks: 256 rows here), which must differ at
+    this shape. Each reading is held above its tolerance."""
+    bf = torch.bfloat16
+    x = pl_inputs(torch, BERT_R, BERT_H, BERT_H, bf, 31)
+    xx, w, b, res, lnw, lnb, g = (x[k] for k in ("x", "w", "b", "res", "lnw",
+                                                 "lnb", "g"))
+    ry, mean, rstd = mf.fused_proj_ln_fwd_ref(xx, w, b, res, lnw, lnb, 1e-12)
+    ref = mf.fused_proj_ln_bwd_pair_ref(xx, w, b, res, lnw, mean, rstd, g)
+    rdp = mf.fused_proj_ln_bwd_ref(xx, w, b, res, lnw, mean, rstd, g)[1]
+    c0, c1 = mf.pl_cluster_plan(BERT_H)[1]
+    w_cut = w.clone()
+    w_cut[:, c0:c1] = 0
+    y_cut = mf._proj_ln_fwd_cuda(xx, w_cut, b, res, lnw, lnb, 1e-12,
+                                 route="cluster")[0]
+    hi = mf._proj_ln_bwd_pair_cuda(xx, w, b, res, lnw, mean, rstd, g)[1]
+    k = mf.PL_CLUSTER_ROWS
+    cut = mf._proj_ln_bwd_pair_cuda(xx[k:], w, b, res[k:], lnw, mean[k:],
+                                    rstd[k:], g[k:])
+    readings = {
+        "forward_one_block_slice_zeroed": (rel_err(y_cut, ry)[1],
+                                           LN_TOL["bfloat16"]),
+        "pair_lo_dropped": (rel_err(hi, rdp)[1], PAIR_TOL),
+        "dgamma_one_row_tile_cut": (rel_err(cut[3], ref[3])[1],
+                                    LN_TOL["bfloat16"]),
+        "dbeta_one_row_tile_cut": (rel_err(cut[4], ref[4])[1],
+                                   LN_TOL["bfloat16"]),
+        "db_one_row_tile_cut": (rel_err(cut[5], ref[5])[1],
+                                LN_TOL["bfloat16"])}
+    key = drop_key(fa, mf.mlp_blocks(BERT_R, BERT_H, BERT_H, dtype=bf)[0],
+                   BERT_H)
+    own = drop_key(fa, k, BERT_H)
+    keep = nf.row_keep_ref(key, res)
+    masks_differ = int((keep != nf.row_keep_ref(own, res)).sum())
+    check(key.rows != own.rows and masks_differ > 0,
+          f"the masks keyed by {key.rows} and {own.rows} rows agree at "
+          f"bert-base's shape: the planted fault would show nothing")
+    _, dmean, drstd = mf.fused_proj_ln_fwd_ref(xx, w, b, res, lnw, lnb,
+                                               1e-12, key)
+    hi_own = mf._proj_ln_bwd_pair_cuda(xx, w, b, res, lnw, dmean, drstd, g,
+                                       own)[1]
+    torch.cuda.synchronize()
+    readings["mask_keyed_by_the_cluster_tile"] = (
+        mask_mismatches(hi_own, keep), 0)
+    for name, (reading, tol) in readings.items():
+        check(reading > tol, f"the proj-LN cluster checks pass a planted "
+              f"fault ({name}): {reading} <= {tol}")
+    del x, xx, w, b, res, lnw, lnb, g, ry, mean, rstd, ref, rdp, w_cut, y_cut
+    del hi, cut, keep, dmean, drstd, hi_own
+    torch.cuda.empty_cache()
+    return dict({n: dict(reading=r, tolerance=t)
+                 for n, (r, t) in readings.items()},
+                reference_tile_rows=key.rows, cluster_tile_rows=own.rows,
+                masks_differ_at=masks_differ)
+
+
 def pl_times(torch, mf, key=None):
-    """Device times at R=16384, Hin=Hout=768, bf16: each op in turns with
-    its plain version; the library yardstick (never called by the port)
-    is F.layer_norm(res + addmm(b, x, W)) and its autograd backward (dx,
-    dW, db, dres, dgamma, dbeta), beside which the port's whole backward
-    (the op, then dx = dp.W^T, dW = x^T.dp and db = sum dp in f32 with the
-    casts, as _proj_ln_backward runs them) is timed too. With a dropout
+    """Device times at R=16384, Hin=Hout=768, bf16, each in turns: the
+    forward on the route the model takes (pl_route: the cluster kernel)
+    with its plain version and with the generic kernel (earlier_ms); the
+    cluster backward kernel with its plain version
+    (fused_proj_ln_bwd_pair_ref) and with the generic backward kernel
+    (earlier_ms: dz, dp in f32). The library yardstick (never called by
+    the port) is F.layer_norm(res + addmm(b, x, W)) and its autograd
+    backward (dx, dW, db, dres, dgamma, dbeta), beside which the whole
+    backward (fused_proj_ln_grads' CUDA route: the kernel, then the pair
+    products) is timed, and the generic route's whole backward (the f32
+    kernel and f32 products: earlier_ms). The two kernels again at Hin =
+    64, the product nearly free: what the rest costs. With a dropout
     ``key``: the dropout variants, and F.dropout on the addmm in the
     yardstick."""
-    x = pl_inputs(torch, BERT_R, BERT_H, BERT_H, torch.bfloat16, 9)
+    bf = torch.bfloat16
+    x = pl_inputs(torch, BERT_R, BERT_H, BERT_H, bf, 9)
     xx, w, b, res, lnw, lnb, g = (x[k] for k in ("x", "w", "b", "res", "lnw",
                                                  "lnb", "g"))
     d = () if key is None else (key.p, key.s0, key.s1, key.rows)
-    y, mean, rstd = mf.fused_proj_ln_fwd(xx, w, b, res, lnw, lnb, 1e-12, *d)
+    fwd_args = (xx, w, b, res, lnw, lnb, 1e-12)
+    y, mean, rstd = mf.fused_proj_ln_fwd(*fwd_args, *d)
+    bwd_args = (xx, w, b, res, lnw, mean, rstd, g)
+    route = mf.pl_route(bf, BERT_H, BERT_H, True)
+    check(route == "cluster", f"bert-base's projection-LN takes {route}")
     runs = {
         "fused_proj_ln_fwd": (
-            lambda _: mf.fused_proj_ln_fwd(xx, w, b, res, lnw, lnb, 1e-12,
-                                           *d),
-            lambda _: mf.fused_proj_ln_fwd_ref(xx, w, b, res, lnw, lnb,
-                                               1e-12, key)),
+            lambda _: mf._proj_ln_fwd_cuda(*fwd_args, key, route=route),
+            lambda _: mf.fused_proj_ln_fwd_ref(*fwd_args, key),
+            lambda _: mf._proj_ln_fwd_cuda(*fwd_args, key, route="generic"),
+            "the generic proj_ln_fwd_kernel (32-row blocks, mma.sync), same "
+            "inputs, in turns"),
         "fused_proj_ln_bwd": (
-            lambda _: mf.fused_proj_ln_bwd(xx, w, b, res, lnw, mean, rstd, g,
-                                           *d),
-            lambda _: mf.fused_proj_ln_bwd_ref(xx, w, b, res, lnw, mean,
-                                               rstd, g, key)),
+            lambda _: mf._proj_ln_bwd_pair_cuda(*bwd_args, key),
+            lambda _: mf.fused_proj_ln_bwd_pair_ref(*bwd_args, key),
+            lambda _: mf._proj_ln_bwd_cuda(*bwd_args, key),
+            "the generic proj_ln_bwd_kernel + sum_parts (dz, dp in f32), "
+            "same inputs, in turns"),
     }
     bounds = pl_bounds(BERT_R, BERT_H, BERT_H, 2)
     out = {}
-    for name, (kern, plain) in runs.items():
-        plain_ms, ms, t = in_turns(plain, kern)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, all_ms=t,
-                         bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    for name, (kern, plain, earlier, what) in runs.items():
+        plain_ms, _, t = in_turns(plain, kern)
+        earlier_ms, ms, te = in_turns(earlier, kern)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, all_ms=t, route=route,
+                         earlier_ms=earlier_ms, earlier=what,
+                         earlier_turns_ms=te, bound_ms=bounds[name][0],
+                         bound_by=bounds[name][1])
+    out["fused_proj_ln_bwd"]["earlier_bound_ms"] = \
+        bounds["fused_proj_ln_bwd_generic"][0]
     wb, lw, lb = b.to(xx.dtype), lnw.to(xx.dtype), lnb.to(xx.dtype)
     layer_norm = torch.nn.functional.layer_norm
 
@@ -2293,34 +2522,50 @@ def pl_times(torch, mf, key=None):
         lambda _: library(xx, w, wb, res, lw, lb), runs["fused_proj_ln_fwd"][0])
     prim = [t.detach().requires_grad_(True) for t in (xx, w, wb, res, lw, lb)]
     yl = library(*prim)
+
+    def library_bwd(_):
+        return torch.autograd.grad(yl, prim, g, retain_graph=True)
+
     out["fused_proj_ln_bwd"]["library_ms"], _, _ = in_turns(
-        lambda _: torch.autograd.grad(yl, prim, g, retain_graph=True),
-        runs["fused_proj_ln_bwd"][0])
-    _, dp, _, _ = mf.fused_proj_ln_bwd(xx, w, b, res, lnw, mean, rstd, g, *d)
+        library_bwd, runs["fused_proj_ln_bwd"][0])
 
-    def f32_products(_):
-        return ((dp @ w.float().T).to(xx.dtype),
-                (xx.float().T @ dp).to(w.dtype), dp.sum(0))
+    def whole(route_):
+        return lambda _: mf._proj_ln_grads_cuda(xx, w, b, res, lnw, lnb, mean,
+                                                rstd, g, key, route=route_)
 
-    def whole_bwd(_):
-        dz, dp_, dg, dbeta = mf.fused_proj_ln_bwd(xx, w, b, res, lnw, mean,
-                                                  rstd, g, *d)
-        return ((dp_ @ w.float().T).to(xx.dtype),
-                (xx.float().T @ dp_).to(w.dtype), dp_.sum(0),
-                dz.to(res.dtype), dg, dbeta)
-
-    lib_ms, whole_ms, _ = in_turns(
-        lambda _: torch.autograd.grad(yl, prim, g, retain_graph=True),
-        whole_bwd)
+    earlier_ms, whole_ms, te = in_turns(whole("generic"), whole(route))
+    lib_ms, _, tl = in_turns(library_bwd, whole(route))
+    _, pair, _ = mf._pl_pair_kernel(*bwd_args, key)
+    pair2 = pair.view(BERT_R, 2 * BERT_H)
+    w2 = torch.cat([w, w], 1)
     out["whole_backward"] = dict(
-        ms=whole_ms, library_bwd_ms=lib_ms,
-        f32_products_ms=cuda_ms(f32_products, [None], iters=20),
-        note="the kernel plus dx = dp.W^T, dW = x^T.dp (f32, W and x cast to "
-             "f32, as the reference) and db = sum dp, with the casts")
+        ms=whole_ms, earlier_ms=earlier_ms, library_ms=lib_ms,
+        turns_ms=dict(generic_vs_cluster=te, library_vs_cluster=tl),
+        pair_products_ms=cuda_ms(
+            lambda _: (torch.mm(pair2, w2.T),
+                       torch.mm(xx.T, pair2, out_dtype=torch.float32)),
+            [None], iters=20),
+        bound_ms=bounds["whole_backward"][0],
+        bound_by=bounds["whole_backward"][1],
+        note="the cluster kernel, then dx = [hi | lo].[W^T; W^T] and dW = "
+             "x^T.[hi | lo] (bf16 tensor-core products over the pair, f32 "
+             "accumulation), db from the kernel's column sums; earlier: the "
+             "generic kernel and the reference's f32 products")
+    x64 = pl_inputs(torch, BERT_R, 64, BERT_H, bf, 10)
+    a64 = (x64["x"], x64["w"], x64["b"], x64["res"], x64["lnw"])
+    _, m64, r64 = mf.fused_proj_ln_fwd(*a64, x64["lnb"], 1e-12, *d)
+    out["hin_64"] = dict(
+        fwd_ms=cuda_ms(lambda _: mf._proj_ln_fwd_cuda(
+            *a64, x64["lnb"], 1e-12, key, route=route), [None], iters=20),
+        bwd_ms=cuda_ms(lambda _: mf._proj_ln_bwd_pair_cuda(
+            *a64, m64, r64, x64["g"], key), [None], iters=20),
+        note="the cluster kernels at Hin = 64 (R, Hout as above): the "
+             "product nearly free, the rest of each kernel's time")
     out["timed_at"] = dict(r=BERT_R, hin=BERT_H, hout=BERT_H,
                            dtype="bfloat16",
                            dropout=None if key is None else key.p)
-    del x, xx, w, b, res, lnw, lnb, g, y, mean, rstd, prim, yl, dp
+    del x, xx, w, b, res, lnw, lnb, g, y, mean, rstd, prim, yl, pair, pair2
+    del w2, x64, a64, m64, r64
     torch.cuda.empty_cache()
     return out
 
@@ -2682,6 +2927,13 @@ def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
               f"dropout {cfg.hidden_dropout_prob}, "
               f"{cfg.attention_probs_dropout_prob})")
     routes = fwd_routes_reading(counts, "bert-base training")
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    if fused:
+        proj_ln_routes = pl_routes_reading(counts, "bert-base training")
+    else:
+        proj_ln_routes = dict(mf.pl_routes)
+        check(not any(proj_ln_routes.values()), f"bert-base with the fused "
+              f"flags off called the projection-LN kernels: {proj_ln_routes}")
     tokens = BERT_B * BERT_S
     flops = bert_flops_per_step(cfg, BERT_B, BERT_S, lengths)
     ms = wall / steps * 1e3
@@ -2704,7 +2956,7 @@ def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
                parameters=sum(p.numel() for p in model.parameters()),
                card_during_steps=clocks.summary(), launches=counts,
                launches_per_step={k: n / steps for k, n in counts.items()},
-               flash_fwd_routes=routes)
+               flash_fwd_routes=routes, proj_ln_routes=proj_ln_routes)
     return out, model, step
 
 
@@ -2737,8 +2989,9 @@ def phase_profile_bert(torch, step, steps=2):
     # "ln_fwd_" too; the LayerNorm, projection-LN and fused MLP backwards
     # all end in common.cuh's sum_parts_kernel, counted on its own
     groups = {"layer_norm (ln_fwd, ln_bwd)": ("::ln_fwd_", "::ln_bwd_"),
-              "proj_ln (proj_ln_fwd, proj_ln_bwd)":
-              ("proj_ln_fwd_kernel", "proj_ln_bwd_kernel"),
+              "proj_ln (proj_ln_fwd, proj_ln_bwd, their cluster route)":
+              ("proj_ln_fwd_kernel", "proj_ln_bwd_kernel",
+               "proj_ln_fwd_cluster_kernel", "proj_ln_bwd_cluster_kernel"),
               "flash (fwd, dq, dkv)": ("flash_fwd_wgmma_kernel",
                                        "flash_fwd_kernel", "flash_dq_kernel",
                                        "flash_dkv_kernel"),
@@ -4056,13 +4309,54 @@ def phase_resnet_parity_fp32(torch):
                 leaves=RESNET_LEAVES)
 
 
-def wgmma_fields(times):
-    """The flash forward's extra keys in the kernels' line: the route it
-    took and the generic kernel's time on the same inputs, in turns."""
+def route_fields(times):
+    """A redesigned kernel's extra keys in the kernels' line (the flash
+    forward's, the projection-LN's): the route it took and the earlier
+    kernel's time on the same inputs, in turns."""
     if "earlier_ms" not in times:
         return {}
     return {"kernel_route": times["route"], "earlier_ms": times["earlier_ms"],
-            "earlier": "the generic flash_fwd_kernel, same inputs, in turns"}
+            "earlier": times.get(
+                "earlier", "the generic flash_fwd_kernel, same inputs, in "
+                "turns")}
+
+
+def pl_whole_fields(times):
+    """The projection-LN backward's extra keys in the kernels' line: the
+    whole backward (the kernel and the pair products) on the cluster
+    route, the generic route's (f32 products) and the composite's."""
+    t = times["whole_backward"]
+    return {"whole_backward_ms": t["ms"],
+            "whole_backward_earlier_ms": t["earlier_ms"],
+            "whole_backward_library_ms": t["library_ms"],
+            "whole_backward_bound_ms": t["bound_ms"],
+            "note": "ms, plain_ms, bound_ms: the cluster backward kernel "
+                    "(dres, the pair, dgamma, dbeta, db); library_ms: the "
+                    "composite's whole autograd backward; whole_backward_*: "
+                    "the kernel and the pair products"}
+
+
+def pl_cluster_ptxas(build_log):
+    """ptxas -v's lines for each instantiation of the projection-LN's
+    cluster kernels (forward and backward, NW = Hout / 4 of 64, 128 and
+    192, with and without dropout): none may spill."""
+    out, name = {}, None
+    for ln in build_log.get("proj_ln.cu", "").splitlines():
+        m = re.search(r"Compiling entry function '\S*(proj_ln_(?:fwd|bwd)_"
+                      r"cluster_kernel)ILi(\d+)ELb(\d)E", ln)
+        if m:
+            name = (f"{m.group(1)}<{m.group(2)}, "
+                    f"{'true' if m.group(3) == '1' else 'false'}>")
+        elif "Compiling entry function" in ln:
+            name = None
+        elif name and ("spill" in ln or "registers" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    check(len(out) == 12 or "proj_ln.cu" not in build_log,
+          f"ptxas lines for {len(out)} cluster instantiations, want 12")
+    for lines in out.values():
+        check(not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines),
+              f"a projection-LN cluster kernel spills: {lines}")
+    return out
 
 
 def wgmma_ptxas(build_log):
@@ -4122,7 +4416,8 @@ def main():
           libraries=[str(p.name) for p in libs.values()],
           ptxas=[ln.strip() for log in _build.build_log.values()
                  for ln in log.splitlines() if "registers" in ln],
-          flash_fwd_wgmma_ptxas=wgmma_ptxas(_build.build_log))
+          flash_fwd_wgmma_ptxas=wgmma_ptxas(_build.build_log),
+          proj_ln_cluster_ptxas=pl_cluster_ptxas(_build.build_log))
 
     kern = phase_kernel_vs_plain(torch)
     phase(3, "decode_attn_proj vs plain", tolerance=TOL, **kern)
@@ -4304,7 +4599,7 @@ def main():
             "max_abs_err": err, "max_err": err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-        kernels[-1].update(wgmma_fields(t))
+        kernels[-1].update(route_fields(t))
         if key == "backward":
             kernels[-1]["note"] = ("dX and dW run in one backward call: ms, "
                                    "plain_ms and bound_ms are that call's")
@@ -4334,8 +4629,10 @@ def main():
                            ("fused_proj_ln_fwd", pl, "fused_proj_ln_fwd"),
                            ("fused_proj_ln_bwd", pl, "fused_proj_ln_bwd")):
         t = res[key]
-        worst = (ln if name.startswith("fused_ln") else pl)["worst"]
-        err = worst["bfloat16"][name]["max_abs_err"]
+        if name.startswith("fused_ln"):
+            err = ln["worst"]["bfloat16"][name]["max_abs_err"]
+        else:   # the cluster route's kernels: bert-base's path
+            err = pl["cluster"]["worst"]["plain"][name]["max_abs_err"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": LN_SOURCE if name.startswith("fused_ln") else PL_SOURCE,
@@ -4344,6 +4641,9 @@ def main():
             "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        kernels[-1].update(route_fields(t))
+        if name == "fused_proj_ln_bwd":
+            kernels[-1].update(pl_whole_fields(pl))
     # the flash kernels' key-padding variant at bert-base's attention; its
     # launches are bert-base training's, counted under the flash kernels
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
@@ -4356,7 +4656,7 @@ def main():
             "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
-        kernels[-1].update(wgmma_fields(t))
+        kernels[-1].update(route_fields(t))
     # the BatchNorm kernels' launches are resnet50 training's (phase 28);
     # each op's four launches (reduction, sum_parts, fold, apply) count once
     for name in ("fused_bn_fwd", "fused_bn_bwd"):
@@ -4381,7 +4681,10 @@ def main():
             *((n, pl["dropout"], pl["dropout"], PL_SOURCE)
               for n in ("fused_proj_ln_fwd", "fused_proj_ln_bwd"))):
         t = times[name]
-        err = res["worst"]["bfloat16"][name]["max_abs_err"]
+        if name.startswith("fused_proj_ln"):
+            err = pl["cluster"]["worst"]["dropout"][name]["max_abs_err"]
+        else:
+            err = res["worst"]["bfloat16"][name]["max_abs_err"]
         kernels.append({
             "name": DROP_NAMES[name], "route": "cuda", "source": src,
             "replaces": (FLASH_REPLACES.get(name) or LN_REPLACES[name]),
@@ -4389,7 +4692,9 @@ def main():
             "max_abs_err": err, "max_err": err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-        kernels[-1].update(wgmma_fields(t))
+        kernels[-1].update(route_fields(t))
+        if name == "fused_proj_ln_bwd":
+            kernels[-1].update(pl_whole_fields(pl["dropout"]))
     # the fused MLP's dropout variants (kernels 4-6) at gpt3-1.3b's width;
     # their launches are phase 38's (two F.fused_mlp calls at p = 0.1)
     for name in ("fused_mlp_fwd", "fused_mlp_dx", "fused_mlp_dw"):

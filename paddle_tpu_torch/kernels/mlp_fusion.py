@@ -45,18 +45,33 @@ counts once for each. No backward uses atomics: every call gives the same bits.
 
 The projection-LN forward and backward are
 ``paddle_tpu_torch::fused_proj_ln_fwd`` → ``(y, mean, rstd)`` and
-``paddle_tpu_torch::fused_proj_ln_bwd`` → ``(dz, dp, dgamma, dbeta)``
-(dz and dp f32, as the reference's kernel writes them, :857-858); the
-backward saves the primal inputs and the f32 row statistics, recomputes
-the product, and takes dx, dW and db from dp as f32 products outside the
-kernel, as the reference does (:895-904). Dropout (:735-739, :778-788):
-z = where(keep, (x·W + b) · f32(1 / (1 − p)), 0) + res, dz the LN's
-input gradient (dres) and dp = where(keep, dz · f32(1 / (1 − p)), 0),
-the mask keyed (row // block_r, 0, 0) with the index (row % block_r)·Hout
-+ c, block_r being ``mlp_blocks``'s row tile; the backward regenerates
-it from the seed pair. For CUDA tensors they launch
-``csrc/proj_ln.cu`` or raise; for CPU tensors they take
-``fused_proj_ln_fwd_ref`` / ``fused_proj_ln_bwd_ref``.
+``paddle_tpu_torch::fused_proj_ln_grads`` → ``(dx, dW, db, dres, dgamma,
+dbeta)`` in the autograd's dtypes; the backward saves the primal inputs
+and the f32 row statistics and recomputes the product. Dropout
+(:735-739, :778-788): z = where(keep, (x·W + b) · f32(1 / (1 − p)), 0) +
+res, dz the LN's input gradient (dres) and dp = where(keep, dz · f32(1 /
+(1 − p)), 0), the mask keyed (row // block_r, 0, 0) with the index (row %
+block_r)·Hout + c, block_r being ``mlp_blocks``'s row tile; the backward
+regenerates it from the seed pair. For CUDA tensors they launch
+``csrc/proj_ln.cu`` or raise, on the route ``pl_route`` picks from the
+dtype, the widths and the alignment: ``cluster`` (bf16, Hout a multiple
+of 256 up to 768, Hin a multiple of 8, 16-byte aligned tensors: a
+cluster of four blocks holds each 128-row tile's f32 rows in registers,
+wgmma and TMA; ``pl_cluster_plan`` mirrors its column slices) or
+``generic`` (the 32-row kernels: f32 and every other shape);
+``pl_routes`` counts CUDA calls by direction and route. On the cluster
+route the backward kernel writes dres = round(dz) and dp as a pair of
+bf16 halves (hi, lo), and dx = dp·Wᵀ and dW = xᵀ·dp, which the reference
+computes as f32 products outside its kernel (:895-904), run as bf16
+tensor-core products over the pair with f32 accumulation (the same f32
+products to ~2^-16); db comes from the kernel's column sums. On the
+generic route the kernel writes dz and dp in f32, as the reference's
+does (:857-858), and dx, dW and db are f32 products and sums of dp. For
+CPU tensors the ops take ``fused_proj_ln_fwd_ref`` /
+``fused_proj_ln_grads_ref``. ``paddle_tpu_torch::fused_proj_ln_bwd`` →
+``(dz, dp, dgamma, dbeta)`` (all f32) is the generic backward kernel's
+own op, with its plain version ``fused_proj_ln_bwd_ref``;
+``fused_proj_ln_bwd_pair_ref`` is the cluster backward kernel's.
 
 ``decode_attn_proj`` is the decode wrapper. For CUDA tensors it launches
 ``csrc/decode_attn_proj.cu`` or raises; for CPU tensors it takes
@@ -86,9 +101,10 @@ __all__ = ["decode_attn_proj", "decode_attn_proj_ref", "dropout_launches",
            "fused_swiglu_fwd", "fused_swiglu_bwd", "fused_swiglu_fwd_ref",
            "fused_swiglu_dx_ref", "fused_swiglu_dw_ref", "fused_proj_ln_2d",
            "fused_proj_ln_fwd", "fused_proj_ln_bwd", "fused_proj_ln_fwd_ref",
-           "fused_proj_ln_bwd_ref", "mlp_blocks", "mlp_eligible",
-           "proj_ln_eligible",
-           "proj_ln_max_hout", "launches"]
+           "fused_proj_ln_bwd_ref", "fused_proj_ln_bwd_pair_ref",
+           "fused_proj_ln_grads", "fused_proj_ln_grads_ref", "mlp_blocks",
+           "mlp_eligible", "pl_cluster_plan", "pl_route", "pl_routes",
+           "proj_ln_eligible", "proj_ln_max_hout", "launches"]
 
 _NEG_INF = -1e30   # flash_attention.py:61 — the kernel's mask, never -inf
 _MAX_HEAD_DIM = 256
@@ -673,17 +689,97 @@ def fused_proj_ln_bwd_ref(x, w, b, res, lnw, mean, rstd, g,
     return dz, dp, (gf * xhat).sum(0), gf.sum(0)
 
 
+def fused_proj_ln_bwd_pair_ref(x, w, b, res, lnw, mean, rstd, g,
+                               drop: Optional[DropKey] = None):
+    """Plain version of the cluster route's backward kernel: returns (dres
+    = round(dz) in res's dtype, hi = bf16(dp), lo = bf16(dp − hi), dgamma,
+    dbeta, db = Σ dp), the last three f32. hi + lo is dp to ~2^-17
+    relative; hi is 0 exactly where the mask drops."""
+    dz, dp, dg, dbeta = fused_proj_ln_bwd_ref(x, w, b, res, lnw, mean, rstd,
+                                              g, drop)
+    hi = dp.to(torch.bfloat16)
+    lo = (dp - hi.float()).to(torch.bfloat16)
+    return dz.to(res.dtype), hi, lo, dg, dbeta, dp.sum(0)
+
+
+def _f32_grads(x, w, b, res, lnw, lnb, dz, dp, dg, dbeta):
+    """From the f32 kernel's (dz, dp, dgamma, dbeta): dx = dp·Wᵀ, dW =
+    xᵀ·dp and db = Σ dp as f32 products outside the kernel, with W and x
+    cast to f32, as the reference computes them (:895-904); the six
+    gradients each cast to its primal's dtype."""
+    dx = dp @ w.float().T
+    dw = x.float().T @ dp
+    return (dx.to(x.dtype), dw.to(w.dtype), dp.sum(0).to(b.dtype),
+            dz.to(res.dtype), dg.to(lnw.dtype), dbeta.to(lnb.dtype))
+
+
+def fused_proj_ln_grads_ref(x, w, b, res, lnw, lnb, mean, rstd, g,
+                            drop: Optional[DropKey] = None):
+    """Plain version of the whole backward: the kernel's plain version,
+    then the reference's f32 products (``_f32_grads``)."""
+    return _f32_grads(x, w, b, res, lnw, lnb,
+                      *fused_proj_ln_bwd_ref(x, w, b, res, lnw, mean, rstd,
+                                             g, drop))
+
+
 _PL_ARGTYPES = {"proj_ln_fwd": [_P] * 9 + [_I] * 3 + [ctypes.c_float]
                 + _DROP + [_P],
                 "proj_ln_bwd": [_P] * 12 + [_I] * 3 + _DROP + [_P]}
+# the cluster route's entries, bf16 only (``<name>_bf16``): the forward
+# takes proj_ln_fwd's arguments, the backward proj_ln_bwd's with dres and
+# the pair in place of dz and dp
+_PL_CLUSTER_ARGTYPES = {"proj_ln_fwd_cluster": _PL_ARGTYPES["proj_ln_fwd"],
+                        "proj_ln_bwd_cluster": _PL_ARGTYPES["proj_ln_bwd"]}
+
+# the cluster route's geometry (csrc/proj_ln.cu, namespace cl): a cluster
+# of PL_CLUSTER_CTAS blocks owns PL_CLUSTER_ROWS rows, each block Hout / 4
+# columns; Hout a multiple of PL_CLUSTER_HOUT_STEP up to PL_CLUSTER_MAX_HOUT
+PL_CLUSTER_ROWS = 128
+PL_CLUSTER_CTAS = 4
+PL_CLUSTER_HOUT_STEP = 256
+PL_CLUSTER_MAX_HOUT = 768
+
+# CUDA calls of the projection-LN kernels by direction and route
+pl_routes = {"fwd_cluster": 0, "fwd_generic": 0, "bwd_cluster": 0,
+             "bwd_generic": 0}
 
 
 @functools.cache
 def _pl_lib():
-    return _build.library(
+    lib = _build.library(
         "proj_ln.cu", _PL_ARGTYPES,
         ints=("proj_ln_max_hout_f32", "proj_ln_max_hout_bf16",
-              "proj_ln_rows_per_block"))
+              "proj_ln_rows_per_block", "proj_ln_cluster_max_hout",
+              "proj_ln_cluster_rows"))
+    for name, types in _PL_CLUSTER_ARGTYPES.items():
+        fn = getattr(lib, f"{name}_bf16")
+        fn.argtypes, fn.restype = types, ctypes.c_int
+    return lib
+
+
+def pl_route(dtype, hin: int, hout: int, aligned: bool) -> str:
+    """The projection-LN kernels a CUDA call takes: ``"cluster"`` for
+    bfloat16 with Hout a multiple of 256 up to 768, Hin a multiple of 8
+    (TMA's 16-byte row stride) and every tensor 16-byte aligned and
+    contiguous (``aligned``), else ``"generic"``."""
+    if (dtype == torch.bfloat16 and hout % PL_CLUSTER_HOUT_STEP == 0
+            and 0 < hout <= PL_CLUSTER_MAX_HOUT and hin % 8 == 0
+            and aligned):
+        return "cluster"
+    return "generic"
+
+
+def pl_cluster_plan(hout: int):
+    """The cluster route's column slices: block ``rank`` of a cluster owns
+    the columns [start, stop) of every row of its 128-row tile; the four
+    slices tile [0, Hout) in rank order, the order in which each row's
+    four partial sums are added."""
+    if hout % PL_CLUSTER_HOUT_STEP or not 0 < hout <= PL_CLUSTER_MAX_HOUT:
+        raise ValueError(f"the cluster route takes Hout a multiple of "
+                         f"{PL_CLUSTER_HOUT_STEP} up to "
+                         f"{PL_CLUSTER_MAX_HOUT}, got {hout}")
+    nw = hout // PL_CLUSTER_CTAS
+    return [(rank * nw, (rank + 1) * nw) for rank in range(PL_CLUSTER_CTAS)]
 
 
 def proj_ln_max_hout(dtype) -> int:
@@ -732,17 +828,43 @@ def _pl_check(name, x, w, res, more=()):
     return r, hin, hout
 
 
-def _proj_ln_fwd_cuda(x, w, b, res, lnw, lnb, eps, drop=None):
+def _pl_route_for(name, route, x, hin, hout, tensors):
+    """The route of a CUDA call: ``pl_route``'s, or ``route`` when named
+    (an in-call comparison), which must then be one the shapes allow."""
+    natural = pl_route(x.dtype, hin, hout,
+                       all(t.data_ptr() % 16 == 0 for t in tensors))
+    if route is None:
+        return natural
+    if route not in ("cluster", "generic"):
+        raise ValueError(f"{name}: route {route!r} is 'cluster' or 'generic'")
+    if route == "cluster" and natural != "cluster":
+        raise ValueError(
+            f"{name}: the cluster route takes bfloat16 with Hout a multiple "
+            f"of {PL_CLUSTER_HOUT_STEP} up to {PL_CLUSTER_MAX_HOUT}, Hin a "
+            f"multiple of 8 and 16-byte aligned tensors, got {x.dtype}, "
+            f"Hin={hin}, Hout={hout}")
+    return route
+
+
+def _proj_ln_fwd_cuda(x, w, b, res, lnw, lnb, eps, drop=None, route=None):
+    """The forward on the route ``pl_route`` picks (``route`` names one
+    instead: a measurement holds the two on the same inputs)."""
     r, hin, hout = _pl_check("fused_proj_ln_fwd", x, w, res)
+    route = _pl_route_for("fused_proj_ln_fwd", route, x, hin, hout,
+                          (x, w, res))
     b32, g32, be32 = _vec32(b), _vec32(lnw), _vec32(lnb)
     y = torch.empty_like(res)
     mean = torch.empty(r, dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
-    _build.call(_pl_lib(), "proj_ln_fwd", x.dtype, x.device, x.data_ptr(),
-                w.data_ptr(), b32.data_ptr(), res.data_ptr(), g32.data_ptr(),
-                be32.data_ptr(), y.data_ptr(), mean.data_ptr(),
-                rstd.data_ptr(), r, hin, hout, float(eps), *_drop_args(drop))
+    # the cluster route is bf16: _build.call takes its proj_ln_fwd_cluster_bf16
+    _build.call(_pl_lib(),
+                "proj_ln_fwd_cluster" if route == "cluster" else "proj_ln_fwd",
+                x.dtype, x.device, x.data_ptr(), w.data_ptr(), b32.data_ptr(),
+                res.data_ptr(), g32.data_ptr(), be32.data_ptr(), y.data_ptr(),
+                mean.data_ptr(), rstd.data_ptr(), r, hin, hout, float(eps),
+                *_drop_args(drop))
     (launches if drop is None else dropout_launches)["fused_proj_ln_fwd"] += 1
+    pl_routes[f"fwd_{route}"] += 1
     return y, mean, rstd
 
 
@@ -762,8 +884,66 @@ def _proj_ln_bwd_cuda(x, w, b, res, lnw, mean, rstd, g, drop=None):
                 g.data_ptr(), dz.data_ptr(), dp.data_ptr(), part.data_ptr(),
                 sums.data_ptr(), r, hin, hout, *_drop_args(drop))
     (launches if drop is None else dropout_launches)["fused_proj_ln_bwd"] += 1
+    pl_routes["bwd_generic"] += 1
     # copies: rows of one tensor, and an op's outputs may not alias
     return dz, dp, sums[0].clone(), sums[1].clone()
+
+
+def _pl_pair_kernel(x, w, b, res, lnw, mean, rstd, g, drop=None):
+    """The cluster route's backward kernel: (dres [R, Hout] in res's
+    dtype, pair [R, 2, Hout] bf16 (hi, lo of dp), sums [3, Hout] f32:
+    dgamma, dbeta, db)."""
+    r, hin, hout = _pl_check("fused_proj_ln_bwd", x, w, res, more=(g,))
+    _pl_route_for("fused_proj_ln_bwd", "cluster", x, hin, hout, (x, w, res, g))
+    b32, g32 = _vec32(b), _vec32(lnw)
+    dev = x.device
+    dres = torch.empty_like(res)
+    pair = torch.empty((r, 2, hout), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((-(-r // PL_CLUSTER_ROWS), 3, hout),
+                       dtype=torch.float32, device=dev)
+    sums = torch.empty((3, hout), dtype=torch.float32, device=dev)
+    _build.call(_pl_lib(), "proj_ln_bwd_cluster", x.dtype, dev, x.data_ptr(),
+                w.data_ptr(), b32.data_ptr(), res.data_ptr(), g32.data_ptr(),
+                mean.contiguous().data_ptr(), rstd.contiguous().data_ptr(),
+                g.data_ptr(), dres.data_ptr(), pair.data_ptr(),
+                part.data_ptr(), sums.data_ptr(), r, hin, hout,
+                *_drop_args(drop))
+    (launches if drop is None else dropout_launches)["fused_proj_ln_bwd"] += 1
+    pl_routes["bwd_cluster"] += 1
+    return dres, pair, sums
+
+
+def _proj_ln_bwd_pair_cuda(x, w, b, res, lnw, mean, rstd, g, drop=None):
+    """The cluster backward kernel's outputs as its plain version
+    (``fused_proj_ln_bwd_pair_ref``) returns them: (dres, hi, lo, dgamma,
+    dbeta, db), hi and lo views of one [R, 2, Hout] tensor."""
+    dres, pair, sums = _pl_pair_kernel(x, w, b, res, lnw, mean, rstd, g, drop)
+    return dres, pair[:, 0], pair[:, 1], sums[0], sums[1], sums[2]
+
+
+def _proj_ln_grads_cuda(x, w, b, res, lnw, lnb, mean, rstd, g, drop=None,
+                        route=None):
+    """The whole backward on the route ``pl_route`` picks (``route`` names
+    one instead). Cluster: the pair kernel, then dx = [hi | lo]·[Wᵀ; Wᵀ]
+    (one bf16 product over K = 2 Hout, f32 accumulation, one rounding)
+    and dW = xᵀ·[hi | lo] with an f32 output whose two halves are added
+    before the one cast; no f32 copy of dp. Generic: the f32 kernel, then
+    the reference's f32 products."""
+    r, hin, hout = _pl_check("fused_proj_ln_bwd", x, w, res, more=(g,))
+    route = _pl_route_for("fused_proj_ln_bwd", route, x, hin, hout,
+                          (x, w, res, g))
+    if route == "generic":
+        return _f32_grads(x, w, b, res, lnw, lnb,
+                          *_proj_ln_bwd_cuda(x, w, b, res, lnw, mean, rstd, g,
+                                             drop))
+    dres, pair, sums = _pl_pair_kernel(x, w, b, res, lnw, mean, rstd, g, drop)
+    pair = pair.view(r, 2 * hout)
+    dx = torch.mm(pair, torch.cat([w, w], 1).T)
+    dwp = torch.mm(x.T, pair, out_dtype=torch.float32)
+    dw = (dwp[:, :hout] + dwp[:, hout:]).to(w.dtype)
+    # copies: rows of one tensor, and an op's outputs may not alias
+    return (dx, dw, sums[2].to(b.dtype, copy=True), dres,
+            sums[0].to(lnw.dtype, copy=True), sums[1].to(lnb.dtype, copy=True))
 
 
 @torch.library.custom_op(
@@ -790,14 +970,35 @@ def fused_proj_ln_fwd(x, w, b, res, lnw, lnb, eps, dropout_p=0.0, seed0=0,
            "-> (Tensor, Tensor, Tensor, Tensor)")
 def fused_proj_ln_bwd(x, w, b, res, lnw, mean, rstd, g, dropout_p=0.0,
                       seed0=0, seed1=0, block_r=0):
-    """Projection-LN backward → (dz, dp, dgamma, dbeta), all f32, as the
-    reference's kernel returns them (:857-858); the forward's dropout
-    mask regenerated from its key."""
+    """The generic backward kernel's op → (dz, dp, dgamma, dbeta), all
+    f32, as the reference's kernel returns them (:857-858); the forward's
+    dropout mask regenerated from its key. Autograd takes
+    ``fused_proj_ln_grads``."""
     drop = drop_key(dropout_p, seed0, seed1, block_r, res.shape[1],
                     "projection-LN dropout")
     if _on(x.device, "fused_proj_ln_bwd"):
         return _proj_ln_bwd_cuda(x, w, b, res, lnw, mean, rstd, g, drop)
     return fused_proj_ln_bwd_ref(x, w, b, res, lnw, mean, rstd, g, drop)
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::fused_proj_ln_grads", mutates_args=(),
+    schema="(Tensor x, Tensor w, Tensor b, Tensor res, Tensor lnw, "
+           "Tensor lnb, Tensor mean, Tensor rstd, Tensor g, "
+           f"{_ROW_DROP_SCHEMA}) -> (Tensor, Tensor, Tensor, Tensor, Tensor, "
+           "Tensor)")
+def fused_proj_ln_grads(x, w, b, res, lnw, lnb, mean, rstd, g, dropout_p=0.0,
+                        seed0=0, seed1=0, block_r=0):
+    """The projection-LN's whole backward → (dx, dW, db, dres, dgamma,
+    dbeta), each in its primal's dtype; on a card the route's kernel and
+    products, on the CPU ``fused_proj_ln_grads_ref``."""
+    drop = drop_key(dropout_p, seed0, seed1, block_r, res.shape[1],
+                    "projection-LN dropout")
+    if _on(x.device, "fused_proj_ln_grads"):
+        return _proj_ln_grads_cuda(x, w, b, res, lnw, lnb, mean, rstd, g,
+                                   drop)
+    return fused_proj_ln_grads_ref(x, w, b, res, lnw, lnb, mean, rstd, g,
+                                   drop)
 
 
 def _proj_ln_setup_context(ctx, inputs, output):
@@ -808,17 +1009,9 @@ def _proj_ln_setup_context(ctx, inputs, output):
 
 
 def _proj_ln_backward(ctx, dy, _dmean, _drstd):
-    """The kernel's (dz, dp, dgamma, dbeta), then dx = dp·Wᵀ, dW = xᵀ·dp
-    and db = Σ dp as f32 products outside the kernel, with W and x cast
-    to f32, as the reference computes them (:895-904)."""
     x, w, b, res, lnw, lnb, mean, rstd = ctx.saved_tensors
-    dz, dp, dg, dbeta = fused_proj_ln_bwd(x, w, b, res, lnw, mean, rstd,
-                                          dy.contiguous(), *ctx.drop)
-    dx = dp @ w.float().T
-    dw = x.float().T @ dp
-    return (dx.to(x.dtype), dw.to(w.dtype), dp.sum(0).to(b.dtype),
-            dz.to(res.dtype), dg.to(lnw.dtype), dbeta.to(lnb.dtype)) \
-        + (None,) * 5
+    return fused_proj_ln_grads(x, w, b, res, lnw, lnb, mean, rstd,
+                               dy.contiguous(), *ctx.drop) + (None,) * 5
 
 
 fused_proj_ln_fwd.register_autograd(_proj_ln_backward,
