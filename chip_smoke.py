@@ -11,7 +11,8 @@ Phases, one line each; any failure raises and exits non-zero:
    (nvidia-smi), the matmul precision settings used throughout;
 2. build every kernel from the repository's sources (kernels/csrc/);
    ptxas' registers and spills for each instantiation of the wgmma flash
-   forward and of the projection-LN's cluster kernels (none may spill);
+   kernels (forward, dQ, dK/dV) and of the projection-LN's cluster
+   kernels (none may spill);
 3. each kernel against its plain PyTorch version on the card at the
    main path's shapes (GPT-3 1.3B: NH=16, D=128, HO=2048, block_size
    16, 64-entry tables, MHA and GQA), fp32 and bf16, with its time,
@@ -31,14 +32,18 @@ Phases, one line each; any failure raises and exits non-zero:
    plain versions on the card: causal and not, S 2048 and 1000 (ragged),
    B*NH 64 and 16, D=128; D=64; Sq=512 with Sk=1000; D=96 (bf16 on the
    generic forward); fp32 and bf16 (out, lse, dq, dk, dv), each element
-   within its row's scale, each forward on the route fwd_route gives it
-   (the wgmma kernel for bf16 at D 64 and 128, read on the route
-   counter); the check shown to reject a forward missing one tile of 64
-   or of 128 rows; then their times at the slice's
+   within its row's scale, each forward and backward on the route
+   fwd_route / bwd_route gives it (the wgmma kernels for bf16 at D 64
+   and 128, read on the route counters), each bf16 backward repeating
+   bit for bit; the check shown to reject a forward missing one tile of
+   64 or of 128 rows, a dQ missing its diagonal KV tile and a dK/dV
+   missing the first q tile of its band; the backward's pre-pass (qs, ks
+   bit for bit, delta); then their times at the slice's
    shape (B=4, NH=16, S=2048, bf16, causal) beside the plain versions'
-   and the bound, the forward beside SDPA's forward and the generic
-   kernel it replaced there (in turns), and the whole
-   backward (delta, dQ, dK/dV) beside SDPA's backward;
+   and the bound, the forward, dQ and dK/dV beside the generic kernels
+   they replaced there (in turns), the forward beside SDPA's forward,
+   and the whole backward (the pre-pass, dQ, dK/dV) beside SDPA's
+   backward and the generic route's;
 9. the three fused MLP kernels (forward, dX, dW) against their plain
    versions on the card: gpt3-1.3b (R=8192, H=2048, F=8192) and ragged
    shapes (R=1000/333, H=96/100, F=320/200/2560), fp32 and bf16, both
@@ -52,8 +57,8 @@ Phases, one line each; any failure raises and exits non-zero:
    moments, the plain LM head) at B=4, S=2048 on one fixed batch: one
    warm-up step, then 4 steps; finite, falling loss; the fused MLP path
    taken; each flash and fused MLP kernel launched 24 times per step,
-   every flash forward on the wgmma kernel (the route counter, as in
-   phases 12, 13, 16, 18, 23, 25, 33 and 35);
+   every flash forward and backward on the wgmma kernels (the route
+   counters, as in phases 12, 13, 16, 18, 23, 25, 33 and 35);
    ms/step, tokens/s, model TFLOP/s, peak memory, and the card's SM
    clock, power draw and temperature sampled during the timed steps;
 11. torch.profiler over 2 more training steps: device busy time per
@@ -136,18 +141,23 @@ Phases, one line each; any failure raises and exits non-zero:
    partial cut, the mask keyed by the cluster's 128 rows); the forward,
    the backward kernel and the whole backward timed in turns against the
    generic kernels (earlier_ms) and the composite (library_ms), and at
-   Hin = 64;
+   Hin = 64; at PyTorch's default allow_bf16_reduced_precision_reduction,
+   dx and dW through autograd at ragged R (128, 600) and Hout 256 and 512
+   within one bf16 unit of the f32-product reference;
 22. the flash kernels' key-padding variant against their plain versions
    at bert-base's attention (B=32, 12 heads, S=512, D=64, valid lengths
    128-512 from the seed, bf16; B=4 in f32; a ragged S=200 in both),
-   masked keys getting no dK;
-   their times beside SDPA with the same additive mask; the dropout
+   masked keys getting no dK, the backward on bwd_route's kernels and
+   repeating bit for bit;
+   their times beside SDPA with the same additive mask and the generic
+   kernels (in turns); the dropout
    variants (p = 0.1, keyed by the reference's tile: (128, 128) in bf16,
    (256, 512) in f32; bf16 S=1024 at (256, 512) and S=100 at (104, 104))
    against their plain versions with repeat bits, the mask keyed by the
    generic kernels' 64-row tile rejected and, at S=1024, by the wgmma
-   forward's own (128, 128); the forward's times also beside the generic
-   kernel's; their times beside SDPA with the same mask and dropout_p = 0.1;
+   forward's own (128, 128), and the backward's by the dK/dV kernel's
+   (64, 64); the kernels' times also beside the generic ones'; their
+   times beside SDPA with the same mask and dropout_p = 0.1;
 23. train bert-base (random weights from a seed, bf16, full width and
    depth, dropout rates 0) through BertForPretraining.loss and AdamW (lr
    1e-4, weight decay 0.01) at B=32, S=512 on one fixed padded batch
@@ -157,7 +167,8 @@ Phases, one line each; any failure raises and exits non-zero:
    oscillates: the reference's normal(0, 1) word embeddings are the
    decoder's weight too); exactly 14 LayerNorm, 12 projection-LN
    and 12 of each flash and fused MLP kernel launches per step, every
-   projection-LN call on the cluster route (pl_routes); ms/step,
+   projection-LN call on the cluster route (pl_routes), every flash
+   backward on the wgmma kernels after its pre-pass; ms/step,
    tokens/s (all B*S positions), model TFLOP/s, the AdamW update's ms,
    peak memory and the card's clocks;
 24. torch.profiler over 2 more bert-base steps: busy time, idle share,
@@ -652,6 +663,10 @@ FLASH_REPLACES = {"flash_fwd": "paddle_tpu/kernels/flash_attention.py:167",
 # readings at these seeds on an H100: 7.0e-6 (f32), 0.0103 (bf16); a
 # forward that drops one tile reads over 1.6 (flash_check_rejects).
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2 ** -5}
+# the wgmma backward's pre-pass: the scaled operands of _dq_kernel (:357)
+# and _dkv_kernel (:448), and delta, which _bwd computes outside them
+FLASH_PREP_REPLACES = ("paddle_tpu/kernels/flash_attention.py:357, :448 "
+                       "(k * scale, q * scale) and :551 (delta)")
 FLASH_D = 128
 # (causal, sq, sk, bh, d): S 2048 and 1000 (ragged) at B*NH 64 and 16,
 # D=128; then D=64 (the wgmma kernel's other width), Sq != Sk (the causal
@@ -678,14 +693,18 @@ def flash_bounds(bh, s, causal):
     the products each kernel's function needs over the visible (q, k)
     pairs (fwd: s and p.v; dQ: s, dp, ds.k; dK/dV: s, dp, p^T.dO,
     ds^T.q), each 2 flops per pair per head-dim element, at 989 TFLOP/s;
-    its inputs read once and outputs written once at 3.35 TB/s."""
+    its inputs read once and outputs written once at 3.35 TB/s. The
+    backward's pre-pass is bytes alone (its few flops an element run on
+    the CUDA cores)."""
     pairs = s * (s + 1) // 2 if causal else s * s
     prod = 2.0 * pairs * FLASH_D * bh
     mat = bh * s * FLASH_D * 2                 # one bf16 [bh, s, d]
     row = bh * s * 4                           # one f32 [bh, s]
     work = {"flash_fwd": (2 * prod, 4 * mat + row),
             "flash_dq": (3 * prod, 5 * mat + 2 * row),
-            "flash_dkv": (4 * prod, 6 * mat + 2 * row)}
+            "flash_dkv": (4 * prod, 6 * mat + 2 * row),
+            # the backward's pre-pass: q, k, o, dO in, qs, ks, delta out
+            "flash_bwd_prep": (0.0, 6 * mat + row)}
     out = {}
     for name, (flops, nbytes) in work.items():
         t_ops = flops / H100_FLOPS["bfloat16"]
@@ -708,11 +727,12 @@ def flash_reading(got, ref):
 
 def phase_flash_vs_plain(torch):
     """All three kernels against their plain versions on the card (out,
-    lse, dq, dk, dv), each forward on the route fwd_route gives it (the
-    route counter read per case), then their times at the slice's
-    shape."""
+    lse, dq, dk, dv), each forward and backward on the route fwd_route /
+    bwd_route gives it (the route counters read per case), each bf16
+    backward run twice and compared bit for bit, then their times at the
+    slice's shape."""
     from paddle_tpu_torch.kernels import flash_attention as fa
-    worst, routes = {}, {}
+    worst, routes, broutes = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for causal, sq, sk, bh, d in FLASH_CASES:
@@ -727,7 +747,21 @@ def phase_flash_vs_plain(torch):
                   f"flash forward {name} d={d} did not take the {route} "
                   f"kernel once: {before} -> {fa.fwd_routes}")
             routes[route] = routes.get(route, 0) + 1
+            before = dict(fa.bwd_routes)
             dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, causal, scale)
+            broute = fa.bwd_route(dtype, d, True)
+            check({r: fa.bwd_routes[r] - before[r] for r in before}
+                  == {r: 2 * int(r == broute) for r in before},
+                  f"flash backward {name} d={d} did not take the {broute} "
+                  f"kernels once each: {before} -> {fa.bwd_routes}")
+            broutes[broute] = broutes.get(broute, 0) + 1
+            if dtype == torch.bfloat16:
+                again = fa.flash_bwd(q, k, v, out, lse, do, causal, scale)
+                check(all(same_bits(a, b) for a, b in zip(again,
+                                                          (dq, dk, dv))),
+                      f"flash backward {name} causal={causal} sq={sq} sk={sk} "
+                      f"d={d} differs between two calls ({broute})")
+                del again
             rout, rlse = fa.flash_fwd_ref(q, k, v, causal, scale)
             # the plain backward from the kernel's own (out, lse), so each
             # kernel is held alone
@@ -748,8 +782,9 @@ def phase_flash_vs_plain(torch):
                       f"max_abs_err={err} relative {rel} > {FLASH_TOL[name]}")
                 kern = {"out": "flash_fwd", "lse": "flash_fwd",
                         "dq": "flash_dq"}.get(key, "flash_dkv")
-                if kern == "flash_fwd" and dtype == torch.bfloat16:
-                    kern += "" if route == "wgmma" else "_generic"
+                if dtype == torch.bfloat16:
+                    kern += "" if (route if kern == "flash_fwd"
+                                   else broute) == "wgmma" else "_generic"
                 w = worst.setdefault(name, {}).setdefault(kern, [0.0, 0.0])
                 w[0], w[1] = max(w[0], err), max(w[1], rel)
             del q, k, v, do, out, lse, dq, dk, dv, rout, rlse, rdq, rdk, rdv
@@ -761,10 +796,13 @@ def phase_flash_vs_plain(torch):
                            for k, (e, r) in w.items()}
                        for n, w in worst.items()},
                 cases=[list(c) for c in FLASH_CASES], dtypes=2,
-                forward_routes=routes,
+                forward_routes=routes, backward_routes=broutes,
                 wrong_kernel_readings={
                     f"tile {t}": flash_check_rejects(torch, fa, scale, t)
                     for t in (64, fa.WGMMA_BQ)},
+                wrong_backward_readings=flash_bwd_check_rejects(torch, fa,
+                                                                scale),
+                prep=flash_prep_check(torch, fa),
                 **times)
 
 
@@ -802,6 +840,89 @@ def flash_check_rejects(torch, fa, scale, tile=64):
     return out
 
 
+def bwd_with_keep(torch, q, k, v, do, lse, delta, scale, keep):
+    """The plain backward (flash_dq_ref, flash_dkv_ref's arithmetic) with
+    the pairs outside ``keep`` [s, s] hidden: what a kernel that skipped
+    them would compute."""
+    def rnd(x):
+        return x.to(q.dtype).float()
+    ks, qs = rnd(k.float() * scale), rnd(q.float() * scale)
+    dp = do.float() @ v.float().transpose(1, 2)
+    ds = rnd(torch.exp(q.float() @ ks.transpose(1, 2) - lse[..., None])
+             .masked_fill(~keep, 0.0) * (dp - delta[..., None]))
+    dq = (ds @ ks).to(q.dtype)
+    del ds
+    p = torch.exp(qs @ k.float().transpose(1, 2)
+                  - lse[..., None]).masked_fill(~keep, 0.0)
+    dv = (rnd(p).transpose(1, 2) @ do.float()).to(q.dtype)
+    dk = (rnd(p * (dp - delta[..., None])).transpose(1, 2) @ qs).to(q.dtype)
+    return dq, dk, dv
+
+
+def flash_bwd_check_rejects(torch, fa, scale, s=2048):
+    """The bf16 check must reject a backward that skips a tile of the
+    wgmma kernels' schedules (causal, S=2048, 16 heads): dQ without the
+    diagonal KV tile of each of its 128-row q tiles (the 64 keys
+    [128 i + 64, 128 i + 128), which only the tile's second half sees),
+    and dK/dV without the first q tile of each kv tile's band (the 64 q
+    rows of the kv tile's own rows). Returns each reading, and its max
+    error over max |plain|."""
+    q, k, v, do = flash_inputs(torch, 16, s, torch.bfloat16, seed=s + 17)
+    out, lse = fa.flash_fwd_ref(q, k, v, True, scale)
+    delta = fa._delta(out, do)
+    i = torch.arange(s, device="cuda")
+    row, col = i[:, None], i[None, :]
+    causal = col <= row
+    ref = fa.flash_bwd_ref(q, k, v, out, lse, do, True, scale)
+    faults = {"dq": (causal & (col // fa.DQ_BK != 2 * (row // fa.DQ_BQ) + 1),
+                     (0,)),
+              "dkv": (causal & (row // fa.DKV_BQ != col // fa.DKV_BKV),
+                      (1, 2))}
+    res = {}
+    for label, (keep, which) in faults.items():
+        wrong = bwd_with_keep(torch, q, k, v, do, lse, delta, scale, keep)
+        for w in which:
+            name = ("dq", "dk", "dv")[w]
+            reading = flash_reading(wrong[w], ref[w])
+            check(reading > FLASH_TOL["bfloat16"],
+                  f"the bf16 flash check passes a {name} with a {label} "
+                  f"tile skipped: {reading} <= {FLASH_TOL['bfloat16']}")
+            res[name] = dict(reading=reading, relative_to_max=float(
+                (wrong[w].float() - ref[w].float()).abs().max()
+                / ref[w].float().abs().max()))
+        del wrong
+    del q, k, v, do, out, lse, delta, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def flash_prep_check(torch, fa):
+    """The wgmma backward's pre-pass against its plain version at the GPT
+    shape (bf16, D=128) and BERT's (D=64): qs and ks bit for bit
+    round(x * scale), delta within 1e-5 of max |delta| of rowsum(dO * O)
+    (f32 sums in another order)."""
+    out = {}
+    for bh, s, d in ((TRAIN_B * TRAIN_NH, TRAIN_S, FLASH_D),
+                     (BERT_B * BERT_NH, BERT_S, BERT_D)):
+        q, k, o, do = flash_inputs(torch, bh, s, torch.bfloat16, seed=11,
+                                   d=d)
+        scale = d ** -0.5
+        qs, ks, delta = fa._bwd_prep_cuda(q, k, o, do, scale)
+        want = fa._delta(o, do)
+        torch.cuda.synchronize()
+        check(same_bits(qs, (q.float() * scale).to(q.dtype))
+              and same_bits(ks, (k.float() * scale).to(k.dtype)),
+              f"the backward's pre-pass rounds q or k otherwise (d={d})")
+        err = float((delta - want).abs().max())
+        rel = err / float(want.abs().max())
+        check(rel <= 1e-5, f"the pre-pass's delta: {rel} > 1e-5 (d={d})")
+        out[f"bh={bh} s={s} d={d}"] = dict(delta_max_abs_err=err,
+                                           delta_relative_to_max=rel)
+        del q, k, o, do, qs, ks, delta, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def in_turns(a, b, iters=20):
     """cuda_ms of a and b timed in turns (a, b, b, a), the better pass of
     each, and all four passes."""
@@ -811,60 +932,100 @@ def in_turns(a, b, iters=20):
     return min(t["a"], t["a_2"]), min(t["b"], t["b_2"]), t
 
 
+def bwd_turns(res, runs, generic):
+    """dQ and dK/dV (``runs``: name -> (kernel, plain), the kernels on the
+    wgmma route from the pre-pass's operands) each in turns with its plain
+    version and with the generic kernel it replaced (``generic``: name ->
+    call, ``earlier_ms``)."""
+    for name, (kern, plain) in runs.items():
+        plain_ms, ms, t = in_turns(plain, kern)
+        earlier_ms, _, et = in_turns(generic[name], kern)
+        res[name].update(ms=ms, plain_ms=plain_ms, all_ms=t, route="wgmma",
+                         earlier_ms=earlier_ms, earlier_all_ms=et,
+                         earlier=f"the generic {name}_kernel, same inputs, "
+                                 f"in turns")
+
+
+def prep_times(fa, q, k, out, do, scale, bound):
+    """The pre-pass in turns with its plain version (the two roundings and
+    rowsum(dO * O) in PyTorch); no one library call computes the three."""
+    def plain(_):
+        return ((q.float() * scale).to(q.dtype),
+                (k.float() * scale).to(k.dtype), fa._delta(out, do))
+    plain_ms, ms, t = in_turns(
+        plain, lambda _: fa._bwd_prep_cuda(q, k, out, do, scale))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, all_ms=t,
+                bound_ms=bound[0], bound_by=bound[1])
+
+
 def flash_times(torch, fa, scale):
     """CUDA-event times at B=4, NH=16, S=2048, D=128, bf16, causal: each
-    kernel in turns with its plain version, and the forward (the wgmma
-    kernel) in turns with the generic kernel it replaced on this shape
-    (``earlier_ms``). The library yardsticks (never
+    kernel in turns with its plain version; the forward (the wgmma
+    kernel), dQ and dK/dV (the wgmma kernels, from the pre-pass's qs and
+    ks) each in turns with the generic kernel it replaced on this shape
+    (``earlier_ms``); the pre-pass alone. The library yardsticks (never
     called by the port): SDPA's forward for the forward kernel; no
     library call computes dQ alone or dK/dV alone, so SDPA's backward
     (dQ, dK and dV in one call, on a retained forward graph) is held
-    against the port's whole backward (delta, dQ, dK/dV) instead."""
+    against the port's whole backward (the pre-pass, dQ, dK/dV), which is
+    also timed in turns with the generic route's (delta in PyTorch, the
+    generic kernels)."""
     bh, s = TRAIN_B * TRAIN_NH, TRAIN_S
     q, k, v, do = flash_inputs(torch, bh, s, torch.bfloat16, seed=7)
     out, lse = fa.flash_fwd(q, k, v, True, scale)
-    delta = fa._delta(out, do)
+    qs, ks, delta = fa._bwd_prep_cuda(q, k, out, do, scale)
     runs = {
-        "flash_fwd": (lambda _: fa._fwd_cuda(q, k, v, True, scale),
-                      lambda _: fa.flash_fwd_ref(q, k, v, True, scale)),
         "flash_dq": (lambda _: fa._dq_cuda(q, k, v, do, lse, delta, True,
-                                           scale),
+                                           scale, ks=ks),
                      lambda _: fa.flash_dq_ref(q, k, v, do, lse, delta, True,
                                                scale)),
         "flash_dkv": (lambda _: fa._dkv_cuda(q, k, v, do, lse, delta, True,
-                                             scale),
+                                             scale, qs=qs),
                       lambda _: fa.flash_dkv_ref(q, k, v, do, lse, delta,
                                                  True, scale)),
     }
-    res = {}
-    for name, (kern, plain) in runs.items():
-        plain_ms, ms, t = in_turns(plain, kern)
-        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, all_ms=t)
+    generic = {
+        "flash_dq": lambda _: fa._dq_cuda(q, k, v, do, lse, delta, True,
+                                          scale, route="generic"),
+        "flash_dkv": lambda _: fa._dkv_cuda(q, k, v, do, lse, delta, True,
+                                            scale, route="generic")}
+    bounds = flash_bounds(bh, s, True)
+    res = {name: dict(library_ms=None, bound_ms=bounds[name][0],
+                      bound_by=bounds[name][1])
+           for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+    plain_ms, ms, t = in_turns(
+        lambda _: fa.flash_fwd_ref(q, k, v, True, scale),
+        lambda _: fa._fwd_cuda(q, k, v, True, scale))
+    res["flash_fwd"].update(ms=ms, plain_ms=plain_ms, all_ms=t)
+    bwd_turns(res, runs, generic)
+    res["flash_bwd_prep"] = prep_times(fa, q, k, out, do, scale,
+                                       bounds["flash_bwd_prep"])
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh, doh = (x.view(TRAIN_B, TRAIN_NH, s, FLASH_D)
                        for x in (q, k, v, do))
+    fwd = lambda _: fa._fwd_cuda(q, k, v, True, scale)   # noqa: E731
     res["flash_fwd"]["library_ms"], _, _ = in_turns(
-        lambda _: sdpa(qh, kh, vh, is_causal=True), runs["flash_fwd"][0])
+        lambda _: sdpa(qh, kh, vh, is_causal=True), fwd)
     earlier_ms, _, t = in_turns(
-        lambda _: fa._fwd_cuda(q, k, v, True, scale, route="generic"),
-        runs["flash_fwd"][0])
+        lambda _: fa._fwd_cuda(q, k, v, True, scale, route="generic"), fwd)
     res["flash_fwd"].update(route=fa.fwd_route(q.dtype, FLASH_D, True),
                             earlier_ms=earlier_ms, earlier_all_ms=t)
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
     og = sdpa(qg, kg, vg, is_causal=True)
+    whole = lambda _: fa._bwd_cuda(q, k, v, out, lse, do, True, scale)  # noqa: E731,E501
     sdpa_bwd_ms, bwd_ms, t = in_turns(
         lambda _: torch.autograd.grad(og, (qg, kg, vg), doh,
-                                      retain_graph=True),
-        lambda _: fa._bwd_cuda(q, k, v, out, lse, do, True, scale))
-    bounds = flash_bounds(bh, s, True)
-    for name in runs:
-        res[name].update(bound_ms=bounds[name][0], bound_by=bounds[name][1])
+                                      retain_graph=True), whole)
+    earlier_ms, _, et = in_turns(
+        lambda _: fa._bwd_cuda(q, k, v, out, lse, do, True, scale,
+                               route="generic"), whole)
     res["backward"] = dict(ms=bwd_ms, sdpa_bwd_ms=sdpa_bwd_ms, all_ms=t,
+                           earlier_ms=earlier_ms, earlier_all_ms=et,
                            bound_ms=bounds["flash_dq"][0]
                            + bounds["flash_dkv"][0])
     res["timed_at"] = dict(b=TRAIN_B, nh=TRAIN_NH, s=s, d=FLASH_D,
                            dtype="bfloat16", causal=True)
-    del q, k, v, do, out, lse, delta, qg, kg, vg, og
+    del q, k, v, do, out, lse, delta, qs, ks, qg, kg, vg, og
     torch.cuda.empty_cache()
     return res
 
@@ -1115,18 +1276,18 @@ def _launch_counts():
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     from paddle_tpu_torch.kernels import norm_fusion as nf
-    return ((fa.launches, mf.launches, nf.launches),
+    return ((fa.launches, fa.prep_launches, mf.launches, nf.launches),
             (fa.dropout_launches, mf.dropout_launches, nf.dropout_launches))
 
 
 def reset_launches():
     """Every kernel count of the training paths to 0, the dropout
-    variants', the flash forward's and the projection-LN's routes
-    included."""
+    variants', the flash forward's and backward's and the projection-LN's
+    routes included."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     plain, drop = _launch_counts()
-    for counts in plain + drop + (fa.fwd_routes, mf.pl_routes):
+    for counts in plain + drop + (fa.fwd_routes, fa.bwd_routes, mf.pl_routes):
         for key in counts:
             counts[key] = 0
 
@@ -1141,6 +1302,22 @@ def fwd_routes_reading(counts, what):
     check(n > 0 and routes == {"wgmma": n, "generic": 0},
           f"{what}: flash forward launches by route {routes}, want all "
           f"{n} on the wgmma kernel")
+    return routes
+
+
+def bwd_routes_reading(counts, what):
+    """The flash backward's dQ and dK/dV launches by route since
+    reset_launches: on a bf16 model path every one (dropout variant or
+    not) must take the wgmma kernels, each backward after one pre-pass."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    n = sum(counts.get(f"{p}{k}", 0) for p in ("", "dropout_")
+            for k in ("flash_dq", "flash_dkv"))
+    routes = dict(fa.bwd_routes)
+    check(n > 0 and routes == {"wgmma": n, "generic": 0}
+          and 2 * counts.get("flash_bwd_prep", 0) == n,
+          f"{what}: flash backward launches by route {routes} with "
+          f"{counts.get('flash_bwd_prep')} pre-passes, want all {n} dQ and "
+          f"dK/dV launches on the wgmma kernels after {n // 2} pre-passes")
     return routes
 
 
@@ -1211,6 +1388,7 @@ def phase_train(torch, cfg, fused, steps=TRAIN_STEPS):
         check(n == want, f"{key} launched {n} times in {steps} steps of {L} "
               f"layers (want {want}; FLAGS_fused_mlp={fused})")
     routes = fwd_routes_reading(counts, "gpt3-1.3b training")
+    broutes = bwd_routes_reading(counts, "gpt3-1.3b training")
     tokens = TRAIN_B * TRAIN_S
     flops = model_flops_per_step(cfg, tokens, TRAIN_S)
     ms = wall / steps * 1e3
@@ -1225,7 +1403,7 @@ def phase_train(torch, cfg, fused, steps=TRAIN_STEPS):
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                card_during_steps=clocks.summary(), launches=counts,
                launches_per_step={k: n / steps for k, n in counts.items()},
-               flash_fwd_routes=routes)
+               flash_fwd_routes=routes, flash_bwd_routes=broutes)
     return out, params, opt, (x, y)
 
 
@@ -1253,7 +1431,9 @@ def phase_profile_train(torch, cfg, params, opt, batch, steps=2):
     flash = {k: sum(e.self_device_time_total for e in dev if k in e.key)
              / 1e3 / steps
              for k in ("flash_fwd_wgmma_kernel", "flash_fwd_kernel",
-                       "flash_dq_kernel", "flash_dkv_kernel")}
+                       "flash_bwd_prep_kernel", "flash_dq_wgmma_kernel",
+                       "flash_dkv_wgmma_kernel", "flash_dq_kernel",
+                       "flash_dkv_kernel")}
     # the fused MLP kernels by instantiation: <dtype, A col-major, B
     # col-major, epilogue> (0 gelu, 1 accumulate, 2 pre-activation, 3
     # gelu', 4 store), the column sums of g and the bias gradients' sum
@@ -1289,12 +1469,14 @@ def phase_remat_full(torch, cfg, params, opt, batch):
     L = cfg.num_layers
     want = dict.fromkeys(counts, 0) | {
         "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+        "flash_bwd_prep": L,
         "fused_mlp_fwd": 2 * L, "fused_mlp_dx": L, "fused_mlp_dw": L}
     check(counts == want, f"remat 'full' step launched {counts} (want "
           f"{want})")
     check(bool(np.isfinite(float(loss))), "remat 'full' loss not finite")
     return dict(remat_policy="full", loss=float(loss), launches=counts,
-                flash_fwd_routes=fwd_routes_reading(counts, "remat 'full'"))
+                flash_fwd_routes=fwd_routes_reading(counts, "remat 'full'"),
+                flash_bwd_routes=bwd_routes_reading(counts, "remat 'full'"))
 
 
 def phase_train_parity_fp32(torch):
@@ -1638,6 +1820,7 @@ def phase_train_llama(torch, cfg, fused, steps=TRAIN_STEPS):
         check(n == want, f"{key} launched {n} times in {steps} llama steps "
               f"of {L} layers (want {want}; FLAGS_fused_mlp={fused})")
     routes = fwd_routes_reading(counts, "llama-7b training")
+    broutes = bwd_routes_reading(counts, "llama-7b training")
     tokens = LLAMA_S
     flops = llama_flops_per_step(cfg, tokens, LLAMA_S)
     ms = wall / steps * 1e3
@@ -1653,7 +1836,7 @@ def phase_train_llama(torch, cfg, fused, steps=TRAIN_STEPS):
                parameters=sum(p.numel() for p in model.parameters()),
                card_during_steps=clocks.summary(), launches=counts,
                launches_per_step={k: n / steps for k, n in counts.items()},
-               flash_fwd_routes=routes)
+               flash_fwd_routes=routes, flash_bwd_routes=broutes)
     return out, model, opt, step
 
 
@@ -1689,7 +1872,9 @@ def phase_profile_llama(torch, step, steps=2):
     flash = {k: sum(e.self_device_time_total for e in dev if k in e.key)
              / 1e3 / steps
              for k in ("flash_fwd_wgmma_kernel", "flash_fwd_kernel",
-                       "flash_dq_kernel", "flash_dkv_kernel")}
+                       "flash_bwd_prep_kernel", "flash_dq_wgmma_kernel",
+                       "flash_dkv_wgmma_kernel", "flash_dq_kernel",
+                       "flash_dkv_kernel")}
     # the SwiGLU kernels by instantiation: <dtype, A col-major, B
     # col-major, epilogue> (1 accumulate, 2 gate/up product, 4 store, 5
     # silu-gated activation, 6 dact with the SwiGLU derivatives)
@@ -2236,8 +2421,9 @@ def pl_autograd(torch, mf):
     kernel's f32 dp, dx = dp.W^T and dW = x^T.dp in f32, each cast once).
     The pair products again with PyTorch's default
     allow_bf16_reduced_precision_reduction on (cuBLAS may then reduce
-    split-K partial sums in bf16): whether dx and dW keep their bits.
-    Returns the readings."""
+    split-K partial sums in bf16): whether dx and dW keep their bits; and
+    at that default, dx and dW at ragged R and the other Hout held to the
+    same unit (pl_autograd_default_flag). Returns the readings."""
     bf = torch.bfloat16
     x = pl_inputs(torch, BERT_R, BERT_H, BERT_H, bf, 19)
     xx, w, res, g = x["x"], x["w"], x["res"], x["g"]
@@ -2280,12 +2466,69 @@ def pl_autograd(torch, mf):
               f"max_abs_err {err} > one bf16 unit {unit}")
     default_bits = {k: same_bits(a, e) for k, a, e in
                     zip(("dx", "dW"), op_default, op)}
+    default_flag = pl_autograd_default_flag(torch, mf)
+    for shape, r in default_flag.items():
+        for key, reading in r.items():
+            check(reading["held"], f"autograd through fused_proj_ln_2d at "
+                  f"{shape} with allow_bf16_reduced_precision_reduction on: "
+                  f"{key} max_abs_err {reading['max_abs_err']} > one bf16 "
+                  f"unit {reading['bf16_unit']}")
     del x, xx, w, res, g, b, lnw, lnb, prim, y, auto, mean, rstd, op, ry, ref
     del op_default
     torch.cuda.empty_cache()
     return dict(r=BERT_R, hin=BERT_H, hout=BERT_H, routes=routes,
                 readings=readings,
-                same_bits_with_reduced_precision_reduction=default_bits)
+                same_bits_with_reduced_precision_reduction=default_bits,
+                default_flag_shapes=default_flag)
+
+
+# ragged R and the other Hout the cluster route takes: cuBLAS may split
+# K = 2 Hout of the dx product there, and reduce the parts in bf16 at
+# PyTorch's default allow_bf16_reduced_precision_reduction
+PL_DEFAULT_FLAG_SHAPES = [(128, 768, 256), (600, 768, 256), (128, 768, 512),
+                          (600, 768, 512), (128, 256, 256), (600, 512, 512)]
+
+
+def pl_autograd_default_flag(torch, mf):
+    """Autograd through fused_proj_ln_2d on the cluster route at
+    PL_DEFAULT_FLAG_SHAPES in bf16 with PyTorch's default
+    allow_bf16_reduced_precision_reduction (on): dx and dW within one bf16
+    unit of the largest magnitude of the f32-product reference, the check
+    of pl_autograd. Returns each shape's readings and whether it held."""
+    bf = torch.bfloat16
+    flag = torch.backends.cuda.matmul
+    out = {}
+    for r, hin, hout in PL_DEFAULT_FLAG_SHAPES:
+        x = pl_inputs(torch, r, hin, hout, bf, r + hin + hout)
+        xx, w, res, g = x["x"], x["w"], x["res"], x["g"]
+        b, lnw, lnb = (x[k].to(bf) for k in ("b", "lnw", "lnb"))
+        prim = [t.detach().requires_grad_(True)
+                for t in (xx, w, b, res, lnw, lnb)]
+        before = dict(mf.pl_routes)
+        flag.allow_bf16_reduced_precision_reduction = True
+        try:
+            y = mf.fused_proj_ln_2d(*prim, eps=1e-12)
+            dx, dw = torch.autograd.grad(y, prim[:2], g)
+            torch.cuda.synchronize()
+        finally:
+            flag.allow_bf16_reduced_precision_reduction = False
+        routes = {k: n - before[k] for k, n in mf.pl_routes.items()}
+        check(routes["fwd_cluster"] == 1 and routes["bwd_cluster"] == 1,
+              f"fused_proj_ln_2d at R={r} Hin={hin} Hout={hout} took the "
+              f"routes {routes}")
+        _, mean, rstd = mf.fused_proj_ln_fwd(xx, w, b, res, lnw, lnb, 1e-12)
+        ref = mf.fused_proj_ln_grads_ref(xx, w, b, res, lnw, lnb, mean, rstd,
+                                         g)
+        shape = f"R={r} Hin={hin} Hout={hout}"
+        out[shape] = {}
+        for key, got, want in (("dx", dx, ref[0]), ("dW", dw, ref[1])):
+            err, rel = rel_err(got, want)
+            unit = bf16_unit(want)
+            out[shape][key] = dict(max_abs_err=err, relative_to_max=rel,
+                                   bf16_unit=unit, held=err <= unit)
+        del x, xx, w, res, g, b, lnw, lnb, prim, y, dx, dw, mean, rstd, ref
+    torch.cuda.empty_cache()
+    return out
 
 
 def pl_check_rejects(torch, mf):
@@ -2615,14 +2858,17 @@ def flash_bias_bounds(lengths, s, nh, d, esize, drop=False):
     bias = valid * 4
     work = {"flash_fwd": (2 * prod, 2 * mat + kv + row + bias),
             "flash_dq": (3 * prod, 3 * mat + kv + 2 * row + bias),
-            "flash_dkv": (4 * prod, 4 * mat + kv + 2 * row + bias)}
-    # the dK/dV kernel draws each pair's mask twice (for dV and for dS)
-    hashes = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 2}
+            "flash_dkv": (4 * prod, 4 * mat + kv + 2 * row + bias),
+            # the backward's pre-pass: q, k, o, dO whole in, qs, ks, delta
+            "flash_bwd_prep": (0.0, 6 * mat + row)}
     out = {}
     for name, (flops, nbytes) in work.items():
+        # each kernel draws each pair's mask once (the wgmma dK/dV
+        # kernel's first warpgroup hands the bit to the second in P^T's
+        # sign); the pre-pass draws none
+        hash_ops = HASH_OPS * pairs if drop and flops else 0.0
         t_ops = max(flops / H100_FLOPS["bfloat16"],
-                    hashes[name] * HASH_OPS * pairs / H100_FLOPS["float32"]
-                    if drop else 0.0)
+                    hash_ops / H100_FLOPS["float32"])
         t_bytes = nbytes / H100_BYTES_PER_S
         out[name] = (max(t_ops, t_bytes) * 1e3,
                      "operations" if t_ops >= t_bytes else "bytes")
@@ -2650,8 +2896,19 @@ def phase_flash_bias_vs_plain(torch):
         q, k, v, do = (torch.randn(b * BERT_NH, s, BERT_D, generator=g,
                                    device="cuda").to(dtype) for _ in range(4))
         out, lse = fa.flash_fwd(q, k, v, False, scale, bias, BERT_NH)
+        before = dict(fa.bwd_routes)
         dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, False, scale, bias,
                                   BERT_NH)
+        broute = fa.bwd_route(dtype, BERT_D, True)
+        check({r: fa.bwd_routes[r] - before[r] for r in before}
+              == {r: 2 * int(r == broute) for r in before},
+              f"flash kv_bias backward {name} s={s} did not take the "
+              f"{broute} kernels once each: {before} -> {fa.bwd_routes}")
+        again = fa.flash_bwd(q, k, v, out, lse, do, False, scale, bias,
+                             BERT_NH)
+        check(all(same_bits(x, y) for x, y in zip(again, (dq, dk, dv))),
+              f"flash kv_bias backward {name} s={s} differs between two "
+              f"calls")
         rout, rlse = fa.flash_fwd_ref(q, k, v, False, scale, bias, BERT_NH)
         rdq, rdk, rdv = fa.flash_bwd_ref(q, k, v, out, lse, do, False, scale,
                                          bias, BERT_NH)
@@ -2675,7 +2932,7 @@ def phase_flash_bias_vs_plain(torch):
         keep = (bias >= 0).repeat_interleave(BERT_NH, 0)[..., None]
         check(float(dk.float().masked_fill(keep, 0).abs().max()) == 0.0,
               "flash kv_bias: a masked key got a dK")
-        del q, k, v, do, out, lse, dq, dk, dv, rout, rlse, rdq, rdk, rdv
+        del q, k, v, do, out, lse, dq, dk, dv, rout, rlse, rdq, rdk, rdv, again
         torch.cuda.empty_cache()
     return dict(tolerance_relative_to_row_rms_plus_abs=FLASH_TOL,
                 worst={n: {k: dict(max_abs_err=e, relative=r)
@@ -2689,9 +2946,11 @@ def phase_flash_bias_vs_plain(torch):
 def flash_bias_times(torch, fa, scale, key=None):
     """Device times at bert-base's attention (bf16): each kernel in turns
     with its plain version, the forward (the wgmma kernel) beside SDPA
-    with the same additive mask and in turns with the generic kernel
-    (``earlier_ms``), the whole backward beside SDPA's; with a dropout
-    ``key``, the dropout variants beside SDPA with dropout_p = key.p."""
+    with the same additive mask, and it, dQ and dK/dV (the wgmma kernels,
+    from the pre-pass's qs and ks) in turns with the generic kernels
+    (``earlier_ms``); the pre-pass alone; the whole backward beside SDPA's
+    and the generic route's; with a dropout ``key``, the dropout variants
+    beside SDPA with dropout_p = key.p."""
     lengths = bert_lengths(BERT_B, BERT_S, seed=BERT_B)
     bias = kv_bias_for(torch, lengths, BERT_S)
     bh = BERT_B * BERT_NH
@@ -2701,43 +2960,54 @@ def flash_bias_times(torch, fa, scale, key=None):
                    for _ in range(4))
     a = (False, scale, bias, BERT_NH, key)
     out, lse = fa._fwd_cuda(q, k, v, *a)
-    delta = fa._delta(out, do)
+    qs, ks, delta = fa._bwd_prep_cuda(q, k, out, do, scale)
+    bounds = flash_bias_bounds(lengths, BERT_S, BERT_NH, BERT_D, 2,
+                               key is not None)
+    res = {name: dict(library_ms=None, bound_ms=bounds[name][0],
+                      bound_by=bounds[name][1])
+           for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+    fwd = lambda _: fa._fwd_cuda(q, k, v, *a)   # noqa: E731
+    plain_ms, ms, t = in_turns(lambda _: fa.flash_fwd_ref(q, k, v, *a), fwd)
+    res["flash_fwd"].update(ms=ms, plain_ms=plain_ms, all_ms=t)
     runs = {
-        "flash_fwd": (lambda _: fa._fwd_cuda(q, k, v, *a),
-                      lambda _: fa.flash_fwd_ref(q, k, v, *a)),
-        "flash_dq": (lambda _: fa._dq_cuda(q, k, v, do, lse, delta, *a),
+        "flash_dq": (lambda _: fa._dq_cuda(q, k, v, do, lse, delta, *a,
+                                           ks=ks),
                      lambda _: fa.flash_dq_ref(q, k, v, do, lse, delta, *a)),
-        "flash_dkv": (lambda _: fa._dkv_cuda(q, k, v, do, lse, delta, *a),
+        "flash_dkv": (lambda _: fa._dkv_cuda(q, k, v, do, lse, delta, *a,
+                                             qs=qs),
                       lambda _: fa.flash_dkv_ref(q, k, v, do, lse, delta,
                                                  *a)),
     }
-    res = {}
-    bounds = flash_bias_bounds(lengths, BERT_S, BERT_NH, BERT_D, 2,
-                               key is not None)
-    for name, (kern, plain) in runs.items():
-        plain_ms, ms, t = in_turns(plain, kern)
-        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, all_ms=t,
-                         bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    generic = {
+        "flash_dq": lambda _: fa._dq_cuda(q, k, v, do, lse, delta, *a,
+                                          route="generic"),
+        "flash_dkv": lambda _: fa._dkv_cuda(q, k, v, do, lse, delta, *a,
+                                            route="generic")}
+    bwd_turns(res, runs, generic)
+    res["flash_bwd_prep"] = prep_times(fa, q, k, out, do, scale,
+                                       bounds["flash_bwd_prep"])
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh, doh = (x.view(BERT_B, BERT_NH, BERT_S, BERT_D)
                        for x in (q, k, v, do))
     mask = bias.clamp_min(-1e9).to(torch.bfloat16)[:, None, None, :]
     p = 0.0 if key is None else key.p
     res["flash_fwd"]["library_ms"], _, _ = in_turns(
-        lambda _: sdpa(qh, kh, vh, attn_mask=mask, dropout_p=p),
-        runs["flash_fwd"][0])
+        lambda _: sdpa(qh, kh, vh, attn_mask=mask, dropout_p=p), fwd)
     earlier_ms, _, t = in_turns(
-        lambda _: fa._fwd_cuda(q, k, v, *a, route="generic"),
-        runs["flash_fwd"][0])
+        lambda _: fa._fwd_cuda(q, k, v, *a, route="generic"), fwd)
     res["flash_fwd"].update(route=fa.fwd_route(q.dtype, BERT_D, True),
                             earlier_ms=earlier_ms, earlier_all_ms=t)
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
     og = sdpa(qg, kg, vg, attn_mask=mask, dropout_p=p)
+    whole = lambda _: fa._bwd_cuda(q, k, v, out, lse, do, *a)  # noqa: E731
     sdpa_bwd_ms, bwd_ms, t = in_turns(
         lambda _: torch.autograd.grad(og, (qg, kg, vg), doh,
-                                      retain_graph=True),
-        lambda _: fa._bwd_cuda(q, k, v, out, lse, do, *a))
+                                      retain_graph=True), whole)
+    earlier_ms, _, et = in_turns(
+        lambda _: fa._bwd_cuda(q, k, v, out, lse, do, *a, route="generic"),
+        whole)
     res["backward"] = dict(ms=bwd_ms, sdpa_bwd_ms=sdpa_bwd_ms, all_ms=t,
+                           earlier_ms=earlier_ms, earlier_all_ms=et,
                            bound_ms=bounds["flash_dq"][0]
                            + bounds["flash_dkv"][0])
     res["timed_at"] = dict(b=BERT_B, nh=BERT_NH, s=BERT_S, d=BERT_D,
@@ -2746,7 +3016,7 @@ def flash_bias_times(torch, fa, scale, key=None):
                            lengths_min_mean_max=[
                                int(min(lengths)),
                                float(np.mean(lengths)), int(max(lengths))])
-    del q, k, v, do, out, lse, delta, qg, kg, vg, og, bias, mask
+    del q, k, v, do, out, lse, delta, qs, ks, qg, kg, vg, og, bias, mask
     torch.cuda.empty_cache()
     return res
 
@@ -2758,10 +3028,12 @@ def flash_bias_times(torch, fa, scale, key=None):
 BERT_LR = 1e-4
 
 
-def bert_launches(cfg, fused):
+def bert_launches(cfg, fused, wgmma=True):
     """Kernel launches per step: LayerNorm at the embeddings, the L FFN
     closes and the MLM transform; projection-LN at the L attention closes;
-    each flash and fused MLP kernel once per layer (L = 12: 14, 12, 12).
+    each flash and fused MLP kernel once per layer (L = 12: 14, 12, 12),
+    the flash backward's pre-pass too on its wgmma route (bf16; ``wgmma``
+    False: an f32 model's generic route, no pre-pass).
     At a rate above 0 the sites it drops launch the dropout variants
     (read_launches' ``dropout_<name>``): the flash kernels with the
     attention rate, the FFN closes' LayerNorm and the projection-LN with
@@ -2771,6 +3043,8 @@ def bert_launches(cfg, fused):
     L = cfg.num_hidden_layers
     attn = "dropout_" if cfg.attention_probs_dropout_prob > 0 else ""
     want = {attn + k: L for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    if wgmma:
+        want["flash_bwd_prep"] = L     # the wgmma backward's pre-pass, any rate
     if fused:
         hid = "dropout_" if cfg.hidden_dropout_prob > 0 else ""
         want.update({k: L for k in ("fused_mlp_fwd", "fused_mlp_dx",
@@ -2927,6 +3201,7 @@ def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
               f"dropout {cfg.hidden_dropout_prob}, "
               f"{cfg.attention_probs_dropout_prob})")
     routes = fwd_routes_reading(counts, "bert-base training")
+    broutes = bwd_routes_reading(counts, "bert-base training")
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     if fused:
         proj_ln_routes = pl_routes_reading(counts, "bert-base training")
@@ -2956,7 +3231,8 @@ def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
                parameters=sum(p.numel() for p in model.parameters()),
                card_during_steps=clocks.summary(), launches=counts,
                launches_per_step={k: n / steps for k, n in counts.items()},
-               flash_fwd_routes=routes, proj_ln_routes=proj_ln_routes)
+               flash_fwd_routes=routes, flash_bwd_routes=broutes,
+               proj_ln_routes=proj_ln_routes)
     return out, model, step
 
 
@@ -2993,7 +3269,11 @@ def phase_profile_bert(torch, step, steps=2):
               ("proj_ln_fwd_kernel", "proj_ln_bwd_kernel",
                "proj_ln_fwd_cluster_kernel", "proj_ln_bwd_cluster_kernel"),
               "flash (fwd, dq, dkv)": ("flash_fwd_wgmma_kernel",
-                                       "flash_fwd_kernel", "flash_dq_kernel",
+                                       "flash_fwd_kernel",
+                                       "flash_bwd_prep_kernel",
+                                       "flash_dq_wgmma_kernel",
+                                       "flash_dkv_wgmma_kernel",
+                                       "flash_dq_kernel",
                                        "flash_dkv_kernel"),
               "fused_mlp (mlp_gemm, colsum)": ("mlp_gemm_kernel",
                                                "colsum_kernel"),
@@ -3291,7 +3571,13 @@ def flash_dropout(torch, fa):
                                    device="cuda").to(dtype) for _ in range(4))
         a = (False, scale, bias, BERT_NH, key)
         out, lse = fa._fwd_cuda(q, k, v, *a)
+        before = dict(fa.bwd_routes)
         grads = fa._bwd_cuda(q, k, v, out, lse, do, *a)
+        broute = fa.bwd_route(dtype, BERT_D, True)
+        check({r: fa.bwd_routes[r] - before[r] for r in before}
+              == {r: 2 * int(r == broute) for r in before},
+              f"flash dropout backward {name} s={s} did not take the "
+              f"{broute} kernels once each: {before} -> {fa.bwd_routes}")
         again = fa._bwd_cuda(q, k, v, out, lse, do, *a)
         rout, rlse = fa.flash_fwd_ref(q, k, v, *a)
         rgrads = fa.flash_bwd_ref(q, k, v, out, lse, do, *a)
@@ -3340,6 +3626,7 @@ def flash_dropout(torch, fa):
         faults[f"s={s}"] = fault
         del q, k, v, ref, wrong
         torch.cuda.empty_cache()
+    faults["backward"] = flash_dropout_bwd_rejects(torch, fa, scale)
     return dict(worst={n: {k: dict(max_abs_err=e, relative=r)
                            for k, (e, r) in w.items()}
                        for n, w in worst.items()},
@@ -3348,6 +3635,36 @@ def flash_dropout(torch, fa):
                 **flash_bias_times(torch, fa, scale, drop_key(
                     fa, *fa.flash_drop_tile(BERT_S, BERT_S, False,
                                             torch.bfloat16))))
+
+
+def flash_dropout_bwd_rejects(torch, fa, scale):
+    """The bf16 check must reject the wgmma backward with its mask keyed
+    by the dK/dV kernel's own (64, 64) tile at bert-base's shape, where
+    the reference's is (128, 128): dq, dk and dv each read over
+    FLASH_TOL against the plain versions under the right key."""
+    b, s = BERT_B, BERT_S
+    bias = kv_bias_for(torch, bert_lengths(b, s, seed=b + 1), s)
+    g = torch.Generator(device="cuda").manual_seed(44)
+    q, k, v, do = (torch.randn(b * BERT_NH, s, BERT_D, generator=g,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    key = drop_key(fa, *fa.flash_drop_tile(s, s, False, torch.bfloat16))
+    tile = (fa.DKV_BQ, fa.DKV_BKV)
+    check((key.rows, key.cols) != tile,
+          f"S={s}: the reference's tile is the planted one, {tile}")
+    a = (False, scale, bias, BERT_NH)
+    out, lse = fa._fwd_cuda(q, k, v, *a, key)
+    ref = fa.flash_bwd_ref(q, k, v, out, lse, do, *a, key)
+    wrong = fa._bwd_cuda(q, k, v, out, lse, do, *a, drop_key(fa, *tile))
+    fault = dict(cuda_tile=list(tile), reference_tile=[key.rows, key.cols],
+                 readings={n: flash_reading(w, r) for n, w, r in
+                           zip(("dq", "dk", "dv"), wrong, ref)})
+    check(min(fault["readings"].values()) > FLASH_TOL["bfloat16"],
+          f"the flash dropout check passes a backward whose mask is keyed "
+          f"by a CUDA tile: {fault}")
+    del q, k, v, do, out, lse, ref, wrong, bias
+    torch.cuda.empty_cache()
+    return fault
 
 
 def phase_dropout_bits(torch):
@@ -3441,7 +3758,7 @@ def phase_bert_dropout_parity_fp32(torch):
     t0 = time.perf_counter()
     lp, gplain, counts_p, state_p = run(cpu, tuple(t.cpu() for t in batch))
     cpu_s = time.perf_counter() - t0
-    want = bert_launches(cfg, True)
+    want = bert_launches(cfg, True, wgmma=False)     # f32: the generic route
     check(all(counts[k] == n for k, n in want.items())
           and sum(counts.values()) == sum(want.values()),
           f"bert dropout parity on the card launched {counts} (want {want})")
@@ -4360,24 +4677,25 @@ def pl_cluster_ptxas(build_log):
 
 
 def wgmma_ptxas(build_log):
-    """ptxas -v's lines for each instantiation of the wgmma flash forward
-    (its registers and spills): no instantiation may spill."""
+    """ptxas -v's lines for each instantiation of the wgmma flash kernels
+    (the forward, dQ and dK/dV at D 64 and 128, with and without dropout:
+    their registers and spills): no instantiation may spill."""
     out, name = {}, None
     for ln in build_log.get("flash_attention.cu", "").splitlines():
-        m = re.search(r"Compiling entry function '\S*flash_fwd_wgmma_kernel"
-                      r"ILi(\d+)ELb(\d)E", ln)
+        m = re.search(r"Compiling entry function '\S*(flash_(?:fwd|dq|dkv)_"
+                      r"wgmma_kernel)ILi(\d+)ELb(\d)E", ln)
         if m:
-            name = (f"flash_fwd_wgmma_kernel<{m.group(1)}, "
-                    f"{'true' if m.group(2) == '1' else 'false'}>")
+            name = (f"{m.group(1)}<{m.group(2)}, "
+                    f"{'true' if m.group(3) == '1' else 'false'}>")
         elif "Compiling entry function" in ln:
             name = None
         elif name and ("spill" in ln or "registers" in ln):
             out.setdefault(name, []).append(ln.strip())
-    check(len(out) == 4 or "flash_attention.cu" not in build_log,
-          f"ptxas lines for {len(out)} wgmma instantiations, want 4")
-    for lines in out.values():
+    check(len(out) == 12 or "flash_attention.cu" not in build_log,
+          f"ptxas lines for {len(out)} wgmma instantiations, want 12")
+    for name, lines in out.items():
         check(not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines),
-              f"the wgmma flash forward spills: {lines}")
+              f"{name} spills: {lines}")
     return out
 
 
@@ -4416,7 +4734,7 @@ def main():
           libraries=[str(p.name) for p in libs.values()],
           ptxas=[ln.strip() for log in _build.build_log.values()
                  for ln in log.splitlines() if "registers" in ln],
-          flash_fwd_wgmma_ptxas=wgmma_ptxas(_build.build_log),
+          flash_wgmma_ptxas=wgmma_ptxas(_build.build_log),
           proj_ln_cluster_ptxas=pl_cluster_ptxas(_build.build_log))
 
     kern = phase_kernel_vs_plain(torch)
@@ -4603,6 +4921,23 @@ def main():
         if key == "backward":
             kernels[-1]["note"] = ("dX and dW run in one backward call: ms, "
                                    "plain_ms and bound_ms are that call's")
+        if name == "flash_dkv":
+            kernels[-1]["whole_backward"] = flash["backward"]
+    # the wgmma backward's pre-pass (qs, ks, delta) at the GPT shape and at
+    # bert-base's key-padding shape; its launches are the training steps'
+    for label, res, launched in (("", flash, train), ("_kv_bias", fbias,
+                                                      btrain)):
+        t = res["flash_bwd_prep"]
+        err = list(flash["prep"].values())[1 if label else 0][
+            "delta_max_abs_err"]
+        kernels.append({
+            "name": f"flash_bwd_prep{label}", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": FLASH_PREP_REPLACES,
+            "launches": launched["launches"]["flash_bwd_prep"],
+            "max_abs_err": err, "max_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "note": "qs and ks bit for bit; max_abs_err is delta's"})
     # the SwiGLU kernels' launches are llama-7b training's (phase 16); the
     # dX and dW kernels run in one backward call (fused_swiglu_bwd)
     for name in SWIGLU_REPLACES:
@@ -4657,6 +4992,8 @@ def main():
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
         kernels[-1].update(route_fields(t))
+        if name == "flash_dkv":
+            kernels[-1]["whole_backward"] = fbias["backward"]
     # the BatchNorm kernels' launches are resnet50 training's (phase 28);
     # each op's four launches (reduction, sum_parts, fold, apply) count once
     for name in ("fused_bn_fwd", "fused_bn_bwd"):

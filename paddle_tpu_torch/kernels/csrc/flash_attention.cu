@@ -6,8 +6,12 @@
 //   _fwd_kernel :167 (launched by _fwd :272)      -> flash_fwd_wgmma_kernel
 //                                                    (bf16, D 64 and 128),
 //                                                    flash_fwd_kernel (else)
-//   _dq_kernel  :329 (launched by _bwd :539/:580) -> flash_dq_kernel
-//   _dkv_kernel :420 (launched by _bwd :602)      -> flash_dkv_kernel
+//   _dq_kernel  :329 (launched by _bwd :539/:580) -> flash_dq_wgmma_kernel
+//                                                    (bf16, D 64 and 128),
+//                                                    flash_dq_kernel (else)
+//   _dkv_kernel :420 (launched by _bwd :602)      -> flash_dkv_wgmma_kernel
+//                                                    (bf16, D 64 and 128),
+//                                                    flash_dkv_kernel (else)
 // all entered through flash_attention_bshd :722. Layout [BH, S, D]
 // contiguous, D <= 256, float32 or bfloat16 (one dtype for every tensor).
 //
@@ -49,10 +53,11 @@
 // 0.040 ms to move q, k, v and o once at 3.35 TB/s; the backward's five
 // products take 0.174 ms. Scalar FMA on the CUDA cores would run tens of
 // times over that, so the bf16 kernels do every product on the tensor
-// cores: the forward at D 64 and 128 (every model path) through wgmma
-// (its design below, with the file's last kernel), the others through
-// nvcuda::wmma 16x16x16 bf16 fragments, f32 accumulation, which compile
-// to mma.sync. The f32 variant exists for parity and uses scalar FMA.
+// cores: the forward, dQ and dK/dV at D 64 and 128 (every model path)
+// through wgmma (their designs below, after the generic kernels), the
+// others through nvcuda::wmma 16x16x16 bf16 fragments, f32 accumulation,
+// which compile to mma.sync. The f32 variant exists for parity and uses
+// scalar FMA.
 //
 // Design of the generic kernels (flash_fwd_kernel, dQ, dK/dV; no TPU
 // artifacts: no 8-lane lse/delta rows, no d padding in
@@ -73,8 +78,9 @@
 //   - only tiles that cross the causal diagonal or the ragged tail are
 //     masked (the reference's _causal_split, :78-85); tiles wholly above
 //     the diagonal are skipped.
-// The backward kernels keep this design; wgmma, TMA and register-resident
-// accumulators for them are later work.
+// The bf16 kernels at D 64 and 128 (every model path) are redesigned for
+// Hopper: the forward after the generic host side below, the backward
+// (a pre-pass, dQ and dK/dV) at the end of the file.
 
 #include <mma.h>
 
@@ -1086,6 +1092,877 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, const void* bi
   return drop.rows ? wg::launch<64, true>(maps, a, st) : wg::launch<64, false>(maps, a, st);
 }
 
+// --------------------------------------------------------------------------
+// backward, bf16 at D = 64 and 128: a pre-pass, then dQ and dK/dV on TMA
+// rings and wgmma with their accumulators in registers
+// --------------------------------------------------------------------------
+//
+// Bound: operations (dQ three products, dK/dV four, over the visible
+// (q, k) pairs; at the GPT shape 0.104 and 0.139 ms at 989 TFLOP/s against
+// 0.05 ms of bytes). The generic kernels ran at 40-44x that bound: wmma
+// products stored to shared memory after every 16x16 tile, f32 score and
+// accumulator tiles in shared memory, synchronous loads by every thread.
+// Here every product is wgmma from a TMA ring, its f32 result stays in
+// registers and feeds the next product as its A fragments.
+//   - Pre-pass (flash_bwd_prep_kernel, one launch per backward): qs =
+//     round(q * scale) and ks = round(k * scale) in bf16, the operands the
+//     reference rounds (:357, :448), and delta = rowsum(dO * O) in f32
+//     (:551). So the two kernels below read their scaled operands by TMA
+//     and never touch them in shared memory.
+//   - dQ (flash_dq_wgmma_kernel): the forward's shape. A persistent block
+//     per SM walks the q tiles of 128 rows heaviest-first in the snake
+//     order (wg::work_item); its producer warp loads the tile's Q and dO
+//     (double-buffered across q tiles) and streams 64-row Ks and V tiles
+//     through a three-stage ring, publishing each tile's index and bias row
+//     (the causal band up to the last valid row's diagonal; a bias tile
+//     all <= -5e29 skipped). Two consumer warpgroups of 64 q rows: S =
+//     Q Ks^T and dP = dO V^T (wgmma m64n64k16, both operands K-major in
+//     shared memory, the two products in flight together), P = exp(S +
+//     bias - lse) in registers while dP's product runs, the masks only on
+//     tiles that cross the diagonal or the ragged tail, dP dropped, dS =
+//     round(P (dP - delta)) packed in registers as the A fragments of dQ
+//     += dS Ks (Ks through wgmma's transpose, as the forward's V). dQ
+//     leaves as bf16 through the Q buffer's swizzled rows by TMA. At D 128
+//     S, dP and dQ hold 32 + 32 + 64 registers a thread: 64-key tiles keep
+//     the loop under ptxas's cap of 168 at 288 threads.
+//   - dK/dV (flash_dkv_wgmma_kernel): a persistent block per SM walks the
+//     (kv tile of 64 rows, head) items, low kv tiles first (they see the
+//     most q tiles under causal). K and V stay resident (double-buffered
+//     across items); the producer streams the kv tile's causal band of
+//     64-row Qs and dO tiles with their lse and delta through a three-stage
+//     ring. dK and dV, [64, D] each, would take 128 registers a thread in
+//     one warpgroup beside S^T and dP^T, past the cap; so the two
+//     warpgroups share the kv tile's 64 rows and split the products: the
+//     first computes S^T = K Qs^T, P^T = exp(S^T + bias - lse) masked,
+//     hands P^T (its sign the keep bit under dropout) to the second
+//     through a double-buffered exchange in shared memory, and accumulates
+//     dV += round(dropped P^T) dO; the second computes dP^T = V dO^T,
+//     dS^T = round(P^T (dropped dP^T - delta)) and dK += dS^T Qs. Each
+//     keeps one [64, D] accumulator, the products stay two apiece. A kv
+//     tile whose bias hides every row visits no q tile and writes zeros
+//     (:512). dV and dK leave by TMA through the K and V buffers (each
+//     warpgroup the only reader of its own).
+// The dropout mask is FlashKey's hash of (q row, kv column), keyed by the
+// reference's tile as in the forward; in dK/dV the fragment's rows are kv
+// rows and its columns q rows. No atomics: each output tile is written by
+// one block, so the backward repeats bit for bit. Every mbarrier wait
+// traps after ~2^35 cycles. Three ring stages in both kernels, and the
+// producer reading lse and delta before it waits for a free stage, timed
+// faster than two stages or reading them after the wait; the times, the
+// bounds and ptxas's registers are in PERF.md (chip_smoke.py phases 2, 8
+// and 22).
+
+namespace bw {
+
+using wg::ex2;
+using wg::kLog2e;
+using wg::work_item;
+
+constexpr int kConsumers = 256, kThreads = kConsumers + 32;
+constexpr int kBQ = 128, kBK = 64;   // dQ: q rows a block, keys a ring stage
+constexpr int kBKV = 64, kBQ2 = 64;  // dK/dV: kv rows a block, q rows a ring stage
+constexpr int kStagesQ = 3, kStagesKV = 3;  // ring stages: dQ's KV tiles, dK/dV's q tiles
+
+#define ACC8(i)                                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "l"(da), "l"(db), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8)
+      : "l"(da), "l"(db), "r"(acc));
+}
+#undef ACC8
+
+// C[64, N] = A B^T over D: the warpgroup's 64 rows of A (a tile of AROWS
+// rows) and N rows of B from b (in a tile of 64 rows), both K-major
+// (issued and committed, not waited)
+template <int D, int AROWS, int N>
+__device__ __forceinline__ void issue_abt(float (&c)[N / 2], const __nv_bfloat16* a,
+                                          const __nv_bfloat16* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = desc_sw128(a + (kk >> 2) * AROWS * 64 + (kk & 3) * 16, 16);
+    const uint64_t db = desc_sw128(b + (kk >> 2) * 64 * 64 + (kk & 3) * 16, 16);
+    if constexpr (N == 64) {
+      wgmma_ss_n64(c, da, db, kk > 0);
+    } else {
+      wgmma_ss_n32(c, da, db, kk > 0);
+    }
+  }
+  wgmma_commit();
+}
+
+// C[64, D] += A B: A the bf16 fragments of a [64, 16 KS] product, B KS x
+// 16 rows from b of a [64, D] tile, read through wgmma's transpose (issued
+// and committed, not waited)
+template <int D, int KS>
+__device__ __forceinline__ void issue_ab(float (&c)[D / 2], const uint32_t (&a)[KS][4],
+                                         const __nv_bfloat16* b) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint64_t db = desc_sw128(b + kk * 16 * 64, 64 * 128);
+    if constexpr (D == 128) {
+      wg::wgmma_rs_n128(c, a[kk], db);
+    } else {
+      wg::wgmma_rs_n64(c, a[kk], db);
+    }
+  }
+  wgmma_commit();
+}
+
+// a [64, N] f32 accumulator as bf16 A fragments (its layout is theirs)
+template <int N>
+__device__ __forceinline__ void pack_frag(const float (&s)[N / 2], uint32_t (&pa)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) pa[kk][u] = pack_bf16(s[8 * kk + 2 * u], s[8 * kk + 2 * u + 1]);
+}
+
+// the keep bits of dQ's [64, W] step, element 4n + e (bit 4n + e): q row
+// row0 + 8 (e / 2), key col0 + 8n + e % 2; a rolled loop, so that ptxas
+// keeps few of its temporaries live
+template <bool POW2, int W>
+__device__ __forceinline__ uint32_t keep_dq(const FlashKey& key, int row0, int col0,
+                                            const Drop& d) {
+  uint32_t m = 0;
+#pragma unroll 1
+  for (int r = 0; r < 2; ++r) {
+    uint32_t word, idx0;
+    key.row(row0 + 8 * r, word, idx0);
+#pragma unroll 1
+    for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        m |= (uint32_t)(key.bits<POW2>(word, idx0, col0 + 8 * n + h) < d.thresh)
+             << (4 * n + 2 * r + h);
+  }
+  return m;
+}
+
+// the keep bits of dK/dV's transposed tile, element 4n + e (bit 4n + e):
+// kv row kv0 + 8 (e / 2), q row q0 + 8n + e % 2
+template <bool POW2>
+__device__ __forceinline__ uint32_t keep_dkv(const FlashKey& key, int q0, int kv0,
+                                             const Drop& d) {
+  uint32_t m = 0;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t word, idx0;
+      key.row(q0 + 8 * n + h, word, idx0);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        m |= (uint32_t)(key.bits<POW2>(word, idx0, kv0 + 8 * r) < d.thresh) << (4 * n + 2 * r + h);
+    }
+  return m;
+}
+
+// a warpgroup's [64, D] f32 accumulator as bf16 into 64 rows of a tile in
+// the 128-byte swizzle (column blocks `rows` * 128 bytes apart), as a TMA
+// store reads them
+template <int D>
+__device__ __forceinline__ void stage_rows(char* ob, int rows, const float (&acc)[D / 2]) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int nn = 0; nn < D / 8; ++nn)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;
+      char* dst = ob + (nn >> 3) * rows * 128 + row * 128 + (((nn & 7) ^ (row & 7)) << 4) + 4 * c;
+      *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc[4 * nn + 2 * r], acc[4 * nn + 2 * r + 1]);
+    }
+}
+
+template <int S> __device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
+  if (++stage == S) stage = 0, phase ^= 1;
+}
+
+struct Args {
+  const float* bias;   // null, or [bh / heads, sk]
+  const float* lse;    // [bh, sq]
+  const float* delta;  // [bh, sq]
+  int bh, sq, sk, heads, causal;
+  Drop drop;
+};
+
+// ---- pre-pass: qs, ks and delta ----
+
+// Rows of 8-element chunks: q's chunk e -> qs and, from o and dout, its
+// share of delta (the chunks of a row lie in one warp: D / 8 divides 32);
+// then k's chunks -> ks.
+__global__ void flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ q,
+                                      const __nv_bfloat16* __restrict__ k,
+                                      const __nv_bfloat16* __restrict__ o,
+                                      const __nv_bfloat16* __restrict__ dout,
+                                      __nv_bfloat16* __restrict__ qs, __nv_bfloat16* __restrict__ ks,
+                                      float* __restrict__ delta, long long qrows, long long krows,
+                                      int d, float scale) {
+  const int cpr = d / 8;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nqc = qrows * cpr, nkc = krows * cpr;
+  // whole warps to the end of the last one: the shuffles below
+  for (long long e = first; e < (nqc + 31) / 32 * 32; e += stride) {
+    const bool ok = e < nqc;
+    float part = 0.f;
+    if (ok) {
+      uint4 raw = reinterpret_cast<const uint4*>(q)[e];
+      __nv_bfloat16* x = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) x[u] = __float2bfloat16_rn(__bfloat162float(x[u]) * scale);
+      reinterpret_cast<uint4*>(qs)[e] = raw;
+      const uint4 a = reinterpret_cast<const uint4*>(o)[e];
+      const uint4 b = reinterpret_cast<const uint4*>(dout)[e];
+      const __nv_bfloat16* y = reinterpret_cast<const __nv_bfloat16*>(&a);
+      const __nv_bfloat16* z = reinterpret_cast<const __nv_bfloat16*>(&b);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) part += __bfloat162float(y[u]) * __bfloat162float(z[u]);
+    }
+    for (int w = cpr / 2; w > 0; w >>= 1) part += __shfl_xor_sync(0xffffffffu, part, w);
+    if (ok && e % cpr == 0) delta[e / cpr] = part;
+  }
+  for (long long e = first; e < nkc; e += stride) {
+    uint4 raw = reinterpret_cast<const uint4*>(k)[e];
+    __nv_bfloat16* x = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) x[u] = __float2bfloat16_rn(__bfloat162float(x[u]) * scale);
+    reinterpret_cast<uint4*>(ks)[e] = raw;
+  }
+}
+
+// ---- dQ ----
+
+template <int D> struct DqSmem {
+  __nv_bfloat16 q[2][kBQ * D];  // by q tile, alternately; also its dQ tile
+  __nv_bfloat16 dout[2][kBQ * D];
+  __nv_bfloat16 k[kStagesQ][kBK * D];  // ks
+  __nv_bfloat16 v[kStagesQ][kBK * D];
+  float bias[kStagesQ][kBK];
+  int tile[kStagesQ];  // the KV tile in the stage; -1: the q tile's last
+  uint64_t full[kStagesQ], empty[kStagesQ], qfull[2], qempty[2];
+};
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tdq, const Args a) {
+  constexpr int CB = D / 64;
+  constexpr int W = (D == 128 && DROP) ? 32 : 64;  // keys a step of the tile
+  extern __shared__ __align__(1024) char smem_raw[];
+  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int nq = (a.sq + kBQ - 1) / kBQ;
+  const int nk = (a.sk + kBK - 1) / kBK;
+  const int total = nq * a.bh;
+  const int off = a.sk - a.sq;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStagesQ; ++st) {
+      mbar_init(&sm.full[st], 32);
+      mbar_init(&sm.empty[st], kConsumers);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&sm.qfull[b], 1);
+      mbar_init(&sm.qempty[b], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warp: Q and dO per q tile, the Ks/V ring ----
+    const int lane = threadIdx.x & 31;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int n = 0;; ++n) {
+      const int pos = work_item(n, total);
+      if (pos < 0) break;
+      const int i = nq - 1 - pos / a.bh, bh = pos % a.bh;
+      const int qb = n & 1;
+      mbar_wait(&sm.qempty[qb], ((n >> 1) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_tx(&sm.qfull[qb], 2 * kBQ * D * 2);
+        for (int cb = 0; cb < CB; ++cb) {
+          tma_load(sm.q[qb] + cb * kBQ * 64, &tq, &sm.qfull[qb], cb * 64, i * kBQ, bh);
+          tma_load(sm.dout[qb] + cb * kBQ * 64, &tdo, &sm.qfull[qb], cb * 64, i * kBQ, bh);
+        }
+      }
+      const int last = min((i + 1) * kBQ, a.sq) - 1 + off;
+      const int nvis = !a.causal ? nk : (last < 0 ? 0 : min(nk, last / kBK + 1));
+      const float* brow = a.bias ? a.bias + (size_t)(bh / a.heads) * a.sk : nullptr;
+      for (int j = 0; j < nvis; ++j) {
+        float b[kBK / 32];
+        if (brow) {
+          bool live = false;
+#pragma unroll
+          for (int t = 0; t < kBK / 32; ++t) {
+            const int col = j * kBK + lane + 32 * t;
+            b[t] = col < a.sk ? brow[col] : kNegInf;
+            live |= b[t] > kSkipBelow;
+          }
+          if (!__any_sync(0xffffffffu, live)) continue;  // fully masked (:402)
+        }
+        mbar_wait(&sm.empty[stage], phase ^ 1);
+        if (brow) {
+#pragma unroll
+          for (int t = 0; t < kBK / 32; ++t) sm.bias[stage][lane + 32 * t] = b[t];
+        }
+        if (lane == 0) {
+          sm.tile[stage] = j;
+          mbar_arrive_tx(&sm.full[stage], 2 * kBK * D * 2);
+          for (int cb = 0; cb < CB; ++cb) {
+            tma_load(sm.k[stage] + cb * kBK * 64, &tk, &sm.full[stage], cb * 64, j * kBK, bh);
+            tma_load(sm.v[stage] + cb * kBK * 64, &tv, &sm.full[stage], cb * 64, j * kBK, bh);
+          }
+        } else {
+          mbar_arrive(&sm.full[stage]);
+        }
+        advance<kStagesQ>(stage, phase);
+      }
+      mbar_wait(&sm.empty[stage], phase ^ 1);
+      if (lane == 0) sm.tile[stage] = -1;
+      mbar_arrive(&sm.full[stage]);
+      advance<kStagesQ>(stage, phase);
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 q rows each ----
+  const int wgi = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, c = lane & 3;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int n = 0;; ++n) {
+    const int pos = work_item(n, total);
+    if (pos < 0) break;
+    const int i = nq - 1 - pos / a.bh, bh = pos % a.bh;
+    const int qb = n & 1;
+    const int row0 = i * kBQ + wgi * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+    const __nv_bfloat16* qw = sm.q[qb] + wgi * 64 * 64;
+    const __nv_bfloat16* dw = sm.dout[qb] + wgi * 64 * 64;
+    const float* lse_row = a.lse + (size_t)bh * a.sq;
+    const float* delta_row = a.delta + (size_t)bh * a.sq;
+    mbar_wait(&sm.qfull[qb], (n >> 1) & 1);
+
+    float acc[D / 2];
+#pragma unroll
+    for (int u = 0; u < D / 2; ++u) acc[u] = 0.f;
+    const int diag = i * kBQ + off;  // the block's first row + off
+    for (;;) {
+      mbar_wait(&sm.full[stage], phase);
+      const int j = *reinterpret_cast<volatile int*>(&sm.tile[stage]);
+      if (j < 0) {
+        mbar_arrive(&sm.empty[stage]);
+        advance<kStagesQ>(stage, phase);
+        break;
+      }
+      const __nv_bfloat16* kt = sm.k[stage];
+      // the tile's keys in W-column steps: one step of 64, or two of 32
+      // (a rolled loop) for D 128 under dropout, where ptxas spilled the
+      // mask's work beside S, dP and dQ's 128 registers
+#pragma unroll 1
+      for (int h = 0; h < kBK / W; ++h) {
+        const int col0 = j * kBK + h * W + 2 * c;
+        const __nv_bfloat16* kh = kt + h * W * 64;  // the step's first key row
+        // the mask's bits before the products: with S and dP in flight
+        // its temporaries would not fit the registers (the key, lse and
+        // delta are remade each tile for the same reason)
+        uint32_t keep = 0xffffffffu;
+        if (DROP) {
+          const FlashKey key(a.drop, bh);
+          keep = key.lr >= 0 ? keep_dq<true, W>(key, row0, col0, a.drop)
+                             : keep_dq<false, W>(key, row0, col0, a.drop);
+          asm volatile("" : "+r"(keep)::"memory");  // done before the products issue
+        }
+        float s[W / 2], dp[W / 2], lse2[2], dl[2];  // lse * log2(e), delta
+        // S = q . ks^T first, so that p's exp runs while dP = dO . v^T's
+        // product does; under dropout dP first, so that the mask's bits
+        // and delta are spent before p's registers fill
+        wgmma_fence();
+        if (DROP) issue_abt<D, kBQ, W>(dp, dw, sm.v[stage] + h * W * 64);
+        issue_abt<D, kBQ, W>(s, qw, kh);
+        if (!DROP) issue_abt<D, kBQ, W>(dp, dw, sm.v[stage] + h * W * 64);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const bool ok = row0 + 8 * r < a.sq;
+          lse2[r] = ok ? lse_row[row0 + 8 * r] * kLog2e : 0.f;
+          dl[r] = ok ? delta_row[row0 + 8 * r] : 0.f;
+        }
+        // p = exp(S + bias - lse) in place (:367), masked only on a step
+        // that crosses the causal diagonal or the ragged tail
+        auto probs = [&]() {
+          if (a.bias) {
+            const float* bt = sm.bias[stage] + h * W + 2 * c;
+#pragma unroll
+            for (int nn = 0; nn < W / 8; ++nn) {
+              const float2 b2 = *reinterpret_cast<const float2*>(bt + 8 * nn);
+              s[4 * nn] += b2.x, s[4 * nn + 1] += b2.y, s[4 * nn + 2] += b2.x,
+                  s[4 * nn + 3] += b2.y;
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < W / 2; ++e) s[e] = ex2(fmaf(s[e], kLog2e, -lse2[(e >> 1) & 1]));
+          const int end = j * kBK + (h + 1) * W;
+          if (end > a.sk || (a.causal && end - 1 > diag)) {
+#pragma unroll
+            for (int nn = 0; nn < W / 8; ++nn)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int col = col0 + 8 * nn + (e & 1), row = row0 + 8 * (e >> 1);
+                if (col >= a.sk || (a.causal && col > row + off)) s[4 * nn + e] = 0.f;
+              }
+          }
+        };
+        // dP dropped (:377-383), minus delta, in place
+        auto dp_delta = [&]() {
+#pragma unroll
+          for (int e = 0; e < W / 2; ++e)
+            dp[e] = (DROP ? dropped((keep >> e) & 1, dp[e], a.drop) : dp[e]) -
+                    dl[(e >> 1) & 1];
+        };
+        wgmma_wait<1>();
+        if (DROP) {
+          fence_regs(dp);
+          dp_delta();
+        } else {
+          fence_regs(s);
+          probs();
+        }
+        wgmma_wait<0>();
+        if (DROP) {
+          fence_regs(s);
+          probs();
+        } else {
+          fence_regs(dp);
+          dp_delta();
+        }
+#pragma unroll
+        for (int e = 0; e < W / 2; ++e) s[e] *= dp[e];  // ds (:384)
+        uint32_t da[W / 16][4];
+        pack_frag<W>(s, da);
+        wgmma_fence();
+        issue_ab<D, W / 16>(acc, da, kh);  // dQ += ds . ks
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      mbar_arrive(&sm.empty[stage]);
+      advance<kStagesQ>(stage, phase);
+    }
+
+    // epilogue: dQ into this warpgroup's Q rows, then TMA stores; the Q and
+    // dO buffers are free once the stores have read them
+    char* ob = reinterpret_cast<char*>(sm.q[qb] + wgi * 64 * 64);
+    stage_rows<D>(ob, kBQ, acc);
+    fence_proxy_async();
+    bar_sync(1 + wgi, 128);
+    if (t == 0) {
+      for (int cb = 0; cb < CB; ++cb)
+        tma_store(&tdq, ob + cb * kBQ * 128, cb * 64, i * kBQ + wgi * 64, bh);
+      bulk_commit();
+      bulk_wait_read();
+      mbar_arrive(&sm.qempty[qb]);
+    }
+  }
+  if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---- dK, dV ----
+
+template <int D> struct DkvSmem {
+  __nv_bfloat16 k[2][kBKV * D];  // by kv tile, alternately; also its dV tile
+  __nv_bfloat16 v[2][kBKV * D];  // also its dK tile
+  __nv_bfloat16 q[kStagesKV][kBQ2 * D];  // qs
+  __nv_bfloat16 dout[kStagesKV][kBQ2 * D];
+  float4 p[2][kBKV * kBQ2 / 4];  // P^T from the first warpgroup to the second
+  float lse[kStagesKV][kBQ2];
+  float delta[kStagesKV][kBQ2];
+  int tile[kStagesKV];  // the q tile in the stage; -1: the kv tile's last
+  uint64_t full[kStagesKV], empty[kStagesKV], kvfull[2], kvempty[2], pfull[2], pempty[2];
+};
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tdk,
+                           const __grid_constant__ CUtensorMap tdv, const Args a) {
+  constexpr int CB = D / 64;
+  extern __shared__ __align__(1024) char smem_raw[];
+  DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int nq = (a.sq + kBQ2 - 1) / kBQ2;
+  const int nkv = (a.sk + kBKV - 1) / kBKV;
+  const int total = nkv * a.bh;
+  const int off = a.sk - a.sq;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStagesKV; ++st) {
+      mbar_init(&sm.full[st], 32);
+      mbar_init(&sm.empty[st], kConsumers);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&sm.kvfull[b], 1);
+      mbar_init(&sm.kvempty[b], 2);
+      mbar_init(&sm.pfull[b], 128);
+      mbar_init(&sm.pempty[b], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warp: K and V per kv tile, the Qs/dO ring ----
+    const int lane = threadIdx.x & 31;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int n = 0;; ++n) {
+      const int pos = work_item(n, total);
+      if (pos < 0) break;
+      const int j = pos / a.bh, bh = pos % a.bh;  // low kv tiles (the most q tiles) first
+      const int kb = n & 1;
+      mbar_wait(&sm.kvempty[kb], ((n >> 1) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_tx(&sm.kvfull[kb], 2 * kBKV * D * 2);
+        for (int cb = 0; cb < CB; ++cb) {
+          tma_load(sm.k[kb] + cb * kBKV * 64, &tk, &sm.kvfull[kb], cb * 64, j * kBKV, bh);
+          tma_load(sm.v[kb] + cb * kBKV * 64, &tv, &sm.kvfull[kb], cb * 64, j * kBKV, bh);
+        }
+      }
+      bool live = true;  // every kv row of the tile masked: dK = dV = 0 (:512)
+      if (a.bias) {
+        const float* brow = a.bias + (size_t)(bh / a.heads) * a.sk;
+        bool any = false;
+#pragma unroll
+        for (int t = 0; t < kBKV / 32; ++t) {
+          const int col = j * kBKV + lane + 32 * t;
+          any |= col < a.sk && brow[col] > kSkipBelow;
+        }
+        live = __any_sync(0xffffffffu, any);
+      }
+      for (int i = 0; live && i < nq; ++i) {
+        // q tile above the band: no valid row sees the tile's first kv row
+        if (a.causal && j * kBKV > min((i + 1) * kBQ2, a.sq) - 1 + off) continue;
+        float lt[kBQ2 / 32], dt[kBQ2 / 32];  // read before the wait: their latency hides
+#pragma unroll
+        for (int t = 0; t < kBQ2 / 32; ++t) {
+          const int row = i * kBQ2 + lane + 32 * t;
+          const bool ok = row < a.sq;
+          lt[t] = ok ? a.lse[(size_t)bh * a.sq + row] : 0.f;
+          dt[t] = ok ? a.delta[(size_t)bh * a.sq + row] : 0.f;
+        }
+        mbar_wait(&sm.empty[stage], phase ^ 1);
+#pragma unroll
+        for (int t = 0; t < kBQ2 / 32; ++t) {
+          sm.lse[stage][lane + 32 * t] = lt[t];
+          sm.delta[stage][lane + 32 * t] = dt[t];
+        }
+        if (lane == 0) {
+          sm.tile[stage] = i;
+          mbar_arrive_tx(&sm.full[stage], 2 * kBQ2 * D * 2);
+          for (int cb = 0; cb < CB; ++cb) {
+            tma_load(sm.q[stage] + cb * kBQ2 * 64, &tq, &sm.full[stage], cb * 64, i * kBQ2, bh);
+            tma_load(sm.dout[stage] + cb * kBQ2 * 64, &tdo, &sm.full[stage], cb * 64, i * kBQ2,
+                     bh);
+          }
+        } else {
+          mbar_arrive(&sm.full[stage]);
+        }
+        advance<kStagesKV>(stage, phase);
+      }
+      mbar_wait(&sm.empty[stage], phase ^ 1);
+      if (lane == 0) sm.tile[stage] = -1;
+      mbar_arrive(&sm.full[stage]);
+      advance<kStagesKV>(stage, phase);
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: both on the kv tile's 64 rows ----
+  const int wgi = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, c = lane & 3;
+  int stage = 0;
+  uint32_t phase = 0;
+  uint32_t pn = 0;  // P^T tiles exchanged so far
+  for (int n = 0;; ++n) {
+    const int pos = work_item(n, total);
+    if (pos < 0) break;
+    const int j = pos / a.bh, bh = pos % a.bh;
+    const int kb = n & 1;
+    const int kv0 = j * kBKV + warp * 16 + g;  // this thread's kv rows: kv0, kv0 + 8
+    float acc[D / 2];  // dV in the first warpgroup, dK in the second
+#pragma unroll
+    for (int u = 0; u < D / 2; ++u) acc[u] = 0.f;
+    mbar_wait(&sm.kvfull[kb], (n >> 1) & 1);
+
+    if (wgi == 0) {
+      // S^T, P^T, dV
+      float b2[2] = {0.f, 0.f};  // this thread's kv rows' bias (:458)
+      if (a.bias) {
+        const float* brow = a.bias + (size_t)(bh / a.heads) * a.sk;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) b2[r] = kv0 + 8 * r < a.sk ? brow[kv0 + 8 * r] : kNegInf;
+      }
+      for (;;) {
+        mbar_wait(&sm.full[stage], phase);
+        const int i = *reinterpret_cast<volatile int*>(&sm.tile[stage]);
+        if (i < 0) {
+          mbar_arrive(&sm.empty[stage]);
+          advance<kStagesKV>(stage, phase);
+          break;
+        }
+        float s[32];
+        wgmma_fence();
+        issue_abt<D, kBKV, kBQ2>(s, sm.k[kb], sm.q[stage]);  // S^T = k . qs^T
+        const int q0 = i * kBQ2 + 2 * c;
+        uint32_t keep = 0xffffffffu;  // the mask's bits, while the product runs
+        if (DROP) {
+          const FlashKey key(a.drop, bh);  // remade each tile: registers are short
+          keep = key.lr >= 0 ? keep_dkv<true>(key, q0, kv0, a.drop)
+                             : keep_dkv<false>(key, q0, kv0, a.drop);
+        }
+        wgmma_wait<0>();
+        fence_regs(s);
+        const float* ls = sm.lse[stage] + 2 * c;
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn) {
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * nn);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[4 * nn + e] = ex2((s[4 * nn + e] + b2[e >> 1] - ((e & 1) ? l2.y : l2.x)) * kLog2e);
+        }
+        const bool masked = (a.causal && (j + 1) * kBKV - 1 > i * kBQ2 + off) ||
+                            (i + 1) * kBQ2 > a.sq || (j + 1) * kBKV > a.sk;
+        if (masked) {
+#pragma unroll
+          for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qr = q0 + 8 * nn + (e & 1), kr = kv0 + 8 * (e >> 1);
+              if (qr >= a.sq || kr >= a.sk || (a.causal && kr > qr + off)) s[4 * nn + e] = 0.f;
+            }
+        }
+        // P^T to the second warpgroup: the keep bit in the sign
+        const int pb = pn & 1;
+        mbar_wait(&sm.pempty[pb], ((pn >> 1) & 1) ^ 1);
+        float4* pw = sm.p[pb] + t;
+#pragma unroll
+        for (int q4 = 0; q4 < 8; ++q4) {
+          float x[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = s[4 * q4 + e];
+            x[e] = (DROP && !((keep >> (4 * q4 + e)) & 1)) ? -p : p;
+          }
+          pw[q4 * 128] = make_float4(x[0], x[1], x[2], x[3]);
+        }
+        mbar_arrive(&sm.pfull[pb]);
+        ++pn;
+        if (DROP) {  // dV takes the dropped p (:474-476)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) s[e] = dropped((keep >> e) & 1, s[e], a.drop);
+        }
+        uint32_t pa[4][4];
+        pack_frag<kBQ2>(s, pa);
+        wgmma_fence();
+        issue_ab<D, 4>(acc, pa, sm.dout[stage]);  // dV += p^T . dO
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(&sm.empty[stage]);
+        advance<kStagesKV>(stage, phase);
+      }
+    } else {
+      // dP^T, dS^T, dK
+      for (;;) {
+        mbar_wait(&sm.full[stage], phase);
+        const int i = *reinterpret_cast<volatile int*>(&sm.tile[stage]);
+        if (i < 0) {
+          mbar_arrive(&sm.empty[stage]);
+          advance<kStagesKV>(stage, phase);
+          break;
+        }
+        float dp[32];
+        wgmma_fence();
+        issue_abt<D, kBKV, kBQ2>(dp, sm.v[kb], sm.dout[stage]);  // dP^T = v . dO^T
+        wgmma_wait<0>();
+        fence_regs(dp);
+        const int pb = pn & 1;
+        mbar_wait(&sm.pfull[pb], (pn >> 1) & 1);
+        const float4* pr = sm.p[pb] + t;
+        const float* dls = sm.delta[stage] + 2 * c;
+#pragma unroll
+        for (int q4 = 0; q4 < 8; ++q4) {
+          const float4 x4 = pr[q4 * 128];
+          const float2 d2 = *reinterpret_cast<const float2*>(dls + 8 * q4);
+          const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float v = dp[4 * q4 + e];
+            if (DROP) v = dropped(!signbit(x[e]), v, a.drop);  // (:484)
+            dp[4 * q4 + e] = fabsf(x[e]) * (v - ((e & 1) ? d2.y : d2.x));  // (:485)
+          }
+        }
+        mbar_arrive(&sm.pempty[pb]);
+        ++pn;
+        uint32_t da[4][4];
+        pack_frag<kBQ2>(dp, da);
+        wgmma_fence();
+        issue_ab<D, 4>(acc, da, sm.q[stage]);  // dK += ds^T . qs
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(&sm.empty[stage]);
+        advance<kStagesKV>(stage, phase);
+      }
+    }
+
+    // epilogue: dV through the K buffer (the first warpgroup its only
+    // reader), dK through the V buffer (the second's); the buffers are
+    // free once both stores have read them
+    char* ob = reinterpret_cast<char*>(wgi == 0 ? sm.k[kb] : sm.v[kb]);
+    stage_rows<D>(ob, kBKV, acc);
+    fence_proxy_async();
+    bar_sync(1 + wgi, 128);
+    if (t == 0) {
+      for (int cb = 0; cb < CB; ++cb)
+        tma_store(wgi == 0 ? &tdv : &tdk, ob + cb * kBKV * 128, cb * 64, j * kBKV, bh);
+      bulk_commit();
+      bulk_wait_read();
+      mbar_arrive(&sm.kvempty[kb]);
+    }
+  }
+  if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---- host side ----
+
+int sms() {
+  int dev, n;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <typename Kernel, typename... Maps>
+int launch(Kernel kernel, size_t bytes, long long items, cudaStream_t stream, const Args& a,
+           const Maps&... maps) {
+  int rc = prepare(kernel, bytes);
+  if (rc) return rc;
+  const int n = sms();
+  if (!n) return (int)cudaErrorInvalidDevice;
+  kernel<<<(unsigned)(items < n ? items : n), kThreads, bytes, stream>>>(maps..., a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bw
+
+// the pre-pass: qs, ks (bf16) and delta (f32)
+int launch_bwd_prep(const void* q, const void* k, const void* o, const void* dout, void* qs,
+                    void* ks, void* delta, int bh, int sq, int sk, int d, float scale,
+                    void* stream) {
+  if (bh < 1 || sq < 1 || sk < 1 || (d != 64 && d != 128) || !delta)
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[6] = {q, k, o, dout, qs, ks};
+  for (const void* p : ptrs)
+    if (!p || !aligned16(p)) return (int)cudaErrorInvalidValue;
+  const int n = bw::sms();
+  if (!n) return (int)cudaErrorInvalidDevice;
+  const long long chunks = (long long)bh * (sq > sk ? sq : sk) * (d / 8);
+  long long blocks = (chunks + 255) / 256;
+  if (blocks > 8LL * n) blocks = 8LL * n;
+  bw::flash_bwd_prep_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<__nv_bfloat16*>(qs), static_cast<__nv_bfloat16*>(ks),
+      static_cast<float*>(delta), (long long)bh * sq, (long long)bh * sk, d, scale);
+  return (int)cudaGetLastError();
+}
+
+// dQ from ks = round(k * scale) (the pre-pass's): bf16, d 64 or 128,
+// 16-byte aligned pointers (kernels/flash_attention.py bwd_route)
+int launch_dq_wgmma(const void* q, const void* ks, const void* v, const void* dout,
+                    const void* lse, const void* delta, const void* bias, void* dq, int bh,
+                    int sq, int sk, int d, int causal, int heads, float scale, Drop drop,
+                    void* stream) {
+  Geo g;
+  int rc = make_geo<__nv_bfloat16>(&g, bh, sq, sk, d, causal, scale, true, bias, heads, drop);
+  if (rc) return rc;
+  if ((d != 64 && d != 128) || !aligned16(q) || !aligned16(ks) || !aligned16(v) ||
+      !aligned16(dout) || !aligned16(dq))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m[5];
+  if ((rc = wg::tensor_map(&m[0], q, bh, sq, d, bw::kBQ)) ||
+      (rc = wg::tensor_map(&m[1], ks, bh, sk, d, bw::kBK)) ||
+      (rc = wg::tensor_map(&m[2], v, bh, sk, d, bw::kBK)) ||
+      (rc = wg::tensor_map(&m[3], dout, bh, sq, d, bw::kBQ)) ||
+      (rc = wg::tensor_map(&m[4], dq, bh, sq, d, 64)))
+    return rc;
+  const bw::Args a{static_cast<const float*>(bias), static_cast<const float*>(lse),
+                   static_cast<const float*>(delta), bh, sq, sk, g.heads, g.causal, drop};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long items = (long long)((sq + bw::kBQ - 1) / bw::kBQ) * bh;
+#define DQ_LAUNCH(D, DR)                                                                    \
+  bw::launch(bw::flash_dq_wgmma_kernel<D, DR>, sizeof(bw::DqSmem<D>) + 1024, items, st, a, \
+             m[0], m[1], m[2], m[3], m[4])
+  if (d == 128) return drop.rows ? DQ_LAUNCH(128, true) : DQ_LAUNCH(128, false);
+  return drop.rows ? DQ_LAUNCH(64, true) : DQ_LAUNCH(64, false);
+#undef DQ_LAUNCH
+}
+
+// dK, dV from qs = round(q * scale) (the pre-pass's); the rule of
+// launch_dq_wgmma
+int launch_dkv_wgmma(const void* qs, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, const void* bias, void* dk, void* dv,
+                     int bh, int sq, int sk, int d, int causal, int heads, float scale, Drop drop,
+                     void* stream) {
+  Geo g;
+  int rc = make_geo<__nv_bfloat16>(&g, bh, sq, sk, d, causal, scale, true, bias, heads, drop);
+  if (rc) return rc;
+  if ((d != 64 && d != 128) || !aligned16(qs) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(dout) || !aligned16(dk) || !aligned16(dv))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m[6];
+  if ((rc = wg::tensor_map(&m[0], qs, bh, sq, d, bw::kBQ2)) ||
+      (rc = wg::tensor_map(&m[1], k, bh, sk, d, bw::kBKV)) ||
+      (rc = wg::tensor_map(&m[2], v, bh, sk, d, bw::kBKV)) ||
+      (rc = wg::tensor_map(&m[3], dout, bh, sq, d, bw::kBQ2)) ||
+      (rc = wg::tensor_map(&m[4], dk, bh, sk, d, bw::kBKV)) ||
+      (rc = wg::tensor_map(&m[5], dv, bh, sk, d, bw::kBKV)))
+    return rc;
+  const bw::Args a{static_cast<const float*>(bias), static_cast<const float*>(lse),
+                   static_cast<const float*>(delta), bh, sq, sk, g.heads, g.causal, drop};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long items = (long long)((sk + bw::kBKV - 1) / bw::kBKV) * bh;
+#define DKV_LAUNCH(D, DR)                                                                     \
+  bw::launch(bw::flash_dkv_wgmma_kernel<D, DR>, sizeof(bw::DkvSmem<D>) + 1024, items, st, a, \
+             m[0], m[1], m[2], m[3], m[4], m[5])
+  if (d == 128) return drop.rows ? DKV_LAUNCH(128, true) : DKV_LAUNCH(128, false);
+  return drop.rows ? DKV_LAUNCH(64, true) : DKV_LAUNCH(64, false);
+#undef DKV_LAUNCH
+}
+
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
                void* lse, int bh, int sq, int sk, int d, int causal, int heads, float scale,
@@ -1189,6 +2066,32 @@ int flash_fwd_wgmma_bf16(const void* q, const void* k, const void* v, const void
                          int drop_rows, int drop_cols, void* stream) {
   return launch_fwd_wgmma(q, k, v, bias, o, lse, bh, sq, sk, d, causal, heads, scale, DROP_KEY,
                           stream);
+}
+
+// the backward's wgmma route (bf16, d 64 or 128, 16-byte aligned
+// pointers): the pre-pass, then dQ from ks and dK/dV from qs with the
+// arguments of flash_dq_bf16 / flash_dkv_bf16 (k, respectively q, the
+// scaled copy)
+int flash_bwd_prep_bf16(const void* q, const void* k, const void* o, const void* dout, void* qs,
+                        void* ks, void* delta, int bh, int sq, int sk, int d, float scale,
+                        void* stream) {
+  return launch_bwd_prep(q, k, o, dout, qs, ks, delta, bh, sq, sk, d, scale, stream);
+}
+int flash_dq_wgmma_bf16(const void* q, const void* ks, const void* v, const void* dout,
+                        const void* lse, const void* delta, const void* bias, void* dq, int bh,
+                        int sq, int sk, int d, int causal, int heads, float scale, unsigned s0,
+                        unsigned s1, unsigned thresh, float inv, int drop_rows, int drop_cols,
+                        void* stream) {
+  return launch_dq_wgmma(q, ks, v, dout, lse, delta, bias, dq, bh, sq, sk, d, causal, heads,
+                         scale, DROP_KEY, stream);
+}
+int flash_dkv_wgmma_bf16(const void* qs, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, const void* bias, void* dk, void* dv,
+                         int bh, int sq, int sk, int d, int causal, int heads, float scale,
+                         unsigned s0, unsigned s1, unsigned thresh, float inv, int drop_rows,
+                         int drop_cols, void* stream) {
+  return launch_dkv_wgmma(qs, k, v, dout, lse, delta, bias, dk, dv, bh, sq, sk, d, causal, heads,
+                          scale, DROP_KEY, stream);
 }
 
 }  // extern "C"

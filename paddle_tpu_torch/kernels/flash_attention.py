@@ -53,6 +53,17 @@ falls back from one to the other. ``fwd_tile_plan`` mirrors the wgmma
 kernel's schedule (the KV tiles each q tile visits, masks or skips),
 ``fwd_block_items`` its persistent blocks' order over the q tiles and
 ``flash_bits_shifted`` its dropout key's shift path.
+
+The backward has the same two routes, chosen by ``bwd_route`` by the same
+rule: ``wgmma`` runs a pre-pass (``flash_bwd_prep_kernel``: q and k
+scaled and rounded to bf16, delta = rowsum(dO·O) in f32; counted in
+``prep_launches``), then ``flash_dq_wgmma_kernel`` and
+``flash_dkv_wgmma_kernel`` (TMA rings, wgmma, accumulators in registers);
+``generic`` computes delta in PyTorch and runs ``flash_dq_kernel`` and
+``flash_dkv_kernel``. ``bwd_routes`` counts the dQ and dK/dV launches by
+route. ``dq_tile_plan`` and ``dkv_tile_plan`` mirror the two kernels'
+schedules, ``dkv_block_items`` the dK/dV kernel's persistent order
+(``fwd_block_items`` is the dQ kernel's).
 """
 import ctypes
 import functools
@@ -68,8 +79,10 @@ __all__ = ["DropKey", "drop_key", "dropout_bits_cuda", "dropout_launches",
            "flash_bwd", "flash_bwd_ref", "flash_dkv_ref", "flash_dq_ref",
            "flash_drop_tile", "flash_fwd", "flash_fwd_ref",
            "flash_key_shifts", "fwd_block_items", "fwd_route", "fwd_routes",
-           "fwd_tile_plan", "interpret_bits", "keep_mask_ref", "launches",
-           "row_bits_ref", "seed_pair"]
+           "fwd_tile_plan", "bwd_route", "bwd_routes", "dq_tile_plan",
+           "dkv_tile_plan", "dkv_block_items", "interpret_bits",
+           "keep_mask_ref", "launches", "prep_launches", "row_bits_ref",
+           "seed_pair"]
 
 _NEG_INF = -1e30   # flash_attention.py:61: the mask value, never -inf
 _MASK_THRESH = -1e8   # :65: biases at or below it are canonicalised to -1e30
@@ -77,10 +90,15 @@ _MAX_HEAD_DIM = 256
 
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 dropout_launches = dict(launches)
+# the wgmma backward's pre-pass (no dropout variant: every rate counts here)
+prep_launches = {"flash_bwd_prep": 0}
 fwd_routes = {"wgmma": 0, "generic": 0}
+bwd_routes = {"wgmma": 0, "generic": 0}   # dQ and dK/dV launches
 DEFAULT_BLOCK_Q = 128     # :56
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_BQ = WGMMA_BK = 128     # the wgmma forward's q and KV tiles
+DQ_BQ, DQ_BK = 128, 64        # the wgmma dQ kernel's q tile and KV tiles
+DKV_BKV, DKV_BQ = 64, 64      # the wgmma dK/dV kernel's kv tile and q tiles
 _SKIP_BELOW = _NEG_INF / 2    # a KV tile whose bias entries are all at or
                               # below it is skipped (:253)
 
@@ -394,6 +412,13 @@ def fwd_route(dtype, d: int, aligned: bool) -> str:
     return "generic"
 
 
+def bwd_route(dtype, d: int, aligned: bool) -> str:
+    """The backward kernels a CUDA call takes, by ``fwd_route``'s rule:
+    ``"wgmma"`` (the pre-pass, ``flash_dq_wgmma_kernel``,
+    ``flash_dkv_wgmma_kernel``) or ``"generic"``."""
+    return fwd_route(dtype, d, aligned)
+
+
 def fwd_tile_plan(sq: int, sk: int, causal: bool, bias_row=None,
                   bq: int = WGMMA_BQ, bk: int = WGMMA_BK):
     """The wgmma forward's schedule, reckoned as its producer and consumers
@@ -425,14 +450,47 @@ def fwd_tile_plan(sq: int, sk: int, causal: bool, bias_row=None,
     return plan
 
 
-def fwd_block_items(sq: int, bh: int, blocks: int, bq: int = WGMMA_BQ):
-    """The wgmma forward's persistent schedule (csrc ``work_item``): its
-    q tiles listed heaviest first (q tile index from the last down, every
-    head at each: position p is tile ``nq - 1 - p // bh`` of head ``p %
-    bh``), taken by ``blocks`` blocks in a snake order (round r: block b,
-    or blocks - 1 - b when r is odd). Returns, for each block, its (q
-    tile, head) pairs in order."""
-    total = -(-sq // bq) * bh
+def dq_tile_plan(sq: int, sk: int, causal: bool, bias_row=None):
+    """The wgmma dQ kernel's schedule: ``fwd_tile_plan`` at its tiles
+    (q tiles of ``DQ_BQ`` rows, KV tiles of ``DQ_BK``), reckoned by its
+    producer as the forward's reckons it."""
+    return fwd_tile_plan(sq, sk, causal, bias_row, DQ_BQ, DQ_BK)
+
+
+def dkv_tile_plan(sq: int, sk: int, causal: bool, bias_row=None):
+    """The wgmma dK/dV kernel's schedule: for each kv tile j (of
+    ``DKV_BKV`` rows), the q tiles i (of ``DKV_BQ`` rows) it visits in
+    order, each as (i,
+    masked). ``bias_row`` ([sk], non-causal): a kv tile whose rows' entries
+    are all <= -5e29 visits nothing (its dK and dV are zero). Causal: q
+    tiles whose last row below ``sq`` sees the kv tile's first row (the
+    offset sk - sq included). A tile is masked unless it lies wholly
+    below the diagonal of its first q row, inside ``sq`` and inside
+    ``sk``."""
+    bkv, bq = DKV_BKV, DKV_BQ
+    nq, nkv = -(-sq // bq), -(-sk // bkv)
+    off = sk - sq
+    plan = []
+    for j in range(nkv):
+        if bias_row is not None and not any(
+                float(x) > _SKIP_BELOW for x in bias_row[j * bkv:(j + 1) * bkv]):
+            plan.append([])
+            continue
+        tiles = []
+        for i in range(nq):
+            if causal and j * bkv > min((i + 1) * bq, sq) - 1 + off:
+                continue
+            interior = ((i + 1) * bq <= sq and (j + 1) * bkv <= sk
+                        and (not causal or (j + 1) * bkv - 1 <= i * bq + off))
+            tiles.append((i, not interior))
+        plan.append(tiles)
+    return plan
+
+
+def _snake(total: int, blocks: int):
+    """csrc ``work_item``: the positions each of ``blocks`` persistent
+    blocks takes from a list of ``total`` items (round r: block b, or
+    blocks - 1 - b when r is odd)."""
     out = []
     for b in range(blocks):
         items, r = [], 0
@@ -440,10 +498,31 @@ def fwd_block_items(sq: int, bh: int, blocks: int, bq: int = WGMMA_BQ):
             pos = r * blocks + (blocks - 1 - b if r & 1 else b)
             if pos >= total:
                 break
-            items.append((-(-sq // bq) - 1 - pos // bh, pos % bh))
+            items.append(pos)
             r += 1
         out.append(items)
     return out
+
+
+def dkv_block_items(sk: int, bh: int, blocks: int):
+    """The wgmma dK/dV kernel's persistent schedule: its (kv tile, head)
+    items listed low kv tiles first (under causal they see the most q
+    tiles: position p is tile ``p // bh`` of head ``p % bh``), taken in
+    the snake order. Returns, for each block, its pairs in order."""
+    return [[(p // bh, p % bh) for p in items]
+            for items in _snake(-(-sk // DKV_BKV) * bh, blocks)]
+
+
+def fwd_block_items(sq: int, bh: int, blocks: int, bq: int = WGMMA_BQ):
+    """The wgmma forward's persistent schedule (csrc ``work_item``): its
+    q tiles listed heaviest first (q tile index from the last down, every
+    head at each: position p is tile ``nq - 1 - p // bh`` of head ``p %
+    bh``), taken by ``blocks`` blocks in a snake order (round r: block b,
+    or blocks - 1 - b when r is odd). Returns, for each block, its (q
+    tile, head) pairs in order."""
+    nq = -(-sq // bq)
+    return [[(nq - 1 - p // bh, p % bh) for p in items]
+            for items in _snake(nq * bh, blocks)]
 
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
@@ -454,11 +533,21 @@ _TAIL = [_I] * 6 + [_F] + [_U] * 3 + [_F, _I, _I] + [_P]
 _ARGTYPES = {"flash_fwd": [_P] * 6 + _TAIL,     # q, k, v, bias, o, lse
              "flash_dq": [_P] * 8 + _TAIL,      # ..., delta, bias, dq
              "flash_dkv": [_P] * 9 + _TAIL}     # ..., delta, bias, dk, dv
+# the wgmma routes' entries (bf16 only): the forward's, dQ's and dK/dV's
+# arguments; the pre-pass: q, k, o, dout, qs, ks, delta, bh, sq, sk, d,
+# scale, stream
+_WGMMA_ARGTYPES = {"flash_fwd_wgmma": _ARGTYPES["flash_fwd"],
+                   "flash_dq_wgmma": _ARGTYPES["flash_dq"],
+                   "flash_dkv_wgmma": _ARGTYPES["flash_dkv"],
+                   "flash_bwd_prep": [_P] * 7 + [_I] * 4 + [_F, _P]}
+
+
 @functools.cache
 def _lib():
     lib = _build.library("flash_attention.cu", _ARGTYPES)
-    fn = lib.flash_fwd_wgmma_bf16       # bf16 only: the forward's arguments
-    fn.argtypes, fn.restype = _ARGTYPES["flash_fwd"], ctypes.c_int
+    for name, types in _WGMMA_ARGTYPES.items():
+        fn = getattr(lib, f"{name}_bf16")
+        fn.argtypes, fn.restype = types, ctypes.c_int
     return lib
 
 
@@ -563,8 +652,7 @@ def _fwd_cuda(q, k, v, causal, scale, bias=None, heads=1, drop=None,
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     if route is None:
-        route = fwd_route(q.dtype, d, all(t.data_ptr() % 16 == 0
-                                          for t in (q, k, v, out)))
+        route = fwd_route(q.dtype, d, _aligned(q, k, v, out))
     _call("flash_fwd", drop, q.dtype, q.device, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), bptr, out.data_ptr(), lse.data_ptr(), bh, sq, sk, d,
           int(causal), int(heads), float(scale),
@@ -573,8 +661,17 @@ def _fwd_cuda(q, k, v, causal, scale, bias=None, heads=1, drop=None,
     return out, lse
 
 
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _bwd_cuda(q, k, v, out, lse, dout, causal, scale, bias=None, heads=1,
-              drop=None):
+              drop=None, route=None):
+    """The backward on the route ``bwd_route`` picks (``route`` names one
+    instead, for measurement). wgmma: the pre-pass (qs, ks, delta), then
+    dQ and dK/dV from the scaled copies; generic: delta in PyTorch, as the
+    reference computes it outside its kernels (:551), then the generic
+    kernels."""
     bh, sq, sk, d = _shapes(q, k, v)
     _check_cuda("flash_bwd", (q, k, v, out, dout, lse)
                 + (() if bias is None else (bias,)), d)
@@ -587,36 +684,80 @@ def _bwd_cuda(q, k, v, out, lse, dout, causal, scale, bias=None, heads=1,
                          f"{tuple(lse.shape)}")
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError("out and dout must have q's shape")
-    # delta outside the kernels, as in the reference
-    delta = _delta(out, dout)
+    if route is None:
+        route = bwd_route(q.dtype, d, _aligned(q, k, v, out, dout))
+    qs = ks = None
+    if route == "wgmma":
+        qs, ks, delta = _bwd_prep_cuda(q, k, out, dout, scale)
+    else:
+        delta = _delta(out, dout)
     return (_dq_cuda(q, k, v, dout, lse, delta, causal, scale, bias, heads,
-                     drop),
+                     drop, route, ks),
             *_dkv_cuda(q, k, v, dout, lse, delta, causal, scale, bias,
-                       heads, drop))
+                       heads, drop, route, qs))
+
+
+def _bwd_prep_cuda(q, k, out, dout, scale):
+    """The wgmma backward's pre-pass, one launch: (round(q·scale),
+    round(k·scale), rowsum(dO·O) in f32)."""
+    bh, sq, sk, d = _shapes(q, k, k)
+    qs, ks = torch.empty_like(q), torch.empty_like(k)
+    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    _build.call(_lib(), "flash_bwd_prep", q.dtype, q.device,
+                q.data_ptr(), k.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                qs.data_ptr(), ks.data_ptr(), delta.data_ptr(), bh, sq, sk,
+                d, float(scale))
+    prep_launches["flash_bwd_prep"] += 1
+    return qs, ks, delta
+
+
+def _scaled(name, route, x):
+    """The wgmma kernels read the pre-pass's scaled operand in place of
+    q or k (``_bwd_cuda`` passes it)."""
+    if route == "wgmma" and x is None:
+        raise ValueError(f"{name}: the wgmma kernel reads the pre-pass's "
+                         f"scaled operand (_bwd_prep_cuda)")
+    return x
 
 
 def _dq_cuda(q, k, v, dout, lse, delta, causal, scale, bias=None, heads=1,
-             drop=None):
+             drop=None, route=None, ks=None):
+    """dQ on the route ``bwd_route`` picks (or ``route``); the wgmma
+    kernel reads ks = round(k·scale), the pre-pass's."""
     bh, sq, sk, d = _shapes(q, k, v)
     bptr = _bias_arg(bias, heads, bh, sk, causal)
     dq = torch.empty_like(q)
-    _call("flash_dq", drop, q.dtype, q.device, q.data_ptr(), k.data_ptr(),
-          v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-          bptr, dq.data_ptr(), bh, sq, sk, d, int(causal), int(heads),
-          float(scale))
+    if route is None:
+        route = bwd_route(q.dtype, d, _aligned(q, k, v, dout, dq))
+    ks = _scaled("flash_dq", route, ks)
+    _call("flash_dq", drop, q.dtype, q.device, q.data_ptr(),
+          (ks if route == "wgmma" else k).data_ptr(), v.data_ptr(),
+          dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), bptr,
+          dq.data_ptr(), bh, sq, sk, d, int(causal), int(heads),
+          float(scale),
+          entry="flash_dq_wgmma" if route == "wgmma" else None)
+    bwd_routes[route] += 1
     return dq
 
 
 def _dkv_cuda(q, k, v, dout, lse, delta, causal, scale, bias=None, heads=1,
-              drop=None):
+              drop=None, route=None, qs=None):
+    """dK, dV on the route ``bwd_route`` picks (or ``route``); the wgmma
+    kernel reads qs = round(q·scale), the pre-pass's."""
     bh, sq, sk, d = _shapes(q, k, v)
     bptr = _bias_arg(bias, heads, bh, sk, causal)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _call("flash_dkv", drop, q.dtype, q.device, q.data_ptr(), k.data_ptr(),
+    if route is None:
+        route = bwd_route(q.dtype, d, _aligned(q, k, v, dout, dk, dv))
+    qs = _scaled("flash_dkv", route, qs)
+    _call("flash_dkv", drop, q.dtype, q.device,
+          (qs if route == "wgmma" else q).data_ptr(), k.data_ptr(),
           v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
           bptr, dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d, int(causal),
-          int(heads), float(scale))
+          int(heads), float(scale),
+          entry="flash_dkv_wgmma" if route == "wgmma" else None)
+    bwd_routes[route] += 1
     return dk, dv
 
 
