@@ -77,20 +77,26 @@ Phases, one line each; any failure raises and exits non-zero:
    and dW in one call) against their plain versions on the card through
    the custom ops and autograd through fused_swiglu_2d: llama-7b (R=2048,
    H=4096, F=11008, the last ffn chunk ragged) and ragged shapes
-   (R=1000/333, H=96/2048/100, F=320/2560/200), fp32 and bf16 (y, dx,
-   dwg, dwu, dwd), each element within its row's scale; two backward
-   calls give the same bits; the check shown to reject a forward missing
-   one ffn chunk; their times at llama-7b shape beside the plain
-   versions', the bound and the dense silu-gated composite through cuBLAS
-   (forward, and its autograd backward);
+   (R=1000/333, H=96/2048/100, F=320/2560/4608/200), fp32 and bf16 (y, dx,
+   dwg, dwu, dwd), each element within its row's scale; the backward's
+   route per case (swiglu_bwd_routes: the bf16 cases with H and F
+   multiples of 8 on the wgmma kernels, the rest on the generic ones);
+   two backward calls give the same bits; the check shown to reject a
+   forward missing one ffn chunk and a dWg missing one 128-row block of
+   R; their times at llama-7b shape beside the plain versions', the
+   bound and the dense silu-gated composite through cuBLAS (forward, and
+   its autograd backward), the backward's also beside the generic route
+   in turns;
 16. train llama-7b (random weights from a seed, bf16, full width and
    depth, FLAGS_fused_mlp on as by default) through the Layer model and
    AdamW (model.loss -> backward -> opt.step -> opt.clear_grad) at B=1,
    S=2048 on one fixed batch: one warm-up step, then 4 steps; finite,
-   falling loss; each SwiGLU and flash kernel launched 32 times per step;
+   falling loss; each SwiGLU and flash kernel launched 32 times per step,
+   every SwiGLU backward on the wgmma route;
    ms/step, tokens/s, model TFLOP/s, the AdamW update's ms (CUDA events),
    peak memory and the card's clocks;
-17. torch.profiler over 2 more llama-7b steps: device busy time per step,
+17. torch.profiler over 2 more llama-7b steps (every SwiGLU backward on
+   the wgmma route): device busy time per step,
    idle share, the flash and SwiGLU kernels' shares, the optimizer
    step's device time, the kernels that take the time;
 18. the same llama-7b training with FLAGS_fused_mlp off (the dense
@@ -1282,12 +1288,13 @@ def _launch_counts():
 
 def reset_launches():
     """Every kernel count of the training paths to 0, the dropout
-    variants', the flash forward's and backward's and the projection-LN's
-    routes included."""
+    variants', the flash forward's and backward's, the projection-LN's
+    and the SwiGLU backward's routes included."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     plain, drop = _launch_counts()
-    for counts in plain + drop + (fa.fwd_routes, fa.bwd_routes, mf.pl_routes):
+    for counts in plain + drop + (fa.fwd_routes, fa.bwd_routes, mf.pl_routes,
+                                  mf.swiglu_bwd_routes):
         for key in counts:
             counts[key] = 0
 
@@ -1333,6 +1340,18 @@ def pl_routes_reading(counts, what):
             "bwd_cluster": n["bwd"], "bwd_generic": 0}
     check(n["fwd"] > 0 and routes == want,
           f"{what}: projection-LN calls by route {routes}, want {want}")
+    return routes
+
+
+def swiglu_routes_reading(counts, what):
+    """The SwiGLU backward's calls by route since reset_launches: on the
+    bf16 llama-7b path every one must take the wgmma kernels."""
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    n = counts.get("fused_swiglu_dw", 0)
+    routes = dict(mf.swiglu_bwd_routes)
+    check(n > 0 and routes == {"wgmma": n, "generic": 0},
+          f"{what}: SwiGLU backward calls by route {routes}, want all {n} "
+          f"on the wgmma kernels")
     return routes
 
 
@@ -1438,9 +1457,7 @@ def phase_profile_train(torch, cfg, params, opt, batch, steps=2):
     # col-major, epilogue> (0 gelu, 1 accumulate, 2 pre-activation, 3
     # gelu', 4 store), the column sums of g and the bias gradients' sum
     # over the row blocks
-    mlp = {e.key[:100]: e.self_device_time_total / 1e3 / steps
-           for e in dev if any(k in e.key for k in (
-               "mlp_gemm_kernel", "colsum_kernel", "sum_parts_kernel"))}
+    mlp = kernel_ms(dev, MLP_KERNEL_NAMES, steps)
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
     return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
                 device_busy_ms_per_step=busy_ms / steps,
@@ -1548,6 +1565,24 @@ def phase_train_parity_fp32(torch):
 # phase 15: the fused SwiGLU kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def kernel_ms(dev, names, steps):
+    """Device ms per step of each profiled kernel whose name holds one of
+    ``names``, by its name without the argument list (the template
+    arguments tell the instantiations apart)."""
+    out = {}
+    for e in dev:
+        if any(k in e.key for k in names):
+            key = e.key.split("(CUtensorMap")[0][:160]
+            out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3 / steps
+    return out
+
+
+# the fused MLP library's kernels as the profiler names them: the generic
+# GEMM core, the GeLU backward's column sums and their fixed-order sum,
+# the SwiGLU backward's wgmma route (P1, then the core's P2-P4)
+MLP_KERNEL_NAMES = ("mlp_gemm_kernel", "colsum_kernel", "sum_parts_kernel",
+                    "swiglu_dact_wgmma_kernel", "wgmma_gemm_kernel")
+
 SWIGLU_REPLACES = {
     "fused_swiglu_fwd": "paddle_tpu/kernels/mlp_fusion.py:522",
     "fused_swiglu_dx": "paddle_tpu/kernels/mlp_fusion.py:543",
@@ -1558,15 +1593,20 @@ SWIGLU_REPLACES = {
 # tensor cores where the plain version (the reference) keeps them f32.
 LLAMA_S = 2048                                  # the slice's B=1 sequence
 SW_R, SW_H, SW_F = LLAMA_S, 4096, 11008         # the slice's MLP shape
-# (r, h, f, dtype): llama-7b (5 chunks of 2048 and a ragged one of 768),
-# in bf16 and f32; rows not a multiple of any tile, f <= 512 not a
-# multiple of 128, h not a multiple of 64; a ragged last chunk (2560 =
-# 2048 + 512); strides not a multiple of 16 bytes (h = 100: the scalar
-# load path)
+# (r, h, f, dtype): llama-7b (5 chunks of 2048 and a ragged one of 768;
+# the wgmma backward's: 4096, 4096, 2816), in bf16 and f32; rows not a
+# multiple of any tile, f <= 512 not a multiple of 128, h not a multiple
+# of 64; a ragged last chunk (2560 = 2048 + 512; the wgmma backward's
+# 4608 = 4096 + 512); strides not a multiple of 16 bytes (h = 100: the
+# scalar load path)
 SWIGLU_CASES = [(SW_R, SW_H, SW_F, "bfloat16"), (SW_R, SW_H, SW_F, "float32"),
                 (1000, 96, 320, "bfloat16"), (1000, 96, 320, "float32"),
-                (1000, 2048, 2560, "bfloat16"), (333, 100, 200, "bfloat16"),
-                (333, 100, 200, "float32")]
+                (1000, 2048, 2560, "bfloat16"), (1000, 2048, 4608, "bfloat16"),
+                (333, 100, 200, "bfloat16"), (333, 100, 200, "float32")]
+# the bf16 cases whose backward takes the wgmma route (H and F multiples
+# of 8); every other case takes the generic kernels
+SWIGLU_WGMMA = {(SW_R, SW_H, SW_F), (1000, 96, 320), (1000, 2048, 2560),
+                (1000, 2048, 4608)}
 
 
 def swiglu_inputs(torch, r, h, f, dtype, seed):
@@ -1601,27 +1641,37 @@ def swiglu_bounds(r, h, f, esize):
 
 
 def swiglu_workspace_gb(r, h, f, esize):
-    """The backward's workspace (csrc/fused_mlp.cu), the larger one: ag
-    and au chunks in f32, dag, dau and act chunks in the dtype, the f32
-    [R, H] dX accumulator."""
+    """The larger of the forward's and the wgmma backward's workspaces
+    (csrc/fused_mlp.cu): the forward's ag chunk in f32 and act chunk in
+    the dtype (chunk _CHUNK_F), the backward's dag, dau and act chunks in
+    the dtype (chunk _SWIGLU_BWD_CHUNK_F), each with the f32 [R, H]
+    accumulator when F exceeds its chunk."""
     from paddle_tpu_torch.kernels import mlp_fusion as mf
-    fc = min(f, mf._CHUNK_F)
-    return (r * fc * (8 + 3 * esize) + r * h * 4) / 1e9
+
+    def acc(fc):
+        return r * h * 4 if f > fc else 0
+
+    fwd, bwd = min(f, mf._CHUNK_F), min(f, mf._SWIGLU_BWD_CHUNK_F)
+    return max(r * fwd * (4 + esize) + acc(fwd),
+               r * bwd * 3 * esize + acc(bwd)) / 1e9
 
 
 def phase_swiglu_vs_plain(torch):
     """The forward and backward custom ops (``fused_swiglu_fwd``,
     ``fused_swiglu_bwd``: the kernels' wrappers, which the LLaMA MLP
     reaches through ``fused_swiglu_2d``) against their plain versions on
-    the card (y, dx, dwg, dwu, dwd) in every SWIGLU_CASES case; the
+    the card (y, dx, dwg, dwu, dwd) in every SWIGLU_CASES case, the
+    backward on its route (SWIGLU_WGMMA: wgmma, else generic); the
     backward repeated gives the same bits, and autograd through
     ``fused_swiglu_2d`` gives the ops' results; the check shown to reject a
-    forward missing one ffn chunk; then the times at the slice's shape."""
+    forward missing one ffn chunk and a dWg missing one row block; then
+    the times at the slice's shape."""
     from paddle_tpu_torch.kernels import mlp_fusion as mf
-    worst = {}
+    worst, routes = {}, {}
     for r, h, f, name in SWIGLU_CASES:
         dtype = getattr(torch, name)
         x, wg, wu, wd, g = swiglu_inputs(torch, r, h, f, dtype, seed=r + f)
+        before = dict(mf.swiglu_bwd_routes)
         y = mf.fused_swiglu_fwd(x, wg, wu, wd)
         grads = mf.fused_swiglu_bwd(x, wg, wu, wd, g)
         again = mf.fused_swiglu_bwd(x, wg, wu, wd, g)
@@ -1630,6 +1680,13 @@ def phase_swiglu_vs_plain(torch):
         auto = torch.autograd.grad(y_ag, prim, g)
         torch.cuda.synchronize()
         where = f"{name} r={r} h={h} f={f}"
+        took = {k: n - before[k] for k, n in mf.swiglu_bwd_routes.items()}
+        route = ("wgmma" if name == "bfloat16" and (r, h, f) in SWIGLU_WGMMA
+                 else "generic")
+        check(took == {"wgmma": 0, "generic": 0, route: 3},
+              f"fused SwiGLU backward routes {took} ({where}), want 3 calls "
+              f"on {route}")
+        routes[where] = route
         check(all(torch.equal(a, b) for a, b in zip(again, grads)),
               f"fused SwiGLU backward differs between two calls ({where})")
         check(torch.equal(y_ag, y) and all(
@@ -1661,8 +1718,9 @@ def phase_swiglu_vs_plain(torch):
                 worst={n: {k: dict(max_abs_err=e, relative=r)
                            for k, (e, r) in w.items()}
                        for n, w in worst.items()},
-                cases=[list(c) for c in SWIGLU_CASES],
+                cases=[list(c) for c in SWIGLU_CASES], backward_routes=routes,
                 wrong_kernel_reading=swiglu_check_rejects(torch, mf),
+                wrong_dwg_reading=swiglu_dw_check_rejects(torch, mf),
                 **swiglu_times(torch, mf))
 
 
@@ -1687,6 +1745,27 @@ def swiglu_check_rejects(torch, mf):
     return reading
 
 
+def swiglu_dw_check_rejects(torch, mf, rows=128):
+    """The bf16 check must reject a dWg that leaves out one 128-row block
+    of R (a tile of the wgmma route's K walk, dropped): the plain dWg at
+    the slice's shape with rows 128-255 of x and dag left out, rounded.
+    Returns its reading."""
+    x, wg, wu, wd, g = swiglu_inputs(torch, SW_R, SW_H, SW_F, torch.bfloat16,
+                                     seed=SW_R + SW_F)
+    _, _, dag, _ = mf._swiglu_da(x, wg, wu, wd, g)
+    ref = x.float().T @ dag
+    keep = torch.ones(SW_R, dtype=torch.bool, device="cuda")
+    keep[rows:2 * rows] = False
+    wrong = (x.float()[keep].T @ dag[keep]).to(x.dtype)
+    reading = flash_reading(wrong, ref)
+    check(reading > MLP_TOL["bfloat16"],
+          f"the bf16 SwiGLU check passes a dWg with one {rows}-row block "
+          f"left out: {reading} <= {MLP_TOL['bfloat16']}")
+    del x, wg, wu, wd, g, dag, ref, wrong
+    torch.cuda.empty_cache()
+    return reading
+
+
 def swiglu_times(torch, mf):
     """CUDA-event times at R=2048, H=4096, F=11008, bf16: the forward and
     the backward op, each in turns with its plain version. The backward
@@ -1696,7 +1775,8 @@ def swiglu_times(torch, mf):
     Wd through cuBLAS for the forward; no library call computes dX alone
     or dW alone, so their library_ms is null and the composite's whole
     backward (autograd on a retained graph) is timed beside the backward
-    op."""
+    op. The backward (on the wgmma route) is also timed in turns with the
+    generic route on the same inputs (``earlier_ms``)."""
     x, wg, wu, wd, g = swiglu_inputs(torch, SW_R, SW_H, SW_F, torch.bfloat16,
                                      seed=13)
 
@@ -1721,16 +1801,23 @@ def swiglu_times(torch, mf):
     def composite(x, wg, wu, wd):
         return (silu(x @ wg) * (x @ wu)) @ wd
 
+    bwd = res["backward"]
+    bwd["earlier_ms"], _, bwd["earlier_all_ms"] = in_turns(
+        lambda _: mf._swiglu_bwd_cuda(x, wg, wu, wd, g, route="generic"),
+        lambda _: mf._swiglu_bwd_cuda(x, wg, wu, wd, g, route="wgmma"),
+        iters=10)
+    bwd.update(route="wgmma", earlier="the generic route (mlp_gemm_kernel, "
+               "8 launches a chunk), same inputs, in turns")
     res["forward"]["library_ms"], _, _ = in_turns(
         lambda _: composite(x, wg, wu, wd), runs["forward"][0], iters=10)
     prim = [t.detach().requires_grad_(True) for t in (x, wg, wu, wd)]
     yc = composite(*prim)
-    bwd = res["backward"]
     bwd["library_bwd_ms"], bwd["ms_beside_library"], _ = in_turns(
         lambda _: torch.autograd.grad(yc, prim, g, retain_graph=True),
         runs["backward"][0], iters=10)
     res["timed_at"] = dict(r=SW_R, h=SW_H, f=SW_F, dtype="bfloat16",
-                           chunk_f=mf._CHUNK_F)
+                           chunk_f=mf._CHUNK_F,
+                           wgmma_backward_chunk_f=mf._SWIGLU_BWD_CHUNK_F)
     del x, wg, wu, wd, g, prim, yc
     torch.cuda.empty_cache()
     return res
@@ -1789,6 +1876,7 @@ def phase_train_llama(torch, cfg, fused, steps=TRAIN_STEPS):
     runs once per layer per step; with the flag on each SwiGLU kernel
     too, with it off none; the GeLU MLP kernels never."""
     from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
     from paddle_tpu_torch.nn.functional import last_mlp_path
     set_flags({"FLAGS_fused_mlp": fused})
     model, opt, step = llama_trainer(torch, cfg)
@@ -1821,6 +1909,8 @@ def phase_train_llama(torch, cfg, fused, steps=TRAIN_STEPS):
               f"of {L} layers (want {want}; FLAGS_fused_mlp={fused})")
     routes = fwd_routes_reading(counts, "llama-7b training")
     broutes = bwd_routes_reading(counts, "llama-7b training")
+    sroutes = (swiglu_routes_reading(counts, "llama-7b training") if fused
+               else dict(mf.swiglu_bwd_routes))
     tokens = LLAMA_S
     flops = llama_flops_per_step(cfg, tokens, LLAMA_S)
     ms = wall / steps * 1e3
@@ -1836,7 +1926,8 @@ def phase_train_llama(torch, cfg, fused, steps=TRAIN_STEPS):
                parameters=sum(p.numel() for p in model.parameters()),
                card_during_steps=clocks.summary(), launches=counts,
                launches_per_step={k: n / steps for k, n in counts.items()},
-               flash_fwd_routes=routes, flash_bwd_routes=broutes)
+               flash_fwd_routes=routes, flash_bwd_routes=broutes,
+               swiglu_bwd_routes=sroutes)
     return out, model, opt, step
 
 
@@ -1848,6 +1939,7 @@ def phase_profile_llama(torch, step, steps=2):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1855,6 +1947,7 @@ def phase_profile_llama(torch, step, steps=2):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    sroutes = swiglu_routes_reading(read_launches(), "llama-7b profile")
     # the "adamw_step" range of llama_trainer shows on the device timeline
     # as an annotation spanning the optimizer's kernels: its span is the
     # AdamW update's device time, and it is kept out of the busy sum
@@ -1875,11 +1968,13 @@ def phase_profile_llama(torch, step, steps=2):
                        "flash_bwd_prep_kernel", "flash_dq_wgmma_kernel",
                        "flash_dkv_wgmma_kernel", "flash_dq_kernel",
                        "flash_dkv_kernel")}
-    # the SwiGLU kernels by instantiation: <dtype, A col-major, B
-    # col-major, epilogue> (1 accumulate, 2 gate/up product, 4 store, 5
-    # silu-gated activation, 6 dact with the SwiGLU derivatives)
-    mlp = {e.key[:100]: e.self_device_time_total / 1e3 / steps
-           for e in dev if "mlp_gemm_kernel" in e.key}
+    # the SwiGLU kernels by instantiation: the forward's <dtype, A
+    # col-major, B col-major, epilogue> (1 accumulate, 2 gate/up product,
+    # 5 silu-gated activation); the backward's wgmma route: P1
+    # (swiglu_dact_wgmma_kernel), the core's <A MN-major, B MN-major, BN,
+    # stages, epilogue> (P2 EpiStore / EpiSum / EpiSumLast, P3 and P4
+    # EpiStore)
+    mlp = kernel_ms(dev, MLP_KERNEL_NAMES, steps)
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
     return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
                 device_busy_ms_per_step=busy_ms / steps,
@@ -1888,7 +1983,7 @@ def phase_profile_llama(torch, step, steps=2):
                 flash_share_of_busy=sum(flash.values()) * steps / busy_ms,
                 swiglu_ms_per_step=sum(mlp.values()),
                 swiglu_share_of_busy=sum(mlp.values()) * steps / busy_ms,
-                swiglu_kernels_ms_per_step=mlp,
+                swiglu_kernels_ms_per_step=mlp, swiglu_bwd_routes=sroutes,
                 adamw_span_ms_per_step=spans.get(
                     "adamw_step", "not measured (no adamw_step range)"),
                 top_device_ms_per_step=[
@@ -4699,6 +4794,39 @@ def wgmma_ptxas(build_log):
     return out
 
 
+def swiglu_ptxas_lines(log):
+    """ptxas -v's register and spill lines of the SwiGLU backward's wgmma
+    kernels in an nvcc log of fused_mlp.cu: P1 (swiglu_dact_wgmma_kernel)
+    and each wgmma_gemm_kernel instantiation <A MN-major, B MN-major, BN,
+    stages, epilogue>."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(swiglu_dact_wgmma_kernel|"
+                      r"wgmma_gemm_kernel)(?:ILb(\d)ELb(\d)ELi(\d+)ELi(\d+)ENS\w*?"
+                      r"(EpiStore|EpiSumLast|EpiSum))?", ln)
+        if m:
+            name = m.group(1) if m.group(2) is None else (
+                f"{m.group(1)}<{', '.join(m.group(i) for i in range(2, 7))}>")
+        elif "Compiling entry function" in ln:
+            name = None
+        elif name and ("spill" in ln or "registers" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
+
+
+def swiglu_wgmma_ptxas(build_log):
+    """The SwiGLU wgmma kernels' ptxas lines (P1; the core's P2 with its
+    three epilogues: one chunk, the f32 sum's first and middle chunks, the
+    last; P3 / P4): none may spill."""
+    out = swiglu_ptxas_lines(build_log.get("fused_mlp.cu", ""))
+    check(len(out) == 5 or "fused_mlp.cu" not in build_log,
+          f"ptxas lines for {len(out)} SwiGLU wgmma kernels, want 5")
+    for name, lines in out.items():
+        check(not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines),
+              f"{name} spills: {lines}")
+    return out
+
+
 def free_card(torch):
     """Drop what the phases before left for the collector, return the
     cached blocks and restart the peak count."""
@@ -4735,7 +4863,8 @@ def main():
           ptxas=[ln.strip() for log in _build.build_log.values()
                  for ln in log.splitlines() if "registers" in ln],
           flash_wgmma_ptxas=wgmma_ptxas(_build.build_log),
-          proj_ln_cluster_ptxas=pl_cluster_ptxas(_build.build_log))
+          proj_ln_cluster_ptxas=pl_cluster_ptxas(_build.build_log),
+          swiglu_wgmma_ptxas=swiglu_wgmma_ptxas(_build.build_log))
 
     kern = phase_kernel_vs_plain(torch)
     phase(3, "decode_attn_proj vs plain", tolerance=TOL, **kern)
@@ -4951,9 +5080,15 @@ def main():
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
         if name != "fused_swiglu_fwd":
-            kernels[-1]["note"] = ("dX and dW run in one backward call, "
-                                   "fused_swiglu_bwd: ms, plain_ms and "
-                                   "bound_ms are that call's")
+            kernels[-1].update(route_fields(t))
+            kernels[-1].update(
+                source_kernels="swiglu_dact_wgmma_kernel (P1), "
+                               "wgmma_gemm_kernel (P2-P4; gemm_core.cuh)",
+                composite_backward_ms=t["library_bwd_ms"],
+                note="dX and dW run in one backward call, fused_swiglu_bwd "
+                     "(the wgmma route on llama-7b's path): ms, plain_ms and "
+                     "bound_ms are that call's; composite_backward_ms the "
+                     "dense composite's autograd backward")
     # the LayerNorm and projection-LN kernels' launches are bert-base
     # training's (phase 23); each backward's second launch (the fixed-order
     # sum of the column partials) counts under its backward

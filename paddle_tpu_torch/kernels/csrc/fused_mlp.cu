@@ -8,8 +8,9 @@
 //   _mlp_dw_kernel     :296 (launched by _mlp_dw :415)  -> fused_mlp_bwd_* (dW part)
 // all entered through fused_mlp_2d :472, and
 //   _swiglu_fwd_kernel :522 -> fused_swiglu_fwd_*
-//   _swiglu_dx_kernel  :543 -> fused_swiglu_bwd_* (dX part)
-//   _swiglu_dw_kernel  :572 -> fused_swiglu_bwd_* (dW part)
+//   _swiglu_dx_kernel  :543 -> fused_swiglu_bwd_* (dX part); in bf16 with H
+//                             and F multiples of 8, fused_swiglu_bwd_wgmma_bf16
+//   _swiglu_dw_kernel  :572 -> the same calls (dW part)
 // entered through fused_swiglu_2d :674 (the custom_vjp of :611-671).
 // x [R, H], W1/Wg/Wu [H, F], W2/Wd [F, H] and g [R, H] contiguous,
 // float32 or bfloat16 (one dtype); b1 [F] and b2 [H] come in as f32.
@@ -113,7 +114,8 @@
 // backward ag_c and au_c [R, Fc] f32, dag_c, dau_c and act_c [R, Fc] in
 // the dtype and the f32 [R, H] dX accumulator (always: dX sums two products
 // per chunk). At R = 2048, H = 4096, Fc = 2048, bf16: 16.8 + 8.4 + 33.6 =
-// 58.7 MB forward, 33.6 + 25.2 + 33.6 = 92.3 MB backward.
+// 58.7 MB forward, 33.6 + 25.2 + 33.6 = 92.3 MB backward; the backward's
+// wgmma route keeps ag and au in registers: 25.2 + 33.6 = 58.7 MB.
 // Recompute: each backward repeats its forward's first products once, as
 // the TPU kernels do (their dX and dW kernels each recompute them): GeLU
 // 10 RHF in all where the TPU's two kernels do 12, SwiGLU 16 RHF where
@@ -142,13 +144,15 @@
 //
 // CUDA launches per call, nc = ceil(F / Fc) chunks: GeLU forward 2 nc,
 // backward 5 nc + 2, with or without dropout; SwiGLU forward 3 nc,
-// backward 8 nc.
-// wgmma, TMA, a persistent schedule and an epilogue from registers are
-// left for later work.
+// backward 8 nc on this generic route, 4 nc on the wgmma route (below).
+// The SwiGLU backward in bf16 has a second route on the TMA + wgmma GEMM
+// core of gemm_core.cuh (sw::launch, its design after the generic
+// kernels); the GeLU MLP and the SwiGLU forward keep this core.
 
 #include <algorithm>
 
 #include "common.cuh"
+#include "gemm_core.cuh"  // the SwiGLU backward's wgmma route
 
 namespace {
 
@@ -562,6 +566,340 @@ int launch_swiglu_bwd(const void* x, const void* wg, const void* wu, const void*
   return 0;
 }
 
+// --------------------------------------------------------------------------
+// SwiGLU backward, bf16: the wgmma route
+// --------------------------------------------------------------------------
+//
+// Replaces _swiglu_dx_kernel :543 and _swiglu_dw_kernel :572 (TPU kernels
+// 8 and 9) where the operands allow TMA: bf16, H and F multiples of 8,
+// every tensor 16-byte aligned. Bound: operations, 16 RHF (1.494 ms at
+// LLaMA-7B's R = 2048, H = 4096, F = 11008 at 989 TFLOP/s). The generic
+// route above ran at ~220 TFLOP/s: eight mma.sync launches a chunk on a
+// cp.async ring, each accumulator tile staged through shared memory as
+// f32, ag and au written to f32 workspaces and read back, and dX's f32
+// accumulator read and written twice a chunk. Here every product is wgmma
+// from a TMA ring with its accumulators in registers, and a chunk of nc
+// columns takes four launches:
+//   P1 swiglu_dact_wgmma_kernel: ag = x . Wg_c, au = x . Wu_c, dact = g .
+//      Wd_c^T, three accumulators on one [128, 64] output tile (96 f32
+//      registers a consumer thread: at [128, 128] they would need 192, past
+//      ptxas's cap of 168 at 288 threads); ag and au as one m64n128 product
+//      of x by Wg_c's and Wu_c's boxes side by side (an m64n64 product reads
+//      as many shared-memory bytes as it computes), the epilogue from the
+//      registers:
+//      dag = round(dact au silu'(ag)), dau = round(dact silu(ag)), act =
+//      round(silu(ag) au) (EPI_DSWIGLU's formulas), stored from the
+//      registers; ag and au never leave them. Four ring stages of 56 KB
+//      (no staging tile: three stages ran slower), and clusters of two
+//      blocks along N that share x's and g's tiles by TMA multicast (P1
+//      reads 56 KB a k step, the most bytes a flop of the four products:
+//      with its loads shared it ran faster).
+//   P2-P4 run on the core (gemm_core.cuh) at [128, 256] tiles, three
+//   stages.
+//   P2 gc core, ksplit: dX (+)= [dag_c | dau_c] . [Wg_c | Wu_c]^T, K = 2 nc
+//      (the producer switches maps halfway) into the f32 [R, H] sum: the
+//      first chunk stores it and the middle ones add to it through the TMA
+//      unit (reduce-add: no f32 loads into registers, one writer an
+//      element a chunk, so the same bits every call); the last chunk loads
+//      it into the accumulator before its k loop and writes round(sum) (a
+//      single chunk: round(C)).
+//   P3 gc core, nsplit: [dWg_c | dWu_c] = x^T . [dag_c | dau_c] (A and B
+//      MN-major), rounded, stored by TMA into dwg, dwu.
+//   P4 gc core: dWd_c = act_c^T . g (A and B MN-major), rounded, stored.
+// Each chunk's maps end at the chunk's edge (Wg_c, Wu_c, Wd_c and the
+// outputs as windows of the whole tensors), so a tile never reads or
+// writes another chunk's columns. The rounding points are the generic
+// route's: dag, dau, act rounded once; dX summed over the chunks in f32,
+// rounded once; dWg, dWu, dWd products of bf16 operands with f32
+// accumulation, rounded once. No atomics: the same bits on every call.
+// Workspace: dag, dau and act [R, Fc] bf16 and, when F > Fc, the f32 [R,
+// H] accumulator: 83.9 MB at LLaMA-7B's shape with this route's chunk, Fc
+// = 4096 (the caller's; three chunks ran faster than six of 2048).
+// The design's variants and their times: scripts/swiglu_bwd_variants.py,
+// PERF.md.
+
+namespace sw {
+
+constexpr int kBN = 256, kStages = 3;  // the core's tile width and ring for P2-P4
+constexpr int kDactBN = 64, kDactStages = 4;
+constexpr int kDactCluster = 2;  // P1's blocks sharing x's and g's tiles
+
+// A consumer thread's release of a P1 ring stage: on its own block's empty
+// barrier, and, from each warp's lane 0, on those of the cluster's other
+// blocks (whose stage its block's multicast loads also fill)
+__device__ __forceinline__ void release(uint64_t* empty, int rank) {
+  mbar_arrive(empty);
+  if (kDactCluster > 1) {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0)
+      for (int q = 0; q < kDactCluster; ++q)
+        if (q != rank) mbar_arrive_cluster(empty, q);
+  }
+}
+// the arrivals that empty a stage: every consumer thread of the block and
+// every consumer warp of the cluster's other blocks
+constexpr int kDactEmpty = gc::kConsumers + (kDactCluster - 1) * gc::kConsumers / 32;
+
+struct DactSmem {
+  __nv_bfloat16 x[kDactStages][gc::kBM * gc::kBK];  // two boxes each
+  __nv_bfloat16 g[kDactStages][gc::kBM * gc::kBK];
+  __nv_bfloat16 wgu[kDactStages][2 * gc::kBox];  // Wg_c's box, then Wu_c's
+  __nv_bfloat16 wd[kDactStages][gc::kBox];
+  uint64_t full[kDactStages], empty[kDactStages];
+};
+
+// P1 over a chunk: R x nc output tiles of [128, 64], k over H, on
+// clusters of kDactCluster blocks side by side along N: a cluster's blocks
+// share their 128 rows, and block `rank` loads x's and g's row box
+// (rank) once for all of them (TMA multicast), so each block reads its
+// own Wg_c, Wu_c and Wd_c tiles and 1 / kDactCluster of x's and g's. A
+// stage is refilled once the consumers of every block of the cluster have
+// released it (release). Maps: x, g [R, H]; Wg_c, Wu_c [H, nc] and Wd_c
+// [nc, H] windows; dag, dau, act: the [R, nc] workspace.
+__global__ void __cluster_dims__(kDactCluster, 1, 1) __launch_bounds__(gc::kThreads, 1)
+    swiglu_dact_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                             const __grid_constant__ CUtensorMap tg,
+                             const __grid_constant__ CUtensorMap twg,
+                             const __grid_constant__ CUtensorMap twu,
+                             const __grid_constant__ CUtensorMap twd, __nv_bfloat16* dag,
+                             __nv_bfloat16* dau, __nv_bfloat16* act, int r, int nc, int h) {
+  using gc::kBox;
+  constexpr int S = kDactStages, CL = kDactCluster;
+  extern __shared__ __align__(1024) char smem_raw[];
+  DactSmem& sm = *reinterpret_cast<DactSmem*>(smem_raw +
+                                              ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  // the cluster's tiles: (row tile, column pair); this block's columns
+  // are the pair's rank-th 64
+  const int nm = gc::cdiv(r, gc::kBM), np = gc::cdiv(gc::cdiv(nc, kDactBN), CL);
+  const int nt = nm * np, nk = gc::cdiv(h, gc::kBK);
+  const int rank = (int)cluster_rank(), first = blockIdx.x / CL, step = gridDim.x / CL;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(&sm.full[st], 1);                          // the producer's expect_tx
+      mbar_init(&sm.empty[st], kDactEmpty);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // every block's barriers ready before any multicast or remote arrival
+
+  int stage = 0;
+  uint32_t phase = 0;
+  if (threadIdx.x >= gc::kConsumers) {
+    if (threadIdx.x == gc::kConsumers) {
+      for (int t = first; t < nt; t += step) {
+        int mt, pt;
+        gc::tile_of(t, nm, np, mt, pt);
+        const int m0 = mt * gc::kBM, n0 = (pt * CL + rank) * kDactBN;
+        for (int kt = 0; kt < nk; ++kt) {
+          const int k0 = kt * gc::kBK;
+          mbar_wait(&sm.empty[stage], phase ^ 1);
+          mbar_arrive_tx(&sm.full[stage], (2 * gc::kBM * gc::kBK + 3 * kBox) * 2);
+          for (int hh = rank; hh < 2; hh += CL) {  // this block's share of x's and g's boxes
+            if (CL == 1) {
+              tma_load_2d(sm.x[stage] + hh * kBox, &tx, &sm.full[stage], k0, m0 + 64 * hh);
+              tma_load_2d(sm.g[stage] + hh * kBox, &tg, &sm.full[stage], k0, m0 + 64 * hh);
+            } else {
+              constexpr uint16_t all = (1u << CL) - 1;
+              tma_load_2d_multicast(sm.x[stage] + hh * kBox, &tx, &sm.full[stage], k0,
+                                    m0 + 64 * hh, all);
+              tma_load_2d_multicast(sm.g[stage] + hh * kBox, &tg, &sm.full[stage], k0,
+                                    m0 + 64 * hh, all);
+            }
+          }
+          tma_load_2d(sm.wgu[stage], &twg, &sm.full[stage], n0, k0);  // MN-major
+          tma_load_2d(sm.wgu[stage] + kBox, &twu, &sm.full[stage], n0, k0);
+          tma_load_2d(sm.wd[stage], &twd, &sm.full[stage], k0, n0);  // K-major
+          gc::advance<S>(stage, phase);
+        }
+      }
+    }
+    __syncwarp();
+    cluster_sync();  // no block leaves while another may still arrive on its barriers
+    return;
+  }
+
+  const int wgi = threadIdx.x >> 7;
+  const gc::Frag f;
+  for (int t = first; t < nt; t += step) {
+    int mt, pt;
+    gc::tile_of(t, nm, np, mt, pt);
+    const int m0 = mt * gc::kBM, n0 = (pt * CL + rank) * kDactBN;
+    // agu: [ag | au], one m64n128 product of x by Wg_c's and Wu_c's boxes
+    // side by side (x read once for both); dact: m64n64
+    float agu[kDactBN], dact[kDactBN / 2];
+#pragma unroll
+    for (int i = 0; i < kDactBN; ++i) agu[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDactBN / 2; ++i) dact[i] = 0.f;
+    int prev = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(&sm.full[stage], phase);
+      fence_regs(agu);
+      fence_regs(dact);
+      wgmma_fence();
+      const __nv_bfloat16* xs = sm.x[stage] + wgi * kBox;
+      const __nv_bfloat16* gs = sm.g[stage] + wgi * kBox;
+#pragma unroll
+      for (int kk = 0; kk < gc::kBK / 16; ++kk) {
+        const uint64_t xd = gc::operand_desc<false>(xs, kk);
+        wgmma_smem<2 * kDactBN, 0, 1>(agu, xd, gc::operand_desc<true>(sm.wgu[stage], kk), 1);
+        wgmma_smem<kDactBN, 0, 0>(dact, gc::operand_desc<false>(gs, kk),
+                                  gc::operand_desc<false>(sm.wd[stage], kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(agu);
+      fence_regs(dact);
+      if (kt > 0) release(&sm.empty[prev], rank);
+      prev = stage;
+      gc::advance<S>(stage, phase);
+    }
+    wgmma_wait<0>();
+    fence_regs(agu);
+    fence_regs(dact);
+    release(&sm.empty[prev], rank);
+
+    // the epilogue from the registers, EPI_DSWIGLU's formulas, stored
+    // straight to device memory (a staging tile's 48 KB hold the ring's
+    // fourth stage instead); a block whose columns lie past nc (an odd
+    // count of column tiles: the last pair's second) only shares its loads
+#pragma unroll
+    for (int n = 0; n < kDactBN / 8; ++n)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = m0 + 64 * wgi + f.row + 8 * hh, col = n0 + 8 * n + f.col;
+        if (row >= r || col >= nc) continue;  // nc is even: col + 1 < nc too
+        float o[3][2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * n + 2 * hh + e;
+          const float a = agu[i], u = agu[kDactBN / 2 + i], v = dact[i];
+          const float s = sigmoid(a), silu = a * s;
+          o[0][e] = v * u * (s * (1.f + a * (1.f - s)));
+          o[1][e] = v * silu;
+          o[2][e] = silu * u;
+        }
+        const size_t at = (size_t)row * nc + col;
+        *reinterpret_cast<uint32_t*>(dag + at) = pack_bf16(o[0][0], o[0][1]);
+        *reinterpret_cast<uint32_t*>(dau + at) = pack_bf16(o[1][0], o[1][1]);
+        *reinterpret_cast<uint32_t*>(act + at) = pack_bf16(o[2][0], o[2][1]);
+      }
+  }
+  cluster_sync();
+}
+
+constexpr size_t kDactSmem = sizeof(DactSmem) + 1024;
+static_assert(kDactSmem <= kMaxSmem, "shared memory of a block");
+
+// The clusters of P1 that fit the card at once (its persistent grid), or
+// 0 if the query fails.
+int dact_clusters() {
+  static const int n = [] {
+    if (cudaFuncSetAttribute(swiglu_dact_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDactSmem))
+      return 0;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kDactCluster, 1, 1);
+    cfg.blockDim = dim3(gc::kThreads, 1, 1);
+    cfg.dynamicSmemBytes = kDactSmem;
+    int count = 0;
+    return cudaOccupancyMaxActiveClusters(&count, swiglu_dact_wgmma_kernel, &cfg) == cudaSuccess
+               ? count
+               : 0;
+  }();
+  return n;
+}
+
+int run_dact(const CUtensorMap (&m)[5], void* const (&out)[3], int r, int nc, int h,
+             cudaStream_t st) {
+  const int nt = gc::cdiv(r, gc::kBM) * gc::cdiv(gc::cdiv(nc, kDactBN), kDactCluster);
+  const int clusters = dact_clusters();
+  if (clusters <= 0) return (int)cudaErrorInvalidDevice;
+  int rc = (int)cudaFuncSetAttribute(swiglu_dact_wgmma_kernel,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDactSmem);
+  if (rc) return rc;
+  swiglu_dact_wgmma_kernel<<<std::min(nt, clusters) * kDactCluster, gc::kThreads, kDactSmem,
+                             st>>>(m[0], m[1], m[2], m[3], m[4],
+                                   static_cast<__nv_bfloat16*>(out[0]),
+                                   static_cast<__nv_bfloat16*>(out[1]),
+                                   static_cast<__nv_bfloat16*>(out[2]), r, nc, h);
+  return (int)cudaGetLastError();
+}
+
+// The route's launches, chunk by chunk; `parts` bit i runs product P(i + 1)
+// (15 on the op's path: every product; the others time a part alone).
+int launch(const void* x, const void* wg, const void* wu, const void* wd, const void* g, void* dx,
+           void* dwg, void* dwu, void* dwd, void* dag_ws, void* dau_ws, void* act_ws,
+           void* acc_ws, int r, int h, int f, int fc, int parts, void* stream) {
+  if (bad_shape(r, h, f, fc) || h % 8 || f % 8 || fc % 8) return (int)cudaErrorInvalidValue;
+  for (const void* p : {x, wg, wu, wd, g, (const void*)dx, (const void*)dwg, (const void*)dwu,
+                        (const void*)dwd, (const void*)dag_ws, (const void*)dau_ws,
+                        (const void*)act_ws})
+    if (!aligned16(p)) return (int)cudaErrorInvalidValue;
+  if (f > fc && (!acc_ws || !aligned16(acc_ws))) return (int)cudaErrorInvalidValue;
+  using B = __nv_bfloat16;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t hb = (size_t)h * 2, fb = (size_t)f * 2;
+  CUtensorMap tx, tg, tdx, tacc;
+  int rc;
+  if ((rc = gc::map_2d(&tx, x, h, r, hb)) || (rc = gc::map_2d(&tg, g, h, r, hb)) ||
+      (rc = gc::map_2d(&tdx, dx, h, r, hb)))
+    return rc;
+  tacc = tdx;  // one chunk: no f32 sum
+  if (f > fc && (rc = gc::map_2d_f32(&tacc, acc_ws, h, r, (size_t)h * 4))) return rc;
+  const int nch = (f + fc - 1) / fc;
+  for (int c = 0; c < nch; ++c) {
+    const int f0 = c * fc, nc = std::min(fc, f - f0);
+    const size_t wrow = (size_t)f0 * h;  // Wd's and dWd's first row of the chunk
+    // the chunk's windows: [H, nc] of Wg, Wu, dWg, dWu; [nc, H] of Wd,
+    // dWd; the workspace [R, nc]
+    CUtensorMap twg, twu, twd, tdwg, tdwu, tdwd, tdag, tdau, tact;
+    if ((rc = gc::map_2d(&twg, static_cast<const B*>(wg) + f0, nc, h, fb)) ||
+        (rc = gc::map_2d(&twu, static_cast<const B*>(wu) + f0, nc, h, fb)) ||
+        (rc = gc::map_2d(&tdwg, static_cast<B*>(dwg) + f0, nc, h, fb)) ||
+        (rc = gc::map_2d(&tdwu, static_cast<B*>(dwu) + f0, nc, h, fb)) ||
+        (rc = gc::map_2d(&twd, static_cast<const B*>(wd) + wrow, h, nc, hb)) ||
+        (rc = gc::map_2d(&tdwd, static_cast<B*>(dwd) + wrow, h, nc, hb)) ||
+        (rc = gc::map_2d(&tdag, dag_ws, nc, r, (size_t)nc * 2)) ||
+        (rc = gc::map_2d(&tdau, dau_ws, nc, r, (size_t)nc * 2)) ||
+        (rc = gc::map_2d(&tact, act_ws, nc, r, (size_t)nc * 2)))
+      return rc;
+    if (parts & 1) {  // P1: dag, dau, act
+      const CUtensorMap m[5] = {tx, tg, twg, twu, twd};
+      void* const out[3] = {dag_ws, dau_ws, act_ws};
+      if ((rc = run_dact(m, out, r, nc, h, st))) return rc;
+    }
+    if (parts & 2) {  // P2: dX (+)= [dag | dau] . [Wg_c | Wu_c]^T
+      const CUtensorMap m[6] = {tdag, tdau, twg, twu, tdx, tacc};
+      const gc::Shape sh{r, h, nc, 1, 0};
+      if (nch == 1) {  // dX = round(C)
+        rc = gc::run<false, false, kBN, kStages>(m, sh, gc::EpiStore{}, st);
+      } else if (c < nch - 1) {  // the f32 sum: stored, then added to
+        rc = gc::run<false, false, kBN, kStages>(m, sh, gc::EpiSum{c == 0}, st);
+      } else {  // dX = round(sum + C)
+        const gc::EpiSumLast epi{static_cast<const float*>(acc_ws), (size_t)h, r, h};
+        rc = gc::run<false, false, kBN, kStages>(m, sh, epi, st);
+      }
+      if (rc) return rc;
+    }
+    if (parts & 4) {  // P3: [dWg_c | dWu_c] = x^T . [dag | dau]
+      const CUtensorMap m[6] = {tx, tx, tdag, tdau, tdwg, tdwu};
+      if ((rc = gc::run<true, true, kBN, kStages>(m, gc::Shape{h, nc, r, 0, 1},
+                                                                gc::EpiStore{}, st)))
+        return rc;
+    }
+    if (parts & 8) {  // P4: dWd_c = act^T . g
+      const CUtensorMap m[6] = {tact, tact, tg, tg, tdwd, tdwd};
+      if ((rc = gc::run<true, true, kBN, kStages>(m, gc::Shape{nc, h, r, 0, 0},
+                                                                gc::EpiStore{}, st)))
+        return rc;
+    }
+  }
+  return 0;
+}
+
+}  // namespace sw
+
 }  // namespace
 
 extern "C" {
@@ -636,6 +974,29 @@ int fused_swiglu_bwd_bf16(const void* x, const void* wg, const void* wu, const v
                           int r, int h, int f, int fc, void* stream) {
   return launch_swiglu_bwd<__nv_bfloat16>(x, wg, wu, wd, g, dx, dwg, dwu, dwd, ag_ws, au_ws,
                                           dag_ws, dau_ws, act_ws, acc_ws, r, h, f, fc, stream);
+}
+
+// The wgmma route, bf16 only: H, F and Fc multiples of 8, every tensor
+// 16-byte aligned (anything else is refused). dag_ws, dau_ws, act_ws:
+// [R, Fc] bf16; acc_ws: the f32 [R, H] dX accumulator when F > Fc (else
+// may be null).
+int fused_swiglu_bwd_wgmma_bf16(const void* x, const void* wg, const void* wu, const void* wd,
+                                const void* g, void* dx, void* dwg, void* dwu, void* dwd,
+                                void* dag_ws, void* dau_ws, void* act_ws, void* acc_ws, int r,
+                                int h, int f, int fc, void* stream) {
+  return sw::launch(x, wg, wu, wd, g, dx, dwg, dwu, dwd, dag_ws, dau_ws, act_ws, acc_ws, r, h, f,
+                    fc, 15, stream);
+}
+
+// The same with only the products of `parts` (bit i: P(i + 1)), for
+// timing one product alone (scripts/swiglu_bwd_variants.py).
+int fused_swiglu_bwd_wgmma_parts_bf16(const void* x, const void* wg, const void* wu,
+                                      const void* wd, const void* g, void* dx, void* dwg,
+                                      void* dwu, void* dwd, void* dag_ws, void* dau_ws,
+                                      void* act_ws, void* acc_ws, int r, int h, int f, int fc,
+                                      int parts, void* stream) {
+  return sw::launch(x, wg, wu, wd, g, dx, dwg, dwu, dwd, dag_ws, dau_ws, act_ws, acc_ws, r, h, f,
+                    fc, parts, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) primitives of the port's TMA + wgmma kernels (the flash
-// forward's in flash_attention.cu, the projection-LayerNorm's cluster
-// route in proj_ln.cu): shared-memory addresses, mbarriers with a hang
-// trap, named and cluster barriers, reads of a cluster peer's shared
-// memory, TMA loads and stores, the wgmma descriptor of a 128-byte
-// swizzled tile and wgmma's fences, and the host-side encoding of a
+// kernels' in flash_attention.cu, the projection-LayerNorm's cluster
+// route in proj_ln.cu, the GEMM core of gemm_core.cuh): shared-memory
+// addresses, mbarriers with a hang trap, named and cluster barriers, reads
+// of a cluster peer's shared memory and arrivals on its barriers, TMA
+// loads (multicast to a cluster too), stores and reduce-adds, the wgmma
+// descriptor of a 128-byte swizzled tile, wgmma's fences and its products
+// from shared memory (wgmma_smem), and the host-side encoding of a
 // tensor map through the runtime (no libcuda at link time). Included
 // after common.cuh; like it, everything here lives in an anonymous
 // namespace, once per library.
@@ -84,6 +86,14 @@ __device__ __forceinline__ void cluster_sync() {
   cluster_arrive();
   cluster_wait();
 }
+// arrive on the barrier at bar's offset in block `rank` of the cluster
+// (the default .release.cta semantics: it only orders this thread's
+// reads of the stage, which wgmma_wait has completed, before the arrival)
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(a) : "memory");
+}
 // the f32 at p (a shared-memory address of this block) in block `rank` of
 // the cluster
 __device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
@@ -114,6 +124,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
+// the same load into the same offset of the shared memory of every block
+// of the cluster in `mask`, completing on each one's barrier at bar's
+// offset
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,
                                           int c2) {
   asm volatile(
@@ -126,6 +148,16 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
                                              int c1) {
   asm volatile(
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// global += the box in shared memory, element by element in the map's
+// type, by the TMA unit
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
@@ -168,6 +200,70 @@ template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// d (64 x N, f32) (+)= a (64 x 16) . b (16 x N), both bf16 in shared
+// memory. TA / TB: the operand is MN-major and read through wgmma's
+// transpose (0: K-major). acc 0 overwrites d, else adds to it. One set
+// of wrappers for every kernel of the port that takes both operands from
+// shared memory (proj_ln.cu's cluster route: TA 0, TB 1; the GEMM core
+// of gemm_core.cuh: all four).
+template <int N, int TA, int TB> struct Wgmma;
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_smem(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                           int acc) {
+  Wgmma<N, TA, TB>::run(d, da, db, acc);
+}
+
+// the "+f" operands d[i] .. d[i + 7] of an accumulator; the register lists
+// of 32 accumulator operands each
+#define HW_ACC8(i)                                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define HW_R0                                                                               \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define HW_R1                                                                                 \
+  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define HW_R2                                                                                 \
+  ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, " \
+  "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define HW_R3                                                                                  \
+  ", %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "     \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "   \
+  "%126, %127"
+// N, its register list, then the operand numbers of the two descriptors,
+// of scale-d (a predicate, set from acc) and of the two transpose bits
+// (immediates)
+#define HW_WGMMA(N, REGS, DA, DB, SC, TA_, TB_, ...)                                       \
+  template <int TA, int TB> struct Wgmma<N, TA, TB> {                                      \
+    static __device__ __forceinline__ void run(float (&d)[N / 2], uint64_t da, uint64_t db, \
+                                               int acc) {                                  \
+      asm volatile(                                                                        \
+          "{\n.reg .pred p;\n"                                                             \
+          "setp.ne.b32 p, %" #SC ", 0;\n"                                                   \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS                \
+          "}, %" #DA ", %" #DB ", p, 1, 1, %" #TA_ ", %" #TB_ ";\n}\n"                      \
+          : __VA_ARGS__                                                                    \
+          : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));                                 \
+    }                                                                                      \
+  };
+HW_WGMMA(64, HW_R0, 32, 33, 34, 35, 36, HW_ACC8(0), HW_ACC8(8), HW_ACC8(16), HW_ACC8(24))
+HW_WGMMA(128, HW_R0 HW_R1, 64, 65, 66, 67, 68, HW_ACC8(0), HW_ACC8(8), HW_ACC8(16),
+         HW_ACC8(24), HW_ACC8(32), HW_ACC8(40), HW_ACC8(48), HW_ACC8(56))
+HW_WGMMA(192, HW_R0 HW_R1 HW_R2, 96, 97, 98, 99, 100, HW_ACC8(0), HW_ACC8(8), HW_ACC8(16),
+         HW_ACC8(24), HW_ACC8(32), HW_ACC8(40), HW_ACC8(48), HW_ACC8(56), HW_ACC8(64),
+         HW_ACC8(72), HW_ACC8(80), HW_ACC8(88))
+HW_WGMMA(256, HW_R0 HW_R1 HW_R2 HW_R3, 128, 129, 130, 131, 132, HW_ACC8(0), HW_ACC8(8),
+         HW_ACC8(16), HW_ACC8(24), HW_ACC8(32), HW_ACC8(40), HW_ACC8(48), HW_ACC8(56),
+         HW_ACC8(64), HW_ACC8(72), HW_ACC8(80), HW_ACC8(88), HW_ACC8(96), HW_ACC8(104),
+         HW_ACC8(112), HW_ACC8(120))
+#undef HW_WGMMA
+#undef HW_R0
+#undef HW_R1
+#undef HW_R2
+#undef HW_R3
+#undef HW_ACC8
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
@@ -201,21 +297,25 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a bf16 tensor of `rank` (<= 3) dimensions, the innermost
-// first: dims[0] elements contiguous, strides[i] the bytes between
-// consecutive indices of dims[i + 1]; boxes of box[] elements, the inner
-// extent 64 (128 bytes) in the 128-byte swizzle. Elements outside the
-// tensor arrive as zeros.
-int tensor_map_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                    const cuuint64_t* strides, const cuuint32_t* box) {
+// The map of a tensor of `type` and `rank` (<= 3) dimensions, the
+// innermost first: dims[0] elements contiguous, strides[i] the bytes
+// between consecutive indices of dims[i + 1]; boxes of box[] elements,
+// the inner extent 128 bytes (64 bf16, 32 f32) in the 128-byte swizzle.
+// Elements outside the tensor arrive as zeros.
+int tensor_map_typed(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                     const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
   const cuuint32_t estride[3] = {1, 1, 1};
-  const CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  const CUresult rc = fn(map, type, (cuuint32_t)rank,
                          const_cast<void*>(base), dims, strides, box, estride,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+int tensor_map_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box) {
+  return tensor_map_typed(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
 }
 
 }  // namespace

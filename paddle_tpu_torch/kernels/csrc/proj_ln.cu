@@ -367,50 +367,6 @@ struct Args {
   float eps;
 };
 
-// d (64 x N, f32) += a (64 x 16, K-major) . b (16 x N, MN-major, read
-// through wgmma's transpose), both in shared memory
-template <int N>
-__device__ void wgmma_tb(float (&d)[N / 2], uint64_t da, uint64_t db);
-
-// the "+f" operands d[i] .. d[i + 7] of an accumulator; the register lists
-// of 32 accumulator operands each
-#define PL_ACC8(i)                                                                         \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-#define PL_R0                                                                               \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define PL_R1                                                                                 \
-  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
-  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-#define PL_R2                                                                                 \
-  ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, " \
-  "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-// N, its register list, the operand numbers of the two descriptors and
-// of scale-d (a predicate, set from the operand 1: accumulate)
-#define PL_WGMMA(N, REGS, DA, DB, SC, ...)                                                \
-  template <>                                                                             \
-  __device__ __forceinline__ void wgmma_tb<N>(float (&d)[N / 2], uint64_t da, uint64_t db) { \
-    asm volatile(                                                                         \
-        "{\n.reg .pred p;\n"                                                              \
-        "setp.ne.b32 p, %" #SC ", 0;\n"                                                    \
-        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS                 \
-        "}, %" #DA ", %" #DB ", p, 1, 1, 0, 1;\n}\n"                                       \
-        : __VA_ARGS__                                                                     \
-        : "l"(da), "l"(db), "r"(1));                                                      \
-  }
-PL_WGMMA(64, PL_R0, 32, 33, 34, PL_ACC8(0), PL_ACC8(8), PL_ACC8(16), PL_ACC8(24))
-PL_WGMMA(128, PL_R0 PL_R1, 64, 65, 66, PL_ACC8(0), PL_ACC8(8), PL_ACC8(16), PL_ACC8(24),
-         PL_ACC8(32), PL_ACC8(40), PL_ACC8(48), PL_ACC8(56))
-PL_WGMMA(192, PL_R0 PL_R1 PL_R2, 96, 97, 98, PL_ACC8(0), PL_ACC8(8), PL_ACC8(16),
-         PL_ACC8(24), PL_ACC8(32), PL_ACC8(40), PL_ACC8(48), PL_ACC8(56), PL_ACC8(64),
-         PL_ACC8(72), PL_ACC8(80), PL_ACC8(88))
-#undef PL_WGMMA
-#undef PL_R0
-#undef PL_R1
-#undef PL_R2
-#undef PL_ACC8
-
 template <int S> __device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
   if (++stage == S) stage = 0, phase ^= 1;
 }
@@ -499,8 +455,8 @@ __device__ __forceinline__ bool product(Smem<NW, BWD>& sm, const CUtensorMap& tx
     const __nv_bfloat16* xs = sm.x[stage] + wgi * 64 * kBK;  // the warpgroup's 64 rows
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_tb<NW>(acc, desc_sw128(xs + kk * 16, 16),
-                   desc_sw128(sm.w[stage] + kk * 16 * 64, kBK * 128));
+      wgmma_smem<NW, 0, 1>(acc, desc_sw128(xs + kk * 16, 16),
+                           desc_sw128(sm.w[stage] + kk * 16 * 64, kBK * 128), 1);
     wgmma_commit();
     wgmma_wait<1>();  // the previous stage's products are done: release it
     fence_regs(acc);

@@ -34,7 +34,15 @@ SwiGLU is built the same way:
 backward saving the primal inputs only (:637). For CUDA tensors the ops
 launch the hand-written Hopper kernels of ``csrc/fused_mlp.cu`` (its
 header names the TPU kernels replaced, the operation bound, the
-workspace and the recompute) or raise; for CPU tensors they take the
+workspace and the recompute) or raise. The SwiGLU backward has two
+routes, picked by ``swiglu_bwd_route`` from the dtype, the widths and
+the alignment: ``wgmma`` (bf16, H and F multiples of 8, 16-byte aligned
+tensors: per ffn chunk a P1 kernel that keeps ag and au in registers and
+writes dag, dau, act, then dX, [dWg | dWu] and dWd on the TMA + wgmma
+GEMM core of ``csrc/gemm_core.cuh``; ``swiglu_bwd_plan`` and
+``gemm_tiles`` mirror its launches and tile walk) or ``generic`` (the
+mma.sync kernels: f32 and every other shape); ``swiglu_bwd_routes``
+counts CUDA calls by route. For CPU tensors they take the
 plain PyTorch versions ``fused_mlp_fwd_ref`` / ``fused_mlp_dx_ref`` /
 ``fused_mlp_dw_ref`` and ``fused_swiglu_fwd_ref`` / ``fused_swiglu_dx_ref``
 / ``fused_swiglu_dw_ref``. ``launches`` counts calls that launch the
@@ -104,7 +112,9 @@ __all__ = ["decode_attn_proj", "decode_attn_proj_ref", "dropout_launches",
            "fused_proj_ln_bwd_ref", "fused_proj_ln_bwd_pair_ref",
            "fused_proj_ln_grads", "fused_proj_ln_grads_ref", "mlp_blocks",
            "mlp_eligible", "pl_cluster_plan", "pl_route", "pl_routes",
-           "proj_ln_eligible", "proj_ln_max_hout", "launches"]
+           "proj_ln_eligible", "proj_ln_max_hout", "launches",
+           "gemm_tiles", "swiglu_bwd_plan", "swiglu_bwd_route",
+           "swiglu_bwd_routes"]
 
 _NEG_INF = -1e30   # flash_attention.py:61 — the kernel's mask, never -inf
 _MAX_HEAD_DIM = 256
@@ -160,6 +170,10 @@ def _dsilu_f32(a):
 # workspace; PERF.md): a quarter of the activation at F = 8192. The SwiGLU
 # kernels walk the same chunks
 _CHUNK_F = 2048
+# the SwiGLU backward's chunk on its wgmma route: three chunks at LLaMA-7B's
+# F = 11008 (4096, 4096, 2816) ran 3.7% faster than six of 2048 on an
+# H100 (scripts/swiglu_bwd_variants.py, PERF.md), for 25 MB more workspace
+_SWIGLU_BWD_CHUNK_F = 4096
 # rows per block of the kernels' GEMM (kRowBlock): the backward's bias
 # gradients are summed per row block, then over the blocks in order
 _ROW_BLOCK = 128
@@ -331,9 +345,20 @@ _MLP_ARGTYPES = {"fused_mlp_fwd": [_P] * 8 + [_I] * 5 + _DROP + [_P],
                  "fused_swiglu_bwd": [_P] * 15 + [_I] * 4 + [_P]}
 
 
+# the SwiGLU backward's wgmma route, bf16 only (``<name>_bf16``): x, wg,
+# wu, wd, g, dx, dwg, dwu, dwd, the dag, dau and act workspaces, the f32
+# accumulator; r, h, f, fc; the stream
+_SWIGLU_WGMMA_ARGTYPES = {"fused_swiglu_bwd_wgmma": [_P] * 13 + [_I] * 4
+                          + [_P]}
+
+
 @functools.cache
 def _mlp_lib():
-    return _build.library("fused_mlp.cu", _MLP_ARGTYPES)
+    lib = _build.library("fused_mlp.cu", _MLP_ARGTYPES)
+    for name, types in _SWIGLU_WGMMA_ARGTYPES.items():
+        fn = getattr(lib, f"{name}_bf16")
+        fn.argtypes, fn.restype = types, ctypes.c_int
+    return lib
 
 
 def _mlp_check(name, x, w1, w2, more=(), vecs=()):
@@ -561,14 +586,104 @@ def _swiglu_fwd_cuda(x, wg, wu, wd):
     return y
 
 
-def _swiglu_bwd_cuda(x, wg, wu, wd, g):
-    """dX and dW through the kernels, in one call. Returns (dx, dwg, dwu,
-    dwd), all in x's dtype."""
+# CUDA calls of the SwiGLU backward by route
+swiglu_bwd_routes = {"wgmma": 0, "generic": 0}
+
+# the wgmma route's geometry (csrc/gemm_core.cuh, csrc/fused_mlp.cu's
+# namespace sw): the core's output tile and k step, P1's tile width and
+# its clusters' blocks (side by side along N), the row tiles of a raster
+# group
+SW_BM, SW_BN, SW_BK, SW_GROUP_M = 128, 256, 64, 8
+SW_DACT_BN, SW_DACT_CLUSTER = 64, 2
+
+
+def swiglu_bwd_route(dtype, h: int, f: int, aligned: bool) -> str:
+    """The SwiGLU backward a CUDA call takes: ``"wgmma"`` for bfloat16
+    with H and F multiples of 8 (TMA's 16-byte row strides) and every
+    tensor 16-byte aligned and contiguous (``aligned``), else
+    ``"generic"``."""
+    if dtype == torch.bfloat16 and h % 8 == 0 and f % 8 == 0 and aligned:
+        return "wgmma"
+    return "generic"
+
+
+def _tile_of(t: int, num_m: int, num_n: int):
+    """gemm_core.cuh's ``tile_of``: the (row, column) tile of the t-th
+    tile a persistent block walks, groups of SW_GROUP_M row tiles sweeping
+    the column tiles, row tile fastest."""
+    per = SW_GROUP_M * num_n
+    first = t // per * SW_GROUP_M
+    rows = min(num_m - first, SW_GROUP_M)
+    rem = t % per
+    return first + rem % rows, rem // rows
+
+
+def gemm_tiles(m: int, n: int, bm: int, bn: int, nsplit: bool = False,
+               cluster: int = 1):
+    """The output tiles of one product in the order the persistent grid
+    walks them: (row0, col0, half), half the N half of an ``nsplit``
+    product (else 0); each tile [row0, row0 + bm) x [col0, col0 + bn),
+    clipped at (m, n). With ``cluster`` blocks side by side along N (P1)
+    the walk is over the clusters' tiles, each listing its blocks' tiles
+    in rank order (the last may lie wholly past n: it only shares its
+    loads)."""
+    halves = 2 if nsplit else 1
+    num_m, nh = -(-m // bm), -(-n // (bn * cluster))
+    out = []
+    for t in range(num_m * nh * halves):
+        mt, nt = _tile_of(t, num_m, nh * halves)
+        half = nt // nh
+        out.extend((mt * bm, ((nt - half * nh) * cluster + rank) * bn, half)
+                   for rank in range(cluster))
+    return out
+
+
+def swiglu_bwd_plan(r: int, h: int, f: int, fc: int):
+    """The wgmma route's launches, chunk by chunk (csrc/fused_mlp.cu
+    ``sw::launch``): a list of (f0, nc, products), products mapping P1..P4
+    to (M, N, K, halves, (tile rows, tile columns, cluster)): P1 [R, nc]
+    over H (three products, dag, dau, act from one tile; clusters of
+    SW_DACT_CLUSTER blocks along N); P2 dX [R, H] over K = 2 nc (two K
+    halves); P3 [dWg_c | dWu_c] [H, nc] over R (two N halves); P4 dWd_c
+    [nc, H] over R. ``halves`` counts the products a launch runs per
+    output tile element (P1: 3 products; P2: its two K halves sum into one
+    output; P3: two outputs)."""
+    if min(r, h, f, fc) < 1:
+        raise ValueError(f"swiglu_bwd_plan: r, h, f, fc must be positive, "
+                         f"got {r}, {h}, {f}, {fc}")
+    plan = []
+    for f0 in range(0, f, fc):
+        nc = min(fc, f - f0)
+        plan.append((f0, nc, {
+            "P1": (r, nc, h, 3, (SW_BM, SW_DACT_BN, SW_DACT_CLUSTER)),
+            "P2": (r, h, nc, 2, (SW_BM, SW_BN, 1)),
+            "P3": (h, nc, r, 2, (SW_BM, SW_BN, 1)),
+            "P4": (nc, h, r, 1, (SW_BM, SW_BN, 1))}))
+    return plan
+
+
+def _swiglu_bwd_cuda(x, wg, wu, wd, g, route=None):
+    """dX and dW through the kernels, in one call, on the route
+    ``swiglu_bwd_route`` picks (``route`` names one instead: a measurement
+    holds the two on the same inputs). Returns (dx, dwg, dwu, dwd), all in
+    x's dtype."""
     r, h, f = _swiglu_check("fused_swiglu_bwd", x, wg, wu, wd, more=(g,))
     if g.shape != x.shape:
         raise ValueError(f"fused_swiglu_bwd: g {tuple(g.shape)} must have "
                          f"x's shape {tuple(x.shape)}")
-    fc = min(f, _CHUNK_F)
+    natural = swiglu_bwd_route(x.dtype, h, f, all(
+        t.data_ptr() % 16 == 0 for t in (x, wg, wu, wd, g)))
+    if route is None:
+        route = natural
+    elif route not in ("wgmma", "generic"):
+        raise ValueError(f"fused_swiglu_bwd: route {route!r} is 'wgmma' or "
+                         f"'generic'")
+    elif route == "wgmma" and natural != "wgmma":
+        raise ValueError(
+            f"fused_swiglu_bwd: the wgmma route takes bfloat16 with H and F "
+            f"multiples of 8 and 16-byte aligned tensors, got {x.dtype}, "
+            f"H={h}, F={f}")
+    fc = min(f, _SWIGLU_BWD_CHUNK_F if route == "wgmma" else _CHUNK_F)
     dev, dt = x.device, x.dtype
 
     def empty(*shape, dtype=dt):
@@ -576,16 +691,28 @@ def _swiglu_bwd_cuda(x, wg, wu, wd, g):
 
     f32 = torch.float32
     dx, dwg, dwu, dwd = empty(r, h), empty(h, f), empty(h, f), empty(f, h)
-    ag, au = empty(r, fc, dtype=f32), empty(r, fc, dtype=f32)
     dag, dau, act = empty(r, fc), empty(r, fc), empty(r, fc)
-    acc = empty(r, h, dtype=f32)   # dX sums two products per chunk
-    _build.call(_mlp_lib(), "fused_swiglu_bwd", dt, dev, x.data_ptr(),
-                wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), g.data_ptr(),
-                dx.data_ptr(), dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(),
-                ag.data_ptr(), au.data_ptr(), dag.data_ptr(), dau.data_ptr(),
-                act.data_ptr(), acc.data_ptr(), r, h, f, fc)
+    if route == "wgmma":
+        # ag and au stay in the registers; dX's f32 sum spans chunks only
+        acc = empty(r, h, dtype=f32) if f > fc else None
+        _build.call(_mlp_lib(), "fused_swiglu_bwd_wgmma", dt, dev,
+                    x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+                    g.data_ptr(), dx.data_ptr(), dwg.data_ptr(),
+                    dwu.data_ptr(), dwd.data_ptr(), dag.data_ptr(),
+                    dau.data_ptr(), act.data_ptr(),
+                    None if acc is None else acc.data_ptr(), r, h, f, fc)
+    else:
+        ag, au = empty(r, fc, dtype=f32), empty(r, fc, dtype=f32)
+        acc = empty(r, h, dtype=f32)   # dX sums two products per chunk
+        _build.call(_mlp_lib(), "fused_swiglu_bwd", dt, dev, x.data_ptr(),
+                    wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), g.data_ptr(),
+                    dx.data_ptr(), dwg.data_ptr(), dwu.data_ptr(),
+                    dwd.data_ptr(), ag.data_ptr(), au.data_ptr(),
+                    dag.data_ptr(), dau.data_ptr(), act.data_ptr(),
+                    acc.data_ptr(), r, h, f, fc)
     launches["fused_swiglu_dx"] += 1
     launches["fused_swiglu_dw"] += 1
+    swiglu_bwd_routes[route] += 1
     return dx, dwg, dwu, dwd
 
 
