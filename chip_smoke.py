@@ -11,8 +11,11 @@ Phases, one line each; any failure raises and exits non-zero:
    (nvidia-smi), the matmul precision settings used throughout;
 2. build every kernel from the repository's sources (kernels/csrc/);
    ptxas' registers and spills for each instantiation of the wgmma flash
-   kernels (forward, dQ, dK/dV) and of the projection-LN's cluster
-   kernels (none may spill);
+   kernels (forward, dQ, dK/dV), of the projection-LN's cluster kernels,
+   of the SwiGLU backward's wgmma kernels (its P1 and the GEMM core's
+   instantiations, which the GeLU backward shares) and of the GeLU
+   backward's own (its P1, the core at P3 / P4's narrower tile) (none
+   may spill);
 3. each kernel against its plain PyTorch version on the card at the
    main path's shapes (GPT-3 1.3B: NH=16, D=128, HO=2048, block_size
    16, 64-entry tables, MHA and GQA), fp32 and bf16, with its time,
@@ -45,20 +48,27 @@ Phases, one line each; any failure raises and exits non-zero:
    and the whole backward (the pre-pass, dQ, dK/dV) beside SDPA's
    backward and the generic route's;
 9. the three fused MLP kernels (forward, dX, dW) against their plain
-   versions on the card: gpt3-1.3b (R=8192, H=2048, F=8192) and ragged
-   shapes (R=1000/333, H=96/100, F=320/200/2560), fp32 and bf16, both
-   GeLU forms (y, dx, dw1, db1, dw2, db2), each element within its
-   row's scale, the check shown to reject a forward missing one ffn
-   chunk; their times at gpt3-1.3b shape beside the plain versions' and
-   the bound, the forward beside the dense addmm -> gelu -> addmm, the
-   shared backward beside that composite's backward;
+   versions on the card: gpt3-1.3b (R=8192, H=2048, F=8192), bert-base
+   (R=16384, H=768, F=3072) and ragged shapes (R=1000/333, H=96/100,
+   F=320/360/200/2560), fp32 and bf16, both GeLU forms (y, dx, dw1,
+   db1, dw2, db2), each element within its row's scale; the backward's
+   route per case (mlp_bwd_routes: the bf16 cases with H and F multiples
+   of 8 on the wgmma kernels, the rest on the generic ones); two
+   backward calls give the same bits; the check shown to reject a
+   forward missing one ffn chunk and a dW1 missing one 128-row block of
+   R; their times at gpt3-1.3b's and bert-base's shapes beside the plain
+   versions' and the bound, the forward beside the dense addmm -> gelu
+   -> addmm, the shared backward beside that composite's backward and
+   beside the generic route in turns;
 10. train gpt3-1.3b (random weights from a seed, bf16, full width and
    depth, FLAGS_fused_mlp on as by default, remat save_small, bf16 AdamW
    moments, the plain LM head) at B=4, S=2048 on one fixed batch: one
    warm-up step, then 4 steps; finite, falling loss; the fused MLP path
    taken; each flash and fused MLP kernel launched 24 times per step,
    every flash forward and backward on the wgmma kernels (the route
-   counters, as in phases 12, 13, 16, 18, 23, 25, 33 and 35);
+   counters, as in phases 12, 13, 16, 18, 23, 25, 33 and 35), every
+   GeLU MLP backward on the wgmma route (as in phases 11, 12, 23, 24, 33
+   and 34);
    ms/step, tokens/s, model TFLOP/s, peak memory, and the card's SM
    clock, power draw and temperature sampled during the timed steps;
 11. torch.profiler over 2 more training steps: device busy time per
@@ -245,8 +255,9 @@ Phases, one line each; any failure raises and exits non-zero:
    32), all bf16, and a ragged R=1000 in f32 (y, dx, dw1, db1, dw2,
    db2), each element within its row's scale; y's zeros equal to the
    plain mask's, and with g in one row only dW2's zero columns and db2's
-   zeros equal to that row's dropped columns; two backward calls give
-   the same bits; autograd through fused_mlp_2d equal to the ops; the
+   zeros equal to that row's dropped columns; each bf16 backward on the
+   wgmma route; two backward calls give the same bits; autograd through
+   fused_mlp_2d equal to the ops; the
    check shown to reject the mask keyed by the kernels' 128-row block;
    their times at gpt3-1.3b's and bert-base's widths beside the plain
    versions', the dropout-free kernels', the bound and addmm -> gelu ->
@@ -1053,16 +1064,25 @@ MLP_REPLACES = {"fused_mlp_fwd": "paddle_tpu/kernels/mlp_fusion.py:228",
 # bf16, the plain ones in f32.
 MLP_TOL = {"float32": 1e-4, "bfloat16": 2 ** -5}
 MLP_R, MLP_H, MLP_F = TRAIN_B * TRAIN_S, 2048, 8192   # the slice's shape
-# (r, h, f, dtype, approximate): gpt3-1.3b; rows not a multiple of any
-# tile, f <= 512 not a multiple of 128, h not a multiple of 64; the last
-# ffn chunk ragged (2560 = 2048 + 512); strides not a multiple of
-# 16 bytes (h = 100: the kernels' scalar load path)
+MLP_BERT = (16384, 768, 3072)     # bert-base's MLP: R = 32 x 512, H, F
+# (r, h, f, dtype, approximate): gpt3-1.3b; bert-base; rows not a
+# multiple of any tile, f <= 512 not a multiple of 128, h not a multiple
+# of 64; the same with the wgmma backward's one chunk ending off a
+# 64-column edge (360); the last ffn chunk ragged (2560 = 2048 + 512);
+# strides not a multiple of 16 bytes (h = 100: the kernels' scalar load
+# path)
 MLP_CASES = [(MLP_R, MLP_H, MLP_F, "bfloat16", True),
+             (*MLP_BERT, "bfloat16", False),
              (1000, 96, 320, "bfloat16", False),
              (1000, 96, 320, "float32", True),
+             (1000, 96, 360, "bfloat16", True),
              (1000, 2048, 2560, "float32", False),
              (1000, 2048, 2560, "bfloat16", True),
              (333, 100, 200, "bfloat16", True)]
+# the bf16 cases whose backward takes the wgmma route (H and F multiples
+# of 8); every other case takes the generic kernels
+MLP_WGMMA = {(MLP_R, MLP_H, MLP_F), MLP_BERT, (1000, 96, 320), (1000, 96, 360),
+             (1000, 2048, 2560)}
 
 
 def mlp_inputs(torch, r, h, f, dtype, seed):
@@ -1101,31 +1121,39 @@ def mlp_bounds(r, h, f, esize, drop=False):
 
 
 def mlp_workspace_gb(r, h, f, esize):
-    """The backward's workspace (csrc/fused_mlp.cu), the larger one: the
-    f32 pre-activation chunk, da and act chunks in the dtype, the f32
-    [R, H] dX accumulator when there is more than one chunk, and the f32
-    column-sum partials of the bias gradients."""
+    """The larger of the forward's and the wgmma backward's workspaces
+    (csrc/fused_mlp.cu): the forward's act chunk in the dtype (chunk
+    _CHUNK_F), the backward's da and act chunks in the dtype (chunk
+    _MLP_BWD_CHUNK_F) and the f32 column-sum partials of the bias
+    gradients, each with the f32 [R, H] accumulator when F exceeds its
+    chunk."""
     from paddle_tpu_torch.kernels import mlp_fusion as mf
-    fc = min(f, mf._CHUNK_F)
+
+    def acc(fc):
+        return r * h * 4 if f > fc else 0
+
+    fwd, bwd = min(f, mf._CHUNK_F), min(f, mf._MLP_BWD_CHUNK_F)
     parts = -(-r // mf._ROW_BLOCK)
-    return (r * fc * (4 + 2 * esize) + (r * h * 4 if f > fc else 0)
-            + parts * (f + h) * 4) / 1e9
+    return max(r * fwd * esize + acc(fwd),
+               r * bwd * 2 * esize + acc(bwd) + parts * (f + h) * 4) / 1e9
 
 
 def phase_mlp_vs_plain(torch):
     """The forward and backward custom ops (``fused_mlp_fwd``,
     ``fused_mlp_bwd``: the kernels' wrappers, which the training step
     reaches through ``fused_mlp_2d``) against their plain versions on
-    the card (y, dx, dw1, db1, dw2, db2) in every MLP_CASES case; the
-    backward repeated gives the same bits, and autograd through
-    ``fused_mlp_2d`` gives the backward op's results; the check shown to
-    reject a forward missing one ffn chunk; then the times at the
-    slice's shape."""
+    the card (y, dx, dw1, db1, dw2, db2) in every MLP_CASES case, the
+    backward on its route (MLP_WGMMA: wgmma, else generic); the backward
+    repeated gives the same bits, and autograd through ``fused_mlp_2d``
+    gives the backward op's results; the check shown to reject a forward
+    missing one ffn chunk and a dW1 missing one row block; then the times
+    at the slice's shape and at bert-base's."""
     from paddle_tpu_torch.kernels import mlp_fusion as mf
-    worst = {}
+    worst, routes = {}, {}
     for r, h, f, name, approx in MLP_CASES:
         dtype = getattr(torch, name)
         x, w1, b1, w2, b2, g = mlp_inputs(torch, r, h, f, dtype, seed=r + f)
+        before = dict(mf.mlp_bwd_routes)
         y = mf.fused_mlp_fwd(x, w1, b1, w2, b2, approx)
         grads = mf.fused_mlp_bwd(x, w1, b1, w2, b2, g, approx)
         dx, dw1, db1, dw2, db2 = grads
@@ -1134,6 +1162,13 @@ def phase_mlp_vs_plain(torch):
         y_ag = mf.fused_mlp_2d(*prim, approximate=approx)
         auto = torch.autograd.grad(y_ag, prim, g)
         torch.cuda.synchronize()
+        took = {k: n - before[k] for k, n in mf.mlp_bwd_routes.items()}
+        route = ("wgmma" if name == "bfloat16" and (r, h, f) in MLP_WGMMA
+                 else "generic")
+        check(took == {"wgmma": 0, "generic": 0, route: 3},
+              f"fused MLP backward routes {took} ({name} r={r} h={h} f={f}), "
+              f"want 3 calls on {route}")
+        routes[f"{name} r={r} h={h} f={f}"] = route
         check(all(torch.equal(a, b) for a, b in zip(again, grads)),
               f"fused MLP backward differs between two calls ({name} r={r} "
               f"h={h} f={f})")
@@ -1167,8 +1202,10 @@ def phase_mlp_vs_plain(torch):
                 worst={n: {k: dict(max_abs_err=e, relative=r)
                            for k, (e, r) in w.items()}
                        for n, w in worst.items()},
-                cases=[list(c) for c in MLP_CASES],
+                cases=[list(c) for c in MLP_CASES], backward_routes=routes,
                 wrong_kernel_reading=mlp_check_rejects(torch, mf),
+                wrong_dw1_reading=mlp_dw_check_rejects(torch, mf),
+                bert_base=mlp_times(torch, mf, *MLP_BERT, approx=False),
                 **mlp_times(torch, mf))
 
 
@@ -1192,6 +1229,27 @@ def mlp_check_rejects(torch, mf):
     return reading
 
 
+def mlp_dw_check_rejects(torch, mf, rows=128):
+    """The bf16 check must reject a dW1 that leaves out one 128-row block
+    of R (a tile of the wgmma route's K walk, dropped): the plain dW1 at
+    the slice's shape with rows 128-255 of x and da left out, rounded.
+    Returns its reading."""
+    x, w1, b1, w2, _, g = mlp_inputs(torch, MLP_R, MLP_H, MLP_F,
+                                     torch.bfloat16, seed=MLP_R + MLP_F)
+    _, da = mf._da(x, w1, b1, w2, g.float(), True)
+    ref = x.float().T @ da
+    keep = torch.ones(MLP_R, dtype=torch.bool, device="cuda")
+    keep[rows:2 * rows] = False
+    wrong = (x.float()[keep].T @ da[keep]).to(x.dtype)
+    reading = flash_reading(wrong, ref)
+    check(reading > MLP_TOL["bfloat16"],
+          f"the bf16 MLP check passes a dW1 with one {rows}-row block left "
+          f"out: {reading} <= {MLP_TOL['bfloat16']}")
+    del x, w1, b1, w2, g, da, ref, wrong
+    torch.cuda.empty_cache()
+    return reading
+
+
 def mlp_times(torch, mf, r=MLP_R, h=MLP_H, f=MLP_F, approx=True, key=None):
     """CUDA-event times in bf16 (phase 9: gpt3-1.3b's R=8192, H=2048,
     F=8192, tanh): the forward and the backward op, each in turns with
@@ -1201,10 +1259,12 @@ def mlp_times(torch, mf, r=MLP_R, h=MLP_H, f=MLP_F, approx=True, key=None):
     by the port): the dense composite addmm -> gelu -> addmm through
     cuBLAS for the forward; no library call computes dX alone or dW
     alone, so their library_ms is null and the composite's whole backward
-    (autograd on a retained graph) is timed beside the backward op. With
-    a dropout ``key``: the dropout variants, each also in turns with the
-    dropout-free op, and F.dropout on the composite's output (its
-    retained graph keeps one mask)."""
+    (autograd on a retained graph) is timed beside the backward op. The
+    backward (on the wgmma route) is also timed in turns with the generic
+    route on the same inputs (``earlier_ms``). With a dropout ``key``:
+    the dropout variants, each also in turns with the dropout-free op,
+    and F.dropout on the composite's output (its retained graph keeps one
+    mask)."""
     x, w1, b1, w2, b2, g = mlp_inputs(torch, r, h, f, torch.bfloat16, seed=11)
     d = () if key is None else (key.p, key.s0, key.s1, key.rows)
 
@@ -1235,6 +1295,14 @@ def mlp_times(torch, mf, r=MLP_R, h=MLP_H, f=MLP_F, approx=True, key=None):
             t = res[name]
             t["dropout_free_ms"], t["ms_beside_dropout_free"], _ = in_turns(
                 fn, runs[name][0], iters=10)
+    bwd = res["backward"]
+    bwd["earlier_ms"], _, bwd["earlier_all_ms"] = in_turns(
+        lambda _: mf._bwd_cuda(x, w1, b1, w2, g, approx, key,
+                               route="generic"),
+        lambda _: mf._bwd_cuda(x, w1, b1, w2, g, approx, key, route="wgmma"),
+        iters=10)
+    bwd.update(route="wgmma", earlier="the generic route (mlp_gemm_kernel, "
+               "5 launches a chunk of 2048), same inputs, in turns")
     gelu = torch.nn.functional.gelu
 
     def composite(x, w1, b1, w2, b2):
@@ -1246,12 +1314,12 @@ def mlp_times(torch, mf, r=MLP_R, h=MLP_H, f=MLP_F, approx=True, key=None):
         lambda _: composite(x, w1, b1, w2, b2), runs["forward"][0], iters=10)
     prim = [t.detach().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
     yc = composite(*prim)
-    bwd = res["backward"]
     bwd["library_bwd_ms"], bwd["ms_beside_library"], _ = in_turns(
         lambda _: torch.autograd.grad(yc, prim, g, retain_graph=True),
         runs["backward"][0], iters=10)
     res["timed_at"] = dict(r=r, h=h, f=f, dtype="bfloat16", approximate=approx,
                            chunk_f=mf._CHUNK_F,
+                           wgmma_backward_chunk_f=mf._MLP_BWD_CHUNK_F,
                            dropout=None if key is None else key.p,
                            block_r=None if key is None else key.rows)
     del x, w1, b1, w2, b2, g, prim, yc
@@ -1289,12 +1357,12 @@ def _launch_counts():
 def reset_launches():
     """Every kernel count of the training paths to 0, the dropout
     variants', the flash forward's and backward's, the projection-LN's
-    and the SwiGLU backward's routes included."""
+    and the GeLU and SwiGLU backwards' routes included."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     plain, drop = _launch_counts()
     for counts in plain + drop + (fa.fwd_routes, fa.bwd_routes, mf.pl_routes,
-                                  mf.swiglu_bwd_routes):
+                                  mf.swiglu_bwd_routes, mf.mlp_bwd_routes):
         for key in counts:
             counts[key] = 0
 
@@ -1340,6 +1408,19 @@ def pl_routes_reading(counts, what):
             "bwd_cluster": n["bwd"], "bwd_generic": 0}
     check(n["fwd"] > 0 and routes == want,
           f"{what}: projection-LN calls by route {routes}, want {want}")
+    return routes
+
+
+def mlp_bwd_routes_reading(counts, what, fused=True):
+    """The GeLU MLP backward's calls by route since reset_launches: on a
+    bf16 model path with the fused MLP every one (dropout variant or not)
+    must take the wgmma kernels; with it off there is none."""
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    n = counts.get("fused_mlp_dw", 0) + counts.get("dropout_fused_mlp_dw", 0)
+    routes = dict(mf.mlp_bwd_routes)
+    check((n > 0) == fused and routes == {"wgmma": n, "generic": 0},
+          f"{what}: GeLU MLP backward calls by route {routes}, want all {n} "
+          f"on the wgmma kernels (fused MLP {fused})")
     return routes
 
 
@@ -1408,6 +1489,7 @@ def phase_train(torch, cfg, fused, steps=TRAIN_STEPS):
               f"layers (want {want}; FLAGS_fused_mlp={fused})")
     routes = fwd_routes_reading(counts, "gpt3-1.3b training")
     broutes = bwd_routes_reading(counts, "gpt3-1.3b training")
+    mroutes = mlp_bwd_routes_reading(counts, "gpt3-1.3b training", fused)
     tokens = TRAIN_B * TRAIN_S
     flops = model_flops_per_step(cfg, tokens, TRAIN_S)
     ms = wall / steps * 1e3
@@ -1422,7 +1504,8 @@ def phase_train(torch, cfg, fused, steps=TRAIN_STEPS):
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                card_during_steps=clocks.summary(), launches=counts,
                launches_per_step={k: n / steps for k, n in counts.items()},
-               flash_fwd_routes=routes, flash_bwd_routes=broutes)
+               flash_fwd_routes=routes, flash_bwd_routes=broutes,
+               fused_mlp_bwd_routes=mroutes)
     return out, params, opt, (x, y)
 
 
@@ -1435,6 +1518,7 @@ def phase_profile_train(torch, cfg, params, opt, batch, steps=2):
     from paddle_tpu_torch.models import gpt
     step = gpt.make_train_step(cfg)
     torch.cuda.synchronize()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1442,6 +1526,7 @@ def phase_profile_train(torch, cfg, params, opt, batch, steps=2):
             step(params, opt, *batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    mroutes = mlp_bwd_routes_reading(read_launches(), "gpt3-1.3b profile")
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
@@ -1453,16 +1538,17 @@ def phase_profile_train(torch, cfg, params, opt, batch, steps=2):
                        "flash_bwd_prep_kernel", "flash_dq_wgmma_kernel",
                        "flash_dkv_wgmma_kernel", "flash_dq_kernel",
                        "flash_dkv_kernel")}
-    # the fused MLP kernels by instantiation: <dtype, A col-major, B
-    # col-major, epilogue> (0 gelu, 1 accumulate, 2 pre-activation, 3
-    # gelu', 4 store), the column sums of g and the bias gradients' sum
-    # over the row blocks
+    # the fused MLP kernels by instantiation: the generic core's <dtype, A
+    # col-major, B col-major, epilogue> (0 gelu, 1 accumulate, 2
+    # pre-activation, 3 gelu', 4 store), the backward's wgmma P1 and GEMM
+    # core, the column sums of g and the bias gradients' sum over the row
+    # blocks
     mlp = kernel_ms(dev, MLP_KERNEL_NAMES, steps)
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
     return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
                 device_busy_ms_per_step=busy_ms / steps,
                 device_idle_share=1.0 - busy_ms / wall_ms,
-                flash_ms_per_step=flash,
+                fused_mlp_bwd_routes=mroutes, flash_ms_per_step=flash,
                 flash_share_of_busy=sum(flash.values()) * steps / busy_ms,
                 fused_mlp_ms_per_step=sum(mlp.values()),
                 fused_mlp_share_of_busy=sum(mlp.values()) * steps / busy_ms,
@@ -1493,7 +1579,9 @@ def phase_remat_full(torch, cfg, params, opt, batch):
     check(bool(np.isfinite(float(loss))), "remat 'full' loss not finite")
     return dict(remat_policy="full", loss=float(loss), launches=counts,
                 flash_fwd_routes=fwd_routes_reading(counts, "remat 'full'"),
-                flash_bwd_routes=bwd_routes_reading(counts, "remat 'full'"))
+                flash_bwd_routes=bwd_routes_reading(counts, "remat 'full'"),
+                fused_mlp_bwd_routes=mlp_bwd_routes_reading(counts,
+                                                            "remat 'full'"))
 
 
 def phase_train_parity_fp32(torch):
@@ -1579,9 +1667,11 @@ def kernel_ms(dev, names, steps):
 
 # the fused MLP library's kernels as the profiler names them: the generic
 # GEMM core, the GeLU backward's column sums and their fixed-order sum,
-# the SwiGLU backward's wgmma route (P1, then the core's P2-P4)
+# the wgmma routes of the GeLU and SwiGLU backwards (their P1 kernels,
+# then the core's P2-P4)
 MLP_KERNEL_NAMES = ("mlp_gemm_kernel", "colsum_kernel", "sum_parts_kernel",
-                    "swiglu_dact_wgmma_kernel", "wgmma_gemm_kernel")
+                    "gelu_dact_wgmma_kernel", "swiglu_dact_wgmma_kernel",
+                    "wgmma_gemm_kernel")
 
 SWIGLU_REPLACES = {
     "fused_swiglu_fwd": "paddle_tpu/kernels/mlp_fusion.py:522",
@@ -3297,6 +3387,7 @@ def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
               f"{cfg.attention_probs_dropout_prob})")
     routes = fwd_routes_reading(counts, "bert-base training")
     broutes = bwd_routes_reading(counts, "bert-base training")
+    mroutes = mlp_bwd_routes_reading(counts, "bert-base training", fused)
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     if fused:
         proj_ln_routes = pl_routes_reading(counts, "bert-base training")
@@ -3327,7 +3418,7 @@ def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
                card_during_steps=clocks.summary(), launches=counts,
                launches_per_step={k: n / steps for k, n in counts.items()},
                flash_fwd_routes=routes, flash_bwd_routes=broutes,
-               proj_ln_routes=proj_ln_routes)
+               proj_ln_routes=proj_ln_routes, fused_mlp_bwd_routes=mroutes)
     return out, model, step
 
 
@@ -3339,6 +3430,7 @@ def phase_profile_bert(torch, step, steps=2):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3346,6 +3438,7 @@ def phase_profile_bert(torch, step, steps=2):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    mroutes = mlp_bwd_routes_reading(read_launches(), "bert-base profile")
     spans, dev = {}, []
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -3370,8 +3463,9 @@ def phase_profile_bert(torch, step, steps=2):
                                        "flash_dkv_wgmma_kernel",
                                        "flash_dq_kernel",
                                        "flash_dkv_kernel"),
-              "fused_mlp (mlp_gemm, colsum)": ("mlp_gemm_kernel",
-                                               "colsum_kernel"),
+              "fused_mlp (gelu_dact_wgmma, the GEMM core, mlp_gemm, colsum)":
+              ("gelu_dact_wgmma_kernel", "wgmma_gemm_kernel",
+               "mlp_gemm_kernel", "colsum_kernel"),
               "column sums (sum_parts_kernel: LN, proj-LN, MLP backwards)":
               ("sum_parts_kernel",)}
     by_group = {g: sum(e.self_device_time_total for e in dev
@@ -3381,7 +3475,7 @@ def phase_profile_bert(torch, step, steps=2):
     return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
                 device_busy_ms_per_step=busy_ms / steps,
                 device_idle_share=1.0 - busy_ms / wall_ms,
-                kernels_ms_per_step=by_group,
+                fused_mlp_bwd_routes=mroutes, kernels_ms_per_step=by_group,
                 kernels_share_of_busy={g: t * steps / busy_ms
                                        for g, t in by_group.items()},
                 adamw_span_ms_per_step=spans.get(
@@ -3933,7 +4027,7 @@ def phase_mlp_dropout_vs_plain(torch):
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     from paddle_tpu_torch.kernels import norm_fusion as nf
-    worst, tiles, faults = {}, {}, {}
+    worst, tiles, faults, routes = {}, {}, {}, {}
     for r, h, f, name, approx in MLP_DROP_CASES:
         dtype = getattr(torch, name)
         x, w1, b1, w2, b2, g = mlp_inputs(torch, r, h, f, dtype,
@@ -3942,6 +4036,7 @@ def phase_mlp_dropout_vs_plain(torch):
         d = (key.p, key.s0, key.s1, key.rows)
         what = f"{name} r={r} h={h} f={f} approximate={approx}"
         tiles[what] = key.rows
+        before = dict(mf.mlp_bwd_routes)
         y = mf.fused_mlp_fwd(x, w1, b1, w2, b2, approx, *d)
         grads = mf.fused_mlp_bwd(x, w1, b1, w2, b2, g, approx, *d)
         again = mf.fused_mlp_bwd(x, w1, b1, w2, b2, g, approx, *d)
@@ -3954,6 +4049,12 @@ def phase_mlp_dropout_vs_plain(torch):
         one = mf.fused_mlp_bwd(x, w1, b1, w2, b2, g1, approx, *d)
         keep = nf.row_keep_ref(key, x)
         torch.cuda.synchronize()
+        took = {k: n - before[k] for k, n in mf.mlp_bwd_routes.items()}
+        route = "wgmma" if name == "bfloat16" else "generic"
+        check(took == {"wgmma": 0, "generic": 0, route: 4},
+              f"fused MLP dropout backward routes {took} ({what}), want 4 "
+              f"calls on {route}")
+        routes[what] = route
         check(all(same_bits(a, b) for a, b in zip(again, grads)),
               f"fused MLP dropout backward differs between two calls "
               f"({what})")
@@ -4009,7 +4110,7 @@ def phase_mlp_dropout_vs_plain(torch):
                            for k, (e, r) in w.items()}
                        for n, w in worst.items()},
                 cases=[list(c) for c in MLP_DROP_CASES], key_tile_rows=tiles,
-                planted_faults=faults,
+                backward_routes=routes, planted_faults=faults,
                 times={"gpt3-1.3b": mlp_times(torch, mf, key=mlp_key(
                            fa, mf, MLP_R, MLP_H, MLP_F, torch.bfloat16)),
                        "bert-base": mlp_times(
@@ -4814,13 +4915,60 @@ def swiglu_ptxas_lines(log):
     return out
 
 
+# the SwiGLU backward's wgmma kernels as swiglu_ptxas_lines names them:
+# P1; the core's P2 with its three epilogues (one chunk, the f32 sum's
+# first and middle chunks, the last); P3 / P4. The GeLU backward's P2-P4
+# share these instantiations.
+SWIGLU_WGMMA_KERNELS = ("swiglu_dact_wgmma_kernel",
+                        "wgmma_gemm_kernel<0, 0, 256, 3, EpiStore>",
+                        "wgmma_gemm_kernel<0, 0, 256, 3, EpiSum>",
+                        "wgmma_gemm_kernel<0, 0, 256, 3, EpiSumLast>",
+                        "wgmma_gemm_kernel<1, 1, 256, 3, EpiStore>")
+
+
 def swiglu_wgmma_ptxas(build_log):
-    """The SwiGLU wgmma kernels' ptxas lines (P1; the core's P2 with its
-    three epilogues: one chunk, the f32 sum's first and middle chunks, the
-    last; P3 / P4): none may spill."""
-    out = swiglu_ptxas_lines(build_log.get("fused_mlp.cu", ""))
+    """The SwiGLU wgmma kernels' ptxas lines (SWIGLU_WGMMA_KERNELS): none
+    may spill."""
+    out = {k: v for k, v in
+           swiglu_ptxas_lines(build_log.get("fused_mlp.cu", "")).items()
+           if k in SWIGLU_WGMMA_KERNELS}
     check(len(out) == 5 or "fused_mlp.cu" not in build_log,
           f"ptxas lines for {len(out)} SwiGLU wgmma kernels, want 5")
+    for name, lines in out.items():
+        check(not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines),
+              f"{name} spills: {lines}")
+    return out
+
+
+def gelu_ptxas_lines(log):
+    """ptxas -v's register and spill lines of the GeLU backward's P1
+    kernel (gelu_dact_wgmma_kernel; a probe's copy may instantiate it
+    per form, <0 erf | 1 tanh>) in an nvcc log of fused_mlp.cu."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?gelu_dact_wgmma_kernel"
+                      r"(?:ILi(\d)E)?", ln)
+        if m:
+            name = ("gelu_dact_wgmma_kernel" if m.group(1) is None
+                    else f"gelu_dact_wgmma_kernel<{m.group(1)}>")
+        elif "Compiling entry function" in ln:
+            name = None
+        elif name and ("spill" in ln or "registers" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
+
+
+def gelu_wgmma_ptxas(build_log):
+    """The GeLU backward's own wgmma kernels' ptxas lines: P1 (both forms,
+    read at run time) and the core's instantiation of P3 / P4 at the
+    narrower tile (its other products take SWIGLU_WGMMA_KERNELS' core
+    instantiations): none may spill."""
+    log = build_log.get("fused_mlp.cu", "")
+    out = gelu_ptxas_lines(log) | {
+        k: v for k, v in swiglu_ptxas_lines(log).items()
+        if k not in SWIGLU_WGMMA_KERNELS}
+    check(len(out) == 2 or "fused_mlp.cu" not in build_log,
+          f"ptxas lines for {len(out)} GeLU wgmma kernels, want 2")
     for name, lines in out.items():
         check(not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines),
               f"{name} spills: {lines}")
@@ -4864,7 +5012,8 @@ def main():
                  for ln in log.splitlines() if "registers" in ln],
           flash_wgmma_ptxas=wgmma_ptxas(_build.build_log),
           proj_ln_cluster_ptxas=pl_cluster_ptxas(_build.build_log),
-          swiglu_wgmma_ptxas=swiglu_wgmma_ptxas(_build.build_log))
+          swiglu_wgmma_ptxas=swiglu_wgmma_ptxas(_build.build_log),
+          gelu_wgmma_ptxas=gelu_wgmma_ptxas(_build.build_log))
 
     kern = phase_kernel_vs_plain(torch)
     phase(3, "decode_attn_proj vs plain", tolerance=TOL, **kern)
@@ -5048,8 +5197,23 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         kernels[-1].update(route_fields(t))
         if key == "backward":
-            kernels[-1]["note"] = ("dX and dW run in one backward call: ms, "
-                                   "plain_ms and bound_ms are that call's")
+            bert = mlp["bert_base"]["backward"]
+            kernels[-1].update(
+                source_kernels="colsum_kernel, then per chunk "
+                               "gelu_dact_wgmma_kernel (P1) and "
+                               "wgmma_gemm_kernel (P2-P4; gemm_core.cuh), "
+                               "then sum_parts_kernel",
+                composite_backward_ms=t["library_bwd_ms"],
+                bert_base=dict(ms=bert["ms"], earlier_ms=bert["earlier_ms"],
+                               plain_ms=bert["plain_ms"],
+                               bound_ms=bert["bound_ms"],
+                               composite_backward_ms=bert["library_bwd_ms"]),
+                note="dX and dW run in one backward call, fused_mlp_bwd "
+                     "(the wgmma route on the gpt3-1.3b and bert-base "
+                     "paths): ms, plain_ms and bound_ms are that call's at "
+                     "gpt3-1.3b's shape, bert_base at bert-base's; "
+                     "composite_backward_ms the dense composite's autograd "
+                     "backward")
         if name == "flash_dkv":
             kernels[-1]["whole_backward"] = flash["backward"]
     # the wgmma backward's pre-pass (qs, ks, delta) at the GPT shape and at
@@ -5180,9 +5344,12 @@ def main():
             "max_abs_err": err, "max_err": err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        kernels[-1].update(route_fields(t))
         if name != "fused_mlp_fwd":
-            kernels[-1]["note"] = ("dX and dW run in one backward call: ms, "
-                                   "plain_ms and bound_ms are that call's")
+            kernels[-1]["note"] = (
+                "dX and dW run in one backward call: ms, plain_ms and "
+                "bound_ms are that call's (bf16, the wgmma route); the "
+                "launches are phase 38's f32 calls (the generic route)")
     print(card, flush=True)     # again here: the top of the log may be cut
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

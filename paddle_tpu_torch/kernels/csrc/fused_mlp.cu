@@ -4,9 +4,10 @@
 //
 // Replaces the TPU kernels of paddle_tpu/kernels/mlp_fusion.py:
 //   _mlp_fwd_kernel    :228 (launched by _mlp_fwd :374) -> fused_mlp_fwd_*
-//   _mlp_dx_kernel     :260 (launched by _mlp_dx :394)  -> fused_mlp_bwd_* (dX part)
-//   _mlp_dw_kernel     :296 (launched by _mlp_dw :415)  -> fused_mlp_bwd_* (dW part)
-// all entered through fused_mlp_2d :472, and
+//   _mlp_dx_kernel     :260 (launched by _mlp_dx :394)  -> fused_mlp_bwd_* (dX part); in
+//                             bf16 with H and F multiples of 8, fused_mlp_bwd_wgmma_bf16
+//   _mlp_dw_kernel     :296 (launched by _mlp_dw :415)  -> the same calls (dW part)
+// all entered through fused_mlp_2d :472 (the custom_vjp of :443-469), and
 //   _swiglu_fwd_kernel :522 -> fused_swiglu_fwd_*
 //   _swiglu_dx_kernel  :543 -> fused_swiglu_bwd_* (dX part); in bf16 with H
 //                             and F multiples of 8, fused_swiglu_bwd_wgmma_bf16
@@ -54,7 +55,9 @@
 // Bound: operations. At GPT-3 1.3B training shapes (R = B*S = 8192, H =
 // 2048, F = 8192, bf16; RHF = 1.374e11) the GeLU forward needs 4 RHF =
 // 0.550 TFLOP, 0.556 ms at 989 TFLOP/s, against 0.05 ms to move x, W1, W2
-// and y once at 3.35 TB/s; dX needs 6 RHF (0.834 ms), dW 8 RHF (1.112 ms).
+// and y once at 3.35 TB/s; dX needs 6 RHF (0.834 ms), dW 8 RHF (1.112 ms),
+// one backward call that computes both 10 RHF (1.390 ms; 0.393 ms at
+// BERT-base's R = 16384, H = 768, F = 3072).
 // At LLaMA-7B training shapes (R = 2048, H = 4096, F = 11008, bf16; RHF =
 // 9.23e10) the SwiGLU forward needs 6 RHF = 0.554 TFLOP (0.560 ms), the
 // backward 16 RHF (1.494 ms), against 0.09 ms to move the operands once.
@@ -109,6 +112,10 @@
 // = 8192, H = 2048, Fc = 2048, bf16: 32 + 64 = 96 MB forward, 64 + 32 + 32
 // + 64 + 2.6 = 194.6 MB backward; with dropout the backward adds gm [R, H]
 // in the dtype (32 MB there; 25 MB at BERT-base's R = 16384, H = 768).
+// The backward's wgmma route keeps a in registers: da_c and act_c [R, Fc]
+// in the dtype, the f32 dX accumulator when F > Fc and the partials, 64 +
+// 64 + 64 + 2.6 = 194.6 MB at its chunk Fc = 4096 there (and gm with
+// dropout).
 // SwiGLU: forward ag_c [R, Fc] f32, act_c
 // [R, Fc] in the dtype and the f32 [R, H] accumulator when F > Fc;
 // backward ag_c and au_c [R, Fc] f32, dag_c, dau_c and act_c [R, Fc] in
@@ -143,11 +150,12 @@
 // shared memory as f32 for the epilogue.
 //
 // CUDA launches per call, nc = ceil(F / Fc) chunks: GeLU forward 2 nc,
-// backward 5 nc + 2, with or without dropout; SwiGLU forward 3 nc,
-// backward 8 nc on this generic route, 4 nc on the wgmma route (below).
-// The SwiGLU backward in bf16 has a second route on the TMA + wgmma GEMM
-// core of gemm_core.cuh (sw::launch, its design after the generic
-// kernels); the GeLU MLP and the SwiGLU forward keep this core.
+// backward 5 nc + 2 on this generic route and 4 nc + 2 on the wgmma route
+// (below), with or without dropout; SwiGLU forward 3 nc, backward 8 nc on
+// this generic route, 4 nc on the wgmma route.
+// The GeLU and SwiGLU backwards in bf16 have a second route on the TMA +
+// wgmma GEMM core of gemm_core.cuh (ge::launch and sw::launch, their
+// designs after the generic kernels); the forwards keep this core.
 
 #include <algorithm>
 
@@ -191,6 +199,23 @@ __device__ __forceinline__ float dgelu(float a, int approximate) {
   const float cdf = 0.5f * (1.f + erff(a * kInvSqrt2));
   const float pdf = expf(-0.5f * a * a) * kInvSqrt2Pi;
   return cdf + a * pdf;
+}
+
+// gelu(a) and gelu'(a) in one pass, the shared terms once (the formulas
+// of gelu and dgelu above, operation for operation)
+__device__ __forceinline__ void gelu_and_grad(float a, int approximate, float& g, float& dg) {
+  if (approximate) {
+    const float u = kSqrt2OverPi * (a + kGeluCoef * a * a * a);
+    const float t = tanhf(u);
+    const float du = kSqrt2OverPi * (1.f + 3.f * kGeluCoef * a * a);
+    g = 0.5f * a * (1.f + t);
+    dg = 0.5f * (1.f + t) + 0.5f * a * (1.f - t * t) * du;
+  } else {
+    const float e = erff(a * kInvSqrt2);
+    const float pdf = expf(-0.5f * a * a) * kInvSqrt2Pi;
+    g = 0.5f * a * (1.f + e);
+    dg = 0.5f * (1.f + e) + a * pdf;
+  }
 }
 
 __device__ __forceinline__ float sigmoid(float a) { return 1.f / (1.f + expf(-a)); }
@@ -618,27 +643,30 @@ int launch_swiglu_bwd(const void* x, const void* wg, const void* wu, const void*
 // The design's variants and their times: scripts/swiglu_bwd_variants.py,
 // PERF.md.
 
+// A consumer thread's release of a ring stage of a P1 kernel (the
+// SwiGLU's and the GeLU's) on clusters of CL blocks: on its own block's
+// empty barrier, and, from each warp's lane 0, on those of the cluster's
+// other blocks (whose stage its block's multicast loads also fill)
+template <int CL> __device__ __forceinline__ void release(uint64_t* empty, int rank) {
+  mbar_arrive(empty);
+  if (CL > 1) {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0)
+      for (int q = 0; q < CL; ++q)
+        if (q != rank) mbar_arrive_cluster(empty, q);
+  }
+}
+// the arrivals that empty such a stage: every consumer thread of the block
+// and every consumer warp of the cluster's other blocks
+template <int CL> __host__ __device__ constexpr int empty_arrivals() {
+  return gc::kConsumers + (CL - 1) * gc::kConsumers / 32;
+}
+
 namespace sw {
 
 constexpr int kBN = 256, kStages = 3;  // the core's tile width and ring for P2-P4
 constexpr int kDactBN = 64, kDactStages = 4;
 constexpr int kDactCluster = 2;  // P1's blocks sharing x's and g's tiles
-
-// A consumer thread's release of a P1 ring stage: on its own block's empty
-// barrier, and, from each warp's lane 0, on those of the cluster's other
-// blocks (whose stage its block's multicast loads also fill)
-__device__ __forceinline__ void release(uint64_t* empty, int rank) {
-  mbar_arrive(empty);
-  if (kDactCluster > 1) {
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0)
-      for (int q = 0; q < kDactCluster; ++q)
-        if (q != rank) mbar_arrive_cluster(empty, q);
-  }
-}
-// the arrivals that empty a stage: every consumer thread of the block and
-// every consumer warp of the cluster's other blocks
-constexpr int kDactEmpty = gc::kConsumers + (kDactCluster - 1) * gc::kConsumers / 32;
 
 struct DactSmem {
   __nv_bfloat16 x[kDactStages][gc::kBM * gc::kBK];  // two boxes each
@@ -676,7 +704,7 @@ __global__ void __cluster_dims__(kDactCluster, 1, 1) __launch_bounds__(gc::kThre
   if (threadIdx.x == 0) {
     for (int st = 0; st < S; ++st) {
       mbar_init(&sm.full[st], 1);                          // the producer's expect_tx
-      mbar_init(&sm.empty[st], kDactEmpty);
+      mbar_init(&sm.empty[st], empty_arrivals<CL>());
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -750,14 +778,14 @@ __global__ void __cluster_dims__(kDactCluster, 1, 1) __launch_bounds__(gc::kThre
       wgmma_wait<1>();
       fence_regs(agu);
       fence_regs(dact);
-      if (kt > 0) release(&sm.empty[prev], rank);
+      if (kt > 0) release<CL>(&sm.empty[prev], rank);
       prev = stage;
       gc::advance<S>(stage, phase);
     }
     wgmma_wait<0>();
     fence_regs(agu);
     fence_regs(dact);
-    release(&sm.empty[prev], rank);
+    release<CL>(&sm.empty[prev], rank);
 
     // the epilogue from the registers, EPI_DSWIGLU's formulas, stored
     // straight to device memory (a staging tile's 48 KB hold the ring's
@@ -900,6 +928,376 @@ int launch(const void* x, const void* wg, const void* wu, const void* wd, const 
 
 }  // namespace sw
 
+// --------------------------------------------------------------------------
+// GeLU MLP backward, bf16: the wgmma route
+// --------------------------------------------------------------------------
+//
+// Replaces _mlp_dx_kernel :260 and _mlp_dw_kernel :296 (TPU kernels 5 and
+// 6) where the operands allow TMA: bf16, H and F multiples of 8, every
+// tensor 16-byte aligned. Bound: operations, 10 RHF (1.390 ms at GPT-3
+// 1.3B's R = 8192, H = 2048, F = 8192; 0.393 ms at BERT-base's R = 16384,
+// H = 768, F = 3072; 989 TFLOP/s). The generic route (launch_bwd) ran at
+// ~233 TFLOP/s: five mma.sync launches a chunk, a_c written to an f32
+// workspace and read back, each accumulator tile staged through shared
+// memory as f32. Here the SwiGLU route's plan carries over product for
+// product: the column-sum pass as on the generic route (colsum_kernel:
+// db2's partials; with dropout gm = round(drop(g)), which every product
+// below reads in place of g), then per chunk of nc columns four launches:
+//   P1 gelu_dact_wgmma_kernel: a = x . W1_c (W1_c's [H, nc]
+//      window MN-major) and dact = gm . W2_c^T (W2_c's [nc, H] window
+//      K-major), two accumulators on one [128, 128] output tile (128 f32
+//      registers a consumer thread, 168 in all: ptxas's cap at 288
+//      threads; with gelu and gelu' computed apart the erf form spilled
+//      there); the epilogue from the registers: a += b1[col], da = dact
+//      gelu'(a), act = gelu(a) (EPI_DGELU's formulas, gelu_and_grad),
+//      round(da) and round(act) stored to the [R, nc] workspace, a never
+//      leaving the registers; db1's partials of the unrounded da from the
+//      same registers: each thread adds its two rows, a fixed shuffle over
+//      the eight lanes of a column, then the eight consumer warps through
+//      shared memory in order, into part[row block][f0 + col] (a tile's
+//      128 rows are one row block of sum_parts; rows past R add nothing).
+//      Three ring stages of 64 KB (a k step: x's and gm's 16 KB each, W1_c's
+//      and W2_c's 16 KB each, for 4.2 MFLOP; [128, 64] tiles with four
+//      stages of 48 KB ran ~15% slower), clusters of two blocks along N
+//      multicasting x's and gm's tiles, as the SwiGLU's P1.
+//   P2 gc core: dX (+)= da_c . W1_c^T, K = nc, into the f32 sum across
+//      chunks as the SwiGLU's P2 (EpiStore for one chunk, EpiSum, then
+//      EpiSumLast).
+//   P3 gc core: dW1_c = x^T . da_c (A and B MN-major), rounded, stored.
+//   P4 gc core: dW2_c = act_c^T . gm (A and B MN-major), rounded, stored.
+//   P3 and P4 run at [128, 256] tiles or, where those leave the last wave
+//   emptier, at [128, 192] (run_dw: BERT-base's 72 tiles of [128, 256]).
+// Then sum_parts folds db1's and db2's partials over the row blocks in
+// order. The rounding points are the generic route's: da and act rounded
+// once, dX summed over the chunks in f32 and rounded once, the dW
+// products of bf16 operands with f32 accumulation, db1 and db2 f32 sums
+// of the unrounded da and gm. No atomics: the same bits on every call.
+// CUDA launches a call: 2 + 4 nc. Workspace: da and act [R, Fc] bf16,
+// the f32 [R, H] dX sum when F > Fc, the partials, and with dropout gm
+// [R, H] bf16. The design's variants and their times:
+// scripts/mlp_bwd_variants.py, PERF.md.
+
+namespace ge {
+
+constexpr int kTileN = 128, kRing = 3;  // P1's output tile width and ring stages
+constexpr int kCluster = 2;            // P1's blocks sharing x's and gm's tiles
+constexpr int kDwBN = 192, kDwStages = 4;  // P3's and P4's narrower tile (run_dw)
+static_assert(gc::kBM == kRowBlock, "a P1 tile's rows are one row block of the partials");
+
+struct DactSmem {
+  __nv_bfloat16 x[kRing][gc::kBM * gc::kBK];  // two boxes each
+  __nv_bfloat16 g[kRing][gc::kBM * gc::kBK];
+  __nv_bfloat16 w1[kRing][kTileN * gc::kBK];  // W1_c's boxes (MN-major)
+  __nv_bfloat16 w2[kRing][kTileN * gc::kBK];  // W2_c's (K-major)
+  float sums[2][gc::kConsumers / 32][kTileN];  // db1: each warp's column sums, by tile parity
+  uint64_t full[kRing], empty[kRing];
+};
+
+// P1's epilogue operands, the chunk's: b1 (f32, nc), the da and act
+// workspaces [R, nc], db1's partials (row block i at part + i * ldp), the
+// GeLU form (1 tanh, 0 erf: read at run time, one instantiation for both;
+// a template parameter ran ~1% slower, scripts/mlp_bwd_variants.py)
+struct DactOut {
+  const float* b1;
+  __nv_bfloat16* da;
+  __nv_bfloat16* act;
+  float* part;
+  size_t ldp;
+  int approximate;
+};
+
+// P1 over a chunk: R x nc output tiles of [128, kTileN], k over H, on
+// clusters of kCluster blocks side by side along N: a cluster's blocks
+// share their 128 rows, and block `rank` loads x's and gm's row box
+// (rank) once for all of them (TMA multicast). Maps: x, gm [R, H]; W1_c
+// [H, nc] and W2_c [nc, H] windows.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(gc::kThreads, 1)
+    gelu_dact_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap tg,
+                           const __grid_constant__ CUtensorMap tw1,
+                           const __grid_constant__ CUtensorMap tw2, const DactOut o, int r,
+                           int nc, int h) {
+  using gc::kBox;
+  constexpr int S = kRing, CL = kCluster, BN = kTileN;
+  extern __shared__ __align__(1024) char smem_raw[];
+  DactSmem& sm = *reinterpret_cast<DactSmem*>(smem_raw +
+                                              ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int nm = gc::cdiv(r, gc::kBM), np = gc::cdiv(gc::cdiv(nc, BN), CL);
+  const int nt = nm * np, nk = gc::cdiv(h, gc::kBK);
+  const int rank = (int)cluster_rank(), first = blockIdx.x / CL, step = gridDim.x / CL;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(&sm.full[st], 1);  // the producer's expect_tx
+      mbar_init(&sm.empty[st], empty_arrivals<CL>());
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // every block's barriers ready before any multicast or remote arrival
+
+  int stage = 0;
+  uint32_t phase = 0;
+  if (threadIdx.x >= gc::kConsumers) {
+    if (threadIdx.x == gc::kConsumers) {
+      for (int t = first; t < nt; t += step) {
+        int mt, pt;
+        gc::tile_of(t, nm, np, mt, pt);
+        const int m0 = mt * gc::kBM, n0 = (pt * CL + rank) * BN;
+        for (int kt = 0; kt < nk; ++kt) {
+          const int k0 = kt * gc::kBK;
+          mbar_wait(&sm.empty[stage], phase ^ 1);
+          mbar_arrive_tx(&sm.full[stage], (2 * gc::kBM + 2 * BN) * gc::kBK * 2);
+          for (int hh = rank; hh < 2; hh += CL) {  // this block's share of x's and gm's boxes
+            if (CL == 1) {
+              tma_load_2d(sm.x[stage] + hh * kBox, &tx, &sm.full[stage], k0, m0 + 64 * hh);
+              tma_load_2d(sm.g[stage] + hh * kBox, &tg, &sm.full[stage], k0, m0 + 64 * hh);
+            } else {
+              constexpr uint16_t all = (1u << CL) - 1;
+              tma_load_2d_multicast(sm.x[stage] + hh * kBox, &tx, &sm.full[stage], k0,
+                                    m0 + 64 * hh, all);
+              tma_load_2d_multicast(sm.g[stage] + hh * kBox, &tg, &sm.full[stage], k0,
+                                    m0 + 64 * hh, all);
+            }
+          }
+          gc::load_operand<true, BN>(sm.w1[stage], &tw1, &sm.full[stage], n0, k0);
+          gc::load_operand<false, BN>(sm.w2[stage], &tw2, &sm.full[stage], n0, k0);
+          gc::advance<S>(stage, phase);
+        }
+      }
+    }
+    __syncwarp();
+    cluster_sync();  // no block leaves while another may still arrive on its barriers
+    return;
+  }
+
+  const int wgi = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const gc::Frag f;
+  int parity = 0;
+  for (int t = first; t < nt; t += step, parity ^= 1) {
+    int mt, pt;
+    gc::tile_of(t, nm, np, mt, pt);
+    const int m0 = mt * gc::kBM, n0 = (pt * CL + rank) * BN;
+    float a[BN / 2], dact[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) a[i] = dact[i] = 0.f;
+    int prev = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(&sm.full[stage], phase);
+      fence_regs(a);
+      fence_regs(dact);
+      wgmma_fence();
+      const __nv_bfloat16* xs = sm.x[stage] + wgi * kBox;
+      const __nv_bfloat16* gs = sm.g[stage] + wgi * kBox;
+#pragma unroll
+      for (int kk = 0; kk < gc::kBK / 16; ++kk) {
+        wgmma_smem<BN, 0, 1>(a, gc::operand_desc<false>(xs, kk),
+                             gc::operand_desc<true>(sm.w1[stage], kk), 1);
+        wgmma_smem<BN, 0, 0>(dact, gc::operand_desc<false>(gs, kk),
+                             gc::operand_desc<false>(sm.w2[stage], kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(a);
+      fence_regs(dact);
+      if (kt > 0) release<CL>(&sm.empty[prev], rank);
+      prev = stage;
+      gc::advance<S>(stage, phase);
+    }
+    wgmma_wait<0>();
+    fence_regs(a);
+    fence_regs(dact);
+    release<CL>(&sm.empty[prev], rank);
+
+    // the epilogue from the registers, stored straight to device memory,
+    // eight columns at a time; cs: this thread's two rows of da summed,
+    // then the warp's 16 (the lanes of a column differ in bits 2-4)
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      const int col = n0 + 8 * n + f.col;  // nc is even: col + 1 < nc too
+      const float2 bias = col < nc ? *reinterpret_cast<const float2*>(o.b1 + col)
+                                   : make_float2(0.f, 0.f);
+      float cs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = m0 + 64 * wgi + f.row + 8 * hh;
+        float d[2], act[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * n + 2 * hh + e;
+          float dg;
+          gelu_and_grad(a[i] + (e ? bias.y : bias.x), o.approximate, act[e], dg);
+          d[e] = dact[i] * dg;
+        }
+        if (row >= r || col >= nc) continue;
+        cs[0] += d[0];
+        cs[1] += d[1];
+        const size_t at = (size_t)row * nc + col;
+        *reinterpret_cast<uint32_t*>(o.da + at) = pack_bf16(d[0], d[1]);
+        *reinterpret_cast<uint32_t*>(o.act + at) = pack_bf16(act[0], act[1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], 4);
+        cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], 8);
+        cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], 16);
+        if (lane < 4) sm.sums[parity][warp][8 * n + f.col + e] = cs[e];
+      }
+    }
+    // the warps' sums visible; a tile's sums are read before any thread
+    // passes this barrier in the tile after next, which writes the same
+    // parity
+    bar_sync(1, gc::kConsumers);
+    if (threadIdx.x < BN && n0 + (int)threadIdx.x < nc) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < gc::kConsumers / 32; ++w) s += sm.sums[parity][w][threadIdx.x];
+      o.part[(size_t)mt * o.ldp + n0 + threadIdx.x] = s;
+    }
+  }
+  cluster_sync();
+}
+
+constexpr size_t kDactSmem = sizeof(DactSmem) + 1024;
+static_assert(kDactSmem <= kMaxSmem, "shared memory of a block");
+
+// The clusters of P1 that fit the card at once (its persistent grid), or
+// 0 if the query fails.
+int dact_clusters() {
+  static const int n = [] {
+    if (cudaFuncSetAttribute(gelu_dact_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDactSmem))
+      return 0;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster, 1, 1);
+    cfg.blockDim = dim3(gc::kThreads, 1, 1);
+    cfg.dynamicSmemBytes = kDactSmem;
+    int count = 0;
+    return cudaOccupancyMaxActiveClusters(&count, gelu_dact_wgmma_kernel, &cfg) == cudaSuccess
+               ? count
+               : 0;
+  }();
+  return n;
+}
+
+int run_dact(const CUtensorMap (&m)[4], const DactOut& o, int r, int nc, int h,
+             cudaStream_t st) {
+  const int nt = gc::cdiv(r, gc::kBM) * gc::cdiv(gc::cdiv(nc, kTileN), kCluster);
+  const int clusters = dact_clusters();
+  if (clusters <= 0) return (int)cudaErrorInvalidDevice;
+  const auto kernel = gelu_dact_wgmma_kernel;
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)kDactSmem);
+  if (rc) return rc;
+  kernel<<<std::min(nt, clusters) * kCluster, gc::kThreads, kDactSmem, st>>>(
+      m[0], m[1], m[2], m[3], o, r, nc, h);
+  return (int)cudaGetLastError();
+}
+
+// P3 or P4 (A and B MN-major, K = R) on the core at [128, 256] tiles, or at
+// [128, kDwBN] where those leave the last wave less empty (fewer waves
+// times the tile's width): at BERT-base's H = 768, F = 3072 the [128, 256]
+// tiles of each number 72 on 132 SMs and ran at ~500 TFLOP/s, 96 tiles of
+// [128, 192] at ~640; at GPT-3 1.3B's widths 256 tiles of [128, 256] ran
+// at ~780, 352 of [128, 192] at ~710 (scripts/mlp_bwd_variants.py).
+int run_dw(const CUtensorMap (&m)[6], const gc::Shape& s, cudaStream_t st) {
+  const int sms = gc::sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  auto cost = [&](int bn) {
+    return gc::cdiv(gc::cdiv(s.m, gc::kBM) * gc::cdiv(s.n, bn), sms) * bn;
+  };
+  const bool narrow = cost(kDwBN) < cost(sw::kBN);
+  if (narrow) return gc::run<true, true, kDwBN, kDwStages>(m, s, gc::EpiStore{}, st);
+  return gc::run<true, true, sw::kBN, sw::kStages>(m, s, gc::EpiStore{}, st);
+}
+
+// The route's launches; `products` bit i runs product P(i + 1), bit 4 the
+// column-sum pass and sum_parts (31 on the op's path: everything; the
+// others time a part alone).
+int launch(const void* x, const void* w1, const void* b1, const void* w2, const void* g,
+           void* dx, void* dw1, void* db1, void* dw2, void* db2, void* da_ws, void* act_ws,
+           void* acc_ws, void* part_ws, void* gm_ws, int parts, int r, int h, int f, int fc,
+           int approximate, const Drop& drop, int products, void* stream) {
+  if (bad_shape(r, h, f, fc) || h % 8 || f % 8 || fc % 8 ||
+      parts != (r + kRowBlock - 1) / kRowBlock || bad_key(drop, h) || (drop.rows && !gm_ws))
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {x, w1, w2, g, (const void*)dx, (const void*)dw1, (const void*)dw2,
+                        (const void*)da_ws, (const void*)act_ws})
+    if (!aligned16(p)) return (int)cudaErrorInvalidValue;
+  if ((f > fc && (!acc_ws || !aligned16(acc_ws))) || (drop.rows && !aligned16(gm_ws)))
+    return (int)cudaErrorInvalidValue;
+  using B = __nv_bfloat16;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const B* G = static_cast<const B*>(g);
+  float* PART = static_cast<float*>(part_ws);
+  const size_t ldp = (size_t)f + h;
+  int rc;
+  if (products & 16) {
+    const dim3 grid((h + 255) / 256, parts);
+    if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
+    if (drop.rows) {  // gm and db2's partials
+      colsum_kernel<B, true><<<grid, 256, 0, st>>>(G, static_cast<B*>(gm_ws), PART + f, ldp, r,
+                                                   h, drop);
+    } else {  // db2's partials
+      colsum_kernel<B, false><<<grid, 256, 0, st>>>(G, nullptr, PART + f, ldp, r, h, drop);
+    }
+    if ((rc = (int)cudaGetLastError())) return rc;
+  }
+  if (drop.rows) G = static_cast<const B*>(gm_ws);  // the products read gm in place of g
+  const size_t hb = (size_t)h * 2, fb = (size_t)f * 2;
+  CUtensorMap tx, tg, tdx, tacc;
+  if ((rc = gc::map_2d(&tx, x, h, r, hb)) || (rc = gc::map_2d(&tg, G, h, r, hb)) ||
+      (rc = gc::map_2d(&tdx, dx, h, r, hb)))
+    return rc;
+  tacc = tdx;  // one chunk: no f32 sum
+  if (f > fc && (rc = gc::map_2d_f32(&tacc, acc_ws, h, r, (size_t)h * 4))) return rc;
+  const int nch = (f + fc - 1) / fc;
+  for (int c = 0; c < nch; ++c) {
+    const int f0 = c * fc, nc = std::min(fc, f - f0);
+    const size_t wrow = (size_t)f0 * h;  // W2's and dW2's first row of the chunk
+    // the chunk's windows: [H, nc] of W1, dW1; [nc, H] of W2, dW2; the
+    // workspace [R, nc]
+    CUtensorMap tw1, tw2, tdw1, tdw2, tda, tact;
+    if ((rc = gc::map_2d(&tw1, static_cast<const B*>(w1) + f0, nc, h, fb)) ||
+        (rc = gc::map_2d(&tdw1, static_cast<B*>(dw1) + f0, nc, h, fb)) ||
+        (rc = gc::map_2d(&tw2, static_cast<const B*>(w2) + wrow, h, nc, hb)) ||
+        (rc = gc::map_2d(&tdw2, static_cast<B*>(dw2) + wrow, h, nc, hb)) ||
+        (rc = gc::map_2d(&tda, da_ws, nc, r, (size_t)nc * 2)) ||
+        (rc = gc::map_2d(&tact, act_ws, nc, r, (size_t)nc * 2)))
+      return rc;
+    if (products & 1) {  // P1: da, act, db1's partials
+      const CUtensorMap m[4] = {tx, tg, tw1, tw2};
+      const DactOut o{static_cast<const float*>(b1) + f0, static_cast<B*>(da_ws),
+                      static_cast<B*>(act_ws), PART + f0, ldp, approximate};
+      if ((rc = run_dact(m, o, r, nc, h, st))) return rc;
+    }
+    if (products & 2) {  // P2: dX (+)= da . W1_c^T
+      const CUtensorMap m[6] = {tda, tda, tw1, tw1, tdx, tacc};
+      const gc::Shape sh{r, h, nc, 0, 0};
+      if (nch == 1) {  // dX = round(C)
+        rc = gc::run<false, false, sw::kBN, sw::kStages>(m, sh, gc::EpiStore{}, st);
+      } else if (c < nch - 1) {  // the f32 sum: stored, then added to
+        rc = gc::run<false, false, sw::kBN, sw::kStages>(m, sh, gc::EpiSum{c == 0}, st);
+      } else {  // dX = round(sum + C)
+        const gc::EpiSumLast epi{static_cast<const float*>(acc_ws), (size_t)h, r, h};
+        rc = gc::run<false, false, sw::kBN, sw::kStages>(m, sh, epi, st);
+      }
+      if (rc) return rc;
+    }
+    if (products & 4) {  // P3: dW1_c = x^T . da
+      const CUtensorMap m[6] = {tx, tx, tda, tda, tdw1, tdw1};
+      if ((rc = run_dw(m, gc::Shape{h, nc, r, 0, 0}, st))) return rc;
+    }
+    if (products & 8) {  // P4: dW2_c = act^T . gm
+      const CUtensorMap m[6] = {tact, tact, tg, tg, tdw2, tdw2};
+      if ((rc = run_dw(m, gc::Shape{nc, h, r, 0, 0}, st))) return rc;
+    }
+  }
+  if (!(products & 16)) return 0;
+  return sum_parts(PART, parts, (int)ldp, static_cast<float*>(db1), f, static_cast<float*>(db2),
+                   1, st);
+}
+
+}  // namespace ge
+
 }  // namespace
 
 extern "C" {
@@ -945,6 +1343,37 @@ int fused_mlp_bwd_bf16(const void* x, const void* w1, const void* b1, const void
                                    act_ws, acc_ws, part_ws, gm_ws, parts, r, h, f, fc,
                                    approximate, Drop{s0, s1, thresh, inv, drop_rows, drop_cols},
                                    stream);
+}
+
+// The GeLU backward's wgmma route, bf16 only: H, F and Fc multiples of 8,
+// every tensor 16-byte aligned (anything else is refused); the generic
+// entry's arguments without a_ws (a stays in the registers). da_ws,
+// act_ws: [R, Fc] bf16; acc_ws: the f32 [R, H] dX accumulator when F > Fc
+// (else may be null).
+int fused_mlp_bwd_wgmma_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                             const void* g, void* dx, void* dw1, void* db1, void* dw2, void* db2,
+                             void* da_ws, void* act_ws, void* acc_ws, void* part_ws, void* gm_ws,
+                             int parts, int r, int h, int f, int fc, int approximate, unsigned s0,
+                             unsigned s1, unsigned thresh, float inv, int drop_rows,
+                             int drop_cols, void* stream) {
+  return ge::launch(x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, da_ws, act_ws, acc_ws, part_ws,
+                    gm_ws, parts, r, h, f, fc, approximate,
+                    Drop{s0, s1, thresh, inv, drop_rows, drop_cols}, 31, stream);
+}
+
+// The same with only the launches of `products` (bit i: P(i + 1); bit 4:
+// the column-sum pass and sum_parts), for timing one product alone
+// (scripts/mlp_bwd_variants.py).
+int fused_mlp_bwd_wgmma_parts_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                                   const void* g, void* dx, void* dw1, void* db1, void* dw2,
+                                   void* db2, void* da_ws, void* act_ws, void* acc_ws,
+                                   void* part_ws, void* gm_ws, int parts, int r, int h, int f,
+                                   int fc, int approximate, unsigned s0, unsigned s1,
+                                   unsigned thresh, float inv, int drop_rows, int drop_cols,
+                                   int products, void* stream) {
+  return ge::launch(x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, da_ws, act_ws, acc_ws, part_ws,
+                    gm_ws, parts, r, h, f, fc, approximate,
+                    Drop{s0, s1, thresh, inv, drop_rows, drop_cols}, products, stream);
 }
 
 int fused_swiglu_fwd_f32(const void* x, const void* wg, const void* wu, const void* wd, void* y,

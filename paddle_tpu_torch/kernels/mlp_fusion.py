@@ -34,16 +34,21 @@ SwiGLU is built the same way:
 backward saving the primal inputs only (:637). For CUDA tensors the ops
 launch the hand-written Hopper kernels of ``csrc/fused_mlp.cu`` (its
 header names the TPU kernels replaced, the operation bound, the
-workspace and the recompute) or raise. The SwiGLU backward has two
-routes, picked by ``swiglu_bwd_route`` from the dtype, the widths and
-the alignment: ``wgmma`` (bf16, H and F multiples of 8, 16-byte aligned
-tensors: per ffn chunk a P1 kernel that keeps ag and au in registers and
-writes dag, dau, act, then dX, [dWg | dWu] and dWd on the TMA + wgmma
-GEMM core of ``csrc/gemm_core.cuh``; ``swiglu_bwd_plan`` and
-``gemm_tiles`` mirror its launches and tile walk) or ``generic`` (the
-mma.sync kernels: f32 and every other shape); ``swiglu_bwd_routes``
-counts CUDA calls by route. For CPU tensors they take the
-plain PyTorch versions ``fused_mlp_fwd_ref`` / ``fused_mlp_dx_ref`` /
+workspace and the recompute) or raise. The GeLU and the SwiGLU
+backwards have two routes each, picked by ``mlp_bwd_route`` (and
+``swiglu_bwd_route``, the same rule) from the dtype, the widths and the
+alignment: ``wgmma`` (bf16, H and F multiples of 8, 16-byte aligned
+tensors) or ``generic`` (the mma.sync kernels: f32 and every other
+shape). On the GeLU's wgmma route each ffn chunk runs a P1 kernel that
+keeps a = x·W1_c + b1 in registers and writes da, act and db1's
+row-block partials from them, then dX, dW1 and dW2 on the TMA + wgmma
+GEMM core of ``csrc/gemm_core.cuh`` (``mlp_bwd_plan`` mirrors its
+launches); on the SwiGLU's a P1 kernel keeps ag and au in registers and
+writes dag, dau, act, then dX, [dWg | dWu] and dWd on the core
+(``swiglu_bwd_plan``); ``gemm_tiles`` mirrors the core's tile walk.
+``mlp_bwd_routes`` and ``swiglu_bwd_routes`` count CUDA calls by route.
+For CPU tensors they take the plain PyTorch versions
+``fused_mlp_fwd_ref`` / ``fused_mlp_dx_ref`` /
 ``fused_mlp_dw_ref`` and ``fused_swiglu_fwd_ref`` / ``fused_swiglu_dx_ref``
 / ``fused_swiglu_dw_ref``. ``launches`` counts calls that launch the
 kernels, by kernel name (CPU calls do not count), ``dropout_launches``
@@ -113,7 +118,8 @@ __all__ = ["decode_attn_proj", "decode_attn_proj_ref", "dropout_launches",
            "fused_proj_ln_grads", "fused_proj_ln_grads_ref", "mlp_blocks",
            "mlp_eligible", "pl_cluster_plan", "pl_route", "pl_routes",
            "proj_ln_eligible", "proj_ln_max_hout", "launches",
-           "gemm_tiles", "swiglu_bwd_plan", "swiglu_bwd_route",
+           "dw_tile", "gemm_tiles", "mlp_bwd_plan", "mlp_bwd_route",
+           "mlp_bwd_routes", "swiglu_bwd_plan", "swiglu_bwd_route",
            "swiglu_bwd_routes"]
 
 _NEG_INF = -1e30   # flash_attention.py:61 — the kernel's mask, never -inf
@@ -174,6 +180,9 @@ _CHUNK_F = 2048
 # F = 11008 (4096, 4096, 2816) ran 3.7% faster than six of 2048 on an
 # H100 (scripts/swiglu_bwd_variants.py, PERF.md), for 25 MB more workspace
 _SWIGLU_BWD_CHUNK_F = 4096
+# the GeLU backward's chunk on its wgmma route (scripts/mlp_bwd_variants.py,
+# PERF.md)
+_MLP_BWD_CHUNK_F = 4096
 # rows per block of the kernels' GEMM (kRowBlock): the backward's bias
 # gradients are summed per row block, then over the blocks in order
 _ROW_BLOCK = 128
@@ -350,12 +359,17 @@ _MLP_ARGTYPES = {"fused_mlp_fwd": [_P] * 8 + [_I] * 5 + _DROP + [_P],
 # accumulator; r, h, f, fc; the stream
 _SWIGLU_WGMMA_ARGTYPES = {"fused_swiglu_bwd_wgmma": [_P] * 13 + [_I] * 4
                           + [_P]}
+# the GeLU backward's wgmma route, bf16 only: fused_mlp_bwd's arguments
+# without the f32 pre-activation workspace
+_MLP_WGMMA_ARGTYPES = {"fused_mlp_bwd_wgmma": [_P] * 15 + [_I] * 6 + _DROP
+                       + [_P]}
 
 
 @functools.cache
 def _mlp_lib():
     lib = _build.library("fused_mlp.cu", _MLP_ARGTYPES)
-    for name, types in _SWIGLU_WGMMA_ARGTYPES.items():
+    for name, types in {**_SWIGLU_WGMMA_ARGTYPES,
+                        **_MLP_WGMMA_ARGTYPES}.items():
         fn = getattr(lib, f"{name}_bf16")
         fn.argtypes, fn.restype = types, ctypes.c_int
     return lib
@@ -414,16 +428,126 @@ def _fwd_cuda(x, w1, b1, w2, b2, approximate, drop=None):
     return y
 
 
-def _bwd_cuda(x, w1, b1, w2, g, approximate, drop=None):
-    """dX and dW through the kernels, in one call. Returns (dx, dw1, db1,
-    dw2, db2): dx, dw1 and dw2 in x's dtype, db1 and db2 f32. With
-    ``drop`` the kernels write the masked g, rounded, into a [R, H]
-    workspace and read it in place of g."""
+# the wgmma routes' geometry (csrc/gemm_core.cuh, csrc/fused_mlp.cu's
+# namespaces sw and ge): the core's output tile and k step, each P1's
+# tile width and its clusters' blocks (side by side along N), the row
+# tiles of a raster group
+SW_BM, SW_BN, SW_BK, SW_GROUP_M = 128, 256, 64, 8
+SW_DACT_BN, SW_DACT_CLUSTER = 64, 2
+GE_DACT_BN, GE_DACT_CLUSTER = 128, 2
+# the GeLU backward's narrower tile for P3 and P4 (``ge::run_dw``), and
+# the SMs of the card the route was tuned on (an H100's)
+GE_DW_BN, H100_SMS = 192, 132
+
+
+def _tile_of(t: int, num_m: int, num_n: int):
+    """gemm_core.cuh's ``tile_of``: the (row, column) tile of the t-th
+    tile a persistent block walks, groups of SW_GROUP_M row tiles sweeping
+    the column tiles, row tile fastest."""
+    per = SW_GROUP_M * num_n
+    first = t // per * SW_GROUP_M
+    rows = min(num_m - first, SW_GROUP_M)
+    rem = t % per
+    return first + rem % rows, rem // rows
+
+
+def gemm_tiles(m: int, n: int, bm: int, bn: int, nsplit: bool = False,
+               cluster: int = 1):
+    """The output tiles of one product in the order the persistent grid
+    walks them: (row0, col0, half), half the N half of an ``nsplit``
+    product (else 0); each tile [row0, row0 + bm) x [col0, col0 + bn),
+    clipped at (m, n). With ``cluster`` blocks side by side along N (P1)
+    the walk is over the clusters' tiles, each listing its blocks' tiles
+    in rank order (the last may lie wholly past n: it only shares its
+    loads)."""
+    halves = 2 if nsplit else 1
+    num_m, nh = -(-m // bm), -(-n // (bn * cluster))
+    out = []
+    for t in range(num_m * nh * halves):
+        mt, nt = _tile_of(t, num_m, nh * halves)
+        half = nt // nh
+        out.extend((mt * bm, ((nt - half * nh) * cluster + rank) * bn, half)
+                   for rank in range(cluster))
+    return out
+
+
+# CUDA calls of the GeLU MLP backward by route
+mlp_bwd_routes = {"wgmma": 0, "generic": 0}
+
+
+def mlp_bwd_route(dtype, h: int, f: int, aligned: bool) -> str:
+    """The route a CUDA call of the GeLU MLP's (or the SwiGLU's)
+    backward takes: ``"wgmma"`` for bfloat16 with H and F multiples of 8
+    (TMA's 16-byte row strides) and every tensor 16-byte aligned and
+    contiguous (``aligned``), else ``"generic"``."""
+    if dtype == torch.bfloat16 and h % 8 == 0 and f % 8 == 0 and aligned:
+        return "wgmma"
+    return "generic"
+
+
+def dw_tile(m: int, n: int, sms: int = H100_SMS) -> int:
+    """``ge::run_dw``'s tile width for P3 or P4, an [m, n] output on
+    ``sms`` SMs: GE_DW_BN where its waves times its width fall below
+    SW_BN's (the last wave less empty), else SW_BN."""
+    def cost(bn):
+        return -(-(-(-m // SW_BM) * -(-n // bn)) // sms) * bn
+    return GE_DW_BN if cost(GE_DW_BN) < cost(SW_BN) else SW_BN
+
+
+def mlp_bwd_plan(r: int, h: int, f: int, fc: int, sms: int = H100_SMS):
+    """The GeLU backward's wgmma launches, chunk by chunk (csrc/fused_mlp.cu
+    ``ge::launch``; before them the column-sum pass, after them
+    ``sum_parts``): a list of (f0, nc, products), products mapping P1..P4
+    to (M, N, K, halves, (tile rows, tile columns, cluster)): P1 [R, nc]
+    over H (two products, a = x·W1_c and dact = gm·W2_cᵀ, on one tile;
+    clusters of GE_DACT_CLUSTER blocks along N; db1's partials by 128-row
+    block); P2 dX [R, H] over K = nc; P3 dW1_c [H, nc] over R; P4 dW2_c
+    [nc, H] over R, each at ``dw_tile``'s width on ``sms`` SMs.
+    ``halves`` counts the products a launch runs per output tile
+    element."""
+    if min(r, h, f, fc) < 1:
+        raise ValueError(f"mlp_bwd_plan: r, h, f, fc must be positive, "
+                         f"got {r}, {h}, {f}, {fc}")
+    plan = []
+    for f0 in range(0, f, fc):
+        nc = min(fc, f - f0)
+        plan.append((f0, nc, {
+            "P1": (r, nc, h, 2, (SW_BM, GE_DACT_BN, GE_DACT_CLUSTER)),
+            "P2": (r, h, nc, 1, (SW_BM, SW_BN, 1)),
+            "P3": (h, nc, r, 1, (SW_BM, dw_tile(h, nc, sms), 1)),
+            "P4": (nc, h, r, 1, (SW_BM, dw_tile(nc, h, sms), 1))}))
+    return plan
+
+
+def _route(name, route, natural, dtype, h, f):
+    """The route a call takes: ``natural`` (the rule's), or ``route``
+    where the caller names one the shapes allow."""
+    if route is None:
+        return natural
+    if route not in ("wgmma", "generic"):
+        raise ValueError(f"{name}: route {route!r} is 'wgmma' or 'generic'")
+    if route == "wgmma" and natural != "wgmma":
+        raise ValueError(
+            f"{name}: the wgmma route takes bfloat16 with H and F "
+            f"multiples of 8 and 16-byte aligned tensors, got {dtype}, "
+            f"H={h}, F={f}")
+    return route
+
+
+def _bwd_cuda(x, w1, b1, w2, g, approximate, drop=None, route=None):
+    """dX and dW through the kernels, in one call, on the route
+    ``mlp_bwd_route`` picks (``route`` names one instead: a measurement
+    holds the two on the same inputs). Returns (dx, dw1, db1, dw2, db2):
+    dx, dw1 and dw2 in x's dtype, db1 and db2 f32. With ``drop`` the
+    kernels write the masked g, rounded, into a [R, H] workspace and read
+    it in place of g."""
     r, h, f = _gelu_check("fused_mlp_bwd", x, w1, b1, w2, more=(g,))
     if g.shape != x.shape:
         raise ValueError(f"fused_mlp_bwd: g {tuple(g.shape)} must have x's "
                          f"shape {tuple(x.shape)}")
-    fc = min(f, _CHUNK_F)
+    route = _route("fused_mlp_bwd", route, mlp_bwd_route(x.dtype, h, f, all(
+        t.data_ptr() % 16 == 0 for t in (x, w1, w2, g))), x.dtype, h, f)
+    fc = min(f, _MLP_BWD_CHUNK_F if route == "wgmma" else _CHUNK_F)
     parts = -(-r // _ROW_BLOCK)
     dev, dt = x.device, x.dtype
 
@@ -433,21 +557,29 @@ def _bwd_cuda(x, w1, b1, w2, g, approximate, drop=None):
     f32 = torch.float32
     dx, dw1, dw2 = empty(r, h), empty(h, f), empty(f, h)
     db1, db2 = empty(f, dtype=f32), empty(h, dtype=f32)
-    a, da, act = empty(r, fc, dtype=f32), empty(r, fc), empty(r, fc)
+    da, act = empty(r, fc), empty(r, fc)
     acc = empty(r, h, dtype=f32) if f > fc else None
     part = empty(parts, f + h, dtype=f32)  # column sums per row block
     gm = None if drop is None else empty(r, h)
     b1f = _vec32(b1)
-    _build.call(_mlp_lib(), "fused_mlp_bwd", dt, dev, x.data_ptr(),
-                w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), g.data_ptr(),
-                dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
-                db2.data_ptr(), a.data_ptr(), da.data_ptr(), act.data_ptr(),
-                None if acc is None else acc.data_ptr(), part.data_ptr(),
-                None if gm is None else gm.data_ptr(), parts, r, h, f, fc,
-                int(approximate), *_drop_args(drop))
+    ptr = [x.data_ptr(), w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(),
+           g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+           dw2.data_ptr(), db2.data_ptr()]
+    ws = [da.data_ptr(), act.data_ptr(),
+          None if acc is None else acc.data_ptr(), part.data_ptr(),
+          None if gm is None else gm.data_ptr()]
+    tail = (parts, r, h, f, fc, int(approximate), *_drop_args(drop))
+    if route == "wgmma":   # a stays in the registers
+        _build.call(_mlp_lib(), "fused_mlp_bwd_wgmma", dt, dev, *ptr, *ws,
+                    *tail)
+    else:                  # the f32 pre-activation chunk
+        a = empty(r, fc, dtype=f32)
+        _build.call(_mlp_lib(), "fused_mlp_bwd", dt, dev, *ptr, a.data_ptr(),
+                    *ws, *tail)
     counts = launches if drop is None else dropout_launches
     counts["fused_mlp_dx"] += 1
     counts["fused_mlp_dw"] += 1
+    mlp_bwd_routes[route] += 1
     return dx, dw1, db1, dw2, db2
 
 
@@ -588,54 +720,8 @@ def _swiglu_fwd_cuda(x, wg, wu, wd):
 
 # CUDA calls of the SwiGLU backward by route
 swiglu_bwd_routes = {"wgmma": 0, "generic": 0}
-
-# the wgmma route's geometry (csrc/gemm_core.cuh, csrc/fused_mlp.cu's
-# namespace sw): the core's output tile and k step, P1's tile width and
-# its clusters' blocks (side by side along N), the row tiles of a raster
-# group
-SW_BM, SW_BN, SW_BK, SW_GROUP_M = 128, 256, 64, 8
-SW_DACT_BN, SW_DACT_CLUSTER = 64, 2
-
-
-def swiglu_bwd_route(dtype, h: int, f: int, aligned: bool) -> str:
-    """The SwiGLU backward a CUDA call takes: ``"wgmma"`` for bfloat16
-    with H and F multiples of 8 (TMA's 16-byte row strides) and every
-    tensor 16-byte aligned and contiguous (``aligned``), else
-    ``"generic"``."""
-    if dtype == torch.bfloat16 and h % 8 == 0 and f % 8 == 0 and aligned:
-        return "wgmma"
-    return "generic"
-
-
-def _tile_of(t: int, num_m: int, num_n: int):
-    """gemm_core.cuh's ``tile_of``: the (row, column) tile of the t-th
-    tile a persistent block walks, groups of SW_GROUP_M row tiles sweeping
-    the column tiles, row tile fastest."""
-    per = SW_GROUP_M * num_n
-    first = t // per * SW_GROUP_M
-    rows = min(num_m - first, SW_GROUP_M)
-    rem = t % per
-    return first + rem % rows, rem // rows
-
-
-def gemm_tiles(m: int, n: int, bm: int, bn: int, nsplit: bool = False,
-               cluster: int = 1):
-    """The output tiles of one product in the order the persistent grid
-    walks them: (row0, col0, half), half the N half of an ``nsplit``
-    product (else 0); each tile [row0, row0 + bm) x [col0, col0 + bn),
-    clipped at (m, n). With ``cluster`` blocks side by side along N (P1)
-    the walk is over the clusters' tiles, each listing its blocks' tiles
-    in rank order (the last may lie wholly past n: it only shares its
-    loads)."""
-    halves = 2 if nsplit else 1
-    num_m, nh = -(-m // bm), -(-n // (bn * cluster))
-    out = []
-    for t in range(num_m * nh * halves):
-        mt, nt = _tile_of(t, num_m, nh * halves)
-        half = nt // nh
-        out.extend((mt * bm, ((nt - half * nh) * cluster + rank) * bn, half)
-                   for rank in range(cluster))
-    return out
+# the SwiGLU backward takes the GeLU backward's rule
+swiglu_bwd_route = mlp_bwd_route
 
 
 def swiglu_bwd_plan(r: int, h: int, f: int, fc: int):
@@ -671,18 +757,9 @@ def _swiglu_bwd_cuda(x, wg, wu, wd, g, route=None):
     if g.shape != x.shape:
         raise ValueError(f"fused_swiglu_bwd: g {tuple(g.shape)} must have "
                          f"x's shape {tuple(x.shape)}")
-    natural = swiglu_bwd_route(x.dtype, h, f, all(
-        t.data_ptr() % 16 == 0 for t in (x, wg, wu, wd, g)))
-    if route is None:
-        route = natural
-    elif route not in ("wgmma", "generic"):
-        raise ValueError(f"fused_swiglu_bwd: route {route!r} is 'wgmma' or "
-                         f"'generic'")
-    elif route == "wgmma" and natural != "wgmma":
-        raise ValueError(
-            f"fused_swiglu_bwd: the wgmma route takes bfloat16 with H and F "
-            f"multiples of 8 and 16-byte aligned tensors, got {x.dtype}, "
-            f"H={h}, F={f}")
+    route = _route("fused_swiglu_bwd", route, swiglu_bwd_route(
+        x.dtype, h, f, all(t.data_ptr() % 16 == 0
+                           for t in (x, wg, wu, wd, g))), x.dtype, h, f)
     fc = min(f, _SWIGLU_BWD_CHUNK_F if route == "wgmma" else _CHUNK_F)
     dev, dt = x.device, x.dtype
 
