@@ -13,9 +13,12 @@ Phases, one line each; any failure raises and exits non-zero:
    ptxas' registers and spills for each instantiation of the wgmma flash
    kernels (forward, dQ, dK/dV), of the projection-LN's cluster kernels,
    of the SwiGLU backward's wgmma kernels (its P1 and the GEMM core's
-   instantiations, which the GeLU backward shares) and of the GeLU
-   backward's own (its P1, the core at P3 / P4's narrower tile) (none
-   may spill);
+   instantiations, which the GeLU backward shares), of the GeLU
+   backward's own (its P1, the core at P3 / P4's narrower tile) and of
+   the forwards' (the core's P1: the GeLU's EpiGelu, the SwiGLU's paired
+   EpiSwiglu; P2: EpiBias with and without the dropout key, EpiSum,
+   EpiStore, EpiSumLast), every wgmma kernel of fused_mlp.cu listed once
+   (none may spill);
 3. each kernel against its plain PyTorch version on the card at the
    main path's shapes (GPT-3 1.3B: NH=16, D=128, HO=2048, block_size
    16, 64-entry tables, MHA and GQA), fp32 and bf16, with its time,
@@ -51,15 +54,18 @@ Phases, one line each; any failure raises and exits non-zero:
    versions on the card: gpt3-1.3b (R=8192, H=2048, F=8192), bert-base
    (R=16384, H=768, F=3072) and ragged shapes (R=1000/333, H=96/100,
    F=320/360/200/2560), fp32 and bf16, both GeLU forms (y, dx, dw1,
-   db1, dw2, db2), each element within its row's scale; the backward's
-   route per case (mlp_bwd_routes: the bf16 cases with H and F multiples
-   of 8 on the wgmma kernels, the rest on the generic ones); two
-   backward calls give the same bits; the check shown to reject a
-   forward missing one ffn chunk and a dW1 missing one 128-row block of
-   R; their times at gpt3-1.3b's and bert-base's shapes beside the plain
-   versions' and the bound, the forward beside the dense addmm -> gelu
-   -> addmm, the shared backward beside that composite's backward and
-   beside the generic route in turns;
+   db1, dw2, db2), each element within its row's scale; the forward's
+   and backward's route per case (mlp_fwd_routes, mlp_bwd_routes: the
+   bf16 cases with H and F multiples of 8 on the wgmma kernels, the rest
+   on the generic ones); two backward calls give the same bits; the
+   check shown to reject a forward missing one ffn chunk's down product
+   (the wgmma route's chunk), a forward without b2 and a dW1 missing one
+   128-row block of R; their times at gpt3-1.3b's and bert-base's shapes
+   beside the plain versions' and the bound, the forward beside the
+   dense addmm -> gelu -> addmm, the shared backward beside that
+   composite's backward, both beside the generic route in turns; the
+   forward's CUDA launches a call (2 a chunk) read in phases 11, 17, 24
+   and 34's profiles;
 10. train gpt3-1.3b (random weights from a seed, bf16, full width and
    depth, FLAGS_fused_mlp on as by default, remat save_small, bf16 AdamW
    moments, the plain LM head) at B=4, S=2048 on one fixed batch: one
@@ -67,13 +73,14 @@ Phases, one line each; any failure raises and exits non-zero:
    taken; each flash and fused MLP kernel launched 24 times per step,
    every flash forward and backward on the wgmma kernels (the route
    counters, as in phases 12, 13, 16, 18, 23, 25, 33 and 35), every
-   GeLU MLP backward on the wgmma route (as in phases 11, 12, 23, 24, 33
-   and 34);
+   GeLU MLP forward and backward on the wgmma route (as in phases 11,
+   12, 23, 24, 33 and 34; none with the fused MLP off, 13, 25, 35);
    ms/step, tokens/s, model TFLOP/s, peak memory, and the card's SM
    clock, power draw and temperature sampled during the timed steps;
 11. torch.profiler over 2 more training steps: device busy time per
-   step, idle share, the flash and fused MLP kernels' shares, the
-   kernels that take the time;
+   step, idle share, the flash and fused MLP kernels' shares (the fused
+   MLP's by direction, as in phases 17, 24 and 34), the kernels that
+   take the time;
 12. one step under remat 'full': the flash and fused MLP forwards run 48
    times, the backward kernels 24;
 13. the same training with FLAGS_fused_mlp off (the dense MLP; 1 warm-up
@@ -88,25 +95,25 @@ Phases, one line each; any failure raises and exits non-zero:
    the custom ops and autograd through fused_swiglu_2d: llama-7b (R=2048,
    H=4096, F=11008, the last ffn chunk ragged) and ragged shapes
    (R=1000/333, H=96/2048/100, F=320/2560/4608/200), fp32 and bf16 (y, dx,
-   dwg, dwu, dwd), each element within its row's scale; the backward's
-   route per case (swiglu_bwd_routes: the bf16 cases with H and F
-   multiples of 8 on the wgmma kernels, the rest on the generic ones);
-   two backward calls give the same bits; the check shown to reject a
-   forward missing one ffn chunk and a dWg missing one 128-row block of
-   R; their times at llama-7b shape beside the plain versions', the
-   bound and the dense silu-gated composite through cuBLAS (forward, and
-   its autograd backward), the backward's also beside the generic route
-   in turns;
+   dwg, dwu, dwd), each element within its row's scale; the forward's
+   and backward's route per case (swiglu_fwd_routes, swiglu_bwd_routes:
+   the bf16 cases with H and F multiples of 8 on the wgmma kernels, the
+   rest on the generic ones); two backward calls give the same bits; the
+   check shown to reject a forward missing one ffn chunk's down product
+   and a dWg missing one 128-row block of R; their times at llama-7b
+   shape beside the plain versions', the bound and the dense silu-gated
+   composite through cuBLAS (forward, and its autograd backward), both
+   also beside the generic route in turns;
 16. train llama-7b (random weights from a seed, bf16, full width and
    depth, FLAGS_fused_mlp on as by default) through the Layer model and
    AdamW (model.loss -> backward -> opt.step -> opt.clear_grad) at B=1,
    S=2048 on one fixed batch: one warm-up step, then 4 steps; finite,
    falling loss; each SwiGLU and flash kernel launched 32 times per step,
-   every SwiGLU backward on the wgmma route;
+   every SwiGLU forward and backward on the wgmma route;
    ms/step, tokens/s, model TFLOP/s, the AdamW update's ms (CUDA events),
    peak memory and the card's clocks;
-17. torch.profiler over 2 more llama-7b steps (every SwiGLU backward on
-   the wgmma route): device busy time per step,
+17. torch.profiler over 2 more llama-7b steps (every SwiGLU forward and
+   backward on the wgmma route): device busy time per step,
    idle share, the flash and SwiGLU kernels' shares, the optimizer
    step's device time, the kernels that take the time;
 18. the same llama-7b training with FLAGS_fused_mlp off (the dense
@@ -255,13 +262,14 @@ Phases, one line each; any failure raises and exits non-zero:
    32), all bf16, and a ragged R=1000 in f32 (y, dx, dw1, db1, dw2,
    db2), each element within its row's scale; y's zeros equal to the
    plain mask's, and with g in one row only dW2's zero columns and db2's
-   zeros equal to that row's dropped columns; each bf16 backward on the
-   wgmma route; two backward calls give the same bits; autograd through
-   fused_mlp_2d equal to the ops; the
+   zeros equal to that row's dropped columns; each bf16 forward and
+   backward on the wgmma route; two backward calls give the same bits;
+   autograd through fused_mlp_2d equal to the ops; the
    check shown to reject the mask keyed by the kernels' 128-row block;
    their times at gpt3-1.3b's and bert-base's widths beside the plain
-   versions', the dropout-free kernels', the bound and addmm -> gelu ->
-   addmm -> F.dropout with its autograd backward;
+   versions', the dropout-free kernels', the generic route's (in turns),
+   the bound and addmm -> gelu -> addmm -> F.dropout with its autograd
+   backward;
 38. F.fused_mlp at dropout 0.1 in fp32, R=1024 at gpt3-1.3b's and
    bert-base's full H and F: the output and every gradient through
    autograd with the kernels on the card against the port's CPU route
@@ -1065,12 +1073,16 @@ MLP_REPLACES = {"fused_mlp_fwd": "paddle_tpu/kernels/mlp_fusion.py:228",
 MLP_TOL = {"float32": 1e-4, "bfloat16": 2 ** -5}
 MLP_R, MLP_H, MLP_F = TRAIN_B * TRAIN_S, 2048, 8192   # the slice's shape
 MLP_BERT = (16384, 768, 3072)     # bert-base's MLP: R = 32 x 512, H, F
+# three forward chunks on the wgmma route (8192, 8192, 128: the f32 sum
+# stored, added to, then loaded by the last, ragged chunk), five
+# backward chunks, rows not a multiple of the tiles
+MLP_MULTI = (300, 64, 16512)
 # (r, h, f, dtype, approximate): gpt3-1.3b; bert-base; rows not a
 # multiple of any tile, f <= 512 not a multiple of 128, h not a multiple
 # of 64; the same with the wgmma backward's one chunk ending off a
-# 64-column edge (360); the last ffn chunk ragged (2560 = 2048 + 512);
-# strides not a multiple of 16 bytes (h = 100: the kernels' scalar load
-# path)
+# 64-column edge (360); the generic route's last ffn chunk ragged (2560 =
+# 2048 + 512); MLP_MULTI; strides not a multiple of 16 bytes (h = 100:
+# the kernels' scalar load path)
 MLP_CASES = [(MLP_R, MLP_H, MLP_F, "bfloat16", True),
              (*MLP_BERT, "bfloat16", False),
              (1000, 96, 320, "bfloat16", False),
@@ -1078,11 +1090,12 @@ MLP_CASES = [(MLP_R, MLP_H, MLP_F, "bfloat16", True),
              (1000, 96, 360, "bfloat16", True),
              (1000, 2048, 2560, "float32", False),
              (1000, 2048, 2560, "bfloat16", True),
+             (*MLP_MULTI, "bfloat16", True),
              (333, 100, 200, "bfloat16", True)]
-# the bf16 cases whose backward takes the wgmma route (H and F multiples
-# of 8); every other case takes the generic kernels
+# the bf16 cases whose forward and backward take the wgmma route (H and F
+# multiples of 8); every other case takes the generic kernels
 MLP_WGMMA = {(MLP_R, MLP_H, MLP_F), MLP_BERT, (1000, 96, 320), (1000, 96, 360),
-             (1000, 2048, 2560)}
+             (1000, 2048, 2560), MLP_MULTI}
 
 
 def mlp_inputs(torch, r, h, f, dtype, seed):
@@ -1121,10 +1134,10 @@ def mlp_bounds(r, h, f, esize, drop=False):
 
 
 def mlp_workspace_gb(r, h, f, esize):
-    """The larger of the forward's and the wgmma backward's workspaces
+    """The larger of the wgmma forward's and backward's workspaces
     (csrc/fused_mlp.cu): the forward's act chunk in the dtype (chunk
-    _CHUNK_F), the backward's da and act chunks in the dtype (chunk
-    _MLP_BWD_CHUNK_F) and the f32 column-sum partials of the bias
+    _MLP_FWD_CHUNK_F), the backward's da and act chunks in the dtype
+    (chunk _MLP_BWD_CHUNK_F) and the f32 column-sum partials of the bias
     gradients, each with the f32 [R, H] accumulator when F exceeds its
     chunk."""
     from paddle_tpu_torch.kernels import mlp_fusion as mf
@@ -1132,7 +1145,7 @@ def mlp_workspace_gb(r, h, f, esize):
     def acc(fc):
         return r * h * 4 if f > fc else 0
 
-    fwd, bwd = min(f, mf._CHUNK_F), min(f, mf._MLP_BWD_CHUNK_F)
+    fwd, bwd = min(f, mf._MLP_FWD_CHUNK_F), min(f, mf._MLP_BWD_CHUNK_F)
     parts = -(-r // mf._ROW_BLOCK)
     return max(r * fwd * esize + acc(fwd),
                r * bwd * 2 * esize + acc(bwd) + parts * (f + h) * 4) / 1e9
@@ -1143,17 +1156,19 @@ def phase_mlp_vs_plain(torch):
     ``fused_mlp_bwd``: the kernels' wrappers, which the training step
     reaches through ``fused_mlp_2d``) against their plain versions on
     the card (y, dx, dw1, db1, dw2, db2) in every MLP_CASES case, the
-    backward on its route (MLP_WGMMA: wgmma, else generic); the backward
-    repeated gives the same bits, and autograd through ``fused_mlp_2d``
-    gives the backward op's results; the check shown to reject a forward
-    missing one ffn chunk and a dW1 missing one row block; then the times
-    at the slice's shape and at bert-base's."""
+    forward and the backward on their route (MLP_WGMMA: wgmma, else
+    generic); the backward repeated gives the same bits, and autograd
+    through ``fused_mlp_2d`` gives the ops' results; the check shown to
+    reject a forward missing one ffn chunk's down product, a forward
+    without b2 and a dW1 missing one row block; then the times at the
+    slice's shape and at bert-base's."""
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     worst, routes = {}, {}
     for r, h, f, name, approx in MLP_CASES:
         dtype = getattr(torch, name)
         x, w1, b1, w2, b2, g = mlp_inputs(torch, r, h, f, dtype, seed=r + f)
         before = dict(mf.mlp_bwd_routes)
+        fbefore = dict(mf.mlp_fwd_routes)
         y = mf.fused_mlp_fwd(x, w1, b1, w2, b2, approx)
         grads = mf.fused_mlp_bwd(x, w1, b1, w2, b2, g, approx)
         dx, dw1, db1, dw2, db2 = grads
@@ -1163,11 +1178,13 @@ def phase_mlp_vs_plain(torch):
         auto = torch.autograd.grad(y_ag, prim, g)
         torch.cuda.synchronize()
         took = {k: n - before[k] for k, n in mf.mlp_bwd_routes.items()}
+        ftook = {k: n - fbefore[k] for k, n in mf.mlp_fwd_routes.items()}
         route = ("wgmma" if name == "bfloat16" and (r, h, f) in MLP_WGMMA
                  else "generic")
-        check(took == {"wgmma": 0, "generic": 0, route: 3},
-              f"fused MLP backward routes {took} ({name} r={r} h={h} f={f}), "
-              f"want 3 calls on {route}")
+        check(took == {"wgmma": 0, "generic": 0, route: 3}
+              and ftook == {"wgmma": 0, "generic": 0, route: 2},
+              f"fused MLP routes: forward {ftook}, backward {took} ({name} "
+              f"r={r} h={h} f={f}), want 2 and 3 calls on {route}")
         routes[f"{name} r={r} h={h} f={f}"] = route
         check(all(torch.equal(a, b) for a, b in zip(again, grads)),
               f"fused MLP backward differs between two calls ({name} r={r} "
@@ -1202,31 +1219,39 @@ def phase_mlp_vs_plain(torch):
                 worst={n: {k: dict(max_abs_err=e, relative=r)
                            for k, (e, r) in w.items()}
                        for n, w in worst.items()},
-                cases=[list(c) for c in MLP_CASES], backward_routes=routes,
-                wrong_kernel_reading=mlp_check_rejects(torch, mf),
+                cases=[list(c) for c in MLP_CASES], routes=routes,
+                **mlp_check_rejects(torch, mf),
                 wrong_dw1_reading=mlp_dw_check_rejects(torch, mf),
                 bert_base=mlp_times(torch, mf, *MLP_BERT, approx=False),
                 **mlp_times(torch, mf))
 
 
 def mlp_check_rejects(torch, mf):
-    """The bf16 check must reject a forward that skips one ffn chunk: the
-    plain forward at the slice's shape with the second ffn chunk of the
-    activation left out. Returns its reading."""
-    x, w1, b1, w2, b2, _ = mlp_inputs(torch, MLP_R, MLP_H, MLP_F,
-                                      torch.bfloat16, seed=MLP_R + MLP_F)
-    ref = mf.fused_mlp_fwd_ref(x, w1, b1, w2, b2, True)
-    keep = torch.ones(MLP_F, dtype=torch.bool, device="cuda")
-    keep[mf._CHUNK_F:2 * mf._CHUNK_F] = False
-    act = mf._gelu_f32(mf._pre(x, w1, b1), True).to(x.dtype).float()
-    wrong = (act[:, keep] @ w2.float()[keep] + b2.float()).to(x.dtype)
-    reading = flash_reading(wrong, ref)
-    check(reading > MLP_TOL["bfloat16"],
-          f"the bf16 MLP check passes a forward with one ffn chunk dropped: "
-          f"{reading} <= {MLP_TOL['bfloat16']}")
-    del x, w1, b1, w2, b2, ref, act, wrong
+    """The bf16 check must reject the forward's planted faults: the
+    plain forward at MLP_MULTI with the wgmma route's middle ffn chunk
+    (_MLP_FWD_CHUNK_F columns: one P2 launch) of the activation left out
+    of the down product, and at the slice's shape without b2. Returns
+    their readings."""
+    out, fc = {}, mf._MLP_FWD_CHUNK_F
+    for fault, (r, h, f) in (("wrong_kernel_reading", MLP_MULTI),
+                             ("without_b2_reading", (MLP_R, MLP_H, MLP_F))):
+        x, w1, b1, w2, b2, _ = mlp_inputs(torch, r, h, f, torch.bfloat16,
+                                          seed=r + f)
+        ref = mf.fused_mlp_fwd_ref(x, w1, b1, w2, b2, True)
+        act = mf._gelu_f32(mf._pre(x, w1, b1), True).to(x.dtype).float()
+        if fault == "wrong_kernel_reading":
+            keep = torch.ones(f, dtype=torch.bool, device="cuda")
+            keep[fc:2 * fc] = False
+            wrong = act[:, keep] @ w2.float()[keep] + b2.float()
+        else:
+            wrong = act @ w2.float()
+        out[fault] = flash_reading(wrong.to(x.dtype), ref)
+        check(out[fault] > MLP_TOL["bfloat16"],
+              f"the bf16 MLP check passes a planted forward fault ({fault}): "
+              f"{out[fault]} <= {MLP_TOL['bfloat16']}")
+        del x, w1, b1, w2, b2, ref, act, wrong
     torch.cuda.empty_cache()
-    return reading
+    return out
 
 
 def mlp_dw_check_rejects(torch, mf, rows=128):
@@ -1260,8 +1285,9 @@ def mlp_times(torch, mf, r=MLP_R, h=MLP_H, f=MLP_F, approx=True, key=None):
     cuBLAS for the forward; no library call computes dX alone or dW
     alone, so their library_ms is null and the composite's whole backward
     (autograd on a retained graph) is timed beside the backward op. The
-    backward (on the wgmma route) is also timed in turns with the generic
-    route on the same inputs (``earlier_ms``). With a dropout ``key``:
+    forward and the backward (on the wgmma route) are also timed in turns
+    with the generic route on the same inputs (``earlier_ms``). With a
+    dropout ``key``:
     the dropout variants, each also in turns with the dropout-free op,
     and F.dropout on the composite's output (its retained graph keeps one
     mask)."""
@@ -1295,6 +1321,14 @@ def mlp_times(torch, mf, r=MLP_R, h=MLP_H, f=MLP_F, approx=True, key=None):
             t = res[name]
             t["dropout_free_ms"], t["ms_beside_dropout_free"], _ = in_turns(
                 fn, runs[name][0], iters=10)
+    fwd = res["forward"]
+    fwd["earlier_ms"], _, fwd["earlier_all_ms"] = in_turns(
+        lambda _: mf._fwd_cuda(x, w1, b1, w2, b2, approx, key,
+                               route="generic"),
+        lambda _: mf._fwd_cuda(x, w1, b1, w2, b2, approx, key, route="wgmma"),
+        iters=10)
+    fwd.update(route="wgmma", earlier="the generic route (mlp_gemm_kernel, "
+               "2 launches a chunk of 2048), same inputs, in turns")
     bwd = res["backward"]
     bwd["earlier_ms"], _, bwd["earlier_all_ms"] = in_turns(
         lambda _: mf._bwd_cuda(x, w1, b1, w2, g, approx, key,
@@ -1319,6 +1353,7 @@ def mlp_times(torch, mf, r=MLP_R, h=MLP_H, f=MLP_F, approx=True, key=None):
         runs["backward"][0], iters=10)
     res["timed_at"] = dict(r=r, h=h, f=f, dtype="bfloat16", approximate=approx,
                            chunk_f=mf._CHUNK_F,
+                           wgmma_forward_chunk_f=mf._MLP_FWD_CHUNK_F,
                            wgmma_backward_chunk_f=mf._MLP_BWD_CHUNK_F,
                            dropout=None if key is None else key.p,
                            block_r=None if key is None else key.rows)
@@ -1357,12 +1392,13 @@ def _launch_counts():
 def reset_launches():
     """Every kernel count of the training paths to 0, the dropout
     variants', the flash forward's and backward's, the projection-LN's
-    and the GeLU and SwiGLU backwards' routes included."""
+    and the GeLU and SwiGLU forwards' and backwards' routes included."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     plain, drop = _launch_counts()
     for counts in plain + drop + (fa.fwd_routes, fa.bwd_routes, mf.pl_routes,
-                                  mf.swiglu_bwd_routes, mf.mlp_bwd_routes):
+                                  mf.swiglu_bwd_routes, mf.mlp_bwd_routes,
+                                  mf.swiglu_fwd_routes, mf.mlp_fwd_routes):
         for key in counts:
             counts[key] = 0
 
@@ -1421,6 +1457,32 @@ def mlp_bwd_routes_reading(counts, what, fused=True):
     check((n > 0) == fused and routes == {"wgmma": n, "generic": 0},
           f"{what}: GeLU MLP backward calls by route {routes}, want all {n} "
           f"on the wgmma kernels (fused MLP {fused})")
+    return routes
+
+
+def mlp_fwd_routes_reading(counts, what, fused=True):
+    """The GeLU MLP forward's calls by route since reset_launches: on a
+    bf16 model path with the fused MLP every one (dropout variant or not)
+    must take the wgmma kernels; with it off there is none."""
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    n = counts.get("fused_mlp_fwd", 0) + counts.get("dropout_fused_mlp_fwd", 0)
+    routes = dict(mf.mlp_fwd_routes)
+    check((n > 0) == fused and routes == {"wgmma": n, "generic": 0},
+          f"{what}: GeLU MLP forward calls by route {routes}, want all {n} "
+          f"on the wgmma kernels (fused MLP {fused})")
+    return routes
+
+
+def swiglu_fwd_routes_reading(counts, what, fused=True):
+    """The SwiGLU forward's calls by route since reset_launches: on the
+    bf16 llama-7b path with the fused MLP every one must take the wgmma
+    kernels; with it off there is none."""
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    n = counts.get("fused_swiglu_fwd", 0)
+    routes = dict(mf.swiglu_fwd_routes)
+    check((n > 0) == fused and routes == {"wgmma": n, "generic": 0},
+          f"{what}: SwiGLU forward calls by route {routes}, want all {n} on "
+          f"the wgmma kernels (fused MLP {fused})")
     return routes
 
 
@@ -1490,6 +1552,7 @@ def phase_train(torch, cfg, fused, steps=TRAIN_STEPS):
     routes = fwd_routes_reading(counts, "gpt3-1.3b training")
     broutes = bwd_routes_reading(counts, "gpt3-1.3b training")
     mroutes = mlp_bwd_routes_reading(counts, "gpt3-1.3b training", fused)
+    froutes = mlp_fwd_routes_reading(counts, "gpt3-1.3b training", fused)
     tokens = TRAIN_B * TRAIN_S
     flops = model_flops_per_step(cfg, tokens, TRAIN_S)
     ms = wall / steps * 1e3
@@ -1505,7 +1568,7 @@ def phase_train(torch, cfg, fused, steps=TRAIN_STEPS):
                card_during_steps=clocks.summary(), launches=counts,
                launches_per_step={k: n / steps for k, n in counts.items()},
                flash_fwd_routes=routes, flash_bwd_routes=broutes,
-               fused_mlp_bwd_routes=mroutes)
+               fused_mlp_fwd_routes=froutes, fused_mlp_bwd_routes=mroutes)
     return out, params, opt, (x, y)
 
 
@@ -1526,7 +1589,9 @@ def phase_profile_train(torch, cfg, params, opt, batch, steps=2):
             step(params, opt, *batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    mroutes = mlp_bwd_routes_reading(read_launches(), "gpt3-1.3b profile")
+    counts = read_launches()
+    mroutes = mlp_bwd_routes_reading(counts, "gpt3-1.3b profile")
+    froutes = mlp_fwd_routes_reading(counts, "gpt3-1.3b profile")
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
@@ -1540,18 +1605,28 @@ def phase_profile_train(torch, cfg, params, opt, batch, steps=2):
                        "flash_dkv_kernel")}
     # the fused MLP kernels by instantiation: the generic core's <dtype, A
     # col-major, B col-major, epilogue> (0 gelu, 1 accumulate, 2
-    # pre-activation, 3 gelu', 4 store), the backward's wgmma P1 and GEMM
-    # core, the column sums of g and the bias gradients' sum over the row
-    # blocks
+    # pre-activation, 3 gelu', 4 store), the backward's wgmma P1, the GEMM
+    # core's <A MN-major, B MN-major, BN, stages, epilogue, paired> (the
+    # forward's P1 EpiGelu and P2 EpiSum / EpiBias, the backward's P2-P4),
+    # the column sums of g and the bias gradients' sum over the row blocks
     mlp = kernel_ms(dev, MLP_KERNEL_NAMES, steps)
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    r, f = TRAIN_B * TRAIN_S, cfg.ffn
+    flaunch = fwd_core_launches(
+        dev, steps, counts["fused_mlp_fwd"] // steps, mf.mlp_fwd_plan(
+            r, cfg.hidden_size, f, min(f, mf._MLP_FWD_CHUNK_F)),
+        "gpt3-1.3b profile")
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
     return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
                 device_busy_ms_per_step=busy_ms / steps,
                 device_idle_share=1.0 - busy_ms / wall_ms,
-                fused_mlp_bwd_routes=mroutes, flash_ms_per_step=flash,
+                fused_mlp_fwd_routes=froutes, fused_mlp_bwd_routes=mroutes,
+                fused_mlp_fwd_launches=flaunch,
+                flash_ms_per_step=flash,
                 flash_share_of_busy=sum(flash.values()) * steps / busy_ms,
                 fused_mlp_ms_per_step=sum(mlp.values()),
                 fused_mlp_share_of_busy=sum(mlp.values()) * steps / busy_ms,
+                fused_mlp_ms_per_step_by_direction=mlp_by_direction(mlp),
                 fused_mlp_kernels_ms_per_step=mlp,
                 top_device_ms_per_step=[
                     (e.key[:70], e.self_device_time_total / 1e3 / steps,
@@ -1580,6 +1655,8 @@ def phase_remat_full(torch, cfg, params, opt, batch):
     return dict(remat_policy="full", loss=float(loss), launches=counts,
                 flash_fwd_routes=fwd_routes_reading(counts, "remat 'full'"),
                 flash_bwd_routes=bwd_routes_reading(counts, "remat 'full'"),
+                fused_mlp_fwd_routes=mlp_fwd_routes_reading(counts,
+                                                            "remat 'full'"),
                 fused_mlp_bwd_routes=mlp_bwd_routes_reading(counts,
                                                             "remat 'full'"))
 
@@ -1668,10 +1745,42 @@ def kernel_ms(dev, names, steps):
 # the fused MLP library's kernels as the profiler names them: the generic
 # GEMM core, the GeLU backward's column sums and their fixed-order sum,
 # the wgmma routes of the GeLU and SwiGLU backwards (their P1 kernels,
-# then the core's P2-P4)
+# then the core's P2-P4) and forwards (the core's P1 and P2)
 MLP_KERNEL_NAMES = ("mlp_gemm_kernel", "colsum_kernel", "sum_parts_kernel",
                     "gelu_dact_wgmma_kernel", "swiglu_dact_wgmma_kernel",
                     "wgmma_gemm_kernel")
+# the GEMM core's instantiations of the forwards' wgmma route: A (x, act_c)
+# K-major, B (the weights' windows) MN-major; every backward product takes
+# A and B both K-major (P2) or both MN-major (P3, P4)
+MLP_FWD_CORE = "wgmma_gemm_kernel<false, true,"
+
+
+def mlp_by_direction(kernels):
+    """kernel_ms's fused MLP kernels summed by direction: the forward (the
+    core's MLP_FWD_CORE instantiations), the backward (its P1 kernels, the
+    core's other instantiations, the column sums and sum_parts) and the
+    generic route's mlp_gemm_kernel (either direction; no bf16 model call
+    takes it)."""
+    out = {"forward": 0.0, "backward": 0.0, "generic_either": 0.0}
+    for name, ms in kernels.items():
+        key = ("forward" if MLP_FWD_CORE in name else "generic_either"
+               if "mlp_gemm_kernel" in name else "backward")
+        out[key] += ms
+    return out
+
+
+def fwd_core_launches(dev, steps, calls, plan, what):
+    """The forward's CUDA launches a call in a profiled training run:
+    the core's MLP_FWD_CORE kernels over ``steps`` steps of ``calls``
+    forward calls each, exactly 2 a chunk of ``plan`` (mlp_fwd_plan or
+    swiglu_fwd_plan at the model's shape)."""
+    n = sum(e.count for e in dev if MLP_FWD_CORE in e.key)
+    want = 2 * len(plan)
+    check(calls > 0 and n == steps * calls * want,
+          f"{what}: {n} forward core launches in {steps} steps of {calls} "
+          f"calls, want {want} a call")
+    return dict(forward_cuda_launches_per_call=n / (steps * calls),
+                want=want)
 
 SWIGLU_REPLACES = {
     "fused_swiglu_fwd": "paddle_tpu/kernels/mlp_fusion.py:522",
@@ -1684,19 +1793,21 @@ SWIGLU_REPLACES = {
 LLAMA_S = 2048                                  # the slice's B=1 sequence
 SW_R, SW_H, SW_F = LLAMA_S, 4096, 11008         # the slice's MLP shape
 # (r, h, f, dtype): llama-7b (5 chunks of 2048 and a ragged one of 768;
-# the wgmma backward's: 4096, 4096, 2816), in bf16 and f32; rows not a
-# multiple of any tile, f <= 512 not a multiple of 128, h not a multiple
-# of 64; a ragged last chunk (2560 = 2048 + 512; the wgmma backward's
-# 4608 = 4096 + 512); strides not a multiple of 16 bytes (h = 100: the
-# scalar load path)
+# the wgmma forward's: 8192, 2816; the wgmma backward's: 4096, 4096,
+# 2816), in bf16 and f32; rows not a multiple of any tile, f <= 512 not a
+# multiple of 128, h not a multiple of 64; a ragged last chunk (2560 =
+# 2048 + 512; the wgmma backward's 4608 = 4096 + 512); MLP_MULTI (the
+# wgmma forward's middle chunk); strides not a multiple of 16 bytes (h =
+# 100: the scalar load path)
 SWIGLU_CASES = [(SW_R, SW_H, SW_F, "bfloat16"), (SW_R, SW_H, SW_F, "float32"),
                 (1000, 96, 320, "bfloat16"), (1000, 96, 320, "float32"),
                 (1000, 2048, 2560, "bfloat16"), (1000, 2048, 4608, "bfloat16"),
+                (*MLP_MULTI, "bfloat16"),
                 (333, 100, 200, "bfloat16"), (333, 100, 200, "float32")]
-# the bf16 cases whose backward takes the wgmma route (H and F multiples
-# of 8); every other case takes the generic kernels
+# the bf16 cases whose forward and backward take the wgmma route (H and F
+# multiples of 8); every other case takes the generic kernels
 SWIGLU_WGMMA = {(SW_R, SW_H, SW_F), (1000, 96, 320), (1000, 2048, 2560),
-                (1000, 2048, 4608)}
+                (1000, 2048, 4608), MLP_MULTI}
 
 
 def swiglu_inputs(torch, r, h, f, dtype, seed):
@@ -1731,18 +1842,18 @@ def swiglu_bounds(r, h, f, esize):
 
 
 def swiglu_workspace_gb(r, h, f, esize):
-    """The larger of the forward's and the wgmma backward's workspaces
-    (csrc/fused_mlp.cu): the forward's ag chunk in f32 and act chunk in
-    the dtype (chunk _CHUNK_F), the backward's dag, dau and act chunks in
-    the dtype (chunk _SWIGLU_BWD_CHUNK_F), each with the f32 [R, H]
-    accumulator when F exceeds its chunk."""
+    """The larger of the wgmma forward's and backward's workspaces
+    (csrc/fused_mlp.cu): the forward's act chunk in the dtype (chunk
+    _MLP_FWD_CHUNK_F; ag and au stay in registers), the backward's dag,
+    dau and act chunks in the dtype (chunk _SWIGLU_BWD_CHUNK_F), each with
+    the f32 [R, H] accumulator when F exceeds its chunk."""
     from paddle_tpu_torch.kernels import mlp_fusion as mf
 
     def acc(fc):
         return r * h * 4 if f > fc else 0
 
-    fwd, bwd = min(f, mf._CHUNK_F), min(f, mf._SWIGLU_BWD_CHUNK_F)
-    return max(r * fwd * (4 + esize) + acc(fwd),
+    fwd, bwd = min(f, mf._MLP_FWD_CHUNK_F), min(f, mf._SWIGLU_BWD_CHUNK_F)
+    return max(r * fwd * esize + acc(fwd),
                r * bwd * 3 * esize + acc(bwd)) / 1e9
 
 
@@ -1751,17 +1862,18 @@ def phase_swiglu_vs_plain(torch):
     ``fused_swiglu_bwd``: the kernels' wrappers, which the LLaMA MLP
     reaches through ``fused_swiglu_2d``) against their plain versions on
     the card (y, dx, dwg, dwu, dwd) in every SWIGLU_CASES case, the
-    backward on its route (SWIGLU_WGMMA: wgmma, else generic); the
-    backward repeated gives the same bits, and autograd through
-    ``fused_swiglu_2d`` gives the ops' results; the check shown to reject a
-    forward missing one ffn chunk and a dWg missing one row block; then
-    the times at the slice's shape."""
+    forward and the backward on their route (SWIGLU_WGMMA: wgmma, else
+    generic); the backward repeated gives the same bits, and autograd
+    through ``fused_swiglu_2d`` gives the ops' results; the check shown to
+    reject a forward missing one ffn chunk's down product and a dWg
+    missing one row block; then the times at the slice's shape."""
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     worst, routes = {}, {}
     for r, h, f, name in SWIGLU_CASES:
         dtype = getattr(torch, name)
         x, wg, wu, wd, g = swiglu_inputs(torch, r, h, f, dtype, seed=r + f)
         before = dict(mf.swiglu_bwd_routes)
+        fbefore = dict(mf.swiglu_fwd_routes)
         y = mf.fused_swiglu_fwd(x, wg, wu, wd)
         grads = mf.fused_swiglu_bwd(x, wg, wu, wd, g)
         again = mf.fused_swiglu_bwd(x, wg, wu, wd, g)
@@ -1771,11 +1883,13 @@ def phase_swiglu_vs_plain(torch):
         torch.cuda.synchronize()
         where = f"{name} r={r} h={h} f={f}"
         took = {k: n - before[k] for k, n in mf.swiglu_bwd_routes.items()}
+        ftook = {k: n - fbefore[k] for k, n in mf.swiglu_fwd_routes.items()}
         route = ("wgmma" if name == "bfloat16" and (r, h, f) in SWIGLU_WGMMA
                  else "generic")
-        check(took == {"wgmma": 0, "generic": 0, route: 3},
-              f"fused SwiGLU backward routes {took} ({where}), want 3 calls "
-              f"on {route}")
+        check(took == {"wgmma": 0, "generic": 0, route: 3}
+              and ftook == {"wgmma": 0, "generic": 0, route: 2},
+              f"fused SwiGLU routes: forward {ftook}, backward {took} "
+              f"({where}), want 2 and 3 calls on {route}")
         routes[where] = route
         check(all(torch.equal(a, b) for a, b in zip(again, grads)),
               f"fused SwiGLU backward differs between two calls ({where})")
@@ -1808,7 +1922,7 @@ def phase_swiglu_vs_plain(torch):
                 worst={n: {k: dict(max_abs_err=e, relative=r)
                            for k, (e, r) in w.items()}
                        for n, w in worst.items()},
-                cases=[list(c) for c in SWIGLU_CASES], backward_routes=routes,
+                cases=[list(c) for c in SWIGLU_CASES], routes=routes,
                 wrong_kernel_reading=swiglu_check_rejects(torch, mf),
                 wrong_dwg_reading=swiglu_dw_check_rejects(torch, mf),
                 **swiglu_times(torch, mf))
@@ -1816,13 +1930,15 @@ def phase_swiglu_vs_plain(torch):
 
 def swiglu_check_rejects(torch, mf):
     """The bf16 check must reject a forward that skips one ffn chunk: the
-    plain forward at the slice's shape with the second ffn chunk of the
-    activation left out. Returns its reading."""
+    plain forward at the slice's shape with the wgmma route's second ffn
+    chunk (_MLP_FWD_CHUNK_F columns: one P2 launch) of the activation left
+    out of the down product. Returns its reading."""
     x, wg, wu, wd, _ = swiglu_inputs(torch, SW_R, SW_H, SW_F, torch.bfloat16,
                                      seed=SW_R + SW_F)
     ref = mf.fused_swiglu_fwd_ref(x, wg, wu, wd)
+    fc = mf._MLP_FWD_CHUNK_F
     keep = torch.ones(SW_F, dtype=torch.bool, device="cuda")
-    keep[mf._CHUNK_F:2 * mf._CHUNK_F] = False
+    keep[fc:2 * fc] = False
     ag, au = mf._gate_up(x, wg, wu)
     act = (mf._silu_f32(ag) * au).to(x.dtype).float()
     wrong = (act[:, keep] @ wd.float()[keep]).to(x.dtype)
@@ -1865,8 +1981,9 @@ def swiglu_times(torch, mf):
     Wd through cuBLAS for the forward; no library call computes dX alone
     or dW alone, so their library_ms is null and the composite's whole
     backward (autograd on a retained graph) is timed beside the backward
-    op. The backward (on the wgmma route) is also timed in turns with the
-    generic route on the same inputs (``earlier_ms``)."""
+    op. The forward and the backward (on the wgmma route) are also timed
+    in turns with the generic route on the same inputs
+    (``earlier_ms``)."""
     x, wg, wu, wd, g = swiglu_inputs(torch, SW_R, SW_H, SW_F, torch.bfloat16,
                                      seed=13)
 
@@ -1891,6 +2008,12 @@ def swiglu_times(torch, mf):
     def composite(x, wg, wu, wd):
         return (silu(x @ wg) * (x @ wu)) @ wd
 
+    fwd = res["forward"]
+    fwd["earlier_ms"], _, fwd["earlier_all_ms"] = in_turns(
+        lambda _: mf._swiglu_fwd_cuda(x, wg, wu, wd, route="generic"),
+        lambda _: mf._swiglu_fwd_cuda(x, wg, wu, wd, route="wgmma"), iters=10)
+    fwd.update(route="wgmma", earlier="the generic route (mlp_gemm_kernel, "
+               "3 launches a chunk of 2048), same inputs, in turns")
     bwd = res["backward"]
     bwd["earlier_ms"], _, bwd["earlier_all_ms"] = in_turns(
         lambda _: mf._swiglu_bwd_cuda(x, wg, wu, wd, g, route="generic"),
@@ -1907,6 +2030,7 @@ def swiglu_times(torch, mf):
         runs["backward"][0], iters=10)
     res["timed_at"] = dict(r=SW_R, h=SW_H, f=SW_F, dtype="bfloat16",
                            chunk_f=mf._CHUNK_F,
+                           wgmma_forward_chunk_f=mf._MLP_FWD_CHUNK_F,
                            wgmma_backward_chunk_f=mf._SWIGLU_BWD_CHUNK_F)
     del x, wg, wu, wd, g, prim, yc
     torch.cuda.empty_cache()
@@ -2001,6 +2125,7 @@ def phase_train_llama(torch, cfg, fused, steps=TRAIN_STEPS):
     broutes = bwd_routes_reading(counts, "llama-7b training")
     sroutes = (swiglu_routes_reading(counts, "llama-7b training") if fused
                else dict(mf.swiglu_bwd_routes))
+    sfroutes = swiglu_fwd_routes_reading(counts, "llama-7b training", fused)
     tokens = LLAMA_S
     flops = llama_flops_per_step(cfg, tokens, LLAMA_S)
     ms = wall / steps * 1e3
@@ -2017,7 +2142,7 @@ def phase_train_llama(torch, cfg, fused, steps=TRAIN_STEPS):
                card_during_steps=clocks.summary(), launches=counts,
                launches_per_step={k: n / steps for k, n in counts.items()},
                flash_fwd_routes=routes, flash_bwd_routes=broutes,
-               swiglu_bwd_routes=sroutes)
+               swiglu_fwd_routes=sfroutes, swiglu_bwd_routes=sroutes)
     return out, model, opt, step
 
 
@@ -2037,7 +2162,9 @@ def phase_profile_llama(torch, step, steps=2):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    sroutes = swiglu_routes_reading(read_launches(), "llama-7b profile")
+    counts = read_launches()
+    sroutes = swiglu_routes_reading(counts, "llama-7b profile")
+    sfroutes = swiglu_fwd_routes_reading(counts, "llama-7b profile")
     # the "adamw_step" range of llama_trainer shows on the device timeline
     # as an annotation spanning the optimizer's kernels: its span is the
     # AdamW update's device time, and it is kept out of the busy sum
@@ -2058,22 +2185,28 @@ def phase_profile_llama(torch, step, steps=2):
                        "flash_bwd_prep_kernel", "flash_dq_wgmma_kernel",
                        "flash_dkv_wgmma_kernel", "flash_dq_kernel",
                        "flash_dkv_kernel")}
-    # the SwiGLU kernels by instantiation: the forward's <dtype, A
-    # col-major, B col-major, epilogue> (1 accumulate, 2 gate/up product,
-    # 5 silu-gated activation); the backward's wgmma route: P1
-    # (swiglu_dact_wgmma_kernel), the core's <A MN-major, B MN-major, BN,
-    # stages, epilogue> (P2 EpiStore / EpiSum / EpiSumLast, P3 and P4
-    # EpiStore)
+    # the SwiGLU kernels by instantiation: the core's <A MN-major, B
+    # MN-major, BN, stages, epilogue, paired>: the forward's P1 (EpiSwiglu,
+    # paired) and P2 (EpiSum, EpiSumLast) at <false, true>; the backward's
+    # P1 (swiglu_dact_wgmma_kernel), P2 (EpiStore / EpiSum / EpiSumLast at
+    # <false, false>), P3 and P4 (EpiStore at <true, true>)
     mlp = kernel_ms(dev, MLP_KERNEL_NAMES, steps)
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    flaunch = fwd_core_launches(
+        dev, steps, counts["fused_swiglu_fwd"] // steps, mf.swiglu_fwd_plan(
+            SW_R, SW_H, SW_F, min(SW_F, mf._MLP_FWD_CHUNK_F)),
+        "llama-7b profile")
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
     return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
                 device_busy_ms_per_step=busy_ms / steps,
                 device_idle_share=1.0 - busy_ms / wall_ms,
-                flash_ms_per_step=flash,
+                swiglu_fwd_launches=flaunch, flash_ms_per_step=flash,
                 flash_share_of_busy=sum(flash.values()) * steps / busy_ms,
                 swiglu_ms_per_step=sum(mlp.values()),
                 swiglu_share_of_busy=sum(mlp.values()) * steps / busy_ms,
-                swiglu_kernels_ms_per_step=mlp, swiglu_bwd_routes=sroutes,
+                swiglu_ms_per_step_by_direction=mlp_by_direction(mlp),
+                swiglu_kernels_ms_per_step=mlp, swiglu_fwd_routes=sfroutes,
+                swiglu_bwd_routes=sroutes,
                 adamw_span_ms_per_step=spans.get(
                     "adamw_step", "not measured (no adamw_step range)"),
                 top_device_ms_per_step=[
@@ -3388,6 +3521,7 @@ def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
     routes = fwd_routes_reading(counts, "bert-base training")
     broutes = bwd_routes_reading(counts, "bert-base training")
     mroutes = mlp_bwd_routes_reading(counts, "bert-base training", fused)
+    froutes = mlp_fwd_routes_reading(counts, "bert-base training", fused)
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     if fused:
         proj_ln_routes = pl_routes_reading(counts, "bert-base training")
@@ -3418,7 +3552,8 @@ def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
                card_during_steps=clocks.summary(), launches=counts,
                launches_per_step={k: n / steps for k, n in counts.items()},
                flash_fwd_routes=routes, flash_bwd_routes=broutes,
-               proj_ln_routes=proj_ln_routes, fused_mlp_bwd_routes=mroutes)
+               proj_ln_routes=proj_ln_routes, fused_mlp_fwd_routes=froutes,
+               fused_mlp_bwd_routes=mroutes)
     return out, model, step
 
 
@@ -3438,7 +3573,9 @@ def phase_profile_bert(torch, step, steps=2):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    mroutes = mlp_bwd_routes_reading(read_launches(), "bert-base profile")
+    counts = read_launches()
+    mroutes = mlp_bwd_routes_reading(counts, "bert-base profile")
+    froutes = mlp_fwd_routes_reading(counts, "bert-base profile")
     spans, dev = {}, []
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -3471,11 +3608,23 @@ def phase_profile_bert(torch, step, steps=2):
     by_group = {g: sum(e.self_device_time_total for e in dev
                        if any(k in e.key for k in keys)) / 1e3 / steps
                 for g, keys in groups.items()}
+    # the fused MLP's own kernels (sum_parts_kernel, shared with the
+    # norms' backwards, left out) by direction
+    mlp = kernel_ms(dev, [k for k in MLP_KERNEL_NAMES
+                          if k != "sum_parts_kernel"], steps)
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    flaunch = fwd_core_launches(
+        dev, steps, (counts["fused_mlp_fwd"] + counts["dropout_fused_mlp_fwd"])
+        // steps, mf.mlp_fwd_plan(BERT_R, BERT_H, BERT_F, min(
+            BERT_F, mf._MLP_FWD_CHUNK_F)), "bert-base profile")
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
     return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
                 device_busy_ms_per_step=busy_ms / steps,
                 device_idle_share=1.0 - busy_ms / wall_ms,
-                fused_mlp_bwd_routes=mroutes, kernels_ms_per_step=by_group,
+                fused_mlp_fwd_routes=froutes, fused_mlp_bwd_routes=mroutes,
+                fused_mlp_fwd_launches=flaunch,
+                fused_mlp_ms_per_step_by_direction=mlp_by_direction(mlp),
+                kernels_ms_per_step=by_group,
                 kernels_share_of_busy={g: t * steps / busy_ms
                                        for g, t in by_group.items()},
                 adamw_span_ms_per_step=spans.get(
@@ -3998,11 +4147,14 @@ def dropout_mask_ms(torch):
 BERT_F = 3072                          # bert-base's intermediate size
 MLP_TABLE = (4096, 2048, 8192)         # a tuning-table hit: block_r 32 in bf16
 # (r, h, f, dtype, approximate): gpt3-1.3b's width (block_r 128, the CUDA
-# row block's height), bert-base's (256), the table hit (32), and a ragged
-# R in f32 over two ffn chunks (256; the last row block 232 rows)
+# row block's height), bert-base's (256), the table hit (32), MLP_MULTI
+# (256: the wgmma forward's mask in its last chunk's epilogue after two
+# f32 sums), and a ragged R in f32 over two ffn chunks (256; the last row
+# block 232 rows)
 MLP_DROP_CASES = [(MLP_R, MLP_H, MLP_F, "bfloat16", True),
                   (BERT_R, BERT_H, BERT_F, "bfloat16", False),
                   (*MLP_TABLE, "bfloat16", True),
+                  (*MLP_MULTI, "bfloat16", False),
                   (1000, BERT_H, BERT_F, "float32", False)]
 
 
@@ -4037,6 +4189,7 @@ def phase_mlp_dropout_vs_plain(torch):
         what = f"{name} r={r} h={h} f={f} approximate={approx}"
         tiles[what] = key.rows
         before = dict(mf.mlp_bwd_routes)
+        fbefore = dict(mf.mlp_fwd_routes)
         y = mf.fused_mlp_fwd(x, w1, b1, w2, b2, approx, *d)
         grads = mf.fused_mlp_bwd(x, w1, b1, w2, b2, g, approx, *d)
         again = mf.fused_mlp_bwd(x, w1, b1, w2, b2, g, approx, *d)
@@ -4050,10 +4203,12 @@ def phase_mlp_dropout_vs_plain(torch):
         keep = nf.row_keep_ref(key, x)
         torch.cuda.synchronize()
         took = {k: n - before[k] for k, n in mf.mlp_bwd_routes.items()}
+        ftook = {k: n - fbefore[k] for k, n in mf.mlp_fwd_routes.items()}
         route = "wgmma" if name == "bfloat16" else "generic"
-        check(took == {"wgmma": 0, "generic": 0, route: 4},
-              f"fused MLP dropout backward routes {took} ({what}), want 4 "
-              f"calls on {route}")
+        check(took == {"wgmma": 0, "generic": 0, route: 4}
+              and ftook == {"wgmma": 0, "generic": 0, route: 2},
+              f"fused MLP dropout routes: forward {ftook}, backward {took} "
+              f"({what}), want 2 and 4 calls on {route}")
         routes[what] = route
         check(all(same_bits(a, b) for a, b in zip(again, grads)),
               f"fused MLP dropout backward differs between two calls "
@@ -4110,7 +4265,7 @@ def phase_mlp_dropout_vs_plain(torch):
                            for k, (e, r) in w.items()}
                        for n, w in worst.items()},
                 cases=[list(c) for c in MLP_DROP_CASES], key_tile_rows=tiles,
-                backward_routes=routes, planted_faults=faults,
+                routes=routes, planted_faults=faults,
                 times={"gpt3-1.3b": mlp_times(torch, mf, key=mlp_key(
                            fa, mf, MLP_R, MLP_H, MLP_F, torch.bfloat16)),
                        "bert-base": mlp_times(
@@ -4895,84 +5050,85 @@ def wgmma_ptxas(build_log):
     return out
 
 
-def swiglu_ptxas_lines(log):
-    """ptxas -v's register and spill lines of the SwiGLU backward's wgmma
-    kernels in an nvcc log of fused_mlp.cu: P1 (swiglu_dact_wgmma_kernel)
-    and each wgmma_gemm_kernel instantiation <A MN-major, B MN-major, BN,
-    stages, epilogue>."""
+def core_kernel_name(mangled):
+    """A GEMM core instantiation's readable name from its mangled one:
+    wgmma_gemm_kernel<A MN-major, B MN-major, BN, stages, epilogue[<its
+    arguments>][, paired]>, or None for another kernel."""
+    m = re.search(r"wgmma_gemm_kernelILb(\d)ELb(\d)ELi(\d+)ELi(\d+)E(\w*?)"
+                  r"Lb(\d)EEEv", mangled)
+    if m is None:
+        return None
+    e = re.search(r"(\d+)(Epi\w+)", m.group(5))
+    epi = e.group(2)[:int(e.group(1))]
+    args = re.match(r"ILb(\d)ENS\w*?\d(Drop|NoDrop)E", e.group(2)[len(epi):])
+    if args:
+        epi += f"<{args.group(1)}, {args.group(2)}>"
+    return (f"wgmma_gemm_kernel<{', '.join(m.group(i) for i in range(1, 5))}"
+            f", {epi}{', paired' if m.group(6) == '1' else ''}>")
+
+
+def mlp_ptxas_lines(log):
+    """ptxas -v's register and spill lines of the wgmma kernels in an nvcc
+    log of fused_mlp.cu: the backwards' P1 kernels (swiglu_dact_wgmma_kernel,
+    gelu_dact_wgmma_kernel; a probe's copy may instantiate the latter per
+    form, <0 erf | 1 tanh>) and each GEMM core instantiation
+    (core_kernel_name)."""
     out, name = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(swiglu_dact_wgmma_kernel|"
-                      r"wgmma_gemm_kernel)(?:ILb(\d)ELb(\d)ELi(\d+)ELi(\d+)ENS\w*?"
-                      r"(EpiStore|EpiSumLast|EpiSum))?", ln)
-        if m:
-            name = m.group(1) if m.group(2) is None else (
-                f"{m.group(1)}<{', '.join(m.group(i) for i in range(2, 7))}>")
-        elif "Compiling entry function" in ln:
-            name = None
+        if "Compiling entry function" in ln:
+            m = re.search(r"(swiglu_dact_wgmma_kernel|gelu_dact_wgmma_kernel)"
+                          r"(?:ILi(\d)E)?", ln)
+            name = core_kernel_name(ln) or (m and (
+                m.group(1) if m.group(2) is None
+                else f"{m.group(1)}<{m.group(2)}>"))
         elif name and ("spill" in ln or "registers" in ln):
             out.setdefault(name, []).append(ln.strip())
     return out
 
 
-# the SwiGLU backward's wgmma kernels as swiglu_ptxas_lines names them:
-# P1; the core's P2 with its three epilogues (one chunk, the f32 sum's
-# first and middle chunks, the last); P3 / P4. The GeLU backward's P2-P4
-# share these instantiations.
+# the wgmma kernels of fused_mlp.cu as mlp_ptxas_lines names them. The
+# SwiGLU backward's: P1; the core's P2 with its three epilogues (one
+# chunk, the f32 sum's first and middle chunks, the last); P3 / P4 (the
+# GeLU backward's P2-P4 share these).
 SWIGLU_WGMMA_KERNELS = ("swiglu_dact_wgmma_kernel",
                         "wgmma_gemm_kernel<0, 0, 256, 3, EpiStore>",
                         "wgmma_gemm_kernel<0, 0, 256, 3, EpiSum>",
                         "wgmma_gemm_kernel<0, 0, 256, 3, EpiSumLast>",
                         "wgmma_gemm_kernel<1, 1, 256, 3, EpiStore>")
+# the GeLU backward's own: P1 (both forms, read at run time) and the
+# core's P3 / P4 at the narrower tile
+GELU_WGMMA_KERNELS = ("gelu_dact_wgmma_kernel",
+                      "wgmma_gemm_kernel<1, 1, 192, 4, EpiStore>")
+# the forwards': the GeLU's P1 and the SwiGLU's (paired); P2's one-chunk
+# and last-chunk epilogues with and without the dropout key (GeLU: the
+# last at the narrower tile) or bias (SwiGLU: EpiStore, EpiSumLast), the
+# f32 sum's first and middle
+FWD_WGMMA_KERNELS = tuple(
+    f"wgmma_gemm_kernel<0, 1, 192, 4, {e}>" for e in (
+        "EpiGelu", "EpiBias<1, NoDrop>", "EpiBias<1, Drop>")) + tuple(
+    f"wgmma_gemm_kernel<0, 1, 256, 3, {e}>" for e in (
+        "EpiSwiglu, paired", "EpiBias<0, NoDrop>", "EpiBias<0, Drop>",
+        "EpiSum", "EpiStore", "EpiSumLast"))
 
 
-def swiglu_wgmma_ptxas(build_log):
-    """The SwiGLU wgmma kernels' ptxas lines (SWIGLU_WGMMA_KERNELS): none
-    may spill."""
-    out = {k: v for k, v in
-           swiglu_ptxas_lines(build_log.get("fused_mlp.cu", "")).items()
-           if k in SWIGLU_WGMMA_KERNELS}
-    check(len(out) == 5 or "fused_mlp.cu" not in build_log,
-          f"ptxas lines for {len(out)} SwiGLU wgmma kernels, want 5")
-    for name, lines in out.items():
-        check(not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines),
-              f"{name} spills: {lines}")
-    return out
-
-
-def gelu_ptxas_lines(log):
-    """ptxas -v's register and spill lines of the GeLU backward's P1
-    kernel (gelu_dact_wgmma_kernel; a probe's copy may instantiate it
-    per form, <0 erf | 1 tanh>) in an nvcc log of fused_mlp.cu."""
-    out, name = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?gelu_dact_wgmma_kernel"
-                      r"(?:ILi(\d)E)?", ln)
-        if m:
-            name = ("gelu_dact_wgmma_kernel" if m.group(1) is None
-                    else f"gelu_dact_wgmma_kernel<{m.group(1)}>")
-        elif "Compiling entry function" in ln:
-            name = None
-        elif name and ("spill" in ln or "registers" in ln):
-            out.setdefault(name, []).append(ln.strip())
-    return out
-
-
-def gelu_wgmma_ptxas(build_log):
-    """The GeLU backward's own wgmma kernels' ptxas lines: P1 (both forms,
-    read at run time) and the core's instantiation of P3 / P4 at the
-    narrower tile (its other products take SWIGLU_WGMMA_KERNELS' core
-    instantiations): none may spill."""
-    log = build_log.get("fused_mlp.cu", "")
-    out = gelu_ptxas_lines(log) | {
-        k: v for k, v in swiglu_ptxas_lines(log).items()
-        if k not in SWIGLU_WGMMA_KERNELS}
-    check(len(out) == 2 or "fused_mlp.cu" not in build_log,
-          f"ptxas lines for {len(out)} GeLU wgmma kernels, want 2")
-    for name, lines in out.items():
-        check(not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines),
-              f"{name} spills: {lines}")
-    return out
+def mlp_wgmma_ptxas(build_log):
+    """The ptxas lines of fused_mlp.cu's wgmma kernels by route (the
+    three lists above): every kernel the build made listed once, none
+    spilling."""
+    if "fused_mlp.cu" not in build_log:
+        return {}
+    lines = mlp_ptxas_lines(build_log["fused_mlp.cu"])
+    routes = {"swiglu_backward": SWIGLU_WGMMA_KERNELS,
+              "gelu_backward": GELU_WGMMA_KERNELS,
+              "forwards": FWD_WGMMA_KERNELS}
+    known = {k for names in routes.values() for k in names}
+    check(set(lines) == known, f"fused_mlp.cu's wgmma kernels "
+          f"{sorted(set(lines) ^ known)} not both built and listed")
+    for name, ln in lines.items():
+        check(not any(re.search(r"[1-9]\d* bytes spill", x) for x in ln),
+              f"{name} spills: {ln}")
+    return {route: {k: lines[k] for k in names}
+            for route, names in routes.items()}
 
 
 def free_card(torch):
@@ -5012,8 +5168,7 @@ def main():
                  for ln in log.splitlines() if "registers" in ln],
           flash_wgmma_ptxas=wgmma_ptxas(_build.build_log),
           proj_ln_cluster_ptxas=pl_cluster_ptxas(_build.build_log),
-          swiglu_wgmma_ptxas=swiglu_wgmma_ptxas(_build.build_log),
-          gelu_wgmma_ptxas=gelu_wgmma_ptxas(_build.build_log))
+          fused_mlp_wgmma_ptxas=mlp_wgmma_ptxas(_build.build_log))
 
     kern = phase_kernel_vs_plain(torch)
     phase(3, "decode_attn_proj vs plain", tolerance=TOL, **kern)
@@ -5041,8 +5196,8 @@ def main():
     train, params, opt, batch = phase_train(torch, cfg, fused=True)
     phase(10, "train gpt3-1.3b bf16 B=4 S=2048 save_small fused MLP",
           **train)
-    phase(11, "profile of the training step",
-          **phase_profile_train(torch, cfg, params, opt, batch))
+    prof11 = phase_profile_train(torch, cfg, params, opt, batch)
+    phase(11, "profile of the training step", **prof11)
     phase(12, "remat full launches",
           **phase_remat_full(torch, cfg, params, opt, batch))
     del params, opt, batch
@@ -5071,8 +5226,8 @@ def main():
     ltrain, lmodel, lopt, lstep = phase_train_llama(torch, lcfg, fused=True)
     phase(16, "train llama-7b bf16 B=1 S=2048 fused SwiGLU, Layer model + "
           "AdamW", **ltrain)
-    phase(17, "profile of the llama-7b training step",
-          **phase_profile_llama(torch, lstep))
+    prof17 = phase_profile_llama(torch, lstep)
+    phase(17, "profile of the llama-7b training step", **prof17)
     del lmodel, lopt, lstep
     free_card(torch)
     ldense, lmodel, lopt, lstep = phase_train_llama(torch, lcfg, fused=False,
@@ -5106,8 +5261,8 @@ def main():
     btrain, bmodel, bstep = phase_train_bert(torch, bcfg, fused=True)
     phase(23, "train bert-base bf16 B=32 S=512 (padded) MLM+NSP, fused "
           "kernels, Layer model + AdamW", **btrain)
-    phase(24, "profile of the bert-base training step",
-          **phase_profile_bert(torch, bstep))
+    prof24 = phase_profile_bert(torch, bstep)
+    phase(24, "profile of the bert-base training step", **prof24)
     del bmodel, bstep
     free_card(torch)
     bdense, bmodel, bstep = phase_train_bert(torch, bcfg, fused=False,
@@ -5196,6 +5351,18 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         kernels[-1].update(route_fields(t))
+        if key == "forward":
+            bert = mlp["bert_base"]["forward"]
+            kernels[-1].update(
+                source_kernels="per chunk wgmma_gemm_kernel (gemm_core.cuh) "
+                               "P1 EpiGelu, then P2 EpiBias / EpiSum",
+                cuda_launches_per_call=prof11.get("fused_mlp_fwd_launches"),
+                bert_base=dict(ms=bert["ms"], earlier_ms=bert["earlier_ms"],
+                               plain_ms=bert["plain_ms"],
+                               bound_ms=bert["bound_ms"],
+                               library_ms=bert["library_ms"],
+                               cuda_launches_per_call=prof24.get(
+                                   "fused_mlp_fwd_launches")))
         if key == "backward":
             bert = mlp["bert_base"]["backward"]
             kernels[-1].update(
@@ -5243,8 +5410,14 @@ def main():
             "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
-        if name != "fused_swiglu_fwd":
-            kernels[-1].update(route_fields(t))
+        kernels[-1].update(route_fields(t))
+        if name == "fused_swiglu_fwd":
+            kernels[-1].update(
+                source_kernels="per chunk wgmma_gemm_kernel (gemm_core.cuh) "
+                               "P1 EpiSwiglu on the paired B, then P2 "
+                               "EpiSum / EpiSumLast",
+                cuda_launches_per_call=prof17.get("swiglu_fwd_launches"))
+        else:
             kernels[-1].update(
                 source_kernels="swiglu_dact_wgmma_kernel (P1), "
                                "wgmma_gemm_kernel (P2-P4; gemm_core.cuh)",
@@ -5345,11 +5518,11 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         kernels[-1].update(route_fields(t))
-        if name != "fused_mlp_fwd":
-            kernels[-1]["note"] = (
-                "dX and dW run in one backward call: ms, plain_ms and "
-                "bound_ms are that call's (bf16, the wgmma route); the "
-                "launches are phase 38's f32 calls (the generic route)")
+        kernels[-1]["note"] = (
+            ("dX and dW run in one backward call: ms, plain_ms and bound_ms "
+             "are that call's" if name != "fused_mlp_fwd" else "ms")
+            + " (bf16, the wgmma route); the launches are phase 38's f32 "
+              "calls (the generic route)")
     print(card, flush=True)     # again here: the top of the log may be cut
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,14 @@
 // MLP y = (silu(x . Wg) * (x . Wu)) . Wd (LLaMA, no biases).
 //
 // Replaces the TPU kernels of paddle_tpu/kernels/mlp_fusion.py:
-//   _mlp_fwd_kernel    :228 (launched by _mlp_fwd :374) -> fused_mlp_fwd_*
+//   _mlp_fwd_kernel    :228 (launched by _mlp_fwd :374) -> fused_mlp_fwd_*; in bf16
+//                             with H and F multiples of 8, fused_mlp_fwd_wgmma_bf16
 //   _mlp_dx_kernel     :260 (launched by _mlp_dx :394)  -> fused_mlp_bwd_* (dX part); in
 //                             bf16 with H and F multiples of 8, fused_mlp_bwd_wgmma_bf16
 //   _mlp_dw_kernel     :296 (launched by _mlp_dw :415)  -> the same calls (dW part)
 // all entered through fused_mlp_2d :472 (the custom_vjp of :443-469), and
-//   _swiglu_fwd_kernel :522 -> fused_swiglu_fwd_*
+//   _swiglu_fwd_kernel :522 -> fused_swiglu_fwd_*; in bf16 with H and F
+//                             multiples of 8, fused_swiglu_fwd_wgmma_bf16
 //   _swiglu_dx_kernel  :543 -> fused_swiglu_bwd_* (dX part); in bf16 with H
 //                             and F multiples of 8, fused_swiglu_bwd_wgmma_bf16
 //   _swiglu_dw_kernel  :572 -> the same calls (dW part)
@@ -149,23 +151,28 @@
 // f32), block tile 128 x 128 x 32. The accumulator tile goes through
 // shared memory as f32 for the epilogue.
 //
-// CUDA launches per call, nc = ceil(F / Fc) chunks: GeLU forward 2 nc,
-// backward 5 nc + 2 on this generic route and 4 nc + 2 on the wgmma route
-// (below), with or without dropout; SwiGLU forward 3 nc, backward 8 nc on
-// this generic route, 4 nc on the wgmma route.
-// The GeLU and SwiGLU backwards in bf16 have a second route on the TMA +
-// wgmma GEMM core of gemm_core.cuh (ge::launch and sw::launch, their
-// designs after the generic kernels); the forwards keep this core.
+// CUDA launches per call, nc = ceil(F / Fc) chunks: GeLU forward 2 nc on
+// either route, backward 5 nc + 2 on this generic route and 4 nc + 2 on
+// the wgmma route (below), with or without dropout; SwiGLU forward 3 nc on
+// this generic route and 2 nc on the wgmma route, backward 8 nc and 4 nc.
+// Each of the four in bf16 (H and F multiples of 8, 16-byte aligned
+// tensors) takes a second route on the TMA + wgmma GEMM core of
+// gemm_core.cuh: the backwards ge::launch and sw::launch, the forwards
+// fw::gelu_launch and fw::swiglu_launch (their designs after the generic
+// kernels); this mma.sync core keeps f32, the other widths and unaligned
+// views.
 
 #include <algorithm>
 
 #include "common.cuh"
-#include "gemm_core.cuh"  // the SwiGLU backward's wgmma route
+#include "gemm_core.cuh"  // the wgmma routes
 
 namespace {
 
-// the bf16 and f32 block tiles (the f32 FMA path takes 256 threads of 8 x
-// 8 outputs)
+// the generic route's bf16 and f32 block tiles (the f32 FMA path takes 256
+// threads of 8 x 8 outputs): every f32 call, and bf16 where H or F is not
+// a multiple of 8 or a tensor is unaligned (the wgmma routes take the
+// rest)
 template <typename T> struct Cfg;
 template <> struct Cfg<float> : TileCfg<128, 128, 32, 3, 32, 64> {};
 template <> struct Cfg<__nv_bfloat16> : TileCfg<128, 128, 64, 3, 64, 32> {};
@@ -1298,6 +1305,332 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2, const 
 
 }  // namespace ge
 
+// --------------------------------------------------------------------------
+// GeLU and SwiGLU forwards, bf16: the wgmma route
+// --------------------------------------------------------------------------
+//
+// Replaces _mlp_fwd_kernel :228 (TPU kernel 4, its dropout variant
+// included) and _swiglu_fwd_kernel :522 (kernel 7) where the operands allow
+// TMA: bf16, H and F multiples of 8, every tensor 16-byte aligned. Bound:
+// operations, GeLU 4 RHF (0.556 ms at GPT-3 1.3B's R = 8192, H = 2048, F =
+// 8192; 0.159 ms at BERT-base's R = 16384, H = 768, F = 3072), SwiGLU 6
+// RHF (0.560 ms at LLaMA-7B's R = 2048, H = 4096, F = 11008; 989
+// TFLOP/s). The generic route (launch_fwd, launch_swiglu_fwd) ran at ~220
+// TFLOP/s: mma.sync from a cp.async ring, each accumulator tile staged
+// through shared memory as f32, the SwiGLU's gate product written to an
+// f32 workspace and read back, the f32 sum across chunks read and written
+// a chunk. Here both products of a chunk of nc columns run on the core of
+// gemm_core.cuh, two launches a chunk:
+//   P1 act_c = round(gelu(x . W1_c + b1_c)) (EpiGelu: x K-major, W1_c's
+//      [H, nc] window MN-major, [128, 192] tiles, four stages; b1 added
+//      and the GeLU form read at run time in the epilogue, gelu's
+//      formulas, the result staged in bf16 and stored by TMA); SwiGLU:
+//      act_c = round(silu(x . Wg_c) . (x . Wu_c)) on the core's paired B
+//      at a [128, 256] accumulator, three stages (PAIR: a stage of B
+//      holds 128 columns of Wg_c, then the same 128 of Wu_c, so one
+//      m64n256 product gives ag and au of a [128, 128] output tile in the
+//      same thread's registers; EpiSwiglu combines them with
+//      EPI_SWIGLU's formulas, and ag and au never leave the registers).
+//      The GeLU's epilogue costs the most: tanhf or erff for each of its
+//      tile's elements, with no product in flight; at [128, 256] (three
+//      stages) it ran ~20% slower, and reading b1 one pair at a time (each
+//      load waited on before the next staging store) 7-13% slower.
+//   P2 y (+)= act_c . W2_c (act_c K-major, W2_c's [nc, H] window
+//      MN-major; [128, 256] tiles, three stages: at BERT-base's H = 768
+//      the backward's wave rule, ge::run_dw, picks them too; the GeLU's
+//      last of several chunks at [128, 192], four, kLastBN) into the f32
+//      [R, H] sum across chunks, as the backwards'
+//      dX: one chunk writes round(C + b2) (EpiBias<false>; the SwiGLU
+//      EpiStore); the first and middle chunks the f32 sum (EpiSum: TMA
+//      store, then reduce-adds); the last loads the sum into the
+//      accumulator before its k loop and writes round(sum + C + b2)
+//      (EpiBias<true>; the SwiGLU EpiSumLast). With dropout the one chunk
+//      or the last writes round(drop(sum + C + b2)): the f32 value masked
+//      before its one rounding, b2 added to the whole sum first, as the
+//      reference does (:250-257); the keep-mask keyed (row / block_r, 0, 0)
+//      at (row % block_r) H + col, block_r the reference's row tile, so
+//      the mask is the interpret mode's whatever tile runs. Its key is in
+//      the dropout epilogue's own type (EpiBias<., Drop>): the dropout-free
+//      instantiations carry none.
+// Each epilogue that can load the accumulator is its own type (a type
+// that can load slows its kernel's k loop, scripts/swiglu_bwd_variants.py
+// sum_can_load). Each chunk's maps end at the chunk's edge (W1_c, W2_c and
+// act_c as windows), so a tile never reads another chunk's columns. The
+// rounding points are the generic route's: act rounded once, y summed over
+// the chunks in f32 and rounded once. No atomics: the same bits on every
+// call. CUDA launches a call: 2 nc. Workspace: act_c [R, Fc] bf16 and,
+// when F > Fc, the f32 [R, H] sum (at the route's chunk Fc = 8192: 134
+// MB at GPT-3 1.3B's one chunk, 100.7 MB at BERT-base's, 33.6 + 33.6 MB
+// at LLaMA-7B's two). The design's variants and their times:
+// scripts/mlp_fwd_variants.py, PERF.md.
+
+namespace fw {
+
+// the accumulator widths and rings: the GeLU's P1 (its output tiles that
+// wide), the SwiGLU's paired P1 (output tiles half as wide), P2
+constexpr int kGeluBN = 192, kGeluStages = 4;
+constexpr int kSwigluBN = 256, kSwigluStages = 3;
+constexpr int kBN = 256, kStages = 3;
+// P2's last chunk of the GeLU's several, whose init loads the f32 sum and
+// whose epilogue reads the bias (EpiBias<true, .>): at [128, 256] the
+// dropout-free type spilled 20 bytes at ptxas's cap of 168 registers (the
+// SwiGLU's EpiSumLast, without the bias, did not;
+// scripts/mlp_fwd_variants.py, last_bn256)
+constexpr int kLastBN = 192, kLastStages = 4;
+// the column groups of 8 whose bias pairs (and sum pairs) an epilogue
+// reads ahead (stage_batched; one at a time left P1's tensor cores idle
+// longer)
+constexpr int kGeluBatch = 8, kBiasBatch = 4;
+
+struct NoDrop {};  // the dropout-free epilogues' key: none
+
+// v in bf16 pairs into a warpgroup's staging boxes: pair(n, h) packs
+// columns 8n + col, + 1 of row row + 8h (gc::stage_bf16's layout)
+template <int NG, typename Pair>
+__device__ __forceinline__ void stage_pairs(char* ob, const gc::Frag& f, Pair pair) {
+#pragma unroll
+  for (int n = 0; n < NG; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(ob + gc::swizzled(f.row + 8 * h, n, f.col)) = pair(n, h);
+}
+
+// The same a batch of column groups at a time: pre(n) reads column group
+// n's operands from device memory, BATCH groups' loads in flight
+// together (issued one at a time, each was waited on before the staging
+// store that follows it, which may alias it), then pair(n, h, operands)
+// packs the pair
+template <int NG, int BATCH, typename Pre, typename Pair>
+__device__ __forceinline__ void stage_batched(char* ob, const gc::Frag& f, Pre pre, Pair pair) {
+  static_assert(NG % BATCH == 0, "whole batches of column groups");
+#pragma unroll
+  for (int g = 0; g < NG; g += BATCH) {
+    decltype(pre(0)) v[BATCH];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) v[j] = pre(g + j);
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(ob + gc::swizzled(f.row + 8 * h, g + j, f.col)) =
+            pair(g + j, h, v[j]);
+  }
+}
+
+// the f32 pair at columns col, col + 1 of a row (a bias, a row of the
+// sum), or zeros past n (n even), through the read-only path
+__device__ __forceinline__ float2 pair_at(const float* row, int col, int n) {
+  return col < n ? __ldg(reinterpret_cast<const float2*>(row + col)) : make_float2(0.f, 0.f);
+}
+
+// P1 of the GeLU forward: round(gelu(C + b1)) to o0; b1 the chunk's f32
+// [nc], the form read at run time (1 tanh, 0 erf)
+struct EpiGelu {
+  const float* b1;
+  int n, approximate;
+  template <int BN>
+  __device__ __forceinline__ void init(float (&acc)[BN / 2], const gc::Tile<BN>&, int) const {
+    gc::zero(acc);
+  }
+  template <int BN>
+  __device__ __forceinline__ void operator()(const float (&acc)[BN / 2], const gc::Tile<BN>& tl,
+                                             int wgi, char* ob, const CUtensorMap& o0,
+                                             const CUtensorMap&) const {
+    const gc::Frag f;
+    gc::out_acquire(wgi);
+    stage_batched<BN / 8, kGeluBatch>(
+        ob, f, [&](int nn) { return pair_at(b1, tl.n0 + 8 * nn + f.col, n); },
+        [&](int nn, int h, float2 b) {
+          const int i = 4 * nn + 2 * h;
+          return pack_bf16(gelu(acc[i] + b.x, approximate),
+                           gelu(acc[i + 1] + b.y, approximate));
+        });
+    if (gc::out_release(wgi)) gc::store_boxes(o0, ob, BN / 64, tl.n0, tl.m0 + 64 * wgi);
+  }
+};
+
+// P1 of the SwiGLU forward, on the paired core: the accumulator holds ag
+// (its first TN columns) and au (its last TN) of an output tile TN wide;
+// round(silu(ag) au) to o0 (EPI_SWIGLU's formulas)
+struct EpiSwiglu {
+  template <int TN>
+  __device__ __forceinline__ void init(float (&acc)[TN], const gc::Tile<TN>&, int) const {
+    gc::zero(acc);
+  }
+  template <int TN>
+  __device__ __forceinline__ void operator()(const float (&acc)[TN], const gc::Tile<TN>& tl,
+                                             int wgi, char* ob, const CUtensorMap& o0,
+                                             const CUtensorMap&) const {
+    gc::out_acquire(wgi);
+    stage_pairs<TN / 8>(ob, gc::Frag(), [&](int nn, int h) {
+      const int i = 4 * nn + 2 * h, u = i + TN / 2;  // au: TN / 8 column groups on
+      return pack_bf16(acc[i] * sigmoid(acc[i]) * acc[u],
+                       acc[i + 1] * sigmoid(acc[i + 1]) * acc[u + 1]);
+    });
+    if (gc::out_release(wgi)) gc::store_boxes(o0, ob, TN / 64, tl.n0, tl.m0 + 64 * wgi);
+  }
+};
+
+// P2 of the GeLU forward where it writes y: round([drop](C + b2)) (LOAD
+// false: one chunk) or round([drop](sum + C + b2)) (LOAD: the last chunk,
+// the f32 sum buf [m, n], row stride ld, loaded into the accumulator
+// before the k loop as EpiSumLast does); K: Drop (the key) or NoDrop
+template <bool LOAD, typename K> struct EpiBias {
+  const float* b2;
+  const float* buf;
+  size_t ld;
+  int m, n;
+  K key;
+  template <int BN>
+  __device__ __forceinline__ void init(float (&acc)[BN / 2], const gc::Tile<BN>& tl,
+                                       int wgi) const {
+    if constexpr (LOAD) {
+      gc::EpiSumLast{buf, ld, m, n}.init(acc, tl, wgi);
+    } else {
+      gc::zero(acc);
+    }
+  }
+  template <int BN>
+  __device__ __forceinline__ void operator()(const float (&acc)[BN / 2], const gc::Tile<BN>& tl,
+                                             int wgi, char* ob, const CUtensorMap& o0,
+                                             const CUtensorMap&) const {
+    const gc::Frag f;
+    const auto bias = [&](int nn) { return pair_at(b2, tl.n0 + 8 * nn + f.col, n); };
+    gc::out_acquire(wgi);
+    if constexpr (std::is_same<K, Drop>::value) {
+      const int row = tl.m0 + 64 * wgi + f.row;
+      const RowKey rk[2] = {row_key(key, row), row_key(key, row + 8)};
+      stage_batched<BN / 8, kBiasBatch>(ob, f, bias, [&](int nn, int h, float2 b) {
+        const int col = tl.n0 + 8 * nn + f.col, i = 4 * nn + 2 * h;
+        return pack_bf16(dropped(row_keep(key, rk[h], col), acc[i] + b.x, key),
+                         dropped(row_keep(key, rk[h], col + 1), acc[i + 1] + b.y, key));
+      });
+    } else {
+      stage_batched<BN / 8, kBiasBatch>(ob, f, bias, [&](int nn, int h, float2 b) {
+        const int i = 4 * nn + 2 * h;
+        return pack_bf16(acc[i] + b.x, acc[i + 1] + b.y);
+      });
+    }
+    if (gc::out_release(wgi)) gc::store_boxes(o0, ob, BN / 64, tl.n0, tl.m0 + 64 * wgi);
+  }
+};
+
+// the chunk's P2 on the core: y (+)= act_c . W2_c by the chunk's place
+// (c of nch), maps {act_c, act_c, W2_c, W2_c, y, the f32 sum}; the last
+// of several chunks at accumulator width LBN with LS stages
+template <int LBN, int LS, typename One, typename Last>
+int run_down(const CUtensorMap (&m)[6], const gc::Shape& sh, int c, int nch, const One& one,
+             const Last& last, cudaStream_t st) {
+  if (nch == 1) return gc::run<false, true, kBN, kStages>(m, sh, one, st);
+  if (c < nch - 1) return gc::run<false, true, kBN, kStages>(m, sh, gc::EpiSum{c == 0}, st);
+  return gc::run<false, true, LBN, LS>(m, sh, last, st);
+}
+
+// The check and the maps every launch shares: x, y [R, H] and the f32 sum
+// (y's map where F <= Fc: one chunk keeps no sum)
+int prepare(const void* const (&ptrs)[5], const void* acc_ws, int r, int h, int f, int fc,
+            CUtensorMap& tx, CUtensorMap& ty, CUtensorMap& tacc) {
+  if (bad_shape(r, h, f, fc) || h % 8 || f % 8 || fc % 8) return (int)cudaErrorInvalidValue;
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return (int)cudaErrorInvalidValue;
+  if (f > fc && (!acc_ws || !aligned16(acc_ws))) return (int)cudaErrorInvalidValue;
+  const size_t hb = (size_t)h * 2;
+  int rc;
+  if ((rc = gc::map_2d(&tx, ptrs[0], h, r, hb)) || (rc = gc::map_2d(&ty, ptrs[1], h, r, hb)))
+    return rc;
+  tacc = ty;
+  if (f > fc && (rc = gc::map_2d_f32(&tacc, acc_ws, h, r, (size_t)h * 4))) return rc;
+  return 0;
+}
+
+// The GeLU forward's launches, chunk by chunk; `parts` bit 0 runs P1, bit
+// 1 P2 (3 on the op's path; the others time a product alone).
+int gelu_launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+                void* y, void* act_ws, void* acc_ws, int r, int h, int f, int fc,
+                int approximate, const Drop& drop, int parts, void* stream) {
+  using B = __nv_bfloat16;
+  if (bad_key(drop, h) || !aligned16(b1) || !aligned16(b2)) return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, ty, tacc;
+  int rc = prepare({x, y, w1, w2, act_ws}, acc_ws, r, h, f, fc, tx, ty, tacc);
+  if (rc) return rc;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* B1 = static_cast<const float*>(b1);
+  const float* B2 = static_cast<const float*>(b2);
+  const float* ACC = static_cast<const float*>(acc_ws);
+  const int nch = (f + fc - 1) / fc;
+  for (int c = 0; c < nch; ++c) {
+    const int f0 = c * fc, nc = std::min(fc, f - f0);
+    CUtensorMap tw1, tw2, tact;  // W1_c [H, nc], W2_c [nc, H], act_c [R, nc]
+    if ((rc = gc::map_2d(&tw1, static_cast<const B*>(w1) + f0, nc, h, (size_t)f * 2)) ||
+        (rc = gc::map_2d(&tw2, static_cast<const B*>(w2) + (size_t)f0 * h, h, nc,
+                         (size_t)h * 2)) ||
+        (rc = gc::map_2d(&tact, act_ws, nc, r, (size_t)nc * 2)))
+      return rc;
+    if (parts & 1) {  // P1: act_c = round(gelu(x . W1_c + b1_c))
+      const CUtensorMap m[6] = {tx, tx, tw1, tw1, tact, tact};
+      if ((rc = gc::run<false, true, kGeluBN, kGeluStages>(m, gc::Shape{r, nc, h, 0, 0},
+                                                           EpiGelu{B1 + f0, nc, approximate},
+                                                           st)))
+        return rc;
+    }
+    if (parts & 2) {  // P2: y (+)= act_c . W2_c, b2 and the mask where y is written
+      const CUtensorMap m[6] = {tact, tact, tw2, tw2, ty, tacc};
+      const gc::Shape sh{r, h, nc, 0, 0};
+      if (drop.rows) {
+        rc = run_down<kLastBN, kLastStages>(
+            m, sh, c, nch, EpiBias<false, Drop>{B2, nullptr, 0, r, h, drop},
+            EpiBias<true, Drop>{B2, ACC, (size_t)h, r, h, drop}, st);
+      } else {
+        rc = run_down<kLastBN, kLastStages>(
+            m, sh, c, nch, EpiBias<false, NoDrop>{B2, nullptr, 0, r, h, {}},
+            EpiBias<true, NoDrop>{B2, ACC, (size_t)h, r, h, {}}, st);
+      }
+      if (rc) return rc;
+    }
+  }
+  return 0;
+}
+
+// The SwiGLU forward's launches, chunk by chunk; `parts` as gelu_launch's.
+int swiglu_launch(const void* x, const void* wg, const void* wu, const void* wd, void* y,
+                  void* act_ws, void* acc_ws, int r, int h, int f, int fc, int parts,
+                  void* stream) {
+  using B = __nv_bfloat16;
+  if (!aligned16(wu)) return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, ty, tacc;
+  int rc = prepare({x, y, wg, wd, act_ws}, acc_ws, r, h, f, fc, tx, ty, tacc);
+  if (rc) return rc;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t fb = (size_t)f * 2;
+  const int nch = (f + fc - 1) / fc;
+  for (int c = 0; c < nch; ++c) {
+    const int f0 = c * fc, nc = std::min(fc, f - f0);
+    CUtensorMap twg, twu, twd, tact;  // Wg_c, Wu_c [H, nc], Wd_c [nc, H], act_c [R, nc]
+    if ((rc = gc::map_2d(&twg, static_cast<const B*>(wg) + f0, nc, h, fb)) ||
+        (rc = gc::map_2d(&twu, static_cast<const B*>(wu) + f0, nc, h, fb)) ||
+        (rc = gc::map_2d(&twd, static_cast<const B*>(wd) + (size_t)f0 * h, h, nc,
+                         (size_t)h * 2)) ||
+        (rc = gc::map_2d(&tact, act_ws, nc, r, (size_t)nc * 2)))
+      return rc;
+    if (parts & 1) {  // P1: act_c = round(silu(x . Wg_c) (x . Wu_c)), paired B
+      const CUtensorMap m[6] = {tx, tx, twg, twu, tact, tact};
+      if ((rc = gc::run<false, true, kSwigluBN, kSwigluStages, EpiSwiglu, true>(
+               m, gc::Shape{r, nc, h, 0, 0}, EpiSwiglu{}, st)))
+        return rc;
+    }
+    if (parts & 2) {  // P2: y (+)= act_c . Wd_c
+      const CUtensorMap m[6] = {tact, tact, twd, twd, ty, tacc};
+      if ((rc = run_down<kBN, kStages>(
+               m, gc::Shape{r, h, nc, 0, 0}, c, nch, gc::EpiStore{},
+               gc::EpiSumLast{static_cast<const float*>(acc_ws), (size_t)h, r, h}, st)))
+        return rc;
+    }
+  }
+  return 0;
+}
+
+}  // namespace fw
+
 }  // namespace
 
 extern "C" {
@@ -1320,6 +1653,30 @@ int fused_mlp_fwd_bf16(const void* x, const void* w1, const void* b1, const void
   return launch_fwd<__nv_bfloat16>(x, w1, b1, w2, b2, y, act_ws, acc_ws, r, h, f, fc,
                                    approximate, Drop{s0, s1, thresh, inv, drop_rows, drop_cols},
                                    stream);
+}
+
+// The GeLU forward's wgmma route, bf16 only: H, F and Fc multiples of 8,
+// every tensor 16-byte aligned (anything else is refused); the generic
+// entry's arguments. act_ws: [R, Fc] bf16; acc_ws: the f32 [R, H] sum when
+// F > Fc (else may be null).
+int fused_mlp_fwd_wgmma_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                             const void* b2, void* y, void* act_ws, void* acc_ws, int r, int h,
+                             int f, int fc, int approximate, unsigned s0, unsigned s1,
+                             unsigned thresh, float inv, int drop_rows, int drop_cols,
+                             void* stream) {
+  return fw::gelu_launch(x, w1, b1, w2, b2, y, act_ws, acc_ws, r, h, f, fc, approximate,
+                         Drop{s0, s1, thresh, inv, drop_rows, drop_cols}, 3, stream);
+}
+
+// The same with only the launches of `parts` (bit 0: P1, bit 1: P2), for
+// timing one product alone (scripts/mlp_fwd_variants.py).
+int fused_mlp_fwd_wgmma_parts_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                                   const void* b2, void* y, void* act_ws, void* acc_ws, int r,
+                                   int h, int f, int fc, int approximate, unsigned s0,
+                                   unsigned s1, unsigned thresh, float inv, int drop_rows,
+                                   int drop_cols, int parts, void* stream) {
+  return fw::gelu_launch(x, w1, b1, w2, b2, y, act_ws, acc_ws, r, h, f, fc, approximate,
+                         Drop{s0, s1, thresh, inv, drop_rows, drop_cols}, parts, stream);
 }
 
 int fused_mlp_bwd_f32(const void* x, const void* w1, const void* b1, const void* w2,
@@ -1387,6 +1744,25 @@ int fused_swiglu_fwd_bf16(const void* x, const void* wg, const void* wu, const v
                           void* stream) {
   return launch_swiglu_fwd<__nv_bfloat16>(x, wg, wu, wd, y, ag_ws, act_ws, acc_ws, r, h, f, fc,
                                           stream);
+}
+
+// The SwiGLU forward's wgmma route, bf16 only: H, F and Fc multiples of 8,
+// every tensor 16-byte aligned (anything else is refused); the generic
+// entry's arguments without ag_ws (ag and au stay in the registers).
+// act_ws: [R, Fc] bf16; acc_ws: the f32 [R, H] sum when F > Fc (else may
+// be null).
+int fused_swiglu_fwd_wgmma_bf16(const void* x, const void* wg, const void* wu, const void* wd,
+                                void* y, void* act_ws, void* acc_ws, int r, int h, int f, int fc,
+                                void* stream) {
+  return fw::swiglu_launch(x, wg, wu, wd, y, act_ws, acc_ws, r, h, f, fc, 3, stream);
+}
+
+// The same with only the launches of `parts` (bit 0: P1, bit 1: P2), for
+// timing one product alone (scripts/mlp_fwd_variants.py).
+int fused_swiglu_fwd_wgmma_parts_bf16(const void* x, const void* wg, const void* wu,
+                                      const void* wd, void* y, void* act_ws, void* acc_ws, int r,
+                                      int h, int f, int fc, int parts, void* stream) {
+  return fw::swiglu_launch(x, wg, wu, wd, y, act_ws, acc_ws, r, h, f, fc, parts, stream);
 }
 
 int fused_swiglu_bwd_f32(const void* x, const void* wg, const void* wu, const void* wd,

@@ -1,9 +1,11 @@
 // A persistent TMA + wgmma GEMM core for Hopper (sm_90a), bf16 operands
 // with f32 accumulation, its epilogue run from the accumulator registers.
-// Used by fused_mlp.cu's SwiGLU backward (its dX and dW products); built
-// to take the other fused MLP products in turn. Included after
-// hopper.cuh; everything here lives in an anonymous namespace, once per
-// library.
+// Used by fused_mlp.cu's wgmma routes: the SwiGLU and GeLU backwards' dX
+// and dW products (namespaces sw, ge) and both forwards' products (fw:
+// the activation product, whose epilogue applies the GeLU or the SwiGLU
+// gate, and the down product into the f32 sum across ffn chunks). Included
+// after hopper.cuh; everything here lives in an anonymous namespace, once
+// per library.
 //
 // C [M, N] = A [M, K] . B [K, N], each operand read by TMA in its own
 // layout: K-major (K contiguous: A as [M][K], B as [N][K] in device
@@ -39,6 +41,12 @@
 //     the second from a1 / b1 (one product over [A0 | A1] . [B0; B1]);
 //     nsplit runs N twice, B and the output from b0 / o0, then b1 / o1
 //     (two products sharing A in one launch).
+//   - Paired B (the template flag PAIR, off in every other instantiation):
+//     a stage of B holds BN / 2 columns of b0, then the same columns of b1,
+//     so one m64nBN product computes A . B0 and A . B1 side by side over
+//     output tiles BN / 2 wide; thread t then holds column j of the first
+//     at acc[4n + 2h + e] and of the second at acc[4(n + BN / 16) + 2h + e]
+//     (the SwiGLU forward's gate and up products, combined in registers).
 //   - No atomics and no split-K: each output tile has one writer and sums
 //     its k steps in one order, so a call repeats bit for bit.
 //   - Every mbarrier wait traps after ~2^35 cycles (hopper.cuh).
@@ -130,23 +138,30 @@ __device__ __forceinline__ uint64_t operand_desc(const __nv_bfloat16* base, int 
 }
 
 // The producer warp's lane 0: every k step of every tile of this block
-// into the ring.
-template <bool AMN, bool BMN, int BN, int S>
+// into the ring (PAIR: B's stage from b0, then b1, over the tile's TN
+// columns).
+template <bool AMN, bool BMN, int BN, int S, bool PAIR>
 __device__ void produce(Smem<BN, S>& sm, const CUtensorMap& a0, const CUtensorMap& a1,
                         const CUtensorMap& b0, const CUtensorMap& b1, const Shape& s) {
-  const int nkh = cdiv(s.k, kBK), nk = ksteps(s), nt = tiles<BN>(s);
+  constexpr int TN = PAIR ? BN / 2 : BN;  // the output tile's width
+  const int nkh = cdiv(s.k, kBK), nk = ksteps(s), nt = tiles<TN>(s);
   int stage = 0;
   uint32_t phase = 0;
   for (int t = blockIdx.x; t < nt; t += gridDim.x) {
-    const Tile<BN> tl(s, t);
+    const Tile<TN> tl(s, t);
     for (int kt = 0; kt < nk; ++kt) {
       const int hk = kt >= nkh;  // the second K half (ksplit)
       const int k0 = (kt - hk * nkh) * kBK;
       mbar_wait(&sm.empty[stage], phase ^ 1);
       mbar_arrive_tx(&sm.full[stage], (kBM + BN) * kBK * 2);
       load_operand<AMN, kBM>(sm.a[stage], hk ? &a1 : &a0, &sm.full[stage], tl.m0, k0);
-      load_operand<BMN, BN>(sm.b[stage], (hk || tl.half) ? &b1 : &b0, &sm.full[stage], tl.n0,
-                            k0);
+      if constexpr (PAIR) {
+        load_operand<BMN, TN>(sm.b[stage], &b0, &sm.full[stage], tl.n0, k0);
+        load_operand<BMN, TN>(sm.b[stage] + TN * kBK, &b1, &sm.full[stage], tl.n0, k0);
+      } else {
+        load_operand<BMN, BN>(sm.b[stage], (hk || tl.half) ? &b1 : &b0, &sm.full[stage], tl.n0,
+                              k0);
+      }
       advance<S>(stage, phase);
     }
   }
@@ -231,7 +246,8 @@ __device__ __forceinline__ void store_boxes(const CUtensorMap& map, const char* 
 
 // Epilogues: init(acc, tile, warpgroup) sets the accumulator before the
 // k loop; operator() takes it after, with the warpgroup's staging boxes.
-// Both run in every consumer thread.
+// Both run in every consumer thread. (fused_mlp.cu's fw namespace holds
+// the forwards' own: the activations, the bias, the dropout.)
 template <int N> __device__ __forceinline__ void zero(float (&acc)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] = 0.f;
@@ -336,7 +352,7 @@ struct EpiSumLast {
 };
 
 // The core kernel: grid = min(tiles, SMs) persistent blocks.
-template <bool AMN, bool BMN, int BN, int S, typename Epi>
+template <bool AMN, bool BMN, int BN, int S, typename Epi, bool PAIR = false>
 __global__ void __launch_bounds__(kThreads, 1)
     wgmma_gemm_kernel(const __grid_constant__ CUtensorMap a0, const __grid_constant__ CUtensorMap a1,
                       const __grid_constant__ CUtensorMap b0, const __grid_constant__ CUtensorMap b1,
@@ -354,16 +370,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
-    if (threadIdx.x == kConsumers) produce<AMN, BMN, BN, S>(sm, a0, a1, b0, b1, s);
+    if (threadIdx.x == kConsumers) produce<AMN, BMN, BN, S, PAIR>(sm, a0, a1, b0, b1, s);
     __syncwarp();
     return;
   }
-  const int wgi = threadIdx.x >> 7, nk = ksteps(s), nt = tiles<BN>(s);
+  constexpr int TN = PAIR ? BN / 2 : BN;
+  const int wgi = threadIdx.x >> 7, nk = ksteps(s), nt = tiles<TN>(s);
   char* ob = reinterpret_cast<char*>(sm.out[wgi]);
   int stage = 0;
   uint32_t phase = 0;
   for (int t = blockIdx.x; t < nt; t += gridDim.x) {
-    const Tile<BN> tl(s, t);
+    const Tile<TN> tl(s, t);
     float acc[BN / 2];
     epi.init(acc, tl, wgi);
     mainloop<AMN, BMN, BN, S>(sm, nk, stage, phase, acc);
@@ -405,13 +422,14 @@ inline int map_2d_f32(CUtensorMap* map, const void* base, int inner, int outer,
 
 // One launch of the core on a persistent grid; maps a0, a1, b0, b1, o0,
 // o1 (unused halves may repeat a map).
-template <bool AMN, bool BMN, int BN, int S, typename Epi>
+template <bool AMN, bool BMN, int BN, int S, typename Epi, bool PAIR = false>
 int run(const CUtensorMap (&m)[6], const Shape& s, const Epi& epi, cudaStream_t stream) {
   static_assert(smem_bytes<BN, S>() <= kMaxSmem, "shared memory of a block");
-  const int nt = tiles<BN>(s), sms = sm_count();
+  static_assert(!PAIR || BN % 128 == 0, "a paired B stage holds whole boxes of each half");
+  const int nt = tiles<PAIR ? BN / 2 : BN>(s), sms = sm_count();
   if (nt == 0) return 0;
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  auto kernel = wgmma_gemm_kernel<AMN, BMN, BN, S, Epi>;
+  auto kernel = wgmma_gemm_kernel<AMN, BMN, BN, S, Epi, PAIR>;
   constexpr size_t bytes = smem_bytes<BN, S>();
   int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)bytes);

@@ -34,19 +34,27 @@ SwiGLU is built the same way:
 backward saving the primal inputs only (:637). For CUDA tensors the ops
 launch the hand-written Hopper kernels of ``csrc/fused_mlp.cu`` (its
 header names the TPU kernels replaced, the operation bound, the
-workspace and the recompute) or raise. The GeLU and the SwiGLU
-backwards have two routes each, picked by ``mlp_bwd_route`` (and
-``swiglu_bwd_route``, the same rule) from the dtype, the widths and the
-alignment: ``wgmma`` (bf16, H and F multiples of 8, 16-byte aligned
-tensors) or ``generic`` (the mma.sync kernels: f32 and every other
-shape). On the GeLU's wgmma route each ffn chunk runs a P1 kernel that
+workspace and the recompute) or raise. Each of the four ops has two
+routes, picked by one rule from the dtype, the widths and the alignment
+(``mlp_bwd_route``; ``swiglu_bwd_route``, ``mlp_fwd_route`` and
+``swiglu_fwd_route`` are the same function): ``wgmma`` (bf16, H and F
+multiples of 8, 16-byte aligned tensors) or ``generic`` (the mma.sync
+kernels: f32 and every other shape). On the forwards' wgmma route each
+ffn chunk of ``_MLP_FWD_CHUNK_F`` runs two launches of the TMA + wgmma
+GEMM core of ``csrc/gemm_core.cuh``: P1 the activation product with the
+GeLU (b1 added) or, on the core's paired B, the SwiGLU gate applied in
+its epilogue, act_c stored in bf16; P2 the down product into the f32
+sum across chunks, the last chunk adding b2 and the dropout mask
+(``mlp_fwd_plan``, ``swiglu_fwd_plan`` mirror the launches).
+On the GeLU's backward wgmma route each ffn chunk runs a P1 kernel that
 keeps a = x·W1_c + b1 in registers and writes da, act and db1's
 row-block partials from them, then dX, dW1 and dW2 on the TMA + wgmma
 GEMM core of ``csrc/gemm_core.cuh`` (``mlp_bwd_plan`` mirrors its
 launches); on the SwiGLU's a P1 kernel keeps ag and au in registers and
 writes dag, dau, act, then dX, [dWg | dWu] and dWd on the core
 (``swiglu_bwd_plan``); ``gemm_tiles`` mirrors the core's tile walk.
-``mlp_bwd_routes`` and ``swiglu_bwd_routes`` count CUDA calls by route.
+``mlp_fwd_routes``, ``swiglu_fwd_routes``, ``mlp_bwd_routes`` and
+``swiglu_bwd_routes`` count CUDA calls by route.
 For CPU tensors they take the plain PyTorch versions
 ``fused_mlp_fwd_ref`` / ``fused_mlp_dx_ref`` /
 ``fused_mlp_dw_ref`` and ``fused_swiglu_fwd_ref`` / ``fused_swiglu_dx_ref``
@@ -119,8 +127,10 @@ __all__ = ["decode_attn_proj", "decode_attn_proj_ref", "dropout_launches",
            "mlp_eligible", "pl_cluster_plan", "pl_route", "pl_routes",
            "proj_ln_eligible", "proj_ln_max_hout", "launches",
            "dw_tile", "gemm_tiles", "mlp_bwd_plan", "mlp_bwd_route",
-           "mlp_bwd_routes", "swiglu_bwd_plan", "swiglu_bwd_route",
-           "swiglu_bwd_routes"]
+           "mlp_bwd_routes", "mlp_fwd_plan", "mlp_fwd_route",
+           "mlp_fwd_routes", "swiglu_bwd_plan", "swiglu_bwd_route",
+           "swiglu_bwd_routes", "swiglu_fwd_plan", "swiglu_fwd_route",
+           "swiglu_fwd_routes"]
 
 _NEG_INF = -1e30   # flash_attention.py:61 — the kernel's mask, never -inf
 _MAX_HEAD_DIM = 256
@@ -183,6 +193,12 @@ _SWIGLU_BWD_CHUNK_F = 4096
 # the GeLU backward's chunk on its wgmma route (scripts/mlp_bwd_variants.py,
 # PERF.md)
 _MLP_BWD_CHUNK_F = 4096
+# both forwards' chunk on their wgmma route: one chunk at gpt3-1.3b's F =
+# 8192 ran 9.6% faster than two of 4096 (no f32 sum across chunks), two
+# at llama-7b's 11008 3.6% faster than three, for the same workspace at
+# gpt3-1.3b (act [R, 8192] in place of act [R, 4096] and the f32 [R, H]
+# sum) and 17 MB more at llama-7b (scripts/mlp_fwd_variants.py, PERF.md)
+_MLP_FWD_CHUNK_F = 8192
 # rows per block of the kernels' GEMM (kRowBlock): the backward's bias
 # gradients are summed per row block, then over the blocks in order
 _ROW_BLOCK = 128
@@ -363,13 +379,19 @@ _SWIGLU_WGMMA_ARGTYPES = {"fused_swiglu_bwd_wgmma": [_P] * 13 + [_I] * 4
 # without the f32 pre-activation workspace
 _MLP_WGMMA_ARGTYPES = {"fused_mlp_bwd_wgmma": [_P] * 15 + [_I] * 6 + _DROP
                        + [_P]}
+# the forwards' wgmma route, bf16 only: the GeLU's takes fused_mlp_fwd's
+# arguments, the SwiGLU's fused_swiglu_fwd's without the f32 gate
+# workspace (x, wg, wu, wd, y, act, the f32 sum; r, h, f, fc; the stream)
+_FWD_WGMMA_ARGTYPES = {
+    "fused_mlp_fwd_wgmma": _MLP_ARGTYPES["fused_mlp_fwd"],
+    "fused_swiglu_fwd_wgmma": [_P] * 7 + [_I] * 4 + [_P]}
 
 
 @functools.cache
 def _mlp_lib():
     lib = _build.library("fused_mlp.cu", _MLP_ARGTYPES)
-    for name, types in {**_SWIGLU_WGMMA_ARGTYPES,
-                        **_MLP_WGMMA_ARGTYPES}.items():
+    for name, types in {**_SWIGLU_WGMMA_ARGTYPES, **_MLP_WGMMA_ARGTYPES,
+                        **_FWD_WGMMA_ARGTYPES}.items():
         fn = getattr(lib, f"{name}_bf16")
         fn.argtypes, fn.restype = types, ctypes.c_int
     return lib
@@ -408,36 +430,20 @@ def _gelu_check(name, x, w1, b1, w2, more=()):
     return r, h, f
 
 
-def _fwd_cuda(x, w1, b1, w2, b2, approximate, drop=None):
-    r, h, f = _gelu_check("fused_mlp_fwd", x, w1, b1, w2)
-    if b2.shape != (h,) or b2.device != x.device:
-        raise ValueError(f"fused_mlp_fwd: b2 {tuple(b2.shape)} on "
-                         f"{b2.device} must be ({h},) on {x.device}")
-    fc = min(f, _CHUNK_F)
-    y = torch.empty_like(x)
-    act = torch.empty((r, fc), dtype=x.dtype, device=x.device)
-    acc = (torch.empty((r, h), dtype=torch.float32, device=x.device)
-           if f > fc else None)
-    b1f, b2f = _vec32(b1), _vec32(b2)
-    _build.call(_mlp_lib(), "fused_mlp_fwd", x.dtype, x.device, x.data_ptr(),
-                w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
-                y.data_ptr(), act.data_ptr(),
-                None if acc is None else acc.data_ptr(), r, h, f, fc,
-                int(approximate), *_drop_args(drop))
-    (launches if drop is None else dropout_launches)["fused_mlp_fwd"] += 1
-    return y
-
-
 # the wgmma routes' geometry (csrc/gemm_core.cuh, csrc/fused_mlp.cu's
-# namespaces sw and ge): the core's output tile and k step, each P1's
-# tile width and its clusters' blocks (side by side along N), the row
-# tiles of a raster group
+# namespaces sw, ge and fw): the core's output tile and k step, each
+# backward P1's tile width and its clusters' blocks (side by side along
+# N), the row tiles of a raster group
 SW_BM, SW_BN, SW_BK, SW_GROUP_M = 128, 256, 64, 8
 SW_DACT_BN, SW_DACT_CLUSTER = 64, 2
 GE_DACT_BN, GE_DACT_CLUSTER = 128, 2
 # the GeLU backward's narrower tile for P3 and P4 (``ge::run_dw``), and
 # the SMs of the card the route was tuned on (an H100's)
 GE_DW_BN, H100_SMS = 192, 132
+# the GeLU forward's P1 tile width and its P2's in the last of several
+# chunks (``fw::kGeluBN``, ``fw::kLastBN``; the SwiGLU's paired P1 and
+# every other P2 take SW_BN)
+FW_GELU_BN = FW_LAST_BN = 192
 
 
 def _tile_of(t: int, num_m: int, num_n: int):
@@ -519,6 +525,56 @@ def mlp_bwd_plan(r: int, h: int, f: int, fc: int, sms: int = H100_SMS):
     return plan
 
 
+# CUDA calls of the GeLU and SwiGLU forwards by route; both forwards take
+# the backwards' rule
+mlp_fwd_routes = {"wgmma": 0, "generic": 0}
+swiglu_fwd_routes = {"wgmma": 0, "generic": 0}
+mlp_fwd_route = swiglu_fwd_route = mlp_bwd_route
+
+
+def _fwd_plan(name, r, h, f, fc, p1, last_bn=SW_BN):
+    """The forwards' wgmma launches, chunk by chunk: a list of (f0, nc,
+    products, epilogue), products mapping P1, P2 to (M, N, K, halves,
+    (tile rows, tile columns, cluster)) and epilogue naming P2's: "one"
+    (a single chunk writes y: round(C [+ b2])), "sum_store" (the first of
+    several stores the f32 sum), "sum_add" (a middle one reduce-adds to
+    it), "sum_last" (the last loads it before its k loop and writes
+    round(sum + C [+ b2]); the dropout mask where y is written; its tile
+    ``last_bn`` wide)."""
+    if min(r, h, f, fc) < 1:
+        raise ValueError(f"{name}: r, h, f, fc must be positive, got {r}, "
+                         f"{h}, {f}, {fc}")
+    starts = range(0, f, fc)
+    plan = []
+    for c, f0 in enumerate(starts):
+        nc = min(fc, f - f0)
+        epi = ("one" if len(starts) == 1 else "sum_store" if c == 0
+               else "sum_last" if c == len(starts) - 1 else "sum_add")
+        bn = last_bn if epi == "sum_last" else SW_BN
+        plan.append((f0, nc, {"P1": p1(nc),
+                              "P2": (r, h, nc, 1, (SW_BM, bn, 1))}, epi))
+    return plan
+
+
+def mlp_fwd_plan(r: int, h: int, f: int, fc: int):
+    """The GeLU forward's wgmma launches (csrc/fused_mlp.cu
+    ``fw::gelu_launch``; ``_fwd_plan``'s form): P1 act_c [R, nc] over H
+    on the core's [128, FW_GELU_BN] tiles; P2 y [R, H] over K = nc (the
+    last of several chunks on [128, FW_LAST_BN] tiles)."""
+    return _fwd_plan("mlp_fwd_plan", r, h, f, fc, lambda nc: (
+        r, nc, h, 1, (SW_BM, FW_GELU_BN, 1)), FW_LAST_BN)
+
+
+def swiglu_fwd_plan(r: int, h: int, f: int, fc: int):
+    """The SwiGLU forward's wgmma launches (``fw::swiglu_launch``;
+    ``_fwd_plan``'s form): P1 act_c [R, nc] over H on the core's paired B,
+    two products (x·Wg_c, x·Wu_c) side by side in one [128, 256]
+    accumulator over output tiles SW_BN / 2 wide; P2 y [R, H] over K =
+    nc."""
+    return _fwd_plan("swiglu_fwd_plan", r, h, f, fc, lambda nc: (
+        r, nc, h, 2, (SW_BM, SW_BN // 2, 1)))
+
+
 def _route(name, route, natural, dtype, h, f):
     """The route a call takes: ``natural`` (the rule's), or ``route``
     where the caller names one the shapes allow."""
@@ -581,6 +637,34 @@ def _bwd_cuda(x, w1, b1, w2, g, approximate, drop=None, route=None):
     counts["fused_mlp_dw"] += 1
     mlp_bwd_routes[route] += 1
     return dx, dw1, db1, dw2, db2
+
+
+def _fwd_cuda(x, w1, b1, w2, b2, approximate, drop=None, route=None):
+    """y through the kernels on the route ``mlp_fwd_route`` picks
+    (``route`` names one instead: a measurement holds the two on the same
+    inputs); with ``drop`` the last chunk's epilogue masks y."""
+    r, h, f = _gelu_check("fused_mlp_fwd", x, w1, b1, w2)
+    if b2.shape != (h,) or b2.device != x.device:
+        raise ValueError(f"fused_mlp_fwd: b2 {tuple(b2.shape)} on "
+                         f"{b2.device} must be ({h},) on {x.device}")
+    b1f, b2f = _vec32(b1), _vec32(b2)
+    route = _route("fused_mlp_fwd", route, mlp_fwd_route(x.dtype, h, f, all(
+        t.data_ptr() % 16 == 0 for t in (x, w1, w2, b1f, b2f))), x.dtype, h,
+        f)
+    fc = min(f, _MLP_FWD_CHUNK_F if route == "wgmma" else _CHUNK_F)
+    y = torch.empty_like(x)
+    act = torch.empty((r, fc), dtype=x.dtype, device=x.device)
+    acc = (torch.empty((r, h), dtype=torch.float32, device=x.device)
+           if f > fc else None)
+    _build.call(_mlp_lib(), "fused_mlp_fwd_wgmma" if route == "wgmma"
+                else "fused_mlp_fwd", x.dtype, x.device, x.data_ptr(),
+                w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
+                y.data_ptr(), act.data_ptr(),
+                None if acc is None else acc.data_ptr(), r, h, f, fc,
+                int(approximate), *_drop_args(drop))
+    (launches if drop is None else dropout_launches)["fused_mlp_fwd"] += 1
+    mlp_fwd_routes[route] += 1
+    return y
 
 
 # the row kernels' dropout arguments (the fused MLP's and the
@@ -701,20 +785,31 @@ def _swiglu_check(name, x, wg, wu, wd, more=()):
     return r, h, f
 
 
-def _swiglu_fwd_cuda(x, wg, wu, wd):
+def _swiglu_fwd_cuda(x, wg, wu, wd, route=None):
+    """y through the kernels on the route ``swiglu_fwd_route`` picks
+    (``route`` names one instead)."""
     r, h, f = _swiglu_check("fused_swiglu_fwd", x, wg, wu, wd)
-    fc = min(f, _CHUNK_F)
+    route = _route("fused_swiglu_fwd", route, swiglu_fwd_route(
+        x.dtype, h, f, all(t.data_ptr() % 16 == 0 for t in (x, wg, wu, wd))),
+        x.dtype, h, f)
+    fc = min(f, _MLP_FWD_CHUNK_F if route == "wgmma" else _CHUNK_F)
     dev = x.device
     y = torch.empty_like(x)
-    ag = torch.empty((r, fc), dtype=torch.float32, device=dev)
     act = torch.empty((r, fc), dtype=x.dtype, device=dev)
     acc = (torch.empty((r, h), dtype=torch.float32, device=dev)
            if f > fc else None)
-    _build.call(_mlp_lib(), "fused_swiglu_fwd", x.dtype, dev, x.data_ptr(),
-                wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), y.data_ptr(),
-                ag.data_ptr(), act.data_ptr(),
-                None if acc is None else acc.data_ptr(), r, h, f, fc)
+    ptr = [x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+           y.data_ptr()]
+    ws = [act.data_ptr(), None if acc is None else acc.data_ptr()]
+    if route == "wgmma":   # ag and au stay in the registers
+        _build.call(_mlp_lib(), "fused_swiglu_fwd_wgmma", x.dtype, dev, *ptr,
+                    *ws, r, h, f, fc)
+    else:                  # the f32 gate product's chunk
+        ag = torch.empty((r, fc), dtype=torch.float32, device=dev)
+        _build.call(_mlp_lib(), "fused_swiglu_fwd", x.dtype, dev, *ptr,
+                    ag.data_ptr(), *ws, r, h, f, fc)
     launches["fused_swiglu_fwd"] += 1
+    swiglu_fwd_routes[route] += 1
     return y
 
 

@@ -112,7 +112,7 @@ def build(out):
     libs, ptxas = {}, {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
-        ptxas[name] = cs.gelu_ptxas_lines(log) if proc.returncode == 0 else (
+        ptxas[name] = cs.mlp_ptxas_lines(log) if proc.returncode == 0 else (
             f"nvcc exit {proc.returncode}: " + log[-2000:])
         if proc.returncode == 0:
             fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), ENTRY)

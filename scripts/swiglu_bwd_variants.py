@@ -282,7 +282,7 @@ def build(out):
     libs, ptxas = {}, {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
-        lines = cs.swiglu_ptxas_lines(log)
+        lines = cs.mlp_ptxas_lines(log)
         ptxas[name] = lines if proc.returncode == 0 else (
             f"nvcc exit {proc.returncode}: " + log[-2000:])
         if proc.returncode == 0:
