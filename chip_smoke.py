@@ -17,19 +17,29 @@ Phases, one line each; any failure raises and exits non-zero:
    backward's own (its P1, the core at P3 / P4's narrower tile) and of
    the forwards' (the core's P1: the GeLU's EpiGelu, the SwiGLU's paired
    EpiSwiglu; P2: EpiBias with and without the dropout key, EpiSum,
-   EpiStore, EpiSumLast), every wgmma kernel of fused_mlp.cu listed once
-   (none may spill);
-3. each kernel against its plain PyTorch version on the card at the
-   main path's shapes (GPT-3 1.3B: NH=16, D=128, HO=2048, block_size
-   16, 64-entry tables, MHA and GQA), fp32 and bf16, with its time,
-   its plain version's, a PyTorch library call's and its bound;
+   EpiStore, EpiSumLast), every wgmma kernel of fused_mlp.cu listed once,
+   and of the decode split route's and the persistent LayerNorm
+   backward's instantiations (none may spill);
+3. the decode kernels against their plain PyTorch version on the card
+   at the main path's shapes (GPT-3 1.3B: NH=16, D=128, HO=2048,
+   block_size 16, 64-entry tables, MHA and GQA at KVH 4, positions 0,
+   15, 16, 511, 1023), fp32 and bf16, on the split route decode_route
+   gives (decode_attn_split_kernel, then decode_proj_kernel as its
+   programmatic dependent) and on the generic one, each within TOL and
+   DECODE_REL_TOL, two calls giving the same bits; the check shown to
+   reject the kernel with its last context split left out; the split
+   route's time in turns with the generic route's, the plain version's
+   and a PyTorch library call's, and its bound, at pos 511, then at pos
+   1023 and at KVH 4; the CUDA launches a call of each route from a
+   profile (split 2 at most, generic 3);
 4. serve gpt3-1.3b (random weights from a seed, bf16, full width and
    depth) through ServingEngine with FLAGS_serving_decode_kernel on at
    max_batch=1: 4 greedy requests, prompts 128/256/384/512, 32 new
    tokens each; every B=1 decode step must launch the kernel once per
-   layer;
+   layer, every call on the split route;
 5. torch.profiler over 8 more B=1 decode steps: device busy time per
-   step, idle share, the kernels that take the time;
+   step, idle share, the kernels that take the time (the decode
+   kernels' share by DECODE_KERNELS);
 6. serve with max_batch=4 and device_loop_k=4: 8 requests, greedy and
    sampled mixed;
 7. parity in fp32 at full width: one request, 16 greedy tokens, decode
@@ -130,15 +140,19 @@ Phases, one line each; any failure raises and exits non-zero:
    bias) variants; two backward calls give the same bits; autograd
    through fused_layer_norm_2d in bf16 at bert-base shape against the
    plain versions and bitwise against the ops; the check shown to reject
-   a forward without the residual and a backward missing one 32-row
-   partial; their times with and without the residual beside the plain
+   a forward without the residual and a backward missing its first 32
+   rows; their times with and without the residual beside the plain
    versions', the bound and F.layer_norm(res + h) with its autograd
    backward; the dropout variants (p = 0.1, the mask keyed by the
    reference's row tile) at bert-base rows, a ragged R with H = 1024 and
    H = 100, f32 and bf16: dh's zeros equal to the plain mask's, every
    output within the tolerance, repeat bits, the mask keyed by the CUDA
    block's rows rejected, and their times beside F.dropout -> + res ->
-   F.layer_norm;
+   F.layer_norm; the backward on the route ln_bwd_route gives (the
+   persistent ln_bwd_persist on every case but bf16 and f32 H 2048),
+   the generic kernels held beside it on the same inputs, the routes
+   counted; its kernels alone timed in turns with the generic ones, and
+   its CUDA launches a call from a profile (2 at most);
 21. the projection-LayerNorm kernels through their custom ops against
    their plain versions (R=16384, Hin=Hout=768 and 1024; a ragged R with
    Hin != Hout; f32 and bf16); two backward calls give the same bits;
@@ -423,33 +437,45 @@ def bound_ms(pos, kvh, dtype_name):
                                        else "operations")
 
 
-def phase_kernel_vs_plain(torch):
-    from paddle_tpu_torch.kernels.mlp_fusion import (decode_attn_proj,
-                                                     decode_attn_proj_ref)
-    scale = 1.0 / np.sqrt(D)
-    worst = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[-1]
-        atol, rtol = TOL[name]
-        for kvh in (16, 4):
-            x = kernel_inputs(torch, kvh, dtype, seed=kvh)
-            for pos in POSITIONS:
-                table = table_for(torch, x["order"], pos)
-                p = torch.tensor([pos], dtype=torch.int32, device="cuda")
-                args = (x["q"], x["k_pool"], x["v_pool"], p, table,
-                        x["proj_w"], x["proj_b"])
-                got = decode_attn_proj(*args, block_size=BS, scale=scale)
-                ref = decode_attn_proj_ref(*args, block_size=BS, scale=scale)
-                torch.cuda.synchronize()
-                check(bool(torch.isfinite(got).all()), "kernel output not finite")
-                err = (got.float() - ref.float()).abs()
-                lim = atol + rtol * ref.float().abs()
-                check(bool((err <= lim).all()),
-                      f"kernel disagrees with plain: {name} kvh={kvh} "
-                      f"pos={pos} max_abs_err={float(err.max())}")
-                worst[name] = max(worst.get(name, 0.0), float(err.max()))
-    # times at the main path's shape: bf16 MHA, pos=511, cold weights
-    pos, kvh = 511, 16
+# bf16 and f32 readings held beside TOL: max |kernel - plain| <= tol *
+# max |plain| (attn rounded to bf16 at one point in both, the f32 sums in
+# other orders; a kernel that drops one context split reads ~0.1)
+DECODE_REL_TOL = {"float32": 2e-5, "bfloat16": 2 ** -7}
+# the decode kernels as the profiler names them: the split route's two,
+# the generic route's three
+DECODE_KERNELS = ("decode_attn_split_kernel", "decode_proj_kernel",
+                  "attn_partial", "proj_partial", "proj_out")
+
+
+def cuda_launches(torch, fn, calls=10):
+    """The CUDA kernels a call of fn launches, from a profile of ``calls``
+    calls: the runtime's kernel launches a call (cudaLaunchKernel*;
+    the device's kernel records, copies and fills left out, where the
+    profile shows no runtime call) and the kernels' names."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith(("Memcpy", "Memset"))]
+    api = sum(e.count for e in events
+              if e.key.startswith("cudaLaunchKernel"))
+    short = {re.match(r"(?:void\s+)?([\w:]*)", e.key.replace(
+        "(anonymous namespace)::", "")).group(1).split("::")[-1][:80] or
+             e.key[:80] for e in dev}
+    return (api or sum(e.count for e in dev)) / calls, sorted(short)
+
+
+def decode_sets(torch, pos, kvh):
+    """Six input sets at the main path's shape, bf16, together larger than
+    the 50 MB L2 (each layer's weight is cold in the real decode), each
+    with the context gathered for the library yardstick."""
     sets = []
     for s in range(6):
         x = kernel_inputs(torch, kvh, torch.bfloat16, seed=100 + s)
@@ -461,36 +487,140 @@ def phase_kernel_vs_plain(torch):
                  kc=x["k_pool"][slots].permute(1, 0, 2)[None].contiguous(),
                  vc=x["v_pool"][slots].permute(1, 0, 2)[None].contiguous())
         sets.append(x)
+    return sets
 
-    def run_kernel(x):
-        decode_attn_proj(x["q"], x["k_pool"], x["v_pool"], x["p"],
-                         x["table"], x["proj_w"], x["proj_b"],
-                         block_size=BS, scale=scale)
+
+def decode_times(torch, mf, pos, kvh, plain=False):
+    """Device ms of the split route, the generic one and the library
+    yardstick (SDPA over the context gathered beforehand + addmm; never
+    called by the port) in turns at one shape: generic, split, split,
+    generic, library (and the plain version first and last)."""
+    scale = 1.0 / np.sqrt(D)
+    sets = decode_sets(torch, pos, kvh)
+
+    def args(x):
+        return (x["q"], x["k_pool"], x["v_pool"], x["p"], x["table"],
+                x["proj_w"], x["proj_b"])
+
+    def run(route):
+        return lambda x: mf._launch(*args(x), BS, scale, route=route)
 
     def run_plain(x):
-        decode_attn_proj_ref(x["q"], x["k_pool"], x["v_pool"], x["p"],
-                             x["table"], x["proj_w"], x["proj_b"],
-                             block_size=BS, scale=scale)
+        mf.decode_attn_proj_ref(*args(x), block_size=BS, scale=scale)
 
     def run_library(x):
-        # yardstick only, never called by the port: SDPA over the
-        # context gathered beforehand + addmm
         attn = torch.nn.functional.scaled_dot_product_attention(
-            x["q"][None, :, None, :], x["kc"], x["vc"])
+            x["q"][None, :, None, :], x["kc"], x["vc"], enable_gqa=kvh != NH)
         torch.addmm(x["proj_b"], attn.reshape(1, NH * D), x["proj_w"])
 
-    t = {}
-    for key, fn in (("plain_ms", run_plain), ("ms", run_kernel),
-                    ("ms_2", run_kernel), ("plain_ms_2", run_plain),
-                    ("library_ms", run_library)):
-        t[key] = cuda_ms(fn, sets)
+    order = [("generic", run("generic")), ("split", run("split")),
+             ("split_2", run("split")), ("generic_2", run("generic")),
+             ("library", run_library)]
+    if plain:
+        order = [("plain", run_plain)] + order + [("plain_2", run_plain)]
+    t = {key: cuda_ms(fn, sets) for key, fn in order}
     bms, by = bound_ms(pos, kvh, "bfloat16")
-    return dict(max_abs_err=worst["bfloat16"], max_abs_err_f32=worst["float32"],
-                ms=min(t["ms"], t["ms_2"]),
-                plain_ms=min(t["plain_ms"], t["plain_ms_2"]),
-                library_ms=t["library_ms"], bound_ms=bms, bound_by=by,
-                timed_at=dict(pos=pos, dtype="bfloat16", kvh=kvh, ho=HO),
-                all_ms=t)
+    out = dict(ms=min(t["split"], t["split_2"]), route="split",
+               earlier_ms=min(t["generic"], t["generic_2"]),
+               earlier="the generic attn_partial, proj_partial, proj_out, "
+                       "same inputs, in turns",
+               library_ms=t["library"], bound_ms=bms, bound_by=by,
+               timed_at=dict(pos=pos, dtype="bfloat16", kvh=kvh, ho=HO),
+               all_ms=t)
+    if plain:
+        out["plain_ms"] = min(t["plain"], t["plain_2"])
+    x = sets[0]
+    out["cuda_launches_per_call"], out["kernels"] = cuda_launches(
+        torch, lambda: run("split")(x))
+    out["generic_cuda_launches_per_call"], _ = cuda_launches(
+        torch, lambda: run("generic")(x))
+    check(1 <= out["cuda_launches_per_call"] <= 2
+          and out["generic_cuda_launches_per_call"] == 3,
+          f"decode CUDA launches a call: split {out['cuda_launches_per_call']}"
+          f" ({out['kernels']}), generic "
+          f"{out['generic_cuda_launches_per_call']}")
+    return out
+
+
+def phase_kernel_vs_plain(torch):
+    """decode_attn_proj against its plain version: f32 and bf16, KVH 16
+    and 4, every position of POSITIONS, on the route decode_route gives
+    (split) and on the generic one, each within TOL and DECODE_REL_TOL;
+    two calls give the same bits. The check shown to reject the kernel
+    with its last context split dropped (run at the position just before
+    the split starts, held against the plain version of the whole). Then
+    the times: the split route in turns with the generic one, the plain
+    version and the library yardstick at pos 511, KVH 16; the same
+    without the plain version at pos 1023 and at KVH 4; the CUDA launches
+    a call of each route from a profile."""
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    scale = 1.0 / np.sqrt(D)
+    worst = {}
+    before = dict(mf.decode_routes)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        atol, rtol = TOL[name]
+        for kvh in (16, 4):
+            x = kernel_inputs(torch, kvh, dtype, seed=kvh)
+            for pos in POSITIONS:
+                table = table_for(torch, x["order"], pos)
+                p = torch.tensor([pos], dtype=torch.int32, device="cuda")
+                args = (x["q"], x["k_pool"], x["v_pool"], p, table,
+                        x["proj_w"], x["proj_b"])
+                got = mf.decode_attn_proj(*args, block_size=BS, scale=scale)
+                again = mf.decode_attn_proj(*args, block_size=BS, scale=scale)
+                gen = mf._launch(*args, BS, scale, route="generic")
+                ref = mf.decode_attn_proj_ref(*args, block_size=BS,
+                                              scale=scale)
+                torch.cuda.synchronize()
+                check(same_bits(got, again), f"decode kernel differs between "
+                      f"two calls: {name} kvh={kvh} pos={pos}")
+                for route, out in (("split", got), ("generic", gen)):
+                    check(bool(torch.isfinite(out).all()),
+                          f"{route} decode kernel output not finite")
+                    err = (out.float() - ref.float()).abs()
+                    lim = atol + rtol * ref.float().abs()
+                    rel = rel_err(out, ref)[1]
+                    check(bool((err <= lim).all())
+                          and rel <= DECODE_REL_TOL[name],
+                          f"{route} decode kernel disagrees with plain: "
+                          f"{name} kvh={kvh} pos={pos} max_abs_err="
+                          f"{float(err.max())} relative {rel}")
+                    w = worst.setdefault(route, {}).setdefault(name, [0., 0.])
+                    w[0], w[1] = max(w[0], float(err.max())), max(w[1], rel)
+    runs = 2 * 2 * len(POSITIONS)
+    routes = {k: mf.decode_routes[k] - before[k] for k in before}
+    check(routes == {"split": 2 * runs, "generic": runs},
+          f"decode routes {routes}, want split {2 * runs}, generic {runs}")
+    # the planted fault: the last context split left out
+    pos, kvh = 511, 16
+    x = kernel_inputs(torch, kvh, torch.bfloat16, seed=7)
+    table = table_for(torch, x["order"], pos)
+    cut = mf.decode_split_plan(pos, MB, BS, kvh)[-1][0] - 1
+    full = (x["q"], x["k_pool"], x["v_pool"],
+            torch.tensor([pos], dtype=torch.int32, device="cuda"), table,
+            x["proj_w"], x["proj_b"])
+    short = full[:3] + (torch.tensor([cut], dtype=torch.int32,
+                                     device="cuda"),) + full[4:]
+    wrong = mf.decode_attn_proj(*short, block_size=BS, scale=scale)
+    ref = mf.decode_attn_proj_ref(*full, block_size=BS, scale=scale)
+    fault = dict(pos=pos, kept_positions=cut + 1,
+                 relative=rel_err(wrong, ref)[1])
+    check(fault["relative"] > DECODE_REL_TOL["bfloat16"],
+          f"the decode check passes a kernel missing a split: {fault}")
+    main = decode_times(torch, mf, 511, 16, plain=True)
+    return dict(worst={r: {n: dict(max_abs_err=e, relative=rel)
+                           for n, (e, rel) in w.items()}
+                       for r, w in worst.items()},
+                max_abs_err=worst["split"]["bfloat16"][0],
+                max_abs_err_f32=worst["split"]["float32"][0],
+                relative_tolerance=DECODE_REL_TOL, routes=routes,
+                repeat_bitwise=True, planted_fault=fault,
+                **{k: main[k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by", "route",
+                                        "earlier_ms", "earlier")},
+                main=main, pos_1023=decode_times(torch, mf, 1023, 16),
+                kvh_4=decode_times(torch, mf, 511, 4))
 
 
 # ---------------------------------------------------------------------------
@@ -501,6 +631,7 @@ def phase_serve_b1(torch, model):
     from paddle_tpu_torch import set_flags
     from paddle_tpu_torch.inference import (SamplingParams, ServingEngine,
                                             gpt_adapter)
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
     from paddle_tpu_torch.kernels.mlp_fusion import decode_attn_proj
     from paddle_tpu_torch.models import gpt
     cfg = model.cfg
@@ -513,6 +644,8 @@ def phase_serve_b1(torch, model):
     eng.run_until_idle()
     steps0 = eng.stats()["decode_steps"]
     decode_attn_proj.launches = 0
+    for key in mf.decode_routes:
+        mf.decode_routes[key] = 0
     t0 = time.perf_counter()
     reqs = [eng.submit(rng.integers(0, cfg.vocab_size, n),
                        SamplingParams(max_new_tokens=32))
@@ -521,6 +654,7 @@ def phase_serve_b1(torch, model):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = decode_attn_proj.launches
+    routes = dict(mf.decode_routes)
     st = eng.stats()
     steps = st["decode_steps"] - steps0
     check(all(r.state == "FINISHED" and len(r.tokens) == 32 for r in reqs),
@@ -533,9 +667,13 @@ def phase_serve_b1(torch, model):
     check(launches == cfg.num_layers * steps and steps > 0,
           f"decode_attn_proj launched {launches} times in {steps} B=1 "
           f"decode steps ({cfg.num_layers} layers)")
+    check(routes == {"split": launches, "generic": 0},
+          f"decode_attn_proj calls by route {routes}, want all {launches} "
+          f"on the split kernels")
     ntok = sum(len(r.tokens) for r in reqs)
     out = dict(requests=len(reqs), tokens=ntok, decode_steps=steps,
-               kernel_launches=launches, leaked_blocks=st["leaked_blocks"],
+               kernel_launches=launches, decode_routes=routes,
+               leaked_blocks=st["leaked_blocks"],
                wall_s=wall, tokens_per_s=ntok / wall,
                prefill_ms=[(r.t_first_token - r.t_admit) * 1e3 for r in reqs],
                ttft_ms=[(r.t_first_token - r.t_submit) * 1e3 for r in reqs],
@@ -570,8 +708,7 @@ def phase_profile_b1(torch, eng, vocab_size, steps=8):
     if busy_ms == 0.0:
         return dict(steps=steps, device_time="not measured (no CUDA events)")
     ours = sum(e.self_device_time_total for e in dev
-               if any(k in e.key for k in ("attn_partial", "proj_partial",
-                                           "proj_out"))) / 1e3
+               if any(k in e.key for k in DECODE_KERNELS)) / 1e3
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
     return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
                 device_busy_ms_per_step=busy_ms / steps,
@@ -1395,10 +1532,12 @@ def reset_launches():
     and the GeLU and SwiGLU forwards' and backwards' routes included."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import mlp_fusion as mf
+    from paddle_tpu_torch.kernels import norm_fusion as nf
     plain, drop = _launch_counts()
     for counts in plain + drop + (fa.fwd_routes, fa.bwd_routes, mf.pl_routes,
                                   mf.swiglu_bwd_routes, mf.mlp_bwd_routes,
-                                  mf.swiglu_fwd_routes, mf.mlp_fwd_routes):
+                                  mf.swiglu_fwd_routes, mf.mlp_fwd_routes,
+                                  nf.ln_bwd_routes):
         for key in counts:
             counts[key] = 0
 
@@ -1444,6 +1583,20 @@ def pl_routes_reading(counts, what):
             "bwd_cluster": n["bwd"], "bwd_generic": 0}
     check(n["fwd"] > 0 and routes == want,
           f"{what}: projection-LN calls by route {routes}, want {want}")
+    return routes
+
+
+def ln_bwd_routes_reading(counts, what, fused=True):
+    """The LayerNorm backward's calls by route since reset_launches: on
+    bert-base's bf16 path (H 768) with the fused norms every one (dropout
+    variant or not) must take the persistent kernel; with them off there
+    is none."""
+    from paddle_tpu_torch.kernels import norm_fusion as nf
+    n = counts.get("fused_ln_bwd", 0) + counts.get("dropout_fused_ln_bwd", 0)
+    routes = dict(nf.ln_bwd_routes)
+    check((n > 0) == fused and routes == {"persistent": n, "generic": 0},
+          f"{what}: LayerNorm backward calls by route {routes}, want all {n} "
+          f"on the persistent kernel (fused norms {fused})")
     return routes
 
 
@@ -2379,22 +2532,34 @@ def phase_ln_vs_plain(torch):
     shape in bf16 (bf16 gains and biases, as the model holds them) against
     the plain versions, and bitwise against the ops. The check shown to
     reject a forward that drops the residual and a backward that drops
-    one 32-row partial of its column sums. Then the times of the BERT FFN
+    the first 32 rows of its column sums. Then the times of the BERT FFN
     close (residual, no bias) and of the embeddings' LayerNorm
     (neither)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import norm_fusion as nf
-    worst = {}
+    worst, worst_generic = {}, {}
+    before = dict(nf.ln_bwd_routes)
+    want = {"persistent": 0, "generic": 0}
+    taken = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for r, h in LN_CASES:
+            route = nf.ln_bwd_route(dtype, h, True)
+            taken[f"{name} {r}x{h}"] = route
             for has_res, has_lb in LN_VARIANTS:
                 x = ln_inputs(torch, r, h, dtype, r + h, has_res, has_lb)
                 args = (x["h"], x["res"], x["lin_b"], x["w"], x["b"])
                 y, mean, rstd = nf.fused_ln_fwd(*args, 1e-12)
                 grads = nf.fused_ln_bwd(*args, mean, rstd, x["g"])
                 again = nf.fused_ln_bwd(*args, mean, rstd, x["g"])
+                want[route] += 2
                 dh, dres, dlb, dw, db = grads
+                # the generic kernels beside the persistent one, same inputs
+                gen = None
+                if route == "persistent":
+                    gen = nf._bwd_cuda(x["h"], x["res"], x["lin_b"], x["w"],
+                                       mean, rstd, x["g"], route="generic")
+                    want["generic"] += 1
                 ry, rmean, rrstd = nf.fused_ln_fwd_ref(*args, 1e-12)
                 dz, rdw, rdb, rdlb = nf.fused_ln_bwd_ref(
                     *args[:4], mean, rstd, x["g"])
@@ -2409,25 +2574,39 @@ def phase_ln_vs_plain(torch):
                     outs.append(("dres", dres, dz))
                 if has_lb:
                     outs.append(("dbias", dlb, rdlb))
+                if gen is not None:
+                    outs += [(f"generic {k}", t, ref) for k, t, ref in (
+                        ("dh", gen[0], dz), ("dres", gen[1], dz),
+                        ("dw", gen[2], rdw), ("db", gen[3], rdb),
+                        ("dbias", gen[4], rdlb)) if t is not None]
                 for key, got, ref in outs:
                     check(bool(torch.isfinite(got).all()),
                           f"fused LN {key} not finite ({name} r={r} h={h})")
                     err, rel = rel_err(got, ref)
                     check(rel <= LN_TOL[name],
                           f"fused LN {key} disagrees with plain: {name} r={r} "
-                          f"h={h} res={has_res} lin_b={has_lb} max_abs_err="
-                          f"{err} relative {rel} > {LN_TOL[name]}")
+                          f"h={h} res={has_res} lin_b={has_lb} route={route} "
+                          f"max_abs_err={err} relative {rel} > {LN_TOL[name]}")
                     kern = ("fused_ln_fwd" if key in ("y", "mean", "rstd")
                             else "fused_ln_bwd")
-                    w = worst.setdefault(name, {}).setdefault(kern, [0., 0.])
+                    into = worst_generic if key.startswith("generic") \
+                        else worst
+                    w = into.setdefault(name, {}).setdefault(kern, [0., 0.])
                     w[0], w[1] = max(w[0], err), max(w[1], rel)
                 del x, args, y, mean, rstd, grads, again, dh, dres, dlb, dw
-                del db, ry, rmean, rrstd, dz, rdw, rdb, rdlb
+                del db, ry, rmean, rrstd, dz, rdw, rdb, rdlb, gen
+    routes = {k: nf.ln_bwd_routes[k] - before[k] for k in before}
+    check(routes == want, f"LN backward routes {routes}, want {want}")
     torch.cuda.empty_cache()
     return dict(tolerance_relative_to_max=LN_TOL,
                 worst={n: {k: dict(max_abs_err=e, relative=r)
                            for k, (e, r) in w.items()}
                        for n, w in worst.items()},
+                worst_generic_backward={
+                    n: dict(max_abs_err=w["fused_ln_bwd"][0],
+                            relative=w["fused_ln_bwd"][1])
+                    for n, w in worst_generic.items()},
+                backward_routes=taken, routes=routes,
                 cases=[[r, h] for r, h in LN_CASES],
                 variants=len(LN_VARIANTS),
                 autograd_bf16=ln_autograd(torch, nf),
@@ -2478,10 +2657,10 @@ def ln_autograd(torch, nf):
 
 def ln_check_rejects(torch, nf):
     """The bf16 check must reject a forward that leaves out the residual
-    and a backward that leaves out one 32-row partial of dw and db: the
-    kernels run on inputs that do just that (no residual; the first 32
-    rows cut), held against the plain versions of the whole. Returns
-    the readings."""
+    and a backward that leaves out 32 rows of dw and db (one partial of
+    the generic kernels): the kernels run on inputs that do just that (no
+    residual; the first 32 rows cut), held against the plain versions of
+    the whole. Returns the readings."""
     x = ln_inputs(torch, BERT_R, BERT_H, torch.bfloat16, 23, True)
     h, res, w, b, g = x["h"], x["res"], x["w"], x["b"], x["g"]
     ry, mean, rstd = nf.fused_ln_fwd_ref(h, res, None, w, b, 1e-12)
@@ -2529,6 +2708,22 @@ def ln_times(torch, nf, res, key=None):
         plain_ms, ms, t = in_turns(plain, kern)
         out[name] = dict(ms=ms, plain_ms=plain_ms, all_ms=t,
                          bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    # the backward's kernels alone (no casts), persistent against generic
+    kern = {route: (lambda _, rt=route: nf._bwd_cuda(h, r, None, w, mean,
+                                                     rstd, g, key, route=rt))
+            for route in ("persistent", "generic")}
+    earlier_ms, kernel_ms, t = in_turns(kern["generic"], kern["persistent"])
+    n, names = cuda_launches(torch, lambda: kern["persistent"](None))
+    check(1 <= n <= 2, f"LN backward: {n} CUDA launches a call ({names})")
+    out["fused_ln_bwd"].update(
+        route="persistent", kernel_ms=kernel_ms, earlier_ms=earlier_ms,
+        earlier="the generic ln_bwd_vec + sum_parts, same inputs, in turns",
+        route_all_ms=t, cuda_launches_per_call=n, kernels=names,
+        generic_cuda_launches_per_call=cuda_launches(
+            torch, lambda: kern["generic"](None))[0],
+        note="ms and plain_ms: the op (the kernels and the casts of dw and "
+             "db); kernel_ms, earlier_ms: the persistent and generic "
+             "kernels alone")
     wl, bl = w.to(h.dtype), b.to(h.dtype)
     layer_norm = torch.nn.functional.layer_norm
 
@@ -3522,6 +3717,7 @@ def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
     broutes = bwd_routes_reading(counts, "bert-base training")
     mroutes = mlp_bwd_routes_reading(counts, "bert-base training", fused)
     froutes = mlp_fwd_routes_reading(counts, "bert-base training", fused)
+    lroutes = ln_bwd_routes_reading(counts, "bert-base training", fused)
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     if fused:
         proj_ln_routes = pl_routes_reading(counts, "bert-base training")
@@ -3553,7 +3749,7 @@ def phase_train_bert(torch, cfg, fused, steps=TRAIN_STEPS):
                launches_per_step={k: n / steps for k, n in counts.items()},
                flash_fwd_routes=routes, flash_bwd_routes=broutes,
                proj_ln_routes=proj_ln_routes, fused_mlp_fwd_routes=froutes,
-               fused_mlp_bwd_routes=mroutes)
+               fused_mlp_bwd_routes=mroutes, ln_bwd_routes=lroutes)
     return out, model, step
 
 
@@ -3576,6 +3772,7 @@ def phase_profile_bert(torch, step, steps=2):
     counts = read_launches()
     mroutes = mlp_bwd_routes_reading(counts, "bert-base profile")
     froutes = mlp_fwd_routes_reading(counts, "bert-base profile")
+    lroutes = ln_bwd_routes_reading(counts, "bert-base profile")
     spans, dev = {}, []
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -3589,7 +3786,8 @@ def phase_profile_bert(torch, step, steps=2):
     # "::ln_" and not "ln_": the projection-LN kernels' names contain
     # "ln_fwd_" too; the LayerNorm, projection-LN and fused MLP backwards
     # all end in common.cuh's sum_parts_kernel, counted on its own
-    groups = {"layer_norm (ln_fwd, ln_bwd)": ("::ln_fwd_", "::ln_bwd_"),
+    groups = {"layer_norm (ln_fwd, ln_bwd, ln_bwd_persist)": ("::ln_fwd_",
+                                                               "::ln_bwd_"),
               "proj_ln (proj_ln_fwd, proj_ln_bwd, their cluster route)":
               ("proj_ln_fwd_kernel", "proj_ln_bwd_kernel",
                "proj_ln_fwd_cluster_kernel", "proj_ln_bwd_cluster_kernel"),
@@ -3622,7 +3820,7 @@ def phase_profile_bert(torch, step, steps=2):
                 device_busy_ms_per_step=busy_ms / steps,
                 device_idle_share=1.0 - busy_ms / wall_ms,
                 fused_mlp_fwd_routes=froutes, fused_mlp_bwd_routes=mroutes,
-                fused_mlp_fwd_launches=flaunch,
+                ln_bwd_routes=lroutes, fused_mlp_fwd_launches=flaunch,
                 fused_mlp_ms_per_step_by_direction=mlp_by_direction(mlp),
                 kernels_ms_per_step=by_group,
                 kernels_share_of_busy={g: t * steps / busy_ms
@@ -5131,6 +5329,25 @@ def mlp_wgmma_ptxas(build_log):
             for route, names in routes.items()}
 
 
+def route_ptxas(build_log, src, pattern):
+    """ptxas -v's register and spill lines of the kernels of ``src`` whose
+    mangled names match ``pattern`` (the decode split route's, the
+    persistent LayerNorm backward's), by mangled name: none may spill."""
+    out, name = {}, None
+    for ln in build_log.get(src, "").splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(rf"'(\S*(?:{pattern})\S*)'", ln)
+            name = m.group(1) if m else None
+        elif name and ("spill" in ln or "registers" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    check(bool(out) or src not in build_log,
+          f"no ptxas lines for {pattern} in {src}")
+    for key, lines in out.items():
+        check(not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines),
+              f"{key} spills: {lines}")
+    return out
+
+
 def free_card(torch):
     """Drop what the phases before left for the collector, return the
     cached blocks and restart the peak count."""
@@ -5168,7 +5385,12 @@ def main():
                  for ln in log.splitlines() if "registers" in ln],
           flash_wgmma_ptxas=wgmma_ptxas(_build.build_log),
           proj_ln_cluster_ptxas=pl_cluster_ptxas(_build.build_log),
-          fused_mlp_wgmma_ptxas=mlp_wgmma_ptxas(_build.build_log))
+          fused_mlp_wgmma_ptxas=mlp_wgmma_ptxas(_build.build_log),
+          decode_split_ptxas=route_ptxas(
+              _build.build_log, "decode_attn_proj.cu",
+              "decode_attn_split_kernel|decode_proj_kernel"),
+          ln_persistent_ptxas=route_ptxas(_build.build_log, "norm_fusion.cu",
+                                          "ln_bwd_persist"))
 
     kern = phase_kernel_vs_plain(torch)
     phase(3, "decode_attn_proj vs plain", tolerance=TOL, **kern)
@@ -5333,6 +5555,15 @@ def main():
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"]}]
+    kernels[0].update(
+        route_fields(kern),
+        source_kernels="decode_attn_split_kernel, then decode_proj_kernel "
+                       "(programmatic dependent launch)",
+        cuda_launches_per_call=kern["main"]["cuda_launches_per_call"],
+        pos_1023_ms=kern["pos_1023"]["ms"],
+        pos_1023_library_ms=kern["pos_1023"]["library_ms"],
+        kvh_4_ms=kern["kvh_4"]["ms"],
+        kvh_4_library_ms=kern["kvh_4"]["library_ms"])
     # the dX and dW kernels run in one backward call and share its times
     # and bound
     for name, src, replaces, res, key in (
@@ -5449,6 +5680,8 @@ def main():
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
         kernels[-1].update(route_fields(t))
+        if "kernel_ms" in t:    # the LayerNorm backward's kernels alone
+            kernels[-1].update(kernel_ms=t["kernel_ms"], note=t["note"])
         if name == "fused_proj_ln_bwd":
             kernels[-1].update(pl_whole_fields(pl))
     # the flash kernels' key-padding variant at bert-base's attention; its
@@ -5502,6 +5735,8 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         kernels[-1].update(route_fields(t))
+        if "kernel_ms" in t:
+            kernels[-1].update(kernel_ms=t["kernel_ms"], note=t["note"])
         if name == "fused_proj_ln_bwd":
             kernels[-1].update(pl_whole_fields(pl["dropout"]))
     # the fused MLP's dropout variants (kernels 4-6) at gpt3-1.3b's width;

@@ -52,6 +52,17 @@
 //     atomics: every call gives the same bits.
 // CUDA launches per call: forward 1, backward 2.
 //
+// The backward has two routes (norm_fusion.ln_bwd_route): the persistent
+// kernel ln_bwd_persist (rows that are whole aligned 16-byte vectors, at
+// most 32 elements a lane: bf16 H <= 1024, f32 H <= 1024) and the kernels
+// above, generic (ln_bwd_vec, ln_bwd_generic: every shape; also forced for
+// an in-call comparison). The persistent kernel keeps one or two blocks an
+// SM (ln_bwd_plan): each owns a contiguous run of rows, keeps its column
+// sums in registers across all of them and writes one partial row, so
+// sum_parts adds nparts (~264) rows instead of ceil(R / 32); the next
+// row's h, res and g are in flight (cp.async into a per-warp ring) while a
+// warp computes the current one. Its note is above its code.
+//
 // The second half of this file holds the fused BatchNorm-train kernels (TPU
 // kernels 15-18), with their own note above their code.
 
@@ -390,6 +401,207 @@ __global__ void __launch_bounds__(32) ln_bwd_generic(Bwd p) {
 }
 
 // --------------------------------------------------------------------------
+// backward, the persistent route
+// --------------------------------------------------------------------------
+//
+// One block per partial row, gridDim.x of them (two an SM: the wrapper's
+// ln_bwd_plan), block b owning the contiguous rows [b * rpb, min((b + 1) *
+// rpb, R)), rpb = ceil(R / gridDim.x); warp w takes rows w, w + 8, ... of
+// the run. Each lane copies its own 16-byte vectors of the warp's next row
+// (h, res, g) into a two-stage ring in shared memory with cp.async while it
+// computes the current row from the other stage (a vector is read only by
+// the lane that copied it, so no barrier guards the ring); the next row's
+// mean and rstd are read into registers a row ahead. The row is read twice
+// from the ring (c1 and c2, then dz) instead of being held in registers. w
+// and lin_b sit in shared memory for the block. The NACC column sums (dw,
+// db (, dlin_b)) stay in registers across all of the block's rows, NV
+// vectors a lane (NV = 3 at H 768 in bf16: no idle slots), and are added
+// once, warps in order, into the block's partial row; sum_parts adds the
+// partial rows in a fixed order. Dynamic shared memory: w, lin_b [H] f32,
+// then the ring [8 warps][2][h, (res,) g][H], which the block's reduction
+// reuses as [8][H] f32.
+constexpr int kPersistBlocksPerSm = 2;
+
+// two blocks an SM (at most 128 registers a thread) where the column sums
+// take at most 72 registers a lane, else one
+template <typename T, int NV, int NACC>
+constexpr int persist_min_blocks() {
+  return NV * Vec<T>::n * NACC <= 72 ? kPersistBlocksPerSm : 1;
+}
+
+template <typename T>
+size_t persist_smem(int hd, bool res) {
+  const size_t ring = (size_t)kWarps * 2 * (res ? 3 : 2) * hd * sizeof(T);
+  const size_t red = (size_t)kWarps * hd * sizeof(float);
+  return 2 * (size_t)hd * sizeof(float) + (ring > red ? ring : red);
+}
+
+// z = drop(h (+ lin_b)) (+ res) for one 16-byte vector j of a row; bit k
+// of kbits keeps its element k
+template <typename T, bool DROP>
+__device__ __forceinline__ void z_vec(float* z, const Bwd& p, const T* sh, const T* sres,
+                                      const float* lb_s, uint32_t kbits, int j) {
+  constexpr int V = Vec<T>::n;
+  load_vec<T>(z, sh + j * V);
+  if (p.lin_b) {
+    float lb[V];
+    load_f32<V>(lb, lb_s + j * V);
+#pragma unroll
+    for (int k = 0; k < V; ++k) z[k] += lb[k];
+  }
+  if (DROP) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) z[k] = dropped((kbits >> k) & 1u, z[k], p.drop);
+  }
+  if (sres) {
+    float rv[V];
+    load_vec<T>(rv, sres + j * V);
+#pragma unroll
+    for (int k = 0; k < V; ++k) z[k] += rv[k];
+  }
+}
+
+template <typename T, int NV, int NACC, bool DROP>
+__global__ void __launch_bounds__(kWarps * 32, (persist_min_blocks<T, NV, NACC>())) ln_bwd_persist(Bwd p) {
+  constexpr int V = Vec<T>::n;
+  extern __shared__ __align__(16) float psm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int hd = p.hd, nvec = hd / V;
+  const int nin = p.res ? 3 : 2;  // h, (res,) g
+  const size_t stage = (size_t)nin * hd;
+  float* w_s = psm;
+  float* lb_s = psm + hd;
+  T* ring = reinterpret_cast<T*>(psm + 2 * hd) + (size_t)warp * 2 * stage;
+  const int rpb = (p.r + gridDim.x - 1) / gridDim.x;
+  const int r0 = blockIdx.x * rpb, r1 = min(r0 + rpb, p.r);
+  const T* h = static_cast<const T*>(p.h);
+  const T* res = static_cast<const T*>(p.res);
+  const T* g = static_cast<const T*>(p.g);
+  for (int c = threadIdx.x; c < hd; c += blockDim.x) {
+    w_s[c] = p.w[c];
+    if (p.lin_b) lb_s[c] = p.lin_b[c];
+  }
+
+  auto issue = [&](int row, int st) {
+    if (row < r1) {
+      T* dst = ring + st * stage;
+      const size_t base = (size_t)row * hd;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int j = i * 32 + lane;
+        if (j < nvec) {
+          cp_async16(dst + j * V, h + base + j * V, true);
+          if (res) cp_async16(dst + hd + j * V, res + base + j * V, true);
+          cp_async16(dst + (nin - 1) * hd + j * V, g + base + j * V, true);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[NACC][NV][V];
+#pragma unroll
+  for (int a = 0; a < NACC; ++a)
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[a][i][k] = 0.f;
+
+  int row = r0 + warp;
+  issue(row, 0);
+  float mean = row < r1 ? p.mean[row] : 0.f, rstd = row < r1 ? p.rstd[row] : 0.f;
+  __syncthreads();  // w_s, lb_s
+  for (int it = 0; row < r1; ++it, row += kWarps) {
+    const int nrow = row + kWarps;
+    issue(nrow, (it + 1) & 1);
+    const float mean_n = nrow < r1 ? p.mean[nrow] : 0.f;
+    const float rstd_n = nrow < r1 ? p.rstd[nrow] : 0.f;
+    cp_async_wait<1>();  // this lane's vectors of `row`
+    const T* sh = ring + (it & 1) * stage;
+    const T* sres = p.res ? sh + hd : nullptr;
+    const T* sg = sh + (nin - 1) * hd;
+    float s1 = 0.f, s2 = 0.f;
+    uint32_t keep = 0u;  // the row's keep bits, NV * V <= 32 of them: hashed once
+    const RowKey rk = DROP ? row_key(p.drop, row) : RowKey{0u, 0u};
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int j = i * 32 + lane;
+      if (j < nvec) {
+        uint32_t kbits = 0u;
+        if (DROP) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) kbits |= (uint32_t)row_keep(p.drop, rk, j * V + k) << k;
+          keep |= kbits << (i * V);
+        }
+        float z[V], gv[V], w[V];
+        z_vec<T, DROP>(z, p, sh, sres, lb_s, kbits, j);
+        load_vec<T>(gv, sg + j * V);
+        load_f32<V>(w, w_s + j * V);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float xh = (z[k] - mean) * rstd;
+          const float gw = gv[k] * w[k];
+          s1 += gw;
+          s2 += gw * xh;
+        }
+      }
+    }
+    const float c1 = warp_sum(s1) / hd, c2 = warp_sum(s2) / hd;
+    const size_t base = (size_t)row * hd;
+    T* dh = static_cast<T*>(p.dh) + base;
+    T* dres = p.dres ? static_cast<T*>(p.dres) + base : nullptr;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int j = i * 32 + lane;
+      if (j < nvec) {
+        const uint32_t kbits = (keep >> (i * V)) & ((1u << V) - 1u);
+        float z[V], gv[V], w[V], dz[V], dhv[V];
+        z_vec<T, DROP>(z, p, sh, sres, lb_s, kbits, j);
+        load_vec<T>(gv, sg + j * V);
+        load_f32<V>(w, w_s + j * V);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float xh = (z[k] - mean) * rstd;
+          dz[k] = (gv[k] * w[k] - c1 - xh * c2) * rstd;
+          dhv[k] = DROP ? dropped((kbits >> k) & 1u, dz[k], p.drop) : dz[k];
+          acc[0][i][k] += gv[k] * xh;
+          acc[1][i][k] += gv[k];
+          if (NACC == 3) acc[NACC - 1][i][k] += dhv[k];
+        }
+        store_vec<T>(dh + j * V, dhv);
+        if (dres) store_vec<T>(dres + j * V, dz);
+      }
+    }
+    mean = mean_n, rstd = rstd_n;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every ring is drained: the block's reduction reuses it
+
+  // the block's column sums: warps 0..7 in order, one accumulator at a time
+  float* red = psm + 2 * hd;
+  float* part = p.part + (size_t)blockIdx.x * NACC * hd;
+#pragma unroll
+  for (int a = 0; a < NACC; ++a) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int j = i * 32 + lane;
+      if (j < nvec) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) red[warp * hd + j * V + k] = acc[a][i][k];
+      }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < hd; c += blockDim.x) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += red[w * hd + c];
+      part[(size_t)a * hd + c] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// --------------------------------------------------------------------------
 // host side
 // --------------------------------------------------------------------------
 
@@ -467,6 +679,71 @@ int launch_bwd(const Bwd& p, float* sums, void* stream) {
     bwd_variant<T, false>(p, nv, nparts, s);
   }
   int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const int cols = p.nacc * p.hd;
+  return sum_parts(p.part, nparts, cols, sums, cols, nullptr, 8, s);
+}
+
+// the vectors a lane holds on the persistent route (1, 2, 3, 4, 6 or 8, at
+// most 32 elements), or 0 when the row is not a whole number of aligned
+// 16-byte vectors or does not fit
+template <typename T>
+int persist_nv(int hd, bool aligned) {
+  constexpr int V = Vec<T>::n;
+  if (!aligned || hd % V) return 0;
+  const int per_lane = (hd / V + 31) / 32;
+  for (int nv : {1, 2, 3, 4, 6, 8})
+    if (per_lane <= nv) return nv * V <= kBwdMaxElems ? nv : 0;
+  return 0;
+}
+
+template <typename T, int NV, int NACC, bool DROP>
+int persist_run(const Bwd& p, int nparts, cudaStream_t s) {
+  const size_t smem = persist_smem<T>(p.hd, p.res != nullptr);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = ln_bwd_persist<T, NV, NACC, DROP>;
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem);
+  if (rc) return rc;
+  kernel<<<nparts, kWarps * 32, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NACC, bool DROP>
+int persist_nv_run(const Bwd& p, int nv, int nparts, cudaStream_t s) {
+  switch (nv) {
+    case 1: return persist_run<T, 1, NACC, DROP>(p, nparts, s);
+    case 2: return persist_run<T, 2, NACC, DROP>(p, nparts, s);
+    case 3: return persist_run<T, 3, NACC, DROP>(p, nparts, s);
+    case 4: return persist_run<T, 4, NACC, DROP>(p, nparts, s);
+    default: break;
+  }
+  if constexpr (sizeof(T) == 4) {  // f32: 4 elements a vector
+    if (nv == 6) return persist_run<T, 6, NACC, DROP>(p, nparts, s);
+    if (nv == 8) return persist_run<T, 8, NACC, DROP>(p, nparts, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// the persistent route: nparts blocks (and partial rows), then sum_parts
+template <typename T>
+int launch_bwd_persist(const Bwd& p, float* sums, int nparts, void* stream) {
+  if (p.r < 1 || p.hd < 1 || p.nacc < 2 || p.nacc > 3 || !drop_ok(p.drop, p.hd) ||
+      nparts < 1 || nparts > p.r)
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = aligned16(p.h) && (!p.res || aligned16(p.res)) && aligned16(p.g) &&
+                       aligned16(p.dh) && (!p.dres || aligned16(p.dres));
+  const int nv = persist_nv<T>(p.hd, aligned);
+  if (nv == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (p.drop.rows) {
+    rc = p.nacc == 3 ? persist_nv_run<T, 3, true>(p, nv, nparts, s)
+                     : persist_nv_run<T, 2, true>(p, nv, nparts, s);
+  } else {
+    rc = p.nacc == 3 ? persist_nv_run<T, 3, false>(p, nv, nparts, s)
+                     : persist_nv_run<T, 2, false>(p, nv, nparts, s);
+  }
   if (rc) return rc;
   const int cols = p.nacc * p.hd;
   return sum_parts(p.part, nparts, cols, sums, cols, nullptr, 8, s);
@@ -854,6 +1131,35 @@ LN_BWD(f32, float)
 LN_BWD(bf16, __nv_bfloat16)
 
 int ln_rows_per_part() { return kRowsPerPart; }
+
+// the persistent route: ln_bwd's arguments and the blocks (partial rows of
+// part [nparts, nacc, H]) before the stream
+#define LN_BWD_PERSIST(SUFFIX, T)                                                            \
+  int ln_bwd_persist_##SUFFIX(const void* h, const void* res, const void* lin_b,             \
+                              const void* w, const void* mean, const void* rstd,             \
+                              const void* g, void* dh, void* dres, void* part, void* sums,   \
+                              int r, int hd, int nacc, unsigned s0, unsigned s1,             \
+                              unsigned thresh, float inv, int drop_rows, int drop_cols,      \
+                              int nparts, void* stream) {                                    \
+    Bwd p{h,                                                                                 \
+          res,                                                                               \
+          static_cast<const float*>(lin_b),                                                  \
+          static_cast<const float*>(w),                                                      \
+          static_cast<const float*>(mean),                                                   \
+          static_cast<const float*>(rstd),                                                   \
+          g,                                                                                 \
+          dh,                                                                                \
+          dres,                                                                              \
+          static_cast<float*>(part),                                                         \
+          r,                                                                                 \
+          hd,                                                                                \
+          nacc,                                                                              \
+          Drop{s0, s1, thresh, inv, drop_rows, drop_cols}};                                  \
+    return launch_bwd_persist<T>(p, static_cast<float*>(sums), nparts, stream);              \
+  }
+LN_BWD_PERSIST(f32, float)
+LN_BWD_PERSIST(bf16, __nv_bfloat16)
+
 
 // x, res, y [N, C, HW]; w, b [C] f32; mean, var [C] f32 (written); part: f32
 // workspace [fused_bn_parts(N, HW), 2, C]; coef: f32 workspace [2, C].

@@ -95,9 +95,19 @@ own op, with its plain version ``fused_proj_ln_bwd_ref``;
 ``fused_proj_ln_bwd_pair_ref`` is the cluster backward kernel's.
 
 ``decode_attn_proj`` is the decode wrapper. For CUDA tensors it launches
-``csrc/decode_attn_proj.cu`` or raises; for CPU tensors it takes
-``decode_attn_proj_ref``. ``decode_attn_proj.launches`` counts its
-kernel launches.
+``csrc/decode_attn_proj.cu`` or raises, on the route ``decode_route``
+picks from the dtype, the widths and the alignment: ``split`` (float32
+or bfloat16, D 64 or 128, NH·D 1024 or 2048, NH / KVH of 1, 2, 4 or 8,
+HO a whole number of 16-byte vectors, 16-byte aligned pools and weight:
+flash-decoding over all SMs, one block a kv head's context split, then
+the projection launched as a programmatic dependent that streams its
+weight band while attention runs, merges the splits and adds the heads
+through a cluster's shared memory; ``decode_split_plan`` and
+``decode_proj_plan`` mirror what each block reads) or ``generic`` (the
+three-launch kernels: every other shape); for CPU tensors it takes
+``decode_attn_proj_ref``.
+``decode_attn_proj.launches`` counts its CUDA calls, ``decode_routes``
+the same by route.
 """
 from __future__ import annotations
 
@@ -115,7 +125,9 @@ from .flash_attention import DropKey, _ceil_to, _drop_args, _on, drop_key
 from .flash_attention import seed_pair as _seed_pair
 from .norm_fusion import _dropped
 
-__all__ = ["decode_attn_proj", "decode_attn_proj_ref", "dropout_launches",
+__all__ = ["decode_attn_proj", "decode_attn_proj_ref", "decode_proj_plan",
+           "decode_route", "decode_routes", "decode_split_plan",
+           "decode_splits", "dropout_launches",
            "fused_mlp_2d",
            "fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_fwd_ref",
            "fused_mlp_dx_ref", "fused_mlp_dw_ref", "fused_swiglu_2d",
@@ -134,7 +146,20 @@ __all__ = ["decode_attn_proj", "decode_attn_proj_ref", "dropout_launches",
 
 _NEG_INF = -1e30   # flash_attention.py:61 — the kernel's mask, never -inf
 _MAX_HEAD_DIM = 256
-_MAX_SPLITS = 16   # attention splits over the block table (≤ kMaxSplits)
+_MAX_SPLITS = 16   # generic attention splits over the block table (≤ kMaxSplits)
+# the split route's geometry (csrc/decode_attn_proj.cu, namespace sp): the
+# attention grid aims at DECODE_TARGET_BLOCKS blocks, at most
+# DECODE_MAX_SPLITS splits a kv head; DECODE_TILE positions a tile; the
+# projection runs a cluster of DECODE_CLUSTER blocks a column tile of 16
+# 16-byte vectors (DECODE_VECS), one row band of NH·D / DECODE_CLUSTER rows
+# each (DECODE_BANDS: the bands it takes)
+DECODE_TARGET_BLOCKS = 256
+DECODE_MAX_SPLITS = 32
+DECODE_TILE = 32
+DECODE_CLUSTER = 8
+DECODE_VECS = 16
+DECODE_BANDS = (128, 256)
+DECODE_MAX_PAGES = 1024   # the block table's entries (kMaxPages)
 
 PositionLike = Union[int, torch.Tensor]
 
@@ -1425,16 +1450,72 @@ def decode_attn_proj_ref(q, k_pool, v_pool, position: PositionLike,
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                           ctypes.c_void_p]
+_SPLIT_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_void_p]
+
+# CUDA calls of the decode kernels by route
+decode_routes = {"split": 0, "generic": 0}
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2}
 
 
 @functools.cache
 def _lib():
     return _build.library("decode_attn_proj.cu",
-                          {"decode_attn_proj": _ARGTYPES})
+                          {"decode_attn_proj": _ARGTYPES,
+                           "decode_attn_proj_split": _SPLIT_ARGTYPES})
+
+
+def decode_route(dtype, nh: int, kvh: int, d: int, ho: int, mb: int,
+                 aligned: bool) -> str:
+    """The decode kernels a CUDA call takes: ``"split"`` for float32 or
+    bfloat16 with D 64 or 128, NH · D of 1024 or 2048 (the projection's
+    eight row bands of 128 or 256 rows), KVH dividing NH with a group NH /
+    KVH of 1, 2, 4 or 8, HO a whole number of 16-byte vectors, a table of
+    at most ``DECODE_MAX_PAGES`` pages, and the pools and the weight
+    16-byte aligned (``aligned``), else ``"generic"``."""
+    if (dtype in (torch.float32, torch.bfloat16) and d in (64, 128)
+            and nh * d in tuple(DECODE_CLUSTER * b for b in DECODE_BANDS)
+            and 0 < kvh and nh % kvh == 0 and nh // kvh in (1, 2, 4, 8)
+            and ho % (16 // _ESIZE[dtype]) == 0
+            and 0 < mb <= DECODE_MAX_PAGES and aligned):
+        return "split"
+    return "generic"
+
+
+def decode_splits(kvh: int, mb: int) -> int:
+    """The split route's attention grid: splits a kv head, so that KVH ·
+    splits is about ``DECODE_TARGET_BLOCKS``, at most the table's MB pages
+    and ``DECODE_MAX_SPLITS`` (the partials a projection thread merges)."""
+    return max(1, min(-(-DECODE_TARGET_BLOCKS // kvh), mb, DECODE_MAX_SPLITS))
+
+
+def decode_split_plan(pos: int, mb: int, block_size: int, kvh: int):
+    """The context positions [start, stop) each live attention split of
+    one kv head reads, as the kernels reckon them on the device from pos
+    (≥ 0): the live pages min(pos // bs + 1, MB) cut into runs of
+    ceil(live / splits) whole pages; the last run stops at pos. Blocks of
+    the grid past the returned splits read nothing."""
+    nsplit = decode_splits(kvh, mb)
+    live = min(pos // block_size + 1, mb)
+    pps = -(-live // nsplit)
+    return [(s * pps * block_size,
+             min(min((s + 1) * pps, live) * block_size, pos + 1))
+            for s in range(-(-live // pps))]
+
+
+def decode_proj_plan(nh: int, d: int, ho: int, dtype):
+    """The split route's projection blocks in grid order (a cluster a
+    column tile, its blocks by rank): (row0, row1, col0, col1) of proj_w
+    [NH·D, HO], each one of ``DECODE_CLUSTER`` row bands by
+    ``DECODE_VECS`` 16-byte vectors (fewer in a ragged last tile)."""
+    ct = DECODE_VECS * (16 // _ESIZE[dtype])
+    rb = nh * d // DECODE_CLUSTER
+    return [(r * rb, (r + 1) * rb, c, min(c + ct, ho))
+            for c in range(0, ho, ct) for r in range(DECODE_CLUSTER)]
 
 
 def _launch(q, k_pool, v_pool, position, block_table, proj_w, proj_b,
-            block_size, scale):
+            block_size, scale, route=None):
     nh, d, kvh, nblocks, ho = _check(q, k_pool, v_pool, block_size, proj_w)
     dev = q.device
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -1470,16 +1551,39 @@ def _launch(q, k_pool, v_pool, position, block_table, proj_w, proj_b,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode_attn_proj kernel needs contiguous tensors")
     mb = block_table.shape[0]
-    pages_per_split = math.ceil(mb / _MAX_SPLITS)
-    nsplit = math.ceil(mb / pages_per_split)
+    natural = decode_route(q.dtype, nh, kvh, d, ho, mb, all(
+        t.data_ptr() % 16 == 0 for t in (k_pool, v_pool, proj_w)))
+    if route is None:
+        route = natural
+    elif route not in ("split", "generic"):
+        raise ValueError(f"decode_attn_proj: route {route!r} is 'split' or "
+                         f"'generic'")
+    elif route == "split" and natural != "split":
+        raise ValueError(
+            f"decode_attn_proj: the split route takes float32 or bfloat16 "
+            f"with D 64 or 128, NH·D 1024 or 2048, NH / KVH of 1, 2, 4 or 8, "
+            f"HO a whole number of 16-byte vectors, at most "
+            f"{DECODE_MAX_PAGES} pages and 16-byte aligned pools and weight, "
+            f"got {q.dtype}, D={d}, NH={nh}, KVH={kvh}, HO={ho}, MB={mb}")
     y = torch.empty((ho,), dtype=q.dtype, device=dev)
-    scratch = torch.empty((nh * nsplit * (2 + d) + nh * ho,),
-                          dtype=torch.float32, device=dev)
-    _build.call(_lib(), "decode_attn_proj", q.dtype, dev,
-                *(t.data_ptr() for t in tensors), y.data_ptr(),
-                scratch.data_ptr(), nh, kvh, d, int(block_size), nblocks, mb,
-                ho, pages_per_split, nsplit, float(scale))
+    ptrs = [t.data_ptr() for t in tensors] + [y.data_ptr()]
+    if route == "split":
+        nsplit = decode_splits(kvh, mb)
+        part = torch.empty((nh * nsplit * (2 + d),), dtype=torch.float32,
+                           device=dev)
+        _build.call(_lib(), "decode_attn_proj_split", q.dtype, dev, *ptrs,
+                    part.data_ptr(), nh, kvh, d, int(block_size), nblocks, mb,
+                    ho, nsplit, float(scale))
+    else:
+        pages_per_split = math.ceil(mb / _MAX_SPLITS)
+        nsplit = math.ceil(mb / pages_per_split)
+        scratch = torch.empty((nh * nsplit * (2 + d) + nh * ho,),
+                              dtype=torch.float32, device=dev)
+        _build.call(_lib(), "decode_attn_proj", q.dtype, dev, *ptrs,
+                    scratch.data_ptr(), nh, kvh, d, int(block_size), nblocks,
+                    mb, ho, pages_per_split, nsplit, float(scale))
     decode_attn_proj.launches += 1
+    decode_routes[route] += 1
     return y
 
 
@@ -1488,10 +1592,11 @@ def decode_attn_proj(q, k_pool, v_pool, position: PositionLike, block_table,
     """Single-kernel B=1 decode: paged attention → output projection.
 
     Arguments as ``decode_attn_proj_ref``. CPU tensors run the plain
-    version; CUDA tensors launch the Hopper kernel (float32 or bfloat16,
-    one dtype for q, pools and projection; int32 position and table on
-    the same card, contiguous) or raise. Returns [HO] = attention(q,
-    paged context) · proj_w + proj_b in q's dtype."""
+    version; CUDA tensors launch the Hopper kernels on the route
+    ``decode_route`` picks (float32 or bfloat16, one dtype for q, pools
+    and projection; int32 position (≥ 0) and table on the same card,
+    contiguous) or raise. Returns [HO] = attention(q, paged context) ·
+    proj_w + proj_b in q's dtype."""
     if q.device.type == "cpu":
         return decode_attn_proj_ref(q, k_pool, v_pool, position, block_table,
                                     proj_w, proj_b, block_size=block_size,

@@ -41,8 +41,16 @@ joined by ``register_autograd``:
 
 For CUDA tensors the ops launch the hand-written Hopper kernels of
 ``csrc/norm_fusion.cu`` (its notes name the TPU kernels replaced, the
-bound and the design) or raise; for CPU tensors they take the plain
-PyTorch versions ``fused_ln_fwd_ref`` / ``fused_ln_bwd_ref`` and
+bound and the design) or raise. The LayerNorm backward has two routes,
+picked by ``ln_bwd_route`` from the dtype, H and the alignment:
+``persistent`` (float32 or bfloat16 rows of whole aligned 16-byte
+vectors, at most 32 elements a lane: two blocks an SM, each over a
+contiguous run of rows, ``ln_bwd_plan``; the next row in flight while a
+warp computes the current one; the column sums in registers across the
+run, one partial row a block) and ``generic`` (the 32-row kernels: every
+other shape); ``ln_bwd_routes`` counts CUDA calls by route. For CPU
+tensors they take the plain PyTorch versions ``fused_ln_fwd_ref`` /
+``fused_ln_bwd_ref`` and
 ``fused_bn_fwd_ref`` / ``fused_bn_bwd_ref``. ``launches`` counts calls
 that launch the kernels (CPU calls do not count), one per op call: the
 LayerNorm backward's second launch (the fixed-order sum of its column
@@ -70,7 +78,8 @@ __all__ = ["bn_eligible", "dropout_launches", "fused_batch_norm_train",
            "fused_bn_bwd", "fused_bn_bwd_ref", "fused_bn_fwd",
            "fused_bn_fwd_ref", "fused_layer_norm_2d", "fused_ln_fwd",
            "fused_ln_bwd", "fused_ln_fwd_ref", "fused_ln_bwd_ref", "launches",
-           "ln_block_r", "row_keep_ref"]
+           "ln_block_r", "ln_bwd_parts", "ln_bwd_plan", "ln_bwd_route",
+           "ln_bwd_routes", "row_keep_ref"]
 
 launches = {"fused_ln_fwd": 0, "fused_ln_bwd": 0, "fused_bn_fwd": 0,
             "fused_bn_bwd": 0}
@@ -167,6 +176,7 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _DROP = [_U] * 3 + [_F, _I, _I]
 _ARGTYPES = {"ln_fwd": [_P] * 8 + [_I, _I, _F] + _DROP + [_P],
              "ln_bwd": [_P] * 11 + [_I, _I, _I] + _DROP + [_P],
+             "ln_bwd_persist": [_P] * 11 + [_I, _I, _I] + _DROP + [_I, _P],
              "fused_bn_fwd": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
              "fused_bn_bwd": [_P] * 15 + [_I, _I, _I, _F, _I, _P]}
 
@@ -223,9 +233,73 @@ def _fwd_cuda(h, res, lin_b, w, b, eps, drop=None):
     return y, mean, rstd
 
 
-def _bwd_cuda(h, res, lin_b, w, mean, rstd, g, drop=None):
+# the persistent route's lanes: at most LN_LANE_ELEMS elements of a row a
+# lane (kBwdMaxElems), in 1, 2, 3, 4, 6 or 8 16-byte vectors
+LN_LANE_ELEMS = 32
+LN_LANE_VECTORS = (1, 2, 3, 4, 6, 8)
+LN_BLOCKS_PER_SM = 2            # kPersistBlocksPerSm
+LN_WARPS = 8                    # warps a block (kWarps)
+
+
+def ln_bwd_route(dtype, hd: int, aligned: bool) -> str:
+    """The LayerNorm backward kernels a CUDA call takes: ``"persistent"``
+    for float32 or bfloat16 rows of whole 16-byte vectors that fit a
+    lane's ``LN_LANE_ELEMS`` elements (bf16 and f32 H up to 1024; bf16 H
+    768 is 3 vectors a lane) with h, res and g 16-byte aligned
+    (``aligned``), else ``"generic"``."""
+    if dtype not in (torch.float32, torch.bfloat16) or not aligned:
+        return "generic"
+    v = 16 // (2 if dtype == torch.bfloat16 else 4)
+    if hd < 1 or hd % v:
+        return "generic"
+    per_lane = -(-(hd // v) // 32)
+    nv = next((n for n in LN_LANE_VECTORS if per_lane <= n), None)
+    return "persistent" if nv is not None and nv * v <= LN_LANE_ELEMS \
+        else "generic"
+
+
+def ln_bwd_parts(r: int, sms: int) -> int:
+    """The persistent route's blocks, one partial row each: two an SM,
+    fewer where R is short, none empty."""
+    if r < 1 or sms < 1:
+        raise ValueError(f"ln_bwd_parts: R {r} and SMs {sms} must be >= 1")
+    rpb = -(-r // min(LN_BLOCKS_PER_SM * sms, r))
+    return -(-r // rpb)
+
+
+def ln_bwd_plan(r: int, sms: int):
+    """The rows of each persistent block, as the kernel reckons them from
+    its grid: block b owns [b · rpb, min((b + 1) · rpb, R)), rpb = ceil(R
+    / blocks); warp w of a block takes the run's rows w, w + 8, ...
+    Returns [(start, stop)] in block order."""
+    nparts = ln_bwd_parts(r, sms)
+    rpb = -(-r // nparts)
+    return [(b * rpb, min((b + 1) * rpb, r)) for b in range(nparts)]
+
+
+# CUDA calls of the LayerNorm backward by route (dropout variants included)
+ln_bwd_routes = {"persistent": 0, "generic": 0}
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _bwd_part(lib, route, r, hd, nacc, dev):
+    """The column sums' partial rows, f32 [blocks, nacc, H]: the
+    persistent kernel's grid (``ln_bwd_parts``, the grid the kernel is
+    launched with), or the generic kernels' one row a 32-row block."""
+    if route == "persistent":
+        nparts = ln_bwd_parts(r, _sm_count(dev))
+    else:
+        nparts = -(-r // lib.ln_rows_per_part())
+    return torch.empty((nparts, nacc, hd), dtype=torch.float32, device=dev)
+
+
+def _bwd_cuda(h, res, lin_b, w, mean, rstd, g, drop=None, route=None):
     """(dh, dres or None, dw, db, dbias or None): the rows in h's dtype,
-    the column sums f32."""
+    the column sums f32; on the route ``ln_bwd_route`` picks (``route``
+    names one instead: a measurement holds the two on the same inputs)."""
     lb, w32 = _vec32(lin_b), _vec32(w)
     r, hd = _check("fused_ln_bwd", h, (g,) if res is None else (res, g),
                    [v for v in (lb, w32) if v is not None])
@@ -235,20 +309,36 @@ def _bwd_cuda(h, res, lin_b, w, mean, rstd, g, drop=None):
             raise ValueError(f"fused_ln_bwd: mean/rstd must be float32 "
                              f"[{r}] on {h.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
+    natural = ln_bwd_route(h.dtype, hd, all(
+        t.data_ptr() % 16 == 0 for t in (h, res, g) if t is not None))
+    if route is None:
+        route = natural
+    elif route not in ("persistent", "generic"):
+        raise ValueError(f"fused_ln_bwd: route {route!r} is 'persistent' or "
+                         f"'generic'")
+    elif route == "persistent" and natural != "persistent":
+        raise ValueError(
+            f"fused_ln_bwd: the persistent route takes float32 or bfloat16 "
+            f"rows of whole 16-byte vectors, at most {LN_LANE_ELEMS} "
+            f"elements a lane, 16-byte aligned; got {h.dtype}, H={hd}")
+    lib = _lib()
     nacc = 2 if lin_b is None else 3
-    rows = _lib().ln_rows_per_part()
     dev = h.device
+    part = _bwd_part(lib, route, r, hd, nacc, dev)
     dh = torch.empty_like(h)
     dres = None if res is None else torch.empty_like(h)
-    part = torch.empty((-(-r // rows), nacc, hd), dtype=torch.float32,
-                       device=dev)
     sums = torch.empty((nacc, hd), dtype=torch.float32, device=dev)
-    _build.call(_lib(), "ln_bwd", h.dtype, dev, h.data_ptr(), _ptr(res),
-                _ptr(lb), w32.data_ptr(), mean.contiguous().data_ptr(),
-                rstd.contiguous().data_ptr(), g.data_ptr(), dh.data_ptr(),
-                _ptr(dres), part.data_ptr(), sums.data_ptr(), r, hd, nacc,
-                *_drop_args(drop))
+    args = (h.data_ptr(), _ptr(res), _ptr(lb), w32.data_ptr(),
+            mean.contiguous().data_ptr(), rstd.contiguous().data_ptr(),
+            g.data_ptr(), dh.data_ptr(), _ptr(dres), part.data_ptr(),
+            sums.data_ptr(), r, hd, nacc, *_drop_args(drop))
+    if route == "persistent":
+        _build.call(lib, "ln_bwd_persist", h.dtype, dev, *args,
+                    part.shape[0])
+    else:
+        _build.call(lib, "ln_bwd", h.dtype, dev, *args)
     (launches if drop is None else dropout_launches)["fused_ln_bwd"] += 1
+    ln_bwd_routes[route] += 1
     return dh, dres, sums[0], sums[1], sums[2] if nacc == 3 else None
 
 
