@@ -290,6 +290,34 @@ Phases, one line each; any failure raises and exits non-zero:
    from the same inputs and generator seed, the generators' states
    equal after; each call launches each dropout variant of kernels 4-6
    once and no other kernel;
+39. serve llama-7b (random weights from a seed, bf16, full width and
+   depth) through llama_adapter and ServingEngine at max_batch=4,
+   device_loop_k=4, 512 blocks of 16, max_model_len 1024: 4 greedy
+   requests, prompts 128/256/384/512, 32 new tokens; every request
+   finished, tokens in the vocabulary, 0 leaked blocks; ms per token,
+   TTFT, and torch.profiler's busy / idle split over 4 decode windows;
+   then the fast-path traffic of phase 40 through this plain engine (its
+   streams and TTFTs are phase 40's yardstick);
+40. the llama-7b fast path: prefill_chunk=256 and prefix_cache=True
+   (one warm request, then 4 sharing its 384-token prefix with distinct
+   64-160-token tails: prefix hits >= 4, no cached token recomputed, the
+   chunk counts chunk_spans gives), then the same traffic at max_batch=1
+   with a self-draft (SpeculativeConfig(llama_adapter(model), k=4)) on
+   top: 0 leaked blocks in both pools and the trie, the peak memory
+   under the weights + both pools + 2 GB; the prefix's TTFT against the
+   plain engine's for the same tails, the accept rate, and each bf16
+   stream's first divergence from the plain engine's (reported, not
+   gated);
+41. the gpt3-1.3b fast path at max_batch=1 with
+   FLAGS_serving_decode_kernel on: chunked prefill, the prefix cache
+   and a self-draft at k=4; every draft step of every speculative round
+   launches the decode kernel once a layer (24 x k a round), all on the
+   split route;
+42. fast-path parity in fp32 (TF32 off) at llama-7b's and gpt3-1.3b's
+   full width, 2 layers: the plain, chunked, prefix-cached and
+   speculative engines give identical greedy streams, and a chunked
+   prefill's last logits row is within 2e-5 x max|logit| of the whole
+   prefill's;
 then the card's name and power limit again, the kernels' JSON line and
 the final status line. Every kernel time is device time (cuda_ms: the
 calls queued behind a spin of the card, so the host's launch rate does
@@ -682,16 +710,22 @@ def phase_serve_b1(torch, model):
     return out, eng
 
 
-def phase_profile_b1(torch, eng, vocab_size, steps=8):
-    """torch.profiler over `steps` B=1 decode steps of one more request
-    (after the measured run): device busy time per step against the
-    profiled wall time, and the kernels that take it. The profiler adds
-    host time, so the idle share here is an upper bound."""
+def phase_profile_b1(torch, eng, vocab_size, steps=8, prompts=None):
+    """torch.profiler over `steps` decode steps (windows of the engine's
+    device_loop_k tokens) of `prompts` (default one 256-token prompt),
+    admitted and prefilled in the step before, after the measured run:
+    device busy time per step against the profiled wall time, the host's
+    operator calls and kernel launches per step, and the kernels that
+    take the device time. The profiler adds host time, so the idle share
+    here is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.inference import SamplingParams
-    prompt = np.random.default_rng(3).integers(0, vocab_size, 256)
-    eng.submit(prompt, SamplingParams(max_new_tokens=steps + 2))
+    if prompts is None:
+        prompts = [np.random.default_rng(3).integers(0, vocab_size, 256)]
+    for p in prompts:
+        eng.submit(p, SamplingParams(
+            max_new_tokens=(steps + 2) * eng.device_loop_k))
     eng.step()                       # admission + prefill + first decode
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -702,17 +736,26 @@ def phase_profile_b1(torch, eng, vocab_size, steps=8):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     eng.run_until_idle()
-    dev = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     if busy_ms == 0.0:
         return dict(steps=steps, device_time="not measured (no CUDA events)")
     ours = sum(e.self_device_time_total for e in dev
                if any(k in e.key for k in DECODE_KERNELS)) / 1e3
+    # aten:: calls count the nested ones too (linear -> matmul -> mm)
+    aten = sum(e.count for e in events if e.key.startswith("aten::"))
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunch")))
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
-    return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
+    return dict(steps=steps, batch=len(prompts),
+                tokens_per_step=len(prompts) * eng.device_loop_k,
+                wall_ms_per_step=wall_ms / steps,
                 device_busy_ms_per_step=busy_ms / steps,
                 device_idle_share=1.0 - busy_ms / wall_ms,
+                aten_calls_per_step=aten / steps,
+                cuda_launches_per_step=launches / steps,
                 decode_attn_proj_ms_per_step=ours / steps,
                 top_device_ms_per_step=[
                     (e.key[:60], e.self_device_time_total / 1e3 / steps,
@@ -5348,6 +5391,321 @@ def route_ptxas(build_log, src, pattern):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 39-42: LLaMA serving and the serving fast path
+# ---------------------------------------------------------------------------
+
+SERVE_POOL = dict(num_blocks=512, block_size=16, max_model_len=1024)
+FAST_PREFIX, FAST_TAILS, FAST_CHUNK, SPEC_K = 384, (64, 96, 128, 160), 256, 4
+
+
+def fast_prompts(vocab, seed=5):
+    """The fast path's traffic: a warm request, then 4 that share its
+    384-token prefix, each with a distinct tail of 64-160 tokens."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, FAST_PREFIX)
+    warm = np.concatenate([prefix, rng.integers(0, vocab, 32)])
+    return warm, [np.concatenate([prefix, rng.integers(0, vocab, n)])
+                  for n in FAST_TAILS]
+
+
+def serve_waves(torch, eng, waves, max_new):
+    """Submit each wave whole, run it to idle; the requests and the wall
+    seconds of the last wave."""
+    from paddle_tpu_torch.inference import SamplingParams
+    reqs = []
+    for wave in waves:
+        t0 = time.perf_counter()
+        reqs += [eng.submit(p, SamplingParams(max_new_tokens=max_new))
+                 for p in wave]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def request_times(reqs):
+    return dict(ttft_ms=[(r.t_first_token - r.t_submit) * 1e3 for r in reqs],
+                prefill_ms=[(r.t_first_token - r.t_admit) * 1e3
+                            for r in reqs],
+                ms_per_token=[(r.t_terminal - r.t_first_token) * 1e3
+                              / (len(r.tokens) - 1) for r in reqs])
+
+
+def check_served(reqs, vocab, n_new, what):
+    check(all(r.state == "FINISHED" and len(r.tokens) == n_new
+              for r in reqs),
+          f"{what}: not every request finished with {n_new} tokens")
+    check(all(0 <= t < vocab for r in reqs for t in r.tokens),
+          f"{what}: token out of vocabulary")
+
+
+def first_divergence(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def phase_serve_llama_b4(torch, model, device=None):
+    """Phase 39; also returns the plain engine's run of the fast path's
+    traffic (phase 40's yardstick)."""
+    from paddle_tpu_torch.inference import ServingEngine, llama_adapter
+    cfg = model.cfg
+    eng = ServingEngine(llama_adapter(model), **SERVE_POOL, max_batch=4,
+                        device_loop_k=4, device=device)
+    rng = np.random.default_rng(0)
+    serve_waves(torch, eng, [[rng.integers(0, cfg.vocab_size, 16)]], 4)
+    reqs, wall = serve_waves(
+        torch, eng, [[rng.integers(0, cfg.vocab_size, n)
+                      for n in (128, 256, 384, 512)]], 32)
+    st = eng.stats()
+    check_served(reqs, cfg.vocab_size, 32, "llama-7b B=4 serving")
+    check(st["leaked_blocks"] == 0, f"leaked {st['leaked_blocks']} blocks")
+    ntok = sum(len(r.tokens) for r in reqs)
+    out = dict(requests=len(reqs), tokens=ntok, windows=st["decode_steps"],
+               pool_kv_heads=eng.pool.num_kv_heads,
+               leaked_blocks=st["leaked_blocks"], wall_s=wall,
+               tokens_per_s=ntok / wall, **request_times(reqs),
+               profile=phase_profile_b1(
+                   torch, eng, cfg.vocab_size, steps=4, prompts=[
+                       rng.integers(0, cfg.vocab_size, n)
+                       for n in (128, 256, 384, 512)]))
+    warm, shared = fast_prompts(cfg.vocab_size)
+    plain, _ = serve_waves(torch, eng, [[warm], shared], 32)
+    check_served(plain, cfg.vocab_size, 32, "llama-7b plain fast traffic")
+    check(eng.stats()["leaked_blocks"] == 0, "plain engine leaked blocks")
+    out["fast_traffic_plain"] = request_times(plain[1:])
+    return out, [r.tokens for r in plain]
+
+
+def chunk_gates(eng, reqs, chunks0, what):
+    """Prefix hits, no cached token computed again, and each request's
+    chunks as chunk_spans plans its uncached tail."""
+    st = eng.stats()
+    want = sum(len(chunk_spans_of(r)) for r in reqs)
+    hits = st["prefix_cache"]["hits"]
+    check(hits >= len(reqs) - 1,
+          f"{what}: {hits} prefix hits for {len(reqs) - 1} sharers")
+    check(st["prefix_recompute_tokens"] == 0,
+          f"{what}: {st['prefix_recompute_tokens']} cached tokens computed "
+          f"again")
+    check(st["prefill_chunks"] - chunks0 == want,
+          f"{what}: {st['prefill_chunks'] - chunks0} chunks, chunk_spans "
+          f"plans {want}")
+    check(st["leaked_blocks"] == 0 and st.get("draft_leaked_blocks", 0) == 0,
+          f"{what}: leaked {st['leaked_blocks']} blocks, "
+          f"{st.get('draft_leaked_blocks')} in the draft pool")
+    return dict(prefix_hits=hits, prefix_cache=st["prefix_cache"],
+                prefix_recompute_tokens=st["prefix_recompute_tokens"],
+                prefill_chunks=st["prefill_chunks"] - chunks0,
+                chunk_spans_chunks=want,
+                reused_tokens=[r.reused_tokens for r in reqs],
+                leaked_blocks=st["leaked_blocks"],
+                draft_leaked_blocks=st.get("draft_leaked_blocks"))
+
+
+def chunk_spans_of(req):
+    from paddle_tpu_torch.inference import chunk_spans
+    return chunk_spans(req.prompt.size - req.reused_tokens, FAST_CHUNK)
+
+
+def spec_fields(st):
+    return dict(spec_verify_steps=st["spec_verify_steps"],
+                spec_drafted=st["spec_drafted"],
+                spec_accepted=st["spec_accepted"],
+                accept_rate=st["spec_accepted"] / max(1, st["spec_drafted"]))
+
+
+def pool_gb(*pools):
+    return sum(p.k.numel() * p.k.element_size() * 2 for p in pools) / 1e9
+
+
+def phase_serve_llama_fast(torch, model, plain_streams, plain_times,
+                           device=None):
+    """Phase 40: chunked prefill + prefix cache at max_batch=4, then the
+    same with a self-draft at max_batch=1."""
+    from paddle_tpu_torch.inference import (ServingEngine, SpeculativeConfig,
+                                            llama_adapter)
+    cfg = model.cfg
+    warm, shared = fast_prompts(cfg.vocab_size)
+    eng = ServingEngine(llama_adapter(model), **SERVE_POOL, max_batch=4,
+                        device_loop_k=4, prefill_chunk=FAST_CHUNK,
+                        prefix_cache=True, device=device)
+    reqs, wall = serve_waves(torch, eng, [[warm], shared], 32)
+    check_served(reqs, cfg.vocab_size, 32, "llama-7b chunked + prefix")
+    fast = dict(chunk_gates(eng, reqs, 0, "llama-7b chunked + prefix"),
+                wall_s=wall, **request_times(reqs[1:]),
+                first_divergence_from_plain=[
+                    first_divergence(r.tokens, t)
+                    for r, t in zip(reqs, plain_streams)])
+    del eng, reqs
+    free_card(torch)
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) / 1e9
+    eng = ServingEngine(llama_adapter(model), **SERVE_POOL, max_batch=1,
+                        prefill_chunk=FAST_CHUNK, prefix_cache=True,
+                        speculative=SpeculativeConfig(llama_adapter(model),
+                                                      k=SPEC_K),
+                        device=device)
+    reqs, wall = serve_waves(torch, eng, [[warm], shared], 32)
+    check_served(reqs, cfg.vocab_size, 32, "llama-7b speculative")
+    st = eng.stats()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    limit_gb = weights_gb + pool_gb(eng.pool, eng.draft_pool) + 2.0
+    check(peak_gb < limit_gb, f"llama-7b speculative peaks at {peak_gb} GB, "
+          f"over weights + both pools + 2 GB = {limit_gb}")
+    spec = dict(chunk_gates(eng, reqs, 0, "llama-7b speculative"),
+                **spec_fields(st), wall_s=wall, **request_times(reqs[1:]),
+                peak_memory_gb=peak_gb, memory_limit_gb=limit_gb,
+                weights_gb=weights_gb,
+                pools_gb=pool_gb(eng.pool, eng.draft_pool),
+                first_divergence_from_plain=[
+                    first_divergence(r.tokens, t)
+                    for r, t in zip(reqs, plain_streams)])
+    del eng
+    return dict(plain_same_tails=plain_times, chunked_prefix=fast,
+                speculative_self_draft=spec)
+
+
+def phase_serve_gpt_fast(torch, model, device=None):
+    """Phase 41: the B=1 speculative draft loop on the decode kernel."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.inference import (ServingEngine, SpeculativeConfig,
+                                            gpt_adapter)
+    from paddle_tpu_torch.kernels import mlp_fusion as mf
+    from paddle_tpu_torch.kernels.mlp_fusion import decode_attn_proj
+    cfg = model.cfg
+    set_flags({"FLAGS_serving_decode_kernel": True})
+    eng = ServingEngine(gpt_adapter(model), **SERVE_POOL, max_batch=1,
+                        prefill_chunk=FAST_CHUNK, prefix_cache=True,
+                        speculative=SpeculativeConfig(gpt_adapter(model),
+                                                      k=SPEC_K),
+                        device=device)
+    rng = np.random.default_rng(4)
+    serve_waves(torch, eng, [[rng.integers(0, cfg.vocab_size, 16)]], 4)
+    st0 = eng.stats()
+    decode_attn_proj.launches = 0
+    for key in mf.decode_routes:
+        mf.decode_routes[key] = 0
+    warm, shared = fast_prompts(cfg.vocab_size, seed=6)
+    reqs, wall = serve_waves(torch, eng, [[warm], shared], 32)
+    launches, routes = decode_attn_proj.launches, dict(mf.decode_routes)
+    check_served(reqs, cfg.vocab_size, 32, "gpt3-1.3b speculative")
+    st = eng.stats()
+    rounds = st["spec_verify_steps"] - st0["spec_verify_steps"]
+    want = cfg.num_layers * SPEC_K * rounds
+    check(rounds > 0 and launches == want,
+          f"decode_attn_proj launched {launches} times in {rounds} "
+          f"speculative rounds, want {cfg.num_layers} layers x k {SPEC_K} "
+          f"x rounds = {want}")
+    check(routes == {"split": launches, "generic": 0},
+          f"decode_attn_proj calls by route {routes}, want all {launches} "
+          f"on the split kernels")
+    drafted = st["spec_drafted"] - st0["spec_drafted"]
+    accepted = st["spec_accepted"] - st0["spec_accepted"]
+    out = dict(chunk_gates(eng, reqs, st0["prefill_chunks"],
+                           "gpt3-1.3b speculative"),
+               spec_rounds=rounds, kernel_launches=launches,
+               kernel_launches_per_round=launches / rounds,
+               decode_routes=routes, spec_drafted=drafted,
+               spec_accepted=accepted, accept_rate=accepted / max(1, drafted),
+               wall_s=wall, **request_times(reqs))
+    del eng
+    return out
+
+
+def chunked_last_logits(torch, ad, prompt, device):
+    """The last logits row of ``prompt`` prefilled in chunks of
+    FAST_CHUNK through ``ad.chunk`` into a pool of its own."""
+    from paddle_tpu_torch.inference import BlockPool, chunk_spans
+    bs = SERVE_POOL["block_size"]
+    width = SERVE_POOL["max_model_len"] // bs
+    pool = BlockPool(ad.num_layers, width, bs, ad.num_kv_heads, ad.head_dim,
+                     dtype=ad.dtype, device=device)
+    pool.alloc("r", pool.blocks_needed(len(prompt)))
+    table = torch.as_tensor(pool.block_table("r", width),
+                            device=pool.device)[None]
+    for s0, e in chunk_spans(len(prompt), FAST_CHUNK):
+        ids = torch.as_tensor(prompt[s0:e], dtype=torch.int32,
+                              device=pool.device)[None]
+        pos = torch.arange(s0, e, dtype=torch.int32, device=pool.device)[None]
+        slots = torch.as_tensor(pool.slots_for("r", s0, e),
+                                device=pool.device)[None]
+        logits, pool.k, pool.v = ad.chunk(ad.params, pool.k, pool.v, ids, pos,
+                                          slots, table, bs)
+    return logits[0, -1]
+
+
+def phase_fastpath_parity_fp32(torch, device=None):
+    """Phase 42: f32 at full width, 2 layers: four engines, one stream."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.inference import (ServingEngine, SpeculativeConfig,
+                                            gpt_adapter, llama_adapter)
+    from paddle_tpu_torch.models import gpt, llama
+    set_flags({"FLAGS_serving_decode_kernel": False})
+    out = {}
+    for name, build, adapter in (
+            ("llama-7b", lambda: llama.LlamaForCausalLM(
+                llama.CONFIGS["llama-7b"]._replace(num_hidden_layers=2),
+                seed=1, dtype=torch.float32, device=device), llama_adapter),
+            ("gpt3-1.3b", lambda: gpt.GPTForCausalLM(
+                gpt.CONFIGS["gpt3-1.3b"]._replace(num_layers=2,
+                                                  dtype=torch.float32),
+                seed=1, device=device), gpt_adapter)):
+        model = build()
+        vocab = model.cfg.vocab_size
+        warm, shared = fast_prompts(vocab, seed=7)
+        waves = [[warm], shared[:3]]
+        streams, stats = {}, {}
+        for kind, kw in (
+                ("plain", dict(max_batch=4)),
+                ("chunked", dict(max_batch=4, prefill_chunk=FAST_CHUNK)),
+                ("prefix", dict(max_batch=4, prefix_cache=True)),
+                ("speculative", dict(max_batch=4, speculative=(
+                    SpeculativeConfig(adapter(model), k=SPEC_K))))):
+            eng = ServingEngine(adapter(model), **SERVE_POOL, **kw,
+                                device=device)
+            reqs, _ = serve_waves(torch, eng, waves, 16)
+            check_served(reqs, vocab, 16, f"{name} fp32 {kind}")
+            st = eng.stats()
+            check(st["leaked_blocks"] == 0
+                  and st.get("draft_leaked_blocks", 0) == 0,
+                  f"{name} fp32 {kind}: leaked blocks")
+            streams[kind] = [r.tokens for r in reqs]
+            stats[kind] = dict(
+                prefix_hits=st.get("prefix_cache", {}).get("hits"),
+                prefill_chunks=st["prefill_chunks"],
+                prefix_recompute_tokens=st["prefix_recompute_tokens"],
+                **(spec_fields(st) if kind == "speculative" else {}))
+            del eng
+        same = {k: v == streams["plain"] for k, v in streams.items()}
+        where = {k: [first_divergence(a, b)
+                     for a, b in zip(v, streams["plain"])]
+                 for k, v in streams.items()}
+        check(all(same.values()),
+              f"{name} fp32: greedy streams differ from the plain engine's "
+              f"at {where}")
+        check(stats["prefix"]["prefix_hits"] >= len(shared[:3]),
+              f"{name} fp32: prefix engine hit {stats['prefix']}")
+        ad = adapter(model)
+        prompt = np.concatenate([shared[0], warm])[:600]
+        ids = torch.as_tensor(prompt, dtype=torch.int32,
+                              device=ad.device)[None]
+        whole, _, _ = ad.prefill(ad.params, ids,
+                                 torch.tensor([len(prompt)],
+                                              device=ad.device))
+        chunked = chunked_last_logits(torch, ad, prompt, ad.device)
+        scale = float(whole.abs().max())
+        diff = float((chunked - whole[0]).abs().max())
+        check(bool(torch.isfinite(chunked).all()) and diff <= 2e-5 * scale,
+              f"{name} fp32: chunked prefill's last logits differ by {diff} "
+              f"> 2e-5 x {scale}")
+        out[name] = dict(same_streams=same, tokens=sum(map(len,
+                                                           streams["plain"])),
+                         engines=stats, chunked_vs_whole_max_abs_diff=diff,
+                         max_abs_logit=scale, tolerance=2e-5 * scale)
+        del model, ad, whole, chunked
+        free_card(torch)
+    return out
+
+
 def free_card(torch):
     """Drop what the phases before left for the collector, return the
     cached blocks and restart the peak count."""
@@ -5548,6 +5906,24 @@ def main():
     phase(38, "F.fused_mlp at dropout 0.1: card kernels vs the CPU's plain "
           "versions, fp32", **mpar)
 
+    free_card(torch)
+    smodel = llama.LlamaForCausalLM(lcfg, seed=0, dtype=torch.bfloat16)
+    serve39, plain_streams = phase_serve_llama_b4(torch, smodel)
+    phase(39, "serve llama-7b bf16 max_batch=4 k=4", **serve39)
+    free_card(torch)
+    phase(40, "serve llama-7b bf16 fast path",
+          **phase_serve_llama_fast(torch, smodel, plain_streams,
+                                   serve39["fast_traffic_plain"]))
+    del smodel
+    free_card(torch)
+    gmodel = gpt.GPTForCausalLM(gpt.CONFIGS["gpt3-1.3b"], seed=0)
+    gfast = phase_serve_gpt_fast(torch, gmodel)
+    phase(41, "serve gpt3-1.3b bf16 fast path, decode kernel in the draft",
+          **gfast)
+    del gmodel
+    free_card(torch)
+    phase(42, "fast-path parity fp32", **phase_fastpath_parity_fp32(torch))
+
     kernels = [{
         "name": "decode_attn_proj", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": serve1["kernel_launches"],
@@ -5563,7 +5939,9 @@ def main():
         pos_1023_ms=kern["pos_1023"]["ms"],
         pos_1023_library_ms=kern["pos_1023"]["library_ms"],
         kvh_4_ms=kern["kvh_4"]["ms"],
-        kvh_4_library_ms=kern["kvh_4"]["library_ms"])
+        kvh_4_library_ms=kern["kvh_4"]["library_ms"],
+        spec_draft_launches=gfast["kernel_launches"],
+        spec_draft_launches_per_round=gfast["kernel_launches_per_round"])
     # the dX and dW kernels run in one backward call and share its times
     # and bound
     for name, src, replaces, res, key in (

@@ -3,11 +3,15 @@
 Counterpart: ``paddle_tpu/inference/__init__.py`` — the serving exports
 (the AOT Predictor belongs to a later slice, see ROADMAP.md).
 """
-from .batching import BucketLadder, SLOQueue, pad_batch, pad_tokens
+from .batching import (BucketLadder, SLOQueue, chunk_spans, pad_batch,
+                       pad_tokens)
 from .engine import (ModelAdapter, Request, SamplingParams, ServingEngine,
-                     gpt_adapter)
-from .kv_cache import BlockPool, CacheExhaustedError, kv_append, kv_gather
+                     SpeculativeConfig, gpt_adapter, llama_adapter)
+from .kv_cache import (BlockPool, CacheExhaustedError, PrefixCache, kv_append,
+                       kv_copy, kv_gather)
 
 __all__ = ["BlockPool", "BucketLadder", "CacheExhaustedError", "ModelAdapter",
-           "Request", "SLOQueue", "SamplingParams", "ServingEngine",
-           "gpt_adapter", "kv_append", "kv_gather", "pad_batch", "pad_tokens"]
+           "PrefixCache", "Request", "SLOQueue", "SamplingParams",
+           "ServingEngine", "SpeculativeConfig", "chunk_spans", "gpt_adapter",
+           "kv_append", "kv_copy", "kv_gather", "llama_adapter", "pad_batch",
+           "pad_tokens"]

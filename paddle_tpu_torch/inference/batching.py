@@ -3,20 +3,21 @@
 Counterpart: ``paddle_tpu/inference/batching.py`` — a copy of that
 numpy-only module (the port imports nothing of ``paddle_tpu``). The
 engine pads prompts to a prefill bucket and the decode batch to a batch
-bucket, so the card sees a small fixed set of shapes; ``SLOQueue`` is
-the priority-banded, tenant-fair waiting line (one band until the SLO
-slice lands, see ROADMAP.md).
+bucket, so the card sees a small fixed set of shapes; ``chunk_spans``
+plans a chunked prefill; ``SLOQueue`` is the priority-banded,
+tenant-fair waiting line (one band until the SLO slice lands, see
+ROADMAP.md).
 """
 from __future__ import annotations
 
 import math
 from collections import deque
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["BucketLadder", "SLOQueue", "pad_batch", "pad_spatial_nchw",
-           "pad_tokens"]
+__all__ = ["BucketLadder", "SLOQueue", "chunk_spans", "pad_batch",
+           "pad_spatial_nchw", "pad_tokens"]
 
 
 class BucketLadder:
@@ -255,6 +256,20 @@ class SLOQueue:
             if any(self._bands[p][t] for t in self._order[p]):
                 return p
         return None
+
+
+def chunk_spans(n_tokens: int, chunk: int) -> List[Tuple[int, int]]:
+    """Fixed-stride chunk plan for chunked prefill: [(start, stop), ...]
+    covering [0, n_tokens) in strides of ``chunk``; only the last span
+    may be short. The engine pads each span up to the pow2 ladder capped
+    at ``chunk``, so the chunk shapes are bounded by the ladder."""
+    n_tokens, chunk = int(n_tokens), int(chunk)
+    if n_tokens < 1:
+        raise ValueError(f"chunk_spans over {n_tokens} tokens")
+    if chunk < 1:
+        raise ValueError(f"chunk size must be >= 1, got {chunk}")
+    return [(s, min(s + chunk, n_tokens))
+            for s in range(0, n_tokens, chunk)]
 
 
 def pad_batch(arr: np.ndarray, target: int) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Multi-token decode window with sampling on the device.
 
 Counterpart: ``paddle_tpu/inference/device_loop.py`` — ``decode_window``
-(:47-92); ``draft_window`` comes with speculative decoding (ROADMAP.md).
+(:47-92) and the speculative draft loop ``draft_window`` (:95-118).
 
 Where the reference runs one compiled ``lax.scan``, the port runs a
 Python loop of k decode steps whose tensors stay on the card: each step
@@ -33,7 +33,7 @@ import torch
 from ..nn.functional.sampling import (categorical_math, derive_key,
                                       greedy_math, uniform)
 
-__all__ = ["decode_window", "window_uniforms"]
+__all__ = ["decode_window", "draft_window", "window_uniforms"]
 
 
 def window_uniforms(seeds: torch.Tensor, counts: torch.Tensor,
@@ -85,4 +85,28 @@ def decode_window(decode_fn, params, k_pool, v_pool, tokens, positions,
         tok = torch.where(done, tok, nxt)
         pos = torch.where(done, pos, pos + 1)
         done, cnt = done2, cnt2
+    return torch.stack(outs, dim=1), k_pool, v_pool
+
+
+def draft_window(decode_fn, params, k_pool, v_pool, tokens, positions,
+                 tables, limits, pad_block, k, block_size):
+    """k greedy decode steps of the speculative draft model, the tokens
+    kept on the card: every lane steps all k times; a step whose
+    position passes the lane's ``limits`` entry gets the pad block-table
+    row (its write goes to the trash slot), and positions are clamped to
+    the context window. tokens/positions/tables on the pools' device;
+    ``limits`` [B] int may live on the host. Returns ``(drafts [B, k]
+    int32 on the card, k_pool, v_pool)``; the caller reads the drafts
+    once."""
+    ctx = tables.shape[1] * block_size
+    limits = limits.to(tokens.device)
+    tok, pos = tokens, positions
+    outs = []
+    for _ in range(k):
+        bt = torch.where((pos > limits)[:, None], pad_block, tables)
+        logits, k_pool, v_pool = decode_fn(params, k_pool, v_pool, tok,
+                                           pos.clamp(max=ctx - 1), bt)
+        tok = greedy_math(logits)
+        outs.append(tok)
+        pos = pos + 1
     return torch.stack(outs, dim=1), k_pool, v_pool

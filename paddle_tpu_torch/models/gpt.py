@@ -3,9 +3,10 @@
 Counterpart: ``paddle_tpu/models/gpt.py``: ``GPTConfig`` / ``CONFIGS``
 (:39, :100), the Layer ``GPTForCausalLM`` (:116-205), the functional
 train step on one device (``init_hybrid_params`` :216 through
-``make_train_step`` :645) and the serving functions (:686-880). The
-pipeline, sequence-parallel, tensor-parallel and MoE branches (ROADMAP
-A10) and ``serving_chunk_step`` (A3) belong to later slices.
+``make_train_step`` :645) and the serving functions (:686-932, the
+fast path's ``serving_chunk_step`` included). The pipeline,
+sequence-parallel, tensor-parallel and MoE branches belong to a later
+slice (ROADMAP A10).
 
 ``GPTForCausalLM`` is an ``nn.Module`` holding the parameters under the
 reference Layer model's names (``gpt.wte.weight``,
@@ -39,7 +40,7 @@ the reference's ``checkpoint_name`` sites through ``_named`` and save
 the flash forward's ``(out, lse)``, and the fused MLP forward's output
 where the reference saves ``fc2_out``.
 
-The three serving functions share ``paged_attention_math`` as in the
+The serving functions share ``paged_attention_math`` as in the
 reference. ``serving_decode_step`` updates the pools IN PLACE and
 returns them; with ``FLAGS_serving_decode_kernel`` on and a B=1 bucket,
 each layer's attention + output projection is one ``decode_attn_proj``
@@ -61,7 +62,7 @@ from torch.utils import checkpoint as _ckpt
 
 from .._device import DeviceLike, resolve_device
 from ..core.flags import get_flag
-from ..inference.kv_cache import kv_append, kv_gather
+from ..inference.kv_cache import context_slots, kv_append, kv_gather
 from ..kernels._build import KERNEL_DTYPES
 from ..kernels.chunked_xent import chunked_softmax_xent
 from ..kernels.flash_attention import _MAX_HEAD_DIM, flash_attention_bshd
@@ -77,7 +78,8 @@ __all__ = ["GPTConfig", "CONFIGS", "GPTForCausalLM", "init_hybrid_params",
            "adamw_update", "init_opt_state", "make_train_step",
            "serving_params", "serving_params_from_numpy",
            "serving_forward_logits", "serving_prefill",
-           "serving_decode_step", "last_decode_kernel_path"]
+           "serving_decode_step", "serving_chunk_step",
+           "last_decode_kernel_path"]
 
 _BLOCK_PARAMS = ("ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
                  "ln2_g", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
@@ -396,7 +398,6 @@ def serving_decode_step(params, k_pool, v_pool, tokens, positions,
     (logits [B, V], k_pool, v_pool)."""
     global _LAST_DECODE_PATH
     B = tokens.shape[0]
-    MB = block_tables.shape[1]
     dev = tokens.device
     bt = block_tables
     pos = positions.long()
@@ -406,9 +407,7 @@ def serving_decode_step(params, k_pool, v_pool, tokens, positions,
     kmode = _decode_kernel_mode(B, dev, params["wte"].dtype,
                                 cfg.hidden_size // cfg.num_heads)
     if kmode is None:
-        ctx_i = torch.arange(MB * block_size, device=dev)
-        ctx_slots = bt[:, ctx_i // block_size].long() * block_size \
-            + (ctx_i % block_size)[None, :]
+        ctx_slots = context_slots(bt, block_size)
     for layer, bp in enumerate(params["blocks"]):
         kp, vp = k_pool[layer], v_pool[layer]
         q, k, v = _serving_qkv(bp, x, cfg)
@@ -429,6 +428,41 @@ def serving_decode_step(params, k_pool, v_pool, tokens, positions,
     _LAST_DECODE_PATH = "composite" if kmode is None else f"kernel/{kmode}"
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
     return x[:, 0] @ params["wte"].T, k_pool, v_pool
+
+
+def serving_chunk_step(params, k_pool, v_pool, ids, positions, slots,
+                       block_tables, cfg: GPTConfig, block_size: int):
+    """Multi-token paged-cache step: chunked prefill (B=1, Q a chunk
+    bucket) and speculative verify (B a batch bucket, Q = k+1).
+
+    ids/positions/slots [B, Q] int; block_tables [B, MB] int32. The
+    slots come from the host: pad rows and over-budget rows target the
+    trash row explicitly. Pad rows carry the position sentinel ctx,
+    clamped for the attention mask and the position table. Each row's
+    K/V lands in the pools (in place) before the context gather, so the
+    j <= pos mask admits exactly the logical prefix. Returns (logits
+    [B, Q, V], k_pool, v_pool)."""
+    B, Q = ids.shape
+    NH, D = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    ctx = block_tables.shape[1] * block_size
+    pos = positions.long()
+    pos_q = pos.clamp(max=ctx - 1)
+    flat_slots = slots.reshape(B * Q)
+    ctx_slots = context_slots(block_tables, block_size)
+    x = (params["wte"][ids.long()]
+         + params["wpe"][pos.clamp(max=params["wpe"].shape[0] - 1)])
+    for layer, bp in enumerate(params["blocks"]):
+        kp, vp = k_pool[layer], v_pool[layer]
+        q, k, v = _serving_qkv(bp, x, cfg)
+        kv_append(kp, k.reshape(B * Q, NH, D), flat_slots)
+        kv_append(vp, v.reshape(B * Q, NH, D), flat_slots)
+        attn = paged_attention_math(q, kv_gather(kp, ctx_slots),
+                                    kv_gather(vp, ctx_slots), pos_q,
+                                    1.0 / math.sqrt(D))
+        x = x + (attn.reshape(B, Q, -1) @ bp["proj_w"] + bp["proj_b"])
+        x = _serving_mlp(bp, x)
+    x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
+    return x @ params["wte"].T, k_pool, v_pool
 
 
 # ---------------------------------------------------------------------------

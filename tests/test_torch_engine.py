@@ -159,9 +159,7 @@ def test_reject_shed_timeout_paths_are_leak_free_with_spans(models):
     assert eng2.stats()["shed"] == 1 and eng2.stats()["timed_out"] == 1
 
 
-@pytest.mark.parametrize("kw", [dict(prefill_chunk=4), dict(prefix_cache=True),
-                                dict(speculative=object()),
-                                dict(num_priorities=2),
+@pytest.mark.parametrize("kw", [dict(num_priorities=2),
                                 dict(deadline_percentile=0.5),
                                 dict(xprio_preempt_steps=3),
                                 dict(watchdog=object())],
