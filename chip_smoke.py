@@ -318,6 +318,40 @@ Phases, one line each; any failure raises and exits non-zero:
    speculative engines give identical greedy streams, and a chunked
    prefill's last logits row is within 2e-5 x max|logit| of the whole
    prefill's;
+43. the ppyoloe-s eval stream of bench.py's bench_ppyoloe (random weights
+   from a seed, f32, eval mode, eagerly under torch.no_grad(), B=1): the
+   48 images of mixed sizes 416-640 drawn by np.random.default_rng(0),
+   zero-padded by pad_spatial_nchw to the ladder [448, 512, 576, 640];
+   every distinct image's scores and boxes checked; two passes of the
+   stream chained through one accumulator and synced once; each bucket's
+   steady ms over 24 chained repetitions, the bucket-mix expectation and
+   stream_vs_bucket_agreement; ms an image, images/s, peak memory, a
+   profiled pass (busy, idle, aten calls and CUDA launches an image);
+   post_process (matrix NMS over 8400 boxes, 80 classes) on one 640^2
+   image with its detection count; no kernel of the port runs (eval
+   BatchNorm is dense);
+44. train ppyoloe-l (random weights from a seed, f32, full width and
+   depth) through PPYOLOE.loss and Momentum(0.01, momentum=0.9,
+   weight_decay=5e-4) at B=8, 640^2 on one fixed synthetic batch (8 gt
+   boxes an image, 2 padding rows labelled -1): one warm-up step, whose
+   running statistics are held to Paddle's rule, then 8 steps; finite
+   losses, the last below the warm-up's; exactly 35 fused_bn_fwd and 35
+   fused_bn_bwd op calls a step (no residual, no ReLU); ms/step,
+   images/s, model TFLOP/s, peak memory, the card's clocks; the dense
+   BatchNorm (FLAGS_fused_norm off) in turns with the fused step; a
+   profile of 2 steps;
+45. the fused BatchNorm kernels against their plain versions at
+   PP-YOLOE's shapes (N=8: the stem's [8, 32, 102400], the stride-8
+   level's [8, 128, 6400], the last stage's [8, 512, 400]; no residual,
+   no ReLU), f32 and bf16, phase 27's per-case checks; the stem's shape
+   timed in f32 beside the plain versions, the bound and F.batch_norm
+   with its autograd backward;
+46. parity in fp32 (TF32 off) at ppyoloe-s's full width on 2 images of
+   256^2: the loss, every gradient, the running statistics, the state
+   after one Momentum step, the eval scores and boxes and post_process's
+   rows and count with the kernels on the card against the port's CPU
+   route from the same weights and batch, each within 3x the CPU route's
+   own f32-against-f64 reading;
 then the card's name and power limit again, the kernels' JSON line and
 the final status line. Every kernel time is device time (cuda_ms: the
 calls queued behind a spin of the card, so the host's launch rate does
@@ -3817,7 +3851,8 @@ def phase_profile_bert(torch, step, steps=2):
     froutes = mlp_fwd_routes_reading(counts, "bert-base profile")
     lroutes = ln_bwd_routes_reading(counts, "bert-base profile")
     spans, dev = {}, []
-    for e in prof.key_averages():
+    events = prof.key_averages()
+    for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             if e.key == "adamw_step":
                 spans[e.key] = e.self_device_time_total / 1e3 / steps
@@ -4663,27 +4698,39 @@ def phase_bn_vs_plain(torch, timed=True):
     """The forward and backward custom ops (``fused_bn_fwd``,
     ``fused_bn_bwd``: the kernels' wrappers, which the training step
     reaches through ``fused_batch_norm_train``) against their plain
-    versions (y, mean, var, dx, dres, dw, db) at the resnet50 B=256 shapes
-    of BN_CASES, f32 and bf16, the backward with cotangents of the mean
-    and var outputs. The backward's plain version takes the kernel's mean
-    and var, as the backward does; where the kernel's ReLU gate (y > 0)
-    and the plain version's (its pre-activation > 0) differ, dx differs
-    by a·g, so such elements are counted and left out of the dx
-    comparison (at most 1e-6 of the elements, each with |pre| within
-    2^-20 of the largest). Two backward calls give the same bits. The
-    gate: dres is g where the kernel's y is above 0 and 0 elsewhere, bit
-    for bit. Autograd through ``fused_batch_norm_train`` at layer 1's bn3
-    in bf16 (bf16 w and b, as the model holds them) against the plain
-    versions and bitwise against the ops; the check shown to reject a
-    forward without the residual, a forward missing its first reduction
-    part and a backward missing its first reduction part. Then the times
-    of layer 1's bn3 and the stem's BN."""
+    versions at the resnet50 B=256 shapes of BN_CASES (bn_cases_vs_plain).
+    Autograd through ``fused_batch_norm_train`` at layer 1's bn3 in bf16
+    (bf16 w and b, as the model holds them) against the plain versions
+    and bitwise against the ops; the check shown to reject a forward
+    without the residual, a forward missing its first reduction part and
+    a backward missing its first reduction part. Then the times of layer
+    1's bn3 and the stem's BN."""
     from paddle_tpu_torch.kernels import norm_fusion as nf
+    out = bn_cases_vs_plain(torch, nf, BN_CASES, BN_N)
+    out.update(autograd_bf16=bn_autograd(torch, nf),
+               wrong_kernel_reading=bn_check_rejects(torch, nf))
+    if timed:
+        out["times"] = {"layer1.bn3": bn_times(torch, nf, 256, 3136, True),
+                        "stem": bn_times(torch, nf, 64, 12544, False)}
+    return out
+
+
+def bn_cases_vs_plain(torch, nf, cases, n):
+    """Each (name, C, HW, relu, residual) of ``cases`` at ``n`` images, f32
+    and bf16: the ops' y, mean, var, dx, dres, dw, db against their plain
+    versions, the backward with cotangents of the mean and var outputs.
+    The backward's plain version takes the kernel's mean and var, as the
+    backward does; where the kernel's ReLU gate (y > 0) and the plain
+    version's (its pre-activation > 0) differ, dx differs by a·g, so such
+    elements are counted and left out of the dx comparison (at most 1e-6
+    of the elements, each with |pre| within 2^-20 of the largest). Two
+    backward calls give the same bits. The gate: dres is g where the
+    kernel's y is above 0 and 0 elsewhere, bit for bit."""
     worst, flips = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for case, c, hw, relu, has_res in BN_CASES:
-            x = bn_inputs(torch, BN_N, c, hw, dtype, c + hw, has_res)
+        for case, c, hw, relu, has_res in cases:
+            x = bn_inputs(torch, n, c, hw, dtype, c + hw, has_res)
             xx, res, w, b, g = (x[k] for k in ("x", "res", "w", "b", "g"))
             y, mean, var = nf.fused_bn_fwd(xx, res, w, b, BN_EPS, relu)
             grads = nf.fused_bn_bwd(xx, res, w, b, mean, var, g, x["gmean"],
@@ -4740,19 +4787,13 @@ def phase_bn_vs_plain(torch, timed=True):
             del x, xx, res, w, b, g, y, mean, var, grads, again, dx, dres
             del dw, db, ry, rmean, rvar, rdx, rgate, rdw, rdb, outs, keep
             torch.cuda.empty_cache()
-    out = dict(tolerance_relative_to_max=dict(rows=BN_TOL,
-                                              statistics=BN_STAT_TOL),
-               worst={n: {k: dict(max_abs_err=e, relative=r)
-                          for k, (e, r) in w.items()}
-                      for n, w in worst.items()},
-               gate_flips_left_out_of_dx=flips, images=BN_N,
-               cases=[list(c) for c in BN_CASES],
-               autograd_bf16=bn_autograd(torch, nf),
-               wrong_kernel_reading=bn_check_rejects(torch, nf))
-    if timed:
-        out["times"] = {"layer1.bn3": bn_times(torch, nf, 256, 3136, True),
-                        "stem": bn_times(torch, nf, 64, 12544, False)}
-    return out
+    return dict(tolerance_relative_to_max=dict(rows=BN_TOL,
+                                               statistics=BN_STAT_TOL),
+                worst={d: {k: dict(max_abs_err=e, relative=r)
+                           for k, (e, r) in w.items()}
+                       for d, w in worst.items()},
+                gate_flips_left_out_of_dx=flips, images=n,
+                cases=[list(c) for c in cases])
 
 
 def bn_autograd(torch, nf):
@@ -4835,26 +4876,26 @@ def bn_check_rejects(torch, nf):
     return {k: dict(reading=r, tolerance=t) for k, (r, t) in readings.items()}
 
 
-def bn_times(torch, nf, c, hw, res):
-    """Device times at [256, C, HW] bf16 with ReLU (and the residual): each
-    op in turns with its plain version; the library yardstick (never
-    called by the port) is F.batch_norm(x, None, None, w, b,
-    training=True) → + res → relu with f32 w and b, and its autograd
-    backward."""
-    x = bn_inputs(torch, BN_N, c, hw, torch.bfloat16, 41, res)
+def bn_times(torch, nf, c, hw, res, n=BN_N, dtype="bfloat16", relu=True):
+    """Device times at [n, C, HW] in ``dtype`` with ReLU (and the
+    residual) as asked: each op in turns with its plain version; the
+    library yardstick (never called by the port) is F.batch_norm(x, None,
+    None, w, b, training=True) → + res → relu with f32 w and b, and its
+    autograd backward."""
+    x = bn_inputs(torch, n, c, hw, getattr(torch, dtype), 41, res)
     xx, r, w, b, g = (x[k] for k in ("x", "res", "w", "b", "g"))
-    y, mean, var = nf.fused_bn_fwd(xx, r, w, b, BN_EPS, True)
+    y, mean, var = nf.fused_bn_fwd(xx, r, w, b, BN_EPS, relu)
     runs = {
         "fused_bn_fwd": (
-            lambda _: nf.fused_bn_fwd(xx, r, w, b, BN_EPS, True),
-            lambda _: nf.fused_bn_fwd_ref(xx, r, w, b, BN_EPS, True)),
+            lambda _: nf.fused_bn_fwd(xx, r, w, b, BN_EPS, relu),
+            lambda _: nf.fused_bn_fwd_ref(xx, r, w, b, BN_EPS, relu)),
         "fused_bn_bwd": (
             lambda _: nf.fused_bn_bwd(xx, r, w, b, mean, var, g, None, None,
-                                      BN_EPS, True),
+                                      BN_EPS, relu),
             lambda _: nf.fused_bn_bwd_ref(xx, r, w, b, mean, var, g, None,
-                                          None, BN_EPS, True)),
+                                          None, BN_EPS, relu)),
     }
-    bounds = bn_bounds(BN_N, c, hw, 2, res)
+    bounds = bn_bounds(n, c, hw, xx.element_size(), res)
     out = {}
     for name, (kern, plain) in runs.items():
         plain_ms, ms, t = in_turns(plain, kern)
@@ -4864,7 +4905,8 @@ def bn_times(torch, nf, c, hw, res):
 
     def library(xx, rr, ww, bb):
         yy = batch_norm(xx, None, None, ww, bb, training=True, eps=BN_EPS)
-        return torch.relu(yy if rr is None else yy + rr)
+        yy = yy if rr is None else yy + rr
+        return torch.relu(yy) if relu else yy
 
     out["fused_bn_fwd"]["library_ms"], _, _ = in_turns(
         lambda _: library(xx, r, w, b), runs["fused_bn_fwd"][0])
@@ -4875,8 +4917,8 @@ def bn_times(torch, nf, c, hw, res):
     out["fused_bn_bwd"]["library_ms"], _, _ = in_turns(
         lambda _: torch.autograd.grad(yl, leaves, g, retain_graph=True),
         runs["fused_bn_bwd"][0])
-    out["timed_at"] = dict(shape=[BN_N, c, hw], dtype="bfloat16",
-                           residual=res, relu=True)
+    out["timed_at"] = dict(shape=[n, c, hw], dtype=dtype, residual=res,
+                           relu=relu)
     del x, xx, r, w, b, g, y, mean, var, prim, rg, yl, leaves
     torch.cuda.empty_cache()
     return out
@@ -4996,13 +5038,14 @@ class BnRecorder:
         (self.lnorm.batch_norm_act, self.lnorm.batch_norm,
          self.fnorm.fused_batch_norm_train) = self._saved
 
-    def running_stats_reading(self, torch):
+    def running_stats_reading(self, torch, calls=RESNET_BNS):
         """Each BN's running stats after the step against Paddle's rule
-        m·before + (1 − m)·batch, m = 0.9, the biased batch variance:
-        the largest relative difference (rtol 1e-6)."""
-        check(len(self.calls) == len(self.stats) == RESNET_BNS,
+        m·before + (1 − m)·batch, m = 0.9 (the layers' default), the
+        biased batch variance: the largest relative difference (rtol
+        1e-6). ``calls``: the BN calls the step makes."""
+        check(len(self.calls) == len(self.stats) == calls,
               f"{len(self.calls)} BN calls, {len(self.stats)} fused, want "
-              f"{RESNET_BNS}")
+              f"{calls}")
         worst = 0.0
         for call, (mean, var) in zip(self.calls, self.stats):
             for now, before, batch in ((call["rm"], call["rm0"], mean),
@@ -5094,11 +5137,12 @@ def phase_train_resnet(torch, fused, steps=TRAIN_STEPS):
 
 
 def phase_profile_resnet(torch, step, steps=2):
-    """torch.profiler over `steps` resnet50 steps: device busy time per
-    step against the profiled wall time, the BN kernels' share, the
-    convolutions' (every other kernel whose name says conv, gemm or a
-    cuDNN/CUTLASS tile), the Momentum span and the kernels that take the
-    time."""
+    """torch.profiler over `steps` steps of a convolutional model (resnet50,
+    ppyoloe-l): device busy time per step against the profiled wall time,
+    the host's aten calls (nested ones included) and CUDA launches a step,
+    the BN kernels' share, the convolutions' (every other kernel whose
+    name says conv, gemm or a cuDNN/CUTLASS tile), the Momentum span and
+    the kernels that take the time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -5110,7 +5154,8 @@ def phase_profile_resnet(torch, step, steps=2):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, dev = {}, []
-    for e in prof.key_averages():
+    events = prof.key_averages()
+    for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             if e.key == "momentum_step":
                 spans[e.key] = e.self_device_time_total / 1e3 / steps
@@ -5132,9 +5177,14 @@ def phase_profile_resnet(torch, step, steps=2):
     by_group["the rest (pooling, copies, casts, the loss, Momentum's ops)"] = (
         busy_ms / steps - sum(by_group.values()))
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
+    aten = sum(e.count for e in events if e.key.startswith("aten::"))
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunch")))
     return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
                 device_busy_ms_per_step=busy_ms / steps,
                 device_idle_share=1.0 - busy_ms / wall_ms,
+                aten_calls_per_step=aten / steps,
+                cuda_launches_per_step=launches / steps,
                 kernels_ms_per_step=by_group,
                 kernels_share_of_busy={g: t * steps / busy_ms
                                        for g, t in by_group.items()},
@@ -5706,6 +5756,547 @@ def phase_fastpath_parity_fp32(torch, device=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 43-46: PP-YOLOE: the mixed-size eval stream of bench.py's
+# bench_ppyoloe (ppyoloe-s), detector training (ppyoloe-l) on the fused
+# BatchNorm kernels (15-18), the kernels at its shapes, f32 parity
+# ---------------------------------------------------------------------------
+
+PPYOLOE_LADDER = (448, 512, 576, 640)                  # bench.py:782
+PPYOLOE_SIZES = (416, 480, 512, 544, 576, 608, 640)    # bench.py:820
+PPYOLOE_IMAGES, PPYOLOE_BUCKET_REPS = 48, 24           # bench.py:762, :848
+PPYOLOE_B, PPYOLOE_HW = 8, 640
+PPYOLOE_GTS, PPYOLOE_PADDED = 8, 2       # gt boxes an image, then padding
+PPYOLOE_LR, PPYOLOE_MOMENTUM, PPYOLOE_DECAY = 0.01, 0.9, 5e-4
+PPYOLOE_STEPS, PPYOLOE_TURN_STEPS = 8, 5
+# ConvBNLayers a forward: ppyoloe-l 2 stem + 3 x (1 + 6 CSP) + 6 neck + 6
+# head; ppyoloe-s the same with one block a CSP stage, 3 x (1 + 4)
+PPYOLOE_BNS = {"ppyoloe-l": 35, "ppyoloe-s": 29}
+# (name, C, HW, relu, residual) at N = 8, 640^2: the stem's first BN
+# (320^2), the stride-8 level (80^2) and the last stage (20^2); no
+# residual, no ReLU (the SiLU follows outside the kernels)
+PPYOLOE_BN_CASES = [("stem", 32, 102400, False, False),
+                    ("stride8", 128, 6400, False, False),
+                    ("stage3", 512, 400, False, False)]
+PPYOLOE_KEEP_TOP_K = 100
+PPYOLOE_PP_HW = 640                  # post_process: k = M = 8400 boxes
+PPYOLOE_PARITY_B, PPYOLOE_PARITY_HW = 2, 256
+
+
+def ppyoloe_stream(torch, ladder, n=PPYOLOE_IMAGES, seed=0):
+    """bench.py:819-826's stream on the card: sizes drawn by
+    np.random.default_rng(seed).choice over PPYOLOE_SIZES, then one
+    standard_normal image for each distinct size (in sorted order, from
+    the same generator), zero-padded to its bucket by pad_spatial_nchw."""
+    from paddle_tpu_torch.inference.batching import pad_spatial_nchw
+    rng = np.random.default_rng(seed)
+    sizes = rng.choice(list(PPYOLOE_SIZES), size=n)
+    imgs = {}
+    for s in sorted(set(sizes)):
+        img = rng.standard_normal((1, 3, s, s)).astype(np.float32)
+        imgs[int(s)] = torch.from_numpy(
+            pad_spatial_nchw(img, ladder.bucket_for(s))).cuda()
+    return [int(s) for s in sizes], imgs
+
+
+def chained_ms(torch, eval_step, xs):
+    """Host ms an image of eval_step over xs, every output's mean folded
+    into one accumulator read once at the end (bench.py:828-845): the
+    window holds every execution, with one sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tot = None
+    for x in xs:
+        scores, _ = eval_step(x)
+        m = scores.mean()
+        tot = m if tot is None else tot + m
+    float(tot)
+    return (time.perf_counter() - t0) * 1e3 / len(xs)
+
+
+def check_detections(torch, scores, boxes, hw, nc, what):
+    """Finite scores in [0, 1] of [B, P, nc] and finite boxes of [B, P, 4]
+    with x2 >= x1, y2 >= y1 (the softplus distances), P from the strides."""
+    p = sum((hw // s) ** 2 for s in (8, 16, 32))
+    check(tuple(scores.shape[1:]) == (p, nc)
+          and tuple(boxes.shape[1:]) == (p, 4),
+          f"{what}: scores {tuple(scores.shape)}, boxes {tuple(boxes.shape)}")
+    check(bool(torch.isfinite(scores).all() & torch.isfinite(boxes).all()),
+          f"{what}: outputs not finite")
+    check(bool(((scores >= 0) & (scores <= 1)).all()),
+          f"{what}: scores outside [0, 1]")
+    check(bool((boxes[..., 2] >= boxes[..., 0]).all()
+               & (boxes[..., 3] >= boxes[..., 1]).all()),
+          f"{what}: a box with x2 < x1 or y2 < y1")
+
+
+def profile_window(torch, fn, units):
+    """torch.profiler over fn() (``units`` images or steps): device busy
+    ms, wall ms, idle share, the host's aten calls (nested ones included)
+    and CUDA launches, each per unit, and the ten costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    if busy_ms == 0.0:
+        return dict(units=units, device_time="not measured (no CUDA events)")
+    aten = sum(e.count for e in events if e.key.startswith("aten::"))
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunch")))
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
+    return dict(units=units, wall_ms_per_unit=wall_ms / units,
+                device_busy_ms_per_unit=busy_ms / units,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                aten_calls_per_unit=aten / units,
+                cuda_launches_per_unit=launches / units,
+                top_device_ms_per_unit=[
+                    (e.key[:70], e.self_device_time_total / 1e3 / units,
+                     e.count / units) for e in top[:10]])
+
+
+def phase_ppyoloe_eval_stream(torch):
+    """bench.py:762-884's protocol on the card, eagerly under
+    torch.no_grad() (jit.to_static is ROADMAP A9): ppyoloe-s (random
+    weights from seed 0, f32, eval mode: the dense eval BatchNorm, no
+    kernel of the port) at B=1 over the 48-image mixed-size stream on the
+    ladder [448, 512, 576, 640]: each bucket's first call (cuDNN's
+    algorithm choice: the reference's compile), every distinct image's
+    outputs checked, the stream twice, chained through one accumulator
+    and synced once; each bucket's steady ms over 24 chained repetitions;
+    the bucket-mix expectation and stream_vs_bucket_agreement; a profiled
+    pass of the stream (busy, idle, aten calls and CUDA launches an
+    image); then post_process (matrix NMS over 8400 boxes and 80 classes)
+    on one 640^2 image."""
+    from paddle_tpu_torch.inference.batching import BucketLadder
+    from paddle_tpu_torch.models import ppyoloe
+    from paddle_tpu_torch.vision.ops import matrix_nms
+    ladder = BucketLadder(PPYOLOE_LADDER)
+    buckets = list(ladder)
+    cfg = ppyoloe.CONFIGS["ppyoloe-s"]
+    net = ppyoloe.PPYOLOE(cfg, seed=0)
+    net.eval()
+
+    def eval_step(x):
+        with torch.no_grad():
+            return net(x)
+
+    t0 = time.perf_counter()
+    for b in buckets:
+        scores, _ = eval_step(torch.zeros(1, 3, b, b, device="cuda"))
+    float(scores.ravel()[0])
+    first_call_s = time.perf_counter() - t0
+    sizes, imgs = ppyoloe_stream(torch, ladder)
+    for s, x in imgs.items():
+        scores, boxes = eval_step(x)
+        check_detections(torch, scores, boxes, ladder.bucket_for(s),
+                         cfg.num_classes, f"ppyoloe-s eval at {s}^2")
+    stream = [imgs[s] for s in sizes]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    passes = [chained_ms(torch, eval_step, stream) for _ in range(2)]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = read_launches()
+    check(not any(counts.values()), f"the eval stream launched {counts}")
+    per_bucket = {}
+    for b in buckets:
+        x = torch.zeros(1, 3, b, b, device="cuda")
+        eval_step(x)
+        per_bucket[str(b)] = chained_ms(torch, eval_step,
+                                        [x] * PPYOLOE_BUCKET_REPS)
+    mix_ms = float(np.mean([per_bucket[str(ladder.bucket_for(s))]
+                            for s in sizes]))
+    dt = min(passes)
+    prof = profile_window(torch, lambda: chained_ms(torch, eval_step, stream),
+                          len(stream))
+    # post_process on one 640^2 image: the forward, then matrix NMS over
+    # every box (k = M = 8400) and 80 classes
+    g = torch.Generator(device="cuda").manual_seed(7)
+    hw = PPYOLOE_PP_HW
+    x640 = torch.randn(1, 3, hw, hw, generator=g, device="cuda")
+    with torch.no_grad():
+        rows, n = net.post_process(x640, keep_top_k=PPYOLOE_KEEP_TOP_K)
+        scores, boxes = net(x640)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        pp_ms, nms_ms = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            rows, n = net.post_process(x640, keep_top_k=PPYOLOE_KEEP_TOP_K)
+            int(n)
+            pp_ms.append((time.perf_counter() - t0) * 1e3)
+        pp_peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+        for _ in range(5):
+            t0 = time.perf_counter()
+            _, n2 = matrix_nms(boxes[0], scores[0].transpose(0, 1),
+                               score_threshold=0.3, post_threshold=0.3,
+                               keep_top_k=PPYOLOE_KEEP_TOP_K)
+            int(n2)
+            nms_ms.append((time.perf_counter() - t0) * 1e3)
+    k = scores.shape[1]
+    count = int(n)
+    check(rows.shape == (PPYOLOE_KEEP_TOP_K, 6) and 0 < count
+          <= PPYOLOE_KEEP_TOP_K and bool(torch.isfinite(rows).all())
+          and bool(((rows[:count, 0] >= 0)
+                    & (rows[:count, 0] < cfg.num_classes)).all())
+          and bool((rows[count:] == 0).all()),
+          f"post_process at {hw}^2: rows {tuple(rows.shape)}, count {count}")
+    out = dict(config="ppyoloe-s", dtype="float32",
+               allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+               cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+               mode="eager, eval, torch.no_grad(), B=1",
+               parameters=sum(p.numel() for p in net.parameters()),
+               buckets=buckets, images=len(sizes),
+               images_per_bucket={str(b): sum(ladder.bucket_for(s) == b
+                                              for s in sizes)
+                                  for b in buckets},
+               first_call_per_bucket_s=first_call_s,
+               eval_ms_per_image=dt, images_per_s=1e3 / dt,
+               pass_ms_per_image=passes, per_bucket_steady_ms=per_bucket,
+               bucket_reps=PPYOLOE_BUCKET_REPS,
+               bucket_mix_expected_ms=mix_ms,
+               stream_vs_bucket_agreement=dt / mix_ms,
+               sync="dependency-chained, one sync a pass",
+               peak_memory_gb=peak_gb, kernel_launches=counts,
+               profile_of_one_pass=prof,
+               post_process=dict(
+                   image=hw, boxes=k, classes=cfg.num_classes,
+                   ms=min(pp_ms), all_ms=pp_ms, matrix_nms_ms=min(nms_ms),
+                   detections=count, keep_top_k=PPYOLOE_KEEP_TOP_K,
+                   peak_above_weights_and_input_gb=pp_peak_gb,
+                   kk_f32_tensor_gb=k * k * 4 / 1e9,
+                   kk2_f32_tensor_gb=k * k * 8 / 1e9,
+                   # lt, rb, rb - lt and wh live at once: 4 [k, k, 2]
+                   reckoned_nms_peak_gb=4 * k * k * 8 / 1e9))
+    del net, imgs, stream
+    return out
+
+
+def ppyoloe_batch(torch, b, hw, seed):
+    """One fixed detection batch from the seed: images N(0, 1);
+    PPYOLOE_GTS gt boxes an image inside it (top-left corners in the first
+    three quarters, sides 16 px to half the image, clipped to it), labels
+    in [0, 80); then PPYOLOE_PADDED padding rows (the whole image,
+    label -1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, 3, hw, hw, generator=g, device="cuda")
+    xy = torch.rand(b, PPYOLOE_GTS, 2, generator=g, device="cuda") * (
+        hw * 0.75)
+    wh = 16 + torch.rand(b, PPYOLOE_GTS, 2, generator=g, device="cuda") * (
+        hw * 0.5 - 16)
+    real = torch.cat([xy, torch.clamp(xy + wh, max=float(hw))], -1)
+    pad = torch.tensor([0.0, 0.0, hw, hw], device="cuda").expand(
+        b, PPYOLOE_PADDED, 4)
+    labels = torch.randint(0, 80, (b, PPYOLOE_GTS + PPYOLOE_PADDED),
+                           generator=g, device="cuda")
+    labels[:, PPYOLOE_GTS:] = -1
+    return x, torch.cat([real, pad], 1), labels
+
+
+def ppyoloe_trainer(torch, name, b, hw, seed=0):
+    """The user's loop: PPYOLOE(CONFIGS[name]) on the card in f32,
+    Momentum(0.01, momentum=0.9, weight_decay=5e-4) over its parameters
+    (PaddleDetection's PP-YOLOE recipe), model.loss(images, gt_boxes,
+    gt_labels) → backward → step → clear_grad on one fixed batch. Returns
+    (net, step); step() → (loss, the CUDA events around the Momentum
+    update)."""
+    from paddle_tpu_torch.models import ppyoloe
+    from paddle_tpu_torch.optimizer import Momentum
+    net = ppyoloe.PPYOLOE(ppyoloe.CONFIGS[name], seed=seed)
+    opt = Momentum(learning_rate=PPYOLOE_LR, momentum=PPYOLOE_MOMENTUM,
+                   weight_decay=PPYOLOE_DECAY, parameters=net.parameters())
+    x, boxes, labels = ppyoloe_batch(torch, b, hw, seed)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def step():
+        loss = net.loss(x, boxes, labels)
+        loss.backward()
+        ev[0].record()
+        with torch.profiler.record_function("momentum_step"):
+            opt.step()
+        ev[1].record()
+        opt.clear_grad()
+        return loss.detach(), ev
+
+    return net, step
+
+
+def timed_steps(torch, step, steps):
+    """`steps` steps on the host clock, synced at the end: (ms a step,
+    the losses, the Momentum update's device ms a step)."""
+    losses, momentum_ms = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss, ev = step()
+        losses.append(loss)
+        ev[1].synchronize()
+        momentum_ms.append(ev[0].elapsed_time(ev[1]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return ms, [float(v) for v in losses], sum(momentum_ms) / steps
+
+
+def phase_train_ppyoloe(torch):
+    """Train ppyoloe-l (random weights from a seed, f32, full width and
+    depth) at B=8, 640^2 on one fixed synthetic batch: one warm-up step
+    (its running statistics held to Paddle's rule, its batch statistics
+    from the fused route), then 8 steps: finite losses, the last below the
+    warm-up's; exactly 35 fused_bn_fwd and 35 fused_bn_bwd op calls a
+    step (one per ConvBNLayer, counted in the model) and no other kernel;
+    ms a step, images/s, model TFLOP/s (convolutions from the shapes, x3),
+    peak memory, the BN kernels' summed bound and the card's clocks; then
+    the dense yardstick (FLAGS_fused_norm off) in turns with the fused
+    step on the same model (fused, dense, dense, fused; 5 timed steps a
+    turn after one untimed), then a profile of 2 dense steps and of 2
+    fused ones."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.models.ppyoloe import ConvBNLayer
+    from paddle_tpu_torch.nn.functional import last_norm_path
+    name = "ppyoloe-l"
+    set_flags({"FLAGS_fused_norm": True})
+    net, step = ppyoloe_trainer(torch, name, PPYOLOE_B, PPYOLOE_HW)
+    bns = sum(isinstance(m, ConvBNLayer) for m in net.modules())
+    check(bns == PPYOLOE_BNS[name], f"{name} has {bns} ConvBNLayers, want "
+          f"{PPYOLOE_BNS[name]}")
+    flops = resnet_flops_per_image(torch, net, PPYOLOE_HW) * PPYOLOE_B * 3
+    with BnRecorder() as rec:
+        loss0, _ = step()
+    stats_reading = rec.running_stats_reading(torch, bns)
+    bn_bound = rec.bound_ms(4)
+    del rec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with ClockSampler() as clocks:
+        ms, losses, momentum_ms = timed_steps(torch, step, PPYOLOE_STEPS)
+    counts = read_launches()
+    path = last_norm_path()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss0 = float(loss0)
+    check(all(np.isfinite(losses)) and np.isfinite(loss0),
+          f"{name} loss not finite: {loss0}, {losses}")
+    check(losses[-1] < loss0, f"{name} loss did not fall: {loss0} -> "
+          f"{losses}")
+    check(path == "fused_bn/cuda", f"{name} took the norm path {path}")
+    for key, n in counts.items():
+        want = bns * PPYOLOE_STEPS if key.startswith("fused_bn") else 0
+        check(n == want, f"{key} launched {n} times in {PPYOLOE_STEPS} "
+              f"{name} steps (want {want})")
+    turns = []
+    for fused in (True, False, False, True):
+        set_flags({"FLAGS_fused_norm": fused})
+        step()
+        reset_launches()
+        t_ms, t_losses, _ = timed_steps(torch, step, PPYOLOE_TURN_STEPS)
+        t_counts = read_launches()
+        want = bns * PPYOLOE_TURN_STEPS if fused else 0
+        check(t_counts["fused_bn_fwd"] == t_counts["fused_bn_bwd"] == want
+              and last_norm_path() == ("fused_bn/cuda" if fused else "dense")
+              and all(np.isfinite(t_losses)),
+              f"{name} turn fused={fused}: {t_counts}, {last_norm_path()}, "
+              f"{t_losses}")
+        turns.append(dict(fused_norm=fused, ms_per_step=t_ms,
+                          losses=t_losses))
+    fused_ms = min(turns[0]["ms_per_step"], turns[3]["ms_per_step"])
+    dense_ms = min(turns[1]["ms_per_step"], turns[2]["ms_per_step"])
+    set_flags({"FLAGS_fused_norm": False})
+    dense_prof = phase_profile_resnet(torch, step)
+    check(last_norm_path() == "dense", "the dense profile took the norm "
+          f"path {last_norm_path()}")
+    set_flags({"FLAGS_fused_norm": True})
+    prof = phase_profile_resnet(torch, step)
+    out = dict(config=name, b=PPYOLOE_B, hw=PPYOLOE_HW, dtype="float32",
+               allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+               cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+               gts_per_image=PPYOLOE_GTS, padded_rows=PPYOLOE_PADDED,
+               optimizer=dict(name="Momentum", lr=PPYOLOE_LR,
+                              momentum=PPYOLOE_MOMENTUM,
+                              weight_decay=PPYOLOE_DECAY),
+               last_norm_path=path, conv_bn_layers=bns,
+               warmup_loss=loss0, losses=losses, ms_per_step=ms,
+               images_per_s=PPYOLOE_B / (ms / 1e3),
+               model_tflop_per_step=flops / 1e12,
+               model_gflop_per_image_forward=flops / 3 / PPYOLOE_B / 1e9,
+               model_tflops=flops / (ms / 1e3) / 1e12,
+               model_flops_share_of_67_f32=flops / (ms / 1e3) / 67e12,
+               momentum_ms_per_step=momentum_ms, peak_memory_gb=peak_gb,
+               parameters=sum(p.numel() for p in net.parameters()),
+               running_stats_vs_paddle_rule=stats_reading,
+               bn_kernels_bound_ms_per_step=bn_bound,
+               card_during_steps=clocks.summary(), launches=counts,
+               launches_per_step={k: n / PPYOLOE_STEPS
+                                  for k, n in counts.items()},
+               in_turns=dict(turns=turns, fused_ms_per_step=fused_ms,
+                             dense_ms_per_step=dense_ms,
+                             dense_over_fused=dense_ms / fused_ms),
+               profile=prof, dense_profile=dense_prof)
+    del net, step
+    return out
+
+
+def phase_ppyoloe_bn_vs_plain(torch):
+    """Kernels 15-18 through their custom ops against their plain versions
+    at PP-YOLOE's shapes (PPYOLOE_BN_CASES, N=8: no residual, no ReLU), f32
+    and bf16, with phase 27's per-case checks (bn_cases_vs_plain); then
+    the stem's shape timed in f32 (the training path's dtype) beside the
+    plain versions, the bound and F.batch_norm with its autograd
+    backward."""
+    from paddle_tpu_torch.kernels import norm_fusion as nf
+    out = bn_cases_vs_plain(torch, nf, PPYOLOE_BN_CASES, PPYOLOE_B)
+    _, c, hw, relu, res = PPYOLOE_BN_CASES[0]
+    out["times"] = {"stem_f32": bn_times(torch, nf, c, hw, res, n=PPYOLOE_B,
+                                         dtype="float32", relu=relu)}
+    return out
+
+
+def ppyoloe_readings(torch, name, state, batch, dev, dtype, fused=True):
+    """One run of the parity protocol on ``dev`` in ``dtype`` from the
+    given weights, FLAGS_fused_norm as ``fused`` says: the train-mode
+    loss, every gradient and the running statistics after it, the
+    parameters and statistics after one Momentum step, then the eval
+    scores and boxes and post_process of the first image; with the kernel
+    counts and the norm path."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.models import ppyoloe
+    from paddle_tpu_torch.nn.functional import last_norm_path
+    from paddle_tpu_torch.optimizer import Momentum
+    set_flags({"FLAGS_fused_norm": fused})
+    net = ppyoloe.PPYOLOE(ppyoloe.CONFIGS[name], device=dev,
+                          dtype=dtype).load_numpy(state)
+    x, boxes, labels = (t.to(dev) for t in batch)
+    x, boxes = x.to(dtype), boxes.to(dtype)
+    opt = Momentum(learning_rate=PPYOLOE_LR, momentum=PPYOLOE_MOMENTUM,
+                   weight_decay=PPYOLOE_DECAY, parameters=net.parameters())
+    reset_launches()
+    loss = net.loss(x, boxes, labels)
+    loss.backward()
+    path = last_norm_path()
+    out = dict(loss=loss.item(), path=path)
+    out["grads"] = {n: p.grad.detach().double().cpu()
+                    for n, p in net.named_parameters()}
+    out["stats"] = {n: b.detach().double().cpu()
+                    for n, b in net.named_buffers()}
+    opt.step()
+    opt.clear_grad()
+    out["state"] = {n: t.detach().double().cpu()
+                    for n, t in net.state_dict().items()}
+    net.eval()
+    with torch.no_grad():
+        scores, boxes_out = net(x)
+        rows, n = net.post_process(x[:1])
+    out["launches"] = read_launches()
+    set_flags({"FLAGS_fused_norm": True})
+    out.update(scores=scores.double().cpu(), boxes=boxes_out.double().cpu(),
+               rows=rows.double().cpu(), count=int(n))
+    return out
+
+
+def phase_ppyoloe_parity_fp32(torch):
+    """f32 parity at ppyoloe-s's full width on 2 images of 256^2 (TF32
+    off): the card (the BN kernels: 29 + 29 calls) against the port's CPU
+    route (the kernels' plain versions) from the same weights and batch,
+    each against the port's f64 route on the CPU (the dense BatchNorm).
+    The card's convolutions are cuDNN's, the CPU's oneDNN's, so the yard
+    is the larger of the two f32 routes' own distances from f64 that do
+    not run the kernels: the CPU's and the card's dense BatchNorm
+    (FLAGS_fused_norm off). As in phase 31: each reading of the card's
+    kernels, against the CPU and against f64, within 3x that yard plus
+    1e-6 of the reading's scale: the loss, every gradient as one vector
+    (relative L2), the running statistics after the forward and the
+    parameters and statistics after one Momentum step (largest relative
+    difference per tensor), the eval scores and boxes (largest
+    difference), post_process's rows; its count and classes exactly."""
+    import warnings
+    name = "ppyoloe-s"
+    from paddle_tpu_torch.models import ppyoloe
+    net = ppyoloe.PPYOLOE(ppyoloe.CONFIGS[name], seed=1, device="cpu")
+    state = {k: v.numpy() for k, v in net.state_dict().items()}
+    del net
+    batch = [t.cpu() for t in ppyoloe_batch(torch, PPYOLOE_PARITY_B,
+                                            PPYOLOE_PARITY_HW, 1)]
+    card = ppyoloe_readings(torch, name, state, batch, "cuda", torch.float32)
+    dense = ppyoloe_readings(torch, name, state, batch, "cuda",
+                             torch.float32, fused=False)
+    cpu = ppyoloe_readings(torch, name, state, batch, "cpu", torch.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # f64 takes the dense BN
+        f64 = ppyoloe_readings(torch, name, state, batch, "cpu",
+                               torch.float64)
+    bns = PPYOLOE_BNS[name]
+    check(card["path"] == "fused_bn/cuda" and cpu["path"] == "fused_bn/plain"
+          and card["launches"]["fused_bn_fwd"] == bns
+          and card["launches"]["fused_bn_bwd"] == bns
+          and dense["path"] == "dense"
+          and not any(cpu["launches"].values())
+          and not any(dense["launches"].values()),
+          f"{name} parity routes: card {card['path']} {card['launches']}, "
+          f"card dense {dense['path']} {dense['launches']}, cpu "
+          f"{cpu['path']} {cpu['launches']}")
+
+    def rel_l2(a, b):
+        fa = torch.cat([a[n].reshape(-1) for n in sorted(b)])
+        fb = torch.cat([b[n].reshape(-1) for n in sorted(b)])
+        return float((fa - fb).norm() / fb.norm())
+
+    def worst(a, b):
+        return max(float((a[n] - b[n]).abs().max())
+                   / max(float(b[n].abs().max()), 1e-30) for n in b)
+
+    def maxdiff(a, b):
+        return float((a - b).abs().max())
+
+    readings = {}
+    for key, fn, scale in (
+            ("loss", lambda a, b: abs(a - b), abs(f64["loss"])),
+            ("grads", rel_l2, 1.0), ("stats", worst, 1.0),
+            ("state", worst, 1.0),
+            ("scores", maxdiff, float(f64["scores"].abs().max())),
+            ("boxes", maxdiff, float(f64["boxes"].abs().max())),
+            ("rows", maxdiff, float(f64["rows"].abs().max()))):
+        yard = dict(cpu_vs_f64=fn(cpu[key], f64[key]),
+                    card_dense_vs_f64=fn(dense[key], f64[key]))
+        floor = max(yard.values())
+        got = dict(card_vs_cpu=fn(card[key], cpu[key]),
+                   card_vs_f64=fn(card[key], f64[key]), **yard,
+                   limit=3.0 * floor + 1e-6 * scale)
+        for k in ("card_vs_cpu", "card_vs_f64"):
+            check(got[k] <= got["limit"], f"{name} fp32 parity {key}: "
+                  f"{k} {got[k]} > {got['limit']} (3x the f32 routes' "
+                  f"f32-against-f64 {yard})")
+        readings[key] = got
+    check(card["count"] == cpu["count"] == dense["count"] == f64["count"] > 0
+          and torch.equal(card["rows"][:, 0], cpu["rows"][:, 0]),
+          f"{name} post_process: counts {card['count']}, {cpu['count']}, "
+          f"{f64['count']}; classes equal "
+          f"{torch.equal(card['rows'][:, 0], cpu['rows'][:, 0])}")
+    for r in (card, cpu):
+        check(all(bool(torch.isfinite(g).all()) for g in r["grads"].values()),
+              f"{name} parity gradient not finite")
+    return dict(config=name, b=PPYOLOE_PARITY_B, hw=PPYOLOE_PARITY_HW,
+                dtype="float32",
+                allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                loss=dict(card=card["loss"], card_dense=dense["loss"],
+                          cpu=cpu["loss"], f64=f64["loss"]),
+                readings=readings, detections=card["count"],
+                card_launches={k: v for k, v in card["launches"].items()
+                               if v},
+                limit="each reading of the card's kernels within 3x the "
+                      "larger of the CPU's and the card's dense route's "
+                      "f32-against-f64 readings + 1e-6 of its scale; the "
+                      "detection count and classes exactly")
+
+
 def free_card(torch):
     """Drop what the phases before left for the collector, return the
     cached blocks and restart the peak count."""
@@ -5924,6 +6515,20 @@ def main():
     free_card(torch)
     phase(42, "fast-path parity fp32", **phase_fastpath_parity_fp32(torch))
 
+    free_card(torch)
+    phase(43, "ppyoloe-s eval stream, mixed sizes on the bucket ladder, f32",
+          **phase_ppyoloe_eval_stream(torch))
+    free_card(torch)
+    ptrain = phase_train_ppyoloe(torch)
+    phase(44, "train ppyoloe-l f32 B=8 640x640 fused BatchNorm, Layer model "
+          "+ Momentum", **ptrain)
+    free_card(torch)
+    pbn = phase_ppyoloe_bn_vs_plain(torch)
+    phase(45, "fused BatchNorm kernels vs plain at ppyoloe's shapes", **pbn)
+    free_card(torch)
+    phase(46, "ppyoloe-s parity fp32: card kernels vs CPU plain versions",
+          **phase_ppyoloe_parity_fp32(torch))
+
     kernels = [{
         "name": "decode_attn_proj", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": serve1["kernel_launches"],
@@ -6077,11 +6682,13 @@ def main():
         kernels[-1].update(route_fields(t))
         if name == "flash_dkv":
             kernels[-1]["whole_backward"] = fbias["backward"]
-    # the BatchNorm kernels' launches are resnet50 training's (phase 28);
-    # each op's four launches (reduction, sum_parts, fold, apply) count once
+    # the BatchNorm kernels' launches are resnet50 training's (phase 28),
+    # ppyoloe_launches ppyoloe-l training's (phase 44); each op's four
+    # launches (reduction, sum_parts, fold, apply) count once
     for name in ("fused_bn_fwd", "fused_bn_bwd"):
         t = bn["times"]["layer1.bn3"][name]
         err = bn["worst"]["bfloat16"][name]["max_abs_err"]
+        stem = pbn["times"]["stem_f32"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": LN_SOURCE,
             "replaces": BN_REPLACES[name][0],
@@ -6089,7 +6696,13 @@ def main():
             "launches": rtrain["launches"][name], "max_abs_err": err,
             "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            "ppyoloe_launches": ptrain["launches"][name],
+            "ppyoloe_stem_f32": {k: stem[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "ppyoloe_max_abs_err": {
+                d: pbn["worst"][d][name]["max_abs_err"]
+                for d in ("float32", "bfloat16")}})
     # the dropout variants (kernels 1-3, 10, 11, 13, 14) at bert-base's
     # shapes; their launches are the default-dropout bert-base training's
     # (phase 33), counted apart from the dropout-free kernels'

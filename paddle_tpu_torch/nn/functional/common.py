@@ -1,8 +1,17 @@
 """Common functionals.
 
 Counterpart: ``paddle_tpu/nn/functional/common.py``: ``linear`` (:20),
-``_dropout_raw`` (:29) and ``dropout`` (:47). Padding, interpolation and
-the rest of that module come with later slices (ROADMAP A5, A11).
+``_dropout_raw`` (:29), ``dropout`` (:47), and ``interpolate`` with its
+alias ``upsample`` (:120-136, ``_interpolate_raw`` :92) in ``"nearest"``
+mode. Padding, the other interpolation modes and the rest of that module
+come with later slices (ROADMAP A5, A11).
+
+``interpolate``'s nearest mode is ``jax.image.resize(..., "nearest")``'s:
+output pixel i reads input pixel floor((i + 0.5) · in / out), which is
+torch's ``"nearest-exact"`` (torch's ``"nearest"`` reads floor(i · in /
+out) and differs off integer ratios). A ``scale_factor`` gives the output
+size ``int(s · float(f))``, as the reference reckons it (:128-129); the
+resize then follows the sizes, not the factor.
 
 ``dropout`` takes one split of the framework generator
 (``core/generator.py``) per call in training mode at p > 0, none
@@ -22,7 +31,7 @@ import torch
 from ...core import generator as gen_mod
 from .sampling import bernoulli
 
-__all__ = ["dropout", "linear"]
+__all__ = ["dropout", "interpolate", "linear", "upsample"]
 
 
 def _inv_keep(keep: float, like: torch.Tensor) -> torch.Tensor:
@@ -72,3 +81,42 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         return x
     key = gen_mod.default_generator.split_key()
     return _dropout_raw(x, key, float(p), bool(training), mode, axis)
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW",
+                name=None):
+    """Resize the two spatial axes of an NCHW or NHWC x to ``size`` ([oh,
+    ow], ints or an int tensor) or by ``scale_factor`` (a number, a pair or
+    a tensor). Only ``mode="nearest"`` is ported; the linear and cubic
+    modes antialias when they downsample in the reference and raise here
+    (ROADMAP A11)."""
+    if mode != "nearest":
+        raise NotImplementedError(
+            f"interpolate: mode {mode!r} is ROADMAP A11; the port takes "
+            "'nearest'")
+    nchw = data_format.startswith("NC")
+    spatial = x.shape[2:] if nchw else x.shape[1:-1]
+    if size is not None:
+        if isinstance(size, torch.Tensor):
+            size = size.tolist()
+        size = [int(s) for s in size]
+    else:
+        if isinstance(scale_factor, torch.Tensor):
+            scale_factor = scale_factor.tolist()
+        sf = (scale_factor if isinstance(scale_factor, (list, tuple))
+              else [scale_factor] * len(spatial))
+        size = [int(s * float(f)) for s, f in zip(spatial, sf)]
+    if len(size) == 1:
+        raise NotImplementedError("1-D interpolate: use 2-D with H=1")
+    if len(size) != 2:
+        raise NotImplementedError(
+            f"interpolate: {len(size)}-D resizing is ROADMAP A11; the port "
+            "takes 2-D")
+    xc = x if nchw else x.permute(0, 3, 1, 2)
+    out = torch.nn.functional.interpolate(xc, size=tuple(size),
+                                          mode="nearest-exact")
+    return out if nchw else out.permute(0, 2, 3, 1)
+
+
+upsample = interpolate

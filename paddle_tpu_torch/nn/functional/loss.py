@@ -1,9 +1,16 @@
 """Loss functionals.
 
-Counterpart: ``paddle_tpu/nn/functional/loss.py``: ``cross_entropy``
-(:19-64), the vision path's loss, and ``chunked_mlm_xent`` (:238-251),
-BERT's tied MLM head. The other losses of that module come with later
-slices.
+Counterpart: ``paddle_tpu/nn/functional/loss.py``: ``_reduce`` (:10),
+``cross_entropy`` (:19-64), the vision path's loss,
+``binary_cross_entropy`` (:102), PP-YOLOE's classification loss, and
+``chunked_mlm_xent`` (:238-251), BERT's tied MLM head. The other losses of
+that module come with later slices.
+
+``binary_cross_entropy`` is the reference's formula, each log's argument
+floored at 1e-12 (a saturated probability costs 27.63). It is not
+``torch.nn.functional.binary_cross_entropy``, which clamps each log at
+-100 instead (100.0 at a saturated probability) and whose backward
+differs there too: a detector's scores do saturate.
 """
 from __future__ import annotations
 
@@ -11,7 +18,7 @@ import torch
 
 from ...kernels.chunked_xent import chunked_softmax_xent_per_token
 
-__all__ = ["chunked_mlm_xent", "cross_entropy"]
+__all__ = ["binary_cross_entropy", "chunked_mlm_xent", "cross_entropy"]
 
 
 def _reduce(loss, reduction):
@@ -68,6 +75,20 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
             w = torch.where(valid, weight.to(x.dtype)[y_safe], 0.0)
             return loss.sum() / w.sum().clamp_min(1e-12)
         return loss.sum() / valid.to(x.dtype).sum().clamp_min(1.0)
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy(input, label, weight=None, reduction="mean",  # noqa: A002
+                         name=None):
+    """-(y·log(max(x, 1e-12)) + (1 − y)·log(max(1 − x, 1e-12))) of the
+    probabilities ``input`` against ``label``, times ``weight`` when given,
+    then reduced ('mean', 'sum' or 'none')."""
+    eps = torch.tensor(1e-12, dtype=input.dtype, device=input.device)
+    y = label.to(input.dtype)
+    loss = -(y * torch.log(torch.maximum(input, eps))
+             + (1 - y) * torch.log(torch.maximum(1 - input, eps)))
+    if weight is not None:
+        loss = loss * weight
     return _reduce(loss, reduction)
 
 

@@ -1,5 +1,6 @@
-"""Counterpart: ``paddle_tpu/vision/__init__.py`` (the models ported so
-far: the ResNet family; transforms, datasets and ops are ROADMAP A11)."""
-from . import models
+"""Counterpart: ``paddle_tpu/vision/__init__.py`` (the ResNet family and
+``ops.matrix_nms`` so far; transforms, datasets, the other models and
+the other ops are ROADMAP A11)."""
+from . import models, ops
 
-__all__ = ["models"]
+__all__ = ["models", "ops"]

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -35,6 +34,7 @@ from ..._device import DeviceLike, resolve_device
 from ...nn.functional.activation import relu
 from ...nn.layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                          MaxPool2D, ReLU)
+from ...nn.layer.layers import load_numpy, reset_conv_bn
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18", "resnet34",
            "resnet50", "resnet101", "resnet152", "resnext50_32x4d",
@@ -180,38 +180,17 @@ class ResNet(nn.Module):
             x = self.fc(x.flatten(1))
         return x
 
-    @torch.no_grad()
     def reset_parameters(self, seed: int = 0):
         """The reference's initialisers, drawn in module order from a
         generator seeded with ``seed`` on the model's device; the
         BatchNorm gains 1, shifts 0 and running statistics 0 and 1."""
-        g = torch.Generator(device=self.device).manual_seed(int(seed))
-        for mod in self.modules():
-            if isinstance(mod, (Conv2D, Linear)):
-                mod.reset_parameters(g)
-            elif isinstance(mod, BatchNorm2D):
-                for t, v in ((mod.weight, 1.0), (mod.bias, 0.0),
-                             (mod._mean, 0.0), (mod._variance, 1.0)):
-                    if t is not None:
-                        t.fill_(v)
+        reset_conv_bn(self, self.device, seed)
 
-    @torch.no_grad()
     def load_numpy(self, state: Dict[str, Any]):
         """Copy the reference's state dict (name → numpy array: every
         parameter and the BatchNorm buffers ``_mean`` / ``_variance``, in
         the reference's names and layouts) into the model, in place."""
-        mine = {**dict(self.named_parameters()), **dict(self.named_buffers())}
-        if set(state) != set(mine):
-            raise KeyError(f"load_numpy: names differ from the model's: "
-                           f"missing {sorted(set(mine) - set(state))}, "
-                           f"unexpected {sorted(set(state) - set(mine))}")
-        for name, t in mine.items():
-            src = np.asarray(state[name], np.float32)
-            if tuple(src.shape) != tuple(t.shape):
-                raise ValueError(f"load_numpy: {name} is {tuple(src.shape)}, "
-                                 f"the model's {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(src))
-        return self
+        return load_numpy(self, state)
 
 
 def _resnet(block, depth, pretrained=False, **kwargs):
