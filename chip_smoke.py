@@ -18,8 +18,9 @@ Phases, one line each; any failure raises and exits non-zero:
    the forwards' (the core's P1: the GeLU's EpiGelu, the SwiGLU's paired
    EpiSwiglu; P2: EpiBias with and without the dropout key, EpiSum,
    EpiStore, EpiSumLast), every wgmma kernel of fused_mlp.cu listed once,
-   and of the decode split route's and the persistent LayerNorm
-   backward's instantiations (none may spill);
+   and of the decode split route's, the persistent LayerNorm
+   backward's and the persistent BatchNorm backward's instantiations
+   (none may spill);
 3. the decode kernels against their plain PyTorch version on the card
    at the main path's shapes (GPT-3 1.3B: NH=16, D=128, HO=2048,
    block_size 16, 64-entry tables, MHA and GQA at KVH 4, positions 0,
@@ -216,7 +217,8 @@ Phases, one line each; any failure raises and exits non-zero:
 26. parity in fp32 at bert-base width, 2 layers, B=4, S=512: loss and
    every gradient with the fused flags on vs off;
 27. the fused BatchNorm kernels (forward; backward with the mean and var
-   cotangents) through their custom ops against their plain versions at
+   cotangents, every call on the persistent route and its plan the
+   Python mirror's) through their custom ops against their plain versions at
    resnet50's B=256 shapes: the stem's BN (C=64, HW=12544), layer 1's bn3
    (residual + ReLU), layer 3's bn2 (HW=196, planes off 16-byte
    boundaries in bf16), layer 4's bn3 (C=2048, HW=49, residual), a
@@ -225,23 +227,27 @@ Phases, one line each; any failure raises and exits non-zero:
    same bits; dres is g gated by the kernel's own y > 0, bit for bit;
    autograd through fused_batch_norm_train at layer 1's bn3 in bf16
    against the plain versions and bitwise against the ops; the check
-   shown to reject a forward without the residual and a forward and a
-   backward missing one reduction part; their times at layer 1's bn3 and
+   shown to reject a forward without the residual, a forward and a
+   backward missing one reduction part and a persistent backward whose
+   folds leave out one block's partial; their times at layer 1's bn3 and
    the stem beside the plain versions', the bound and F.batch_norm -> +
-   res -> relu with its autograd backward;
+   res -> relu with its autograd backward, the persistent backward in
+   turns with the generic route's kernels and its CUDA launches
+   and memsets a call;
 28. train resnet50 (random weights from a seed, bf16, full width and
    depth, FLAGS_fused_norm on as by default) through the Layer model and
    Momentum(0.1, momentum=0.9) (cross_entropy(net(x).float(), y) ->
    backward -> opt.step -> opt.clear_grad) at B=256, 3x224x224 on one
    fixed batch: one warm-up step, whose running statistics are held to
    Paddle's rule, then 4 steps; a finite loss; exactly 53 fused_bn_fwd
-   and 53 fused_bn_bwd launches per step; ms/step, images/s, model
+   and 53 fused_bn_bwd launches per step, every backward on the
+   persistent route; ms/step, images/s, model
    TFLOP/s (convolution and fc flops from the shapes, x3), the Momentum
    update's ms, peak memory, the BN kernels' summed bound and the card's
    clocks;
 29. torch.profiler over 2 more resnet50 steps: busy time, idle share,
-   the BN kernels' and the convolutions' shares, the kernels that take
-   the time;
+   the BN kernels' time by direction and the convolutions' share, the
+   kernels that take the time;
 30. the same training with FLAGS_fused_norm off (the dense BatchNorm):
    1 warm-up and 2 steps;
 31. parity in fp32 at full width, B=8, 64x64: loss, gradients and running
@@ -336,16 +342,19 @@ Phases, one line each; any failure raises and exits non-zero:
    boxes an image, 2 padding rows labelled -1): one warm-up step, whose
    running statistics are held to Paddle's rule, then 8 steps; finite
    losses, the last below the warm-up's; exactly 35 fused_bn_fwd and 35
-   fused_bn_bwd op calls a step (no residual, no ReLU); ms/step,
-   images/s, model TFLOP/s, peak memory, the card's clocks; the dense
-   BatchNorm (FLAGS_fused_norm off) in turns with the fused step; a
-   profile of 2 steps;
+   fused_bn_bwd op calls a step (no residual, no ReLU), every backward on
+   the persistent route; ms/step, images/s, model TFLOP/s, peak memory,
+   the card's clocks; the dense BatchNorm (FLAGS_fused_norm off) in turns
+   with the fused step; a profile of 2 steps (the BN kernels' time by
+   direction);
 45. the fused BatchNorm kernels against their plain versions at
    PP-YOLOE's shapes (N=8: the stem's [8, 32, 102400], the stride-8
    level's [8, 128, 6400], the last stage's [8, 512, 400]; no residual,
    no ReLU), f32 and bf16, phase 27's per-case checks; the stem's shape
-   timed in f32 beside the plain versions, the bound and F.batch_norm
-   with its autograd backward;
+   timed in f32 beside the plain versions, the bound, F.batch_norm with
+   its autograd backward and the generic route's kernels in turns; the backward op's
+   host time a call (the enqueue of 200 calls, no sync) on both routes
+   at the stem and at layer 1's bn3;
 46. parity in fp32 (TF32 off) at ppyoloe-s's full width on 2 images of
    256^2: the loss, every gradient, the running statistics, the state
    after one Momentum step, the eval scores and boxes and post_process's
@@ -1605,8 +1614,9 @@ def _launch_counts():
 
 def reset_launches():
     """Every kernel count of the training paths to 0, the dropout
-    variants', the flash forward's and backward's, the projection-LN's
-    and the GeLU and SwiGLU forwards' and backwards' routes included."""
+    variants', the flash forward's and backward's, the projection-LN's,
+    the GeLU and SwiGLU forwards' and backwards' and the norms' backward
+    routes included."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import mlp_fusion as mf
     from paddle_tpu_torch.kernels import norm_fusion as nf
@@ -1614,7 +1624,7 @@ def reset_launches():
     for counts in plain + drop + (fa.fwd_routes, fa.bwd_routes, mf.pl_routes,
                                   mf.swiglu_bwd_routes, mf.mlp_bwd_routes,
                                   mf.swiglu_fwd_routes, mf.mlp_fwd_routes,
-                                  nf.ln_bwd_routes):
+                                  nf.ln_bwd_routes, nf.bn_bwd_routes):
         for key in counts:
             counts[key] = 0
 
@@ -1673,6 +1683,19 @@ def ln_bwd_routes_reading(counts, what, fused=True):
     routes = dict(nf.ln_bwd_routes)
     check((n > 0) == fused and routes == {"persistent": n, "generic": 0},
           f"{what}: LayerNorm backward calls by route {routes}, want all {n} "
+          f"on the persistent kernel (fused norms {fused})")
+    return routes
+
+
+def bn_bwd_routes_reading(counts, what, fused=True):
+    """The BatchNorm backward's calls by route since reset_launches: with
+    the fused norms every one must take the persistent kernel (the generic
+    route serves in-call comparisons only); with them off there is none."""
+    from paddle_tpu_torch.kernels import norm_fusion as nf
+    n = counts.get("fused_bn_bwd", 0)
+    routes = dict(nf.bn_bwd_routes)
+    check((n > 0) == fused and routes == {"persistent": n, "generic": 0},
+          f"{what}: BatchNorm backward calls by route {routes}, want all {n} "
           f"on the persistent kernel (fused norms {fused})")
     return routes
 
@@ -4725,13 +4748,19 @@ def bn_cases_vs_plain(torch, nf, cases, n):
     elements are counted and left out of the dx comparison (at most 1e-6
     of the elements, each with |pre| within 2^-20 of the largest). Two
     backward calls give the same bits. The gate: dres is g where the
-    kernel's y is above 0 and 0 elsewhere, bit for bit."""
+    kernel's y is above 0 and 0 elsewhere, bit for bit. Every backward
+    call takes the persistent route, and the plan its kernel reckons is
+    bn_bwd_plan's (bn_plan_reading)."""
     worst, flips = {}, {}
+    before = dict(nf.bn_bwd_routes)
+    plans = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for case, c, hw, relu, has_res in cases:
             x = bn_inputs(torch, n, c, hw, dtype, c + hw, has_res)
             xx, res, w, b, g = (x[k] for k in ("x", "res", "w", "b", "g"))
+            plans[f"{name} {case}"] = bn_plan_reading(
+                torch, nf, n, c, hw, dtype, 3 if relu and has_res else 2)
             y, mean, var = nf.fused_bn_fwd(xx, res, w, b, BN_EPS, relu)
             grads = nf.fused_bn_bwd(xx, res, w, b, mean, var, g, x["gmean"],
                                     x["gvar"], BN_EPS, relu)
@@ -4787,13 +4816,74 @@ def bn_cases_vs_plain(torch, nf, cases, n):
             del x, xx, res, w, b, g, y, mean, var, grads, again, dx, dres
             del dw, db, ry, rmean, rvar, rdx, rgate, rdw, rdb, outs, keep
             torch.cuda.empty_cache()
+    routes = {k: nf.bn_bwd_routes[k] - before[k] for k in before}
+    want = {"persistent": 2 * 2 * len(cases), "generic": 0}
+    check(routes == want, f"fused BN backward calls by route {routes}, want "
+          f"{want}")
     return dict(tolerance_relative_to_max=dict(rows=BN_TOL,
                                                statistics=BN_STAT_TOL),
+                backward_routes=routes, persistent_plans=plans,
                 worst={d: {k: dict(max_abs_err=e, relative=r)
                            for k, (e, r) in w.items()}
                        for d, w in worst.items()},
                 gate_flips_left_out_of_dx=flips, images=n,
                 cases=[list(c) for c in cases])
+
+
+def bn_plan_reading(torch, nf, n, c, hw, dtype, tensors):
+    """The persistent backward's plan as its C side reckons it
+    (fused_bn_bwd_plan) against bn_bwd_plan's, which sizes the scratch:
+    channels a group, groups, the first group's tile, slot vectors."""
+    import ctypes
+    sms = nf._sm_count(torch.device("cuda"))
+    plan = nf.bn_bwd_plan(n, c, hw, dtype, sms, tensors)
+    got = (ctypes.c_int * 8)()
+    rc = nf._lib().fused_bn_bwd_plan(n, c, hw, plan.vec, tensors, sms, got)
+    g0, gl = plan.groups[0], plan.groups[-1]
+    want = [plan.cg, len(plan.groups), g0.th, g0.tw, gl.cn, gl.th, gl.tw,
+            plan.cap]
+    check(rc == 0 and list(got) == want, f"persistent BN plan at [{n}, {c}, "
+          f"{hw}] {dtype}: the kernel's {list(got)} (rc {rc}), "
+          f"bn_bwd_plan's {want}")
+    return dict(channels_a_group=plan.cg, groups=len(plan.groups),
+                tile=[g0.th, g0.tw], tiles=g0.tiles, blocks=plan.parts)
+
+
+def bn_bwd_calls(torch, fn, calls=10):
+    """The CUDA work one persistent backward call enqueues, from a profile
+    of ``calls`` calls: kernel launches (cudaLaunchKernel*, the
+    cooperative launch included) and memsets (the counters') a call, and
+    the kernels' names."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    n, names = cuda_launches(torch, fn, calls)
+    memsets = sum(e.count for e in events
+                  if e.key.startswith("cudaMemset")) / calls
+    return dict(kernel_launches_per_call=n, memsets_per_call=memsets,
+                kernels=names)
+
+
+def bn_host_us(torch, fn, calls=200, chunk=50):
+    """Host time a call: the enqueue wall of ``calls`` calls, no sync, in
+    chunks of ``chunk`` (synced between, outside the clock) so that the
+    launch queue never fills and blocks the host on the card."""
+    total = 0.0
+    fn()
+    for _ in range(calls // chunk):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(chunk):
+            fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / (calls // chunk * chunk) * 1e6
 
 
 def bn_autograd(torch, nf):
@@ -4839,41 +4929,59 @@ def bn_autograd(torch, nf):
                 bitwise_equal_to_ops=True)
 
 
-def bn_check_rejects(torch, nf):
-    """The checks must reject a forward that leaves out the residual, a
-    forward that leaves out its first reduction part (the images of the
-    first block of the reduction grid) and a backward that leaves out its
-    first reduction part: the kernels on inputs that do just that, held
-    against the plain versions of the whole, at layer 1's bn3 in bf16.
-    Returns the readings."""
-    c, hw = 256, 3136
-    x = bn_inputs(torch, BN_N, c, hw, torch.bfloat16, 37, True)
-    xx, res, w, b, g = (x[k] for k in ("x", "res", "w", "b", "g"))
-    ry, rmean, rvar = nf.fused_bn_fwd_ref(xx, res, w, b, BN_EPS, True)
-    _, _, rdw, rdb = nf.fused_bn_bwd_ref(xx, res, w, b, rmean, rvar, g, None,
-                                         None, BN_EPS, True)
-    no_res, _, _ = nf.fused_bn_fwd(xx, None, w, b, BN_EPS, True)
-    parts = nf._bn_parts(BN_N, hw)
-    k = -(-BN_N // parts)               # the images one reduction part sums
-    _, cut_mean, cut_var = nf.fused_bn_fwd(xx[k:], res[k:], w, b, BN_EPS,
-                                           True)
-    _, _, cut_dw, cut_db = nf.fused_bn_bwd(xx[k:], res[k:], w, b, rmean, rvar,
-                                           g[k:], None, None, BN_EPS, True)
-    readings = {"forward_without_residual": (rel_err(no_res, ry)[1],
-                                             BN_TOL["bfloat16"]),
-                "mean_one_part_dropped": (rel_err(cut_mean, rmean)[1],
+def bn_check_rejects(torch, nf, n=BN_N, c=256, hw=3136,
+                     dtype=None, relu=True, res=True):
+    """The checks must reject a forward that leaves out the residual
+    (where there is one), a forward that leaves out its first reduction
+    part (the images of the first block of the reduction grid), a
+    backward that leaves out those images and a persistent backward whose
+    every fold leaves out block 0's partial (block 0 holds a tile of every
+    group, so each group is applied from wrong a, b', p2, p3): the kernels
+    on inputs that do just that, or with the fault planted, held against
+    the plain versions of the whole; at layer 1's bn3 in bf16 unless told
+    otherwise. Returns the readings."""
+    dtype = torch.bfloat16 if dtype is None else dtype
+    name = str(dtype).split(".")[-1]
+    x = bn_inputs(torch, n, c, hw, dtype, 37, res)
+    xx, r, w, b, g = (x[k] for k in ("x", "res", "w", "b", "g"))
+    ry, rmean, rvar = nf.fused_bn_fwd_ref(xx, r, w, b, BN_EPS, relu)
+    rdx, _, rdw, rdb = nf.fused_bn_bwd_ref(xx, r, w, b, rmean, rvar, g, None,
+                                           None, BN_EPS, relu)
+    fault = nf._bn_bwd_cuda(xx, r, w, b, rmean, rvar, g, None, None, BN_EPS,
+                            relu, skip=0)
+    k = -(-n // nf._bn_parts(n, hw))    # the images one reduction part sums
+    rk = None if r is None else r[k:]
+    _, cut_mean, cut_var = nf.fused_bn_fwd(xx[k:], rk, w, b, BN_EPS, relu)
+    _, _, cut_dw, cut_db = nf.fused_bn_bwd(xx[k:], rk, w, b, rmean, rvar,
+                                           g[k:], None, None, BN_EPS, relu)
+    readings = {"mean_one_part_dropped": (rel_err(cut_mean, rmean)[1],
                                           BN_STAT_TOL),
                 "var_one_part_dropped": (rel_err(cut_var, rvar)[1],
                                          BN_STAT_TOL),
                 "dw_one_part_dropped": (rel_err(cut_dw, rdw)[1], BN_STAT_TOL),
-                "db_one_part_dropped": (rel_err(cut_db, rdb)[1], BN_STAT_TOL)}
+                "db_one_part_dropped": (rel_err(cut_db, rdb)[1], BN_STAT_TOL),
+                "dw_fold_missing_a_partial": (rel_err(fault[2], rdw)[1],
+                                              BN_STAT_TOL),
+                "db_fold_missing_a_partial": (rel_err(fault[3], rdb)[1],
+                                              BN_STAT_TOL)}
+    if res:
+        no_res, _, _ = nf.fused_bn_fwd(xx, None, w, b, BN_EPS, relu)
+        readings["forward_without_residual"] = (rel_err(no_res, ry)[1],
+                                                BN_TOL[name])
+        del no_res
     for key, (reading, tol) in readings.items():
-        check(reading > tol, f"the bf16 BN check passes a wrong kernel "
+        check(reading > tol, f"the {name} BN check passes a wrong kernel "
               f"({key}): {reading} <= {tol}")
-    del x, xx, res, w, b, g, ry, rmean, rvar, rdw, rdb, no_res, cut_mean
-    del cut_var, cut_dw, cut_db
+    out = {k: dict(reading=v, tolerance=t) for k, (v, t) in readings.items()}
+    # dx of the planted fault moves by about a * (the partial's share of
+    # sum g') / M, which may stay inside the rows' tolerance: reported
+    out["dx_fold_missing_a_partial"] = dict(
+        reading=rel_err(fault[0], rdx.to(dtype))[1], tolerance="reported")
+    out["shape"] = [n, c, hw, name]
+    del x, xx, r, w, b, g, ry, rmean, rvar, rdx, rdw, rdb, cut_mean
+    del cut_var, cut_dw, cut_db, fault, rk
     torch.cuda.empty_cache()
-    return {k: dict(reading=r, tolerance=t) for k, (r, t) in readings.items()}
+    return out
 
 
 def bn_times(torch, nf, c, hw, res, n=BN_N, dtype="bfloat16", relu=True):
@@ -4917,6 +5025,28 @@ def bn_times(torch, nf, c, hw, res, n=BN_N, dtype="bfloat16", relu=True):
     out["fused_bn_bwd"]["library_ms"], _, _ = in_turns(
         lambda _: torch.autograd.grad(yl, leaves, g, retain_graph=True),
         runs["fused_bn_bwd"][0])
+    # the backward's kernels alone (no casts): the persistent route in
+    # turns with the generic route's four launches
+    kern = {route: (lambda _, rt=route: nf._bn_bwd_cuda(
+        xx, r, w, b, mean, var, g, None, None, BN_EPS, relu, route=rt))
+        for route in ("persistent", "generic")}
+    earlier_ms, kernel_ms, t = in_turns(kern["generic"], kern["persistent"])
+    calls = bn_bwd_calls(torch, lambda: kern["persistent"](None))
+    check(calls["kernel_launches_per_call"] == 1
+          and calls["memsets_per_call"] <= 1,
+          f"persistent BN backward: {calls} a call, want 1 launch and the "
+          f"counters' memset")
+    out["fused_bn_bwd"].update(
+        route="persistent", kernel_ms=kernel_ms, earlier_ms=earlier_ms,
+        earlier="the four-launch bn_reduce + sum_parts + bn_fold_bwd + bn_apply (the "
+                "generic route), same inputs, in turns",
+        route_all_ms=t, **calls,
+        generic_kernel_launches_per_call=cuda_launches(
+            torch, lambda: kern["generic"](None))[0],
+        note="ms and plain_ms: the op (the kernel and the casts of dw and "
+             "db); kernel_ms, earlier_ms: the persistent and generic "
+             "kernels alone; one cooperative launch after a memset of the "
+             "counters")
     out["timed_at"] = dict(shape=[n, c, hw], dtype=dtype, residual=res,
                            relu=relu)
     del x, xx, r, w, b, g, y, mean, var, prim, rg, yl, leaves
@@ -5117,6 +5247,7 @@ def phase_train_resnet(torch, fused, steps=TRAIN_STEPS):
                 else 0)
         check(n == want, f"{key} launched {n} times in {steps} resnet50 "
               f"steps (want {want}; FLAGS_fused_norm={fused})")
+    broutes = bn_bwd_routes_reading(counts, "resnet50 training", fused)
     ms = wall / steps * 1e3
     out = dict(config="resnet50", b=RESNET_B, hw=RESNET_HW, dtype="bfloat16",
                fused_norm=fused, last_norm_path=path, lr=RESNET_LR,
@@ -5132,17 +5263,36 @@ def phase_train_resnet(torch, fused, steps=TRAIN_STEPS):
                running_stats_vs_paddle_rule=stats_reading,
                bn_kernels_bound_ms_per_step=bn_bound,
                card_during_steps=clocks.summary(), launches=counts,
-               launches_per_step={k: n / steps for k, n in counts.items()})
+               launches_per_step={k: n / steps for k, n in counts.items()},
+               bn_bwd_routes=broutes)
     return out, net, step
+
+
+def bn_direction(key):
+    """The direction of a fused BN kernel from its name in a profile: the
+    persistent backward and the generic one's fold and MODE-1
+    instantiations are the backward's; the MODE-0 instantiations, the
+    forward's fold and sum_parts (the forward's alone on the model paths,
+    whose backward is the persistent kernel; with the generic backward
+    forced, its sum_parts counts here too) the forward's; None for any
+    other kernel."""
+    if "bn_bwd_persist" in key or "bn_fold_bwd" in key:
+        return "backward"
+    m = re.search(r"bn_(?:reduce|apply)<[^>]*,\s*(\d)>", key)
+    if m:
+        return "backward" if m.group(1) == "1" else "forward"
+    if "bn_fold_fwd" in key or "sum_parts_kernel" in key:
+        return "forward"
+    return None
 
 
 def phase_profile_resnet(torch, step, steps=2):
     """torch.profiler over `steps` steps of a convolutional model (resnet50,
     ppyoloe-l): device busy time per step against the profiled wall time,
     the host's aten calls (nested ones included) and CUDA launches a step,
-    the BN kernels' share, the convolutions' (every other kernel whose
-    name says conv, gemm or a cuDNN/CUTLASS tile), the Momentum span and
-    the kernels that take the time."""
+    the BN kernels' time by direction, the convolutions' (every other
+    kernel whose name says conv, gemm or a cuDNN/CUTLASS tile), the
+    Momentum span and the kernels that take the time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -5164,13 +5314,14 @@ def phase_profile_resnet(torch, step, steps=2):
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     if busy_ms == 0.0:
         return dict(steps=steps, device_time="not measured (no CUDA events)")
-    bn_keys = ("bn_reduce", "bn_fold", "bn_apply", "sum_parts_kernel")
     conv_keys = ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90_",
                  "implicit", "wgrad", "dgrad", "fprop", "nchw", "nhwc")
-    groups = {"fused_bn (bn_reduce, sum_parts, bn_fold, bn_apply)":
-              lambda k: any(s in k for s in bn_keys),
+    groups = {"fused_bn forward (bn_reduce, sum_parts, bn_fold_fwd, "
+              "bn_apply)": lambda k: bn_direction(k) == "forward",
+              "fused_bn backward":
+              lambda k: bn_direction(k) == "backward",
               "convolutions and fc (cuDNN, cuBLAS)":
-              lambda k: not any(s in k for s in bn_keys)
+              lambda k: bn_direction(k) is None
               and any(s in k.lower() for s in conv_keys)}
     by_group = {g: sum(e.self_device_time_total for e in dev if f(e.key))
                 / 1e3 / steps for g, f in groups.items()}
@@ -5193,6 +5344,50 @@ def phase_profile_resnet(torch, step, steps=2):
                 top_device_ms_per_step=[
                     (e.key[:70], e.self_device_time_total / 1e3 / steps,
                      e.count // steps) for e in top[:16]])
+
+
+def phase_profile_resnet_turns(torch, step):
+    """Phase 29: the resnet50 step's profile (phase_profile_resnet) with
+    the BatchNorm backward on its route, the persistent kernel, then in
+    turns with the generic route's kernels on the same model and batch (persistent,
+    generic, generic, persistent; for these profiles alone bn_bwd_route is
+    made to name the generic route): the busy time, the backward's kernels
+    a step and the wall of each, the better of each pair."""
+    from paddle_tpu_torch.kernels import norm_fusion as nf
+    real = nf.bn_bwd_route
+    turns = []
+    try:
+        for route in ("persistent", "generic", "generic", "persistent"):
+            nf.bn_bwd_route = real if route == "persistent" else (
+                lambda *a: "generic")
+            step()
+            before = dict(nf.bn_bwd_routes)
+            prof = phase_profile_resnet(torch, step)
+            taken = {k: nf.bn_bwd_routes[k] - before[k] for k in before}
+            check(taken[route] == 2 * RESNET_BNS and sum(taken.values())
+                  == 2 * RESNET_BNS, f"resnet50 profile on the {route} "
+                  f"route took {taken}")
+            turns.append((route, prof))
+    finally:
+        nf.bn_bwd_route = real
+    out = dict(turns[0][1])
+    bwd_key = "fused_bn backward"
+
+    def summary(route):
+        profs = [p for r, p in turns if r == route]
+        busy = [p["device_busy_ms_per_step"] for p in profs]
+        bwd = [p["kernels_ms_per_step"][bwd_key] for p in profs]
+        wall = [p["wall_ms_per_step"] for p in profs]
+        return dict(device_busy_ms_per_step=min(busy), bn_backward_ms_per_step=
+                    min(bwd), wall_ms_per_step=min(wall), all_busy=busy,
+                    all_bn_backward=bwd, all_wall=wall)
+
+    if all("kernels_ms_per_step" in p for _, p in turns):
+        out["in_turns"] = dict(persistent=summary("persistent"),
+                               generic=summary("generic"),
+                               order="persistent, generic, generic, "
+                                     "persistent; 2 profiled steps each")
+    return out
 
 
 def phase_resnet_parity_fp32(torch):
@@ -5239,6 +5434,7 @@ def phase_resnet_parity_fp32(torch):
         set_flags({"FLAGS_fused_norm": True})
     check(counts["fused_bn_fwd"] == counts["fused_bn_bwd"] == RESNET_BNS,
           f"resnet50 fp32 parity with the flag on launched {counts}")
+    bn_bwd_routes_reading(counts, "resnet50 fp32 parity")
     check(counts_d["fused_bn_fwd"] == counts_d["fused_bn_bwd"] == 0,
           f"resnet50 fp32 parity with the flag off launched {counts_d}")
     check(bool(torch.isfinite(gf).all()), "parity gradient not finite")
@@ -6092,6 +6288,7 @@ def phase_train_ppyoloe(torch):
         want = bns * PPYOLOE_STEPS if key.startswith("fused_bn") else 0
         check(n == want, f"{key} launched {n} times in {PPYOLOE_STEPS} "
               f"{name} steps (want {want})")
+    broutes = bn_bwd_routes_reading(counts, f"{name} training")
     turns = []
     for fused in (True, False, False, True):
         set_flags({"FLAGS_fused_norm": fused})
@@ -6136,6 +6333,7 @@ def phase_train_ppyoloe(torch):
                card_during_steps=clocks.summary(), launches=counts,
                launches_per_step={k: n / PPYOLOE_STEPS
                                   for k, n in counts.items()},
+               bn_bwd_routes=broutes,
                in_turns=dict(turns=turns, fused_ms_per_step=fused_ms,
                              dense_ms_per_step=dense_ms,
                              dense_over_fused=dense_ms / fused_ms),
@@ -6154,8 +6352,43 @@ def phase_ppyoloe_bn_vs_plain(torch):
     from paddle_tpu_torch.kernels import norm_fusion as nf
     out = bn_cases_vs_plain(torch, nf, PPYOLOE_BN_CASES, PPYOLOE_B)
     _, c, hw, relu, res = PPYOLOE_BN_CASES[0]
+    out.update(wrong_kernel_reading=bn_check_rejects(
+        torch, nf, PPYOLOE_B, c, hw, torch.float32, relu, res))
     out["times"] = {"stem_f32": bn_times(torch, nf, c, hw, res, n=PPYOLOE_B,
                                          dtype="float32", relu=relu)}
+    out["host_us_per_call"] = {
+        "stem_f32": bn_host_times(torch, nf, PPYOLOE_B, c, hw, "float32",
+                                  relu, res),
+        "layer1.bn3_bf16": bn_host_times(torch, nf, BN_N, 256, 3136,
+                                         "bfloat16", True, True)}
+    return out
+
+
+def bn_host_times(torch, nf, n, c, hw, dtype, relu, res):
+    """The backward's host time a call (bn_host_us: 200 calls, no sync):
+    the op (custom-op dispatch, the wrapper, the persistent kernel, the
+    casts of dw and db) and the op's body on each route (the wrapper and
+    the casts, no dispatch)."""
+    x = bn_inputs(torch, n, c, hw, getattr(torch, dtype), 43, res)
+    xx, r, w, b, g = (x[k] for k in ("x", "res", "w", "b", "g"))
+    _, mean, var = nf.fused_bn_fwd(xx, r, w, b, BN_EPS, relu)
+
+    def body(route):
+        def fn():
+            _, _, dw, db = nf._bn_bwd_cuda(xx, r, w, b, mean, var, g, None,
+                                           None, BN_EPS, relu, route=route)
+            return dw.to(w.dtype, copy=True), db.to(b.dtype, copy=True)
+        return fn
+
+    out = dict(op=bn_host_us(torch, lambda: nf.fused_bn_bwd(
+        xx, r, w, b, mean, var, g, None, None, BN_EPS, relu)),
+        persistent=bn_host_us(torch, body("persistent")),
+        generic=bn_host_us(torch, body("generic")),
+        shape=[n, c, hw], calls=200,
+        note="us a call: op = the custom op on the persistent route; "
+             "persistent, generic = the op's body on each route")
+    del x, xx, r, w, b, g, mean, var
+    torch.cuda.empty_cache()
     return out
 
 
@@ -6339,7 +6572,9 @@ def main():
               _build.build_log, "decode_attn_proj.cu",
               "decode_attn_split_kernel|decode_proj_kernel"),
           ln_persistent_ptxas=route_ptxas(_build.build_log, "norm_fusion.cu",
-                                          "ln_bwd_persist"))
+                                          "ln_bwd_persist"),
+          bn_persistent_ptxas=route_ptxas(_build.build_log, "norm_fusion.cu",
+                                          "bn_bwd_persist"))
 
     kern = phase_kernel_vs_plain(torch)
     phase(3, "decode_attn_proj vs plain", tolerance=TOL, **kern)
@@ -6454,7 +6689,7 @@ def main():
     phase(28, "train resnet50 bf16 B=256 224x224 fused BatchNorm, Layer "
           "model + Momentum", **rtrain)
     phase(29, "profile of the resnet50 training step",
-          **phase_profile_resnet(torch, rstep))
+          **phase_profile_resnet_turns(torch, rstep))
     del rnet, rstep
     free_card(torch)
     rdense, rnet, rstep = phase_train_resnet(torch, fused=False, steps=2)
@@ -6703,6 +6938,23 @@ def main():
             "ppyoloe_max_abs_err": {
                 d: pbn["worst"][d][name]["max_abs_err"]
                 for d in ("float32", "bfloat16")}})
+        if name == "fused_bn_bwd":
+            # the persistent route: its kernel alone against the generic route's four
+            # launches (earlier_ms) in turns at each shape
+            kernels[-1].update(
+                route_fields(t), kernel_ms=t["kernel_ms"],
+                cuda_launches_per_call=t["kernel_launches_per_call"],
+                memsets_per_call=t["memsets_per_call"],
+                source_kernels="bn_bwd_persist (one cooperative launch "
+                               "after a memset of the counters)",
+                ppyoloe_stem_f32_route=dict(
+                    kernel_ms=stem["kernel_ms"],
+                    earlier_ms=stem["earlier_ms"]),
+                stem_bf16={k: bn["times"]["stem"][name][k] for k in (
+                    "ms", "kernel_ms", "earlier_ms", "plain_ms", "bound_ms",
+                    "library_ms")},
+                host_us_per_call=pbn["host_us_per_call"],
+                note=t["note"])
     # the dropout variants (kernels 1-3, 10, 11, 13, 14) at bert-base's
     # shapes; their launches are the default-dropout bert-base training's
     # (phase 33), counted apart from the dropout-free kernels'

@@ -3,7 +3,8 @@
 // route in proj_ln.cu, the GEMM core of gemm_core.cuh): shared-memory
 // addresses, mbarriers with a hang trap, named and cluster barriers, reads
 // of a cluster peer's shared memory and arrivals on its barriers, TMA
-// loads (multicast to a cluster too), stores and reduce-adds, the wgmma
+// loads (multicast to a cluster too), plain bulk copies (the persistent
+// BatchNorm backward's in norm_fusion.cu), stores and reduce-adds, the wgmma
 // descriptor of a 128-byte swizzled tile, wgmma's fences and its products
 // from shared memory (wgmma_smem), and the host-side encoding of a
 // tensor map through the runtime (no libcuda at link time). Included
@@ -114,6 +115,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// a plain bulk copy of `bytes` contiguous bytes (dst, src and bytes
+// multiples of 16), completing on bar's transaction count: no tensor map
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,

@@ -67,7 +67,9 @@
 // kernels 15-18), with their own note above their code.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
+#include <algorithm>
 #include <initializer_list>
 
 namespace {
@@ -954,18 +956,27 @@ __global__ void bn_fold_fwd(Args p) {
   p.coef[p.c + c] = bb;
 }
 
+// a, b', p2, p3 of one channel from sg = sum g', sgx = sum g' x^, the
+// elements m = N * HW and the cotangents gm, gv of the mean and var outputs
+// (:576-581); both backward routes fold with it
+__device__ __forceinline__ void fold_bwd(float w, float b, float mean, float var, float eps,
+                                         float mf, float sg, float sgx, float gm, float gv,
+                                         float& a, float& bb, float& p2, float& p3) {
+  float rstd;
+  fold_ab(w, b, mean, var, eps, rstd, a, bb);
+  const float k1 = __fdiv_rn(sg, mf), k2 = __fdiv_rn(sgx, mf);
+  p2 = __fsub_rn(__fdiv_rn(__fmul_rn(2.f, gv), mf), __fmul_rn(__fmul_rn(a, k2), rstd));
+  p3 = __fsub_rn(__fsub_rn(__fdiv_rn(gm, mf), __fmul_rn(a, k1)), __fmul_rn(mean, p2));
+}
+
 // one thread a channel: a, b', p2, p3 from sg (s1), sgx (s2) and the
 // cotangents of the mean and var outputs
 __global__ void bn_fold_bwd(Args p) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= p.c) return;
-  const float mf = (float)p.m, mean = p.mean[c];
-  float rstd, a, bb;
-  fold_ab(p.w[c], p.b[c], mean, p.var[c], p.eps, rstd, a, bb);
-  const float k1 = __fdiv_rn(p.s1[c], mf), k2 = __fdiv_rn(p.s2[c], mf);
-  const float gm = p.gmean ? p.gmean[c] : 0.f, gv = p.gvar ? p.gvar[c] : 0.f;
-  const float p2 = __fsub_rn(__fdiv_rn(__fmul_rn(2.f, gv), mf), __fmul_rn(__fmul_rn(a, k2), rstd));
-  const float p3 = __fsub_rn(__fsub_rn(__fdiv_rn(gm, mf), __fmul_rn(a, k1)), __fmul_rn(mean, p2));
+  float a, bb, p2, p3;
+  fold_bwd(p.w[c], p.b[c], p.mean[c], p.var[c], p.eps, (float)p.m, p.s1[c], p.s2[c],
+           p.gmean ? p.gmean[c] : 0.f, p.gvar ? p.gvar[c] : 0.f, a, bb, p2, p3);
   p.coef[c] = a;
   p.coef[p.c + c] = bb;
   p.coef[2 * p.c + c] = p2;
@@ -1071,6 +1082,888 @@ int run(Args p, cudaStream_t s) {
 }
 
 }  // namespace bn
+
+// ==========================================================================
+// The BatchNorm backward's persistent route (TPU kernels 17, 18)
+// ==========================================================================
+//
+// Replaces, as bn::run<.., BWD> above does (which stays as the generic
+// route, reached only by an explicit route="generic" in
+// norm_fusion._bn_bwd_cuda for in-call comparisons), the TPU kernels
+//   _bn_bwd_reduce_kernel :455 and _bn_bwd_apply_kernel :487 of
+//   paddle_tpu/kernels/norm_fusion.py, entered through _make_fused_bn
+//   :553-606,
+// with bn's arithmetic: fold_ab and pre_act (the ReLU gate agrees with the
+// forward's bit for bit), fold_bwd, dx = round(a g' + x p2 + p3), dres =
+// round(g').
+//
+// Bound: bytes. x, g (and the residual where the ReLU gate reads it) read
+// once, dx (and dres) written once: 5 tensor passes at resnet50's
+// layer1.bn3, 3 at the stems. bn::run reads every input twice (its
+// reduction, then its apply: 8 passes against 5, and 5 against 3) in 4
+// launches, so no tuning of it passes ~60% of the bound.
+//
+// Design: one cooperative launch of P = kBlocksPerSm x SMs blocks, all
+// resident, in kTeams teams; team t takes groups t, t + kTeams, ...
+// (norm_fusion.bn_bwd_plan reckons the same plan in Python). The
+// constants after kBatch fix the design; scripts/bn_bwd_variants.py times
+// copies of this file with them changed:
+//   - groups: consecutive channels, cg a group (at most kMaxGroupC). A
+//     block's share of a group is one shared-memory slot and kL2Bytes /
+//     (the team's blocks) more that it reads past the slot, from device
+//     memory in the reduction (L2 evict_last hint) and again in the apply;
+//     cg is the largest whose every tile fits that share. A group starts
+//     at a multiple of V / gcd(HW, V) channels (8 in bf16 at HW 49, 2 at
+//     196, 1 where HW is whole vectors), so every (image, group) row is
+//     contiguous and starts on a 16-byte boundary. In shared memory alone
+//     (two blocks an SM, two slots of 54656 bytes a block: ~14.4 MB a
+//     group) layer1.bn3 [256, 256, 3136] bf16 with residual and ReLU takes
+//     2 channels a group, 128 groups; resnet50's stem [256, 64, 12544] 1,
+//     64; ppyoloe-l's stem [8, 32, 102400] f32 2, 16; layer4.bn3 [256,
+//     2048, 49] 184, 12. The route (kL2Bytes, 24 MB a group past the
+//     slots, two teams) takes 6 (43 groups), 2 (32),
+//     4 (8), 256 (8): a quarter of each tile goes through the slots and the
+//     rest is read twice (the apply's time says the hint does not keep it
+//     in L2); fewer, larger groups were faster all the same
+//     (scripts/bn_bwd_variants.py, PERF.md §6).
+//   - tiles: a group is N rows of Lv = cg HW / V vectors, cut into a grid of
+//     th images by tw vectors (tiles(): the smallest tile whose rows span at
+//     least kMinSpan vectors where the group's rows do, then the fewest
+//     image slices); block b of a team takes tile b, blocks past the grid
+//     sit the group out.
+//   - reduce: warp 0's lanes bulk-copy the first `cap` vectors of the
+//     tile's rows of x, g (and res) into the group's slot, completing on
+//     the slot's mbarrier. Where HW is whole vectors and the tile holds at
+//     most two channels (reduce2: the stems, layer 1, ppyoloe) the block
+//     takes the tile's vectors in order with both channels' coefficients
+//     in registers; otherwise the warps split the channels (teams of 8, 4,
+//     2 or 1 warps a channel as the tile holds 1, 2-3, 4-7 or 8+). Each
+//     thread keeps kBatch vectors' loads in flight, sums g' and g' x^ in
+//     f32, the warps' sums are added in order, and the block writes its
+//     partials [2, cg] for its channels; thread 0 then adds one to the
+//     group's counter (acq_rel). No float atomics anywhere.
+//   - fold: the block that brings the counter to the group's tile count
+//     adds, for each statistic and channel, the partials of the tiles that
+//     hold the channel in tile order, in `runs` contiguous runs that a
+//     warp adds as a butterfly (a fixed order): the same bits on every
+//     call. It writes a, b', p2, p3 (fold_bwd), dw and db, then sets the
+//     group's flag (release).
+//   - lag: a block has kLag + 1 slots. Its group i + kLag + 1's loads go
+//     into group i's slot as soon as group i is applied, so while it
+//     reduces and waits (acquire) for a fold the next kLag groups' loads are in
+//     flight. It then applies the group from the slot (and past it from
+//     device memory), storing dx and dres streaming (st.global.cs).
+//   - a tile larger than its share (one channel unit over the budget: cg is
+//     one unit) reads past it the same way: slower, never wrong. The
+//     L2-only design (kL2Only) takes that path for every tile.
+//   - the counters and flags ([2, G] at the end of the scratch) are zeroed
+//     by a memset before the launch: 1 kernel launch and 1 memset a call. A
+//     flag wait traps after kHangCycles instead of hanging the card.
+// Measured (PERF.md §6, H100): the per-group synchronisation (~5 us), the
+// apply's writes and the second read of the bytes past the slots keep it
+// from its bound; at resnet50's shapes it is slower than bn::run.
+
+namespace bnb {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSmemPerSm = 233472;   // an SM's shared memory on sm_90
+constexpr int kBlockReserve = 1024;  // the runtime's share of each resident block
+constexpr int kScratch = 6400;       // a block's sums, coefficients, barriers
+constexpr int kMaxGroupC = 256;      // channels a group holds at most
+constexpr int kMinSpan = 64;         // vectors a tile's rows span at least
+constexpr int kBatch = 2;            // vectors a thread loads before it computes
+// the route's design (scripts/bn_bwd_variants.py times copies of this file
+// with these changed)
+constexpr int kBlocksPerSm = 2;      // the grid: blocks an SM, all resident
+constexpr int kTeams = 2;            // teams of blocks taking every other group
+constexpr int kLag = 1;              // groups loaded ahead of the one reduced: kLag + 1 slots
+constexpr bool kL2Only = false;      // no slots: every vector from device memory
+constexpr int kL2Bytes = 24000000;   // a group's bytes past the slots, read twice
+// one slot: a block's share of the SM's shared memory, less the runtime's
+// reserve and the scratch, over the slots, in whole 128 bytes
+constexpr int kSlotBytes =
+    kL2Only ? 0 : (kSmemPerSm / kBlocksPerSm - kBlockReserve - kScratch) / (kLag + 1) / 128 * 128;
+static_assert(!kL2Only || kLag == 1, "the L2-only design holds no slots to lag");
+
+struct Args {
+  const void* x;
+  const void* res;     // null: no residual
+  const void* g;
+  const float* w;
+  const float* b;
+  const float* mean;
+  const float* var;
+  const float* gmean;  // null: zero cotangent
+  const float* gvar;
+  void* dx;
+  void* dres;          // null without a residual
+  float* coef;         // [4, C]: a, b', p2, p3
+  float* dw;           // [C] sum g' x^
+  float* db;           // [C] sum g'
+  float* part;         // the group at c0: [P, 2, cn] from c0 * 2P
+  unsigned* cnt;       // [G] arrivals, then [G] flags
+  long long m;         // N * HW
+  int n, c, hw, relu;
+  int gate_res;        // the ReLU gate reads the residual: x, g and res in the slot
+  int groups, cg, th, tw, cg_last, th_last, tw_last;
+  int cap;             // vectors of one tensor a slot holds
+  int skip;            // a planted fault: every fold leaves out this tile (-1: none)
+  float eps;
+};
+
+struct Group {
+  int c0, cn, lv, th, tw, cols, tiles;
+};
+
+struct Tile {
+  int rows;            // 0: the block sits the group out
+  int id, n0, v0, w, fit, ch_lo, nch;
+};
+
+__device__ __forceinline__ Group group_of(const Args& p, int j, int V) {
+  const bool last = j == p.groups - 1;
+  Group gr;
+  gr.c0 = j * p.cg;
+  gr.cn = last ? p.cg_last : p.cg;
+  gr.lv = (int)((long long)gr.cn * p.hw / V);
+  gr.th = last ? p.th_last : p.th;
+  gr.tw = last ? p.tw_last : p.tw;
+  gr.cols = (gr.lv + gr.tw - 1) / gr.tw;
+  gr.tiles = (p.n + gr.th - 1) / gr.th * gr.cols;
+  return gr;
+}
+
+__device__ __forceinline__ Tile tile_of(const Args& p, const Group& gr, int b, int V) {
+  Tile t{};
+  if (b >= gr.tiles) return t;
+  const int i = b / gr.cols, jc = b - i * gr.cols;
+  t.id = b;
+  t.n0 = i * gr.th;
+  t.rows = min(gr.th, p.n - t.n0);
+  t.v0 = jc * gr.tw;
+  t.w = min(gr.tw, gr.lv - t.v0);
+  t.fit = kL2Only ? 0 : min(t.rows * t.w, p.cap);
+  t.ch_lo = (int)((long long)t.v0 * V / p.hw);
+  t.nch = (int)(((long long)(t.v0 + t.w) * V - 1) / p.hw) - t.ch_lo + 1;
+  return t;
+}
+
+__device__ __forceinline__ uint64_t policy_evict_last() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
+}
+__device__ __forceinline__ uint64_t policy_evict_first() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
+}
+__device__ __forceinline__ uint4 ld_hint(const void* p, uint64_t pol) {
+  uint4 v;
+  asm volatile("ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ void st_stream(void* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p, unsigned v) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+__device__ __forceinline__ void wait_flag(const unsigned* f) {
+  if (ld_acquire(f)) return;
+  const long long t0 = clock64();
+  while (!ld_acquire(f))
+    if (clock64() - t0 > kHangCycles) __trap();
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack(float* dst, uint4 raw) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int k = 0; k < Vec<T>::n; ++k) dst[k] = to_f(e[k]);
+}
+template <typename T>
+__device__ __forceinline__ uint4 pack(const float* src) {
+  uint4 raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int k = 0; k < Vec<T>::n; ++k) e[k] = from_f<T>(src[k]);
+  return raw;
+}
+
+// vector q of the tile from tensor i (0 x, 1 g, 2 res): the slot's copy, or
+// device memory at element e past the slot
+template <typename T>
+__device__ __forceinline__ uint4 fetch(const uint4* slot, int cap, int i, int q, int fit,
+                                       const void* base, long long e, uint64_t pol) {
+  if (q < fit) return slot[(size_t)i * cap + q];
+  return ld_hint(static_cast<const T*>(base) + e, pol);
+}
+
+// the tile row r's first element in the [N, C, HW] tensors
+__device__ __forceinline__ long long row_elem(const Args& p, const Group& gr, const Tile& t,
+                                              int r, int V) {
+  return ((long long)(t.n0 + r) * p.c + gr.c0) * p.hw + (long long)t.v0 * V;
+}
+
+// warp 0: the tile's first `fit` vectors of x, g (and res) into the slot,
+// a row a lane, completing on bar
+template <typename T>
+__device__ __forceinline__ void issue(const Args& p, const Group& gr, const Tile& t, uint4* slot,
+                                      uint64_t* bar) {
+  constexpr int V = Vec<T>::n;
+  const int lane = threadIdx.x & 31, k = p.gate_res ? 3 : 2;
+  if (lane == 0) {
+    fence_proxy_async();
+    mbar_arrive_tx(bar, (uint32_t)t.fit * 16u * (uint32_t)k);
+  }
+  __syncwarp();
+  const void* src[3] = {p.x, p.g, p.res};
+  for (int r = lane; r < t.rows; r += 32) {
+    const int q0 = r * t.w;
+    if (q0 >= t.fit) break;
+    const uint32_t bytes = (uint32_t)min(t.w, t.fit - q0) * 16u;
+    const long long e = row_elem(p, gr, t, r, V);
+    for (int i = 0; i < k; ++i)
+      bulk_load(slot + (size_t)i * p.cap + q0, static_cast<const T*>(src[i]) + e, bytes, bar);
+  }
+}
+
+// the tile's partial sums of g' and g' x^ for each of its channels, into
+// the group's part rows
+template <typename T>
+__device__ void reduce(const Args& p, const Group& gr, const Tile& t, const uint4* slot,
+                       float* red, uint64_t keep) {
+  constexpr int V = Vec<T>::n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int teams = t.nch >= 8 ? 8 : t.nch >= 4 ? 4 : t.nch >= 2 ? 2 : 1;
+  const int W = kWarps / teams, team = warp / W, wi = warp - team * W;
+  for (int tc = team; tc < t.nch; tc += teams) {
+    const int cl = t.ch_lo + tc, c = gr.c0 + cl;
+    const float mean = p.mean[c];
+    float rstd, a, bb;
+    bn::fold_ab(p.w[c], p.b[c], mean, p.var[c], p.eps, rstd, a, bb);
+    // the channel's row elements [lo, hi) inside the tile, and their vectors
+    const int lo = max(cl * p.hw, t.v0 * V), hi = min((cl + 1) * p.hw, (t.v0 + t.w) * V);
+    const int vlo = lo / V, nv = (hi + V - 1) / V - vlo;
+    // (r, cc): row and vector of the channel this lane reads, stepped by the
+    // team's lanes without a division; kBatch vectors' loads in flight
+    const int step = W * 32, dr = step / nv, dc = step - dr * nv;
+    int r = (wi * 32 + lane) / nv, cc = wi * 32 + lane - r * nv;
+    float s1 = 0.f, s2 = 0.f;
+    while (r < t.rows) {
+      int qs[kBatch], e0s[kBatch];
+      long long es[kBatch];
+      bool ok[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        ok[u] = r < t.rows;
+        const int vv = vlo + cc;
+        qs[u] = r * t.w + (vv - t.v0);
+        e0s[u] = vv * V;
+        es[u] = ((long long)(t.n0 + r) * p.c + gr.c0) * p.hw + (long long)vv * V;
+        r += dr;
+        cc += dc;
+        if (cc >= nv) {
+          cc -= nv;
+          ++r;
+        }
+      }
+      uint4 xr[kBatch], gq[kBatch], rq[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (!ok[u]) continue;
+        xr[u] = fetch<T>(slot, p.cap, 0, qs[u], t.fit, p.x, es[u], keep);
+        gq[u] = fetch<T>(slot, p.cap, 1, qs[u], t.fit, p.g, es[u], keep);
+        if (p.gate_res) rq[u] = fetch<T>(slot, p.cap, 2, qs[u], t.fit, p.res, es[u], keep);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (!ok[u]) continue;
+        float xv[V], gv[V], rv[V];
+        unpack<T>(xv, xr[u]);
+        unpack<T>(gv, gq[u]);
+        if (p.gate_res) {
+          unpack<T>(rv, rq[u]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < V; ++k) rv[k] = 0.f;
+        }
+        const int e0 = e0s[u];
+        const bool whole = e0 >= lo && e0 + V <= hi;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          if (whole || (e0 + k >= lo && e0 + k < hi)) {
+            float gk = gv[k];
+            if (p.relu && !(bn::pre_act(xv[k], a, bb, p.gate_res, rv[k]) > 0.f)) gk = 0.f;
+            s1 += gk;
+            s2 += gk * ((xv[k] - mean) * rstd);
+          }
+        }
+      }
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      red[tc * W + wi] = s1;
+      red[kMaxGroupC + tc * W + wi] = s2;
+    }
+  }
+  __syncthreads();
+  float* out = p.part + (size_t)gr.c0 * 2 * gridDim.x + (size_t)t.id * 2 * gr.cn;
+  for (int tc = threadIdx.x; tc < t.nch; tc += kThreads) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int i = 0; i < W; ++i) {
+      t1 += red[tc * W + i];
+      t2 += red[kMaxGroupC + tc * W + i];
+    }
+    out[t.ch_lo + tc] = t1;
+    out[gr.cn + t.ch_lo + tc] = t2;
+  }
+}
+
+// reduce's fast path, for HW a whole number of vectors and a tile of at
+// most two channels (the stems' and layer 1's): every vector lies in one
+// channel, the two channels' coefficients sit in registers, the block's
+// threads take the tile's vectors in order; the sums per thread, then per
+// warp, then the warps in order
+template <typename T>
+__device__ void reduce2(const Args& p, const Group& gr, const Tile& t, const uint4* slot,
+                        float* red, uint64_t keep) {
+  constexpr int V = Vec<T>::n;
+  const int b1 = (t.ch_lo + 1) * (p.hw / V) - t.v0;  // the second channel's first column
+  float mean[2], rstd[2], a[2], bb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = gr.c0 + t.ch_lo + min(i, t.nch - 1);
+    mean[i] = p.mean[c];
+    bn::fold_ab(p.w[c], p.b[c], mean[i], p.var[c], p.eps, rstd[i], a[i], bb[i]);
+  }
+  float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+  const int dr = kThreads / t.w, dc = kThreads - dr * t.w;
+  int r = threadIdx.x / t.w, col = threadIdx.x - r * t.w;
+  while (r < t.rows) {
+    int qs[kBatch], cols[kBatch];
+    long long es[kBatch];
+    bool ok[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      ok[u] = r < t.rows;
+      qs[u] = r * t.w + col;
+      cols[u] = col;
+      es[u] = ((long long)(t.n0 + r) * p.c + gr.c0) * p.hw + (long long)(t.v0 + col) * V;
+      r += dr;
+      col += dc;
+      if (col >= t.w) {
+        col -= t.w;
+        ++r;
+      }
+    }
+    uint4 xr[kBatch], gq[kBatch], rq[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (!ok[u]) continue;
+      xr[u] = fetch<T>(slot, p.cap, 0, qs[u], t.fit, p.x, es[u], keep);
+      gq[u] = fetch<T>(slot, p.cap, 1, qs[u], t.fit, p.g, es[u], keep);
+      if (p.gate_res) rq[u] = fetch<T>(slot, p.cap, 2, qs[u], t.fit, p.res, es[u], keep);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (!ok[u]) continue;
+      float xv[V], gv[V], rv[V];
+      unpack<T>(xv, xr[u]);
+      unpack<T>(gv, gq[u]);
+      if (p.gate_res) {
+        unpack<T>(rv, rq[u]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) rv[k] = 0.f;
+      }
+      const bool second = cols[u] >= b1;
+      const float m = second ? mean[1] : mean[0], rs = second ? rstd[1] : rstd[0];
+      const float ai = second ? a[1] : a[0], bi = second ? bb[1] : bb[0];
+      float v1 = 0.f, v2 = 0.f;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        float gk = gv[k];
+        if (p.relu && !(bn::pre_act(xv[k], ai, bi, p.gate_res, rv[k]) > 0.f)) gk = 0.f;
+        v1 += gk;
+        v2 += gk * ((xv[k] - m) * rs);
+      }
+      if (second) {
+        s1[1] += v1;
+        s2[1] += v2;
+      } else {
+        s1[0] += v1;
+        s2[0] += v2;
+      }
+    }
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    s1[i] = warp_sum(s1[i]);
+    s2[i] = warp_sum(s2[i]);
+    if (lane == 0) {
+      red[i * kWarps + warp] = s1[i];
+      red[(2 + i) * kWarps + warp] = s2[i];
+    }
+  }
+  __syncthreads();
+  float* out = p.part + (size_t)gr.c0 * 2 * gridDim.x + (size_t)t.id * 2 * gr.cn;
+  if (threadIdx.x < 2 * t.nch) {  // (statistic, channel)
+    const int st = threadIdx.x / t.nch, i = threadIdx.x - st * t.nch;
+    float tot = 0.f;
+    for (int w = 0; w < kWarps; ++w) tot += red[(2 * st + i) * kWarps + w];
+    out[st * gr.cn + t.ch_lo + i] = tot;
+  }
+}
+
+// the runs a statistic of a channel is folded in: a power of two, at most
+// a warp, that keeps 2 cn x runs within the block (1 at 2 cn >= kThreads)
+__device__ __forceinline__ int fold_runs(int items) {
+  if (items >= kThreads) return 1;
+  const int r = min(32, kThreads / items);
+  return 1 << (31 - __clz(r));
+}
+
+// the sum of item (statistic s, channel cl)'s partials in run sp of
+// `runs`: the tiles holding the channel in tile order, 8 loads in flight
+__device__ __forceinline__ float fold_run(const Args& p, const Group& gr, const float* part,
+                                          int V, int s, int cl, int sp, int runs) {
+  const int rows = (p.n + gr.th - 1) / gr.th;
+  const int vhi = ((cl + 1) * p.hw + V - 1) / V - 1;  // the channel's last vector
+  const int jlo = cl * p.hw / V / gr.tw, nj = vhi / gr.tw - jlo + 1, kn = rows * nj;
+  const int k0 = (int)((long long)sp * kn / runs), k1 = (int)((long long)(sp + 1) * kn / runs);
+  float acc = 0.f;
+  for (int kk = k0; kk < k1; kk += 8) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int q = kk + u, i = q / nj, tile = i * gr.cols + jlo + (q - i * nj);
+      v[u] = (q < k1 && tile != p.skip) ? __ldcg(part + ((size_t)tile * 2 + s) * gr.cn + cl)
+                                        : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc += v[u];
+  }
+  return acc;
+}
+
+// the last block of a group: each statistic and channel's partials in tile
+// order, in `runs` contiguous runs whose sums a warp adds as a butterfly
+// (a fixed order), then the coefficients, dw and db
+__device__ void fold(const Args& p, const Group& gr, int V, float* red) {
+  const float* part = p.part + (size_t)gr.c0 * 2 * gridDim.x;
+  const int items = 2 * gr.cn, runs = fold_runs(items);
+  if (runs == 1) {
+    for (int it = threadIdx.x; it < items; it += kThreads) {
+      const int s = it / gr.cn;
+      red[it] = fold_run(p, gr, part, V, s, it - s * gr.cn, 0, 1);
+    }
+  } else {
+    const int u = threadIdx.x, it = u / runs, sp = u - it * runs;
+    float acc = 0.f;
+    if (it < items) {
+      const int s = it / gr.cn;
+      acc = fold_run(p, gr, part, V, s, it - s * gr.cn, sp, runs);
+    }
+    for (int o = runs / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (it < items && sp == 0) red[it] = acc;
+  }
+  __syncthreads();
+  for (int cl = threadIdx.x; cl < gr.cn; cl += kThreads) {
+    const int c = gr.c0 + cl;
+    const float sg = red[cl], sgx = red[gr.cn + cl];
+    float a, bb, p2, p3;
+    bn::fold_bwd(p.w[c], p.b[c], p.mean[c], p.var[c], p.eps, (float)p.m, sg, sgx,
+                 p.gmean ? p.gmean[c] : 0.f, p.gvar ? p.gvar[c] : 0.f, a, bb, p2, p3);
+    p.coef[c] = a;
+    p.coef[p.c + c] = bb;
+    p.coef[2 * p.c + c] = p2;
+    p.coef[3 * p.c + c] = p3;
+    p.dw[c] = sgx;
+    p.db[c] = sg;
+  }
+}
+
+// dx and dres of the tile, from the slot (and past it from device memory);
+// cs: the tile's channels' a, b', p2, p3 [4, kMaxGroupC]
+template <typename T>
+__device__ void apply(const Args& p, const Group& gr, const Tile& t, const uint4* slot,
+                      const float* cs, uint64_t pol) {
+  constexpr int V = Vec<T>::n;
+  T* dx = static_cast<T*>(p.dx);
+  T* dres = static_cast<T*>(p.dres);
+  // (r, col): this thread's vector, stepped by the block without a division;
+  // kBatch vectors' loads in flight
+  const int dr = kThreads / t.w, dc = kThreads - dr * t.w;
+  int r = threadIdx.x / t.w, col = threadIdx.x - r * t.w;
+  while (r < t.rows) {
+    int qs[kBatch], vvs[kBatch];
+    long long es[kBatch];
+    bool ok[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      ok[u] = r < t.rows;
+      qs[u] = r * t.w + col;
+      vvs[u] = t.v0 + col;
+      es[u] = ((long long)(t.n0 + r) * p.c + gr.c0) * p.hw + (long long)vvs[u] * V;
+      r += dr;
+      col += dc;
+      if (col >= t.w) {
+        col -= t.w;
+        ++r;
+      }
+    }
+    uint4 xr[kBatch], gq[kBatch], rq[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (!ok[u]) continue;
+      xr[u] = fetch<T>(slot, p.cap, 0, qs[u], t.fit, p.x, es[u], pol);
+      gq[u] = fetch<T>(slot, p.cap, 1, qs[u], t.fit, p.g, es[u], pol);
+      if (p.gate_res) rq[u] = fetch<T>(slot, p.cap, 2, qs[u], t.fit, p.res, es[u], pol);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (!ok[u]) continue;
+      float xv[V], gv[V], rv[V], o[V], o2[V];
+      unpack<T>(xv, xr[u]);
+      unpack<T>(gv, gq[u]);
+      if (p.gate_res) {
+        unpack<T>(rv, rq[u]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) rv[k] = 0.f;
+      }
+      const int e0 = vvs[u] * V, cl = e0 / p.hw;
+      int within = e0 - cl * p.hw, tc = cl - t.ch_lo;
+      if (within + V <= p.hw) {  // the vector lies in one channel
+        const float a = cs[tc], bb = cs[kMaxGroupC + tc];
+        const float p2 = cs[2 * kMaxGroupC + tc], p3 = cs[3 * kMaxGroupC + tc];
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float gk =
+              (p.relu && !(bn::pre_act(xv[k], a, bb, p.gate_res, rv[k]) > 0.f)) ? 0.f : gv[k];
+          o[k] = __fadd_rn(__fadd_rn(__fmul_rn(a, gk), __fmul_rn(xv[k], p2)), p3);
+          o2[k] = gk;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          if (k > 0 && ++within == p.hw) {
+            within = 0;
+            ++tc;
+          }
+          const float a = cs[tc], bb = cs[kMaxGroupC + tc];
+          const float p2 = cs[2 * kMaxGroupC + tc], p3 = cs[3 * kMaxGroupC + tc];
+          const float gk =
+              (p.relu && !(bn::pre_act(xv[k], a, bb, p.gate_res, rv[k]) > 0.f)) ? 0.f : gv[k];
+          o[k] = __fadd_rn(__fadd_rn(__fmul_rn(a, gk), __fmul_rn(xv[k], p2)), p3);
+          o2[k] = gk;
+        }
+      }
+      st_stream(dx + es[u], pack<T>(o));
+      if (dres) st_stream(dres + es[u], pack<T>(o2));
+    }
+  }
+}
+
+// apply's fast path, for reduce2's tiles: the two channels' a, b', p2, p3
+// in registers
+template <typename T>
+__device__ void apply2(const Args& p, const Group& gr, const Tile& t, const uint4* slot,
+                       const float* cs, uint64_t pol) {
+  constexpr int V = Vec<T>::n;
+  T* dx = static_cast<T*>(p.dx);
+  T* dres = static_cast<T*>(p.dres);
+  const int b1 = (t.ch_lo + 1) * (p.hw / V) - t.v0, last = t.nch - 1;
+  const float a0 = cs[0], a1 = cs[last], bb0 = cs[kMaxGroupC], bb1 = cs[kMaxGroupC + last];
+  const float p20 = cs[2 * kMaxGroupC], p21 = cs[2 * kMaxGroupC + last];
+  const float p30 = cs[3 * kMaxGroupC], p31 = cs[3 * kMaxGroupC + last];
+  const int dr = kThreads / t.w, dc = kThreads - dr * t.w;
+  int r = threadIdx.x / t.w, col = threadIdx.x - r * t.w;
+  while (r < t.rows) {
+    int qs[kBatch], cols[kBatch];
+    long long es[kBatch];
+    bool ok[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      ok[u] = r < t.rows;
+      qs[u] = r * t.w + col;
+      cols[u] = col;
+      es[u] = ((long long)(t.n0 + r) * p.c + gr.c0) * p.hw + (long long)(t.v0 + col) * V;
+      r += dr;
+      col += dc;
+      if (col >= t.w) {
+        col -= t.w;
+        ++r;
+      }
+    }
+    uint4 xr[kBatch], gq[kBatch], rq[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (!ok[u]) continue;
+      xr[u] = fetch<T>(slot, p.cap, 0, qs[u], t.fit, p.x, es[u], pol);
+      gq[u] = fetch<T>(slot, p.cap, 1, qs[u], t.fit, p.g, es[u], pol);
+      if (p.gate_res) rq[u] = fetch<T>(slot, p.cap, 2, qs[u], t.fit, p.res, es[u], pol);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (!ok[u]) continue;
+      float xv[V], gv[V], rv[V], o[V], o2[V];
+      unpack<T>(xv, xr[u]);
+      unpack<T>(gv, gq[u]);
+      if (p.gate_res) {
+        unpack<T>(rv, rq[u]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) rv[k] = 0.f;
+      }
+      const bool second = cols[u] >= b1;
+      const float a = second ? a1 : a0, bb = second ? bb1 : bb0;
+      const float p2 = second ? p21 : p20, p3 = second ? p31 : p30;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float gk =
+            (p.relu && !(bn::pre_act(xv[k], a, bb, p.gate_res, rv[k]) > 0.f)) ? 0.f : gv[k];
+        o[k] = __fadd_rn(__fadd_rn(__fmul_rn(a, gk), __fmul_rn(xv[k], p2)), p3);
+        o2[k] = gk;
+      }
+      st_stream(dx + es[u], pack<T>(o));
+      if (dres) st_stream(dres + es[u], pack<T>(o2));
+    }
+  }
+}
+
+// see the design note; kLag + 1 slots (none in the L2-only design)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) bn_bwd_persist(Args p) {
+  constexpr int V = Vec<T>::n, S = kLag + 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* slots = reinterpret_cast<uint4*>(smem);
+  const size_t slot_vecs = kL2Only ? 0 : (size_t)(p.gate_res ? 3 : 2) * p.cap;
+  float* red = reinterpret_cast<float*>(slots + S * slot_vecs);  // [2, kMaxGroupC]
+  float* cs = red + 2 * kMaxGroupC;                              // [4, kMaxGroupC]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(cs + 4 * kMaxGroupC);
+  int* last_s = reinterpret_cast<int*>(bar + S);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&bar[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const uint64_t keep = policy_evict_last(), once = policy_evict_first();
+  // the block's team and its place in it: team tm takes groups tm, tm +
+  // kTeams, ...; its i-th group sits in slot i % S
+  const int per_team = gridDim.x / kTeams, tm = blockIdx.x / per_team;
+  const int b = blockIdx.x - tm * per_team;
+  const int mine = (p.groups - tm + kTeams - 1) / kTeams;  // the team's groups
+  if (!kL2Only && threadIdx.x < 32) {
+    for (int i = 0; i < S && i < mine; ++i) {
+      const Group gr = group_of(p, tm + i * kTeams, V);
+      const Tile t = tile_of(p, gr, b, V);
+      if (t.rows && t.fit) issue<T>(p, gr, t, slots + i * slot_vecs, &bar[i]);
+    }
+  }
+  uint32_t phase = 0;
+  for (int i = 0; i < mine; ++i) {
+    const int j = tm + i * kTeams, s = i % S;
+    const Group gr = group_of(p, j, V);
+    const Tile t = tile_of(p, gr, b, V);
+    if (t.rows) {  // reduce the team's i-th group, fold it if this block is its last
+      if (t.fit) {
+        mbar_wait(&bar[s], (phase >> s) & 1u);
+        phase ^= 1u << s;
+      }
+      if (p.hw % V == 0 && t.nch <= 2) {
+        reduce2<T>(p, gr, t, slots + s * slot_vecs, red, keep);
+      } else {
+        reduce<T>(p, gr, t, slots + s * slot_vecs, red, keep);
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) *last_s = atom_add_acq_rel(p.cnt + j, 1u) + 1 == (unsigned)gr.tiles;
+      __syncthreads();
+      if (*last_s) {
+        fold(p, gr, V, red);
+        __syncthreads();
+        if (threadIdx.x == 0) st_release(p.cnt + p.groups + j, 1u);
+      }
+      // apply it once its flag is set
+      if (threadIdx.x == 0) wait_flag(p.cnt + p.groups + j);
+      __syncthreads();
+      for (int tc = threadIdx.x; tc < t.nch; tc += kThreads) {
+        const int c = gr.c0 + t.ch_lo + tc;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) cs[k * kMaxGroupC + tc] = __ldcg(p.coef + k * p.c + c);
+      }
+      __syncthreads();
+      if (p.hw % V == 0 && t.nch <= 2) {
+        apply2<T>(p, gr, t, slots + s * slot_vecs, cs, once);
+      } else {
+        apply<T>(p, gr, t, slots + s * slot_vecs, cs, once);
+      }
+      __syncthreads();
+    }
+    if (!kL2Only && threadIdx.x < 32 && i + S < mine) {  // the freed slot
+      const Group g2 = group_of(p, j + S * kTeams, V);
+      const Tile t2 = tile_of(p, g2, b, V);
+      if (t2.rows && t2.fit) issue<T>(p, g2, t2, slots + s * slot_vecs, &bar[s]);
+    }
+  }
+}
+
+// ---- the plan, on the host (norm_fusion.bn_tiles / bn_bwd_plan mirror it)
+
+inline int gcd_int(int a, int b) {
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
+// the tile of a group's n rows of lv vectors on `parts` blocks: the
+// smallest th x tw, rows at least kMinSpan vectors where lv allows, then
+// the fewest image slices
+inline void tiles(int n, long long lv, int parts, int& th, int& tw) {
+  const long long cols_cap = std::max(1LL, lv / kMinSpan);
+  long long best = -1;
+  const int top = std::min(n, parts);
+  for (int ns = 1; ns <= top; ++ns) {
+    const long long cs = std::max(1LL, std::min((long long)(parts / ns), cols_cap));
+    const long long w = (lv + cs - 1) / cs, h = ((long long)n + ns - 1) / ns;
+    if (best < 0 || h * w < best) {
+      best = h * w;
+      th = (int)h;
+      tw = (int)w;
+    }
+  }
+}
+
+struct Plan {
+  int cg, groups, th, tw, cg_last, th_last, tw_last, cap;
+};
+
+// vec: elements a 16-byte vector; k: tensors a slot holds (x, g, res);
+// parts: the blocks of one team (the grid / teams), each a tile of a
+// group; a block's share of a group: slot_bytes in its shared-memory slot
+// and l2_bytes / parts more read from device memory (kept in L2 between
+// the reduction and the apply)
+inline int plan(int n, int c, int hw, int vec, int k, int parts, int slot_bytes, int l2_bytes,
+                Plan& pl) {
+  const long long share = (long long)slot_bytes + (parts > 0 ? l2_bytes / parts : 0);
+  if (n < 1 || c < 1 || hw < 1 || parts < 1 || (vec != 4 && vec != 8) || k < 2 || k > 3 ||
+      slot_bytes < 0 || l2_bytes < 0 || share < 16 * k)
+    return (int)cudaErrorInvalidValue;
+  const int unit = vec / gcd_int(hw, vec);
+  if (c % unit) return (int)cudaErrorInvalidValue;
+  pl.cap = slot_bytes / (16 * k);
+  const long long tile_cap = share / (16 * k);
+  const long long per_channel = (long long)n * hw * (16 / vec) * k;
+  long long cg = std::min(c, kMaxGroupC);
+  cg = std::min(cg, (long long)parts * share / per_channel);
+  cg = std::max((long long)unit, cg / unit * unit);
+  int th = 1, tw = 1;
+  for (;; cg -= unit) {
+    tiles(n, cg * hw / vec, parts, th, tw);
+    if (cg == unit || (long long)th * tw <= tile_cap) break;
+  }
+  pl.cg = (int)cg;
+  pl.th = th;
+  pl.tw = tw;
+  pl.groups = (c + pl.cg - 1) / pl.cg;
+  pl.cg_last = c - (pl.groups - 1) * pl.cg;
+  tiles(n, (long long)pl.cg_last * hw / vec, parts, pl.th_last, pl.tw_last);
+  return 0;
+}
+
+// the grid: kBlocksPerSm blocks on each of the device's SMs (-1 on an error)
+inline int grid_parts() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+    return -1;
+  return kBlocksPerSm * sms;
+}
+
+template <typename T>
+int launch(const Args& p, int parts, cudaStream_t s) {
+  const int k = p.gate_res ? 3 : 2;
+  const size_t smem = (kL2Only ? 0 : (size_t)(kLag + 1) * k * p.cap * 16) + kScratch;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = bn_bwd_persist<T>;
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem);
+  if (rc) return rc;
+  rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+  if (rc) return rc;
+  int per_sm = 0;
+  if ((rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)))
+    return rc;
+  if (per_sm < kBlocksPerSm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  rc = (int)cudaMemsetAsync(p.cnt, 0, 2 * (size_t)p.groups * sizeof(unsigned), s);
+  if (rc) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(parts);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  rc = (int)cudaLaunchKernelEx(&cfg, kernel, p);
+  if (rc) return rc;
+  return (int)cudaGetLastError();
+}
+
+// scratch: f32 [6C + 2PC + 2G] (P = grid_parts()): coef [4, C], dw [C],
+// db [C], part [P, 2, C], then the counters and flags [2, G] (u32)
+template <typename T>
+int run(Args p, float* scratch, cudaStream_t s) {
+  constexpr int V = Vec<T>::n;
+  const int parts = grid_parts();
+  if (parts < kTeams || parts % kTeams) return (int)cudaErrorInvalidValue;
+  if (p.n < 1 || p.c < 8 || p.c % 8 || p.hw < 1 || p.c > 65535 ||
+      (long long)p.n * p.c * p.hw / V >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  Plan pl;
+  if (int rc = plan(p.n, p.c, p.hw, V, p.gate_res ? 3 : 2, parts / kTeams, kSlotBytes, kL2Bytes,
+                    pl))
+    return rc;
+  if ((long long)pl.cg * p.hw >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  p.groups = pl.groups, p.cg = pl.cg, p.th = pl.th, p.tw = pl.tw;
+  p.cg_last = pl.cg_last, p.th_last = pl.th_last, p.tw_last = pl.tw_last, p.cap = pl.cap;
+  p.m = (long long)p.n * p.hw;
+  p.coef = scratch;
+  p.dw = scratch + 4 * (size_t)p.c;
+  p.db = scratch + 5 * (size_t)p.c;
+  p.part = scratch + 6 * (size_t)p.c;
+  p.cnt = reinterpret_cast<unsigned*>(scratch + 6 * (size_t)p.c + 2 * (size_t)parts * p.c);
+  return launch<T>(p, parts, s);
+}
+
+}  // namespace bnb
 
 }  // namespace
 
@@ -1204,6 +2097,46 @@ FUSED_BN_FWD(bf16, __nv_bfloat16)
   }
 FUSED_BN_BWD(f32, float)
 FUSED_BN_BWD(bf16, __nv_bfloat16)
+
+// The persistent route (bnb): fused_bn_bwd's tensors, with dw, db, the
+// partials, the coefficients and the counters in one f32 scratch [6C + 2PC
+// + 2G] (bnb::run's layout; P = 2 blocks an SM x SMs, G the plan's
+// groups); skip: a planted fault, every fold leaving out tile `skip`'s
+// partial (-1: none). A memset of the counters, then one launch.
+#define FUSED_BN_BWD_PERSIST(SUFFIX, T)                                                      \
+  int fused_bn_bwd_persist_##SUFFIX(const void* x, const void* res, const void* w,           \
+                                    const void* b, const void* mean, const void* var,        \
+                                    const void* g, const void* gmean, const void* gvar,      \
+                                    void* dx, void* dres, void* scratch, int n, int c,       \
+                                    int hw, float eps, int relu, int skip, void* stream) {   \
+    bnb::Args p{};                                                                           \
+    p.x = x, p.res = res, p.g = g, p.w = static_cast<const float*>(w);                       \
+    p.b = static_cast<const float*>(b), p.mean = static_cast<const float*>(mean);            \
+    p.var = static_cast<const float*>(var), p.gmean = static_cast<const float*>(gmean);      \
+    p.gvar = static_cast<const float*>(gvar), p.dx = dx, p.dres = dres;                      \
+    p.n = n, p.c = c, p.hw = hw, p.relu = relu, p.gate_res = relu && res, p.skip = skip;     \
+    p.eps = eps;                                                                             \
+    const std::initializer_list<const void*> rows = {x, res, g, dx, dres, scratch};          \
+    for (const void* r : rows)                                                               \
+      if (r && !aligned16(r)) return (int)cudaErrorMisalignedAddress;                        \
+    return bnb::run<T>(p, static_cast<float*>(scratch), static_cast<cudaStream_t>(stream));  \
+  }
+FUSED_BN_BWD_PERSIST(f32, float)
+FUSED_BN_BWD_PERSIST(bf16, __nv_bfloat16)
+
+// the persistent route's plan as bnb::run reckons it on `sms` SMs, for a
+// check of its Python mirror (norm_fusion.bn_bwd_plan): out[8] = cg,
+// groups, th, tw, cg_last, th_last, tw_last, cap; vec: elements a 16-byte
+// vector; tensors: 2 (x, g) or 3 (and the residual)
+int fused_bn_bwd_plan(int n, int c, int hw, int vec, int tensors, int sms, int* out) {
+  bnb::Plan pl;
+  if (int rc = bnb::plan(n, c, hw, vec, tensors, bnb::kBlocksPerSm * sms / bnb::kTeams,
+                         bnb::kSlotBytes, bnb::kL2Bytes, pl))
+    return rc;
+  const int v[8] = {pl.cg, pl.groups, pl.th, pl.tw, pl.cg_last, pl.th_last, pl.tw_last, pl.cap};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
 
 // the reduction's parts (row count of the part workspace) for N planes of HW
 int fused_bn_parts(int n, int hw) { return n < 1 || hw < 1 ? 0 : bn::nparts(n, hw); }

@@ -48,22 +48,33 @@ vectors, at most 32 elements a lane: two blocks an SM, each over a
 contiguous run of rows, ``ln_bwd_plan``; the next row in flight while a
 warp computes the current one; the column sums in registers across the
 run, one partial row a block) and ``generic`` (the 32-row kernels: every
-other shape); ``ln_bwd_routes`` counts CUDA calls by route. For CPU
-tensors they take the plain PyTorch versions ``fused_ln_fwd_ref`` /
-``fused_ln_bwd_ref`` and
-``fused_bn_fwd_ref`` / ``fused_bn_bwd_ref``. ``launches`` counts calls
-that launch the kernels (CPU calls do not count), one per op call: the
-LayerNorm backward's second launch (the fixed-order sum of its column
-partials) counts under ``fused_ln_bwd``, and each BatchNorm op's four
-launches (reduction, ``sum_parts``, the per-channel fold, apply) count
-once.
+other shape); ``ln_bwd_routes`` counts CUDA calls by route. The
+BatchNorm backward takes the ``persistent`` route for every call the op
+takes (``bn_bwd_route``): one cooperative launch that works through the
+channels group by group (``bn_bwd_plan``): each block reduces its tile of
+a group, the block that finishes a group last folds it, every block then
+applies its tile; a tile's first vectors come through a shared-memory
+slot, loaded while the block works on the group before, and so are read
+once, the rest is read again from device memory by the apply (the
+measured-fastest split, ``BN_L2_BYTES``); the ``generic`` kernels
+(reduction, ``sum_parts``, fold, apply) stay reachable only by naming
+them (``_bn_bwd_cuda(..., route="generic")``) for an in-call comparison;
+``bn_bwd_routes`` counts CUDA calls by route.
+For CPU tensors they take the plain PyTorch versions ``fused_ln_fwd_ref``
+/ ``fused_ln_bwd_ref`` and ``fused_bn_fwd_ref`` / ``fused_bn_bwd_ref``.
+``launches`` counts calls that launch the kernels (CPU calls do not
+count), one per op call: the LayerNorm backward's second launch (the
+fixed-order sum of its column partials) counts under ``fused_ln_bwd``,
+the BatchNorm forward's four launches (reduction, ``sum_parts``, the
+per-channel fold, apply) count once, and so does the backward's memset of
+its counters and its one launch.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -74,7 +85,9 @@ from .flash_attention import (DropKey, _ceil_to, _drop_args, _on, drop_key,
                               row_bits_ref)
 from .flash_attention import seed_pair as _seed_pair
 
-__all__ = ["bn_eligible", "dropout_launches", "fused_batch_norm_train",
+__all__ = ["bn_bwd_plan", "bn_bwd_route", "bn_bwd_routes", "bn_bwd_tiles",
+           "bn_eligible", "bn_tiles", "dropout_launches",
+           "fused_batch_norm_train",
            "fused_bn_bwd", "fused_bn_bwd_ref", "fused_bn_fwd",
            "fused_bn_fwd_ref", "fused_layer_norm_2d", "fused_ln_fwd",
            "fused_ln_bwd", "fused_ln_fwd_ref", "fused_ln_bwd_ref", "launches",
@@ -178,7 +191,10 @@ _ARGTYPES = {"ln_fwd": [_P] * 8 + [_I, _I, _F] + _DROP + [_P],
              "ln_bwd": [_P] * 11 + [_I, _I, _I] + _DROP + [_P],
              "ln_bwd_persist": [_P] * 11 + [_I, _I, _I] + _DROP + [_I, _P],
              "fused_bn_fwd": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
-             "fused_bn_bwd": [_P] * 15 + [_I, _I, _I, _F, _I, _P]}
+             "fused_bn_bwd": [_P] * 15 + [_I, _I, _I, _F, _I, _P],
+             # fused_bn_bwd's tensors with one scratch, then n, c, hw, eps,
+             # relu, skip
+             "fused_bn_bwd_persist": [_P] * 12 + [_I, _I, _I, _F, _I, _I, _P]}
 
 
 @functools.cache
@@ -187,6 +203,8 @@ def _lib():
                          ints=("ln_rows_per_part",))
     lib.fused_bn_parts.argtypes = [_I, _I]
     lib.fused_bn_parts.restype = _I
+    lib.fused_bn_bwd_plan.argtypes = [_I] * 6 + [_P]
+    lib.fused_bn_bwd_plan.restype = _I
     return lib
 
 
@@ -281,8 +299,15 @@ def ln_bwd_plan(r: int, sms: int):
 ln_bwd_routes = {"persistent": 0, "generic": 0}
 
 
+_sm_counts: dict = {}
+
+
 def _sm_count(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+    n = _sm_counts.get(dev)
+    if n is None:
+        n = _sm_counts[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
 
 
 def _bwd_part(lib, route, r, hd, nacc, dev):
@@ -580,28 +605,230 @@ def _bn_fwd_cuda(x, res, w, b, eps, relu):
     return y, mean, var
 
 
-def _bn_bwd_cuda(x, res, w, b, mean, var, g, gmean, gvar, eps, relu):
-    """(dx, dres or None, dw, db): the rows in x's dtype, the sums f32."""
+# the persistent backward (csrc/norm_fusion.cu namespace bnb): its
+# constants, mirrored by bn_bwd_plan
+BN_THREADS = 256                # kThreads
+BN_SMEM_PER_SM = 233472         # kSmemPerSm: an SM's shared memory on sm_90
+BN_BLOCK_RESERVE = 1024         # kBlockReserve: the runtime's share a block
+BN_SCRATCH = 6400               # kScratch: a block's sums, coefficients
+BN_MAX_GROUP_C = 256            # kMaxGroupC: channels a group holds at most
+BN_MIN_SPAN = 64                # kMinSpan: vectors a tile's rows span at least
+BN_BLOCKS_PER_SM = 2            # kBlocksPerSm: the grid, two blocks an SM
+BN_TEAMS = 2                    # kTeams: teams taking every other group
+BN_LAG = 1                      # kLag: two slots a block
+BN_L2_BYTES = 24 * 10 ** 6      # kL2Bytes: a group's bytes past the slots
+# kSlotBytes: one slot, a block's share of the SM less the runtime's
+# reserve and the scratch, over the slots, in whole 128 bytes (54656)
+BN_SLOT_BYTES = ((BN_SMEM_PER_SM // BN_BLOCKS_PER_SM - BN_BLOCK_RESERVE
+                  - BN_SCRATCH) // (BN_LAG + 1) // 128 * 128)
+
+
+def bn_bwd_route(dtype, c: int) -> str:
+    """The BatchNorm backward kernel a CUDA call takes: ``"persistent"``
+    for every call the op takes (float32 or bfloat16, C % 8 == 0, C <=
+    65535; ``_bn_check`` refuses tensors that are not contiguous and
+    16-byte aligned); anything else raises, as the op does: no shape falls
+    back to the generic kernels."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_bn_bwd takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if not bn_eligible(c) or c > 65535:
+        raise ValueError(f"fused_bn_bwd takes C % 8 == 0 and C <= 65535, got "
+                         f"C={c}")
+    return "persistent"
+
+
+def bn_tiles(n: int, lv: int, parts: int) -> Tuple[int, int]:
+    """(th, tw): the tile of a group of n rows of lv vectors on ``parts``
+    blocks, as ``tiles()`` in the CUDA source picks it: over the image
+    slices ns = 1 .. min(n, parts), cs = max(1, min(parts // ns, lv //
+    BN_MIN_SPAN)) column chunks, the smallest th·tw (th = ceil(n / ns), tw
+    = ceil(lv / cs)), the first ns on a tie."""
+    cols_cap = max(1, lv // BN_MIN_SPAN)
+    best = None
+    for ns in range(1, min(n, parts) + 1):
+        cs = max(1, min(parts // ns, cols_cap))
+        tw, th = -(-lv // cs), -(-n // ns)
+        if best is None or th * tw < best[0]:
+            best = (th * tw, th, tw)
+    return best[1], best[2]
+
+
+class BnGroup(NamedTuple):
+    """A group of channels [c0, c0 + cn): lv vectors an image row, a grid
+    of th-image by tw-vector tiles, ``cols`` columns, ``tiles`` in all."""
+    c0: int
+    cn: int
+    lv: int
+    th: int
+    tw: int
+    cols: int
+    tiles: int
+
+
+class BnBwdPlan(NamedTuple):
+    n: int
+    c: int
+    hw: int
+    vec: int            # elements a 16-byte vector
+    tensors: int        # x, g (2) and the residual (3) a slot holds
+    parts: int          # the grid: blocks an SM x SMs
+    teams: int          # team t of parts / teams blocks takes groups t, t + teams, ...
+    team_parts: int     # blocks of a team: a group's tiles at most
+    slot_bytes: int     # 0: the L2-only variant
+    l2_bytes: int       # a group's bytes past the slots, kept in L2
+    cap: int            # vectors of one tensor a slot holds
+    tile_cap: int       # vectors of one tensor a tile holds (slot and L2)
+    unit: int           # a group's start and size: multiples of unit channels
+    cg: int             # channels a group (the last may hold fewer)
+    groups: Tuple[BnGroup, ...]
+
+
+class BnTile(NamedTuple):
+    """Block ``block``'s share of a group: images [n0, n0 + rows) by row
+    vectors [v0, v0 + w); its first ``fit`` vectors go through the slot;
+    channels ch_lo .. ch_lo + nch - 1 of the group."""
+    block: int
+    n0: int
+    rows: int
+    v0: int
+    w: int
+    fit: int
+    ch_lo: int
+    nch: int
+
+
+@functools.lru_cache(maxsize=256)
+def _bn_plan(n: int, c: int, hw: int, dtype, tensors: int, parts: int,
+            teams: int, slot_bytes: int, l2_bytes: int) -> BnBwdPlan:
+    """``bnb::plan`` for a grid of ``parts`` blocks in ``teams`` teams, team
+    t taking groups t, t + teams, ...: a block's share of a group is one
+    slot (``slot_bytes``; 0: no slot) and l2_bytes / team_parts more that
+    it reads past the slot; groups of cg consecutive channels (a multiple
+    of V / gcd(HW, V), at most BN_MAX_GROUP_C), the largest whose every
+    tile's ``tensors`` tensors fit that share, or one unit where even that
+    does not (its tiles then read past it too); each group's tiles from
+    ``bn_tiles``. The route's plan is ``bn_bwd_plan``."""
+    if n < 1 or c < 1 or hw < 1 or parts < 1 or tensors not in (2, 3):
+        raise ValueError(f"_bn_plan: N {n}, C {c}, HW {hw}, {parts} blocks, "
+                         f"tensors {tensors}")
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    unit = vec // math.gcd(hw, vec)
+    if c % unit:
+        raise ValueError(f"_bn_plan: C {c} is not a multiple of {unit}")
+    if teams < 1 or parts % teams:
+        raise ValueError(f"_bn_plan: {teams} teams of {parts} blocks")
+    team_parts = parts // teams
+    share = slot_bytes + l2_bytes // team_parts
+    if slot_bytes < 0 or l2_bytes < 0 or share < 16 * tensors:
+        raise ValueError(f"_bn_plan: slot of {slot_bytes} bytes and "
+                         f"{l2_bytes} in L2")
+    cap, tile_cap = slot_bytes // (16 * tensors), share // (16 * tensors)
+    per_channel = n * hw * (16 // vec) * tensors
+    cg = min(c, BN_MAX_GROUP_C, team_parts * share // per_channel)
+    cg = max(unit, cg // unit * unit)
+    while True:
+        th, tw = bn_tiles(n, cg * hw // vec, team_parts)
+        if cg == unit or th * tw <= tile_cap:
+            break
+        cg -= unit
+    groups = []
+    for c0 in range(0, c, cg):
+        cn = min(cg, c - c0)
+        lv = cn * hw // vec
+        th, tw = bn_tiles(n, lv, team_parts)
+        cols = -(-lv // tw)
+        groups.append(BnGroup(c0, cn, lv, th, tw, cols, -(-n // th) * cols))
+    return BnBwdPlan(n, c, hw, vec, tensors, parts, teams, team_parts,
+                     slot_bytes, l2_bytes, cap, tile_cap, unit, cg,
+                     tuple(groups))
+
+
+def bn_bwd_plan(n: int, c: int, hw: int, dtype, sms: int,
+                tensors: int = 2) -> BnBwdPlan:
+    """The persistent backward's plan on ``sms`` SMs, as ``bnb::run``
+    reckons it from the kernel's constants: BN_BLOCKS_PER_SM · sms blocks
+    in BN_TEAMS teams, slots of BN_SLOT_BYTES and BN_L2_BYTES a group past
+    them; ``tensors``: 2 (x, g) or 3 (and the residual the ReLU gate
+    reads)."""
+    if sms < 1:
+        raise ValueError(f"bn_bwd_plan: {sms} SMs")
+    return _bn_plan(n, c, hw, dtype, tensors, BN_BLOCKS_PER_SM * sms,
+                   BN_TEAMS, BN_SLOT_BYTES, BN_L2_BYTES)
+
+
+def bn_bwd_tiles(plan: BnBwdPlan, group: BnGroup):
+    """The tiles of ``group`` in the order of its team's blocks, as the
+    kernel's ``tile_of`` cuts them (blocks past the last tile sit the
+    group out); each one's first ``fit`` vectors go through the slot."""
+    out = []
+    for blk in range(group.tiles):
+        i, jc = divmod(blk, group.cols)
+        n0, v0 = i * group.th, jc * group.tw
+        rows, w = min(group.th, plan.n - n0), min(group.tw, group.lv - v0)
+        ch_lo = v0 * plan.vec // plan.hw
+        ch_hi = ((v0 + w) * plan.vec - 1) // plan.hw
+        out.append(BnTile(blk, n0, rows, v0, w, min(rows * w, plan.cap),
+                          ch_lo, ch_hi - ch_lo + 1))
+    return out
+
+
+def bn_bwd_scratch_floats(plan: BnBwdPlan) -> int:
+    """The persistent backward's f32 scratch: a, b', p2, p3 [4, C], dw and
+    db [C] each, the partials [P, 2, C], the counters and flags [2, G]."""
+    return 6 * plan.c + 2 * plan.parts * plan.c + 2 * len(plan.groups)
+
+
+# CUDA calls of the BatchNorm backward by route
+bn_bwd_routes = {"persistent": 0, "generic": 0}
+
+
+def _bn_bwd_cuda(x, res, w, b, mean, var, g, gmean, gvar, eps, relu,
+                 route=None, *, skip=-1):
+    """(dx, dres or None, dw, db): the rows in x's dtype, the sums f32; on
+    the persistent route (``route="generic"`` names the four-launch
+    kernels for an in-call comparison). ``skip`` plants a fault for the
+    checks: every fold of the persistent kernel leaves out that tile's
+    partial; the op passes none."""
     w32, b32 = _vec32(w), _vec32(b)
     gm, gv = _vec32(gmean), _vec32(gvar)
     rows = (g,) if res is None else (res, g)
     vecs = [v for v in (w32, b32, mean, var, gm, gv) if v is not None]
     n, c, hw = _bn_check("fused_bn_bwd", x, rows, vecs)
+    natural = bn_bwd_route(x.dtype, c)
+    if route is None:
+        route = natural
+    elif route not in ("persistent", "generic"):
+        raise ValueError(f"fused_bn_bwd: route {route!r} is 'persistent' or "
+                         f"'generic'")
     dev = x.device
     dx = torch.empty_like(x)
     dres = None if res is None else torch.empty_like(x)
-    sums = torch.empty((2, c), dtype=torch.float32, device=dev)
-    part = torch.empty((_bn_parts(n, hw), 2, c), dtype=torch.float32,
-                       device=dev)
-    coef = torch.empty((4, c), dtype=torch.float32, device=dev)
-    _build.call(_lib(), "fused_bn_bwd", x.dtype, dev, x.data_ptr(), _ptr(res),
-                w32.data_ptr(), b32.data_ptr(), mean.contiguous().data_ptr(),
-                var.contiguous().data_ptr(), g.data_ptr(), _ptr(gm), _ptr(gv),
-                dx.data_ptr(), _ptr(dres), sums[0].data_ptr(),
-                sums[1].data_ptr(), part.data_ptr(), coef.data_ptr(), n, c,
-                hw, float(eps), int(relu))
+    lib = _lib()
+    head = (x.data_ptr(), _ptr(res), w32.data_ptr(), b32.data_ptr(),
+            mean.contiguous().data_ptr(), var.contiguous().data_ptr(),
+            g.data_ptr(), _ptr(gm), _ptr(gv), dx.data_ptr(), _ptr(dres))
+    if route == "persistent":
+        plan = bn_bwd_plan(n, c, hw, x.dtype, _sm_count(dev),
+                           3 if relu and res is not None else 2)
+        scratch = torch.empty(bn_bwd_scratch_floats(plan),
+                              dtype=torch.float32, device=dev)
+        _build.call(lib, "fused_bn_bwd_persist", x.dtype, dev, *head,
+                    scratch.data_ptr(), n, c, hw, float(eps), int(relu),
+                    skip)
+        dw, db = scratch[4 * c:5 * c], scratch[5 * c:6 * c]
+    else:
+        sums = torch.empty((2, c), dtype=torch.float32, device=dev)
+        part = torch.empty((_bn_parts(n, hw), 2, c), dtype=torch.float32,
+                           device=dev)
+        coef = torch.empty((4, c), dtype=torch.float32, device=dev)
+        _build.call(lib, "fused_bn_bwd", x.dtype, dev, *head,
+                    sums[0].data_ptr(), sums[1].data_ptr(), part.data_ptr(),
+                    coef.data_ptr(), n, c, hw, float(eps), int(relu))
+        dw, db = sums[0], sums[1]
     launches["fused_bn_bwd"] += 1
-    return dx, dres, sums[0], sums[1]
+    bn_bwd_routes[route] += 1
+    return dx, dres, dw, db
 
 
 # ---------------------------------------------------------------------------
