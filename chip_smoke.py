@@ -19,8 +19,8 @@ Phases, one line each; any failure raises and exits non-zero:
    EpiSwiglu; P2: EpiBias with and without the dropout key, EpiSum,
    EpiStore, EpiSumLast), every wgmma kernel of fused_mlp.cu listed once,
    and of the decode split route's, the persistent LayerNorm
-   backward's and the persistent BatchNorm backward's instantiations
-   (none may spill);
+   backward's, the persistent BatchNorm backward's and the cluster
+   BatchNorm forward's instantiations (none may spill);
 3. the decode kernels against their plain PyTorch version on the card
    at the main path's shapes (GPT-3 1.3B: NH=16, D=128, HO=2048,
    block_size 16, 64-entry tables, MHA and GQA at KVH 4, positions 0,
@@ -216,38 +216,47 @@ Phases, one line each; any failure raises and exits non-zero:
    and 2 steps;
 26. parity in fp32 at bert-base width, 2 layers, B=4, S=512: loss and
    every gradient with the fused flags on vs off;
-27. the fused BatchNorm kernels (forward; backward with the mean and var
-   cotangents, every call on the persistent route and its plan the
-   Python mirror's) through their custom ops against their plain versions at
+27. the fused BatchNorm kernels (forward, every call on the cluster
+   route and its plan the Python mirror's, with the clusters the card
+   holds at once; backward with the mean and var cotangents, every call
+   on the persistent route and its plan the Python mirror's, fed the
+   forward's outputs) through their custom ops against their plain
+   versions at
    resnet50's B=256 shapes: the stem's BN (C=64, HW=12544), layer 1's bn3
    (residual + ReLU), layer 3's bn2 (HW=196, planes off 16-byte
    boundaries in bf16), layer 4's bn3 (C=2048, HW=49, residual), a
    downsample BN (no ReLU) and a BatchNorm1D shape (HW=1), f32 and
-   bf16; two backward calls give the
-   same bits; dres is g gated by the kernel's own y > 0, bit for bit;
+   bf16; two forward and two backward calls give the same bits; dres is
+   g gated by the kernel's own y > 0, bit for bit;
    autograd through fused_batch_norm_train at layer 1's bn3 in bf16
    against the plain versions and bitwise against the ops; the check
    shown to reject a forward without the residual, a forward and a
-   backward missing one reduction part and a persistent backward whose
+   backward missing one reduction part, a cluster forward whose rank 0
+   leaves out its last peer's partial and a persistent backward whose
    folds leave out one block's partial; their times at layer 1's bn3 and
    the stem beside the plain versions', the bound and F.batch_norm -> +
-   res -> relu with its autograd backward, the persistent backward in
-   turns with the generic route's kernels and its CUDA launches
-   and memsets a call;
+   res -> relu with its autograd backward, each direction's new kernel
+   in turns with the generic route's kernels and its CUDA launches
+   and memsets a call; then at all six shapes in bf16, each alone and in
+   turns: the cluster forward, the generic forward, the plain version,
+   the F.batch_norm chain, the bound and the bytes the plan reads; the
+   persistent and the generic backward;
 28. train resnet50 (random weights from a seed, bf16, full width and
    depth, FLAGS_fused_norm on as by default) through the Layer model and
    Momentum(0.1, momentum=0.9) (cross_entropy(net(x).float(), y) ->
    backward -> opt.step -> opt.clear_grad) at B=256, 3x224x224 on one
    fixed batch: one warm-up step, whose running statistics are held to
    Paddle's rule, then 4 steps; a finite loss; exactly 53 fused_bn_fwd
-   and 53 fused_bn_bwd launches per step, every backward on the
-   persistent route; ms/step, images/s, model
+   and 53 fused_bn_bwd launches per step, every forward on the cluster
+   route, every backward on the persistent route; ms/step, images/s, model
    TFLOP/s (convolution and fc flops from the shapes, x3), the Momentum
    update's ms, peak memory, the BN kernels' summed bound and the card's
    clocks;
 29. torch.profiler over 2 more resnet50 steps: busy time, idle share,
    the BN kernels' time by direction and the convolutions' share, the
-   kernels that take the time;
+   kernels that take the time (the forward's kernel launches a step as
+   the profile counts them); in turns with the generic backward, then
+   with the generic forward;
 30. the same training with FLAGS_fused_norm off (the dense BatchNorm):
    1 warm-up and 2 steps;
 31. parity in fp32 at full width, B=8, 64x64: loss, gradients and running
@@ -342,17 +351,19 @@ Phases, one line each; any failure raises and exits non-zero:
    boxes an image, 2 padding rows labelled -1): one warm-up step, whose
    running statistics are held to Paddle's rule, then 8 steps; finite
    losses, the last below the warm-up's; exactly 35 fused_bn_fwd and 35
-   fused_bn_bwd op calls a step (no residual, no ReLU), every backward on
-   the persistent route; ms/step, images/s, model TFLOP/s, peak memory,
+   fused_bn_bwd op calls a step (no residual, no ReLU), every forward on
+   the cluster route and every backward on the persistent route; ms/step,
+   images/s, model TFLOP/s, peak memory,
    the card's clocks; the dense BatchNorm (FLAGS_fused_norm off) in turns
    with the fused step; a profile of 2 steps (the BN kernels' time by
-   direction);
+   direction; its 70 forward calls on the cluster route by the counters);
 45. the fused BatchNorm kernels against their plain versions at
    PP-YOLOE's shapes (N=8: the stem's [8, 32, 102400], the stride-8
    level's [8, 128, 6400], the last stage's [8, 512, 400]; no residual,
    no ReLU), f32 and bf16, phase 27's per-case checks; the stem's shape
    timed in f32 beside the plain versions, the bound, F.batch_norm with
-   its autograd backward and the generic route's kernels in turns; the backward op's
+   its autograd backward and the generic route's kernels in turns (each
+   direction), with the bytes the forward's plan reads; the backward op's
    host time a call (the enqueue of 200 calls, no sync) on both routes
    at the stem and at layer 1's bn3;
 46. parity in fp32 (TF32 off) at ppyoloe-s's full width on 2 images of
@@ -1624,7 +1635,8 @@ def reset_launches():
     for counts in plain + drop + (fa.fwd_routes, fa.bwd_routes, mf.pl_routes,
                                   mf.swiglu_bwd_routes, mf.mlp_bwd_routes,
                                   mf.swiglu_fwd_routes, mf.mlp_fwd_routes,
-                                  nf.ln_bwd_routes, nf.bn_bwd_routes):
+                                  nf.ln_bwd_routes, nf.bn_bwd_routes,
+                                  nf.bn_fwd_routes):
         for key in counts:
             counts[key] = 0
 
@@ -1697,6 +1709,19 @@ def bn_bwd_routes_reading(counts, what, fused=True):
     check((n > 0) == fused and routes == {"persistent": n, "generic": 0},
           f"{what}: BatchNorm backward calls by route {routes}, want all {n} "
           f"on the persistent kernel (fused norms {fused})")
+    return routes
+
+
+def bn_fwd_routes_reading(counts, what, fused=True):
+    """The BatchNorm forward's calls by route since reset_launches: with
+    the fused norms every one must take the cluster kernel (the generic
+    route serves in-call comparisons only); with them off there is none."""
+    from paddle_tpu_torch.kernels import norm_fusion as nf
+    n = counts.get("fused_bn_fwd", 0)
+    routes = dict(nf.bn_fwd_routes)
+    check((n > 0) == fused and routes == {"cluster": n, "generic": 0},
+          f"{what}: BatchNorm forward calls by route {routes}, want all {n} "
+          f"on the cluster kernel (fused norms {fused})")
     return routes
 
 
@@ -4727,7 +4752,8 @@ def phase_bn_vs_plain(torch, timed=True):
     and bitwise against the ops; the check shown to reject a forward
     without the residual, a forward missing its first reduction part and
     a backward missing its first reduction part. Then the times of layer
-    1's bn3 and the stem's BN."""
+    1's bn3 and the stem's BN, and each direction's kernels alone at all
+    six shapes in bf16 (bn_shape_times)."""
     from paddle_tpu_torch.kernels import norm_fusion as nf
     out = bn_cases_vs_plain(torch, nf, BN_CASES, BN_N)
     out.update(autograd_bf16=bn_autograd(torch, nf),
@@ -4735,6 +4761,8 @@ def phase_bn_vs_plain(torch, timed=True):
     if timed:
         out["times"] = {"layer1.bn3": bn_times(torch, nf, 256, 3136, True),
                         "stem": bn_times(torch, nf, 64, 12544, False)}
+        out["shapes"] = bn_shape_times(torch, nf, BN_CASES, BN_N,
+                                       torch.bfloat16)
     return out
 
 
@@ -4747,13 +4775,17 @@ def bn_cases_vs_plain(torch, nf, cases, n):
     version's (its pre-activation > 0) differ, dx differs by a·g, so such
     elements are counted and left out of the dx comparison (at most 1e-6
     of the elements, each with |pre| within 2^-20 of the largest). Two
-    backward calls give the same bits. The gate: dres is g where the
-    kernel's y is above 0 and 0 elsewhere, bit for bit. Every backward
-    call takes the persistent route, and the plan its kernel reckons is
-    bn_bwd_plan's (bn_plan_reading)."""
+    forward and two backward calls give the same bits. The gate: dres is g
+    where the kernel's y is above 0 and 0 elsewhere, bit for bit (the
+    persistent backward fed the cluster forward's mean and var). Every
+    forward call takes the cluster route and every backward call the
+    persistent route, and the plans their kernels reckon are
+    bn_fwd_plan's and bn_bwd_plan's (bn_fwd_plan_reading,
+    bn_plan_reading)."""
     worst, flips = {}, {}
     before = dict(nf.bn_bwd_routes)
-    plans = {}
+    fwd_before = dict(nf.bn_fwd_routes)
+    plans, fwd_plans = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for case, c, hw, relu, has_res in cases:
@@ -4761,7 +4793,10 @@ def bn_cases_vs_plain(torch, nf, cases, n):
             xx, res, w, b, g = (x[k] for k in ("x", "res", "w", "b", "g"))
             plans[f"{name} {case}"] = bn_plan_reading(
                 torch, nf, n, c, hw, dtype, 3 if relu and has_res else 2)
+            fwd_plans[f"{name} {case}"] = bn_fwd_plan_reading(
+                torch, nf, n, c, hw, dtype, has_res)
             y, mean, var = nf.fused_bn_fwd(xx, res, w, b, BN_EPS, relu)
+            fwd_again = nf.fused_bn_fwd(xx, res, w, b, BN_EPS, relu)
             grads = nf.fused_bn_bwd(xx, res, w, b, mean, var, g, x["gmean"],
                                     x["gvar"], BN_EPS, relu)
             again = nf.fused_bn_bwd(xx, res, w, b, mean, var, g, x["gmean"],
@@ -4773,6 +4808,9 @@ def bn_cases_vs_plain(torch, nf, cases, n):
                 relu)
             torch.cuda.synchronize()
             where = f"({name} {case} c={c} hw={hw})"
+            check(all(same_bits(a, o) for a, o in zip(fwd_again,
+                                                      (y, mean, var))),
+                  f"fused BN forward differs between two calls {where}")
             check(all(same_bits(a, o) for a, o in zip(again, grads)),
                   f"fused BN backward differs between two calls {where}")
             keep = None
@@ -4815,13 +4853,19 @@ def bn_cases_vs_plain(torch, nf, cases, n):
                 wst[0], wst[1] = max(wst[0], err), max(wst[1], rel)
             del x, xx, res, w, b, g, y, mean, var, grads, again, dx, dres
             del dw, db, ry, rmean, rvar, rdx, rgate, rdw, rdb, outs, keep
+            del fwd_again
             torch.cuda.empty_cache()
     routes = {k: nf.bn_bwd_routes[k] - before[k] for k in before}
     want = {"persistent": 2 * 2 * len(cases), "generic": 0}
     check(routes == want, f"fused BN backward calls by route {routes}, want "
           f"{want}")
+    fwd_routes = {k: nf.bn_fwd_routes[k] - fwd_before[k] for k in fwd_before}
+    want = {"cluster": 2 * 2 * len(cases), "generic": 0}
+    check(fwd_routes == want, f"fused BN forward calls by route {fwd_routes}, "
+          f"want {want}")
     return dict(tolerance_relative_to_max=dict(rows=BN_TOL,
                                                statistics=BN_STAT_TOL),
+                forward_routes=fwd_routes, cluster_plans=fwd_plans,
                 backward_routes=routes, persistent_plans=plans,
                 worst={d: {k: dict(max_abs_err=e, relative=r)
                            for k, (e, r) in w.items()}
@@ -4847,6 +4891,38 @@ def bn_plan_reading(torch, nf, n, c, hw, dtype, tensors):
           f"bn_bwd_plan's {want}")
     return dict(channels_a_group=plan.cg, groups=len(plan.groups),
                 tile=[g0.th, g0.tw], tiles=g0.tiles, blocks=plan.parts)
+
+
+def bn_fwd_plan_reading(torch, nf, n, c, hw, dtype, res):
+    """The cluster forward's plan as its C side reckons it
+    (fused_bn_fwd_plan) against bn_fwd_plan's; the route's cluster size
+    and the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters, fused_bn_fwd_clusters); the bytes of
+    x the plan reads over x's size."""
+    import ctypes
+    sms = nf._sm_count(torch.device("cuda"))
+    plan = nf.bn_fwd_plan(n, c, hw, dtype, res, sms)
+    got = (ctypes.c_int * 11)()
+    lib = nf._lib()
+    rc = lib.fused_bn_fwd_plan(n, c, hw, plan.vec, int(res), sms, got)
+    want = [plan.cg, plan.k, plan.ns, plan.cs, plan.rowv, plan.cap,
+            plan.ring_t, plan.smem, plan.slabs, plan.tv, plan.threads]
+    check(rc == 0 and list(got) == want, f"cluster BN plan at [{n}, {c}, "
+          f"{hw}] {dtype}: the kernel's {list(got)} (rc {rc}), "
+          f"bn_fwd_plan's {want}")
+    act = (ctypes.c_int * 2)()
+    suffix = "bf16" if dtype == torch.bfloat16 else "f32"
+    rc = getattr(lib, f"fused_bn_fwd_clusters_{suffix}")(n, c, hw, int(res),
+                                                         act)
+    check(rc == 0 and act[0] == plan.k and act[1] > 0,
+          f"cluster BN at [{n}, {c}, {hw}]: K {act[0]}, {act[1]} clusters "
+          f"at once (rc {rc})")
+    nbytes = nf.bn_fwd_bytes(plan)
+    return dict(channels_a_slab=plan.cg, slabs=plan.slabs, k=plan.k,
+                threads=plan.threads, active_clusters=act[1],
+                smem_bytes=plan.smem,
+                resident_vectors=plan.cap, tile_vectors=plan.tv,
+                x_read_over_x=nbytes["x_read"] / nbytes["y_written"])
 
 
 def bn_bwd_calls(torch, fn, calls=10):
@@ -4934,7 +5010,9 @@ def bn_check_rejects(torch, nf, n=BN_N, c=256, hw=3136,
     """The checks must reject a forward that leaves out the residual
     (where there is one), a forward that leaves out its first reduction
     part (the images of the first block of the reduction grid), a
-    backward that leaves out those images and a persistent backward whose
+    backward that leaves out those images, a cluster forward whose rank
+    0 folds without its last peer's partial (mean and var, which rank 0
+    writes, and rank 0's tile of y) and a persistent backward whose
     every fold leaves out block 0's partial (block 0 holds a tile of every
     group, so each group is applied from wrong a, b', p2, p3): the kernels
     on inputs that do just that, or with the fault planted, held against
@@ -4949,6 +5027,11 @@ def bn_check_rejects(torch, nf, n=BN_N, c=256, hw=3136,
                                            None, BN_EPS, relu)
     fault = nf._bn_bwd_cuda(xx, r, w, b, rmean, rvar, g, None, None, BN_EPS,
                             relu, skip=0)
+    sms = nf._sm_count(xx.device)
+    check(nf.bn_fwd_plan(n, c, hw, dtype, r is not None, sms).k > 1,
+          f"the planted forward fault needs a cluster of 2 CTAs or more at "
+          f"[{n}, {c}, {hw}]")
+    ffault = nf._bn_fwd_cuda(xx, r, w, b, BN_EPS, relu, skip=1)
     k = -(-n // nf._bn_parts(n, hw))    # the images one reduction part sums
     rk = None if r is None else r[k:]
     _, cut_mean, cut_var = nf.fused_bn_fwd(xx[k:], rk, w, b, BN_EPS, relu)
@@ -4960,6 +5043,12 @@ def bn_check_rejects(torch, nf, n=BN_N, c=256, hw=3136,
                                          BN_STAT_TOL),
                 "dw_one_part_dropped": (rel_err(cut_dw, rdw)[1], BN_STAT_TOL),
                 "db_one_part_dropped": (rel_err(cut_db, rdb)[1], BN_STAT_TOL),
+                "mean_fold_missing_last_rank": (rel_err(ffault[1], rmean)[1],
+                                                BN_STAT_TOL),
+                "var_fold_missing_last_rank": (rel_err(ffault[2], rvar)[1],
+                                               BN_STAT_TOL),
+                "y_fold_missing_last_rank": (rel_err(ffault[0], ry)[1],
+                                             BN_TOL[name]),
                 "dw_fold_missing_a_partial": (rel_err(fault[2], rdw)[1],
                                               BN_STAT_TOL),
                 "db_fold_missing_a_partial": (rel_err(fault[3], rdb)[1],
@@ -4979,7 +5068,7 @@ def bn_check_rejects(torch, nf, n=BN_N, c=256, hw=3136,
         reading=rel_err(fault[0], rdx.to(dtype))[1], tolerance="reported")
     out["shape"] = [n, c, hw, name]
     del x, xx, r, w, b, g, ry, rmean, rvar, rdx, rdw, rdb, cut_mean
-    del cut_var, cut_dw, cut_db, fault, rk
+    del cut_var, cut_dw, cut_db, fault, rk, ffault
     torch.cuda.empty_cache()
     return out
 
@@ -4989,7 +5078,9 @@ def bn_times(torch, nf, c, hw, res, n=BN_N, dtype="bfloat16", relu=True):
     residual) as asked: each op in turns with its plain version; the
     library yardstick (never called by the port) is F.batch_norm(x, None,
     None, w, b, training=True) → + res → relu with f32 w and b, and its
-    autograd backward."""
+    autograd backward; each direction's kernels alone (the cluster
+    forward, the persistent backward) in turns with the generic route's,
+    with their CUDA launches and memsets a call."""
     x = bn_inputs(torch, n, c, hw, getattr(torch, dtype), 41, res)
     xx, r, w, b, g = (x[k] for k in ("x", "res", "w", "b", "g"))
     y, mean, var = nf.fused_bn_fwd(xx, r, w, b, BN_EPS, relu)
@@ -5047,11 +5138,109 @@ def bn_times(torch, nf, c, hw, res, n=BN_N, dtype="bfloat16", relu=True):
              "db); kernel_ms, earlier_ms: the persistent and generic "
              "kernels alone; one cooperative launch after a memset of the "
              "counters")
+    # the forward's kernels alone: the cluster route in turns with the
+    # generic route's four launches
+    fkern = {route: (lambda _, rt=route: nf._bn_fwd_cuda(
+        xx, r, w, b, BN_EPS, relu, route=rt))
+        for route in ("cluster", "generic")}
+    earlier_ms, kernel_ms, t = in_turns(fkern["generic"], fkern["cluster"])
+    calls = bn_bwd_calls(torch, lambda: fkern["cluster"](None))
+    check(calls["kernel_launches_per_call"] == 1
+          and calls["memsets_per_call"] == 0,
+          f"cluster BN forward: {calls} a call, want 1 launch and no memset")
+    out["fused_bn_fwd"].update(
+        route="cluster", kernel_ms=kernel_ms, earlier_ms=earlier_ms,
+        earlier="the four-launch bn_reduce + sum_parts + bn_fold_fwd + "
+                "bn_apply (the generic route), same inputs, in turns",
+        route_all_ms=t, **calls,
+        generic_kernel_launches_per_call=cuda_launches(
+            torch, lambda: fkern["generic"](None))[0],
+        note="ms and plain_ms: the op; kernel_ms, earlier_ms: the cluster "
+             "and generic kernels alone; one launch of thread-block "
+             "clusters, no memset")
     out["timed_at"] = dict(shape=[n, c, hw], dtype=dtype, residual=res,
                            relu=relu)
     del x, xx, r, w, b, g, y, mean, var, prim, rg, yl, leaves
     torch.cuda.empty_cache()
     return out
+
+
+def bn_shape_times(torch, nf, cases, n, dtype):
+    """Each (name, C, HW, relu, residual) of ``cases`` at ``n`` images in
+    ``dtype``, each direction's kernels alone: the cluster forward in turns
+    with the generic forward (bn::run's four launches), with the plain
+    version and with the F.batch_norm chain (F.batch_norm(x, None, None,
+    w, b, training=True) -> + res -> relu as the epilogue says, never
+    called by the port); the persistent backward in turns with the
+    generic backward; the bounds (bn_bounds) and the bytes the forward's
+    plan moves (x's resident part once and the rest twice, the residual,
+    y). Every cluster call is one launch and no memset (bn_bwd_calls)."""
+    out = {}
+    batch_norm = torch.nn.functional.batch_norm
+    sms = nf._sm_count(torch.device("cuda"))
+    for case, c, hw, relu, has_res in cases:
+        x = bn_inputs(torch, n, c, hw, dtype, 47, has_res)
+        xx, r, w, b, g = (x[k] for k in ("x", "res", "w", "b", "g"))
+        _, mean, var = nf.fused_bn_fwd(xx, r, w, b, BN_EPS, relu)
+
+        def fwd(route):
+            return lambda _: nf._bn_fwd_cuda(xx, r, w, b, BN_EPS, relu,
+                                             route=route)
+
+        def bwd(route):
+            return lambda _: nf._bn_bwd_cuda(xx, r, w, b, mean, var, g, None,
+                                             None, BN_EPS, relu, route=route)
+
+        def library(_):
+            yy = batch_norm(xx, None, None, w, b, training=True, eps=BN_EPS)
+            yy = yy if r is None else yy + r
+            return torch.relu(yy) if relu else yy
+
+        generic_ms, cluster_ms, t = in_turns(fwd("generic"), fwd("cluster"))
+        plain_ms, _, tp = in_turns(
+            lambda _: nf.fused_bn_fwd_ref(xx, r, w, b, BN_EPS, relu),
+            fwd("cluster"), iters=5)
+        library_ms, _, tl = in_turns(library, fwd("cluster"))
+        bwd_generic_ms, bwd_ms, tb = in_turns(bwd("generic"),
+                                              bwd("persistent"))
+        calls = bn_bwd_calls(torch, lambda: fwd("cluster")(None))
+        check(calls["kernel_launches_per_call"] == 1
+              and calls["memsets_per_call"] == 0,
+              f"cluster BN forward at {case}: {calls} a call, want 1 launch "
+              f"and no memset")
+        bounds = bn_bounds(n, c, hw, xx.element_size(), has_res)
+        plan = nf.bn_fwd_plan(n, c, hw, dtype, has_res, sms)
+        nbytes = nf.bn_fwd_bytes(plan)
+        moved = sum(nbytes[k] for k in ("x_read", "res_read", "y_written"))
+        out[case] = dict(
+            shape=[n, c, hw], relu=relu, residual=has_res,
+            forward=dict(ms=cluster_ms, earlier_ms=generic_ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bounds["fused_bn_fwd"][0],
+                         bound_by=bounds["fused_bn_fwd"][1],
+                         share_of_bound=bounds["fused_bn_fwd"][0]
+                         / cluster_ms,
+                         all_ms=dict(turns=t, plain=tp, library=tl),
+                         k=plan.k, slabs=plan.slabs, channels_a_slab=plan.cg,
+                         bytes_moved=moved,
+                         bytes_moved_ms_at_3_35_tb_s=moved
+                         / H100_BYTES_PER_S * 1e3,
+                         x_read_over_x=nbytes["x_read"] / nbytes["y_written"],
+                         cuda_launches_per_call=calls[
+                             "kernel_launches_per_call"],
+                         memsets_per_call=calls["memsets_per_call"]),
+            backward=dict(persistent_ms=bwd_ms, generic_ms=bwd_generic_ms,
+                          faster="persistent" if bwd_ms < bwd_generic_ms
+                          else "generic",
+                          bound_ms=bounds["fused_bn_bwd"][0],
+                          channel_bytes=n * hw * xx.element_size(),
+                          all_ms=tb))
+        del x, xx, r, w, b, g, mean, var
+        torch.cuda.empty_cache()
+    return dict(dtype=str(dtype).split(".")[-1], images=n, cases=out,
+                note="kernels alone, device time (cuda_ms), the better of "
+                     "two passes in turns (a, b, b, a); the plain version "
+                     "at 5 calls a pass")
 
 
 RESNET_B, RESNET_HW, RESNET_CLASSES = 256, 224, 1000
@@ -5248,6 +5437,7 @@ def phase_train_resnet(torch, fused, steps=TRAIN_STEPS):
         check(n == want, f"{key} launched {n} times in {steps} resnet50 "
               f"steps (want {want}; FLAGS_fused_norm={fused})")
     broutes = bn_bwd_routes_reading(counts, "resnet50 training", fused)
+    froutes = bn_fwd_routes_reading(counts, "resnet50 training", fused)
     ms = wall / steps * 1e3
     out = dict(config="resnet50", b=RESNET_B, hw=RESNET_HW, dtype="bfloat16",
                fused_norm=fused, last_norm_path=path, lr=RESNET_LR,
@@ -5264,20 +5454,21 @@ def phase_train_resnet(torch, fused, steps=TRAIN_STEPS):
                bn_kernels_bound_ms_per_step=bn_bound,
                card_during_steps=clocks.summary(), launches=counts,
                launches_per_step={k: n / steps for k, n in counts.items()},
-               bn_bwd_routes=broutes)
+               bn_fwd_routes=froutes, bn_bwd_routes=broutes)
     return out, net, step
 
 
 def bn_direction(key):
     """The direction of a fused BN kernel from its name in a profile: the
     persistent backward and the generic one's fold and MODE-1
-    instantiations are the backward's; the MODE-0 instantiations, the
-    forward's fold and sum_parts (the forward's alone on the model paths,
-    whose backward is the persistent kernel; with the generic backward
-    forced, its sum_parts counts here too) the forward's; None for any
-    other kernel."""
+    instantiations are the backward's; the cluster forward, the MODE-0
+    instantiations, the forward's fold and sum_parts (with the generic
+    forward forced; with the generic backward forced, its sum_parts counts
+    here too) the forward's; None for any other kernel."""
     if "bn_bwd_persist" in key or "bn_fold_bwd" in key:
         return "backward"
+    if "bn_fwd_cluster" in key:
+        return "forward"
     m = re.search(r"bn_(?:reduce|apply)<[^>]*,\s*(\d)>", key)
     if m:
         return "backward" if m.group(1) == "1" else "forward"
@@ -5316,8 +5507,7 @@ def phase_profile_resnet(torch, step, steps=2):
         return dict(steps=steps, device_time="not measured (no CUDA events)")
     conv_keys = ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90_",
                  "implicit", "wgrad", "dgrad", "fprop", "nchw", "nhwc")
-    groups = {"fused_bn forward (bn_reduce, sum_parts, bn_fold_fwd, "
-              "bn_apply)": lambda k: bn_direction(k) == "forward",
+    groups = {"fused_bn forward": lambda k: bn_direction(k) == "forward",
               "fused_bn backward":
               lambda k: bn_direction(k) == "backward",
               "convolutions and fc (cuDNN, cuBLAS)":
@@ -5328,6 +5518,8 @@ def phase_profile_resnet(torch, step, steps=2):
     by_group["the rest (pooling, copies, casts, the loss, Momentum's ops)"] = (
         busy_ms / steps - sum(by_group.values()))
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
+    bn_fwd_launches = sum(e.count for e in dev
+                          if bn_direction(e.key) == "forward")
     aten = sum(e.count for e in events if e.key.startswith("aten::"))
     launches = sum(e.count for e in events
                    if e.key.startswith(("cudaLaunchKernel", "cuLaunch")))
@@ -5339,6 +5531,7 @@ def phase_profile_resnet(torch, step, steps=2):
                 kernels_ms_per_step=by_group,
                 kernels_share_of_busy={g: t * steps / busy_ms
                                        for g, t in by_group.items()},
+                bn_forward_kernel_launches_per_step=bn_fwd_launches / steps,
                 momentum_span_ms_per_step=spans.get(
                     "momentum_step", "not measured (no momentum_step range)"),
                 top_device_ms_per_step=[
@@ -5348,45 +5541,56 @@ def phase_profile_resnet(torch, step, steps=2):
 
 def phase_profile_resnet_turns(torch, step):
     """Phase 29: the resnet50 step's profile (phase_profile_resnet) with
-    the BatchNorm backward on its route, the persistent kernel, then in
-    turns with the generic route's kernels on the same model and batch (persistent,
-    generic, generic, persistent; for these profiles alone bn_bwd_route is
-    made to name the generic route): the busy time, the backward's kernels
-    a step and the wall of each, the better of each pair."""
+    the BatchNorm kernels on their routes (the cluster forward, the
+    persistent backward; the profile's count of forward kernel launches a
+    step reported, the route counters checked exactly). Then each
+    direction in turns with the generic route's kernels on the same model
+    and batch (new, generic, generic, new; for these profiles alone
+    bn_bwd_route, then bn_fwd_route, is made to name the generic route):
+    the busy time, the direction's kernels a step and the wall of each,
+    the better of each pair."""
     from paddle_tpu_torch.kernels import norm_fusion as nf
-    real = nf.bn_bwd_route
-    turns = []
-    try:
-        for route in ("persistent", "generic", "generic", "persistent"):
-            nf.bn_bwd_route = real if route == "persistent" else (
-                lambda *a: "generic")
-            step()
-            before = dict(nf.bn_bwd_routes)
-            prof = phase_profile_resnet(torch, step)
-            taken = {k: nf.bn_bwd_routes[k] - before[k] for k in before}
-            check(taken[route] == 2 * RESNET_BNS and sum(taken.values())
-                  == 2 * RESNET_BNS, f"resnet50 profile on the {route} "
-                  f"route took {taken}")
-            turns.append((route, prof))
-    finally:
-        nf.bn_bwd_route = real
-    out = dict(turns[0][1])
-    bwd_key = "fused_bn backward"
+    directions = (("backward", "bn_bwd_route", "bn_bwd_routes", "persistent"),
+                  ("forward", "bn_fwd_route", "bn_fwd_routes", "cluster"))
+    out, turns = None, {}
+    for direction, attr, counter, new in directions:
+        real = getattr(nf, attr)
+        turns[direction] = []
+        try:
+            for route in (new, "generic", "generic", new):
+                setattr(nf, attr, real if route == new else (
+                    lambda *a: "generic"))
+                step()
+                before = dict(getattr(nf, counter))
+                prof = phase_profile_resnet(torch, step)
+                taken = {k: getattr(nf, counter)[k] - before[k]
+                         for k in before}
+                check(taken[route] == 2 * RESNET_BNS and sum(taken.values())
+                      == 2 * RESNET_BNS, f"resnet50 profile on the {route} "
+                      f"{direction} took {taken}")
+                turns[direction].append((route, prof))
+        finally:
+            setattr(nf, attr, real)
+        if out is None:
+            out = dict(turns[direction][0][1])
 
-    def summary(route):
-        profs = [p for r, p in turns if r == route]
+    def summary(direction, route):
+        key = f"fused_bn {direction}"
+        profs = [p for r, p in turns[direction] if r == route]
         busy = [p["device_busy_ms_per_step"] for p in profs]
-        bwd = [p["kernels_ms_per_step"][bwd_key] for p in profs]
+        kern = [p["kernels_ms_per_step"][key] for p in profs]
         wall = [p["wall_ms_per_step"] for p in profs]
-        return dict(device_busy_ms_per_step=min(busy), bn_backward_ms_per_step=
-                    min(bwd), wall_ms_per_step=min(wall), all_busy=busy,
-                    all_bn_backward=bwd, all_wall=wall)
+        return dict(device_busy_ms_per_step=min(busy),
+                    bn_ms_per_step=min(kern), wall_ms_per_step=min(wall),
+                    all_busy=busy, all_bn=kern, all_wall=wall)
 
-    if all("kernels_ms_per_step" in p for _, p in turns):
-        out["in_turns"] = dict(persistent=summary("persistent"),
-                               generic=summary("generic"),
-                               order="persistent, generic, generic, "
-                                     "persistent; 2 profiled steps each")
+    if all("kernels_ms_per_step" in p for t in turns.values() for _, p in t):
+        out["in_turns"] = {
+            direction: {route: summary(direction, route)
+                        for route in (new, "generic")}
+            | {"order": f"{new}, generic, generic, {new}; 2 profiled steps "
+                        f"each; the other direction on its route"}
+            for direction, _, _, new in directions}
     return out
 
 
@@ -5435,6 +5639,7 @@ def phase_resnet_parity_fp32(torch):
     check(counts["fused_bn_fwd"] == counts["fused_bn_bwd"] == RESNET_BNS,
           f"resnet50 fp32 parity with the flag on launched {counts}")
     bn_bwd_routes_reading(counts, "resnet50 fp32 parity")
+    bn_fwd_routes_reading(counts, "resnet50 fp32 parity")
     check(counts_d["fused_bn_fwd"] == counts_d["fused_bn_bwd"] == 0,
           f"resnet50 fp32 parity with the flag off launched {counts_d}")
     check(bool(torch.isfinite(gf).all()), "parity gradient not finite")
@@ -6289,6 +6494,7 @@ def phase_train_ppyoloe(torch):
         check(n == want, f"{key} launched {n} times in {PPYOLOE_STEPS} "
               f"{name} steps (want {want})")
     broutes = bn_bwd_routes_reading(counts, f"{name} training")
+    froutes = bn_fwd_routes_reading(counts, f"{name} training")
     turns = []
     for fused in (True, False, False, True):
         set_flags({"FLAGS_fused_norm": fused})
@@ -6311,7 +6517,13 @@ def phase_train_ppyoloe(torch):
     check(last_norm_path() == "dense", "the dense profile took the norm "
           f"path {last_norm_path()}")
     set_flags({"FLAGS_fused_norm": True})
+    from paddle_tpu_torch.kernels import norm_fusion as nf
+    before = dict(nf.bn_fwd_routes)
     prof = phase_profile_resnet(torch, step)
+    taken = {k: nf.bn_fwd_routes[k] - before[k] for k in before}
+    check(taken == {"cluster": bns * prof["steps"], "generic": 0},
+          f"{name} profile: BN forward calls by route {taken}, want "
+          f"{bns} a step on the cluster kernel (one launch each)")
     out = dict(config=name, b=PPYOLOE_B, hw=PPYOLOE_HW, dtype="float32",
                allow_tf32=torch.backends.cuda.matmul.allow_tf32,
                cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
@@ -6333,7 +6545,7 @@ def phase_train_ppyoloe(torch):
                card_during_steps=clocks.summary(), launches=counts,
                launches_per_step={k: n / PPYOLOE_STEPS
                                   for k, n in counts.items()},
-               bn_bwd_routes=broutes,
+               bn_fwd_routes=froutes, bn_bwd_routes=broutes,
                in_turns=dict(turns=turns, fused_ms_per_step=fused_ms,
                              dense_ms_per_step=dense_ms,
                              dense_over_fused=dense_ms / fused_ms),
@@ -6356,6 +6568,8 @@ def phase_ppyoloe_bn_vs_plain(torch):
         torch, nf, PPYOLOE_B, c, hw, torch.float32, relu, res))
     out["times"] = {"stem_f32": bn_times(torch, nf, c, hw, res, n=PPYOLOE_B,
                                          dtype="float32", relu=relu)}
+    out["shapes"] = bn_shape_times(torch, nf, PPYOLOE_BN_CASES[:1],
+                                   PPYOLOE_B, torch.float32)
     out["host_us_per_call"] = {
         "stem_f32": bn_host_times(torch, nf, PPYOLOE_B, c, hw, "float32",
                                   relu, res),
@@ -6574,7 +6788,9 @@ def main():
           ln_persistent_ptxas=route_ptxas(_build.build_log, "norm_fusion.cu",
                                           "ln_bwd_persist"),
           bn_persistent_ptxas=route_ptxas(_build.build_log, "norm_fusion.cu",
-                                          "bn_bwd_persist"))
+                                          "bn_bwd_persist"),
+          bn_cluster_ptxas=route_ptxas(_build.build_log, "norm_fusion.cu",
+                                       "bn_fwd_cluster"))
 
     kern = phase_kernel_vs_plain(torch)
     phase(3, "decode_attn_proj vs plain", tolerance=TOL, **kern)
@@ -6918,8 +7134,9 @@ def main():
         if name == "flash_dkv":
             kernels[-1]["whole_backward"] = fbias["backward"]
     # the BatchNorm kernels' launches are resnet50 training's (phase 28),
-    # ppyoloe_launches ppyoloe-l training's (phase 44); each op's four
-    # launches (reduction, sum_parts, fold, apply) count once
+    # ppyoloe_launches ppyoloe-l training's (phase 44); one op call counts
+    # once (the forward: one cluster launch; the backward: its launch and
+    # the memset of its counters)
     for name in ("fused_bn_fwd", "fused_bn_bwd"):
         t = bn["times"]["layer1.bn3"][name]
         err = bn["worst"]["bfloat16"][name]["max_abs_err"]
@@ -6938,6 +7155,28 @@ def main():
             "ppyoloe_max_abs_err": {
                 d: pbn["worst"][d][name]["max_abs_err"]
                 for d in ("float32", "bfloat16")}})
+        if name == "fused_bn_fwd":
+            # the cluster route: its kernel alone against the generic
+            # route's four launches (earlier_ms) in turns at each shape
+            kernels[-1].update(
+                route_fields(t), kernel_ms=t["kernel_ms"],
+                cuda_launches_per_call=t["kernel_launches_per_call"],
+                memsets_per_call=t["memsets_per_call"],
+                source_kernels="bn_fwd_cluster (one launch of thread-block "
+                               "clusters)",
+                ppyoloe_stem_f32_route=dict(
+                    kernel_ms=stem["kernel_ms"],
+                    earlier_ms=stem["earlier_ms"]),
+                stem_bf16={k: bn["times"]["stem"][name][k] for k in (
+                    "ms", "kernel_ms", "earlier_ms", "plain_ms", "bound_ms",
+                    "library_ms")},
+                shapes={pre + case: {k: v["forward"][k] for k in (
+                    "ms", "earlier_ms", "plain_ms", "library_ms", "bound_ms",
+                    "x_read_over_x", "k")}
+                    for pre, res in (("", bn["shapes"]),
+                                     ("ppyoloe_", pbn["shapes"]))
+                    for case, v in res["cases"].items()},
+                note=t["note"])
         if name == "fused_bn_bwd":
             # the persistent route: its kernel alone against the generic route's four
             # launches (earlier_ms) in turns at each shape
@@ -6954,6 +7193,11 @@ def main():
                     "ms", "kernel_ms", "earlier_ms", "plain_ms", "bound_ms",
                     "library_ms")},
                 host_us_per_call=pbn["host_us_per_call"],
+                shapes={pre + case: {k: v["backward"][k] for k in (
+                    "persistent_ms", "generic_ms", "bound_ms")}
+                    for pre, res in (("", bn["shapes"]),
+                                     ("ppyoloe_", pbn["shapes"]))
+                    for case, v in res["cases"].items()},
                 note=t["note"])
     # the dropout variants (kernels 1-3, 10, 11, 13, 14) at bert-base's
     # shapes; their launches are the default-dropout bert-base training's

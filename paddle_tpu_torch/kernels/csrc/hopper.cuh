@@ -3,8 +3,8 @@
 // route in proj_ln.cu, the GEMM core of gemm_core.cuh): shared-memory
 // addresses, mbarriers with a hang trap, named and cluster barriers, reads
 // of a cluster peer's shared memory and arrivals on its barriers, TMA
-// loads (multicast to a cluster too), plain bulk copies (the persistent
-// BatchNorm backward's in norm_fusion.cu), stores and reduce-adds, the wgmma
+// loads (multicast to a cluster too), plain bulk copies both ways (the
+// BatchNorm kernels' in norm_fusion.cu), stores and reduce-adds, the wgmma
 // descriptor of a 128-byte swizzled tile, wgmma's fences and its products
 // from shared memory (wgmma_smem), and the host-side encoding of a
 // tensor map through the runtime (no libcuda at link time). Included
@@ -126,6 +126,13 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
           smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+// its converse: `bytes` contiguous bytes of this block's shared memory to
+// device memory, in this thread's bulk group (bulk_commit, bulk_wait_read)
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
 }
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {

@@ -756,7 +756,9 @@ int launch_bwd_persist(const Bwd& p, float* sums, int nparts, void* stream) {
 // 15-18)
 // ==========================================================================
 //
-// Replaces the TPU kernels of paddle_tpu/kernels/norm_fusion.py:
+// The generic route of both directions (the op takes bnf's cluster forward
+// and bnb's persistent backward, below; these kernels serve in-call
+// comparisons). Replaces the TPU kernels of paddle_tpu/kernels/norm_fusion.py:
 //   _bn_stats_kernel :403      (launched by _bn_fwd :521)  -> bn_reduce<FWD>
 //                                                             + sum_parts + bn_fold_fwd
 //   _bn_apply_kernel :428      (_bn_fwd :542)              -> bn_apply<FWD>
@@ -1965,6 +1967,751 @@ int run(Args p, float* scratch, cudaStream_t s) {
 
 }  // namespace bnb
 
+// ==========================================================================
+// The BatchNorm forward's cluster route (TPU kernels 15, 16)
+// ==========================================================================
+//
+// Replaces, as bn::run<.., FWD> above does (which stays as the generic
+// route, reached only by an explicit route="generic" in
+// norm_fusion._bn_fwd_cuda for in-call comparisons), the TPU kernels
+//   _bn_stats_kernel :403 and _bn_apply_kernel :428 of
+//   paddle_tpu/kernels/norm_fusion.py, launched by _bn_fwd :521,
+// with bn's arithmetic: s1 = sum x, s2 = sum x^2 in f32; mean = s1 (1/M);
+// var = max(s2 (1/M) - mean^2, 0), the reference's one-pass clamped
+// variance (:419-424), kept though x is resident (a two-pass variance is
+// another function); fold_ab; y = round(relu?(pre_act(x, a, b', res))).
+//
+// Bound: bytes. x (and res) read once, y written once: 2 tensor passes
+// without a residual, 3 with one. bn::run reads x twice (its reduction,
+// then its apply): 3 passes against 2, 4 against 3, so no tuning of it
+// passes 67% / 75% of the bound, and it takes 4 launches a call.
+//
+// Design: one launch a call (cudaLaunchKernelEx with the cluster-dimension
+// attribute; no cooperative launch, no memset, no counter in device
+// memory). The constants after kBatch fix the design;
+// scripts/bn_fwd_variants.py times copies of this file with them changed
+// (norm_fusion.bn_fwd_plan mirrors plan()).
+//   - slabs: cg adjacent channels by all N images. cg is the least multiple
+//     of V / gcd(HW, V) that divides C and makes a slab at least kMinSlab
+//     bytes (at most kMaxC channels): each image's row of a slab (cg HW
+//     elements, contiguous in NCHW) is a whole number of 16-byte vectors
+//     on a 16-byte boundary, so the loads mask no neighbouring plane.
+//   - clusters: a slab is cut over a cluster of K CTAs, K the least whose
+//     shared memory holds the slab (at most kMaxCluster: 16, past the
+//     portable 8, which holds ppyoloe-l's stem whole), raised while the
+//     grid has fewer CTAs than the card has SMs (never below kMinCtaVecs
+//     vectors a CTA); CTA `rank` takes a tile: images cut ns = min(N, K)
+//     ways, each row's vectors K / ns ways. A CTA of at most half an SM's
+//     shared memory runs kSmallThreads threads (two an SM), a larger one
+//     kMaxThreads (one an SM, the warps to hide the shared-memory loads).
+//   - loads: warp 0 issues the tile's first `cap` vectors of x as bulk
+//     copies into shared memory (cp.async.bulk, one a row segment), all at
+//     once, in chunks of kStageVecs vectors completing on an mbarrier
+//     each: a CTA has its whole part in flight whatever the occupancy
+//     (bn_reduce had one 16-byte load a thread in flight, ~1 MB over the
+//     card at ppyoloe-l's stem). Where a tile does not fit (resnet50's
+//     stem) `cap` is a whole number of chunks, and the rest of x streams
+//     through a ring of kRing stages: read once for the sums, again for
+//     the apply.
+//   - sums: s1, s2 per channel in f32 from shared memory, kSteps vectors a
+//     thread at a time, a chunk as soon as it lands where the tile holds
+//     at most two channels (every vector's elements below the second
+//     channel's first element are the first's: the stems, layers 1-3,
+//     ppyoloe's large maps); otherwise once all has landed, the warps
+//     splitting the channels and masking the neighbouring channels'
+//     elements of a vector. The warps' sums are added in order into the
+//     CTA's partials [2, cg] in shared memory.
+//   - fold: a cluster barrier, then every CTA reads the K partials over
+//     distributed shared memory in rank order (all in flight at once) and
+//     folds every channel of the slab: each CTA adds the same values in
+//     the same order, so all hold the same bits with no second exchange,
+//     and a call repeats bitwise. Rank 0 writes mean and var. An arrival
+//     on the cluster barrier then says the CTA is done with its peers'
+//     partials; its wait comes before the CTA leaves.
+//   - apply: y from the resident x (and the ring's x past it), a group of
+//     kSteps vectors a thread at a time, the residual's next group loaded
+//     into registers while this one is applied (kResRing: through the
+//     ring instead, which then costs shared memory the slab needs), stored
+//     by 16-byte streaming stores (kTmaStore: in place over x in shared
+//     memory and out by bulk stores, a chunk each).
+//   - kPersistent: a grid of the clusters the card holds at once, each
+//     walking slabs; the next slab's chunks of x load into the chunks the
+//     apply has freed.
+// Measured (PERF.md section 6, H100; scripts/bn_step_shapes.py): x read
+// once at every shape of both models' steps but resnet50's stem (1.76x);
+// per call faster than bn::run at 19 of the 25 distinct shapes of a
+// resnet50 and a ppyoloe-l step, slower at resnet50's stem and where a
+// slab is one 200 KB CTA at HW 49 or 196.
+
+namespace bnf {
+
+constexpr int kSmemPerSm = 233472;   // an SM's shared memory on sm_90
+constexpr int kBlockReserve = 1024;  // the runtime's share of each resident block
+constexpr int kMaxC = 256;           // channels a slab holds at most
+constexpr int kMinSlab = 65536;      // bytes of x a slab holds at least (cg raised)
+constexpr int kMinCtaVecs = 1024;    // vectors a CTA holds at least where K is raised
+constexpr int kBatch = 4;            // vectors a thread loads before it computes (global)
+// the route's design (scripts/bn_fwd_variants.py times copies of this file
+// with these changed)
+constexpr int kMaxThreads = 512;     // threads a CTA of more than half an SM's shared memory
+constexpr int kSmallThreads = 256;   // threads a CTA of at most half (two an SM)
+constexpr int kSteps = 4;            // vectors a thread takes a group
+constexpr int kCtasPerSm = 1;        // a CTA's share of an SM's shared memory
+constexpr int kMaxCluster = 16;      // CTAs a cluster at most (over 8: non-portable)
+constexpr int kParPerSm = 1;         // K is raised while the grid has fewer CTAs than this x SMs
+constexpr int kStageVecs = 2048;     // vectors of a chunk of x and of a ring stage
+constexpr int kRing = 3;             // ring stages
+constexpr bool kResRing = false;     // the residual through the ring (else registers)
+constexpr bool kTmaStore = false;    // y in place over x, out by bulk stores
+constexpr bool kPersistent = false;  // clusters walking slabs
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kMaxChunks = (int)((kMaxSmem / 16 + kStageVecs - 1) / kStageVecs);
+constexpr int kMaxK = 16;            // CTAs a cluster the hardware takes at most
+// the partials, the warps' sums and the coefficients [2, kMaxC] f32 each,
+// then the chunks' and the ring's mbarriers
+constexpr int kScratch = (6 * kMaxC * 4 + 8 * (kMaxChunks + kRing) + 127) / 128 * 128;
+static_assert(kStageVecs % (kMaxThreads * kSteps) == 0 &&
+                  kStageVecs % (kSmallThreads * kSteps) == 0,
+              "a chunk is whole groups of the block");
+
+struct Args {
+  const void* x;
+  const void* res;     // null: no residual
+  const float* w;
+  const float* b;
+  void* y;
+  float* mean;
+  float* var;
+  long long m;         // N * HW
+  int n, c, hw, relu;
+  int skip;            // a planted fault: rank 0's fold leaves out the last rank's partial
+  int cg, k, ns, cs, rowv, cap, ring_t, slabs;   // the plan
+  float eps;
+};
+
+// CTA `rank`'s part of a slab: images [n0, n0 + rows) by row vectors [v0,
+// v0 + w); its first `fit` vectors resident; channels ch_lo .. ch_lo + nch
+// - 1 of the slab; chunks of kStageVecs vectors: nres resident of nall
+struct Tile {
+  int n0, rows, v0, w, tv, fit, ch_lo, nch, nres, nall;
+};
+
+__device__ __forceinline__ Tile tile_of(const Args& p, int rank, int V) {
+  const int i = rank / p.cs, jc = rank - i * p.cs;
+  Tile t;
+  t.n0 = (int)((long long)i * p.n / p.ns);
+  t.rows = (int)((long long)(i + 1) * p.n / p.ns) - t.n0;
+  t.v0 = (int)((long long)jc * p.rowv / p.cs);
+  t.w = (int)((long long)(jc + 1) * p.rowv / p.cs) - t.v0;
+  t.tv = t.rows * t.w;
+  t.fit = min(t.tv, p.cap);
+  t.ch_lo = (int)((long long)t.v0 * V / p.hw);
+  t.nch = (int)(((long long)(t.v0 + t.w) * V - 1) / p.hw) - t.ch_lo + 1;
+  t.nres = (t.fit + kStageVecs - 1) / kStageVecs;
+  t.nall = (t.tv + kStageVecs - 1) / kStageVecs;
+  return t;
+}
+
+// the first element of the tile's vector (r, col) in the [N, C, HW] tensors
+__device__ __forceinline__ long long elem(const Args& p, const Tile& t, int c0, int r, int col,
+                                          int V) {
+  return ((long long)(t.n0 + r) * p.c + c0) * p.hw + (long long)(t.v0 + col) * V;
+}
+
+// warp 0's lanes: the tile's vectors [f0, f1) of tensor src into dst[0,
+// f1 - f0), a bulk copy a row segment, completing on bar
+template <typename T>
+__device__ __forceinline__ void copy_rows(const Args& p, const Tile& t, int c0, const void* src,
+                                          uint4* dst, int f0, int f1, uint64_t* bar) {
+  constexpr int V = Vec<T>::n;
+  const int lane = threadIdx.x & 31;
+  for (int r = f0 / t.w + lane; r <= (f1 - 1) / t.w; r += 32) {
+    const int a = max(f0, r * t.w), e = min(f1, (r + 1) * t.w);
+    bulk_load(dst + (a - f0), static_cast<const T*>(src) + elem(p, t, c0, r, a - r * t.w, V),
+              (uint32_t)(e - a) * 16u, bar);
+  }
+}
+
+// warp 0's lanes: y's vectors [f0, f1) of the tile from src[0, f1 - f0)
+// in shared memory, a bulk store a row segment, one bulk group a lane
+template <typename T>
+__device__ __forceinline__ void store_rows(const Args& p, const Tile& t, int c0, const uint4* src,
+                                           int f0, int f1) {
+  constexpr int V = Vec<T>::n;
+  const int lane = threadIdx.x & 31;
+  for (int r = f0 / t.w + lane; r <= (f1 - 1) / t.w; r += 32) {
+    const int a = max(f0, r * t.w), e = min(f1, (r + 1) * t.w);
+    bulk_store(static_cast<T*>(p.y) + elem(p, t, c0, r, a - r * t.w, V), src + (a - f0),
+               (uint32_t)(e - a) * 16u);
+  }
+  bulk_commit();
+}
+
+// the general reduction (more than two channels in the tile): teams of
+// warps a channel, the channel's vectors of each
+// row, the neighbouring channels' elements masked; x from shared memory
+// below `fit`, past it from device memory. The channels' partials into
+// part [2, kMaxC].
+template <typename T>
+__device__ void sums_general(const Args& p, const Tile& t, int c0, const uint4* xs, float* red,
+                             float* part, uint64_t keep) {
+  constexpr int V = Vec<T>::n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  // teams: the largest power of two at most the warps and the channels
+  int teams = 1;
+  while (teams * 2 <= min(nw, t.nch)) teams *= 2;
+  const int W = nw / teams, team = warp / W, wi = warp - team * W;
+  for (int tc = team; tc < t.nch; tc += teams) {
+    const int cl = t.ch_lo + tc;
+    // the channel's row elements [lo, hi) inside the tile, and their vectors
+    const int lo = max(cl * p.hw, t.v0 * V), hi = min((cl + 1) * p.hw, (t.v0 + t.w) * V);
+    const int vlo = lo / V, nv = (hi + V - 1) / V - vlo;
+    const int step = W * 32, dr = step / nv, dc = step - dr * nv;
+    int r = (wi * 32 + lane) / nv, cc = wi * 32 + lane - r * nv;
+    float s1 = 0.f, s2 = 0.f;
+    while (r < t.rows) {
+      int qs[kBatch], e0s[kBatch];
+      long long es[kBatch];
+      bool ok[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        ok[u] = r < t.rows;
+        const int col = vlo + cc - t.v0;
+        qs[u] = r * t.w + col;
+        e0s[u] = (vlo + cc) * V;
+        es[u] = elem(p, t, c0, r, col, V);
+        r += dr;
+        cc += dc;
+        if (cc >= nv) {
+          cc -= nv;
+          ++r;
+        }
+      }
+      uint4 raw[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (!ok[u]) continue;
+        raw[u] = qs[u] < t.fit ? xs[qs[u]]
+                               : bnb::ld_hint(static_cast<const T*>(p.x) + es[u], keep);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (!ok[u]) continue;
+        float xv[V];
+        bnb::unpack<T>(xv, raw[u]);
+        const int e0 = e0s[u];
+        const bool whole = e0 >= lo && e0 + V <= hi;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          if (whole || (e0 + k >= lo && e0 + k < hi)) {
+            s1 += xv[k];
+            s2 += xv[k] * xv[k];
+          }
+        }
+      }
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      red[tc * W + wi] = s1;
+      red[kMaxC + tc * W + wi] = s2;
+    }
+  }
+  __syncthreads();
+  for (int tc = threadIdx.x; tc < t.nch; tc += blockDim.x) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int i = 0; i < W; ++i) {
+      t1 += red[tc * W + i];
+      t2 += red[kMaxC + tc * W + i];
+    }
+    part[t.ch_lo + tc] = t1;
+    part[kMaxC + t.ch_lo + tc] = t2;
+  }
+}
+
+// see the design note; one instantiation a dtype, the plan (and the
+// block's threads, kSmallThreads or kMaxThreads) in p
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads, 1) bn_fwd_cluster(Args p) {
+  constexpr int V = Vec<T>::n, S = kStageVecs, R = kRing, U = kSteps;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint4* xs = reinterpret_cast<uint4*>(smem);                          // [cap]
+  uint4* ring = xs + p.cap;                                            // [R, ring_t, S]
+  float* part = reinterpret_cast<float*>(ring + (size_t)R * p.ring_t * S);  // [2, kMaxC]
+  float* red = part + 2 * kMaxC;                                       // [2, kMaxC]
+  float* cs = red + 2 * kMaxC;                                         // [2, kMaxC]: a, b'
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(cs + 2 * kMaxC);        // [kMaxChunks]
+  uint64_t* rbar = xbar + kMaxChunks;                                  // [R]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nt = blockDim.x, nw = nt >> 5, G = nt * U;  // a group: U vectors a thread
+  const int rank = (int)cluster_rank();
+  const Tile t = tile_of(p, rank, V);
+  const bool has_res = p.res != nullptr, ring_res = kResRing && has_res;
+  // at most two channels: every vector's elements below `bnd` (the second
+  // channel's first element in the slab row) are the first channel's
+  const bool fast = t.nch <= 2;
+  const int bnd = (t.ch_lo + 1) * p.hw;
+  // ring jobs a slab: the sums' chunks of x past `fit` (fast path), then
+  // the apply's chunks that need the ring: every one with a residual in
+  // the ring (res, and x past `fit`), else those past `fit` (x)
+  const int jobs_sum = fast ? t.nall - t.nres : 0;
+  const int jobs = jobs_sum + (ring_res ? t.nall : t.nall - t.nres);
+  const int cluster = blockIdx.x / p.k, clusters = gridDim.x / p.k;
+  const int mine = kPersistent ? (p.slabs - cluster + clusters - 1) / clusters : 1;
+  const long long total_jobs = (long long)jobs * mine;
+  if (tid == 0) {
+    for (int i = 0; i < kMaxChunks; ++i) mbar_init(&xbar[i], 1);
+    for (int i = 0; i < R; ++i) mbar_init(&rbar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const uint64_t keep = bnb::policy_evict_last(), once = bnb::policy_evict_first();
+
+  // warp 0: chunk ch of the tile's resident x of the slab at channel c0
+  auto issue_x = [&](int c0, int ch) {
+    const int f0 = ch * S, f1 = min(f0 + S, t.fit);
+    if (lane == 0) {
+      fence_proxy_async();
+      mbar_arrive_tx(&xbar[ch], (uint32_t)(f1 - f0) * 16u);
+    }
+    __syncwarp();
+    copy_rows<T>(p, t, c0, p.x, xs + f0, f0, f1, &xbar[ch]);
+  };
+  // warp 0: ring job g (job g % jobs of the CTA's slab g / jobs) into
+  // stage g % R: x half first, the residual's last
+  auto issue_job = [&](long long g) {
+    const int it = (int)(g / jobs), j = (int)(g - (long long)it * jobs);
+    const int c0 = (cluster + it * clusters) * p.cg;
+    int ch;
+    bool bx, br;
+    if (j < jobs_sum) {
+      ch = t.nres + j, bx = true, br = false;
+    } else {
+      ch = ring_res ? j - jobs_sum : t.nres + j - jobs_sum;
+      bx = ch >= t.nres, br = ring_res;
+    }
+    const int f0 = ch * S, f1 = min(f0 + S, t.tv), s = (int)(g % R);
+    uint4* slot = ring + (size_t)s * p.ring_t * S;
+    if (lane == 0) {
+      fence_proxy_async();
+      mbar_arrive_tx(&rbar[s], (uint32_t)(f1 - f0) * 16u * ((bx ? 1u : 0u) + (br ? 1u : 0u)));
+    }
+    __syncwarp();
+    if (bx) copy_rows<T>(p, t, c0, p.x, slot, f0, f1, &rbar[s]);
+    if (br) copy_rows<T>(p, t, c0, p.res, slot + (size_t)(p.ring_t - 1) * S, f0, f1, &rbar[s]);
+  };
+  // every thread: wait for ring job g's stage; returns it
+  auto wait_job = [&](long long g) {
+    const int s = (int)(g % R);
+    mbar_wait(&rbar[s], (uint32_t)(g / R) & 1u);
+    return ring + (size_t)s * p.ring_t * S;
+  };
+
+  if (warp == 0) {
+    for (int ch = 0; ch < t.nres; ++ch) issue_x(cluster * p.cg, ch);
+    for (long long g = 0; g < R && g < total_jobs; ++g) issue_job(g);
+  }
+  long long jg = 0;  // the next ring job to consume
+  // (r, col): this thread's vector q = tid + k nt of the tile, stepped by
+  // the block without a division
+  const int dr = nt / t.w, dc = nt - dr * t.w;
+  for (int it = 0; it < mine; ++it) {
+    const int c0 = (cluster + it * clusters) * p.cg;
+    const uint32_t xpar = (uint32_t)it & 1u;
+    for (int i = tid; i < 2 * kMaxC; i += nt) part[i] = 0.f;
+
+    // ---- the sums
+    if (fast) {
+      float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+      int col = tid % t.w;
+      for (int ch = 0; ch < t.nall; ++ch) {
+        const int f0 = ch * S, f1 = min(f0 + S, t.tv);
+        const bool resident = ch < t.nres;
+        const uint4* src;
+        if (resident) {
+          mbar_wait(&xbar[ch], xpar);
+          src = xs + f0;
+        } else {
+          src = wait_job(jg);
+        }
+        for (int g0 = f0; g0 < f1; g0 += G) {
+          uint4 raw[U];
+          int e0s[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int q = g0 + tid + u * nt;
+            e0s[u] = (t.v0 + col) * V;
+            if (q < f1) raw[u] = src[q - f0];
+            col += dc;
+            if (col >= t.w) col -= t.w;
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (g0 + tid + u * nt >= f1) continue;
+            float xv[V];
+            bnb::unpack<T>(xv, raw[u]);
+            const int e0 = e0s[u];
+            if (e0 + V <= bnd || e0 >= bnd) {  // the vector in one channel
+              float v1 = 0.f, v2 = 0.f;
+#pragma unroll
+              for (int k = 0; k < V; ++k) {
+                v1 += xv[k];
+                v2 += xv[k] * xv[k];
+              }
+              if (e0 >= bnd) {
+                s1[1] += v1;
+                s2[1] += v2;
+              } else {
+                s1[0] += v1;
+                s2[0] += v2;
+              }
+            } else {  // the two channels meet inside it
+#pragma unroll
+              for (int k = 0; k < V; ++k) {
+                if (e0 + k < bnd) {
+                  s1[0] += xv[k];
+                  s2[0] += xv[k] * xv[k];
+                } else {
+                  s1[1] += xv[k];
+                  s2[1] += xv[k] * xv[k];
+                }
+              }
+            }
+          }
+        }
+        if (!resident) {
+          __syncthreads();
+          if (warp == 0 && jg + R < total_jobs) issue_job(jg + R);
+          ++jg;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        s1[i] = warp_sum(s1[i]);
+        s2[i] = warp_sum(s2[i]);
+        if (lane == 0) {
+          red[i * kMaxWarps + warp] = s1[i];
+          red[(2 + i) * kMaxWarps + warp] = s2[i];
+        }
+      }
+      __syncthreads();
+      if (tid < 2 * t.nch) {  // (statistic, channel)
+        const int st = tid / t.nch, i = tid - st * t.nch;
+        float tot = 0.f;
+        for (int w = 0; w < nw; ++w) tot += red[(2 * st + i) * kMaxWarps + w];
+        part[st * kMaxC + t.ch_lo + i] = tot;
+      }
+    } else {
+      for (int ch = 0; ch < t.nres; ++ch) mbar_wait(&xbar[ch], xpar);
+      sums_general<T>(p, t, c0, xs, red, part, keep);
+    }
+
+    // ---- the fold: the K partials in rank order, every channel of the slab
+    cluster_sync();
+    {
+      const float inv_m = (float)(1.0 / (double)p.m);
+      const int ranks = (p.skip && rank == 0) ? p.k - 1 : p.k;
+      for (int cl = tid; cl < p.cg; cl += nt) {
+        // every peer's partials in flight at once, then the adds in rank order
+        float v1[kMaxK], v2[kMaxK];
+#pragma unroll
+        for (int r = 0; r < kMaxK; ++r) {
+          if (r < ranks) {
+            v1[r] = ld_cluster(part + cl, (uint32_t)r);
+            v2[r] = ld_cluster(part + kMaxC + cl, (uint32_t)r);
+          }
+        }
+        float t1 = 0.f, t2 = 0.f;
+#pragma unroll
+        for (int r = 0; r < kMaxK; ++r) {
+          if (r < ranks) {
+            t1 += v1[r];
+            t2 += v2[r];
+          }
+        }
+        const float mean = __fmul_rn(t1, inv_m);
+        const float var = fmaxf(__fsub_rn(__fmul_rn(t2, inv_m), __fmul_rn(mean, mean)), 0.f);
+        const int c = c0 + cl;
+        if (rank == 0) {
+          p.mean[c] = mean;
+          p.var[c] = var;
+        }
+        float rstd, a, bb;
+        bn::fold_ab(p.w[c], p.b[c], mean, var, p.eps, rstd, a, bb);
+        cs[cl] = a;
+        cs[kMaxC + cl] = bb;
+      }
+    }
+    cluster_arrive();  // done with the peers' partials
+    __syncthreads();
+
+    // ---- the apply, a group at a time
+    {
+      const int l0 = t.ch_lo, l1 = t.ch_lo + t.nch - 1;
+      const float a0 = cs[l0], a1 = cs[l1], bb0 = cs[kMaxC + l0], bb1 = cs[kMaxC + l1];
+      T* y = static_cast<T*>(p.y);
+      int r = tid / t.w, col = tid - r * t.w;
+      // !kResRing: the residual's vectors of a group into registers, a
+      // group ahead of the one applied (pr, pc: the prefetch's own walk)
+      int pr = r, pc = col;
+      auto fetch_res = [&](int g, uint4(&dst)[U]) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (g * G + tid + u * nt < t.tv)
+            dst[u] = bnb::ld_hint(static_cast<const T*>(p.res) + elem(p, t, c0, pr, pc, V),
+                                  once);
+          pr += dr;
+          pc += dc;
+          if (pc >= t.w) {
+            pc -= t.w;
+            ++pr;
+          }
+        }
+      };
+      const uint4* slot = nullptr;  // the ring stage of the current chunk
+      auto apply_group = [&](int g, uint4(&rcur)[U], uint4(&rnext)[U]) {
+        const int g0 = g * G, ch = g0 / S, f0 = ch * S, f1 = min(f0 + S, t.tv);
+        const bool resident = ch < t.nres, job = ring_res || !resident;
+        if (!kResRing && has_res && g0 + G < t.tv) fetch_res(g + 1, rnext);
+        if (job && g0 == f0) slot = wait_job(jg);
+        const uint4* xsrc = resident ? xs + f0 : slot;
+        const uint4* rsrc = ring_res ? slot + (size_t)(p.ring_t - 1) * S : nullptr;
+        uint4 xr[U];
+        int rows[U], cols[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int q = g0 + tid + u * nt;
+          rows[u] = r, cols[u] = col;
+          if (q < f1) {
+            xr[u] = xsrc[q - f0];
+            if (ring_res) rcur[u] = rsrc[q - f0];
+          }
+          r += dr;
+          col += dc;
+          if (col >= t.w) {
+            col -= t.w;
+            ++r;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int q = g0 + tid + u * nt;
+          if (q >= f1) continue;
+          float xv[V], rv[V], o[V];
+          bnb::unpack<T>(xv, xr[u]);
+          if (has_res) {
+            bnb::unpack<T>(rv, rcur[u]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < V; ++k) rv[k] = 0.f;
+          }
+          const int e0 = (t.v0 + cols[u]) * V;
+          if (fast && (e0 + V <= bnd || e0 >= bnd)) {  // the vector in one channel
+            const bool second = e0 >= bnd;
+            const float a = second ? a1 : a0, bb = second ? bb1 : bb0;
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              const float pre = bn::pre_act(xv[k], a, bb, has_res, rv[k]);
+              o[k] = p.relu ? fmaxf(pre, 0.f) : pre;
+            }
+          } else if (fast) {  // the two channels meet inside it
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              const bool second = e0 + k >= bnd;
+              const float pre =
+                  bn::pre_act(xv[k], second ? a1 : a0, second ? bb1 : bb0, has_res, rv[k]);
+              o[k] = p.relu ? fmaxf(pre, 0.f) : pre;
+            }
+          } else {  // the element's channel, stepped inside the vector
+            int cl = e0 / p.hw, within = e0 - cl * p.hw;
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              if (k > 0 && ++within == p.hw) {
+                within = 0;
+                ++cl;
+              }
+              const float pre = bn::pre_act(xv[k], cs[cl], cs[kMaxC + cl], has_res, rv[k]);
+              o[k] = p.relu ? fmaxf(pre, 0.f) : pre;
+            }
+          }
+          if (kTmaStore && resident) {
+            xs[q] = bnb::pack<T>(o);
+          } else {
+            bnb::st_stream(y + elem(p, t, c0, rows[u], cols[u], V), bnb::pack<T>(o));
+          }
+        }
+        if (g0 + G < f1) return;  // the chunk's last group ends it
+        bool synced = false;
+        if (kTmaStore && resident) {
+          fence_proxy_async();
+          __syncthreads();
+          synced = true;
+          if (warp == 0) store_rows<T>(p, t, c0, xs + f0, f0, f1);
+        }
+        if (job) {
+          if (!synced) __syncthreads();
+          synced = true;
+          if (warp == 0 && jg + R < total_jobs) issue_job(jg + R);
+          ++jg;
+        }
+        if (kPersistent && resident && it + 1 < mine) {  // the next slab's chunk
+          if (!synced) __syncthreads();
+          if (warp == 0) {
+            if (kTmaStore) {
+              bulk_wait_read();
+              __syncwarp();
+            }
+            issue_x(c0 + clusters * p.cg, ch);
+          }
+        }
+      };
+      // two register buffers for the residual, their roles swapped a group
+      uint4 ra[U], rb[U];
+      if (!kResRing && has_res) fetch_res(0, ra);
+      const int groups = (t.tv + G - 1) / G;
+      for (int g = 0; g < groups; g += 2) {
+        apply_group(g, ra, rb);
+        if (g + 1 < groups) apply_group(g + 1, rb, ra);
+      }
+    }
+    cluster_wait();  // no peer reads this CTA's partials any more
+  }
+  if (kTmaStore && warp == 0) bulk_wait_read();
+}
+
+// ---- the plan, on the host (norm_fusion.bn_fwd_plan mirrors it)
+
+struct Plan {
+  int cg, k, ns, cs, rowv, cap, ring_t, smem, slabs, tv, threads;
+};
+
+// vec: elements a 16-byte vector; res: a residual streams through the
+// ring; sms: the card's SMs (K is raised while the grid has fewer CTAs)
+inline int plan(int n, int c, int hw, int vec, int res, int sms, Plan& pl) {
+  if (n < 1 || c < 1 || hw < 1 || sms < 1 || (vec != 4 && vec != 8))
+    return (int)cudaErrorInvalidValue;
+  const int unit = vec / bnb::gcd_int(hw, vec);
+  if (c % unit) return (int)cudaErrorInvalidValue;
+  const long long esize = 16 / vec;
+  int cg = 0;
+  for (int m = unit; m <= std::min(c, kMaxC); m += unit) {
+    if (c % m) continue;
+    cg = m;
+    if ((long long)n * m * hw * esize >= kMinSlab) break;
+  }
+  const long long rowv = (long long)cg * hw / vec, slabv = (long long)n * rowv;
+  const long long budget =
+      std::min((long long)kMaxSmem, (long long)kSmemPerSm / kCtasPerSm - kBlockReserve) -
+      kScratch;
+  const long long ring1 = (long long)kRing * kStageVecs * 16;
+  res = res && kResRing;  // a residual in registers takes no shared memory
+  const long long hold = (budget - (res ? ring1 : 0)) / 16;  // vectors a CTA holds
+  if (hold < kStageVecs) return (int)cudaErrorInvalidValue;
+  const int slabs = c / cg;
+  long long k = std::min<long long>(kMaxCluster, (slabv + hold - 1) / hold);
+  k = std::max(k, std::min<long long>({(long long)kMaxCluster,
+                                       ((long long)kParPerSm * sms + slabs - 1) / slabs,
+                                       slabv / kMinCtaVecs}));
+  k = std::max(k, 1LL);
+  // the cut of K CTAs: ns image slices, cs row-vector slices, the largest
+  // tile's vectors
+  const long long ns = std::min<long long>(n, k);
+  const long long cs =
+      std::max(1LL, std::min<long long>({(k + ns - 1) / ns, kMaxCluster / ns, rowv}));
+  const long long tv = ((n + ns - 1) / ns) * ((rowv + cs - 1) / cs);
+  long long cap;
+  int ring_t;
+  if (tv <= hold) {
+    cap = tv;
+    ring_t = res ? 1 : 0;
+  } else {  // a whole number of chunks, the rest through the ring
+    ring_t = res ? 2 : 1;
+    cap = (budget - ring_t * ring1) / 16 / kStageVecs * kStageVecs;
+    if (cap < kStageVecs) return (int)cudaErrorInvalidValue;
+  }
+  pl.cg = cg, pl.k = (int)(ns * cs), pl.ns = (int)ns, pl.cs = (int)cs, pl.rowv = (int)rowv;
+  pl.cap = (int)cap, pl.ring_t = ring_t, pl.slabs = slabs, pl.tv = (int)tv;
+  pl.smem = (int)(kScratch + cap * 16 + ring_t * ring1);
+  // a CTA of at most half an SM's shared memory: two an SM at 256 threads
+  pl.threads = pl.smem <= kSmemPerSm / 2 - kBlockReserve ? kSmallThreads : kMaxThreads;
+  return 0;
+}
+
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+    return -1;
+  return sms;
+}
+
+// the launch of `clusters` clusters of the plan's K CTAs
+inline cudaLaunchConfig_t config(const Plan& pl, int clusters, cudaStream_t s,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(pl.k * clusters));
+  cfg.blockDim = dim3((unsigned)pl.threads);
+  cfg.dynamicSmemBytes = (size_t)pl.smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)pl.k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T>
+int prepare(const Plan& pl) {
+  auto kernel = bn_fwd_cluster<T>;
+  if ((size_t)pl.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     pl.smem);
+  if (!rc && pl.k > 8)
+    rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return rc;
+}
+
+// the clusters of the plan the card holds at once
+template <typename T>
+int active_clusters(const Plan& pl, int* out) {
+  if (int rc = prepare<T>(pl)) return rc;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config(pl, 1, nullptr, attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, bn_fwd_cluster<T>, &cfg);
+}
+
+template <typename T>
+int run(Args p, cudaStream_t s) {
+  constexpr int V = Vec<T>::n;
+  if (p.n < 1 || p.c < 8 || p.c % 8 || p.hw < 1 || p.c > 65535 ||
+      (long long)p.n * p.c * p.hw >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms < 1) return (int)cudaErrorInvalidValue;
+  Plan pl;
+  if (int rc = plan(p.n, p.c, p.hw, V, p.res != nullptr, sms, pl)) return rc;
+  p.cg = pl.cg, p.k = pl.k, p.ns = pl.ns, p.cs = pl.cs, p.rowv = pl.rowv;
+  p.cap = pl.cap, p.ring_t = pl.ring_t, p.slabs = pl.slabs;
+  p.m = (long long)p.n * p.hw;
+  int clusters = pl.slabs;
+  if (kPersistent) {
+    int active = 0;
+    if (int rc = active_clusters<T>(pl, &active)) return rc;
+    if (active < 1) return (int)cudaErrorInvalidConfiguration;
+    clusters = std::min(clusters, active);
+  } else if (int rc = prepare<T>(pl)) {
+    return rc;
+  }
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config(pl, clusters, s, attr);
+  int rc = (int)cudaLaunchKernelEx(&cfg, bn_fwd_cluster<T>, p);
+  if (rc) return rc;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bnf
+
 }  // namespace
 
 extern "C" {
@@ -2140,5 +2887,49 @@ int fused_bn_bwd_plan(int n, int c, int hw, int vec, int tensors, int sms, int* 
 
 // the reduction's parts (row count of the part workspace) for N planes of HW
 int fused_bn_parts(int n, int hw) { return n < 1 || hw < 1 ? 0 : bn::nparts(n, hw); }
+
+// The cluster route (bnf): x, res, y [N, C, HW] (res null without a
+// residual); w, b [C] f32; mean, var [C] f32 (written); skip: a planted
+// fault, rank 0's fold leaving out the last rank's partial (0: none). One
+// launch; no workspace.
+#define FUSED_BN_FWD_CLUSTER(SUFFIX, T)                                                      \
+  int fused_bn_fwd_cluster_##SUFFIX(const void* x, const void* res, const void* w,           \
+                                    const void* b, void* y, void* mean, void* var, int n,    \
+                                    int c, int hw, float eps, int relu, int skip,            \
+                                    void* stream) {                                          \
+    bnf::Args p{};                                                                           \
+    p.x = x, p.res = res, p.w = static_cast<const float*>(w);                                \
+    p.b = static_cast<const float*>(b), p.y = y;                                             \
+    p.mean = static_cast<float*>(mean), p.var = static_cast<float*>(var);                    \
+    p.n = n, p.c = c, p.hw = hw, p.eps = eps, p.relu = relu, p.skip = skip;                  \
+    const std::initializer_list<const void*> rows = {x, res, y};                             \
+    for (const void* r : rows)                                                               \
+      if (r && !aligned16(r)) return (int)cudaErrorMisalignedAddress;                        \
+    return bnf::run<T>(p, static_cast<cudaStream_t>(stream));                                \
+  }                                                                                          \
+  /* the route's K at [n, c, hw] on this card and the clusters it holds at */                \
+  /* once (cudaOccupancyMaxActiveClusters): out[2] */                                        \
+  int fused_bn_fwd_clusters_##SUFFIX(int n, int c, int hw, int res, int* out) {              \
+    const int sms = bnf::sm_count();                                                         \
+    bnf::Plan pl;                                                                            \
+    if (int rc = bnf::plan(n, c, hw, Vec<T>::n, res, sms, pl)) return rc;                   \
+    out[0] = pl.k;                                                                           \
+    return bnf::active_clusters<T>(pl, out + 1);                                             \
+  }
+FUSED_BN_FWD_CLUSTER(f32, float)
+FUSED_BN_FWD_CLUSTER(bf16, __nv_bfloat16)
+
+// the cluster route's plan as bnf::run reckons it on `sms` SMs, for a check
+// of its Python mirror (norm_fusion.bn_fwd_plan): out[11] = cg, K, ns, cs,
+// rowv, cap, ring_t, smem, slabs, tv, threads; vec: elements a 16-byte
+// vector; res: 1 with a residual
+int fused_bn_fwd_plan(int n, int c, int hw, int vec, int res, int sms, int* out) {
+  bnf::Plan pl;
+  if (int rc = bnf::plan(n, c, hw, vec, res, sms, pl)) return rc;
+  const int v[11] = {pl.cg,   pl.k,    pl.ns,    pl.cs, pl.rowv,   pl.cap,
+                     pl.ring_t, pl.smem, pl.slabs, pl.tv, pl.threads};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
+  return 0;
+}
 
 }  // extern "C"

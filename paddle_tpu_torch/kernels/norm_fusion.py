@@ -49,8 +49,16 @@ contiguous run of rows, ``ln_bwd_plan``; the next row in flight while a
 warp computes the current one; the column sums in registers across the
 run, one partial row a block) and ``generic`` (the 32-row kernels: every
 other shape); ``ln_bwd_routes`` counts CUDA calls by route. The
-BatchNorm backward takes the ``persistent`` route for every call the op
-takes (``bn_bwd_route``): one cooperative launch that works through the
+BatchNorm forward takes the ``cluster`` route for every call the op takes
+(``bn_fwd_route``): one launch of thread-block clusters, each holding a
+slab of channels (``bn_fwd_plan``) in its CTAs' shared memory, so that x
+is read once where it fits (the stems re-read what does not); the CTAs
+meet at a cluster barrier and fold their partial sums over distributed
+shared memory in rank order; the ``generic`` kernels stay reachable only
+by naming them (``_bn_fwd_cuda(..., route="generic")``);
+``bn_fwd_routes`` counts CUDA calls by route. The BatchNorm backward
+takes the ``persistent`` route for every call the op takes
+(``bn_bwd_route``): one cooperative launch that works through the
 channels group by group (``bn_bwd_plan``): each block reduces its tile of
 a group, the block that finishes a group last folds it, every block then
 applies its tile; a tile's first vectors come through a shared-memory
@@ -65,9 +73,9 @@ For CPU tensors they take the plain PyTorch versions ``fused_ln_fwd_ref``
 ``launches`` counts calls that launch the kernels (CPU calls do not
 count), one per op call: the LayerNorm backward's second launch (the
 fixed-order sum of its column partials) counts under ``fused_ln_bwd``,
-the BatchNorm forward's four launches (reduction, ``sum_parts``, the
-per-channel fold, apply) count once, and so does the backward's memset of
-its counters and its one launch.
+the generic BatchNorm forward's four launches (reduction, ``sum_parts``,
+the per-channel fold, apply) count once, and so does the backward's
+memset of its counters and its one launch.
 """
 from __future__ import annotations
 
@@ -86,7 +94,8 @@ from .flash_attention import (DropKey, _ceil_to, _drop_args, _on, drop_key,
 from .flash_attention import seed_pair as _seed_pair
 
 __all__ = ["bn_bwd_plan", "bn_bwd_route", "bn_bwd_routes", "bn_bwd_tiles",
-           "bn_eligible", "bn_tiles", "dropout_launches",
+           "bn_eligible", "bn_fwd_bytes", "bn_fwd_plan", "bn_fwd_route",
+           "bn_fwd_routes", "bn_fwd_tiles", "bn_tiles", "dropout_launches",
            "fused_batch_norm_train",
            "fused_bn_bwd", "fused_bn_bwd_ref", "fused_bn_fwd",
            "fused_bn_fwd_ref", "fused_layer_norm_2d", "fused_ln_fwd",
@@ -194,7 +203,9 @@ _ARGTYPES = {"ln_fwd": [_P] * 8 + [_I, _I, _F] + _DROP + [_P],
              "fused_bn_bwd": [_P] * 15 + [_I, _I, _I, _F, _I, _P],
              # fused_bn_bwd's tensors with one scratch, then n, c, hw, eps,
              # relu, skip
-             "fused_bn_bwd_persist": [_P] * 12 + [_I, _I, _I, _F, _I, _I, _P]}
+             "fused_bn_bwd_persist": [_P] * 12 + [_I, _I, _I, _F, _I, _I, _P],
+             # x, res, w, b, y, mean, var, then n, c, hw, eps, relu, skip
+             "fused_bn_fwd_cluster": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _P]}
 
 
 @functools.cache
@@ -205,6 +216,11 @@ def _lib():
     lib.fused_bn_parts.restype = _I
     lib.fused_bn_bwd_plan.argtypes = [_I] * 6 + [_P]
     lib.fused_bn_bwd_plan.restype = _I
+    lib.fused_bn_fwd_plan.argtypes = [_I] * 6 + [_P]
+    lib.fused_bn_fwd_plan.restype = _I
+    for suffix in ("f32", "bf16"):
+        fn = getattr(lib, f"fused_bn_fwd_clusters_{suffix}")
+        fn.argtypes, fn.restype = [_I] * 4 + [_P], _I
     return lib
 
 
@@ -586,22 +602,214 @@ def _bn_parts(n, hw):
     return _lib().fused_bn_parts(n, hw)
 
 
-def _bn_fwd_cuda(x, res, w, b, eps, relu):
+# the cluster forward (csrc/norm_fusion.cu namespace bnf): its constants,
+# mirrored by bn_fwd_plan
+BNF_MAX_THREADS = 512           # kMaxThreads: a CTA of over half an SM
+BNF_SMALL_THREADS = 256         # kSmallThreads: a CTA of at most half
+BNF_MAX_C = 256                 # kMaxC: channels a slab holds at most
+BNF_MIN_SLAB = 65536            # kMinSlab: bytes of x a slab holds at least
+BNF_MIN_CTA_VECS = 1024         # kMinCtaVecs: vectors a CTA at least, K raised
+BNF_CTAS_PER_SM = 1             # kCtasPerSm: a CTA's share of an SM
+BNF_MAX_CLUSTER = 16            # kMaxCluster: CTAs a cluster at most
+BNF_PAR_PER_SM = 1              # kParPerSm: K raised while CTAs < this x SMs
+BNF_STAGE_VECS = 2048           # kStageVecs: a chunk of x, a ring stage
+BNF_RING = 3                    # kRing: ring stages
+BNF_RES_RING = False            # kResRing: the residual through the ring
+MAX_SMEM = 232448               # kMaxSmem: dynamic shared memory a block
+# kMaxChunks, kScratch: the partials, sums and coefficients [2, 256] f32
+# each, the chunks' and the ring's mbarriers (6400 bytes)
+BNF_MAX_CHUNKS = -(-(MAX_SMEM // 16) // BNF_STAGE_VECS)
+BNF_SCRATCH = (6 * BNF_MAX_C * 4 + 8 * (BNF_MAX_CHUNKS + BNF_RING)
+               + 127) // 128 * 128
+
+
+class BnFwdPlan(NamedTuple):
+    n: int
+    c: int
+    hw: int
+    vec: int            # elements a 16-byte vector
+    res: bool           # a residual streams through the ring
+    unit: int           # cg is a multiple of unit = V / gcd(HW, V)
+    cg: int             # channels a slab
+    k: int              # CTAs a cluster (= ns * cs)
+    ns: int             # image slices
+    cs: int             # row-vector slices
+    rowv: int           # vectors a slab row holds (cg HW / V)
+    cap: int            # resident vectors a CTA at most
+    ring_t: int         # tensors a ring stage holds (0: no ring)
+    smem: int           # dynamic shared memory a CTA
+    slabs: int          # C / cg
+    tv: int             # vectors of the largest tile
+    stage: int          # vectors a chunk or ring stage
+    threads: int        # a CTA's: 256 where two fit an SM, else 512
+
+
+class BnFwdTile(NamedTuple):
+    """CTA ``rank``'s part of a slab: images [n0, n0 + rows) by row
+    vectors [v0, v0 + w); its first ``fit`` vectors resident, the rest
+    streamed (read twice); channels ch_lo .. ch_lo + nch - 1."""
+    rank: int
+    n0: int
+    rows: int
+    v0: int
+    w: int
+    fit: int
+    ch_lo: int
+    nch: int
+
+
+@functools.lru_cache(maxsize=256)
+def _bnf_plan(n: int, c: int, hw: int, dtype, res: bool, sms: int,
+              ctas_per_sm: int, max_cluster: int, stage: int, ring: int,
+              res_ring: bool = BNF_RES_RING,
+              small_threads: int = BNF_SMALL_THREADS,
+              par_per_sm: int = BNF_PAR_PER_SM,
+              min_slab: int = BNF_MIN_SLAB,
+              min_cta_vecs: int = BNF_MIN_CTA_VECS) -> BnFwdPlan:
+    """``bnf::plan`` under the given design constants. Slabs of cg
+    channels: the least multiple of V / gcd(HW, V) dividing C whose slab
+    holds ``min_slab`` bytes (at most BNF_MAX_C). K: the least CTAs whose
+    shared memory holds a slab (at most ``max_cluster``), raised while the
+    grid has fewer CTAs than ``par_per_sm`` x ``sms`` (not below
+    ``min_cta_vecs`` vectors a CTA); cut ns = min(N, K) ways over the
+    images and the rest over the row. A tile that does not
+    fit keeps a whole number of chunks and streams the rest through a ring
+    of ``ring`` stages, which also carries the residual where
+    ``res_ring`` (else it comes into registers and takes no shared
+    memory). A CTA of at most half an SM's shared memory takes
+    ``small_threads`` threads, a larger one BNF_MAX_THREADS. The route's
+    plan is ``bn_fwd_plan``; the last two arguments let a small tensor
+    take a cluster of several CTAs."""
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    if n < 1 or c < 1 or hw < 1 or sms < 1:
+        raise ValueError(f"_bnf_plan: N {n}, C {c}, HW {hw}, {sms} SMs")
+    unit = vec // math.gcd(hw, vec)
+    if c % unit:
+        raise ValueError(f"_bnf_plan: C {c} is not a multiple of {unit}")
+    esize = 16 // vec
+    cg = 0
+    for m in range(unit, min(c, BNF_MAX_C) + 1, unit):
+        if c % m:
+            continue
+        cg = m
+        if n * m * hw * esize >= min_slab:
+            break
+    rowv = cg * hw // vec
+    slabv = n * rowv
+    max_chunks = -(-(MAX_SMEM // 16) // stage)
+    scratch = (6 * BNF_MAX_C * 4 + 8 * (max_chunks + ring) + 127) // 128 * 128
+    budget = min(MAX_SMEM, 233472 // ctas_per_sm - 1024) - scratch
+    ring1 = ring * stage * 16
+    in_ring = bool(res) and res_ring
+    hold = (budget - (ring1 if in_ring else 0)) // 16
+    if hold < stage:
+        raise ValueError(f"_bnf_plan: {hold} vectors a CTA")
+    slabs = c // cg
+    k = min(max_cluster, -(-slabv // hold))
+    k = max(k, min(max_cluster, -(-par_per_sm * sms // slabs),
+                   slabv // min_cta_vecs), 1)
+    ns = min(n, k)
+    cs = max(1, min(-(-k // ns), max_cluster // ns, rowv))
+    tv = -(-n // ns) * -(-rowv // cs)
+    if tv <= hold:
+        cap, ring_t = tv, 1 if in_ring else 0
+    else:
+        ring_t = 2 if in_ring else 1
+        cap = (budget - ring_t * ring1) // 16 // stage * stage
+        if cap < stage:
+            raise ValueError(f"_bnf_plan: {cap} resident vectors")
+    smem = scratch + cap * 16 + ring_t * ring1
+    threads = small_threads if smem <= 233472 // 2 - 1024 else BNF_MAX_THREADS
+    return BnFwdPlan(n, c, hw, vec, bool(res), unit, cg, ns * cs, ns, cs,
+                     rowv, cap, ring_t, smem, slabs, tv, stage, threads)
+
+
+def bn_fwd_plan(n: int, c: int, hw: int, dtype, res: bool,
+                sms: int) -> BnFwdPlan:
+    """The cluster forward's plan on ``sms`` SMs, as ``bnf::run`` reckons
+    it from the kernel's constants."""
+    return _bnf_plan(n, c, hw, dtype, bool(res), sms, BNF_CTAS_PER_SM,
+                     BNF_MAX_CLUSTER, BNF_STAGE_VECS, BNF_RING)
+
+
+def bn_fwd_tiles(plan: BnFwdPlan):
+    """The tiles of a slab by rank, as the kernel's ``tile_of`` cuts it."""
+    out = []
+    for rank in range(plan.k):
+        i, jc = divmod(rank, plan.cs)
+        n0, n1 = i * plan.n // plan.ns, (i + 1) * plan.n // plan.ns
+        v0, v1 = jc * plan.rowv // plan.cs, (jc + 1) * plan.rowv // plan.cs
+        ch_lo = v0 * plan.vec // plan.hw
+        out.append(BnFwdTile(rank, n0, n1 - n0, v0, v1 - v0,
+                             min((n1 - n0) * (v1 - v0), plan.cap), ch_lo,
+                             (v1 * plan.vec - 1) // plan.hw - ch_lo + 1))
+    return out
+
+
+def bn_fwd_bytes(plan: BnFwdPlan) -> dict:
+    """The bytes the cluster forward moves: x's resident part read once
+    and the rest twice (the sums, then the apply), the residual read once,
+    y written once."""
+    tiles = bn_fwd_tiles(plan)
+    res_v = sum(t.rows * t.w for t in tiles)
+    x_v = sum(t.fit + 2 * (t.rows * t.w - t.fit) for t in tiles)
+    per = 16 * plan.slabs
+    return dict(x_read=x_v * per, x_once=sum(t.fit for t in tiles) * per,
+                res_read=res_v * per if plan.res else 0, y_written=res_v * per)
+
+
+def bn_fwd_route(dtype, c: int) -> str:
+    """The BatchNorm forward kernel a CUDA call takes: ``"cluster"`` for
+    every call the op takes (float32 or bfloat16, C % 8 == 0, C <= 65535;
+    ``_bn_check`` refuses tensors that are not contiguous and 16-byte
+    aligned); anything else raises, as the op does: no shape falls back to
+    the generic kernels."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_bn_fwd takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if not bn_eligible(c) or c > 65535:
+        raise ValueError(f"fused_bn_fwd takes C % 8 == 0 and C <= 65535, got "
+                         f"C={c}")
+    return "cluster"
+
+
+# CUDA calls of the BatchNorm forward by route
+bn_fwd_routes = {"cluster": 0, "generic": 0}
+
+
+def _bn_fwd_cuda(x, res, w, b, eps, relu, route=None, *, skip=0):
+    """(y, mean, var) on the cluster route (``route="generic"`` names the
+    four-launch kernels for an in-call comparison). ``skip`` plants a
+    fault for the checks: rank 0's fold leaves out the last rank's
+    partial; the op passes none."""
     w32, b32 = _vec32(w), _vec32(b)
     n, c, hw = _bn_check("fused_bn_fwd", x, () if res is None else (res,),
                          (w32, b32))
+    natural = bn_fwd_route(x.dtype, c)
+    if route is None:
+        route = natural
+    elif route not in ("cluster", "generic"):
+        raise ValueError(f"fused_bn_fwd: route {route!r} is 'cluster' or "
+                         f"'generic'")
     dev = x.device
     y = torch.empty_like(x)
     mean = torch.empty(c, dtype=torch.float32, device=dev)
     var = torch.empty_like(mean)
-    part = torch.empty((_bn_parts(n, hw), 2, c), dtype=torch.float32,
-                       device=dev)
-    coef = torch.empty((2, c), dtype=torch.float32, device=dev)
-    _build.call(_lib(), "fused_bn_fwd", x.dtype, dev, x.data_ptr(), _ptr(res),
-                w32.data_ptr(), b32.data_ptr(), y.data_ptr(),
-                mean.data_ptr(), var.data_ptr(), part.data_ptr(),
-                coef.data_ptr(), n, c, hw, float(eps), int(relu))
+    lib = _lib()
+    head = (x.data_ptr(), _ptr(res), w32.data_ptr(), b32.data_ptr(),
+            y.data_ptr(), mean.data_ptr(), var.data_ptr())
+    if route == "cluster":
+        _build.call(lib, "fused_bn_fwd_cluster", x.dtype, dev, *head, n, c,
+                    hw, float(eps), int(relu), int(skip))
+    else:
+        part = torch.empty((_bn_parts(n, hw), 2, c), dtype=torch.float32,
+                           device=dev)
+        coef = torch.empty((2, c), dtype=torch.float32, device=dev)
+        _build.call(lib, "fused_bn_fwd", x.dtype, dev, *head,
+                    part.data_ptr(), coef.data_ptr(), n, c, hw, float(eps),
+                    int(relu))
     launches["fused_bn_fwd"] += 1
+    bn_fwd_routes[route] += 1
     return y, mean, var
 
 
