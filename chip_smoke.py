@@ -233,7 +233,12 @@ Phases, one line each; any failure raises and exits non-zero:
    shown to reject a forward without the residual, a forward and a
    backward missing one reduction part, a cluster forward whose rank 0
    leaves out its last peer's partial and a persistent backward whose
-   folds leave out one block's partial; their times at layer 1's bn3 and
+   folds leave out one block's partial; the ops with bf16 weight and bias
+   (AMP's O2 casts) at layer 1's bn3 and the stem against the plain
+   versions, bitwise equal to the same values in f32, dw and db bf16, one
+   launch a forward call and one and a memset a backward call, timed in
+   turns with the f32-vector call, the planted faults rejected; their
+   times at layer 1's bn3 and
    the stem beside the plain versions', the bound and F.batch_norm -> +
    res -> relu with its autograd backward, each direction's new kernel
    in turns with the generic route's kernels and its CUDA launches
@@ -305,8 +310,8 @@ Phases, one line each; any failure raises and exits non-zero:
    from the same inputs and generator seed, the generators' states
    equal after; each call launches each dropout variant of kernels 4-6
    once and no other kernel;
-39. serve llama-7b (random weights from a seed, bf16, full width and
-   depth) through llama_adapter and ServingEngine at max_batch=4,
+39. serve llama-7b (random weights from a seed, bf16, full width, 12 of
+   its 32 layers: LLAMA_SERVE_LAYERS) through llama_adapter and ServingEngine at max_batch=4,
    device_loop_k=4, 512 blocks of 16, max_model_len 1024: 4 greedy
    requests, prompts 128/256/384/512, 32 new tokens; every request
    finished, tokens in the vocabulary, 0 leaked blocks; ms per token,
@@ -372,6 +377,45 @@ Phases, one line each; any failure raises and exits non-zero:
    rows and count with the kernels on the card against the port's CPU
    route from the same weights and batch, each within 3x the CPU route's
    own f32-against-f64 reading;
+47. bench.py's resnet50 step (:552-583) under AMP: resnet50 with f32
+   parameters (random from a seed, full width and depth), B=256,
+   3x224x224, the forward under auto_cast(level="O2", dtype="bfloat16"),
+   cross_entropy of the f32 logits, Momentum(0.1, 0.9), on the fused
+   route (FLAGS_fused_norm on) and the dense one in turns (fused, dense,
+   dense, fused; 5 steps a turn, one fixed batch each): the first step's
+   operator statistics (collect_operator_stats: 53 conv2d and 53
+   fused_bn_train or batch_norm_train calls in the reference's buckets)
+   and, fused, its running statistics against Paddle's rule and each BN
+   kernel call's weight dtype; finite, falling losses; 53 cluster forward
+   and 53 persistent backward calls a step, all with bf16 weight and
+   bias, on the fused route and none on the dense; ms a step, images/s,
+   peak memory; a profile of each route (busy, idle, the O2 casts'
+   aten::_to_copy calls and copy kernels a step); no parameter leaves f32;
+48. bench.py's bert-base step (:647-692) under AMP: BertForPretraining
+   with f32 parameters at dropout 0.1 / 0.1, B=64, S=512, ids and MLM /
+   NSP labels as its batch() draws them (no mask), the loss under
+   auto_cast(level="O1", dtype="bfloat16"), AdamW(1e-4), on the fused
+   route and the dense one (norm and MLP flags off) in turns: the first
+   step's operator statistics; the loss finite and on average below the
+   first step's; the flash, fused MLP, projection-LN and LayerNorm
+   launches a step exactly bert_launches', each on its bf16 route; ms a
+   step, tokens/s, peak memory, a profile of each route; no parameter
+   leaves f32;
+49. AMP parity, the card against the port's CPU route from the same
+   weights and batch: resnet50 at B=8, 64x64 under O2 (the loss, the
+   gradients as one vector, the running statistics) and bert-base at
+   full width, 2 layers, B=4, S=512, dropout 0.1 / 0.1 under O1 (the loss
+   and every gradient, the generators seeded alike), each within 3x the
+   CPU's own AMP-against-f32 reading;
+50. AMP tools at bert-base width, 2 layers, B=4, S=512: GradScaler under
+   O1 float16 (an inf planted in one gradient at step 2: the update
+   skipped, parameters and moments bitwise unchanged, the scale halved);
+   decorate(level="O2") (the LayerNorm parameters f32, every other one
+   bf16 with an f32 master weight; a scaled O2 bf16 run whose skipped
+   step leaves the master weights bitwise unchanged); LinearWarmup ->
+   PolynomialDecay, ClipGradByGlobalNorm(1.0) and PaddleNLP's
+   apply_decay_param_fun over 3 AdamW steps in f32: the rates, the
+   clipped global norms and the parameters against the CPU route;
 then the card's name and power limit again, the kernels' JSON line and
 the final status line. Every kernel time is device time (cuda_ms: the
 calls queued behind a spin of the card, so the host's launch rate does
@@ -400,7 +444,11 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+_T0 = time.perf_counter()
+
+
 def phase(n, name, **fields):
+    fields["elapsed_s"] = time.perf_counter() - _T0
     print(f"phase {n} {name}: " + json.dumps(fields), flush=True)
 
 
@@ -4751,13 +4799,16 @@ def phase_bn_vs_plain(torch, timed=True):
     (bf16 w and b, as the model holds them) against the plain versions
     and bitwise against the ops; the check shown to reject a forward
     without the residual, a forward missing its first reduction part and
-    a backward missing its first reduction part. Then the times of layer
-    1's bn3 and the stem's BN, and each direction's kernels alone at all
-    six shapes in bf16 (bn_shape_times)."""
+    a backward missing its first reduction part. The ops with bf16 weight
+    and bias at layer 1's bn3 and the stem (bn_bf16_vectors: AMP's O2
+    casts). Then the times of layer 1's bn3 and the stem's BN, and each
+    direction's kernels alone at all six shapes in bf16
+    (bn_shape_times)."""
     from paddle_tpu_torch.kernels import norm_fusion as nf
     out = bn_cases_vs_plain(torch, nf, BN_CASES, BN_N)
     out.update(autograd_bf16=bn_autograd(torch, nf),
-               wrong_kernel_reading=bn_check_rejects(torch, nf))
+               wrong_kernel_reading=bn_check_rejects(torch, nf),
+               bf16_vectors=bn_bf16_vectors(torch, nf))
     if timed:
         out["times"] = {"layer1.bn3": bn_times(torch, nf, 256, 3136, True),
                         "stem": bn_times(torch, nf, 64, 12544, False)}
@@ -5847,6 +5898,10 @@ def route_ptxas(build_log, src, pattern):
 # ---------------------------------------------------------------------------
 
 SERVE_POOL = dict(num_blocks=512, block_size=16, max_model_len=1024)
+# llama-7b's serving phases (39, 40) at full width and 12 of its 32 layers:
+# the depth cut that keeps the whole script within about a minute of its
+# length before phases 47-50 (the training phases 16-18 keep all 32)
+LLAMA_SERVE_LAYERS = 12
 FAST_PREFIX, FAST_TAILS, FAST_CHUNK, SPEC_K = 384, (64, 96, 128, 160), 256, 4
 
 
@@ -6744,6 +6799,765 @@ def phase_ppyoloe_parity_fp32(torch):
                       "detection count and classes exactly")
 
 
+# ---------------------------------------------------------------------------
+# mixed precision (amp/): phases 47-50 and the BatchNorm kernels with bf16
+# weight and bias
+# ---------------------------------------------------------------------------
+
+AMP_STEPS = 5
+AMP_BERT_B, AMP_BERT_S, AMP_BERT_LR = 64, 512, 1e-4
+
+
+def bn_bf16_vectors(torch, nf):
+    """The BatchNorm ops with bf16 weight and bias (what AMP's white
+    ``fused_bn_train`` hands the kernels at O2) at layer 1's bn3 and the
+    stem, bf16 x: y, mean, var, dx, dres, dw, db against the plain
+    versions within BN_TOL / BN_STAT_TOL; bitwise equal to the same call
+    with the vectors' values in f32 (the kernels read a bf16 vector as
+    f32); dw and db come back bf16; one launch a forward call and one
+    launch and one memset a backward call (no conversion launch); each
+    op's device time in turns with the f32-vector call; the planted
+    faults (rank 0 folding without the last rank's partial, the
+    backward's folds without block 0's partial) rejected."""
+    bf = torch.bfloat16
+    out = {}
+    for case, c, hw, relu, has_res in (BN_CASES[1], BN_CASES[0]):
+        x = bn_inputs(torch, BN_N, c, hw, bf, 41 + c, has_res)
+        xx, res, g = x["x"], x["res"], x["g"]
+        w16, b16 = x["w"].to(bf), x["b"].to(bf)
+        w32, b32 = w16.float(), b16.float()
+        y, mean, var = nf.fused_bn_fwd(xx, res, w16, b16, BN_EPS, relu)
+        grads = nf.fused_bn_bwd(xx, res, w16, b16, mean, var, g, x["gmean"],
+                                x["gvar"], BN_EPS, relu)
+        f32 = nf.fused_bn_fwd(xx, res, w32, b32, BN_EPS, relu)
+        g32 = nf.fused_bn_bwd(xx, res, w32, b32, mean, var, g, x["gmean"],
+                              x["gvar"], BN_EPS, relu)
+        ry, rmean, rvar = nf.fused_bn_fwd_ref(xx, res, w16, b16, BN_EPS, relu)
+        rdx, rgate, rdw, rdb = nf.fused_bn_bwd_ref(
+            xx, res, w16, b16, mean, var, g, x["gmean"], x["gvar"], BN_EPS,
+            relu)
+        torch.cuda.synchronize()
+        where = f"(bf16 weight and bias, {case})"
+        dx, dres, dw, db = grads
+        check(dw.dtype == db.dtype == bf, f"fused BN dw, db come back "
+              f"{dw.dtype}, {db.dtype} {where}")
+        check(all(same_bits(a, o) for a, o in zip((y, mean, var), f32))
+              and same_bits(dx, g32[0])
+              and (dres is None or same_bits(dres, g32[1]))
+              and same_bits(dw, g32[2].to(bf)) and same_bits(db, g32[3].to(bf)),
+              f"fused BN with bf16 vectors differs from the same values in "
+              f"f32 {where}")
+        keep = None
+        if relu:
+            pre = bn_plain_pre(torch, nf, xx, res, w16, b16, mean, var)
+            keep = (y > 0) == (pre > 0)
+        readings = {}
+        for key, got, ref, tol in (
+                ("y", y, ry, BN_TOL["bfloat16"]),
+                ("mean", mean, rmean, BN_STAT_TOL),
+                ("var", var, rvar, BN_STAT_TOL),
+                ("dx", dx, rdx.to(bf), BN_TOL["bfloat16"]),
+                ("dw", dw, rdw.to(bf), BN_TOL["bfloat16"]),
+                ("db", db, rdb.to(bf), BN_TOL["bfloat16"])) + (
+                (("dres", dres, rgate.to(bf), BN_TOL["bfloat16"]),)
+                if has_res else ()):
+            if key == "dx" and keep is not None:
+                got, ref = got[keep], ref[keep]
+            readings[key] = rel_err(got, ref)[1]
+            check(readings[key] <= tol, f"fused BN {key} disagrees with "
+                  f"plain {where}: relative {readings[key]} > {tol}")
+        fwd_work = bn_bwd_calls(torch, lambda: nf.fused_bn_fwd(
+            xx, res, w16, b16, BN_EPS, relu))
+        bwd_work = bn_bwd_calls(torch, lambda: nf.fused_bn_bwd(
+            xx, res, w16, b16, mean, var, g, None, None, BN_EPS, relu))
+        check(fwd_work["kernel_launches_per_call"] == 1
+              and fwd_work["memsets_per_call"] == 0
+              and bwd_work["kernel_launches_per_call"] == 1
+              and bwd_work["memsets_per_call"] == 1,
+              f"fused BN with bf16 vectors: forward {fwd_work}, backward "
+              f"{bwd_work}, want one launch (and the backward's memset)")
+        fwd_ms = in_turns(
+            lambda _: nf.fused_bn_fwd(xx, res, w16, b16, BN_EPS, relu),
+            lambda _: nf.fused_bn_fwd(xx, res, w32, b32, BN_EPS, relu))
+        bwd_ms = in_turns(
+            lambda _: nf.fused_bn_bwd(xx, res, w16, b16, mean, var, g, None,
+                                      None, BN_EPS, relu),
+            lambda _: nf.fused_bn_bwd(xx, res, w32, b32, mean, var, g, None,
+                                      None, BN_EPS, relu))
+        ffault = nf._bn_fwd_cuda(xx, res, w16, b16, BN_EPS, relu, skip=1)
+        bfault = nf._bn_bwd_cuda(xx, res, w16, b16, rmean, rvar, g, None,
+                                 None, BN_EPS, relu, skip=0)
+        _, _, fdw, fdb = nf.fused_bn_bwd_ref(xx, res, w16, b16, rmean, rvar,
+                                             g, None, None, BN_EPS, relu)
+        faults = {"mean_fold_missing_last_rank": (rel_err(ffault[1], rmean)[1],
+                                                  BN_STAT_TOL),
+                  "dw_fold_missing_a_partial": (rel_err(bfault[2], fdw)[1],
+                                                BN_STAT_TOL),
+                  "db_fold_missing_a_partial": (rel_err(bfault[3], fdb)[1],
+                                                BN_STAT_TOL)}
+        for key, (reading, tol) in faults.items():
+            check(reading > tol, f"the bf16-vector BN check passes a wrong "
+                  f"kernel ({key}, {case}): {reading} <= {tol}")
+        out[case] = dict(shape=[BN_N, c, hw], relative_to_max=readings,
+                         bitwise_equal_to_f32_vectors=True,
+                         dw_db_dtype="bfloat16",
+                         forward_cuda_launches_per_call=fwd_work[
+                             "kernel_launches_per_call"],
+                         backward_cuda_launches_per_call=bwd_work[
+                             "kernel_launches_per_call"],
+                         backward_memsets_per_call=bwd_work[
+                             "memsets_per_call"],
+                         fused_bn_fwd=dict(ms=fwd_ms[0],
+                                           ms_f32_vectors=fwd_ms[1],
+                                           all_ms=fwd_ms[2]),
+                         fused_bn_bwd=dict(ms=bwd_ms[0],
+                                           ms_f32_vectors=bwd_ms[1],
+                                           all_ms=bwd_ms[2]),
+                         times="the op with bf16 vectors (a) in turns with "
+                               "the same values in f32 (b): a, b, b, a",
+                         wrong_kernel_reading={k: dict(reading=v, tolerance=t)
+                                               for k, (v, t) in
+                                               faults.items()})
+        del x, xx, res, g, y, mean, var, grads, f32, g32, ry, rmean, rvar
+        del rdx, rgate, rdw, rdb, dx, dres, dw, db, keep, ffault, bfault
+        torch.cuda.empty_cache()
+    return out
+
+
+class BnVecDtypes:
+    """While the ``with`` block runs, the dtype of the weight each
+    BatchNorm kernel call receives (the cluster forward's and the
+    persistent backward's wrappers), by direction."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.kernels import norm_fusion as nf
+        self.nf, self.seen = nf, {"forward": [], "backward": []}
+        self._saved = (nf._bn_fwd_cuda, nf._bn_bwd_cuda)
+        fwd, bwd = self._saved
+
+        def rec_fwd(x, res, w, *a, **k):
+            self.seen["forward"].append(str(w.dtype).split(".")[-1])
+            return fwd(x, res, w, *a, **k)
+
+        def rec_bwd(x, res, w, *a, **k):
+            self.seen["backward"].append(str(w.dtype).split(".")[-1])
+            return bwd(x, res, w, *a, **k)
+
+        nf._bn_fwd_cuda, nf._bn_bwd_cuda = rec_fwd, rec_bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.nf._bn_fwd_cuda, self.nf._bn_bwd_cuda = self._saved
+
+    def reading(self):
+        return {d: {t: v.count(t) for t in sorted(set(v))}
+                for d, v in self.seen.items()}
+
+
+def amp_op_stats(fn):
+    """collect_operator_stats over one call of ``fn``: each registered op
+    dispatched, its calls and the dtype buckets of its outputs (zero
+    buckets left out)."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch.amp import debugging
+    with contextlib.redirect_stdout(io.StringIO()):
+        with debugging.collect_operator_stats() as stats:
+            fn()
+    return {op: {k: v for k, v in rec.items() if v}
+            for op, rec in sorted(stats.items())}
+
+
+def amp_profile(torch, step, steps=2):
+    """torch.profiler over ``steps`` steps: device busy ms a step against
+    the profiled wall, the idle share, the AMP casts a step (aten::_to_copy
+    calls, the copy kernels' launches and device ms) and the kernels that
+    take the time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    if busy_ms == 0.0:
+        return dict(steps=steps, device_time="not measured (no CUDA events)")
+    copies = [e for e in dev if "copy" in e.key.lower()
+              and not e.key.startswith("Memcpy")]
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
+    return dict(
+        steps=steps, wall_ms_per_step=wall_ms / steps,
+        device_busy_ms_per_step=busy_ms / steps,
+        device_idle_share=1.0 - busy_ms / wall_ms,
+        aten_to_copy_calls_per_step=sum(
+            e.count for e in events if e.key == "aten::_to_copy") / steps,
+        copy_kernel_launches_per_step=sum(e.count for e in copies) / steps,
+        copy_kernels_ms_per_step=sum(e.self_device_time_total
+                                     for e in copies) / 1e3 / steps,
+        cuda_launches_per_step=sum(
+            e.count for e in events
+            if e.key.startswith(("cudaLaunchKernel", "cuLaunch"))) / steps,
+        top_device_ms_per_step=[
+            (e.key[:70], e.self_device_time_total / 1e3 / steps,
+             e.count // steps) for e in top[:12]])
+
+
+def amp_turns(torch, runs, steps=AMP_STEPS):
+    """``runs`` {route: step} trained in turns (a, b, b, a), ``steps``
+    steps a turn: each turn's ms a step, losses, launches since
+    reset_launches, peak memory and clocks."""
+    order = list(runs) + list(runs)[::-1]
+    turns = {r: [] for r in runs}
+    for route in order:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses = []
+        with ClockSampler() as clocks:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                losses.append(runs[route]())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        turns[route].append(dict(
+            ms_per_step=wall / steps * 1e3,
+            losses=[float(v) for v in losses], launches=read_launches(),
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            card=clocks.summary()))
+    return turns
+
+
+def resnet_amp_trainer(torch, fused, seed=0):
+    """bench.py:552-583's step on the card: resnet50 with f32 parameters
+    (1000 classes), Momentum(0.1, 0.9), the forward under
+    auto_cast(level="O2", dtype="bfloat16"), cross_entropy of the logits in
+    f32, backward, step, clear_grad, on one fixed batch, FLAGS_fused_norm
+    as ``fused`` says. Returns (net, step, forward-and-loss)."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import amp, set_flags
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    net = resnet50(num_classes=RESNET_CLASSES, dtype=torch.float32,
+                   seed=seed)
+    opt = Momentum(RESNET_LR, parameters=net.parameters(),
+                   momentum=RESNET_MOMENTUM)
+    x, y = resnet_batch(torch, RESNET_B, RESNET_HW, torch.float32, seed)
+
+    def forward():
+        set_flags({"FLAGS_fused_norm": fused})
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            logits = net(x)
+        return F.cross_entropy(logits.float(), y)
+
+    def step():
+        loss = forward()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    return net, step, forward
+
+
+def amp_param_dtypes(model):
+    return sorted({str(p.dtype).split(".")[-1] for p in model.parameters()})
+
+
+def phase_train_resnet_amp(torch):
+    """Phase 47: resnet50 at B=256, 3x224^2 under O2 bf16 with f32
+    parameters (bench.py's step), the fused route (FLAGS_fused_norm on: the
+    BN kernels) and the dense route (off) in turns, AMP_STEPS steps a turn
+    on one fixed batch each. The first step of each: the operator
+    statistics; on the fused route the running statistics held to Paddle's
+    rule and each BN kernel call's weight dtype. The turns: ms a step, the
+    loss finite and falling, 53 cluster forward and 53 persistent backward
+    calls a step with bf16 vectors on the fused route and none on the dense
+    one, peak memory; then a profile of each route (busy, idle, the casts);
+    no parameter leaves f32."""
+    from paddle_tpu_torch import set_flags
+    out, runs, nets = {}, {}, {}
+    try:
+        for route, fused in (("fused", True), ("dense", False)):
+            net, step, forward = resnet_amp_trainer(torch, fused)
+            first = {}
+            if fused:
+                with BnRecorder() as rec, BnVecDtypes() as vec:
+                    first["operator_stats"] = amp_op_stats(
+                        lambda: first.setdefault("loss", forward()))
+                    first["loss"].backward()
+                    first["running_stats_vs_paddle_rule"] = (
+                        rec.running_stats_reading(torch))
+                    first["bn_weight_dtypes"] = vec.reading()
+                del rec
+            else:
+                first["operator_stats"] = amp_op_stats(
+                    lambda: first.setdefault("loss", forward()))
+                first["loss"].backward()
+            first["loss"] = float(first["loss"])
+            for p in net.parameters():
+                p.grad = None
+            runs[route], nets[route] = step, net
+            out[route] = first
+        turns = amp_turns(torch, runs)
+        for route, fused in (("fused", True), ("dense", False)):
+            stats = out[route]["operator_stats"]
+            bn_op = "fused_bn_train" if fused else "batch_norm_train"
+            check(stats.get(bn_op) == dict(
+                calls=RESNET_BNS, **{"bf16" if fused else "fp32":
+                                     RESNET_BNS})
+                  and stats.get("conv2d") == dict(calls=RESNET_BNS,
+                                                  bf16=RESNET_BNS),
+                  f"resnet50 O2 {route}: operator statistics {stats}")
+            losses = [v for t in turns[route] for v in t["losses"]]
+            check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                  f"resnet50 O2 {route}: losses {losses}")
+            for t in turns[route]:
+                for key, n in t["launches"].items():
+                    want = (RESNET_BNS * AMP_STEPS
+                            if fused and key.startswith("fused_bn") else 0)
+                    check(n == want, f"resnet50 O2 {route}: {key} launched "
+                          f"{n} times in {AMP_STEPS} steps (want {want})")
+            check(amp_param_dtypes(nets[route]) == ["float32"],
+                  f"resnet50 O2 {route}: parameters "
+                  f"{amp_param_dtypes(nets[route])}")
+            out[route].update(
+                ms_per_step=min(t["ms_per_step"] for t in turns[route]),
+                turns=turns[route],
+                images_per_s=RESNET_B / (min(t["ms_per_step"]
+                                             for t in turns[route]) / 1e3),
+                profile=amp_profile(torch, runs[route]))
+        with BnVecDtypes() as vec:
+            reset_launches()
+            runs["fused"]()
+            counts = read_launches()
+        out["fused"]["bn_launches_per_step"] = dict(
+            forward=bn_fwd_routes_reading(counts, "resnet50 O2"),
+            backward=bn_bwd_routes_reading(counts, "resnet50 O2"),
+            weight_dtypes=vec.reading())
+        check(vec.reading() == {"forward": {"bfloat16": RESNET_BNS},
+                                "backward": {"bfloat16": RESNET_BNS}}
+              and out["fused"]["bn_weight_dtypes"] == vec.reading(),
+              f"resnet50 O2: the BN kernels' weight dtypes {vec.reading()}")
+    finally:
+        set_flags({"FLAGS_fused_norm": True})
+    del runs, nets
+    return dict(config="resnet50", b=RESNET_B, hw=RESNET_HW,
+                amp="O2 bfloat16", parameters="float32", lr=RESNET_LR,
+                momentum=RESNET_MOMENTUM, steps_a_turn=AMP_STEPS,
+                order="fused, dense, dense, fused", **out)
+
+
+def bert_amp_batch(torch, cfg, b, s, seed=0):
+    """bench.py:671-677's draw: ids uniform over the vocabulary, MLM labels
+    the same draw at the 15% of positions kept (-100 elsewhere), NSP
+    labels; no attention mask."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    mlm = rng.integers(0, cfg.vocab_size, (b, s))
+    mlm[rng.random((b, s)) > 0.15] = -100
+    nsp = rng.integers(0, 2, (b,))
+    return tuple(torch.from_numpy(a.astype(np.int64)).cuda()
+                 for a in (ids, mlm, nsp))
+
+
+def bert_amp_trainer(torch, cfg, fused, seed=0):
+    """bench.py:647-692's step on the card: BertForPretraining(cfg) with
+    f32 parameters at its dropout rates, the loss under
+    auto_cast(level="O1", dtype="bfloat16"), backward, AdamW(1e-4) step,
+    clear_grad, on one fixed batch, the fused flags as ``fused`` says."""
+    from paddle_tpu_torch import amp, set_flags
+    from paddle_tpu_torch import seed as framework_seed
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.optimizer import AdamW
+    framework_seed(seed)
+    model = bert.BertForPretraining(cfg, dtype=torch.float32, seed=seed)
+    opt = AdamW(AMP_BERT_LR, parameters=model.parameters())
+    batch = bert_amp_batch(torch, cfg, AMP_BERT_B, AMP_BERT_S, seed)
+
+    def forward():
+        set_flags({"FLAGS_fused_norm": fused, "FLAGS_fused_mlp": fused})
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return model.loss(*batch)
+
+    def step():
+        loss = forward()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    return model, step, forward
+
+
+def phase_train_bert_amp(torch):
+    """Phase 48: bert-base at B=64, S=512 (no mask) under O1 bf16 with f32
+    parameters at dropout 0.1 / 0.1 (bench.py's step), the fused route
+    and the dense one (the fused norm and MLP flags off; flash kept) in
+    turns, AMP_STEPS steps a turn. The first step: the operator statistics.
+    The turns: ms a step, the loss finite and falling below the first
+    step's on average, the flash, MLP, projection-LN and LayerNorm
+    launches a step exactly bert_launches' on their bf16 routes, peak
+    memory; a profile of each; no parameter leaves f32."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.models import bert
+    cfg = bert.CONFIGS["bert-base"]
+    out, runs, models = {}, {}, {}
+    try:
+        for route, fused in (("fused", True), ("dense", False)):
+            model, step, forward = bert_amp_trainer(torch, cfg, fused)
+            first = {}
+            first["operator_stats"] = amp_op_stats(
+                lambda: first.setdefault("loss", forward()))
+            first["loss"].backward()
+            first["loss"] = float(first["loss"])
+            for p in model.parameters():
+                p.grad = None
+            runs[route], models[route] = step, model
+            out[route] = first
+        turns = amp_turns(torch, runs)
+        for route, fused in (("fused", True), ("dense", False)):
+            stats = out[route]["operator_stats"]
+            L = cfg.num_hidden_layers
+            check(stats.get("linear", {}).get("bf16") == (
+                L + 3 if fused else 4 * L + 3)
+                  and stats.get("cross_entropy") == dict(calls=1, fp32=1)
+                  and stats.get("flash_attention_masked") == dict(
+                      calls=L, bf16=L),
+                  f"bert-base O1 {route}: operator statistics {stats}")
+            losses = [v for t in turns[route] for v in t["losses"]]
+            check(all(np.isfinite(losses))
+                  and np.mean(losses) < out[route]["loss"],
+                  f"bert-base O1 {route}: losses {losses} against the first "
+                  f"step's {out[route]['loss']}")
+            want = bert_launches(cfg, fused)
+            for t in turns[route]:
+                for key, n in t["launches"].items():
+                    check(n == want.get(key, 0) * AMP_STEPS,
+                          f"bert-base O1 {route}: {key} launched {n} times "
+                          f"in {AMP_STEPS} steps (want "
+                          f"{want.get(key, 0) * AMP_STEPS})")
+            check(amp_param_dtypes(models[route]) == ["float32"],
+                  f"bert-base O1 {route}: parameters "
+                  f"{amp_param_dtypes(models[route])}")
+            reset_launches()
+            runs[route]()
+            counts = read_launches()
+            routes = dict(flash_fwd=fwd_routes_reading(counts, "bert O1"),
+                          flash_bwd=bwd_routes_reading(counts, "bert O1"),
+                          mlp_fwd=mlp_fwd_routes_reading(counts, "bert O1",
+                                                         fused),
+                          mlp_bwd=mlp_bwd_routes_reading(counts, "bert O1",
+                                                         fused),
+                          ln_bwd=ln_bwd_routes_reading(counts, "bert O1",
+                                                       fused))
+            if fused:
+                routes["proj_ln"] = pl_routes_reading(counts, "bert O1")
+            ms = min(t["ms_per_step"] for t in turns[route])
+            out[route].update(
+                ms_per_step=ms, turns=turns[route],
+                tokens_per_s=AMP_BERT_B * AMP_BERT_S / (ms / 1e3),
+                launches_per_step={k: n for k, n in counts.items() if n},
+                routes_per_step=routes,
+                profile=amp_profile(torch, runs[route]))
+    finally:
+        set_flags({"FLAGS_fused_norm": True, "FLAGS_fused_mlp": True})
+    del runs, models
+    return dict(config="bert-base", b=AMP_BERT_B, s=AMP_BERT_S,
+                amp="O1 bfloat16", parameters="float32", lr=AMP_BERT_LR,
+                dropout=[cfg.hidden_dropout_prob,
+                         cfg.attention_probs_dropout_prob],
+                steps_a_turn=AMP_STEPS, order="fused, dense, dense, fused",
+                **out)
+
+
+def amp_readings(torch, run, *args):
+    """(loss, gradients as f64 CPU tensors, extra) of one ``run``."""
+    loss, grads, extra = run(*args)
+    return (float(loss), [g.detach().double().cpu() for g in grads], extra)
+
+
+def amp_worst(a, b):
+    """The largest difference of two gradient lists, each leaf's relative
+    to its largest entry in b."""
+    return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+               for x, y in zip(a, b))
+
+
+def phase_amp_parity(torch):
+    """Phase 49: the card against the port's CPU route under AMP, from the
+    same weights and batch: resnet50 at B=8, 64^2 under O2 (its kernels
+    against their plain versions), the loss, the gradients of all leaves
+    as one vector and the running statistics, each within 3x the port's
+    own reading between the O2 step and the f32 step on the CPU (the rule
+    of phase 31); bert-base at full width, 2 layers, B=4, S=512, dropout
+    0.1 / 0.1, under O1 (generators seeded alike, as phase 36): the loss
+    and every gradient within 3x the CPU's own O1-against-f32 reading.
+    (The BatchNorm ops with bf16 weight and bias against their plain
+    versions: phase 27, bn_bf16_vectors.)"""
+    import copy
+
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import amp, seed, set_flags
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.vision.models import resnet50
+    set_flags({"FLAGS_fused_norm": True, "FLAGS_fused_mlp": True})
+    factor = 3.0
+    net = resnet50(num_classes=RESNET_CLASSES, dtype=torch.float32, seed=2)
+    cpu = copy.deepcopy(net).cpu()
+    start = [b.detach().clone() for b in net.buffers()]
+    x, y = resnet_batch(torch, 8, 64, torch.float32, 2)
+
+    def resnet_run(model, level):
+        xx, yy = (x, y) if next(model.parameters()).is_cuda else (
+            x.cpu(), y.cpu())
+        with torch.no_grad():
+            for b, s in zip(model.buffers(), start):
+                b.copy_(s)
+        reset_launches()
+        with amp.auto_cast(enable=level != "O0", level=level,
+                           dtype="bfloat16"):
+            logits = model(xx)
+        loss = F.cross_entropy(logits.float(), yy)
+        g = torch.autograd.grad(loss, list(model.parameters()))
+        stats = [b.double().cpu().clone() for b in model.buffers()]
+        return loss, g, (stats, read_launches())
+
+    lc, gc_, (sc, counts) = amp_readings(torch, resnet_run, net, "O2")
+    lp, gp, (sp, _) = amp_readings(torch, resnet_run, cpu, "O2")
+    l32, g32, (s32, _) = amp_readings(torch, resnet_run, cpu, "O0")
+    check(counts["fused_bn_fwd"] == counts["fused_bn_bwd"] == RESNET_BNS,
+          f"resnet50 O2 parity on the card launched {counts}")
+
+    def flat(g):
+        return torch.cat([t.reshape(-1) for t in g])
+
+    def stat_err(s, ref):
+        return max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(s, ref))
+
+    fc, fp, f32 = flat(gc_), flat(gp), flat(g32)
+    resnet = dict(
+        grads_rel_l2=(float((fc - fp).norm() / fp.norm()),
+                      float((fp - f32).norm() / f32.norm())),
+        running_stats_rel=(stat_err(sc, sp), stat_err(sp, s32)),
+        loss_abs=(abs(lc - lp), abs(lp - l32)))
+    for key, (card, own) in resnet.items():
+        check(card <= factor * own, f"resnet50 O2 parity {key}: card vs CPU "
+              f"{card}, the CPU's O2 vs f32 {own}: more than {factor}x")
+    del net, cpu, gc_, gp, g32, fc, fp, f32
+
+    cfg = bert.CONFIGS["bert-base"]._replace(num_hidden_layers=2)
+    bcard = bert.BertForPretraining(cfg, dtype=torch.float32, seed=1)
+    bcpu = bert.BertForPretraining(cfg, device="cpu", dtype=torch.float32,
+                                   seed=1)
+    bcpu.load_state_dict({k: v.cpu() for k, v in bcard.state_dict().items()})
+    batch, _ = bert_batch(torch, cfg, 4, BERT_S, 1)
+
+    def bert_run(model, level):
+        b = batch if next(model.parameters()).is_cuda else tuple(
+            t.cpu() for t in batch)
+        seed(7)
+        reset_launches()
+        with amp.auto_cast(enable=level != "O0", level=level,
+                           dtype="bfloat16"):
+            loss = model.loss(*b[:3], attention_mask=b[3])
+        return loss, torch.autograd.grad(loss, list(model.parameters())), \
+            read_launches()
+
+    blc, bgc, bcounts = amp_readings(torch, bert_run, bcard, "O1")
+    blp, bgp, _ = amp_readings(torch, bert_run, bcpu, "O1")
+    bl32, bg32, _ = amp_readings(torch, bert_run, bcpu, "O0")
+    want = bert_launches(cfg, True)
+    check(all(bcounts[k] == n for k, n in want.items())
+          and sum(bcounts.values()) == sum(want.values()),
+          f"bert O1 parity on the card launched {bcounts} (want {want})")
+    bertr = dict(grads_worst_leaf=(amp_worst(bgc, bgp), amp_worst(bgp, bg32)),
+                 loss_abs=(abs(blc - blp), abs(blp - bl32)))
+    for key, (card, own) in bertr.items():
+        check(card <= factor * own, f"bert-base O1 parity {key}: card vs CPU "
+              f"{card}, the CPU's O1 vs f32 {own}: more than {factor}x")
+    del bcard, bcpu, bgc, bgp, bg32
+    torch.cuda.empty_cache()
+    return dict(
+        resnet50=dict(b=8, hw=64, level="O2", loss_card=lc, loss_cpu=lp,
+                      loss_cpu_f32=l32,
+                      readings={k: dict(card_vs_cpu=v[0],
+                                        cpu_o2_vs_f32=v[1])
+                                for k, v in resnet.items()}),
+        bert_base_2_layers=dict(b=4, s=BERT_S, level="O1",
+                                dropout=[cfg.hidden_dropout_prob,
+                                         cfg.attention_probs_dropout_prob],
+                                loss_card=blc, loss_cpu=blp,
+                                loss_cpu_f32=bl32,
+                                readings={k: dict(card_vs_cpu=v[0],
+                                                  cpu_o1_vs_f32=v[1])
+                                          for k, v in bertr.items()}),
+        limit=f"card vs CPU within {factor}x the CPU's own AMP-against-f32 "
+              "reading")
+
+
+class _RecordingClip:
+    """ClipGradByGlobalNorm(clip_norm) that keeps each call's global norm."""
+
+    def __init__(self, clip_norm):
+        from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+        self.clip = ClipGradByGlobalNorm(clip_norm)
+        self.norms = []
+
+    def __call__(self, params_grads):
+        self.norms.append(float(self.clip._global_norm_sq(params_grads))
+                          ** 0.5)
+        return self.clip(params_grads)
+
+
+def phase_amp_tools(torch):
+    """Phase 50, at bert-base width with 2 layers, B=4, S=512, dropout 0:
+    (a) GradScaler under O1 float16 (f32 parameters, AdamW): an inf
+    planted in one gradient at step 2 skips the update (parameters and
+    moments bitwise unchanged) and halves the scale; (b) decorate(level=
+    "O2"): the LayerNorm parameters stay f32, every other parameter
+    becomes bf16 with an f32 master weight after a step under O2, and a
+    GradScaler's skipped step leaves the master weights bitwise unchanged;
+    (c) LinearWarmup → PolynomialDecay, ClipGradByGlobalNorm(1.0) and
+    PaddleNLP's apply_decay_param_fun, 3 AdamW steps in f32 from the same
+    weights: the rates, the clipped global norms and the parameters
+    against the port's CPU route."""
+    from paddle_tpu_torch import amp, set_flags
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.nn.layer.norm import LayerNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    set_flags({"FLAGS_fused_norm": True, "FLAGS_fused_mlp": True})
+    cfg = bert.CONFIGS["bert-base"]._replace(
+        num_hidden_layers=2, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0)
+    batch, _ = bert_batch(torch, cfg, 4, BERT_S, 3)
+    out = {}
+
+    def scaled_steps(model, opt, level, dtype):
+        scaler = amp.GradScaler(init_loss_scaling=2.0 ** 8)
+        scales, skipped = [], []
+        for step in range(4):
+            with amp.auto_cast(level=level, dtype=dtype):
+                loss = model.loss(*batch[:3], attention_mask=batch[3])
+            scaler.scale(loss).backward()
+            if step == 2:
+                p0 = next(iter(model.parameters()))
+                p0.grad.view(-1)[0] = float("inf")
+            before = ([p.detach().clone() for p in model.parameters()],
+                      {k: [t.clone() for t in v.values()]
+                       for k, v in opt._accumulators.items()},
+                      [t.clone() for t in opt._master_weights.values()])
+            scale = scaler.get_init_loss_scaling()
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad()
+            after = ([p.detach() for p in model.parameters()],
+                     {k: list(v.values())
+                      for k, v in opt._accumulators.items()},
+                     list(opt._master_weights.values()))
+            same = (all(same_bits(a, b) for a, b in zip(*(x[0] for x in (
+                before, after))))
+                and all(same_bits(a, b) for k in before[1]
+                        for a, b in zip(before[1][k], after[1][k]))
+                and all(same_bits(a, b) for a, b in zip(before[2],
+                                                         after[2])))
+            scales.append(scale)
+            skipped.append(same)
+            check(np.isfinite(float(loss)), f"{level} {dtype}: loss {loss}")
+        check(skipped == [False, False, True, False]
+              and scaler.get_init_loss_scaling() == scales[2] / 2,
+              f"GradScaler under {level} {dtype}: skipped {skipped}, scales "
+              f"{scales} then {scaler.get_init_loss_scaling()}")
+        return dict(scales=scales, skipped_step=2,
+                    scale_after=scaler.get_init_loss_scaling(),
+                    unchanged_on_skip=dict(parameters=True, moments=True,
+                                           master_weights=len(before[2])))
+
+    model = bert.BertForPretraining(cfg, dtype=torch.float32, seed=4)
+    opt = AdamW(1e-4, parameters=model.parameters())
+    out["grad_scaler_o1_float16"] = scaled_steps(model, opt, "O1", "float16")
+    del model, opt
+
+    model = bert.BertForPretraining(cfg, dtype=torch.float32, seed=4)
+    opt = AdamW(1e-4, parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    ln = {id(p) for m in model.modules() if isinstance(m, LayerNorm)
+          for p in m.parameters()}
+    dtypes = {("layernorm" if id(p) in ln else "other"): set()
+              for p in model.parameters()}
+    for p in model.parameters():
+        dtypes["layernorm" if id(p) in ln else "other"].add(
+            str(p.dtype).split(".")[-1])
+    check(dtypes == {"layernorm": {"float32"}, "other": {"bfloat16"}},
+          f"decorate O2: parameter dtypes {dtypes}")
+    out["decorate_o2"] = dict(
+        parameter_dtypes={k: sorted(v) for k, v in dtypes.items()},
+        grad_scaler_o2_bfloat16=scaled_steps(model, opt, "O2", "bfloat16"))
+    masters = opt._master_weights
+    check(len(masters) == sum(1 for p in model.parameters()
+                              if id(p) not in ln)
+          and all(m.dtype == torch.float32 for m in masters.values()),
+          f"decorate O2: {len(masters)} master weights")
+    out["decorate_o2"]["master_weights"] = len(masters)
+    del model, opt, masters
+
+    card = bert.BertForPretraining(cfg, dtype=torch.float32, seed=5)
+    state = {k: v.cpu() for k, v in card.state_dict().items()}
+    del card
+
+    def recipe(device):
+        # one set of weights on both: the card's seeded draw, carried over
+        model = bert.BertForPretraining(cfg, device=device,
+                                        dtype=torch.float32, seed=5)
+        model.load_state_dict(state)
+        decay = [p.name for n, p in model.named_parameters()
+                 if not any(nd in n for nd in ["bias", "norm"])]
+        sched = lr.LinearWarmup(lr.PolynomialDecay(1e-3, decay_steps=10),
+                                warmup_steps=2, start_lr=0.0, end_lr=1e-3)
+        clip = _RecordingClip(1.0)
+        opt = AdamW(sched, parameters=model.parameters(), weight_decay=0.01,
+                    grad_clip=clip,
+                    apply_decay_param_fun=lambda n: n in decay)
+        b = batch if device is None else tuple(t.cpu() for t in batch)
+        rates = []
+        for _ in range(3):
+            loss = model.loss(*b[:3], attention_mask=b[3])
+            loss.backward()
+            rates.append(opt.get_lr())
+            opt.step()
+            opt.clear_grad()
+            sched.step()
+        return (rates, clip.norms,
+                [p.detach().double().cpu() for p in model.parameters()],
+                len(decay), sum(1 for _ in model.parameters()))
+
+    rc, nc, pc, ndecay, nparams = recipe(None)
+    rp, np_, pp, _, _ = recipe("cpu")
+    far = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
+    norm_rel = max(abs(a - b) / b for a, b in zip(nc, np_))
+    check(rc == rp and rc[0] == 0.0 and rc[2] > rc[1] > 0,
+          f"scheduler rates card {rc}, CPU {rp}")
+    check(norm_rel <= 1e-4 and all(n > 1.0 for n in nc),
+          f"clipped global norms card {nc}, CPU {np_}")
+    check(far <= 2 * 1e-3 * 3, f"parameters after 3 AdamW steps, card vs "
+          f"CPU: {far} > 2 lr steps")
+    out["recipe"] = dict(rates=rc, global_norms_card=nc, global_norms_cpu=np_,
+                         global_norm_rel=norm_rel, decayed=ndecay,
+                         parameters=nparams, param_max_abs_diff=far,
+                         limit="rates equal; norms rtol 1e-4; parameters "
+                               "within 2 lr steps (Adam's normalisation)")
+    torch.cuda.empty_cache()
+    return out
+
+
 def free_card(torch):
     """Drop what the phases before left for the collector, return the
     cached blocks and restart the peak count."""
@@ -6949,11 +7763,15 @@ def main():
           "versions, fp32", **mpar)
 
     free_card(torch)
-    smodel = llama.LlamaForCausalLM(lcfg, seed=0, dtype=torch.bfloat16)
+    smodel = llama.LlamaForCausalLM(
+        lcfg._replace(num_hidden_layers=LLAMA_SERVE_LAYERS), seed=0,
+        dtype=torch.bfloat16)
     serve39, plain_streams = phase_serve_llama_b4(torch, smodel)
-    phase(39, "serve llama-7b bf16 max_batch=4 k=4", **serve39)
+    phase(39, f"serve llama-7b bf16 ({LLAMA_SERVE_LAYERS} of 32 layers) "
+          f"max_batch=4 k=4", layers=LLAMA_SERVE_LAYERS, **serve39)
     free_card(torch)
-    phase(40, "serve llama-7b bf16 fast path",
+    phase(40, f"serve llama-7b bf16 ({LLAMA_SERVE_LAYERS} of 32 layers) "
+          f"fast path", layers=LLAMA_SERVE_LAYERS,
           **phase_serve_llama_fast(torch, smodel, plain_streams,
                                    serve39["fast_traffic_plain"]))
     del smodel
@@ -6979,6 +7797,23 @@ def main():
     free_card(torch)
     phase(46, "ppyoloe-s parity fp32: card kernels vs CPU plain versions",
           **phase_ppyoloe_parity_fp32(torch))
+
+    free_card(torch)
+    amp47 = phase_train_resnet_amp(torch)
+    phase(47, "train resnet50 B=256 224x224 under AMP O2 bf16, f32 "
+          "parameters, fused and dense BatchNorm in turns, Layer model + "
+          "Momentum", **amp47)
+    free_card(torch)
+    amp48 = phase_train_bert_amp(torch)
+    phase(48, "train bert-base B=64 S=512 under AMP O1 bf16, f32 "
+          "parameters, dropout 0.1/0.1, fused and dense in turns, Layer "
+          "model + AdamW", **amp48)
+    free_card(torch)
+    phase(49, "AMP parity: card vs CPU route, resnet50 O2 and bert-base O1",
+          **phase_amp_parity(torch))
+    free_card(torch)
+    phase(50, "AMP tools: GradScaler, decorate O2, schedulers, clipping, "
+          "apply_decay_param_fun", **phase_amp_tools(torch))
 
     kernels = [{
         "name": "decode_attn_proj", "route": "cuda", "source": SOURCE,
@@ -7154,7 +7989,15 @@ def main():
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "ppyoloe_max_abs_err": {
                 d: pbn["worst"][d][name]["max_abs_err"]
-                for d in ("float32", "bfloat16")}})
+                for d in ("float32", "bfloat16")},
+            # AMP's O2 casts: bf16 weight and bias at layer 1's bn3, in
+            # turns with the same values in f32; the O2 step's launches
+            "bf16_vectors_layer1_bn3": {
+                k: bn["bf16_vectors"]["layer1.bn3"][name][k]
+                for k in ("ms", "ms_f32_vectors")},
+            "amp_o2_launches_per_step": amp47["fused"][
+                "bn_launches_per_step"]["weight_dtypes"][
+                "forward" if name == "fused_bn_fwd" else "backward"]})
         if name == "fused_bn_fwd":
             # the cluster route: its kernel alone against the generic
             # route's four launches (earlier_ms) in turns at each shape

@@ -14,7 +14,10 @@ MLP, LLaMA training through the Layer model and AdamW with the fused
 SwiGLU MLP, BERT pretraining through the Layer model and AdamW with
 the fused LayerNorm, projection-LayerNorm and key-padding flash kernels,
 and ResNet training through ``vision.models`` and Momentum with the fused
-BatchNorm kernels (see ROADMAP.md for what is still to come).
+BatchNorm kernels, and mixed precision (``amp``: ``auto_cast`` O1 / O2,
+``decorate``, ``GradScaler``) on the op registry of ``core/dispatch.py``
+with the learning-rate schedulers (``optimizer.lr``) and gradient
+clipping (``nn.clip``) (see ROADMAP.md for what is still to come).
 """
 from ._device import resolve_device
 from .core.flags import get_flag, set_flags

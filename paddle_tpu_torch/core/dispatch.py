@@ -1,0 +1,147 @@
+"""The op registry: the one path every registered functional goes through.
+
+Counterpart: ``paddle_tpu/core/dispatch.py``: the hook slots (:28-70),
+the dispatch statistics ``dispatch_stats`` / ``reset_dispatch_stats``
+(:85-124), ``OpDef``, ``OP_REGISTRY`` and ``register_op`` (:139-180) and
+``apply`` (:208-260): the call is counted, the AMP hook casts the
+arguments (:239), the body runs, and the output hook sees the outputs
+(``_wrap_outputs``, :568).
+
+The reference records a tape with ``jax.vjp`` and caches eager-jitted
+programs; here torch autograd is the tape, so none of that is ported (nor
+the static-graph and symbolic hooks, A9). A cast is ``tensor.to(dtype)``,
+which autograd differentiates: the gradient flows back through it into
+the parameter's own dtype, as the reference's cast vjp does. The AMP hook
+casts every floating tensor among the positional and keyword arguments,
+lists, tuples and dicts included, as the reference's tree flattening does
+(``amp/auto_cast.py`` installs it); with AMP off it costs one
+thread-local check. An op registered ``differentiable=False`` runs under
+``torch.no_grad()``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+__all__ = ["OP_REGISTRY", "OpDef", "amp_dtypes", "apply", "dispatch_stats",
+           "register_op", "reset_dispatch_stats", "set_amp_hook",
+           "set_output_hook"]
+
+# The AMP hook, installed by paddle_tpu_torch.amp: (opdef, args, kwargs) ->
+# (args, kwargs); and the decision it applies, (opdef) -> the dtype every
+# float32 / float16 / bfloat16 argument is cast to, or None (no cast).
+_amp_hook: Optional[Callable] = None
+_amp_target: Optional[Callable] = None
+
+
+def set_amp_hook(fn, target=None):
+    global _amp_hook, _amp_target
+    _amp_hook, _amp_target = fn, target
+
+
+# Post-output observer, installed while amp.debugging.collect_operator_stats
+# runs: (op_name, outputs as a list); it must not mutate them.
+_output_hook: Optional[Callable] = None
+
+
+def set_output_hook(fn):
+    global _output_hook
+    _output_hook = fn
+
+
+# calls per op name, always on (a dict lookup and an increment a call)
+_DISPATCH_COUNTS: Dict[str, list] = {}
+
+
+def dispatch_stats() -> dict:
+    """The calls dispatched, in all and per op name."""
+    return {"ops_dispatched": sum(c[0] for c in _DISPATCH_COUNTS.values()),
+            "per_op": {name: {"calls": c[0]}
+                       for name, c in sorted(_DISPATCH_COUNTS.items())}}
+
+
+def reset_dispatch_stats() -> None:
+    _DISPATCH_COUNTS.clear()
+
+
+class OpDef:
+    """One operator: its name, body, AMP category ('white': the low
+    dtype; 'black': float32; 'promote': the low dtype at O2, no cast at
+    O1), whether it returns several outputs and whether autograd records
+    it."""
+
+    __slots__ = ("name", "fn", "amp", "multi_out", "differentiable", "doc")
+
+    def __init__(self, name: str, fn: Callable, amp: str = "promote",
+                 multi_out: bool = False, differentiable: bool = True,
+                 doc: str = ""):
+        if amp not in ("white", "black", "promote"):
+            raise ValueError(f"op {name}: amp category {amp!r} is 'white', "
+                             f"'black' or 'promote'")
+        self.name = name
+        self.fn = fn
+        self.amp = amp
+        self.multi_out = multi_out
+        self.differentiable = differentiable
+        self.doc = doc
+
+
+OP_REGISTRY: Dict[str, OpDef] = {}
+
+
+def register_op(name: str, amp: str = "promote", multi_out: bool = False,
+                differentiable: bool = True):
+    """Decorator: register ``fn`` as operator ``name`` and return the
+    dispatching callable (its ``opdef`` and ``__wrapped__`` attached)."""
+
+    def deco(fn):
+        opdef = OpDef(name, fn, amp=amp, multi_out=multi_out,
+                      differentiable=differentiable, doc=fn.__doc__ or "")
+        OP_REGISTRY[name] = opdef
+
+        def dispatcher(*args, **kwargs):
+            return apply(opdef, *args, **kwargs)
+
+        dispatcher.__name__ = fn.__name__
+        dispatcher.__qualname__ = fn.__qualname__
+        dispatcher.__doc__ = fn.__doc__
+        dispatcher.__wrapped__ = fn
+        dispatcher.opdef = opdef
+        return dispatcher
+
+    return deco
+
+
+def apply(opdef: OpDef, *args, **kwargs):
+    """Run one op: count the call, cast its arguments by the AMP hook, run
+    the body, show the outputs to the output hook."""
+    kwargs.pop("name", None)   # Paddle's APIs thread a cosmetic name=
+    c = _DISPATCH_COUNTS.get(opdef.name)
+    if c is None:
+        c = _DISPATCH_COUNTS[opdef.name] = [0]
+    c[0] += 1
+    if _amp_hook is not None:
+        args, kwargs = _amp_hook(opdef, args, kwargs)
+    if opdef.differentiable:
+        out = opdef.fn(*args, **kwargs)
+    else:
+        with torch.no_grad():
+            out = opdef.fn(*args, **kwargs)
+    if _output_hook is not None:
+        _output_hook(opdef.name,
+                     list(out) if isinstance(out, (tuple, list)) else [out])
+    return out
+
+
+_AMP_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+
+
+def amp_dtypes(op, *tensors):
+    """The dtypes ``tensors`` would have inside ``op`` (a registered
+    dispatcher or its OpDef) after the AMP hook's cast: what a routing
+    function checks a kernel's dtypes against before it calls the op."""
+    target = None if _amp_target is None else _amp_target(
+        getattr(op, "opdef", op))
+    return [t.dtype if target is None or t.dtype not in _AMP_DTYPES
+            else target for t in tensors]

@@ -129,10 +129,11 @@ def library(name: str, argtypes: Dict[str, Sequence], ints: Iterable[str] = ()
 
 
 def kernel_dtypes(*tensors) -> bool:
-    """The routing rule of the functionals: every tensor in one dtype the
-    kernels take (float32 or bfloat16)."""
-    return (tensors[0].dtype in KERNEL_DTYPES
-            and all(t.dtype == tensors[0].dtype for t in tensors))
+    """The routing rule of the functionals: every tensor (or dtype: what
+    ``core.dispatch.amp_dtypes`` gives) in one dtype the kernels take
+    (float32 or bfloat16)."""
+    dts = [getattr(t, "dtype", t) for t in tensors]
+    return dts[0] in KERNEL_DTYPES and all(d == dts[0] for d in dts)
 
 
 def call(lib: ctypes.CDLL, name: str, dtype, device, *args) -> None:

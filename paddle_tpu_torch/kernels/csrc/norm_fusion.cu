@@ -768,7 +768,9 @@ int launch_bwd_persist(const Bwd& p, float* sums, int nparts, void* stream) {
 // all entered through fused_batch_norm_train :658 (the custom_vjp of :608).
 // x, res, g [N, C, HW] contiguous (NCHW with the spatial dims flattened),
 // float32 or bfloat16 (one dtype), C % 8 == 0 (bn_block_c's eligibility rule,
-// :639-640); w, b [C] come in as f32.
+// :639-640); w, b [C] come in as f32, or as bf16 where AMP cast them
+// (ChanVec: read as f32 where used, no conversion launch; dw and db leave
+// as the f32 sums, which the op casts to w's and b's dtypes).
 //
 //   forward:  per channel s1 = sum x, s2 = sum x^2 in f32 over the M = N * HW
 //             elements; mean = s1 * (1/M), the biased one-pass variance
@@ -820,6 +822,19 @@ int launch_bwd_persist(const Bwd& p, float* sums, int nparts, void* stream) {
 //     backward); the backward's reduction recomputes a and b' for its own
 //     channel with the same bn_fold_ab, from the saved mean and var.
 
+// A BatchNorm's per-channel weight or bias as the op hands it over: float32,
+// or bfloat16 where AMP cast it (the white op at O2); read as f32 where it
+// is used, one element a channel, so a bf16 vector costs no conversion
+// launch.
+struct ChanVec {
+  const void* p;
+  int bf16;
+  __device__ __forceinline__ float operator[](int c) const {
+    return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[c])
+                : static_cast<const float*>(p)[c];
+  }
+};
+
 namespace bn {
 
 constexpr int kThreads = 256;
@@ -830,8 +845,8 @@ struct Args {
   const void* x;
   const void* res;     // null: no residual
   const void* g;       // backward
-  const float* w;
-  const float* b;
+  ChanVec w;           // [C] f32 or bf16
+  ChanVec b;
   float* mean;         // forward: sum_parts writes s1 here, the fold the mean
   float* var;          // forward: s2, then the variance; backward: read
   const float* gmean;  // backward, null: zero cotangent
@@ -1192,8 +1207,8 @@ struct Args {
   const void* x;
   const void* res;     // null: no residual
   const void* g;
-  const float* w;
-  const float* b;
+  ChanVec w;           // [C] f32 or bf16
+  ChanVec b;
   const float* mean;
   const float* var;
   const float* gmean;  // null: zero cotangent
@@ -1203,6 +1218,8 @@ struct Args {
   float* coef;         // [4, C]: a, b', p2, p3
   float* dw;           // [C] sum g' x^
   float* db;           // [C] sum g'
+  void* dw16;          // [C] bf16: dw and db rounded once, for bf16 w and b
+  void* db16;          //   (AMP's O2 casts); null: none
   float* part;         // the group at c0: [P, 2, cn] from c0 * 2P
   unsigned* cnt;       // [G] arrivals, then [G] flags
   long long m;         // N * HW
@@ -1604,6 +1621,10 @@ __device__ void fold(const Args& p, const Group& gr, int V, float* red) {
     p.coef[3 * p.c + c] = p3;
     p.dw[c] = sgx;
     p.db[c] = sg;
+    if (p.dw16) {
+      static_cast<__nv_bfloat16*>(p.dw16)[c] = __float2bfloat16_rn(sgx);
+      static_cast<__nv_bfloat16*>(p.db16)[c] = __float2bfloat16_rn(sg);
+    }
   }
 }
 
@@ -2077,8 +2098,8 @@ static_assert(kStageVecs % (kMaxThreads * kSteps) == 0 &&
 struct Args {
   const void* x;
   const void* res;     // null: no residual
-  const float* w;
-  const float* b;
+  ChanVec w;           // [C] f32 or bf16
+  ChanVec b;
   void* y;
   float* mean;
   float* var;
@@ -2801,15 +2822,15 @@ LN_BWD_PERSIST(f32, float)
 LN_BWD_PERSIST(bf16, __nv_bfloat16)
 
 
-// x, res, y [N, C, HW]; w, b [C] f32; mean, var [C] f32 (written); part: f32
-// workspace [fused_bn_parts(N, HW), 2, C]; coef: f32 workspace [2, C].
+// x, res, y [N, C, HW]; w, b [C] f32, or bf16 with vbf16 1; mean, var [C] f32
+// (written); part: f32 workspace [fused_bn_parts(N, HW), 2, C]; coef: f32
+// workspace [2, C].
 #define FUSED_BN_FWD(SUFFIX, T)                                                              \
   int fused_bn_fwd_##SUFFIX(const void* x, const void* res, const void* w, const void* b,    \
                             void* y, void* mean, void* var, void* part, void* coef, int n,   \
-                            int c, int hw, float eps, int relu, void* stream) {              \
+                            int c, int hw, float eps, int relu, int vbf16, void* stream) {   \
     bn::Args p{};                                                                            \
-    p.x = x, p.res = res, p.w = static_cast<const float*>(w);                                \
-    p.b = static_cast<const float*>(b), p.y = y;                                             \
+    p.x = x, p.res = res, p.w = ChanVec{w, vbf16}, p.b = ChanVec{b, vbf16}, p.y = y;         \
     p.mean = p.s1 = static_cast<float*>(mean), p.var = p.s2 = static_cast<float*>(var);      \
     p.part = static_cast<float*>(part), p.coef = static_cast<float*>(coef);                  \
     p.n = n, p.c = c, p.hw = hw, p.eps = eps, p.relu = relu;                                 \
@@ -2819,19 +2840,18 @@ LN_BWD_PERSIST(bf16, __nv_bfloat16)
 FUSED_BN_FWD(f32, float)
 FUSED_BN_FWD(bf16, __nv_bfloat16)
 
-// g, dx, dres [N, C, HW] (dres null without a residual); mean, var [C] f32
-// (the forward's); gmean, gvar [C] f32 or null (zero cotangents); dw, db [C]
-// f32 (written: sum g' x^, sum g'); part [fused_bn_parts(N, HW), 2, C] and
-// coef [4, C] f32 workspaces.
+// g, dx, dres [N, C, HW] (dres null without a residual); w, b as the
+// forward's; mean, var [C] f32 (the forward's); gmean, gvar [C] f32 or null
+// (zero cotangents); dw, db [C] f32 (written: sum g' x^, sum g'); part
+// [fused_bn_parts(N, HW), 2, C] and coef [4, C] f32 workspaces.
 #define FUSED_BN_BWD(SUFFIX, T)                                                              \
   int fused_bn_bwd_##SUFFIX(const void* x, const void* res, const void* w, const void* b,    \
                             const void* mean, const void* var, const void* g,                \
                             const void* gmean, const void* gvar, void* dx, void* dres,       \
                             void* dw, void* db, void* part, void* coef, int n, int c,        \
-                            int hw, float eps, int relu, void* stream) {                     \
+                            int hw, float eps, int relu, int vbf16, void* stream) {          \
     bn::Args p{};                                                                            \
-    p.x = x, p.res = res, p.g = g, p.w = static_cast<const float*>(w);                       \
-    p.b = static_cast<const float*>(b);                                                      \
+    p.x = x, p.res = res, p.g = g, p.w = ChanVec{w, vbf16}, p.b = ChanVec{b, vbf16};         \
     p.mean = const_cast<float*>(static_cast<const float*>(mean));                            \
     p.var = const_cast<float*>(static_cast<const float*>(var));                              \
     p.gmean = static_cast<const float*>(gmean), p.gvar = static_cast<const float*>(gvar);    \
@@ -2848,19 +2868,22 @@ FUSED_BN_BWD(bf16, __nv_bfloat16)
 // The persistent route (bnb): fused_bn_bwd's tensors, with dw, db, the
 // partials, the coefficients and the counters in one f32 scratch [6C + 2PC
 // + 2G] (bnb::run's layout; P = 2 blocks an SM x SMs, G the plan's
-// groups); skip: a planted fault, every fold leaving out tile `skip`'s
-// partial (-1: none). A memset of the counters, then one launch.
+// groups); dw16, db16 [C] bf16 (null with f32 w and b): dw and db rounded
+// once for bf16 w and b; skip: a planted fault, every fold leaving out tile
+// `skip`'s partial (-1: none). A memset of the counters, then one launch.
 #define FUSED_BN_BWD_PERSIST(SUFFIX, T)                                                      \
   int fused_bn_bwd_persist_##SUFFIX(const void* x, const void* res, const void* w,           \
                                     const void* b, const void* mean, const void* var,        \
                                     const void* g, const void* gmean, const void* gvar,      \
-                                    void* dx, void* dres, void* scratch, int n, int c,       \
-                                    int hw, float eps, int relu, int skip, void* stream) {   \
+                                    void* dx, void* dres, void* scratch, void* dw16,         \
+                                    void* db16, int n, int c, int hw, float eps, int relu,   \
+                                    int skip, int vbf16, void* stream) {                     \
     bnb::Args p{};                                                                           \
-    p.x = x, p.res = res, p.g = g, p.w = static_cast<const float*>(w);                       \
-    p.b = static_cast<const float*>(b), p.mean = static_cast<const float*>(mean);            \
+    p.x = x, p.res = res, p.g = g, p.w = ChanVec{w, vbf16}, p.b = ChanVec{b, vbf16};         \
+    p.mean = static_cast<const float*>(mean);                                                \
     p.var = static_cast<const float*>(var), p.gmean = static_cast<const float*>(gmean);      \
     p.gvar = static_cast<const float*>(gvar), p.dx = dx, p.dres = dres;                      \
+    p.dw16 = dw16, p.db16 = db16;                                                            \
     p.n = n, p.c = c, p.hw = hw, p.relu = relu, p.gate_res = relu && res, p.skip = skip;     \
     p.eps = eps;                                                                             \
     const std::initializer_list<const void*> rows = {x, res, g, dx, dres, scratch};          \
@@ -2889,17 +2912,17 @@ int fused_bn_bwd_plan(int n, int c, int hw, int vec, int tensors, int sms, int* 
 int fused_bn_parts(int n, int hw) { return n < 1 || hw < 1 ? 0 : bn::nparts(n, hw); }
 
 // The cluster route (bnf): x, res, y [N, C, HW] (res null without a
-// residual); w, b [C] f32; mean, var [C] f32 (written); skip: a planted
+// residual); w, b [C] f32, or bf16 with vbf16 1; mean, var [C] f32
+// (written); skip: a planted
 // fault, rank 0's fold leaving out the last rank's partial (0: none). One
 // launch; no workspace.
 #define FUSED_BN_FWD_CLUSTER(SUFFIX, T)                                                      \
   int fused_bn_fwd_cluster_##SUFFIX(const void* x, const void* res, const void* w,           \
                                     const void* b, void* y, void* mean, void* var, int n,    \
-                                    int c, int hw, float eps, int relu, int skip,            \
+                                    int c, int hw, float eps, int relu, int skip, int vbf16, \
                                     void* stream) {                                          \
     bnf::Args p{};                                                                           \
-    p.x = x, p.res = res, p.w = static_cast<const float*>(w);                                \
-    p.b = static_cast<const float*>(b), p.y = y;                                             \
+    p.x = x, p.res = res, p.w = ChanVec{w, vbf16}, p.b = ChanVec{b, vbf16}, p.y = y;         \
     p.mean = static_cast<float*>(mean), p.var = static_cast<float*>(var);                    \
     p.n = n, p.c = c, p.hw = hw, p.eps = eps, p.relu = relu, p.skip = skip;                  \
     const std::initializer_list<const void*> rows = {x, res, y};                             \

@@ -37,7 +37,12 @@ joined by ``register_autograd``:
   expression, so that a = w·rstd and b′ = b − mean·a, and with them the
   ReLU gate, are the forward's bit for bit), never y or the
   pre-activation. The cotangents of ``mean`` and ``var`` fold into dx as
-  :576-581 folds them; absent, they are zero.
+  :576-581 folds them; absent, they are zero. The weight and bias come
+  in f32 or, where AMP's white ``fused_bn_train`` cast them (O2), both in
+  bf16: the kernels read them in their own dtype and convert on load (no
+  conversion launch), and dw and db leave as the f32 sums cast to w's
+  and b's dtypes (:604-606), so a bf16 weight's gradient is bf16-rounded
+  before the AMP cast's backward turns it f32, as in the reference.
 
 For CUDA tensors the ops launch the hand-written Hopper kernels of
 ``csrc/norm_fusion.cu`` (its notes name the TPU kernels replaced, the
@@ -199,13 +204,17 @@ _DROP = [_U] * 3 + [_F, _I, _I]
 _ARGTYPES = {"ln_fwd": [_P] * 8 + [_I, _I, _F] + _DROP + [_P],
              "ln_bwd": [_P] * 11 + [_I, _I, _I] + _DROP + [_P],
              "ln_bwd_persist": [_P] * 11 + [_I, _I, _I] + _DROP + [_I, _P],
-             "fused_bn_fwd": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
-             "fused_bn_bwd": [_P] * 15 + [_I, _I, _I, _F, _I, _P],
-             # fused_bn_bwd's tensors with one scratch, then n, c, hw, eps,
-             # relu, skip
-             "fused_bn_bwd_persist": [_P] * 12 + [_I, _I, _I, _F, _I, _I, _P],
-             # x, res, w, b, y, mean, var, then n, c, hw, eps, relu, skip
-             "fused_bn_fwd_cluster": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _P]}
+             # ..., n, c, hw, eps, relu, vbf16 (w and b bf16)
+             "fused_bn_fwd": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _P],
+             "fused_bn_bwd": [_P] * 15 + [_I, _I, _I, _F, _I, _I, _P],
+             # fused_bn_bwd's tensors with one scratch and the bf16 dw, db
+             # (or null), then n, c, hw, eps, relu, skip, vbf16
+             "fused_bn_bwd_persist": [_P] * 14 + [_I, _I, _I, _F, _I, _I, _I,
+                                                   _P],
+             # x, res, w, b, y, mean, var, then n, c, hw, eps, relu, skip,
+             # vbf16
+             "fused_bn_fwd_cluster": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _I,
+                                                   _P]}
 
 
 @functools.cache
@@ -564,11 +573,12 @@ def fused_bn_bwd_ref(x, res, w, b, mean, var, g, gmean, gvar, eps: float,
 # fused BatchNorm-train: the CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _bn_check(name, x, rows, vecs):
+def _bn_check(name, x, rows, vecs, wb=()):
     """The kernels' contract: x [N, C, HW] float32 or bfloat16, C % 8 == 0;
     the row tensors (``rows``) in x's dtype and shape; everything on x's
     CUDA device, contiguous and 16-byte aligned; the [C] vectors
-    (``vecs``) f32."""
+    (``vecs``) f32; the weight and bias (``wb``) [C], contiguous, both
+    f32 or both bf16 (AMP's white cast)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
@@ -588,7 +598,14 @@ def _bn_check(name, x, rows, vecs):
         if t.dtype != torch.float32 or tuple(t.shape) != (c,):
             raise ValueError(f"{name}: per-channel vectors must be float32 "
                              f"[{c}], got {t.dtype} {tuple(t.shape)}")
-    for t in (*rows, *vecs):
+    for t in wb:
+        if (t.dtype not in (torch.float32, torch.bfloat16)
+                or t.dtype != wb[0].dtype or tuple(t.shape) != (c,)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: weight and bias must be contiguous "
+                             f"[{c}], both float32 or both bfloat16, got "
+                             f"{[(v.dtype, tuple(v.shape)) for v in wb]}")
+    for t in (*rows, *vecs, *wb):
         if t.device != x.device:
             raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
     for t in (x, *rows):
@@ -782,9 +799,9 @@ def _bn_fwd_cuda(x, res, w, b, eps, relu, route=None, *, skip=0):
     four-launch kernels for an in-call comparison). ``skip`` plants a
     fault for the checks: rank 0's fold leaves out the last rank's
     partial; the op passes none."""
-    w32, b32 = _vec32(w), _vec32(b)
     n, c, hw = _bn_check("fused_bn_fwd", x, () if res is None else (res,),
-                         (w32, b32))
+                         (), (w, b))
+    vbf16 = int(w.dtype == torch.bfloat16)
     natural = bn_fwd_route(x.dtype, c)
     if route is None:
         route = natural
@@ -796,18 +813,18 @@ def _bn_fwd_cuda(x, res, w, b, eps, relu, route=None, *, skip=0):
     mean = torch.empty(c, dtype=torch.float32, device=dev)
     var = torch.empty_like(mean)
     lib = _lib()
-    head = (x.data_ptr(), _ptr(res), w32.data_ptr(), b32.data_ptr(),
+    head = (x.data_ptr(), _ptr(res), w.data_ptr(), b.data_ptr(),
             y.data_ptr(), mean.data_ptr(), var.data_ptr())
     if route == "cluster":
         _build.call(lib, "fused_bn_fwd_cluster", x.dtype, dev, *head, n, c,
-                    hw, float(eps), int(relu), int(skip))
+                    hw, float(eps), int(relu), int(skip), vbf16)
     else:
         part = torch.empty((_bn_parts(n, hw), 2, c), dtype=torch.float32,
                            device=dev)
         coef = torch.empty((2, c), dtype=torch.float32, device=dev)
         _build.call(lib, "fused_bn_fwd", x.dtype, dev, *head,
                     part.data_ptr(), coef.data_ptr(), n, c, hw, float(eps),
-                    int(relu))
+                    int(relu), vbf16)
     launches["fused_bn_fwd"] += 1
     bn_fwd_routes[route] += 1
     return y, mean, var
@@ -993,16 +1010,17 @@ bn_bwd_routes = {"persistent": 0, "generic": 0}
 
 def _bn_bwd_cuda(x, res, w, b, mean, var, g, gmean, gvar, eps, relu,
                  route=None, *, skip=-1):
-    """(dx, dres or None, dw, db): the rows in x's dtype, the sums f32; on
-    the persistent route (``route="generic"`` names the four-launch
-    kernels for an in-call comparison). ``skip`` plants a fault for the
+    """(dx, dres or None, dw, db): the rows in x's dtype, the sums f32
+    (bf16 for bf16 w and b on the persistent route, rounded once by the
+    kernel); on the persistent route (``route="generic"`` names the
+    four-launch kernels for an in-call comparison). ``skip`` plants a fault for the
     checks: every fold of the persistent kernel leaves out that tile's
     partial; the op passes none."""
-    w32, b32 = _vec32(w), _vec32(b)
     gm, gv = _vec32(gmean), _vec32(gvar)
     rows = (g,) if res is None else (res, g)
-    vecs = [v for v in (w32, b32, mean, var, gm, gv) if v is not None]
-    n, c, hw = _bn_check("fused_bn_bwd", x, rows, vecs)
+    vecs = [v for v in (mean, var, gm, gv) if v is not None]
+    n, c, hw = _bn_check("fused_bn_bwd", x, rows, vecs, (w, b))
+    vbf16 = int(w.dtype == torch.bfloat16)
     natural = bn_bwd_route(x.dtype, c)
     if route is None:
         route = natural
@@ -1013,7 +1031,7 @@ def _bn_bwd_cuda(x, res, w, b, mean, var, g, gmean, gvar, eps, relu,
     dx = torch.empty_like(x)
     dres = None if res is None else torch.empty_like(x)
     lib = _lib()
-    head = (x.data_ptr(), _ptr(res), w32.data_ptr(), b32.data_ptr(),
+    head = (x.data_ptr(), _ptr(res), w.data_ptr(), b.data_ptr(),
             mean.contiguous().data_ptr(), var.contiguous().data_ptr(),
             g.data_ptr(), _ptr(gm), _ptr(gv), dx.data_ptr(), _ptr(dres))
     if route == "persistent":
@@ -1021,10 +1039,15 @@ def _bn_bwd_cuda(x, res, w, b, mean, var, g, gmean, gvar, eps, relu,
                            3 if relu and res is not None else 2)
         scratch = torch.empty(bn_bwd_scratch_floats(plan),
                               dtype=torch.float32, device=dev)
+        # bf16 w and b: the kernel rounds dw and db into tensors of their
+        # own (no conversion launch)
+        dw16, db16 = ((torch.empty(c, dtype=torch.bfloat16, device=dev)
+                       for _ in range(2)) if vbf16 else (None, None))
         _build.call(lib, "fused_bn_bwd_persist", x.dtype, dev, *head,
-                    scratch.data_ptr(), n, c, hw, float(eps), int(relu),
-                    skip)
-        dw, db = scratch[4 * c:5 * c], scratch[5 * c:6 * c]
+                    scratch.data_ptr(), _ptr(dw16), _ptr(db16), n, c, hw,
+                    float(eps), int(relu), skip, vbf16)
+        dw, db = ((dw16, db16) if vbf16 else
+                  (scratch[4 * c:5 * c], scratch[5 * c:6 * c]))
     else:
         sums = torch.empty((2, c), dtype=torch.float32, device=dev)
         part = torch.empty((_bn_parts(n, hw), 2, c), dtype=torch.float32,
@@ -1032,7 +1055,7 @@ def _bn_bwd_cuda(x, res, w, b, mean, var, g, gmean, gvar, eps, relu,
         coef = torch.empty((4, c), dtype=torch.float32, device=dev)
         _build.call(lib, "fused_bn_bwd", x.dtype, dev, *head,
                     sums[0].data_ptr(), sums[1].data_ptr(), part.data_ptr(),
-                    coef.data_ptr(), n, c, hw, float(eps), int(relu))
+                    coef.data_ptr(), n, c, hw, float(eps), int(relu), vbf16)
         dw, db = sums[0], sums[1]
     launches["fused_bn_bwd"] += 1
     bn_bwd_routes[route] += 1
@@ -1072,9 +1095,15 @@ def fused_bn_bwd(x, res, w, b, mean, var, g, gmean, gvar, eps, relu):
                                             gmean, gvar, eps, relu)
         dx = dx.to(x.dtype)
         dres = None if res is None else gate.to(res.dtype, copy=True)
-    # copies: the kernels' sums are rows of one tensor, and an op's outputs
-    # may not alias each other
-    return dx, dres, dw.to(w.dtype, copy=True), db.to(b.dtype, copy=True)
+    return dx, dres, _own(dw, w.dtype), _own(db, b.dtype)
+
+
+def _own(t, dtype):
+    """``t`` in ``dtype`` as a tensor of its own: the kernels' f32 sums are
+    rows of one scratch tensor, and an op's outputs may not alias each
+    other (the persistent route's bf16 dw and db are their own already)."""
+    return (t if t.dtype == dtype and not t._is_view()
+            else t.to(dtype, copy=True))
 
 
 def _bn_setup_context(ctx, inputs, output):

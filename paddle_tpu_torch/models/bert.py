@@ -21,6 +21,13 @@ the word-embedding table itself, held by the heads unregistered (it is
 not a key of either state dict): one tensor, which ``load_numpy`` and the
 optimizer update in place and whose gradient sums both uses.
 
+Every op the reference dispatches goes through the port's registered
+functional of the same name (``embedding``, ``add``, ``linear``,
+``tanh``, ``gelu``, ``matmul``, ``chunked_mlm_xent``, ``cross_entropy``
+and the fused ops below), so the model runs under ``amp.auto_cast`` and
+``amp.decorate`` with the reference's casts; every parameter carries the
+reference's unique name (``p.name``, ``nn.layer.layers.name_parameters``).
+
 The block runs the reference's fused route at the default flags:
 attention through ``scaled_dot_product_attention`` (the flash kernels,
 with the padding mask as their key-padding bias), the attention output
@@ -30,8 +37,7 @@ erf-GeLU MLP by ``fused_mlp`` and the FFN close by
 ``fused_bias_dropout_residual_layer_norm`` (the LayerNorm kernels); the
 embeddings' and the MLM transform's ``LayerNorm`` through
 ``nn.functional.layer_norm``. A bf16 model keeps bf16 I/O through the
-fused kernels (f32 statistics inside them), where the reference's bf16
-runs under ``amp.auto_cast``; the losses are taken in f32.
+fused kernels (f32 statistics inside them); the losses are taken in f32.
 
 Dropout runs at the config's rates (0.1 and 0.1 by default) wherever
 the reference applies it, each site taking one split of the framework
@@ -50,17 +56,19 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .._device import DeviceLike, resolve_device
+from ..nn.functional.activation import gelu, tanh
 from ..nn.functional.attention import scaled_dot_product_attention
-from ..nn.functional.loss import chunked_mlm_xent
+from ..nn.functional.loss import chunked_mlm_xent, cross_entropy
 from ..nn.functional.mlp import (fused_attn_proj_residual_layer_norm,
                                  fused_mlp)
 from ..nn.functional.norm import fused_bias_dropout_residual_layer_norm
-from ..nn.layer.common import Dropout
+from ..nn.layer.common import Dropout, Embedding
+from ..nn.layer.layers import name_parameters
 from ..nn.layer.norm import LayerNorm
+from ..ops.math import add, matmul
 from .gpt import Linear    # Paddle layout: weight [in, out], bias [out]
 
 __all__ = ["BertConfig", "CONFIGS", "BertEmbeddings", "BertLayer",
@@ -101,12 +109,12 @@ class BertEmbeddings(nn.Module):
     def __init__(self, cfg: BertConfig, *, device=None, dtype=torch.float32):
         super().__init__()
         kw = _kw(device, dtype)
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                            **kw)
-        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
-                                                cfg.hidden_size, **kw)
-        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size,
-                                                  cfg.hidden_size, **kw)
+        self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size,
+                                         **kw)
+        self.position_embeddings = Embedding(cfg.max_position_embeddings,
+                                             cfg.hidden_size, **kw)
+        self.token_type_embeddings = Embedding(cfg.type_vocab_size,
+                                               cfg.hidden_size, **kw)
         self.layer_norm = LayerNorm(cfg.hidden_size,
                                     epsilon=cfg.layer_norm_eps, **kw)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
@@ -114,11 +122,10 @@ class BertEmbeddings(nn.Module):
     def forward(self, input_ids, token_type_ids=None):
         S = input_ids.shape[1]
         pos = torch.arange(S, device=input_ids.device)
-        x = self.word_embeddings(input_ids.long()) + self.position_embeddings(
-            pos)
+        x = add(self.word_embeddings(input_ids), self.position_embeddings(pos))
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = x + self.token_type_embeddings(token_type_ids.long())
+        x = add(x, self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(x))
 
 
@@ -172,7 +179,7 @@ class BertPooler(nn.Module):
                             **_kw(device, dtype))
 
     def forward(self, hidden):
-        return torch.tanh(self.dense(hidden[:, 0]))
+        return tanh(self.dense(hidden[:, 0]))
 
 
 class _Init(nn.Module):
@@ -190,7 +197,7 @@ class _Init(nn.Module):
                 mod.weight.normal_(0.0, math.sqrt(2.0 / (n_in + n_out)),
                                    generator=g)
                 mod.bias.zero_()
-            elif isinstance(mod, nn.Embedding):
+            elif isinstance(mod, Embedding):
                 mod.weight.normal_(0.0, 1.0, generator=g)
             elif isinstance(mod, LayerNorm):
                 mod.weight.fill_(1.0)
@@ -229,6 +236,7 @@ class BertModel(_Init):
         self.pooler = BertPooler(cfg, **kw)
         if seed is not None:
             self.reset_parameters(seed)
+        name_parameters(self)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         """[B, S] ids (and a [B, S] 1/0 ``attention_mask``, 0 at padding)
@@ -263,12 +271,13 @@ class BertPretrainingHeads(nn.Module):
         return self._tied[0]
 
     def _mlm_transform(self, sequence_output):
-        return self.transform_ln(F.gelu(self.transform(sequence_output)))
+        return self.transform_ln(gelu(self.transform(sequence_output)))
 
     def forward(self, sequence_output, pooled_output):
         """(MLM logits [B, S, V], NSP logits [B, 2])."""
         h = self._mlm_transform(sequence_output)
-        logits = h @ self.decoder_weight.T + self.decoder_bias
+        logits = add(matmul(h, self.decoder_weight, transpose_y=True),
+                     self.decoder_bias)
         return logits, self.seq_relationship(pooled_output)
 
     def per_token_mlm_loss(self, sequence_output, labels):
@@ -293,6 +302,7 @@ class BertForPretraining(_Init):
             cfg, self.bert.embeddings.word_embeddings.weight,
             device=self.device, dtype=dtype)
         self.reset_parameters(seed)
+        name_parameters(self)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)
@@ -308,10 +318,9 @@ class BertForPretraining(_Init):
         safe_labels = torch.where(labelled, mlm_labels,
                                   torch.zeros_like(mlm_labels))
         per_tok = self.cls.per_token_mlm_loss(seq, safe_labels)
-        mlm = (per_tok * valid).sum() / (valid.sum() + 1e-6)
-        nsp = F.cross_entropy(self.cls.seq_relationship(pooled).float(),
-                              nsp_labels.long())
-        return mlm + nsp
+        mlm = (per_tok * valid).sum() / add(valid.sum(), 1e-6)
+        nsp = cross_entropy(self.cls.seq_relationship(pooled), nsp_labels)
+        return add(mlm, nsp)
 
 
 class BertForSequenceClassification(_Init):
@@ -326,6 +335,7 @@ class BertForSequenceClassification(_Init):
         self.classifier = Linear(cfg.hidden_size, num_classes, self.device,
                                  dtype)
         self.reset_parameters(seed)
+        name_parameters(self)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         _, pooled = self.bert(input_ids, token_type_ids, attention_mask)

@@ -70,6 +70,7 @@ from ..kernels.mlp_fusion import decode_attn_proj, fused_mlp_2d, mlp_eligible
 from ..nn.functional import mlp as _mlp_introspect
 from ..nn.functional.attention import (paged_attention_math,
                                        scaled_dot_product_attention)
+from ..nn.functional.common import linear
 from ..nn.functional.mlp import _fused_mode, fused_mlp
 from ..nn.layer.norm import LayerNorm
 
@@ -145,7 +146,7 @@ class Linear(nn.Module):
                                              dtype=dtype))
 
     def forward(self, x):
-        return x @ self.weight + self.bias
+        return linear(x, self.weight, self.bias)
 
 
 class GPTBlock(nn.Module):

@@ -10,15 +10,17 @@ path introspection (mlp.py), ``layer_norm``,
 ``binary_cross_entropy``, ``chunked_mlm_xent`` and ``cross_entropy``
 (loss.py), ``dropout``, ``interpolate`` / ``upsample`` (nearest) and
 ``linear`` (common.py), ``conv2d`` (conv.py), ``max_pool2d`` and
-``adaptive_avg_pool2d`` (pooling.py), ``relu``, ``sigmoid``, ``silu`` and
-``softplus`` (activation.py) and ``one_hot`` (input.py).
+``adaptive_avg_pool2d`` (pooling.py), ``gelu``, ``relu``, ``sigmoid``,
+``silu``, ``softplus`` and ``tanh`` (activation.py), ``embedding`` and
+``one_hot`` (input.py). The ops among them are registered
+(``core/dispatch.py``) under the reference's names and AMP categories.
 """
-from .activation import relu, sigmoid, silu, softplus
+from .activation import gelu, relu, sigmoid, silu, softplus, tanh
 from .attention import (last_attn_path, paged_attention_math,
                         reset_last_attn_path, scaled_dot_product_attention)
 from .common import dropout, interpolate, linear, upsample
 from .conv import conv2d
-from .input import one_hot
+from .input import embedding, one_hot
 from .loss import binary_cross_entropy, chunked_mlm_xent, cross_entropy
 from .mlp import (fused_attn_proj_residual_layer_norm, fused_mlp,
                   fused_swiglu, last_mlp_path, reset_last_mlp_path)
@@ -31,13 +33,13 @@ from .sampling import (categorical_math, derive_key, greedy_math,
 
 __all__ = ["adaptive_avg_pool2d", "batch_norm", "batch_norm_act",
            "binary_cross_entropy", "categorical_math", "chunked_mlm_xent",
-           "conv2d", "cross_entropy", "dropout",
+           "conv2d", "cross_entropy", "dropout", "embedding",
            "derive_key", "fused_attn_proj_residual_layer_norm",
            "fused_bias_dropout_residual_layer_norm", "fused_mlp",
-           "fused_swiglu", "greedy_math", "interpolate", "last_attn_path",
+           "fused_swiglu", "gelu", "greedy_math", "interpolate", "last_attn_path",
            "last_mlp_path", "last_norm_path", "layer_norm", "linear",
            "max_pool2d", "one_hot", "paged_attention_math", "relu",
            "reset_last_attn_path", "reset_last_mlp_path",
            "reset_last_norm_path", "rms_norm", "sample_categorical",
            "sample_token", "scaled_dot_product_attention", "sigmoid", "silu",
-           "softplus", "upsample"]
+           "softplus", "tanh", "upsample"]

@@ -4,9 +4,13 @@ Counterpart: ``paddle_tpu/nn/functional/attention.py``:
 ``paged_attention_math`` (:106), the one arithmetic the serving prefill,
 the no-cache forward and the composite decode step share, the dense
 ``_sdpa_ref`` (:26-60), ``last_attn_path`` / ``reset_last_attn_path``
-(:172-186), ``_is_key_padding_mask`` (:189), the masked flash route
-``_flash_masked_op`` (:73-103) and ``scaled_dot_product_attention``
-(:231).
+(:172-186), ``_is_key_padding_mask`` (:189), the flash routes
+``_flash_op`` (:65-69) and ``_flash_masked_op`` (:73-103) and
+``scaled_dot_product_attention`` (:231). ``sdpa_ref``,
+``flash_attention`` and ``flash_attention_masked`` are registered white
+ops, as in the reference: under AMP the additive mask reaches
+``flash_attention_masked`` in the low dtype and is made the kernels' f32
+bias row from there, as the reference's ``astype(float32)`` makes it.
 
 ``scaled_dot_product_attention`` runs on Paddle's [b, s, h, d] layout:
 without a mask, and with a key-padding mask ([B, 1, 1, Sk], bool or
@@ -15,10 +19,10 @@ kernels on a card, their plain versions on the CPU; the mask rides in as
 one f32 bias row per batch). Any other mask, and a mask with
 ``is_causal``, take the reference's dense ``_sdpa_ref`` math with its
 once-warning: that is the reference's own route for those masks. So do
-tensors the kernels do not take (not all float32 or all bfloat16, or a
-head dim above 256), with the same once-warning: the reference computes
-them (its flash pads any head dim, :255, and its functional falls back
-on a rejected kernel). The reference's exception policy (a failed
+tensors the kernels do not take (not all float32 or all bfloat16 after
+the AMP cast, or a head dim above 256), with the same once-warning: the
+reference computes them (its flash pads any head dim, :255, and its
+functional falls back on a rejected kernel). The reference's exception policy (a failed
 kernel falls back to the dense path) is not ported.
 
 Attention dropout while training takes one ``default_generator`` split
@@ -36,6 +40,7 @@ import warnings
 import torch
 
 from ...core import generator as gen_mod
+from ...core.dispatch import amp_dtypes, register_op
 from ...kernels._build import kernel_dtypes
 from ...kernels.flash_attention import _MAX_HEAD_DIM, flash_attention_bshd
 from .common import _inv_keep
@@ -63,6 +68,7 @@ def reset_last_attn_path():
     _LAST_PATH = None
 
 
+@register_op("sdpa_ref", amp="white")
 def _sdpa_ref(query, key, value, attn_mask, is_causal, scale=None,
               dropout_key=None, dropout_p=0.0):
     """The reference's dense attention on [b, s, h, d] (:26-60): logits in
@@ -119,6 +125,26 @@ def _kv_bias(attn_mask, b, sk):
     return bias.expand(b, sk)
 
 
+@register_op("flash_attention", amp="white")
+def _flash_op(query, key, value, is_causal):
+    """The flash kernels without a mask or dropout."""
+    return flash_attention_bshd(query, key, value, causal=bool(is_causal))
+
+
+@register_op("flash_attention_masked", amp="white")
+def _flash_masked_op(query, key, value, kv_mask, dropout_key, dropout_p,
+                     is_causal, scale):
+    """The flash kernels with a key-padding mask ([B, 1, 1, Sk] or [B,
+    Sk], bool or additive; None: none) as their f32 bias row and the
+    in-kernel dropout keyed by ``dropout_key``."""
+    bias = (None if kv_mask is None else
+            _kv_bias(kv_mask, query.shape[0], key.shape[1]))
+    return flash_attention_bshd(query, key, value, causal=bool(is_causal),
+                                scale=scale, kv_bias=bias,
+                                dropout_p=float(dropout_p),
+                                dropout_seed=dropout_key)
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None):
@@ -131,25 +157,23 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     # route (:239-244)
     dk = gen_mod.default_generator.split_key() if p > 0 else None
     mode = "cuda" if query.device.type == "cuda" else "plain"
-    takes = (kernel_dtypes(query, key, value)
-             and query.shape[-1] <= _MAX_HEAD_DIM)
-    if takes and attn_mask is None:
-        _LAST_PATH = f"flash_masked/{mode}" if p > 0 else f"flash/{mode}"
-        return flash_attention_bshd(query, key, value, causal=bool(is_causal),
-                                    dropout_p=p, dropout_seed=dk)
-    if takes and not is_causal and _is_key_padding_mask(attn_mask):
+    dts = amp_dtypes(_flash_op, query, key, value)
+    takes = kernel_dtypes(*dts) and query.shape[-1] <= _MAX_HEAD_DIM
+    if takes and attn_mask is None and p == 0:
+        _LAST_PATH = f"flash/{mode}"
+        return _flash_op(query, key, value, bool(is_causal))
+    if takes and (attn_mask is None
+                  or (not is_causal and _is_key_padding_mask(attn_mask))):
         _LAST_PATH = f"flash_masked/{mode}"
-        return flash_attention_bshd(
-            query, key, value, causal=False,
-            kv_bias=_kv_bias(attn_mask, query.shape[0], key.shape[1]),
-            dropout_p=p, dropout_seed=dk)
+        return _flash_masked_op(query, key, value, attn_mask, dk, p,
+                                bool(is_causal), None)
     if not _DENSE_MASK_WARNED:
         _DENSE_MASK_WARNED = True
         why = ("attn_mask is not a key-padding mask ([B, 1, 1, Sk]) or is "
                "combined with is_causal" if takes else
                f"the flash kernels take q, k, v all float32 or all bfloat16 "
-               f"with head_dim <= {_MAX_HEAD_DIM}, got {query.dtype}, "
-               f"{key.dtype}, {value.dtype}, head_dim {query.shape[-1]}")
+               f"with head_dim <= {_MAX_HEAD_DIM}, got {dts[0]}, {dts[1]}, "
+               f"{dts[2]}, head_dim {query.shape[-1]}")
         warnings.warn(
             f"scaled_dot_product_attention: {why}; taking the dense "
             "reference path (materializes [B, H, Sq, Sk] scores), not the "

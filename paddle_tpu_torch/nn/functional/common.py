@@ -1,10 +1,11 @@
 """Common functionals.
 
-Counterpart: ``paddle_tpu/nn/functional/common.py``: ``linear`` (:20),
-``_dropout_raw`` (:29), ``dropout`` (:47), and ``interpolate`` with its
+Counterpart: ``paddle_tpu/nn/functional/common.py``: ``linear`` (:20,
+a registered white op), ``_dropout_raw`` (:29, the promote op
+``dropout_raw``), ``dropout`` (:47), and ``interpolate`` with its
 alias ``upsample`` (:120-136, ``_interpolate_raw`` :92) in ``"nearest"``
 mode. Padding, the other interpolation modes and the rest of that module
-come with later slices (ROADMAP A5, A11).
+come with later slices (ROADMAP A5b, A11).
 
 ``interpolate``'s nearest mode is ``jax.image.resize(..., "nearest")``'s:
 output pixel i reads input pixel floor((i + 0.5) · in / out), which is
@@ -29,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from ...core import generator as gen_mod
+from ...core.dispatch import register_op
 from .sampling import bernoulli
 
 __all__ = ["dropout", "interpolate", "linear", "upsample"]
@@ -42,12 +44,14 @@ def _inv_keep(keep: float, like: torch.Tensor) -> torch.Tensor:
     return one / torch.tensor(keep, dtype=like.dtype, device=like.device)
 
 
+@register_op("linear", amp="white")
 def linear(x, weight, bias=None, name=None):
     """y = x @ W + b with Paddle's weight layout [in, out]."""
     out = x @ weight
     return out if bias is None else out + bias
 
 
+@register_op("dropout_raw")
 def _dropout_raw(x, key, p, training, mode, axis):
     """Dropout under a drawn key (two uint32 words): the reference's
     ``_dropout_raw`` (:29-44)."""

@@ -1,7 +1,7 @@
 """Convolution functionals.
 
 Counterpart: ``paddle_tpu/nn/functional/conv.py``: ``_pair`` and
-``_padding`` (:16-35) and ``conv2d`` (:38). The reference lowers every
+``_padding`` (:16-35) and ``conv2d`` (:38, a registered white op). The reference lowers every
 convolution to ``lax.conv_general_dilated``; here ``conv2d`` is
 ``torch.nn.functional.conv2d`` in NCHW with Paddle's OIHW weight
 (``[out, in/groups, kh, kw]``), the weight cast to x's dtype as the
@@ -14,6 +14,8 @@ transposed convolutions, are ROADMAP A11.
 from __future__ import annotations
 
 import torch.nn.functional as F
+
+from ...core.dispatch import register_op
 
 __all__ = ["conv2d"]
 
@@ -73,6 +75,7 @@ def _torch_pad(pads):
     return [v for lo_hi in reversed(pads) for v in lo_hi]
 
 
+@register_op("conv2d", amp="white")
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW", name=None):
     """2-D convolution of x [N, C, H, W] by weight [O, C/groups, kh, kw]."""

@@ -1,14 +1,27 @@
 """Input functionals.
 
-Counterpart: ``paddle_tpu/nn/functional/input.py``, ``one_hot`` (:8, the
-re-export of ``paddle_tpu/ops/manipulation.py:592``). ``embedding`` comes
-with a later slice.
+Counterpart: ``paddle_tpu/nn/functional/input.py``: ``embedding`` (:11,
+a registered promote op) and ``one_hot`` (:8, the re-export of
+``paddle_tpu/ops/manipulation.py:592``).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["one_hot"]
+from ...core.dispatch import register_op
+
+__all__ = ["embedding", "one_hot"]
+
+
+@register_op("embedding")
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` gathered by the ids ``x``; with ``padding_idx``
+    (≥ 0) that id's rows come out zero and pass no gradient, as the
+    reference masks them at the output."""
+    out = torch.nn.functional.embedding(x.long(), weight)
+    if padding_idx is not None and padding_idx >= 0:
+        out = out * (x != padding_idx).unsqueeze(-1).to(out.dtype)
+    return out
 
 
 def one_hot(x, num_classes, name=None):

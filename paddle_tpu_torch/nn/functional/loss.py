@@ -3,8 +3,10 @@
 Counterpart: ``paddle_tpu/nn/functional/loss.py``: ``_reduce`` (:10),
 ``cross_entropy`` (:19-64), the vision path's loss,
 ``binary_cross_entropy`` (:102), PP-YOLOE's classification loss, and
-``chunked_mlm_xent`` (:238-251), BERT's tied MLM head. The other losses of
-that module come with later slices.
+``chunked_mlm_xent`` (:238-251), BERT's tied MLM head, registered ops under the reference's names and
+AMP categories (``cross_entropy`` and ``binary_cross_entropy`` black,
+``chunked_mlm_xent`` promote). The other losses of that module come with
+later slices.
 
 ``binary_cross_entropy`` is the reference's formula, each log's argument
 floored at 1e-12 (a saturated probability costs 27.63). It is not
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.dispatch import register_op
 from ...kernels.chunked_xent import chunked_softmax_xent_per_token
 
 __all__ = ["binary_cross_entropy", "chunked_mlm_xent", "cross_entropy"]
@@ -29,6 +32,7 @@ def _reduce(loss, reduction):
     return loss
 
 
+@register_op("cross_entropy", amp="black")
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0, name=None):
@@ -78,6 +82,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
     return _reduce(loss, reduction)
 
 
+@register_op("binary_cross_entropy", amp="black")
 def binary_cross_entropy(input, label, weight=None, reduction="mean",  # noqa: A002
                          name=None):
     """-(y·log(max(x, 1e-12)) + (1 − y)·log(max(1 − x, 1e-12))) of the
@@ -92,6 +97,7 @@ def binary_cross_entropy(input, label, weight=None, reduction="mean",  # noqa: A
     return _reduce(loss, reduction)
 
 
+@register_op("chunked_mlm_xent")
 def chunked_mlm_xent(h, w, bias, labels):
     """Per-position cross-entropy of the tied head ``h @ wᵀ + bias`` with
     the vocabulary streamed in chunks: [B, S, V] logits never exist at

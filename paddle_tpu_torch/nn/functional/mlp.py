@@ -23,6 +23,12 @@ the first with the reference's once-warning. The projection-LN's dense
 route is ``linear`` → ``norm._adln_routed``, itself behind
 ``FLAGS_fused_norm``.
 
+The kernel ops are registered white under the reference's names
+(``fused_mlp``, ``fused_swiglu``, ``fused_attn_proj_ln``); the dense
+routes compose the registered ``linear``, ``gelu`` / ``silu`` and
+``dropout_raw``, as the reference's do. A route is chosen on the dtypes
+its op will see after the AMP cast (``amp_dtypes``).
+
 Dropout takes one ``default_generator`` split per call whenever p > 0,
 on every route, as the reference does (:196-197, :251-252). The fused
 routes apply the kernels' seeded keep-mask (the fused MLP's to its
@@ -36,15 +42,16 @@ from __future__ import annotations
 import warnings
 
 import torch
-import torch.nn.functional as F
 
+from ...core.dispatch import amp_dtypes, register_op
 from ...core.flags import get_flag
 from ...core import generator as gen_mod
 from ...kernels._build import kernel_dtypes
 from ...kernels.mlp_fusion import (fused_mlp_2d, fused_proj_ln_2d,
                                    fused_swiglu_2d, mlp_eligible,
                                    proj_ln_eligible)
-from .common import _dropout_raw
+from .activation import gelu, silu
+from .common import _dropout_raw, linear
 from .norm import _adln_routed
 
 __all__ = ["fused_attn_proj_residual_layer_norm", "fused_mlp",
@@ -85,9 +92,35 @@ def _warn_dense(reason):
         warnings.warn("fused_mlp: taking the dense path: " + reason)
 
 
-def _linear(x, w, b):
-    y = x @ w
-    return y if b is None else y + b
+@register_op("fused_mlp", amp="white")
+def _fused_mlp_op(x, fc1_w, fc1_b, fc2_w, fc2_b, dropout_key, dropout_p,
+                  approximate):
+    """dropout(gelu(x @ W1 + b1) @ W2 + b2) over x's [R, H] view."""
+    h = x.shape[-1]
+    y = fused_mlp_2d(x.reshape(-1, h), fc1_w, fc1_b, fc2_w, fc2_b,
+                     approximate=approximate, dropout_p=dropout_p,
+                     dropout_seed=dropout_key)
+    return y.reshape(x.shape)
+
+
+@register_op("fused_swiglu", amp="white")
+def _fused_swiglu_op(x, gate_w, up_w, down_w):
+    """(silu(x @ gate) · (x @ up)) @ down over x's [R, H] view."""
+    h = x.shape[-1]
+    return fused_swiglu_2d(x.reshape(-1, h), gate_w, up_w,
+                           down_w).reshape(x.shape)
+
+
+@register_op("fused_attn_proj_ln", amp="white")
+def _fused_proj_ln_op(x, proj_w, proj_b, residual, ln_scale, ln_bias,
+                      dropout_key, dropout_p, epsilon):
+    """LayerNorm(residual + dropout(x @ W + b)) in one kernel pass."""
+    hin, hout = x.shape[-1], residual.shape[-1]
+    y = fused_proj_ln_2d(x.reshape(-1, hin), proj_w, proj_b,
+                         residual.reshape(-1, hout), ln_scale, ln_bias,
+                         eps=epsilon, dropout_p=dropout_p,
+                         dropout_seed=dropout_key)
+    return y.reshape(residual.shape)
 
 
 def fused_mlp(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias, *,
@@ -110,20 +143,18 @@ def fused_mlp(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias, *,
         elif not mlp_eligible(rows, h, f):
             _warn_dense(f"fused_mlp: ffn dim {f} has no legal tile (needs "
                         f"a divisor that is a multiple of 128, or f <= 512)")
-        elif not kernel_dtypes(x, fc1_weight, fc2_weight):
+        elif not kernel_dtypes(*(dts := amp_dtypes(
+                _fused_mlp_op, x, fc1_weight, fc2_weight))):
             _warn_dense(f"fused_mlp: the kernels take x and the weights all "
-                        f"float32 or all bfloat16, got {x.dtype}, "
-                        f"{fc1_weight.dtype}, {fc2_weight.dtype}")
+                        f"float32 or all bfloat16, got {dts[0]}, {dts[1]}, "
+                        f"{dts[2]}")
         else:
             _LAST_PATH = f"fused_mlp/{mode}"
-            y = fused_mlp_2d(x.reshape(-1, h), fc1_weight, fc1_bias,
-                             fc2_weight, fc2_bias, approximate=approximate,
-                             dropout_p=p, dropout_seed=dk)
-            return y.reshape(x.shape)
+            return _fused_mlp_op(x, fc1_weight, fc1_bias, fc2_weight,
+                                 fc2_bias, dk, p, bool(approximate))
     _LAST_PATH = "dense"
-    h = F.gelu(_linear(x, fc1_weight, fc1_bias),
-               approximate="tanh" if approximate else "none")
-    h = _linear(h, fc2_weight, fc2_bias)
+    h = gelu(linear(x, fc1_weight, fc1_bias), approximate=approximate)
+    h = linear(h, fc2_weight, fc2_bias)
     if p > 0:
         h = _dropout_raw(h, dk, p, True, "upscale_in_train", None)
     return h
@@ -141,18 +172,17 @@ def fused_swiglu(x, gate_weight, up_weight, down_weight, name=None):
         if not mlp_eligible(x.numel() // h, h, f):
             _warn_dense(f"fused_swiglu: intermediate dim {f} has no legal "
                         f"tile")
-        elif not kernel_dtypes(x, gate_weight, up_weight, down_weight):
+        elif not kernel_dtypes(*(dts := amp_dtypes(
+                _fused_swiglu_op, x, gate_weight, up_weight, down_weight))):
             _warn_dense(f"fused_swiglu: the kernels take x and the weights "
-                        f"all float32 or all bfloat16, got {x.dtype}, "
-                        f"{gate_weight.dtype}, {up_weight.dtype}, "
-                        f"{down_weight.dtype}")
+                        f"all float32 or all bfloat16, got "
+                        f"{', '.join(map(str, dts))}")
         else:
             _LAST_PATH = f"fused_swiglu/{mode}"
-            y = fused_swiglu_2d(x.reshape(-1, h), gate_weight, up_weight,
-                                down_weight)
-            return y.reshape(x.shape)
+            return _fused_swiglu_op(x, gate_weight, up_weight, down_weight)
     _LAST_PATH = "dense"
-    return (F.silu(x @ gate_weight) * (x @ up_weight)) @ down_weight
+    return linear(silu(linear(x, gate_weight)) * linear(x, up_weight),
+                  down_weight)
 
 
 def fused_attn_proj_residual_layer_norm(x, proj_weight, proj_bias,
@@ -176,23 +206,19 @@ def fused_attn_proj_residual_layer_norm(x, proj_weight, proj_bias,
             _warn_dense("fused_attn_proj_residual_layer_norm needs "
                         "proj_bias, ln_scale and ln_bias for the fused "
                         "kernel")
-        elif not kernel_dtypes(x, proj_weight, residual):
+        elif not kernel_dtypes(*(dts := amp_dtypes(
+                _fused_proj_ln_op, x, proj_weight, residual))):
             _warn_dense(f"fused_attn_proj_residual_layer_norm: the kernels "
                         f"take x, the weight and the residual all float32 "
-                        f"or all bfloat16, got {x.dtype}, "
-                        f"{proj_weight.dtype}, {residual.dtype}")
-        elif not proj_ln_eligible(hout, x.dtype):
+                        f"or all bfloat16, got {dts[0]}, {dts[1]}, {dts[2]}")
+        elif not proj_ln_eligible(hout, dts[0]):
             _warn_dense(f"fused_attn_proj_residual_layer_norm: Hout={hout} "
                         f"is odd or wider than the kernels' shared-memory "
                         f"row tile")
         else:
             _LAST_PATH = f"fused_proj_ln/{mode}"
-            hin = x.shape[-1]
-            y = fused_proj_ln_2d(x.reshape(-1, hin), proj_weight, proj_bias,
-                                 residual.reshape(-1, hout), ln_scale,
-                                 ln_bias, eps=eps, dropout_p=p,
-                                 dropout_seed=dk)
-            return y.reshape(residual.shape)
+            return _fused_proj_ln_op(x, proj_weight, proj_bias, residual,
+                                     ln_scale, ln_bias, dk, p, eps)
     _LAST_PATH = "dense"
-    return _adln_routed(_linear(x, proj_weight, proj_bias), residual, None,
+    return _adln_routed(linear(x, proj_weight, proj_bias), residual, None,
                         ln_scale, ln_bias, dk, p, eps)

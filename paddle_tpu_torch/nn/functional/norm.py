@@ -24,11 +24,21 @@ normalized_shape over more than the last axis, a channels-last BatchNorm,
 C % 8 != 0 or a dtype the kernels do not take (float32 and bfloat16), all
 but the first two with the reference's once-warning.
 
+The ops are registered under the reference's names and AMP categories:
+the dense ``layer_norm``, ``batch_norm_train`` and ``batch_norm_infer``
+black (f32 in and out under AMP), the fused ``fused_layer_norm``,
+``fused_bias_dropout_residual_ln`` and ``fused_bn_train`` white (the
+low dtype in and out, f32 statistics inside the kernels: under O2 the
+BatchNorm's weight and bias reach the kernels in bf16). A route is chosen
+on the dtypes its op will see after the AMP cast (``amp_dtypes``); the
+residual add of the dense epilogue and of the dense add → LN close is
+``ops.add``.
+
 The BatchNorm running statistics follow Paddle: ``running = m·running +
 (1 − m)·batch`` with ``momentum`` m (0.9 keeps 90% of the old value) and
 the biased batch variance, updated in place under ``torch.no_grad()``.
 The dense BatchNorm takes its statistics in f32 and returns x's dtype
-(the reference's "black" op runs in f32 under AMP; the port has no AMP).
+(f32 under AMP, where the op is black).
 
 Dropout in the add → LN close takes one ``default_generator`` split per
 call whenever p > 0, on every route (:239-241): on the fused route the
@@ -42,11 +52,13 @@ import warnings
 
 import torch
 
+from ...core.dispatch import amp_dtypes, register_op
 from ...core.flags import get_flag
 from ...core import generator as gen_mod
 from ...kernels._build import kernel_dtypes
 from ...kernels.norm_fusion import (bn_eligible, fused_batch_norm_train,
                                     fused_layer_norm_2d)
+from ...ops.math import add
 from .activation import relu
 from .common import _dropout_raw
 
@@ -89,6 +101,7 @@ def _warn_dense(reason):
         warnings.warn("fused_norm: taking the dense path: " + reason)
 
 
+@register_op("layer_norm", amp="black")
 def _layer_norm_ref(x, normalized_shape=None, weight=None, bias=None,
                     epsilon=1e-5):
     """The dense LayerNorm (norm.py:109-129): statistics in f32 for bf16
@@ -110,6 +123,27 @@ def _layer_norm_ref(x, normalized_shape=None, weight=None, bias=None,
     return out
 
 
+@register_op("fused_layer_norm", amp="white")
+def _fused_layer_norm_op(x, weight, bias, epsilon):
+    """The fused LayerNorm over the last axis of x (its [R, H] view)."""
+    hd = x.shape[-1]
+    return fused_layer_norm_2d(x.reshape(-1, hd), weight, bias,
+                               eps=epsilon).reshape(x.shape)
+
+
+@register_op("fused_bias_dropout_residual_ln", amp="white")
+def _fused_adln_op(x, residual, bias, ln_scale, ln_bias, dropout_key,
+                   dropout_p, epsilon):
+    """LayerNorm(residual + dropout(bias + x)) in one kernel pass;
+    ``dropout_key`` the drawn split (None at p = 0)."""
+    hd = x.shape[-1]
+    y = fused_layer_norm_2d(
+        x.reshape(-1, hd), ln_scale, ln_bias,
+        residual=residual.reshape(-1, hd), lin_bias=bias, eps=epsilon,
+        dropout_p=dropout_p, dropout_seed=dropout_key)
+    return y.reshape(x.shape)
+
+
 def layer_norm(x, normalized_shape=None, weight=None, bias=None,
                epsilon=1e-5, name=None):
     """LayerNorm over the trailing ``normalized_shape`` axes of x. On the
@@ -121,11 +155,10 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
         ndims = (1 if isinstance(normalized_shape, int)
                  or normalized_shape is None else len(normalized_shape))
         if ndims == 1 and weight is not None and bias is not None \
-                and x.ndim >= 1 and kernel_dtypes(x):
+                and x.ndim >= 1 and kernel_dtypes(
+                    *amp_dtypes(_fused_layer_norm_op, x)):
             _LAST_PATH = f"fused_ln/{mode}"
-            hd = x.shape[-1]
-            return fused_layer_norm_2d(x.reshape(-1, hd), weight, bias,
-                                       eps=float(epsilon)).reshape(x.shape)
+            return _fused_layer_norm_op(x, weight, bias, float(epsilon))
         _warn_dense(
             "layer_norm shape/affine combination unsupported by the fused "
             "kernel (needs last-axis normalized_shape + weight + bias, "
@@ -157,22 +190,18 @@ def _adln_routed(x, residual, bias, ln_scale, ln_bias, dk, p, eps):
     mode = _fused_mode(x.device)
     if mode is not None:
         if ln_scale is not None and ln_bias is not None \
-                and kernel_dtypes(x):
+                and kernel_dtypes(*amp_dtypes(_fused_adln_op, x)):
             _LAST_PATH = f"fused_adln/{mode}"
-            hd = x.shape[-1]
-            y = fused_layer_norm_2d(
-                x.reshape(-1, hd), ln_scale, ln_bias,
-                residual=residual.reshape(-1, hd), lin_bias=bias, eps=eps,
-                dropout_p=p, dropout_seed=dk)
-            return y.reshape(x.shape)
+            return _fused_adln_op(x, residual, bias, ln_scale, ln_bias, dk,
+                                  p, eps)
         _warn_dense(
             "fused_bias_dropout_residual_layer_norm needs both ln_scale and "
             "ln_bias (and float32 or bfloat16) for the fused kernel")
     _LAST_PATH = "dense"
-    h = x if bias is None else x + bias
+    h = x if bias is None else add(x, bias)
     if p > 0:
         h = _dropout_raw(h, dk, p, True, "upscale_in_train", None)
-    return _layer_norm_ref(residual + h, None, ln_scale, ln_bias, eps)
+    return _layer_norm_ref(add(residual, h), None, ln_scale, ln_bias, eps)
 
 
 def _chan_shape(x, ch_axis):
@@ -186,6 +215,7 @@ def _compute_dtype(x):
     return torch.promote_types(x.dtype, torch.float32)
 
 
+@register_op("batch_norm_infer", amp="black")
 def _bn_infer(x, mean, var, weight, bias, epsilon, ch_axis):
     """The dense eval-mode BatchNorm (:76-89): (x − mean) / sqrt(var + ε)
     · weight + bias with the given statistics, in f32 (f64 for f64 x),
@@ -201,6 +231,7 @@ def _bn_infer(x, mean, var, weight, bias, epsilon, ch_axis):
     return out.to(x.dtype)
 
 
+@register_op("batch_norm_train", amp="black", multi_out=True)
 def _bn_train(x, weight, bias, epsilon, ch_axis):
     """The dense train-mode BatchNorm (:92-106): the batch mean and the
     biased (centred, two-pass) variance over every axis but the channel's,
@@ -220,9 +251,24 @@ def _bn_train(x, weight, bias, epsilon, ch_axis):
     return out.to(x.dtype), mean, var
 
 
+@register_op("fused_bn_train", amp="white", multi_out=True)
+def _fused_bn_op(x, residual, weight, bias, epsilon, fuse_relu):
+    """The fused BatchNorm-train (+ residual + ReLU) on a channel-second
+    x: (out, mean, var), the statistics f32; a missing weight or bias is
+    f32 ones or zeros, made after the AMP cast as the reference makes
+    them."""
+    c = x.shape[1]
+    w = (torch.ones(c, dtype=torch.float32, device=x.device)
+         if weight is None else weight)
+    b = (torch.zeros(c, dtype=torch.float32, device=x.device)
+         if bias is None else bias)
+    return fused_batch_norm_train(x, w, b, residual=residual, eps=epsilon,
+                                  fuse_relu=fuse_relu)
+
+
 def _apply_epilogue(out, activation, residual):
     if residual is not None:
-        out = out + residual
+        out = add(out, residual)
     if activation == "relu":
         out = relu(out)
     return out
@@ -255,17 +301,12 @@ def batch_norm_act(x, running_mean, running_var, weight=None, bias=None,
     stats = None
     mode = _fused_mode(x.device)
     if mode is not None:
-        if (ch_axis == 1 and x.ndim >= 2 and kernel_dtypes(x)
+        if (ch_axis == 1 and x.ndim >= 2
+                and kernel_dtypes(*amp_dtypes(_fused_bn_op, x))
                 and bn_eligible(int(x.shape[1]))):
             _LAST_PATH = f"fused_bn/{mode}"
-            c = x.shape[1]
-            w = (torch.ones(c, dtype=torch.float32, device=x.device)
-                 if weight is None else weight)
-            b = (torch.zeros(c, dtype=torch.float32, device=x.device)
-                 if bias is None else bias)
-            stats = fused_batch_norm_train(x, w, b, residual=residual,
-                                           eps=float(epsilon),
-                                           fuse_relu=activation == "relu")
+            stats = _fused_bn_op(x, residual, weight, bias, float(epsilon),
+                                 activation == "relu")
         else:
             _warn_dense(
                 "batch_norm shape not eligible for the fused kernel (needs "

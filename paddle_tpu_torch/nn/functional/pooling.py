@@ -2,7 +2,7 @@
 
 Counterpart: ``paddle_tpu/nn/functional/pooling.py``: ``_pool_pad``
 (:63-73), ``max_pool2d`` (:74) and ``adaptive_avg_pool2d`` (:185), the
-pools of the vision path. ``max_pool2d`` takes the reference's paddings
+pools of the vision path, registered promote ops. ``max_pool2d`` takes the reference's paddings
 (an int, one per dim, low/high pairs), padding with -inf, and also
 ``"SAME"`` / ``"VALID"``, reckoned as XLA's ``reduce_window`` reckons
 them (the reference's own NCHW path fails on a string padding); NCHW
@@ -16,6 +16,8 @@ shares; an output size of None keeps the input's.
 from __future__ import annotations
 
 import torch.nn.functional as F
+
+from ...core.dispatch import register_op
 
 from .conv import _resolve_pads, _torch_pad
 
@@ -40,6 +42,7 @@ def _pool_pad(padding, nsp):
     return [tuple(p) for p in padding]
 
 
+@register_op("max_pool2d")
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCHW", name=None):
     """Max over kernel_size windows of x [N, C, H, W]; stride defaults to
@@ -65,6 +68,7 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
     return F.max_pool2d(xp, k, s, 0)
 
 
+@register_op("adaptive_avg_pool2d")
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     """Average over Paddle's adaptive buckets to output_size (an int, or a
     pair whose None entries keep the input's size)."""

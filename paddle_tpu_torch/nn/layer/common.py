@@ -3,7 +3,9 @@
 Counterpart: ``paddle_tpu/nn/layer/common.py``, ``Linear`` (:9-30):
 weight ``[in_features, out_features]`` (Paddle's layout) from
 XavierNormal, a zero bias; ``Dropout`` (:41-54), ``F.dropout`` in the
-module's training mode. For ``Sequential``
+module's training mode; ``Embedding`` (:87-109), weight
+``[num_embeddings, embedding_dim]`` from normal(0, 1), the padding row
+zero, through ``F.embedding``. For ``Sequential``
 (``nn/layer/layers.py:394``) ``torch.nn.Sequential`` serves: its child
 names ``0``, ``1``, ... are Paddle's.
 """
@@ -14,9 +16,10 @@ from torch import nn
 
 from ..._device import DeviceLike, resolve_device
 from ..functional.common import dropout, linear
+from ..functional.input import embedding
 from ..initializer import constant, xavier_normal
 
-__all__ = ["Dropout", "Linear"]
+__all__ = ["Dropout", "Embedding", "Linear"]
 
 
 class Linear(nn.Module):
@@ -67,3 +70,37 @@ class Dropout(nn.Module):
 
     def extra_repr(self):
         return f"p={self.p}, axis={self.axis}, mode={self.mode}"
+
+
+class Embedding(nn.Module):
+    """Rows of ``weight`` [num_embeddings, embedding_dim] by id, on
+    ``device`` (None → the CUDA card) in ``dtype``; ``padding_idx``
+    (negative: from the end) names a row that is zero and comes out
+    zero."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *,
+                 device: DeviceLike = None, dtype=torch.float32,
+                 generator=None):
+        super().__init__()
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = (padding_idx if padding_idx is None
+                             or padding_idx >= 0
+                             else num_embeddings + padding_idx)
+        self.weight = nn.Parameter(torch.empty(
+            num_embeddings, embedding_dim, device=resolve_device(device),
+            dtype=dtype))
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        self.weight.normal_(0.0, 1.0, generator=generator)
+        if self._padding_idx is not None:
+            self.weight[self._padding_idx] = 0.0
+
+    def forward(self, x):
+        return embedding(x, self.weight, padding_idx=self._padding_idx)
+
+    def extra_repr(self):
+        return f"{self._num_embeddings}, {self._embedding_dim}"

@@ -7,7 +7,11 @@ array: every parameter and the BatchNorm buffers ``_mean`` /
 ``_variance``, in the reference's names and layouts) into a module, and
 raises where a name or a shape differs. ``reset_conv_bn`` draws the
 reference's initialisers for models of convolutions, Linear layers and
-BatchNorms (the ResNet family, PP-YOLOE).
+BatchNorms (the ResNet family, PP-YOLOE). ``name_parameters`` gives
+every parameter of a model the reference's unique name
+(``Layer.create_parameter``, :127): ``<layer class in lower case>_<k>.w_<i>``
+(``linear_0.w_0`` the first Linear's weight, ``.w_1`` its bias), the
+name an optimizer's ``apply_decay_param_fun`` is called with.
 """
 from __future__ import annotations
 
@@ -17,11 +21,55 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...utils import unique_name
 from .common import Linear
 from .conv import Conv2D
 from .norm import _BatchNormBase
 
-__all__ = ["load_numpy", "reset_conv_bn"]
+__all__ = ["Parameter", "load_numpy", "name_parameters", "reset_conv_bn"]
+
+
+class Parameter(nn.Parameter):
+    """``nn.Parameter`` with Paddle's writable ``name`` (torch's tensors
+    hold a read-only one). ``name_parameters`` turns a module's parameters
+    into this class in place: the objects stay, so optimizers and tied
+    weights are untouched."""
+
+    @property
+    def name(self):
+        return self.__dict__.get("_paddle_name")
+
+    @name.setter
+    def name(self, value):
+        self.__dict__["_paddle_name"] = value
+
+
+def _named(p, key):
+    if not isinstance(p, nn.Parameter):
+        return p        # a plain tensor keeps torch's read-only name
+    if not isinstance(p, Parameter):
+        p.__class__ = Parameter
+    if p.name is None:
+        p.name = unique_name.generate(key)
+    return p
+
+
+def name_parameters(module: nn.Module) -> nn.Module:
+    """Name every unnamed parameter of ``module`` by the reference's rule,
+    in module order; returns the module."""
+    for mod in module.modules():
+        params = [p for p in mod._parameters.values() if p is not None]
+        if params and any(getattr(p, "name", None) is None for p in params):
+            full = unique_name.generate(type(mod).__name__.lower())
+            for p in params:
+                _named(p, full + ".w")
+    return module
+
+
+def ensure_name(p):
+    """``p`` with a name (``param_<k>`` where an ``nn.Parameter`` has
+    none)."""
+    return _named(p, "param") if getattr(p, "name", None) is None else p
 
 
 @torch.no_grad()

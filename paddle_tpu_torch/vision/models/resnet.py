@@ -13,15 +13,20 @@ and zero bias, unit BatchNorm gains and zero shifts. ``state_dict()``
 keys are the reference model's, letter for letter (``conv1.weight``,
 ``bn1._mean``, ``layer1.0.downsample.1._variance``, ``fc.weight``),
 the BatchNorm running statistics among them; ``load_numpy`` fills the
-parameters and those buffers from the reference's state dict.
+parameters and those buffers from the reference's state dict. Every
+parameter carries the reference's unique name (``p.name``:
+``conv2d_0.w_0`` ..., ``nn.layer.layers.name_parameters``).
 
 Every BatchNorm goes through ``_bn_act`` → ``forward_act`` →
 ``nn.functional.batch_norm_act``: in training, with ``FLAGS_fused_norm``
 on (the default), the fused BatchNorm kernels with the residual add and
 the ReLU in their epilogue (53 calls a resnet50 forward: the stem, 16
 blocks × 3 and 4 downsample BatchNorms). A bf16 model is bf16 throughout
-(the batch statistics and running buffers f32), where the reference's
-bf16 runs under AMP; take the loss in f32.
+(the batch statistics and running buffers f32). Under ``amp.auto_cast``
+(the reference bench's O2) an f32 model's parameters are cast per op as
+the reference casts them: the convolutions and the fused BatchNorm white,
+the dense BatchNorm black, the pools, ReLU and the residual add
+(``ops.add``) promote. Take the loss in f32.
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ from ..._device import DeviceLike, resolve_device
 from ...nn.functional.activation import relu
 from ...nn.layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                          MaxPool2D, ReLU)
-from ...nn.layer.layers import load_numpy, reset_conv_bn
+from ...nn.layer.layers import load_numpy, name_parameters, reset_conv_bn
+from ...ops.math import add
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18", "resnet34",
            "resnet50", "resnet101", "resnet152", "resnext50_32x4d",
@@ -51,7 +57,7 @@ def _bn_act(bn, x, activation=None, residual=None):
         return fwd(x, activation=activation, residual=residual)
     out = bn(x)
     if residual is not None:
-        out = out + residual
+        out = add(out, residual)
     if activation == "relu":
         out = relu(out)
     return out
@@ -152,6 +158,7 @@ class ResNet(nn.Module):
         if num_classes > 0:
             self.fc = Linear(512 * block.expansion, num_classes, **self._kw)
         self.reset_parameters(seed)
+        name_parameters(self)
 
     def _make_layer(self, block, planes, blocks, stride=1):
         norm_layer = self._norm_layer

@@ -226,8 +226,8 @@ def persist(lib, design, plan, sms, x, res, w, b, mean, var, g, gm, gv,
     _build.call(lib, "fused_bn_bwd_persist", x.dtype, x.device, x.data_ptr(),
                 ptr(res), w.data_ptr(), b.data_ptr(), mean.data_ptr(),
                 var.data_ptr(), g.data_ptr(), ptr(gm), ptr(gv), dx.data_ptr(),
-                ptr(dres), scratch.data_ptr(), n, c, hw, float(cs.BN_EPS),
-                int(relu), -1)
+                ptr(dres), scratch.data_ptr(), None, None, n, c, hw,
+                float(cs.BN_EPS), int(relu), -1, 0)
     return dx, dres, scratch[4 * c:5 * c], scratch[5 * c:6 * c]
 
 

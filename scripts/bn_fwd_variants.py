@@ -260,7 +260,7 @@ def main():
                         xx.data_ptr(), nf._ptr(r), w32.data_ptr(),
                         b32.data_ptr(), y.data_ptr(), mean.data_ptr(),
                         var.data_ptr(), n, c, hw, float(cs.BN_EPS),
-                        int(relu), 0)
+                        int(relu), 0, 0)
             return y, mean, var
 
         row = {"bound_ms": bound["fused_bn_fwd"][0], "readings": {},

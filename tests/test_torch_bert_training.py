@@ -36,6 +36,7 @@ Tolerances (fp32):
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import paddle_tpu as paddle
 from paddle_tpu.core.flags import get_flag as jax_get_flag

@@ -41,6 +41,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import jax
 import jax.numpy as jnp
@@ -591,7 +592,9 @@ def test_wrapper_sizes_one_scratch_from_the_plan(monkeypatch, route, relu,
     """One f32 scratch on the persistent route, sized from the plan the
     kernel reckons (coefficients, dw, db, partials, counters), dw and db
     its rows 4C and 5C; the generic route's three workspaces; each call
-    counted once under its route."""
+    counted once under its route; bf16 weight and bias passed as they
+    come (vbf16 1), the persistent kernel then writing dw and db to bf16
+    tensors of their own."""
     n, c, hw = 4, 16, 49
     calls, made = [], []
     monkeypatch.setattr(pnf, "launches", dict(pnf.launches))
@@ -619,13 +622,27 @@ def test_wrapper_sizes_one_scratch_from_the_plan(monkeypatch, route, relu,
         assert scratch.numel() == pnf.bn_bwd_scratch_floats(plan) \
             == 6 * c + 2 * plan.parts * c + 2 * len(plan.groups)
         assert args[11] == scratch.data_ptr()
-        assert args[12:] == (n, c, hw, EPS, int(relu), -1)
+        assert args[12:14] == (None, None)      # f32 w and b: no bf16 dw, db
+        assert args[14:] == (n, c, hw, EPS, int(relu), -1, 0)
         assert dw.data_ptr() == scratch[4 * c:].data_ptr()
         assert db.data_ptr() == scratch[5 * c:].data_ptr()
     else:
         assert name == "fused_bn_bwd" and len(made) == 3
         assert made[1].shape == (3, 2, c)
+        assert args[-1] == 0
     assert pnf.bn_bwd_routes[route] == 1 and pnf.launches["fused_bn_bwd"] == 1
+    v16 = vec.bfloat16()
+    pnf._bn_bwd_cuda(x, x.clone() if has_res else None, v16, v16, vec, vec,
+                     x, None, None, EPS, relu, route=route)
+    assert calls[-1][1][2:4] == (v16.data_ptr(), v16.data_ptr())
+    assert calls[-1][1][-1] == 1
+    if route == "persistent":
+        # the kernel rounds dw and db into bf16 tensors of their own
+        _, _, dw16, db16 = pnf._bn_bwd_cuda(
+            x, None, v16, v16, vec, vec, x, None, None, EPS, relu,
+            route=route)
+        assert dw16.dtype == db16.dtype == torch.bfloat16
+        assert calls[-1][1][12:14] == (dw16.data_ptr(), db16.data_ptr())
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import jax.numpy as jnp
 
@@ -444,7 +445,8 @@ def test_wrapper_passes_the_kernels_their_arguments(monkeypatch, route, relu,
                                                     has_res):
     """The cluster route: one call, no workspace, the planted fault off;
     the generic route: its two workspaces; each call counted once under
-    its route."""
+    its route; the weight and bias passed as they come, f32 (vbf16 0) or
+    bf16 (vbf16 1: no conversion launch)."""
     n, c, hw = 4, 16, 49
     calls, made = [], []
     monkeypatch.setattr(pnf, "launches", dict(pnf.launches))
@@ -467,13 +469,19 @@ def test_wrapper_passes_the_kernels_their_arguments(monkeypatch, route, relu,
                                               var.data_ptr())
     if route == "cluster":
         assert name == "fused_bn_fwd_cluster" and len(made) == 1   # mean
-        assert args[7:] == (n, c, hw, EPS, int(relu), 0)
+        assert args[7:] == (n, c, hw, EPS, int(relu), 0, 0)
     else:
         assert name == "fused_bn_fwd" and len(made) == 3
         assert made[1].shape == (3, 2, c) and made[2].shape == (2, c)
         assert args[7:9] == (made[1].data_ptr(), made[2].data_ptr())
-        assert args[9:] == (n, c, hw, EPS, int(relu))
+        assert args[9:] == (n, c, hw, EPS, int(relu), 0)
     assert pnf.bn_fwd_routes[route] == 1 and pnf.launches["fused_bn_fwd"] == 1
+    v16 = vec.bfloat16()
+    pnf._bn_fwd_cuda(x, res, v16, v16, EPS, relu, route=route)
+    assert calls[-1][1][2:4] == (v16.data_ptr(), v16.data_ptr())
+    assert calls[-1][1][-1] == 1
+    with pytest.raises(ValueError, match="both float32 or both bfloat16"):
+        pnf._bn_fwd_cuda(x, res, vec, v16, EPS, relu, route=route)
     with pytest.raises(ValueError, match="route"):
         pnf._bn_fwd_cuda(x, res, vec, vec, EPS, relu, route="fast")
 

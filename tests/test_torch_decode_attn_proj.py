@@ -12,6 +12,7 @@ softmax runs page by page, the plain version in one pass).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import jax.numpy as jnp
 

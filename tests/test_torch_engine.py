@@ -18,6 +18,7 @@ tokens_generated must agree, and no block may leak.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import jax
 import jax.numpy as jnp

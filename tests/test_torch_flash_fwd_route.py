@@ -24,6 +24,7 @@ tile wrongly skipped or left unmasked moves rows by O(1)).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import jax.numpy as jnp
 

@@ -18,6 +18,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import jax
 import jax.numpy as jnp

@@ -27,6 +27,7 @@ into step 2 through the gradient as well as the moment).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import jax
 import jax.numpy as jnp

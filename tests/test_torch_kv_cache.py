@@ -9,6 +9,7 @@ reference pins it: the port may leave another pad lane's row there.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import jax.numpy as jnp
 

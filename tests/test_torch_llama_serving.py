@@ -16,6 +16,7 @@ exact. Pools are compared without the trash row, garbage by contract.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import jax
 import jax.numpy as jnp

@@ -32,6 +32,7 @@ Tolerances (fp32 unless stated):
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import jax.numpy as jnp
 
@@ -396,17 +397,26 @@ def test_three_training_steps_match_reference(mlp):
                                   "apply_decay_param_fun", "amsgrad",
                                   "param_groups", "set_lr_scheduler"])
 def test_unported_optimizer_options_raise_naming_a5(what):
-    params = [torch.nn.Parameter(torch.zeros(3))]
-    kw = {"lr_scheduler": dict(learning_rate=object()),
-          "grad_clip": dict(grad_clip=object()),
-          "lr_ratio": dict(lr_ratio=lambda p: 1.0),
+    """The options A5a ported construct and step (their values are held
+    against the reference in test_torch_lr_clip.py); the optimizers still
+    to come raise naming A5b."""
+    from paddle_tpu_torch import nn as pnn
+    params = [torch.nn.Parameter(torch.ones(3))]
+    kw = {"lr_scheduler": dict(learning_rate=popt.lr.StepDecay(0.1, 2)),
+          "grad_clip": dict(grad_clip=pnn.ClipGradByGlobalNorm(1.0)),
+          "lr_ratio": dict(lr_ratio=lambda p: 0.5),
           "apply_decay_param_fun": dict(apply_decay_param_fun=lambda n: True),
           "amsgrad": dict(amsgrad=True),
           "param_groups": dict(parameters=[{"params": params}])}.get(what, {})
     kw.setdefault("parameters", params)
-    with pytest.raises(NotImplementedError, match="A5"):
-        opt = popt.AdamW(**kw)
-        opt.set_lr_scheduler(object())
+    opt = popt.AdamW(**kw)
+    if what == "set_lr_scheduler":
+        opt.set_lr_scheduler(popt.lr.StepDecay(0.1, 2))
+    params[0].grad = torch.ones(3)
+    opt.step()
+    assert bool((params[0] < 1.0).all())
+    with pytest.raises(NotImplementedError, match="A5b"):
+        popt.Adamax(parameters=params)
     with pytest.raises(ValueError, match="parameters is required"):
         popt.AdamW()
 

@@ -34,6 +34,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import paddle_tpu as paddle
 from paddle_tpu.models import ppyoloe as jppyoloe

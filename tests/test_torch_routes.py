@@ -24,6 +24,7 @@ import warnings
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 from paddle_tpu_torch import set_flags
 from paddle_tpu_torch.kernels import _build

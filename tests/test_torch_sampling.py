@@ -10,6 +10,7 @@
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import jax
 import jax.numpy as jnp

@@ -18,6 +18,7 @@ Token streams, states, counters, block ids and refcounts are exact.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import jax
 import jax.numpy as jnp

@@ -13,6 +13,7 @@ generator).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 import paddle_tpu as paddle
 from paddle_tpu import nn as jnn
