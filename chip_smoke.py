@@ -380,12 +380,14 @@ Phases, one line each; any failure raises and exits non-zero:
 47. bench.py's resnet50 step (:552-583) under AMP: resnet50 with f32
    parameters (random from a seed, full width and depth), B=256,
    3x224x224, the forward under auto_cast(level="O2", dtype="bfloat16"),
-   cross_entropy of the f32 logits, Momentum(0.1, 0.9), on the fused
+   cross_entropy of the logits cast to f32 (ops.cast, the bench's
+   astype), Momentum(0.1, 0.9), on the fused
    route (FLAGS_fused_norm on) and the dense one in turns (fused, dense,
    dense, fused; 5 steps a turn, one fixed batch each): the first step's
    operator statistics (collect_operator_stats: 53 conv2d and 53
-   fused_bn_train or batch_norm_train calls in the reference's buckets)
-   and, fused, its running statistics against Paddle's rule and each BN
+   fused_bn_train or batch_norm_train calls in the reference's buckets),
+   equal to the table of the same model on the CPU at B=2, 3x32x32, and,
+   fused, its running statistics against Paddle's rule and each BN
    kernel call's weight dtype; finite, falling losses; 53 cluster forward
    and 53 persistent backward calls a step, all with bf16 weight and
    bias, on the fused route and none on the dense; ms a step, images/s,
@@ -396,7 +398,9 @@ Phases, one line each; any failure raises and exits non-zero:
    NSP labels as its batch() draws them (no mask), the loss under
    auto_cast(level="O1", dtype="bfloat16"), AdamW(1e-4), on the fused
    route and the dense one (norm and MLP flags off) in turns: the first
-   step's operator statistics; the loss finite and on average below the
+   step's operator statistics, equal to the table of the same model at
+   full width on the CPU at B=2, S=16; the loss finite and on average
+   below the
    first step's; the flash, fused MLP, projection-LN and LayerNorm
    launches a step exactly bert_launches', each on its bf16 route; ms a
    step, tokens/s, peak memory, a profile of each route; no parameter
@@ -416,6 +420,24 @@ Phases, one line each; any failure raises and exits non-zero:
    PolynomialDecay, ClipGradByGlobalNorm(1.0) and PaddleNLP's
    apply_decay_param_fun over 3 AdamW steps in f32: the rates, the
    clipped global norms and the parameters against the CPU route;
+51. one bert-base step at full width under AMP O2 bf16 with f32
+   parameters, fused, B=32, S=512 with the padding mask, dropout 0.1 /
+   0.1, AdamW: the loss bf16 and finite, its arithmetic (multiply x2, sum
+   x2, divide, subtract) bf16 in the operator table, the table equal to
+   the CPU's at B=2, S=16, every kernel of bert_launches launched;
+52. ops_vs_cpu: the ported ops (ops/) on the card against the same op on
+   the CPU at small shapes, from a table of its own (ops_cases): every op
+   the BERT and ResNet paths dispatch, and per ops/ file the cases where
+   CUDA may differ (ties in sort, argsort, topk, argmax; unique, nonzero,
+   masked_select; scatter and index_add with repeated indices; bf16
+   cumsum and sum; qr, svd, eigh, solve, det, cholesky; the random draws
+   from one key): dtypes, shapes and values at OPS_TOL, the
+   decompositions also through their invariants; the number of ops and
+   cases checked;
+53. the host cost of a dispatch: one registered ops.add against a bare
+   torch.add on a 16-element CUDA tensor, AMP off and under O2, plain and
+   facade arguments, in turns; the ops phases 47 and 48 dispatch a step
+   beside those steps' ms;
 then the card's name and power limit again, the kernels' JSON line and
 the final status line. Every kernel time is device time (cuda_ms: the
 calls queued behind a spin of the card, so the host's launch rate does
@@ -7041,7 +7063,7 @@ def resnet_amp_trainer(torch, fused, seed=0):
     f32, backward, step, clear_grad, on one fixed batch, FLAGS_fused_norm
     as ``fused`` says. Returns (net, step, forward-and-loss)."""
     import paddle_tpu_torch.nn.functional as F
-    from paddle_tpu_torch import amp, set_flags
+    from paddle_tpu_torch import amp, ops, set_flags
     from paddle_tpu_torch.optimizer import Momentum
     from paddle_tpu_torch.vision.models import resnet50
     net = resnet50(num_classes=RESNET_CLASSES, dtype=torch.float32,
@@ -7054,7 +7076,7 @@ def resnet_amp_trainer(torch, fused, seed=0):
         set_flags({"FLAGS_fused_norm": fused})
         with amp.auto_cast(level="O2", dtype="bfloat16"):
             logits = net(x)
-        return F.cross_entropy(logits.float(), y)
+        return F.cross_entropy(ops.cast(logits, "float32"), y)
 
     def step():
         loss = forward()
@@ -7103,6 +7125,9 @@ def phase_train_resnet_amp(torch):
             first["loss"] = float(first["loss"])
             for p in net.parameters():
                 p.grad = None
+            first["operator_tables"] = check_same_table(
+                first["operator_stats"], resnet_o2_cpu_table(torch, fused),
+                f"resnet50 O2 {route}")
             runs[route], nets[route] = step, net
             out[route] = first
         turns = amp_turns(torch, runs)
@@ -7219,6 +7244,10 @@ def phase_train_bert_amp(torch):
             first["loss"] = float(first["loss"])
             for p in model.parameters():
                 p.grad = None
+            first["operator_tables"] = check_same_table(
+                first["operator_stats"], bert_cpu_table(torch, cfg, fused,
+                                                        "O1"),
+                f"bert-base O1 {route}")
             runs[route], models[route] = step, model
             out[route] = first
         turns = amp_turns(torch, runs)
@@ -7558,6 +7587,496 @@ def phase_amp_tools(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the operator surface (ops/, the Tensor facade): phases 51-53 and the CPU
+# operator tables of phases 47 and 48
+# ---------------------------------------------------------------------------
+
+AMP_O2_BERT_B, AMP_O2_BERT_S = 32, 512
+# phase 52's tolerances (relative, absolute as a share of the output's
+# largest value): float32 1e-5, bfloat16 one unit (2^-7); the
+# decompositions through their invariants at 1e-4 of the input's scale;
+# integers, bools, dtypes and shapes exact
+OPS_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -7),
+           "linalg": 1e-4}
+
+
+def table_counts(stats):
+    """(ops dispatched, distinct op names) of an operator table."""
+    return dict(ops_dispatched=sum(r["calls"] for r in stats.values()),
+                op_names=len(stats))
+
+
+def check_same_table(card, cpu, what):
+    """The card's operator table against the CPU's of the same model and
+    configuration: equal, name for name and bucket for bucket."""
+    diff = {k: (card.get(k), cpu.get(k)) for k in sorted(set(card) | set(cpu))
+            if card.get(k) != cpu.get(k)}
+    check(not diff, f"{what}: the card's operator table differs from the "
+          f"CPU's: {diff}")
+    return dict(card=table_counts(card), cpu=table_counts(cpu))
+
+
+def resnet_o2_cpu_table(torch, fused):
+    """resnet50 (the card's classes, f32 parameters) on the CPU at B=2,
+    3x32x32 under O2 bf16, the loss as phase 47 takes it: the table
+    depends on the configuration, not the batch."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import amp, ops, set_flags
+    from paddle_tpu_torch.vision.models import resnet50
+    net = resnet50(num_classes=RESNET_CLASSES, dtype=torch.float32, seed=0,
+                   device="cpu")
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, 32, 32, generator=g)
+    y = torch.randint(0, RESNET_CLASSES, (2, 1), generator=g)
+
+    def forward():
+        set_flags({"FLAGS_fused_norm": fused})
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            logits = net(x)
+        return F.cross_entropy(ops.cast(logits, "float32"), y)
+
+    return amp_op_stats(forward)
+
+
+_CPU_BERT = {}
+
+
+def bert_cpu_table(torch, cfg, fused, level, b=2, s=16, mask=False):
+    """BertForPretraining(cfg) at full width on the CPU, f32 parameters,
+    its loss at B=2, S=16 under ``level`` bf16 (the card's phase with no
+    mask, or a padding mask when ``mask``)."""
+    from paddle_tpu_torch import amp, set_flags
+    from paddle_tpu_torch.models import bert
+    if _CPU_BERT.get("cfg") != cfg:     # one CPU model for phases 48, 51
+        _CPU_BERT.update(cfg=cfg, model=bert.BertForPretraining(
+            cfg, device="cpu", dtype=torch.float32, seed=0))
+    model = _CPU_BERT["model"]
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    mlm = np.where(rng.random((b, s)) < 0.3, ids, -100)
+    args = [torch.from_numpy(a.astype(np.int64)) for a in
+            (ids, mlm, rng.integers(0, 2, (b,)))]
+    kw = {}
+    if mask:
+        m = np.ones((b, s), np.int64)
+        m[-1, s // 2:] = 0
+        kw["attention_mask"] = torch.from_numpy(m)
+
+    def forward():
+        set_flags({"FLAGS_fused_norm": fused, "FLAGS_fused_mlp": fused})
+        with amp.auto_cast(level=level, dtype="bfloat16"):
+            return model.loss(*args, **kw)
+
+    try:
+        return amp_op_stats(forward)
+    finally:
+        set_flags({"FLAGS_fused_norm": True, "FLAGS_fused_mlp": True})
+
+
+def phase_train_bert_o2(torch):
+    """Phase 51: one bert-base step at full width under O2 bf16 with f32
+    parameters, fused kernels, B=32, S=512 with the padding mask (bert_batch),
+    dropout 0.1 / 0.1, AdamW: the loss arithmetic (multiply, sum, divide,
+    subtract) bf16 in the operator table, the table equal to the CPU's
+    at B=2, S=16, the loss finite and bf16, every kernel of bert_launches
+    launched, the step's ms."""
+    from paddle_tpu_torch import amp, set_flags
+    from paddle_tpu_torch import seed as framework_seed
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = bert.CONFIGS["bert-base"]
+    set_flags({"FLAGS_fused_norm": True, "FLAGS_fused_mlp": True})
+    framework_seed(0)
+    model = bert.BertForPretraining(cfg, dtype=torch.float32, seed=0)
+    opt = AdamW(AMP_BERT_LR, parameters=model.parameters())
+    batch, lengths = bert_batch(torch, cfg, AMP_O2_BERT_B, AMP_O2_BERT_S, 0)
+    ids, mlm, nsp, mask = batch
+    first = {}
+
+    def forward():
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            return model.loss(ids, mlm, nsp, attention_mask=mask)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = amp_op_stats(lambda: first.setdefault("loss", forward()))
+    loss = first["loss"]
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_launches()
+    check(loss.dtype == torch.bfloat16 and bool(torch.isfinite(loss)),
+          f"bert-base O2: loss {loss} ({loss.dtype})")
+    for name, calls in (("multiply", 2), ("sum", 2), ("divide", 1),
+                        ("subtract", 1)):
+        check(stats.get(name) == dict(calls=calls, bf16=calls),
+              f"bert-base O2: {name} {stats.get(name)} (want {calls} bf16)")
+    want = bert_launches(cfg, True)
+    missed = sorted(k for k, n in want.items() if n and not counts.get(k))
+    check(not missed, f"bert-base O2: kernels not launched: {missed}")
+    tables = check_same_table(stats, bert_cpu_table(
+        torch, cfg, True, "O2", mask=True), "bert-base O2")
+    del model, opt
+    return dict(config="bert-base", b=AMP_O2_BERT_B, s=AMP_O2_BERT_S,
+                amp="O2 bfloat16", parameters="float32",
+                dropout=[cfg.hidden_dropout_prob,
+                         cfg.attention_probs_dropout_prob],
+                valid_tokens=int(lengths.sum()), loss=float(loss),
+                loss_dtype="bfloat16", first_step_ms=ms,
+                loss_arithmetic={k: stats[k] for k in
+                                 ("multiply", "sum", "divide", "subtract")},
+                operator_tables=tables,
+                launches={k: n for k, n in counts.items() if n})
+
+
+def _invariants(torch, name, outs, ins):
+    """The decompositions on one device, read through what defines them:
+    the largest violation relative to the input's scale."""
+    a = ins[0].double()
+    scale = float(a.abs().max())
+    outs = [o.double() for o in outs]
+    if name == "qr":
+        q, r = outs
+        eye = torch.eye(q.shape[-1], dtype=q.dtype, device=q.device)
+        return max(float((q @ r - a).abs().max()) / scale,
+                   float((q.mT @ q - eye).abs().max()),
+                   float(torch.tril(r, -1).abs().max()) / scale)
+    if name == "svd":
+        u, s, v = outs
+        return float((u @ torch.diag_embed(s) @ v.mT - a).abs().max()) / scale
+    if name == "eigh":
+        w, v = outs
+        sym = (a + a.mT) / 2
+        return float((sym @ v - v * w[..., None, :]).abs().max()) / scale
+    if name == "solve":
+        return float((a @ outs[0] - ins[1].double()).abs().max()) / max(
+            scale * float(outs[0].abs().max()), 1e-30)
+    raise KeyError(name)
+
+
+def ops_cases(torch):
+    """(name, fn(*tensors), numpy inputs, kind) of phase 52: kind "value"
+    compares the outputs; "linalg" compares the invariant-free outputs
+    (singular values, eigenvalues, |diag R|, the solution) and holds each
+    device's decomposition to its invariants; "mostly" (poisson, whose
+    rejection tests read log and lgamma, a few ulps apart between the
+    CPU's and CUDA's libraries) wants the same draw in 98% of the
+    elements and the same dtype and shape."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import extras as X
+    from paddle_tpu_torch.ops import manipulation as M
+    from paddle_tpu_torch.ops import random as R
+    rng = np.random.default_rng(52)
+
+    def f32(*s):
+        return rng.standard_normal(s).astype(np.float32)
+
+    def ints(*s, lo=-6, hi=7):
+        return rng.integers(lo, hi, s).astype(np.int64)
+
+    def pos(*s):
+        return np.abs(f32(*s)) + 0.1
+
+    def ties(*s):
+        return rng.integers(0, 3, s).astype(np.float32)
+
+    def nz(*s):
+        return (np.where(rng.random(s) < 0.5, -1, 1)
+                * rng.integers(1, 5, s)).astype(np.int64)
+
+    spd = f32(6, 6)
+    spd = spd @ spd.T + 6 * np.eye(6, dtype=np.float32)
+    key = (0, 7)
+    bf = torch.bfloat16
+    return [
+        # the ops the BERT and ResNet paths dispatch (ops/ and the
+        # functionals with plain bodies; the kernels' ops are held to
+        # their plain versions by phases 3-46)
+        ("add", lambda x, y: pt.add(x, y), [f32(4, 8), f32(4, 8)], "value"),
+        ("add-scalar-bf16", lambda x: pt.add(x.to(bf), 1e-6), [f32(64)],
+         "value"),
+        ("subtract", lambda x: pt.subtract(1.0, x), [f32(4, 8)], "value"),
+        ("multiply", lambda x: pt.multiply(x, -1e9), [f32(4, 8)], "value"),
+        ("divide", lambda x, y: pt.divide(x, y), [f32(4, 8), f32(4, 8)],
+         "value"),
+        ("sum", lambda x: pt.sum(x), [f32(16, 64)], "value"),
+        ("sum-bf16", lambda x: pt.sum(x.to(bf)), [pos(16, 64)], "value"),
+        ("matmul", lambda x, y: pt.matmul(x, y, transpose_y=True),
+         [f32(8, 16), f32(12, 16)], "value"),
+        ("tanh", lambda x: pt.tanh(x), [f32(4, 8)], "value"),
+        ("cast", lambda x: pt.cast(x, "float32"), [ints(4, 8)], "value"),
+        ("not_equal", lambda x: pt.not_equal(x, -100),
+         [np.where(rng.random((4, 8)) < 0.5, -100, ints(4, 8))], "value"),
+        ("where", lambda c, x: pt.where(c != 0, x, pt.zeros_like(x)),
+         [ints(4, 8, lo=0, hi=2), ints(4, 8)], "value"),
+        ("zeros_like", lambda x: pt.zeros_like(x), [ints(4, 8)], "value"),
+        ("unsqueeze", lambda x: pt.unsqueeze(pt.unsqueeze(x, 1), 1),
+         [f32(2, 8)], "value"),
+        ("reshape", lambda x: pt.reshape(x, [2, 4, 2, 4]), [f32(2, 4, 8)],
+         "value"),
+        ("split_even", lambda x: M.split(x, 3, axis=-1), [f32(2, 4, 12)],
+         "value"),
+        ("getitem", lambda x: M._getitem(x, (slice(None), 0)),
+         [f32(2, 4, 8)], "value"),
+        ("flatten", lambda x: pt.flatten(x, 1), [f32(2, 8, 1, 1)], "value"),
+        ("linear", lambda x, w, b: F.linear(x, w, b),
+         [f32(4, 16), f32(16, 8), f32(8)], "value"),
+        ("embedding", lambda i, w: F.embedding(i, w),
+         [ints(2, 6, lo=0, hi=10), f32(10, 8)], "value"),
+        ("cross_entropy", lambda x, y: F.cross_entropy(x, y),
+         [f32(6, 10), ints(6, lo=0, hi=10)], "value"),
+        # math
+        ("cumsum-bf16", lambda x: pt.cumsum(x.to(bf), axis=1), [pos(4, 64)],
+         "value"),
+        ("cummax-ties", lambda x: pt.cummax(x, axis=1), [ties(4, 16)],
+         "value"),
+        ("floor_divide-signs", lambda x, y: pt.floor_divide(x, y),
+         [ints(4, 8), nz(4, 8)], "value"),
+        ("remainder-signs", lambda x, y: pt.remainder(x, y),
+         [ints(4, 8), nz(4, 8)], "value"),
+        ("divide-int", lambda x, y: pt.divide(x, y), [ints(4, 8), nz(4, 8)],
+         "value"),
+        ("logaddexp", lambda x, y: pt.logaddexp(x, y), [f32(4, 8), f32(4, 8)],
+         "value"),
+        # manipulation
+        ("sort-ties", lambda x: pt.sort(x, axis=1, descending=True),
+         [ties(4, 32)], "value"),
+        ("argsort-ties", lambda x: pt.argsort(x, axis=1), [ties(4, 32)],
+         "value"),
+        ("argsort-ties-desc", lambda x: pt.argsort(x, axis=1,
+                                                   descending=True),
+         [ties(4, 32)], "value"),
+        ("topk-ties", lambda x: pt.topk(x, 5), [ties(4, 32)], "value"),
+        ("unique", lambda x: M._unique_all(x), [ints(40, lo=0, hi=9)],
+         "value"),
+        ("nonzero", lambda x: pt.nonzero(x), [ints(6, 7, lo=0, hi=2)],
+         "value"),
+        ("masked_select", lambda x, m: pt.masked_select(x, m != 0),
+         [f32(6, 7), ints(6, 7, lo=0, hi=2)], "value"),
+        ("scatter-repeated-add", lambda x, i, u: pt.scatter(
+            x, i, u, overwrite=False),
+         [f32(5, 4), np.array([1, 3, 1, 0, 3, 1]), f32(6, 4)], "value"),
+        ("index_add-repeated", lambda x, i, u: pt.index_add(x, i, 0, u),
+         [f32(5, 4), np.array([2, 2, 0, 2]), f32(4, 4)], "value"),
+        ("mode", lambda x: pt.mode(x, axis=1), [ties(4, 9)], "value"),
+        ("histogram", lambda x: pt.histogram(x, bins=7), [f32(200)],
+         "value"),
+        ("getitem-negative-step", lambda x: M._getitem(
+            x, (slice(None, None, -1), slice(5, 0, -2))), [f32(4, 6)],
+         "value"),
+        # reduction
+        ("argmax-ties", lambda x: pt.argmax(x, axis=1), [ties(6, 33)],
+         "value"),
+        ("argmin-ties", lambda x: pt.argmin(x), [ties(6, 33)], "value"),
+        ("median-even", lambda x: pt.median(x, axis=1), [f32(4, 10)],
+         "value"),
+        ("quantile", lambda x: pt.quantile(x, [0.1, 0.5, 0.9], axis=1),
+         [f32(4, 11)], "value"),
+        ("logsumexp", lambda x: pt.logsumexp(x, axis=1), [f32(4, 50)],
+         "value"),
+        ("prod", lambda x: pt.prod(x, axis=[0, 2]), [f32(2, 3, 4)], "value"),
+        # logic
+        ("equal-nan", lambda x: pt.equal(x, x),
+         [np.where(rng.random((4, 8)) < 0.3, np.nan, f32(4, 8))], "value"),
+        ("isclose", lambda x, y: pt.isclose(x, y), [f32(4, 8), f32(4, 8)],
+         "value"),
+        ("bitwise_right_shift", lambda x, y: pt.bitwise_right_shift(x, y),
+         [ints(4, 8, lo=-64, hi=64), ints(4, 8, lo=0, hi=5)], "value"),
+        ("isin", lambda x, y: pt.isin(x, y), [ints(4, 8), ints(5)], "value"),
+        ("logical_xor", lambda x, y: pt.logical_xor(x, y),
+         [ints(4, 8, lo=0, hi=2), ints(4, 8, lo=0, hi=2)], "value"),
+        # linalg
+        ("qr", lambda x: pt.qr(x), [f32(8, 5)], "linalg"),
+        ("svd", lambda x: pt.svd(x), [f32(6, 4)], "linalg"),
+        ("eigh", lambda x: pt.eigh(x), [spd], "linalg"),
+        ("solve", lambda x, y: pt.solve(x, y), [spd, f32(6, 2)], "linalg"),
+        ("det", lambda x: pt.det(x), [spd / 6], "value"),
+        ("cholesky", lambda x: pt.cholesky(x), [spd], "value"),
+        ("inverse", lambda x: pt.inverse(x), [spd], "value"),
+        # creation (on the current place)
+        ("to_tensor", lambda: pt.to_tensor([[1.5, 2.0], [3.0, 4.5]]), [],
+         "value"),
+        ("arange", lambda: pt.arange(2, 30, 3), [], "value"),
+        ("linspace", lambda: pt.linspace(-1.0, 2.0, 9), [], "value"),
+        ("full", lambda: pt.full([3, 2], 7), [], "value"),
+        ("tril", lambda x: pt.tril(x, -1), [f32(5, 5)], "value"),
+        ("diag", lambda x: pt.diag(x, 1, padding_value=9.0), [f32(4)],
+         "value"),
+        # random, from one key (card against CPU: the same draws)
+        ("uniform", lambda: R._uniform(key, [500], "float32", -2.0, 3.0),
+         [], "value"),
+        ("normal", lambda: R._normal(key, [500], "float32", 1.0, 2.0), [],
+         "value"),
+        ("randint", lambda: R._randint(key, [500], -5, 9, "int64"), [],
+         "value"),
+        ("randperm", lambda: R._randperm(key, 300, "int64"), [], "value"),
+        ("bernoulli", lambda p: R._bernoulli(key, p),
+         [np.full(400, 0.3, np.float32)], "value"),
+        ("multinomial", lambda p: R._multinomial(key, p, 3, False),
+         [np.array([0.1, 0.2, 0.3, 0.4], np.float32)], "value"),
+        ("poisson", lambda lam: R._poisson(key, lam),
+         [np.array([0.5, 3.0, 9.5, 12.0, 40.0, 0.0] * 20, np.float32)],
+         "mostly"),
+        ("exponential", lambda: R._exponential(key, [500], 2.0, "float32"),
+         [], "value"),
+        # extras
+        ("logcumsumexp", lambda x: pt.logcumsumexp(x, axis=1), [f32(4, 16)],
+         "value"),
+        ("cdist", lambda x, y: pt.cdist(x, y), [f32(5, 3), f32(6, 3)],
+         "value"),
+        ("take-wrap", lambda x, i: pt.take(x, i, mode="wrap"),
+         [f32(3, 4), np.array([0, 13, -2, -20, 11])], "value"),
+        ("masked_scatter", lambda x, m, v: pt.masked_scatter(x, m != 0, v),
+         [f32(3, 4), ints(3, 4, lo=0, hi=2), f32(5)], "value"),
+        ("frexp", lambda x: pt.frexp(x), [f32(4, 8)], "value"),
+        ("i0", lambda x: pt.i0(x), [f32(4, 8)], "value"),
+        ("top_p_sampling", lambda p: X._top_p_sampling(
+            key, p, np.full(4, 0.8, np.float32), None),
+         [np.abs(f32(4, 6)) / np.abs(f32(4, 6)).sum(-1, keepdims=True)],
+         "value"),
+    ]
+
+
+def _close(torch, got, ref, what):
+    """One output of the card against the CPU's: dtype, shape, values."""
+    check(got.dtype == ref.dtype and tuple(got.shape) == tuple(ref.shape),
+          f"ops_vs_cpu {what}: {got.dtype}{tuple(got.shape)} on the card, "
+          f"{ref.dtype}{tuple(ref.shape)} on the CPU")
+    g, r = got.cpu(), ref
+    if r.is_floating_point() or r.is_complex():
+        rtol, atol = OPS_TOL["bfloat16" if r.dtype == torch.bfloat16
+                             else "float32"]
+        g, r = g.double(), r.double()
+        same_nan = torch.equal(torch.isnan(g), torch.isnan(r))
+        top = float(r.nan_to_num().abs().max()) if r.numel() else 0.0
+        bad = (g - r).abs() > atol * top + rtol * r.abs()
+        bad &= ~torch.isnan(r)
+        check(same_nan and not bool(bad.any()),
+              f"ops_vs_cpu {what}: max |diff| "
+              f"{float((g - r).nan_to_num().abs().max())}")
+        return float((g - r).nan_to_num().abs().max())
+    check(torch.equal(g, r), f"ops_vs_cpu {what}: values differ")
+    return 0.0
+
+
+def phase_ops_vs_cpu(torch):
+    """Phase 52: the ported ops on the card against the same op on the
+    CPU, at small shapes (ops_cases): every op of the BERT and ResNet
+    paths and at least five ops of each ops/ file, where CUDA may differ
+    (ties, unique, nonzero, repeated indices, bf16 cumsum and sums, the
+    decompositions, the random draws from one key): dtypes, shapes and
+    values at OPS_TOL; the decompositions also through their invariants
+    on each device."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import place as pplace
+    prev = pplace._CURRENT_PLACE[0]
+    worst, names = {}, set()
+    try:
+        for name, fn, arrays, kind in ops_cases(torch):
+            outs = {}
+            for dev in ("cpu", "gpu"):
+                pt.set_device(dev)
+                d = "cpu" if dev == "cpu" else "cuda"
+                ins = [torch.from_numpy(np.ascontiguousarray(a)).to(d)
+                       for a in arrays]
+                res = fn(*ins)
+                res = list(res) if isinstance(res, (tuple, list)) else [res]
+                outs[dev] = (res, ins)
+            card, cpu = outs["gpu"][0], outs["cpu"][0]
+            check(len(card) == len(cpu), f"ops_vs_cpu {name}: arity")
+            if kind == "linalg":
+                inv = max(_invariants(torch, name.split("-")[0], o, i)
+                          for o, i in (outs["gpu"], outs["cpu"]))
+                check(inv < OPS_TOL["linalg"],
+                      f"ops_vs_cpu {name}: invariant off by {inv}")
+                free = {"qr": [lambda o: o[1].diagonal(0, -2, -1).abs()],
+                        "svd": [lambda o: o[1]], "eigh": [lambda o: o[0]],
+                        "solve": [lambda o: o[0]]}[name]
+                err = max(float((f(card).double().cpu()
+                                 - f(cpu).double()).abs().max())
+                          for f in free)
+                check(err < OPS_TOL["linalg"] * float(
+                    outs["cpu"][1][0].abs().max()),
+                      f"ops_vs_cpu {name}: {err}")
+                worst[name] = dict(invariants=inv, max_abs_err=err)
+            elif kind == "mostly":
+                c, r = card[0], cpu[0]
+                check(c.dtype == r.dtype and c.shape == r.shape,
+                      f"ops_vs_cpu {name}: dtype or shape")
+                same = float((c.cpu() == r).double().mean())
+                check(same >= 0.98, f"ops_vs_cpu {name}: {same} equal")
+                worst[name] = dict(equal_share=same)
+            else:
+                worst[name] = max(_close(torch, c, r, f"{name}[{i}]")
+                                  for i, (c, r) in enumerate(zip(card, cpu)))
+            names.add(name.split("-")[0])
+    finally:
+        pplace._CURRENT_PLACE[0] = prev
+    return dict(cases=len(worst), ops_checked=len(names), tolerance=OPS_TOL,
+                max_abs_err=worst)
+
+
+def host_us(torch, fn, calls=4000):
+    """Host µs a call: ``calls`` calls back to back, synchronised at the
+    end (the small kernel each queues runs in far less than a call's host
+    time)."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def phase_dispatch_cost(torch, amp47, amp48):
+    """Phase 53: the host cost of a dispatch: one registered ``ops.add``
+    against a bare ``torch.add`` on a 16-element CUDA tensor, AMP off and
+    under O2, plain and facade arguments, in turns (bare, op, op, bare);
+    the ops phases 47 and 48 dispatch a step (the forward: autograd's
+    backward does not go through the registry) beside those steps' ms."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp
+    x = torch.ones(16, device="cuda")
+    fx = pt.Tensor(x)
+    runs = {"bare": lambda: torch.add(x, x), "op": lambda: pt.add(x, x),
+            "op_facade": lambda: pt.add(fx, fx)}
+    res = {}
+    for level in ("off", "O2"):
+        turns = {k: [] for k in runs}
+        for k in list(runs) + list(runs)[::-1]:
+            if level == "off":
+                turns[k].append(host_us(torch, runs[k]))
+            else:
+                with amp.auto_cast(level="O2", dtype="bfloat16"):
+                    turns[k].append(host_us(torch, runs[k]))
+        res[level] = {k: min(v) for k, v in turns.items()}
+        res[level]["op_over_bare_us"] = res[level]["op"] - res[level]["bare"]
+        res[level]["turns"] = turns
+    per_step = {}
+    for label, out in (("phase_47_resnet50_o2", amp47),
+                       ("phase_48_bert_base_o1", amp48)):
+        for route in ("fused", "dense"):
+            stats = out[route]["operator_stats"]
+            n = sum(r["calls"] for r in stats.values())
+            per_step[f"{label}_{route}"] = dict(
+                ops_dispatched_per_step=n,
+                ms_per_step=out[route]["ms_per_step"],
+                dispatch_host_ms_per_step=n * res[
+                    "O2" if "o2" in label else "off"]["op"] / 1e3)
+    return dict(tensor="16 float32 on the card", calls_per_turn=4000,
+                order="bare, op, op_facade, op_facade, op, bare",
+                host_us_per_call=res, steps=per_step,
+                pr20_ms_per_step=dict(phase_47_resnet50_o2_fused=94.45,
+                                      phase_48_bert_base_o1_fused=319.82))
+
+
 def free_card(torch):
     """Drop what the phases before left for the collector, return the
     cached blocks and restart the peak count."""
@@ -7814,6 +8333,16 @@ def main():
     free_card(torch)
     phase(50, "AMP tools: GradScaler, decorate O2, schedulers, clipping, "
           "apply_decay_param_fun", **phase_amp_tools(torch))
+    free_card(torch)
+    phase(51, "train bert-base B=32 S=512 (padded) under AMP O2 bf16, f32 "
+          "parameters, one step: bf16 loss arithmetic, the CPU's operator "
+          "table", **phase_train_bert_o2(torch))
+    free_card(torch)
+    phase(52, "ops_vs_cpu: the ported ops on the card against the CPU",
+          **phase_ops_vs_cpu(torch))
+    phase(53, "dispatch host cost: ops.add against torch.add, the ops a "
+          "step of phases 47 and 48", **phase_dispatch_cost(torch, amp47,
+                                                           amp48))
 
     kernels = [{
         "name": "decode_attn_proj", "route": "cuda", "source": SOURCE,

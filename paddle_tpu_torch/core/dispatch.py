@@ -3,8 +3,10 @@
 Counterpart: ``paddle_tpu/core/dispatch.py``: the hook slots (:28-70),
 the dispatch statistics ``dispatch_stats`` / ``reset_dispatch_stats``
 (:85-124), ``OpDef``, ``OP_REGISTRY`` and ``register_op`` (:139-180) and
-``apply`` (:208-260): the call is counted, the AMP hook casts the
-arguments (:239), the body runs, and the output hook sees the outputs
+``apply`` (:208-260): the call is counted, facade tensors
+(``core/tensor.py``) among the arguments become plain tensors, the AMP
+hook casts the arguments (:239), the body runs, the output hook sees the
+outputs, and they are wrapped back as facades when an argument was one
 (``_wrap_outputs``, :568).
 
 The reference records a tape with ``jax.vjp`` and caches eager-jitted
@@ -23,6 +25,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+
+from .tensor import Tensor, plain_args
 
 __all__ = ["OP_REGISTRY", "OpDef", "amp_dtypes", "apply", "dispatch_stats",
            "register_op", "reset_dispatch_stats", "set_amp_hook",
@@ -105,6 +109,7 @@ def register_op(name: str, amp: str = "promote", multi_out: bool = False,
 
         dispatcher.__name__ = fn.__name__
         dispatcher.__qualname__ = fn.__qualname__
+        dispatcher.__module__ = fn.__module__
         dispatcher.__doc__ = fn.__doc__
         dispatcher.__wrapped__ = fn
         dispatcher.opdef = opdef
@@ -113,10 +118,41 @@ def register_op(name: str, amp: str = "promote", multi_out: bool = False,
     return deco
 
 
+def _facade(o, given):
+    """An op's plain output as a facade: a tensor the op made becomes one
+    itself (its class is set, no alias node on the autograd graph); one
+    the caller passed in is aliased instead."""
+    if type(o) is not torch.Tensor:
+        return o
+    if any(o is a for a in given):
+        return o.as_subclass(Tensor)
+    o.__class__ = Tensor
+    return o
+
+
+def _wrap(out, args, kwargs):
+    given = [*args, *kwargs.values()]
+    t = type(out)
+    if t is tuple or t is list:
+        return t(_facade(o, given) for o in out)
+    return _facade(out, given)
+
+
 def apply(opdef: OpDef, *args, **kwargs):
-    """Run one op: count the call, cast its arguments by the AMP hook, run
-    the body, show the outputs to the output hook."""
+    """Run one op: count the call, unwrap facade arguments, cast the
+    arguments by the AMP hook, run the body, show the outputs to the output
+    hook, and wrap them as facades when an argument was one."""
     kwargs.pop("name", None)   # Paddle's APIs thread a cosmetic name=
+    given = args, kwargs
+    plain = plain_args(args)
+    facade = plain is not None
+    if facade:
+        args = plain
+    if kwargs:
+        vals = plain_args(kwargs.values())
+        if vals is not None:
+            facade = True
+            kwargs = dict(zip(kwargs, vals))
     c = _DISPATCH_COUNTS.get(opdef.name)
     if c is None:
         c = _DISPATCH_COUNTS[opdef.name] = [0]
@@ -131,7 +167,7 @@ def apply(opdef: OpDef, *args, **kwargs):
     if _output_hook is not None:
         _output_hook(opdef.name,
                      list(out) if isinstance(out, (tuple, list)) else [out])
-    return out
+    return _wrap(out, *given) if facade else out
 
 
 _AMP_DTYPES = (torch.float32, torch.float16, torch.bfloat16)

@@ -22,11 +22,18 @@ not a key of either state dict): one tensor, which ``load_numpy`` and the
 optimizer update in place and whose gradient sums both uses.
 
 Every op the reference dispatches goes through the port's registered
-functional of the same name (``embedding``, ``add``, ``linear``,
-``tanh``, ``gelu``, ``matmul``, ``chunked_mlm_xent``, ``cross_entropy``
-and the fused ops below), so the model runs under ``amp.auto_cast`` and
-``amp.decorate`` with the reference's casts; every parameter carries the
-reference's unique name (``p.name``, ``nn.layer.layers.name_parameters``).
+op of the same name, as many times (``embedding``, ``add``, ``linear``,
+``tanh``, ``gelu``, ``matmul``, ``chunked_mlm_xent``, ``cross_entropy``,
+the fused ops below, and the arithmetic of ``ops/``: ``split_even`` and
+``reshape`` of the heads, ``getitem`` of the pooled token, ``cast``,
+``subtract``, ``multiply`` and ``unsqueeze`` of the padding mask,
+``not_equal``, ``where``, ``zeros_like``, ``multiply``, ``sum`` and
+``divide`` of the loss), so the model runs under ``amp.auto_cast`` and
+``amp.decorate`` with the reference's casts (at O2 the loss arithmetic is
+bf16, as the reference's is) and its operator table is the reference's;
+every parameter carries the reference's unique name (``p.name``,
+``nn.layer.layers.name_parameters``). The entry points (``forward``,
+``loss``) take facade tensors (``core/tensor.py``) as plain ones.
 
 The block runs the reference's fused route at the default flags:
 attention through ``scaled_dot_product_attention`` (the flash kernels,
@@ -68,7 +75,12 @@ from ..nn.functional.norm import fused_bias_dropout_residual_layer_norm
 from ..nn.layer.common import Dropout, Embedding
 from ..nn.layer.layers import name_parameters
 from ..nn.layer.norm import LayerNorm
-from ..ops.math import add, matmul
+from ..core.tensor import unwrap_args
+from ..ops import manipulation as M
+from ..ops.creation import zeros_like
+from ..ops.logic import not_equal
+from ..ops.math import add, divide, matmul, multiply, subtract
+from ..ops.reduction import sum as _sum
 from .gpt import Linear    # Paddle layout: weight [in, out], bias [out]
 
 __all__ = ["BertConfig", "CONFIGS", "BertEmbeddings", "BertLayer",
@@ -151,16 +163,17 @@ class BertLayer(nn.Module):
         projection folded into the add → LN close, the erf-GeLU MLP, the
         add → LN close."""
         B, S, H = x.shape
-        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        q, k, v = M.split(self.qkv(x), 3, axis=-1)
 
         def heads(t):
-            return t.reshape(B, S, self.nh, H // self.nh)
+            return M.reshape(t, [B, S, self.nh, H // self.nh])
 
         out = scaled_dot_product_attention(
             heads(q), heads(k), heads(v), attn_mask=attn_mask,
             dropout_p=self.attn_dropout if self.training else 0.0)
         x = fused_attn_proj_residual_layer_norm(
-            out.reshape(B, S, H), self.attn_out.weight, self.attn_out.bias,
+            M.reshape(out, [B, S, H]), self.attn_out.weight,
+            self.attn_out.bias,
             x, self.attn_ln.weight, self.attn_ln.bias,
             dropout_rate=self.dropout.p, ln_epsilon=self.attn_ln._epsilon,
             training=self.training)
@@ -179,7 +192,7 @@ class BertPooler(nn.Module):
                             **_kw(device, dtype))
 
     def forward(self, hidden):
-        return tanh(self.dense(hidden[:, 0]))
+        return tanh(self.dense(M._getitem(hidden, (slice(None), 0))))
 
 
 class _Init(nn.Module):
@@ -238,12 +251,15 @@ class BertModel(_Init):
             self.reset_parameters(seed)
         name_parameters(self)
 
+    @unwrap_args
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         """[B, S] ids (and a [B, S] 1/0 ``attention_mask``, 0 at padding)
         → (sequence output [B, S, H], pooled output [B, H])."""
         if attention_mask is not None:
-            am = (1.0 - attention_mask.float()) * -1e9
-            attention_mask = am[:, None, None, :]   # additive [B, 1, 1, S]
+            am = multiply(subtract(1.0, M.cast(attention_mask, "float32")),
+                          -1e9)
+            # additive [B, 1, 1, S]
+            attention_mask = M.unsqueeze(M.unsqueeze(am, 1), 1)
         x = self.embeddings(input_ids, token_type_ids)
         for layer in self.encoder:
             x = layer(x, attention_mask)
@@ -304,21 +320,23 @@ class BertForPretraining(_Init):
         self.reset_parameters(seed)
         name_parameters(self)
 
+    @unwrap_args
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)
         return self.cls(seq, pooled)
 
+    @unwrap_args
     def loss(self, input_ids, mlm_labels, nsp_labels, token_type_ids=None,
              attention_mask=None):
-        """MLM (labels -100 ignored) + NSP joint pretraining loss, f32
-        (bert.py:193-204). The MLM term runs through the chunked head."""
+        """MLM (labels -100 ignored) + NSP joint pretraining loss
+        (bert.py:193-204), the reference's ops one for one: f32, or bf16
+        arithmetic at O2. The MLM term runs through the chunked head."""
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)
-        labelled = mlm_labels != -100
-        valid = labelled.float()
-        safe_labels = torch.where(labelled, mlm_labels,
-                                  torch.zeros_like(mlm_labels))
+        valid = M.cast(not_equal(mlm_labels, -100), "float32")
+        safe_labels = M.where(not_equal(mlm_labels, -100), mlm_labels,
+                              zeros_like(mlm_labels))
         per_tok = self.cls.per_token_mlm_loss(seq, safe_labels)
-        mlm = (per_tok * valid).sum() / add(valid.sum(), 1e-6)
+        mlm = divide(_sum(multiply(per_tok, valid)), add(_sum(valid), 1e-6))
         nsp = cross_entropy(self.cls.seq_relationship(pooled), nsp_labels)
         return add(mlm, nsp)
 
@@ -337,6 +355,7 @@ class BertForSequenceClassification(_Init):
         self.reset_parameters(seed)
         name_parameters(self)
 
+    @unwrap_args
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         _, pooled = self.bert(input_ids, token_type_ids, attention_mask)
         return self.classifier(self.dropout(pooled))

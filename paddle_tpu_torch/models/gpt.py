@@ -62,6 +62,7 @@ from torch.utils import checkpoint as _ckpt
 
 from .._device import DeviceLike, resolve_device
 from ..core.flags import get_flag
+from ..core.tensor import unwrap_args
 from ..inference.kv_cache import context_slots, kv_append, kv_gather
 from ..kernels._build import KERNEL_DTYPES
 from ..kernels.chunked_xent import chunked_softmax_xent
@@ -198,6 +199,7 @@ class GPTModel(nn.Module):
                                      for _ in range(cfg.num_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, **kw)
 
+    @unwrap_args
     def forward(self, input_ids):
         S = input_ids.shape[1]
         pos = torch.arange(S, device=input_ids.device)
@@ -231,10 +233,12 @@ class GPTForCausalLM(nn.Module):
             else:                               # biases
                 p.zero_()
 
+    @unwrap_args
     def forward(self, input_ids):
         """[B, S] ids → [B, S, V] logits (tied-embedding head)."""
         return self.gpt(input_ids) @ self.gpt.wte.weight.T
 
+    @unwrap_args
     def loss(self, input_ids, labels):
         logits = self(input_ids)
         return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),

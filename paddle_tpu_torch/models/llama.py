@@ -56,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import DeviceLike, resolve_device
+from ..core.tensor import unwrap_args
 from ..incubate.nn.functional import _rotate, fused_rotary_position_embedding
 from ..inference.kv_cache import context_slots, kv_append, kv_gather
 from ..nn.functional.attention import (paged_attention_math,
@@ -211,6 +212,7 @@ class LlamaModel(nn.Module):
                                      for _ in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_norm_eps, **kw)
 
+    @unwrap_args
     def forward(self, input_ids):
         x = self.embed_tokens(input_ids.long())
         for layer in self.layers:
@@ -247,10 +249,12 @@ class LlamaForCausalLM(nn.Module):
             elif isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
 
+    @unwrap_args
     def forward(self, input_ids):
         """[B, S] ids → [B, S, V] logits in the model's dtype."""
         return self.lm_head(self.llama(input_ids))
 
+    @unwrap_args
     def loss(self, input_ids, labels):
         """Mean token cross-entropy of the f32 logits against ``labels``
         as given (llama.py:180-186)."""

@@ -39,6 +39,7 @@ import torch
 from torch import nn
 
 from .._device import DeviceLike, resolve_device
+from ..core.tensor import unwrap_args
 from ..nn import functional as F
 from ..nn.layer import BatchNorm2D, Conv2D
 from ..nn.layer.layers import load_numpy, reset_conv_bn
@@ -198,6 +199,7 @@ class PPYOLOE(nn.Module):
                                 len(cfg.strides), **kw)
         self.reset_parameters(seed)
 
+    @unwrap_args
     def forward(self, images):
         """images [B, 3, H, W], H and W divisible by the largest stride
         (32) → (scores [B, P, nc], boxes [B, P, 4]) with
@@ -238,6 +240,7 @@ class PPYOLOE(nn.Module):
                             keep_top_k=keep_top_k)
         return out, n
 
+    @unwrap_args
     def loss(self, images, gt_boxes, gt_labels):
         """Center-prior assignment + BCE cls + GIoU box loss.
 

@@ -93,12 +93,15 @@ def _listed(parameters):
 def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
                     error_if_nonfinite=False):
     """Scale the gradients in place to a total ``norm_type`` norm of at
-    most ``max_norm``; returns the total norm (f32)."""
+    most ``max_norm``; returns the total norm. The 2-norm family sums in
+    f32; the inf-norm keeps each gradient's max, the total and the scale
+    in the gradients' own dtype (``paddle_tpu/nn/clip.py:86-93``), so bf16
+    gradients give a bf16 total."""
     params = [p for p in _listed(parameters) if p.grad is not None]
     if not params:
         return torch.zeros(())
     if norm_type == float("inf"):
-        total = torch.stack([p.grad.abs().max().float() for p in params]).max()
+        total = torch.stack([p.grad.abs().max() for p in params]).max()
     else:
         total = torch.stack([(p.grad.float().abs() ** norm_type).sum()
                              for p in params]).sum() ** (1.0 / norm_type)

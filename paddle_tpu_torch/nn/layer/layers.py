@@ -31,7 +31,10 @@ __all__ = ["Parameter", "load_numpy", "name_parameters", "reset_conv_bn"]
 
 class Parameter(nn.Parameter):
     """``nn.Parameter`` with Paddle's writable ``name`` (torch's tensors
-    hold a read-only one). ``name_parameters`` turns a module's parameters
+    hold a read-only one), ``stop_gradient`` (the inverse of
+    ``requires_grad``) and ``trainable`` (the reference's ``Parameter``,
+    ``core/tensor.py:404``: an optimizer skips a parameter that is not
+    trainable). ``name_parameters`` and ``ensure_name`` turn parameters
     into this class in place: the objects stay, so optimizers and tied
     weights are untouched."""
 
@@ -43,12 +46,33 @@ class Parameter(nn.Parameter):
     def name(self, value):
         self.__dict__["_paddle_name"] = value
 
+    @property
+    def stop_gradient(self) -> bool:
+        return not self.requires_grad
+
+    @stop_gradient.setter
+    def stop_gradient(self, value):
+        self.requires_grad_(not value)
+
+    @property
+    def trainable(self) -> bool:
+        return self.__dict__.get("_trainable", True)
+
+    @trainable.setter
+    def trainable(self, value):
+        self.__dict__["_trainable"] = bool(value)
+
 
 def _named(p, key):
     if not isinstance(p, nn.Parameter):
         return p        # a plain tensor keeps torch's read-only name
     if not isinstance(p, Parameter):
         p.__class__ = Parameter
+        # flags set while it was a plain nn.Parameter (plain attributes
+        # then) take effect now
+        for flag in ("stop_gradient", "trainable"):
+            if flag in p.__dict__:
+                setattr(p, flag, p.__dict__.pop(flag))
     if p.name is None:
         p.name = unique_name.generate(key)
     return p

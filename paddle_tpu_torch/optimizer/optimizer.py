@@ -20,8 +20,9 @@ master weights and accumulators IN PLACE under ``torch.no_grad()``, one
 parameter at a time (the reference's per-leaf loop; a fused multi-tensor
 update is ROADMAP D6). Every parameter is given a name
 (``nn.layer.layers.ensure_name``) where its model gave it none: the state
-dict and ``apply_decay_param_fun`` key on it. Static-graph ``minimize``
-is ROADMAP A9.
+dict and ``apply_decay_param_fun`` key on it. A facade parameter
+(``core/tensor.py``) is updated through a plain alias of its storage.
+Static-graph ``minimize`` is ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Dict, List
 
 import torch
 
+from ..core.tensor import Tensor, to_plain
 from ..nn.layer.layers import ensure_name
 from .lr import LRScheduler
 
@@ -122,8 +124,21 @@ class Optimizer:
 
     # -- step --------------------------------------------------------------
     def _collect_params_grads(self):
-        return [(p, p.grad) for p in self._parameter_list
-                if p.requires_grad and p.grad is not None]
+        return [(self._plain(p), to_plain(p.grad))
+                for p in self._parameter_list
+                if p.requires_grad and p.grad is not None
+                and getattr(p, "trainable", True)]
+
+    def _plain(self, p):
+        """A facade parameter (``core/tensor.py``) as a plain alias of its
+        storage, the same alias every step (master weights are keyed by
+        it): the update sees torch's methods, not Paddle's."""
+        if type(p) is not Tensor:
+            return p
+        aliases = self.__dict__.setdefault("_aliases", {})
+        if id(p) not in aliases:
+            aliases[id(p)] = p.as_subclass(torch.Tensor)
+        return aliases[id(p)]
 
     def _apply_decay(self, param, grad):
         """The regulariser folded into the gradient (the reference's

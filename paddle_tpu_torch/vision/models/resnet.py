@@ -25,8 +25,10 @@ blocks × 3 and 4 downsample BatchNorms). A bf16 model is bf16 throughout
 (the batch statistics and running buffers f32). Under ``amp.auto_cast``
 (the reference bench's O2) an f32 model's parameters are cast per op as
 the reference casts them: the convolutions and the fused BatchNorm white,
-the dense BatchNorm black, the pools, ReLU and the residual add
-(``ops.add``) promote. Take the loss in f32.
+the dense BatchNorm black, the pools, ReLU, the residual add
+(``ops.add``) and the flatten before the classifier (``ops.flatten``)
+promote. Take the loss in f32. ``forward`` takes facade tensors
+(``core/tensor.py``) as plain ones.
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ from ...nn.functional.activation import relu
 from ...nn.layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                          MaxPool2D, ReLU)
 from ...nn.layer.layers import load_numpy, name_parameters, reset_conv_bn
+from ...core.tensor import unwrap_args
+from ...ops.manipulation import flatten
 from ...ops.math import add
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18", "resnet34",
@@ -178,13 +182,14 @@ class ResNet(nn.Module):
                                 norm_layer=norm_layer, **self._kw))
         return nn.Sequential(*layers)
 
+    @unwrap_args
     def forward(self, x):
         x = self.maxpool(_bn_act(self.bn1, self.conv1(x), activation="relu"))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         if self.with_pool:
             x = self.avgpool(x)
         if self.num_classes > 0:
-            x = self.fc(x.flatten(1))
+            x = self.fc(flatten(x, 1))
         return x
 
     def reset_parameters(self, seed: int = 0):

@@ -276,6 +276,40 @@ def test_three_adamw_steps_match_reference(fused):
             is model.bert.embeddings.word_embeddings.weight)
 
 
+@pytest.mark.parametrize("flag", ["stop_gradient", "trainable"])
+def test_a_frozen_parameter_stays_put(flag):
+    """Paddle's way to freeze a parameter (``p.stop_gradient = True`` or
+    ``p.trainable = False``) on one parameter of each package's tiny BERT:
+    after a loss, backward and AdamW step it holds its value, the
+    reference's too, and the others step as the reference's do."""
+    lr, frozen = 1e-3, "bert.pooler.dense.weight"
+    jmodel, model = _pair("BertForPretraining", 7)
+    jp = dict(jmodel.named_parameters())[frozen]
+    pp = dict(model.named_parameters())[frozen]
+    value = flag == "stop_gradient"     # stop_gradient True, trainable False
+    setattr(jp, flag, value)
+    setattr(pp, flag, value)
+    assert pp.requires_grad == (flag == "trainable")
+    before = pp.detach().clone()
+    jopt = paddle.optimizer.AdamW(learning_rate=lr, weight_decay=0.01,
+                                  parameters=jmodel.parameters())
+    opt = popt.AdamW(learning_rate=lr, weight_decay=0.01,
+                     parameters=model.parameters())
+    ids, mlm, nsp, mask = _batch(8)
+    jmodel.loss(*map(paddle.to_tensor, (ids, mlm, nsp)),
+                attention_mask=paddle.to_tensor(mask)).backward()
+    jopt.step()
+    model.loss(*map(torch.from_numpy, (ids, mlm, nsp)),
+               attention_mask=torch.from_numpy(mask)).backward()
+    assert (pp.grad is None) == (jp.grad is None) == (flag == "stop_gradient")
+    opt.step()
+    ref = _state(jmodel)
+    assert torch.equal(pp.detach(), before)
+    np.testing.assert_array_equal(before.numpy(), ref[frozen])
+    for name, p in model.state_dict().items():
+        assert float(np.abs(p.numpy() - ref[name]).max()) <= 2 * lr, name
+
+
 def test_attention_mask_padding_invariance():
     """The reference's test (tests/test_models.py:50-64) on the port: the
     padded, masked sequence gives the unpadded one's outputs."""

@@ -205,6 +205,36 @@ def test_clip_grad_norm_and_value_match_the_reference(norm_type):
         np.testing.assert_array_equal(pp.grad.numpy(), _numpy(jp.grad))
 
 
+def test_clip_grad_norm_inf_keeps_bf16_gradients_bitwise():
+    """At norm_type=inf with bf16 gradients the reference keeps each max,
+    the total and the scale in bf16: the total and every clipped gradient
+    are the reference's bit for bit, bf16 dtype included."""
+    grads = [g.astype(jnp.bfloat16) for g in _grads(3, 3.0)]
+    jps = [JParameter(jnp.zeros(g.shape, jnp.bfloat16)) for g in grads]
+    pps = [torch.nn.Parameter(torch.zeros(g.shape, dtype=torch.bfloat16))
+           for g in grads]
+    for jp, pp, g in zip(jps, pps, grads):
+        jp.grad = jnp.asarray(g)
+        pp.grad = torch.from_numpy(g.view(np.uint16).astype(np.int16)) \
+            .view(torch.bfloat16)
+    jt = jclip.clip_grad_norm_(jps, 2.5, norm_type=float("inf"))
+    pt = pnn.clip_grad_norm_(pps, 2.5, norm_type=float("inf"))
+
+    def bits(t):
+        return t.detach().view(torch.int16).numpy()
+
+    assert pt.dtype == torch.bfloat16 and str(jt.dtype) == "bfloat16"
+    np.testing.assert_array_equal(
+        bits(pt), np.asarray(jt._value).view(np.int16))
+    clipped = 0
+    for jp, pp, g in zip(jps, pps, grads):
+        assert pp.grad.dtype == torch.bfloat16
+        want = np.asarray(jp.grad._value).view(np.int16)
+        np.testing.assert_array_equal(bits(pp.grad), want)
+        clipped += int((want != g.view(np.int16)).sum())
+    assert clipped > 0
+
+
 # ---------------------------------------------------------------------------
 # the optimizer's knobs: three steps against the reference
 # ---------------------------------------------------------------------------
