@@ -438,6 +438,27 @@ Phases, one line each; any failure raises and exits non-zero:
    torch.add on a 16-element CUDA tensor, AMP off and under O2, plain and
    facade arguments, in turns; the ops phases 47 and 48 dispatch a step
    beside those steps' ms;
+54. a Paddle user's script through ``import paddle_tpu_torch as paddle``
+   and nothing else: (a) bert-base at full width and depth (phase 23's
+   configuration: B=32, S=512, dropout 0, the padding mask, AdamW) takes
+   two steps with exactly bert_launches' kernels on their bf16 routes,
+   the second through paddle.grad and .backward() of one loss (bit for
+   bit the same gradients; the backward kernels twice); a forward under
+   paddle.no_grad() equal bit for bit to the grad-mode one, no output
+   requiring a gradient, its peak (paddle.device.cuda after a reset)
+   below the grad-mode forward's and equal to torch's reading; a forward
+   under paddle.device.stream_guard on a second Stream after an Event
+   handoff, equal bit for bit; paddle.save of the model's and AdamW's
+   state dicts, set_state_dict(paddle.load(...)) into a fresh model from
+   another seed and a fresh AdamW (every tensor bit for bit, nothing
+   missing or unexpected), one more step from each (loss and parameters
+   bit for bit); (b) resnet50 B=256, 224² under O2 with Momentum (phase
+   47's loop, BN kernels 15-18: 53 + 53 a step) the same for two steps,
+   the running statistics and the velocity included, the resumed loss
+   within the spread of two forwards from one state and the parameters
+   within lr times the spread of two backwards (both 0 when cuDNN is
+   deterministic); (c) a PyLayer with its own backward on the card
+   against the CPU within the f32 tolerance;
 then the card's name and power limit again, the kernels' JSON line and
 the final status line. Every kernel time is device time (cuda_ms: the
 calls queued behind a spin of the card, so the host's launch rate does
@@ -446,7 +467,9 @@ not show).
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -5382,7 +5405,7 @@ def resnet_flops_per_image(torch, net, hw):
     net.eval()
     with torch.no_grad():
         net(torch.zeros(1, 3, hw, hw, device="cuda",
-                        dtype=next(net.parameters()).dtype))
+                        dtype=net.parameters()[0].dtype))
     net.train(was)
     for h in hooks:
         h.remove()
@@ -5692,7 +5715,7 @@ def phase_resnet_parity_fp32(torch):
     def run(model, fused):
         set_flags({"FLAGS_fused_norm": fused})
         reset_launches()
-        loss = F.cross_entropy(model(x.to(next(model.parameters()).dtype)),
+        loss = F.cross_entropy(model(x.to(model.parameters()[0].dtype)),
                                y)
         g = torch.autograd.grad(loss, list(model.parameters()))
         flat = torch.cat([t.double().reshape(-1) for t in g])
@@ -7344,7 +7367,7 @@ def phase_amp_parity(torch):
     x, y = resnet_batch(torch, 8, 64, torch.float32, 2)
 
     def resnet_run(model, level):
-        xx, yy = (x, y) if next(model.parameters()).is_cuda else (
+        xx, yy = (x, y) if model.parameters()[0].is_cuda else (
             x.cpu(), y.cpu())
         with torch.no_grad():
             for b, s in zip(model.buffers(), start):
@@ -7391,7 +7414,7 @@ def phase_amp_parity(torch):
     batch, _ = bert_batch(torch, cfg, 4, BERT_S, 1)
 
     def bert_run(model, level):
-        b = batch if next(model.parameters()).is_cuda else tuple(
+        b = batch if model.parameters()[0].is_cuda else tuple(
             t.cpu() for t in batch)
         seed(7)
         reset_launches()
@@ -8077,6 +8100,352 @@ def phase_dispatch_cost(torch, amp47, amp48):
                                       phase_48_bert_base_o1_fused=319.82))
 
 
+USER_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_user_ckpt")
+
+
+def _bits_equal(torch, a, b):
+    """Two tensors (or facades) equal bit for bit: dtype, shape, values."""
+    a = torch.Tensor.as_subclass(a, torch.Tensor).detach()
+    b = torch.Tensor.as_subclass(b, torch.Tensor).detach()
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def _state_bits_equal(torch, sd_a, sd_b):
+    """Names of the entries of two state dicts that differ (a missing
+    name included); tensors bit for bit, other values by ==."""
+    bad = sorted(set(sd_a) ^ set(sd_b))
+    for k in set(sd_a) & set(sd_b):
+        a, b = sd_a[k], sd_b[k]
+        if isinstance(a, torch.Tensor):
+            if not (isinstance(b, torch.Tensor) and _bits_equal(torch, a, b)):
+                bad.append(k)
+        elif a != b:
+            bad.append(k)
+    return bad
+
+
+def _grad_split(counts, steps_of_backward):
+    """bert_launches' counts with the backward kernels run
+    ``steps_of_backward`` times (paddle.grad, then .backward(), on one
+    graph)."""
+    return {k: n * (steps_of_backward if k in (
+        "flash_dq", "flash_dkv", "flash_bwd_prep", "fused_mlp_dx",
+        "fused_mlp_dw", "fused_proj_ln_bwd", "fused_ln_bwd") else 1)
+        for k, n in counts.items()}
+
+
+def user_bert(torch, cfg, b, s):
+    """Phase 54 (a): bert-base as a user's script drives it (the
+    configuration of phase 23: dropout 0, the padding mask, AdamW at lr
+    1e-4 and decay 0.01, bf16 on the card), through nothing but
+    ``import paddle_tpu_torch as paddle``. Two steps (the second takes
+    ``paddle.grad`` and ``.backward()`` of one loss: bit for bit the same
+    gradients), a forward under ``paddle.no_grad()`` (the same bits, no
+    output requiring a gradient, a lower peak read through
+    ``paddle.device.cuda``), a forward under ``stream_guard`` on a second
+    stream after an ``Event`` handoff (the same bits), then ``paddle.save``
+    of the model's and AdamW's state dicts, ``set_state_dict(paddle.load
+    (...))`` into a fresh model from another seed and a fresh AdamW (every
+    tensor bit for bit, nothing missing or unexpected), and one more step
+    from each (the same loss and parameters, bit for bit)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import bert
+
+    def build(seed):
+        with paddle.utils.unique_name.guard():
+            model = bert.BertForPretraining(cfg, seed=seed)
+        opt = paddle.optimizer.AdamW(learning_rate=BERT_LR, weight_decay=0.01,
+                                     parameters=model.parameters())
+        return model, opt
+
+    rng = np.random.default_rng(0)
+    lengths = bert_lengths(b, s, 0)
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    mask = (np.arange(s)[None, :] < lengths[:, None]).astype(np.int64)
+    mlm = np.where((rng.random((b, s)) < 0.15) & (mask == 1), ids, -100)
+    ids, mask, mlm, nsp = (paddle.to_tensor(a) for a in (
+        ids, mask, mlm, rng.integers(0, 2, (b,))))
+
+    def step(model, opt):
+        loss = model.loss(ids, mlm, nsp, attention_mask=mask)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    out = {}
+    model, opt = build(0)
+    want = bert_launches(cfg, fused=True)
+    reset_launches()
+    losses = [float(step(model, opt))]
+    counts = read_launches()
+    check(counts == {k: want.get(k, 0) for k in counts},
+          f"user bert step 1 launches {counts}, want {want}")
+    out["routes"] = dict(
+        flash_fwd=fwd_routes_reading(counts, "user bert"),
+        flash_bwd=bwd_routes_reading(counts, "user bert"),
+        proj_ln=pl_routes_reading(counts, "user bert"),
+        mlp_fwd=mlp_fwd_routes_reading(counts, "user bert"),
+        mlp_bwd=mlp_bwd_routes_reading(counts, "user bert"),
+        ln_bwd=ln_bwd_routes_reading(counts, "user bert"))
+    out["launches_step_1"] = counts
+    # step 2: paddle.grad beside .backward() on one graph
+    reset_launches()
+    loss = model.loss(ids, mlm, nsp, attention_mask=mask)
+    params = model.parameters()
+    grads = paddle.grad(loss, params, retain_graph=True)
+    loss.backward()
+    differ = [p.name for g, p in zip(grads, params)
+              if not _bits_equal(torch, g, p.grad)]
+    check(not differ, f"paddle.grad differs from .backward() at {differ}")
+    opt.step()
+    opt.clear_grad()
+    losses.append(float(loss))
+    counts = read_launches()
+    want2 = _grad_split(want, 2)
+    check(counts == {k: want2.get(k, 0) for k in counts},
+          f"user bert step 2 launches {counts}, want {want2}")
+    out["launches_step_2"] = counts
+    out["grad_equals_backward"] = dict(parameters=len(params), differing=0)
+    # the forward in grad mode, under paddle.no_grad(), on a second stream
+    mem = paddle.device.cuda
+    mem.reset_max_memory_allocated()
+    outs = model(ids, attention_mask=mask)
+    peak_grad = mem.max_memory_allocated()
+    # the models' entry points hand back plain tensors (core/tensor.py)
+    check(all(o.requires_grad for o in outs), "grad-mode outputs")
+    outs = [o.detach() for o in outs]
+    mem.reset_max_memory_allocated()
+    with paddle.no_grad():
+        outs_ng = model(ids, attention_mask=mask)
+    peak_ng = mem.max_memory_allocated()
+    check(not any(o.requires_grad for o in outs_ng),
+          "a no_grad output requires a gradient")
+    check(all(_bits_equal(torch, a, b) for a, b in zip(outs, outs_ng)),
+          "the no_grad forward differs from the grad-mode forward")
+    out["no_grad"] = dict(peak_gb=peak_ng / 1e9,
+                          grad_mode_peak_gb=peak_grad / 1e9,
+                          torch_peak_gb=torch.cuda.max_memory_allocated()
+                          / 1e9)
+    check(peak_ng < peak_grad and peak_ng == torch.cuda.max_memory_allocated(),
+          f"no_grad peak memory {out['no_grad']}")
+    side = paddle.device.Stream()
+    ready = paddle.device.Event()
+    ready.record()
+    side.wait_event(ready)
+    reset_launches()
+    with paddle.device.stream_guard(side), paddle.no_grad():
+        check(paddle.device.current_stream() == side,
+              "stream_guard did not make the stream current")
+        outs_s = model(ids, attention_mask=mask)
+        done = side.record_event()
+    paddle.device.current_stream().wait_event(done)
+    counts = read_launches()
+    fwd = {k: n for k, n in want.items() if k in (
+        "flash_fwd", "fused_mlp_fwd", "fused_proj_ln_fwd", "fused_ln_fwd")}
+    check({k: n for k, n in counts.items() if n} == fwd,
+          f"side-stream forward launches {counts}, want {fwd}")
+    check(all(_bits_equal(torch, a, b) for a, b in zip(outs_ng, outs_s)),
+          "the forward on a second stream differs from the default stream's")
+    out["stream"] = dict(launches=fwd, equal=True)
+    del outs_s
+    del outs, outs_ng
+    # save, restore into a fresh model and AdamW, resume
+    os.makedirs(USER_CKPT, exist_ok=True)
+    t0 = time.perf_counter()
+    paddle.save(model.state_dict(), os.path.join(USER_CKPT, "bert.pdparams"))
+    paddle.save(opt.state_dict(), os.path.join(USER_CKPT, "bert.pdopt"))
+    save_s = time.perf_counter() - t0
+    fresh, fresh_opt = build(1)
+    t0 = time.perf_counter()
+    missing, unexpected = fresh.set_state_dict(paddle.load(
+        os.path.join(USER_CKPT, "bert.pdparams")))
+    fresh_opt.set_state_dict(paddle.load(os.path.join(USER_CKPT,
+                                                      "bert.pdopt")))
+    load_s = time.perf_counter() - t0
+    check(missing == [] and unexpected == [],
+          f"set_state_dict: missing {missing}, unexpected {unexpected}")
+    bad = (_state_bits_equal(torch, model.state_dict(), fresh.state_dict())
+           + _state_bits_equal(torch, opt.state_dict(),
+                               fresh_opt.state_dict()))
+    check(not bad, f"restored state differs at {bad[:8]}")
+    resumed = float(step(fresh, fresh_opt))
+    uninterrupted = float(step(model, opt))
+    pbad = _state_bits_equal(torch, model.state_dict(), fresh.state_dict())
+    check(np.isfinite(losses).all() and resumed == uninterrupted
+          and not pbad,
+          f"the resumed step differs: loss {resumed} vs {uninterrupted}, "
+          f"parameters {pbad[:8]}")
+    out.update(losses=losses, resumed_loss=resumed,
+               uninterrupted_loss=uninterrupted,
+               state_tensors=len(model.state_dict()),
+               optimizer_tensors=len(opt.state_dict()) - 1,
+               save_s=save_s, load_s=load_s, missing=missing,
+               unexpected=unexpected)
+    return out
+
+
+def user_resnet(torch, b, hw):
+    """Phase 54 (b): phase 47's loop as a user's script (resnet50, f32
+    parameters under auto_cast O2 bf16, Momentum(0.1, 0.9), the BN kernels
+    15-18): two steps, ``paddle.save`` of the model's state dict (the BN
+    running statistics among its buffers) and Momentum's (the velocity),
+    restore into a fresh model and optimizer, bit for bit, then one more
+    step from each. The resumed loss must equal the uninterrupted one
+    within the spread of two forwards from one in-memory state (0 when
+    the forward is deterministic: then bit for bit); the parameters within
+    lr times the spread of two backwards from one state (plus two ulps of
+    the largest parameter), as cuDNN's backward may not be
+    deterministic."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+
+    def build(seed):
+        with paddle.utils.unique_name.guard():
+            net = paddle.vision.models.resnet50(num_classes=RESNET_CLASSES,
+                                                dtype=torch.float32,
+                                                seed=seed)
+        opt = paddle.optimizer.Momentum(RESNET_LR, momentum=RESNET_MOMENTUM,
+                                        parameters=net.parameters())
+        return net, opt
+
+    rng = np.random.default_rng(0)
+    x = paddle.to_tensor(rng.standard_normal((b, 3, hw, hw)).astype(
+        np.float32))
+    y = paddle.to_tensor(rng.integers(0, RESNET_CLASSES, (b, 1)))
+
+    def forward(net):
+        with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+            logits = net(x)
+        return F.cross_entropy(paddle.cast(logits, "float32"), y)
+
+    def step(net, opt):
+        loss = forward(net)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss.detach())
+
+    net, opt = build(0)
+    reset_launches()
+    losses = [step(net, opt), step(net, opt)]
+    counts = read_launches()
+    out = dict(losses=losses)
+    want = {"fused_bn_fwd": 2 * RESNET_BNS, "fused_bn_bwd": 2 * RESNET_BNS}
+    check({k: n for k, n in counts.items() if n} == want,
+          f"user resnet launches {counts}, want {want}")
+    out["bn_routes"] = dict(
+        forward=bn_fwd_routes_reading(counts, "user resnet"),
+        backward=bn_bwd_routes_reading(counts, "user resnet"))
+    out["launches_two_steps"] = {k: n for k, n in counts.items() if n}
+    os.makedirs(USER_CKPT, exist_ok=True)
+    t0 = time.perf_counter()
+    paddle.save(net.state_dict(), os.path.join(USER_CKPT, "resnet.pdparams"))
+    paddle.save(opt.state_dict(), os.path.join(USER_CKPT, "resnet.pdopt"))
+    save_s = time.perf_counter() - t0
+    fresh, fresh_opt = build(1)
+    missing, unexpected = fresh.set_state_dict(paddle.load(
+        os.path.join(USER_CKPT, "resnet.pdparams")))
+    fresh_opt.set_state_dict(paddle.load(os.path.join(USER_CKPT,
+                                                      "resnet.pdopt")))
+    check(missing == [] and unexpected == [],
+          f"resnet set_state_dict: missing {missing}, unexpected {unexpected}")
+    sd = net.state_dict()
+    buffers = [k for k in sd if k.endswith(("_mean", "_variance"))]
+    check(len(buffers) == 2 * RESNET_BNS, f"resnet buffers {len(buffers)}")
+    bad = (_state_bits_equal(torch, sd, fresh.state_dict())
+           + _state_bits_equal(torch, opt.state_dict(),
+                               fresh_opt.state_dict()))
+    check(not bad, f"restored resnet state differs at {bad[:8]}")
+    # the spread of two forwards and of two backwards from one state
+    params = net.parameters()
+    la, lb = forward(net), forward(net)
+    ga = paddle.grad(la, params)
+    gb = paddle.grad(lb, params)
+    loss_spread = abs(float(la) - float(lb))
+    grad_spread = max(float((torch.Tensor.as_subclass(g, torch.Tensor)
+                             - torch.Tensor.as_subclass(h, torch.Tensor))
+                            .abs().max()) for g, h in zip(ga, gb))
+    del la, lb, ga, gb
+    resumed = step(fresh, fresh_opt)
+    uninterrupted = step(net, opt)
+    pdiff = max(float((torch.Tensor.as_subclass(p, torch.Tensor)
+                       - torch.Tensor.as_subclass(q, torch.Tensor))
+                      .abs().max()) for p, q in
+                zip(net.parameters(), fresh.parameters()))
+    top = max(float(p.detach().abs().max()) for p in net.parameters())
+    bound = RESNET_LR * grad_spread + 2 * np.spacing(np.float32(top))
+    check(all(np.isfinite(losses)) and np.isfinite(resumed)
+          and abs(resumed - uninterrupted) <= loss_spread and pdiff <= bound,
+          f"the resumed resnet step differs: loss {resumed} vs "
+          f"{uninterrupted} (spread {loss_spread}), parameters by {pdiff} "
+          f"(bound {bound})")
+    out.update(resumed_loss=resumed, uninterrupted_loss=uninterrupted,
+               forward_spread=loss_spread, backward_grad_spread=grad_spread,
+               resumed_params_max_abs_diff=pdiff,
+               bitwise=resumed == uninterrupted and pdiff == 0.0,
+               state_tensors=len(sd), running_stat_buffers=len(buffers),
+               optimizer_tensors=len(opt.state_dict()) - 1, save_s=save_s,
+               missing=missing, unexpected=unexpected)
+    return out
+
+
+def user_pylayer(torch, device):
+    """Phase 54 (c): a PyLayer with its own backward (y = x·tanh(x), its
+    derivative written by hand) on ``device``: the outputs and gradients
+    of a [64, 256] f32 input."""
+    import paddle_tpu_torch as paddle
+
+    class XTanh(paddle.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            t = paddle.tanh(x)
+            ctx.save_for_backward(x, t)
+            return x * t
+
+        @staticmethod
+        def backward(ctx, g):
+            x, t = ctx.saved_tensor()
+            return g * (t + x * (1.0 - t * t))
+
+    rng = np.random.default_rng(5)
+    x = paddle.to_tensor(rng.standard_normal((64, 256)).astype(np.float32),
+                         place=device, stop_gradient=False)
+    w = paddle.to_tensor(rng.standard_normal((64, 256)).astype(np.float32),
+                         place=device)
+    y = XTanh.apply(x)
+    (y * w).sum().backward()
+    return y.numpy(), x.grad.numpy()
+
+
+def phase_user_script(torch):
+    """Phase 54: a Paddle user's script on the card: (a) user_bert at
+    bert-base's full width and depth, B=32, S=512; (b) user_resnet at
+    B=256, 224²; (c) user_pylayer on the card against the CPU."""
+    from paddle_tpu_torch import set_flags
+    t0 = time.perf_counter()
+    set_flags({"FLAGS_fused_norm": True, "FLAGS_fused_mlp": True})
+    from paddle_tpu_torch.models import bert
+    cfg = bert.CONFIGS["bert-base"]._replace(
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    out = dict(bert=user_bert(torch, cfg, BERT_B, BERT_S))
+    free_card(torch)
+    out["resnet50"] = user_resnet(torch, RESNET_B, RESNET_HW)
+    free_card(torch)
+    (yc, gc_), (yp, gp) = user_pylayer(torch, "gpu"), user_pylayer(torch,
+                                                                   "cpu")
+    atol, rtol = TOL["float32"]
+    err = max(float(np.abs(yc - yp).max()), float(np.abs(gc_ - gp).max()))
+    check(np.allclose(yc, yp, atol=atol, rtol=rtol)
+          and np.allclose(gc_, gp, atol=atol, rtol=rtol),
+          f"PyLayer on the card differs from the CPU by {err}")
+    out["pylayer"] = dict(max_abs_err=err, tolerance=TOL["float32"])
+    shutil.rmtree(USER_CKPT, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def free_card(torch):
     """Drop what the phases before left for the collector, return the
     cached blocks and restart the peak count."""
@@ -8343,6 +8712,10 @@ def main():
     phase(53, "dispatch host cost: ops.add against torch.add, the ops a "
           "step of phases 47 and 48", **phase_dispatch_cost(torch, amp47,
                                                            amp48))
+    free_card(torch)
+    phase(54, "a Paddle user's script on the card: bert-base and resnet50 "
+          "train, paddle.grad, no_grad, a second stream, save, restore, "
+          "resume; a PyLayer", **phase_user_script(torch))
 
     kernels = [{
         "name": "decode_attn_proj", "route": "cuda", "source": SOURCE,

@@ -1,9 +1,9 @@
 """Counterpart: ``paddle_tpu/core/__init__.py``: the flags, the op
 registry (``dispatch``), dtypes, places, the Tensor facade, the
-framework generator, the error taxonomy and strings (``core/engine.py``,
-the reference's tape, stands for torch autograd: ROADMAP A5b-1b ports
-its grad-mode API)."""
-from . import dtype, errors, flags, generator, place, strings  # noqa: F401
+framework generator, the error taxonomy, strings and ``engine``'s
+grad-mode API (torch autograd is the reference's tape)."""
+from . import (dtype, engine, errors, flags, generator, place,  # noqa: F401
+               strings)
 from .dispatch import OP_REGISTRY, OpDef, apply, register_op
 from .flags import get_flag, set_flags
 from .place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, CustomPlace, Place,

@@ -208,8 +208,8 @@ class Tensor(torch.Tensor):
             if isinstance(a, torch.dtype) or (
                     isinstance(a, str) and a in dtypes._NAME_TO_DTYPE):
                 dtype = a
-            elif a is not None:
-                device = a
+            elif a is not None and not isinstance(a, bool):
+                device = a          # a bool is torch's non_blocking
         out = self
         if dtype is not None:
             out = ops.cast(out, dtype)

@@ -9,8 +9,8 @@ decoder weight and ``per_token_mlm_loss`` (:146-180),
 ``BertForSequenceClassification`` (:207-217), its pooled output's
 dropout included.
 
-The modules are ``nn.Module``s on an explicit ``device`` (None → the
-CUDA card) in ``dtype``, initialised from ``seed`` with a
+The modules are ``nn.Layer``s on an explicit ``device`` (None → the
+current place: the CUDA card unless ``set_device`` says otherwise) in ``dtype``, initialised from ``seed`` with a
 ``torch.Generator`` on that device, with the reference's distributions:
 Xavier-normal Linear weights (``nn/layer/common.py:19``, std
 ``sqrt(2 / (in + out))``), normal(0, 1) embeddings (:99), zero biases,
@@ -73,7 +73,7 @@ from ..nn.functional.mlp import (fused_attn_proj_residual_layer_norm,
                                  fused_mlp)
 from ..nn.functional.norm import fused_bias_dropout_residual_layer_norm
 from ..nn.layer.common import Dropout, Embedding
-from ..nn.layer.layers import name_parameters
+from ..nn.layer.layers import Layer, LayerList, name_parameters
 from ..nn.layer.norm import LayerNorm
 from ..core.tensor import unwrap_args
 from ..ops import manipulation as M
@@ -117,7 +117,7 @@ def _kw(device, dtype):
     return dict(device=resolve_device(device), dtype=dtype)
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, cfg: BertConfig, *, device=None, dtype=torch.float32):
         super().__init__()
         kw = _kw(device, dtype)
@@ -141,7 +141,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(x))
 
 
-class BertLayer(nn.Module):
+class BertLayer(Layer):
     """Post-LN encoder block (original BERT ordering)."""
 
     def __init__(self, cfg: BertConfig, *, device=None, dtype=torch.float32):
@@ -185,7 +185,7 @@ class BertLayer(nn.Module):
             training=self.training)
 
 
-class BertPooler(nn.Module):
+class BertPooler(Layer):
     def __init__(self, cfg: BertConfig, *, device=None, dtype=torch.float32):
         super().__init__()
         self.dense = Linear(cfg.hidden_size, cfg.hidden_size,
@@ -195,7 +195,7 @@ class BertPooler(nn.Module):
         return tanh(self.dense(M._getitem(hidden, (slice(None), 0))))
 
 
-class _Init(nn.Module):
+class _Init(Layer):
     """Seeded initialisation and loading of the reference's weights, shared
     by the entry points."""
 
@@ -244,8 +244,8 @@ class BertModel(_Init):
         self.device = resolve_device(device)
         kw = dict(device=self.device, dtype=dtype)
         self.embeddings = BertEmbeddings(cfg, **kw)
-        self.encoder = nn.ModuleList([BertLayer(cfg, **kw)
-                                      for _ in range(cfg.num_hidden_layers)])
+        self.encoder = LayerList([BertLayer(cfg, **kw)
+                                  for _ in range(cfg.num_hidden_layers)])
         self.pooler = BertPooler(cfg, **kw)
         if seed is not None:
             self.reset_parameters(seed)
@@ -266,7 +266,7 @@ class BertModel(_Init):
         return x, self.pooler(x)
 
 
-class BertPretrainingHeads(nn.Module):
+class BertPretrainingHeads(Layer):
     """The MLM transform and tied decoder, and the NSP classifier.
     ``embedding_weights`` is the word-embedding table (the decoder
     weight), held unregistered."""

@@ -8,7 +8,7 @@ fast path's ``serving_chunk_step`` included). The pipeline,
 sequence-parallel, tensor-parallel and MoE branches belong to a later
 slice (ROADMAP A10).
 
-``GPTForCausalLM`` is an ``nn.Module`` holding the parameters under the
+``GPTForCausalLM`` is an ``nn.Layer`` holding the parameters under the
 reference Layer model's names (``gpt.wte.weight``,
 ``gpt.blocks.<i>.qkv.weight``, ...) with Paddle's ``[in, out]`` Linear
 weights, initialised at random from a seed with a ``torch.Generator`` on
@@ -73,6 +73,8 @@ from ..nn.functional.attention import (paged_attention_math,
                                        scaled_dot_product_attention)
 from ..nn.functional.common import linear
 from ..nn.functional.mlp import _fused_mode, fused_mlp
+from ..nn.layer.common import Embedding
+from ..nn.layer.layers import Layer, LayerList, name_parameters
 from ..nn.layer.norm import LayerNorm
 
 __all__ = ["GPTConfig", "CONFIGS", "GPTForCausalLM", "init_hybrid_params",
@@ -136,7 +138,7 @@ CONFIGS = {
 # parameter-holding modules (Paddle layout)
 # ---------------------------------------------------------------------------
 
-class Linear(nn.Module):
+class Linear(Layer):
     """Paddle-layout linear: weight [in, out], bias [out]."""
 
     def __init__(self, n_in: int, n_out: int, device, dtype):
@@ -150,16 +152,17 @@ class Linear(nn.Module):
         return linear(x, self.weight, self.bias)
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     def __init__(self, cfg: GPTConfig, device, dtype):
         super().__init__()
         H = cfg.hidden_size
         self.nh = cfg.num_heads
         kw = dict(device=device, dtype=dtype)
+        # the reference's order (its state dict and unique names follow it)
         self.ln1 = LayerNorm(H, **kw)
+        self.ln2 = LayerNorm(H, **kw)
         self.qkv = Linear(H, 3 * H, **kw)
         self.proj = Linear(H, H, **kw)
-        self.ln2 = LayerNorm(H, **kw)
         self.fc1 = Linear(H, cfg.ffn, **kw)
         self.fc2 = Linear(cfg.ffn, H, **kw)
 
@@ -189,14 +192,14 @@ class GPTBlock(nn.Module):
                              self.fc2.weight, self.fc2.bias, approximate=True)
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, cfg: GPTConfig, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
-        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size, **kw)
-        self.blocks = nn.ModuleList([GPTBlock(cfg, device, dtype)
-                                     for _ in range(cfg.num_layers)])
+        self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.wpe = Embedding(cfg.max_seq_len, cfg.hidden_size, **kw)
+        self.blocks = LayerList([GPTBlock(cfg, device, dtype)
+                                 for _ in range(cfg.num_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, **kw)
 
     @unwrap_args
@@ -209,7 +212,7 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """Parameters of the reference ``GPTForCausalLM`` (tied-embedding
     head), on ``device`` (None → the CUDA card) in ``cfg.dtype``,
     initialised from ``seed``."""
@@ -221,6 +224,7 @@ class GPTForCausalLM(nn.Module):
         self.device = resolve_device(device)
         self.gpt = GPTModel(cfg, self.device, cfg.dtype)
         self.reset_parameters(seed)
+        name_parameters(self)
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0):

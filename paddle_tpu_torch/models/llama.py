@@ -12,8 +12,8 @@ engine's adapter is ``inference.engine.llama_adapter``).
 ``use_tp=True`` (the tensor-parallel layers) is A10 and raises
 NotImplementedError.
 
-The modules are ``nn.Module``s on an explicit ``device`` (None → the
-CUDA card) in ``dtype``, initialised from ``seed`` with a
+The modules are ``nn.Layer``s on an explicit ``device`` (None → the
+current place: the CUDA card unless ``set_device`` says otherwise) in ``dtype``, initialised from ``seed`` with a
 ``torch.Generator`` on that device, with the reference's distributions:
 Xavier-normal Linear weights (``nn/layer/common.py:19``, std
 ``sqrt(2 / (in + out))``), normal(0, 1) embeddings (:99) and unit RMSNorm
@@ -62,6 +62,8 @@ from ..inference.kv_cache import context_slots, kv_append, kv_gather
 from ..nn.functional.attention import (paged_attention_math,
                                        scaled_dot_product_attention)
 from ..nn.functional.mlp import fused_swiglu
+from ..nn.layer.common import Embedding
+from ..nn.layer.layers import Layer, LayerList, name_parameters
 from ..nn.layer.norm import RMSNorm
 
 __all__ = ["LlamaConfig", "CONFIGS", "LlamaAttention", "LlamaMLP",
@@ -122,11 +124,11 @@ def _rope(q, k):
     return oq, ok
 
 
-class _Linear(nn.Module):
+class _Linear(Layer):
     """Paddle-layout linear without bias: weight [in, out]."""
 
     def __init__(self, n_in: int, n_out: int, device, dtype):
-        super().__init__()
+        super().__init__("linear")       # the reference's nn.Linear's scope
         self.weight = nn.Parameter(torch.empty(n_in, n_out, device=device,
                                                dtype=dtype))
 
@@ -134,7 +136,7 @@ class _Linear(nn.Module):
         return x @ self.weight
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, cfg: LlamaConfig, use_tp: bool = False, *,
                  device=None, dtype=torch.float32):
         super().__init__()
@@ -163,7 +165,7 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out.reshape(B, S, H))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     """SwiGLU: down(silu(gate(x)) * up(x)) through ``fused_swiglu``."""
 
     def __init__(self, cfg: LlamaConfig, use_tp: bool = False, *,
@@ -181,7 +183,7 @@ class LlamaMLP(nn.Module):
                             self.down_proj.weight)
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, cfg: LlamaConfig, use_tp: bool = False, *,
                  device=None, dtype=torch.float32):
         super().__init__()
@@ -199,17 +201,16 @@ class LlamaDecoderLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, cfg: LlamaConfig, use_tp: bool = False, *,
                  device=None, dtype=torch.float32):
         super().__init__()
         _no_tp(use_tp)
         self.cfg = cfg
         kw = dict(device=resolve_device(device), dtype=dtype)
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                         **kw)
-        self.layers = nn.ModuleList([LlamaDecoderLayer(cfg, use_tp, **kw)
-                                     for _ in range(cfg.num_hidden_layers)])
+        self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.layers = LayerList([LlamaDecoderLayer(cfg, use_tp, **kw)
+                                 for _ in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_norm_eps, **kw)
 
     @unwrap_args
@@ -220,7 +221,7 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     """The reference's ``LlamaForCausalLM`` (untied head) on ``device``
     (None → the CUDA card) in ``dtype``, initialised from ``seed``."""
 
@@ -235,6 +236,7 @@ class LlamaForCausalLM(nn.Module):
         self.lm_head = _Linear(cfg.hidden_size, cfg.vocab_size, self.device,
                                dtype)
         self.reset_parameters(seed)
+        name_parameters(self)
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0):
@@ -244,7 +246,7 @@ class LlamaForCausalLM(nn.Module):
                 n_in, n_out = mod.weight.shape
                 mod.weight.normal_(0.0, math.sqrt(2.0 / (n_in + n_out)),
                                    generator=g)
-            elif isinstance(mod, nn.Embedding):
+            elif isinstance(mod, Embedding):
                 mod.weight.normal_(0.0, 1.0, generator=g)
             elif isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)

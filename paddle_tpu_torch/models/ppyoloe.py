@@ -13,8 +13,8 @@ cell whose centre lies inside a gt box to the first such box (a
 centre-prior assigner), with a BCE classification loss and a GIoU box
 loss.
 
-The modules are ``nn.Module``s on an explicit ``device`` (None → the
-CUDA card) in ``dtype``, initialised from ``seed`` with a
+The modules are ``nn.Layer``s on an explicit ``device`` (None → the
+current place: the CUDA card unless ``set_device`` says otherwise) in ``dtype``, initialised from ``seed`` with a
 ``torch.Generator`` on that device, with the reference's distributions
 (KaimingUniform(fan_in) conv weights, Uniform(±1/sqrt(fan_in)) biases of
 the prediction convolutions, unit BatchNorm gains and zero shifts).
@@ -42,7 +42,8 @@ from .._device import DeviceLike, resolve_device
 from ..core.tensor import unwrap_args
 from ..nn import functional as F
 from ..nn.layer import BatchNorm2D, Conv2D
-from ..nn.layer.layers import load_numpy, reset_conv_bn
+from ..nn.layer.layers import (Layer, LayerList, Sequential, load_numpy,
+                               name_parameters, reset_conv_bn)
 
 __all__ = ["CONFIGS", "CSPBackbone", "CSPBlock", "ConvBNLayer", "FPNNeck",
            "PPYOLOE", "PPYOLOEConfig", "PPYOLOEHead"]
@@ -69,7 +70,7 @@ CONFIGS = {
 }
 
 
-class ConvBNLayer(nn.Module):
+class ConvBNLayer(Layer):
     def __init__(self, cin, cout, k=3, stride=1, *, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -82,7 +83,7 @@ class ConvBNLayer(nn.Module):
         return F.silu(self.bn(self.conv(x)))
 
 
-class CSPBlock(nn.Module):
+class CSPBlock(Layer):
     """Split → residual conv path + shortcut path → merge (CSP)."""
 
     def __init__(self, ch, n_blocks, *, device=None, dtype=torch.float32):
@@ -91,7 +92,7 @@ class CSPBlock(nn.Module):
         half = ch // 2
         self.left = ConvBNLayer(ch, half, k=1, **kw)
         self.right = ConvBNLayer(ch, half, k=1, **kw)
-        self.blocks = nn.ModuleList(
+        self.blocks = LayerList(
             [ConvBNLayer(half, half, k=3, **kw) for _ in range(n_blocks)])
         self.merge = ConvBNLayer(half * 2, ch, k=1, **kw)
 
@@ -103,7 +104,7 @@ class CSPBlock(nn.Module):
         return self.merge(torch.cat([left, h], dim=1))
 
 
-class CSPBackbone(nn.Module):
+class CSPBackbone(Layer):
     """Stem + 3 downsampling CSP stages → features at strides 8/16/32."""
 
     def __init__(self, cfg: PPYOLOEConfig, *, device=None,
@@ -111,12 +112,12 @@ class CSPBackbone(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         c = cfg.ch
-        self.stem = nn.Sequential(ConvBNLayer(3, c(32), stride=2, **kw),
-                                  ConvBNLayer(c(32), c(64), stride=2, **kw))
-        self.stages = nn.ModuleList()
+        self.stem = Sequential(ConvBNLayer(3, c(32), stride=2, **kw),
+                               ConvBNLayer(c(32), c(64), stride=2, **kw))
+        self.stages = LayerList()
         chans = [c(64), c(128), c(256), c(512)]
         for i in range(3):
-            self.stages.append(nn.Sequential(
+            self.stages.append(Sequential(
                 ConvBNLayer(chans[i], chans[i + 1], stride=2, **kw),
                 CSPBlock(chans[i + 1], cfg.depth(3), **kw)))
         self.out_channels = chans[1:]
@@ -130,16 +131,16 @@ class CSPBackbone(nn.Module):
         return outs  # strides 8, 16, 32
 
 
-class FPNNeck(nn.Module):
+class FPNNeck(Layer):
     """Top-down feature pyramid (simplified CustomCSPPAN)."""
 
     def __init__(self, in_channels: List[int], *, device=None,
                  dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.lateral = nn.ModuleList(
+        self.lateral = LayerList(
             [ConvBNLayer(c, in_channels[0], k=1, **kw) for c in in_channels])
-        self.fuse = nn.ModuleList(
+        self.fuse = LayerList(
             [ConvBNLayer(in_channels[0], in_channels[0], k=3, **kw)
              for _ in in_channels])
         self.out_channel = in_channels[0]
@@ -156,7 +157,7 @@ class FPNNeck(nn.Module):
         return outs
 
 
-class PPYOLOEHead(nn.Module):
+class PPYOLOEHead(Layer):
     """Decoupled anchor-free head: per level cls logits [B, nc, H, W] and
     distances [B, 4, H, W] (l, t, r, b in stride units)."""
 
@@ -165,13 +166,13 @@ class PPYOLOEHead(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.num_classes = num_classes
-        self.cls_convs = nn.ModuleList(
+        self.cls_convs = LayerList(
             [ConvBNLayer(ch, ch, k=3, **kw) for _ in range(n_levels)])
-        self.reg_convs = nn.ModuleList(
+        self.reg_convs = LayerList(
             [ConvBNLayer(ch, ch, k=3, **kw) for _ in range(n_levels)])
-        self.cls_preds = nn.ModuleList(
+        self.cls_preds = LayerList(
             [Conv2D(ch, num_classes, 1, **kw) for _ in range(n_levels)])
-        self.reg_preds = nn.ModuleList(
+        self.reg_preds = LayerList(
             [Conv2D(ch, 4, 1, **kw) for _ in range(n_levels)])
 
     def forward(self, feats):
@@ -183,7 +184,7 @@ class PPYOLOEHead(nn.Module):
         return cls_out, reg_out
 
 
-class PPYOLOE(nn.Module):
+class PPYOLOE(Layer):
     """The detector on ``device`` (None → the CUDA card) in ``dtype``,
     initialised from ``seed``."""
 
@@ -198,6 +199,7 @@ class PPYOLOE(nn.Module):
         self.head = PPYOLOEHead(self.neck.out_channel, cfg.num_classes,
                                 len(cfg.strides), **kw)
         self.reset_parameters(seed)
+        name_parameters(self)
 
     @unwrap_args
     def forward(self, images):

@@ -5,14 +5,14 @@ other activation layers come with later slices.
 """
 from __future__ import annotations
 
-from torch import nn
 
 from ..functional.activation import relu
+from .layers import Layer
 
 __all__ = ["ReLU"]
 
 
-class ReLU(nn.Module):
+class ReLU(Layer):
     def __init__(self, name=None):
         super().__init__()
 

@@ -5,9 +5,8 @@ weight ``[in_features, out_features]`` (Paddle's layout) from
 XavierNormal, a zero bias; ``Dropout`` (:41-54), ``F.dropout`` in the
 module's training mode; ``Embedding`` (:87-109), weight
 ``[num_embeddings, embedding_dim]`` from normal(0, 1), the padding row
-zero, through ``F.embedding``. For ``Sequential``
-(``nn/layer/layers.py:394``) ``torch.nn.Sequential`` serves: its child
-names ``0``, ``1``, ... are Paddle's.
+zero, through ``F.embedding``. Each is an ``nn.Layer``
+(``layers.py``).
 """
 from __future__ import annotations
 
@@ -18,11 +17,12 @@ from ..._device import DeviceLike, resolve_device
 from ..functional.common import dropout, linear
 from ..functional.input import embedding
 from ..initializer import constant, xavier_normal
+from .layers import Layer
 
 __all__ = ["Dropout", "Embedding", "Linear"]
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """y = x @ weight + bias on ``device`` (None → the CUDA card) in
     ``dtype``."""
 
@@ -54,7 +54,7 @@ class Linear(nn.Module):
                 f"out_features={self._out_features}")
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """Paddle's ``nn.Dropout``: ``F.dropout`` with the module's training
     mode (one generator split per call while training at p > 0)."""
 
@@ -72,7 +72,7 @@ class Dropout(nn.Module):
         return f"p={self.p}, axis={self.axis}, mode={self.mode}"
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """Rows of ``weight`` [num_embeddings, embedding_dim] by id, on
     ``device`` (None → the CUDA card) in ``dtype``; ``padding_idx``
     (negative: from the end) names a row that is zero and comes out

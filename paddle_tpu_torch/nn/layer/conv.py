@@ -16,6 +16,7 @@ from torch import nn
 from ..._device import DeviceLike, resolve_device
 from ..functional.conv import conv2d
 from ..initializer import kaiming_uniform, uniform
+from .layers import Layer
 
 __all__ = ["Conv2D"]
 
@@ -24,7 +25,7 @@ def _ntuple(v, n):
     return (v,) * n if isinstance(v, int) else tuple(v)
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     def __init__(self, in_channels, out_channels, kernel_size, ndim,
                  stride=1, padding=0, dilation=1, groups=1,
                  padding_mode="zeros", weight_attr=None, bias_attr=None,

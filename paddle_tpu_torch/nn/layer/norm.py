@@ -14,6 +14,7 @@ from torch import nn
 
 from ..._device import DeviceLike, resolve_device
 from ..functional.norm import batch_norm, batch_norm_act, layer_norm, rms_norm
+from .layers import Layer
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "LayerNorm", "RMSNorm"]
@@ -24,7 +25,7 @@ def _torch_dtype(dtype):
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     """Paddle's BatchNorm: a unit-initialised ``weight`` and a zero ``bias``
     [num_features] (``weight_attr`` / ``bias_attr`` False drop them) in
     ``dtype``, and the running statistics as the buffers ``_mean`` (zeros)
@@ -114,7 +115,7 @@ class BatchNorm3D(_BatchNormBase):
     pass
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """Paddle's LayerNorm over the trailing ``normalized_shape`` axes,
     with a unit-initialised gain ``weight`` and a zero-initialised
     ``bias`` of that shape (``weight_attr`` / ``bias_attr`` False drop
@@ -145,7 +146,7 @@ class LayerNorm(nn.Module):
                 f"epsilon={self._epsilon}")
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     """RMSNorm over the last dim with a unit-initialised gain named
     ``weight`` ([hidden_size]), on ``device`` (None → the CUDA card) in
     ``dtype``."""

@@ -6,14 +6,14 @@ functional. The other pools are ROADMAP A11.
 """
 from __future__ import annotations
 
-from torch import nn
 
 from ..functional.pooling import adaptive_avg_pool2d, max_pool2d
+from .layers import Layer
 
 __all__ = ["AdaptiveAvgPool2D", "MaxPool2D"]
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, **kwargs):
         super().__init__()
         kwargs.pop("name", None)
@@ -27,7 +27,7 @@ class MaxPool2D(nn.Module):
                           **self.kwargs)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, **kwargs):
         super().__init__()
         kwargs.pop("name", None)

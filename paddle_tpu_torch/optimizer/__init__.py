@@ -1,7 +1,7 @@
 """Counterpart: ``paddle_tpu/optimizer/__init__.py``: the base
 ``Optimizer`` with ``L1Decay`` / ``L2Decay``, ``SGD``, ``Momentum``,
-``Adam``, ``AdamW`` and the schedulers of ``lr``; the other optimizers
-raise NotImplementedError naming ROADMAP A5b."""
+``Adam``, ``AdamW``, the ten others of ``optimizers.py`` (``Adamax`` …
+``Rprop``) and the schedulers of ``lr``."""
 from . import lr
 from .optimizer import L1Decay, L2Decay, Optimizer
 from .optimizers import (ASGD, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,

@@ -13,7 +13,8 @@ trainable parameters with gradients, ``grad_clip`` applied to it, then
 the decay folded into each gradient and the update), ``clear_grad``,
 eager ``minimize`` and ``state_dict`` / ``set_state_dict`` (keys
 ``<param name>_<accumulator>``, ``<param name>_master``,
-``LR_Scheduler`` and ``global_step``).
+``LR_Scheduler`` and ``global_step``; a loaded value, a facade or a
+numpy array, is copied in as a plain tensor).
 
 The reference rebinds new arrays; here ``step`` updates parameters,
 master weights and accumulators IN PLACE under ``torch.no_grad()``, one
@@ -29,18 +30,15 @@ from __future__ import annotations
 from collections import defaultdict
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from ..core.tensor import Tensor, to_plain
+from ..framework.io_api import numpy_to_torch
 from ..nn.layer.layers import ensure_name
 from .lr import LRScheduler
 
 __all__ = ["L1Decay", "L2Decay", "Optimizer"]
-
-
-def _not_ported(what):
-    return NotImplementedError(f"{what} is ported with the rest of the eager "
-                               f"framework core (ROADMAP A5b)")
 
 
 class L2Decay:
@@ -205,7 +203,10 @@ class Optimizer:
             self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
 
         def value(val, p):
-            return torch.as_tensor(val).to(p.device, copy=True)
+            # a plain copy (a loaded facade's methods are Paddle's)
+            t = (to_plain(val) if isinstance(val, torch.Tensor)
+                 else numpy_to_torch(np.asarray(val)))
+            return t.to(p.device, copy=True)
 
         acc_names = self._acc_names()
         for key, val in state_dict.items():

@@ -1,5 +1,5 @@
-"""Counterpart: ``paddle_tpu/utils/__init__.py`` (``unique_name`` so
-far)."""
-from . import unique_name
+"""Counterpart: ``paddle_tpu/utils/__init__.py`` (``unique_name`` and
+``resilience.atomic_write`` so far)."""
+from . import resilience, unique_name
 
-__all__ = ["unique_name"]
+__all__ = ["resilience", "unique_name"]

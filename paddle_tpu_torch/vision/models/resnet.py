@@ -5,7 +5,7 @@ Counterpart: ``paddle_tpu/vision/models/resnet.py``, all of it:
 ``ResNet`` (:82), ``_resnet`` with the ``pretrained`` check (:140-146)
 and the factories ``resnet18`` ... ``resnext50_32x4d`` (:149-183).
 
-The modules are ``nn.Module``s on an explicit ``device`` (None → the
+The modules are ``nn.Layer``s (``torch.nn.Module``s) on an explicit ``device`` (None → the
 CUDA card) in ``dtype``, initialised from ``seed`` with a
 ``torch.Generator`` on that device, with the reference's distributions:
 KaimingUniform(fan_in) conv weights, XavierNormal fc weight ``[in, out]``
@@ -41,7 +41,7 @@ from ..._device import DeviceLike, resolve_device
 from ...nn.functional.activation import relu
 from ...nn.layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                          MaxPool2D, ReLU)
-from ...nn.layer.layers import load_numpy, name_parameters, reset_conv_bn
+from ...nn.layer.layers import Layer, Sequential, load_numpy, name_parameters, reset_conv_bn
 from ...core.tensor import unwrap_args
 from ...ops.manipulation import flatten
 from ...ops.math import add
@@ -67,7 +67,7 @@ def _bn_act(bn, x, activation=None, residual=None):
     return out
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -95,7 +95,7 @@ class BasicBlock(nn.Module):
         return _bn_act(self.bn2, out, activation="relu", residual=identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -127,7 +127,7 @@ class BottleneckBlock(nn.Module):
         return _bn_act(self.bn3, out, activation="relu", residual=identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     """Paddle's ResNet on ``device`` (None → the CUDA card) in ``dtype``,
     initialised from ``seed``."""
 
@@ -168,7 +168,7 @@ class ResNet(nn.Module):
         norm_layer = self._norm_layer
         downsample = None
         if stride != 1 or self.inplanes != planes * block.expansion:
-            downsample = nn.Sequential(
+            downsample = Sequential(
                 Conv2D(self.inplanes, planes * block.expansion, 1,
                        stride=stride, bias_attr=False, **self._kw),
                 norm_layer(planes * block.expansion, **self._kw))
@@ -180,7 +180,7 @@ class ResNet(nn.Module):
             layers.append(block(self.inplanes, planes, groups=self.groups,
                                 base_width=self.base_width,
                                 norm_layer=norm_layer, **self._kw))
-        return nn.Sequential(*layers)
+        return Sequential(*layers)
 
     @unwrap_args
     def forward(self, x):

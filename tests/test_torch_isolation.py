@@ -55,3 +55,42 @@ def test_scan_walks_every_subpackage():
     for sub in ("kernels", "models", "nn", "optimizer", "vision"):
         assert any(n.startswith(f"paddle_tpu_torch/{sub}/") for n in names)
     assert "paddle_tpu_torch/vision/models/resnet.py" in names
+
+
+def test_the_port_reads_a_reference_file_without_the_reference(tmp_path):
+    """A file the reference wrote (bf16 included) loads in a process where
+    ``paddle_tpu`` and ``jax`` cannot be imported at all; importing the
+    whole namespace there builds no kernel."""
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    import paddle_tpu as jpaddle
+
+    path = tmp_path / "ref.pdparams"
+    w = jpaddle.to_tensor(np.array([[1.5, -2.25], [3.0, 0.125]], np.float32))
+    jpaddle.save({"w": w, "w16": w.astype("bfloat16"),
+                  "ids": jpaddle.to_tensor(np.array([3, 1], np.int32)),
+                  "meta": {"step": 4}}, str(path))
+    code = f"""
+import sys
+sys.modules["paddle_tpu"] = None
+sys.modules["jax"] = None
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch.kernels import _build
+paddle.set_device("cpu")
+sd = paddle.load({str(path)!r})
+assert sd["meta"] == {{"step": 4}}
+assert sd["w16"].dtype == paddle.bfloat16
+assert sd["w"].tolist() == [[1.5, -2.25], [3.0, 0.125]]
+assert sd["w16"].float().tolist() == [[1.5, -2.25], [3.0, 0.125]]
+assert sd["ids"].tolist() == [3, 1]
+assert not _build._libs
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
+            and sys.modules[m] is not None]
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

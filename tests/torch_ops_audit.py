@@ -271,12 +271,18 @@ def check_grad(spec, rtol=1e-4, atol=1e-5):
 
 def cpu_place():
     """A pytest fixture body: the port's creation and random ops make CPU
-    tensors while a test module runs (the default place is the card)."""
+    tensors while a test module runs (the default place is the card).
+    The reference's place is put back too: its ``set_device`` (and its
+    ``Layer.to``) leave an explicit one-device place behind in the worker
+    process, which the later tests of its sharded models refuse."""
+    from paddle_tpu.core import place as jplace
     from paddle_tpu_torch.core import place as pplace
     prev = pplace._CURRENT_PLACE[0]
+    jprev = (jplace._CURRENT_PLACE[0], jplace._PLACE_EXPLICIT[0])
     pplace.set_device("cpu")
     yield
     pplace._CURRENT_PLACE[0] = prev
+    jplace._CURRENT_PLACE[0], jplace._PLACE_EXPLICIT[0] = jprev
 
 
 def ids(specs):
