@@ -459,6 +459,30 @@ Phases, one line each; any failure raises and exits non-zero:
    within lr times the spread of two backwards (both 0 when cuDNN is
    deterministic); (c) a PyLayer with its own backward on the card
    against the CPU within the f32 tolerance;
+55. a user's model of ``paddle.nn`` layers: (a) nn.Embedding(30522,
+   768) → nn.TransformerEncoder(TransformerEncoderLayer(768, 12, 3072,
+   dropout 0.1, gelu), 12) → nn.Linear(768, 2) trains 6 steps under
+   amp.auto_cast O1 at B=32, S=512 with a bool key-padding mask
+   (lengths 128–512), nn.CrossEntropyLoss and
+   incubate.optimizer.LookAhead(AdamW, alpha 0.5, k 5): each step
+   launches exactly user_nn_launches (kernels 1–3's dropout variant 12
+   each and 12 pre-passes, 13 and 14 24 each) on the wgmma and
+   persistent routes, the slow weights after step 5 equal p_slow + 0.5
+   (p - p_slow) bit for bit, metric.Accuracy on the logits, the steps'
+   ms and the peak memory; (b) the tensor checker armed for whole steps
+   (plain, armed, armed, plain): reads within ceil(ops / flush) + 1, the
+   walls in turns; an inf in one embedding row: the alarm names the
+   embedding first, check_numerics under CHECK_NAN_INF_AND_ABORT raises
+   FloatingPointError; (c) nn.Transformer (512, 8 heads, 6 + 6 layers,
+   2048, dropout 0.1) at B=16, source 256, target 128 under O1: the
+   encoder's and the cross-attention's 12 dropout flash launches, the
+   decoder's self-attention under generate_square_subsequent_mask on the
+   dense route with one warning; one decoder layer's cross-attention at
+   Sq 128 / Sk 256 with dropout 0.1 on the kernels against the plain
+   versions within FLASH_TOL; (d) every op the slice registers on the
+   card against the CPU (nn_ops_cases, NN_TOL), and nn.LSTM(512, 512, 2
+   layers, bidirectional) at B=64, T=128, forward and backward, card
+   against CPU, with its ms;
 then the card's name and power limit again, the kernels' JSON line and
 the final status line. Every kernel time is device time (cuda_ms: the
 calls queued behind a spin of the card, so the host's launch rate does
@@ -7965,15 +7989,16 @@ def ops_cases(torch):
     ]
 
 
-def _close(torch, got, ref, what):
-    """One output of the card against the CPU's: dtype, shape, values."""
+def _close(torch, got, ref, what, tol=None):
+    """One output of the card against the CPU's: dtype, shape, values
+    (within ``tol`` = (rtol, atol), else OPS_TOL's)."""
     check(got.dtype == ref.dtype and tuple(got.shape) == tuple(ref.shape),
           f"ops_vs_cpu {what}: {got.dtype}{tuple(got.shape)} on the card, "
           f"{ref.dtype}{tuple(ref.shape)} on the CPU")
     g, r = got.cpu(), ref
     if r.is_floating_point() or r.is_complex():
-        rtol, atol = OPS_TOL["bfloat16" if r.dtype == torch.bfloat16
-                             else "float32"]
+        rtol, atol = tol or OPS_TOL["bfloat16" if r.dtype == torch.bfloat16
+                                    else "float32"]
         g, r = g.double(), r.double()
         same_nan = torch.equal(torch.isnan(g), torch.isnan(r))
         top = float(r.nan_to_num().abs().max()) if r.numel() else 0.0
@@ -8446,6 +8471,568 @@ def phase_user_script(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 55: a user's nn model on the card
+# ---------------------------------------------------------------------------
+
+NN_VOCAB, NN_LAYERS, NN_STEPS, NN_K = 30522, 12, 6, 5
+TF_B, TF_SRC, TF_TGT, TF_E, TF_NH, TF_F, TF_L = 16, 256, 128, 512, 8, 2048, 6
+LSTM_B, LSTM_T, LSTM_H = 64, 128, 512
+# the card against the CPU for the nn ops of phase 55 (d), f32: 1e-4 of
+# the largest value plus 1e-4 of each value (the CTC, RNN-T and recurrent
+# sums run over many steps, the decode op's kernel against its plain
+# version, in another order on each device)
+NN_TOL = {"float32": (1e-4, 1e-4)}
+
+
+def user_nn_launches(layers, steps=1):
+    """The kernels one training step of phase 55 (a) launches, derived
+    from its layers: each of the ``layers`` encoder layers attends once
+    under a key-padding mask with dropout 0.1 (the flash kernels' dropout
+    variant: one forward, one dQ, one dK/dV, one backward pre-pass) and
+    normalises twice without a residual (norm1, norm2: one LayerNorm
+    forward and one backward each); the FFN's Linear → GeLU → Dropout →
+    Linear and the head take no kernel of the port."""
+    n = layers * steps
+    return {"dropout_flash_fwd": n, "dropout_flash_dq": n,
+            "dropout_flash_dkv": n, "flash_bwd_prep": n,
+            "fused_ln_fwd": 2 * n, "fused_ln_bwd": 2 * n}
+
+
+def user_classifier(paddle):
+    """A user's model of nothing but paddle.nn: bert-base's width and
+    depth through nn.Embedding, nn.TransformerEncoder and nn.Linear."""
+    nn = paddle.nn
+
+    class Classifier(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(NN_VOCAB, BERT_H)
+            self.encoder = nn.TransformerEncoder(
+                nn.TransformerEncoderLayer(BERT_H, BERT_NH, BERT_F,
+                                           dropout=0.1, activation="gelu"),
+                NN_LAYERS)
+            self.head = nn.Linear(BERT_H, 2)
+
+        def forward(self, ids, mask):
+            return self.head(self.encoder(self.emb(ids), src_mask=mask)[:, 0])
+
+    return Classifier()
+
+
+def user_nn_train(torch, paddle):
+    """Phase 55 (a) and (b). Returns the readings and what (b) reuses."""
+    from paddle_tpu_torch.incubate.optimizer import LookAhead
+    from paddle_tpu_torch.kernels import norm_fusion as nf
+    out = {}
+    paddle.seed(0)
+    with paddle.utils.unique_name.guard():
+        model = user_classifier(paddle)
+    inner = paddle.optimizer.AdamW(learning_rate=BERT_LR, weight_decay=0.01,
+                                   parameters=model.parameters())
+    opt = LookAhead(inner, alpha=0.5, k=NN_K)
+    loss_fn = paddle.nn.CrossEntropyLoss()
+    rng = np.random.default_rng(55)
+    lengths = bert_lengths(BERT_B, BERT_S, 55)
+    ids = paddle.to_tensor(rng.integers(0, NN_VOCAB, (BERT_B, BERT_S)))
+    mask = paddle.to_tensor((np.arange(BERT_S)[None, :] < lengths[:, None])
+                            [:, None, None, :])
+    labels = paddle.to_tensor(rng.integers(0, 2, (BERT_B,)))
+    acc = paddle.metric.Accuracy()
+
+    def step(backward=True):
+        with paddle.amp.auto_cast(level="O1"):
+            logits = model(ids, mask)
+            loss = loss_fn(logits, labels)
+        if backward:
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+        return logits.detach(), loss.detach()
+
+    # the fast weights right after the inner AdamW of step NN_K
+    params = list(inner._parameter_list)
+    fast = {}
+    inner_step = inner.step
+
+    def spy():
+        inner_step()
+        if opt._step_id == NN_K - 1:
+            fast.update({id(p): p.detach().clone() for p in params})
+
+    inner.step = spy
+    want = user_nn_launches(NN_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i in range(NN_STEPS):
+        if i == NN_K - 1:
+            slow = {id(p): opt._slow[id(p)].clone() for p in params}
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, loss = step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts = read_launches()
+        check(counts == {k: want.get(k, 0) for k in counts},
+              f"user nn step {i} launches {counts}, want {want}")
+        routes = dict(flash_fwd=fwd_routes_reading(counts, "user nn"),
+                      flash_bwd=bwd_routes_reading(counts, "user nn"),
+                      ln_bwd=ln_bwd_routes_reading(counts, "user nn"))
+        check(routes["flash_fwd"]["wgmma"] == NN_LAYERS
+              and routes["flash_bwd"]["wgmma"] == 2 * NN_LAYERS
+              and routes["ln_bwd"]["persistent"] == 2 * NN_LAYERS
+              and dict(nf.ln_bwd_routes)["generic"] == 0,
+              f"user nn step {i} routes {routes}")
+        losses.append(float(loss))
+        if i == NN_K - 1:     # the slow-weight sync: p_slow + 0.5 (p - p_slow)
+            bad = [p.name for p in params if not torch.equal(
+                p.detach(), slow[id(p)] + 0.5 * (fast[id(p)] - slow[id(p)]))]
+            check(not bad and all(torch.equal(p.detach(), opt._slow[id(p)])
+                                  for p in params),
+                  f"LookAhead's sync after step {NN_K} differs at {bad[:4]}")
+    inner.step = inner_step
+    check(np.isfinite(losses).all(), f"user nn losses {losses}")
+    correct = acc.compute(logits, paddle.unsqueeze(labels, -1))
+    acc.update(correct)
+    accuracy = float(acc.accumulate())
+    check(0.0 <= accuracy <= 1.0, f"accuracy {accuracy}")
+    out["a"] = dict(
+        model="Embedding(30522, 768) + TransformerEncoder(768, 12 heads, "
+              "3072, gelu, dropout 0.1) x 12 + Linear(768, 2)",
+        b=BERT_B, s=BERT_S, amp="O1 bf16, f32 parameters",
+        optimizer=f"LookAhead(AdamW(lr {BERT_LR}, decay 0.01), alpha 0.5, "
+                  f"k {NN_K})", losses=losses,
+        launches_per_step=want, launch_derivation=user_nn_launches.__doc__,
+        routes_per_step=routes, lookahead_sync_step=NN_K,
+        lookahead_sync_bitwise=True, accuracy=accuracy,
+        step_ms=walls, ms_per_step=float(np.median(walls[1:])),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        parameters=sum(p.numel() for p in params))
+    out["b"] = user_nn_checker(torch, paddle, model, step, ids)
+    return out
+
+
+def user_nn_checker(torch, paddle, model, step, ids):
+    """Phase 55 (b): the tensor checker armed for whole training steps
+    (plain, armed, armed, plain, the walls in turns): its device reads
+    within one per FLAGS_check_nan_inf_flush ops checked (+1 for the
+    step-end flush); then an inf in one embedding row: the alarm names
+    the embedding, the first op that saw it, and check_numerics under
+    CHECK_NAN_INF_AND_ABORT raises FloatingPointError."""
+    from paddle_tpu_torch.amp import debugging as dbg
+    from paddle_tpu_torch.profiler import flightrec
+    flush = int(paddle.get_flag("check_nan_inf_flush"))
+    cfg = dbg.TensorCheckerConfig(enable=True,
+                                  debug_mode=dbg.DebugMode.CHECK_NAN_INF)
+    walls, stats = {}, []
+    for label in ("plain", "armed", "armed_2", "plain_2"):
+        if label.startswith("armed"):
+            dbg.enable_tensor_checker(cfg)
+        t0 = time.perf_counter()
+        step()
+        if label.startswith("armed"):
+            dbg.flush_eager_checks()
+        torch.cuda.synchronize()
+        walls[label] = (time.perf_counter() - t0) * 1e3
+        if label.startswith("armed"):
+            stats.append(dbg.eager_checker_stats())
+            dbg.disable_tensor_checker()
+    for s in stats:
+        check(s["alarms"] == 0 and s["ops_checked"] > 0
+              and s["syncs"] == s["windows"]
+              and s["syncs"] <= math.ceil(s["ops_checked"] / flush) + 1,
+              f"checker readings {s} at flush {flush}")
+    row = int(ids[0, 0])
+    emb = model.emb.weight
+    with torch.no_grad():
+        saved = emb[row].clone()
+        emb[row] = float("inf")
+    # one window for the whole forward: one alarm, its ops in order
+    paddle.set_flags({"check_nan_inf_flush": 1 << 30})
+    dbg.enable_tensor_checker(cfg)
+    logits, _ = step(backward=False)
+    dbg.flush_eager_checks()
+    alarm = flightrec.records(kind="numerics_alarm")[-1]
+    seen = dbg.eager_checker_stats()
+    dbg.disable_tensor_checker()
+    paddle.set_flags({"check_nan_inf_flush": flush})
+    check(alarm["ops"][0] == "embedding" and seen["alarms"] == 1,
+          f"the alarm names {alarm['ops'][:3]}, want the embedding first")
+    try:
+        dbg.check_numerics(logits, "linear", "logits",
+                           dbg.DebugMode.CHECK_NAN_INF_AND_ABORT)
+        raised = False
+    except FloatingPointError:
+        raised = True
+    check(raised, "check_numerics did not raise on non-finite logits")
+    with torch.no_grad():
+        emb[row] = saved
+    return dict(flush=flush, armed_stats=stats, walls_ms_in_turns=walls,
+                armed_over_plain=(walls["armed"] + walls["armed_2"])
+                / (walls["plain"] + walls["plain_2"]),
+                alarm=dict(ops=alarm["ops"][:4], counts=alarm["counts"][:4],
+                           bad=alarm["bad"]),
+                check_numerics_raised=raised)
+
+
+def user_nn_cross(torch, paddle):
+    """Phase 55 (c): nn.Transformer at transformer-base under O1: the
+    encoder's self-attention and the decoder's cross-attention under the
+    source's key-padding mask take the flash kernels' dropout variant (at
+    Sq 128 / Sk 256 for the cross-attention), the decoder's
+    self-attention under generate_square_subsequent_mask the dense route
+    with its one warning; then one decoder layer's cross-attention on the
+    kernels against the plain versions, forward and backward, dropout
+    0.1, keyed as scaled_dot_product_attention keys it."""
+    import warnings
+    from paddle_tpu_torch.core.generator import default_generator
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn.functional import attention as attn
+    nn = paddle.nn
+    paddle.seed(1)
+    tf = nn.Transformer(d_model=TF_E, nhead=TF_NH, num_encoder_layers=TF_L,
+                        num_decoder_layers=TF_L, dim_feedforward=TF_F,
+                        dropout=0.1)
+    g = torch.Generator(device="cuda").manual_seed(55)
+    src = torch.randn(TF_B, TF_SRC, TF_E, generator=g, device="cuda")
+    tgt = torch.randn(TF_B, TF_TGT, TF_E, generator=g, device="cuda")
+    lengths = bert_lengths(TF_B, TF_SRC, 56)
+    mem_mask = torch.from_numpy(
+        (np.arange(TF_SRC)[None, :] < lengths[:, None])[:, None, None, :]
+    ).cuda()
+    square = tf.generate_square_subsequent_mask(TF_TGT)
+    attn._DENSE_MASK_WARNED = False
+    reset_launches()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        with paddle.amp.auto_cast(level="O1"):
+            out = tf(src, tgt, src_mask=mem_mask, tgt_mask=square,
+                     memory_mask=mem_mask)
+            loss = out.float().square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+    counts = read_launches()
+    dense = [w for w in seen if "dense reference path" in str(w.message)]
+    n = 2 * TF_L        # the encoder's self-attention, the cross-attention
+    want = {"dropout_flash_fwd": n, "dropout_flash_dq": n,
+            "dropout_flash_dkv": n, "flash_bwd_prep": n,
+            "fused_ln_fwd": 5 * TF_L, "fused_ln_bwd": 5 * TF_L}
+    check(counts == {k: want.get(k, 0) for k in counts} and len(dense) == 1,
+          f"transformer launches {counts} (want {want}), dense-route "
+          f"warnings {len(dense)}")
+    fwd_routes_reading(counts, "transformer")
+    bwd_routes_reading(counts, "transformer")
+    dec = tf.decoder.layers[0]
+    with torch.no_grad(), paddle.amp.auto_cast(level="O1"):
+        dec.self_attn(tgt, tgt, tgt, square)
+        self_path = attn.last_attn_path()
+        dec.cross_attn(tgt, src, src, mem_mask)
+        cross_path = attn.last_attn_path()
+        q = dec.cross_attn._shape(dec.cross_attn.q_proj(tgt))
+        k = dec.cross_attn._shape(dec.cross_attn.k_proj(src))
+        v = dec.cross_attn._shape(dec.cross_attn.v_proj(src))
+    check(self_path == "ref" and cross_path == "flash_masked/cuda",
+          f"paths: self-attention {self_path}, cross {cross_path}")
+    dh = TF_E // TF_NH
+
+    def flat(t, s):
+        return t.transpose(1, 2).reshape(TF_B * TF_NH, s, dh).contiguous()
+
+    q, k, v = flat(q, TF_TGT), flat(k, TF_SRC), flat(v, TF_SRC)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    bias = kv_bias_for(torch, lengths, TF_SRC)
+    tile = fa.flash_drop_tile(TF_TGT, TF_SRC, False, q.dtype)
+    key = fa.drop_key(0.1, *default_generator.split_key(), *tile)
+    a = (False, dh ** -0.5, bias, TF_NH, key)
+    o, lse = fa._fwd_cuda(q, k, v, *a)
+    grads = fa._bwd_cuda(q, k, v, o, lse, do, *a)
+    ro, rlse = fa.flash_fwd_ref(q, k, v, *a)
+    rgrads = fa.flash_bwd_ref(q, k, v, o, lse, do, *a)
+    worst = {}
+    for label, got, ref in zip(("out", "lse", "dq", "dk", "dv"),
+                               (o, lse, *grads), (ro, rlse, *rgrads)):
+        rel = flash_reading(got, ref)
+        check(bool(torch.isfinite(got).all()) and rel <= FLASH_TOL[
+            "bfloat16"], f"cross-attention {label} against plain: relative "
+            f"{rel} > {FLASH_TOL['bfloat16']}")
+        worst[label] = dict(max_abs_err=float((got.float() - ref.float())
+                                              .abs().max()), relative=rel)
+    return dict(model="Transformer(512, 8 heads, 6 + 6 layers, 2048, "
+                      "dropout 0.1)", b=TF_B, src=TF_SRC, tgt=TF_TGT,
+                loss=float(loss), launches=want, dense_route_warnings=1,
+                self_attention_path=self_path, cross_attention_path=cross_path,
+                cross_vs_plain=dict(dtype="bfloat16", dropout=0.1,
+                                    tile=list(tile),
+                                    tolerance_relative=FLASH_TOL["bfloat16"],
+                                    worst=worst))
+
+
+def nn_ops_cases(torch):
+    """(name, fn(*tensors), numpy inputs) of phase 55 (d): one case for
+    every op this slice registers (``nn/``, the A11 stand-ins aside),
+    small shapes; the random ones from one key (the same draws on both
+    devices)."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.nn.functional import activation as act
+    from paddle_tpu_torch.nn.functional import attention as at
+    from paddle_tpu_torch.nn.functional import common as cm
+    from paddle_tpu_torch.nn.functional import extra as ex
+    from paddle_tpu_torch.nn.functional import mlp as ml
+    from paddle_tpu_torch.nn.functional import norm as nm
+    from paddle_tpu_torch.nn.layer import rnn
+    rng = np.random.default_rng(55)
+
+    def f32(*s, lo=None, hi=None):
+        if lo is not None:
+            return rng.uniform(lo, hi, s).astype(np.float32)
+        return rng.standard_normal(s).astype(np.float32)
+
+    def ints(*s, hi=5, dt=np.int64):
+        return rng.integers(0, hi, s).astype(dt)
+
+    key = (0, 55)
+    x, x4 = f32(4, 6), f32(2, 8, 4, 4)
+    p01 = f32(4, 3, lo=0.05, hi=0.95)
+    sgn = np.sign(f32(6))
+    lw = [f32(16, 6), f32(16, 4), f32(16), f32(16)]   # a cell's weights
+    gw = [f32(12, 6), f32(12, 4), f32(12), f32(12)]
+    sw = [f32(4, 6), f32(4, 4), f32(4), f32(4)]
+    nh, d, kvh, ho, bs = 16, 64, 4, 256, 16
+    unpool = np.stack([np.sort(rng.choice(36, 9, replace=False))
+                       for _ in range(2)]).reshape(1, 2, 3, 3)
+    return [
+        # activations
+        ("celu", lambda t: F.celu(t, 1.5), [x]),
+        ("elu", lambda t: F.elu(t, 0.5), [x]),
+        ("glu", lambda t: F.glu(t), [x]),
+        ("gumbel_softmax", lambda t: act._gumbel_softmax_raw(
+            key, t, 0.7, False, -1), [x]),
+        ("hardshrink", F.hardshrink, [x]),
+        ("hardsigmoid", F.hardsigmoid, [x]),
+        ("hardswish", F.hardswish, [x * 3]),
+        ("hardtanh", F.hardtanh, [x * 2]),
+        ("leaky_relu", lambda t: F.leaky_relu(t, 0.2), [x]),
+        ("log_sigmoid", F.log_sigmoid, [x]),
+        ("log_softmax", F.log_softmax, [x]),
+        ("maxout", lambda t: F.maxout(t, 2), [x4]),
+        ("mish", F.mish, [x]),
+        ("prelu", F.prelu, [x4, f32(8, lo=0.1, hi=0.3)]),
+        ("relu6", F.relu6, [x * 4]),
+        ("rrelu", F.rrelu, [x]),
+        ("selu", F.selu, [x]),
+        ("softmax", lambda t: F.softmax(t, 0), [x]),
+        ("softshrink", F.softshrink, [x]),
+        ("softsign", F.softsign, [x]),
+        ("tanhshrink", F.tanhshrink, [x]),
+        ("thresholded_relu", lambda t: F.thresholded_relu(t, 0.2), [x]),
+        # common
+        ("alpha_dropout_raw", lambda t: cm._alpha_dropout_raw(t, key, 0.3),
+         [x4]),
+        ("bilinear", F.bilinear, [f32(3, 4), f32(3, 5), f32(6, 4, 5),
+                                  f32(6)]),
+        ("channel_shuffle", lambda t: F.channel_shuffle(t, 4), [x4]),
+        ("cosine_similarity", F.cosine_similarity, [f32(4, 5), f32(4, 5)]),
+        ("fold", lambda t: F.fold(t, [4, 4], 2), [f32(2, 8, 9)]),
+        ("interpolate", lambda t: cm._interpolate_raw(
+            t, (6, 7), "nearest", False, "NCHW"), [x4]),
+        ("normalize", lambda t: F.normalize(t, 3, 1), [x]),
+        ("pixel_shuffle", lambda t: F.pixel_shuffle(t, 2), [x4]),
+        ("pixel_unshuffle", lambda t: F.pixel_unshuffle(t, 2), [x4]),
+        ("unfold", lambda t: F.unfold(t, [2, 3], paddings=1), [x4]),
+        # losses
+        ("binary_cross_entropy_with_logits",
+         F.binary_cross_entropy_with_logits, [x, (x > 0).astype(np.float32)]),
+        ("cosine_embedding_loss", F.cosine_embedding_loss,
+         [f32(4, 5), f32(4, 5), np.array([1, -1, 1, -1])]),
+        ("ctc_loss", F.ctc_loss, [f32(6, 2, 5), np.array([[1, 2, 2],
+                                                          [3, 1, 0]]),
+                                  np.array([6, 5]), np.array([3, 2])]),
+        ("hinge_embedding_loss", F.hinge_embedding_loss, [f32(6), sgn]),
+        ("kl_div", F.kl_div, [np.log(p01), f32(4, 3, lo=0.1, hi=0.9)]),
+        ("l1_loss", F.l1_loss, [x, f32(4, 6)]),
+        ("log_loss", F.log_loss, [p01, (p01 > 0.5).astype(np.float32)]),
+        ("margin_ranking_loss", F.margin_ranking_loss,
+         [f32(6), f32(6), sgn]),
+        ("mse_loss", F.mse_loss, [x, f32(4, 6)]),
+        ("nll_loss", F.nll_loss, [np.log(p01), np.array([0, 2, 1, 1])]),
+        ("sigmoid_focal_loss", F.sigmoid_focal_loss,
+         [x, (x > 0).astype(np.float32)]),
+        ("smooth_l1_loss", F.smooth_l1_loss, [x, f32(4, 6)]),
+        ("square_error_cost", F.square_error_cost, [x, f32(4, 6)]),
+        ("triplet_margin_loss", F.triplet_margin_loss,
+         [f32(4, 5), f32(4, 5), f32(4, 5)]),
+        # extra
+        ("adaptive_avg_pool3d", lambda t: F.adaptive_avg_pool3d(t, 2),
+         [f32(1, 2, 5, 6, 4)]),
+        ("adaptive_log_softmax_with_loss",
+         lambda a, y, w, b: F.adaptive_log_softmax_with_loss(
+             a, y, w, b, None, [2, 4]),
+         [f32(4, 6), np.array([1, 0, 4, 2]), f32(6, 5), f32(5)]),
+        ("adaptive_max_pool3d", lambda t: F.adaptive_max_pool3d(t, [2, 3, 2]),
+         [f32(1, 2, 5, 6, 4)]),
+        ("affine_grid", lambda t: F.affine_grid(t, [2, 3, 4, 5]),
+         [f32(2, 2, 3)]),
+        ("dice_loss", F.dice_loss, [f32(3, 4, 5, lo=0.0, hi=1.0),
+                                    ints(3, 4, 1)]),
+        ("feature_alpha_dropout_raw", lambda t: ex._feature_alpha(t, 0.3,
+                                                                  key),
+         [x4]),
+        ("gather_tree", F.gather_tree, [ints(3, 2, 2, hi=9),
+                                        ints(3, 2, 2, hi=2)]),
+        ("gaussian_nll_loss", F.gaussian_nll_loss,
+         [x, f32(4, 6), f32(4, 6, lo=0.1, hi=2.0)]),
+        ("grid_sample", F.grid_sample, [x4, f32(2, 3, 5, 2, lo=-1.2,
+                                                hi=1.2)]),
+        ("hsigmoid_loss", lambda a, y, w, b: F.hsigmoid_loss(a, y, 6, w, b),
+         [f32(4, 6), np.array([0, 3, 5, 2]), f32(5, 6), f32(5)]),
+        ("lp_pool_nd", lambda t: F.lp_pool2d(t, 3, 2), [x4]),
+        ("margin_cross_entropy", lambda a, y: F.margin_cross_entropy(
+            a, y, scale=8.0, return_softmax=True),
+         [f32(4, 5, lo=-0.9, hi=0.9), np.array([1, 0, 4, 2])]),
+        ("max_unpool_nd", lambda t, i: F.max_unpool2d(t, i, 2),
+         [f32(1, 2, 3, 3), unpool]),
+        ("multi_label_soft_margin_loss", F.multi_label_soft_margin_loss,
+         [p01, (p01 > 0.5).astype(np.float32)]),
+        ("multi_margin_loss", F.multi_margin_loss,
+         [f32(4, 5), np.array([1, 0, 4, 2])]),
+        ("npair_loss", F.npair_loss, [f32(4, 5), f32(4, 5),
+                                      np.array([0, 1, 0, 2])]),
+        ("pairwise_distance", F.pairwise_distance, [f32(4, 5), f32(4, 5)]),
+        ("poisson_nll_loss", F.poisson_nll_loss, [x, f32(4, 6, lo=0, hi=3)]),
+        ("rnnt_loss", F.rnnt_loss, [f32(2, 4, 3, 5), np.array([[1, 2],
+                                                                [3, 0]]),
+                                    np.array([4, 3]), np.array([2, 1])]),
+        ("sequence_mask", lambda t: F.sequence_mask(t, 6), [ints(5, hi=6)]),
+        ("soft_margin_loss", F.soft_margin_loss, [f32(6), sgn]),
+        ("temporal_shift", lambda t: F.temporal_shift(t, 2),
+         [f32(4, 8, 2, 2)]),
+        ("triplet_margin_with_distance_loss",
+         F.triplet_margin_with_distance_loss,
+         [f32(4, 5), f32(4, 5), f32(4, 5)]),
+        # norms
+        ("group_norm", lambda t, w, b: F.group_norm(t, 4, 1e-5, w, b),
+         [x4, f32(8), f32(8)]),
+        ("instance_norm", lambda t, w, b: nm._instance_norm_ref(t, w, b),
+         [x4, f32(8), f32(8)]),
+        ("local_response_norm", lambda t: F.local_response_norm(t, 3), [x4]),
+        ("rms_norm", F.rms_norm, [x, f32(6)]),
+        # recurrent
+        ("rnn_scan", lambda t, h, c, *w: rnn._rnn_scan(
+            t, h, c, (tuple(w[:4]), tuple(w[4:])), "LSTM", 1, True, "tanh"),
+         [f32(3, 5, 6), f32(2, 3, 4), f32(2, 3, 4), *lw, *lw[::1]]),
+        ("lstm_cell", lambda t, h, c, *w: rnn._lstm_cell_op(t, h, c, *w),
+         [f32(3, 6), f32(3, 4), f32(3, 4), *lw]),
+        ("gru_cell", lambda t, h, *w: rnn._gru_cell_op(t, h, *w),
+         [f32(3, 6), f32(3, 4), *gw]),
+        ("simple_rnn_cell", lambda t, h, *w: rnn._simple_cell_op(
+            t, h, *w, "tanh"), [f32(3, 6), f32(3, 4), *sw]),
+        # sampling and serving attention
+        ("sample_greedy", F.sample_greedy, [f32(4, 50)]),
+        ("sample_categorical", lambda a, u: F.sample_categorical(
+            a, u, 0.8, 5, 0.9), [f32(4, 50), f32(4, lo=0.0, hi=1.0)]),
+        ("paged_prefill_attention", lambda q, k, v: at._paged_prefill_op(
+            q, k, v, 0.125), [f32(2, 6, 4, 8), f32(2, 6, 2, 8),
+                              f32(2, 6, 2, 8)]),
+        ("paged_decode_attention", lambda q, k, v, p: at._paged_decode_op(
+            q, k, v, p, 0.125), [f32(2, 4, 8), f32(2, 9, 2, 8),
+                                 f32(2, 9, 2, 8), np.array([3, 8])]),
+        ("decode_attn_proj", lambda q, kp, vp, pos, tab, w, b:
+         ml._decode_attn_proj_op(q, kp, vp, pos, tab, w, b, bs, d ** -0.5),
+         [f32(nh, d), f32(8 * bs + 1, kvh, d), f32(8 * bs + 1, kvh, d),
+          np.array([40], np.int32), np.array([5, 2, 7, 0], np.int32),
+          f32(nh * d, ho, lo=-0.05, hi=0.05), f32(ho)]),
+    ]
+
+
+def lstm_card_vs_cpu(torch, paddle):
+    """nn.LSTM(512, 512, 2 layers, bidirectional) at B=64, T=128: the
+    card's forward and backward against the CPU's from one seed (outputs,
+    final states, the input's and every weight's gradient within NN_TOL of
+    each tensor's largest value); the card's ms a forward + backward."""
+    x = np.random.default_rng(57).standard_normal(
+        (LSTM_B, LSTM_T, LSTM_H)).astype(np.float32)
+    w = np.random.default_rng(58).standard_normal(
+        (LSTM_B, LSTM_T, 2 * LSTM_H)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        paddle.seed(3)
+        lstm = paddle.nn.LSTM(LSTM_H, LSTM_H, num_layers=2,
+                              direction="bidirect")
+        d = "cpu" if dev == "cpu" else "cuda"
+        xt = torch.from_numpy(x).to(d).requires_grad_(True)
+        wt = torch.from_numpy(w).to(d)
+
+        def run():
+            out, (h, c) = lstm(xt)
+            (out * wt).sum().backward()
+            return out, h, c
+
+        out, h, c = run()
+        res[dev] = [t.detach().clone() for t in
+                    [out, h, c, xt.grad] + [p.grad for p in lstm.parameters()]]
+        if dev == "gpu":
+            for p in lstm.parameters():
+                p.grad = None
+            ms = cuda_ms(lambda _: run(), [None], iters=3)
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(res["gpu"], res["cpu"])):
+        err = float((g.cpu() - r).abs().max())
+        top = float(r.abs().max())
+        check(err <= NN_TOL["float32"][0] * max(top, 1.0),
+              f"LSTM card vs CPU tensor {i}: {err} (largest {top})")
+        worst = max(worst, err / max(top, 1.0))
+    return dict(b=LSTM_B, t=LSTM_T, hidden=LSTM_H, layers=2,
+                direction="bidirect", ms_forward_backward=ms,
+                worst_relative_to_largest=worst, tolerance=NN_TOL)
+
+
+def phase_user_nn(torch):
+    """Phase 55: a user's model of paddle.nn on the card: (a) bert-base
+    width and depth through nn.Embedding → nn.TransformerEncoder →
+    nn.Linear, trained under O1 with LookAhead(AdamW) on kernels 1-3
+    (dropout variant) and 13-14; (b) the tensor checker on it; (c)
+    nn.Transformer's cross-attention at Sq != Sk; (d) every op this slice
+    registers, and a two-layer bidirectional LSTM, on the card against
+    the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place as pplace
+    t0 = time.perf_counter()
+    paddle.set_flags({"FLAGS_fused_norm": True, "FLAGS_fused_mlp": True})
+    out = user_nn_train(torch, paddle)
+    free_card(torch)
+    out["c"] = user_nn_cross(torch, paddle)
+    free_card(torch)
+    prev = pplace._CURRENT_PLACE[0]
+    worst, names = {}, []
+    try:
+        for name, fn, arrays in nn_ops_cases(torch):
+            outs = {}
+            for dev in ("cpu", "gpu"):
+                paddle.set_device(dev)
+                d = "cpu" if dev == "cpu" else "cuda"
+                ins = [torch.from_numpy(np.ascontiguousarray(a)).to(d)
+                       for a in arrays]
+                res = fn(*ins)
+                outs[dev] = list(res) if isinstance(res, (tuple, list)) \
+                    else [res]
+            check(len(outs["gpu"]) == len(outs["cpu"]),
+                  f"nn ops_vs_cpu {name}: arity")
+            worst[name] = max(_close(torch, c, r, f"{name}[{i}]",
+                                     NN_TOL["float32"])
+                              for i, (c, r) in enumerate(zip(outs["gpu"],
+                                                             outs["cpu"])))
+            names.append(name)
+        out["d"] = dict(ops=len(names), tolerance=NN_TOL,
+                        max_abs_err=worst,
+                        lstm=lstm_card_vs_cpu(torch, paddle))
+    finally:
+        pplace._CURRENT_PLACE[0] = prev
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def free_card(torch):
     """Drop what the phases before left for the collector, return the
     cached blocks and restart the peak count."""
@@ -8716,6 +9303,13 @@ def main():
     phase(54, "a Paddle user's script on the card: bert-base and resnet50 "
           "train, paddle.grad, no_grad, a second stream, save, restore, "
           "resume; a PyLayer", **phase_user_script(torch))
+    free_card(torch)
+    user_nn = phase_user_nn(torch)
+    phase(55, "a user's nn model on the card: nn.TransformerEncoder at "
+          "bert-base width trains under O1 with LookAhead(AdamW) on the "
+          "flash and LayerNorm kernels; the tensor checker; nn.Transformer "
+          "cross-attention at Sq != Sk; the nn ops and an LSTM card vs CPU",
+          **user_nn)
 
     kernels = [{
         "name": "decode_attn_proj", "route": "cuda", "source": SOURCE,
@@ -8990,6 +9584,17 @@ def main():
              "are that call's" if name != "fused_mlp_fwd" else "ms")
             + " (bf16, the wgmma route); the launches are phase 38's f32 "
               "calls (the generic route)")
+    # phase 55's user model launches kernels 1-3 (the dropout variant)
+    # and 13-14 (no residual, no dropout) a step, as user_nn_launches says
+    per_step = user_nn["a"]["launches_per_step"]
+    for entry in kernels:
+        key = {"flash_fwd_dropout": "dropout_flash_fwd",
+               "flash_dq_dropout": "dropout_flash_dq",
+               "flash_dkv_dropout": "dropout_flash_dkv",
+               "fused_ln_fwd": "fused_ln_fwd",
+               "fused_ln_bwd": "fused_ln_bwd"}.get(entry["name"])
+        if key is not None:
+            entry["user_nn_launches_per_step"] = per_step[key]
     print(card, flush=True)     # again here: the top of the log may be cut
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,10 @@ of ``ops/``, the ``Tensor`` facade (``core/tensor.py``), places
 of the eager core: ``nn.Layer`` and its containers, ``autograd`` (grad
 mode, ``grad``, ``PyLayer``, the functional transforms), ``save`` /
 ``load`` and ``device`` (streams, events, memory statistics), with all
-fourteen optimizers. The names below are the user's entry points, as
+fourteen optimizers, and the rest of ``nn`` (the transformer and
+recurrent layers, the losses, the initializers, ``nn.utils``),
+``metric``, ``incubate.optimizer`` and ``amp.debugging``'s tensor
+checker. The names below are the user's entry points, as
 ``paddle_tpu``'s are (``import paddle_tpu_torch as paddle``:
 ``paddle.to_tensor``, ``paddle.nn.Layer``, ``paddle.optimizer.AdamW``,
 ``paddle.save``, ``paddle.no_grad`` ...). A name of the reference's
@@ -52,8 +55,8 @@ from .framework import in_dynamic_mode
 from .autograd_api import (enable_grad, grad, is_grad_enabled, no_grad,
                            set_grad_enabled)
 from . import autograd_api as autograd
-from . import (amp, device, incubate, inference, models, nn, optimizer,
-               profiler, utils, vision)
+from . import (amp, device, incubate, inference, metric, models, nn,
+               optimizer, profiler, utils, vision)
 from .framework.io_api import load, save
 from .core.generator import (get_rng_state as get_cuda_rng_state,
                              set_rng_state as set_cuda_rng_state)
@@ -82,7 +85,6 @@ _NOT_PORTED = {
     **dict.fromkeys(("jit", "static", "disable_static", "enable_static"),
                     "A9"),
     **dict.fromkeys(("distributed", "DataParallel"), "A10"),
-    **dict.fromkeys(("metric", "create_parameter"), "A5b-3"),
     **dict.fromkeys(("io", "hapi", "Model", "summary", "flops", "audio",
                      "text", "sparse", "quantization", "distribution",
                      "fft", "linalg", "signal", "stft", "istft", "version",
@@ -114,6 +116,7 @@ __all__ = ["CPUPlace", "CUDAPinnedPlace", "CUDAPlace", "CustomPlace",
            "set_flags", "set_rng_state", "uint8", "unfold", "LazyGuard",
            "amp", "autograd", "device", "disable_signal_handler",
            "enable_grad", "get_cuda_rng_state", "grad", "incubate",
-           "inference", "is_grad_enabled", "load", "models", "nn", "no_grad",
+           "inference", "is_grad_enabled", "load", "metric", "models", "nn",
+           "no_grad",
            "optimizer", "profiler", "save", "set_cuda_rng_state",
            "set_grad_enabled", "utils", "vision"] + ops.__all__

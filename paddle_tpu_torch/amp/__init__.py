@@ -2,9 +2,8 @@
 
 Counterpart: ``paddle_tpu/amp/__init__.py``: ``auto_cast`` /
 ``amp_guard``, ``decorate`` / ``amp_decorate``, ``GradScaler`` /
-``AmpScaler``, the op lists and ``debugging``'s
-``collect_operator_stats``. The tensor checker and ``check_numerics`` of
-``debugging`` are ROADMAP A5b.
+``AmpScaler``, the op lists and ``debugging`` (the tensor checker,
+``check_numerics``, ``collect_operator_stats``).
 """
 import torch
 

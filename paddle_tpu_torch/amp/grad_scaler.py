@@ -6,7 +6,8 @@ Counterpart: ``paddle_tpu/amp/grad_scaler.py``: ``OptiLevel``,
 unscaled gradient is inf or nan (parameters, accumulators and master
 weights stay as they were), ``update`` (the dynamic scale: ×decr_ratio,
 at least 1, after ``decr_every_n_nan_or_inf`` bad steps; ×incr_ratio
-after ``incr_every_n_steps`` good ones), ``minimize`` and
+after ``incr_every_n_steps`` good ones; every call advances the tensor
+checker's step count, ``amp.debugging.advance_step``), ``minimize`` and
 ``state_dict`` / ``load_state_dict``. ``step`` reads the scaler's state
 from the device once, packed (``_telemetry_read``). The state tensors
 live on the device of the first loss scaled.
@@ -111,6 +112,8 @@ class AmpScaler:
                            if found is None else found)
 
     def update(self):
+        from . import debugging
+        debugging.advance_step()    # TensorCheckerConfig.debug_step's count
         if not (self._enable and self._dynamic):
             return
         found = self._found_inf

@@ -11,9 +11,14 @@ outputs, and they are wrapped back as facades when an argument was one
 
 The reference records a tape with ``jax.vjp`` and caches eager-jitted
 programs; here torch autograd is the tape, so none of that is ported (nor
-the static-graph and symbolic hooks, A9). A cast is ``tensor.to(dtype)``,
-which autograd differentiates: the gradient flows back through it into
-the parameter's own dtype, as the reference's cast vjp does. The AMP hook
+the static-graph and symbolic hooks, A9). With ``FLAGS_check_nan_inf``
+on, the outputs go to the nan/inf check hook (:49-58) that
+``amp/debugging.py`` installs, which counts bad values on the device and
+reads once a window; without a hook each floating output is read on its
+own and a bad one raises FloatingPointError (:570-587). A cast is
+``tensor.to(dtype)``, which autograd differentiates: the gradient flows
+back through it into the parameter's own dtype, as the reference's cast
+vjp does. The AMP hook
 casts every floating tensor among the positional and keyword arguments,
 lists, tuples and dicts included, as the reference's tree flattening does
 (``amp/auto_cast.py`` installs it); with AMP off it costs one
@@ -26,11 +31,12 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from . import flags as _flags
 from .tensor import Tensor, plain_args
 
 __all__ = ["OP_REGISTRY", "OpDef", "amp_dtypes", "apply", "dispatch_stats",
            "register_op", "reset_dispatch_stats", "set_amp_hook",
-           "set_output_hook"]
+           "set_nan_check_hook", "set_output_hook"]
 
 # The AMP hook, installed by paddle_tpu_torch.amp: (opdef, args, kwargs) ->
 # (args, kwargs); and the decision it applies, (opdef) -> the dtype every
@@ -52,6 +58,30 @@ _output_hook: Optional[Callable] = None
 def set_output_hook(fn):
     global _output_hook
     _output_hook = fn
+
+
+# The batched nan/inf checker, installed by paddle_tpu_torch.amp.debugging:
+# (op_name, outputs as a list). While FLAGS_check_nan_inf is on it takes
+# the place of the per-tensor read below.
+_nan_check_hook: Optional[Callable] = None
+
+
+def set_nan_check_hook(fn):
+    global _nan_check_hook
+    _nan_check_hook = fn
+
+
+def _check_nan_inf(name, outs):
+    if _nan_check_hook is not None:
+        _nan_check_hook(name, outs)
+        return
+    for v in outs:
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            bad = int(v.numel() - torch.isfinite(v).sum())
+            if bad:
+                raise FloatingPointError(
+                    f"Operator {name} output contains {bad} NaN/Inf values "
+                    f"(FLAGS_check_nan_inf is set)")
 
 
 # calls per op name, always on (a dict lookup and an increment a call)
@@ -164,9 +194,13 @@ def apply(opdef: OpDef, *args, **kwargs):
     else:
         with torch.no_grad():
             out = opdef.fn(*args, **kwargs)
-    if _output_hook is not None:
-        _output_hook(opdef.name,
-                     list(out) if isinstance(out, (tuple, list)) else [out])
+    check = _flags.get_flag("check_nan_inf")
+    if _output_hook is not None or check:
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        if _output_hook is not None:
+            _output_hook(opdef.name, outs)
+        if check:
+            _check_nan_inf(opdef.name, outs)
     return _wrap(out, *given) if facade else out
 
 

@@ -12,7 +12,10 @@ picks key its dropout masks by the tile they give
 keys the masks and nothing else, the CUDA kernels' tiles being their
 own. The TPU's block-size sweep flags (``FLAGS_flash_block*``,
 ``FLAGS_mlp_block_*``) and the interpret-mode flags are not ported: they
-tune or test Pallas kernels.
+tune or test Pallas kernels. ``FLAGS_check_nan_inf``,
+``FLAGS_check_nan_inf_level`` and ``FLAGS_check_nan_inf_flush`` (the
+reference's :79-80, :206) arm the eager nan/inf check of every
+registered op's outputs (``core/dispatch.py``, ``amp/debugging.py``).
 """
 from __future__ import annotations
 
@@ -112,3 +115,12 @@ define_flag("kernel_tuning", True,
             "heuristics. In the port the picks key the dropout masks "
             "only: the masks then equal the reference's at its default "
             "flags")
+define_flag("check_nan_inf", False, "check outputs of every op for NaN/Inf")
+define_flag("check_nan_inf_level", 0,
+            "0: abort on nan/inf; 3: print stats only")
+define_flag("check_nan_inf_flush", 64,
+            "eager nan/inf checker flush window (ops per device read). The "
+            "batched checker (amp/debugging.py) folds every op's badness "
+            "count into ONE device accumulator and syncs once per window, "
+            "never per tensor. 1 reads after every op, for pinpoint "
+            "debugging")

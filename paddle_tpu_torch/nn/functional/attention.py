@@ -2,7 +2,9 @@
 
 Counterpart: ``paddle_tpu/nn/functional/attention.py``:
 ``paged_attention_math`` (:106), the one arithmetic the serving prefill,
-the no-cache forward and the composite decode step share, the dense
+the no-cache forward and the composite decode step share, and its
+registered forms ``paged_prefill_attention`` and
+``paged_decode_attention`` (:147-169, white), the dense
 ``_sdpa_ref`` (:26-60), ``last_attn_path`` / ``reset_last_attn_path``
 (:172-186), ``_is_key_padding_mask`` (:189), the flash routes
 ``_flash_op`` (:65-69) and ``_flash_masked_op`` (:73-103) and
@@ -181,6 +183,24 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     _LAST_PATH = "ref"
     return _sdpa_ref(query, key, value, attn_mask, bool(is_causal),
                      dropout_key=dk, dropout_p=p)
+
+
+@register_op("paged_prefill_attention", amp="white")
+def _paged_prefill_op(query, key, value, scale):
+    """Serving prefill attention over [B, S, NH, D] q and [B, S, KVH, D]
+    k/v (:147-157): causal within the padded prefix, pos_ids = arange(S)."""
+    B, S = query.shape[0], query.shape[1]
+    pos = torch.arange(S, device=query.device)[None, :].expand(B, S)
+    return paged_attention_math(query, key, value, pos, scale)
+
+
+@register_op("paged_decode_attention", amp="white")
+def _paged_decode_op(query, key_ctx, value_ctx, positions, scale):
+    """Serving decode attention (:160-169): query [B, NH, D] over the
+    gathered context [B, CTX, KVH, D], each token attending up to its
+    absolute position ``positions`` [B]."""
+    return paged_attention_math(query[:, None], key_ctx, value_ctx,
+                                positions[:, None], scale)[:, 0]
 
 
 def paged_attention_math(q, k, v, pos_ids, scale):

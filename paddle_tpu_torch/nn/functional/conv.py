@@ -9,7 +9,8 @@ reference casts it. Symmetric padding goes to the call; asymmetric and
 nested padding goes through ``torch.nn.functional.pad`` first (a negative
 pad crops, as XLA's does); ``"SAME"`` and ``"VALID"`` are reckoned as XLA
 reckons them. The channels-last layout, and conv1d, conv3d and the
-transposed convolutions, are ROADMAP A11.
+transposed convolutions, are ROADMAP A11: they are registered under the
+reference's names and category and raise naming it.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch.nn.functional as F
 
 from ...core.dispatch import register_op
 
-__all__ = ["conv2d"]
+__all__ = ["conv1d", "conv1d_transpose", "conv2d", "conv2d_transpose",
+           "conv3d", "conv3d_transpose"]
 
 
 def _pair(v, n):
@@ -92,3 +94,15 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     if all(lo == hi >= 0 for lo, hi in pads):
         return F.conv2d(x, w, b, s, tuple(lo for lo, _ in pads), d, groups)
     return F.conv2d(F.pad(x, _torch_pad(pads)), w, b, s, 0, d, groups)
+
+
+def _a11(name):
+    from .._not_ported import functional
+    return functional(name, "A11", __name__, op=name, amp="white")
+
+
+conv1d = _a11("conv1d")
+conv1d_transpose = _a11("conv1d_transpose")
+conv2d_transpose = _a11("conv2d_transpose")
+conv3d = _a11("conv3d")
+conv3d_transpose = _a11("conv3d_transpose")

@@ -1,14 +1,15 @@
 """Input functionals.
 
 Counterpart: ``paddle_tpu/nn/functional/input.py``: ``embedding`` (:11,
-a registered promote op) and ``one_hot`` (:8, the re-export of
-``paddle_tpu/ops/manipulation.py:592``).
+a registered promote op) and ``one_hot`` (:8, the re-export of the registered op of
+``ops/manipulation.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from ...core.dispatch import register_op
+from ...ops.manipulation import one_hot  # the registered op, as re-exported
 
 __all__ = ["embedding", "one_hot"]
 
@@ -22,11 +23,3 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     if padding_idx is not None and padding_idx >= 0:
         out = out * (x != padding_idx).unsqueeze(-1).to(out.dtype)
     return out
-
-
-def one_hot(x, num_classes, name=None):
-    """x [...] int → [..., num_classes] float32, as ``jax.nn.one_hot``
-    gives it: an index outside [0, num_classes) gives a row of zeros."""
-    n = int(num_classes)
-    classes = torch.arange(n, device=x.device)
-    return (x.unsqueeze(-1) == classes).to(torch.float32)

@@ -24,7 +24,9 @@ route is ``linear`` → ``norm._adln_routed``, itself behind
 ``FLAGS_fused_norm``.
 
 The kernel ops are registered white under the reference's names
-(``fused_mlp``, ``fused_swiglu``, ``fused_attn_proj_ln``); the dense
+(``fused_mlp``, ``fused_swiglu``, ``fused_attn_proj_ln`` and the serving
+decode's ``decode_attn_proj``, :142, not differentiable; the engine calls
+the decode kernel's wrapper itself); the dense
 routes compose the registered ``linear``, ``gelu`` / ``silu`` and
 ``dropout_raw``, as the reference's do. A route is chosen on the dtypes
 its op will see after the AMP cast (``amp_dtypes``).
@@ -90,6 +92,17 @@ def _warn_dense(reason):
     if not _DENSE_FALLBACK_WARNED:
         _DENSE_FALLBACK_WARNED = True
         warnings.warn("fused_mlp: taking the dense path: " + reason)
+
+
+@register_op("decode_attn_proj", amp="white", differentiable=False)
+def _decode_attn_proj_op(q, k_pool, v_pool, position, block_table, proj_w,
+                         proj_b, block_size, scale):
+    """The B=1 serving decode core: paged attention → output projection
+    in one kernel (``kernels/mlp_fusion.py`` ``decode_attn_proj``)."""
+    from ...kernels.mlp_fusion import decode_attn_proj
+    return decode_attn_proj(q, k_pool, v_pool, position, block_table,
+                            proj_w, proj_b, block_size=block_size,
+                            scale=scale)
 
 
 @register_op("fused_mlp", amp="white")

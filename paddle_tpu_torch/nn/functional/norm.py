@@ -6,8 +6,9 @@ dense route (:61-69), the dense ``_bn_infer`` (:76), ``_bn_train`` (:92)
 and ``_layer_norm_ref`` (:109), ``layer_norm`` (:190),
 ``fused_bias_dropout_residual_layer_norm`` (:219) with its routing body
 ``_adln_routed`` (:244), ``_apply_epilogue`` (:273), ``batch_norm_act``
-(:282), ``batch_norm`` (:351) and ``rms_norm`` (:467-475), the LLaMA
-norm.
+(:282), ``batch_norm`` (:351), ``instance_norm`` (:373-439),
+``group_norm`` (:442), ``rms_norm`` (:466, the LLaMA norm, a black op as
+in the reference) and ``local_response_norm`` (:478).
 
 With ``FLAGS_fused_norm`` on (the default), ``layer_norm`` and the
 bias→residual-add→LN close take the fused route through
@@ -63,8 +64,9 @@ from .activation import relu
 from .common import _dropout_raw
 
 __all__ = ["batch_norm", "batch_norm_act",
-           "fused_bias_dropout_residual_layer_norm", "last_norm_path",
-           "layer_norm", "reset_last_norm_path", "rms_norm"]
+           "fused_bias_dropout_residual_layer_norm", "group_norm",
+           "instance_norm", "last_norm_path", "layer_norm",
+           "local_response_norm", "reset_last_norm_path", "rms_norm"]
 
 _LAST_PATH = None
 _DENSE_FALLBACK_WARNED = False
@@ -337,6 +339,97 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                           use_global_stats, None, None, name)
 
 
+_CHANNEL_FORMATS = ("NCL", "NCHW", "NCDHW", "NLC", "NHWC", "NDHWC", "NC")
+
+
+def _check_data_format(where, data_format):
+    if data_format not in _CHANNEL_FORMATS:
+        raise ValueError(
+            f"{where}: data_format must be one of {_CHANNEL_FORMATS}, "
+            f"got {data_format!r}")
+
+
+@register_op("instance_norm", amp="black")
+def _instance_norm_ref(x, weight=None, bias=None, eps=1e-5,
+                       data_format="NCHW"):
+    """(x − mean) / sqrt(var + ε) over each instance's spatial axes, then
+    the per-channel weight and bias."""
+    ch_axis = 1 if data_format.startswith("NC") else x.ndim - 1
+    axes = (tuple(range(2, x.ndim)) if ch_axis == 1
+            else tuple(range(1, x.ndim - 1)))
+    mean = x.mean(axes, keepdim=True)
+    var = x.var(axes, unbiased=False, keepdim=True)
+    out = (x - mean) / torch.sqrt(var + eps)
+    shape = _chan_shape(x, ch_axis)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    """Instance normalisation. With ``use_input_stats`` (the default) each
+    instance's own statistics normalise, and running statistics, when
+    given, take ``momentum·running + (1 − momentum)·(the batch mean of
+    the instance statistics)``; without it the given running statistics
+    normalise per channel."""
+    _check_data_format("instance_norm", data_format)
+    if (running_mean is None) != (running_var is None):
+        raise ValueError(
+            "instance_norm: running_mean and running_var must be provided "
+            "together")
+    ch_axis = 1 if data_format.startswith("NC") else x.ndim - 1
+    if not use_input_stats:
+        if running_mean is None:
+            raise ValueError(
+                "instance_norm: use_input_stats=False requires "
+                "running_mean and running_var")
+        return _bn_infer(x, running_mean, running_var, weight, bias,
+                         float(eps), ch_axis)
+    out = _instance_norm_ref(x, weight, bias, float(eps), data_format)
+    if running_mean is not None:
+        if not (isinstance(running_mean, torch.Tensor)
+                and isinstance(running_var, torch.Tensor)):
+            raise ValueError(
+                "instance_norm: running stats must be Tensors to receive "
+                "the EMA update (use_input_stats=True)")
+        axes = tuple(i for i in range(x.ndim) if i not in (0, ch_axis))
+        m = float(momentum)
+        with torch.no_grad():
+            xd = x.detach()
+            running_mean.copy_(running_mean * m
+                               + xd.mean(axes).mean(0) * (1 - m))
+            running_var.copy_(running_var * m
+                              + xd.var(axes, unbiased=False).mean(0)
+                              * (1 - m))
+    return out
+
+
+@register_op("group_norm", amp="black")
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    last = data_format != "NCHW" and data_format.endswith("C")
+    if last:
+        x = x.movedim(-1, 1)
+    n, c = x.shape[:2]
+    spatial = tuple(x.shape[2:])
+    xg = x.reshape((n, num_groups, c // num_groups) + spatial)
+    axes = tuple(range(2, xg.ndim))
+    mean = xg.mean(axes, keepdim=True)
+    var = xg.var(axes, unbiased=False, keepdim=True)
+    out = ((xg - mean) / torch.sqrt(var + epsilon)).reshape(x.shape)
+    shape = (1, c) + (1,) * len(spatial)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out.movedim(1, -1) if last else out
+
+
+@register_op("rms_norm", amp="black")
 def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     """x / sqrt(mean(x², -1) + epsilon), then · weight. bf16 and fp16
     are normalised in f32 and cast back to x's dtype before the weight
@@ -345,3 +438,24 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     ms = xf.square().mean(-1, keepdim=True)
     out = (xf / torch.sqrt(ms + epsilon)).to(x.dtype)
     return out if weight is None else out * weight
+
+
+@register_op("local_response_norm", amp="black")
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """x / (k + α·Σ x²)^β, the sum over a window of ``size`` channels
+    (size // 2 before, the rest after)."""
+    _check_data_format("local_response_norm", data_format)
+    last = not data_format.startswith("NC")
+    if last:
+        x = x.movedim(-1, 1)
+    sq = x.square()
+    c = x.shape[1]
+    half = size // 2
+    pads = [0, 0] * (x.ndim - 2) + [half, size - half - 1]
+    padded = torch.nn.functional.pad(sq, pads)
+    acc = torch.zeros_like(x)
+    for i in range(size):
+        acc = acc + padded[:, i:i + c]
+    out = x / (k + alpha * acc) ** beta
+    return out.movedim(1, -1) if last else out

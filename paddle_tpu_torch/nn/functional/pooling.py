@@ -11,7 +11,9 @@ only.
 (which the reference accepts and ignores) are ROADMAP A11 and raise.
 ``adaptive_avg_pool2d`` uses Paddle's buckets ``[floor(i·L/O),
 ceil((i+1)·L/O))``, which ``torch.nn.functional.adaptive_avg_pool2d``
-shares; an output size of None keeps the input's.
+shares; an output size of None keeps the input's. The other pools of
+that module are ROADMAP A11: registered under the reference's names and
+category, they raise naming it.
 """
 from __future__ import annotations
 
@@ -21,7 +23,10 @@ from ...core.dispatch import register_op
 
 from .conv import _resolve_pads, _torch_pad
 
-__all__ = ["adaptive_avg_pool2d", "max_pool2d"]
+__all__ = ["adaptive_avg_pool1d", "adaptive_avg_pool2d",
+           "adaptive_max_pool1d", "adaptive_max_pool2d", "avg_pool1d",
+           "avg_pool2d", "avg_pool3d", "max_pool1d", "max_pool2d",
+           "max_pool3d"]
 
 
 def _pair(v, n):
@@ -81,3 +86,18 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     if data_format != "NCHW":
         out = out.permute(0, 2, 3, 1)
     return out
+
+
+def _a11(name):
+    from .._not_ported import functional
+    return functional(name, "A11", __name__, op=name)
+
+
+adaptive_avg_pool1d = _a11("adaptive_avg_pool1d")
+adaptive_max_pool1d = _a11("adaptive_max_pool1d")
+adaptive_max_pool2d = _a11("adaptive_max_pool2d")
+avg_pool1d = _a11("avg_pool1d")
+avg_pool2d = _a11("avg_pool2d")
+avg_pool3d = _a11("avg_pool3d")
+max_pool1d = _a11("max_pool1d")
+max_pool3d = _a11("max_pool3d")

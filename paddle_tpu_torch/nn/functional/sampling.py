@@ -17,13 +17,17 @@ contracts:
   tests/test_torch_sampling.py and tests/test_torch_dropout.py pin it.
   ``threefry2x32`` takes Python ints too (the framework generator,
   core/generator.py, splits its key on the host);
-* invalid knobs raise ValueError with the exact reference strings.
+* invalid knobs raise ValueError with the exact reference strings;
+* ``sample_greedy`` and ``sample_categorical`` are registered ops (white,
+  not differentiable), as the reference's are (:176-178).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["sample_categorical", "greedy_math",
+from ...core.dispatch import register_op
+
+__all__ = ["sample_categorical", "sample_greedy", "greedy_math",
            "categorical_math", "derive_key", "sample_token", "prng_key",
            "fold_in", "split", "random_bits", "uniform", "bernoulli",
            "threefry2x32"]
@@ -183,7 +187,12 @@ def sample_token(logits_row, seed, count, temperature, top_k, top_p) -> int:
 # knob-checked entry points (the reference's registered ops)
 # ---------------------------------------------------------------------------
 
-def sample_categorical(logits, u, temperature=1.0, top_k=0, top_p=1.0):
+def _sample_greedy(logits):
+    """Greedy token per lane: [B, V] (or [V]) logits → int32 argmax."""
+    return greedy_math(logits)
+
+
+def _sample_categorical(logits, u, temperature=1.0, top_k=0, top_p=1.0):
     """Seeded categorical sample: [B, V] logits + [B] uniforms → [B]
     int32 tokens. Knobs are Python scalars validated with the exact
     messages ``SamplingParams`` pins."""
@@ -207,3 +216,9 @@ def sample_categorical(logits, u, temperature=1.0, top_k=0, top_p=1.0):
         torch.full((B,), temperature, dtype=torch.float32, device=dev),
         torch.full((B,), int(top_k), dtype=torch.int32, device=dev),
         torch.full((B,), top_p, dtype=torch.float32, device=dev))
+
+
+sample_greedy = register_op("sample_greedy", amp="white",
+                            differentiable=False)(_sample_greedy)
+sample_categorical = register_op("sample_categorical", amp="white",
+                                 differentiable=False)(_sample_categorical)

@@ -1,16 +1,22 @@
-"""Counterpart: ``paddle_tpu/nn/layer/__init__.py`` (the layers ported
-so far, the ``Layer`` base and its containers)."""
-from .activation import ReLU
-from .common import Dropout, Embedding, Linear
-from .conv import Conv2D
+"""Counterpart: ``paddle_tpu/nn/layer/__init__.py``: the ``Layer`` base
+and its containers, and every layer module's classes."""
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
+from .extra import *  # noqa: F401,F403
 from .layers import (HookRemoveHelper, Layer, LayerDict, LayerList,
                      ParameterList, Sequential)
-from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
-                   LayerNorm, RMSNorm)
-from .pooling import AdaptiveAvgPool2D, MaxPool2D
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
+from .rnn import *  # noqa: F401,F403
+from .transformer import *  # noqa: F401,F403
+from . import (activation, common, conv, extra, layers, loss, norm, pooling,
+               rnn, transformer)
 
-__all__ = ["AdaptiveAvgPool2D", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "Conv2D", "Dropout", "Embedding",
-           "HookRemoveHelper", "Layer", "LayerDict", "LayerList", "LayerNorm",
-           "Linear", "MaxPool2D", "ParameterList", "RMSNorm", "ReLU",
-           "Sequential"]
+__all__ = sorted(
+    ["HookRemoveHelper", "Layer", "LayerDict", "LayerList", "ParameterList",
+     "Sequential"]
+    + activation.__all__ + common.__all__ + conv.__all__ + extra.__all__
+    + loss.__all__ + norm.__all__ + pooling.__all__ + rnn.__all__
+    + transformer.__all__)

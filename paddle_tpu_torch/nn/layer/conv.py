@@ -16,9 +16,11 @@ from torch import nn
 from ..._device import DeviceLike, resolve_device
 from ..functional.conv import conv2d
 from ..initializer import kaiming_uniform, uniform
+from .._not_ported import layer
 from .layers import Layer
 
-__all__ = ["Conv2D"]
+__all__ = ["Conv1D", "Conv1DTranspose", "Conv2D", "Conv2DTranspose", "Conv3D",
+           "Conv3DTranspose"]
 
 
 def _ntuple(v, n):
@@ -78,3 +80,11 @@ class Conv2D(_ConvNd):
     def forward(self, x):
         return conv2d(x, self.weight, self.bias, self._stride, self._padding,
                       self._dilation, self._groups, self._data_format)
+
+
+# ROADMAP A11: each raises when constructed
+Conv1D = layer("Conv1D", "A11")
+Conv1DTranspose = layer("Conv1DTranspose", "A11")
+Conv2DTranspose = layer("Conv2DTranspose", "A11")
+Conv3D = layer("Conv3D", "A11")
+Conv3DTranspose = layer("Conv3DTranspose", "A11")

@@ -39,8 +39,10 @@ Paddle's ``blocking``. torch's ``load_state_dict`` takes Paddle's
 torch as plain tensors). ``train()`` and ``eval()`` are torch's, the
 same as Paddle's. ``Layer`` has no ``__len__`` (the reference counts the
 sublayers), so a childless layer stays true in a condition; the
-containers have one. ``create_parameter`` resolves the reference's
-initializer classes and is ROADMAP A5b-3: it raises.
+containers have one. ``create_parameter`` (:103-134) resolves a
+``ParamAttr`` (its initializer, name, trainable flag and learning rate)
+and draws the parameter through ``nn/initializer``'s classes on the
+layer's device (``device=``; None: the current place).
 
 The rest is the port's own: ``load_numpy`` copies the reference's state
 dict (name → numpy array, the reference's names and layouts) into a
@@ -56,6 +58,7 @@ dict keys on.
 from __future__ import annotations
 
 import collections
+import copy
 from typing import Any, Dict
 
 import numpy as np
@@ -68,8 +71,8 @@ from ...core.tensor import Parameter as _FacadeParameter, Tensor, to_plain
 from ...utils import unique_name
 
 __all__ = ["HookRemoveHelper", "Layer", "LayerDict", "LayerList", "Parameter",
-           "ParameterList", "Sequential", "load_numpy", "name_parameters",
-           "reset_conv_bn"]
+           "ParameterList", "Sequential", "load_numpy", "make_parameter",
+           "name_parameters", "reset_conv_bn"]
 
 
 class Parameter(nn.Parameter):
@@ -80,6 +83,15 @@ class Parameter(nn.Parameter):
     trainable). ``name_parameters`` and ``ensure_name`` turn parameters
     into this class in place: the objects stay, so optimizers and tied
     weights are untouched."""
+
+    def __deepcopy__(self, memo):
+        """torch's copy, keeping the name and flags, as the reference's
+        deepcopy of a parameter keeps them."""
+        if id(self) in memo:
+            return memo[id(self)]
+        result = super().__deepcopy__(memo)
+        result.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        return result
 
     @property
     def name(self):
@@ -135,6 +147,31 @@ def name_parameters(module: nn.Module) -> nn.Module:
     return module
 
 
+def make_parameter(shape, dtype, init, is_bias, name, trainable=True,
+                   learning_rate=1.0, device=None):
+    """The reference's parameter creation (``Layer.create_parameter``,
+    ``paddle.create_parameter``): ``init`` resolved (None: Constant(0)
+    for a bias, XavierNormal otherwise) and called with the shape and
+    dtype on ``device`` (None: the current place)."""
+    from ...core.place import default_device
+    from ..initializer import Constant, Initializer, XavierNormal, \
+        _resolve_initializer
+    if init is None:
+        init = Constant(0.0) if is_bias else XavierNormal()
+    init = _resolve_initializer(init)
+    dev = _device_of(device) or default_device()
+    with torch.no_grad():
+        if isinstance(init, Initializer):
+            value = init(list(shape), dtype, dev)
+        else:   # a user's callable may hand back its own storage
+            value = _to_torch(init(list(shape), dtype)).to(dev, dtype).clone()
+    p = Parameter(to_plain(value).detach(), requires_grad=trainable)
+    p.name = name
+    p.trainable = trainable
+    p.optimize_attr = {"learning_rate": learning_rate}
+    return p
+
+
 def ensure_name(p):
     """``p`` with a name (``param_<k>`` where an ``nn.Parameter`` has
     none)."""
@@ -187,12 +224,6 @@ def load_numpy(module: nn.Module, state: Dict[str, Any]) -> nn.Module:
 # the handle of a forward hook (``remove()``): torch's, which takes the
 # reference's constructor argument (the hooks dict)
 HookRemoveHelper = RemovableHandle
-
-
-def _a5b3(what):
-    return NotImplementedError(
-        f"{what} resolves the reference's nn.initializer classes and static "
-        f"programs: ROADMAP A5b-3")
 
 
 def _is_param(value):
@@ -260,8 +291,24 @@ class Layer(nn.Module):
 
     # -- creation helpers --------------------------------------------------
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
-                         default_initializer=None):
-        raise _a5b3("Layer.create_parameter")
+                         default_initializer=None, device=None):
+        """A ``Parameter`` of ``shape`` drawn by ``attr``'s initializer,
+        else ``default_initializer``, else Constant(0) for a bias and
+        XavierNormal otherwise; named ``attr``'s name or ``<full
+        name>.w_<i>``."""
+        dt = dtypes.convert_dtype(dtype) if dtype is not None else self._dtype
+        init, name, trainable, lr = None, None, True, 1.0
+        if attr is not None and attr is not False:
+            from ...base.param_attr import ParamAttr
+            if isinstance(attr, ParamAttr):
+                init, name = attr.initializer, attr.name
+                trainable, lr = attr.trainable, attr.learning_rate
+            elif isinstance(attr, str):
+                name = attr
+        return make_parameter(
+            shape, dt, init or default_initializer, is_bias,
+            name or unique_name.generate(self._full_name + ".w"), trainable,
+            lr, device)
 
     def create_tensor(self, name=None, persistable=False, dtype=None):
         from ...core.place import default_device

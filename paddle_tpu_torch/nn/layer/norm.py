@@ -3,9 +3,11 @@
 Counterpart: ``paddle_tpu/nn/layer/norm.py``: ``_BatchNormBase`` with
 ``forward`` and ``forward_act`` (:16-63), ``BatchNorm``, ``BatchNorm1D``,
 ``BatchNorm2D`` and ``BatchNorm3D`` (:66-96), ``LayerNorm`` (:121-146)
-and ``RMSNorm`` (:149-159). ``SyncBatchNorm`` (:98) comes with the
-distributed slice (ROADMAP A10), the other norm layers with later
-slices.
+``RMSNorm`` (:149-159), ``InstanceNorm1D`` / ``2D`` / ``3D``,
+``GroupNorm`` and ``LocalResponseNorm`` (:162-227). ``SyncBatchNorm``
+(:98) comes with the distributed slice: constructing one raises naming
+ROADMAP A10. The namespace's ``SpectralNorm`` is ``layer/extra.py``'s,
+as the reference's is.
 """
 from __future__ import annotations
 
@@ -14,10 +16,13 @@ from torch import nn
 
 from ..._device import DeviceLike, resolve_device
 from ..functional.norm import batch_norm, batch_norm_act, layer_norm, rms_norm
+from ..functional.norm import group_norm, instance_norm, local_response_norm
+from ..initializer import Constant
 from .layers import Layer
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "LayerNorm", "RMSNorm"]
+           "GroupNorm", "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D",
+           "LayerNorm", "LocalResponseNorm", "RMSNorm", "SyncBatchNorm"]
 
 
 def _torch_dtype(dtype):
@@ -126,16 +131,19 @@ class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
                  bias_attr=None, name=None, *, device: DeviceLike = None,
                  dtype=torch.float32):
-        super().__init__()
+        super().__init__(dtype=_torch_dtype(dtype))
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        kw = dict(device=resolve_device(device), dtype=dtype)
-        self.weight = (None if weight_attr is False else nn.Parameter(
-            torch.ones(self._normalized_shape, **kw)))
-        self.bias = (None if bias_attr is False else nn.Parameter(
-            torch.zeros(self._normalized_shape, **kw)))
+        dev = resolve_device(device)
+        self.weight = (None if weight_attr is False else
+                       self.create_parameter(
+                           self._normalized_shape, attr=weight_attr,
+                           default_initializer=Constant(1.0), device=dev))
+        self.bias = (None if bias_attr is False else self.create_parameter(
+            self._normalized_shape, attr=bias_attr, is_bias=True,
+            device=dev))
 
     def forward(self, x):
         return layer_norm(x, self._normalized_shape, self.weight, self.bias,
@@ -160,3 +168,84 @@ class RMSNorm(Layer):
 
     def forward(self, x):
         return rms_norm(x, self.weight, self._epsilon)
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """Cross-device BatchNorm: ROADMAP A10 (the distributed slice)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "SyncBatchNorm is not ported yet (ROADMAP A10)")
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        raise NotImplementedError(
+            "SyncBatchNorm is not ported yet (ROADMAP A10)")
+
+
+class InstanceNorm1D(Layer):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 name=None, *, device: DeviceLike = None):
+        super().__init__()
+        self._epsilon = epsilon
+        self._momentum = momentum
+        self._data_format = data_format
+        dev = resolve_device(device)
+        self.scale = (None if weight_attr is False else self.create_parameter(
+            [num_features], attr=weight_attr,
+            default_initializer=Constant(1.0), device=dev))
+        self.bias = (None if bias_attr is False else self.create_parameter(
+            [num_features], attr=bias_attr, is_bias=True, device=dev))
+
+    def forward(self, x):
+        return instance_norm(x, weight=self.scale, bias=self.bias,
+                             momentum=self._momentum, eps=self._epsilon,
+                             data_format=self._data_format)
+
+
+class InstanceNorm2D(InstanceNorm1D):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device: DeviceLike = None):
+        super().__init__(num_features, epsilon, momentum, weight_attr,
+                         bias_attr, data_format, name, device=device)
+
+
+class InstanceNorm3D(InstanceNorm1D):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 name=None, *, device: DeviceLike = None):
+        super().__init__(num_features, epsilon, momentum, weight_attr,
+                         bias_attr, data_format, name, device=device)
+
+
+class GroupNorm(Layer):
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device: DeviceLike = None):
+        super().__init__()
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        self._data_format = data_format
+        dev = resolve_device(device)
+        self.weight = (None if weight_attr is False else
+                       self.create_parameter(
+                           [num_channels], attr=weight_attr,
+                           default_initializer=Constant(1.0), device=dev))
+        self.bias = (None if bias_attr is False else self.create_parameter(
+            [num_channels], attr=bias_attr, is_bias=True, device=dev))
+
+    def forward(self, x):
+        return group_norm(x, self._num_groups, self._epsilon, self.weight,
+                          self.bias, self._data_format)
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.args = (size, alpha, beta, k, data_format)
+
+    def forward(self, x):
+        return local_response_norm(x, *self.args)

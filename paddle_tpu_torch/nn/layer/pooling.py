@@ -8,9 +8,12 @@ from __future__ import annotations
 
 
 from ..functional.pooling import adaptive_avg_pool2d, max_pool2d
+from .._not_ported import layer
 from .layers import Layer
 
-__all__ = ["AdaptiveAvgPool2D", "MaxPool2D"]
+__all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveMaxPool1D",
+           "AdaptiveMaxPool2D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
+           "MaxPool1D", "MaxPool2D", "MaxPool3D"]
 
 
 class MaxPool2D(Layer):
@@ -36,3 +39,14 @@ class AdaptiveAvgPool2D(Layer):
 
     def forward(self, x):
         return adaptive_avg_pool2d(x, self.output_size, **self.kwargs)
+
+
+# ROADMAP A11: each raises when constructed
+AdaptiveAvgPool1D = layer("AdaptiveAvgPool1D", "A11")
+AdaptiveMaxPool1D = layer("AdaptiveMaxPool1D", "A11")
+AdaptiveMaxPool2D = layer("AdaptiveMaxPool2D", "A11")
+AvgPool1D = layer("AvgPool1D", "A11")
+AvgPool2D = layer("AvgPool2D", "A11")
+AvgPool3D = layer("AvgPool3D", "A11")
+MaxPool1D = layer("MaxPool1D", "A11")
+MaxPool3D = layer("MaxPool3D", "A11")

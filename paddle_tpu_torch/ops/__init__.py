@@ -36,7 +36,8 @@ from .creation import (arange, assign, clone, diag, diagflat, empty,
 from .extras import (add_n, angle, atleast_1d, atleast_2d, atleast_3d,
                      bernoulli_, block_diag, broadcast_shape, cartesian_prod,
                      cauchy_, cdist, cholesky_inverse, column_stack,
-                     combinations, complex, cond, create_tensor,
+                     combinations, complex, cond, create_parameter,
+                     create_tensor,
                      cumulative_trapezoid, diagonal_scatter, dsplit, dstack,
                      finfo, frexp, gammainc, gammaincc, gammaln, geometric_,
                      histogram_bin_edges, householder_product, hsplit, i0,

@@ -14,9 +14,10 @@ the last one repeated), ``take`` (``raise`` clamps as ``clip`` does),
 generator's threefry keys, one key per element, as ``jax.random.gamma``;
 its gradient is torch's implicit reparameterisation gradient).
 
-Not ported: ``binomial`` (it draws through ``distribution/``, which is
-not ported yet) and ``create_parameter`` (it resolves the reference's
-``nn.initializer`` classes and static-mode programs).
+``create_parameter`` (:603) draws through ``nn.initializer``'s classes
+as ``Layer.create_parameter`` does; the reference's static-mode
+registration is A9's. Not ported: ``binomial`` (it draws through
+``distribution/``, which is not ported yet).
 """
 from __future__ import annotations
 
@@ -787,3 +788,15 @@ def tolist(x):
     x = to_plain(x)
     return x.tolist() if isinstance(x, torch.Tensor) else list(x)
 
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """``paddle.create_parameter``: a trainable parameter drawn by
+    ``default_initializer`` (None: Constant(0) for a bias, XavierNormal
+    otherwise) on the current place."""
+    from ..nn.layer.layers import make_parameter
+    from ..utils import unique_name
+    return make_parameter(shape, dtypes.convert_dtype(dtype),
+                          default_initializer, is_bias,
+                          name or unique_name.generate("create_parameter"))

@@ -252,8 +252,8 @@ def test_parameters_and_containers():
     assert [n for n, _ in layer.named_parameters()] == ["w", "v"]
     with pytest.raises(TypeError, match="requires a Parameter"):
         layer.add_parameter("x", torch.ones(2))
-    with pytest.raises(NotImplementedError, match="A5b-3"):
-        layer.create_parameter([2, 2])
+    made = layer.create_parameter([2, 2], device="cpu")
+    assert made.name == layer.full_name() + ".w_0" and not made.stop_gradient
     plist = nn.ParameterList([w]).append(layer.v)
     assert len(plist) == 2 and plist[1] is layer.v
     seq = nn.Sequential(("a", nn.Linear(2, 2, device="cpu")),
